@@ -1,0 +1,111 @@
+"""Host-side mesh -> graph construction (numpy).
+
+Copies of graph_physics_tpu/core/mesh.py:faces_to_edges, edge_features
+and build_mesh_graph, taking the numpy paths (the JAX package's optional
+``native/`` library gives the same output order).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from graph_physics_tpu_torch.core import padding
+from graph_physics_tpu_torch.core.graph import PAD_NODE_TYPE, MeshGraph
+
+
+def tetra_to_faces(tets: np.ndarray) -> np.ndarray:
+    """Expand [C, 4] tetrahedra into their 4 triangular faces [4C, 3]
+    (copy of graph_physics_tpu/core/mesh.py:tetra_to_faces)."""
+    t = np.asarray(tets)
+    return np.concatenate(
+        [t[:, [0, 1, 2]], t[:, [0, 1, 3]], t[:, [0, 2, 3]], t[:, [1, 2, 3]]], axis=0
+    )
+
+
+def faces_to_edges(faces: np.ndarray, num_nodes: int) -> np.ndarray:
+    """Unique undirected edges (both directions) from simplex cells.
+
+    Copy of graph_physics_tpu/core/mesh.py:faces_to_edges (numpy path).
+    Returns int32 [2, E], sorted by receiver then sender, no self-loops.
+    """
+    faces = np.asarray(faces, dtype=np.int64)
+    if faces.shape[-1] not in (3, 4):
+        raise ValueError(f"cells must be [C,3] or [C,4], got {faces.shape}")
+    if faces.shape[-1] == 4:
+        faces = tetra_to_faces(faces)
+    e = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]], axis=0)
+    lo = np.minimum(e[:, 0], e[:, 1])
+    hi = np.maximum(e[:, 0], e[:, 1])
+    keep = lo != hi
+    lo, hi = lo[keep], hi[keep]
+    key = lo * num_nodes + hi
+    _, first = np.unique(key, return_index=True)
+    lo, hi = lo[first], hi[first]
+    send = np.concatenate([lo, hi])
+    recv = np.concatenate([hi, lo])
+    order = np.lexsort((send, recv))
+    return np.stack([send[order], recv[order]]).astype(np.int32)
+
+
+def edge_features(pos: np.ndarray, senders: np.ndarray, receivers: np.ndarray) -> np.ndarray:
+    """Per-edge [pos_send - pos_recv, |pos_send - pos_recv|] features
+    (copy of graph_physics_tpu/core/mesh.py:edge_features)."""
+    d = pos[senders] - pos[receivers]
+    n = np.linalg.norm(d, axis=-1, keepdims=True)
+    return np.concatenate([d, n], axis=-1).astype(np.float32)
+
+
+def build_mesh_graph(
+    x: np.ndarray,
+    pos: np.ndarray,
+    node_type: np.ndarray,
+    edge_index: np.ndarray,
+    y: Optional[np.ndarray] = None,
+    n_pad: Optional[int] = None,
+    e_pad: Optional[int] = None,
+) -> MeshGraph:
+    """Assemble a padded host MeshGraph (numpy arrays).
+
+    Copy of graph_physics_tpu/core/mesh.py:build_mesh_graph for the fields
+    the port carries: edges are stably sorted by receiver, padding rows
+    are zero with PAD_NODE_TYPE, padded edges point 0 -> n_pad-1 with
+    edge_mask False.
+    """
+    n = x.shape[0]
+    e = edge_index.shape[1]
+    n_pad = n_pad or padding.bucket_size(n)
+    e_pad = e_pad or padding.bucket_size(e)
+
+    order = np.argsort(edge_index[1], kind="stable")
+    edge_index = edge_index[:, order]
+
+    node_mask = np.zeros(n_pad, dtype=bool)
+    node_mask[:n] = True
+    edge_mask = np.zeros(e_pad, dtype=bool)
+    edge_mask[:e] = True
+
+    nt = padding.pad_axis(
+        np.asarray(node_type, dtype=np.int32).reshape(-1), n_pad, fill=PAD_NODE_TYPE
+    )
+    ea = edge_features(np.asarray(pos), edge_index[0], edge_index[1])
+    ea = padding.pad_axis(ea, e_pad)
+
+    def pad(a):
+        if a is None:
+            return None
+        return padding.pad_axis(np.asarray(a, dtype=np.float32), n_pad)
+
+    return MeshGraph(
+        x=pad(x),
+        pos=pad(pos),
+        node_type=nt,
+        node_mask=node_mask,
+        senders=padding.pad_axis(edge_index[0].astype(np.int32), e_pad),
+        receivers=padding.pad_axis(edge_index[1].astype(np.int32), e_pad, fill=n_pad - 1),
+        edge_mask=edge_mask,
+        edge_attr=ea,
+        y=pad(y),
+        n_node=n,
+    )
