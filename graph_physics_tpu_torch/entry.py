@@ -1,20 +1,23 @@
-"""Cylinder ``epd`` inference setup of the port.
+"""Cylinder ``epd`` setups of the port: inference and training.
 
-Counterpart of __graft_entry__._cylinder_setup / entry for inference:
-``cylinder_setup`` builds the slice, ``setup.simulator.forward(setup.graph)``
-runs it. The slice is the 48x40 synthetic cylinder mesh (1,920 nodes,
+Counterpart of __graft_entry__._cylinder_setup / entry:
+``cylinder_setup`` builds the inference slice,
+``setup.simulator.forward(setup.graph)`` runs it; ``cylinder_train_setup``
+adds bench.py's optimizer, noise and loss, and
+``setup.train_step(setup.state, setup.graph, generator)`` takes one step.
+The slice is the 48x40 synthetic cylinder mesh (1,920 nodes,
 ~11.2k directed edges), its NK slot layout (K=6 slots x 1,920
 receivers), a packed batch of B frames on a device, and the reference
 cylinder model (epd, 5 GraphNetBlocks, hidden 32, relu MLPs with an
 RMSNorm tail, 2-D velocity, bf16 compute) with weights drawn from a
-seed. Normalizer statistics are accumulated over the batch, standing in
-for a checkpoint's state.
+seed. For inference, normalizer statistics are accumulated over the
+batch, standing in for a checkpoint's state; training starts them empty.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +29,15 @@ from graph_physics_tpu_torch.models.layers import reset_parameters
 from graph_physics_tpu_torch.models.processors import EncodeProcessDecode
 from graph_physics_tpu_torch.models.simulator import Simulator
 from graph_physics_tpu_torch.ops.tiling import NKTiling, apply_to_graph_nk, build_nk_tiling
+from graph_physics_tpu_torch.training.loss import l2_loss
 from graph_physics_tpu_torch.training.packed import pack, stack
+from graph_physics_tpu_torch.training.schedule import make_optimizer
+from graph_physics_tpu_torch.training.step import (
+    NoiseConfig,
+    TrainState,
+    init_train_state,
+    make_train_step,
+)
 
 NODE_INPUT = 2 + 9  # velocity + one-hot node type
 EDGE_INPUT = 3  # [Δpos, |Δpos|]
@@ -81,8 +92,10 @@ def cylinder_setup(
     nk: bool = True,
     seed: int = 0,
     num_steps: int = 3,
+    accumulate_stats: bool = True,
 ) -> CylinderSetup:
-    """Model, Simulator and packed batch of B copies of frame 0 on ``device``."""
+    """Model, Simulator and packed batch of B copies of frame 0 on ``device``;
+    ``accumulate_stats`` folds the batch into the normalizer statistics."""
     traj = synthetic.make_trajectory(nx, ny, num_steps=num_steps)
     g = frame_graph(traj, 0)
     tiling = None
@@ -93,9 +106,41 @@ def cylinder_setup(
         g = apply_to_graph_nk(g, tiling)
     graph = MeshGraph.from_numpy(pack(stack([g] * batch)), device)
     sim = make_simulator(hidden, mp_steps, dtype, tiling, seed).to(device)
-    sim.prepare(graph, is_training=True)  # accumulate normalizer statistics
+    if accumulate_stats:
+        sim.prepare(graph, is_training=True)
     return CylinderSetup(simulator=sim, graph=graph, tiling=tiling, trajectory=traj,
                          template=g)
+
+
+#: bench.py's training configuration (__graft_entry__._cylinder_setup :97-99)
+LEARNING_RATE, WARMUP, NUM_STEPS = 1e-3, 100, 10000
+NOISE = NoiseConfig(starts=(0,), ends=(2,), scales=(0.02,))
+
+
+@dataclass
+class CylinderTrainSetup:
+    simulator: Simulator
+    graph: MeshGraph  # packed [N, B, F] batch on the device
+    tiling: Optional[NKTiling]
+    state: TrainState
+    train_step: Callable
+
+
+def make_trainer(sim: Simulator) -> Tuple[TrainState, Callable]:
+    """A fresh train state and bench.py's train step for ``sim``: AdamW
+    (lr 1e-3, warmup 100 of 10,000 steps), noise σ=0.02 on the velocity
+    columns and the masked L2 loss."""
+    opt = make_optimizer(LEARNING_RATE, warmup=WARMUP, num_steps=NUM_STEPS)
+    return init_train_state(sim, opt), make_train_step(sim, l2_loss, NOISE, num_steps=NUM_STEPS)
+
+
+def cylinder_train_setup(device, *, batch: int = 128, seed: int = 0, **kw) -> CylinderTrainSetup:
+    """``cylinder_setup`` with fresh normalizer statistics and
+    :func:`make_trainer`'s training step. ``kw`` goes to ``cylinder_setup``."""
+    base = cylinder_setup(device, batch=batch, seed=seed, accumulate_stats=False, **kw)
+    state, step = make_trainer(base.simulator)
+    return CylinderTrainSetup(simulator=base.simulator, graph=base.graph, tiling=base.tiling,
+                              state=state, train_step=step)
 
 
 def rollout_frames(setup: CylinderSetup, starts: Sequence[int], steps: int) -> MeshGraph:

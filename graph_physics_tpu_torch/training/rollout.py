@@ -22,9 +22,7 @@ import torch
 from graph_physics_tpu_torch.core.graph import MeshGraph
 from graph_physics_tpu_torch.core.nodetype import NodeType
 from graph_physics_tpu_torch.models.simulator import Simulator
-
-#: node types included in the loss (training/loss.py:DEFAULT_MASK_TYPES)
-DEFAULT_MASK_TYPES = (int(NodeType.NORMAL), int(NodeType.OUTFLOW))
+from graph_physics_tpu_torch.training.loss import DEFAULT_MASK_TYPES, node_loss_mask
 
 
 @dataclass
@@ -43,15 +41,6 @@ def bc_mask(graph: MeshGraph) -> torch.Tensor:
     (rollout.py:bc_mask). Padding rows land in the mask too."""
     t = graph.node_type
     return ~((t == int(NodeType.NORMAL)) | (t == int(NodeType.OUTFLOW)))
-
-
-def node_loss_mask(graph: MeshGraph, mask_types: Sequence[int] = DEFAULT_MASK_TYPES
-                   ) -> torch.Tensor:
-    """[N] bool — valid nodes of the loss types (loss.py:node_loss_mask)."""
-    m = torch.zeros_like(graph.node_mask)
-    for mt in mask_types:
-        m = m | (graph.node_type == mt)
-    return m & graph.node_mask
 
 
 def _rows(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
