@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's cylinder inference and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the cylinder
+``epd`` inference and training paths and the graph-transformer inference
+path.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
-  2. build: nvcc builds the NK GraphNetBlock forward and backward kernels
-     from csrc/, one process per source, both at once;
+  2. build: nvcc builds every kernel of the port from csrc/ (NK
+     GraphNetBlock forward and backward, NK edge attention, gated FFN),
+     one process per source, all at once;
   3. kernel check: each forward variant (folded encoder, middle block,
      last block) against its plain PyTorch version at the slice's shape
      (1,920 nodes x 128 samples x hidden 32, K=6 slots), same bf16 inputs;
@@ -22,8 +25,21 @@ Phases (any failure raises, so the exit code is non-zero):
      and 5 backward launches a step, against the same steps on the plain
      path from the same weights and noise;
   8. timing: CUDA-event medians of kernel and plain versions, blocks,
-     forward and train step.
-The last two lines are the kernels' JSON record and the device JSON.
+     forward and train step;
+  9. transformer kernel checks, at the transformer slice's shape (1,920
+     nodes x 64 samples, hidden 64, 4 heads of 16, K=6): the NK edge
+     attention against its plain version on random bf16 q, k, v (and
+     exact zeros where a receiver has no valid slot), the gated FFN
+     against its plain version with block 0's weights;
+ 10. transformer slice: the B=64 packed eval forward of the 10-block
+     transformer through the kernel path (each kernel once per block)
+     against the plain path, then 8 windows x 50 steps of rollout on both
+     paths;
+ 11. transformer timing: both kernels, their plain versions and the
+     library's masked attention, one middle block and the forward on
+     both paths.
+Before the device JSON, the last line, come the card's name and the
+kernels' JSON record (launches on the main paths, errors, times, bounds).
 It imports nothing of JAX.
 """
 
@@ -57,21 +73,40 @@ STEP1_GRAD_REL = 0.04
 #: loss on steps 2..20, kernel path vs plain path, relative: 10x the
 #: largest difference of the first run on the card, 9.5e-5 (PERF.md §6)
 LATER_LOSS_RTOL = 1e-3
+#: attention kernel vs plain version (tests/test_fused_edge_attention_nk.py:96-99)
+ATTN_RTOL, ATTN_ATOL = 0.03, 0.02
+#: gated-FFN kernel vs plain version, rtol = atol (tests/test_fused_ffn.py:27-30)
+FFN_TOL = 0.05
+#: transformer kernel path vs plain path, rtol = atol, valid nodes
+#: (tests/test_fused_edge_attention_nk.py:171)
+TF_SLICE_TOL = 0.1
+#: receivers per node block whose slots the empty-receiver check masks out
+EMPTY_RECEIVERS = 5
+#: the card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
+#: and dense bf16 tensor-core FLOP/s
+HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 FWD = {"name": "fused_gn_block_nk", "source": "graph_physics_tpu_torch/csrc/fused_gnblock_nk.cu",
        "replaces": "graph_physics_tpu/ops/fused_gnblock_nk.py:147"}
 BWD = {"name": "fused_gn_block_nk_backward",
        "source": "graph_physics_tpu_torch/csrc/fused_gnblock_nk_bwd.cu",
        "replaces": "graph_physics_tpu/ops/fused_gnblock_nk.py:189"}
+ATTN = {"name": "fused_edge_attention_nk",
+        "source": "graph_physics_tpu_torch/csrc/fused_edge_attention_nk.cu",
+        "replaces": "graph_physics_tpu/ops/fused_edge_attention_nk.py:476"}
+FFN = {"name": "fused_gated_ffn", "source": "graph_physics_tpu_torch/csrc/fused_ffn.cu",
+       "replaces": "graph_physics_tpu/ops/fused_ffn.py:74"}
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def compare(name, got, want, tol, rows=None):
-    """Max abs / rel error; raises unless |got - want| <= tol + tol·|want|."""
+def compare(name, got, want, rtol, rows=None, atol=None):
+    """Max abs / rel error; raises unless |got - want| <= atol + rtol·|want|
+    (atol = rtol unless given)."""
     import torch
 
+    atol = rtol if atol is None else atol
     got, want = got.float(), want.float()
     if rows is not None:
         got, want = got[rows], want[rows]
@@ -79,14 +114,41 @@ def compare(name, got, want, tol, rows=None):
         raise AssertionError(f"{name}: non-finite values")
     diff = (got - want).abs()
     max_abs = diff.max().item()
-    big = want.abs() >= tol  # where a relative error means something
+    big = want.abs() >= atol  # where a relative error means something
     max_rel = (diff[big] / want.abs()[big]).max().item() if big.any() else 0.0
-    bad = int((diff > tol + tol * want.abs()).sum())
-    log(f"  {name}: max_abs_err {max_abs:.6g} max_rel_err {max_rel:.6g} where |ref| >= {tol} "
-        f"(rtol=atol={tol}, {bad} of {diff.numel()} outside)")
+    bad = int((diff > atol + rtol * want.abs()).sum())
+    log(f"  {name}: max_abs_err {max_abs:.6g} max_rel_err {max_rel:.6g} where |ref| >= {atol} "
+        f"(rtol={rtol}, atol={atol}, {bad} of {diff.numel()} outside)")
     if bad:
-        raise AssertionError(f"{name}: {bad} values outside rtol=atol={tol}")
+        raise AssertionError(f"{name}: {bad} values outside rtol={rtol}, atol={atol}")
     return max_abs
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the HBM rate and the operations over the bf16
+    tensor-core peak (the kernels' inputs are bf16)."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / BF16_FLOPS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gn_block_work(x, e, edge_mask, blk, backward=False):
+    """(bytes, FLOPs) of one middle NK GraphNetBlock on these inputs: x and
+    e read, x_out and e_out written (bf16), the fp32 weights read, the slot
+    arrays read; the edge MLP on valid slots only, the node MLP on every
+    row. The backward also reads both cotangents, writes dx and de (bf16)
+    and fp32 weight gradients, and does three times the forward's
+    multiply-adds (recompute, input and weight gradients)."""
+    n, b, h = x.shape
+    rows = e.shape[0]
+    acts = 2 * (x.numel() + e.numel())  # bf16 bytes of x and e
+    params = sum(p.numel() for p in blk.parameters())
+    macs = (int(edge_mask.sum()) * b * sum(d.weight.numel() for d in blk.edge_block.denses)
+            + n * b * sum(d.weight.numel() for d in blk.node_block.denses))
+    if backward:
+        return 3 * acts + 8 * params + 5 * rows, 3 * 2 * macs
+    return 2 * acts + 4 * params + 5 * rows, 2 * macs
 
 
 def cuda_ms(fn, warmup=3, reps=20):
@@ -190,6 +252,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     from graph_physics_tpu_torch import entry
     from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+    from graph_physics_tpu_torch.ops import kernel_build
     from graph_physics_tpu_torch.training.rollout import make_batched_rollout_fn
     from graph_physics_tpu_torch.utils import gradcheck
 
@@ -210,11 +273,12 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    build_log = nk_ops.build()
-    libs = ", ".join(str(nk_ops.library_path(n).relative_to(ROOT)) for n in nk_ops.SOURCES)
+    build_log = kernel_build.build()
+    libs = ", ".join(str(kernel_build.library_path(n).relative_to(ROOT))
+                     for n in kernel_build.LIBRARIES)
     log(f"build: {time.perf_counter() - t0:.1f} s -> {libs}")
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if "registers" in line or "spill" in line or "error" in line or "Compiling" in line:
             log(f"  {line.strip()}")
 
     # the slice: model, NK layout, packed B=128 batch, normalizer statistics
@@ -400,18 +464,198 @@ def main():
                                 "train_step_ms": step_ms, "train_step_plain_ms": step_plain_ms,
                                 "blocks": timing, "backward_blocks": bwd_timing}))
 
+    # 9.-11. the graph transformer's inference path
+    tf_records = transformer_phases(device, card)
+
+    fwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1]))
+    bwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1], backward=True))
     log(f"card: {card}")
     log(json.dumps({"kernels": [
         dict(FWD, route="cuda", launches=infer_launches + train_launches[0],
              max_abs_err=max(errors.values()), ms=timing["middle"]["ms"],
-             plain_ms=timing["middle"]["plain_ms"]),
+             plain_ms=timing["middle"]["plain_ms"], bound_ms=fwd_bound[0],
+             bound_by=fwd_bound[1], library_ms=None),
         dict(BWD, route="cuda", launches=train_launches[1],
              max_abs_err=max(bwd_errors.values()), ms=bwd_timing["middle"]["ms"],
-             plain_ms=bwd_timing["middle"]["plain_ms"]),
+             plain_ms=bwd_timing["middle"]["plain_ms"], bound_ms=bwd_bound[0],
+             bound_by=bwd_bound[1], library_ms=None),
+        *tf_records,
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
+
+
+def transformer_phases(device, card):
+    """Phases 9-11 on the graph transformer of scripts/bench_models.py
+    (10 blocks, hidden 64, 4 heads, B=64); returns the kernels' records."""
+    import torch
+    import torch.nn.functional as F
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+    from graph_physics_tpu_torch.training.rollout import make_batched_rollout_fn
+
+    attn, attn_plain = ea_ops.fused_edge_attention_nk, ea_ops.fused_edge_attention_nk_reference
+    ffn, ffn_plain = ffn_ops.fused_gated_ffn, ffn_ops.gated_ffn_reference
+    gn = nk_ops.fused_gn_block_nk
+    setup = entry.transformer_setup(device, num_steps=ROLLOUT_WINDOWS + ROLLOUT_STEPS + 1)
+    sim, graph, nk = setup.simulator, setup.graph, setup.tiling
+    model = sim.model
+    blocks = model.processor_list
+    n, b = graph.x.shape[:2]
+    hidden = model.hidden_size
+    heads = blocks[0].attention.num_heads
+    dh = hidden // heads
+    n_blocks = len(blocks)
+    valid_slots = int(graph.edge_mask.sum())
+    log(f"transformer slice: {n} nodes x {b} samples, hidden {hidden}, {heads} heads of {dh}, "
+        f"K={nk.k_slots}, {nk.total_rows} slots ({valid_slots} edges), {n_blocks} blocks")
+
+    # 9. kernel checks at the slice's shape, same inputs for kernel and plain version
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def randn(*shape, scale=0.5):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    q, k, v = (randn(n, b, heads, dh) for _ in range(3))
+    args = (q, k, v, graph.senders, graph.edge_mask, nk)
+    blk0 = blocks[0]
+    x = randn(n, b, hidden, scale=1.0)
+    ffn_args = (x, blk0.gated_mlp, blk0.norm2)
+    with torch.inference_mode():
+        out = attn(*args)
+        torch.cuda.synchronize()
+        ref = attn_plain(*args)
+        log("attention kernel check")
+        attn_err = compare("out", out, ref, ATTN_RTOL, atol=ATTN_ATOL)
+        g_, k_, nb_ = nk.num_groups, nk.k_slots, nk.node_block
+        mask = graph.edge_mask.clone().view(g_, k_, nb_)
+        mask[:, :, :EMPTY_RECEIVERS] = False
+        mask = mask.reshape(-1).contiguous()
+        out_e = attn(q, k, v, graph.senders, mask, nk)
+        torch.cuda.synchronize()
+        ref_e = attn_plain(q, k, v, graph.senders, mask, nk)
+        attn_err = max(attn_err, compare(f"out, {EMPTY_RECEIVERS} receivers a node block "
+                                         "without a valid slot", out_e, ref_e, ATTN_RTOL,
+                                         atol=ATTN_ATOL))
+        empty = out_e.view(g_, nb_, -1)[:, :EMPTY_RECEIVERS]
+        if not torch.equal(empty, torch.zeros_like(empty)):
+            raise AssertionError("attention: a receiver without valid slots is not exactly 0")
+        log(f"  {g_ * EMPTY_RECEIVERS} receivers without a valid slot: exact zeros")
+
+        y = ffn(*ffn_args)
+        torch.cuda.synchronize()
+        y_ref = ffn_plain(*ffn_args)
+        log("gated FFN kernel check (block 0's weights)")
+        ffn_err = compare("y", y, y_ref, FFN_TOL)
+
+        # 11. (kernel part) times of the kernels, their plain versions and
+        # the library's masked attention on the same inputs: dense, with
+        # the mesh's adjacency as its boolean mask (rows: receivers)
+        attn_t = {"ms": cuda_ms(lambda: attn(*args)), "plain_ms": cuda_ms(lambda: attn_plain(*args))}
+        adj = torch.zeros((n, n), dtype=torch.bool, device=device)
+        ev = graph.edge_mask
+        adj[graph.receivers[ev].long(), graph.senders[ev].long()] = True
+        qd, kd, vd = (t.permute(1, 2, 0, 3).contiguous() for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=adj)
+
+        lib_out = library().permute(2, 0, 1, 3)
+        rows = graph.node_mask
+        lib_err = (lib_out[rows].float() - ref[rows].float()).abs().max().item()
+        attn_t["library_ms"] = cuda_ms(library)
+        ffn_t = {"ms": cuda_ms(lambda: ffn(*ffn_args)),
+                 "plain_ms": cuda_ms(lambda: ffn_plain(*ffn_args))}
+    log(f"  attention time: kernel {attn_t['ms']:.4f} ms, plain {attn_t['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention with the adjacency mask {attn_t['library_ms']:.4f} ms "
+        f"(max abs difference to the plain version {lib_err:.6g}) ({card})")
+    log(f"  gated FFN time: kernel {ffn_t['ms']:.4f} ms, plain {ffn_t['plain_ms']:.4f} ms ({card})")
+    del lib_out, qd, kd, vd, adj
+
+    # 10. slice: the B=64 forward and the rollout, kernel path, counts from 0
+    plain_sim = copy.deepcopy(sim)
+    plain_sim.model.edge_tiling_nk = None  # every block on the plain path
+    attn.launches = ffn.launches = gn.launches = gn.backward_launches = 0
+    out = sim.forward(graph, is_training=False)
+    torch.cuda.synchronize()
+    fwd_launches = (attn.launches, ffn.launches)
+    frames = entry.rollout_frames(setup, range(ROLLOUT_WINDOWS), ROLLOUT_STEPS)
+    res = make_batched_rollout_fn(sim)(frames)
+    torch.cuda.synchronize()
+    launches = (attn.launches, ffn.launches)
+    log(f"transformer forward: (attention, FFN) kernel launches {fwd_launches} ({n_blocks} "
+        f"blocks); with the {ROLLOUT_STEPS}-step rollout: {launches}")
+    if fwd_launches != (n_blocks, n_blocks):
+        raise AssertionError(f"expected {n_blocks} launches of each kernel per forward, "
+                             f"got {fwd_launches}")
+    want = n_blocks * (1 + ROLLOUT_STEPS)
+    if launches != (want, want) or gn.launches or gn.backward_launches:
+        raise AssertionError(f"expected {want} launches of each transformer kernel and none "
+                             f"of the GraphNetBlock's, got {launches}, {gn.launches}, "
+                             f"{gn.backward_launches}")
+
+    out_plain = plain_sim.forward(graph, is_training=False)
+    torch.cuda.synchronize()
+    if tuple(out.outputs.shape) != (n, b, entry.OUTPUT) or out.outputs.dtype != torch.float32:
+        raise AssertionError(f"unexpected output {tuple(out.outputs.shape)} {out.outputs.dtype}")
+    log("transformer forward vs plain path (valid nodes)")
+    rows = graph.node_mask
+    compare("net_out", out.net_out, out_plain.net_out, TF_SLICE_TOL, rows=rows)
+    compare("outputs", out.outputs, out_plain.outputs, TF_SLICE_TOL, rows=rows)
+    res_plain = make_batched_rollout_fn(plain_sim)(frames)
+    rk, rp = res.rmse_all_rollout.tolist(), res_plain.rmse_all_rollout.tolist()
+    log(f"transformer rollout rmse_all_rollout (R={ROLLOUT_WINDOWS}, T={ROLLOUT_STEPS}), "
+        "kernel path: " + " ".join(f"{v:.6g}" for v in rk))
+    log("transformer rollout rmse_all_rollout, plain path:  " + " ".join(f"{v:.6g}" for v in rp))
+    for name, r in (("kernel", res), ("plain", res_plain)):
+        if not (torch.isfinite(r.predictions).all() and torch.isfinite(r.rmse_all_rollout).all()):
+            raise AssertionError(f"transformer rollout ({name} path): non-finite values")
+    worst = max(abs(a - c) / abs(c) for a, c in zip(rk, rp))
+    log(f"  rollout rmse max relative difference {worst:.6g} (limit {ROLLOUT_RTOL})")
+    if worst > ROLLOUT_RTOL:
+        raise AssertionError(f"transformer rollout RMSE differs by {worst:.4g} relative")
+
+    # 11. timing: the B=64 forward and one middle block, kernel path vs plain path
+    fwd_ms = cuda_ms(lambda: sim.forward(graph, is_training=False))
+    fwd_plain_ms = cuda_ms(lambda: plain_sim.forward(graph, is_training=False))
+    mid = blocks[n_blocks // 2]
+    block_args = (randn(n, b, hidden, scale=1.0), graph.senders, graph.receivers,
+                  graph.edge_mask, graph.node_mask, graph.pos)
+    with torch.inference_mode():
+        block_ms = cuda_ms(lambda: mid(*block_args, nk_tiling=nk))
+        block_plain_ms = cuda_ms(lambda: mid(*block_args))
+    log(f"transformer forward B={b}: kernel path {fwd_ms:.4f} ms "
+        f"({1000 * b / fwd_ms:.1f} graph-steps/s), plain path {fwd_plain_ms:.4f} ms "
+        f"({1000 * b / fwd_plain_ms:.1f}); middle block {block_ms:.4f} ms, plain "
+        f"{block_plain_ms:.4f} ms ({card})")
+    log("transformer timing " + json.dumps({
+        "card": card, "forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
+        "block_ms": block_ms, "block_plain_ms": block_plain_ms, "attention": attn_t,
+        "ffn": ffn_t}))
+
+    # bounds from this run's inputs: bf16 q, k, v read and out written, the
+    # slot arrays read, q·k and p·v on the valid slots; x read and y written,
+    # the fp32 weights read, 3 products of 64 x 192 per row
+    attn_bound = bound(2 * 4 * q.numel() + 5 * nk.total_rows,
+                       valid_slots * b * heads * 4 * dh)
+    ffn_params = sum(p.numel() for p in (*blk0.gated_mlp.parameters(), blk0.norm2.scale))
+    ffn_bound = bound(2 * 2 * x.numel() + 4 * ffn_params,
+                      2 * n * b * sum(p.numel() for p in (blk0.gated_mlp.gated.linear1.weight,
+                                                         blk0.gated_mlp.gated.linear2.weight,
+                                                         blk0.gated_mlp.out.weight)))
+    log(f"  bounds: attention {attn_bound[0]:.6g} ms ({attn_bound[1]}), gated FFN "
+        f"{ffn_bound[0]:.6g} ms ({ffn_bound[1]})")
+    return [
+        dict(ATTN, route="cuda", launches=launches[0], max_abs_err=attn_err, ms=attn_t["ms"],
+             plain_ms=attn_t["plain_ms"], bound_ms=attn_bound[0], bound_by=attn_bound[1],
+             library_ms=attn_t["library_ms"]),
+        dict(FFN, route="cuda", launches=launches[1], max_abs_err=ffn_err, ms=ffn_t["ms"],
+             plain_ms=ffn_t["plain_ms"], bound_ms=ffn_bound[0], bound_by=ffn_bound[1],
+             library_ms=None),
+    ]
 
 
 if __name__ == "__main__":

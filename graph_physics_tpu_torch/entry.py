@@ -1,17 +1,23 @@
-"""Cylinder ``epd`` setups of the port: inference and training.
+"""Setups of the port on the synthetic cylinder mesh: ``epd`` inference
+and training, and graph-transformer inference.
 
 Counterpart of __graft_entry__._cylinder_setup / entry:
-``cylinder_setup`` builds the inference slice,
+``cylinder_setup`` builds the ``epd`` inference slice,
 ``setup.simulator.forward(setup.graph)`` runs it; ``cylinder_train_setup``
 adds bench.py's optimizer, noise and loss, and
 ``setup.train_step(setup.state, setup.graph, generator)`` takes one step.
-The slice is the 48x40 synthetic cylinder mesh (1,920 nodes,
-~11.2k directed edges), its NK slot layout (K=6 slots x 1,920
-receivers), a packed batch of B frames on a device, and the reference
-cylinder model (epd, 5 GraphNetBlocks, hidden 32, relu MLPs with an
-RMSNorm tail, 2-D velocity, bf16 compute) with weights drawn from a
-seed. For inference, normalizer statistics are accumulated over the
-batch, standing in for a checkpoint's state; training starts them empty.
+``transformer_setup`` builds the graph-transformer slice of
+scripts/bench_models.py (``transformer_nk``: 10 blocks, hidden 64, 4
+heads, B=64) on the same mesh and NK layout.
+The mesh is the 48x40 synthetic cylinder (1,920 nodes, ~11.2k directed
+edges), its NK slot layout (K=6 slots x 1,920 receivers), a packed batch
+of B copies of frame 0 on a device, and a model with weights drawn from a
+seed: the reference cylinder model (epd, 5 GraphNetBlocks, hidden 32,
+relu MLPs with an RMSNorm tail, 2-D velocity, bf16 compute) or the
+transformer. For inference, normalizer statistics are accumulated over
+the batch, standing in for a checkpoint's state; training starts them
+empty. Every setup runs on the card unless the caller passes another
+device.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from graph_physics_tpu_torch.core import mesh as mesh_lib
 from graph_physics_tpu_torch.core.graph import MeshGraph
 from graph_physics_tpu_torch.dataset import synthetic
 from graph_physics_tpu_torch.models.layers import reset_parameters
-from graph_physics_tpu_torch.models.processors import EncodeProcessDecode
+from graph_physics_tpu_torch.models.processors import EncodeProcessDecode, EncodeTransformDecode
 from graph_physics_tpu_torch.models.simulator import Simulator
 from graph_physics_tpu_torch.ops.tiling import NKTiling, apply_to_graph_nk, build_nk_tiling
 from graph_physics_tpu_torch.training.loss import l2_loss
@@ -64,15 +70,9 @@ def frame_graph(traj: Dict[str, np.ndarray], t: int) -> MeshGraph:
     return mesh_lib.build_mesh_graph(x, pos, nt, ei, y=traj["velocity"][t + 1])
 
 
-def make_simulator(hidden: int, mp_steps: int, dtype, tiling: Optional[NKTiling],
-                   seed: int) -> Simulator:
-    model = EncodeProcessDecode(
-        message_passing_num=mp_steps, node_input_size=NODE_INPUT,
-        edge_input_size=EDGE_INPUT, output_size=OUTPUT, hidden_size=hidden,
-        edge_tiling_nk=tiling, dtype=dtype,
-    )
+def _simulator(model, edge_input: int, seed: int) -> Simulator:
     sim = Simulator(
-        node_input_size=NODE_INPUT, edge_input_size=EDGE_INPUT, output_size=OUTPUT,
+        node_input_size=NODE_INPUT, edge_input_size=edge_input, output_size=OUTPUT,
         feature_index_start=0, feature_index_end=2, output_index_start=0,
         output_index_end=2, node_type_index=2, model=model,
     )
@@ -80,8 +80,50 @@ def make_simulator(hidden: int, mp_steps: int, dtype, tiling: Optional[NKTiling]
     return sim
 
 
+def make_simulator(hidden: int, mp_steps: int, dtype, tiling: Optional[NKTiling],
+                   seed: int) -> Simulator:
+    model = EncodeProcessDecode(
+        message_passing_num=mp_steps, node_input_size=NODE_INPUT,
+        edge_input_size=EDGE_INPUT, output_size=OUTPUT, hidden_size=hidden,
+        edge_tiling_nk=tiling, dtype=dtype,
+    )
+    return _simulator(model, EDGE_INPUT, seed)
+
+
+def make_transformer_simulator(hidden: int, mp_steps: int, heads: int, dtype,
+                               tiling: Optional[NKTiling], seed: int) -> Simulator:
+    """scripts/bench_models.py's transformer (no edge features, exact GELU,
+    no RoPE, no gate) in a Simulator with ``edge_input_size=0``."""
+    model = EncodeTransformDecode(
+        message_passing_num=mp_steps, node_input_size=NODE_INPUT, output_size=OUTPUT,
+        hidden_size=hidden, num_heads=heads, edge_tiling_nk=tiling, dtype=dtype,
+    )
+    return _simulator(model, 0, seed)
+
+
+def _packed_setup(device, make_sim: Callable[[Optional[NKTiling]], Simulator], nx: int,
+                  ny: int, batch: int, nk: bool, num_steps: int,
+                  accumulate_stats: bool) -> CylinderSetup:
+    """The mesh, its NK layout (when ``nk``), the packed batch of B copies
+    of frame 0 and ``make_sim(tiling)`` on ``device``."""
+    traj = synthetic.make_trajectory(nx, ny, num_steps=num_steps)
+    g = frame_graph(traj, 0)
+    tiling = None
+    if nk:
+        tiling = build_nk_tiling(g.senders, g.receivers, int(g.n_node), edge_mask=g.edge_mask)
+        if tiling is None:
+            raise ValueError("mesh rejected by the NK layout builder")
+        g = apply_to_graph_nk(g, tiling)
+    graph = MeshGraph.from_numpy(pack(stack([g] * batch)), device)
+    sim = make_sim(tiling).to(device)
+    if accumulate_stats:
+        sim.prepare(graph, is_training=True)
+    return CylinderSetup(simulator=sim, graph=graph, tiling=tiling, trajectory=traj,
+                         template=g)
+
+
 def cylinder_setup(
-    device,
+    device="cuda",
     *,
     nx: int = 48,
     ny: int = 40,
@@ -94,22 +136,35 @@ def cylinder_setup(
     num_steps: int = 3,
     accumulate_stats: bool = True,
 ) -> CylinderSetup:
-    """Model, Simulator and packed batch of B copies of frame 0 on ``device``;
+    """``epd`` model, Simulator and packed batch of B copies of frame 0 on
+    ``device``; ``accumulate_stats`` folds the batch into the normalizer
+    statistics."""
+    return _packed_setup(device, lambda t: make_simulator(hidden, mp_steps, dtype, t, seed),
+                         nx, ny, batch, nk, num_steps, accumulate_stats)
+
+
+def transformer_setup(
+    device="cuda",
+    *,
+    nx: int = 48,
+    ny: int = 40,
+    hidden: int = 64,
+    mp_steps: int = 10,
+    heads: int = 4,
+    batch: int = 64,
+    dtype=torch.bfloat16,
+    nk: bool = True,
+    seed: int = 0,
+    num_steps: int = 3,
+    accumulate_stats: bool = True,
+) -> CylinderSetup:
+    """The graph transformer of scripts/bench_models.py:142-166
+    (``transformer_nk``: 10 blocks, hidden 64, 4 heads, bf16, B=64) with
+    its Simulator and packed batch of B copies of frame 0 on ``device``;
     ``accumulate_stats`` folds the batch into the normalizer statistics."""
-    traj = synthetic.make_trajectory(nx, ny, num_steps=num_steps)
-    g = frame_graph(traj, 0)
-    tiling = None
-    if nk:
-        tiling = build_nk_tiling(g.senders, g.receivers, int(g.n_node), edge_mask=g.edge_mask)
-        if tiling is None:
-            raise ValueError("mesh rejected by the NK layout builder")
-        g = apply_to_graph_nk(g, tiling)
-    graph = MeshGraph.from_numpy(pack(stack([g] * batch)), device)
-    sim = make_simulator(hidden, mp_steps, dtype, tiling, seed).to(device)
-    if accumulate_stats:
-        sim.prepare(graph, is_training=True)
-    return CylinderSetup(simulator=sim, graph=graph, tiling=tiling, trajectory=traj,
-                         template=g)
+    return _packed_setup(
+        device, lambda t: make_transformer_simulator(hidden, mp_steps, heads, dtype, t, seed),
+        nx, ny, batch, nk, num_steps, accumulate_stats)
 
 
 #: bench.py's training configuration (__graft_entry__._cylinder_setup :97-99)
@@ -134,7 +189,7 @@ def make_trainer(sim: Simulator) -> Tuple[TrainState, Callable]:
     return init_train_state(sim, opt), make_train_step(sim, l2_loss, NOISE, num_steps=NUM_STEPS)
 
 
-def cylinder_train_setup(device, *, batch: int = 128, seed: int = 0, **kw) -> CylinderTrainSetup:
+def cylinder_train_setup(device="cuda", *, batch: int = 128, seed: int = 0, **kw) -> CylinderTrainSetup:
     """``cylinder_setup`` with fresh normalizer statistics and
     :func:`make_trainer`'s training step. ``kw`` goes to ``cylinder_setup``."""
     base = cylinder_setup(device, batch=batch, seed=seed, accumulate_stats=False, **kw)

@@ -1,1 +1,2 @@
-"""Models of the port: layers, normalizer, EncodeProcessDecode, Simulator."""
+"""Models of the port: layers, normalizer, EncodeProcessDecode,
+EncodeTransformDecode, Simulator."""

@@ -18,6 +18,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from graph_physics_tpu_torch.ops import segment
+from graph_physics_tpu_torch.ops.edge_attention import edge_attention
+from graph_physics_tpu_torch.ops.fused_edge_attention_nk import fused_edge_attention_nk
+from graph_physics_tpu_torch.ops.fused_ffn import fused_gated_ffn
 from graph_physics_tpu_torch.ops.fused_gnblock_nk import fused_gn_block_nk
 from graph_physics_tpu_torch.ops.tiling import NKTiling
 
@@ -47,13 +50,18 @@ class Activation(nn.Module):
         return self.name
 
 
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``x @ weight.T + bias`` in ``x``'s dtype: the product rounds, then
+    the bias add rounds, as in flax ``Dense``."""
+    return F.linear(x, weight.to(x.dtype)) + bias.to(x.dtype)
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` that runs in its input's dtype (fp32 parameters cast at
-    use). The bias is added after the product, so in bf16 both round, as
-    in flax ``Dense``."""
+    use), through :func:`dense`."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+        return dense(x, self.weight, self.bias)
 
 
 class RMSNorm(nn.Module):
@@ -114,6 +122,50 @@ class MLP(nn.Sequential):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.to(self.dtype))
+
+
+class GatedMLP(nn.Module):
+    """act(linear1(x)) * linear2(x), ``expansion_factor * hidden_size``
+    wide; act is the exact GELU, or SiLU with ``use_silu``
+    (layers.py:GatedMLP; reference layers.py:213-249)."""
+
+    def __init__(self, in_size: int, hidden_size: int, expansion_factor: int = 3,
+                 use_silu: bool = False):
+        super().__init__()
+        width = expansion_factor * hidden_size
+        self.use_silu = use_silu
+        self.act_fn = ACTIVATIONS["silu" if use_silu else "gelu"]
+        self.linear1 = Dense(in_size, width)
+        self.linear2 = Dense(in_size, width)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act_fn(self.linear1(x)) * self.linear2(x)
+
+
+class GatedMLPBlock(nn.Sequential):
+    """RMSNorm -> GatedMLP -> Dense(out) (layers.py:GatedMLPBlock; reference
+    build_gated_mlp :252-278), children ``0``, ``1``, ``2`` as in the
+    reference ``state_dict``."""
+
+    def __init__(self, in_size: int, hidden_size: int, out_size: int,
+                 expansion_factor: int = 3, use_silu: bool = False, dtype=torch.float32):
+        super().__init__(
+            RMSNorm(in_size, dtype=dtype),
+            GatedMLP(in_size, hidden_size, expansion_factor, use_silu),
+            Dense(expansion_factor * hidden_size, out_size),
+        )
+
+    @property
+    def norm(self) -> RMSNorm:
+        return self[0]
+
+    @property
+    def gated(self) -> GatedMLP:
+        return self[1]
+
+    @property
+    def out(self) -> Dense:
+        return self[2]
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
@@ -218,3 +270,207 @@ class GraphNetBlock(nn.Module):
         agg = segment.segment_sum(edge_upd, receivers, x.shape[0], mask=edge_mask)
         node_upd = self.node_block(torch.cat([x, agg], dim=-1))
         return x + node_upd, edge_attr + edge_upd
+
+
+# ----------------------------------------------------------------------
+# RoPE, attention, transformer
+# ----------------------------------------------------------------------
+
+def make_inv_freq(m: int, base: float, device=None) -> torch.Tensor:
+    """Inverse frequencies of spatial RoPE (layers.py:make_inv_freq)."""
+    if m <= 0:
+        return torch.zeros((0,), dtype=torch.float32, device=device)
+    step = math.log(base) / max(m, 1)
+    return torch.exp(-torch.arange(m, dtype=torch.float32, device=device) * step)
+
+
+def apply_spatial_rope(x: torch.Tensor, pos: torch.Tensor, inv_freq: torch.Tensor) -> torch.Tensor:
+    """Multi-axis spatial RoPE over the head dim (layers.py:apply_spatial_rope).
+
+    x is [N, ..., Dh] (e.g. [N, H, Dh] or packed [N, B, H, Dh]), pos [N, P]:
+    the first ``P * 2m`` channels of each head are rotated in pairs, axis
+    by axis, by the angles pos[:, axis] * inv_freq; the rest pass through.
+    """
+    p = pos.shape[-1]
+    m = inv_freq.shape[0]
+    d_rope = p * 2 * m
+    if m == 0 or d_rope == 0:
+        return x
+    angles = pos[:, :, None].float() * inv_freq[None, None, :]  # [N, P, m]
+    mid = (1,) * (x.ndim - 2)  # broadcast over heads / packed-batch dims
+    cos = torch.cos(angles).reshape((x.shape[0],) + mid + (p, m))
+    sin = torch.sin(angles).reshape((x.shape[0],) + mid + (p, m))
+    part = x[..., :d_rope].reshape(x.shape[:-1] + (p, m, 2))
+    even = part[..., 0].float()
+    odd = part[..., 1].float()
+    rot = torch.stack([even * cos - odd * sin, even * sin + odd * cos], dim=-1)
+    rot = rot.reshape(x.shape[:-1] + (d_rope,))
+    return torch.cat([rot.to(x.dtype), x[..., d_rope:]], dim=-1)
+
+
+def head_perm(hidden: int, heads: int) -> torch.Tensor:
+    """perm[c] = the reference's channel for heads-first channel c = h·dh + d:
+    the reference reshapes projections to (dh, H), heads last, so its
+    channel is d·H + h (graph_physics_tpu/utils/convert.py:_head_perm)."""
+    dh = hidden // heads
+    c = torch.arange(hidden)
+    return (c % dh) * heads + c // dh
+
+
+class Attention(nn.Module):
+    """Edge-masked multi-head self-attention over graph nodes
+    (layers.py:Attention; reference layers.py:564-698).
+
+    Separate q/k/v projections, optional spatial RoPE, optional sigmoid
+    output gate, output ``proj``, all with biases.
+    The weights keep the reference's heads-last layout (the weight
+    bridge's contract); at use, the q/k/v/gate rows and the ``proj``
+    columns are taken in :func:`head_perm` order, so the activations come
+    out heads first, ``[..., H, dh]`` contiguous, as the JAX package lays
+    them out and the attention kernel reads them. On a packed bf16 graph
+    in the NK slot layout the attention runs as one kernel
+    (:func:`ops.fused_edge_attention_nk.fused_edge_attention_nk`);
+    otherwise on the plain edge list (:func:`ops.edge_attention.edge_attention`),
+    or densely over the valid nodes when there are no edges.
+    """
+
+    def __init__(
+        self,
+        hidden_size: int,
+        num_heads: int = 4,
+        pos_dimension: int = 3,
+        use_rope_embeddings: bool = False,
+        use_gated_attention: bool = False,
+        rope_base: float = 10000.0,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        if hidden_size % num_heads:
+            raise ValueError(f"hidden {hidden_size} is not a multiple of {num_heads} heads")
+        self.hidden_size = hidden_size
+        self.num_heads = num_heads
+        self.pos_dimension = pos_dimension
+        self.use_rope_embeddings = use_rope_embeddings
+        self.rope_base = rope_base
+        self.dtype = dtype
+        self.q_proj = Dense(hidden_size, hidden_size)
+        self.k_proj = Dense(hidden_size, hidden_size)
+        self.v_proj = Dense(hidden_size, hidden_size)
+        self.gate_proj = Dense(hidden_size, hidden_size) if use_gated_attention else None
+        self.proj = Dense(hidden_size, hidden_size)
+        self.register_buffer("head_perm", head_perm(hidden_size, num_heads), persistent=False)
+
+    def _heads(self, proj: Dense, x: torch.Tensor) -> torch.Tensor:
+        """proj(x) heads first: [..., H, dh]."""
+        perm = self.head_perm
+        y = dense(x, proj.weight.index_select(0, perm), proj.bias.index_select(0, perm))
+        return y.view(x.shape[:-1] + (self.num_heads, self.hidden_size // self.num_heads))
+
+    def _fused_ok(self, x, senders, return_attention, nk) -> bool:
+        """attention_ok of the NK kernel (layers.py:Attention._fused_attn_ok
+        without its 128-lane terms)."""
+        return (
+            nk is not None
+            and senders is not None
+            and not return_attention
+            and self.dtype == torch.bfloat16
+            and x.dtype == torch.bfloat16
+            and x.ndim == 3
+            and x.shape[0] == nk.num_nodes
+            and senders.shape[0] == nk.total_rows
+        )
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        senders: Optional[torch.Tensor] = None,
+        receivers: Optional[torch.Tensor] = None,
+        edge_mask: Optional[torch.Tensor] = None,
+        node_mask: Optional[torch.Tensor] = None,
+        pos: Optional[torch.Tensor] = None,
+        return_attention: bool = False,
+        nk_tiling: Optional[NKTiling] = None,
+    ):
+        if self.use_rope_embeddings and pos is None:
+            raise ValueError("RoPE embeddings require positional information.")
+        lead = x.shape[:-1]  # [N] or packed [N, B]
+        dh = self.hidden_size // self.num_heads
+        q, k, v = (self._heads(p, x) for p in (self.q_proj, self.k_proj, self.v_proj))
+        if self.use_rope_embeddings:
+            inv = make_inv_freq(dh // max(self.pos_dimension * 2, 1), self.rope_base, x.device)
+            q = apply_spatial_rope(q, pos[:, :self.pos_dimension], inv)
+            k = apply_spatial_rope(k, pos[:, :self.pos_dimension], inv)
+
+        weights = None
+        if self._fused_ok(x, senders, return_attention, nk_tiling):
+            y = fused_edge_attention_nk(q, k, v, senders, edge_mask, nk_tiling)
+        elif senders is not None:
+            y = edge_attention(q, k, v, senders, receivers, edge_mask,
+                               return_weights=return_attention)
+            if return_attention:
+                y, weights = y
+        else:  # dense over the valid nodes: [..., H, N, M] logits
+            qh, kh, vh = (t.movedim(0, -2) for t in (q, k, v))
+            logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(dh)
+            if node_mask is not None:
+                logits = torch.where(node_mask, logits,
+                                     torch.full((), -float("inf"), device=x.device))
+            weights = torch.softmax(logits, dim=-1)
+            y = torch.matmul(weights.to(v.dtype), vh).movedim(-2, 0)
+
+        if self.gate_proj is not None:
+            y = y * torch.sigmoid(self._heads(self.gate_proj, x)).to(y.dtype)
+        perm = self.head_perm
+        out = dense(y.reshape(lead + (self.hidden_size,)), self.proj.weight.index_select(1, perm),
+                    self.proj.bias)
+        return (out, weights) if return_attention else out
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm transformer block with a gated-MLP FFN
+    (layers.py:TransformerBlock; reference Transformer, layers.py:700-819):
+    x += attention(norm1(x)); x += gated_mlp(norm2(x)), the gated MLP
+    opening with its own RMSNorm. With an NK slot layout on a packed bf16
+    graph the FFN half runs as one kernel (:func:`ops.fused_ffn.fused_gated_ffn`),
+    keyed on the layout as the JAX package keys it on its tiling.
+    """
+
+    def __init__(
+        self,
+        hidden_size: int,
+        num_heads: int = 4,
+        use_rope_embeddings: bool = False,
+        use_gated_attention: bool = False,
+        pos_dimension: int = 3,
+        rope_base: float = 10000.0,
+        use_silu: bool = False,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.dtype = dtype
+        self.norm1 = RMSNorm(hidden_size, dtype=dtype)
+        self.attention = Attention(
+            hidden_size, num_heads=num_heads, pos_dimension=pos_dimension,
+            use_rope_embeddings=use_rope_embeddings, use_gated_attention=use_gated_attention,
+            rope_base=rope_base, dtype=dtype)
+        self.norm2 = RMSNorm(hidden_size, dtype=dtype)
+        self.gated_mlp = GatedMLPBlock(hidden_size, hidden_size, hidden_size,
+                                       use_silu=use_silu, dtype=dtype)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        senders: Optional[torch.Tensor] = None,
+        receivers: Optional[torch.Tensor] = None,
+        edge_mask: Optional[torch.Tensor] = None,
+        node_mask: Optional[torch.Tensor] = None,
+        pos: Optional[torch.Tensor] = None,
+        nk_tiling: Optional[NKTiling] = None,
+    ) -> torch.Tensor:
+        x = x + self.attention(self.norm1(x), senders, receivers, edge_mask, node_mask, pos,
+                               nk_tiling=nk_tiling)
+        if (nk_tiling is not None and self.dtype == torch.bfloat16 and x.ndim == 3
+                and x.shape[0] == nk_tiling.num_nodes):
+            return fused_gated_ffn(x.to(self.dtype), self.gated_mlp, self.norm2).to(x.dtype)
+        return x + self.gated_mlp(self.norm2(x))

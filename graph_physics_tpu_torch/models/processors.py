@@ -1,10 +1,13 @@
-"""EncodeProcessDecode (counterpart of graph_physics_tpu/models/processors.py).
+"""Processors (counterparts of graph_physics_tpu/models/processors.py).
 
-MeshGraphNet: node and edge MLP encoders, M GraphNetBlocks, an MLP decoder
-without a final norm, output cast to fp32. On a bf16 packed graph in the
-NK slot layout the edge encoder is folded into block 0's fused kernel, so
-the encoded edge array is never written out; the last block's edge output
-is dead and the kernel skips it.
+EncodeProcessDecode, MeshGraphNet: node and edge MLP encoders, M
+GraphNetBlocks, an MLP decoder without a final norm, output cast to fp32.
+On a bf16 packed graph in the NK slot layout the edge encoder is folded
+into block 0's fused kernel, so the encoded edge array is never written
+out; the last block's edge output is dead and the kernel skips it.
+
+EncodeTransformDecode, the graph transformer: the same encoder and decoder
+around TransformerBlocks, with no edge features.
 """
 
 from __future__ import annotations
@@ -15,7 +18,12 @@ import torch
 from torch import nn
 
 from graph_physics_tpu_torch.core.graph import MeshGraph
-from graph_physics_tpu_torch.models.layers import MLP, GraphNetBlock, fused_path_ok_nk
+from graph_physics_tpu_torch.models.layers import (
+    MLP,
+    GraphNetBlock,
+    TransformerBlock,
+    fused_path_ok_nk,
+)
 from graph_physics_tpu_torch.ops.tiling import NKTiling
 
 
@@ -70,4 +78,71 @@ class EncodeProcessDecode(nn.Module):
                 x, edge_attr, graph.senders, graph.receivers, graph.edge_mask,
                 nk_tiling=nk, edge_encoder=self.edges_encoder if fold and i == 0 else None,
             )
+        return self.decode_module(x).float()
+
+
+class EncodeTransformDecode(nn.Module):
+    """Graph transformer (processors.py:EncodeTransformDecode): a node
+    encoder MLP, M TransformerBlocks attending over the mesh edges, an MLP
+    decoder without a final norm, output cast to fp32. With
+    ``edge_tiling_nk`` set, blocks on a packed bf16 graph in that NK slot
+    layout run their attention and FFN halves as kernels; None puts every
+    block on the plain path. Multigrid, the temporal block, remat and sp
+    are not ported (ROADMAP A 14, A 15)."""
+
+    def __init__(
+        self,
+        message_passing_num: int,
+        node_input_size: int,
+        output_size: int,
+        hidden_size: int = 128,
+        num_heads: int = 4,
+        use_rope_embeddings: bool = False,
+        use_gated_attention: bool = False,
+        rope_pos_dimension: int = 3,
+        rope_base: float = 10000.0,
+        use_temporal_block: bool = False,
+        use_silu: bool = False,
+        remat: bool = False,
+        sp_axis_name: Optional[str] = None,
+        use_multigrid: bool = False,
+        edge_tiling_nk: Optional[NKTiling] = None,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        for name, on in (("use_multigrid", use_multigrid), ("use_temporal_block",
+                         use_temporal_block), ("remat", remat),
+                         ("sp_axis_name", sp_axis_name is not None)):
+            if on:
+                raise NotImplementedError(f"EncodeTransformDecode option {name} is not ported")
+        self.hidden_size = hidden_size
+        self.use_rope_embeddings = use_rope_embeddings
+        #: NK slot layout of the graphs this model runs on (ops/tiling.py);
+        #: None runs every block on the plain path
+        self.edge_tiling_nk = edge_tiling_nk
+        self.dtype = dtype
+        self.nodes_encoder = MLP(node_input_size, hidden_size, hidden_size, dtype=dtype)
+        self.processor_list = nn.ModuleList(
+            TransformerBlock(
+                hidden_size,
+                num_heads=num_heads,
+                use_rope_embeddings=use_rope_embeddings,
+                use_gated_attention=use_gated_attention,
+                pos_dimension=rope_pos_dimension,
+                rope_base=rope_base,
+                use_silu=use_silu,
+                dtype=dtype,
+            )
+            for _ in range(message_passing_num)
+        )
+        self.decode_module = MLP(hidden_size, hidden_size, output_size, layer_norm=False,
+                                 dtype=dtype)
+
+    def forward(self, graph: MeshGraph) -> torch.Tensor:
+        x = self.nodes_encoder(graph.x.to(self.dtype))
+        if self.use_rope_embeddings and graph.pos is None:
+            raise ValueError("use_rope_embeddings=True requires node positions.")
+        for block in self.processor_list:
+            x = block(x, graph.senders, graph.receivers, graph.edge_mask, graph.node_mask,
+                      graph.pos, nk_tiling=self.edge_tiling_nk)
         return self.decode_module(x).float()

@@ -1,2 +1,3 @@
-"""Graph ops of the port: masked segment sums, the NK slot layout and the
-fused GraphNetBlock kernel with its plain PyTorch version."""
+"""Graph ops of the port: masked segment ops, the NK slot layout, edge
+attention, and the kernels (fused GraphNetBlock, NK edge attention, gated
+FFN) with their plain PyTorch versions and their build."""

@@ -17,91 +17,40 @@ its gradient is plain autograd. The wrapper uses it for tensors on the
 CPU; for CUDA tensors it launches the kernels (the backward through
 ``torch.autograd.Function``) or raises.
 
-Build: at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a`` turns
-each source into a shared library with a plain C interface under
-``build/kernels/`` of the checkout (git-ignored), both compiles running at
-once; the libraries are loaded with ctypes.
+Build: ``ops/kernel_build.py`` compiles each source with nvcc into a
+shared library with a plain C interface at first use; ctypes loads it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-#: the kernel sources by library name; both include HEADER
-SOURCES = {"fwd": CSRC / "fused_gnblock_nk.cu", "bwd": CSRC / "fused_gnblock_nk_bwd.cu"}
-HEADER = CSRC / "gn_nk_common.cuh"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+from graph_physics_tpu_torch.ops import kernel_build
+
 #: hidden width the kernels are compiled for (``H`` in the sources)
 KERNEL_HIDDEN = 32
 #: most Dense layers per MLP the forward kernel takes (``MAXL``)
 KERNEL_MAX_LAYERS = 8
 #: Dense layers per MLP the backward kernel is built for (``NL``)
 BACKWARD_LAYERS = 4
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_libs = {}
-
-
-def library_path(name: str = "fwd") -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + HEADER.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
-
-
-def build() -> str:
-    """Compile the kernel libraries that are not built yet, one nvcc
-    process per source, all at once; returns nvcc's output (ptxas
-    register and shared-memory reports), empty when all are cached."""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for name, src in SOURCES.items():
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((proc, tmp, out))
-    logs = []
-    for proc, tmp, out in jobs:
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) for {out.name}:\n{text}")
-        os.replace(tmp, out)
-        logs.append(text)
-    return "".join(logs)
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "gn_nk_fwd": {"gn_nk_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                                _vp, _i, _vp, _i, _vp, _i, _vp]},
+    "gn_nk_bwd": {"gn_nk_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                                _vp, _vp, _i, _vp, _vp, _i, _vp, _vp, _i, _vp]},
+}
 
 
 def _load(name: str):
-    if name not in _libs:
-        build()
-        for lib_name in SOURCES:
-            lib = ctypes.CDLL(str(library_path(lib_name)))
-            vp, i = ctypes.c_void_p, ctypes.c_int
-            if lib_name == "fwd":
-                lib.gn_nk_fwd.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
-                                          vp, i, vp, i, vp, i, vp]
-                lib.gn_nk_fwd.restype = i
-            else:
-                lib.gn_nk_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i,
-                                          vp, vp, i, vp, vp, i, vp, vp, i, vp]
-                lib.gn_nk_bwd.restype = i
-            _libs[lib_name] = lib
-    return _libs[name]
+    return kernel_build.load(name, _ARGTYPES[name])
 
 
 def _mlp_tensors(mlp):
@@ -145,7 +94,7 @@ def _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block):
     x_out = torch.empty_like(x)
     e_out = None if last_block else torch.empty((nk.total_rows, b, h), dtype=x.dtype,
                                                 device=x.device)
-    err = _load("fwd").gn_nk_fwd(
+    err = _load("gn_nk_fwd").gn_nk_fwd(
         x.data_ptr(), edge_attr.data_ptr(), x_out.data_ptr(),
         None if e_out is None else e_out.data_ptr(),
         senders.data_ptr(), edge_mask.data_ptr(), n, b, nk.k_slots, nk.node_block,
@@ -170,7 +119,7 @@ def _launch_bwd(x, edge_attr, g_xout, g_eout, senders, edge_mask, nk, mlps):
                                                   device=x.device)
     grads = [[torch.zeros_like(p, dtype=torch.float32) for p in _mlp_params(m)]
              if m is not None else None for m in mlps]
-    err = _load("bwd").gn_nk_bwd(
+    err = _load("gn_nk_bwd").gn_nk_bwd(
         x.data_ptr(), edge_attr.data_ptr(), g_xout.data_ptr(),
         None if g_eout is None else g_eout.data_ptr(), dx.data_ptr(),
         None if de is None else de.data_ptr(), senders.data_ptr(), edge_mask.data_ptr(),

@@ -7,7 +7,11 @@ convert.py:convert_state_dict maps to a flax parameter tree and a
 SimulatorState. :func:`load_jax_params` goes the other way: it takes that
 flax tree and normalizer state as numpy arrays (no jax needed) and fills a
 port Simulator. flax kernels are ``[in, out]``; ``nn.Linear.weight`` is
-``[out, in]``.
+``[out, in]``. Attention projections: the reference (and the port's
+weights) keep heads last, channel d·H + h; the JAX package keeps heads
+first, channel h·dh + d, and convert.py permutes the q/k/v/gate columns
+and the proj rows by ``_head_perm`` (here ``layers.head_perm``), which
+this module undoes.
 """
 
 from __future__ import annotations
@@ -17,8 +21,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from graph_physics_tpu_torch.models.layers import MLP
+from graph_physics_tpu_torch.models.layers import MLP, Attention, Dense, GatedMLPBlock
 from graph_physics_tpu_torch.models.normalizer import Normalizer
+from graph_physics_tpu_torch.models.processors import EncodeTransformDecode
 
 
 def _copy(dst: torch.Tensor, src) -> None:
@@ -53,24 +58,77 @@ def _load_normalizer(norm: Normalizer, state) -> None:
 
 
 @torch.no_grad()
+def load_dense(dense: Dense, params: Mapping[str, Any], row_perm=None, col_perm=None) -> None:
+    """Fill a port Dense from a flax Dense (``kernel [in, out]``, ``bias``).
+    ``row_perm``/``col_perm`` undo convert.py:_dense's column / row
+    permutation: flax output (input) channel c is the port's perm[c]."""
+    w = np.asarray(params["kernel"], np.float32).T  # [out, in] in flax order
+    b = np.asarray(params["bias"], np.float32)
+    if row_perm is not None:  # port row perm[c] = flax row c
+        inv = np.argsort(row_perm)
+        w, b = w[inv], b[inv]
+    if col_perm is not None:
+        w = w[:, np.argsort(col_perm)]
+    _copy(dense.weight, w)
+    _copy(dense.bias, b)
+
+
+@torch.no_grad()
+def load_attention(attn: Attention, params: Mapping[str, Any], where: str) -> None:
+    """A flax Attention into the port's, heads-first channels back to the
+    reference's heads-last order (convert.py:_attention)."""
+    names = {"q_proj", "k_proj", "v_proj", "proj"} | (
+        {"gate_proj"} if attn.gate_proj is not None else set())
+    if set(params) != names:
+        raise ValueError(f"{where}: unexpected attention parameters {sorted(params)}")
+    perm = attn.head_perm.cpu().numpy()
+    for name in ("q_proj", "k_proj", "v_proj", "gate_proj"):
+        if name in params:
+            load_dense(getattr(attn, name), params[name], row_perm=perm)
+    load_dense(attn.proj, params["proj"], col_perm=perm)
+
+
+@torch.no_grad()
+def load_gated_mlp(block: GatedMLPBlock, params: Mapping[str, Any]) -> None:
+    """A flax GatedMLPBlock (``RMSNorm_0``, ``GatedMLP_0.Dense_0/1``,
+    ``Dense_0``) into the port's (convert.py:_gated_mlp)."""
+    _copy(block.norm.scale, params["RMSNorm_0"]["scale"])
+    load_dense(block.gated.linear1, params["GatedMLP_0"]["Dense_0"])
+    load_dense(block.gated.linear2, params["GatedMLP_0"]["Dense_1"])
+    load_dense(block.out, params["Dense_0"])
+
+
+@torch.no_grad()
 def load_jax_params(simulator, params: Mapping[str, Any], sim_state) -> None:
-    """Fill an ``epd`` port Simulator from the JAX package's flax tree
-    (``{"params": {...}}`` or the inner dict) and its SimulatorState, both
-    with numpy leaves. ``sim_state`` is any object with the SimulatorState
-    fields (``output_norm``, ``node_norm``, ``edge_norm``, each with
-    ``acc_sum``, ``acc_sum_sq``, ``acc_count``, ``num_accumulations``)."""
+    """Fill a port Simulator (``epd`` or ``transformer``) from the JAX
+    package's flax tree (``{"params": {...}}`` or the inner dict) and its
+    SimulatorState, both with numpy leaves. ``sim_state`` is any object
+    with the SimulatorState fields (``output_norm``, ``node_norm``,
+    ``edge_norm``, each with ``acc_sum``, ``acc_sum_sq``, ``acc_count``,
+    ``num_accumulations``)."""
     tree = params.get("params", params)
     model = simulator.model
     blocks = sorted((k for k in tree if k.startswith("block_")), key=lambda k: int(k[6:]))
-    expected = {"nodes_encoder", "edges_encoder", "decode_module", *blocks}
+    transformer = isinstance(model, EncodeTransformDecode)
+    expected = {"nodes_encoder", "decode_module", *blocks} | (
+        set() if transformer else {"edges_encoder"})
     if set(tree) != expected or len(blocks) != len(model.processor_list):
-        raise ValueError(f"unexpected epd parameter tree: {sorted(tree)}")
+        kind = "transformer" if transformer else "epd"
+        raise ValueError(f"unexpected {kind} parameter tree: {sorted(tree)}")
     load_mlp(model.nodes_encoder, tree["nodes_encoder"], "nodes_encoder")
-    load_mlp(model.edges_encoder, tree["edges_encoder"], "edges_encoder")
     load_mlp(model.decode_module, tree["decode_module"], "decode_module")
     for name, block in zip(blocks, model.processor_list):
-        load_mlp(block.edge_block, tree[name]["edge_block"], f"{name}.edge_block")
-        load_mlp(block.node_block, tree[name]["node_block"], f"{name}.node_block")
+        p = tree[name]
+        if transformer:
+            _copy(block.norm1.scale, p["norm1"]["scale"])
+            _copy(block.norm2.scale, p["norm2"]["scale"])
+            load_attention(block.attention, p["attention"], f"{name}.attention")
+            load_gated_mlp(block.gated_mlp, p["gated_mlp"])
+        else:
+            load_mlp(block.edge_block, p["edge_block"], f"{name}.edge_block")
+            load_mlp(block.node_block, p["node_block"], f"{name}.node_block")
+    if not transformer:
+        load_mlp(model.edges_encoder, tree["edges_encoder"], "edges_encoder")
     _load_normalizer(simulator._output_normalizer, sim_state.output_norm)
     _load_normalizer(simulator._node_normalizer, sim_state.node_norm)
     if simulator._edge_normalizer is not None:

@@ -1,0 +1,117 @@
+"""Where the time of the PyTorch port's packed eval forward goes, on one NVIDIA GPU.
+
+    python3 scripts/profile_torch_forward.py [transformer|epd ...]   # default: both
+
+For each slice (``transformer``: entry.transformer_setup, 10 blocks, hidden
+64, B=64; ``epd``: entry.cylinder_setup, 5 blocks, hidden 32, B=128) and
+each path (kernel path, and the plain path with ``edge_tiling_nk = None``),
+runs ``torch.profiler`` over 10 forwards after 3 warm-up calls and prints,
+per forward: the host wall time (synchronised), the device time summed
+over kernels, the idle share (1 - device / wall) and the device time by
+kernel group (the port's kernels by name, GEMMs, elementwise, reductions,
+index ops, the rest), each with its launch count. The full per-kernel
+table goes to ``build/profile/profile_<slice>_<path>.txt`` (git-ignored). Builds the
+kernels first if needed; imports nothing of JAX.
+"""
+
+import copy
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT = ROOT / "build" / "profile"
+REPS, WARMUP = 10, 3
+#: kernel groups by a substring of the CUDA kernel's name, first match wins
+GROUPS = (
+    ("attention kernel (ea_nk_fwd)", ("ea_nk_fwd",)),
+    ("gated FFN kernel (ffn_fwd)", ("ffn_fwd",)),
+    ("GraphNetBlock kernel (gn_nk_fwd)", ("gn_nk_fwd",)),
+    ("GEMMs", ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")),
+    ("index ops", ("index", "gather", "scatter")),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def group_of(name):
+    low = name.lower()
+    for label, keys in GROUPS:
+        if any(k in low for k in keys):
+            return label
+    return "other"
+
+
+def profile(sim, graph, label, card):
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    def run():
+        with torch.inference_mode():
+            sim.forward(graph, is_training=False)
+
+    for _ in range(WARMUP):
+        run()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / REPS
+    groups = defaultdict(lambda: [0.0, 0])
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        g = groups[group_of(ev.key)]
+        g[0] += dev_us / 1e3 / REPS
+        g[1] += ev.count / REPS
+        rows.append((dev_us / 1e3 / REPS, ev.count / REPS, ev.key))
+    device_ms = sum(v[0] for v in groups.values())
+    print(f"{label}: host wall {wall_ms:.4f} ms per forward (profiled), device {device_ms:.4f} ms, "
+          f"idle share {1 - device_ms / wall_ms:.4f} ({card})", flush=True)
+    for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {name}: {ms:.4f} ms, {count:g} launches", flush=True)
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / f"profile_{label.replace(' ', '_')}.txt"
+    with open(path, "w") as f:
+        f.write(f"{label} ({card}); device ms per forward, launches per forward, kernel\n")
+        for ms, count, key in sorted(rows, reverse=True):
+            f.write(f"{ms:.5f}\t{count:g}\t{key}\n")
+    if device_ms == 0:
+        raise SystemExit("the profiler recorded no device time")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_forward: needs an NVIDIA GPU")
+    sys.path.insert(0, str(ROOT))
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import kernel_build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    kernel_build.build()
+    setups = {"transformer": entry.transformer_setup, "epd": entry.cylinder_setup}
+    for name in sys.argv[1:] or list(setups):
+        setup = setups[name]("cuda")
+        plain = copy.deepcopy(setup.simulator)
+        plain.model.edge_tiling_nk = None
+        b = setup.graph.x.shape[1]
+        profile(setup.simulator, setup.graph, f"{name} B={b} kernel path", card)
+        profile(plain, setup.graph, f"{name} B={b} plain path", card)
+        del setup, plain
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

@@ -8,7 +8,10 @@ Every test needs a card and skips without one. Tolerances are the JAX
 suite's: rtol = atol = 0.05 kernel vs plain version, 0.15 for the whole
 model against the plain edge-list path, 0.02 on a loss
 (tests/test_fused_gnblock_nk.py); the backward's bounds are
-graph_physics_tpu_torch/utils/gradcheck.py's.
+graph_physics_tpu_torch/utils/gradcheck.py's. For the transformer: rtol
+0.03, atol 0.02 for the attention kernel (tests/test_fused_edge_attention_nk.py:
+96-99), rtol = atol = 0.05 for the gated-FFN kernel (tests/test_fused_ffn.py:
+27-30) and 0.1 for the whole model (tests/test_fused_edge_attention_nk.py:171).
 """
 
 import copy
@@ -17,6 +20,12 @@ import pytest
 import torch
 
 from graph_physics_tpu_torch import entry
+from graph_physics_tpu_torch.models.layers import GatedMLPBlock, RMSNorm, reset_parameters
+from graph_physics_tpu_torch.ops.fused_edge_attention_nk import (
+    fused_edge_attention_nk,
+    fused_edge_attention_nk_reference,
+)
+from graph_physics_tpu_torch.ops.fused_ffn import fused_gated_ffn, gated_ffn_reference
 from graph_physics_tpu_torch.ops.fused_gnblock_nk import (
     fused_gn_block_nk,
     fused_gn_block_nk_reference,
@@ -143,3 +152,65 @@ def test_forward_goes_through_kernel_and_matches_plain_path(cuda_device):
     rows = graph.node_mask
     assert torch.isfinite(out.outputs).all()
     torch.testing.assert_close(out.net_out[rows], ref.net_out[rows], rtol=0.15, atol=0.15)
+
+
+# ---- the graph transformer's kernels ----------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [4, 33])
+def test_attention_kernel_matches_plain_version(cuda_device, batch):
+    setup = entry.transformer_setup(cuda_device, nx=20, ny=16, batch=batch, mp_steps=2)
+    g, nk = setup.graph, setup.tiling
+    gen = torch.Generator(device=cuda_device).manual_seed(batch)
+    q, k, v = [(0.5 * torch.randn((nk.num_nodes, batch, 4, 16), generator=gen,
+                                  device=cuda_device)).to(torch.bfloat16) for _ in range(3)]
+    mask = g.edge_mask.clone().view(nk.num_groups, nk.k_slots, nk.node_block)
+    mask[:, :, :3] = False  # three receivers per node block with no valid slot
+    for m in (g.edge_mask, mask.reshape(-1).contiguous()):
+        before = fused_edge_attention_nk.launches
+        out = fused_edge_attention_nk(q, k, v, g.senders, m, nk)
+        torch.cuda.synchronize()
+        assert fused_edge_attention_nk.launches == before + 1
+        ref = fused_edge_attention_nk_reference(q, k, v, g.senders, m, nk)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0.03, atol=0.02)
+    empty = out.view(nk.num_groups, nk.node_block, -1)[:, :3]
+    assert torch.equal(empty, torch.zeros_like(empty))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,use_silu", [(4, False), (33, False), (4, True)])
+def test_ffn_kernel_matches_plain_version(cuda_device, batch, use_silu):
+    gen = torch.Generator().manual_seed(batch)
+    block = GatedMLPBlock(64, 64, 64, use_silu=use_silu)
+    norm2 = RMSNorm(64)
+    reset_parameters(block, gen)
+    with torch.no_grad():
+        for norm in (block.norm, norm2):
+            norm.scale.copy_(1.0 + 0.2 * torch.randn(64, generator=gen))
+    block, norm2 = block.to(cuda_device), norm2.to(cuda_device)
+    x = torch.randn((384, batch, 64), generator=gen).to(cuda_device, torch.bfloat16)
+    with torch.no_grad():
+        before = fused_gated_ffn.launches
+        y = fused_gated_ffn(x, block, norm2)
+        torch.cuda.synchronize()
+        assert fused_gated_ffn.launches == before + 1
+        ref = gated_ffn_reference(x, block, norm2)
+    torch.testing.assert_close(y.float(), ref.float(), rtol=0.05, atol=0.05)
+
+
+@pytest.mark.cuda
+def test_transformer_forward_goes_through_both_kernels_and_matches_plain_path(cuda_device):
+    setup = entry.transformer_setup(cuda_device, nx=20, ny=16, batch=8, mp_steps=3)
+    sim, graph = setup.simulator, setup.graph
+    plain = copy.deepcopy(sim)
+    plain.model.edge_tiling_nk = None
+    before = (fused_edge_attention_nk.launches, fused_gated_ffn.launches)
+    out = sim.forward(graph, is_training=False)
+    torch.cuda.synchronize()
+    n_blocks = len(sim.model.processor_list)
+    assert (fused_edge_attention_nk.launches, fused_gated_ffn.launches) == (
+        before[0] + n_blocks, before[1] + n_blocks)
+    ref = plain.forward(graph, is_training=False)
+    rows = graph.node_mask
+    assert torch.isfinite(out.outputs).all()
+    torch.testing.assert_close(out.net_out[rows], ref.net_out[rows], rtol=0.1, atol=0.1)
