@@ -1,15 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the cylinder
-``epd`` inference and training paths and the graph-transformer inference
-path.
+``epd`` and the graph-transformer inference and training paths.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
   2. build: nvcc builds every kernel of the port from csrc/ (NK
-     GraphNetBlock forward and backward, NK edge attention, gated FFN),
-     one process per source, all at once;
+     GraphNetBlock, NK edge attention and gated FFN, each forward and
+     backward), one process per source, all at once;
   3. kernel check: each forward variant (folded encoder, middle block,
      last block) against its plain PyTorch version at the slice's shape
      (1,920 nodes x 128 samples x hidden 32, K=6 slots), same bf16 inputs;
@@ -37,7 +36,21 @@ Phases (any failure raises, so the exit code is non-zero):
      paths;
  11. transformer timing: both kernels, their plain versions and the
      library's masked attention, one middle block and the forward on
-     both paths.
+     both paths;
+ 12. transformer backward kernel checks at the same shape: the attention
+     backward and the gated-FFN backward (GELU with block 0's weights, and
+     SiLU) against their plain backwards, both against fp32 autograd
+     (utils/gradcheck.py); the attention's dk, dv also against plain
+     autograd of its forward's plain version; dq exactly 0 where a
+     receiver has no valid slot;
+ 13. transformer training: 20 train steps of scripts/bench_models.py's
+     transformer step (B=64, noise σ=0.02, masked L2, AdamW with warmup)
+     on the kernel path, 10 forward and 10 backward launches of each
+     kernel a step, against the same steps on the plain path;
+ 14. transformer train timing: each backward kernel, its plain backward,
+     the library's masked attention forward + backward, one middle block
+     forward + backward and the train step on both paths, with the host's
+     time to enqueue a step and the syncs a step makes.
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds).
 It imports nothing of JAX.
@@ -49,6 +62,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -95,6 +109,12 @@ ATTN = {"name": "fused_edge_attention_nk",
         "replaces": "graph_physics_tpu/ops/fused_edge_attention_nk.py:476"}
 FFN = {"name": "fused_gated_ffn", "source": "graph_physics_tpu_torch/csrc/fused_ffn.cu",
        "replaces": "graph_physics_tpu/ops/fused_ffn.py:74"}
+ATTN_BWD = {"name": "fused_edge_attention_nk_backward",
+            "source": "graph_physics_tpu_torch/csrc/fused_edge_attention_nk_bwd.cu",
+            "replaces": "graph_physics_tpu/ops/fused_edge_attention_nk.py:495"}
+FFN_BWD = {"name": "fused_gated_ffn_backward",
+           "source": "graph_physics_tpu_torch/csrc/fused_ffn_bwd.cu",
+           "replaces": "graph_physics_tpu/ops/fused_ffn.py:99"}
 
 
 def log(*args):
@@ -170,8 +190,8 @@ def cuda_ms(fn, warmup=3, reps=20):
 
 
 def log_grad_rows(rows):
-    """dx and de in full; the weight gradients as their worst values; any
-    row out of bounds in full."""
+    """The streams (activation gradients) in full; the weight gradients as
+    their worst values; any row out of bounds in full."""
     def line(r):
         if not r.get("finite", True):
             return f"  {r['name']}: non-finite values"
@@ -182,9 +202,9 @@ def log_grad_rows(rows):
                 f"plain {r['plain_fp32_l2']:.6g}, max/|max| kernel {r['kernel_fp32_max']:.6g} "
                 f"plain {r['plain_fp32_max']:.6g}{'' if r['ok'] else '  <-- OUT OF BOUNDS'}")
 
-    weights = [r for r in rows if r["name"] not in ("dx", "de") and r.get("finite", True)]
+    weights = [r for r in rows if "outside" not in r and r.get("finite", True)]
     for r in rows:
-        if r["name"] in ("dx", "de") or not r["ok"]:
+        if "outside" in r or not r["ok"]:
             log(line(r))
     if weights:
         def worst(key):
@@ -199,10 +219,10 @@ def log_grad_rows(rows):
             f"{mx['plain_fp32_max']:.6g} ({mx['name']})")
 
 
-def train_run(step, state, sim, graph, seed, n_steps, kernel=None):
+def train_run(step, state, sim, graph, seed, n_steps, kernels=()):
     """``n_steps`` train steps of ``sim`` with noise from a generator seeded
-    with ``seed``; returns (losses, grad norms, launches per step as
-    (forward, backward) when ``kernel`` is the wrapper, and the unclipped
+    with ``seed``; returns (losses, grad norms, launches per step of each
+    wrapper in ``kernels`` as (forward, backward) pairs, and the unclipped
     gradients of step 1 by parameter name)."""
     import torch
 
@@ -210,16 +230,83 @@ def train_run(step, state, sim, graph, seed, n_steps, kernel=None):
     params = dict(sim.named_parameters())
     losses, norms, launches, grads = [], [], [], None
     for i in range(1, n_steps + 1):
-        before = (kernel.launches, kernel.backward_launches) if kernel else (0, 0)
+        before = [(k.launches, k.backward_launches) for k in kernels]
         m = step(state, graph, gen)
-        if kernel:
-            launches.append((kernel.launches - before[0], kernel.backward_launches - before[1]))
+        launches.append(tuple((k.launches - f, k.backward_launches - b)
+                              for k, (f, b) in zip(kernels, before)))
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
         if i == 1:  # undo the clip: g · min(1, clip / norm)
             undo = max(norms[-1] / state.optimizer.grad_clip, 1.0)
             grads = {k: p.grad.float() * undo for k, p in params.items()}
     return losses, norms, launches, grads
+
+
+def training_phase(label, train, kernels, seed):
+    """``TRAIN_STEPS`` steps of ``train`` (an entry train setup) on the
+    kernel path, counts set to 0 just before, against the same steps on a
+    copy whose blocks all take the plain path, from the same weights and
+    noise. Every wrapper in ``kernels`` must launch once forward and once
+    backward per block and step; the step-1 loss and gradients and the
+    later losses must agree. Returns (plain simulator, its state and step,
+    {wrapper name: (forward, backward) launches in all})."""
+    import torch
+    from graph_physics_tpu_torch import entry
+
+    tgraph = train.graph
+    n_blocks = len(train.simulator.model.processor_list)
+    plain_sim = copy.deepcopy(train.simulator)
+    plain_sim.model.edge_tiling_nk = None
+    plain_state, plain_step = entry.make_trainer(plain_sim)
+    fg = step1_fp32_grads(plain_sim, tgraph, seed)
+    for k in kernels:
+        k.launches = k.backward_launches = 0
+    kl, kn, per_step, kg = train_run(train.train_step, train.state, train.simulator, tgraph,
+                                     seed, TRAIN_STEPS, kernels)
+    torch.cuda.synchronize()
+    launches = {k.__name__: (k.launches, k.backward_launches) for k in kernels}
+    pl, pn, _, pg = train_run(plain_step, plain_state, plain_sim, tgraph, seed, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    log(f"{label} ({TRAIN_STEPS} steps, B={tgraph.x.shape[1]}): launches per step "
+        f"(forward, backward) of {', '.join(launches)}: {sorted(set(per_step))}; in all "
+        f"{list(launches.values())}")
+    log("  loss, kernel path:      " + " ".join(f"{v:.6g}" for v in kl))
+    log("  loss, plain path:       " + " ".join(f"{v:.6g}" for v in pl))
+    log("  grad_norm, kernel path: " + " ".join(f"{v:.6g}" for v in kn))
+    log("  grad_norm, plain path:  " + " ".join(f"{v:.6g}" for v in pn))
+    want = tuple((n_blocks, n_blocks) for _ in kernels)
+    if any(s != want for s in per_step):
+        raise AssertionError(f"{label}: expected {n_blocks} forward and {n_blocks} backward "
+                             f"launches of each kernel per train step, got {per_step}")
+    if not all(map(lambda v: v == v and abs(v) != float("inf"), kl + kn + pl + pn)):
+        raise AssertionError(f"{label}: non-finite loss or gradient norm")
+    loss_rel = [abs(a - c) / abs(c) for a, c in zip(kl, pl)]
+    log(f"  loss relative difference: step 1 {loss_rel[0]:.6g} (limit {STEP1_LOSS_RTOL}), "
+        f"steps 2-{TRAIN_STEPS} max {max(loss_rel[1:]):.6g} (limit {LATER_LOSS_RTOL})")
+    names = sorted(pg)
+    if sorted(kg) != names or sorted(fg) != names:
+        raise AssertionError(f"{label}: the paths have gradients for different parameters")
+    flat = {k: torch.cat([g[n].flatten() for n in names]) for k, g in
+            (("kernel", kg), ("plain", pg), ("fp32", fg))}
+    grad_rel = ((flat["kernel"] - flat["plain"]).abs().max()
+                / flat["plain"].abs().max()).item()
+    per_param = {n: ((kg[n] - pg[n]).abs().max() / pg[n].abs().max().clamp_min(1e-30)).item()
+                 for n in names}
+    worst = max(per_param, key=per_param.get)
+    l2 = {k: ((flat[k] - flat["fp32"]).norm() / flat["fp32"].norm()).item()
+          for k in ("kernel", "plain")}
+    log(f"  step-1 gradients over {len(names)} parameters: max |a-b| / max|b| {grad_rel:.6g} "
+        f"(limit {STEP1_GRAD_REL}); per parameter at most {per_param[worst]:.6g} ({worst}); "
+        f"rel L2 against the fp32 plain path: kernel path {l2['kernel']:.6g}, "
+        f"plain path {l2['plain']:.6g}")
+    if loss_rel[0] > STEP1_LOSS_RTOL or max(loss_rel[1:]) > LATER_LOSS_RTOL:
+        raise AssertionError(f"{label}: loss of the kernel path is off the plain path's")
+    if grad_rel > STEP1_GRAD_REL:
+        raise AssertionError(f"{label}: step-1 gradients off the plain path's")
+    for k, p in train.simulator.named_parameters():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"{label}: parameter {k} is not finite")
+    return plain_sim, plain_state, plain_step, launches
 
 
 def step1_fp32_grads(sim, graph, seed):
@@ -401,54 +488,8 @@ def main():
     # 7. training: bench.py's step, kernel path against the plain path
     train = entry.cylinder_train_setup(device)
     tgraph = train.graph
-    plain_train_sim = copy.deepcopy(train.simulator)
-    plain_train_sim.model.edge_tiling_nk = None
-    plain_state, plain_step = entry.make_trainer(plain_train_sim)
-    fg = step1_fp32_grads(plain_train_sim, tgraph, 7)
-    kernel.launches = kernel.backward_launches = 0
-    kl, kn, per_step, kg = train_run(train.train_step, train.state, train.simulator, tgraph, 7,
-                                     TRAIN_STEPS, kernel=kernel)
-    torch.cuda.synchronize()
-    train_launches = (kernel.launches, kernel.backward_launches)
-    pl, pn, _, pg = train_run(plain_step, plain_state, plain_train_sim, tgraph, 7, TRAIN_STEPS)
-    torch.cuda.synchronize()
-    log(f"training ({TRAIN_STEPS} steps, B={tgraph.x.shape[1]}): launches per step "
-        f"(forward, backward): {sorted(set(per_step))}; in all {train_launches}")
-    log("  loss, kernel path:      " + " ".join(f"{v:.6g}" for v in kl))
-    log("  loss, plain path:       " + " ".join(f"{v:.6g}" for v in pl))
-    log("  grad_norm, kernel path: " + " ".join(f"{v:.6g}" for v in kn))
-    log("  grad_norm, plain path:  " + " ".join(f"{v:.6g}" for v in pn))
-    if any(s != (n_blocks, n_blocks) for s in per_step):
-        raise AssertionError(f"expected {n_blocks} forward and {n_blocks} backward launches "
-                             f"per train step, got {per_step}")
-    if not all(map(lambda v: v == v and abs(v) != float("inf"), kl + kn + pl + pn)):
-        raise AssertionError("training: non-finite loss or gradient norm")
-    loss_rel = [abs(a - c) / abs(c) for a, c in zip(kl, pl)]
-    log(f"  loss relative difference: step 1 {loss_rel[0]:.6g} (limit {STEP1_LOSS_RTOL}), "
-        f"steps 2-{TRAIN_STEPS} max {max(loss_rel[1:]):.6g} (limit {LATER_LOSS_RTOL})")
-    names = sorted(pg)
-    if sorted(kg) != names or sorted(fg) != names:
-        raise AssertionError("training: the paths have gradients for different parameters")
-    flat = {k: torch.cat([g[n].flatten() for n in names]) for k, g in
-            (("kernel", kg), ("plain", pg), ("fp32", fg))}
-    grad_rel = ((flat["kernel"] - flat["plain"]).abs().max()
-                / flat["plain"].abs().max()).item()
-    per_param = {n: ((kg[n] - pg[n]).abs().max() / pg[n].abs().max().clamp_min(1e-30)).item()
-                 for n in names}
-    worst = max(per_param, key=per_param.get)
-    l2 = {k: ((flat[k] - flat["fp32"]).norm() / flat["fp32"].norm()).item()
-          for k in ("kernel", "plain")}
-    log(f"  step-1 gradients over {len(names)} parameters: max |a-b| / max|b| {grad_rel:.6g} "
-        f"(limit {STEP1_GRAD_REL}); per parameter at most {per_param[worst]:.6g} ({worst}); "
-        f"rel L2 against the fp32 plain path: kernel path {l2['kernel']:.6g}, "
-        f"plain path {l2['plain']:.6g}")
-    if loss_rel[0] > STEP1_LOSS_RTOL or max(loss_rel[1:]) > LATER_LOSS_RTOL:
-        raise AssertionError("training: loss of the kernel path is off the plain path's")
-    if grad_rel > STEP1_GRAD_REL:
-        raise AssertionError("training: step-1 gradients off the plain path's")
-    for k, p in train.simulator.named_parameters():
-        if not torch.isfinite(p).all():
-            raise AssertionError(f"training: parameter {k} is not finite")
+    _, plain_state, plain_step, train_launches = training_phase("training", train, [kernel], 7)
+    train_launches = train_launches[kernel.__name__]
 
     # 8. timing: one B=128 forward and one train step, kernel path vs plain path
     fwd_ms = cuda_ms(lambda: sim.forward(graph, is_training=False))
@@ -464,8 +505,11 @@ def main():
                                 "train_step_ms": step_ms, "train_step_plain_ms": step_plain_ms,
                                 "blocks": timing, "backward_blocks": bwd_timing}))
 
-    # 9.-11. the graph transformer's inference path
+    # 9.-11. the graph transformer's inference path; 12.-14. its train step
     tf_records = transformer_phases(device, card)
+    tf_train_records, tf_train_launches = transformer_train_phases(device, card)
+    for rec in tf_records:  # the forward kernels also ran in the train steps
+        rec["launches"] += tf_train_launches[rec["name"]][0]
 
     fwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1]))
     bwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1], backward=True))
@@ -480,6 +524,7 @@ def main():
              plain_ms=bwd_timing["middle"]["plain_ms"], bound_ms=bwd_bound[0],
              bound_by=bwd_bound[1], library_ms=None),
         *tf_records,
+        *tf_train_records,
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -656,6 +701,211 @@ def transformer_phases(device, card):
              plain_ms=ffn_t["plain_ms"], bound_ms=ffn_bound[0], bound_by=ffn_bound[1],
              library_ms=None),
     ]
+
+
+def transformer_train_phases(device, card):
+    """Phases 12-14 on the graph transformer's train step
+    (scripts/bench_models.py:62-99 for ``transformer_nk``, :142-166: 10
+    blocks, hidden 64, 4 heads, B=64); returns the backward kernels'
+    records and {wrapper name: (forward, backward) launches} of phase 13."""
+    import torch
+    import torch.nn.functional as F
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.models.layers import ACTIVATIONS
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+    from graph_physics_tpu_torch.utils import gradcheck
+
+    attn, ffn = ea_ops.fused_edge_attention_nk, ffn_ops.fused_gated_ffn
+    train = entry.transformer_train_setup(device)
+    sim, graph, nk = train.simulator, train.graph, train.tiling
+    blocks = sim.model.processor_list
+    n, b = graph.x.shape[:2]
+    hidden = sim.model.hidden_size
+    heads = blocks[0].attention.num_heads
+    dh = hidden // heads
+    valid_slots = int(graph.edge_mask.sum())
+    senders, mask = graph.senders, graph.edge_mask
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def randn(*shape, scale=0.5):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    # 12. backward kernel checks at the slice's shape: each kernel against
+    # its plain backward and both against fp32 autograd (utils/gradcheck.py)
+    q, k, v = (randn(n, b, heads, dh) for _ in range(3))
+    cot = randn(n, b, heads, dh, scale=1.0)
+
+    def attention(fn, m=mask):
+        return lambda *qkv: (fn(*qkv, senders, m, nk), [])
+
+    def attention_grads(m):
+        """(kernel, plain backward, fp32) gradients and the kernel's and plain
+        backward's retained graphs, with ``m`` as the slot mask."""
+        before = attn.backward_launches
+        gk, kept_k = gradcheck.grads_of(attention(attn, m), (q, k, v), [cot])
+        torch.cuda.synchronize()
+        if attn.backward_launches != before + 1:
+            raise AssertionError("attention: the backward kernel did not launch once")
+        gp, kept_p = gradcheck.grads_of(attention(ea_ops.reference_with_backward, m), (q, k, v),
+                                        [cot])
+        gf, _ = gradcheck.grads_of(attention(ea_ops.fused_edge_attention_nk_reference, m),
+                                   (q.float(), k.float(), v.float()), [cot])
+        return gk, gp, gf, kept_k, kept_p
+
+    names = ("dq", "dk", "dv")
+    gk, gp, gf, kept_k, kept_p = attention_grads(mask)
+    rows, ok = gradcheck.compare_grads(names, gk, gp, gf, names)
+    log("attention backward kernel check (against the plain backward; both against fp32)")
+    log_grad_rows(rows)
+    ga, _ = gradcheck.grads_of(attention(ea_ops.fused_edge_attention_nk_reference), (q, k, v),
+                               [cot])
+    rows_a, ok_a = gradcheck.compare_grads(names[1:], gk[1:], ga[1:], gf[1:], names)
+    log("  dk, dv against plain bf16 autograd of the forward's plain version")
+    log_grad_rows(rows_a)
+    attn_bwd_err = max(r.get("max_abs_err", float("inf")) for r in rows)
+    # 14. (kernel part) the backward kernel, its plain backward, and the
+    # library's masked attention forward + backward on the same q, k, v
+    attn_t = {"ms": cuda_ms(lambda: torch.autograd.grad(*kept_k, retain_graph=True)),
+              "plain_ms": cuda_ms(lambda: torch.autograd.grad(*kept_p, retain_graph=True))}
+    del kept_k, kept_p, gk, gp, gf, ga
+    g_, nb_ = nk.num_groups, nk.node_block
+    mask_e = mask.clone().view(g_, nk.k_slots, nb_)
+    mask_e[:, :, :EMPTY_RECEIVERS] = False
+    mask_e = mask_e.reshape(-1).contiguous()
+    ge, gpe, gfe, _, _ = attention_grads(mask_e)
+    rows_e, ok_e = gradcheck.compare_grads(names, ge, gpe, gfe, names)
+    log(f"  {EMPTY_RECEIVERS} receivers a node block without a valid slot")
+    log_grad_rows(rows_e)
+    empty = ge[0].view(g_, nb_, -1)[:, :EMPTY_RECEIVERS]
+    if not torch.equal(empty, torch.zeros_like(empty)):
+        raise AssertionError("attention backward: dq of a receiver without valid slots is not 0")
+    log(f"  dq of the {g_ * EMPTY_RECEIVERS} receivers without a valid slot: exact zeros")
+    if not (ok and ok_a and ok_e):
+        raise AssertionError("attention backward kernel out of bounds")
+    del ge, gpe, gfe
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    attn_t["fwd_bwd_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(attn(*leaves, senders, mask, nk), leaves, cot))
+    adj = torch.zeros((n, n), dtype=torch.bool, device=device)
+    adj[graph.receivers[mask].long(), senders[mask].long()] = True
+    dense = [t.permute(1, 2, 0, 3).contiguous().requires_grad_(True) for t in (q, k, v)]
+    cot_d = cot.permute(1, 2, 0, 3).contiguous()
+    attn_t["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*dense, attn_mask=adj), dense, cot_d))
+    del adj, dense, cot_d, leaves
+    log(f"  attention backward time: kernel {attn_t['ms']:.4f} ms, plain backward "
+        f"{attn_t['plain_ms']:.4f} ms; forward + backward: kernels {attn_t['fwd_bwd_ms']:.4f} ms, "
+        f"scaled_dot_product_attention with the adjacency mask {attn_t['library_ms']:.4f} ms "
+        f"({card})")
+
+    blk0 = blocks[0]
+    x = randn(n, b, hidden, scale=1.0)
+    cot_x = randn(n, b, hidden, scale=1.0)
+    ffn_names = ["dx", "norm2.scale", "norm.scale", "W1", "b1", "W2", "b2", "W3", "b3"]
+    silu_mlp = copy.deepcopy(blk0.gated_mlp)
+    silu_mlp.gated.use_silu, silu_mlp.gated.act_fn = True, ACTIVATIONS["silu"]
+
+    def feed_forward(fn, mlp, norm2):
+        return lambda xx: (fn(xx, mlp, norm2), ffn_ops._params(mlp, norm2))
+
+    ffn_errs = []
+    for act, mlp in (("gelu", blk0.gated_mlp), ("silu", silu_mlp)):
+        norm2 = blk0.norm2
+        before = ffn.backward_launches
+        f_rows, f_ok, kept = gradcheck.check_backward(
+            ffn_names, ("dx",), feed_forward(ffn, mlp, norm2),
+            feed_forward(ffn_ops.reference_with_backward, mlp, norm2),
+            feed_forward(ffn_ops.gated_ffn_reference, gradcheck.rounded_copy(mlp),
+                         gradcheck.rounded_copy(norm2)), [x], [cot_x])
+        torch.cuda.synchronize()
+        log(f"gated FFN backward kernel check ({act}, block 0's weights; against the plain "
+            f"backward, both against fp32)")
+        log_grad_rows(f_rows)
+        if ffn.backward_launches != before + 1:
+            raise AssertionError("gated FFN: the backward kernel did not launch once")
+        if not f_ok:
+            raise AssertionError(f"gated FFN backward kernel ({act}) out of bounds")
+        ffn_errs.append(max(r.get("max_abs_err", float("inf")) for r in f_rows))
+        if act == "gelu":  # 14. (kernel part)
+            ffn_t = {"ms": cuda_ms(lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True)),
+                     "plain_ms": cuda_ms(lambda: torch.autograd.grad(*kept["plain"],
+                                                                     retain_graph=True))}
+        del kept
+    log(f"  gated FFN backward time: kernel {ffn_t['ms']:.4f} ms, plain backward "
+        f"{ffn_t['plain_ms']:.4f} ms ({card})")
+
+    # 13. training: 20 steps of the train step, kernel path against the plain path
+    gn = nk_ops.fused_gn_block_nk
+    gn.launches = gn.backward_launches = 0
+    _, plain_state, plain_step, launches = training_phase("transformer training", train,
+                                                          [attn, ffn], 9)
+    if gn.launches or gn.backward_launches:
+        raise AssertionError("transformer training launched the GraphNetBlock kernels")
+
+    # 14. timing: one middle block forward + backward and the train step,
+    # kernel path vs plain path
+    mid = blocks[len(blocks) // 2]
+    xb = randn(n, b, hidden, scale=1.0).requires_grad_(True)
+    cot_b = randn(n, b, hidden, scale=1.0)
+    wrt = [xb, *mid.parameters()]
+
+    def block_fwd_bwd(tiling):
+        y = mid(xb, senders, graph.receivers, mask, graph.node_mask, graph.pos, nk_tiling=tiling)
+        return torch.autograd.grad(y, wrt, cot_b)
+
+    block_ms = cuda_ms(lambda: block_fwd_bwd(nk))
+    block_plain_ms = cuda_ms(lambda: block_fwd_bwd(None))
+    tgen = torch.Generator(device=device).manual_seed(10)
+    step_ms = cuda_ms(lambda: train.train_step(train.state, graph, tgen), warmup=2, reps=10)
+    step_plain_ms = cuda_ms(lambda: plain_step(plain_state, graph, tgen), warmup=2, reps=10)
+    # is the kernel path's step bound by the host? the host's time to
+    # enqueue one step from a synchronised start, and the device-to-host
+    # synchronisations one step makes (logged, not bounded)
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train.train_step(train.state, graph, tgen)
+        enqueue.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        train.train_step(train.state, graph, tgen)
+    torch.cuda.set_sync_debug_mode("default")
+    enqueue_ms = statistics.median(enqueue)
+    log(f"transformer train step B={b}: kernel path {step_ms:.4f} ms "
+        f"({1000 * b / step_ms:.1f} graph-steps/s; the host enqueues a step in {enqueue_ms:.4f} "
+        f"ms, {len(syncs)} device-to-host syncs a step), plain path {step_plain_ms:.4f} ms "
+        f"({1000 * b / step_plain_ms:.1f} graph-steps/s); middle block forward + backward "
+        f"{block_ms:.4f} ms, plain {block_plain_ms:.4f} ms ({card})")
+    log("transformer train timing " + json.dumps({
+        "card": card, "train_step_ms": step_ms, "train_step_plain_ms": step_plain_ms,
+        "train_step_host_enqueue_ms": enqueue_ms, "train_step_syncs": len(syncs),
+        "block_fwd_bwd_ms": block_ms, "block_fwd_bwd_plain_ms": block_plain_ms,
+        "attention_backward": attn_t, "ffn_backward": ffn_t}))
+
+    # bounds from this run's inputs: q, k, v, g_out read and dq, dk, dv
+    # written (bf16), the slot arrays read, 5 products of dh per valid slot,
+    # sample and head; x, g read and dx written, the fp32 weights read and
+    # their gradients written, 8 products of 64 x 192 per row
+    attn_bound = bound(2 * 7 * q.numel() + 5 * nk.total_rows, valid_slots * b * heads * 10 * dh)
+    ffn_params = ffn_ops._params(blk0.gated_mlp, blk0.norm2)
+    ffn_bound = bound(2 * 3 * x.numel() + 8 * sum(p.numel() for p in ffn_params),
+                      2 * 8 * n * b * blk0.gated_mlp.gated.linear1.weight.numel())
+    log(f"  bounds: attention backward {attn_bound[0]:.6g} ms ({attn_bound[1]}), gated FFN "
+        f"backward {ffn_bound[0]:.6g} ms ({ffn_bound[1]})")
+    records = [
+        dict(ATTN_BWD, route="cuda", launches=launches[attn.__name__][1], max_abs_err=attn_bwd_err,
+             ms=attn_t["ms"], plain_ms=attn_t["plain_ms"], bound_ms=attn_bound[0],
+             bound_by=attn_bound[1], library_ms=attn_t["library_ms"]),
+        dict(FFN_BWD, route="cuda", launches=launches[ffn.__name__][1], max_abs_err=max(ffn_errs),
+             ms=ffn_t["ms"], plain_ms=ffn_t["plain_ms"], bound_ms=ffn_bound[0],
+             bound_by=ffn_bound[1], library_ms=None),
+    ]
+    return records, launches
 
 
 if __name__ == "__main__":

@@ -30,49 +30,15 @@
 // bound on K (8, 16 or 32), so a mesh with K=6 keeps registers, and
 // warps per SM, to what it needs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "ea_nk_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int MAXK = 32;  // most slots per receiver of the widest instance
-
-__device__ __forceinline__ float bf(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-
-// the DH bf16 values at src (16-byte aligned) as floats
-template <int DH>
-__device__ __forceinline__ void load_vec(float (&v)[DH], const __nv_bfloat16* src) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-  for (int c = 0; c < DH / 8; ++c) {
-    const uint4 u = __ldg(s + c);
-    const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      v[8 * c + 2 * q] = __uint_as_float(wd[q] << 16);
-      v[8 * c + 2 * q + 1] = __uint_as_float(wd[q] & 0xffff0000u);
-    }
-  }
-}
-
-template <int DH>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* dst, const float (&v)[DH]) {
-  uint4* d = reinterpret_cast<uint4*>(dst);
-#pragma unroll
-  for (int c = 0; c < DH / 8; ++c) {
-    uint32_t wd[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const uint32_t lo = __float_as_uint(bf(v[8 * c + 2 * q])) >> 16;
-      const uint32_t hi = __float_as_uint(bf(v[8 * c + 2 * q + 1])) & 0xffff0000u;
-      wd[q] = lo | hi;
-    }
-    d[c] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
-  }
-}
+using ea_nk::bf;
+using ea_nk::load_vec;
+using ea_nk::MAXK;
+using ea_nk::store_vec;
+using ea_nk::THREADS;
 
 struct Args {
   const __nv_bfloat16* q;  // [N, B, H, dh]
@@ -147,9 +113,7 @@ __global__ void __launch_bounds__(THREADS) ea_nk_fwd_kernel(const Args a) {
 
 template <int DH, int KMAX>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const long long total = static_cast<long long>(a.n_nodes) * a.batch * a.heads;
-  long long grid = (total + THREADS - 1) / THREADS;
-  if (grid > (1LL << 30)) grid = 1LL << 30;
+  const long long grid = ea_nk::grid_for(static_cast<long long>(a.n_nodes) * a.batch * a.heads);
   ea_nk_fwd_kernel<DH, KMAX><<<static_cast<int>(grid), THREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }

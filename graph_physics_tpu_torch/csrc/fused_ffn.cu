@@ -30,17 +30,21 @@
 // middle never leaves registers. Weight reads are float4 broadcasts from
 // shared memory, one load feeding four FMAs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ffn_common.cuh"
 
 namespace {
 
-constexpr int H = 64;          // hidden width
-constexpr int W = 3 * H;       // middle width
+using ffn::act;
+using ffn::bf;
+using ffn::H;
+using ffn::load_row;
+using ffn::pack2;
+using ffn::rms_norm;
+using ffn::THREADS;
+using ffn::W;
+
 constexpr int CH = 8;          // middle columns per chunk
 constexpr int NC = W / CH;     // chunks
-constexpr int THREADS = 256;
 // shared memory, in floats: [H][NC][2*CH] W1|W2 chunks, [W][H] W3, biases, scales
 constexpr int OFF_W3 = H * W * 2;
 constexpr int OFF_B1 = OFF_W3 + W * H;
@@ -49,8 +53,6 @@ constexpr int OFF_B3 = OFF_B2 + W;
 constexpr int OFF_S2 = OFF_B3 + H;
 constexpr int OFF_S = OFF_S2 + H;
 constexpr int SMEM_FLOATS = OFF_S + H;
-
-__device__ __forceinline__ float bf(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
 struct Args {
   const __nv_bfloat16* x;  // [rows, H]
@@ -66,35 +68,6 @@ struct Args {
   long long rows;
   int silu;
 };
-
-__device__ __forceinline__ void load_row(float (&v)[H], const __nv_bfloat16* src) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-  for (int c = 0; c < H / 8; ++c) {
-    const uint4 u = __ldg(s + c);
-    const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      v[8 * c + 2 * q] = __uint_as_float(wd[q] << 16);
-      v[8 * c + 2 * q + 1] = __uint_as_float(wd[q] & 0xffff0000u);
-    }
-  }
-}
-
-// _rms_fwd on one row of bf16 values, in place
-__device__ __forceinline__ void rms_norm(float (&v)[H], const float* scale) {
-  float gs = 0.f;
-#pragma unroll
-  for (int o = 0; o < H; ++o) gs += bf(v[o] * v[o]);
-  const float rms = sqrtf(gs + 1e-24f) / sqrtf(static_cast<float>(H));
-  const float inv = bf(1.0f / (rms + 1e-8f));
-#pragma unroll
-  for (int o = 0; o < H; ++o) v[o] = bf(bf(v[o] * inv) * scale[o]);
-}
-
-__device__ __forceinline__ float act(float a, int silu) {
-  return silu ? a / (1.0f + expf(-a)) : 0.5f * a * (1.0f + erff(a * 0.7071067811865476f));
-}
 
 __global__ void __launch_bounds__(THREADS, 1) ffn_fwd_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
@@ -129,8 +102,7 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_fwd_kernel(const Args a) {
       rms_norm(v, smem + OFF_S2);
       rms_norm(v, smem + OFF_S);
 #pragma unroll
-      for (int i = 0; i < H / 2; ++i)
-        npk[i] = (__float_as_uint(v[2 * i]) >> 16) | (__float_as_uint(v[2 * i + 1]) & 0xffff0000u);
+      for (int i = 0; i < H / 2; ++i) npk[i] = pack2(v[2 * i], v[2 * i + 1]);
     }
 
     float out[H];
@@ -191,7 +163,7 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_fwd_kernel(const Args a) {
         const int o = 8 * c + 2 * q;
         const float lo = bf(xv[o] + bf(bf(out[o]) + smem[OFF_B3 + o]));
         const float hi = bf(xv[o + 1] + bf(bf(out[o + 1]) + smem[OFF_B3 + o + 1]));
-        wd[q] = (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
+        wd[q] = pack2(lo, hi);
       }
       d[c] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
     }

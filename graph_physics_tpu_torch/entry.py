@@ -1,5 +1,5 @@
-"""Setups of the port on the synthetic cylinder mesh: ``epd`` inference
-and training, and graph-transformer inference.
+"""Setups of the port on the synthetic cylinder mesh: ``epd`` and
+graph-transformer inference and training.
 
 Counterpart of __graft_entry__._cylinder_setup / entry:
 ``cylinder_setup`` builds the ``epd`` inference slice,
@@ -8,7 +8,8 @@ adds bench.py's optimizer, noise and loss, and
 ``setup.train_step(setup.state, setup.graph, generator)`` takes one step.
 ``transformer_setup`` builds the graph-transformer slice of
 scripts/bench_models.py (``transformer_nk``: 10 blocks, hidden 64, 4
-heads, B=64) on the same mesh and NK layout.
+heads, B=64) on the same mesh and NK layout, and
+``transformer_train_setup`` its training step.
 The mesh is the 48x40 synthetic cylinder (1,920 nodes, ~11.2k directed
 edges), its NK slot layout (K=6 slots x 1,920 receivers), a packed batch
 of B copies of frame 0 on a device, and a model with weights drawn from a
@@ -193,6 +194,18 @@ def cylinder_train_setup(device="cuda", *, batch: int = 128, seed: int = 0, **kw
     """``cylinder_setup`` with fresh normalizer statistics and
     :func:`make_trainer`'s training step. ``kw`` goes to ``cylinder_setup``."""
     base = cylinder_setup(device, batch=batch, seed=seed, accumulate_stats=False, **kw)
+    state, step = make_trainer(base.simulator)
+    return CylinderTrainSetup(simulator=base.simulator, graph=base.graph, tiling=base.tiling,
+                              state=state, train_step=step)
+
+
+def transformer_train_setup(device="cuda", *, batch: int = 64, seed: int = 0,
+                            **kw) -> CylinderTrainSetup:
+    """``transformer_setup`` with fresh normalizer statistics and
+    :func:`make_trainer`'s training step: the train step of
+    scripts/bench_models.py:62-99 for ``transformer_nk`` (:142-166). ``kw``
+    goes to ``transformer_setup``."""
+    base = transformer_setup(device, batch=batch, seed=seed, accumulate_stats=False, **kw)
     state, step = make_trainer(base.simulator)
     return CylinderTrainSetup(simulator=base.simulator, graph=base.graph, tiling=base.tiling,
                               state=state, train_step=step)

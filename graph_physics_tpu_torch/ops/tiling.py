@@ -18,7 +18,7 @@ graph identically.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import numpy as np
@@ -47,6 +47,9 @@ class NKTiling:
     k_slots: int  # K
     node_block: int  # nb
     num_nodes: int  # padded node count (multiple of node_block)
+    #: device data the kernels' wrappers derive from a graph in this layout
+    #: and reuse across calls (the attention backward's slot-table transpose)
+    derived: dict = field(default_factory=dict, repr=False)
 
     @property
     def num_groups(self) -> int:

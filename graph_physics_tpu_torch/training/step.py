@@ -6,8 +6,9 @@ path: MultiLoss, spatial MTP, data parallelism and gumbel noise are not
 ported. PyTorch runs it eagerly where JAX jits it: the parameters and
 normalizer statistics (JAX's params and SimulatorState) live in the
 Simulator module and are updated in place; the TrainState holds the
-AdamW state and the step count. On a bf16 packed NK graph on a card, the forward of every
-GraphNetBlock is the fused kernel and its gradient the backward kernel.
+AdamW state and the step count. On a bf16 packed NK graph on a card, the
+forward of every GraphNetBlock, and of every TransformerBlock's attention
+and gated FFN, is a fused kernel and its gradient a backward kernel.
 """
 
 from __future__ import annotations

@@ -1,27 +1,33 @@
-"""Gradients of one NK GraphNetBlock, and the bounds that hold the backward
-kernel against the plain version's autograd on a card.
+"""Gradients through a kernel, its plain version and fp32, and the bounds
+that hold a backward kernel against them on a card.
 
-Two bf16 backwards of the same block disagree in a few values however
+A backward kernel is held three ways on the same bf16 inputs: against its
+plain PyTorch version in bf16, and, beside that plain version, against
+the fp32 gradient (fp32 inputs holding the bf16 values, parameters
+rounded to their bf16 values, as the kernels use them).
+
+Two bf16 backwards of the same function disagree in a few values however
 carefully they round: where a pre-activation lies within a bf16 rounding
-of zero, one side's relu passes the cotangent and the other's stops it,
-and the two dx or de values then differ by a whole term. The plain
-version has as many such values against the fp32 gradient as the kernel
-has. So the streams dx and de are held to the JAX suite's bound
-(rtol = atol = 0.05, tests/test_fused_gnblock_nk.py:101-106) on all but
-``OUTSIDE_SHARE`` of their values, and both versions are held against the
-fp32 gradient of the same bf16 inputs and bf16-rounded weights: the
-kernel's relative L2 error and its largest error there may not exceed the
-plain version's by more than ``FP32_L2_RATIO`` and ``FP32_MAX_RATIO``.
-Weight gradients are fp32 sums over every slot and sample; they meet the
-JAX suite's bound ``|a - b| <= 0.04 · max|b|``
-(tests/test_fused_gnblock_nk.py:150-156). The kernel adds them with fp32
-atomics, so their last bits change from run to run.
+of a kink (relu's zero, a softmax weight that rounds the other way), one
+side passes the cotangent and the other stops it, and the two values
+then differ by a whole term. The plain version has as many such values
+against the fp32 gradient as the kernel has. So the streams (the
+gradients of the activations: dx, de; dq, dk, dv) are held to the JAX
+suite's bound (rtol = atol = 0.05, tests/test_fused_gnblock_nk.py:101-106)
+on all but ``OUTSIDE_SHARE`` of their values, and both versions are held
+against the fp32 gradient: the kernel's relative L2 error and its largest
+error there may not exceed the plain version's by more than
+``FP32_L2_RATIO`` and ``FP32_MAX_RATIO``. Weight gradients are fp32 sums
+over every row; they meet the JAX suite's bound
+``|a - b| <= 0.04 · max|b|`` (tests/test_fused_gnblock_nk.py:150-156,
+tests/test_fused_edge_attention_nk.py:119-125, tests/test_fused_ffn.py:
+33-61 and 100-128).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -34,57 +40,44 @@ FP32_L2_RATIO = 1.1
 FP32_MAX_RATIO = 1.5
 
 
-def rounded_copy(mlp):
-    """A copy of ``mlp`` whose fp32 parameters hold their bf16 values (the
-    kernels use the weights as bf16), for an fp32 reference."""
-    if mlp is None:
+def rounded_copy(module):
+    """A copy of ``module`` whose fp32 parameters hold their bf16 values
+    (the kernels use the weights as bf16), for an fp32 reference."""
+    if module is None:
         return None
-    mlp = copy.deepcopy(mlp)
+    module = copy.deepcopy(module)
     with torch.no_grad():
-        for p in mlp.parameters():
+        for p in module.parameters():
             p.copy_(p.to(torch.bfloat16).float())
-    return mlp
+    return module
 
 
-def block_grads(fn, x, e, senders, edge_mask, mlps, nk, last_block, cot_x, cot_e,
-                **kw) -> Tuple[List[str], List[torch.Tensor], tuple]:
-    """(names, gradients, kept) of Σ x_out·cot_x + Σ e_out·cot_e (no e_out
-    term on the last block) through ``fn``, one NK block with ``mlps`` =
-    (encoder or None, edge MLP, node MLP). Gradients, as fp32: dx, de
-    unless the encoder is folded, then every MLP parameter in the kernels'
-    order. ``kept`` = (outputs, inputs, cotangents) with the graph
-    retained, so a caller can time the backward again with
-    ``torch.autograd.grad(*kept, retain_graph=True)``."""
-    enc, edge, node = mlps
-    xx = x.detach().clone().requires_grad_(True)
-    ee = e.detach().clone().requires_grad_(enc is None)
-    xo, eo = fn(xx, ee, senders, edge_mask, edge, node, nk, encoder_params=enc,
-                last_block=last_block, **kw)
-    outs, cots = [xo], [cot_x.to(xo.dtype)]
-    if not last_block:
-        outs.append(eo)
-        cots.append(cot_e.to(eo.dtype))
-    names, inputs = ["dx"], [xx]
-    if enc is None:
-        names.append("de")
-        inputs.append(ee)
-    for tag, mlp in zip(("enc", "edge", "node"), mlps):
-        if mlp is None:
-            continue
-        params = nk_ops._mlp_params(mlp)
-        names += [f"{tag}.{i}" for i in range(len(params))]
-        inputs += params
-    grads = torch.autograd.grad(outs, inputs, cots, retain_graph=True)
-    return names, [g.float() for g in grads], (outs, inputs, cots)
+def grads_of(fn: Callable, inputs: Sequence[torch.Tensor],
+             cots: Sequence[torch.Tensor]) -> Tuple[List[torch.Tensor], tuple]:
+    """Gradients, as fp32, of Σ out·cot through ``fn`` with respect to the
+    inputs and then the parameters, and ``kept`` = (outputs, those leaves,
+    cotangents) with the graph retained, so a caller can time the backward
+    again with ``torch.autograd.grad(*kept, retain_graph=True)``.
+    ``fn(*leaves) -> (outputs, params)`` gets fresh leaves of ``inputs``
+    that require grad; outputs is a tensor or a sequence of tensors, one
+    per cotangent."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs, params = fn(*leaves)
+    outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+    cots = [c.to(o.dtype) for c, o in zip(cots, outs)]
+    wrt = leaves + list(params)
+    grads = torch.autograd.grad(outs, wrt, cots, retain_graph=True)
+    return [g.float() for g in grads], (outs, wrt, cots)
 
 
 def _rel_l2(a: torch.Tensor, ref: torch.Tensor) -> float:
     return ((a - ref).norm() / ref.norm().clamp_min(1e-30)).item()
 
 
-def compare_block_grads(names, kernel, plain, fp32) -> Tuple[List[Dict], bool]:
+def compare_grads(names, kernel, plain, fp32, streams: Sequence[str]) -> Tuple[List[Dict], bool]:
     """One row per gradient with the errors that the bounds above read,
-    and whether every row is inside them."""
+    and whether every row is inside them. ``streams`` names the
+    activation gradients; the others are weights."""
     rows, ok = [], True
     for name, k, p, f in zip(names, kernel, plain, fp32):
         if not torch.isfinite(k).all():
@@ -102,7 +95,7 @@ def compare_block_grads(names, kernel, plain, fp32) -> Tuple[List[Dict], bool]:
             "kernel_fp32_max": ((k - f).abs().max() / f_scale).item(),
             "plain_fp32_max": ((p - f).abs().max() / f_scale).item(),
         }
-        if name in ("dx", "de"):
+        if name in streams:
             row["outside"] = int((diff > STREAM_TOL + STREAM_TOL * p.abs()).sum())
             row["count"] = diff.numel()
             good = row["outside"] <= OUTSIDE_SHARE * row["count"]
@@ -116,19 +109,47 @@ def compare_block_grads(names, kernel, plain, fp32) -> Tuple[List[Dict], bool]:
     return rows, ok
 
 
-def check_block_backward(x, e, senders, edge_mask, mlps, nk, last_block, cot_x, cot_e):
-    """Gradients of one block through the kernel wrapper, the plain
-    version in bf16 and the plain version in fp32 (bf16-rounded weights,
-    the same bf16 inputs), compared by :func:`compare_block_grads`.
-    Returns (rows, ok, {"kernel": kept, "plain": kept}) with the retained
-    autograd graphs of :func:`block_grads`."""
-    args = (x, e, senders, edge_mask)
-    names, gk, kept_k = block_grads(nk_ops.fused_gn_block_nk, *args, mlps, nk, last_block,
-                                    cot_x, cot_e)
-    _, gp, kept_p = block_grads(nk_ops.fused_gn_block_nk_reference, *args, mlps, nk,
-                                last_block, cot_x, cot_e, compute_dtype=torch.bfloat16)
-    _, gf, _ = block_grads(nk_ops.fused_gn_block_nk_reference, x.float(), e.float(), senders,
-                           edge_mask, [rounded_copy(m) for m in mlps], nk, last_block,
-                           cot_x, cot_e, compute_dtype=torch.float32)
-    rows, ok = compare_block_grads(names, gk, gp, gf)
+def check_backward(names: Sequence[str], streams: Sequence[str], kernel_fn: Callable,
+                   plain_fn: Callable, fp32_fn: Callable, inputs: Sequence[torch.Tensor],
+                   cots: Sequence[torch.Tensor]):
+    """Gradients of one function through the kernel (``kernel_fn``), its
+    plain version in bf16 (``plain_fn``) and in fp32 (``fp32_fn``, given
+    the inputs as fp32), each as :func:`grads_of` takes it, compared by
+    :func:`compare_grads`. Returns (rows, ok, {"kernel": kept, "plain":
+    kept}) with the retained autograd graphs."""
+    gk, kept_k = grads_of(kernel_fn, inputs, cots)
+    gp, kept_p = grads_of(plain_fn, inputs, cots)
+    gf, _ = grads_of(fp32_fn, [t.float() for t in inputs], cots)
+    rows, ok = compare_grads(names, gk, gp, gf, streams)
     return rows, ok, {"kernel": kept_k, "plain": kept_p}
+
+
+def check_block_backward(x, e, senders, edge_mask, mlps, nk, last_block, cot_x, cot_e):
+    """:func:`check_backward` of one NK GraphNetBlock with ``mlps`` =
+    (encoder or None, edge MLP, node MLP), from the cotangents of x_out
+    and (unless on the last block) e_out. Gradients: dx, de unless the
+    encoder is folded (raw edge features take none), then every MLP
+    parameter in the kernels' order."""
+    enc = mlps[0]
+
+    def block(fn, mlps_, **kw):
+        def run(xx, *ee):
+            e_in = ee[0] if ee else (e if xx.dtype == torch.bfloat16 else e.float())
+            xo, eo = fn(xx, e_in, senders, edge_mask, mlps_[1], mlps_[2], nk,
+                        encoder_params=mlps_[0], last_block=last_block, **kw)
+            params = [p for m in mlps_ if m is not None for p in nk_ops._mlp_params(m)]
+            return (xo if last_block else (xo, eo)), params
+        return run
+
+    names = ["dx"] + (["de"] if enc is None else [])
+    for tag, mlp in zip(("enc", "edge", "node"), mlps):
+        if mlp is not None:
+            names += [f"{tag}.{i}" for i in range(len(nk_ops._mlp_params(mlp)))]
+    inputs = [x] + ([e] if enc is None else [])
+    cots = [cot_x] + ([] if last_block else [cot_e])
+    return check_backward(
+        names, ("dx", "de"), block(nk_ops.fused_gn_block_nk, mlps),
+        block(nk_ops.fused_gn_block_nk_reference, mlps, compute_dtype=torch.bfloat16),
+        block(nk_ops.fused_gn_block_nk_reference, [rounded_copy(m) for m in mlps],
+              compute_dtype=torch.float32),
+        inputs, cots)

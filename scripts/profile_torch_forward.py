@@ -1,17 +1,21 @@
-"""Where the time of the PyTorch port's packed eval forward goes, on one NVIDIA GPU.
+"""Where the time of the PyTorch port's packed eval forward, or its train
+step, goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_forward.py [transformer|epd ...]   # default: both
+    python3 scripts/profile_torch_forward.py [transformer|epd|transformer-train|epd-train ...]
+    # default: the two forwards
 
 For each slice (``transformer``: entry.transformer_setup, 10 blocks, hidden
-64, B=64; ``epd``: entry.cylinder_setup, 5 blocks, hidden 32, B=128) and
-each path (kernel path, and the plain path with ``edge_tiling_nk = None``),
-runs ``torch.profiler`` over 10 forwards after 3 warm-up calls and prints,
-per forward: the host wall time (synchronised), the device time summed
-over kernels, the idle share (1 - device / wall) and the device time by
-kernel group (the port's kernels by name, GEMMs, elementwise, reductions,
-index ops, the rest), each with its launch count. The full per-kernel
-table goes to ``build/profile/profile_<slice>_<path>.txt`` (git-ignored). Builds the
-kernels first if needed; imports nothing of JAX.
+64, B=64; ``epd``: entry.cylinder_setup, 5 blocks, hidden 32, B=128; the
+``-train`` slices: one train step of entry.transformer_train_setup or
+entry.cylinder_train_setup, same models and batches) and each path (kernel
+path, and the plain path with ``edge_tiling_nk = None``), runs
+``torch.profiler`` over 10 calls after 3 warm-up calls and prints, per
+call: the host wall time (synchronised), the device time summed over
+kernels, the idle share (1 - device / wall) and the device time by kernel
+group (the port's kernels by name, GEMMs, the optimizer, elementwise,
+reductions, index ops, the rest), each with its launch count. The full
+per-kernel table goes to ``build/profile/profile_<slice>_<path>.txt``
+(git-ignored). Builds the kernels first if needed; imports nothing of JAX.
 """
 
 import copy
@@ -27,9 +31,14 @@ REPS, WARMUP = 10, 3
 #: kernel groups by a substring of the CUDA kernel's name, first match wins
 GROUPS = (
     ("attention kernel (ea_nk_fwd)", ("ea_nk_fwd",)),
+    ("attention backward kernels (ea_nk_bwd)", ("ea_nk_bwd",)),
     ("gated FFN kernel (ffn_fwd)", ("ffn_fwd",)),
+    ("gated FFN backward kernels (ffn_bwd)", ("ffn_bwd",)),
     ("GraphNetBlock kernel (gn_nk_fwd)", ("gn_nk_fwd",)),
+    ("GraphNetBlock backward kernel (gn_nk_bwd)", ("gn_nk_bwd",)),
     ("GEMMs", ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")),
+    ("optimizer (multi-tensor)", ("multi_tensor",)),
+    ("sort", ("sort", "radix")),
     ("index ops", ("index", "gather", "scatter")),
     ("reductions", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -44,13 +53,10 @@ def group_of(name):
     return "other"
 
 
-def profile(sim, graph, label, card):
+def profile(run, label, card):
+    """Profile ``REPS`` calls of ``run`` after ``WARMUP`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    def run():
-        with torch.inference_mode():
-            sim.forward(graph, is_training=False)
 
     for _ in range(WARMUP):
         run()
@@ -74,14 +80,14 @@ def profile(sim, graph, label, card):
         g[1] += ev.count / REPS
         rows.append((dev_us / 1e3 / REPS, ev.count / REPS, ev.key))
     device_ms = sum(v[0] for v in groups.values())
-    print(f"{label}: host wall {wall_ms:.4f} ms per forward (profiled), device {device_ms:.4f} ms, "
+    print(f"{label}: host wall {wall_ms:.4f} ms per call (profiled), device {device_ms:.4f} ms, "
           f"idle share {1 - device_ms / wall_ms:.4f} ({card})", flush=True)
     for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {name}: {ms:.4f} ms, {count:g} launches", flush=True)
     OUT.mkdir(parents=True, exist_ok=True)
     path = OUT / f"profile_{label.replace(' ', '_')}.txt"
     with open(path, "w") as f:
-        f.write(f"{label} ({card}); device ms per forward, launches per forward, kernel\n")
+        f.write(f"{label} ({card}); device ms per call, launches per call, kernel\n")
         for ms, count, key in sorted(rows, reverse=True):
             f.write(f"{ms:.5f}\t{count:g}\t{key}\n")
     if device_ms == 0:
@@ -101,17 +107,31 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True).stdout.strip()
     kernel_build.build()
-    setups = {"transformer": entry.transformer_setup, "epd": entry.cylinder_setup}
-    for name in sys.argv[1:] or list(setups):
-        setup = setups[name]("cuda")
+    forwards = {"transformer": entry.transformer_setup, "epd": entry.cylinder_setup}
+    trains = {"transformer-train": entry.transformer_train_setup,
+              "epd-train": entry.cylinder_train_setup}
+    for name in sys.argv[1:] or list(forwards):
+        setup = (forwards.get(name) or trains[name])("cuda")
+        graph = setup.graph
         plain = copy.deepcopy(setup.simulator)
         plain.model.edge_tiling_nk = None
-        b = setup.graph.x.shape[1]
-        profile(setup.simulator, setup.graph, f"{name} B={b} kernel path", card)
-        profile(plain, setup.graph, f"{name} B={b} plain path", card)
-        del setup, plain
+        label = f"{name} B={graph.x.shape[1]}"
+        if name in forwards:
+            def runner(sim):
+                def run():
+                    with torch.inference_mode():
+                        sim.forward(graph, is_training=False)
+                return run
+            runs = (runner(setup.simulator), runner(plain))
+        else:
+            plain_state, plain_step = entry.make_trainer(plain)
+            gen = torch.Generator(device=graph.x.device).manual_seed(0)
+            runs = (lambda: setup.train_step(setup.state, graph, gen),
+                    lambda: plain_step(plain_state, graph, gen))
+        profile(runs[0], f"{label} kernel path", card)
+        profile(runs[1], f"{label} plain path", card)
+        del setup, plain, runs
         torch.cuda.empty_cache()
-
 
 if __name__ == "__main__":
     main()

@@ -11,7 +11,10 @@ model against the plain edge-list path, 0.02 on a loss
 graph_physics_tpu_torch/utils/gradcheck.py's. For the transformer: rtol
 0.03, atol 0.02 for the attention kernel (tests/test_fused_edge_attention_nk.py:
 96-99), rtol = atol = 0.05 for the gated-FFN kernel (tests/test_fused_ffn.py:
-27-30) and 0.1 for the whole model (tests/test_fused_edge_attention_nk.py:171).
+27-30) and 0.1 for the whole model (tests/test_fused_edge_attention_nk.py:171);
+the transformer's backward kernels are held with utils/gradcheck.py, and
+its train step to the ``epd`` step's bounds (step-1 loss 0.02, gradients
+0.04 · max).
 """
 
 import copy
@@ -21,6 +24,8 @@ import torch
 
 from graph_physics_tpu_torch import entry
 from graph_physics_tpu_torch.models.layers import GatedMLPBlock, RMSNorm, reset_parameters
+from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
+from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
 from graph_physics_tpu_torch.ops.fused_edge_attention_nk import (
     fused_edge_attention_nk,
     fused_edge_attention_nk_reference,
@@ -214,3 +219,114 @@ def test_transformer_forward_goes_through_both_kernels_and_matches_plain_path(cu
     rows = graph.node_mask
     assert torch.isfinite(out.outputs).all()
     torch.testing.assert_close(out.net_out[rows], ref.net_out[rows], rtol=0.1, atol=0.1)
+
+
+# ---- the graph transformer's backward kernels and train step ----------------
+
+def _attention_case(cuda_device, batch, seed):
+    """The slot arrays, NK layout and random q, k, v and cotangent on the
+    48x40 mesh (the transformer slice's shape)."""
+    setup = entry.transformer_setup(cuda_device, batch=batch, mp_steps=1)
+    g, nk = setup.graph, setup.tiling
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    q, k, v, cot = [(s * torch.randn((nk.num_nodes, batch, 4, 16), generator=gen,
+                                     device=cuda_device)).to(torch.bfloat16)
+                    for s in (0.5, 0.5, 0.5, 1.0)]
+    return g, nk, (q, k, v), cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [4, 64])
+def test_attention_backward_kernel_matches_plain_backward(cuda_device, batch):
+    """Bounds and their reasons: graph_physics_tpu_torch/utils/gradcheck.py."""
+    g, nk, qkv, cot = _attention_case(cuda_device, batch, seed=batch)
+    mask = g.edge_mask.clone().view(nk.num_groups, nk.k_slots, nk.node_block)
+    mask[:, :, :3] = False  # three receivers per node block with no valid slot
+    for m in (g.edge_mask, mask.reshape(-1).contiguous()):
+        def attention(fn):
+            return lambda *t: (fn(*t, g.senders, m, nk), [])
+
+        before = fused_edge_attention_nk.backward_launches
+        names = ("dq", "dk", "dv")
+        rows, ok, _ = gradcheck.check_backward(
+            names, names, attention(fused_edge_attention_nk),
+            attention(ea_ops.reference_with_backward),
+            attention(fused_edge_attention_nk_reference), qkv, [cot])
+        torch.cuda.synchronize()
+        assert fused_edge_attention_nk.backward_launches == before + 1
+        assert ok, [r for r in rows if not r["ok"]]
+    leaves = [t.clone().requires_grad_(True) for t in qkv]
+    dq, _, _ = torch.autograd.grad(fused_edge_attention_nk(*leaves, g.senders, m, nk), leaves, cot)
+    empty = dq.view(nk.num_groups, nk.node_block, -1)[:, :3]
+    assert torch.equal(empty, torch.zeros_like(empty))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,use_silu", [(4, False), (64, False), (4, True)])
+def test_ffn_backward_kernel_matches_plain_backward(cuda_device, batch, use_silu):
+    """Bounds and their reasons: graph_physics_tpu_torch/utils/gradcheck.py."""
+    gen = torch.Generator().manual_seed(batch)
+    block = GatedMLPBlock(64, 64, 64, use_silu=use_silu)
+    norm2 = RMSNorm(64)
+    reset_parameters(block, gen)
+    with torch.no_grad():
+        for norm in (block.norm, norm2):
+            norm.scale.copy_(1.0 + 0.2 * torch.randn(64, generator=gen))
+    block, norm2 = block.to(cuda_device), norm2.to(cuda_device)
+    x, cot = [torch.randn((1920, batch, 64), generator=gen).to(cuda_device, torch.bfloat16)
+              for _ in range(2)]
+
+    def ffn(fn, mlp, norm):
+        return lambda xx: (fn(xx, mlp, norm), ffn_ops._params(mlp, norm))
+
+    before = fused_gated_ffn.backward_launches
+    names = ["dx", "norm2.scale", "norm.scale", "W1", "b1", "W2", "b2", "W3", "b3"]
+    rows, ok, _ = gradcheck.check_backward(
+        names, ("dx",), ffn(fused_gated_ffn, block, norm2),
+        ffn(ffn_ops.reference_with_backward, block, norm2),
+        ffn(gated_ffn_reference, gradcheck.rounded_copy(block), gradcheck.rounded_copy(norm2)),
+        [x], [cot])
+    torch.cuda.synchronize()
+    assert fused_gated_ffn.backward_launches == before + 1
+    assert ok, [r for r in rows if not r["ok"]]
+
+
+@pytest.mark.cuda
+def test_transformer_kernels_refuse_what_they_lack_under_autograd(cuda_device):
+    setup = entry.transformer_setup(cuda_device, nx=20, ny=16, batch=2, mp_steps=1)
+    g, nk = setup.graph, setup.tiling
+    q = torch.zeros((nk.num_nodes, 2, 4, 8), dtype=torch.bfloat16, device=cuda_device,
+                    requires_grad=True)  # head width 8: no kernel instance
+    with pytest.raises(NotImplementedError):
+        fused_edge_attention_nk(q, q, q, g.senders, g.edge_mask, nk)
+    block, norm2 = GatedMLPBlock(32, 32, 32).to(cuda_device), RMSNorm(32).to(cuda_device)
+    x = torch.zeros((64, 2, 32), dtype=torch.bfloat16, device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError):  # hidden 32: no kernel
+        fused_gated_ffn(x, block, norm2)
+
+
+@pytest.mark.cuda
+def test_transformer_train_step_goes_through_both_kernels_and_matches_plain_path(cuda_device):
+    train = entry.transformer_train_setup(cuda_device, nx=20, ny=16, batch=8)
+    plain_sim = copy.deepcopy(train.simulator)
+    plain_sim.model.edge_tiling_nk = None
+    plain_state, plain_step = entry.make_trainer(plain_sim)
+    n_blocks = len(train.simulator.model.processor_list)
+    kernels = (fused_edge_attention_nk, fused_gated_ffn)
+    before = [(k.launches, k.backward_launches) for k in kernels]
+    m = train.train_step(train.state, train.graph, torch.Generator(cuda_device).manual_seed(3))
+    torch.cuda.synchronize()
+    assert [(k.launches, k.backward_launches) for k in kernels] == [
+        (f + n_blocks, b + n_blocks) for f, b in before]
+    mp = plain_step(plain_state, train.graph, torch.Generator(cuda_device).manual_seed(3))
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    # the JAX suite's value bound (tests/test_fused_gnblock_nk.py:150)
+    torch.testing.assert_close(m["loss"], mp["loss"], rtol=0.02, atol=0)
+
+    def unclipped(sim, state, norm):  # undo the clip: g · min(1, clip / norm)
+        undo = max(norm.item() / state.optimizer.grad_clip, 1.0)
+        return torch.cat([p.grad.float().flatten() * undo for p in sim.parameters()])
+
+    gk = unclipped(train.simulator, train.state, m["grad_norm"])
+    gp = unclipped(plain_sim, plain_state, mp["grad_norm"])
+    assert ((gk - gp).abs().max() / gp.abs().max()).item() <= gradcheck.WEIGHT_REL
