@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the cylinder
-``epd`` and the graph-transformer inference and training paths.
+``epd`` and the graph-transformer inference and training paths, and the
+inference paths of both models on the graded mesh (CSR layout).
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
@@ -8,7 +9,8 @@ Phases (any failure raises, so the exit code is non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
   2. build: nvcc builds every kernel of the port from csrc/ (NK
      GraphNetBlock, NK edge attention and gated FFN, each forward and
-     backward), one process per source, all at once;
+     backward; CSR GraphNetBlock and CSR edge attention forwards), one
+     process per source, all at once;
   3. kernel check: each forward variant (folded encoder, middle block,
      last block) against its plain PyTorch version at the slice's shape
      (1,920 nodes x 128 samples x hidden 32, K=6 slots), same bf16 inputs;
@@ -50,7 +52,26 @@ Phases (any failure raises, so the exit code is non-zero):
  14. transformer train timing: each backward kernel, its plain backward,
      the library's masked attention forward + backward, one middle block
      forward + backward and the train step on both paths, with the host's
-     time to enqueue a step and the syncs a step makes.
+     time to enqueue a step and the syncs a step makes;
+ 15. layout, on the graded mesh (27,000 nodes, ~160k directed edges, a
+     long in-degree tail; its statistics are logged first):
+     FusedTopologyManager chooses the CSR layout for it for both model
+     families (``epd`` and transformer), and still the NK layout for the
+     cylinder;
+ 16. CSR kernel checks at the graded slices' shapes (27,008 nodes x 16
+     samples): each CSR GraphNetBlock variant against its plain version
+     on the same bf16 inputs; the CSR attention against its plain version
+     (ops/edge_attention.edge_attention), with exact zeros on receivers
+     without a valid row; the gated FFN against its plain version on the
+     transformer's [27,008, 16, 64] input;
+ 17. graded slices: the B=16 eval forward of ``epd`` (5 CSR GraphNetBlock
+     launches) and of the transformer (10 CSR attention and 10 FFN
+     launches) against the plain path, then 8 windows x 50 steps of
+     rollout of each on both paths;
+ 18. graded timing: both CSR kernels, their plain versions and bounds, the
+     gated FFN and its plain version at the graded shape, the library's
+     masked attention where its dense mask fits, one middle
+     block and the forward of each model on both paths.
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds).
 It imports nothing of JAX.
@@ -115,6 +136,14 @@ ATTN_BWD = {"name": "fused_edge_attention_nk_backward",
 FFN_BWD = {"name": "fused_gated_ffn_backward",
            "source": "graph_physics_tpu_torch/csrc/fused_ffn_bwd.cu",
            "replaces": "graph_physics_tpu/ops/fused_ffn.py:99"}
+GN_CSR = {"name": "fused_gn_block_csr", "source": "graph_physics_tpu_torch/csrc/fused_gnblock_csr.cu",
+          "replaces": "graph_physics_tpu/ops/fused_gnblock.py:392"}
+ATTN_CSR = {"name": "fused_edge_attention_csr",
+            "source": "graph_physics_tpu_torch/csrc/fused_edge_attention_csr.cu",
+            "replaces": "graph_physics_tpu/ops/fused_edge_attention.py:124"}
+#: receivers of the graded mesh whose rows the empty-receiver check masks
+#: out: every EMPTY_STRIDE-th
+EMPTY_STRIDE = 97
 
 
 def log(*args):
@@ -189,6 +218,24 @@ def cuda_ms(fn, warmup=3, reps=20):
     return statistics.median(times)
 
 
+def check_rollouts(label, res, res_plain):
+    """Logs both rollouts' per-trajectory RMSEs; raises unless both are
+    finite and the RMSEs agree within ROLLOUT_RTOL."""
+    import torch
+
+    rk, rp = res.rmse_all_rollout.tolist(), res_plain.rmse_all_rollout.tolist()
+    log(f"{label} rollout rmse_all_rollout (R={ROLLOUT_WINDOWS}, T={ROLLOUT_STEPS}), kernel "
+        "path: " + " ".join(f"{v:.6g}" for v in rk))
+    log(f"{label} rollout rmse_all_rollout, plain path:  " + " ".join(f"{v:.6g}" for v in rp))
+    for name, r in (("kernel", res), ("plain", res_plain)):
+        if not (torch.isfinite(r.predictions).all() and torch.isfinite(r.rmse_all_rollout).all()):
+            raise AssertionError(f"{label} rollout ({name} path): non-finite values")
+    worst = max(abs(a - c) / abs(c) for a, c in zip(rk, rp))
+    log(f"  rollout rmse max relative difference {worst:.6g} (limit {ROLLOUT_RTOL})")
+    if worst > ROLLOUT_RTOL:
+        raise AssertionError(f"{label} rollout RMSE differs by {worst:.4g} relative")
+
+
 def log_grad_rows(rows):
     """The streams (activation gradients) in full; the weight gradients as
     their worst values; any row out of bounds in full."""
@@ -256,7 +303,7 @@ def training_phase(label, train, kernels, seed):
     tgraph = train.graph
     n_blocks = len(train.simulator.model.processor_list)
     plain_sim = copy.deepcopy(train.simulator)
-    plain_sim.model.edge_tiling_nk = None
+    plain_sim.model.tiling = None
     plain_state, plain_step = entry.make_trainer(plain_sim)
     fg = step1_fp32_grads(plain_sim, tgraph, seed)
     for k in kernels:
@@ -318,7 +365,7 @@ def step1_fp32_grads(sim, graph, seed):
     from graph_physics_tpu_torch.training.noise import add_noise
 
     sim = copy.deepcopy(sim)
-    sim.model.edge_tiling_nk = None
+    sim.model.tiling = None
     for m in sim.modules():  # modules that cast to a compute dtype
         if hasattr(m, "dtype"):
             m.dtype = torch.float32
@@ -441,7 +488,7 @@ def main():
 
     # 5. slice: the packed B=128 eval forward through the kernel path
     plain_sim = copy.deepcopy(sim)
-    plain_sim.model.edge_tiling_nk = None  # every block on the plain edge-list path
+    plain_sim.model.tiling = None  # every block on the plain edge-list path
     rows = graph.node_mask
     kernel.launches = kernel.backward_launches = 0
     out = sim.forward(graph, is_training=False)
@@ -470,20 +517,9 @@ def main():
     compare("net_out", out.net_out, out_plain.net_out, SLICE_TOL, rows=rows)
     compare("outputs", out.outputs, out_plain.outputs, SLICE_TOL, rows=rows)
 
-    res_plain = make_batched_rollout_fn(plain_sim)(frames)
-    rk, rp = res.rmse_all_rollout.tolist(), res_plain.rmse_all_rollout.tolist()
-    log(f"rollout rmse_all_rollout (R={ROLLOUT_WINDOWS}, T={ROLLOUT_STEPS}), kernel path: "
-        + " ".join(f"{v:.6g}" for v in rk))
-    log("rollout rmse_all_rollout, plain path:  " + " ".join(f"{v:.6g}" for v in rp))
-    log("rollout rmse_1step, kernel path:       "
+    check_rollouts("epd", res, make_batched_rollout_fn(plain_sim)(frames))
+    log("epd rollout rmse_1step, kernel path: "
         + " ".join(f"{v:.6g}" for v in res.rmse_1step.tolist()))
-    for name, r in (("kernel", res), ("plain", res_plain)):
-        if not (torch.isfinite(r.predictions).all() and torch.isfinite(r.rmse_all_rollout).all()):
-            raise AssertionError(f"rollout ({name} path): non-finite values")
-    worst = max(abs(a - c) / abs(c) for a, c in zip(rk, rp))
-    log(f"  rollout rmse max relative difference {worst:.6g} (limit {ROLLOUT_RTOL})")
-    if worst > ROLLOUT_RTOL:
-        raise AssertionError(f"rollout RMSE differs by {worst:.4g} relative")
 
     # 7. training: bench.py's step, kernel path against the plain path
     train = entry.cylinder_train_setup(device)
@@ -510,6 +546,10 @@ def main():
     tf_train_records, tf_train_launches = transformer_train_phases(device, card)
     for rec in tf_records:  # the forward kernels also ran in the train steps
         rec["launches"] += tf_train_launches[rec["name"]][0]
+    # 15.-18. both models' inference paths on the graded mesh (CSR layout)
+    graded_records, graded_ffn_launches, graded_ffn_err = graded_phases(device, card)
+    tf_records[1]["launches"] += graded_ffn_launches
+    tf_records[1]["max_abs_err"] = max(tf_records[1]["max_abs_err"], graded_ffn_err)
 
     fwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1]))
     bwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1], backward=True))
@@ -525,6 +565,7 @@ def main():
              bound_by=bwd_bound[1], library_ms=None),
         *tf_records,
         *tf_train_records,
+        *graded_records,
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -622,7 +663,7 @@ def transformer_phases(device, card):
 
     # 10. slice: the B=64 forward and the rollout, kernel path, counts from 0
     plain_sim = copy.deepcopy(sim)
-    plain_sim.model.edge_tiling_nk = None  # every block on the plain path
+    plain_sim.model.tiling = None  # every block on the plain path
     attn.launches = ffn.launches = gn.launches = gn.backward_launches = 0
     out = sim.forward(graph, is_training=False)
     torch.cuda.synchronize()
@@ -650,18 +691,7 @@ def transformer_phases(device, card):
     rows = graph.node_mask
     compare("net_out", out.net_out, out_plain.net_out, TF_SLICE_TOL, rows=rows)
     compare("outputs", out.outputs, out_plain.outputs, TF_SLICE_TOL, rows=rows)
-    res_plain = make_batched_rollout_fn(plain_sim)(frames)
-    rk, rp = res.rmse_all_rollout.tolist(), res_plain.rmse_all_rollout.tolist()
-    log(f"transformer rollout rmse_all_rollout (R={ROLLOUT_WINDOWS}, T={ROLLOUT_STEPS}), "
-        "kernel path: " + " ".join(f"{v:.6g}" for v in rk))
-    log("transformer rollout rmse_all_rollout, plain path:  " + " ".join(f"{v:.6g}" for v in rp))
-    for name, r in (("kernel", res), ("plain", res_plain)):
-        if not (torch.isfinite(r.predictions).all() and torch.isfinite(r.rmse_all_rollout).all()):
-            raise AssertionError(f"transformer rollout ({name} path): non-finite values")
-    worst = max(abs(a - c) / abs(c) for a, c in zip(rk, rp))
-    log(f"  rollout rmse max relative difference {worst:.6g} (limit {ROLLOUT_RTOL})")
-    if worst > ROLLOUT_RTOL:
-        raise AssertionError(f"transformer rollout RMSE differs by {worst:.4g} relative")
+    check_rollouts("transformer", res, make_batched_rollout_fn(plain_sim)(frames))
 
     # 11. timing: the B=64 forward and one middle block, kernel path vs plain path
     fwd_ms = cuda_ms(lambda: sim.forward(graph, is_training=False))
@@ -670,7 +700,7 @@ def transformer_phases(device, card):
     block_args = (randn(n, b, hidden, scale=1.0), graph.senders, graph.receivers,
                   graph.edge_mask, graph.node_mask, graph.pos)
     with torch.inference_mode():
-        block_ms = cuda_ms(lambda: mid(*block_args, nk_tiling=nk))
+        block_ms = cuda_ms(lambda: mid(*block_args, tiling=nk))
         block_plain_ms = cuda_ms(lambda: mid(*block_args))
     log(f"transformer forward B={b}: kernel path {fwd_ms:.4f} ms "
         f"({1000 * b / fwd_ms:.1f} graph-steps/s), plain path {fwd_plain_ms:.4f} ms "
@@ -852,7 +882,7 @@ def transformer_train_phases(device, card):
     wrt = [xb, *mid.parameters()]
 
     def block_fwd_bwd(tiling):
-        y = mid(xb, senders, graph.receivers, mask, graph.node_mask, graph.pos, nk_tiling=tiling)
+        y = mid(xb, senders, graph.receivers, mask, graph.node_mask, graph.pos, tiling=tiling)
         return torch.autograd.grad(y, wrt, cot_b)
 
     block_ms = cuda_ms(lambda: block_fwd_bwd(nk))
@@ -906,6 +936,272 @@ def transformer_train_phases(device, card):
              bound_by=ffn_bound[1], library_ms=None),
     ]
     return records, launches
+
+
+def rollout_pair(label, sim, plain_sim, setup):
+    """R windows x T steps of rollout on the kernel path and the plain path,
+    held to each other by :func:`check_rollouts`."""
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.training.rollout import make_batched_rollout_fn
+
+    frames = entry.rollout_frames(setup, range(ROLLOUT_WINDOWS), ROLLOUT_STEPS)
+    check_rollouts(label, make_batched_rollout_fn(sim)(frames),
+                   make_batched_rollout_fn(plain_sim)(frames))
+
+
+def graded_phases(device, card):
+    """Phases 15-18: the inference paths of ``epd`` (cylinder widths) and
+    the graph transformer (10 blocks, hidden 64, 4 heads) on the graded
+    mesh at B=16 (scripts/bench_airfoil.py's batch), in the CSR layout.
+    Returns the two CSR kernels' records, and the FFN kernel's launches on
+    the graded transformer path and its error against its plain version
+    at the graded shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.core import mesh as mesh_lib
+    from graph_physics_tpu_torch.dataset import synthetic
+    from graph_physics_tpu_torch.ops import tiling as tiling_lib
+    from graph_physics_tpu_torch.ops.edge_attention import edge_attention
+    from graph_physics_tpu_torch.ops.fused_edge_attention_csr import fused_edge_attention_csr
+    from graph_physics_tpu_torch.ops.fused_edge_attention_nk import fused_edge_attention_nk
+    from graph_physics_tpu_torch.ops.fused_ffn import fused_gated_ffn, gated_ffn_reference
+    from graph_physics_tpu_torch.ops.fused_gnblock_csr import (
+        fused_gn_block_csr,
+        fused_gn_block_csr_reference,
+    )
+    from graph_physics_tpu_torch.ops.fused_gnblock_nk import fused_gn_block_nk
+    from graph_physics_tpu_torch.training.fused import FusedTopologyManager
+
+    gn, gn_plain, attn, ffn = (fused_gn_block_csr, fused_gn_block_csr_reference,
+                               fused_edge_attention_csr, fused_gated_ffn)
+    steps = ROLLOUT_WINDOWS + ROLLOUT_STEPS + 1
+
+    # 15. layout: the graded mesh's statistics, then the manager's choices
+    traj = synthetic.make_graded_trajectory(num_steps=2)
+    n_valid = traj["mesh_pos"].shape[1]
+    ei = mesh_lib.faces_to_edges(traj["cells"][0], n_valid)
+    deg = np.bincount(ei[1], minlength=n_valid)
+    log(f"graded mesh: {n_valid} nodes, {ei.shape[1]} directed edges, in-degree {deg.min()} to "
+        f"{deg.max()} (mean {deg.mean():.4g}, 99th percentile {np.percentile(deg, 99):.4g})")
+    cylinder = entry.frame_graph(synthetic.make_trajectory(48, 40, num_steps=2), 0)
+    graded = entry.frame_graph(traj, 0)
+    for family in ("epd", "transformer"):
+        for name, g, want in (("graded", graded, tiling_lib.CSRLayout),
+                              ("cylinder", cylinder, tiling_lib.NKTiling)):
+            got = FusedTopologyManager(family).layout_for(g)
+            log(f"layout [{family}] {name}: {type(got).__name__} ({got.total_rows} rows for "
+                f"{int(g.edge_mask.sum())} edges)")
+            if not isinstance(got, want):
+                raise AssertionError(f"layout [{family}]: {name} took {type(got).__name__}, "
+                                     f"expected {want.__name__}")
+    del traj, cylinder, graded
+
+    setup = entry.graded_setup(device, num_steps=steps)
+    tsetup = entry.graded_transformer_setup(device, num_steps=steps)
+    sim, graph, csr = setup.simulator, setup.graph, setup.tiling
+    model = sim.model
+    n, b = graph.x.shape[:2]
+    hidden = model.hidden_size
+    valid = int(graph.edge_mask.sum())
+    log(f"graded epd slice: {n} nodes x {b} samples, hidden {hidden}, {csr.total_rows} CSR rows "
+        f"({valid} edges), {len(model.processor_list)} blocks")
+
+    # 16. CSR kernel checks: each variant against its plain version, same inputs
+    gen = torch.Generator(device=device).manual_seed(5)
+
+    def randn(*shape, scale=0.5):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    x_in = randn(n, b, hidden)
+    e_in = randn(csr.total_rows, b, hidden)
+    raw_in = randn(csr.total_rows, b, entry.EDGE_INPUT)
+    blocks = model.processor_list
+    variants = {
+        "folded": (blocks[0], raw_in, model.edges_encoder, False),
+        "middle": (blocks[1], e_in, None, False),
+        "last": (blocks[-1], e_in, None, True),
+    }
+    errors, timing = {}, {}
+    with torch.inference_mode():
+        for name, (blk, e, enc, last) in variants.items():
+            args = (x_in, e, graph.senders, graph.receivers, graph.edge_mask, blk.edge_block,
+                    blk.node_block, csr)
+            kw = dict(encoder_params=enc, last_block=last)
+            xk, ek = gn(*args, **kw)
+            torch.cuda.synchronize()
+            xp, ep = gn_plain(*args, **kw, compute_dtype=torch.bfloat16)
+            log(f"CSR GraphNetBlock kernel check [{name}]")
+            err = compare("x_out", xk, xp, KERNEL_TOL)
+            if not last:  # padding rows included: both keep e_in there
+                err = max(err, compare("e_out", ek, ep, KERNEL_TOL))
+            errors[name] = err
+            timing[name] = {"ms": cuda_ms(lambda: gn(*args, **kw)),
+                            "plain_ms": cuda_ms(lambda: gn_plain(*args, **kw,
+                                                                 compute_dtype=torch.bfloat16))}
+            log(f"  time: kernel {timing[name]['ms']:.4f} ms, plain "
+                f"{timing[name]['plain_ms']:.4f} ms ({card})")
+        del xk, ek, xp, ep
+
+        tsim, tgraph, tcsr = tsetup.simulator, tsetup.graph, tsetup.tiling
+        tblocks = tsim.model.processor_list
+        heads = tblocks[0].attention.num_heads
+        dh = tsim.model.hidden_size // heads
+        q, k, v = (randn(n, b, heads, dh) for _ in range(3))
+        ta = (tgraph.senders, tgraph.receivers)
+        out = attn(q, k, v, *ta, tgraph.edge_mask, tcsr)
+        torch.cuda.synchronize()
+        ref = edge_attention(q, k, v, *ta, tgraph.edge_mask)
+        log("CSR attention kernel check")
+        attn_err = compare("out", out, ref, ATTN_RTOL, atol=ATTN_ATOL)
+        gone = torch.arange(0, n, EMPTY_STRIDE, device=device)
+        mask_e = tgraph.edge_mask & ~torch.isin(tgraph.receivers, gone)
+        out_e = attn(q, k, v, *ta, mask_e, tcsr)
+        torch.cuda.synchronize()
+        ref_e = edge_attention(q, k, v, *ta, mask_e)
+        attn_err = max(attn_err, compare(f"out, every {EMPTY_STRIDE}th receiver without a valid "
+                                         "row", out_e, ref_e, ATTN_RTOL, atol=ATTN_ATOL))
+        empty = torch.cat([out_e[gone], out_e[~tgraph.node_mask]])
+        if not torch.equal(empty, torch.zeros_like(empty)):
+            raise AssertionError("CSR attention: a receiver without valid rows is not exactly 0")
+        log(f"  {len(gone)} receivers with their rows masked out and "
+            f"{int((~tgraph.node_mask).sum())} padding nodes: exact zeros")
+        del out_e, ref_e, mask_e
+
+        tx = randn(n, b, tsim.model.hidden_size, scale=1.0)
+        ffn_args = (tx, tblocks[0].gated_mlp, tblocks[0].norm2)
+        y = ffn(*ffn_args)
+        torch.cuda.synchronize()
+        y_ref = gated_ffn_reference(*ffn_args)
+        log("gated FFN kernel check at the graded shape (block 0's weights)")
+        ffn_err = compare("y", y, y_ref, FFN_TOL)
+        del y, y_ref
+
+    # 17. graded slices: the B=16 forwards and the rollouts, counts from 0
+    plain_sim = copy.deepcopy(sim)
+    plain_sim.model.tiling = None  # every block on the plain edge-list path
+    others = (fused_gn_block_nk, fused_edge_attention_nk)
+    for kern in (gn, attn, ffn, *others):
+        kern.launches = 0
+    with torch.no_grad():
+        out = sim.forward(graph, is_training=False)
+    torch.cuda.synchronize()
+    fwd_launches = gn.launches
+    log(f"graded epd forward: {fwd_launches} CSR GraphNetBlock launches ({len(blocks)} blocks)")
+    if fwd_launches != len(blocks):
+        raise AssertionError(f"expected {len(blocks)} CSR GraphNetBlock launches per forward, "
+                             f"got {fwd_launches}")
+    with torch.no_grad():
+        out_plain = plain_sim.forward(graph, is_training=False)
+    rows = graph.node_mask
+    if tuple(out.outputs.shape) != (n, b, entry.OUTPUT) or out.outputs.dtype != torch.float32:
+        raise AssertionError(f"unexpected output {tuple(out.outputs.shape)} {out.outputs.dtype}")
+    log("graded epd forward vs plain path (valid nodes)")
+    compare("net_out", out.net_out, out_plain.net_out, SLICE_TOL, rows=rows)
+    compare("outputs", out.outputs, out_plain.outputs, SLICE_TOL, rows=rows)
+    rollout_pair("graded epd", sim, plain_sim, setup)  # the plain rollout launches none
+    gn_launches = gn.launches
+    if gn_launches != len(blocks) * (1 + ROLLOUT_STEPS):
+        raise AssertionError(f"expected {len(blocks) * ROLLOUT_STEPS} CSR GraphNetBlock launches "
+                             f"in the rollout, got {gn_launches - fwd_launches}")
+
+    t_plain = copy.deepcopy(tsim)
+    t_plain.model.tiling = None
+    attn.launches = ffn.launches = 0
+    with torch.no_grad():
+        tout = tsim.forward(tgraph, is_training=False)
+    torch.cuda.synchronize()
+    t_fwd = (attn.launches, ffn.launches)
+    log(f"graded transformer forward: (CSR attention, FFN) launches {t_fwd} "
+        f"({len(tblocks)} blocks)")
+    if t_fwd != (len(tblocks), len(tblocks)):
+        raise AssertionError(f"expected {len(tblocks)} launches of each kernel, got {t_fwd}")
+    with torch.no_grad():
+        tout_plain = t_plain.forward(tgraph, is_training=False)
+    log("graded transformer forward vs plain path (valid nodes)")
+    compare("net_out", tout.net_out, tout_plain.net_out, TF_SLICE_TOL, rows=rows)
+    compare("outputs", tout.outputs, tout_plain.outputs, TF_SLICE_TOL, rows=rows)
+    rollout_pair("graded transformer", tsim, t_plain, tsetup)
+    want = len(tblocks) * (1 + ROLLOUT_STEPS)
+    t_launches = (attn.launches, ffn.launches)
+    if t_launches != (want, want) or any(k.launches for k in others) or \
+            gn.launches != gn_launches:
+        raise AssertionError(f"expected {want} launches of each graded transformer kernel and "
+                             f"no other, got {t_launches}")
+
+    # 18. timing: the kernels, their plain versions, the library's masked
+    # attention, a middle block and the forward of each model, both paths
+    with torch.inference_mode():
+        attn_args = (q, k, v, *ta, tgraph.edge_mask)
+        attn_t = {"ms": cuda_ms(lambda: attn(*attn_args, tcsr)),
+                  "plain_ms": cuda_ms(lambda: edge_attention(*attn_args)),
+                  "library_ms": None}
+        ffn_t = {"ms": cuda_ms(lambda: ffn(*ffn_args)),
+                 "plain_ms": cuda_ms(lambda: gated_ffn_reference(*ffn_args))}
+        adj = qd = None
+        try:  # dense [N, N] adjacency as the mask: 0.73 GB as bool
+            adj = torch.zeros((n, n), dtype=torch.bool, device=device)
+            ev = tgraph.edge_mask
+            adj[tgraph.receivers[ev].long(), tgraph.senders[ev].long()] = True
+            qd, kd, vd = (t.permute(1, 2, 0, 3).contiguous() for t in (q, k, v))
+            attn_t["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=adj), reps=5)
+            lib_note = f"{attn_t['library_ms']:.4f} ms"
+        except RuntimeError as exc:  # out of memory, or no kernel for the mask
+            lib_note = f"does not run on the card ({str(exc).splitlines()[0]})"
+        del adj, qd
+        torch.cuda.empty_cache()
+        mid, tmid = blocks[len(blocks) // 2], tblocks[len(tblocks) // 2]
+        gblk = (x_in, e_in, graph.senders, graph.receivers, graph.edge_mask)
+        tblk = (tx, tgraph.senders, tgraph.receivers, tgraph.edge_mask, tgraph.node_mask,
+                tgraph.pos)
+        blocks_t = {"epd_block_ms": cuda_ms(lambda: mid(*gblk, tiling=csr)),
+                    "epd_block_plain_ms": cuda_ms(lambda: mid(*gblk)),
+                    "transformer_block_ms": cuda_ms(lambda: tmid(*tblk, tiling=tcsr)),
+                    "transformer_block_plain_ms": cuda_ms(lambda: tmid(*tblk))}
+        fwd = {"epd_forward_ms": cuda_ms(lambda: sim.forward(graph, is_training=False)),
+               "epd_forward_plain_ms": cuda_ms(lambda: plain_sim.forward(graph,
+                                                                          is_training=False)),
+               "transformer_forward_ms": cuda_ms(lambda: tsim.forward(tgraph, is_training=False)),
+               "transformer_forward_plain_ms": cuda_ms(
+                   lambda: t_plain.forward(tgraph, is_training=False))}
+    log(f"  CSR attention time: kernel {attn_t['ms']:.4f} ms, plain {attn_t['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention with the adjacency mask: {lib_note} ({card})")
+    log(f"  gated FFN time at the graded shape: kernel {ffn_t['ms']:.4f} ms, plain "
+        f"{ffn_t['plain_ms']:.4f} ms ({card})")
+    log(f"graded forward B={b}: epd kernel path {fwd['epd_forward_ms']:.4f} ms "
+        f"({1000 * b / fwd['epd_forward_ms']:.1f} graph-steps/s), plain "
+        f"{fwd['epd_forward_plain_ms']:.4f} ms; transformer kernel path "
+        f"{fwd['transformer_forward_ms']:.4f} ms ({1000 * b / fwd['transformer_forward_ms']:.1f}"
+        f" graph-steps/s), plain {fwd['transformer_forward_plain_ms']:.4f} ms; middle blocks: "
+        f"epd {blocks_t['epd_block_ms']:.4f} / {blocks_t['epd_block_plain_ms']:.4f} ms, "
+        f"transformer {blocks_t['transformer_block_ms']:.4f} / "
+        f"{blocks_t['transformer_block_plain_ms']:.4f} ms ({card})")
+    log("graded timing " + json.dumps({"card": card, **fwd, **blocks_t, "gn_blocks": timing,
+                                       "attention": attn_t, "ffn": ffn_t, "library": lib_note}))
+
+    # bounds from this run's inputs: the CSR block as gn_block_work with the
+    # row pointers read and the first layer's receiver and sender parts done
+    # per node; the attention's q, k, v read and out written (bf16), the row
+    # arrays read, q·k and p·v on the valid rows
+    nbytes, flops = gn_block_work(x_in, e_in, graph.edge_mask, blocks[1])
+    first = 2 * hidden * hidden  # the x_recv and x_send parts of the first layer
+    flops -= 2 * b * first * (valid - n)
+    gn_bound = bound(nbytes + 4 * (n + 1), flops)
+    attn_bound = bound(2 * 4 * q.numel() + 5 * tcsr.total_rows + 4 * (n + 1),
+                       valid * b * heads * 4 * dh)
+    log(f"  bounds: CSR GraphNetBlock {gn_bound[0]:.6g} ms ({gn_bound[1]}), CSR attention "
+        f"{attn_bound[0]:.6g} ms ({attn_bound[1]})")
+    records = [
+        dict(GN_CSR, route="cuda", launches=gn_launches, max_abs_err=max(errors.values()),
+             ms=timing["middle"]["ms"], plain_ms=timing["middle"]["plain_ms"],
+             bound_ms=gn_bound[0], bound_by=gn_bound[1], library_ms=None),
+        dict(ATTN_CSR, route="cuda", launches=t_launches[0], max_abs_err=attn_err,
+             ms=attn_t["ms"], plain_ms=attn_t["plain_ms"], bound_ms=attn_bound[0],
+             bound_by=attn_bound[1], library_ms=attn_t["library_ms"]),
+    ]
+    return records, t_launches[1], ffn_err
 
 
 if __name__ == "__main__":

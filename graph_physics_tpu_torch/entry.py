@@ -1,5 +1,6 @@
-"""Setups of the port on the synthetic cylinder mesh: ``epd`` and
-graph-transformer inference and training.
+"""Setups of the port on the synthetic cylinder mesh (``epd`` and
+graph-transformer inference and training) and on the graded mesh
+(inference of both).
 
 Counterpart of __graft_entry__._cylinder_setup / entry:
 ``cylinder_setup`` builds the ``epd`` inference slice,
@@ -17,8 +18,12 @@ seed: the reference cylinder model (epd, 5 GraphNetBlocks, hidden 32,
 relu MLPs with an RMSNorm tail, 2-D velocity, bf16 compute) or the
 transformer. For inference, normalizer statistics are accumulated over
 the batch, standing in for a checkpoint's state; training starts them
-empty. Every setup runs on the card unless the caller passes another
-device.
+empty. ``graded_setup`` and ``graded_transformer_setup`` run the same two
+models at the same widths on the graded mesh of dataset/synthetic.py
+(27,000 nodes, 160,612 directed edges, in-degree 2 to 13), laid out by
+training/fused.FusedTopologyManager, which chooses the CSR layout for it,
+with B=16 packed copies of frame 0 (scripts/bench_airfoil.py's batch).
+Every setup runs on the card unless the caller passes another device.
 """
 
 from __future__ import annotations
@@ -35,7 +40,14 @@ from graph_physics_tpu_torch.dataset import synthetic
 from graph_physics_tpu_torch.models.layers import reset_parameters
 from graph_physics_tpu_torch.models.processors import EncodeProcessDecode, EncodeTransformDecode
 from graph_physics_tpu_torch.models.simulator import Simulator
-from graph_physics_tpu_torch.ops.tiling import NKTiling, apply_to_graph_nk, build_nk_tiling
+from graph_physics_tpu_torch.ops.tiling import (
+    CSRLayout,
+    Layout,
+    NKTiling,
+    apply_to_graph_nk,
+    build_nk_tiling,
+)
+from graph_physics_tpu_torch.training.fused import FusedTopologyManager
 from graph_physics_tpu_torch.training.loss import l2_loss
 from graph_physics_tpu_torch.training.packed import pack, stack
 from graph_physics_tpu_torch.training.schedule import make_optimizer
@@ -50,12 +62,14 @@ NODE_INPUT = 2 + 9  # velocity + one-hot node type
 EDGE_INPUT = 3  # [Δpos, |Δpos|]
 OUTPUT = 2
 
+Tiling = Optional[Layout]
+
 
 @dataclass
 class CylinderSetup:
     simulator: Simulator
     graph: MeshGraph  # packed [N, B, F] batch on the device
-    tiling: Optional[NKTiling]
+    tiling: Tiling
     trajectory: Dict[str, np.ndarray]  # the synthetic trajectory (numpy)
     template: MeshGraph  # host frame 0 in the graph's edge layout
 
@@ -81,40 +95,55 @@ def _simulator(model, edge_input: int, seed: int) -> Simulator:
     return sim
 
 
-def make_simulator(hidden: int, mp_steps: int, dtype, tiling: Optional[NKTiling],
-                   seed: int) -> Simulator:
+def make_simulator(hidden: int, mp_steps: int, dtype, tiling: Tiling, seed: int) -> Simulator:
     model = EncodeProcessDecode(
         message_passing_num=mp_steps, node_input_size=NODE_INPUT,
         edge_input_size=EDGE_INPUT, output_size=OUTPUT, hidden_size=hidden,
-        edge_tiling_nk=tiling, dtype=dtype,
+        dtype=dtype, tiling=tiling,
     )
     return _simulator(model, EDGE_INPUT, seed)
 
 
 def make_transformer_simulator(hidden: int, mp_steps: int, heads: int, dtype,
-                               tiling: Optional[NKTiling], seed: int) -> Simulator:
+                               tiling: Tiling, seed: int) -> Simulator:
     """scripts/bench_models.py's transformer (no edge features, exact GELU,
     no RoPE, no gate) in a Simulator with ``edge_input_size=0``."""
     model = EncodeTransformDecode(
         message_passing_num=mp_steps, node_input_size=NODE_INPUT, output_size=OUTPUT,
-        hidden_size=hidden, num_heads=heads, edge_tiling_nk=tiling, dtype=dtype,
+        hidden_size=hidden, num_heads=heads, dtype=dtype, tiling=tiling,
     )
     return _simulator(model, 0, seed)
 
 
-def _packed_setup(device, make_sim: Callable[[Optional[NKTiling]], Simulator], nx: int,
-                  ny: int, batch: int, nk: bool, num_steps: int,
-                  accumulate_stats: bool) -> CylinderSetup:
-    """The mesh, its NK layout (when ``nk``), the packed batch of B copies
-    of frame 0 and ``make_sim(tiling)`` on ``device``."""
-    traj = synthetic.make_trajectory(nx, ny, num_steps=num_steps)
+def _nk_layout(g: MeshGraph) -> Tuple[NKTiling, MeshGraph]:
+    tiling = build_nk_tiling(g.senders, g.receivers, int(g.n_node), edge_mask=g.edge_mask)
+    if tiling is None:
+        raise ValueError("mesh rejected by the NK layout builder")
+    return tiling, apply_to_graph_nk(g, tiling)
+
+
+def _chosen_csr_layout(model: str) -> Callable[[MeshGraph], Tuple[CSRLayout, MeshGraph]]:
+    """The layout FusedTopologyManager chooses for ``model`` (``epd`` or
+    ``transformer``), which must be CSR."""
+    def layout(g: MeshGraph):
+        manager = FusedTopologyManager(model)
+        tiling = manager.layout_for(g)
+        if not isinstance(tiling, CSRLayout):
+            raise ValueError(f"the layout manager chose {type(tiling).__name__} for the "
+                             "graded mesh, not the CSR layout")
+        return tiling, manager.transform_frame(g)
+    return layout
+
+
+def _packed_setup(device, make_sim: Callable[[Tiling], Simulator], traj: Dict[str, np.ndarray],
+                  batch: int, layout: Optional[Callable], accumulate_stats: bool) -> CylinderSetup:
+    """Frame 0 of ``traj`` in ``layout(g)``'s layout (None: the plain edge
+    list), the packed batch of B copies of it and ``make_sim(tiling)`` on
+    ``device``."""
     g = frame_graph(traj, 0)
     tiling = None
-    if nk:
-        tiling = build_nk_tiling(g.senders, g.receivers, int(g.n_node), edge_mask=g.edge_mask)
-        if tiling is None:
-            raise ValueError("mesh rejected by the NK layout builder")
-        g = apply_to_graph_nk(g, tiling)
+    if layout is not None:
+        tiling, g = layout(g)
     graph = MeshGraph.from_numpy(pack(stack([g] * batch)), device)
     sim = make_sim(tiling).to(device)
     if accumulate_stats:
@@ -141,7 +170,8 @@ def cylinder_setup(
     ``device``; ``accumulate_stats`` folds the batch into the normalizer
     statistics."""
     return _packed_setup(device, lambda t: make_simulator(hidden, mp_steps, dtype, t, seed),
-                         nx, ny, batch, nk, num_steps, accumulate_stats)
+                         synthetic.make_trajectory(nx, ny, num_steps=num_steps), batch,
+                         _nk_layout if nk else None, accumulate_stats)
 
 
 def transformer_setup(
@@ -165,7 +195,33 @@ def transformer_setup(
     ``accumulate_stats`` folds the batch into the normalizer statistics."""
     return _packed_setup(
         device, lambda t: make_transformer_simulator(hidden, mp_steps, heads, dtype, t, seed),
-        nx, ny, batch, nk, num_steps, accumulate_stats)
+        synthetic.make_trajectory(nx, ny, num_steps=num_steps), batch,
+        _nk_layout if nk else None, accumulate_stats)
+
+
+def graded_setup(device="cuda", *, num_nodes: int = 27_000, mp_steps: int = 5,
+                 batch: int = 16, num_steps: int = 3) -> CylinderSetup:
+    """The cylinder ``epd`` model (``cylinder_setup``'s widths: hidden 32,
+    bf16, weights from seed 0) on the graded mesh, in the layout
+    FusedTopologyManager("epd") chooses, which must be CSR: B
+    packed copies of frame 0 on ``device``, normalizer statistics
+    accumulated over the batch."""
+    return _packed_setup(device, lambda t: make_simulator(32, mp_steps, torch.bfloat16, t, 0),
+                         synthetic.make_graded_trajectory(num_nodes, num_steps),
+                         batch, _chosen_csr_layout("epd"), True)
+
+
+def graded_transformer_setup(device="cuda", *, num_nodes: int = 27_000, mp_steps: int = 10,
+                             batch: int = 16, num_steps: int = 3) -> CylinderSetup:
+    """The graph transformer (``transformer_setup``'s widths: hidden 64, 4
+    heads, bf16, weights from seed 0) on the graded mesh, in the layout
+    FusedTopologyManager("transformer") chooses, which must be CSR: B
+    packed copies of frame 0 on ``device``, normalizer statistics
+    accumulated over the batch."""
+    return _packed_setup(
+        device, lambda t: make_transformer_simulator(64, mp_steps, 4, torch.bfloat16, t, 0),
+        synthetic.make_graded_trajectory(num_nodes, num_steps), batch,
+        _chosen_csr_layout("transformer"), True)
 
 
 #: bench.py's training configuration (__graft_entry__._cylinder_setup :97-99)
@@ -177,7 +233,7 @@ NOISE = NoiseConfig(starts=(0,), ends=(2,), scales=(0.02,))
 class CylinderTrainSetup:
     simulator: Simulator
     graph: MeshGraph  # packed [N, B, F] batch on the device
-    tiling: Optional[NKTiling]
+    tiling: Tiling
     state: TrainState
     train_step: Callable
 

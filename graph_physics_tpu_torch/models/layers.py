@@ -19,10 +19,12 @@ from torch import nn
 
 from graph_physics_tpu_torch.ops import segment
 from graph_physics_tpu_torch.ops.edge_attention import edge_attention
+from graph_physics_tpu_torch.ops.fused_edge_attention_csr import fused_edge_attention_csr
 from graph_physics_tpu_torch.ops.fused_edge_attention_nk import fused_edge_attention_nk
 from graph_physics_tpu_torch.ops.fused_ffn import fused_gated_ffn
+from graph_physics_tpu_torch.ops.fused_gnblock_csr import fused_gn_block_csr
 from graph_physics_tpu_torch.ops.fused_gnblock_nk import fused_gn_block_nk
-from graph_physics_tpu_torch.ops.tiling import NKTiling
+from graph_physics_tpu_torch.ops.tiling import Layout, NKTiling
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -179,26 +181,27 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.copy_(torch.rand(m.bias.shape, generator=generator) * 2 * bound - bound)
 
 
-def fused_path_ok_nk(
-    nk_tiling: Optional[NKTiling],
+def fused_path_ok(
+    tiling,
     x: torch.Tensor,
     edge_attr: torch.Tensor,
     hidden_size: int,
     dtype,
     raw_edge: bool = False,
 ) -> bool:
-    """Whether the fused NK GraphNetBlock applies (layers.py:fused_path_ok_nk
-    without its 128-lane terms). ``raw_edge``: edge_attr carries the raw
-    features and the edge encoder folds into the block."""
-    t = nk_tiling
+    """Whether a fused GraphNetBlock applies on ``tiling``, a CSRLayout or
+    an NKTiling (layers.py:fused_path_ok and fused_path_ok_nk without their
+    128-lane terms): shared by GraphNetBlock and EncodeProcessDecode, so
+    the processor's fold decision is the block's. ``raw_edge``: edge_attr
+    carries the raw features and the edge encoder folds into the block."""
     return (
-        t is not None
+        tiling is not None
         and dtype == torch.bfloat16
         and x.ndim == 3
         and edge_attr.ndim == 3
         and x.shape[-1] == hidden_size
-        and x.shape[0] == t.num_nodes
-        and edge_attr.shape[0] == t.total_rows
+        and x.shape[0] == tiling.num_nodes
+        and edge_attr.shape[0] == tiling.total_rows
         and (edge_attr.shape[-1] <= hidden_size // 2 if raw_edge
              else edge_attr.shape[-1] == hidden_size)
     )
@@ -209,9 +212,11 @@ class GraphNetBlock(nn.Module):
 
     edge' = MLP([e, x_recv, x_send]); agg = sum of edge' over a receiver's
     valid in-edges; node' = MLP([x, agg]) (layers.py:GraphNetBlock). On a
-    bf16 packed graph in the NK slot layout the block runs as one fused
-    kernel (:func:`ops.fused_gnblock_nk.fused_gn_block_nk`); otherwise as
-    plain gathers, a masked ``index_add_`` and the two MLPs. RoPE, the
+    bf16 packed graph the block runs as one fused kernel, dispatched in
+    JAX's order (layers.py:884-930): in the NK slot layout
+    (:func:`ops.fused_gnblock_nk.fused_gn_block_nk`), else in the CSR
+    layout (:func:`ops.fused_gnblock_csr.fused_gn_block_csr`); otherwise
+    as plain gathers, a masked ``index_add_`` and the two MLPs. RoPE, the
     φ-gate, gated MLPs, the world-edge sidecar and sp are not ported. The
     MLPs are the reference's: 4 relu Dense layers and an RMSNorm tail.
     """
@@ -243,23 +248,25 @@ class GraphNetBlock(nn.Module):
         senders: torch.Tensor,
         receivers: torch.Tensor,
         edge_mask: torch.Tensor,
-        nk_tiling: Optional[NKTiling] = None,
+        tiling: Optional[Layout] = None,
         edge_encoder: Optional[MLP] = None,
         wedge_attr: Optional[torch.Tensor] = None,
     ):
-        """Returns ``(x', edge_attr')``. ``edge_encoder``: the edge encoder
-        folded into this (first) block's kernel, with raw edge features in
-        ``edge_attr``."""
+        """Returns ``(x', edge_attr')``. ``tiling``: the graph's NK or CSR
+        layout. ``edge_encoder``: the edge encoder folded into this (first)
+        block's kernel, with raw edge features in ``edge_attr``."""
         if wedge_attr is not None:
             raise NotImplementedError("the world-edge sidecar is not ported")
         fold = edge_encoder is not None
-        if fused_path_ok_nk(nk_tiling, x, edge_attr, self.hidden_size, self.dtype,
-                            raw_edge=fold):
-            x_new, e_new = fused_gn_block_nk(
-                x.to(self.dtype), edge_attr.to(self.dtype), senders, edge_mask,
-                self.edge_block, self.node_block, nk_tiling,
-                encoder_params=edge_encoder, last_block=self.is_last_block,
-            )
+        if fused_path_ok(tiling, x, edge_attr, self.hidden_size, self.dtype, raw_edge=fold):
+            xb, eb = x.to(self.dtype), edge_attr.to(self.dtype)
+            kw = dict(encoder_params=edge_encoder, last_block=self.is_last_block)
+            if isinstance(tiling, NKTiling):
+                x_new, e_new = fused_gn_block_nk(xb, eb, senders, edge_mask, self.edge_block,
+                                                 self.node_block, tiling, **kw)
+            else:
+                x_new, e_new = fused_gn_block_csr(xb, eb, senders, receivers, edge_mask,
+                                                  self.edge_block, self.node_block, tiling, **kw)
             return x_new.to(x.dtype), e_new.to(edge_attr.dtype)
         if fold:
             raise ValueError("edge_encoder given but the fused path does not apply")
@@ -328,8 +335,10 @@ class Attention(nn.Module):
     columns are taken in :func:`head_perm` order, so the activations come
     out heads first, ``[..., H, dh]`` contiguous, as the JAX package lays
     them out and the attention kernel reads them. On a packed bf16 graph
-    in the NK slot layout the attention runs as one kernel
-    (:func:`ops.fused_edge_attention_nk.fused_edge_attention_nk`);
+    the attention runs as one kernel, dispatched as JAX's ``use_nk``
+    (layers.py:291-396): in the NK slot layout
+    (:func:`ops.fused_edge_attention_nk.fused_edge_attention_nk`), else in
+    the CSR layout (:func:`ops.fused_edge_attention_csr.fused_edge_attention_csr`);
     otherwise on the plain edge list (:func:`ops.edge_attention.edge_attention`),
     or densely over the valid nodes when there are no edges.
     """
@@ -366,18 +375,19 @@ class Attention(nn.Module):
         y = dense(x, proj.weight.index_select(0, perm), proj.bias.index_select(0, perm))
         return y.view(x.shape[:-1] + (self.num_heads, self.hidden_size // self.num_heads))
 
-    def _fused_ok(self, x, senders, return_attention, nk) -> bool:
-        """attention_ok of the NK kernel (layers.py:Attention._fused_attn_ok
-        without its 128-lane terms)."""
+    def _fused_ok(self, x, senders, return_attention, tiling) -> bool:
+        """Whether a kernel applies on ``tiling``, an NKTiling or a
+        CSRLayout (layers.py:Attention._fused_attn_ok without its 128-lane
+        terms): the graph's edge arrays must be the layout's rows."""
         return (
-            nk is not None
+            tiling is not None
             and senders is not None
             and not return_attention
             and self.dtype == torch.bfloat16
             and x.dtype == torch.bfloat16
             and x.ndim == 3
-            and x.shape[0] == nk.num_nodes
-            and senders.shape[0] == nk.total_rows
+            and x.shape[0] == tiling.num_nodes
+            and senders.shape[0] == tiling.total_rows
         )
 
     def forward(
@@ -389,7 +399,7 @@ class Attention(nn.Module):
         node_mask: Optional[torch.Tensor] = None,
         pos: Optional[torch.Tensor] = None,
         return_attention: bool = False,
-        nk_tiling: Optional[NKTiling] = None,
+        tiling: Optional[Layout] = None,
     ):
         if self.use_rope_embeddings and pos is None:
             raise ValueError("RoPE embeddings require positional information.")
@@ -402,8 +412,11 @@ class Attention(nn.Module):
             k = apply_spatial_rope(k, pos[:, :self.pos_dimension], inv)
 
         weights = None
-        if self._fused_ok(x, senders, return_attention, nk_tiling):
-            y = fused_edge_attention_nk(q, k, v, senders, edge_mask, nk_tiling)
+        if self._fused_ok(x, senders, return_attention, tiling):
+            if isinstance(tiling, NKTiling):
+                y = fused_edge_attention_nk(q, k, v, senders, edge_mask, tiling)
+            else:
+                y = fused_edge_attention_csr(q, k, v, senders, receivers, edge_mask, tiling)
         elif senders is not None:
             y = edge_attention(q, k, v, senders, receivers, edge_mask,
                                return_weights=return_attention)
@@ -430,9 +443,10 @@ class TransformerBlock(nn.Module):
     """Pre-norm transformer block with a gated-MLP FFN
     (layers.py:TransformerBlock; reference Transformer, layers.py:700-819):
     x += attention(norm1(x)); x += gated_mlp(norm2(x)), the gated MLP
-    opening with its own RMSNorm. With an NK slot layout on a packed bf16
-    graph the FFN half runs as one kernel (:func:`ops.fused_ffn.fused_gated_ffn`),
-    keyed on the layout as the JAX package keys it on its tiling.
+    opening with its own RMSNorm. With an NK slot or CSR layout on a
+    packed bf16 graph the FFN half runs as one kernel
+    (:func:`ops.fused_ffn.fused_gated_ffn`), keyed on the layout as the JAX
+    package keys it on its tiling (layers.py:517-524).
     """
 
     def __init__(
@@ -466,11 +480,11 @@ class TransformerBlock(nn.Module):
         edge_mask: Optional[torch.Tensor] = None,
         node_mask: Optional[torch.Tensor] = None,
         pos: Optional[torch.Tensor] = None,
-        nk_tiling: Optional[NKTiling] = None,
+        tiling: Optional[Layout] = None,
     ) -> torch.Tensor:
         x = x + self.attention(self.norm1(x), senders, receivers, edge_mask, node_mask, pos,
-                               nk_tiling=nk_tiling)
-        if (nk_tiling is not None and self.dtype == torch.bfloat16 and x.ndim == 3
-                and x.shape[0] == nk_tiling.num_nodes):
+                               tiling=tiling)
+        if (tiling is not None and self.dtype == torch.bfloat16 and x.ndim == 3
+                and x.shape[0] == tiling.num_nodes):
             return fused_gated_ffn(x.to(self.dtype), self.gated_mlp, self.norm2).to(x.dtype)
         return x + self.gated_mlp(self.norm2(x))

@@ -2,9 +2,9 @@
 
 EncodeProcessDecode, MeshGraphNet: node and edge MLP encoders, M
 GraphNetBlocks, an MLP decoder without a final norm, output cast to fp32.
-On a bf16 packed graph in the NK slot layout the edge encoder is folded
-into block 0's fused kernel, so the encoded edge array is never written
-out; the last block's edge output is dead and the kernel skips it.
+On a bf16 packed graph in the NK slot or CSR layout the edge encoder is
+folded into block 0's fused kernel, so the encoded edge array is never
+written out; the last block's edge output is dead and the kernel skips it.
 
 EncodeTransformDecode, the graph transformer: the same encoder and decoder
 around TransformerBlocks, with no edge features.
@@ -22,9 +22,9 @@ from graph_physics_tpu_torch.models.layers import (
     MLP,
     GraphNetBlock,
     TransformerBlock,
-    fused_path_ok_nk,
+    fused_path_ok,
 )
-from graph_physics_tpu_torch.ops.tiling import NKTiling
+from graph_physics_tpu_torch.ops.tiling import Layout
 
 
 class EncodeProcessDecode(nn.Module):
@@ -39,16 +39,17 @@ class EncodeProcessDecode(nn.Module):
         use_gated_attention: bool = False,
         use_gated_mlp: bool = False,
         use_temporal_block: bool = False,
-        edge_tiling_nk: Optional[NKTiling] = None,
+        tiling: Optional[Layout] = None,
         dtype=torch.float32,
     ):
         super().__init__()
         if use_temporal_block:
             raise NotImplementedError("the temporal block is not ported")
         self.hidden_size = hidden_size
-        #: NK slot layout of the graphs this model runs on (ops/tiling.py);
-        #: None runs every block on the plain edge-list path
-        self.edge_tiling_nk = edge_tiling_nk
+        #: NK slot or CSR layout of the graphs this model runs on
+        #: (ops/tiling.py; processors.py:64, ``edge_tiling_nk`` or
+        #: ``edge_tiling``); None: every block takes the plain edge list
+        self.tiling = tiling
         self.dtype = dtype
         self.nodes_encoder = MLP(node_input_size, hidden_size, hidden_size, dtype=dtype)
         self.edges_encoder = MLP(edge_input_size, hidden_size, hidden_size, dtype=dtype)
@@ -69,14 +70,16 @@ class EncodeProcessDecode(nn.Module):
     def forward(self, graph: MeshGraph) -> torch.Tensor:
         x = self.nodes_encoder(graph.x.to(self.dtype))
         edge_attr = graph.edge_attr.to(self.dtype)
-        nk = self.edge_tiling_nk
-        fold = fused_path_ok_nk(nk, x, edge_attr, self.hidden_size, self.dtype, raw_edge=True)
+        # the block's own predicate with the raw edge width (processors.py:100-107)
+        fold = fused_path_ok(self.tiling, x, edge_attr, self.hidden_size, self.dtype,
+                             raw_edge=True)
         if not fold:
             edge_attr = self.edges_encoder(edge_attr)
         for i, block in enumerate(self.processor_list):
             x, edge_attr = block(
                 x, edge_attr, graph.senders, graph.receivers, graph.edge_mask,
-                nk_tiling=nk, edge_encoder=self.edges_encoder if fold and i == 0 else None,
+                tiling=self.tiling,
+                edge_encoder=self.edges_encoder if fold and i == 0 else None,
             )
         return self.decode_module(x).float()
 
@@ -85,10 +88,10 @@ class EncodeTransformDecode(nn.Module):
     """Graph transformer (processors.py:EncodeTransformDecode): a node
     encoder MLP, M TransformerBlocks attending over the mesh edges, an MLP
     decoder without a final norm, output cast to fp32. With
-    ``edge_tiling_nk`` set, blocks on a packed bf16 graph in that NK slot
-    layout run their attention and FFN halves as kernels; None puts every
-    block on the plain path. Multigrid, the temporal block, remat and sp
-    are not ported (ROADMAP A 14, A 15)."""
+    ``tiling`` set, blocks on a packed bf16 graph in that NK slot or CSR
+    layout run their attention and FFN halves as kernels; without it
+    every block takes the plain path. Multigrid,
+    the temporal block, remat and sp are not ported (ROADMAP A 14, A 15)."""
 
     def __init__(
         self,
@@ -106,7 +109,7 @@ class EncodeTransformDecode(nn.Module):
         remat: bool = False,
         sp_axis_name: Optional[str] = None,
         use_multigrid: bool = False,
-        edge_tiling_nk: Optional[NKTiling] = None,
+        tiling: Optional[Layout] = None,
         dtype=torch.float32,
     ):
         super().__init__()
@@ -117,9 +120,9 @@ class EncodeTransformDecode(nn.Module):
                 raise NotImplementedError(f"EncodeTransformDecode option {name} is not ported")
         self.hidden_size = hidden_size
         self.use_rope_embeddings = use_rope_embeddings
-        #: NK slot layout of the graphs this model runs on (ops/tiling.py);
-        #: None runs every block on the plain path
-        self.edge_tiling_nk = edge_tiling_nk
+        #: NK slot or CSR layout of the graphs this model runs on
+        #: (ops/tiling.py; processors.py:217-222)
+        self.tiling = tiling
         self.dtype = dtype
         self.nodes_encoder = MLP(node_input_size, hidden_size, hidden_size, dtype=dtype)
         self.processor_list = nn.ModuleList(
@@ -144,5 +147,5 @@ class EncodeTransformDecode(nn.Module):
             raise ValueError("use_rope_embeddings=True requires node positions.")
         for block in self.processor_list:
             x = block(x, graph.senders, graph.receivers, graph.edge_mask, graph.node_mask,
-                      graph.pos, nk_tiling=self.edge_tiling_nk)
+                      graph.pos, tiling=self.tiling)
         return self.decode_module(x).float()

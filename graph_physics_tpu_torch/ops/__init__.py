@@ -1,3 +1,4 @@
-"""Graph ops of the port: masked segment ops, the NK slot layout, edge
-attention, and the kernels (fused GraphNetBlock, NK edge attention, gated
-FFN) with their plain PyTorch versions and their build."""
+"""Graph ops of the port: masked segment ops, the NK slot and CSR edge
+layouts, edge attention, and the kernels (fused GraphNetBlock and edge
+attention on either layout, gated FFN) with their plain PyTorch versions
+and their build."""

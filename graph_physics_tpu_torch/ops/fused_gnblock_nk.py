@@ -252,12 +252,17 @@ def _mlp_reference(mlp, parts, cd):
     concatenated inputs per Dense, rounded to ``cd`` before and after the
     bias; fp32 RMS statistics of ``cd`` squares (fused_gnblock.py:_mlp_fwd,
     _rms_fwd)."""
-    ws, bs, scale = _mlp_tensors(mlp)
-    act = mlp.act_fn
+    ws, bs, _ = _mlp_tensors(mlp)
     h = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
-    h = F.linear(h, ws[0].to(cd)) + bs[0].to(cd)
+    return mlp_tail_reference(mlp, F.linear(h, ws[0].to(cd)) + bs[0].to(cd), cd)
+
+
+def mlp_tail_reference(mlp, h, cd):
+    """Layers 1.. of the MLP and its RMSNorm on ``h``, the first Dense's
+    output in ``cd``, with :func:`_mlp_reference`'s numerics."""
+    ws, bs, scale = _mlp_tensors(mlp)
     for w, bias in zip(ws[1:], bs[1:]):
-        h = F.linear(act(h), w.to(cd)) + bias.to(cd)
+        h = F.linear(mlp.act_fn(h), w.to(cd)) + bias.to(cd)
     if scale is not None:
         gs = (h * h).float().sum(-1, keepdim=True)
         rms = torch.sqrt(gs + 1e-24) / math.sqrt(h.shape[-1])

@@ -30,6 +30,8 @@ LIBRARIES = {
     "edge_attention_nk_bwd": ("fused_edge_attention_nk_bwd.cu", ("ea_nk_common.cuh",)),
     "ffn": ("fused_ffn.cu", ("ffn_common.cuh",)),
     "ffn_bwd": ("fused_ffn_bwd.cu", ("ffn_common.cuh",)),
+    "gn_csr_fwd": ("fused_gnblock_csr.cu", ("gn_nk_common.cuh",)),
+    "edge_attention_csr": ("fused_edge_attention_csr.cu", ("ea_nk_common.cuh",)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

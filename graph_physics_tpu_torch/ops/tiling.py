@@ -1,4 +1,5 @@
-"""Host-side uniform-degree ("NK") edge layout.
+"""Host-side edge layouts: the uniform-degree ("NK") slot layout and
+receiver-sorted CSR.
 
 Every receiver gets exactly K edge slots (K = max in-degree), laid out
 k-major inside blocks of ``node_block`` receivers: receiver
@@ -14,14 +15,24 @@ tiling.py:apply_to_graph_nk, without what only the TPU kernel needs: the
 (``tiling_idx_nk``) and the 128-lane conditions. The slot order, padding
 and row-inflation guard are the same, so both packages lay out the same
 graph identically.
+
+:class:`CSRLayout`, :func:`build_csr_layout` and :func:`apply_to_graph`
+are the counterparts of graph_physics_tpu/ops/tiling.py:EdgeTiling (:48),
+build_edge_tiling (:268) and apply_to_graph (:112) for graphs of any
+degree: plain receiver-sorted CSR. What only the TPU kernel needs stays
+behind: the per-block edge padding, the sender windows (``win_start``,
+``sidx``, ``ridx``), their size refusal and the RCM node order that keeps
+them narrow (``rcm_order``). A kernel walks receiver r's rows
+``row_ptr[r]:row_ptr[r + 1]``, so it sums at the receiver with no atomics.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from graph_physics_tpu_torch.core.graph import PAD_NODE_TYPE, MeshGraph
 
@@ -125,23 +136,77 @@ def build_nk_tiling(
                     node_block=node_block, num_nodes=n_pad)
 
 
-def apply_to_graph_nk(graph: MeshGraph, tiling: NKTiling) -> MeshGraph:
-    """Convert a host MeshGraph to the NK slot layout.
+@dataclass(frozen=True, eq=False)
+class CSRLayout:
+    """Receiver-sorted CSR edge layout (host-built, static per topology).
 
-    Nodes pad (or trim bucket padding) to ``tiling.num_nodes``; edge arrays
-    re-order into the k-major slot layout; padded slots get sender 0,
-    receiver N-1 and mask False.
+    Rows: the valid edges sorted stably by receiver, then padding rows up
+    to a multiple of ``ROW_ALIGN`` (sender 0, receiver N-1, mask False),
+    which no receiver's row range covers.
     """
-    n_old = graph.x.shape[0]
-    n_new = tiling.num_nodes
-    pad_n = n_new - n_old
-    gids, loc_r = nk_row_maps(tiling)
-    valid = tiling.perm >= 0
-    senders = np.asarray(graph.senders)
-    new_send = np.zeros(tiling.perm.shape[0], np.int32)
-    new_recv = np.full(tiling.perm.shape[0], n_new - 1, np.int32)
-    new_send[valid] = senders[tiling.perm[valid]]
-    new_recv[valid] = gids[valid] * tiling.node_block + loc_r[valid]
+
+    #: [total_rows] int32 — original edge id per row; -1 on padding
+    perm: np.ndarray
+    #: [num_nodes + 1] int32 — receiver r owns rows row_ptr[r]:row_ptr[r+1]
+    row_ptr: np.ndarray
+    num_nodes: int  # padded node count (multiple of NODE_BLOCK)
+    #: device data the kernels' wrappers derive from the layout and reuse
+    #: across calls (``row_ptr`` on each device)
+    derived: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def num_groups(self) -> int:
+        return self.num_nodes // NODE_BLOCK
+
+    @property
+    def total_rows(self) -> int:
+        return int(self.perm.shape[0])
+
+    def row_ptr_on(self, device) -> torch.Tensor:
+        """``row_ptr`` as an int32 tensor on ``device``, copied once."""
+        key = ("row_ptr", str(torch.device(device)))
+        if key not in self.derived:
+            self.derived[key] = torch.as_tensor(self.row_ptr, dtype=torch.int32, device=device)
+        return self.derived[key]
+
+    expand_edges = NKTiling.expand_edges
+    reduce_edges = NKTiling.reduce_edges
+
+
+#: a graph's kernel layout; its type picks the kernels
+Layout = Union[NKTiling, CSRLayout]
+
+#: CSR rows are padded to a multiple of this
+ROW_ALIGN = 128
+
+
+def build_csr_layout(
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    num_nodes: int,
+    edge_mask: Optional[np.ndarray] = None,
+) -> CSRLayout:
+    """The CSR layout of the valid edges (``edge_mask``, default all) of a
+    graph with ``num_nodes`` nodes; it fits every topology."""
+    receivers = np.asarray(receivers, np.int64)
+    keep = (np.ones(receivers.shape[0], bool) if edge_mask is None
+            else np.asarray(edge_mask, bool))
+    orig_ids = np.nonzero(keep)[0]
+    r = receivers[orig_ids]
+    order = np.argsort(r, kind="stable")
+    n_pad = _round_up(max(num_nodes, 1), NODE_BLOCK)
+    row_ptr = np.zeros(n_pad + 1, np.int64)
+    row_ptr[1:] = np.cumsum(np.bincount(r, minlength=n_pad))
+    perm = np.full(_round_up(max(r.size, 1), ROW_ALIGN), -1, np.int64)
+    perm[:r.size] = orig_ids[order]
+    return CSRLayout(perm=perm.astype(np.int32), row_ptr=row_ptr.astype(np.int32),
+                     num_nodes=n_pad)
+
+
+def _pad_nodes(graph: MeshGraph, n_new: int):
+    """pad_nodes(a, fill) of graph's node arrays to ``n_new`` rows (or a
+    trim of bucket-padding rows)."""
+    pad_n = n_new - graph.x.shape[0]
 
     def pad_nodes(a, fill=0):
         if a is None or pad_n == 0:
@@ -152,17 +217,47 @@ def apply_to_graph_nk(graph: MeshGraph, tiling: NKTiling) -> MeshGraph:
         pad = np.full((pad_n,) + a.shape[1:], fill, a.dtype)
         return np.concatenate([a, pad], axis=0)
 
+    return dict(x=pad_nodes(graph.x), pos=pad_nodes(graph.pos),
+                node_type=pad_nodes(graph.node_type, PAD_NODE_TYPE),
+                node_mask=pad_nodes(graph.node_mask, False), y=pad_nodes(graph.y))
+
+
+def apply_to_graph(graph: MeshGraph, layout: CSRLayout) -> MeshGraph:
+    """Convert a host MeshGraph to the CSR layout: nodes pad (or trim
+    bucket padding) to ``layout.num_nodes``, edge arrays re-order by
+    receiver, padding rows get sender 0, receiver N-1 and mask False."""
+    n_new = layout.num_nodes
+    valid = layout.perm >= 0
+    ids = layout.perm[valid]
+    new_send = np.zeros(layout.total_rows, np.int32)
+    new_recv = np.full(layout.total_rows, n_new - 1, np.int32)
+    new_send[valid] = np.asarray(graph.senders)[ids]
+    new_recv[valid] = np.asarray(graph.receivers)[ids]
+    edge_attr = graph.edge_attr
+    if edge_attr is not None:
+        edge_attr = layout.expand_edges(np.asarray(edge_attr))
+    return graph.replace(senders=new_send, receivers=new_recv, edge_mask=valid,
+                         edge_attr=edge_attr, **_pad_nodes(graph, n_new))
+
+
+def apply_to_graph_nk(graph: MeshGraph, tiling: NKTiling) -> MeshGraph:
+    """Convert a host MeshGraph to the NK slot layout.
+
+    Nodes pad (or trim bucket padding) to ``tiling.num_nodes``; edge arrays
+    re-order into the k-major slot layout; padded slots get sender 0,
+    receiver N-1 and mask False.
+    """
+    n_new = tiling.num_nodes
+    gids, loc_r = nk_row_maps(tiling)
+    valid = tiling.perm >= 0
+    senders = np.asarray(graph.senders)
+    new_send = np.zeros(tiling.perm.shape[0], np.int32)
+    new_recv = np.full(tiling.perm.shape[0], n_new - 1, np.int32)
+    new_send[valid] = senders[tiling.perm[valid]]
+    new_recv[valid] = gids[valid] * tiling.node_block + loc_r[valid]
+
     edge_attr = graph.edge_attr
     if edge_attr is not None:
         edge_attr = tiling.expand_edges(np.asarray(edge_attr))
-    return graph.replace(
-        x=pad_nodes(graph.x),
-        pos=pad_nodes(graph.pos),
-        node_type=pad_nodes(graph.node_type, PAD_NODE_TYPE),
-        node_mask=pad_nodes(graph.node_mask, False),
-        senders=new_send,
-        receivers=new_recv,
-        edge_mask=valid,
-        edge_attr=edge_attr,
-        y=pad_nodes(graph.y),
-    )
+    return graph.replace(senders=new_send, receivers=new_recv, edge_mask=valid,
+                         edge_attr=edge_attr, **_pad_nodes(graph, n_new))

@@ -1,14 +1,17 @@
 """Where the time of the PyTorch port's packed eval forward, or its train
 step, goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_forward.py [transformer|epd|transformer-train|epd-train ...]
-    # default: the two forwards
+    python3 scripts/profile_torch_forward.py \
+        [transformer|epd|transformer-train|epd-train|graded|graded-transformer ...]
+    # default: the two cylinder forwards
 
 For each slice (``transformer``: entry.transformer_setup, 10 blocks, hidden
 64, B=64; ``epd``: entry.cylinder_setup, 5 blocks, hidden 32, B=128; the
 ``-train`` slices: one train step of entry.transformer_train_setup or
-entry.cylinder_train_setup, same models and batches) and each path (kernel
-path, and the plain path with ``edge_tiling_nk = None``), runs
+entry.cylinder_train_setup, same models and batches; ``graded`` and
+``graded-transformer``: the two models' forwards on the graded mesh in the
+CSR layout, entry.graded_setup and entry.graded_transformer_setup, B=16)
+and each path (kernel path, and the plain path with no edge layout), runs
 ``torch.profiler`` over 10 calls after 3 warm-up calls and prints, per
 call: the host wall time (synchronised), the device time summed over
 kernels, the idle share (1 - device / wall) and the device time by kernel
@@ -32,10 +35,12 @@ REPS, WARMUP = 10, 3
 GROUPS = (
     ("attention kernel (ea_nk_fwd)", ("ea_nk_fwd",)),
     ("attention backward kernels (ea_nk_bwd)", ("ea_nk_bwd",)),
+    ("CSR attention kernel (ea_csr_fwd)", ("ea_csr_fwd",)),
     ("gated FFN kernel (ffn_fwd)", ("ffn_fwd",)),
     ("gated FFN backward kernels (ffn_bwd)", ("ffn_bwd",)),
     ("GraphNetBlock kernel (gn_nk_fwd)", ("gn_nk_fwd",)),
     ("GraphNetBlock backward kernel (gn_nk_bwd)", ("gn_nk_bwd",)),
+    ("CSR GraphNetBlock kernels (gn_csr)", ("gn_csr",)),
     ("GEMMs", ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")),
     ("optimizer (multi-tensor)", ("multi_tensor",)),
     ("sort", ("sort", "radix")),
@@ -107,14 +112,16 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True).stdout.strip()
     kernel_build.build()
-    forwards = {"transformer": entry.transformer_setup, "epd": entry.cylinder_setup}
+    forwards = {"transformer": entry.transformer_setup, "epd": entry.cylinder_setup,
+                "graded": entry.graded_setup,
+                "graded-transformer": entry.graded_transformer_setup}
     trains = {"transformer-train": entry.transformer_train_setup,
               "epd-train": entry.cylinder_train_setup}
-    for name in sys.argv[1:] or list(forwards):
+    for name in sys.argv[1:] or ["transformer", "epd"]:
         setup = (forwards.get(name) or trains[name])("cuda")
         graph = setup.graph
         plain = copy.deepcopy(setup.simulator)
-        plain.model.edge_tiling_nk = None
+        plain.model.tiling = None
         label = f"{name} B={graph.x.shape[1]}"
         if name in forwards:
             def runner(sim):

@@ -14,7 +14,10 @@ graph_physics_tpu_torch/utils/gradcheck.py's. For the transformer: rtol
 27-30) and 0.1 for the whole model (tests/test_fused_edge_attention_nk.py:171);
 the transformer's backward kernels are held with utils/gradcheck.py, and
 its train step to the ``epd`` step's bounds (step-1 loss 0.02, gradients
-0.04 · max).
+0.04 · max). The graded mesh's CSR kernels take the bounds of their NK
+counterparts: 0.05 (GraphNetBlock), rtol 0.03 atol 0.02 (attention, its
+plain version ``ops/edge_attention.edge_attention``), 0.15 and 0.1 for
+the models.
 """
 
 import copy
@@ -24,13 +27,19 @@ import torch
 
 from graph_physics_tpu_torch import entry
 from graph_physics_tpu_torch.models.layers import GatedMLPBlock, RMSNorm, reset_parameters
+from graph_physics_tpu_torch.ops.edge_attention import edge_attention
 from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
 from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
 from graph_physics_tpu_torch.ops.fused_edge_attention_nk import (
     fused_edge_attention_nk,
     fused_edge_attention_nk_reference,
 )
+from graph_physics_tpu_torch.ops.fused_edge_attention_csr import fused_edge_attention_csr
 from graph_physics_tpu_torch.ops.fused_ffn import fused_gated_ffn, gated_ffn_reference
+from graph_physics_tpu_torch.ops.fused_gnblock_csr import (
+    fused_gn_block_csr,
+    fused_gn_block_csr_reference,
+)
 from graph_physics_tpu_torch.ops.fused_gnblock_nk import (
     fused_gn_block_nk,
     fused_gn_block_nk_reference,
@@ -127,7 +136,7 @@ def test_backward_kernel_matches_plain_version(cuda_device, variant, batch):
 def test_train_step_goes_through_both_kernels_and_matches_plain_path(cuda_device):
     train = entry.cylinder_train_setup(cuda_device, nx=20, ny=16, batch=8)
     plain_sim = copy.deepcopy(train.simulator)
-    plain_sim.model.edge_tiling_nk = None
+    plain_sim.model.tiling = None
     plain_state, plain_step = entry.make_trainer(plain_sim)
     n_blocks = len(train.simulator.model.processor_list)
     before = (fused_gn_block_nk.launches, fused_gn_block_nk.backward_launches)
@@ -148,7 +157,7 @@ def test_forward_goes_through_kernel_and_matches_plain_path(cuda_device):
     setup = entry.cylinder_setup(cuda_device, nx=20, ny=16, batch=8)
     sim, graph = setup.simulator, setup.graph
     plain = copy.deepcopy(sim)
-    plain.model.edge_tiling_nk = None
+    plain.model.tiling = None
     before = fused_gn_block_nk.launches
     out = sim.forward(graph, is_training=False)
     torch.cuda.synchronize()
@@ -208,7 +217,7 @@ def test_transformer_forward_goes_through_both_kernels_and_matches_plain_path(cu
     setup = entry.transformer_setup(cuda_device, nx=20, ny=16, batch=8, mp_steps=3)
     sim, graph = setup.simulator, setup.graph
     plain = copy.deepcopy(sim)
-    plain.model.edge_tiling_nk = None
+    plain.model.tiling = None
     before = (fused_edge_attention_nk.launches, fused_gated_ffn.launches)
     out = sim.forward(graph, is_training=False)
     torch.cuda.synchronize()
@@ -309,7 +318,7 @@ def test_transformer_kernels_refuse_what_they_lack_under_autograd(cuda_device):
 def test_transformer_train_step_goes_through_both_kernels_and_matches_plain_path(cuda_device):
     train = entry.transformer_train_setup(cuda_device, nx=20, ny=16, batch=8)
     plain_sim = copy.deepcopy(train.simulator)
-    plain_sim.model.edge_tiling_nk = None
+    plain_sim.model.tiling = None
     plain_state, plain_step = entry.make_trainer(plain_sim)
     n_blocks = len(train.simulator.model.processor_list)
     kernels = (fused_edge_attention_nk, fused_gated_ffn)
@@ -330,3 +339,99 @@ def test_transformer_train_step_goes_through_both_kernels_and_matches_plain_path
     gk = unclipped(train.simulator, train.state, m["grad_norm"])
     gp = unclipped(plain_sim, plain_state, mp["grad_norm"])
     assert ((gk - gp).abs().max() / gp.abs().max()).item() <= gradcheck.WEIGHT_REL
+
+
+# ---- the graded mesh's CSR kernels ------------------------------------------
+
+def _graded_block_args(setup, variant, seed):
+    model, graph, csr = setup.simulator.model, setup.graph, setup.tiling
+    n, b = graph.x.shape[:2]
+    gen = torch.Generator(device=graph.x.device).manual_seed(seed)
+    width = entry.EDGE_INPUT if variant == "folded" else model.hidden_size
+
+    def randn(*shape):
+        return (0.5 * torch.randn(shape, generator=gen, device=graph.x.device)).to(torch.bfloat16)
+
+    blk = model.processor_list[{"folded": 0, "middle": 1, "last": -1}[variant]]
+    args = (randn(n, b, model.hidden_size), randn(csr.total_rows, b, width), graph.senders,
+            graph.receivers, graph.edge_mask, blk.edge_block, blk.node_block, csr)
+    kw = dict(encoder_params=model.edges_encoder if variant == "folded" else None,
+              last_block=variant == "last")
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [4, 33])
+@pytest.mark.parametrize("variant", ["folded", "middle", "last"])
+def test_csr_gn_kernel_matches_plain_version(cuda_device, variant, batch):
+    """1,536 nodes: node N-1 is real, with in-edges; the padding rows point at it."""
+    setup = entry.graded_setup(cuda_device, num_nodes=1536, batch=batch, mp_steps=3)
+    args, kw = _graded_block_args(setup, variant, seed=batch)
+    with torch.no_grad():
+        before = fused_gn_block_csr.launches
+        kx, ke = fused_gn_block_csr(*args, **kw)
+        torch.cuda.synchronize()
+        assert fused_gn_block_csr.launches == before + 1
+        px, pe = fused_gn_block_csr_reference(*args, **kw, compute_dtype=torch.bfloat16)
+    torch.testing.assert_close(kx.float(), px.float(), rtol=0.05, atol=0.05)
+    if variant == "last":
+        assert ke is args[1]
+    else:  # padding rows too: they keep e_in (the encoded raw features when folded)
+        torch.testing.assert_close(ke.float(), pe.float(), rtol=0.05, atol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, 33])
+def test_csr_attention_kernel_matches_plain_version(cuda_device, batch):
+    setup = entry.graded_transformer_setup(cuda_device, num_nodes=1500, batch=batch,
+                                           mp_steps=2)
+    g, csr = setup.graph, setup.tiling
+    gen = torch.Generator(device=cuda_device).manual_seed(batch)
+    q, k, v = [(0.5 * torch.randn((csr.num_nodes, batch, 4, 16), generator=gen,
+                                  device=cuda_device)).to(torch.bfloat16) for _ in range(3)]
+    gone = torch.tensor([0, 7, csr.num_nodes // 2], device=cuda_device)
+    mask = g.edge_mask & ~torch.isin(g.receivers, gone)  # three receivers with no valid row
+    for m in (g.edge_mask, mask):
+        before = fused_edge_attention_csr.launches
+        with torch.no_grad():
+            out = fused_edge_attention_csr(q, k, v, g.senders, g.receivers, m, csr)
+        torch.cuda.synchronize()
+        assert fused_edge_attention_csr.launches == before + 1
+        ref = edge_attention(q, k, v, g.senders, g.receivers, m)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0.03, atol=0.02)
+    empty = torch.cat([out[gone], out[1500:]])  # and the padding nodes
+    assert torch.equal(empty, torch.zeros_like(empty))
+
+
+@pytest.mark.cuda
+def test_csr_kernels_raise_under_autograd(cuda_device):
+    setup = entry.graded_setup(cuda_device, num_nodes=1536, batch=2, mp_steps=2)
+    args, kw = _graded_block_args(setup, "middle", seed=0)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        fused_gn_block_csr(*args, **kw)  # the MLPs' parameters require grad
+    g, csr = setup.graph, setup.tiling
+    q = torch.zeros((csr.num_nodes, 2, 4, 16), dtype=torch.bfloat16, device=cuda_device,
+                    requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        fused_edge_attention_csr(q, q, q, g.senders, g.receivers, g.edge_mask, csr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setup_fn", ["graded_setup", "graded_transformer_setup"])
+def test_graded_forward_goes_through_csr_kernels_and_matches_plain_path(cuda_device, setup_fn):
+    setup = getattr(entry, setup_fn)(cuda_device, num_nodes=1500, batch=4, mp_steps=3)
+    sim, graph = setup.simulator, setup.graph
+    plain = copy.deepcopy(sim)
+    plain.model.tiling = None
+    epd = setup_fn == "graded_setup"
+    kernels = (fused_gn_block_csr,) if epd else (fused_edge_attention_csr, fused_gated_ffn)
+    before = [k.launches for k in kernels]
+    with torch.no_grad():
+        out = sim.forward(graph, is_training=False)
+        torch.cuda.synchronize()
+        assert [k.launches for k in kernels] == [b + 3 for b in before]
+        ref = plain.forward(graph, is_training=False)
+    rows = graph.node_mask
+    assert torch.isfinite(out.outputs).all()
+    tol = 0.15 if epd else 0.1
+    torch.testing.assert_close(out.net_out[rows], ref.net_out[rows], rtol=tol, atol=tol)

@@ -210,7 +210,7 @@ def test_bf16_nk_path_matches_jax_fused_path(monkeypatch):
     params = _perturb(_np_tree(m_xla.init(jax.random.PRNGKey(1), gp)), seed=2)
     want = np.asarray(m_nk.apply(params, gt), np.float32)
 
-    port = EncodeTransformDecode(2, 4, 2, hidden_size=H, num_heads=HEADS, edge_tiling_nk=tt,
+    port = EncodeTransformDecode(2, 4, 2, hidden_size=H, num_heads=HEADS, tiling=tt,
                                  dtype=torch.bfloat16)
     sim = entry._simulator(port, 0, seed=0)  # only its model is used
     state = _np_tree(_jax_sim(m_xla).init_state())
