@@ -1,16 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the cylinder
-``epd`` and the graph-transformer inference and training paths, and the
-inference paths of both models on the graded mesh (CSR layout).
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the inference
+and training paths of the cylinder ``epd`` and of the graph transformer,
+on the cylinder mesh (NK layout) and on the graded mesh (CSR layout).
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
-  2. build: nvcc builds every kernel of the port from csrc/ (NK
-     GraphNetBlock, NK edge attention and gated FFN, each forward and
-     backward; CSR GraphNetBlock and CSR edge attention forwards), one
-     process per source, all at once;
+  2. build: nvcc builds every kernel of the port from csrc/ (NK and CSR
+     GraphNetBlock, NK and CSR edge attention and gated FFN, each forward
+     and backward), one process per source, all at once;
   3. kernel check: each forward variant (folded encoder, middle block,
      last block) against its plain PyTorch version at the slice's shape
      (1,920 nodes x 128 samples x hidden 32, K=6 slots), same bf16 inputs;
@@ -71,7 +70,22 @@ Phases (any failure raises, so the exit code is non-zero):
  18. graded timing: both CSR kernels, their plain versions and bounds, the
      gated FFN and its plain version at the graded shape, the library's
      masked attention where its dense mask fits, one middle
-     block and the forward of each model on both paths.
+     block and the forward of each model on both paths;
+ 19. CSR backward kernel checks at the graded shapes: each CSR
+     GraphNetBlock variant's gradients (dx, de or the folded encoder's,
+     every weight) from random bf16 cotangents, the CSR attention's (dq
+     exactly 0 where a receiver has no valid row) and the gated FFN's at
+     [27,008, 16, 64] with a graded block's weights, each against its plain
+     backward and fp32 autograd (utils/gradcheck.py);
+ 20. graded training: 20 train steps of each family at B=16
+     (``entry.graded_train_setup``, ``graded_transformer_train_setup``)
+     on the kernel path, 5 + 5 CSR GraphNetBlock launches, or 10 + 10 of
+     the CSR attention and of the FFN, a step, against the same steps on
+     the plain path; peak device memory of each path;
+ 21. graded train timing: both CSR backward kernels and their plain
+     backwards, the library's masked attention forward + backward where it
+     fits, one middle block forward + backward of each family and the
+     train steps on both paths, with the host's time to enqueue a step.
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds).
 It imports nothing of JAX.
@@ -141,6 +155,12 @@ GN_CSR = {"name": "fused_gn_block_csr", "source": "graph_physics_tpu_torch/csrc/
 ATTN_CSR = {"name": "fused_edge_attention_csr",
             "source": "graph_physics_tpu_torch/csrc/fused_edge_attention_csr.cu",
             "replaces": "graph_physics_tpu/ops/fused_edge_attention.py:124"}
+GN_CSR_BWD = {"name": "fused_gn_block_csr_backward",
+              "source": "graph_physics_tpu_torch/csrc/fused_gnblock_csr_bwd.cu",
+              "replaces": "graph_physics_tpu/ops/fused_gnblock.py:453"}
+ATTN_CSR_BWD = {"name": "fused_edge_attention_csr_backward",
+                "source": "graph_physics_tpu_torch/csrc/fused_edge_attention_csr_bwd.cu",
+                "replaces": "graph_physics_tpu/ops/fused_edge_attention.py:143"}
 #: receivers of the graded mesh whose rows the empty-receiver check masks
 #: out: every EMPTY_STRIDE-th
 EMPTY_STRIDE = 97
@@ -308,15 +328,20 @@ def training_phase(label, train, kernels, seed):
     fg = step1_fp32_grads(plain_sim, tgraph, seed)
     for k in kernels:
         k.launches = k.backward_launches = 0
+    torch.cuda.reset_peak_memory_stats()
     kl, kn, per_step, kg = train_run(train.train_step, train.state, train.simulator, tgraph,
                                      seed, TRAIN_STEPS, kernels)
     torch.cuda.synchronize()
     launches = {k.__name__: (k.launches, k.backward_launches) for k in kernels}
+    peak = {"kernel": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
     pl, pn, _, pg = train_run(plain_step, plain_state, plain_sim, tgraph, seed, TRAIN_STEPS)
     torch.cuda.synchronize()
+    peak["plain"] = torch.cuda.max_memory_allocated()
     log(f"{label} ({TRAIN_STEPS} steps, B={tgraph.x.shape[1]}): launches per step "
         f"(forward, backward) of {', '.join(launches)}: {sorted(set(per_step))}; in all "
-        f"{list(launches.values())}")
+        f"{list(launches.values())}; max_memory_allocated kernel path "
+        f"{peak['kernel'] / 2**30:.4f} GiB, plain path {peak['plain'] / 2**30:.4f} GiB")
     log("  loss, kernel path:      " + " ".join(f"{v:.6g}" for v in kl))
     log("  loss, plain path:       " + " ".join(f"{v:.6g}" for v in pl))
     log("  grad_norm, kernel path: " + " ".join(f"{v:.6g}" for v in kn))
@@ -354,6 +379,37 @@ def training_phase(label, train, kernels, seed):
         if not torch.isfinite(p).all():
             raise AssertionError(f"{label}: parameter {k} is not finite")
     return plain_sim, plain_state, plain_step, launches
+
+
+def step_timing(train, plain_state, plain_step, seed):
+    """CUDA-event medians of ``train``'s step (an entry train setup) and of
+    the plain path's, then whether the kernel path's step is bound by the
+    host: the host's time to enqueue one step from a synchronised start,
+    and the device-to-host synchronisations one step makes (logged, not
+    bounded)."""
+    import torch
+
+    graph = train.graph
+    gen = torch.Generator(device=graph.x.device).manual_seed(seed)
+    out = {"train_step_ms": cuda_ms(lambda: train.train_step(train.state, graph, gen),
+                                    warmup=2, reps=10),
+           "train_step_plain_ms": cuda_ms(lambda: plain_step(plain_state, graph, gen),
+                                          warmup=2, reps=10)}
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train.train_step(train.state, graph, gen)
+        enqueue.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        train.train_step(train.state, graph, gen)
+    torch.cuda.set_sync_debug_mode("default")
+    out["train_step_host_enqueue_ms"] = statistics.median(enqueue)
+    out["train_step_syncs"] = len(syncs)
+    return out
 
 
 def step1_fp32_grads(sim, graph, seed):
@@ -467,8 +523,8 @@ def main():
         cot_x, cot_e = randn(n, b, hidden, scale=1.0), randn(nk.total_rows, b, hidden, scale=1.0)
         before = kernel.backward_launches
         grad_rows, ok, kept = gradcheck.check_block_backward(
-            x_in, e, graph.senders, graph.edge_mask, (enc, blk.edge_block, blk.node_block), nk,
-            last, cot_x, cot_e)
+            x_in, e, (graph.senders, graph.edge_mask), (enc, blk.edge_block, blk.node_block),
+            nk, last, cot_x, cot_e)
         torch.cuda.synchronize()
         log(f"backward kernel check [{name}] ({kernel.backward_launches - before} launch)")
         log_grad_rows(grad_rows)
@@ -531,15 +587,15 @@ def main():
     fwd_ms = cuda_ms(lambda: sim.forward(graph, is_training=False))
     fwd_plain_ms = cuda_ms(lambda: plain_sim.forward(graph, is_training=False))
     log(f"forward B={b}: kernel path {fwd_ms:.4f} ms, plain path {fwd_plain_ms:.4f} ms ({card})")
-    tgen = torch.Generator(device=device).manual_seed(8)
-    step_ms = cuda_ms(lambda: train.train_step(train.state, tgraph, tgen), warmup=2, reps=10)
-    step_plain_ms = cuda_ms(lambda: plain_step(plain_state, tgraph, tgen), warmup=2, reps=10)
+    st = step_timing(train, plain_state, plain_step, 8)
     tb = tgraph.x.shape[1]
-    log(f"train step B={tb}: kernel path {step_ms:.4f} ms ({1000 * tb / step_ms:.1f} graph-steps/s), "
-        f"plain path {step_plain_ms:.4f} ms ({1000 * tb / step_plain_ms:.1f} graph-steps/s) ({card})")
+    log(f"train step B={tb}: kernel path {st['train_step_ms']:.4f} ms "
+        f"({1000 * tb / st['train_step_ms']:.1f} graph-steps/s; the host enqueues a step in "
+        f"{st['train_step_host_enqueue_ms']:.4f} ms), plain path "
+        f"{st['train_step_plain_ms']:.4f} ms ({1000 * tb / st['train_step_plain_ms']:.1f} "
+        f"graph-steps/s) ({card})")
     log("timing " + json.dumps({"card": card, "forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
-                                "train_step_ms": step_ms, "train_step_plain_ms": step_plain_ms,
-                                "blocks": timing, "backward_blocks": bwd_timing}))
+                                **st, "blocks": timing, "backward_blocks": bwd_timing}))
 
     # 9.-11. the graph transformer's inference path; 12.-14. its train step
     tf_records = transformer_phases(device, card)
@@ -550,6 +606,16 @@ def main():
     graded_records, graded_ffn_launches, graded_ffn_err = graded_phases(device, card)
     tf_records[1]["launches"] += graded_ffn_launches
     tf_records[1]["max_abs_err"] = max(tf_records[1]["max_abs_err"], graded_ffn_err)
+    # 19.-21. both models' training steps on the graded mesh (CSR layout)
+    graded_train_records, graded_train_launches, graded_ffn_bwd_err = graded_train_phases(
+        device, card)
+    ffn_name = tf_records[1]["name"]
+    for rec in graded_records:  # the CSR forward kernels also ran in the train steps
+        rec["launches"] += graded_train_launches[rec["name"]][0]
+    tf_records[1]["launches"] += graded_train_launches[ffn_name][0]
+    tf_train_records[1]["launches"] += graded_train_launches[ffn_name][1]
+    tf_train_records[1]["max_abs_err"] = max(tf_train_records[1]["max_abs_err"],
+                                             graded_ffn_bwd_err)
 
     fwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1]))
     bwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1], backward=True))
@@ -566,6 +632,7 @@ def main():
         *tf_records,
         *tf_train_records,
         *graded_records,
+        *graded_train_records,
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -887,35 +954,17 @@ def transformer_train_phases(device, card):
 
     block_ms = cuda_ms(lambda: block_fwd_bwd(nk))
     block_plain_ms = cuda_ms(lambda: block_fwd_bwd(None))
-    tgen = torch.Generator(device=device).manual_seed(10)
-    step_ms = cuda_ms(lambda: train.train_step(train.state, graph, tgen), warmup=2, reps=10)
-    step_plain_ms = cuda_ms(lambda: plain_step(plain_state, graph, tgen), warmup=2, reps=10)
-    # is the kernel path's step bound by the host? the host's time to
-    # enqueue one step from a synchronised start, and the device-to-host
-    # synchronisations one step makes (logged, not bounded)
-    enqueue = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train.train_step(train.state, graph, tgen)
-        enqueue.append(1e3 * (time.perf_counter() - t0))
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as syncs:
-        warnings.simplefilter("always")
-        train.train_step(train.state, graph, tgen)
-    torch.cuda.set_sync_debug_mode("default")
-    enqueue_ms = statistics.median(enqueue)
-    log(f"transformer train step B={b}: kernel path {step_ms:.4f} ms "
-        f"({1000 * b / step_ms:.1f} graph-steps/s; the host enqueues a step in {enqueue_ms:.4f} "
-        f"ms, {len(syncs)} device-to-host syncs a step), plain path {step_plain_ms:.4f} ms "
-        f"({1000 * b / step_plain_ms:.1f} graph-steps/s); middle block forward + backward "
-        f"{block_ms:.4f} ms, plain {block_plain_ms:.4f} ms ({card})")
+    st = step_timing(train, plain_state, plain_step, 10)
+    log(f"transformer train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
+        f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; the host enqueues a step in "
+        f"{st['train_step_host_enqueue_ms']:.4f} ms, {st['train_step_syncs']} device-to-host "
+        f"syncs a step), plain path {st['train_step_plain_ms']:.4f} ms "
+        f"({1000 * b / st['train_step_plain_ms']:.1f} graph-steps/s); middle block forward + "
+        f"backward {block_ms:.4f} ms, plain {block_plain_ms:.4f} ms ({card})")
     log("transformer train timing " + json.dumps({
-        "card": card, "train_step_ms": step_ms, "train_step_plain_ms": step_plain_ms,
-        "train_step_host_enqueue_ms": enqueue_ms, "train_step_syncs": len(syncs),
-        "block_fwd_bwd_ms": block_ms, "block_fwd_bwd_plain_ms": block_plain_ms,
-        "attention_backward": attn_t, "ffn_backward": ffn_t}))
+        "card": card, **st, "block_fwd_bwd_ms": block_ms,
+        "block_fwd_bwd_plain_ms": block_plain_ms, "attention_backward": attn_t,
+        "ffn_backward": ffn_t}))
 
     # bounds from this run's inputs: q, k, v, g_out read and dq, dk, dv
     # written (bf16), the slot arrays read, 5 products of dh per valid slot,
@@ -1202,6 +1251,237 @@ def graded_phases(device, card):
              bound_by=attn_bound[1], library_ms=attn_t["library_ms"]),
     ]
     return records, t_launches[1], ffn_err
+
+
+def graded_train_phases(device, card):
+    """Phases 19-21: the training steps of ``epd`` (cylinder widths) and
+    the graph transformer (10 blocks, hidden 64, 4 heads) on the graded
+    mesh at B=16, in the CSR layout. Returns the two CSR backward
+    kernels' records, {wrapper name: (forward, backward) launches} of the
+    phase-20 runs, and the gated-FFN backward's error against its plain
+    backward at the graded shape."""
+    import torch
+    import torch.nn.functional as F
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_ops
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_csr as gn_ops
+    from graph_physics_tpu_torch.ops.edge_attention import edge_attention
+    from graph_physics_tpu_torch.utils import gradcheck
+
+    gn, attn, ffn = (gn_ops.fused_gn_block_csr, ea_ops.fused_edge_attention_csr,
+                     ffn_ops.fused_gated_ffn)
+    train = entry.graded_train_setup(device)
+    ttrain = entry.graded_transformer_train_setup(device)
+    sim, graph, csr = train.simulator, train.graph, train.tiling
+    tsim, tgraph, tcsr = ttrain.simulator, ttrain.graph, ttrain.tiling
+    model, blocks, tblocks = sim.model, sim.model.processor_list, tsim.model.processor_list
+    n, b = graph.x.shape[:2]
+    hidden, thidden = model.hidden_size, tsim.model.hidden_size
+    heads = tblocks[0].attention.num_heads
+    dh = thidden // heads
+    valid = int(graph.edge_mask.sum())
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def randn(*shape, scale=0.5):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    # 19. backward kernel checks at the graded shapes: each CSR GraphNetBlock
+    # variant, the CSR attention and the gated FFN against their plain
+    # backwards, all against fp32 autograd (utils/gradcheck.py)
+    x_in, e_in = randn(n, b, hidden), randn(csr.total_rows, b, hidden)
+    raw_in = randn(csr.total_rows, b, entry.EDGE_INPUT)
+    variants = {
+        "folded": (blocks[0], raw_in, model.edges_encoder, False),
+        "middle": (blocks[1], e_in, None, False),
+        "last": (blocks[-1], e_in, None, True),
+    }
+    rows3 = (graph.senders, graph.receivers, graph.edge_mask)
+    gn_errors, gn_t, failed = {}, {}, []
+    for name, (blk, e, enc, last) in variants.items():
+        cot_x, cot_e = randn(n, b, hidden, scale=1.0), randn(csr.total_rows, b, hidden, scale=1.0)
+        before = gn.backward_launches
+        grad_rows, ok, kept = gradcheck.check_block_backward(
+            x_in, e, rows3, (enc, blk.edge_block, blk.node_block), csr, last, cot_x, cot_e)
+        torch.cuda.synchronize()
+        log(f"CSR GraphNetBlock backward kernel check [{name}] "
+            f"({gn.backward_launches - before} launch)")
+        log_grad_rows(grad_rows)
+        if gn.backward_launches != before + 1:
+            raise AssertionError(f"CSR backward [{name}]: the backward kernel did not launch")
+        if not ok:
+            failed.append(name)
+        gn_errors[name] = max(r.get("max_abs_err", float("inf")) for r in grad_rows)
+        gn_t[name] = {
+            "ms": cuda_ms(lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True)),
+            "plain_ms": cuda_ms(lambda: torch.autograd.grad(*kept["plain"], retain_graph=True))}
+        log(f"  backward time: kernel {gn_t[name]['ms']:.4f} ms, plain "
+            f"{gn_t[name]['plain_ms']:.4f} ms ({card})")
+        del kept
+    if failed:
+        raise AssertionError(f"CSR GraphNetBlock backward kernel out of bounds for {failed}")
+
+    q, k, v = (randn(n, b, heads, dh) for _ in range(3))
+    cot = randn(n, b, heads, dh, scale=1.0)
+    ta = (tgraph.senders, tgraph.receivers)
+    gone = torch.arange(0, n, EMPTY_STRIDE, device=device)
+    names = ("dq", "dk", "dv")
+    attn_err, attn_t = 0.0, {}
+    for label, m in (("", tgraph.edge_mask),
+                     (f", every {EMPTY_STRIDE}th receiver without a valid row",
+                      tgraph.edge_mask & ~torch.isin(tgraph.receivers, gone))):
+        def attention(fn, m=m):
+            return lambda *qkv: (fn(*qkv, *ta, m, tcsr), [])
+
+        before = attn.backward_launches
+        # the plain backward is plain autograd of edge_attention
+        a_rows, ok, kept = gradcheck.check_backward(
+            names, names, attention(attn), attention(ea_ops.reference_with_backward),
+            lambda *qkv, m=m: (edge_attention(*qkv, *ta, m), []), (q, k, v), [cot])
+        torch.cuda.synchronize()
+        log(f"CSR attention backward kernel check{label} (against autograd of edge_attention; "
+            "both against fp32)")
+        log_grad_rows(a_rows)
+        if attn.backward_launches != before + 1:
+            raise AssertionError("CSR attention: the backward kernel did not launch once")
+        if not ok:
+            raise AssertionError(f"CSR attention backward kernel out of bounds{label}")
+        attn_err = max([attn_err] + [r.get("max_abs_err", float("inf")) for r in a_rows])
+        if not label:  # 21. (kernel part)
+            attn_t = {"ms": cuda_ms(lambda: torch.autograd.grad(*kept["kernel"],
+                                                                retain_graph=True)),
+                      "plain_ms": cuda_ms(lambda: torch.autograd.grad(*kept["plain"],
+                                                                      retain_graph=True))}
+        else:
+            dq = torch.autograd.grad(*kept["kernel"], retain_graph=True)[0]
+            empty = torch.cat([dq[gone], dq[~tgraph.node_mask]])
+            if not torch.equal(empty, torch.zeros_like(empty)):
+                raise AssertionError("CSR attention backward: dq of a receiver without valid "
+                                     "rows is not exactly 0")
+            log(f"  dq of the {len(gone)} receivers with their rows masked out and of the "
+                f"{int((~tgraph.node_mask).sum())} padding nodes: exact zeros")
+        del kept
+
+    blk0 = tblocks[0]
+    tx, cot_t = randn(n, b, thidden, scale=1.0), randn(n, b, thidden, scale=1.0)
+    ffn_names = ["dx", "norm2.scale", "norm.scale", "W1", "b1", "W2", "b2", "W3", "b3"]
+
+    def feed_forward(fn, mlp, norm2):
+        return lambda xx: (fn(xx, mlp, norm2), ffn_ops._params(mlp, norm2))
+
+    before = ffn.backward_launches
+    f_rows, f_ok, kept = gradcheck.check_backward(
+        ffn_names, ("dx",), feed_forward(ffn, blk0.gated_mlp, blk0.norm2),
+        feed_forward(ffn_ops.reference_with_backward, blk0.gated_mlp, blk0.norm2),
+        feed_forward(ffn_ops.gated_ffn_reference, gradcheck.rounded_copy(blk0.gated_mlp),
+                     gradcheck.rounded_copy(blk0.norm2)), [tx], [cot_t])
+    torch.cuda.synchronize()
+    log("gated FFN backward kernel check at the graded shape (block 0's weights; against the "
+        "plain backward, both against fp32)")
+    log_grad_rows(f_rows)
+    if ffn.backward_launches != before + 1:
+        raise AssertionError("gated FFN: the backward kernel did not launch once")
+    if not f_ok:
+        raise AssertionError("gated FFN backward kernel out of bounds at the graded shape")
+    ffn_bwd_err = max(r.get("max_abs_err", float("inf")) for r in f_rows)
+    ffn_t = {"ms": cuda_ms(lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True)),
+             "plain_ms": cuda_ms(lambda: torch.autograd.grad(*kept["plain"], retain_graph=True))}
+    del kept
+    log(f"  gated FFN backward time at the graded shape: kernel {ffn_t['ms']:.4f} ms, plain "
+        f"backward {ffn_t['plain_ms']:.4f} ms ({card})")
+
+    # 20. graded training: 20 steps of each family, kernel path against the
+    # plain path, counts from 0 just before each
+    _, plain_state, plain_step, launches = training_phase("graded epd training", train, [gn], 12)
+    _, t_plain_state, t_plain_step, t_launches = training_phase(
+        "graded transformer training", ttrain, [attn, ffn], 13)
+    launches.update(t_launches)
+
+    # 21. timing: a middle block forward + backward of each family and the
+    # train steps on both paths; the library's masked attention forward +
+    # backward over the dense adjacency, where it fits
+    mid, tmid = blocks[len(blocks) // 2], tblocks[len(tblocks) // 2]
+    xb = randn(n, b, hidden).requires_grad_(True)
+    eb = randn(csr.total_rows, b, hidden).requires_grad_(True)
+    txb = randn(n, b, thidden, scale=1.0).requires_grad_(True)
+    cots = (randn(n, b, hidden, scale=1.0), randn(csr.total_rows, b, hidden, scale=1.0))
+    cot_tb = randn(n, b, thidden, scale=1.0)
+    wrt, twrt = [xb, eb, *mid.parameters()], [txb, *tmid.parameters()]
+
+    def epd_block(tiling):
+        return torch.autograd.grad(mid(xb, eb, *rows3, tiling=tiling), wrt, cots)
+
+    def tf_block(tiling):
+        y = tmid(txb, *ta, tgraph.edge_mask, tgraph.node_mask, tgraph.pos, tiling=tiling)
+        return torch.autograd.grad(y, twrt, cot_tb)
+
+    blocks_t = {"epd_block_fwd_bwd_ms": cuda_ms(lambda: epd_block(csr)),
+                "epd_block_fwd_bwd_plain_ms": cuda_ms(lambda: epd_block(None)),
+                "transformer_block_fwd_bwd_ms": cuda_ms(lambda: tf_block(tcsr)),
+                "transformer_block_fwd_bwd_plain_ms": cuda_ms(lambda: tf_block(None))}
+    steps = {"epd": step_timing(train, plain_state, plain_step, 14),
+             "transformer": step_timing(ttrain, t_plain_state, t_plain_step, 15)}
+    for fam, st in steps.items():
+        log(f"graded {fam} train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
+            f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; the host enqueues a step in "
+            f"{st['train_step_host_enqueue_ms']:.4f} ms, {st['train_step_syncs']} "
+            f"device-to-host syncs a step), plain path {st['train_step_plain_ms']:.4f} ms "
+            f"({1000 * b / st['train_step_plain_ms']:.1f} graph-steps/s) ({card})")
+    log(f"  middle blocks forward + backward: epd {blocks_t['epd_block_fwd_bwd_ms']:.4f} / "
+        f"{blocks_t['epd_block_fwd_bwd_plain_ms']:.4f} ms, transformer "
+        f"{blocks_t['transformer_block_fwd_bwd_ms']:.4f} / "
+        f"{blocks_t['transformer_block_fwd_bwd_plain_ms']:.4f} ms (kernel / plain) ({card})")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    attn_t["fwd_bwd_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(attn(*leaves, *ta, tgraph.edge_mask, tcsr), leaves, cot))
+    attn_t["library_ms"] = None
+    adj = dense = cot_d = None
+    try:  # dense [N, N] adjacency as the mask: 0.73 GB as bool
+        adj = torch.zeros((n, n), dtype=torch.bool, device=device)
+        ev = tgraph.edge_mask
+        adj[tgraph.receivers[ev].long(), tgraph.senders[ev].long()] = True
+        dense = [t.permute(1, 2, 0, 3).contiguous().requires_grad_(True) for t in (q, k, v)]
+        cot_d = cot.permute(1, 2, 0, 3).contiguous()
+        attn_t["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*dense, attn_mask=adj), dense, cot_d), reps=5)
+        lib_note = f"{attn_t['library_ms']:.4f} ms"
+    except RuntimeError as exc:  # out of memory, or no kernel for the mask
+        lib_note = f"does not run on the card ({str(exc).splitlines()[0]})"
+        attn_t["library_note"] = lib_note
+    del adj, dense, cot_d, leaves
+    torch.cuda.empty_cache()
+    log(f"  CSR attention backward: kernel {attn_t['ms']:.4f} ms, plain backward "
+        f"{attn_t['plain_ms']:.4f} ms; forward + backward: kernels {attn_t['fwd_bwd_ms']:.4f} ms, "
+        f"scaled_dot_product_attention with the adjacency mask: {lib_note} ({card})")
+    log("graded train timing " + json.dumps({
+        "card": card, **{f"{fam}_{k}": v for fam, st in steps.items() for k, v in st.items()},
+        **blocks_t, "gn_backward": gn_t, "attention_backward": attn_t,
+        "ffn_backward": ffn_t}))
+
+    # bounds from this run's inputs: the CSR block's backward as
+    # gn_block_work's, with the forward's aggregate, the row pointers and
+    # the transpose read and the first layer's receiver and sender parts
+    # done per node; the attention
+    # backward's q, k, v, g_out read and dq, dk, dv written (bf16), the row
+    # arrays and the transpose read, 5 products of dh per valid row, sample
+    # and head
+    nbytes, flops = gn_block_work(x_in, e_in, graph.edge_mask, blocks[1], backward=True)
+    flops -= 3 * 2 * b * 2 * hidden * hidden * (valid - n)
+    gn_bound = bound(nbytes + 2 * x_in.numel() + 4 * (n + 1) * 2 + 4 * valid, flops)
+    attn_bound = bound(2 * 7 * q.numel() + 9 * tcsr.total_rows + 8 * (n + 1) + 4 * valid,
+                       valid * b * heads * 10 * dh)
+    log(f"  bounds: CSR GraphNetBlock backward {gn_bound[0]:.6g} ms ({gn_bound[1]}), CSR "
+        f"attention backward {attn_bound[0]:.6g} ms ({attn_bound[1]})")
+    records = [
+        dict(GN_CSR_BWD, route="cuda", launches=launches[gn.__name__][1],
+             max_abs_err=max(gn_errors.values()), ms=gn_t["middle"]["ms"],
+             plain_ms=gn_t["middle"]["plain_ms"], bound_ms=gn_bound[0], bound_by=gn_bound[1],
+             library_ms=None),
+        dict(ATTN_CSR_BWD, route="cuda", launches=launches[attn.__name__][1],
+             max_abs_err=attn_err, ms=attn_t["ms"], plain_ms=attn_t["plain_ms"],
+             bound_ms=attn_bound[0], bound_by=attn_bound[1], library_ms=attn_t["library_ms"]),
+    ]
+    return records, launches, ffn_bwd_err
 
 
 if __name__ == "__main__":

@@ -49,6 +49,7 @@ struct Args {
   const __nv_bfloat16* e;    // [S, B, H], or raw [S, B, fe] when folded
   const __nv_bfloat16* xks;  // [N, B, H] scratch: bf16(x @ Ks), from the pre-pass
   __nv_bfloat16* x_out;      // [N, B, H]
+  __nv_bfloat16* agg_out;    // [N, B, H] bf16(agg) for the backward, or null
   __nv_bfloat16* e_out;      // [S, B, H]; null on the last block
   const int32_t* row_ptr;    // [N + 1] receiver r owns rows row_ptr[r]:row_ptr[r+1]
   const int32_t* senders;    // [S] sender per row (0 on padding)
@@ -56,42 +57,6 @@ struct Args {
   int n_nodes, batch, total_rows, fe;
   Mlp enc, edge, node;
 };
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  return (__float_as_uint(bf(lo)) >> 16) | (__float_as_uint(bf(hi)) & 0xffff0000u);
-}
-
-// xks[t] = bf16(x[t] @ Ks) for every (node, sample) row t, Ks the sender
-// rows 2H..3H-1 of the edge MLP's first layer (w0: nn.Linear [H, 3H])
-__global__ void __launch_bounds__(THREADS)
-    gn_csr_sender_kernel(const __nv_bfloat16* x, __nv_bfloat16* xks, const float* w0,
-                         long long total) {
-  __shared__ __align__(16) float s_ks[H * H];
-  for (int i = threadIdx.x; i < H * H; i += blockDim.x) {
-    const int r = i / H, o = i % H;
-    s_ks[i] = bf(w0[o * 3 * H + 2 * H + r]);
-  }
-  __syncthreads();
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; t < total;
-       t += stride) {
-    float acc[H];
-    zero(acc);
-    fma_global_row(acc, x + t * H, s_ks);
-    store_row(xks + t * H, acc);
-  }
-}
-
-// e_in of one row: the raw features through the folded encoder
-__device__ __forceinline__ void encode(float (&ein)[H], const Args& a, const float* s_enc,
-                                       long long row, bool norm) {
-  float acc[H];
-  zero(acc);
-  const __nv_bfloat16* raw = a.e + row * a.fe;
-  for (int i = 0; i < a.fe; ++i) fma_row(acc, __bfloat162float(raw[i]), s_enc + i * H);
-  finish(ein, acc, s_enc + a.fe * H);
-  mlp_tail(ein, s_enc + a.fe * H + H, a.enc.n_layers, norm);
-}
 
 template <bool FOLD, bool LAST>
 __global__ void __launch_bounds__(THREADS) gn_csr_fwd_kernel(const Args a) {
@@ -119,7 +84,7 @@ __global__ void __launch_bounds__(THREADS) gn_csr_fwd_kernel(const Args a) {
       const long long row = pad0 * B + (t - recv_work);
       float ein[H];
       if (FOLD)
-        encode(ein, a, s_enc, row, enc_norm);
+        encode(ein, a.e + row * a.fe, a.fe, s_enc, a.enc.n_layers, enc_norm);
       else
         load_row(ein, a.e + row * H);
       store_row(a.e_out + row * H, ein);
@@ -144,7 +109,7 @@ __global__ void __launch_bounds__(THREADS) gn_csr_fwd_kernel(const Args a) {
     for (int s = a.row_ptr[r]; s < end; ++s) {
       const long long row = static_cast<long long>(s) * B + b;
       float ein[H];
-      if (FOLD) encode(ein, a, s_enc, row, enc_norm);
+      if (FOLD) encode(ein, a.e + row * a.fe, a.fe, s_enc, a.enc.n_layers, enc_norm);
       float h[H];
       if (a.mask[s]) {
         const long long j = a.senders[s];
@@ -180,6 +145,7 @@ __global__ void __launch_bounds__(THREADS) gn_csr_fwd_kernel(const Args a) {
       }
     }
 
+    if (a.agg_out) store_row(a.agg_out + t * H, agg);
     float acc[H];
     zero(acc);
     fma_global_row(acc, xr, s_node);
@@ -196,31 +162,15 @@ __global__ void __launch_bounds__(THREADS) gn_csr_fwd_kernel(const Args a) {
   }
 }
 
-// a grid of at most as many blocks as fit on the card at once, each
-// striding over the work (each block stages the weights once)
-cudaError_t grid_for(const void* kernel, size_t smem, long long total, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long need = (total + THREADS - 1) / THREADS;
-  const long long cap = static_cast<long long>(sms) * per_sm;
-  *grid = static_cast<int>(need < cap ? need : cap);
-  return cudaSuccess;
-}
-
 template <bool FOLD, bool LAST>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const long long rows = static_cast<long long>(a.n_nodes) * a.batch;
   int grid = 0;
-  cudaError_t err = grid_for(reinterpret_cast<const void*>(gn_csr_sender_kernel), 0, rows, &grid);
+  cudaError_t err = grid_for(reinterpret_cast<const void*>(gn_csr_partial_kernel),
+                             PARTIAL_THREADS, 0, rows, &grid);
   if (err != cudaSuccess) return err;
-  gn_csr_sender_kernel<<<grid, THREADS, 0, stream>>>(a.x, const_cast<__nv_bfloat16*>(a.xks),
-                                                       a.edge.w[0], rows);
+  gn_csr_partial_kernel<<<grid, PARTIAL_THREADS, 0, stream>>>(
+      a.x, const_cast<__nv_bfloat16*>(a.xks), a.edge.w[0], rows, 2 * H);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const size_t smem = sizeof(float) *
@@ -231,8 +181,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   // the receivers' work plus at most total_rows padding-row copies
   const long long work = rows + (LAST ? 0 : static_cast<long long>(a.total_rows) * a.batch);
-  if ((err = grid_for(reinterpret_cast<const void*>(kernel), smem, work, &grid)) != cudaSuccess)
-    return err;
+  err = grid_for(reinterpret_cast<const void*>(kernel), THREADS, smem, work, &grid);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -242,11 +192,12 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // Each weight list holds 2 * n_layers + 1 pointers: w0, b0, w1, b1, ...,
 // then the RMSNorm scale (null without a norm). fe > 0 folds the edge
 // encoder in (e is the raw [S, B, fe] array); e_out null marks the last
-// block. xks is a [n_nodes, batch, 32] bf16 scratch. Returns the CUDA
-// error code of the launches (0 on success).
+// block. xks is a [n_nodes, batch, 32] bf16 scratch; agg_out, when not
+// null, receives the bf16 aggregate [n_nodes, batch, 32] for the backward.
+// Returns the CUDA error code of the launches (0 on success).
 extern "C" int gn_csr_fwd(const void* x, const void* e, void* xks, void* x_out, void* e_out,
-                          const void* row_ptr, const void* senders, const void* mask,
-                          int n_nodes, int batch, int total_rows, int fe,
+                          void* agg_out, const void* row_ptr, const void* senders,
+                          const void* mask, int n_nodes, int batch, int total_rows, int fe,
                           const void* const* enc_w, int n_enc_layers,
                           const void* const* edge_w, int n_edge_layers,
                           const void* const* node_w, int n_node_layers, void* stream) {
@@ -256,6 +207,7 @@ extern "C" int gn_csr_fwd(const void* x, const void* e, void* xks, void* x_out, 
   a.xks = static_cast<const __nv_bfloat16*>(xks);
   a.x_out = static_cast<__nv_bfloat16*>(x_out);
   a.e_out = static_cast<__nv_bfloat16*>(e_out);
+  a.agg_out = static_cast<__nv_bfloat16*>(agg_out);
   a.row_ptr = static_cast<const int32_t*>(row_ptr);
   a.senders = static_cast<const int32_t*>(senders);
   a.mask = static_cast<const uint8_t*>(mask);

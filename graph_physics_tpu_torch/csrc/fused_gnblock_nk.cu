@@ -84,14 +84,8 @@ __global__ void __launch_bounds__(THREADS) gn_nk_fwd_kernel(const Args a) {
       const long long s = slot0 + static_cast<long long>(k) * nb;
       const long long row = s * B + b;
       float ein[H];
-      if (FOLD) {  // edge encoder on the raw features
-        float acc[H];
-        zero(acc);
-        const __nv_bfloat16* raw = a.e + row * a.fe;
-        for (int i = 0; i < a.fe; ++i) fma_row(acc, __bfloat162float(raw[i]), s_enc + i * H);
-        finish(ein, acc, s_enc + a.fe * H);
-        mlp_tail(ein, s_enc + a.fe * H + H, a.enc.n_layers, enc_norm);
-      }
+      if (FOLD)  // edge encoder on the raw features
+        encode(ein, a.e + row * a.fe, a.fe, s_enc, a.enc.n_layers, enc_norm);
       float h[H];
       if (a.mask[s]) {
         const long long j = a.senders[s];

@@ -55,18 +55,15 @@
 // buffers (8 warps x 8.3 KB) take ~185 KB of shared memory: one block of
 // 256 threads per SM. Tensor cores are left to later versions.
 
-#include "gn_nk_common.cuh"
+#include "gn_bwd_common.cuh"
 
 using namespace gn_nk;
+using namespace gn_bwd;
 
 namespace {
 
-constexpr int NL = 4;  // Dense layers per MLP the backward is built for
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-// per warp: activations transposed [H][32], cotangents [32][H + 1]
-constexpr int STAGE_G = H * 32;
-constexpr int STAGE = H * 32 + 32 * (H + 1);
 
 struct Args {
   const __nv_bfloat16* x;       // [N, B, H]
@@ -81,199 +78,6 @@ struct Args {
   Mlp enc, edge, node;     // weights
   Mlp genc, gedge, gnode;  // their gradients: same shapes, fp32, zeroed
 };
-
-// the NL layer outputs of one MLP row (bf16 values, two to a register) and
-// the RMSNorm's fp32 1 / (rms + eps)
-struct Acts {
-  uint32_t v[NL][H / 2];
-  float inv;
-};
-
-__device__ __forceinline__ void pack(uint32_t (&p)[H / 2], const float (&h)[H]) {
-#pragma unroll
-  for (int q = 0; q < H / 2; ++q)
-    p[q] = (__float_as_uint(h[2 * q]) >> 16) | (__float_as_uint(h[2 * q + 1]) & 0xffff0000u);
-}
-
-__device__ __forceinline__ void unpack(float (&h)[H], const uint32_t (&p)[H / 2]) {
-#pragma unroll
-  for (int q = 0; q < H / 2; ++q) {
-    h[2 * q] = __uint_as_float(p[q] << 16);
-    h[2 * q + 1] = __uint_as_float(p[q] & 0xffff0000u);
-  }
-}
-
-// sum_o g[o] * W[o] for one weight row in shared memory
-__device__ __forceinline__ float dot_row(const float (&g)[H], const float* wrow) {
-  const float4* w4 = reinterpret_cast<const float4*>(wrow);
-  float s = 0.f;
-#pragma unroll
-  for (int q = 0; q < H / 4; ++q) {
-    const float4 w = w4[q];
-    s = fmaf(g[4 * q + 0], w.x, s);
-    s = fmaf(g[4 * q + 1], w.y, s);
-    s = fmaf(g[4 * q + 2], w.z, s);
-    s = fmaf(g[4 * q + 3], w.w, s);
-  }
-  return s;
-}
-
-// Same as the forward's MLP, keeping every layer's output. h holds the
-// fp32 first-layer product (no bias) and ends as the MLP's output.
-__device__ __forceinline__ void mlp_fwd_keep(float (&h)[H], const float* w, int in_dim,
-                                             bool norm, Acts& a) {
-  const float* wl = w + in_dim * H;
-  finish(h, h, wl);
-  wl += H;
-  pack(a.v[0], h);
-#pragma unroll
-  for (int l = 1; l < NL; ++l) {
-    float acc[H];
-    zero(acc);
-#pragma unroll
-    for (int i = 0; i < H; ++i) fma_row(acc, fmaxf(h[i], 0.f), wl + i * H);
-    wl += H * H;
-    finish(h, acc, wl);
-    wl += H;
-    pack(a.v[l], h);
-  }
-  a.inv = 1.f;
-  if (norm) {
-    float gs = 0.f;
-#pragma unroll
-    for (int o = 0; o < H; ++o) gs += bf(h[o] * h[o]);
-    const float rms = sqrtf(gs + 1e-24f) / sqrtf(static_cast<float>(H));
-    a.inv = 1.0f / (rms + 1e-8f);
-    const float inv = bf(a.inv);
-#pragma unroll
-    for (int o = 0; o < H; ++o) h[o] = bf(bf(h[o] * inv) * wl[o]);
-  }
-}
-
-// Warp-level gradient staging. Every lane of the warp must call these
-// together. stage_cols writes each lane's cotangent row into the warp's
-// buffer and hands lane o column o (gcol[l] = row l's value o); with
-// ``sum_to`` it also adds the column sum (a bias or scale gradient).
-__device__ __forceinline__ void stage_cols(float* st, const float (&g)[H], float (&gcol)[H],
-                                           float* sum_to) {
-  const int lane = threadIdx.x & 31;
-  float* sg = st + STAGE_G;
-#pragma unroll
-  for (int o = 0; o < H; ++o) sg[lane * (H + 1) + o] = g[o];
-  __syncwarp();
-  float s = 0.f;
-#pragma unroll
-  for (int l = 0; l < 32; ++l) {
-    gcol[l] = sg[l * (H + 1) + lane];
-    s += gcol[l];
-  }
-  __syncwarp();
-  if (sum_to) atomicAdd(sum_to + lane, s);
-}
-
-// stage each lane's activation row transposed: st[i * 32 + lane]
-__device__ __forceinline__ void stage_rows(float* st, const float (&a)[H]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < H; ++i) st[i * 32 + lane] = a[i];
-  __syncwarp();
-}
-
-__device__ __forceinline__ void stage_rows_global(float* st, const __nv_bfloat16* src, int rows) {
-  const int lane = threadIdx.x & 31;
-  for (int i = 0; i < rows; ++i) st[i * 32 + lane] = __bfloat162float(src[i]);
-  __syncwarp();
-}
-
-// dW[i][o] += sum over the warp's 32 rows of a[i] * g[o], lane o owning
-// column o; the staged activations are read as float4 broadcasts
-__device__ __forceinline__ void outer(float* st, const float (&gcol)[H], int rows, float* dw) {
-  const int lane = threadIdx.x & 31;
-  for (int i = 0; i < rows; ++i) {
-    const float4* a4 = reinterpret_cast<const float4*>(st + i * 32);
-    float s = 0.f;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const float4 v = a4[q];
-      s = fmaf(v.x, gcol[4 * q + 0], s);
-      s = fmaf(v.y, gcol[4 * q + 1], s);
-      s = fmaf(v.z, gcol[4 * q + 2], s);
-      s = fmaf(v.w, gcol[4 * q + 3], s);
-    }
-    atomicAdd(dw + i * H + lane, s);
-  }
-  __syncwarp();
-}
-
-// Backward through the RMSNorm and layers NL-1..1 of one MLP (JAX
-// _mlp_bwd). g: in, the cotangent at the MLP output; out, the cotangent at
-// layer 0's output. gw: the MLP's gradient accumulators (w's layout).
-__device__ __forceinline__ void mlp_bwd(float (&g)[H], const Acts& a, const float* w, float* gw,
-                                        int in_dim, bool norm, float* st) {
-  const int first = in_dim * H + H;  // layer 1's kernel
-  float gcol[H];
-  if (norm) {
-    const int so = first + (NL - 1) * (H * H + H);
-    float v[H];
-    unpack(v, a.v[NL - 1]);
-    const float invb = bf(a.inv);
-    float gu[H], prod[H];
-    float dot = 0.f;
-#pragma unroll
-    for (int o = 0; o < H; ++o) {
-      prod[o] = bf(g[o] * bf(v[o] * invb));  // g * u, for the scale's gradient
-      gu[o] = bf(g[o] * w[so + o]);
-      dot += bf(gu[o] * v[o]);
-    }
-    stage_cols(st, prod, gcol, gw + so);
-    const float rms = 1.0f / a.inv - 1e-8f;
-    const float corr = bf(dot * (a.inv * a.inv) / (H * fmaxf(rms, 1e-30f)));
-#pragma unroll
-    for (int o = 0; o < H; ++o) g[o] = bf(bf(gu[o] * invb) - bf(v[o] * corr));
-  }
-#pragma unroll
-  for (int l = NL - 1; l >= 1; --l) {
-    const int off = first + (l - 1) * (H * H + H);
-    float act[H];
-    unpack(act, a.v[l - 1]);
-#pragma unroll
-    for (int i = 0; i < H; ++i) act[i] = fmaxf(act[i], 0.f);
-    stage_cols(st, g, gcol, gw + off + H * H);  // bias l
-    stage_rows(st, act);
-    outer(st, gcol, H, gw + off);  // kernel l
-    float ng[H];
-#pragma unroll
-    for (int i = 0; i < H; ++i) ng[i] = dot_row(g, w + off + i * H);
-#pragma unroll
-    for (int i = 0; i < H; ++i) g[i] = act[i] > 0.f ? bf(ng[i]) : 0.f;
-  }
-}
-
-// the folded edge encoder's first-layer product on one raw row
-__device__ __forceinline__ void enc_first(float (&acc)[H], const __nv_bfloat16* raw, int fe,
-                                          const float* s_enc) {
-  zero(acc);
-  for (int i = 0; i < fe; ++i) fma_row(acc, __bfloat162float(raw[i]), s_enc + i * H);
-}
-
-// add a staged gradient MLP (w's layout, [in][out]) into the global fp32
-// gradients ([out, in] kernels)
-__device__ void flush_mlp(const float* src, const Mlp& g) {
-  for (int l = 0; l < g.n_layers; ++l) {
-    const int rows = l == 0 ? g.in_dim : H;
-    float* w = const_cast<float*>(g.w[l]);
-    for (int i = threadIdx.x; i < rows * H; i += blockDim.x)
-      atomicAdd(w + (i % H) * rows + i / H, src[i]);
-    src += rows * H;
-    float* b = const_cast<float*>(g.b[l]);
-    for (int o = threadIdx.x; o < H; o += blockDim.x) atomicAdd(b + o, src[o]);
-    src += H;
-  }
-  if (g.scale) {
-    float* s = const_cast<float*>(g.scale);
-    for (int o = threadIdx.x; o < H; o += blockDim.x) atomicAdd(s + o, src[o]);
-  }
-}
 
 __global__ void __launch_bounds__(THREADS, 1) gn_nk_bwd_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
@@ -324,10 +128,7 @@ __global__ void __launch_bounds__(THREADS, 1) gn_nk_bwd_kernel(const Args a) {
       zero(acc);
       if (fold) {
         float ein[H];
-        enc_first(acc, a.e + row * fe, fe, s_enc);
-        finish(ein, acc, s_enc + fe * H);
-        mlp_tail(ein, s_enc + fe * H + H, a.enc.n_layers, enc_norm);
-        zero(acc);
+        encode(ein, a.e + row * fe, fe, s_enc, a.enc.n_layers, enc_norm);
 #pragma unroll
         for (int i = 0; i < H; ++i) fma_row(acc, ein[i], s_edge + i * H);
       } else {
@@ -348,31 +149,8 @@ __global__ void __launch_bounds__(THREADS, 1) gn_nk_bwd_kernel(const Args a) {
     // ---- node MLP: forward with activations, then backward ----
     uint32_t g_agg[H / 2];
     {
-      float g[H];
-      zero(g);
-      fma_global_row(g, xr, s_node);
-#pragma unroll
-      for (int i = 0; i < H; ++i) fma_row(g, agg[i], s_node + (H + i) * H);
-      Acts acts;
-      mlp_fwd_keep(g, s_node, 2 * H, node_norm, acts);
-      if (active)
-        load_row(g, a.g_xout + t * H);
-      else
-        zero(g);
-      mlp_bwd(g, acts, s_node, g_node, 2 * H, node_norm, st);
-      float gcol[H];
-      stage_cols(st, g, gcol, g_node + 2 * H * H);  // bias 0
-      stage_rows_global(st, xr, H);
-      outer(st, gcol, H, g_node);  // kernel 0, x rows
-      stage_rows(st, agg);
-      outer(st, gcol, H, g_node + H * H);  // kernel 0, agg rows
       float gx[H], ga[H];
-      load_row(gx, a.g_xout + t * H);
-#pragma unroll
-      for (int i = 0; i < H; ++i) {
-        gx[i] += bf(dot_row(g, s_node + i * H));
-        ga[i] = bf(dot_row(g, s_node + (H + i) * H));
-      }
+      node_mlp_bwd(gx, ga, xr, agg, a.g_xout + t * H, active, s_node, g_node, node_norm, st);
       if (active) {
 #pragma unroll
         for (int i = 0; i < H; ++i) atomicAdd(a.dx + t * H + i, gx[i]);
@@ -392,13 +170,10 @@ __global__ void __launch_bounds__(THREADS, 1) gn_nk_bwd_kernel(const Args a) {
       float g[H];
       {
         float ein[H];
-        if (fold) {
-          enc_first(g, a.e + row * fe, fe, s_enc);
-          finish(ein, g, s_enc + fe * H);
-          mlp_tail(ein, s_enc + fe * H + H, a.enc.n_layers, enc_norm);
-        } else {
+        if (fold)
+          encode(ein, a.e + row * fe, fe, s_enc, a.enc.n_layers, enc_norm);
+        else
           load_row(ein, a.e + row * H);
-        }
         pack(ein_p, ein);
         zero(g);
 #pragma unroll
@@ -443,15 +218,7 @@ __global__ void __launch_bounds__(THREADS, 1) gn_nk_bwd_kernel(const Args a) {
       if (!fold) {
         if (active) store_row(a.de + row * H, de);
       } else {  // through the folded encoder; raw features take no gradient
-        const __nv_bfloat16* raw = a.e + row * fe;
-        enc_first(g, raw, fe, s_enc);
-        Acts eacts;
-        mlp_fwd_keep(g, s_enc, fe, enc_norm, eacts);
-        mlp_bwd(de, eacts, s_enc, g_enc, fe, enc_norm, st);
-        float gcol[H];
-        stage_cols(st, de, gcol, g_enc + fe * H);  // bias 0
-        stage_rows_global(st, raw, fe);
-        outer(st, gcol, fe, g_enc);  // kernel 0
+        encoder_bwd(de, a.e + row * fe, fe, s_enc, g_enc, enc_norm, st);
       }
     }
 
@@ -524,17 +291,10 @@ extern "C" int gn_nk_bwd(const void* x, const void* e, const void* g_xout, const
   cudaError_t err = cudaFuncSetAttribute(gn_nk_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gn_nk_bwd_kernel, THREADS, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int grid = 0;
   const long long total = static_cast<long long>(n_nodes) * batch;
-  const long long need = (total + THREADS - 1) / THREADS;
-  const long long cap = static_cast<long long>(sms) * per_sm;
-  const int grid = static_cast<int>(need < cap ? need : cap);
+  err = grid_for(reinterpret_cast<const void*>(gn_nk_bwd_kernel), THREADS, smem, total, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
   gn_nk_bwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

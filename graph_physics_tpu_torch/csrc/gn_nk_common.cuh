@@ -1,8 +1,11 @@
-// Helpers shared by the NK GraphNetBlock forward (fused_gnblock_nk.cu) and
-// backward (fused_gnblock_nk_bwd.cu) kernels: the MLP weight layout in
-// shared memory, bf16 rounding, row loads and stores, and the forward MLP
-// numerics of the JAX kernel's _mlp_fwd/_rms_fwd (bf16 values between
-// layers, fp32 accumulation, fp32 RMS statistics of bf16 squares).
+// Helpers shared by the GraphNetBlock kernels, forward and backward, on the
+// NK slot layout (fused_gnblock_nk*.cu) and on the CSR layout
+// (fused_gnblock_csr*.cu): the MLP weight layout in shared memory, bf16
+// rounding, row loads and stores, the forward MLP numerics of the JAX
+// kernel's _mlp_fwd/_rms_fwd (bf16 values between layers, fp32
+// accumulation, fp32 RMS statistics of bf16 squares), the folded edge
+// encoder, the CSR kernels' node pre-pass and the grid size of a striding
+// kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -146,6 +149,22 @@ __device__ __forceinline__ void mlp_tail(float (&h)[H], const float* w, int n_la
   if (norm) rms_norm(h, w);
 }
 
+// the folded edge encoder's first-layer product on one raw row
+__device__ __forceinline__ void enc_first(float (&acc)[H], const __nv_bfloat16* raw, int fe,
+                                          const float* s_enc) {
+  zero(acc);
+  for (int i = 0; i < fe; ++i) fma_row(acc, __bfloat162float(raw[i]), s_enc + i * H);
+}
+
+// the folded encoder's output on one raw row (the forward's e_in)
+__device__ __forceinline__ void encode(float (&ein)[H], const __nv_bfloat16* raw, int fe,
+                                       const float* s_enc, int n_layers, bool norm) {
+  float acc[H];
+  enc_first(acc, raw, fe, s_enc);
+  finish(ein, acc, s_enc + fe * H);
+  mlp_tail(ein, s_enc + fe * H + H, n_layers, norm);
+}
+
 // one MLP from 2 * n_layers + 1 pointers: w0, b0, w1, b1, ..., then the
 // RMSNorm scale (null without a norm)
 inline bool make_mlp(Mlp* m, const void* const* p, int n_layers, int in_dim) {
@@ -158,6 +177,56 @@ inline bool make_mlp(Mlp* m, const void* const* p, int n_layers, int in_dim) {
   m->n_layers = n_layers;
   m->in_dim = in_dim;
   return true;
+}
+
+// two values rounded to bf16 and packed into one register (low, high)
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  return (__float_as_uint(bf(lo)) >> 16) | (__float_as_uint(bf(hi)) & 0xffff0000u);
+}
+
+constexpr int PARTIAL_THREADS = 128;
+
+// The CSR kernels' node pre-pass: out[t] = bf16(x[t] @ K) for every
+// (node, sample) row t, K the rows col..col+H-1 of the edge MLP's first
+// layer (w0: nn.Linear [H, 3H]; col = H for the receiver part Kr, 2H for
+// the sender part Ks), so a node's partial is a 64-byte row load per edge
+// (fused_gnblock.py:blocked_reference rounds x @ Kr and x @ Ks per node
+// too).
+__global__ void __launch_bounds__(PARTIAL_THREADS)
+    gn_csr_partial_kernel(const __nv_bfloat16* x, __nv_bfloat16* out, const float* w0,
+                          long long total, int col) {
+  __shared__ __align__(16) float s_k[H * H];
+  for (int i = threadIdx.x; i < H * H; i += blockDim.x) {
+    const int r = i / H, o = i % H;
+    s_k[i] = bf(w0[o * 3 * H + col + r]);
+  }
+  __syncthreads();
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; t < total;
+       t += stride) {
+    float acc[H];
+    zero(acc);
+    fma_global_row(acc, x + t * H, s_k);
+    store_row(out + t * H, acc);
+  }
+}
+
+// a grid of at most as many blocks of ``threads`` as fit on the card at
+// once, each striding over the work (each block stages the weights once)
+inline cudaError_t grid_for(const void* kernel, int threads, size_t smem, long long total,
+                            int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long need = (total + threads - 1) / threads;
+  const long long cap = static_cast<long long>(sms) * per_sm;
+  *grid = static_cast<int>(need < cap ? need : cap);
+  return cudaSuccess;
 }
 
 }  // namespace gn_nk

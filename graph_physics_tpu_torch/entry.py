@@ -1,6 +1,5 @@
-"""Setups of the port on the synthetic cylinder mesh (``epd`` and
-graph-transformer inference and training) and on the graded mesh
-(inference of both).
+"""Setups of the port on the synthetic cylinder mesh and on the graded
+mesh (``epd`` and graph-transformer inference and training on each).
 
 Counterpart of __graft_entry__._cylinder_setup / entry:
 ``cylinder_setup`` builds the ``epd`` inference slice,
@@ -22,7 +21,9 @@ empty. ``graded_setup`` and ``graded_transformer_setup`` run the same two
 models at the same widths on the graded mesh of dataset/synthetic.py
 (27,000 nodes, 160,612 directed edges, in-degree 2 to 13), laid out by
 training/fused.FusedTopologyManager, which chooses the CSR layout for it,
-with B=16 packed copies of frame 0 (scripts/bench_airfoil.py's batch).
+with B=16 packed copies of frame 0 (scripts/bench_airfoil.py's batch);
+``graded_train_setup`` and ``graded_transformer_train_setup`` add the
+training step to them.
 Every setup runs on the card unless the caller passes another device.
 """
 
@@ -200,28 +201,30 @@ def transformer_setup(
 
 
 def graded_setup(device="cuda", *, num_nodes: int = 27_000, mp_steps: int = 5,
-                 batch: int = 16, num_steps: int = 3) -> CylinderSetup:
+                 batch: int = 16, num_steps: int = 3,
+                 accumulate_stats: bool = True) -> CylinderSetup:
     """The cylinder ``epd`` model (``cylinder_setup``'s widths: hidden 32,
     bf16, weights from seed 0) on the graded mesh, in the layout
     FusedTopologyManager("epd") chooses, which must be CSR: B
-    packed copies of frame 0 on ``device``, normalizer statistics
-    accumulated over the batch."""
+    packed copies of frame 0 on ``device``; ``accumulate_stats`` folds the
+    batch into the normalizer statistics."""
     return _packed_setup(device, lambda t: make_simulator(32, mp_steps, torch.bfloat16, t, 0),
                          synthetic.make_graded_trajectory(num_nodes, num_steps),
-                         batch, _chosen_csr_layout("epd"), True)
+                         batch, _chosen_csr_layout("epd"), accumulate_stats)
 
 
 def graded_transformer_setup(device="cuda", *, num_nodes: int = 27_000, mp_steps: int = 10,
-                             batch: int = 16, num_steps: int = 3) -> CylinderSetup:
+                             batch: int = 16, num_steps: int = 3,
+                             accumulate_stats: bool = True) -> CylinderSetup:
     """The graph transformer (``transformer_setup``'s widths: hidden 64, 4
     heads, bf16, weights from seed 0) on the graded mesh, in the layout
     FusedTopologyManager("transformer") chooses, which must be CSR: B
-    packed copies of frame 0 on ``device``, normalizer statistics
-    accumulated over the batch."""
+    packed copies of frame 0 on ``device``; ``accumulate_stats`` folds the
+    batch into the normalizer statistics."""
     return _packed_setup(
         device, lambda t: make_transformer_simulator(64, mp_steps, 4, torch.bfloat16, t, 0),
         synthetic.make_graded_trajectory(num_nodes, num_steps), batch,
-        _chosen_csr_layout("transformer"), True)
+        _chosen_csr_layout("transformer"), accumulate_stats)
 
 
 #: bench.py's training configuration (__graft_entry__._cylinder_setup :97-99)
@@ -246,13 +249,17 @@ def make_trainer(sim: Simulator) -> Tuple[TrainState, Callable]:
     return init_train_state(sim, opt), make_train_step(sim, l2_loss, NOISE, num_steps=NUM_STEPS)
 
 
-def cylinder_train_setup(device="cuda", *, batch: int = 128, seed: int = 0, **kw) -> CylinderTrainSetup:
-    """``cylinder_setup`` with fresh normalizer statistics and
-    :func:`make_trainer`'s training step. ``kw`` goes to ``cylinder_setup``."""
-    base = cylinder_setup(device, batch=batch, seed=seed, accumulate_stats=False, **kw)
+def _train_setup(base: CylinderSetup) -> CylinderTrainSetup:
     state, step = make_trainer(base.simulator)
     return CylinderTrainSetup(simulator=base.simulator, graph=base.graph, tiling=base.tiling,
                               state=state, train_step=step)
+
+
+def cylinder_train_setup(device="cuda", *, batch: int = 128, seed: int = 0, **kw) -> CylinderTrainSetup:
+    """``cylinder_setup`` with fresh normalizer statistics and
+    :func:`make_trainer`'s training step. ``kw`` goes to ``cylinder_setup``."""
+    return _train_setup(cylinder_setup(device, batch=batch, seed=seed, accumulate_stats=False,
+                                       **kw))
 
 
 def transformer_train_setup(device="cuda", *, batch: int = 64, seed: int = 0,
@@ -261,10 +268,26 @@ def transformer_train_setup(device="cuda", *, batch: int = 64, seed: int = 0,
     :func:`make_trainer`'s training step: the train step of
     scripts/bench_models.py:62-99 for ``transformer_nk`` (:142-166). ``kw``
     goes to ``transformer_setup``."""
-    base = transformer_setup(device, batch=batch, seed=seed, accumulate_stats=False, **kw)
-    state, step = make_trainer(base.simulator)
-    return CylinderTrainSetup(simulator=base.simulator, graph=base.graph, tiling=base.tiling,
-                              state=state, train_step=step)
+    return _train_setup(transformer_setup(device, batch=batch, seed=seed,
+                                          accumulate_stats=False, **kw))
+
+
+def graded_train_setup(device="cuda", *, batch: int = 16, **kw) -> CylinderTrainSetup:
+    """``graded_setup`` (the ``epd`` model on the graded mesh, CSR layout)
+    with fresh normalizer statistics and :func:`make_trainer`'s training
+    step: the step scripts/bench_airfoil.py trains at B=16. ``kw`` goes to
+    ``graded_setup``."""
+    return _train_setup(graded_setup(device, batch=batch, accumulate_stats=False, **kw))
+
+
+def graded_transformer_train_setup(device="cuda", *, batch: int = 16,
+                                   **kw) -> CylinderTrainSetup:
+    """``graded_transformer_setup`` (the graph transformer on the graded
+    mesh, CSR layout) with fresh normalizer statistics and
+    :func:`make_trainer`'s training step, at B=16. ``kw`` goes to
+    ``graded_transformer_setup``."""
+    return _train_setup(graded_transformer_setup(device, batch=batch, accumulate_stats=False,
+                                                 **kw))
 
 
 def rollout_frames(setup: CylinderSetup, starts: Sequence[int], steps: int) -> MeshGraph:

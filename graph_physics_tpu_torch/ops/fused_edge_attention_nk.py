@@ -29,6 +29,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from graph_physics_tpu_torch.ops import kernel_build
+from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
 #: head widths the kernels are compiled for (``DH`` template instances):
 #: the canonical configs' hidden 64 and 128 over 4 heads
@@ -77,35 +78,10 @@ def _launch_fwd(q, k, v, senders, edge_mask, nk):
     return out
 
 
-def sender_slots(senders: torch.Tensor, edge_mask: torch.Tensor,
-                 num_nodes: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The transpose of the slot table: (order, offsets), int32, where
-    ``order[offsets[j]:offsets[j+1]]`` are the valid slots whose sender is
-    j, in slot order. The backward kernel sums dk and dv over them. No
-    value comes back to the host."""
-    key = torch.where(edge_mask, senders.long(), num_nodes)  # padded slots sort last
-    keys, order = torch.sort(key, stable=True)
-    offsets = torch.searchsorted(keys, torch.arange(num_nodes + 1, device=keys.device))
-    return order.to(torch.int32), offsets.to(torch.int32)
-
-
-def _cached_sender_slots(senders, edge_mask, nk):
-    """:func:`sender_slots` of the graph's slot arrays, kept on the layout
-    ``nk`` and computed again only for other arrays: every block of a
-    model, and every step on one graph, pass the same two tensors (held
-    there, so the same objects at the same versions hold the same values)."""
-    versions = (senders._version, edge_mask._version)
-    hit = nk.derived.get("sender_slots")
-    if hit is None or hit[0] is not senders or hit[1] is not edge_mask or hit[2] != versions:
-        hit = (senders, edge_mask, versions, sender_slots(senders, edge_mask, nk.num_nodes))
-        nk.derived["sender_slots"] = hit
-    return hit[3]
-
-
 def _launch_bwd(q, k, v, senders, edge_mask, nk, g_out):
     """dq, dk, dv (bf16) from the backward kernel."""
     n, b, h, dh = q.shape
-    order, offsets = _cached_sender_slots(senders, edge_mask, nk)
+    order, offsets = cached_sender_slots(senders, edge_mask, nk)
     dq, dk, dv, gp = (torch.empty_like(q) for _ in range(4))
     p_slot = torch.empty((nk.total_rows, b, h), dtype=q.dtype, device=q.device)
     gl_slot = torch.empty_like(p_slot)

@@ -1,30 +1,39 @@
 """Fused GraphNetBlock on the receiver-sorted CSR edge layout.
 
-Replaces the TPU Pallas kernel graph_physics_tpu/ops/fused_gnblock.py:
-_fwd_kernel (:392) behind fused_gn_block (:687), without ``lanes``,
-``tiling_idx`` and ``extra_agg`` (the world sidecar, ROADMAP A 11). The
-CUDA kernel (``csrc/fused_gnblock_csr.cu``) runs a pre-pass that writes
-each node's sender partial x @ Ks, then one thread per (receiver, sample)
-over the receiver's CSR rows, so graphs of any degree sum at the receiver
-with no atomics. See the source's header for the design and the bound.
+Replaces the TPU Pallas kernels graph_physics_tpu/ops/fused_gnblock.py:
+_fwd_kernel (:392) and _bwd_kernel (:453) behind fused_gn_block (:687),
+without ``lanes``, ``tiling_idx`` and ``extra_agg`` (the world sidecar,
+ROADMAP A 5). Two CUDA kernels: the forward (``csrc/fused_gnblock_csr.cu``)
+runs a pre-pass that writes each node's sender partial x @ Ks, then one
+thread per (receiver, sample) over the receiver's CSR rows, so graphs of
+any degree sum at the receiver with no atomics; the backward
+(``csrc/fused_gnblock_csr_bwd.cu``) rematerializes that forward from
+(x, e) and the aggregate the forward kept, one thread per (row, sample),
+and returns dx, de and fp32 weight gradients, its sender-side sums taken
+over the layout's sender-sorted row list. See the sources' headers for
+the designs and the bounds.
 
 :func:`fused_gn_block_csr_reference` is the plain PyTorch version,
 following blocked_reference (fused_gnblock.py:1109-1191) on the CSR edge
-list. The wrapper uses it for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises. There is no backward kernel yet, so on a
-CUDA tensor that needs a gradient the wrapper raises.
+list; its gradient is plain autograd
+(:func:`fused_gn_block_csr_backward_reference`). The wrapper uses it for
+tensors on the CPU; for CUDA tensors it launches the kernels (the
+backward through ``torch.autograd.Function``) or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from graph_physics_tpu_torch.ops import kernel_build
 from graph_physics_tpu_torch.ops.fused_gnblock_nk import (
+    BACKWARD_LAYERS,
     KERNEL_HIDDEN,
     KERNEL_MAX_LAYERS,
     _check_mlp,
@@ -34,30 +43,155 @@ from graph_physics_tpu_torch.ops.fused_gnblock_nk import (
     _pointers,
     mlp_tail_reference,
 )
+from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {"gn_csr_fwd": [_vp] * 8 + [_i] * 4 + [_vp, _i] * 3 + [_vp]}
+_ARGTYPES = {
+    "gn_csr_fwd": {"gn_csr_fwd": [_vp] * 9 + [_i] * 4 + [_vp, _i] * 3 + [_vp]},
+    "gn_csr_bwd": {"gn_csr_bwd": [_vp] * 17 + [_i] * 4 + [_vp, _vp, _i] * 3 + [_vp]},
+}
 
 
-def _launch(x, edge_attr, senders, edge_mask, csr, mlps, last_block):
+def _load(name: str):
+    return kernel_build.load(name, _ARGTYPES[name])
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_block,
+                keep_agg=False):
+    """(x_out, e_out, agg): e_out is ``edge_attr`` on the last block; with
+    ``keep_agg`` the kernel also writes the bf16 aggregate [N, B, H] the
+    backward kernel reads (else agg is None)."""
     enc, edge, node = mlps
     n, b, h = x.shape
     x_out = torch.empty_like(x)
     e_out = None if last_block else torch.empty((csr.total_rows, b, h), dtype=x.dtype,
                                                 device=x.device)
+    agg = torch.empty_like(x) if keep_agg else None
     xks = torch.empty_like(x)  # the pre-pass's sender partials
-    err = kernel_build.load("gn_csr_fwd", _ARGTYPES).gn_csr_fwd(
+    err = _load("gn_csr_fwd").gn_csr_fwd(
         x.data_ptr(), edge_attr.data_ptr(), xks.data_ptr(), x_out.data_ptr(),
-        None if e_out is None else e_out.data_ptr(), csr.row_ptr_on(x.device).data_ptr(),
-        senders.data_ptr(), edge_mask.data_ptr(), n, b, csr.total_rows,
+        None if e_out is None else e_out.data_ptr(), None if agg is None else agg.data_ptr(),
+        csr.row_ptr_on(x.device).data_ptr(), senders.data_ptr(), edge_mask.data_ptr(), n, b,
+        csr.total_rows,
         edge_attr.shape[-1] if enc is not None else 0,
         None if enc is None else _pointers(enc), 0 if enc is None else len(enc.denses),
-        _pointers(edge), len(edge.denses), _pointers(node), len(node.denses),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _pointers(edge), len(edge.denses), _pointers(node), len(node.denses), _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_gn_block_csr launch failed with CUDA error {err}")
     fused_gn_block_csr.launches += 1
-    return x_out, (edge_attr if last_block else e_out)
+    return x_out, (edge_attr if last_block else e_out), agg
+
+
+def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, receivers, edge_mask, csr, mlps):
+    """dx (bf16), de (bf16, None when the encoder is folded) and the
+    parameter gradients (fp32 holding bf16 values, as the plain version's
+    bf16 autograd gives them) in ``_mlp_params`` order per MLP. ``agg`` is
+    the aggregate the forward kept."""
+    enc = mlps[0]
+    n, b, h = x.shape
+    rows = csr.total_rows
+    order, offsets = cached_sender_slots(senders, edge_mask, csr)
+    dx, xkr, xks, gagg = (torch.empty_like(x) for _ in range(4))
+    de = None if enc is not None else torch.empty((rows, b, h), dtype=x.dtype, device=x.device)
+    gh0 = torch.empty((rows, b, h), dtype=x.dtype, device=x.device)
+    grads = [[torch.zeros_like(p, dtype=torch.float32) for p in _mlp_params(m)]
+             if m is not None else None for m in mlps]
+    ptrs = []
+    for m, gs in zip(mlps, grads):
+        ptrs += ([None, None, 0] if m is None
+                 else [_pointers(m), _pointers(m, gs), len(m.denses)])
+    err = _load("gn_csr_bwd").gn_csr_bwd(
+        x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
+        None if g_eout is None else g_eout.data_ptr(), dx.data_ptr(),
+        None if de is None else de.data_ptr(), xkr.data_ptr(), xks.data_ptr(),
+        gagg.data_ptr(), gh0.data_ptr(), csr.row_ptr_on(x.device).data_ptr(),
+        senders.data_ptr(), receivers.data_ptr(), edge_mask.data_ptr(), order.data_ptr(),
+        offsets.data_ptr(), n, b, rows, edge_attr.shape[-1] if enc is not None else 0, *ptrs,
+        _stream(x))
+    if err != 0:
+        raise RuntimeError(f"fused_gn_block_csr backward launch failed with CUDA error {err}")
+    fused_gn_block_csr.backward_launches += 1
+    flat = [g.to(torch.bfloat16).float() for gs in grads if gs is not None for g in gs]
+    return dx, de, flat
+
+
+def _reference_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_block):
+    """:func:`fused_gn_block_csr_reference` in bf16, returned as the kernel
+    forward's are (with nothing kept for the backward)."""
+    enc, edge, node = mlps
+    return (*fused_gn_block_csr_reference(
+        x, edge_attr, senders, receivers, edge_mask, edge, node, csr, encoder_params=enc,
+        last_block=last_block, compute_dtype=torch.bfloat16), None)
+
+
+def fused_gn_block_csr_backward_reference(x, edge_attr, agg, g_xout, g_eout, senders, receivers,
+                                          edge_mask, csr, mlps):
+    """Plain version of the backward kernel: plain bf16 autograd of
+    :func:`fused_gn_block_csr_reference` (``agg`` is not used), returned as
+    the kernel's are (dx, de or None when the encoder is folded, the
+    parameter gradients in ``_mlp_params`` order per MLP)."""
+    enc = mlps[0]
+    params = [p for m in mlps if m is not None for p in _mlp_params(m)]
+    with torch.enable_grad():
+        xl = x.detach().requires_grad_(True)
+        el = edge_attr.detach().requires_grad_(enc is None)
+        x_out, e_out, _ = _reference_fwd(xl, el, senders, receivers, edge_mask, csr, mlps,
+                                         g_eout is None)
+        outs, cots = ([x_out], [g_xout]) if g_eout is None else ([x_out, e_out], [g_xout, g_eout])
+        wrt = [xl] + ([el] if enc is None else []) + params
+        grads = torch.autograd.grad(outs, wrt, cots)
+    if enc is None:
+        return grads[0], grads[1], list(grads[2:])
+    return grads[0], None, list(grads[1:])
+
+
+#: the forward (keeping its aggregate) and backward as kernels, and as
+#: plain versions
+KERNELS = (functools.partial(_launch_fwd, keep_agg=True), _launch_bwd)
+PLAIN = (_reference_fwd, fused_gn_block_csr_backward_reference)
+
+
+class _FusedGNBlockCSR(torch.autograd.Function):
+    """A forward with its backward as the gradient: the kernels
+    (:data:`KERNELS`) or the plain versions (:data:`PLAIN`), given as the
+    pair ``impl``. The MLPs' parameters are inputs so autograd routes their
+    gradients; on the last block only x_out is an output (the edge stream
+    passes through outside), so no cotangent of the dead edge stream
+    reaches the backward."""
+
+    @staticmethod
+    def forward(ctx, x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_block, impl,
+                *params):
+        x_out, e_out, agg = impl[0](x, edge_attr, senders, receivers, edge_mask, csr, mlps,
+                                    last_block)
+        ctx.save_for_backward(x, edge_attr, agg, senders, receivers, edge_mask)
+        ctx.csr, ctx.mlps, ctx.impl = csr, mlps, impl
+        return x_out if last_block else (x_out, e_out)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_xout, g_eout=None):
+        x, edge_attr, agg, senders, receivers, edge_mask = ctx.saved_tensors
+        dx, de, grads = ctx.impl[1](
+            x, edge_attr, agg, g_xout.contiguous(),
+            None if g_eout is None else g_eout.contiguous(), senders, receivers, edge_mask,
+            ctx.csr, ctx.mlps)
+        return (dx, de, None, None, None, None, None, None, None, *grads)
+
+
+def apply_with_backward(impl, x, edge_attr, senders, receivers, edge_mask, csr, mlps,
+                        last_block):
+    """The block through :class:`_FusedGNBlockCSR` with ``impl`` (the
+    kernels or the plain versions): (x_out, e_out), e_out being
+    ``edge_attr`` on the last block."""
+    params = [p for m in mlps if m is not None for p in _mlp_params(m)]
+    out = _FusedGNBlockCSR.apply(x, edge_attr, senders, receivers, edge_mask, csr, mlps,
+                                 last_block, impl, *params)
+    return (out, edge_attr) if last_block else out
 
 
 def fused_gn_block_csr(
@@ -81,8 +215,10 @@ def fused_gn_block_csr(
     graph's row arrays; ``edge_params``/``node_params`` are the block's edge
     and node MLPs (models/layers.MLP); ``csr`` is the CSRLayout. Returns
     (x_out, e_out); on the last block e_out is ``edge_attr`` unchanged.
-    CPU tensors take :func:`fused_gn_block_csr_reference`; CUDA tensors
-    launch the kernel, counted in ``fused_gn_block_csr.launches``.
+    CPU tensors take :func:`fused_gn_block_csr_reference` (gradient by
+    plain autograd); CUDA tensors launch the forward kernel, counted in
+    ``fused_gn_block_csr.launches``, and under autograd its gradient is
+    the backward kernel, counted in ``fused_gn_block_csr.backward_launches``.
     """
     n, b, h = x.shape
     rows = csr.total_rows
@@ -122,12 +258,18 @@ def fused_gn_block_csr(
         raise NotImplementedError(f"at most {KERNEL_MAX_LAYERS} Dense layers per MLP")
     params = [p for m in used for p in _mlp_params(m)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in [x, edge_attr, *params]):
-        raise NotImplementedError("the CSR GraphNetBlock has no backward kernel yet: call it "
-                                  "under torch.no_grad() or inference_mode()")
-    return _launch(x, edge_attr, senders, edge_mask, csr, mlps, last_block)
+        if any(len(m.denses) != BACKWARD_LAYERS for m in used):
+            raise NotImplementedError(
+                f"the backward kernel is built for MLPs of {BACKWARD_LAYERS} Dense layers")
+        if encoder_params is not None and fe > h:
+            raise NotImplementedError("raw edge features wider than the hidden size")
+        return apply_with_backward(KERNELS, x, edge_attr, senders, receivers, edge_mask, csr,
+                                   mlps, last_block)
+    return _launch_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_block)[:2]
 
 
 fused_gn_block_csr.launches = 0
+fused_gn_block_csr.backward_launches = 0
 
 
 def fused_gn_block_csr_reference(

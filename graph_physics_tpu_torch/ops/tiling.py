@@ -24,6 +24,8 @@ behind: the per-block edge padding, the sender windows (``win_start``,
 ``sidx``, ``ridx``), their size refusal and the RCM node order that keeps
 them narrow (``rcm_order``). A kernel walks receiver r's rows
 ``row_ptr[r]:row_ptr[r + 1]``, so it sums at the receiver with no atomics.
+:func:`sender_slots` is the transpose of either layout's rows, on the
+device, over which the backward kernels sum at each sender.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ class NKTiling:
     node_block: int  # nb
     num_nodes: int  # padded node count (multiple of node_block)
     #: device data the kernels' wrappers derive from a graph in this layout
-    #: and reuse across calls (the attention backward's slot-table transpose)
+    #: and reuse across calls (the backward's transpose of the slot table)
     derived: dict = field(default_factory=dict, repr=False)
 
     @property
@@ -151,7 +153,8 @@ class CSRLayout:
     row_ptr: np.ndarray
     num_nodes: int  # padded node count (multiple of NODE_BLOCK)
     #: device data the kernels' wrappers derive from the layout and reuse
-    #: across calls (``row_ptr`` on each device)
+    #: across calls (``row_ptr`` on each device, the backward's transpose
+    #: of the rows)
     derived: dict = field(default_factory=dict, repr=False)
 
     @property
@@ -175,6 +178,35 @@ class CSRLayout:
 
 #: a graph's kernel layout; its type picks the kernels
 Layout = Union[NKTiling, CSRLayout]
+
+
+def sender_slots(senders: torch.Tensor, edge_mask: torch.Tensor,
+                 num_nodes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The transpose of a layout's rows (NK slots or CSR rows): (order,
+    offsets), int32, where ``order[offsets[j]:offsets[j+1]]`` are the valid
+    rows whose sender is j, in row order. The backward kernels sum the
+    sender-side gradients over them. Padding rows (mask False) are left
+    out. No value comes back to the host."""
+    key = torch.where(edge_mask, senders.long(), num_nodes)  # padding rows sort last
+    keys, order = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(keys, torch.arange(num_nodes + 1, device=keys.device))
+    return order.to(torch.int32), offsets.to(torch.int32)
+
+
+def cached_sender_slots(senders: torch.Tensor, edge_mask: torch.Tensor,
+                        layout: Layout) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sender_slots` of the graph's row arrays, kept in
+    ``layout.derived`` and computed again only for other arrays: every
+    block of a model, and every step on one graph, pass the same two
+    tensors (held there, so the same objects at the same versions hold the
+    same values)."""
+    versions = (senders._version, edge_mask._version)
+    hit = layout.derived.get("sender_slots")
+    if hit is None or hit[0] is not senders or hit[1] is not edge_mask or hit[2] != versions:
+        hit = (senders, edge_mask, versions, sender_slots(senders, edge_mask, layout.num_nodes))
+        layout.derived["sender_slots"] = hit
+    return hit[3]
+
 
 #: CSR rows are padded to a multiple of this
 ROW_ALIGN = 128

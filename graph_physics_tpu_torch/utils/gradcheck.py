@@ -31,7 +31,9 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
+from graph_physics_tpu_torch.ops import fused_gnblock_csr as csr_ops
 from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+from graph_physics_tpu_torch.ops.tiling import CSRLayout
 
 STREAM_TOL = 0.05
 OUTSIDE_SHARE = 1e-4
@@ -124,19 +126,26 @@ def check_backward(names: Sequence[str], streams: Sequence[str], kernel_fn: Call
     return rows, ok, {"kernel": kept_k, "plain": kept_p}
 
 
-def check_block_backward(x, e, senders, edge_mask, mlps, nk, last_block, cot_x, cot_e):
-    """:func:`check_backward` of one NK GraphNetBlock with ``mlps`` =
+def check_block_backward(x, e, rows, mlps, layout, last_block, cot_x, cot_e):
+    """:func:`check_backward` of one GraphNetBlock with ``mlps`` =
     (encoder or None, edge MLP, node MLP), from the cotangents of x_out
-    and (unless on the last block) e_out. Gradients: dx, de unless the
-    encoder is folded (raw edge features take none), then every MLP
-    parameter in the kernels' order."""
+    and (unless on the last block) e_out. The layout's type picks the
+    block: on an NKTiling ``fused_gn_block_nk`` with ``rows`` = (senders,
+    edge_mask), on a CSRLayout ``fused_gn_block_csr`` with ``rows`` =
+    (senders, receivers, edge_mask), each against its plain version.
+    Gradients: dx, de unless the encoder is folded (raw edge features take
+    none), then every MLP parameter in the kernels' order."""
+    if isinstance(layout, CSRLayout):
+        fn, reference = csr_ops.fused_gn_block_csr, csr_ops.fused_gn_block_csr_reference
+    else:
+        fn, reference = nk_ops.fused_gn_block_nk, nk_ops.fused_gn_block_nk_reference
     enc = mlps[0]
 
     def block(fn, mlps_, **kw):
         def run(xx, *ee):
             e_in = ee[0] if ee else (e if xx.dtype == torch.bfloat16 else e.float())
-            xo, eo = fn(xx, e_in, senders, edge_mask, mlps_[1], mlps_[2], nk,
-                        encoder_params=mlps_[0], last_block=last_block, **kw)
+            xo, eo = fn(xx, e_in, *rows, mlps_[1], mlps_[2], layout, encoder_params=mlps_[0],
+                        last_block=last_block, **kw)
             params = [p for m in mlps_ if m is not None for p in nk_ops._mlp_params(m)]
             return (xo if last_block else (xo, eo)), params
         return run
@@ -148,8 +157,7 @@ def check_block_backward(x, e, senders, edge_mask, mlps, nk, last_block, cot_x, 
     inputs = [x] + ([e] if enc is None else [])
     cots = [cot_x] + ([] if last_block else [cot_e])
     return check_backward(
-        names, ("dx", "de"), block(nk_ops.fused_gn_block_nk, mlps),
-        block(nk_ops.fused_gn_block_nk_reference, mlps, compute_dtype=torch.bfloat16),
-        block(nk_ops.fused_gn_block_nk_reference, [rounded_copy(m) for m in mlps],
-              compute_dtype=torch.float32),
+        names, ("dx", "de"), block(fn, mlps),
+        block(reference, mlps, compute_dtype=torch.bfloat16),
+        block(reference, [rounded_copy(m) for m in mlps], compute_dtype=torch.float32),
         inputs, cots)

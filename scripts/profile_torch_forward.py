@@ -2,7 +2,8 @@
 step, goes, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_forward.py \
-        [transformer|epd|transformer-train|epd-train|graded|graded-transformer ...]
+        [transformer|epd|transformer-train|epd-train|graded|graded-transformer|
+         graded-train|graded-transformer-train ...]
     # default: the two cylinder forwards
 
 For each slice (``transformer``: entry.transformer_setup, 10 blocks, hidden
@@ -10,7 +11,9 @@ For each slice (``transformer``: entry.transformer_setup, 10 blocks, hidden
 ``-train`` slices: one train step of entry.transformer_train_setup or
 entry.cylinder_train_setup, same models and batches; ``graded`` and
 ``graded-transformer``: the two models' forwards on the graded mesh in the
-CSR layout, entry.graded_setup and entry.graded_transformer_setup, B=16)
+CSR layout, entry.graded_setup and entry.graded_transformer_setup, B=16;
+``graded-train`` and ``graded-transformer-train``: one train step of
+entry.graded_train_setup or entry.graded_transformer_train_setup)
 and each path (kernel path, and the plain path with no edge layout), runs
 ``torch.profiler`` over 10 calls after 3 warm-up calls and prints, per
 call: the host wall time (synchronised), the device time summed over
@@ -36,11 +39,13 @@ GROUPS = (
     ("attention kernel (ea_nk_fwd)", ("ea_nk_fwd",)),
     ("attention backward kernels (ea_nk_bwd)", ("ea_nk_bwd",)),
     ("CSR attention kernel (ea_csr_fwd)", ("ea_csr_fwd",)),
+    ("CSR attention backward kernels (ea_csr_bwd)", ("ea_csr_bwd",)),
     ("gated FFN kernel (ffn_fwd)", ("ffn_fwd",)),
     ("gated FFN backward kernels (ffn_bwd)", ("ffn_bwd",)),
     ("GraphNetBlock kernel (gn_nk_fwd)", ("gn_nk_fwd",)),
     ("GraphNetBlock backward kernel (gn_nk_bwd)", ("gn_nk_bwd",)),
-    ("CSR GraphNetBlock kernels (gn_csr)", ("gn_csr",)),
+    ("CSR GraphNetBlock backward kernels (gn_csr_bwd)", ("gn_csr_bwd",)),
+    ("CSR GraphNetBlock kernels (gn_csr_fwd, gn_csr_partial)", ("gn_csr",)),
     ("GEMMs", ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")),
     ("optimizer (multi-tensor)", ("multi_tensor",)),
     ("sort", ("sort", "radix")),
@@ -116,7 +121,9 @@ def main():
                 "graded": entry.graded_setup,
                 "graded-transformer": entry.graded_transformer_setup}
     trains = {"transformer-train": entry.transformer_train_setup,
-              "epd-train": entry.cylinder_train_setup}
+              "epd-train": entry.cylinder_train_setup,
+              "graded-train": entry.graded_train_setup,
+              "graded-transformer-train": entry.graded_transformer_train_setup}
     for name in sys.argv[1:] or ["transformer", "epd"]:
         setup = (forwards.get(name) or trains[name])("cuda")
         graph = setup.graph

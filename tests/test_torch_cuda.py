@@ -17,7 +17,9 @@ its train step to the ``epd`` step's bounds (step-1 loss 0.02, gradients
 0.04 · max). The graded mesh's CSR kernels take the bounds of their NK
 counterparts: 0.05 (GraphNetBlock), rtol 0.03 atol 0.02 (attention, its
 plain version ``ops/edge_attention.edge_attention``), 0.15 and 0.1 for
-the models.
+the models; their backward kernels are held with utils/gradcheck.py at a
+small size and at the graded slice's (27,000 nodes x 16 samples), and
+the graded train steps to the same bounds as the cylinder's.
 """
 
 import copy
@@ -26,8 +28,9 @@ import pytest
 import torch
 
 from graph_physics_tpu_torch import entry
-from graph_physics_tpu_torch.models.layers import GatedMLPBlock, RMSNorm, reset_parameters
+from graph_physics_tpu_torch.models.layers import MLP, GatedMLPBlock, RMSNorm, reset_parameters
 from graph_physics_tpu_torch.ops.edge_attention import edge_attention
+from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_csr_ops
 from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
 from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
 from graph_physics_tpu_torch.ops.fused_edge_attention_nk import (
@@ -125,7 +128,7 @@ def test_backward_kernel_matches_plain_version(cuda_device, variant, batch):
                         device=cuda_device).to(torch.bfloat16)
     before = fused_gn_block_nk.backward_launches
     rows, ok, _ = gradcheck.check_block_backward(
-        x, e, senders, mask, (kw["encoder_params"], edge, node), nk, kw["last_block"],
+        x, e, (senders, mask), (kw["encoder_params"], edge, node), nk, kw["last_block"],
         cot_x, cot_e)
     torch.cuda.synchronize()
     assert fused_gn_block_nk.backward_launches == before + 1
@@ -405,15 +408,113 @@ def test_csr_attention_kernel_matches_plain_version(cuda_device, batch):
 
 @pytest.mark.cuda
 def test_csr_kernels_raise_under_autograd(cuda_device):
+    """Under autograd the CSR kernels raise outside their backward's scope
+    (MLPs of other depths, head widths without an instance), and never
+    take the plain version."""
     setup = entry.graded_setup(cuda_device, num_nodes=1536, batch=2, mp_steps=2)
     args, kw = _graded_block_args(setup, "middle", seed=0)
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        fused_gn_block_csr(*args, **kw)  # the MLPs' parameters require grad
+    shallow = MLP(3 * 32, 32, 32, 3).to(cuda_device)  # 3 Dense layers: no backward kernel
+    before = fused_gn_block_csr.launches
+    with pytest.raises(NotImplementedError, match="Dense layers"):
+        fused_gn_block_csr(*args[:5], shallow, *args[6:], **kw)
+    assert fused_gn_block_csr.launches == before
     g, csr = setup.graph, setup.tiling
-    q = torch.zeros((csr.num_nodes, 2, 4, 16), dtype=torch.bfloat16, device=cuda_device,
-                    requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
+    q = torch.zeros((csr.num_nodes, 2, 4, 8), dtype=torch.bfloat16, device=cuda_device,
+                    requires_grad=True)  # head width 8: no kernel instance
+    with pytest.raises(NotImplementedError, match="head widths"):
         fused_edge_attention_csr(q, q, q, g.senders, g.receivers, g.edge_mask, csr)
+
+
+def _csr_cotangents(x, rows, seed):
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=x.device).to(torch.bfloat16)
+            for shape in (x.shape, (rows,) + x.shape[1:])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_nodes,batch", [(1536, 4), (1536, 33), (27_000, 16)])
+@pytest.mark.parametrize("variant", ["folded", "middle", "last"])
+def test_csr_gn_backward_kernel_matches_plain_version(cuda_device, variant, num_nodes, batch):
+    """1,536 nodes (node N-1 real, with rows; the padding rows point at it)
+    and the graded slice's 27,000 x 16. Bounds: utils/gradcheck.py."""
+    setup = entry.graded_setup(cuda_device, num_nodes=num_nodes, batch=batch, mp_steps=3)
+    args, kw = _graded_block_args(setup, variant, seed=batch)
+    x, e, senders, receivers, mask, edge, node, csr = args
+    cot_x, cot_e = _csr_cotangents(x, csr.total_rows, 200 + batch)
+    before = fused_gn_block_csr.backward_launches
+    rows, ok, _ = gradcheck.check_block_backward(
+        x, e, (senders, receivers, mask), (kw["encoder_params"], edge, node), csr,
+        kw["last_block"], cot_x, cot_e)
+    torch.cuda.synchronize()
+    assert fused_gn_block_csr.backward_launches == before + 1
+    assert ok, [r for r in rows if not r["ok"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_nodes,batch", [(1500, 2), (1500, 33), (27_000, 16)])
+def test_csr_attention_backward_kernel_matches_plain_backward(cuda_device, num_nodes, batch):
+    """Against autograd of edge_attention and fp32 autograd (bounds:
+    utils/gradcheck.py); dq exactly 0 where a receiver has no valid row,
+    and dk, dv exactly 0 on nodes that send on none (the padding nodes)."""
+    setup = entry.graded_transformer_setup(cuda_device, num_nodes=num_nodes, batch=batch,
+                                           mp_steps=1)
+    g, csr = setup.graph, setup.tiling
+    gen = torch.Generator(device=cuda_device).manual_seed(batch)
+    *qkv, cot = [(s * torch.randn((csr.num_nodes, batch, 4, 16), generator=gen,
+                                  device=cuda_device)).to(torch.bfloat16)
+                 for s in (0.5, 0.5, 0.5, 1.0)]
+    gone = torch.tensor([0, 7, csr.num_nodes // 2], device=cuda_device)
+    masked = g.edge_mask & ~torch.isin(g.receivers, gone)  # three receivers with no valid row
+    names = ("dq", "dk", "dv")
+    for m in (g.edge_mask, masked):
+        def attention(fn):
+            return lambda *t: (fn(*t, g.senders, g.receivers, m, csr), [])
+
+        before = fused_edge_attention_csr.backward_launches
+        rows, ok, _ = gradcheck.check_backward(
+            names, names, attention(fused_edge_attention_csr),
+            attention(ea_csr_ops.reference_with_backward),
+            lambda *t: (edge_attention(*t, g.senders, g.receivers, m), []), qkv, [cot])
+        torch.cuda.synchronize()
+        assert fused_edge_attention_csr.backward_launches == before + 1
+        assert ok, [r for r in rows if not r["ok"]]
+    leaves = [t.clone().requires_grad_(True) for t in qkv]
+    dq, dk, dv = torch.autograd.grad(
+        fused_edge_attention_csr(*leaves, g.senders, g.receivers, masked, csr), leaves, cot)
+    pad = ~g.node_mask
+    for t in (dq[gone], dq[pad], dk[pad], dv[pad]):
+        assert torch.equal(t, torch.zeros_like(t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setup_fn", ["graded_train_setup", "graded_transformer_train_setup"])
+def test_graded_train_step_goes_through_csr_kernels_and_matches_plain_path(cuda_device,
+                                                                           setup_fn):
+    train = getattr(entry, setup_fn)(cuda_device, num_nodes=1500, batch=4, mp_steps=3)
+    plain_sim = copy.deepcopy(train.simulator)
+    plain_sim.model.tiling = None
+    plain_state, plain_step = entry.make_trainer(plain_sim)
+    kernels = ((fused_gn_block_csr,) if setup_fn == "graded_train_setup"
+               else (fused_edge_attention_csr, fused_gated_ffn))
+    before = [(k.launches, k.backward_launches) for k in kernels]
+    m = train.train_step(train.state, train.graph, torch.Generator(cuda_device).manual_seed(3))
+    torch.cuda.synchronize()
+    assert [(k.launches, k.backward_launches) for k in kernels] == [
+        (f + 3, b + 3) for f, b in before]
+    mp = plain_step(plain_state, train.graph, torch.Generator(cuda_device).manual_seed(3))
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    # the JAX suite's value bound (tests/test_fused_gnblock_nk.py:150)
+    torch.testing.assert_close(m["loss"], mp["loss"], rtol=0.02, atol=0)
+
+    def unclipped(sim, state, norm):  # undo the clip: g · min(1, clip / norm)
+        undo = max(norm.item() / state.optimizer.grad_clip, 1.0)
+        return torch.cat([p.grad.float().flatten() * undo for p in sim.parameters()])
+
+    gk = unclipped(train.simulator, train.state, m["grad_norm"])
+    gp = unclipped(plain_sim, plain_state, mp["grad_norm"])
+    assert ((gk - gp).abs().max() / gp.abs().max()).item() <= gradcheck.WEIGHT_REL
+    for p in train.simulator.parameters():
+        assert torch.isfinite(p).all()
 
 
 @pytest.mark.cuda

@@ -120,16 +120,16 @@ def test_sender_slots_transpose_the_slot_table():
     slot arrays and computes it again for others or after a change."""
     train = entry.transformer_train_setup("cpu", nx=14, ny=10, batch=2, mp_steps=1)
     g, nk = train.graph, train.tiling
-    order, offsets = ea_ops._cached_sender_slots(g.senders, g.edge_mask, nk)
+    order, offsets = ttiling.cached_sender_slots(g.senders, g.edge_mask, nk)
     for j in range(nk.num_nodes):
         want = torch.nonzero((g.senders == j) & g.edge_mask).flatten().tolist()
         assert order[offsets[j]:offsets[j + 1]].tolist() == want, j
-    assert ea_ops._cached_sender_slots(g.senders, g.edge_mask, nk)[0] is order
+    assert ttiling.cached_sender_slots(g.senders, g.edge_mask, nk)[0] is order
     mask = g.edge_mask.clone()
-    assert ea_ops._cached_sender_slots(g.senders, mask, nk)[0] is not order
-    kept = ea_ops._cached_sender_slots(g.senders, mask, nk)[0]
+    assert ttiling.cached_sender_slots(g.senders, mask, nk)[0] is not order
+    kept = ttiling.cached_sender_slots(g.senders, mask, nk)[0]
     mask[int(order[0])] = False
-    again = ea_ops._cached_sender_slots(g.senders, mask, nk)
+    again = ttiling.cached_sender_slots(g.senders, mask, nk)
     assert again[0] is not kept and int(order[0]) not in again[0][:int(again[1][-1])].tolist()
 
 
