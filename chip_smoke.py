@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the inference
 and training paths of the cylinder ``epd`` and of the graph transformer,
-on the cylinder mesh (NK layout) and on the graded mesh (CSR layout).
+on the cylinder mesh (NK layout) and on the graded mesh (CSR layout), and
+the Transolver++ train step with its gumbel kernel.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
@@ -9,7 +10,8 @@ Phases (any failure raises, so the exit code is non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
   2. build: nvcc builds every kernel of the port from csrc/ (NK and CSR
      GraphNetBlock, NK and CSR edge attention and gated FFN, each forward
-     and backward), one process per source, all at once;
+     and backward, and the gumbel perturbation), one process per source,
+     all at once;
   3. kernel check: each forward variant (folded encoder, middle block,
      last block) against its plain PyTorch version at the slice's shape
      (1,920 nodes x 128 samples x hidden 32, K=6 slots), same bf16 inputs;
@@ -85,9 +87,29 @@ Phases (any failure raises, so the exit code is non-zero):
  21. graded train timing: both CSR backward kernels and their plain
      backwards, the library's masked attention forward + backward where it
      fits, one middle block forward + backward of each family and the
-     train steps on both paths, with the host's time to enqueue a step.
+     train steps on both paths, with the host's time to enqueue a step;
+ 22. gumbel kernel check at the Transolver slice's logits [16·2,432, 4, 32]
+     (1,920 nodes padded to 2,432 rows, as scripts/bench_models.py's
+     graph) and the graded mesh's [16·27,136, 4, 32], bf16: the kernel's Philox
+     words equal the plain version's, bit for bit; outputs within 1e-5;
+     the gradient is the exact passthrough; over the slice's 5.0M draws
+     the noise's mean and std (γ, π/√6), its Kolmogorov-Smirnov statistic
+     against the Gumbel CDF, and another key's draw uncorrelated;
+ 23. Transolver slice (4 blocks, hidden 64, 4 heads, 32 slices, bf16,
+     stacked B=16 on the cylinder's 1,920 nodes): the eval forward on both
+     paths (no noise, no launch), then 20 train steps of
+     ``entry.transolver_train_setup`` on the kernel path, 4 launches a
+     step and none in the backward, against the same steps on the plain
+     path (the gumbel kernel's plain version on the same keys, so the
+     same bits); peak device memory of each path;
+ 24. Transolver timing: the kernel, its plain version and the torch.rand
+     draw (JAX's XLA draw's counterpart) at both shapes with the bound;
+     the train steps with the kernel, with the torch.rand draw and on the
+     plain path, on the cylinder and on the graded mesh's 27,000 points,
+     with the host's time to enqueue a step and the syncs a step makes.
 Before the device JSON, the last line, come the card's name and the
-kernels' JSON record (launches on the main paths, errors, times, bounds).
+kernels' JSON record (launches on the main paths, errors, times, bounds;
+the gumbel kernel's ``library_ms`` is the torch.rand draw's time).
 It imports nothing of JAX.
 """
 
@@ -164,6 +186,19 @@ ATTN_CSR_BWD = {"name": "fused_edge_attention_csr_backward",
 #: receivers of the graded mesh whose rows the empty-receiver check masks
 #: out: every EMPTY_STRIDE-th
 EMPTY_STRIDE = 97
+GUMBEL = {"name": "gumbel_perturb", "source": "graph_physics_tpu_torch/csrc/gumbel.cu",
+          "replaces": "graph_physics_tpu/ops/gumbel.py:51"}
+#: gumbel kernel vs plain version on the same bits, max abs: logf on the
+#: card against torch.log, at |noise| < 17 (a few fp32 ulps)
+GUMBEL_ATOL = 1e-5
+#: mean and std of the draws against γ and π/√6, in standard errors of
+#: Gumbel(0, 1)'s sample mean and std (σ/√n = 1.2825/√n and, with its
+#: excess kurtosis 2.4, σ·√(4.4/4)/√n = 1.345/√n; the larger is taken):
+#: 0.0042 over the 5.0M draws of the slice's shape
+GUMBEL_MOMENT_SES, GUMBEL_SE_COEFF = 7.0, 1.345
+#: Kolmogorov-Smirnov statistic against the Gumbel CDF: the α = 0.001
+#: critical value is KS_COEFF / sqrt(draws)
+KS_COEFF = 1.949
 
 
 def log(*args):
@@ -238,6 +273,30 @@ def cuda_ms(fn, warmup=3, reps=20):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=20):
+    """Device milliseconds per call of ``fn``: the summed time of the CUDA
+    kernels ``reps`` calls launch, by torch.profiler. Unlike ``cuda_ms``
+    it leaves out the gaps where the device waits for the host, which
+    dominate a call of a few microseconds of kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            total_us += getattr(ev, "self_device_time_total", None) or getattr(
+                ev, "self_cuda_time_total", 0.0)
+    if total_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total_us / 1e3 / reps
+
+
 def check_rollouts(label, res, res_plain):
     """Logs both rollouts' per-trajectory RMSEs; raises unless both are
     finite and the RMSEs agree within ROLLOUT_RTOL."""
@@ -286,6 +345,37 @@ def log_grad_rows(rows):
             f"{mx['plain_fp32_max']:.6g} ({mx['name']})")
 
 
+def launch_counts(k):
+    """(forward, backward) launches of a wrapper; a wrapper whose gradient
+    needs no kernel has no backward count."""
+    return k.launches, getattr(k, "backward_launches", 0)
+
+
+def reset_counts(kernels):
+    for k in kernels:
+        k.launches = 0
+        if hasattr(k, "backward_launches"):
+            k.backward_launches = 0
+
+
+def batch_size(graph):
+    """B of a packed [N, B, F] or stacked [B, N, F] batch."""
+    return graph.x.shape[0] if graph.node_type.ndim == 2 else graph.x.shape[1]
+
+
+def plain_copy(sim):
+    """A copy of ``sim`` on the plain path: no edge layout, or, for a
+    Transolver, the gumbel kernel's plain version on the same bits."""
+    from graph_physics_tpu_torch.models.processors import TransolverProcessor
+    from graph_physics_tpu_torch.models.transolver import use_plain_gumbel
+
+    sim = copy.deepcopy(sim)
+    if isinstance(sim.model, TransolverProcessor):
+        return use_plain_gumbel(sim)
+    sim.model.tiling = None
+    return sim
+
+
 def train_run(step, state, sim, graph, seed, n_steps, kernels=()):
     """``n_steps`` train steps of ``sim`` with noise from a generator seeded
     with ``seed``; returns (losses, grad norms, launches per step of each
@@ -297,10 +387,10 @@ def train_run(step, state, sim, graph, seed, n_steps, kernels=()):
     params = dict(sim.named_parameters())
     losses, norms, launches, grads = [], [], [], None
     for i in range(1, n_steps + 1):
-        before = [(k.launches, k.backward_launches) for k in kernels]
+        before = [launch_counts(k) for k in kernels]
         m = step(state, graph, gen)
-        launches.append(tuple((k.launches - f, k.backward_launches - b)
-                              for k, (f, b) in zip(kernels, before)))
+        after = [launch_counts(k) for k in kernels]
+        launches.append(tuple((f1 - f0, b1 - b0) for (f0, b0), (f1, b1) in zip(before, after)))
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
         if i == 1:  # undo the clip: g · min(1, clip / norm)
@@ -309,36 +399,37 @@ def train_run(step, state, sim, graph, seed, n_steps, kernels=()):
     return losses, norms, launches, grads
 
 
-def training_phase(label, train, kernels, seed):
+def training_phase(label, train, kernels, seed, per_step_want=None):
     """``TRAIN_STEPS`` steps of ``train`` (an entry train setup) on the
     kernel path, counts set to 0 just before, against the same steps on a
-    copy whose blocks all take the plain path, from the same weights and
-    noise. Every wrapper in ``kernels`` must launch once forward and once
-    backward per block and step; the step-1 loss and gradients and the
-    later losses must agree. Returns (plain simulator, its state and step,
-    {wrapper name: (forward, backward) launches in all})."""
+    copy whose blocks all take the plain path (``plain_copy``), from the
+    same weights and noise. Every wrapper in ``kernels`` must launch
+    ``per_step_want`` (forward, backward) times a step, by default once
+    forward and once backward per block; the step-1 loss and gradients and
+    the later losses must agree. Returns (plain simulator, its state and
+    step, {wrapper name: (forward, backward) launches in all})."""
     import torch
     from graph_physics_tpu_torch import entry
 
     tgraph = train.graph
-    n_blocks = len(train.simulator.model.processor_list)
-    plain_sim = copy.deepcopy(train.simulator)
-    plain_sim.model.tiling = None
+    if per_step_want is None:
+        n_blocks = len(train.simulator.model.processor_list)
+        per_step_want = (n_blocks, n_blocks)
+    plain_sim = plain_copy(train.simulator)
     plain_state, plain_step = entry.make_trainer(plain_sim)
     fg = step1_fp32_grads(plain_sim, tgraph, seed)
-    for k in kernels:
-        k.launches = k.backward_launches = 0
+    reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
     kl, kn, per_step, kg = train_run(train.train_step, train.state, train.simulator, tgraph,
                                      seed, TRAIN_STEPS, kernels)
     torch.cuda.synchronize()
-    launches = {k.__name__: (k.launches, k.backward_launches) for k in kernels}
+    launches = {k.__name__: launch_counts(k) for k in kernels}
     peak = {"kernel": torch.cuda.max_memory_allocated()}
     torch.cuda.reset_peak_memory_stats()
     pl, pn, _, pg = train_run(plain_step, plain_state, plain_sim, tgraph, seed, TRAIN_STEPS)
     torch.cuda.synchronize()
     peak["plain"] = torch.cuda.max_memory_allocated()
-    log(f"{label} ({TRAIN_STEPS} steps, B={tgraph.x.shape[1]}): launches per step "
+    log(f"{label} ({TRAIN_STEPS} steps, B={batch_size(tgraph)}): launches per step "
         f"(forward, backward) of {', '.join(launches)}: {sorted(set(per_step))}; in all "
         f"{list(launches.values())}; max_memory_allocated kernel path "
         f"{peak['kernel'] / 2**30:.4f} GiB, plain path {peak['plain'] / 2**30:.4f} GiB")
@@ -346,10 +437,10 @@ def training_phase(label, train, kernels, seed):
     log("  loss, plain path:       " + " ".join(f"{v:.6g}" for v in pl))
     log("  grad_norm, kernel path: " + " ".join(f"{v:.6g}" for v in kn))
     log("  grad_norm, plain path:  " + " ".join(f"{v:.6g}" for v in pn))
-    want = tuple((n_blocks, n_blocks) for _ in kernels)
+    want = tuple(per_step_want for _ in kernels)
     if any(s != want for s in per_step):
-        raise AssertionError(f"{label}: expected {n_blocks} forward and {n_blocks} backward "
-                             f"launches of each kernel per train step, got {per_step}")
+        raise AssertionError(f"{label}: expected {per_step_want} (forward, backward) launches "
+                             f"of each kernel per train step, got {per_step}")
     if not all(map(lambda v: v == v and abs(v) != float("inf"), kl + kn + pl + pn)):
         raise AssertionError(f"{label}: non-finite loss or gradient norm")
     loss_rel = [abs(a - c) / abs(c) for a, c in zip(kl, pl)]
@@ -413,15 +504,16 @@ def step_timing(train, plain_state, plain_step, seed):
 
 
 def step1_fp32_grads(sim, graph, seed):
-    """Gradients of the first train step's loss (same noise draw) on an
-    fp32 copy of ``sim`` on the plain path, by parameter name."""
+    """Gradients of the first train step's loss (same noise draws, slice
+    noise too) on an fp32 copy of ``sim`` on the plain path, by parameter
+    name."""
     import torch
     from graph_physics_tpu_torch import entry
     from graph_physics_tpu_torch.training.loss import l2_loss
     from graph_physics_tpu_torch.training.noise import add_noise
+    from graph_physics_tpu_torch.training.step import model_uses_gumbel
 
-    sim = copy.deepcopy(sim)
-    sim.model.tiling = None
+    sim = plain_copy(sim)
     for m in sim.modules():  # modules that cast to a compute dtype
         if hasattr(m, "dtype"):
             m.dtype = torch.float32
@@ -429,7 +521,8 @@ def step1_fp32_grads(sim, graph, seed):
     cfg = entry.NOISE
     g = add_noise(graph, gen, cfg.starts, cfg.ends, cfg.scales)
     with torch.enable_grad():
-        out = sim.forward(g, is_training=True)
+        out = sim.forward(g, is_training=True,
+                          gumbel=gen if model_uses_gumbel(sim.model) else None)
         l2_loss(g, out.net_out, out.target_norm).backward()
     return {k: p.grad.float() for k, p in sim.named_parameters()}
 
@@ -609,6 +702,8 @@ def main():
     # 19.-21. both models' training steps on the graded mesh (CSR layout)
     graded_train_records, graded_train_launches, graded_ffn_bwd_err = graded_train_phases(
         device, card)
+    # 22.-24. the Transolver++ train step and its gumbel kernel
+    gumbel_record = transolver_phases(device, card)
     ffn_name = tf_records[1]["name"]
     for rec in graded_records:  # the CSR forward kernels also ran in the train steps
         rec["launches"] += graded_train_launches[rec["name"]][0]
@@ -633,6 +728,7 @@ def main():
         *tf_train_records,
         *graded_records,
         *graded_train_records,
+        gumbel_record,
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -1482,6 +1578,162 @@ def graded_train_phases(device, card):
              bound_ms=attn_bound[0], bound_by=attn_bound[1], library_ms=attn_t["library_ms"]),
     ]
     return records, launches, ffn_bwd_err
+
+
+
+def transolver_phases(device, card):
+    """Phases 22-24: the gumbel kernel at the Transolver slice's logits
+    [16·2,432, 4, 32] and at the graded mesh's [16·27,136, 4, 32], the
+    B=16 Transolver++ eval forward and train step
+    (``entry.transolver_train_setup``: 4 blocks, hidden 64, 4 heads, 32
+    slices) on the kernel path against the plain path on the same bits,
+    and their times. Returns the kernel's record."""
+    import math
+
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import gumbel as gumbel_ops
+
+    kernel = gumbel_ops.gumbel_perturb
+    train = entry.transolver_train_setup(device)
+    gtrain = entry.transolver_train_setup(device, graded=True)
+    sim, graph = train.simulator, train.graph
+    blocks = sim.model.model.blocks
+    heads, slices = blocks[0].Attn.heads, blocks[0].Attn.slice_num
+    b, n = graph.x.shape[:2]
+    gn = gtrain.graph.x.shape[1]
+    log(f"Transolver slice: B={b} x {n} nodes (graded: {gn} points), hidden "
+        f"{sim.model.model.placeholder.numel()}, {heads} heads, {slices} slices, "
+        f"{len(blocks)} blocks, stacked [B, N, F]")
+    gen = torch.Generator(device=device).manual_seed(22)
+    shapes = {"slice": (b * n, heads, slices), "graded": (b * gn, heads, slices)}
+
+    # 22. the kernel against its plain version on the same key: the same
+    # bits, outputs within GUMBEL_ATOL; the noise's distribution; other
+    # keys; the passthrough gradient
+    errors = {}
+    for label, shape in shapes.items():
+        x = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        key = gumbel_ops.draw_key(gen, device)
+        count = x.numel()
+        out = kernel(x, key)
+        torch.cuda.synchronize()
+        same_bits = torch.equal(gumbel_ops.philox_bits(count, key),
+                                gumbel_ops.random_bits(count, key))
+        log(f"gumbel kernel check [{label}] {list(shape)} bf16 ({count} draws): the kernel's "
+            f"Philox words equal the plain version's: {same_bits}")
+        if not same_bits:
+            raise AssertionError(f"gumbel [{label}]: the kernel's random bits differ")
+        errors[label] = compare("out", out, gumbel_ops.gumbel_perturb_reference(x, key), 0.0,
+                                atol=GUMBEL_ATOL)
+        xg = x.clone().requires_grad_(True)
+        cot = torch.randn(shape, generator=gen, device=device)
+        (grad,) = torch.autograd.grad(kernel(xg, key), xg, cot)
+        if not torch.equal(grad, cot.to(torch.bfloat16)):
+            raise AssertionError(f"gumbel [{label}]: the gradient is not the exact passthrough")
+        log("  gradient: the exact passthrough cot.to(bf16)")
+        if label != "slice":
+            continue
+        g = kernel(torch.zeros_like(x), key).flatten().double()
+        other = kernel(torch.zeros_like(x), gumbel_ops.draw_key(gen, device)).flatten().double()
+        mean, std = g.mean().item(), g.std().item()
+        srt = torch.sort(g).values
+        cdf = torch.exp(-torch.exp(-srt))
+        i = torch.arange(1, count + 1, device=device, dtype=torch.float64)
+        ks = max((i / count - cdf).max().item(), (cdf - (i - 1) / count).max().item())
+        corr = torch.corrcoef(torch.stack([g, other]))[0, 1].item()
+        ks_limit, corr_limit = KS_COEFF / math.sqrt(count), 5.0 / math.sqrt(count)
+        moment_limit = GUMBEL_MOMENT_SES * GUMBEL_SE_COEFF / math.sqrt(count)
+        gamma, sigma = 0.5772156649, math.pi / math.sqrt(6.0)
+        log(f"  noise over {count} draws: mean {mean:.6f} (γ {gamma:.6f}), std {std:.6f} "
+            f"(π/√6 {sigma:.6f}; limit ±{moment_limit:.4g} each), KS against the Gumbel CDF "
+            f"{ks:.6g} (limit {ks_limit:.6g}), correlation with another key's draw "
+            f"{corr:.3g} (limit {corr_limit:.3g})")
+        if abs(mean - gamma) > moment_limit or abs(std - sigma) > moment_limit:
+            raise AssertionError("gumbel: the noise's mean or std is off Gumbel(0, 1)'s")
+        if ks > ks_limit or abs(corr) > corr_limit or torch.equal(g, other):
+            raise AssertionError("gumbel: the noise is not Gumbel(0, 1) or two keys agree")
+        del g, other, srt, cdf, i
+    del x, xg, out, grad, cot
+    torch.cuda.empty_cache()
+
+    # 23. the B=16 eval forward on both paths (no noise, no launch), then 20
+    # train steps on the kernel path, 4 launches a step, against the plain
+    # path on the same bits
+    base = entry.transolver_setup(device)
+    plain_eval = plain_copy(base.simulator)
+    reset_counts([kernel])
+    with torch.inference_mode():
+        out = base.simulator.forward(base.graph, is_training=False)
+        ref = plain_eval.forward(base.graph, is_training=False)
+    torch.cuda.synchronize()
+    if tuple(out.outputs.shape) != (b, n, entry.OUTPUT) or out.outputs.dtype != torch.float32:
+        raise AssertionError(f"unexpected output {tuple(out.outputs.shape)} {out.outputs.dtype}")
+    log(f"Transolver eval forward B={b}: {kernel.launches} gumbel launches (eval draws no "
+        "noise); kernel path vs plain path (valid nodes)")
+    if kernel.launches:
+        raise AssertionError("the Transolver eval forward launched the gumbel kernel")
+    compare("outputs", out.outputs, ref.outputs, TF_SLICE_TOL, rows=base.graph.node_mask)
+    fwd_ms = cuda_ms(lambda: base.simulator.forward(base.graph, is_training=False))
+    del base, plain_eval, out, ref
+    _, plain_state, plain_step, launches = training_phase(
+        "Transolver training", train, [kernel], 23, per_step_want=(len(blocks), 0))
+
+    # 24. times: the kernel, its plain version and the torch.rand draw at
+    # both shapes; the train steps with the kernel, with the torch.rand
+    # draw and on the plain path, at both sizes
+    draw_t = {}
+    for label, shape in shapes.items():
+        x = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        key = gumbel_ops.draw_key(gen, device)
+
+        def torch_rand_draw():  # the counterpart of JAX's XLA draw (transolver.py:57-59)
+            u = torch.rand(shape, generator=gen, device=device)
+            return x.float() + gumbel_ops.gumbel_noise(u)
+
+        bnd = bound(x.numel() * (2 + 4), 0)
+        fns = {"": lambda: kernel(x, key),
+               "plain_": lambda: gumbel_ops.gumbel_perturb_reference(x, key),
+               "torch_rand_": torch_rand_draw}
+        t = {"bound_ms": bnd[0], "bound_by": bnd[1]}
+        for name, fn in fns.items():
+            t[f"{name}ms"] = device_ms(fn)
+            t[f"{name}call_ms"] = cuda_ms(fn)
+        draw_t[label] = t
+        log(f"gumbel [{label}] {list(shape)}, device time (call time by CUDA events): kernel "
+            f"{t['ms']:.4f} ({t['call_ms']:.4f}) ms, plain version {t['plain_ms']:.4f} "
+            f"({t['plain_call_ms']:.4f}) ms, torch.rand draw {t['torch_rand_ms']:.4f} "
+            f"({t['torch_rand_call_ms']:.4f}) ms; bound {t['bound_ms']:.6g} ms ({t['bound_by']}) "
+            f"({card})")
+        del x
+    steps = {}
+    for label, setup in (("slice", train), ("graded", gtrain)):
+        if label == "slice":
+            p_state, p_step = plain_state, plain_step
+        else:
+            p_state, p_step = entry.make_trainer(plain_copy(setup.simulator))
+        st = step_timing(setup, p_state, p_step, 24)
+        rand = entry.transolver_train_setup(device, fused_gumbel=False, graded=label == "graded")
+        st["train_step_torch_rand_ms"] = cuda_ms(
+            lambda: rand.train_step(rand.state, rand.graph, gen), warmup=2, reps=10)
+        steps[label] = st
+        bb = batch_size(setup.graph)
+        log(f"Transolver train step [{label}] B={bb} x {setup.graph.x.shape[1]} nodes: gumbel "
+            f"kernel {st['train_step_ms']:.4f} ms ({1000 * bb / st['train_step_ms']:.1f} "
+            f"graph-steps/s; the host enqueues a step in {st['train_step_host_enqueue_ms']:.4f} "
+            f"ms, {st['train_step_syncs']} device-to-host syncs a step), torch.rand draw "
+            f"{st['train_step_torch_rand_ms']:.4f} ms, plain path {st['train_step_plain_ms']:.4f}"
+            f" ms ({card})")
+        del rand, p_state, p_step
+        torch.cuda.empty_cache()
+    faster = "kernel" if draw_t["slice"]["ms"] < draw_t["slice"]["torch_rand_ms"] else "torch.rand"
+    log(f"  the faster draw at the slice's shape: {faster}; eval forward B={b} {fwd_ms:.4f} ms")
+    log("transolver timing " + json.dumps({"card": card, "forward_ms": fwd_ms, "draw": draw_t,
+                                           "steps": steps}))
+    t = draw_t["slice"]
+    return dict(GUMBEL, route="cuda", launches=launches[kernel.__name__][0],
+                max_abs_err=max(errors.values()), ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["torch_rand_ms"])
 
 
 if __name__ == "__main__":

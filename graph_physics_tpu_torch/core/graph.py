@@ -9,9 +9,11 @@ the inference slice uses. The same padding rules hold:
 
 A host-built graph holds numpy arrays (``core/mesh.py``, ``ops/tiling.py``,
 ``training/packed.py`` work on those); :meth:`MeshGraph.from_numpy` puts
-it on a torch device. Node fields are ``[N, F]`` for one frame and
+it on a torch device. Node fields are ``[N, F]`` for one frame,
 ``[N, B, F]`` in the packed layout, where the per-node metadata
-(``node_type``, ``node_mask``) and the edge index arrays stay shared.
+(``node_type``, ``node_mask``) and the edge index arrays stay shared, and
+``[B, N, F]`` in the stacked layout (training/packed.stack), where every
+field has the batch axis first.
 """
 
 from __future__ import annotations
@@ -27,6 +29,14 @@ import torch
 PAD_NODE_TYPE = -1
 
 
+def _node_count(n):
+    """An int, or a tuple of ints for a stacked batch's [B] counts."""
+    if n is None:
+        return None
+    a = np.asarray(n)
+    return int(a) if a.ndim == 0 else tuple(int(v) for v in a)
+
+
 @dataclass
 class MeshGraph:
     """One (possibly padded, possibly packed) mesh frame."""
@@ -40,7 +50,7 @@ class MeshGraph:
     edge_mask: Any  # [E] bool, True on valid edges
     edge_attr: Optional[Any] = None  # [E, Fe] or [E, B, Fe]
     y: Optional[Any] = None  # [N, T] or [N, B, T] next-step targets
-    n_node: Optional[int] = None  # true node count
+    n_node: Optional[Any] = None  # true node count; stacked: one per sample
 
     def replace(self, **changes) -> "MeshGraph":
         return dataclasses.replace(self, **changes)
@@ -68,5 +78,5 @@ class MeshGraph:
             edge_mask=put(host.edge_mask, torch.bool),
             edge_attr=put(host.edge_attr, torch.float32),
             y=put(host.y, torch.float32),
-            n_node=None if host.n_node is None else int(host.n_node),
+            n_node=_node_count(host.n_node),
         )

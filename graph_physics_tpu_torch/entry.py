@@ -23,7 +23,13 @@ models at the same widths on the graded mesh of dataset/synthetic.py
 training/fused.FusedTopologyManager, which chooses the CSR layout for it,
 with B=16 packed copies of frame 0 (scripts/bench_airfoil.py's batch);
 ``graded_train_setup`` and ``graded_transformer_train_setup`` add the
-training step to them.
+training step to them. ``transolver_setup`` builds Transolver++ at
+scripts/bench_models.py:196-201's configuration (4 blocks, hidden 64, 4
+heads, 32 slices, bf16) on a stacked [B, N, F] batch of B=16 copies of
+frame 0 of the cylinder (or of the graded mesh, ``graded=True``: it reads
+no edges, so that mesh is a 27,000-point cloud), and
+``transolver_train_setup`` its training step, whose slice noise goes
+through the kernel of ops/gumbel.py with ``fused_gumbel`` (the default).
 Every setup runs on the card unless the caller passes another device.
 """
 
@@ -39,8 +45,13 @@ from graph_physics_tpu_torch.core import mesh as mesh_lib
 from graph_physics_tpu_torch.core.graph import MeshGraph
 from graph_physics_tpu_torch.dataset import synthetic
 from graph_physics_tpu_torch.models.layers import reset_parameters
-from graph_physics_tpu_torch.models.processors import EncodeProcessDecode, EncodeTransformDecode
+from graph_physics_tpu_torch.models.processors import (
+    EncodeProcessDecode,
+    EncodeTransformDecode,
+    TransolverProcessor,
+)
 from graph_physics_tpu_torch.models.simulator import Simulator
+from graph_physics_tpu_torch.models.transolver import init_parameters
 from graph_physics_tpu_torch.ops.tiling import (
     CSRLayout,
     Layout,
@@ -69,7 +80,7 @@ Tiling = Optional[Layout]
 @dataclass
 class CylinderSetup:
     simulator: Simulator
-    graph: MeshGraph  # packed [N, B, F] batch on the device
+    graph: MeshGraph  # packed [N, B, F] (stacked [B, N, F] for Transolver) batch on the device
     tiling: Tiling
     trajectory: Dict[str, np.ndarray]  # the synthetic trajectory (numpy)
     template: MeshGraph  # host frame 0 in the graph's edge layout
@@ -86,13 +97,13 @@ def frame_graph(traj: Dict[str, np.ndarray], t: int) -> MeshGraph:
     return mesh_lib.build_mesh_graph(x, pos, nt, ei, y=traj["velocity"][t + 1])
 
 
-def _simulator(model, edge_input: int, seed: int) -> Simulator:
+def _simulator(model, edge_input: int, seed: int, init=reset_parameters) -> Simulator:
     sim = Simulator(
         node_input_size=NODE_INPUT, edge_input_size=edge_input, output_size=OUTPUT,
         feature_index_start=0, feature_index_end=2, output_index_start=0,
         output_index_end=2, node_type_index=2, model=model,
     )
-    reset_parameters(sim, torch.Generator().manual_seed(seed))
+    init(sim, torch.Generator().manual_seed(seed))
     return sim
 
 
@@ -114,6 +125,19 @@ def make_transformer_simulator(hidden: int, mp_steps: int, heads: int, dtype,
         hidden_size=hidden, num_heads=heads, dtype=dtype, tiling=tiling,
     )
     return _simulator(model, 0, seed)
+
+
+def make_transolver_simulator(hidden: int = 64, mp_steps: int = 4, heads: int = 4,
+                              slices: int = 32, dtype=torch.bfloat16,
+                              fused_gumbel: bool = True, seed: int = 0) -> Simulator:
+    """scripts/bench_models.py:196-201's Transolver++ (mlp_ratio 1, no
+    unified_pos) in a Simulator with ``edge_input_size=0``, weights from
+    ``seed`` as the reference draws them (models/transolver.init_parameters)."""
+    model = TransolverProcessor(
+        message_passing_num=mp_steps, node_input_size=NODE_INPUT, output_size=OUTPUT,
+        hidden_size=hidden, num_heads=heads, slice_num=slices, fused_gumbel=fused_gumbel,
+        dtype=dtype)
+    return _simulator(model, 0, seed, init=init_parameters)
 
 
 def _nk_layout(g: MeshGraph) -> Tuple[NKTiling, MeshGraph]:
@@ -227,6 +251,26 @@ def graded_transformer_setup(device="cuda", *, num_nodes: int = 27_000, mp_steps
         _chosen_csr_layout("transformer"), accumulate_stats)
 
 
+def transolver_setup(device="cuda", *, batch: int = 16, graded: bool = False,
+                     num_nodes: int = 27_000, nx: int = 48, ny: int = 40, num_steps: int = 3,
+                     fused_gumbel: bool = True, accumulate_stats: bool = True,
+                     **kw) -> CylinderSetup:
+    """Transolver++ (``make_transolver_simulator``: 4 blocks, hidden 64, 4
+    heads, 32 slices, bf16, weights from seed 0; ``kw`` goes to it) on a
+    stacked [B, N, F] batch of B copies of frame 0 on ``device``: the
+    cylinder mesh, or the graded mesh's ``num_nodes`` points with
+    ``graded``. ``accumulate_stats`` folds the batch into the normalizer
+    statistics. The setup has no edge layout (``tiling`` None)."""
+    traj = (synthetic.make_graded_trajectory(num_nodes, num_steps) if graded
+            else synthetic.make_trajectory(nx, ny, num_steps=num_steps))
+    g = frame_graph(traj, 0)
+    graph = MeshGraph.from_numpy(stack([g] * batch), device)
+    sim = make_transolver_simulator(fused_gumbel=fused_gumbel, **kw).to(device)
+    if accumulate_stats:
+        sim.prepare(graph, is_training=True)
+    return CylinderSetup(simulator=sim, graph=graph, tiling=None, trajectory=traj, template=g)
+
+
 #: bench.py's training configuration (__graft_entry__._cylinder_setup :97-99)
 LEARNING_RATE, WARMUP, NUM_STEPS = 1e-3, 100, 10000
 NOISE = NoiseConfig(starts=(0,), ends=(2,), scales=(0.02,))
@@ -235,7 +279,7 @@ NOISE = NoiseConfig(starts=(0,), ends=(2,), scales=(0.02,))
 @dataclass
 class CylinderTrainSetup:
     simulator: Simulator
-    graph: MeshGraph  # packed [N, B, F] batch on the device
+    graph: MeshGraph  # packed [N, B, F] (stacked [B, N, F] for Transolver) batch on the device
     tiling: Tiling
     state: TrainState
     train_step: Callable
@@ -288,6 +332,18 @@ def graded_transformer_train_setup(device="cuda", *, batch: int = 16,
     ``graded_transformer_setup``."""
     return _train_setup(graded_transformer_setup(device, batch=batch, accumulate_stats=False,
                                                  **kw))
+
+
+def transolver_train_setup(device="cuda", *, batch: int = 16, fused_gumbel: bool = True,
+                           **kw) -> CylinderTrainSetup:
+    """``transolver_setup`` with fresh normalizer statistics and
+    :func:`make_trainer`'s training step (bench_models.py:62-99 for
+    ``transolver``, B=16, stacked). ``fused_gumbel`` draws each block's
+    slice noise with the kernel of ops/gumbel.py (the slice's main path);
+    False keeps the ``torch.rand`` draw, JAX's default. ``kw`` goes to
+    ``transolver_setup``."""
+    return _train_setup(transolver_setup(device, batch=batch, fused_gumbel=fused_gumbel,
+                                         accumulate_stats=False, **kw))
 
 
 def rollout_frames(setup: CylinderSetup, starts: Sequence[int], steps: int) -> MeshGraph:

@@ -52,15 +52,16 @@ class Activation(nn.Module):
         return self.name
 
 
-def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     """``x @ weight.T + bias`` in ``x``'s dtype: the product rounds, then
-    the bias add rounds, as in flax ``Dense``."""
-    return F.linear(x, weight.to(x.dtype)) + bias.to(x.dtype)
+    the bias add rounds, as in flax ``Dense``; no add without a bias."""
+    y = F.linear(x, weight.to(x.dtype))
+    return y if bias is None else y + bias.to(x.dtype)
 
 
 class Dense(nn.Linear):
     """``nn.Linear`` that runs in its input's dtype (fp32 parameters cast at
-    use), through :func:`dense`."""
+    use), through :func:`dense`; ``bias=False`` is flax's ``use_bias=False``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(x, self.weight, self.bias)
@@ -84,6 +85,28 @@ class RMSNorm(nn.Module):
         norm = torch.sqrt(torch.sum(xf * xf, dim=-1, keepdim=True) + 1e-24)
         rms = norm / math.sqrt(self.dim)
         return (xf / (rms + self.eps) * self.scale).to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(epsilon=eps, dtype=dtype)`` with the reference's
+    ``weight``/``bias`` names: statistics in fp32 with flax's fast variance
+    ``max(0, E[x²] - E[x]²)`` (normalization.py:_compute_stats), then
+    ``(x - mean) · (rsqrt(var + eps) · weight) + bias`` in fp32 with fp32
+    parameters, cast to ``dtype`` last (_normalize)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.dtype)
 
 
 class MLP(nn.Sequential):
@@ -178,7 +201,8 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
             if isinstance(m, Dense):
                 bound = 1.0 / math.sqrt(m.in_features)
                 m.weight.copy_(torch.rand(m.weight.shape, generator=generator) * 2 * bound - bound)
-                m.bias.copy_(torch.rand(m.bias.shape, generator=generator) * 2 * bound - bound)
+                if m.bias is not None:
+                    m.bias.copy_(torch.rand(m.bias.shape, generator=generator) * 2 * bound - bound)
 
 
 def fused_path_ok(

@@ -8,6 +8,9 @@ written out; the last block's edge output is dead and the kernel skips it.
 
 EncodeTransformDecode, the graph transformer: the same encoder and decoder
 around TransformerBlocks, with no edge features.
+
+TransolverProcessor, Transolver++ (models/transolver.py) on the graph's
+node features, positions and mask; stacked [B, N, F] batches or one graph.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from graph_physics_tpu_torch.models.layers import (
     TransformerBlock,
     fused_path_ok,
 )
+from graph_physics_tpu_torch.models.transolver import TransolverModel
 from graph_physics_tpu_torch.ops.tiling import Layout
 
 
@@ -149,3 +153,40 @@ class EncodeTransformDecode(nn.Module):
             x = block(x, graph.senders, graph.receivers, graph.edge_mask, graph.node_mask,
                       graph.pos, tiling=self.tiling)
         return self.decode_module(x).float()
+
+
+class TransolverProcessor(nn.Module):
+    """Adapter around Transolver++ with the processor API
+    (processors.py:TransolverProcessor): the inner ``model`` takes
+    ``graph.x`` in the compute dtype, ``graph.pos`` and ``graph.node_mask``
+    and returns fp32. ``forward``'s ``gumbel`` generator turns the
+    training-time slice noise on. The JAX processor's fields that it does
+    not pass on to its model (dropout, RoPE, the attention gate) are left
+    out, and so is ``dp_axis_name`` (ROADMAP A 9)."""
+
+    def __init__(
+        self,
+        message_passing_num: int,
+        node_input_size: int,
+        output_size: int,
+        hidden_size: int = 64,
+        num_heads: int = 2,
+        mlp_ratio: int = 1,
+        slice_num: int = 32,
+        ref: int = 8,
+        unified_pos: bool = False,
+        use_temporal_block: bool = False,
+        fused_gumbel: bool = False,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.model = TransolverModel(
+            n_layers=message_passing_num, n_hidden=hidden_size, n_head=num_heads,
+            mlp_ratio=mlp_ratio, fun_dim=node_input_size, out_dim=output_size,
+            slice_num=slice_num, ref=ref, unified_pos=unified_pos,
+            use_temporal_block=use_temporal_block, fused_gumbel=fused_gumbel, dtype=dtype)
+
+    def forward(self, graph: MeshGraph, gumbel: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.model(graph.x.to(self.dtype), graph.pos, graph.node_mask,
+                          gumbel=gumbel).float()

@@ -10,9 +10,12 @@ Counterpart of graph_physics_tpu/models/simulator.py:Simulator:
 The normalizer statistics are buffers of this module (the JAX package
 threads them as an explicit SimulatorState); ``state_dict()`` names follow
 the reference Simulator (``model.*``, ``_output_normalizer.*``,
-``_node_normalizer.*``, ``_edge_normalizer.*``). Both the packed
-``[N, B, F]`` layout (shared ``[N]`` node metadata) and a single ``[N, F]``
-frame are accepted.
+``_node_normalizer.*``, ``_edge_normalizer.*``). Three layouts are
+accepted: the packed ``[N, B, F]`` layout (shared ``[N]`` node metadata),
+the stacked ``[B, N, F]`` layout (``[B, N]`` node metadata, where JAX
+vmaps the processor per sample; the processor takes the batch axis as
+it is), and a single ``[N, F]`` frame. In every layout the normalizers
+accumulate over all valid rows of the batch.
 """
 
 from __future__ import annotations
@@ -109,12 +112,14 @@ class Simulator(nn.Module):
                 edge_attr[..., :self.edge_input_size], edge_mask, accumulate=is_training)
         return graph.replace(x=feats_n, edge_attr=edge_attr, y=target_norm), target_norm, pre_t
 
-    def forward(self, graph: MeshGraph, is_training: bool = False) -> SimulatorOutput:
+    def forward(self, graph: MeshGraph, is_training: bool = False,
+                gumbel: Optional[torch.Generator] = None) -> SimulatorOutput:
         """Training: (net_out, target_norm). Eval also returns physical
-        outputs, and runs without autograd."""
+        outputs, and runs without autograd. ``gumbel``, a generator, goes
+        to a processor that draws training-time noise (JAX's ``rngs``)."""
         with torch.set_grad_enabled(is_training and torch.is_grad_enabled()):
             g_in, target_norm, pre_t = self.prepare(graph, is_training)
-            net_out = self.model(g_in)
+            net_out = self.model(g_in) if gumbel is None else self.model(g_in, gumbel=gumbel)
             outputs = None if is_training else self.build_outputs_from_pre(net_out, pre_t)
         return SimulatorOutput(net_out=net_out, target_norm=target_norm, outputs=outputs)
 

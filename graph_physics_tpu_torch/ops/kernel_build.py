@@ -34,6 +34,7 @@ LIBRARIES = {
     "gn_csr_bwd": ("fused_gnblock_csr_bwd.cu", ("gn_nk_common.cuh", "gn_bwd_common.cuh")),
     "edge_attention_csr": ("fused_edge_attention_csr.cu", ("ea_nk_common.cuh",)),
     "edge_attention_csr_bwd": ("fused_edge_attention_csr_bwd.cu", ("ea_nk_common.cuh",)),
+    "gumbel": ("gumbel.cu", ()),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -2,13 +2,17 @@
 
 Counterpart of graph_physics_tpu/training/step.py (NoiseConfig,
 init_train_state, make_train_step, make_multi_step) for the plain-loss
-path: MultiLoss, spatial MTP, data parallelism and gumbel noise are not
-ported. PyTorch runs it eagerly where JAX jits it: the parameters and
+path: MultiLoss, spatial MTP and data parallelism are not ported.
+PyTorch runs it eagerly where JAX jits it: the parameters and
 normalizer statistics (JAX's params and SimulatorState) live in the
 Simulator module and are updated in place; the TrainState holds the
 AdamW state and the step count. On a bf16 packed NK graph on a card, the
 forward of every GraphNetBlock, and of every TransformerBlock's attention
 and gated FFN, is a fused kernel and its gradient a backward kernel.
+A Transolver trains with gumbel noise in its slice assignment (step.py
+:150-155): the step's generator goes into the forward, and each block
+draws its own noise from it (with ``fused_gumbel``, a Philox key drawn on
+the device for the kernel of ops/gumbel.py). Eval and rollout draw none.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from graph_physics_tpu_torch.core.graph import MeshGraph
+from graph_physics_tpu_torch.models.processors import TransolverProcessor
 from graph_physics_tpu_torch.models.simulator import Simulator
 from graph_physics_tpu_torch.training import loss as loss_lib
 from graph_physics_tpu_torch.training import noise as noise_lib
@@ -43,6 +48,12 @@ class TrainState:
     step: int = 0
 
 
+def model_uses_gumbel(model) -> bool:
+    """True for processors whose training forward draws gumbel noise: the
+    Transolver (step.py:_model_uses_gumbel)."""
+    return isinstance(model, TransolverProcessor)
+
+
 def init_train_state(simulator: Simulator, optimizer: OptimizerConfig) -> TrainState:
     """Bind the optimizer to the simulator's parameters (the weights are
     the module's own: drawn at construction or loaded)."""
@@ -62,6 +73,7 @@ def make_train_step(
     gradients before clipping) and ``loss_term_0``, as device scalars.
     ``num_steps`` scales the noise curriculum's progress ``step / num_steps``."""
     mask_types = tuple(int(m) for m in mask_types)
+    uses_gumbel = model_uses_gumbel(simulator.model)
 
     def train_step(state: TrainState, batch: MeshGraph,
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -71,7 +83,8 @@ def make_train_step(
             graph = noise_lib.add_noise(graph, generator, noise_cfg.starts, noise_cfg.ends,
                                         noise_cfg.scales, t=t)
         with torch.enable_grad():
-            out = simulator.forward(graph, is_training=True)
+            out = simulator.forward(graph, is_training=True,
+                                    gumbel=generator if uses_gumbel else None)
             loss = loss_fn(graph, out.net_out, out.target_norm, mask_types)
             state.optimizer.zero_grad()
             loss.backward()

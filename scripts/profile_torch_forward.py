@@ -3,7 +3,8 @@ step, goes, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_forward.py \
         [transformer|epd|transformer-train|epd-train|graded|graded-transformer|
-         graded-train|graded-transformer-train ...]
+         graded-train|graded-transformer-train|transolver-train|
+         graded-transolver-train ...]
     # default: the two cylinder forwards
 
 For each slice (``transformer``: entry.transformer_setup, 10 blocks, hidden
@@ -13,8 +14,12 @@ entry.cylinder_train_setup, same models and batches; ``graded`` and
 ``graded-transformer``: the two models' forwards on the graded mesh in the
 CSR layout, entry.graded_setup and entry.graded_transformer_setup, B=16;
 ``graded-train`` and ``graded-transformer-train``: one train step of
-entry.graded_train_setup or entry.graded_transformer_train_setup)
-and each path (kernel path, and the plain path with no edge layout), runs
+entry.graded_train_setup or entry.graded_transformer_train_setup;
+``transolver-train`` and ``graded-transolver-train``: one train step of
+entry.transolver_train_setup, stacked B=16 on the cylinder's 1,920 nodes
+(2,432 rows with padding) or the graded mesh's 27,000 points (27,136))
+and each path (kernel path, and the plain path: no edge layout, or for
+the Transolver the gumbel kernel's plain version on the same bits), runs
 ``torch.profiler`` over 10 calls after 3 warm-up calls and prints, per
 call: the host wall time (synchronised), the device time summed over
 kernels, the idle share (1 - device / wall) and the device time by kernel
@@ -46,6 +51,7 @@ GROUPS = (
     ("GraphNetBlock backward kernel (gn_nk_bwd)", ("gn_nk_bwd",)),
     ("CSR GraphNetBlock backward kernels (gn_csr_bwd)", ("gn_csr_bwd",)),
     ("CSR GraphNetBlock kernels (gn_csr_fwd, gn_csr_partial)", ("gn_csr",)),
+    ("gumbel kernel (gumbel_perturb)", ("gumbel_perturb",)),
     ("GEMMs", ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")),
     ("optimizer (multi-tensor)", ("multi_tensor",)),
     ("sort", ("sort", "radix")),
@@ -111,6 +117,8 @@ def main():
         raise SystemExit("profile_torch_forward: needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
     from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.models.processors import TransolverProcessor
+    from graph_physics_tpu_torch.models.transolver import use_plain_gumbel
     from graph_physics_tpu_torch.ops import kernel_build
 
     card = subprocess.run(
@@ -123,13 +131,19 @@ def main():
     trains = {"transformer-train": entry.transformer_train_setup,
               "epd-train": entry.cylinder_train_setup,
               "graded-train": entry.graded_train_setup,
-              "graded-transformer-train": entry.graded_transformer_train_setup}
+              "graded-transformer-train": entry.graded_transformer_train_setup,
+              "transolver-train": entry.transolver_train_setup,
+              "graded-transolver-train": lambda d: entry.transolver_train_setup(d, graded=True)}
     for name in sys.argv[1:] or ["transformer", "epd"]:
         setup = (forwards.get(name) or trains[name])("cuda")
         graph = setup.graph
         plain = copy.deepcopy(setup.simulator)
-        plain.model.tiling = None
-        label = f"{name} B={graph.x.shape[1]}"
+        if isinstance(plain.model, TransolverProcessor):
+            use_plain_gumbel(plain)
+        else:
+            plain.model.tiling = None
+        stacked = graph.node_type.ndim == 2
+        label = f"{name} B={graph.x.shape[0 if stacked else 1]}"
         if name in forwards:
             def runner(sim):
                 def run():

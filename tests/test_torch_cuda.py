@@ -19,7 +19,12 @@ counterparts: 0.05 (GraphNetBlock), rtol 0.03 atol 0.02 (attention, its
 plain version ``ops/edge_attention.edge_attention``), 0.15 and 0.1 for
 the models; their backward kernels are held with utils/gradcheck.py at a
 small size and at the graded slice's (27,000 nodes x 16 samples), and
-the graded train steps to the same bounds as the cylinder's.
+the graded train steps to the same bounds as the cylinder's. The gumbel
+kernel draws the same Philox bits as its plain version, bit for bit, and
+its output is within 1e-5 of the plain version's (``logf`` on the card
+against ``torch.log``, at |noise| < 17); the Transolver train step runs
+it once per block forward and never in the backward, and keeps to the
+``epd`` step's bounds against the plain path on the same bits.
 """
 
 import copy
@@ -33,6 +38,8 @@ from graph_physics_tpu_torch.ops.edge_attention import edge_attention
 from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_csr_ops
 from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
 from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+from graph_physics_tpu_torch.ops import gumbel as gumbel_ops
+from graph_physics_tpu_torch.models.transolver import use_plain_gumbel
 from graph_physics_tpu_torch.ops.fused_edge_attention_nk import (
     fused_edge_attention_nk,
     fused_edge_attention_nk_reference,
@@ -536,3 +543,86 @@ def test_graded_forward_goes_through_csr_kernels_and_matches_plain_path(cuda_dev
     assert torch.isfinite(out.outputs).all()
     tol = 0.15 if epd else 0.1
     torch.testing.assert_close(out.net_out[rows], ref.net_out[rows], rtol=tol, atol=tol)
+
+
+#: the gumbel kernel against its plain version: logf against torch.log
+GUMBEL_ATOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((16 * 2432, 4, 32), torch.bfloat16, 0),  # the Transolver slice's logits
+    ((1001,), torch.bfloat16, 1),  # a tail of 1 and a misaligned start
+    ((7, 3, 5), torch.float32, 0),
+    ((4099,), torch.float32, 3),
+])
+def test_gumbel_kernel_matches_plain_version(cuda_device, shape, dtype, offset):
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    n = torch.Size(shape).numel()
+    flat = torch.randn(n + offset, generator=gen, device=cuda_device).to(dtype)
+    x = flat[offset:].view(shape)
+    key = gumbel_ops.draw_key(gen, cuda_device)
+    before = gumbel_ops.gumbel_perturb.launches
+    out = gumbel_ops.gumbel_perturb(x, key)
+    torch.cuda.synchronize()
+    assert gumbel_ops.gumbel_perturb.launches == before + 1
+    assert torch.equal(gumbel_ops.philox_bits(n, key), gumbel_ops.random_bits(n, key))
+    ref = gumbel_ops.gumbel_perturb_reference(x, key)
+    assert out.dtype == torch.float32 and out.shape == x.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, rtol=0, atol=GUMBEL_ATOL)
+    assert torch.equal(out, gumbel_ops.gumbel_perturb(x, key))  # same key, same noise
+    assert not torch.equal(out, gumbel_ops.gumbel_perturb(x, gumbel_ops.draw_key(gen, cuda_device)))
+
+
+@pytest.mark.cuda
+def test_gumbel_kernel_gradient_is_a_passthrough(cuda_device):
+    x = torch.randn(64, 4, 32, device=cuda_device).to(torch.bfloat16).requires_grad_(True)
+    key = torch.tensor([5, 6], dtype=torch.int64, device=cuda_device)
+    cot = torch.randn(64, 4, 32, device=cuda_device)
+    before = gumbel_ops.gumbel_perturb.launches
+    (grad,) = torch.autograd.grad(gumbel_ops.gumbel_perturb(x, key), x, cot)
+    assert gumbel_ops.gumbel_perturb.launches == before + 1  # the forward only
+    assert grad.dtype == torch.bfloat16 and torch.equal(grad, cot.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_gumbel_kernel_refusals_raise(cuda_device, monkeypatch):
+    x = torch.zeros(8, 4, 32, device=cuda_device, dtype=torch.bfloat16)
+    key = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        gumbel_ops.gumbel_perturb(x.half(), key)
+    with pytest.raises(ValueError, match="contiguous"):
+        gumbel_ops.gumbel_perturb(x.transpose(0, 1), key)
+    # a launch the C entry refuses (an unknown input type code) raises
+    monkeypatch.setattr(gumbel_ops, "KERNEL_DTYPES", {torch.bfloat16: 7})
+    before = gumbel_ops.gumbel_perturb.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        gumbel_ops.gumbel_perturb(x, key)
+    assert gumbel_ops.gumbel_perturb.launches == before
+
+
+@pytest.mark.cuda
+def test_transolver_train_step_goes_through_the_gumbel_kernel(cuda_device):
+    train = entry.transolver_train_setup(cuda_device, nx=20, ny=16, batch=4)
+    plain_sim = use_plain_gumbel(copy.deepcopy(train.simulator))
+    plain_state, plain_step = entry.make_trainer(plain_sim)
+    n_blocks = len(train.simulator.model.model.blocks)
+    kernel = gumbel_ops.gumbel_perturb
+    for step in range(3):
+        before = kernel.launches
+        m = train.train_step(train.state, train.graph,
+                             torch.Generator(cuda_device).manual_seed(step))
+        torch.cuda.synchronize()
+        # one launch a block forward; the backward is a passthrough
+        assert kernel.launches == before + n_blocks
+        before = kernel.launches
+        with torch.no_grad():
+            train.simulator.forward(train.graph, is_training=False)
+        assert kernel.launches == before  # eval draws no noise
+        mp = plain_step(plain_state, train.graph, torch.Generator(cuda_device).manual_seed(step))
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+        # the same bits on both paths: the epd step's bounds hold with room
+        torch.testing.assert_close(m["loss"], mp["loss"], rtol=0.02 if step == 0 else 1e-3,
+                                   atol=0)
+    for p in train.simulator.parameters():
+        assert torch.isfinite(p).all()

@@ -172,13 +172,14 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("module", [
     "ops/edge_attention.py", "ops/fused_edge_attention_nk.py", "ops/fused_ffn.py",
-    "ops/kernel_build.py", "models/layers.py", "models/processors.py", "entry.py"])
+    "ops/kernel_build.py", "models/layers.py", "models/processors.py", "entry.py",
+    "ops/gumbel.py", "models/transolver.py"])
 def test_import_checks_cover_the_module(module):
     """The two checks around this one walk every file of the package, the
     transformer slice's modules and kernel sources among them."""
     assert (PORT_DIR / module).is_file()
     assert (PORT_DIR / module) in set(PORT_DIR.rglob("*.py"))
-    if module.startswith("ops/fused_"):
+    if module.startswith(("ops/fused_", "ops/gumbel")):
         src = module[len("ops/"):-len(".py")] + ".cu"
         assert (PORT_DIR / "csrc" / src).is_file(), src
 

@@ -163,14 +163,18 @@ def test_optimizer_matches_optax():
 
 # ---- one train step against JAX -------------------------------------------
 
-def run_steps(jsim, jgraph, tsim, tgraph, param, n_steps):
+def run_steps(jsim, jgraph, tsim, tgraph, param, n_steps, jit_init=False):
     """JAX and port metrics and state after each of ``n_steps`` steps on one
     packed batch, noise off, from the JAX model's initial weights loaded
     into ``tsim`` (lr 1e-3 from step 0); ``param`` is the configuration
-    convert_state_dict reads the port's state with."""
+    convert_state_dict reads the port's state with. ``jit_init`` compiles
+    JAX's parameter initialisation instead of running it op by op."""
     opt = jschedule.make_optimizer(LR, warmup=1, num_steps=10)
     g = jax.tree.map(jnp.asarray, jgraph)
-    jstate = jstep.init_train_state(jsim, opt, jax.random.PRNGKey(0), g)
+    init = jstep.init_train_state
+    if jit_init:
+        init = jax.jit(init, static_argnums=(0, 1))
+    jstate = init(jsim, opt, jax.random.PRNGKey(0), g)
     jtrain = jstep.make_train_step(jsim, opt, jloss.LossType.L2LOSS, None, donate=False)
     load_jax_params(tsim, _to_np(jstate.params), _to_np(jstate.sim_state))
     tstate = tstep.init_train_state(tsim, tschedule.make_optimizer(LR, warmup=1, num_steps=10))
