@@ -11,13 +11,15 @@ Phases (any failure raises, so the exit code is non-zero):
   2. build: nvcc builds every kernel of the port from csrc/ (NK and CSR
      GraphNetBlock, NK and CSR edge attention and gated FFN, each forward
      and backward, and the gumbel perturbation), one process per source,
-     all at once;
+     all at once; ptxas's registers and spills of the two redesigned
+     backwards (gated FFN, NK GraphNetBlock) on lines of their own;
   3. kernel check: each forward variant (folded encoder, middle block,
      last block) against its plain PyTorch version at the slice's shape
      (1,920 nodes x 128 samples x hidden 32, K=6 slots), same bf16 inputs;
   4. backward kernel check: each variant's gradients (dx, de or the folded
      encoder's, every weight) from random bf16 cotangents against the
      plain version's autograd in bf16 and in fp32 (utils/gradcheck.py);
+     each variant's time beside its plain backward's;
   5. slice: the B=128 packed eval forward through the kernel path, which
      must launch the kernel once per block, against the plain path;
   6. rollout: 8 windows of one trajectory, 50 steps, kernel path against
@@ -27,7 +29,8 @@ Phases (any failure raises, so the exit code is non-zero):
      and 5 backward launches a step, against the same steps on the plain
      path from the same weights and noise;
   8. timing: CUDA-event medians of kernel and plain versions, blocks,
-     forward and train step;
+     forward and train step, with the step's device time (torch.profiler)
+     and the host's time to enqueue it;
   9. transformer kernel checks, at the transformer slice's shape (1,920
      nodes x 64 samples, hidden 64, 4 heads of 16, K=6): the NK edge
      attention against its plain version on random bf16 q, k, v (and
@@ -52,8 +55,9 @@ Phases (any failure raises, so the exit code is non-zero):
      kernel a step, against the same steps on the plain path;
  14. transformer train timing: each backward kernel, its plain backward,
      the library's masked attention forward + backward, one middle block
-     forward + backward and the train step on both paths, with the host's
-     time to enqueue a step and the syncs a step makes;
+     forward + backward and the train step on both paths, with the step's
+     device time, the host's time to enqueue a step and the syncs a step
+     makes;
  15. layout, on the graded mesh (27,000 nodes, ~160k directed edges, a
      long in-degree tail; its statistics are logged first):
      FusedTopologyManager chooses the CSR layout for it for both model
@@ -87,7 +91,9 @@ Phases (any failure raises, so the exit code is non-zero):
  21. graded train timing: both CSR backward kernels and their plain
      backwards, the library's masked attention forward + backward where it
      fits, one middle block forward + backward of each family and the
-     train steps on both paths, with the host's time to enqueue a step;
+     train steps on both paths, with each step's device time and the
+     host's time to enqueue it; the gated-FFN backward's time and bound at
+     the graded shape;
  22. gumbel kernel check at the Transolver slice's logits [16·2,432, 4, 32]
      (1,920 nodes padded to 2,432 rows, as scripts/bench_models.py's
      graph) and the graded mesh's [16·27,136, 4, 32], bf16: the kernel's Philox
@@ -109,7 +115,10 @@ Phases (any failure raises, so the exit code is non-zero):
      with the host's time to enqueue a step and the syncs a step makes.
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
-the gumbel kernel's ``library_ms`` is the torch.rand draw's time).
+the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
+GraphNetBlock backwards add each variant's times under ``variants``, the
+gated-FFN backward its profiler device time under ``device_ms`` and its
+graded-shape times and bound under ``graded``).
 It imports nothing of JAX.
 """
 
@@ -156,6 +165,9 @@ EMPTY_RECEIVERS = 5
 #: the card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
 #: and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
+#: the kernels whose ptxas reports (registers, spills) are logged apart:
+#: the gated-FFN backward and the NK GraphNetBlock backward's passes
+REDESIGNED = ("ffn_bwd_kernel", "gn_nk_bwd_")
 FWD = {"name": "fused_gn_block_nk", "source": "graph_physics_tpu_torch/csrc/fused_gnblock_nk.cu",
        "replaces": "graph_physics_tpu/ops/fused_gnblock_nk.py:147"}
 BWD = {"name": "fused_gn_block_nk_backward",
@@ -203,6 +215,22 @@ KS_COEFF = 1.949
 
 def log(*args):
     print(*args, flush=True)
+
+
+def kernel_resources(build_log, keys):
+    """{kernel: its ptxas report (registers, spill stores and loads)} for
+    the entry functions whose mangled names hold one of ``keys``, from
+    nvcc's -Xptxas=-v output."""
+    found, current = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+            current = name if any(k in name for k in keys) else None
+            if current:
+                found[current] = []
+        elif current and ("registers" in line or "spill" in line):
+            found[current].append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in found.items()}
 
 
 def compare(name, got, want, rtol, rows=None, atol=None):
@@ -253,6 +281,21 @@ def gn_block_work(x, e, edge_mask, blk, backward=False):
     if backward:
         return 3 * acts + 8 * params + 5 * rows, 3 * 2 * macs
     return 2 * acts + 4 * params + 5 * rows, 2 * macs
+
+
+def ffn_backward_times(kept):
+    """The gated-FFN backward's times from the retained graphs of
+    ``gradcheck.check_backward``: one autograd call through the kernel by
+    CUDA events, its device time by the profiler (a call of a fraction of
+    a millisecond is otherwise timed with the host's launch), and the
+    plain backward's by CUDA events."""
+    import torch
+
+    def grad(k):
+        return lambda: torch.autograd.grad(*kept[k], retain_graph=True)
+
+    return {"ms": cuda_ms(grad("kernel")), "device_ms": device_ms(grad("kernel")),
+            "plain_ms": cuda_ms(grad("plain"))}
 
 
 def cuda_ms(fn, warmup=3, reps=20):
@@ -474,10 +517,11 @@ def training_phase(label, train, kernels, seed, per_step_want=None):
 
 def step_timing(train, plain_state, plain_step, seed):
     """CUDA-event medians of ``train``'s step (an entry train setup) and of
-    the plain path's, then whether the kernel path's step is bound by the
-    host: the host's time to enqueue one step from a synchronised start,
-    and the device-to-host synchronisations one step makes (logged, not
-    bounded)."""
+    the plain path's, the kernel path's device time a step (the profiler's
+    sum of its kernels, ``device_ms``), then whether the kernel path's step
+    is bound by the host: the host's time to enqueue one step from a
+    synchronised start, and the device-to-host synchronisations one step
+    makes (logged, not bounded)."""
     import torch
 
     graph = train.graph
@@ -500,6 +544,8 @@ def step_timing(train, plain_state, plain_step, seed):
     torch.cuda.set_sync_debug_mode("default")
     out["train_step_host_enqueue_ms"] = statistics.median(enqueue)
     out["train_step_syncs"] = len(syncs)
+    out["train_step_device_ms"] = device_ms(lambda: train.train_step(train.state, graph, gen),
+                                            reps=5)
     return out
 
 
@@ -563,6 +609,8 @@ def main():
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line or "Compiling" in line:
             log(f"  {line.strip()}")
+    for name, use in kernel_resources(build_log, REDESIGNED).items():
+        log(f"ptxas, redesigned kernel {name}: {use}")
 
     # the slice: model, NK layout, packed B=128 batch, normalizer statistics
     setup = entry.cylinder_setup(device, num_steps=ROLLOUT_WINDOWS + ROLLOUT_STEPS + 1)
@@ -683,7 +731,8 @@ def main():
     st = step_timing(train, plain_state, plain_step, 8)
     tb = tgraph.x.shape[1]
     log(f"train step B={tb}: kernel path {st['train_step_ms']:.4f} ms "
-        f"({1000 * tb / st['train_step_ms']:.1f} graph-steps/s; the host enqueues a step in "
+        f"({1000 * tb / st['train_step_ms']:.1f} graph-steps/s; device time "
+        f"{st['train_step_device_ms']:.4f} ms; the host enqueues a step in "
         f"{st['train_step_host_enqueue_ms']:.4f} ms), plain path "
         f"{st['train_step_plain_ms']:.4f} ms ({1000 * tb / st['train_step_plain_ms']:.1f} "
         f"graph-steps/s) ({card})")
@@ -696,11 +745,13 @@ def main():
     for rec in tf_records:  # the forward kernels also ran in the train steps
         rec["launches"] += tf_train_launches[rec["name"]][0]
     # 15.-18. both models' inference paths on the graded mesh (CSR layout)
-    graded_records, graded_ffn_launches, graded_ffn_err = graded_phases(device, card)
+    graded_records, graded_ffn_launches, graded_ffn = graded_phases(device, card)
     tf_records[1]["launches"] += graded_ffn_launches
-    tf_records[1]["max_abs_err"] = max(tf_records[1]["max_abs_err"], graded_ffn_err)
+    tf_records[1]["max_abs_err"] = max(tf_records[1]["max_abs_err"],
+                                       graded_ffn.pop("max_abs_err"))
+    tf_records[1]["graded"] = graded_ffn  # its time and bound at [27,008·16, 64]
     # 19.-21. both models' training steps on the graded mesh (CSR layout)
-    graded_train_records, graded_train_launches, graded_ffn_bwd_err = graded_train_phases(
+    graded_train_records, graded_train_launches, graded_ffn_bwd = graded_train_phases(
         device, card)
     # 22.-24. the Transolver++ train step and its gumbel kernel
     gumbel_record = transolver_phases(device, card)
@@ -710,7 +761,8 @@ def main():
     tf_records[1]["launches"] += graded_train_launches[ffn_name][0]
     tf_train_records[1]["launches"] += graded_train_launches[ffn_name][1]
     tf_train_records[1]["max_abs_err"] = max(tf_train_records[1]["max_abs_err"],
-                                             graded_ffn_bwd_err)
+                                             graded_ffn_bwd.pop("max_abs_err"))
+    tf_train_records[1]["graded"] = graded_ffn_bwd  # its time and bound at [27,008·16, 64]
 
     fwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1]))
     bwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1], backward=True))
@@ -723,7 +775,7 @@ def main():
         dict(BWD, route="cuda", launches=train_launches[1],
              max_abs_err=max(bwd_errors.values()), ms=bwd_timing["middle"]["ms"],
              plain_ms=bwd_timing["middle"]["plain_ms"], bound_ms=bwd_bound[0],
-             bound_by=bwd_bound[1], library_ms=None),
+             bound_by=bwd_bound[1], library_ms=None, variants=bwd_timing),
         *tf_records,
         *tf_train_records,
         *graded_records,
@@ -1022,12 +1074,10 @@ def transformer_train_phases(device, card):
             raise AssertionError(f"gated FFN backward kernel ({act}) out of bounds")
         ffn_errs.append(max(r.get("max_abs_err", float("inf")) for r in f_rows))
         if act == "gelu":  # 14. (kernel part)
-            ffn_t = {"ms": cuda_ms(lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True)),
-                     "plain_ms": cuda_ms(lambda: torch.autograd.grad(*kept["plain"],
-                                                                     retain_graph=True))}
+            ffn_t = ffn_backward_times(kept)
         del kept
-    log(f"  gated FFN backward time: kernel {ffn_t['ms']:.4f} ms, plain backward "
-        f"{ffn_t['plain_ms']:.4f} ms ({card})")
+    log(f"  gated FFN backward time: kernel {ffn_t['ms']:.4f} ms (device time "
+        f"{ffn_t['device_ms']:.4f} ms), plain backward {ffn_t['plain_ms']:.4f} ms ({card})")
 
     # 13. training: 20 steps of the train step, kernel path against the plain path
     gn = nk_ops.fused_gn_block_nk
@@ -1052,7 +1102,8 @@ def transformer_train_phases(device, card):
     block_plain_ms = cuda_ms(lambda: block_fwd_bwd(None))
     st = step_timing(train, plain_state, plain_step, 10)
     log(f"transformer train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
-        f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; the host enqueues a step in "
+        f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
+        f"{st['train_step_device_ms']:.4f} ms; the host enqueues a step in "
         f"{st['train_step_host_enqueue_ms']:.4f} ms, {st['train_step_syncs']} device-to-host "
         f"syncs a step), plain path {st['train_step_plain_ms']:.4f} ms "
         f"({1000 * b / st['train_step_plain_ms']:.1f} graph-steps/s); middle block forward + "
@@ -1078,7 +1129,7 @@ def transformer_train_phases(device, card):
              bound_by=attn_bound[1], library_ms=attn_t["library_ms"]),
         dict(FFN_BWD, route="cuda", launches=launches[ffn.__name__][1], max_abs_err=max(ffn_errs),
              ms=ffn_t["ms"], plain_ms=ffn_t["plain_ms"], bound_ms=ffn_bound[0],
-             bound_by=ffn_bound[1], library_ms=None),
+             bound_by=ffn_bound[1], library_ms=None, device_ms=ffn_t["device_ms"]),
     ]
     return records, launches
 
@@ -1107,6 +1158,7 @@ def graded_phases(device, card):
     from graph_physics_tpu_torch import entry
     from graph_physics_tpu_torch.core import mesh as mesh_lib
     from graph_physics_tpu_torch.dataset import synthetic
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
     from graph_physics_tpu_torch.ops import tiling as tiling_lib
     from graph_physics_tpu_torch.ops.edge_attention import edge_attention
     from graph_physics_tpu_torch.ops.fused_edge_attention_csr import fused_edge_attention_csr
@@ -1336,8 +1388,17 @@ def graded_phases(device, card):
     gn_bound = bound(nbytes + 4 * (n + 1), flops)
     attn_bound = bound(2 * 4 * q.numel() + 5 * tcsr.total_rows + 4 * (n + 1),
                        valid * b * heads * 4 * dh)
+    # the gated FFN as phase 11's bound: x read and y written (bf16), the fp32
+    # weights read, 3 products of 64 x 192 a row
+    mlp0 = tblocks[0].gated_mlp
+    ffn_params = ffn_ops._params(mlp0, tblocks[0].norm2)
+    ffn_t["bound_ms"], ffn_t["bound_by"] = bound(
+        2 * 2 * tx.numel() + 4 * sum(p.numel() for p in ffn_params),
+        2 * n * b * sum(w.numel() for w in (mlp0.gated.linear1.weight,
+                                             mlp0.gated.linear2.weight, mlp0.out.weight)))
     log(f"  bounds: CSR GraphNetBlock {gn_bound[0]:.6g} ms ({gn_bound[1]}), CSR attention "
-        f"{attn_bound[0]:.6g} ms ({attn_bound[1]})")
+        f"{attn_bound[0]:.6g} ms ({attn_bound[1]}), gated FFN at the graded shape "
+        f"{ffn_t['bound_ms']:.6g} ms ({ffn_t['bound_by']})")
     records = [
         dict(GN_CSR, route="cuda", launches=gn_launches, max_abs_err=max(errors.values()),
              ms=timing["middle"]["ms"], plain_ms=timing["middle"]["plain_ms"],
@@ -1346,7 +1407,7 @@ def graded_phases(device, card):
              ms=attn_t["ms"], plain_ms=attn_t["plain_ms"], bound_ms=attn_bound[0],
              bound_by=attn_bound[1], library_ms=attn_t["library_ms"]),
     ]
-    return records, t_launches[1], ffn_err
+    return records, t_launches[1], dict(ffn_t, max_abs_err=ffn_err)
 
 
 def graded_train_phases(device, card):
@@ -1354,8 +1415,9 @@ def graded_train_phases(device, card):
     the graph transformer (10 blocks, hidden 64, 4 heads) on the graded
     mesh at B=16, in the CSR layout. Returns the two CSR backward
     kernels' records, {wrapper name: (forward, backward) launches} of the
-    phase-20 runs, and the gated-FFN backward's error against its plain
-    backward at the graded shape."""
+    phase-20 runs, and the gated-FFN backward's numbers at the graded
+    shape: its error against its plain backward, its time, its plain
+    backward's and its bound."""
     import torch
     import torch.nn.functional as F
     from graph_physics_tpu_torch import entry
@@ -1479,12 +1541,18 @@ def graded_train_phases(device, card):
         raise AssertionError("gated FFN: the backward kernel did not launch once")
     if not f_ok:
         raise AssertionError("gated FFN backward kernel out of bounds at the graded shape")
-    ffn_bwd_err = max(r.get("max_abs_err", float("inf")) for r in f_rows)
-    ffn_t = {"ms": cuda_ms(lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True)),
-             "plain_ms": cuda_ms(lambda: torch.autograd.grad(*kept["plain"], retain_graph=True))}
+    ffn_t = ffn_backward_times(kept)
     del kept
-    log(f"  gated FFN backward time at the graded shape: kernel {ffn_t['ms']:.4f} ms, plain "
-        f"backward {ffn_t['plain_ms']:.4f} ms ({card})")
+    # its bound as phase 14's: x, g read and dx written (bf16), the fp32
+    # weights read and their gradients written, 8 products of 64 x 192 a row
+    ffn_params = ffn_ops._params(blk0.gated_mlp, blk0.norm2)
+    ffn_t["bound_ms"], ffn_t["bound_by"] = bound(
+        2 * 3 * tx.numel() + 8 * sum(p.numel() for p in ffn_params),
+        2 * 8 * n * b * blk0.gated_mlp.gated.linear1.weight.numel())
+    ffn_t["max_abs_err"] = max(r.get("max_abs_err", float("inf")) for r in f_rows)
+    log(f"  gated FFN backward time at the graded shape: kernel {ffn_t['ms']:.4f} ms (device "
+        f"time {ffn_t['device_ms']:.4f} ms), plain backward {ffn_t['plain_ms']:.4f} ms, bound "
+        f"{ffn_t['bound_ms']:.6g} ms ({ffn_t['bound_by']}) ({card})")
 
     # 20. graded training: 20 steps of each family, kernel path against the
     # plain path, counts from 0 just before each
@@ -1519,7 +1587,8 @@ def graded_train_phases(device, card):
              "transformer": step_timing(ttrain, t_plain_state, t_plain_step, 15)}
     for fam, st in steps.items():
         log(f"graded {fam} train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
-            f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; the host enqueues a step in "
+            f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
+            f"{st['train_step_device_ms']:.4f} ms; the host enqueues a step in "
             f"{st['train_step_host_enqueue_ms']:.4f} ms, {st['train_step_syncs']} "
             f"device-to-host syncs a step), plain path {st['train_step_plain_ms']:.4f} ms "
             f"({1000 * b / st['train_step_plain_ms']:.1f} graph-steps/s) ({card})")
@@ -1572,12 +1641,12 @@ def graded_train_phases(device, card):
         dict(GN_CSR_BWD, route="cuda", launches=launches[gn.__name__][1],
              max_abs_err=max(gn_errors.values()), ms=gn_t["middle"]["ms"],
              plain_ms=gn_t["middle"]["plain_ms"], bound_ms=gn_bound[0], bound_by=gn_bound[1],
-             library_ms=None),
+             library_ms=None, variants=gn_t),
         dict(ATTN_CSR_BWD, route="cuda", launches=launches[attn.__name__][1],
              max_abs_err=attn_err, ms=attn_t["ms"], plain_ms=attn_t["plain_ms"],
              bound_ms=attn_bound[0], bound_by=attn_bound[1], library_ms=attn_t["library_ms"]),
     ]
-    return records, launches, ffn_bwd_err
+    return records, launches, ffn_t
 
 
 

@@ -166,10 +166,10 @@ template <bool FOLD, bool LAST>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const long long rows = static_cast<long long>(a.n_nodes) * a.batch;
   int grid = 0;
-  cudaError_t err = grid_for(reinterpret_cast<const void*>(gn_csr_partial_kernel),
+  cudaError_t err = grid_for(reinterpret_cast<const void*>(gn_partial_kernel),
                              PARTIAL_THREADS, 0, rows, &grid);
   if (err != cudaSuccess) return err;
-  gn_csr_partial_kernel<<<grid, PARTIAL_THREADS, 0, stream>>>(
+  gn_partial_kernel<<<grid, PARTIAL_THREADS, 0, stream>>>(
       a.x, const_cast<__nv_bfloat16*>(a.xks), a.edge.w[0], rows, 2 * H);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 

@@ -4,8 +4,8 @@
 // rounding, row loads and stores, the forward MLP numerics of the JAX
 // kernel's _mlp_fwd/_rms_fwd (bf16 values between layers, fp32
 // accumulation, fp32 RMS statistics of bf16 squares), the folded edge
-// encoder, the CSR kernels' node pre-pass and the grid size of a striding
-// kernel.
+// encoder, the node pre-pass of the GraphNetBlock kernels (both layouts,
+// forward and backward) and the grid size of a striding kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -186,15 +186,15 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 
 constexpr int PARTIAL_THREADS = 128;
 
-// The CSR kernels' node pre-pass: out[t] = bf16(x[t] @ K) for every
-// (node, sample) row t, K the rows col..col+H-1 of the edge MLP's first
-// layer (w0: nn.Linear [H, 3H]; col = H for the receiver part Kr, 2H for
-// the sender part Ks), so a node's partial is a 64-byte row load per edge
-// (fused_gnblock.py:blocked_reference rounds x @ Kr and x @ Ks per node
-// too).
+// The GraphNetBlock kernels' node pre-pass, of both layouts: out[t] =
+// bf16(x[t] @ K) for every (node, sample) row t, K the rows col..col+H-1
+// of the edge MLP's first layer (w0: nn.Linear [H, 3H]; col = H for the
+// receiver part Kr, 2H for the sender part Ks), so a node's partial is a
+// 64-byte row load per edge (fused_gnblock.py:blocked_reference rounds
+// x @ Kr and x @ Ks per node too, as fused_gnblock_nk.py:_edge_fwd does).
 __global__ void __launch_bounds__(PARTIAL_THREADS)
-    gn_csr_partial_kernel(const __nv_bfloat16* x, __nv_bfloat16* out, const float* w0,
-                          long long total, int col) {
+    gn_partial_kernel(const __nv_bfloat16* x, __nv_bfloat16* out, const float* w0,
+                      long long total, int col) {
   __shared__ __align__(16) float s_k[H * H];
   for (int i = threadIdx.x; i < H * H; i += blockDim.x) {
     const int r = i / H, o = i % H;

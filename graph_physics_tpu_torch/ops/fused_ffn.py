@@ -8,9 +8,11 @@ _ffn_fwd_kernel (:74) and _ffn_bwd_kernel (:99) behind fused_gated_ffn
 
 The forward CUDA kernel (``csrc/fused_ffn.cu``) runs one thread per row
 of [N·B, H] with the weights in shared memory. The backward
-(``csrc/fused_ffn_bwd.cu``) recomputes the row from x, gives dx, and
-reduces the eight parameter gradients over the rows in a second pass;
-see the sources' headers for the designs and the bounds.
+(``csrc/fused_ffn_bwd.cu``) runs its eight products on the tensor cores in
+one pass over 64-row tiles: it recomputes the rows from x, gives dx, and
+keeps each block's sums of the eight parameter gradients, which a second
+kernel adds in block order; see the sources' headers for the designs and
+the bounds.
 :func:`gated_ffn_reference` is the plain PyTorch version of the forward,
 rounding where the kernel rounds (gated_ffn_reference, fused_ffn.py:282,
 with _rms_fwd's numerics), and :func:`gated_ffn_backward_reference` that
@@ -39,12 +41,9 @@ RMS_EPS = 1e-8
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "ffn": {"ffn_fwd": [_vp, _vp, ctypes.c_longlong] + [_vp] * 8 + [_i, _vp]},
-    "ffn_bwd": {"ffn_bwd": [_vp] * 6 + [ctypes.c_longlong] + [_vp] * 8 + [_i, _i, _vp]},
+    "ffn_bwd": {"ffn_bwd": [_vp] * 5 + [ctypes.c_longlong] + [_vp] * 8 + [_i, _i, _vp]},
 }
 _H, _W = KERNEL_HIDDEN, 3 * KERNEL_HIDDEN
-#: the backward's per-row scratch, in bf16 values: n (H), the gated middle,
-#: its two cotangents (3 x 3H), and the two RMSNorm scale terms (2 x H)
-SCRATCH_WIDTH = 12 * _H
 #: the backward's fp32 gradient buffer, in its order: name -> shape
 _GRAD_SHAPES = {"w1": (_W, _H), "w2": (_W, _H), "w3": (_H, _W), "b1": (_W,), "b2": (_W,),
                 "b3": (_H,), "scale": (_H,), "scale2": (_H,)}
@@ -81,13 +80,12 @@ def _launch_bwd(x, block, norm2, g_out):
     dev = x.device
     parts = torch.cuda.get_device_properties(dev).multi_processor_count
     dx = torch.empty_like(x)
-    scratch = torch.empty((rows, SCRATCH_WIDTH), dtype=torch.bfloat16, device=dev)
     sizes = [math.prod(shape) for shape in _GRAD_SHAPES.values()]
     partials = torch.empty((parts, sum(sizes)), dtype=torch.float32, device=dev)
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     err = kernel_build.load("ffn_bwd", _ARGTYPES["ffn_bwd"]).ffn_bwd(
-        x.data_ptr(), g_out.data_ptr(), dx.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
-        grads.data_ptr(), rows, *[p.data_ptr() for p in _params(block, norm2)],
+        x.data_ptr(), g_out.data_ptr(), dx.data_ptr(), partials.data_ptr(), grads.data_ptr(),
+        rows, *[p.data_ptr() for p in _params(block, norm2)],
         int(block.gated.use_silu), parts, _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_gated_ffn backward launch failed with CUDA error {err}")

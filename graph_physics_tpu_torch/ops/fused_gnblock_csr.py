@@ -41,7 +41,9 @@ from graph_physics_tpu_torch.ops.fused_gnblock_nk import (
     _mlp_reference,
     _mlp_tensors,
     _pointers,
+    backward_buffers,
     mlp_tail_reference,
+    rounded_grads,
 )
 from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
@@ -91,32 +93,22 @@ def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, receivers, edge_mask
     parameter gradients (fp32 holding bf16 values, as the plain version's
     bf16 autograd gives them) in ``_mlp_params`` order per MLP. ``agg`` is
     the aggregate the forward kept."""
-    enc = mlps[0]
-    n, b, h = x.shape
+    n, b, _ = x.shape
     rows = csr.total_rows
     order, offsets = cached_sender_slots(senders, edge_mask, csr)
-    dx, xkr, xks, gagg = (torch.empty_like(x) for _ in range(4))
-    de = None if enc is not None else torch.empty((rows, b, h), dtype=x.dtype, device=x.device)
-    gh0 = torch.empty((rows, b, h), dtype=x.dtype, device=x.device)
-    grads = [[torch.zeros_like(p, dtype=torch.float32) for p in _mlp_params(m)]
-             if m is not None else None for m in mlps]
-    ptrs = []
-    for m, gs in zip(mlps, grads):
-        ptrs += ([None, None, 0] if m is None
-                 else [_pointers(m), _pointers(m, gs), len(m.denses)])
+    dx, de, (xkr, xks, gagg, gh0), grads, ptrs = backward_buffers(x, rows, mlps)
     err = _load("gn_csr_bwd").gn_csr_bwd(
         x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
         None if g_eout is None else g_eout.data_ptr(), dx.data_ptr(),
         None if de is None else de.data_ptr(), xkr.data_ptr(), xks.data_ptr(),
         gagg.data_ptr(), gh0.data_ptr(), csr.row_ptr_on(x.device).data_ptr(),
         senders.data_ptr(), receivers.data_ptr(), edge_mask.data_ptr(), order.data_ptr(),
-        offsets.data_ptr(), n, b, rows, edge_attr.shape[-1] if enc is not None else 0, *ptrs,
-        _stream(x))
+        offsets.data_ptr(), n, b, rows, edge_attr.shape[-1] if mlps[0] is not None else 0,
+        *ptrs, _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_gn_block_csr backward launch failed with CUDA error {err}")
     fused_gn_block_csr.backward_launches += 1
-    flat = [g.to(torch.bfloat16).float() for gs in grads if gs is not None for g in gs]
-    return dx, de, flat
+    return dx, de, rounded_grads(grads)
 
 
 def _reference_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_block):

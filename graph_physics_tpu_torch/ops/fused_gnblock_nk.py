@@ -5,17 +5,25 @@ _nk_fwd_kernel (:147) and _nk_bwd_kernel (:189) behind fused_gn_block_nk
 (:332). Two CUDA kernels: the forward (``csrc/fused_gnblock_nk.cu``) runs
 one thread per (receiver, sample) over the receiver's K slots, so the
 K-sum needs no atomics, the edge messages stay in registers and the MLP
-weights sit in shared memory; the backward (``csrc/fused_gnblock_nk_bwd.cu``)
-rematerializes that forward from (x, e) and returns dx, de and fp32
-weight gradients, reduced per block in shared memory. Both are bound by
-fp32 FMA throughput on the CUDA cores; tensor cores are later work. See
-the sources' headers for the designs.
+weights sit in shared memory; under autograd it also keeps its bf16
+aggregate. The backward (``csrc/fused_gnblock_nk_bwd.cu``) runs the CSR
+backward's passes (``csrc/gn_bwd_passes.cuh``) on the NK row map: node
+pre-passes, a node-MLP pass that reads the kept aggregate, a row pass
+with one thread per (slot, sample) and a sender pass over the layout's
+sender-sorted slot list, returning dx, de and fp32 weight gradients with
+no atomics on dx or de. Both are bound by fp32 FMA throughput on the CUDA
+cores; tensor cores are later work. See the sources' headers for the
+designs.
 
 :func:`fused_gn_block_nk_reference` is the plain PyTorch version of the
-same function, following blocked_reference_nk (fused_gnblock_nk.py:731);
-its gradient is plain autograd. The wrapper uses it for tensors on the
-CPU; for CUDA tensors it launches the kernels (the backward through
-``torch.autograd.Function``) or raises.
+same function, following blocked_reference_nk (fused_gnblock_nk.py:731),
+with the first edge layer in the JAX kernel's order (the node partials
+x @ Kr and x @ Ks rounded per node, as the forward kernel and
+fused_gnblock.py:blocked_reference round them). Its gradient is plain
+autograd, which :func:`fused_gn_block_nk_backward_reference` returns as
+the backward kernel returns its gradients. The wrapper uses the plain
+forward for tensors on the CPU; for CUDA tensors it launches the kernels
+(the backward through ``torch.autograd.Function``) or raises.
 
 Build: ``ops/kernel_build.py`` compiles each source with nvcc into a
 shared library with a plain C interface at first use; ctypes loads it.
@@ -32,6 +40,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from graph_physics_tpu_torch.ops import kernel_build
+from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
 #: hidden width the kernels are compiled for (``H`` in the sources)
 KERNEL_HIDDEN = 32
@@ -42,10 +51,8 @@ BACKWARD_LAYERS = 4
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "gn_nk_fwd": {"gn_nk_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
-                                _vp, _i, _vp, _i, _vp, _i, _vp]},
-    "gn_nk_bwd": {"gn_nk_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
-                                _vp, _vp, _i, _vp, _vp, _i, _vp, _vp, _i, _vp]},
+    "gn_nk_fwd": {"gn_nk_fwd": [_vp] * 8 + [_i] * 5 + [_vp, _i] * 3 + [_vp]},
+    "gn_nk_bwd": {"gn_nk_bwd": [_vp] * 15 + [_i] * 5 + [_vp, _vp, _i] * 3 + [_vp]},
 }
 
 
@@ -88,74 +95,103 @@ def _pointers(mlp, tensors=None):
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block):
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block, keep_agg=False):
+    """(x_out, e_out, agg): e_out is None on the last block; with
+    ``keep_agg`` the kernel also writes the bf16 aggregate [N, B, H] the
+    backward kernel reads (else agg is None)."""
     enc, edge, node = mlps
     n, b, h = x.shape
     x_out = torch.empty_like(x)
     e_out = None if last_block else torch.empty((nk.total_rows, b, h), dtype=x.dtype,
                                                 device=x.device)
+    agg = torch.empty_like(x) if keep_agg else None
+    xks = torch.empty_like(x)  # the pre-pass's sender partials
     err = _load("gn_nk_fwd").gn_nk_fwd(
-        x.data_ptr(), edge_attr.data_ptr(), x_out.data_ptr(),
-        None if e_out is None else e_out.data_ptr(),
+        x.data_ptr(), edge_attr.data_ptr(), xks.data_ptr(), x_out.data_ptr(),
+        None if e_out is None else e_out.data_ptr(), None if agg is None else agg.data_ptr(),
         senders.data_ptr(), edge_mask.data_ptr(), n, b, nk.k_slots, nk.node_block,
         edge_attr.shape[-1] if enc is not None else 0,
         None if enc is None else _pointers(enc), 0 if enc is None else len(enc.denses),
-        _pointers(edge), len(edge.denses), _pointers(node), len(node.denses),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _pointers(edge), len(edge.denses), _pointers(node), len(node.denses), _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_gn_block_nk launch failed with CUDA error {err}")
     fused_gn_block_nk.launches += 1
-    return x_out, e_out
+    return x_out, e_out, agg
 
 
-def _launch_bwd(x, edge_attr, g_xout, g_eout, senders, edge_mask, nk, mlps):
-    """dx (bf16), de (bf16, None when the encoder is folded) and the
-    parameter gradients (fp32 holding bf16 values, as the plain version's
-    bf16 autograd gives them) in ``_mlp_params`` order per MLP."""
-    enc, edge, node = mlps
-    n, b, h = x.shape
-    dx = torch.zeros((n, b, h), dtype=torch.float32, device=x.device)
-    de = None if enc is not None else torch.empty((nk.total_rows, b, h), dtype=x.dtype,
-                                                  device=x.device)
+def backward_buffers(x, rows, mlps):
+    """What a GraphNetBlock backward kernel of either layout fills: dx
+    [N, B, H] and de [rows, B, H] (None when the encoder is folded), its
+    bf16 scratch (x @ Kr, x @ Ks and g_agg [N, B, H], g_h0 [rows, B, H]),
+    the zeroed fp32 gradients per MLP and their pointer arguments (weights,
+    gradients and layer count of each MLP, nulls for a missing encoder)."""
+    b, h = x.shape[1:]
+    dx, xkr, xks, gagg = (torch.empty_like(x) for _ in range(4))
+    de = None if mlps[0] is not None else torch.empty((rows, b, h), dtype=x.dtype,
+                                                      device=x.device)
+    gh0 = torch.empty((rows, b, h), dtype=x.dtype, device=x.device)
     grads = [[torch.zeros_like(p, dtype=torch.float32) for p in _mlp_params(m)]
              if m is not None else None for m in mlps]
+    ptrs = []
+    for m, gs in zip(mlps, grads):
+        ptrs += ([None, None, 0] if m is None
+                 else [_pointers(m), _pointers(m, gs), len(m.denses)])
+    return dx, de, (xkr, xks, gagg, gh0), grads, ptrs
+
+
+def rounded_grads(grads):
+    """The kernels' fp32 gradient sums as one list, rounded to bf16 values
+    as the plain version's bf16 autograd gives them."""
+    return [g.to(torch.bfloat16).float() for gs in grads if gs is not None for g in gs]
+
+
+def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, edge_mask, nk, mlps):
+    """dx (bf16), de (bf16, None when the encoder is folded) and the
+    parameter gradients (fp32 holding bf16 values) in ``_mlp_params`` order
+    per MLP. ``agg`` is the aggregate the forward kept."""
+    n, b, _ = x.shape
+    order, offsets = cached_sender_slots(senders, edge_mask, nk)
+    dx, de, scratch, grads, ptrs = backward_buffers(x, nk.total_rows, mlps)
     err = _load("gn_nk_bwd").gn_nk_bwd(
-        x.data_ptr(), edge_attr.data_ptr(), g_xout.data_ptr(),
+        x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
         None if g_eout is None else g_eout.data_ptr(), dx.data_ptr(),
-        None if de is None else de.data_ptr(), senders.data_ptr(), edge_mask.data_ptr(),
-        n, b, nk.k_slots, nk.node_block, edge_attr.shape[-1] if enc is not None else 0,
-        None if enc is None else _pointers(enc), None if enc is None else _pointers(enc, grads[0]),
-        0 if enc is None else len(enc.denses),
-        _pointers(edge), _pointers(edge, grads[1]), len(edge.denses),
-        _pointers(node), _pointers(node, grads[2]), len(node.denses),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        None if de is None else de.data_ptr(), *[t.data_ptr() for t in scratch],
+        senders.data_ptr(), edge_mask.data_ptr(), order.data_ptr(), offsets.data_ptr(), n, b,
+        nk.k_slots, nk.node_block, edge_attr.shape[-1] if mlps[0] is not None else 0, *ptrs,
+        _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_gn_block_nk backward launch failed with CUDA error {err}")
     fused_gn_block_nk.backward_launches += 1
-    flat = [g.to(torch.bfloat16).float() for gs in grads if gs is not None for g in gs]
-    return dx.to(torch.bfloat16), de, flat
+    return dx, de, rounded_grads(grads)
 
 
 class _FusedGNBlockNK(torch.autograd.Function):
-    """The forward kernel, with the backward kernel as its gradient. The
-    MLPs' parameters are inputs so autograd routes their gradients; on the
-    last block only x_out is an output (the edge stream passes through
-    outside), so no cotangent of the dead edge stream reaches the kernel."""
+    """The forward kernel (keeping its aggregate), with the backward kernel
+    as its gradient. The MLPs' parameters are inputs so autograd routes
+    their gradients; on the last block only x_out is an output (the edge
+    stream passes through outside), so no cotangent of the dead edge
+    stream reaches the kernel."""
 
     @staticmethod
     def forward(ctx, x, edge_attr, senders, edge_mask, nk, mlps, last_block, *params):
-        x_out, e_out = _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block)
-        ctx.save_for_backward(x, edge_attr, senders, edge_mask)
+        x_out, e_out, agg = _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block,
+                                        keep_agg=True)
+        ctx.save_for_backward(x, edge_attr, agg, senders, edge_mask)
         ctx.nk, ctx.mlps = nk, mlps
         return x_out if last_block else (x_out, e_out)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_xout, g_eout=None):
-        x, edge_attr, senders, edge_mask = ctx.saved_tensors
+        x, edge_attr, agg, senders, edge_mask = ctx.saved_tensors
         dx, de, grads = _launch_bwd(
-            x, edge_attr, g_xout.contiguous(), None if g_eout is None else g_eout.contiguous(),
-            senders, edge_mask, ctx.nk, ctx.mlps)
+            x, edge_attr, agg, g_xout.contiguous(),
+            None if g_eout is None else g_eout.contiguous(), senders, edge_mask, ctx.nk,
+            ctx.mlps)
         return (dx, de, None, None, None, None, None, *grads)
 
 
@@ -227,7 +263,8 @@ def fused_gn_block_nk(
 
 def _run_kernels(x, edge_attr, senders, edge_mask, nk, mlps, last_block):
     """The CUDA branch of :func:`fused_gn_block_nk` on checked inputs: the
-    forward kernel, through ``_FusedGNBlockNK`` when a gradient is wanted."""
+    forward kernel, through ``_FusedGNBlockNK`` (keeping the aggregate)
+    when a gradient is wanted."""
     used = [m for m in mlps if m is not None]
     params = [p for m in used for p in _mlp_params(m)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in [x, edge_attr, *params]):
@@ -239,7 +276,7 @@ def _run_kernels(x, edge_attr, senders, edge_mask, nk, mlps, last_block):
         out = _FusedGNBlockNK.apply(x, edge_attr, senders, edge_mask, nk, mlps, last_block,
                                     *params)
         return (out, edge_attr) if last_block else out
-    x_out, e_out = _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block)
+    x_out, e_out, _ = _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block)
     return x_out, (edge_attr if last_block else e_out)
 
 
@@ -284,23 +321,60 @@ def fused_gn_block_nk_reference(
     last_block: bool = False,
     compute_dtype=torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`fused_gn_block_nk` (``index_select``
-    sender gather, receiver rows repeated over the K slots, reshape-sum over
-    K), computing in ``compute_dtype``."""
-    cd = compute_dtype
+    """Plain PyTorch version of :func:`fused_gn_block_nk`, computing in
+    ``compute_dtype``: the edge MLP's first layer sums, in fp32, the
+    product e_in @ Ke and the node partials x @ Kr and x @ Ks, each
+    computed per node and rounded to ``compute_dtype`` (the JAX kernel's
+    _edge_fwd order), the receiver's repeated over its K slots and the
+    sender's gathered with ``index_select``; the masked messages are summed
+    over K with a reshape."""
+    x_out, e_out, _ = _reference_parts(x, edge_attr, senders, edge_mask,
+                                       (encoder_params, edge_params, node_params), nk,
+                                       compute_dtype)
+    return (x_out, edge_attr) if last_block else (x_out, e_out)
+
+
+def _reference_parts(x, edge_attr, senders, edge_mask, mlps, nk, cd):
+    """(x_out, e_out, agg) of :func:`fused_gn_block_nk_reference`."""
+    enc, edge, node = mlps
     n, b, h = x.shape
     g, k, nb = nk.num_groups, nk.k_slots, nk.node_block
     xc = x.to(cd)
     e_in = edge_attr.to(cd)
-    if encoder_params is not None:
-        e_in = _mlp_reference(encoder_params, [e_in], cd)
-    x_recv = xc.view(g, 1, nb, b, h).expand(g, k, nb, b, h).reshape(-1, b, h)
-    x_send = xc.index_select(0, senders)
-    eh = _mlp_reference(edge_params, [e_in, x_recv, x_send], cd)
+    if enc is not None:
+        e_in = _mlp_reference(enc, [e_in], cd)
+    ws, bs, _ = _mlp_tensors(edge)
+    k0 = ws[0].to(cd)  # [H, 3H]: the e, receiver and sender parts
+    x_kr = F.linear(xc, k0[:, h:2 * h])
+    x_ks = F.linear(xc, k0[:, 2 * h:])
+    h0 = (F.linear(e_in.float(), k0[:, :h].float())
+          + x_kr.view(g, 1, nb, b, h).expand(g, k, nb, b, h).reshape(-1, b, h).float()
+          + x_ks.index_select(0, senders).float())
+    eh = mlp_tail_reference(edge, h0.to(cd) + bs[0].to(cd), cd)
     ehm = torch.where(edge_mask.view(-1, 1, 1), eh, torch.zeros((), dtype=cd, device=x.device))
     agg = ehm.float().view(g, k, nb, b, h).sum(1).reshape(n, b, h).to(cd)
-    nh = _mlp_reference(node_params, [xc, agg], cd)
+    nh = _mlp_reference(node, [xc, agg], cd)
     x_out = (xc + nh).to(x.dtype)
-    if last_block:
-        return x_out, edge_attr
-    return x_out, e_in + ehm
+    return x_out, e_in + ehm, agg
+
+
+def fused_gn_block_nk_backward_reference(x, edge_attr, agg, g_xout, g_eout, senders, edge_mask,
+                                         nk, mlps):
+    """Plain version of the backward kernel: plain autograd of
+    :func:`fused_gn_block_nk_reference` in ``x``'s dtype (``agg`` is not
+    used), returned as the kernel's are (dx, de or None when the encoder is
+    folded, the parameter gradients in ``_mlp_params`` order per MLP), as
+    :func:`fused_gnblock_csr.fused_gn_block_csr_backward_reference` is for
+    the CSR layout."""
+    enc = mlps[0]
+    params = [p for m in mlps if m is not None for p in _mlp_params(m)]
+    with torch.enable_grad():
+        xl = x.detach().requires_grad_(True)
+        el = edge_attr.detach().requires_grad_(enc is None)
+        x_out, e_out, _ = _reference_parts(xl, el, senders, edge_mask, mlps, nk, x.dtype)
+        outs, cots = ([x_out], [g_xout]) if g_eout is None else ([x_out, e_out], [g_xout, g_eout])
+        wrt = [xl] + ([el] if enc is None else []) + params
+        grads = torch.autograd.grad(outs, wrt, cots)
+    if enc is None:
+        return grads[0], grads[1], list(grads[2:])
+    return grads[0], None, list(grads[1:])

@@ -50,7 +50,8 @@ GROUPS = (
     ("GraphNetBlock kernel (gn_nk_fwd)", ("gn_nk_fwd",)),
     ("GraphNetBlock backward kernel (gn_nk_bwd)", ("gn_nk_bwd",)),
     ("CSR GraphNetBlock backward kernels (gn_csr_bwd)", ("gn_csr_bwd",)),
-    ("CSR GraphNetBlock kernels (gn_csr_fwd, gn_csr_partial)", ("gn_csr",)),
+    ("CSR GraphNetBlock kernel (gn_csr_fwd)", ("gn_csr",)),
+    ("GraphNetBlock node pre-pass (gn_partial, both layouts)", ("gn_partial",)),
     ("gumbel kernel (gumbel_perturb)", ("gumbel_perturb",)),
     ("GEMMs", ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")),
     ("optimizer (multi-tensor)", ("multi_tensor",)),

@@ -19,7 +19,12 @@ counterparts: 0.05 (GraphNetBlock), rtol 0.03 atol 0.02 (attention, its
 plain version ``ops/edge_attention.edge_attention``), 0.15 and 0.1 for
 the models; their backward kernels are held with utils/gradcheck.py at a
 small size and at the graded slice's (27,000 nodes x 16 samples), and
-the graded train steps to the same bounds as the cylinder's. The gumbel
+the graded train steps to the same bounds as the cylinder's. The NK
+GraphNetBlock backward is also held on a mesh whose masked slots sit
+between a receiver's valid ones and whose node N-1 owns valid slots; it
+and the gated-FFN backward
+(also at a row count that is not a multiple of its 64-row tile) give the
+same bits on two calls. The gumbel
 kernel draws the same Philox bits as its plain version, bit for bit, and
 its output is within 1e-5 of the plain version's (``logf`` on the card
 against ``torch.log``, at |noise| < 17); the Transolver train step runs
@@ -140,6 +145,69 @@ def test_backward_kernel_matches_plain_version(cuda_device, variant, batch):
     torch.cuda.synchronize()
     assert fused_gn_block_nk.backward_launches == before + 1
     assert ok, [r for r in rows if not r["ok"]]
+
+
+def _hole_mask(nk, mask):
+    """``mask`` with slot k=1 of every third receiver whose slot k=2 is valid
+    masked out: masked slots between valid slots of one receiver."""
+    m = mask.clone().view(-1, nk.k_slots, nk.node_block)
+    hole = m[:, 2] & (torch.arange(nk.node_block, device=mask.device) % 3 == 0)
+    m[:, 1] &= ~hole
+    return m.reshape(-1).contiguous()
+
+
+def _nk_backward_case(cuda_device, variant, seed, holes=False):
+    """A block's inputs on the 16 x 16 cylinder mesh (256 nodes in two node
+    blocks: node N-1 is real and owns valid slots), B=5, and random
+    cotangents of every slot."""
+    setup = entry.cylinder_setup(cuda_device, nx=16, ny=16, batch=5)
+    args, kw = _block_args(setup, variant, seed=seed)
+    x, e, senders, mask, edge, node, nk = args
+    assert nk.num_nodes == 256 and setup.graph.node_mask[-1]
+    if holes:
+        mask = _hole_mask(nk, mask)
+    gen = torch.Generator(device=cuda_device).manual_seed(200 + seed)
+    cot_x = torch.randn(x.shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    cot_e = torch.randn((nk.total_rows,) + x.shape[1:], generator=gen,
+                        device=cuda_device).to(torch.bfloat16)
+    return x, e, (senders, mask), (kw["encoder_params"], edge, node), nk, kw["last_block"], \
+        cot_x, cot_e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["folded", "middle", "last"])
+def test_backward_kernel_on_masked_slots_between_valid_ones(cuda_device, variant):
+    """The padding-leak mesh: masked slots of a receiver sit between its
+    valid ones, and node N-1 owns valid slots; against plain autograd of the
+    plain version (utils/gradcheck.py)."""
+    case = _nk_backward_case(cuda_device, variant, seed=7, holes=True)
+    assert (~case[2][1].view(-1, case[4].k_slots, case[4].node_block)[:, 1]
+            & case[2][1].view(-1, case[4].k_slots, case[4].node_block)[:, 2]).any()
+    before = fused_gn_block_nk.backward_launches
+    rows, ok, _ = gradcheck.check_block_backward(*case)
+    torch.cuda.synchronize()
+    assert fused_gn_block_nk.backward_launches == before + 1
+    assert ok, [r for r in rows if not r["ok"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["middle", "last"])
+def test_backward_kernel_dx_de_are_bit_identical_across_calls(cuda_device, variant):
+    """No atomics are left on dx or de: two calls give the same bits."""
+    x, e, (senders, mask), mlps, nk, last, cot_x, cot_e = _nk_backward_case(
+        cuda_device, variant, seed=3)
+    outs = []
+    for _ in range(2):
+        xl, el = x.clone().requires_grad_(True), e.clone().requires_grad_(True)
+        xo, eo = fused_gn_block_nk(xl, el, senders, mask, mlps[1], mlps[2], nk,
+                                   last_block=last)
+        if last:
+            outs.append(torch.autograd.grad(xo, [xl], cot_x))
+        else:
+            outs.append(torch.autograd.grad([xo, eo], [xl, el], [cot_x, cot_e]))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -308,6 +376,58 @@ def test_ffn_backward_kernel_matches_plain_backward(cuda_device, batch, use_silu
     torch.cuda.synchronize()
     assert fused_gated_ffn.backward_launches == before + 1
     assert ok, [r for r in rows if not r["ok"]]
+
+
+def _ffn_case(cuda_device, nodes, batch, use_silu, seed):
+    gen = torch.Generator().manual_seed(seed)
+    block = GatedMLPBlock(64, 64, 64, use_silu=use_silu)
+    norm2 = RMSNorm(64)
+    reset_parameters(block, gen)
+    with torch.no_grad():
+        for norm in (block.norm, norm2):
+            norm.scale.copy_(1.0 + 0.2 * torch.randn(64, generator=gen))
+    block, norm2 = block.to(cuda_device), norm2.to(cuda_device)
+    x, cot = [torch.randn((nodes, batch, 64), generator=gen).to(cuda_device, torch.bfloat16)
+              for _ in range(2)]
+    return block, norm2, x, cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_silu", [False, True])
+def test_ffn_backward_kernel_at_rows_not_a_multiple_of_64(cuda_device, use_silu):
+    """1,001 x 3 rows: the last 64-row tile is ragged and masked in the
+    kernel. Bounds: utils/gradcheck.py."""
+    block, norm2, x, cot = _ffn_case(cuda_device, 1001, 3, use_silu, seed=5)
+    assert x.shape[0] * x.shape[1] % 64 != 0
+
+    def ffn(fn, mlp, norm):
+        return lambda xx: (fn(xx, mlp, norm), ffn_ops._params(mlp, norm))
+
+    before = fused_gated_ffn.backward_launches
+    names = ["dx", "norm2.scale", "norm.scale", "W1", "b1", "W2", "b2", "W3", "b3"]
+    rows, ok, _ = gradcheck.check_backward(
+        names, ("dx",), ffn(fused_gated_ffn, block, norm2),
+        ffn(ffn_ops.reference_with_backward, block, norm2),
+        ffn(gated_ffn_reference, gradcheck.rounded_copy(block), gradcheck.rounded_copy(norm2)),
+        [x], [cot])
+    torch.cuda.synchronize()
+    assert fused_gated_ffn.backward_launches == before + 1
+    assert ok, [r for r in rows if not r["ok"]]
+
+
+@pytest.mark.cuda
+def test_ffn_backward_kernel_is_bit_identical_across_calls(cuda_device):
+    """Block partial sums added in block order, no atomics: dx and every
+    gradient come out the same, bit for bit."""
+    block, norm2, x, cot = _ffn_case(cuda_device, 1920, 8, False, seed=6)
+    params = ffn_ops._params(block, norm2)
+    outs = []
+    for _ in range(2):
+        xl = x.clone().requires_grad_(True)
+        outs.append(torch.autograd.grad(fused_gated_ffn(xl, block, norm2), [xl, *params], cot))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

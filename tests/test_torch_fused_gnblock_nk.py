@@ -5,9 +5,18 @@
     ``blocked_reference_nk`` in fp32 (1e-5) for the folded-encoder, middle
     and last-block variants, and the Pallas kernel run in interpret mode in
     bf16 (rtol = atol = 0.05, the JAX suite's bound for the same check);
-  * on CPU tensors the wrapper takes the plain version and counts no launch.
+  * on CPU tensors the wrapper takes the plain version and counts no launch;
+  * the plain version of the backward kernel,
+    ``fused_gn_block_nk_backward_reference``, matches ``jax.grad`` of
+    ``blocked_reference_nk`` in fp32 (1e-5 of each gradient's largest
+    value, away from relu kinks) and of the Pallas kernel in interpret mode
+    in bf16 (0.04 of each gradient's largest value), on a mesh whose node
+    N-1 owns valid slots and whose masked slots sit between valid slots of
+    the same receiver.
 The CUDA kernel itself is tested on a card by tests/test_torch_cuda.py.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +31,9 @@ from graph_physics_tpu.ops.fused_gnblock_nk import blocked_reference_nk, fused_g
 from graph_physics_tpu_torch.core.graph import MeshGraph
 from graph_physics_tpu_torch.ops import tiling as ttiling
 from graph_physics_tpu_torch.ops.fused_gnblock_nk import (
+    _reference_parts,
     fused_gn_block_nk,
+    fused_gn_block_nk_backward_reference,
     fused_gn_block_nk_reference,
 )
 from tests.helpers import tiny_graph
@@ -65,12 +76,24 @@ def test_nk_layout_matches_jax(nx, ny):
     assert not back[e:].any()
 
 
-def _case(variant, seed=0):
-    """Inputs and parameters of one block on the 14x10 mesh's NK layout."""
-    g = tiny_graph(nx=14, ny=10)
+def _case(variant, seed=0, nx=14, ny=10, holes=False, n_pad=None):
+    """Inputs and parameters of one block on the nx x ny mesh's NK layout.
+    With ``holes``, slot k=1 of every third receiver whose slot k=2 is
+    valid is masked out in both packages' layouts, so masked slots sit
+    between valid slots of the same receiver."""
+    g = tiny_graph(nx=nx, ny=ny, n_pad=n_pad)
     tt = ttiling.build_nk_tiling(g.senders, g.receivers, g.x.shape[0], edge_mask=g.edge_mask)
     jt = j_build_nk(np.asarray(g.senders), np.asarray(g.receivers), g.x.shape[0],
                     edge_mask=np.asarray(g.edge_mask), node_block=128)
+    if holes:
+        kk, nb = tt.k_slots, tt.node_block
+        perm = tt.perm.copy().reshape(-1, kk, nb)
+        hole = (perm[:, 2] >= 0) & (np.arange(nb) % 3 == 0)
+        perm[:, 1][hole] = -1
+        sidx = jt.sidx.copy().reshape(-1, kk, nb)
+        sidx[:, 1][hole] = jt.window_rows  # the JAX layout's padding sentinel
+        tt = dataclasses.replace(tt, perm=perm.reshape(-1), derived={})
+        jt = dataclasses.replace(jt, perm=perm.reshape(-1), sidx=sidx.reshape(jt.sidx.shape))
     tg = ttiling.apply_to_graph_nk(_port_host_graph(g), tt)
     rng = np.random.default_rng(seed)
     n, rows = tt.num_nodes, tt.total_rows
@@ -262,36 +285,23 @@ def test_wrapper_grads_on_cpu_match_pallas_interpret_bf16(variant):
 
 def fake_launches(monkeypatch):
     """Stand the plain version in for the two kernel launches, so that the
-    autograd.Function around them (argument order, the gradients it hands
-    back, the last block's dead edge stream, the launch counts) runs on the
-    CPU. The stand-ins take and give what the ctypes launches do."""
+    autograd.Function around them (argument order, the aggregate the
+    forward keeps for the backward, the gradients it hands back, the last
+    block's dead edge stream, the launch counts) runs on the CPU. The
+    stand-ins take and give what the ctypes launches do."""
     from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
 
-    def fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block):
-        enc, edge, node = mlps
+    def fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block, keep_agg=False):
         with torch.no_grad():
-            xo, eo = fused_gn_block_nk_reference(
-                x, edge_attr, senders, edge_mask, edge, node, nk, encoder_params=enc,
-                last_block=last_block, compute_dtype=torch.bfloat16)
+            xo, eo, agg = _reference_parts(x, edge_attr, senders, edge_mask, mlps, nk, x.dtype)
         nk_ops.fused_gn_block_nk.launches += 1
-        return xo, None if last_block else eo
+        return xo, None if last_block else eo, agg if keep_agg else None
 
-    def bwd(x, edge_attr, g_xout, g_eout, senders, edge_mask, nk, mlps):
-        enc, edge, node = mlps
-        xx = x.detach().requires_grad_(True)
-        ee = edge_attr.detach().requires_grad_(enc is None)
-        params = [p for m in mlps if m is not None for p in nk_ops._mlp_params(m)]
-        with torch.enable_grad():
-            xo, eo = fused_gn_block_nk_reference(
-                xx, ee, senders, edge_mask, edge, node, nk, encoder_params=enc,
-                last_block=g_eout is None, compute_dtype=torch.bfloat16)
-            outs = [xo] if g_eout is None else [xo, eo]
-            cots = [g_xout] if g_eout is None else [g_xout, g_eout]
-            grads = torch.autograd.grad(outs, [xx] + ([ee] if enc is None else []) + params,
-                                        cots)
+    def bwd(x, edge_attr, agg, g_xout, g_eout, senders, edge_mask, nk, mlps):
+        assert agg is not None and agg.shape == x.shape  # the forward kept it
         nk_ops.fused_gn_block_nk.backward_launches += 1
-        de = None if enc is not None else grads[1]
-        return grads[0], de, [g.float() for g in grads[1 if enc is not None else 2:]]
+        return fused_gn_block_nk_backward_reference(x, edge_attr, agg, g_xout, g_eout, senders,
+                                                    edge_mask, nk, mlps)
 
     monkeypatch.setattr(nk_ops, "_launch_fwd", fwd)
     monkeypatch.setattr(nk_ops, "_launch_bwd", bwd)
@@ -322,3 +332,120 @@ def test_autograd_function_routes_the_backward_kernel(monkeypatch, variant):
     names = ["x", "ep", "np_"] + (["enc"] if c["enc"] is not None else ["e"])
     for a, b in zip(_leaves(tg, names), _leaves(pg, names)):
         np.testing.assert_array_equal(a, b)
+
+
+# ---- the plain version of the backward kernel ------------------------------
+
+#: 256 real nodes in two node blocks (node N-1 owns valid slots), with holes
+HOLE_MESH = dict(nx=16, ny=16, n_pad=256, holes=True)
+
+def _backward_reference_grads(c, dtype, cot):
+    """fused_gn_block_nk_backward_reference on case ``c`` in ``dtype``, from
+    the aggregate of the plain forward in ``dtype``: {name: gradient} as
+    :func:`_port_grads` gives them (flax-layout weight gradients)."""
+    mlps = {"ep": port_mlp(c["ep"], 3 * H, H, H), "np_": port_mlp(c["np_"], 2 * H, H, H)}
+    if c["enc"] is not None:
+        mlps["enc"] = port_mlp(c["enc"], FE, H, H)
+    order = (mlps.get("enc"), mlps["ep"], mlps["np_"])
+    x, e = torch.as_tensor(c["x"]).to(dtype), torch.as_tensor(c["e"]).to(dtype)
+    _, _, agg = _reference_parts(x, e, c["senders"], c["mask"], order, c["tt"], dtype)
+    g_xout = torch.as_tensor(cot[0]).to(dtype)
+    g_eout = None if c["last"] else torch.as_tensor(cot[1]).to(dtype)
+    dx, de, flat = fused_gn_block_nk_backward_reference(
+        x, e, agg, g_xout, g_eout, c["senders"], c["mask"], c["tt"], order)
+    grads = {"x": dx.float().numpy()}
+    if de is not None:
+        grads["e"] = de.float().numpy()
+    for key, m in (("enc", order[0]), ("ep", order[1]), ("np_", order[2])):
+        if m is None:
+            continue
+        n_p = len(m.denses) * 2 + (m.norm is not None)
+        part, flat = flat[:n_p], flat[n_p:]
+        tree = {f"Dense_{i}": {"kernel": part[2 * i].numpy().T, "bias": part[2 * i + 1].numpy()}
+                for i in range(len(m.denses))}
+        if m.norm is not None:
+            tree["RMSNorm_0"] = {"scale": part[-1].numpy()}
+        grads[key] = tree
+    return grads
+
+
+def _kink_free(c, cot):
+    """The cotangents with zeros where the fp32 gradient has no one value
+    (tests/test_torch_csr_train.py:_away_from_kinks, on the slot layout): at
+    every (slot, sample) whose encoder or edge MLP has a relu pre-activation
+    within KINK of 0, at its receiver, and at every (node, sample) whose
+    node MLP has one. Two fp32 computations that sum in different orders
+    may put such a pre-activation on either side of the kink."""
+    from tests.test_torch_csr_train import _pre_acts_near_kink
+
+    x, e = torch.as_tensor(c["x"]), torch.as_tensor(c["e"])
+    s, m = c["senders"].long(), c["mask"]
+    kk, nb = c["tt"].k_slots, c["tt"].node_block
+    slots = torch.arange(c["tt"].total_rows)
+    r = (slots // (kk * nb)) * nb + slots % nb  # slot g·K·nb + k·nb + r: receiver g·nb + r
+    near_e = torch.zeros(e.shape[:2], dtype=torch.bool)
+    with torch.no_grad():
+        if c["enc"] is not None:
+            enc = port_mlp(c["enc"], FE, H, H)
+            near_e |= _pre_acts_near_kink(enc, e)
+            e = enc(e)
+        edge, node = port_mlp(c["ep"], 3 * H, H, H), port_mlp(c["np_"], 2 * H, H, H)
+        h_in = torch.cat([e, x[r], x[s]], dim=-1)
+        near_e |= _pre_acts_near_kink(edge, h_in)
+        near_e &= m[:, None]
+        eh = torch.where(m[:, None, None], edge(h_in), torch.zeros(()))
+        agg = torch.zeros_like(x).index_add_(0, r, eh)
+        near_x = _pre_acts_near_kink(node, torch.cat([x, agg], dim=-1))
+        near_x |= torch.zeros_like(near_x).index_add_(0, r, near_e.to(near_x.dtype)) > 0
+    return (np.where(near_x.numpy()[..., None], 0.0, cot[0]).astype(np.float32),
+            np.where(near_e.numpy()[..., None], 0.0, cot[1]).astype(np.float32))
+
+
+def test_hole_case_masks_slots_between_valid_ones():
+    c = _case("middle", **HOLE_MESH)
+    tt, mask = c["tt"], c["mask"].numpy().reshape(-1, c["tt"].k_slots, c["tt"].node_block)
+    assert tt.num_nodes == 256 and mask[-1, :, -1].any()  # node N-1 is real, owns slots
+    assert (~mask[:, 1] & mask[:, 2]).any()  # masked slot k=1 before a valid k=2
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_backward_reference_fp32_matches_jax_grad_of_blocked_reference(variant):
+    c = _case(variant, seed=8, **HOLE_MESH)
+    cot = _kink_free(c, _cotangents(c, seed=9))
+    names, args = _jax_grad_args(c)
+
+    def loss(*a):
+        kw = dict(zip(names, a))
+        e = kw.get("e")
+        if c["enc"] is not None:  # the folded block: encoder first, as an XLA MLP
+            e = FlaxMLP(hidden_size=H, out_size=H).apply({"params": kw["enc"]},
+                                                         jnp.asarray(c["e"]))
+        xo, eo = blocked_reference_nk(kw["x"], e, kw["ep"], kw["np_"], c["jt"],
+                                      compute_dtype=jnp.float32)
+        v = jnp.sum(xo * cot[0])
+        return v if c["last"] else v + jnp.sum(eo * cot[1])
+
+    jg = jax.grad(loss, argnums=tuple(range(len(names))))(*args)
+    _assert_grads(_backward_reference_grads(c, torch.float32, cot), jg, names, 1e-5)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_backward_reference_bf16_matches_pallas_interpret(variant):
+    c = _case(variant, seed=10, **HOLE_MESH)
+    cot = _cotangents(c, seed=11)
+    names, args = _jax_grad_args(c)
+
+    def loss(*a):
+        kw = dict(zip(names, a))
+        xo, eo = j_fused(kw["x"].astype(jnp.bfloat16),
+                         kw.get("e", jnp.asarray(c["e"])).astype(jnp.bfloat16),
+                         kw["ep"], kw["np_"], c["jt"], interpret=True,
+                         edge_encoder_params=kw.get("enc"), last_block=c["last"])
+        v = jnp.sum(xo.astype(jnp.float32) * cot[0])
+        return v if c["last"] else v + jnp.sum(eo.astype(jnp.float32) * cot[1])
+
+    jg = jax.grad(loss, argnums=tuple(range(len(names))))(*args)
+    # the JAX suite's bound between two kernels that round alike
+    # (|a - b| <= 0.04·max|b|, tests/test_fused_gnblock_nk.py:148-156): the
+    # plain version rounds the node partials where the Pallas kernel does
+    _assert_grads(_backward_reference_grads(c, torch.bfloat16, cot), jg, names, 0.04)
