@@ -6,7 +6,7 @@ the Transolver++ train step with its gumbel kernel.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --parent CHECKOUT   # also times another checkout's
-                                              # GraphNetBlock kernels
+                                              # GraphNetBlock and FFN-forward kernels
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
@@ -14,11 +14,12 @@ Phases (any failure raises, so the exit code is non-zero):
      GraphNetBlock, NK and CSR edge attention and gated FFN, each forward
      and backward, and the gumbel perturbation), one process per source,
      all at once; ptxas's registers and spills of the redesigned kernels
-     (the gated-FFN backward, both GraphNetBlock backwards' passes, the CSR
-     GraphNetBlock forward and their tile pre-pass) on lines of their own;
+     (the gated-FFN forward and backward, both GraphNetBlock forwards,
+     both backwards' passes and their tile pre-pass) on lines of their own;
   3. kernel check: each forward variant (folded encoder, middle block,
      last block) against its plain PyTorch version at the slice's shape
      (1,920 nodes x 128 samples x hidden 32, K=6 slots), same bf16 inputs;
+     each variant's time by CUDA events and the profiler's device time;
   4. backward kernel check: each variant's gradients (dx, de or the folded
      encoder's, every weight) from random bf16 cotangents against the
      plain version's autograd in bf16 and in fp32 (utils/gradcheck.py);
@@ -32,9 +33,9 @@ Phases (any failure raises, so the exit code is non-zero):
      σ=0.02, masked L2, AdamW with warmup) on the kernel path, 5 forward
      and 5 backward launches a step, against the same steps on the plain
      path from the same weights and noise;
-  8. timing: CUDA-event medians of kernel and plain versions, blocks,
-     forward and train step, with the step's device time (torch.profiler)
-     and the host's time to enqueue it;
+  8. timing: CUDA-event medians of the forward and the train step on
+     both paths, with the kernel path's device times (torch.profiler) and
+     the host's time to enqueue a step;
   9. transformer kernel checks, at the transformer slice's shape (1,920
      nodes x 64 samples, hidden 64, 4 heads of 16, K=6): the NK edge
      attention against its plain version on random bf16 q, k, v (and
@@ -44,9 +45,9 @@ Phases (any failure raises, so the exit code is non-zero):
      transformer through the kernel path (each kernel once per block)
      against the plain path, then 8 windows x 50 steps of rollout on both
      paths;
- 11. transformer timing: both kernels, their plain versions and the
-     library's masked attention, one middle block and the forward on
-     both paths;
+ 11. transformer timing: both kernels (the FFN by device time too),
+     their plain versions and the library's masked attention, one middle
+     block and the forward (and its device time) on both paths;
  12. transformer backward kernel checks at the same shape: the attention
      backward and the gated-FFN backward (GELU with block 0's weights, and
      SiLU) against their plain backwards, both against fp32 autograd
@@ -79,9 +80,10 @@ Phases (any failure raises, so the exit code is non-zero):
      launches) against the plain path, then 8 windows x 50 steps of
      rollout of each on both paths;
  18. graded timing: both CSR kernels, their plain versions and bounds, the
-     gated FFN and its plain version at the graded shape, the library's
-     masked attention where its dense mask fits, one middle
-     block and the forward of each model on both paths;
+     gated FFN (by device time too) and its plain version at the graded
+     shape, the library's masked attention where its dense mask fits, one
+     middle block and the forward of each model (and its device time) on
+     both paths;
  19. CSR backward kernel checks at the graded shapes: each CSR
      GraphNetBlock variant's gradients (dx, de or the folded encoder's,
      every weight) from random bf16 cotangents, the CSR attention's (dq
@@ -122,16 +124,18 @@ Phases (any failure raises, so the exit code is non-zero):
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
 the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
-GraphNetBlock backwards add each variant's times under ``variants``, the
-gated-FFN backward and the GraphNetBlock kernels of the graded mesh and
-the NK backward their profiler device time under ``device_ms``, the
-gated-FFN backward its graded-shape times and bound under ``graded``).
-With ``--parent CHECKOUT`` the GraphNetBlock libraries that PARENT_LIBS
-names are built from that checkout's csrc/ too, and the same calls (the
-CSR forward and both GraphNetBlock backwards, each variant, by pass too;
-the graded ``epd`` forward; the cylinder and graded ``epd`` train steps)
-are timed with them in turns with this tree's, on the same inputs and
-card, under ``parent_ms``: the before numbers of a redesign.
+GraphNetBlock kernels, forward and backward, add each variant's times
+under ``variants``, every GraphNetBlock kernel and both gated-FFN kernels
+their profiler device time under ``device_ms``, both gated-FFN kernels
+their graded-shape times and bound under ``graded``).
+With ``--parent CHECKOUT`` the libraries that PARENT_LIBS names (both
+GraphNetBlock forwards and backwards, the gated-FFN forward) are built
+from that checkout's csrc/ too, and the same calls (each GraphNetBlock
+kernel variant, the backwards by pass too; the FFN forward at both
+shapes; the cylinder and graded forwards and train steps of both
+families) are timed with them in turns with this tree's, on the same
+inputs and card, under ``parent_ms`` and ``parent_device_ms``: the
+before numbers of a redesign.
 It imports nothing of JAX.
 """
 
@@ -182,10 +186,10 @@ EMPTY_RECEIVERS = 5
 #: and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 #: the kernels whose ptxas reports (registers, spills) are logged apart:
-#: the gated-FFN backward, both GraphNetBlock backwards' passes, the CSR
-#: GraphNetBlock forward and the tile pre-pass they share
-REDESIGNED = ("ffn_bwd_kernel", "gn_nk_bwd_", "gn_csr_bwd_", "gn_csr_fwd_kernel",
-              "gn_partial_tc_kernel")
+#: the gated-FFN forward and backward, both GraphNetBlock forwards and
+#: both backwards' passes, and the tile pre-pass they share
+REDESIGNED = ("ffn_fwd_kernel", "ffn_bwd_kernel", "gn_nk_fwd_kernel", "gn_nk_bwd_",
+              "gn_csr_fwd_kernel", "gn_csr_bwd_", "gn_partial_tc_kernel")
 FWD = {"name": "fused_gn_block_nk", "source": "graph_physics_tpu_torch/csrc/fused_gnblock_nk.cu",
        "replaces": "graph_physics_tpu/ops/fused_gnblock_nk.py:147"}
 BWD = {"name": "fused_gn_block_nk_backward",
@@ -394,7 +398,8 @@ def pass_split(fn):
 PARENT = None
 #: the libraries a parent tree is timed with, and the op module binding each
 PARENT_LIBS = {"gn_csr_fwd": "fused_gnblock_csr", "gn_csr_bwd": "fused_gnblock_csr",
-               "gn_nk_bwd": "fused_gnblock_nk"}
+               "gn_nk_fwd": "fused_gnblock_nk", "gn_nk_bwd": "fused_gnblock_nk",
+               "ffn": "fused_ffn"}
 _parent_builds, _parent_libs = {}, {}
 
 
@@ -449,16 +454,16 @@ def parent_kernels(*names):
                 kernel_build._libs[n] = lib
 
 
-def timed(fn, libs, device=False, **kw):
+def timed(fn, libs, device=False, device_reps=20, **kw):
     """{"ms": CUDA-event median (``kw`` to cuda_ms), "device_ms": the
-    profiler's sum (with ``device``)}; with a parent tree the same under
-    "parent_ms" and "parent_device_ms", taken in turns on the card with
-    the parent's ``libs``: parent, this tree, this tree, parent, each
-    number the mean of its pair."""
+    profiler's sum over ``device_reps`` calls (with ``device``)}; with a
+    parent tree the same under "parent_ms" and "parent_device_ms", taken
+    in turns on the card with the parent's ``libs``: parent, this tree,
+    this tree, parent, each number the mean of its pair."""
     def measure():
         out = {"ms": cuda_ms(fn, **kw)}
         if device:
-            out["device_ms"] = device_ms(fn)
+            out["device_ms"] = device_ms(fn, reps=device_reps)
         return out
 
     if PARENT is None:
@@ -471,6 +476,14 @@ def timed(fn, libs, device=False, **kw):
     out = {k: (c1[k] + c2[k]) / 2 for k in c1}
     out.update({f"parent_{k}": (p1[k] + p2[k]) / 2 for k in p1})
     return out
+
+
+def parent_note(t):
+    """The parent tree's times in ``timed``'s result, for a log line."""
+    if "parent_ms" not in t:
+        return ""
+    dev = f" (device {t['parent_device_ms']:.4f})" if "parent_device_ms" in t else ""
+    return f"; parent tree {t['parent_ms']:.4f} ms{dev}"
 
 
 def backward_times(label, fn, plain_fn, libs, card):
@@ -682,12 +695,11 @@ def step_timing(train, plain_state, plain_step, seed, libs=()):
 
     graph = train.graph
     gen = torch.Generator(device=graph.x.device).manual_seed(seed)
-    t = timed(lambda: train.train_step(train.state, graph, gen), libs, warmup=2, reps=10)
-    out = {"train_step_ms": t["ms"],
-           "train_step_plain_ms": cuda_ms(lambda: plain_step(plain_state, graph, gen),
-                                          warmup=2, reps=10)}
-    if "parent_ms" in t:
-        out["train_step_parent_ms"] = t["parent_ms"]
+    t = timed(lambda: train.train_step(train.state, graph, gen), libs, device=True,
+              device_reps=5, warmup=2, reps=10)
+    out = {f"train_step_{k}": v for k, v in t.items()}
+    out["train_step_plain_ms"] = cuda_ms(lambda: plain_step(plain_state, graph, gen), warmup=2,
+                                         reps=10)
     enqueue = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -702,14 +714,12 @@ def step_timing(train, plain_state, plain_step, seed, libs=()):
     torch.cuda.set_sync_debug_mode("default")
     out["train_step_host_enqueue_ms"] = statistics.median(enqueue)
     out["train_step_syncs"] = len(syncs)
-    out["train_step_device_ms"] = device_ms(lambda: train.train_step(train.state, graph, gen),
-                                            reps=5)
     return out
 
 
 def parent_step_note(st):
-    return (f"; parent tree {st['train_step_parent_ms']:.4f} ms"
-            if "train_step_parent_ms" in st else "")
+    return parent_note({k[len("train_step_"):]: v for k, v in st.items()
+                        if k.startswith("train_step_parent")})
 
 
 def step1_fp32_grads(sim, graph, seed):
@@ -825,11 +835,11 @@ def main():
                 err = max(err, compare("e_out", ek, ep, KERNEL_TOL,
                                        rows=valid_slots if enc is not None else None))
             errors[name] = err
-            timing[name] = {"ms": cuda_ms(lambda: kernel(*args, **kw)),
-                            "plain_ms": cuda_ms(lambda: plain(*args, **kw,
-                                                              compute_dtype=torch.bfloat16))}
-            log(f"  time: kernel {timing[name]['ms']:.4f} ms, plain {timing[name]['plain_ms']:.4f} ms"
-                f" ({card})")
+            t = timed(lambda: kernel(*args, **kw), ["gn_nk_fwd"], device=True)
+            timing[name] = dict(t, plain_ms=cuda_ms(lambda: plain(
+                *args, **kw, compute_dtype=torch.bfloat16)))
+            log(f"  time: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain "
+                f"{timing[name]['plain_ms']:.4f} ms{parent_note(t)} ({card})")
 
     # 4. backward kernel check: random cotangents, padded slots included
     bwd_errors, bwd_timing, failed = {}, {}, []
@@ -897,10 +907,11 @@ def main():
     train_launches = train_launches[kernel.__name__]
 
     # 8. timing: one B=128 forward and one train step, kernel path vs plain path
-    fwd_ms = cuda_ms(lambda: sim.forward(graph, is_training=False))
+    fwd = timed(lambda: sim.forward(graph, is_training=False), ["gn_nk_fwd"], device=True)
     fwd_plain_ms = cuda_ms(lambda: plain_sim.forward(graph, is_training=False))
-    log(f"forward B={b}: kernel path {fwd_ms:.4f} ms, plain path {fwd_plain_ms:.4f} ms ({card})")
-    st = step_timing(train, plain_state, plain_step, 8, libs=("gn_nk_bwd",))
+    log(f"forward B={b}: kernel path {fwd['ms']:.4f} ms (device {fwd['device_ms']:.4f}), plain "
+        f"path {fwd_plain_ms:.4f} ms{parent_note(fwd)} ({card})")
+    st = step_timing(train, plain_state, plain_step, 8, libs=("gn_nk_fwd", "gn_nk_bwd"))
     tb = tgraph.x.shape[1]
     log(f"train step B={tb}: kernel path {st['train_step_ms']:.4f} ms "
         f"({1000 * tb / st['train_step_ms']:.1f} graph-steps/s; device time "
@@ -908,8 +919,9 @@ def main():
         f"{st['train_step_host_enqueue_ms']:.4f} ms), plain path "
         f"{st['train_step_plain_ms']:.4f} ms ({1000 * tb / st['train_step_plain_ms']:.1f} "
         f"graph-steps/s){parent_step_note(st)} ({card})")
-    log("timing " + json.dumps({"card": card, "forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
-                                **st, "blocks": timing, "backward_blocks": bwd_timing}))
+    log("timing " + json.dumps({"card": card, **{f"forward_{k}": v for k, v in fwd.items()},
+                                "forward_plain_ms": fwd_plain_ms, **st, "blocks": timing,
+                                "backward_blocks": bwd_timing}))
 
     # 9.-11. the graph transformer's inference path; 12.-14. its train step
     tf_records = transformer_phases(device, card)
@@ -943,7 +955,8 @@ def main():
         dict(FWD, route="cuda", launches=infer_launches + train_launches[0],
              max_abs_err=max(errors.values()), ms=timing["middle"]["ms"],
              plain_ms=timing["middle"]["plain_ms"], bound_ms=fwd_bound[0],
-             bound_by=fwd_bound[1], library_ms=None),
+             bound_by=fwd_bound[1], library_ms=None, device_ms=timing["middle"]["device_ms"],
+             variants=timing),
         dict(BWD, route="cuda", launches=train_launches[1],
              max_abs_err=max(bwd_errors.values()), ms=bwd_timing["middle"]["ms"],
              plain_ms=bwd_timing["middle"]["plain_ms"], bound_ms=bwd_bound[0],
@@ -1041,12 +1054,13 @@ def transformer_phases(device, card):
         rows = graph.node_mask
         lib_err = (lib_out[rows].float() - ref[rows].float()).abs().max().item()
         attn_t["library_ms"] = cuda_ms(library)
-        ffn_t = {"ms": cuda_ms(lambda: ffn(*ffn_args)),
-                 "plain_ms": cuda_ms(lambda: ffn_plain(*ffn_args))}
+        ffn_t = dict(timed(lambda: ffn(*ffn_args), ["ffn"], device=True),
+                     plain_ms=cuda_ms(lambda: ffn_plain(*ffn_args)))
     log(f"  attention time: kernel {attn_t['ms']:.4f} ms, plain {attn_t['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention with the adjacency mask {attn_t['library_ms']:.4f} ms "
         f"(max abs difference to the plain version {lib_err:.6g}) ({card})")
-    log(f"  gated FFN time: kernel {ffn_t['ms']:.4f} ms, plain {ffn_t['plain_ms']:.4f} ms ({card})")
+    log(f"  gated FFN time: kernel {ffn_t['ms']:.4f} ms (device {ffn_t['device_ms']:.4f}), "
+        f"plain {ffn_t['plain_ms']:.4f} ms{parent_note(ffn_t)} ({card})")
     del lib_out, qd, kd, vd, adj
 
     # 10. slice: the B=64 forward and the rollout, kernel path, counts from 0
@@ -1082,7 +1096,8 @@ def transformer_phases(device, card):
     check_rollouts("transformer", res, make_batched_rollout_fn(plain_sim)(frames))
 
     # 11. timing: the B=64 forward and one middle block, kernel path vs plain path
-    fwd_ms = cuda_ms(lambda: sim.forward(graph, is_training=False))
+    fwd = timed(lambda: sim.forward(graph, is_training=False), ["ffn"], device=True)
+    fwd_ms = fwd["ms"]
     fwd_plain_ms = cuda_ms(lambda: plain_sim.forward(graph, is_training=False))
     mid = blocks[n_blocks // 2]
     block_args = (randn(n, b, hidden, scale=1.0), graph.senders, graph.receivers,
@@ -1090,12 +1105,13 @@ def transformer_phases(device, card):
     with torch.inference_mode():
         block_ms = cuda_ms(lambda: mid(*block_args, tiling=nk))
         block_plain_ms = cuda_ms(lambda: mid(*block_args))
-    log(f"transformer forward B={b}: kernel path {fwd_ms:.4f} ms "
-        f"({1000 * b / fwd_ms:.1f} graph-steps/s), plain path {fwd_plain_ms:.4f} ms "
-        f"({1000 * b / fwd_plain_ms:.1f}); middle block {block_ms:.4f} ms, plain "
-        f"{block_plain_ms:.4f} ms ({card})")
+    log(f"transformer forward B={b}: kernel path {fwd_ms:.4f} ms (device "
+        f"{fwd['device_ms']:.4f}; {1000 * b / fwd_ms:.1f} graph-steps/s){parent_note(fwd)}, "
+        f"plain path {fwd_plain_ms:.4f} ms ({1000 * b / fwd_plain_ms:.1f}); middle block "
+        f"{block_ms:.4f} ms, plain {block_plain_ms:.4f} ms ({card})")
     log("transformer timing " + json.dumps({
-        "card": card, "forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
+        "card": card, **{f"forward_{k}": v for k, v in fwd.items()},
+        "forward_plain_ms": fwd_plain_ms,
         "block_ms": block_ms, "block_plain_ms": block_plain_ms, "attention": attn_t,
         "ffn": ffn_t}))
 
@@ -1117,7 +1133,8 @@ def transformer_phases(device, card):
              library_ms=attn_t["library_ms"]),
         dict(FFN, route="cuda", launches=launches[1], max_abs_err=ffn_err, ms=ffn_t["ms"],
              plain_ms=ffn_t["plain_ms"], bound_ms=ffn_bound[0], bound_by=ffn_bound[1],
-             library_ms=None),
+             library_ms=None, device_ms=ffn_t["device_ms"],
+             **{k: v for k, v in ffn_t.items() if k.startswith("parent")}),
     ]
 
 
@@ -1273,14 +1290,15 @@ def transformer_train_phases(device, card):
 
     block_ms = cuda_ms(lambda: block_fwd_bwd(nk))
     block_plain_ms = cuda_ms(lambda: block_fwd_bwd(None))
-    st = step_timing(train, plain_state, plain_step, 10)
+    st = step_timing(train, plain_state, plain_step, 10, libs=("ffn",))
     log(f"transformer train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
         f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
         f"{st['train_step_device_ms']:.4f} ms; the host enqueues a step in "
         f"{st['train_step_host_enqueue_ms']:.4f} ms, {st['train_step_syncs']} device-to-host "
         f"syncs a step), plain path {st['train_step_plain_ms']:.4f} ms "
-        f"({1000 * b / st['train_step_plain_ms']:.1f} graph-steps/s); middle block forward + "
-        f"backward {block_ms:.4f} ms, plain {block_plain_ms:.4f} ms ({card})")
+        f"({1000 * b / st['train_step_plain_ms']:.1f} graph-steps/s){parent_step_note(st)}; "
+        f"middle block forward + backward {block_ms:.4f} ms, plain {block_plain_ms:.4f} ms "
+        f"({card})")
     log("transformer train timing " + json.dumps({
         "card": card, **st, "block_fwd_bwd_ms": block_ms,
         "block_fwd_bwd_plain_ms": block_plain_ms, "attention_backward": attn_t,
@@ -1509,8 +1527,8 @@ def graded_phases(device, card):
         attn_t = {"ms": cuda_ms(lambda: attn(*attn_args, tcsr)),
                   "plain_ms": cuda_ms(lambda: edge_attention(*attn_args)),
                   "library_ms": None}
-        ffn_t = {"ms": cuda_ms(lambda: ffn(*ffn_args)),
-                 "plain_ms": cuda_ms(lambda: gated_ffn_reference(*ffn_args))}
+        ffn_t = dict(timed(lambda: ffn(*ffn_args), ["ffn"], device=True),
+                     plain_ms=cuda_ms(lambda: gated_ffn_reference(*ffn_args)))
         adj = qd = None
         try:  # dense [N, N] adjacency as the mask: 0.73 GB as bool
             adj = torch.zeros((n, n), dtype=torch.bool, device=device)
@@ -1532,24 +1550,27 @@ def graded_phases(device, card):
                     "epd_block_plain_ms": cuda_ms(lambda: mid(*gblk)),
                     "transformer_block_ms": cuda_ms(lambda: tmid(*tblk, tiling=tcsr)),
                     "transformer_block_plain_ms": cuda_ms(lambda: tmid(*tblk))}
-        epd_fwd = timed(lambda: sim.forward(graph, is_training=False), ["gn_csr_fwd"])
-        fwd = {"epd_forward_ms": epd_fwd["ms"],
-               **({"epd_forward_parent_ms": epd_fwd["parent_ms"]} if PARENT else {}),
+        epd_fwd = timed(lambda: sim.forward(graph, is_training=False), ["gn_csr_fwd"],
+                        device=True)
+        tf_fwd = timed(lambda: tsim.forward(tgraph, is_training=False), ["ffn"], device=True)
+        fwd = {**{f"epd_forward_{k}": v for k, v in epd_fwd.items()},
                "epd_forward_plain_ms": cuda_ms(lambda: plain_sim.forward(graph,
                                                                           is_training=False)),
-               "transformer_forward_ms": cuda_ms(lambda: tsim.forward(tgraph, is_training=False)),
+               **{f"transformer_forward_{k}": v for k, v in tf_fwd.items()},
                "transformer_forward_plain_ms": cuda_ms(
                    lambda: t_plain.forward(tgraph, is_training=False))}
     log(f"  CSR attention time: kernel {attn_t['ms']:.4f} ms, plain {attn_t['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention with the adjacency mask: {lib_note} ({card})")
-    log(f"  gated FFN time at the graded shape: kernel {ffn_t['ms']:.4f} ms, plain "
-        f"{ffn_t['plain_ms']:.4f} ms ({card})")
-    parent = (f" (parent tree {fwd['epd_forward_parent_ms']:.4f} ms)" if PARENT else "")
-    log(f"graded forward B={b}: epd kernel path {fwd['epd_forward_ms']:.4f} ms "
-        f"({1000 * b / fwd['epd_forward_ms']:.1f} graph-steps/s){parent}, plain "
-        f"{fwd['epd_forward_plain_ms']:.4f} ms; transformer kernel path "
-        f"{fwd['transformer_forward_ms']:.4f} ms ({1000 * b / fwd['transformer_forward_ms']:.1f}"
-        f" graph-steps/s), plain {fwd['transformer_forward_plain_ms']:.4f} ms; middle blocks: "
+    log(f"  gated FFN time at the graded shape: kernel {ffn_t['ms']:.4f} ms (device "
+        f"{ffn_t['device_ms']:.4f}), plain {ffn_t['plain_ms']:.4f} ms{parent_note(ffn_t)} "
+        f"({card})")
+    log(f"graded forward B={b}: epd kernel path {fwd['epd_forward_ms']:.4f} ms (device "
+        f"{fwd['epd_forward_device_ms']:.4f}; {1000 * b / fwd['epd_forward_ms']:.1f} "
+        f"graph-steps/s){parent_note(epd_fwd)}, plain {fwd['epd_forward_plain_ms']:.4f} ms; "
+        f"transformer kernel path {fwd['transformer_forward_ms']:.4f} ms (device "
+        f"{fwd['transformer_forward_device_ms']:.4f}; "
+        f"{1000 * b / fwd['transformer_forward_ms']:.1f} graph-steps/s){parent_note(tf_fwd)}, "
+        f"plain {fwd['transformer_forward_plain_ms']:.4f} ms; middle blocks: "
         f"epd {blocks_t['epd_block_ms']:.4f} / {blocks_t['epd_block_plain_ms']:.4f} ms, "
         f"transformer {blocks_t['transformer_block_ms']:.4f} / "
         f"{blocks_t['transformer_block_plain_ms']:.4f} ms ({card})")
@@ -1763,7 +1784,7 @@ def graded_train_phases(device, card):
                 "transformer_block_fwd_bwd_plain_ms": cuda_ms(lambda: tf_block(None))}
     steps = {"epd": step_timing(train, plain_state, plain_step, 14,
                                 libs=("gn_csr_fwd", "gn_csr_bwd")),
-             "transformer": step_timing(ttrain, t_plain_state, t_plain_step, 15)}
+             "transformer": step_timing(ttrain, t_plain_state, t_plain_step, 15, libs=("ffn",))}
     for fam, st in steps.items():
         log(f"graded {fam} train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
             f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "

@@ -1,60 +1,72 @@
-// Helpers shared by the gated-FFN kernels (fused_ffn.cu, fused_ffn_bwd.cu):
-// the widths, bf16 rounding, row loads and the activation.
+// Helpers shared by the gated-FFN kernels (fused_ffn.cu, fused_ffn_bwd.cu),
+// both on mma.sync tiles (mma_common.cuh): the widths, the activation, and
+// the bf16-pair elementwise work of a quad of lanes holding one row.
+//
+// Elementwise work runs on bf16 pairs: a product or sum of two bf16
+// values rounded once to bf16 (mul/add/sub .rn.bf16x2) equals the fp32
+// operation rounded to bf16, so the pairs keep the JAX kernel's rounding
+// with half the instructions and no conversions. The _rn intrinsics keep
+// the compiler from contracting a product and a sum into one fma, which
+// would round once where the JAX kernel rounds twice.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace ffn {
 
 constexpr int H = 64;      // hidden width
 constexpr int W = 3 * H;   // middle width
-constexpr int THREADS = 256;
 
-__device__ __forceinline__ float bf(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-
-// the 8 bf16 values of one 16-byte word as floats
-__device__ __forceinline__ void unpack8(const uint4 u, float* v) {
-  const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    v[2 * q] = __uint_as_float(wd[q] << 16);
-    v[2 * q + 1] = __uint_as_float(wd[q] & 0xffff0000u);
-  }
-}
-
-// the H bf16 values of one row (16-byte aligned) as floats
-__device__ __forceinline__ void load_row(float (&v)[H], const __nv_bfloat16* src) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-  for (int c = 0; c < H / 8; ++c) unpack8(__ldg(s + c), v + 8 * c);
-}
-
-// two floats (bf16 values) as one packed bf16 pair
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
-}
-
-// _rms_fwd's statistic on one row of bf16 values: inv = 1/(rms + 1e-8), fp32
-__device__ __forceinline__ float rms_inv(const float (&v)[H]) {
-  float gs = 0.f;
-#pragma unroll
-  for (int o = 0; o < H; ++o) gs += bf(v[o] * v[o]);
-  const float rms = sqrtf(gs + 1e-24f) / sqrtf(static_cast<float>(H));
-  return 1.0f / (rms + 1e-8f);
-}
-
-// _rms_fwd on one row of bf16 values, in place: bf16(bf16(v * bf16(inv)) * scale)
-__device__ __forceinline__ void rms_norm(float (&v)[H], const float* scale) {
-  const float inv = bf(rms_inv(v));
-#pragma unroll
-  for (int o = 0; o < H; ++o) v[o] = bf(bf(v[o] * inv) * scale[o]);
-}
+using bf2 = __nv_bfloat162;
 
 // exact-erf GELU, or SiLU
 __device__ __forceinline__ float act(float a, int silu) {
   return silu ? a / (1.0f + expf(-a)) : 0.5f * a * (1.0f + erff(a * 0.7071067811865476f));
+}
+
+// 16 bf16 values (16-byte aligned) as 8 pairs, and back
+__device__ __forceinline__ void load8(bf2 (&v)[8], const __nv_bfloat16* p) {
+  const uint4* s = reinterpret_cast<const uint4*>(p);
+  *reinterpret_cast<uint4*>(v) = s[0];
+  *reinterpret_cast<uint4*>(v + 4) = s[1];
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const bf2 (&v)[8]) {
+  uint4* d = reinterpret_cast<uint4*>(p);
+  d[0] = *reinterpret_cast<const uint4*>(v);
+  d[1] = *reinterpret_cast<const uint4*>(v + 4);
+}
+
+// a * b * c, each product rounded to bf16
+__device__ __forceinline__ bf2 mul3(bf2 a, bf2 b, bf2 c) { return __hmul2_rn(__hmul2_rn(a, b), c); }
+
+// _rms_fwd's statistic of a row held by a quad, 16 values a lane: inv =
+// 1/(sqrt(sum + 1e-24)/sqrt(H) + 1e-8), the fp32 sum of the bf16 squares
+__device__ __forceinline__ float quad_rms_inv(const bf2 (&v)[8]) {
+  float gs = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 sq = __bfloat1622float2(__hmul2_rn(v[i], v[i]));
+    gs += sq.x;
+    gs += sq.y;
+  }
+  gs = tc::quad_sum(gs);
+  const float rms = sqrtf(gs + 1e-24f) / sqrtf(static_cast<float>(H));
+  return 1.0f / (rms + 1e-8f);
+}
+
+// _rms_fwd on a quad's row in place: v = bf16(bf16(v * bf16(inv)) * scale)
+// (scale: this lane's 8 pairs); returns inv
+__device__ __forceinline__ float quad_rms_norm(bf2 (&v)[8], const bf2* scale) {
+  const float inv = quad_rms_inv(v);
+  const bf2 ib = __float2bfloat162_rn(inv);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = mul3(v[i], ib, scale[i]);
+  return inv;
 }
 
 }  // namespace ffn

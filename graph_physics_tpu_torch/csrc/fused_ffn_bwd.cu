@@ -54,19 +54,18 @@
 //   * the two RMS backwards and dx run four threads a row in shared
 //     memory; the bias and scale sums are column sums of the staged tiles;
 //   * all elementwise work between the products runs on bf16 pairs
-//     (mul/add/sub.rn.bf16x2: the same roundings in half the instructions);
+//     (mul/add/sub.rn.bf16x2: the same roundings in half the instructions;
+//     ffn_common.cuh);
 //   * each block writes its partial sums, [parts][G_TOTAL], and a second
 //     kernel adds them in block order: bit-reproducible, no atomics.
 // Shared memory: 224,768 bytes, one block per SM.
 
 #include "ffn_common.cuh"
-#include "mma_common.cuh"
 
 namespace {
 
 using namespace tc;
-using ffn::H;
-using ffn::W;
+using namespace ffn;
 
 constexpr int THREADS = 256;  // two warpgroups
 constexpr int TM = 64;        // rows per tile
@@ -125,44 +124,6 @@ __device__ __forceinline__ void act_and_grad(float x, int silu, float& a, float&
     a = 0.5f * x * phi;
     d = 0.5f * phi + x * expf(-0.5f * x * x) * 0.3989422804014327f;
   }
-}
-
-// Elementwise work runs on bf16 pairs: a product or sum of two bf16
-// values rounded once to bf16 (mul/add/sub .rn.bf16x2) equals the fp32
-// operation rounded to bf16, so the pairs keep the JAX kernel's rounding
-// with half the instructions and no conversions. The _rn intrinsics keep
-// the compiler from contracting a product and a sum into one fma, which
-// would round once where the JAX kernel rounds twice.
-using bf2 = __nv_bfloat162;
-
-// 16 bf16 values (16-byte aligned) as 8 pairs, and back
-__device__ __forceinline__ void load8(bf2 (&v)[8], const __nv_bfloat16* p) {
-  const uint4* s = reinterpret_cast<const uint4*>(p);
-  *reinterpret_cast<uint4*>(v) = s[0];
-  *reinterpret_cast<uint4*>(v + 4) = s[1];
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const bf2 (&v)[8]) {
-  uint4* d = reinterpret_cast<uint4*>(p);
-  d[0] = *reinterpret_cast<const uint4*>(v);
-  d[1] = *reinterpret_cast<const uint4*>(v + 4);
-}
-
-// a * b * c, each product rounded to bf16
-__device__ __forceinline__ bf2 mul3(bf2 a, bf2 b, bf2 c) { return __hmul2_rn(__hmul2_rn(a, b), c); }
-
-// _rms_fwd's statistic of a row held by a quad, 16 values a lane
-__device__ __forceinline__ float quad_rms_inv(const bf2 (&v)[8]) {
-  float gs = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float2 sq = __bfloat1622float2(__hmul2_rn(v[i], v[i]));
-    gs += sq.x;
-    gs += sq.y;
-  }
-  gs = quad_sum(gs);
-  const float rms = sqrtf(gs + 1e-24f) / sqrtf(static_cast<float>(H));
-  return 1.0f / (rms + 1e-8f);
 }
 
 // _rms_bwd on a quad's row, in place on g (16 values a lane): v the norm's
@@ -265,14 +226,8 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_bwd_kernel(const Args a) {
     {
       bf2 v[8];
       load8(v, sX + qr * WS + qc);
-      const float inv0 = quad_rms_inv(v);
-      const bf2 i0b = __float2bfloat162_rn(inv0);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = mul3(v[i], i0b, vec2[(V_S2 + qc) / 2 + i]);
-      const float inv1 = quad_rms_inv(v);
-      const bf2 i1b = __float2bfloat162_rn(inv1);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = mul3(v[i], i1b, vec2[(V_S + qc) / 2 + i]);
+      const float inv0 = quad_rms_norm(v, vec2 + (V_S2 + qc) / 2);
+      const float inv1 = quad_rms_norm(v, vec2 + (V_S + qc) / 2);
       store8(sN + qr * WS + qc, v);
       if ((tid & 3) == 0) {
         inv01[qr] = inv0;

@@ -4,20 +4,9 @@
 // Replaces the TPU Pallas kernel graph_physics_tpu/ops/fused_gnblock.py:
 // _fwd_kernel (:392), called by fused_gn_block (:687), without the lane
 // tiling, the runtime tiling_idx and the extra_agg seam. Same function, on
-// a graph of any degree: for every receiver r and sample b, over r's rows
-// s = row_ptr[r] .. row_ptr[r+1]-1 with sender j,
-//   e_in  = folded ? EncMLP(raw[s, b]) : e[s, b]
-//   h     = edge_mask[s] ? EdgeMLP(e_in, x[r, b], x[j, b]) : 0
-//   e_out = e_in + h                       (not written on the last block)
-//   agg   = bf16(sum_s h)                  (fp32 sum, in row order)
-//   x_out = x[r, b] + NodeMLP(cat[x[r, b], agg])
-// Padding rows (after row_ptr[N]) belong to no receiver; they get
-// e_out = e_in. The edge MLP's first layer follows the TPU kernel's order
-// (fused_gnblock.py:blocked_reference :1173-1183): the node partials
-// x @ Kr and x @ Ks are computed per node and rounded to bf16, then added
-// to the fp32 product e_in @ Ke, and the sum is rounded once. Between
-// layers the numerics are the JAX kernel's _mlp_fwd / _rms_fwd (bf16
-// values, fp32 sums, fp32 RMS statistics of bf16 squares; gn_tile.cuh).
+// a graph of any degree (gn_fwd.cuh states it): receiver r's rows are
+// s = row_ptr[r] .. row_ptr[r+1]-1; the padding rows after row_ptr[N]
+// belong to no receiver and get e_out = e_in.
 //
 // What bounds it on this card: at hidden 32 an edge row costs 4.1k
 // multiply-adds (its first layer 1k, the per-node partials 2k a node)
@@ -30,165 +19,22 @@
 // at 67 TFLOP/s) and took 3.48 ms, its warps waiting on their longest
 // receiver's rows (in-degrees 2 to 13).
 //
-// What the design does about it: every product runs as
-// mma.sync.m16n8k16 bf16 -> fp32 (gn_tile.cuh), with one warp per
-// (receiver, 16-sample chunk):
-//   * a pre-pass (gn_partial_tc_kernel, on tiles too) writes bf16(x @ Ks)
-//     per (node, sample) to a scratch [N, B, 32] array, so a sender's
-//     partial is a 1 KB tile load per edge row;
-//   * the warp computes its receiver's bf16(x_r @ Kr) once, then walks the
-//     receiver's CSR rows: each row is one m16 tile of its 16 samples
-//     (1 KB, contiguous at B = 16), e_in @ Ke on the tensor cores, the two
-//     partials added in fp32, the bias, then layers 1-3 with each layer's
-//     A operand taken from the previous layer's accumulators (two m16n8
-//     accumulators are one m16k16 A fragment) and the RMSNorm's row sums
-//     over quads of lanes;
-//   * h goes into an fp32 aggregate held in accumulator fragments, summed
-//     in row order as in the first version; e_out = e_in + h is stored
-//     from the fragments;
-//   * the node MLP runs on the [x_r | bf16(agg)] tile (K = 64), the
-//     residual is added and x_out (and agg, when training) stored;
-//   * receivers of different degree run on different warps, so no lane
-//     waits on another's range; masked rows in a range give h = 0 and skip
-//     the MLP (a warp-uniform branch); the padding rows are work items of
-//     their own after the receivers (a copy, or the folded encoder).
-// The weights sit in shared memory as bf16 tiles, ~37 KB for the three
-// 4-layer MLPs. The MLPs may have 1 to 8 Dense layers (MAXL).
+// What the design does about it: the forward body of gn_fwd.cuh on the
+// CSR row map (gn_rows.cuh:CsrRows), shared with the NK forward
+// (fused_gnblock_nk.cu): the tile pre-pass, then one warp per (receiver,
+// 16-sample chunk) with every product an mma.sync bf16 -> fp32 tile, so
+// receivers of different degree run on different warps; the padding rows
+// are work items of their own after the receivers.
 
-#include "gn_tile.cuh"
+#include "gn_fwd.cuh"
 
-using namespace gn_tile;
-using gn_nk::make_mlp;
+using namespace gn_fwd;
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-
-struct Args {
-  const bf16* x;        // [N, B, H]
-  const bf16* e;        // [S, B, H], or raw [S, B, fe] when folded
-  const bf16* xks;      // [N, B, H] scratch: bf16(x @ Ks), from the pre-pass
-  bf16* x_out;          // [N, B, H]
-  bf16* agg_out;        // [N, B, H] bf16(agg) for the backward, or null
-  bf16* e_out;          // [S, B, H]; null on the last block
-  const int32_t* row_ptr;  // [N + 1] receiver r owns rows row_ptr[r]:row_ptr[r+1]
-  const int32_t* senders;  // [S] sender per row (0 on padding)
-  const uint8_t* mask;     // [S] 1 on valid rows
-  int n_nodes, batch, total_rows, fe;
-  Mlp enc, edge, node;
-};
-
-// e_in of the 16-sample tile at row-sample index rb = s * B + b0
-template <bool FOLD>
-__device__ __forceinline__ void edge_in(uint32_t (&ein)[8], const Args& a, const TileMlp& enc,
-                                        long long rb, int nv) {
-  if (FOLD)
-    encode(ein, a.e + rb * a.fe, a.fe, enc, nv);
-  else
-    frag_load(ein, a.e + rb * H, H, nv);
-}
-
 template <bool FOLD, bool LAST>
-__global__ void __launch_bounds__(THREADS) gn_csr_fwd_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char fwd_smem[];
-  bf16* base = reinterpret_cast<bf16*>(fwd_smem);
-  TileMlp enc{};
-  if (FOLD) {
-    enc = stage_tile_mlp(base, a.enc);
-    base += tile_mlp_elems(a.enc);
-  }
-  const TileMlp edge = stage_tile_mlp(base, a.edge);
-  const TileMlp node = stage_tile_mlp(base + tile_mlp_elems(a.edge), a.node);
-  __syncthreads();
-
-  const int B = a.batch;
-  const int chunks = (B + 15) / 16;
-  const long long recv_items = static_cast<long long>(a.n_nodes) * chunks;
-  const long long pad0 = a.row_ptr[a.n_nodes];  // the first padding row
-  const long long items = recv_items + (LAST ? 0 : (a.total_rows - pad0) * chunks);
-  const long long step = static_cast<long long>(gridDim.x) * WARPS;
-
-  for (long long it = static_cast<long long>(blockIdx.x) * WARPS + threadIdx.x / 32; it < items;
-       it += step) {
-    if (it >= recv_items) {  // a padding row (mask False): e_out = e_in
-      const long long p = it - recv_items;
-      const int b0 = 16 * static_cast<int>(p % chunks);
-      const long long rb = (pad0 + p / chunks) * B + b0;
-      const int nv = min(16, B - b0);
-      uint32_t ein[8];
-      edge_in<FOLD>(ein, a, enc, rb, nv);
-      frag_store(a.e_out + rb * H, H, nv, ein);
-      continue;
-    }
-    const int r = static_cast<int>(it / chunks);
-    const int b0 = 16 * static_cast<int>(it % chunks);
-    const int nv = min(16, B - b0);
-    const long long xb = (static_cast<long long>(r) * B + b0) * H;  // tile (r, b0)
-
-    uint32_t xr[8], xkr[8];
-    frag_load(xr, a.x + xb, H, nv);
-    float d[4][4];
-    zero_acc(d);
-    mma_awt(d, xr, edge.layer(0), edge.stride0, H);  // x_r @ Kr
-    round_acc(xkr, d);
-
-    float agg[4][4];
-    zero_acc(agg);
-    const int end = a.row_ptr[r + 1];
-    for (int s = a.row_ptr[r]; s < end; ++s) {
-      const bool valid = a.mask[s] != 0;
-      if (LAST && !valid) continue;
-      const long long rb = static_cast<long long>(s) * B + b0;
-      uint32_t ein[8];
-      edge_in<FOLD>(ein, a, enc, rb, nv);
-      if (valid) {
-        zero_acc(d);
-        mma_awt(d, ein, edge.layer(0), edge.stride0, 0);  // e_in @ Ke
-        uint32_t h[8];
-        frag_load(h, a.xks + (static_cast<long long>(a.senders[s]) * B + b0) * H, H, nv);
-        add_frag(d, xkr);
-        add_frag(d, h);
-        finish(h, d, edge.bias(0));
-        mlp_tail(h, edge);
-        add_frag(agg, h);
-        if (!LAST) add_tiles(ein, ein, h);
-      }
-      if (!LAST) frag_store(a.e_out + rb * H, H, nv, ein);
-    }
-
-    uint32_t ag[8], h[8];
-    round_acc(ag, agg);
-    if (a.agg_out) frag_store(a.agg_out + xb, H, nv, ag);
-    zero_acc(d);
-    mma_awt(d, xr, node.layer(0), node.stride0, 0);
-    mma_awt(d, ag, node.layer(0), node.stride0, H);
-    finish(h, d, node.bias(0));
-    mlp_tail(h, node);
-    add_tiles(h, xr, h);
-    frag_store(a.x_out + xb, H, nv, h);
-  }
-}
-
-template <bool FOLD, bool LAST>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  cudaError_t err = launch_partial(a.x, nullptr, const_cast<bf16*>(a.xks), a.edge.w[0],
-                                   a.n_nodes, a.batch, stream);
-  if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(bf16) * ((FOLD ? tile_mlp_elems(a.enc) : 0) +
-                                      tile_mlp_elems(a.edge) + tile_mlp_elems(a.node));
-  auto kernel = gn_csr_fwd_kernel<FOLD, LAST>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  // the receivers' tiles plus at most total_rows padding-row tiles
-  const int chunks = (a.batch + 15) / 16;
-  const long long tiles = static_cast<long long>(a.n_nodes + (LAST ? 0 : a.total_rows)) * chunks;
-  int grid = 0;
-  err = gn_nk::grid_for(reinterpret_cast<const void*>(kernel), THREADS, smem, 32 * tiles, &grid);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, smem, stream>>>(a);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(FWD_THREADS) gn_csr_fwd_kernel(const FwdArgs a) {
+  fwd_body<CsrRows, FOLD, LAST>(a);
 }
 
 }  // namespace
@@ -205,32 +51,15 @@ extern "C" int gn_csr_fwd(const void* x, const void* e, void* xks, void* x_out, 
                           const void* const* enc_w, int n_enc_layers,
                           const void* const* edge_w, int n_edge_layers,
                           const void* const* node_w, int n_node_layers, void* stream) {
-  Args a = {};
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.e = static_cast<const __nv_bfloat16*>(e);
-  a.xks = static_cast<const __nv_bfloat16*>(xks);
-  a.x_out = static_cast<__nv_bfloat16*>(x_out);
-  a.e_out = static_cast<__nv_bfloat16*>(e_out);
-  a.agg_out = static_cast<__nv_bfloat16*>(agg_out);
+  FwdArgs a = {};
   a.row_ptr = static_cast<const int32_t*>(row_ptr);
-  a.senders = static_cast<const int32_t*>(senders);
-  a.mask = static_cast<const uint8_t*>(mask);
   a.n_nodes = n_nodes;
-  a.batch = batch;
   a.total_rows = total_rows;
-  a.fe = fe;
-  const bool fold = fe > 0;
-  if ((fold && !make_mlp(&a.enc, enc_w, n_enc_layers, fe)) ||
-      !make_mlp(&a.edge, edge_w, n_edge_layers, 3 * H) ||
-      !make_mlp(&a.node, node_w, n_node_layers, 2 * H) || n_nodes < 1 || batch < 1 ||
-      total_rows < 1)
+  if (!make_fwd_args(&a, x, e, xks, x_out, e_out, agg_out, senders, mask, batch, fe, enc_w,
+                     n_enc_layers, edge_w, n_edge_layers, node_w, n_node_layers))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool last = e_out == nullptr;
-  cudaError_t err;
-  if (fold)
-    err = last ? launch<true, true>(a, st) : launch<true, false>(a, st);
-  else
-    err = last ? launch<false, true>(a, st) : launch<false, false>(a, st);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_fwd<CsrRows>(
+      a, static_cast<cudaStream_t>(stream), gn_csr_fwd_kernel<false, false>,
+      gn_csr_fwd_kernel<false, true>, gn_csr_fwd_kernel<true, false>,
+      gn_csr_fwd_kernel<true, true>));
 }

@@ -40,16 +40,18 @@
 // end the block writes them to shared memory in flush_mlp's layout and
 // adds them into the global fp32 gradients once (gn_bwd_common.cuh).
 //
-// A row map gives, for a layout: the end of the rows that belong to some
-// receiver (ranged_end), the receiver of a row, and the rows a node owns
-// (first, count, step).
+// A row map (gn_rows.cuh) gives, for a layout: the end of the rows that
+// belong to some receiver (ranged_end), the receiver of a row, and the rows
+// a node owns (first, count, step).
 #pragma once
 
 #include "gn_bwd_common.cuh"
+#include "gn_rows.cuh"
 #include "gn_tile.cuh"
 
 namespace gn_bwd {
 
+using namespace gn_rows;
 using namespace gn_tile;
 
 constexpr int PASS_THREADS = 256;
@@ -58,7 +60,7 @@ constexpr int ROWS = 16 * PASS_WARPS;  // staged sample rows of a block
 constexpr int SEND_THREADS = 128;
 constexpr int SEND_WARPS = SEND_THREADS / 32;
 
-struct PassArgs {
+struct PassArgs : RowMap {
   const __nv_bfloat16* x;       // [N, B, H]
   const __nv_bfloat16* e;       // [S, B, H], or raw [S, B, fe] when folded
   const __nv_bfloat16* xkr;     // [N, B, H] scratch: bf16(x @ Kr), from the pre-pass
@@ -70,51 +72,13 @@ struct PassArgs {
   __nv_bfloat16* de;            // [S, B, H]; null when folded
   __nv_bfloat16* gagg;          // [N, B, H] scratch: the aggregate's cotangent
   __nv_bfloat16* gh0;           // [S, B, H] scratch: g_h0 of every row of a range
-  const int32_t* row_ptr;       // CSR: [N + 1] receiver r owns rows row_ptr[r]:row_ptr[r+1]
-  const int32_t* receivers;     // CSR: [S] receiver per row (N-1 on padding)
-  int k_slots, node_block;      // NK: K slots a receiver, nb receivers a node block
   const int32_t* senders;       // [S] sender per row (0 on padding)
   const uint8_t* mask;          // [S] 1 on valid rows
   const int32_t* order;         // the valid rows sorted by sender
   const int32_t* offsets;       // [N + 1] node j sends on order[offsets[j]:offsets[j+1]]
-  int n_nodes, batch, total_rows, fe;
+  int batch, fe;
   Mlp enc, edge, node;     // weights
   Mlp genc, gedge, gnode;  // their gradients: same shapes, fp32, zeroed
-};
-
-// receiver-sorted CSR; rows from row_ptr[N] on are padding
-struct CsrRows {
-  static __device__ __forceinline__ long long ranged_end(const PassArgs& a) {
-    return a.row_ptr[a.n_nodes];
-  }
-  static __device__ __forceinline__ long long receiver(const PassArgs& a, long long s) {
-    return a.receivers[s];
-  }
-  static __device__ __forceinline__ void own(const PassArgs& a, int j, long long& first,
-                                             int& count, int& step) {
-    first = a.row_ptr[j];
-    count = a.row_ptr[j + 1] - a.row_ptr[j];
-    step = 1;
-  }
-};
-
-// NK slots (ops/tiling.py): receiver g·nb + r owns slots g·K·nb + k·nb + r,
-// k < K; every slot belongs to its receiver, masked ones included
-struct NkRows {
-  static __device__ __forceinline__ long long ranged_end(const PassArgs& a) {
-    return a.total_rows;
-  }
-  static __device__ __forceinline__ long long receiver(const PassArgs& a, long long s) {
-    const long long per_group = static_cast<long long>(a.k_slots) * a.node_block;
-    return (s / per_group) * a.node_block + s % a.node_block;
-  }
-  static __device__ __forceinline__ void own(const PassArgs& a, int j, long long& first,
-                                             int& count, int& step) {
-    first = static_cast<long long>(j / a.node_block) * a.k_slots * a.node_block +
-            j % a.node_block;
-    count = a.k_slots;
-    step = a.node_block;
-  }
 };
 
 // A block's staging of one MLP's backward for the weight gradients: each

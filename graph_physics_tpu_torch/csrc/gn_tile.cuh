@@ -1,5 +1,5 @@
-// GraphNetBlock MLPs on tensor-core tiles, for the CSR forward
-// (fused_gnblock_csr.cu) and the node-MLP and row passes of both
+// GraphNetBlock MLPs on tensor-core tiles, for the forward body of both
+// layouts (gn_fwd.cuh) and the node-MLP and row passes of both
 // GraphNetBlock backwards (gn_bwd_passes.cuh): every product is
 // mma.sync.m16n8k16 with bf16 operands and fp32 sums.
 //
@@ -14,12 +14,12 @@
 // Row sums of the RMSNorm are sums over the quad of lanes that share a row.
 //
 // The numerics are the JAX kernel's _mlp_fwd / _rms_fwd / _mlp_bwd
-// (fused_gnblock.py:219, :245), as in gn_nk_common.cuh: weights are bf16
-// values, each layer's input is bf16, products sum in fp32, and every
-// bf16 rounding point is kept; only the order of the fp32 sums inside a
-// product (and inside the RMS row sums) differs. Elementwise steps run on
-// bf16 pairs (mul/add/sub .rn.bf16x2: the exact result rounded once, as
-// the fp32 operation rounded to bf16).
+// (fused_gnblock.py:219, :245): weights are bf16 values, each layer's
+// input is bf16, products sum in fp32, and every bf16 rounding point is
+// kept; only the order of the fp32 sums inside a product (and inside the
+// RMS row sums) differs. Elementwise steps run on bf16 pairs
+// (mul/add/sub .rn.bf16x2: the exact result rounded once, as the fp32
+// operation rounded to bf16).
 //
 // Weights sit in shared memory as bf16 [out][in] (nn.Linear's layout) with
 // rows padded to an odd multiple of 16 bytes, so the 8 row addresses of an
@@ -383,12 +383,13 @@ __device__ __forceinline__ void encode(uint32_t (&h)[8], const bf16* raw, int fe
 
 constexpr int PARTIAL_TC_THREADS = 256;
 
-// The node pre-pass of the GraphNetBlock kernels on the CSR layout and of
-// both backwards, on tiles: xkr = bf16(x @ Kr) and xks = bf16(x @ Ks) for
-// every (node, sample) row, a warp a 16-sample tile (either output may be
-// null); Kr, Ks the columns H..2H-1 and 2H..3H-1 of the edge MLP's first
-// layer (w0: nn.Linear [H, 3H], fp32), as in gn_nk_common.cuh's
-// gn_partial_kernel.
+// The node pre-pass of the GraphNetBlock kernels, both layouts, forward and
+// backward, on tiles: xkr = bf16(x @ Kr) and xks = bf16(x @ Ks) for every
+// (node, sample) row, a warp a 16-sample tile (either output may be null);
+// Kr, Ks the columns H..2H-1 and 2H..3H-1 of the edge MLP's first layer
+// (w0: nn.Linear [H, 3H], fp32). The node partials are rounded per node,
+// as fused_gnblock.py:blocked_reference and fused_gnblock_nk.py:_edge_fwd
+// round them, so a node's partial is a tile load per edge row.
 __global__ void __launch_bounds__(PARTIAL_TC_THREADS)
     gn_partial_tc_kernel(const bf16* x, bf16* xkr, bf16* xks, const float* w0, int n_nodes,
                          int batch) {

@@ -6,13 +6,14 @@ _ffn_fwd_kernel (:74) and _ffn_bwd_kernel (:99) behind fused_gated_ffn
 
     y = x + W3 · (act(W1·n + b1) ⊙ (W2·n + b2)) + b3,   n = RMS_0(RMS_norm2(x)).
 
-The forward CUDA kernel (``csrc/fused_ffn.cu``) runs one thread per row
-of [N·B, H] with the weights in shared memory. The backward
-(``csrc/fused_ffn_bwd.cu``) runs its eight products on the tensor cores in
-one pass over 64-row tiles: it recomputes the rows from x, gives dx, and
-keeps each block's sums of the eight parameter gradients, which a second
-kernel adds in block order; see the sources' headers for the designs and
-the bounds.
+Both CUDA kernels run their products on the tensor cores in one pass over
+row tiles of [N·B, H], with the weights in shared memory. The forward
+(``csrc/fused_ffn.cu``, 128-row tiles) runs its three products and keeps
+the 192-wide middle in registers. The backward
+(``csrc/fused_ffn_bwd.cu``, 64-row tiles) runs eight: it recomputes the
+rows from x, gives dx, and keeps each block's sums of the eight parameter
+gradients, which a second kernel adds in block order; see the sources'
+headers for the designs and the bounds.
 :func:`gated_ffn_reference` is the plain PyTorch version of the forward,
 rounding where the kernel rounds (gated_ffn_reference, fused_ffn.py:282,
 with _rms_fwd's numerics), and :func:`gated_ffn_backward_reference` that

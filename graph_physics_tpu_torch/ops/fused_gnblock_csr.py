@@ -4,10 +4,11 @@ Replaces the TPU Pallas kernels graph_physics_tpu/ops/fused_gnblock.py:
 _fwd_kernel (:392) and _bwd_kernel (:453) behind fused_gn_block (:687),
 without ``lanes``, ``tiling_idx`` and ``extra_agg`` (the world sidecar,
 ROADMAP A 5). Two CUDA kernels, every MLP product on tensor-core tiles
-(``csrc/gn_tile.cuh``): the forward (``csrc/fused_gnblock_csr.cu``) runs
-a pre-pass that writes each node's sender partial x @ Ks, then one warp
-per (receiver, 16 samples) over the receiver's CSR rows, so graphs of
-any degree sum at the receiver with no atomics; the backward
+(``csrc/gn_tile.cuh``): the forward (``csrc/fused_gnblock_csr.cu``, its
+body ``csrc/gn_fwd.cuh`` shared with the NK forward) runs a pre-pass that
+writes each node's sender partial x @ Ks, then one warp per (receiver, 16
+samples) over the receiver's CSR rows, so graphs of any degree sum at the
+receiver with no atomics; the backward
 (``csrc/fused_gnblock_csr_bwd.cu``) rematerializes that forward from
 (x, e) and the aggregate the forward kept, one warp per (row, 16
 samples), and returns dx, de and fp32 weight gradients, its sender-side

@@ -2,18 +2,19 @@
 
 Replaces the TPU Pallas kernels graph_physics_tpu/ops/fused_gnblock_nk.py:
 _nk_fwd_kernel (:147) and _nk_bwd_kernel (:189) behind fused_gn_block_nk
-(:332). Two CUDA kernels: the forward (``csrc/fused_gnblock_nk.cu``) runs
-one thread per (receiver, sample) over the receiver's K slots, so the
-K-sum needs no atomics, the edge messages stay in registers and the MLP
-weights sit in shared memory; under autograd it also keeps its bf16
-aggregate. The backward (``csrc/fused_gnblock_nk_bwd.cu``) runs the CSR
-backward's passes (``csrc/gn_bwd_passes.cuh``) on the NK row map: a
-node pre-pass, a node-MLP pass that reads the kept aggregate and a row
-pass, both with one warp per (slot or node, 16 samples) on tensor-core
-tiles (``csrc/gn_tile.cuh``), and a sender pass over the layout's
-sender-sorted slot list, returning dx, de and fp32 weight gradients with
-no atomics on dx or de. The forward runs on the CUDA cores. See the
-sources' headers for the designs.
+(:332). Two CUDA kernels, both on tensor-core tiles (``csrc/gn_tile.cuh``)
+and both sharing their bodies with the CSR layout's kernels, on the NK
+row map (``csrc/gn_rows.cuh``). The forward (``csrc/fused_gnblock_nk.cu``,
+body ``csrc/gn_fwd.cuh``) runs a node pre-pass, then one warp per
+(receiver, 16 samples) over the receiver's K slots, so the K-sum needs no
+atomics and the edge messages stay in registers; under autograd it also
+keeps its bf16 aggregate. The backward (``csrc/fused_gnblock_nk_bwd.cu``)
+runs the CSR backward's passes (``csrc/gn_bwd_passes.cuh``): a node
+pre-pass, a node-MLP pass that reads the kept aggregate and a row pass,
+both with one warp per (slot or node, 16 samples), and a sender pass over
+the layout's sender-sorted slot list, returning dx, de and fp32 weight
+gradients with no atomics on dx or de. See the sources' headers for the
+designs.
 
 :func:`fused_gn_block_nk_reference` is the plain PyTorch version of the
 same function, following blocked_reference_nk (fused_gnblock_nk.py:731),

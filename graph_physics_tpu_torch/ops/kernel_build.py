@@ -22,20 +22,25 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-#: every kernel library: name -> (source, headers it includes), under csrc/
+#: every kernel library: name -> (source, every header it includes, directly or
+#: through another header), under csrc/
 LIBRARIES = {
-    "gn_nk_fwd": ("fused_gnblock_nk.cu", ("gn_nk_common.cuh",)),
+    "gn_nk_fwd": ("fused_gnblock_nk.cu",
+                  ("gn_fwd.cuh", "gn_rows.cuh", "gn_tile.cuh", "gn_nk_common.cuh",
+                   "mma_common.cuh")),
     "gn_nk_bwd": ("fused_gnblock_nk_bwd.cu",
                   ("gn_nk_common.cuh", "gn_bwd_common.cuh", "gn_bwd_passes.cuh",
-                   "gn_tile.cuh", "mma_common.cuh")),
+                   "gn_rows.cuh", "gn_tile.cuh", "mma_common.cuh")),
     "edge_attention_nk": ("fused_edge_attention_nk.cu", ("ea_nk_common.cuh",)),
     "edge_attention_nk_bwd": ("fused_edge_attention_nk_bwd.cu", ("ea_nk_common.cuh",)),
-    "ffn": ("fused_ffn.cu", ("ffn_common.cuh",)),
+    "ffn": ("fused_ffn.cu", ("ffn_common.cuh", "mma_common.cuh")),
     "ffn_bwd": ("fused_ffn_bwd.cu", ("ffn_common.cuh", "mma_common.cuh")),
-    "gn_csr_fwd": ("fused_gnblock_csr.cu", ("gn_nk_common.cuh", "gn_tile.cuh", "mma_common.cuh")),
+    "gn_csr_fwd": ("fused_gnblock_csr.cu",
+                   ("gn_fwd.cuh", "gn_rows.cuh", "gn_tile.cuh", "gn_nk_common.cuh",
+                    "mma_common.cuh")),
     "gn_csr_bwd": ("fused_gnblock_csr_bwd.cu",
                    ("gn_nk_common.cuh", "gn_bwd_common.cuh", "gn_bwd_passes.cuh",
-                    "gn_tile.cuh", "mma_common.cuh")),
+                    "gn_rows.cuh", "gn_tile.cuh", "mma_common.cuh")),
     "edge_attention_csr": ("fused_edge_attention_csr.cu", ("ea_nk_common.cuh",)),
     "edge_attention_csr_bwd": ("fused_edge_attention_csr_bwd.cu", ("ea_nk_common.cuh",)),
     "gumbel": ("gumbel.cu", ()),

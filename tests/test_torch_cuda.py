@@ -20,16 +20,17 @@ plain version ``ops/edge_attention.edge_attention``), 0.15 and 0.1 for
 the models; their backward kernels are held with utils/gradcheck.py at a
 small size and at the graded slice's (27,000 nodes x 16 samples), and
 the graded train steps to the same bounds as the cylinder's. The NK
-GraphNetBlock backward is also held on a mesh whose masked slots sit
-between a receiver's valid ones and whose node N-1 owns valid slots; it
-and the gated-FFN backward
-(also at a row count that is not a multiple of its 64-row tile) give the
-same bits on two calls. The CSR GraphNetBlock forward and backward are
-also held on a hub mesh (a receiver of in-degree 150, receivers with no
-row or only masked rows, node N-1 owning rows) at partial 16-sample
-tiles, and give the same bits on two calls (the forward's outputs, the
-backward's dx and de). The gumbel
-kernel draws the same Philox bits as its plain version, bit for bit, and
+GraphNetBlock forward and backward are also held on a mesh whose masked
+slots sit between a receiver's valid ones and whose node N-1 owns valid
+slots (a masked slot's e_out is its e_in, bit for bit); both, and the
+gated-FFN forward and backward (also at a row count that is not a
+multiple of their 128- and 64-row tiles), give the same bits on two
+calls. The CSR
+GraphNetBlock forward and backward are also held on a hub mesh (a
+receiver of in-degree 150, receivers with no row or only masked rows,
+node N-1 owning rows) at partial 16-sample tiles, and give the same bits
+on two calls (the forward's outputs, the backward's dx and de). The
+gumbel kernel draws the same Philox bits as its plain version, bit for bit, and
 its output is within 1e-5 of the plain version's (``logf`` on the card
 against ``torch.log``, at |noise| < 17); the Transolver train step runs
 it once per block forward and never in the backward, and keeps to the
@@ -49,6 +50,7 @@ from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_csr_ops
 from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
 from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
 from graph_physics_tpu_torch.ops import fused_gnblock_csr as fused_gn_block_csr_ops
+from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
 from graph_physics_tpu_torch.ops import gumbel as gumbel_ops
 from graph_physics_tpu_torch.models.transolver import use_plain_gumbel
 from graph_physics_tpu_torch.ops.fused_edge_attention_nk import (
@@ -212,6 +214,46 @@ def test_backward_kernel_dx_de_are_bit_identical_across_calls(cuda_device, varia
             outs.append(torch.autograd.grad(xo, [xl], cot_x))
         else:
             outs.append(torch.autograd.grad([xo, eo], [xl, el], [cot_x, cot_e]))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["folded", "middle", "last"])
+def test_kernel_on_masked_slots_between_valid_ones(cuda_device, variant):
+    """The forward on the padding-leak mesh of the backward's test: masked
+    slots of a receiver sit between its valid ones, node N-1 owns valid
+    slots, B=5 (a partial 16-sample tile); against the plain version, and
+    a masked slot's e_out is its e_in, bit for bit."""
+    x, e, (senders, mask), (enc, edge, node), nk, last, _, _ = _nk_backward_case(
+        cuda_device, variant, seed=11, holes=True)
+    args = (x, e, senders, mask, edge, node, nk)
+    kw = dict(encoder_params=enc, last_block=last)
+    with torch.no_grad():
+        before = fused_gn_block_nk.launches
+        kx, ke = fused_gn_block_nk(*args, **kw)
+        torch.cuda.synchronize()
+        assert fused_gn_block_nk.launches == before + 1
+        px, pe = fused_gn_block_nk_reference(*args, **kw, compute_dtype=torch.bfloat16)
+    torch.testing.assert_close(kx.float(), px.float(), rtol=0.05, atol=0.05)
+    if variant == "folded":  # e_in = enc(raw): the two encoders' roundings may differ
+        torch.testing.assert_close(ke.float(), pe.float(), rtol=0.05, atol=0.05)
+    elif variant == "middle":
+        torch.testing.assert_close(ke.float(), pe.float(), rtol=0.05, atol=0.05)
+        assert torch.equal(ke[~mask], e[~mask])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["folded", "middle"])
+def test_kernel_outputs_are_bit_identical_across_calls(cuda_device, variant):
+    """No atomics in the forward: two calls give the same bits, the kept
+    aggregate too."""
+    x, e, (senders, mask), mlps, nk, last, _, _ = _nk_backward_case(cuda_device, variant,
+                                                                     seed=12)
+    with torch.no_grad():
+        outs = [nk_ops._launch_fwd(x, e, senders, mask, nk, mlps, last, keep_agg=True)
+                for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a, b)
@@ -435,6 +477,32 @@ def test_ffn_backward_kernel_is_bit_identical_across_calls(cuda_device):
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_silu", [False, True])
+def test_ffn_kernel_at_a_ragged_last_tile(cuda_device, use_silu):
+    """1,001 x 3 rows: the last 128-row tile is ragged; its missing rows are
+    zero-filled in the kernel and never stored."""
+    block, norm2, x, _ = _ffn_case(cuda_device, 1001, 3, use_silu, seed=8)
+    assert x.shape[0] * x.shape[1] % 128 != 0
+    with torch.no_grad():
+        before = fused_gated_ffn.launches
+        y = fused_gated_ffn(x, block, norm2)
+        torch.cuda.synchronize()
+        assert fused_gated_ffn.launches == before + 1
+        ref = gated_ffn_reference(x, block, norm2)
+    torch.testing.assert_close(y.float(), ref.float(), rtol=0.05, atol=0.05)
+
+
+@pytest.mark.cuda
+def test_ffn_kernel_is_bit_identical_across_calls(cuda_device):
+    """Each output's fp32 sums in one fixed order: the same bits on two calls."""
+    block, norm2, x, _ = _ffn_case(cuda_device, 1921, 8, False, seed=9)
+    with torch.no_grad():
+        ys = [fused_gated_ffn(x, block, norm2) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1])
 
 
 @pytest.mark.cuda
