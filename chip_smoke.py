@@ -6,7 +6,8 @@ the Transolver++ train step with its gumbel kernel.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --parent CHECKOUT   # also times another checkout's
-                                              # GraphNetBlock and FFN-forward kernels
+                                              # GraphNetBlock, FFN-forward and
+                                              # CSR attention kernels
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
@@ -72,14 +73,17 @@ Phases (any failure raises, so the exit code is non-zero):
      samples): each CSR GraphNetBlock variant against its plain version
      on the same bf16 inputs; the CSR attention against its plain version
      (ops/edge_attention.edge_attention), with exact zeros on receivers
-     without a valid row; the gated FFN against its plain version on the
+     without a valid row, and the softmax statistics it keeps under
+     autograd (the max, 1/denominator) against their plain version
+     (``softmax_stats``); the gated FFN against its plain version on the
      transformer's [27,008, 16, 64] input; each CSR GraphNetBlock
      variant's time by CUDA events and by the profiler's device time;
  17. graded slices: the B=16 eval forward of ``epd`` (5 CSR GraphNetBlock
      launches) and of the transformer (10 CSR attention and 10 FFN
      launches) against the plain path, then 8 windows x 50 steps of
      rollout of each on both paths;
- 18. graded timing: both CSR kernels, their plain versions and bounds, the
+ 18. graded timing: both CSR kernels (the attention by device time too),
+     their plain versions and bounds, the
      gated FFN (by device time too) and its plain version at the graded
      shape, the library's masked attention where its dense mask fits, one
      middle block and the forward of each model (and its device time) on
@@ -96,9 +100,10 @@ Phases (any failure raises, so the exit code is non-zero):
      on the kernel path, 5 + 5 CSR GraphNetBlock launches, or 10 + 10 of
      the CSR attention and of the FFN, a step, against the same steps on
      the plain path; peak device memory of each path;
- 21. graded train timing: both CSR backward kernels and their plain
-     backwards, the library's masked attention forward + backward where it
-     fits, one middle block forward + backward of each family and the
+ 21. graded train timing: both CSR backward kernels (the attention's by
+     device time too) and their plain backwards, the CSR attention's
+     forward + backward beside the library's masked attention forward +
+     backward where it fits, one middle block forward + backward of each family and the
      train steps on both paths, with each step's device time and the
      host's time to enqueue it; the gated-FFN backward's time and bound at
      the graded shape;
@@ -125,17 +130,22 @@ Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
 the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
 GraphNetBlock kernels, forward and backward, add each variant's times
-under ``variants``, every GraphNetBlock kernel and both gated-FFN kernels
-their profiler device time under ``device_ms``, both gated-FFN kernels
-their graded-shape times and bound under ``graded``).
+under ``variants``, every GraphNetBlock kernel, both gated-FFN kernels and
+both CSR attention kernels their profiler device time under ``device_ms``,
+both gated-FFN kernels their graded-shape times and bound under
+``graded``, the CSR attention backward its forward + backward under
+``fwd_bwd_ms`` and ``fwd_bwd_device_ms``).
 With ``--parent CHECKOUT`` the libraries that PARENT_LIBS names (both
-GraphNetBlock forwards and backwards, the gated-FFN forward) are built
-from that checkout's csrc/ too, and the same calls (each GraphNetBlock
-kernel variant, the backwards by pass too; the FFN forward at both
-shapes; the cylinder and graded forwards and train steps of both
-families) are timed with them in turns with this tree's, on the same
-inputs and card, under ``parent_ms`` and ``parent_device_ms``: the
-before numbers of a redesign.
+GraphNetBlock forwards and backwards, the gated-FFN forward, the CSR
+attention forward and backward) are built from that checkout's csrc/
+too, and the same calls (each GraphNetBlock kernel variant, the
+backwards by pass too; the FFN forward at both shapes; the CSR attention
+forward, backward and both together; the cylinder and graded forwards
+and train steps of both families) are timed with them in turns with
+this tree's, on the same inputs and card, under ``parent_ms`` and
+``parent_device_ms``: the before numbers of a redesign. A library whose C
+interface changed is called through the checkout's own op module
+(``PARENT_OWN_OPS``).
 It imports nothing of JAX.
 """
 
@@ -180,6 +190,11 @@ FFN_TOL = 0.05
 #: transformer kernel path vs plain path, rtol = atol, valid nodes
 #: (tests/test_fused_edge_attention_nk.py:171)
 TF_SLICE_TOL = 0.1
+#: the CSR attention's kept statistics against their plain version
+#: (ops/fused_edge_attention_csr.softmax_stats): the max logit, rtol =
+#: atol, the logits' fp32 sum order; 1/denominator, relative, a logit an
+#: ulp apart rounding its bf16 weight the other way (2^-8 of one term)
+STATS_MAX_TOL, STATS_INV_RTOL = 1e-5, 5e-3
 #: receivers per node block whose slots the empty-receiver check masks out
 EMPTY_RECEIVERS = 5
 #: the card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
@@ -187,9 +202,11 @@ EMPTY_RECEIVERS = 5
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 #: the kernels whose ptxas reports (registers, spills) are logged apart:
 #: the gated-FFN forward and backward, both GraphNetBlock forwards and
-#: both backwards' passes, and the tile pre-pass they share
+#: both backwards' passes, the tile pre-pass they share, and the CSR
+#: attention forward and backward passes
 REDESIGNED = ("ffn_fwd_kernel", "ffn_bwd_kernel", "gn_nk_fwd_kernel", "gn_nk_bwd_",
-              "gn_csr_fwd_kernel", "gn_csr_bwd_", "gn_partial_tc_kernel")
+              "gn_csr_fwd_kernel", "gn_csr_bwd_", "gn_partial_tc_kernel", "ea_csr_fwd_kernel",
+              "ea_csr_bwd_")
 FWD = {"name": "fused_gn_block_nk", "source": "graph_physics_tpu_torch/csrc/fused_gnblock_nk.cu",
        "replaces": "graph_physics_tpu/ops/fused_gnblock_nk.py:147"}
 BWD = {"name": "fused_gn_block_nk_backward",
@@ -338,36 +355,77 @@ def cuda_ms(fn, warmup=3, reps=20):
     return statistics.median(times)
 
 
-#: profiler sessions tried before a call counts as unmeasured: one session
-#: of a run of ~40 once came back without device events (PERF.md §6 PR 9)
-PROFILE_ATTEMPTS = 3
+#: profiler sessions tried for two that agree on every kernel's launches
+#: a call: the profiler on the card drops a launch now and then, and now
+#: and then every launch of a session (PERF.md §6)
+PROFILE_ATTEMPTS = 4
+
+
+def _profile_session(fn, reps):
+    """({kernel: device ms in all}, {kernel: launches}) of ``reps`` calls
+    of ``fn`` by torch.profiler, after one traced warm-up call that is not
+    kept (user annotations left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    totals, counts = defaultdict(float), defaultdict(int)
+    for ev in prof.key_averages():
+        # a user annotation's range (the optimizer step's) spans the host's
+        # gaps between its kernels: no kernel's time
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                ev, "is_user_annotation", False):
+            totals[ev.key] += (getattr(ev, "self_device_time_total", None) or getattr(
+                ev, "self_cuda_time_total", 0.0)) / 1e3
+            counts[ev.key] += ev.count
+    return dict(totals), dict(counts)
 
 
 def device_times(fn, reps=20):
     """Device milliseconds per call of ``fn`` by CUDA kernel name, from
-    torch.profiler over ``reps`` calls (user annotations left out)."""
+    torch.profiler over ``reps`` calls (user annotations left out). Each
+    kernel's time is its mean launch times its launches a call: the
+    launches a session recorded, rounded up to a whole number a call,
+    none short of that by more than a quarter of ``reps``. The first two
+    sessions that agree on every kernel's launches a call give the mean
+    of their times; raises when ``PROFILE_ATTEMPTS`` sessions give no
+    such two."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(PROFILE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        times = defaultdict(float)
-        for ev in prof.key_averages():
-            # a user annotation's range (the optimizer step's) spans the
-            # host's gaps between its kernels: no kernel's time
-            if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(
-                    ev, "is_user_annotation", False):
-                times[ev.key] += (getattr(ev, "self_device_time_total", None) or getattr(
-                    ev, "self_cuda_time_total", 0.0)) / 1e3 / reps
-        if sum(times.values()) > 0:
-            return dict(times)
-        log("  the profiler recorded no device time; profiling again")
-    raise AssertionError("the profiler recorded no device time")
+        totals, counts = _profile_session(fn, reps)
+        per_call = {k: -(-c // reps) for k, c in counts.items()}
+        dropped = {k: per_call[k] * reps - c for k, c in counts.items()}
+        if not counts or max(dropped.values()) > reps // 4:
+            log(f"  the profiler recorded {sum(counts.values())} launches in {reps} calls, "
+                f"none or a kernel's short of a whole number a call by more than "
+                f"{reps // 4}; profiling again")
+            continue
+        if any(dropped.values()):
+            log(f"  the profiler dropped {sum(dropped.values())} of "
+                f"{sum(per_call.values()) * reps} launches in {reps} calls (each kernel's "
+                f"time is its mean launch times its launches a call)")
+        times = {k: totals[k] / counts[k] * per_call[k] for k in counts}
+        for other, other_per_call in seen:
+            if other_per_call == per_call:
+                return {k: (times[k] + other[k]) / 2 for k in times}
+        if seen:
+            log("  two profiler sessions disagree on a kernel's launches a call; profiling "
+                "again")
+        seen.append((times, per_call))
+    raise AssertionError(f"{PROFILE_ATTEMPTS} profiler sessions gave no two that agree on "
+                         f"every kernel's launches a call")
 
 
 def device_ms(fn, reps=20):
@@ -378,14 +436,17 @@ def device_ms(fn, reps=20):
     return sum(device_times(fn, reps).values())
 
 
-#: the GraphNetBlock backward's kernels by a substring of their names
+#: the backward kernels (GraphNetBlock, CSR attention) by a substring of
+#: their names
 BWD_PASSES = (("pre-pass", "gn_partial"), ("node-MLP pass", "nodemlp"),
-              ("row pass", "_row_kernel"), ("sender pass", "send_kernel"))
+              ("row pass", "_row_kernel"), ("sender pass", "send_kernel"),
+              ("receiver pass", "recv_kernel"))
 
 
 def pass_split(fn):
-    """{pass: device ms per call} of a GraphNetBlock backward call, the
-    rest (buffer fills, the gradients' rounding) under "other"."""
+    """{pass: device ms per call} of a GraphNetBlock or CSR attention
+    backward call, the rest (buffer fills, the gradients' rounding) under
+    "other"."""
     split = defaultdict(float)
     for name, ms in device_times(fn).items():
         split[next((p for p, key in BWD_PASSES if key in name), "other")] += ms
@@ -399,8 +460,16 @@ PARENT = None
 #: the libraries a parent tree is timed with, and the op module binding each
 PARENT_LIBS = {"gn_csr_fwd": "fused_gnblock_csr", "gn_csr_bwd": "fused_gnblock_csr",
                "gn_nk_fwd": "fused_gnblock_nk", "gn_nk_bwd": "fused_gnblock_nk",
-               "ffn": "fused_ffn"}
-_parent_builds, _parent_libs = {}, {}
+               "ffn": "fused_ffn", "edge_attention_csr": "fused_edge_attention_csr",
+               "edge_attention_csr_bwd": "fused_edge_attention_csr"}
+#: op modules whose C interface this tree changed: the parent's is loaded
+#: from its checkout and binds its libraries, and inside ``parent_kernels``
+#: its wrapper (the function of the module's name) stands in for this
+#: tree's, in the op module and in models.layers (which calls it by name)
+PARENT_OWN_OPS = {"fused_edge_attention_csr"}
+#: the CSR attention's libraries, forward and backward
+ATTN_CSR_LIBS = ("edge_attention_csr", "edge_attention_csr_bwd")
+_parent_builds, _parent_libs, _parent_ops = {}, {}, {}
 
 
 def start_parent_builds():
@@ -418,10 +487,27 @@ def start_parent_builds():
         _parent_builds[name] = (proc, out)
 
 
+def parent_ops(module):
+    """The op module ``module`` (under ops/) of this tree, or, for one in
+    ``PARENT_OWN_OPS``, the parent checkout's, loaded from its file (its
+    imports resolve to this tree's package)."""
+    import importlib
+    import importlib.util
+
+    if module not in PARENT_OWN_OPS:
+        return importlib.import_module(f"graph_physics_tpu_torch.ops.{module}")
+    if module not in _parent_ops:
+        path = PARENT / "graph_physics_tpu_torch" / "ops" / f"{module}.py"
+        spec = importlib.util.spec_from_file_location(f"parent_tree_{module}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _parent_ops[module] = mod
+    return _parent_ops[module]
+
+
 def parent_library(name):
     """The parent's library ``name``, loaded with its op module's argtypes."""
     import ctypes
-    import importlib
 
     if name not in _parent_libs:
         proc, out = _parent_builds[name]
@@ -429,7 +515,7 @@ def parent_library(name):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the parent's {name}:\n{text}")
         lib = ctypes.CDLL(str(out))
-        ops = importlib.import_module(f"graph_physics_tpu_torch.ops.{PARENT_LIBS[name]}")
+        ops = parent_ops(PARENT_LIBS[name])
         for fn, types in ops._ARGTYPES[name].items():
             getattr(lib, fn).argtypes = types
             getattr(lib, fn).restype = ctypes.c_int
@@ -439,14 +525,28 @@ def parent_library(name):
 
 @contextlib.contextmanager
 def parent_kernels(*names):
-    """Inside the block the ops launch the parent's libraries ``names``."""
+    """Inside the block the ops launch the parent's libraries ``names``,
+    through the parent's wrappers where its C interface differs
+    (``PARENT_OWN_OPS``)."""
+    import importlib
+
+    from graph_physics_tpu_torch.models import layers
     from graph_physics_tpu_torch.ops import kernel_build
 
     saved = {n: kernel_build._libs.get(n) for n in names}
     kernel_build._libs.update({n: parent_library(n) for n in names})
+    swapped = []
+    for module in sorted({PARENT_LIBS[n] for n in names} & PARENT_OWN_OPS):
+        ours = importlib.import_module(f"graph_physics_tpu_torch.ops.{module}")
+        theirs = getattr(parent_ops(module), module)
+        for holder in (ours, layers):
+            swapped.append((holder, module, getattr(holder, module)))
+            setattr(holder, module, theirs)
     try:
         yield
     finally:
+        for holder, attr, fn in reversed(swapped):
+            setattr(holder, attr, fn)
         for n, lib in saved.items():
             if lib is None:
                 kernel_build._libs.pop(n, None)
@@ -476,6 +576,27 @@ def timed(fn, libs, device=False, device_reps=20, **kw):
     out = {k: (c1[k] + c2[k]) / 2 for k in c1}
     out.update({f"parent_{k}": (p1[k] + p2[k]) / 2 for k in p1})
     return out
+
+
+def attention_backward(qkv, rows, csr, cot):
+    """One backward of the CSR attention, for ``timed``: autograd through a
+    graph built on first use by whatever the op module's wrapper is then
+    (this tree's, or the parent's in its turns under ``--parent``), one
+    graph for each, retained."""
+    import torch
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_ops
+
+    graphs = {}
+
+    def run():
+        fn = ea_ops.fused_edge_attention_csr
+        if fn not in graphs:
+            leaves = [t.detach().clone().requires_grad_(True) for t in qkv]
+            graphs[fn] = (fn(*leaves, *rows, csr), leaves)
+        out, leaves = graphs[fn]
+        return torch.autograd.grad(out, leaves, cot, retain_graph=True)
+
+    return run
 
 
 def parent_note(t):
@@ -1349,6 +1470,7 @@ def graded_phases(device, card):
     from graph_physics_tpu_torch import entry
     from graph_physics_tpu_torch.core import mesh as mesh_lib
     from graph_physics_tpu_torch.dataset import synthetic
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_ops
     from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
     from graph_physics_tpu_torch.ops import tiling as tiling_lib
     from graph_physics_tpu_torch.ops.edge_attention import edge_attention
@@ -1457,7 +1579,21 @@ def graded_phases(device, card):
             raise AssertionError("CSR attention: a receiver without valid rows is not exactly 0")
         log(f"  {len(gone)} receivers with their rows masked out and "
             f"{int((~tgraph.node_mask).sum())} padding nodes: exact zeros")
-        del out_e, ref_e, mask_e
+        # the statistics the forward keeps under autograd, against their
+        # plain version: the max to the logits' fp32 sum order, 1/denominator
+        # to a bf16 weight rounded the other way
+        kept, (m_k, inv_k) = ea_ops.KERNELS[0](q, k, v, *ta, mask_e, tcsr, keep_stats=True)
+        m_p, inv_p = ea_ops.softmax_stats(q, k, *ta, mask_e)
+        if not torch.equal(kept, out_e):
+            raise AssertionError("CSR attention: the forward keeping its statistics gives "
+                                 "another output")
+        has_rows = torch.isfinite(m_p)
+        compare("kept max logit", m_k, m_p, STATS_MAX_TOL, rows=has_rows)
+        compare("kept 1/denominator", inv_k, inv_p, STATS_INV_RTOL, rows=has_rows, atol=0.0)
+        if not torch.equal(torch.isinf(m_k), ~has_rows) or (inv_k[~has_rows] != 0).any():
+            raise AssertionError("CSR attention: the kept max and 1/denominator are not -inf "
+                                 "and 0 exactly where a receiver has no valid row")
+        del out_e, ref_e, mask_e, kept, m_k, inv_k, m_p, inv_p, has_rows
 
         tx = randn(n, b, tsim.model.hidden_size, scale=1.0)
         ffn_args = (tx, tblocks[0].gated_mlp, tblocks[0].norm2)
@@ -1524,9 +1660,11 @@ def graded_phases(device, card):
     # attention, a middle block and the forward of each model, both paths
     with torch.inference_mode():
         attn_args = (q, k, v, *ta, tgraph.edge_mask)
-        attn_t = {"ms": cuda_ms(lambda: attn(*attn_args, tcsr)),
-                  "plain_ms": cuda_ms(lambda: edge_attention(*attn_args)),
-                  "library_ms": None}
+        # through the op module's name, which --parent's turns point at the
+        # parent's wrapper
+        attn_t = dict(timed(lambda: ea_ops.fused_edge_attention_csr(*attn_args, tcsr),
+                            ATTN_CSR_LIBS, device=True),
+                      plain_ms=cuda_ms(lambda: edge_attention(*attn_args)), library_ms=None)
         ffn_t = dict(timed(lambda: ffn(*ffn_args), ["ffn"], device=True),
                      plain_ms=cuda_ms(lambda: gated_ffn_reference(*ffn_args)))
         adj = qd = None
@@ -1552,14 +1690,16 @@ def graded_phases(device, card):
                     "transformer_block_plain_ms": cuda_ms(lambda: tmid(*tblk))}
         epd_fwd = timed(lambda: sim.forward(graph, is_training=False), ["gn_csr_fwd"],
                         device=True)
-        tf_fwd = timed(lambda: tsim.forward(tgraph, is_training=False), ["ffn"], device=True)
+        tf_fwd = timed(lambda: tsim.forward(tgraph, is_training=False), ATTN_CSR_LIBS,
+                       device=True)
         fwd = {**{f"epd_forward_{k}": v for k, v in epd_fwd.items()},
                "epd_forward_plain_ms": cuda_ms(lambda: plain_sim.forward(graph,
                                                                           is_training=False)),
                **{f"transformer_forward_{k}": v for k, v in tf_fwd.items()},
                "transformer_forward_plain_ms": cuda_ms(
                    lambda: t_plain.forward(tgraph, is_training=False))}
-    log(f"  CSR attention time: kernel {attn_t['ms']:.4f} ms, plain {attn_t['plain_ms']:.4f} ms, "
+    log(f"  CSR attention time: kernel {attn_t['ms']:.4f} ms (device {attn_t['device_ms']:.4f})"
+        f"{parent_note(attn_t)}, plain {attn_t['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention with the adjacency mask: {lib_note} ({card})")
     log(f"  gated FFN time at the graded shape: kernel {ffn_t['ms']:.4f} ms (device "
         f"{ffn_t['device_ms']:.4f}), plain {ffn_t['plain_ms']:.4f} ms{parent_note(ffn_t)} "
@@ -1604,8 +1744,7 @@ def graded_phases(device, card):
              bound_ms=gn_bound[0], bound_by=gn_bound[1], library_ms=None,
              device_ms=timing["middle"]["device_ms"], variants=timing),
         dict(ATTN_CSR, route="cuda", launches=t_launches[0], max_abs_err=attn_err,
-             ms=attn_t["ms"], plain_ms=attn_t["plain_ms"], bound_ms=attn_bound[0],
-             bound_by=attn_bound[1], library_ms=attn_t["library_ms"]),
+             bound_ms=attn_bound[0], bound_by=attn_bound[1], **attn_t),
     ]
     return records, t_launches[1], dict(ffn_t, max_abs_err=ffn_err)
 
@@ -1705,10 +1844,14 @@ def graded_train_phases(device, card):
             raise AssertionError(f"CSR attention backward kernel out of bounds{label}")
         attn_err = max([attn_err] + [r.get("max_abs_err", float("inf")) for r in a_rows])
         if not label:  # 21. (kernel part)
-            attn_t = {"ms": cuda_ms(lambda: torch.autograd.grad(*kept["kernel"],
-                                                                retain_graph=True)),
-                      "plain_ms": cuda_ms(lambda: torch.autograd.grad(*kept["plain"],
-                                                                      retain_graph=True))}
+            backward = attention_backward((q, k, v), (*ta, m), tcsr, cot)
+            attn_t = dict(timed(backward, ATTN_CSR_LIBS, device=True),
+                          plain_ms=cuda_ms(lambda: torch.autograd.grad(*kept["plain"],
+                                                                       retain_graph=True)),
+                          passes=pass_split(backward))
+            log("  CSR attention backward device ms by pass: " + ", ".join(
+                f"{p} {ms:.4f}" for p, ms in sorted(attn_t["passes"].items(),
+                                                    key=lambda kv: -kv[1])))
         else:
             dq = torch.autograd.grad(*kept["kernel"], retain_graph=True)[0]
             empty = torch.cat([dq[gone], dq[~tgraph.node_mask]])
@@ -1784,7 +1927,8 @@ def graded_train_phases(device, card):
                 "transformer_block_fwd_bwd_plain_ms": cuda_ms(lambda: tf_block(None))}
     steps = {"epd": step_timing(train, plain_state, plain_step, 14,
                                 libs=("gn_csr_fwd", "gn_csr_bwd")),
-             "transformer": step_timing(ttrain, t_plain_state, t_plain_step, 15, libs=("ffn",))}
+             "transformer": step_timing(ttrain, t_plain_state, t_plain_step, 15,
+                                        libs=ATTN_CSR_LIBS)}
     for fam, st in steps.items():
         log(f"graded {fam} train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
             f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
@@ -1798,8 +1942,9 @@ def graded_train_phases(device, card):
         f"{blocks_t['transformer_block_fwd_bwd_ms']:.4f} / "
         f"{blocks_t['transformer_block_fwd_bwd_plain_ms']:.4f} ms (kernel / plain) ({card})")
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    attn_t["fwd_bwd_ms"] = cuda_ms(
-        lambda: torch.autograd.grad(attn(*leaves, *ta, tgraph.edge_mask, tcsr), leaves, cot))
+    fwd_bwd = timed(lambda: torch.autograd.grad(ea_ops.fused_edge_attention_csr(
+        *leaves, *ta, tgraph.edge_mask, tcsr), leaves, cot), ATTN_CSR_LIBS, device=True)
+    attn_t.update({f"fwd_bwd_{k}": v for k, v in fwd_bwd.items()})
     attn_t["library_ms"] = None
     adj = dense = cot_d = None
     try:  # dense [N, N] adjacency as the mask: 0.73 GB as bool
@@ -1816,8 +1961,11 @@ def graded_train_phases(device, card):
         attn_t["library_note"] = lib_note
     del adj, dense, cot_d, leaves
     torch.cuda.empty_cache()
-    log(f"  CSR attention backward: kernel {attn_t['ms']:.4f} ms, plain backward "
-        f"{attn_t['plain_ms']:.4f} ms; forward + backward: kernels {attn_t['fwd_bwd_ms']:.4f} ms, "
+    log(f"  CSR attention backward: kernel {attn_t['ms']:.4f} ms (device "
+        f"{attn_t['device_ms']:.4f}){parent_note(attn_t)}, plain backward "
+        f"{attn_t['plain_ms']:.4f} ms; forward + backward: kernels {attn_t['fwd_bwd_ms']:.4f} ms "
+        f"(device {attn_t['fwd_bwd_device_ms']:.4f})"
+        f"{parent_note({k[8:]: v for k, v in attn_t.items() if k.startswith('fwd_bwd_')})}, "
         f"scaled_dot_product_attention with the adjacency mask: {lib_note} ({card})")
     log("graded train timing " + json.dumps({
         "card": card, **{f"{fam}_{k}": v for fam, st in steps.items() for k, v in st.items()},
@@ -1830,7 +1978,8 @@ def graded_train_phases(device, card):
     # done per node; the attention
     # backward's q, k, v, g_out read and dq, dk, dv written (bf16), the row
     # arrays and the transpose read, 5 products of dh per valid row, sample
-    # and head
+    # and head (the kernels' reads of the forward's output and statistics
+    # are the design's, not the function's)
     nbytes, flops = gn_block_work(x_in, e_in, graph.edge_mask, blocks[1], backward=True)
     flops -= 3 * 2 * b * 2 * hidden * hidden * (valid - n)
     gn_bound = bound(nbytes + 2 * x_in.numel() + 4 * (n + 1) * 2 + 4 * valid, flops)
@@ -1844,8 +1993,7 @@ def graded_train_phases(device, card):
              plain_ms=gn_t["middle"]["plain_ms"], bound_ms=gn_bound[0], bound_by=gn_bound[1],
              library_ms=None, device_ms=gn_t["middle"]["device_ms"], variants=gn_t),
         dict(ATTN_CSR_BWD, route="cuda", launches=launches[attn.__name__][1],
-             max_abs_err=attn_err, ms=attn_t["ms"], plain_ms=attn_t["plain_ms"],
-             bound_ms=attn_bound[0], bound_by=attn_bound[1], library_ms=attn_t["library_ms"]),
+             max_abs_err=attn_err, bound_ms=attn_bound[0], bound_by=attn_bound[1], **attn_t),
     ]
     return records, launches, ffn_t
 

@@ -1,0 +1,167 @@
+// What the CSR edge-attention kernels (fused_edge_attention_csr.cu,
+// fused_edge_attention_csr_bwd.cu) share: a warp per (node, groups of
+// (sample, head) pairs), the staging of a node's row indices one warp-wide
+// load of 32 rows at a time, shared with __shfl_sync, and raw 16-byte
+// loads kept packed while they are in flight.
+#pragma once
+
+#include "ea_nk_common.cuh"
+
+namespace ea_csr {
+
+// The layout, the fastest of the alternatives timed on the H100 (PERF.md
+// §6): blocks of 256 threads, at least 4 an SM (__launch_bounds__), which
+// caps a thread at 64 registers, 32 warps an SM; a lane holds EPL = 8
+// bf16 values of a (sample, head) pair, one 16-byte copy a row; a warp
+// issues the copies of CHUNK = 4 rows together and walks SPAN = 4 pair
+// groups in turn on one set of staged row indices (a warp per receiver at
+// 16 samples x 4 heads of 16).
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int MIN_BLOCKS = 4;
+constexpr int EPL = 8;
+constexpr int CHUNK = 4;
+constexpr int SPAN = 4;
+
+template <int DH>
+struct Head {
+  static_assert(DH == 16 || DH == 32, "head widths 16 and 32");
+  static constexpr int LPP = DH / EPL;  // lanes per (sample, head) pair
+  static constexpr int PAIRS = 32 / LPP;  // pairs per warp
+  // 1/sqrt(dh), as the plain version scales
+  static constexpr float SCALE = DH == 16 ? 0.25f : 0.17677669529663687f;
+};
+
+// EPL = 8 bf16 values, packed
+using Packed = uint4;
+
+__device__ __forceinline__ Packed load_packed(const __nv_bfloat16* src) {
+  return __ldg(reinterpret_cast<const uint4*>(src));
+}
+
+__device__ __forceinline__ void unpack(float (&v)[EPL], const Packed& p) {
+  const uint32_t wd[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    v[2 * q] = __uint_as_float(wd[q] << 16);
+    v[2 * q + 1] = __uint_as_float(wd[q] & 0xffff0000u);
+  }
+}
+
+// EPL bf16 values (already bf16) packed
+__device__ __forceinline__ Packed pack(const float (&v)[EPL]) {
+  uint32_t wd[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    wd[q] = (__float_as_uint(v[2 * q]) >> 16) | (__float_as_uint(v[2 * q + 1]) & 0xffff0000u);
+  return make_uint4(wd[0], wd[1], wd[2], wd[3]);
+}
+
+// Σ_d a[d]·b[d] over the pair's DH values: each lane's EPL exact products
+// (bf16 × bf16 fits fp32) summed in fp32, then the pair's LPP lanes added
+// by a butterfly, which gives every lane of the pair the same bits. Both
+// stay packed until here, which keeps registers for loads in flight.
+template <int DH>
+__device__ __forceinline__ float pair_dot(const Packed& a, const Packed& b) {
+  float av[EPL], bv[EPL];
+  unpack(av, a);
+  unpack(bv, b);
+  float acc = 0.f;
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) acc = fmaf(av[e], bv[e], acc);
+#pragma unroll
+  for (int o = 1; o < Head<DH>::LPP; o *= 2) acc += __shfl_xor_sync(FULL, acc, o);
+  return acc;
+}
+
+// This lane's place in the grid. Pairs of a node come in groups of PAIRS;
+// warp w serves node w / warps_per_node and its SPAN groups from
+// (w % warps_per_node)·SPAN, one at a time (``group``); LPP neighbouring
+// lanes share a pair, lane part p holding its values p·EPL .. p·EPL +
+// EPL - 1. A lane past the node's last pair reads pair 0 and stores
+// nothing.
+template <int DH>
+struct Lane {
+  int node, first, last;  // the warp's node and its groups [first, last)
+  int pair, part;
+  bool active;
+
+  __device__ explicit Lane(int pairs_per_node) {
+    const int groups = (pairs_per_node + Head<DH>::PAIRS - 1) / Head<DH>::PAIRS;
+    const int per_node = (groups + SPAN - 1) / SPAN;
+    const long long w = static_cast<long long>(blockIdx.x) * WARPS + threadIdx.x / 32;
+    node = static_cast<int>(w / per_node);
+    first = static_cast<int>(w % per_node) * SPAN;
+    last = min(first + SPAN, groups);
+    part = (threadIdx.x % 32) % Head<DH>::LPP;
+    group(first, pairs_per_node);
+  }
+
+  // take this lane's pair in group g
+  __device__ __forceinline__ void group(int g, int pairs_per_node) {
+    const int p = g * Head<DH>::PAIRS + static_cast<int>(threadIdx.x % 32) / Head<DH>::LPP;
+    active = p < pairs_per_node;
+    pair = active ? p : 0;
+  }
+
+  // this lane's first value of node (or row) i in a [*, B, H, DH] tensor:
+  // the node's base in 64 bits (a tensor may hold 2^31 values or more),
+  // the lane's offset inside it in 32
+  __device__ __forceinline__ long long at(int i, int pairs_per_node) const {
+    return static_cast<long long>(i) * (pairs_per_node * DH) + (pair * DH + part * EPL);
+  }
+  // this lane's pair of node (or row) i in a [*, B, H] tensor
+  __device__ __forceinline__ long long stat(int i, int pairs_per_node) const {
+    return static_cast<long long>(i) * pairs_per_node + pair;
+  }
+  // the lane that stores the pair's per-pair values
+  __device__ __forceinline__ bool writes_pair() const { return active && part == 0; }
+};
+
+// blocks for one warp per (node, SPAN groups of pairs)
+template <int DH>
+inline int grid_for(int n_nodes, long long pairs_per_node) {
+  const long long groups = (pairs_per_node + Head<DH>::PAIRS - 1) / Head<DH>::PAIRS;
+  const long long per_node = (groups + SPAN - 1) / SPAN;
+  return static_cast<int>((n_nodes * per_node + WARPS - 1) / WARPS);
+}
+
+// The warp's staging area in shared memory: CHUNK rows x NT tensors of
+// each lane's EPL values, filled by cp.async, so that no register holds a
+// load in flight. Each lane reads back only what it copied, so the
+// lane's own cp.async.wait_all is the only wait.
+template <int NT>
+struct Stage {
+  static constexpr int WARP_VECS = CHUNK * NT * 32;  // 16-byte pieces a warp
+  // shared memory a block needs, within the 48 KB a launch gets unasked
+  static constexpr int BYTES = WARPS * WARP_VECS * 16;
+  static_assert(BYTES <= 48 * 1024, "the stage fits the default shared memory");
+  uint4* lane_base;
+
+  __device__ explicit Stage(uint4* smem)
+      : lane_base(smem + (threadIdx.x / 32) * WARP_VECS + threadIdx.x % 32) {}
+
+  // start copying this lane's EPL values at src into slot (row c, tensor t)
+  __device__ __forceinline__ void load(int c, int t, const __nv_bfloat16* src) const {
+    const uint32_t dst =
+        static_cast<uint32_t>(__cvta_generic_to_shared(lane_base + (c * NT + t) * 32));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+  }
+  // wait for this lane's copies
+  __device__ __forceinline__ static void wait() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+  __device__ __forceinline__ Packed get(int c, int t) const {
+    return lane_base[(c * NT + t) * 32];
+  }
+};
+
+// bf16 pair (lo, hi), both already bf16 values, as one 32-bit word, and back
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
+}
+__device__ __forceinline__ float lo_of(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_of(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+}  // namespace ea_csr

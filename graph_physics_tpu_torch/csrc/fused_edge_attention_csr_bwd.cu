@@ -5,233 +5,289 @@
 // fused_edge_attention.py: _bwd_kernel (:143), called by the custom VJP of
 // fused_edge_attention (pallas_call :360), without the world-edge sidecar.
 // Same function, on a graph of any degree: for every receiver r, sample b
-// and head h, over r's rows s with sender j_s, with the forward's p_s
-// (recomputed, shifted by the receiver's own max as
-// fused_edge_attention_csr.cu shifts) and their sum denom,
-//   inv    = denom > 0 ? 1/denom : 0
+// and head h, over r's valid rows s with sender j_s, from the forward's
+// output out[r] and the statistics it kept (fused_edge_attention_csr.cu:
+// the max m and inv = 1 / the softmax's denominator, 0 for a receiver
+// with no valid row),
+//   l_s    = sum_d q[r,d] * k[j_s,d] / sqrt(dh)
+//   p_s    = bf16(exp(l_s - m))                      (the forward's p_s)
 //   gp     = bf16(g_out[r] * inv)
-//   abar_s = bf16(sum_d bf16(v[j_s,d] * gp[d]))                    (fp32 sum)
-//   s_r    = bf16(sum_s bf16(p_s * abar_s) * inv)
+//   s_r    = bf16(sum_d gp[d] * out[r,d])            (= inv · sum_s p_s·abar_s)
+//   abar_s = bf16(sum_d v[j_s,d] * gp[d])
 //   g_s    = bf16(bf16(p_s * bf16(abar_s - s_r)) / sqrt(dh))
-//   dq[r]  = bf16(sum_s bf16(g_s * k[j_s]))
+//   dq[r]  = bf16(sum_s g_s * k[j_s])
 // and at every sender j, over the valid rows s that send from j,
-//   dk[j] = bf16(sum_s bf16(g_s * q[r_s])),  dv[j] = bf16(sum_s bf16(p_s * gp[r_s])).
-// A receiver with no valid row has inv = 0: its dq and everything it sends
-// back are exactly 0; a node that sends on no valid row gets dk = dv = 0.
-// The rounding is the NK backward's (fused_edge_attention_nk_bwd.cu).
+//   dk[j] = bf16(sum_s g_s * q[r_s]),  dv[j] = bf16(sum_s p_s * gp[r_s]).
+// Rounding: every product is of two bf16 values, exact in fp32, and every
+// sum is fp32; the values shown round to bf16. s_r is FlashAttention's D
+// term, taken from the forward's bf16 output instead of a walk over the
+// rows. A receiver with no valid row has inv = 0: its dq
+// and everything it sends back are exactly 0; a node that sends on no
+// valid row gets dk = dv = 0.
 //
 // What bounds it on this card: the graded transformer slice (27,008 nodes
 // x 16 samples x 4 heads x dh 16, 160,612 edges) must read q, k, v and
-// g_out and write dq, dk and dv, 7 x 55 MB = 387 MB, ~0.12 ms at
-// 3.35 TB/s; its ~1.6 GFLOP are nothing beside that. It is bound by memory
-// traffic.
+// g_out and write dq, dk and dv, 7 x 55 MB = 387 MB: 0.116 ms at 3.35 TB/s
+// with the row arrays; its ~1.6 GFLOP are nothing beside that. It is
+// bound by memory traffic. This design also reads the forward's output
+// (55 MB) and statistics (13.8 MB: m and inv, fp32 [27,008, 16, 4] each)
+// in place of a second walk of the rows. Each edge also gathers 2 KB
+// rows, k and v at its sender in the receiver pass, q and g_out at its
+// receiver in the sender pass: 1.3 GB through L2, which sets the pace.
 //
-// What the design does about it: the NK backward's two passes, and no
-// atomics, so the result is deterministic.
-//  1. receiver pass, one thread per (receiver, sample, head), as in the
-//     forward, with no cap on the degree: nothing per row stays in
-//     registers, so it walks the receiver's row range four times (the max
-//     of the logits; p and its sum; abar and s_r; g and dq), keeping p_s
-//     and abar_s, then g_s, in two bf16 per-row scratch arrays [S, B, H]
-//     (all three are bf16 values, so nothing is lost) and gp [N, B, H, dh];
-//  2. sender pass, one thread per (sender, sample, head): walk the valid
-//     rows that send from j in a sender-sorted row list (the transpose of
-//     the CSR rows, built once per layout by the wrapper) and sum
-//     g_s * q and p_s * gp of each row's receiver in registers.
-// Consecutive threads take consecutive heads, then samples, of one node,
-// so every row a warp reads or writes is contiguous memory.
+// What the design does about it: two passes, no atomics (deterministic),
+// each on the forward's layout: a warp per node walking its pair groups in
+// turn, its row indices staged per warp, a chunk of 4 rows' gathers copied
+// by cp.async into the warp's shared memory, 64 registers a thread
+// (ea_csr_common.cuh).
+//  1. receiver pass: one walk of each receiver's valid rows, reading k
+//     and v once: l_s, p_s, abar_s and g_s, and the sum dq. It keeps p_s
+//     and g_s, both bf16 values, for the sender pass, as one bf16 pair a
+//     (row, sample, head) at the row's place in the transpose: pg [S, B,
+//     H] (41 MB at the graded shape). The max and the denominator are the
+//     forward's; nothing else is recomputed or kept.
+//  2. sender pass: a warp per (sender, pair groups) walks the places of
+//     the valid rows that send from j (the transpose of the CSR rows,
+//     built once per layout by the wrapper), 32 receivers' indices staged
+//     at a time, reads pg there contiguously, gathers q and g_out of the
+//     row's receiver and its inv, and sums g_s · q and p_s · gp, gp formed
+//     in registers.
 
-#include "ea_nk_common.cuh"
+#include "ea_csr_common.cuh"
 
 namespace {
 
+using ea_csr::CHUNK;
+using ea_csr::EPL;
+using ea_csr::FULL;
+using ea_csr::Head;
+using ea_csr::Lane;
+using ea_csr::Packed;
 using ea_nk::bf;
-using ea_nk::load_vec;
-using ea_nk::store_vec;
-using ea_nk::THREADS;
 
 struct Args {
   const __nv_bfloat16* q;      // [N, B, H, dh]
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
+  const __nv_bfloat16* out;    // [N, B, H, dh] the forward's output
+  const float* m;              // [N, B, H] the forward's max logit
+  const float* inv;            // [N, B, H] 1 / the forward's denominator
   const __nv_bfloat16* g_out;  // [N, B, H, dh] cotangent of the output
   const int32_t* row_ptr;      // [N + 1] receiver r owns rows row_ptr[r]:row_ptr[r+1]
   const int32_t* senders;      // [S] sender per row (0 on padding)
-  const int32_t* receivers;    // [S] receiver per row
   const uint8_t* mask;         // [S] 1 on valid rows
-  const int32_t* order;        // the valid rows sorted by sender
-  const int32_t* offsets;      // [N + 1] node j sends on order[offsets[j]:offsets[j+1]]
+  // the transpose: the valid rows sorted by sender, node j sending on
+  // places offsets[j]:offsets[j+1]; place[s] is row s's place, recv[i]
+  // the receiver of the row at place i
+  const int32_t* offsets;      // [N + 1]
+  const int32_t* place;        // [S]
+  const int32_t* recv;         // [S]
   __nv_bfloat16* dq;           // [N, B, H, dh]
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
-  __nv_bfloat16* gp;           // [N, B, H, dh] scratch: bf16(g_out * inv)
-  __nv_bfloat16* p_row;        // [S, B, H] scratch: p_s
-  __nv_bfloat16* g_row;        // [S, B, H] scratch: abar_s, then g_s
+  uint32_t* pg;                // [S, B, H] scratch: bf16 pair (p_s, g_s) by place, valid rows
   int n_nodes, batch, heads;
 };
 
 template <int DH>
-__device__ __forceinline__ float logit(const float (&qv)[DH], const __nv_bfloat16* krow,
-                                       float sqrt_dh) {
-  float kv[DH];
-  load_vec<DH>(kv, krow);
-  float acc = 0.f;
+__global__ void __launch_bounds__(ea_csr::THREADS, ea_csr::MIN_BLOCKS)
+    ea_csr_bwd_recv_kernel(const Args a) {
+  const int pairs = a.batch * a.heads;
+  Lane<DH> ln(pairs);
+  if (ln.node >= a.n_nodes) return;  // the whole warp
+  extern __shared__ uint4 smem[];
+  const ea_csr::Stage<2> stage(smem);  // k and v of a chunk of rows
+  const int r = ln.node;
+  const int begin = a.row_ptr[r], end = a.row_ptr[r + 1];
+  const int lane = threadIdx.x % 32;
+  int sender0 = 0, place0 = 0;  // the first 32 rows, kept for every group
+  bool ok0 = false;
+  if (begin + lane < end) {
+    sender0 = a.senders[begin + lane];
+    place0 = a.place[begin + lane];
+    ok0 = a.mask[begin + lane] != 0;
+  }
+
+  for (int grp = ln.first; grp < ln.last; ++grp) {  // warp-uniform
+    ln.group(grp, pairs);
+    const Packed qv = ea_csr::load_packed(a.q + ln.at(r, pairs));
+    float gv[EPL], ov[EPL];
+    ea_nk::load_vec<EPL>(gv, a.g_out + ln.at(r, pairs));
+    ea_nk::load_vec<EPL>(ov, a.out + ln.at(r, pairs));
+    const float m = a.m[ln.stat(r, pairs)], inv = a.inv[ln.stat(r, pairs)];
+    float sr = 0.f;
 #pragma unroll
-  for (int d = 0; d < DH; ++d) acc += bf(qv[d] * kv[d]);
-  return acc / sqrt_dh;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(THREADS) ea_csr_bwd_recv_kernel(const Args a) {
-  const long long per_node = static_cast<long long>(a.batch) * a.heads;  // (b, h) pairs
-  const long long total = static_cast<long long>(a.n_nodes) * per_node;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const float sqrt_dh = sqrtf(static_cast<float>(DH));
-
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; t < total;
-       t += stride) {
-    const int r = static_cast<int>(t / per_node);
-    const long long bh = t % per_node;  // b * H + h
-    const int begin = a.row_ptr[r], end = a.row_ptr[r + 1];
-
-    float qv[DH];
-    load_vec<DH>(qv, a.q + t * DH);
-
-    // 1: the max of the valid rows' logits
-    float m = -CUDART_INF_F;
-    for (int s = begin; s < end; ++s)
-      if (a.mask[s]) m = fmaxf(m, logit<DH>(qv, a.k + (a.senders[s] * per_node + bh) * DH,
-                                            sqrt_dh));
-
-    // 2: p = bf16(exp(l - m)) per row, and its fp32 sum
-    float den = 0.f;
-    for (int s = begin; s < end; ++s) {
-      float p = 0.f;
-      if (a.mask[s])
-        p = bf(expf(logit<DH>(qv, a.k + (a.senders[s] * per_node + bh) * DH, sqrt_dh) - m));
-      a.p_row[s * per_node + bh] = __float2bfloat16_rn(p);
-      den += p;
+    for (int e = 0; e < EPL; ++e) {
+      gv[e] = bf(gv[e] * inv);
+      sr = fmaf(gv[e], ov[e], sr);
     }
-    const float inv = den > 0.f ? 1.0f / den : 0.f;
-
-    float gp[DH];
-    load_vec<DH>(gp, a.g_out + t * DH);
+    const Packed gp = ea_csr::pack(gv);
 #pragma unroll
-    for (int d = 0; d < DH; ++d) gp[d] = bf(gp[d] * inv);
-    store_vec<DH>(a.gp + t * DH, gp);
+    for (int o = 1; o < Head<DH>::LPP; o *= 2) sr += __shfl_xor_sync(FULL, sr, o);
+    sr = bf(sr);
 
-    // 3: abar_s and s_r
-    float sacc = 0.f;
-    for (int s = begin; s < end; ++s) {
-      const float p = __bfloat162float(a.p_row[s * per_node + bh]);
-      float ab = 0.f;
-      if (p != 0.f) {
-        float vv[DH];
-        load_vec<DH>(vv, a.v + (a.senders[s] * per_node + bh) * DH);
-        float acc = 0.f;
+    float dq[EPL];
 #pragma unroll
-        for (int d = 0; d < DH; ++d) acc += bf(vv[d] * gp[d]);
-        ab = bf(acc);
-        sacc += bf(p * ab);
+    for (int e = 0; e < EPL; ++e) dq[e] = 0.f;
+    for (int base = begin; base < end; base += 32) {
+      int sender = sender0, place = place0;
+      bool ok = ok0;
+      if (base != begin) {  // the next 32 rows
+        sender = place = 0;
+        ok = false;
+        if (base + lane < end) {
+          sender = a.senders[base + lane];
+          place = a.place[base + lane];
+          ok = a.mask[base + lane] != 0;
+        }
       }
-      a.g_row[s * per_node + bh] = __float2bfloat16_rn(ab);
-    }
-    const float s_r = bf(sacc * inv);
-
-    // 4: g_s (over abar_s in the scratch) and dq
-    float dq[DH];
+      unsigned left = __ballot_sync(FULL, ok);
+      while (left) {  // warp-uniform: a chunk of up to CHUNK valid rows
+        int js[CHUNK], places[CHUNK];
+        int count = 0;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) dq[d] = 0.f;
-    for (int s = begin; s < end; ++s) {
-      float g = 0.f;
-      if (a.mask[s]) {
-        const float p = __bfloat162float(a.p_row[s * per_node + bh]);
-        const float ab = __bfloat162float(a.g_row[s * per_node + bh]);
-        g = bf(bf(p * bf(ab - s_r)) / sqrt_dh);
-        float kv[DH];
-        load_vec<DH>(kv, a.k + (a.senders[s] * per_node + bh) * DH);
+        for (int c = 0; c < CHUNK; ++c) {
+          const int from = left ? __ffs(left) - 1 : 0;
+          js[c] = __shfl_sync(FULL, sender, from);
+          places[c] = __shfl_sync(FULL, place, from);
+          if (left) {
+            ++count;
+            left &= left - 1;
+          }
+        }
 #pragma unroll
-        for (int d = 0; d < DH; ++d) dq[d] += bf(g * kv[d]);
+        for (int c = 0; c < CHUNK; ++c)
+          if (c < count) {
+            stage.load(c, 0, a.k + ln.at(js[c], pairs));
+            stage.load(c, 1, a.v + ln.at(js[c], pairs));
+          }
+        stage.wait();
+#pragma unroll
+        for (int c = 0; c < CHUNK; ++c)
+          if (c < count) {
+            const Packed kr = stage.get(c, 0);
+            const float l = ea_csr::pair_dot<DH>(qv, kr) * Head<DH>::SCALE;
+            const float p = bf(expf(l - m));
+            const float abar = bf(ea_csr::pair_dot<DH>(gp, stage.get(c, 1)));
+            const float g = bf(bf(p * bf(abar - sr)) * Head<DH>::SCALE);
+            float kv[EPL];
+            ea_csr::unpack(kv, kr);
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) dq[e] = fmaf(g, kv[e], dq[e]);
+            if (ln.writes_pair()) a.pg[ln.stat(places[c], pairs)] = ea_csr::pack2(p, g);
+          }
       }
-      a.g_row[s * per_node + bh] = __float2bfloat16_rn(g);
     }
-    store_vec<DH>(a.dq + t * DH, dq);
+    if (ln.active) ea_nk::store_vec<EPL>(a.dq + ln.at(r, pairs), dq);
   }
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS) ea_csr_bwd_send_kernel(const Args a) {
-  const long long per_node = static_cast<long long>(a.batch) * a.heads;
-  const long long total = static_cast<long long>(a.n_nodes) * per_node;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+__global__ void __launch_bounds__(ea_csr::THREADS, ea_csr::MIN_BLOCKS)
+    ea_csr_bwd_send_kernel(const Args a) {
+  const int pairs = a.batch * a.heads;
+  Lane<DH> ln(pairs);
+  if (ln.node >= a.n_nodes) return;  // the whole warp
+  extern __shared__ uint4 smem[];
+  const ea_csr::Stage<2> stage(smem);  // q and g_out of a chunk of rows' receivers
+  const int j = ln.node;
+  const int lo = a.offsets[j], hi = a.offsets[j + 1];
+  const int lane = threadIdx.x % 32;
+  // the receivers of the first 32 rows sending from j, kept for every group
+  const int recv0 = lo + lane < hi ? a.recv[lo + lane] : 0;
 
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; t < total;
-       t += stride) {
-    const int j = static_cast<int>(t / per_node);
-    const long long bh = t % per_node;
-    float dk[DH], dv[DH];
+  for (int grp = ln.first; grp < ln.last; ++grp) {  // warp-uniform
+    ln.group(grp, pairs);
+    float dk[EPL], dv[EPL];
 #pragma unroll
-    for (int d = 0; d < DH; ++d) dk[d] = dv[d] = 0.f;
-    const int hi = a.offsets[j + 1];
-    for (int i = a.offsets[j]; i < hi; ++i) {
-      const long long s = a.order[i];
-      const long long r = a.receivers[s];
-      const float g = __bfloat162float(a.g_row[s * per_node + bh]);
-      const float p = __bfloat162float(a.p_row[s * per_node + bh]);
-      float qv[DH], gv[DH];
-      load_vec<DH>(qv, a.q + (r * per_node + bh) * DH);
-      load_vec<DH>(gv, a.gp + (r * per_node + bh) * DH);
+    for (int e = 0; e < EPL; ++e) dk[e] = dv[e] = 0.f;
+    for (int base = lo; base < hi; base += 32) {
+      int recv = recv0;
+      if (base != lo) recv = base + lane < hi ? a.recv[base + lane] : 0;  // the next 32
+      const int n = min(32, hi - base);
+      for (int head = 0; head < n; head += CHUNK) {  // warp-uniform
+        const int count = min(CHUNK, n - head);
+        int rs[CHUNK];
 #pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        dk[d] += bf(g * qv[d]);
-        dv[d] += bf(p * gv[d]);
+        for (int c = 0; c < CHUNK; ++c) rs[c] = __shfl_sync(FULL, recv, (head + c) & 31);
+        uint32_t pgs[CHUNK];
+        float invs[CHUNK];
+#pragma unroll
+        for (int c = 0; c < CHUNK; ++c)
+          if (c < count) {
+            stage.load(c, 0, a.q + ln.at(rs[c], pairs));
+            stage.load(c, 1, a.g_out + ln.at(rs[c], pairs));
+            pgs[c] = __ldg(a.pg + ln.stat(base + head + c, pairs));
+            invs[c] = __ldg(a.inv + ln.stat(rs[c], pairs));
+          }
+        stage.wait();
+#pragma unroll
+        for (int c = 0; c < CHUNK; ++c)
+          if (c < count) {
+            const float p = ea_csr::lo_of(pgs[c]), g = ea_csr::hi_of(pgs[c]);
+            float qv[EPL], go[EPL];
+            ea_csr::unpack(qv, stage.get(c, 0));
+            ea_csr::unpack(go, stage.get(c, 1));
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) {
+              dk[e] = fmaf(g, qv[e], dk[e]);
+              dv[e] = fmaf(p, bf(go[e] * invs[c]), dv[e]);
+            }
+          }
       }
     }
-    store_vec<DH>(a.dk + t * DH, dk);
-    store_vec<DH>(a.dv + t * DH, dv);
+    if (ln.active) {
+      ea_nk::store_vec<EPL>(a.dk + ln.at(j, pairs), dk);
+      ea_nk::store_vec<EPL>(a.dv + ln.at(j, pairs), dv);
+    }
   }
 }
 
 template <int DH>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const long long grid = ea_nk::grid_for(static_cast<long long>(a.n_nodes) * a.batch * a.heads);
-  ea_csr_bwd_recv_kernel<DH><<<static_cast<int>(grid), THREADS, 0, stream>>>(a);
+  const int grid = ea_csr::grid_for<DH>(a.n_nodes, a.batch * a.heads);
+  constexpr int smem = ea_csr::Stage<2>::BYTES;
+  ea_csr_bwd_recv_kernel<DH><<<grid, ea_csr::THREADS, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ea_csr_bwd_send_kernel<DH><<<static_cast<int>(grid), THREADS, 0, stream>>>(a);
+  ea_csr_bwd_send_kernel<DH><<<grid, ea_csr::THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, g_out, dq, dk, dv, gp: contiguous bf16 [n_nodes, batch, heads,
-// head_dim]; row_ptr (int32, n_nodes + 1 entries) indexes the rows of
-// senders, receivers (int32) and mask (bool); p_row, g_row: bf16
-// [rows, batch, heads] scratch; order (int32, the valid rows sorted by
-// sender) and offsets (int32, [n_nodes + 1]) the transpose of the rows.
-// Returns the CUDA error code of the launches (0 on success).
-extern "C" int ea_csr_bwd(const void* q, const void* k, const void* v, const void* g_out,
-                          const void* row_ptr, const void* senders, const void* receivers,
-                          const void* mask, const void* order, const void* offsets, void* dq,
-                          void* dk, void* dv, void* gp, void* p_row, void* g_row, int n_nodes,
-                          int batch, int heads, int head_dim, void* stream) {
+// q, k, v, out, g_out, dq, dk, dv: contiguous bf16 [n_nodes, batch, heads,
+// head_dim]; m, inv: the forward's fp32 [n_nodes, batch, heads]; row_ptr
+// (int32, n_nodes + 1 entries) indexes the rows of senders (int32) and
+// mask (bool); offsets (int32, [n_nodes + 1]), place and recv (int32,
+// [rows]) the transpose of the rows: node j sends on places
+// offsets[j]:offsets[j+1], row s has place place[s], and the row at place
+// i has receiver recv[i]; pg: 32-bit [rows, batch, heads] scratch. Returns the CUDA error code of the
+// launches (0 on success).
+extern "C" int ea_csr_bwd(const void* q, const void* k, const void* v, const void* out,
+                          const void* m, const void* inv, const void* g_out, const void* row_ptr,
+                          const void* senders, const void* mask, const void* offsets,
+                          const void* place, const void* recv, void* dq, void* dk, void* dv,
+                          void* pg, int n_nodes, int batch, int heads, int head_dim,
+                          void* stream) {
   Args a = {};
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
   a.v = static_cast<const __nv_bfloat16*>(v);
+  a.out = static_cast<const __nv_bfloat16*>(out);
+  a.m = static_cast<const float*>(m);
+  a.inv = static_cast<const float*>(inv);
   a.g_out = static_cast<const __nv_bfloat16*>(g_out);
   a.row_ptr = static_cast<const int32_t*>(row_ptr);
   a.senders = static_cast<const int32_t*>(senders);
-  a.receivers = static_cast<const int32_t*>(receivers);
   a.mask = static_cast<const uint8_t*>(mask);
-  a.order = static_cast<const int32_t*>(order);
   a.offsets = static_cast<const int32_t*>(offsets);
+  a.place = static_cast<const int32_t*>(place);
+  a.recv = static_cast<const int32_t*>(recv);
   a.dq = static_cast<__nv_bfloat16*>(dq);
   a.dk = static_cast<__nv_bfloat16*>(dk);
   a.dv = static_cast<__nv_bfloat16*>(dv);
-  a.gp = static_cast<__nv_bfloat16*>(gp);
-  a.p_row = static_cast<__nv_bfloat16*>(p_row);
-  a.g_row = static_cast<__nv_bfloat16*>(g_row);
+  a.pg = static_cast<uint32_t*>(pg);
   a.n_nodes = n_nodes;
   a.batch = batch;
   a.heads = heads;

@@ -95,7 +95,7 @@ class EncodeTransformDecode(nn.Module):
     ``tiling`` set, blocks on a packed bf16 graph in that NK slot or CSR
     layout run their attention and FFN halves as kernels; without it
     every block takes the plain path. Multigrid,
-    the temporal block, remat and sp are not ported (ROADMAP A 14, A 15)."""
+    the temporal block, remat and sp are not ported (ROADMAP A 7, A 9)."""
 
     def __init__(
         self,

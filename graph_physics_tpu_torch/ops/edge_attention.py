@@ -11,7 +11,7 @@ bsddmm / sparse softmax / bspmm):
 Node arrays are [N, H, D] or packed [N, B, H, D] (node axis first); the
 gathers and scatters act on axis 0. Padded edges contribute nothing and a
 node with no valid in-edge returns zeros. The world-edge sidecar
-(ROADMAP A 11) and sequence parallelism (A 15) are not ported.
+(ROADMAP A 5) and sequence parallelism (A 9) are not ported.
 """
 
 from __future__ import annotations

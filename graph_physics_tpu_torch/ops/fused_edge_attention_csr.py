@@ -3,17 +3,21 @@
 Replaces the TPU Pallas kernels graph_physics_tpu/ops/fused_edge_attention.py:
 _fwd_kernel (:124) and _bwd_kernel (:143) behind fused_edge_attention
 (:206), without ``world_parts`` (the world sidecar, ROADMAP A 5). The
-forward CUDA kernel (``csrc/fused_edge_attention_csr.cu``) runs one thread
-per (receiver, sample, head) and two passes over the receiver's CSR rows
-(the max of the logits, then exp and the weighted sum), so the degree has
-no cap; the backward (``csrc/fused_edge_attention_csr_bwd.cu``) recomputes
-the softmax the same way, writes dq, and sums dk and dv at each sender
-over the layout's sender-sorted row list, with no atomics. See the
+forward CUDA kernel (``csrc/fused_edge_attention_csr.cu``) walks each
+receiver's CSR rows once, a warp per receiver walking its groups of
+samples and heads, with an online softmax across chunks of rows, so the
+degree has no cap; under autograd it also keeps the softmax statistics (the max and 1 /
+the denominator, fp32 [N, B, H]). The backward
+(``csrc/fused_edge_attention_csr_bwd.cu``) takes them and the forward's
+output, walks each receiver's rows once for dq, and sums dk and dv at each
+sender over the layout's sender-sorted rows (:func:`sender_places`), with
+no atomics. See the
 sources' headers for the designs and the bounds.
 
 The plain version is :func:`ops.edge_attention.edge_attention` on the
 graph's CSR edge list, and its gradient plain autograd
-(:func:`edge_attention_backward_reference`). The wrapper uses it for
+(:func:`edge_attention_backward_reference`); :func:`softmax_stats` is the
+plain version of the kept statistics. The wrapper uses them for
 tensors on the CPU; for CUDA tensors it launches the kernels (the backward
 through ``torch.autograd.Function``) or raises.
 """
@@ -21,19 +25,20 @@ through ``torch.autograd.Function``) or raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from graph_physics_tpu_torch.ops import kernel_build
+from graph_physics_tpu_torch.ops import kernel_build, segment
 from graph_physics_tpu_torch.ops.edge_attention import edge_attention
 from graph_physics_tpu_torch.ops.fused_edge_attention_nk import KERNEL_HEAD_DIMS
 from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "edge_attention_csr": {"ea_csr_fwd": [_vp] * 7 + [_i] * 4 + [_vp]},
-    "edge_attention_csr_bwd": {"ea_csr_bwd": [_vp] * 16 + [_i] * 4 + [_vp]},
+    "edge_attention_csr": {"ea_csr_fwd": [_vp] * 9 + [_i] * 4 + [_vp]},
+    "edge_attention_csr_bwd": {"ea_csr_bwd": [_vp] * 17 + [_i] * 4 + [_vp]},
 }
 
 
@@ -45,31 +50,58 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(q, k, v, senders, receivers, edge_mask, csr):
+def _launch_fwd(q, k, v, senders, receivers, edge_mask, csr, keep_stats=False):
+    """The output (bf16), and with ``keep_stats`` the softmax statistics
+    (m, inv) the backward takes, from the forward kernel."""
     n, b, h, dh = q.shape
     out = torch.empty_like(q)
+    m = inv = None
+    if keep_stats:
+        m, inv = (torch.empty((n, b, h), dtype=torch.float32, device=q.device) for _ in range(2))
     err = _load("edge_attention_csr").ea_csr_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        m.data_ptr() if keep_stats else None, inv.data_ptr() if keep_stats else None,
         csr.row_ptr_on(q.device).data_ptr(), senders.data_ptr(), edge_mask.data_ptr(),
         n, b, h, dh, _stream(q))
     if err != 0:
         raise RuntimeError(f"fused_edge_attention_csr launch failed with CUDA error {err}")
     fused_edge_attention_csr.launches += 1
-    return out
+    return (out, (m, inv)) if keep_stats else out
 
 
-def _launch_bwd(q, k, v, senders, receivers, edge_mask, csr, g_out):
-    """dq, dk, dv (bf16) from the backward kernel."""
-    n, b, h, dh = q.shape
+def sender_places(senders, receivers, edge_mask, csr):
+    """The transpose of the CSR rows as the backward's sender pass walks
+    it: (offsets, place, recv), int32, where node j sends on the places
+    ``offsets[j]:offsets[j+1]`` (the valid rows sorted by sender,
+    :func:`ops.tiling.cached_sender_slots`), ``place[s]`` is row s's place
+    and ``recv[i]`` the receiver of the row at place i. Kept on the layout
+    beside the transpose it is built from, for the same arrays."""
     order, offsets = cached_sender_slots(senders, edge_mask, csr)
-    dq, dk, dv, gp = (torch.empty_like(q) for _ in range(4))
-    p_row = torch.empty((csr.total_rows, b, h), dtype=q.dtype, device=q.device)
-    g_row = torch.empty_like(p_row)
+    hit = csr.derived.get("sender_places")
+    if hit is None or hit[0] is not order or hit[1] is not receivers or \
+            hit[2] != receivers._version:
+        rows = order.long()
+        place = torch.empty_like(order)
+        place[rows] = torch.arange(rows.numel(), dtype=order.dtype, device=order.device)
+        hit = (order, receivers, receivers._version,
+               (offsets, place, receivers.index_select(0, rows)))
+        csr.derived["sender_places"] = hit
+    return hit[3]
+
+
+def _launch_bwd(q, k, v, senders, receivers, edge_mask, csr, g_out, saved):
+    """dq, dk, dv (bf16) from the backward kernels, given ``saved`` = the
+    forward's (out, m, inv)."""
+    n, b, h, dh = q.shape
+    out, m, inv = saved
+    offsets, place, recv = sender_places(senders, receivers, edge_mask, csr)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    pg = torch.empty((csr.total_rows, b, h), dtype=torch.int32, device=q.device)
     err = _load("edge_attention_csr_bwd").ea_csr_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(),
-        csr.row_ptr_on(q.device).data_ptr(), senders.data_ptr(), receivers.data_ptr(),
-        edge_mask.data_ptr(), order.data_ptr(), offsets.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), gp.data_ptr(), p_row.data_ptr(), g_row.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m.data_ptr(),
+        inv.data_ptr(), g_out.data_ptr(), csr.row_ptr_on(q.device).data_ptr(),
+        senders.data_ptr(), edge_mask.data_ptr(), offsets.data_ptr(), place.data_ptr(),
+        recv.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), pg.data_ptr(),
         n, b, h, dh, _stream(q))
     if err != 0:
         raise RuntimeError(f"fused_edge_attention_csr backward launch failed with CUDA error "
@@ -78,20 +110,44 @@ def _launch_bwd(q, k, v, senders, receivers, edge_mask, csr, g_out):
     return dq, dk, dv
 
 
-def _reference_fwd(q, k, v, senders, receivers, edge_mask, csr):
-    return edge_attention(q, k, v, senders, receivers, edge_mask)
+def softmax_stats(q, k, senders, receivers, edge_mask):
+    """Plain version of the statistics the forward kernel keeps for the
+    backward, fp32 [N, B, H] each: ``m``, the max of each receiver's valid
+    logits (-inf where it has none), and ``inv`` = 1 / Σ bf16(exp(logit -
+    m)) over them (0 where it has none). The logits are
+    :func:`ops.edge_attention.edge_attention`'s."""
+    n, dh = q.shape[0], q.shape[-1]
+    logits = (q.index_select(0, receivers).float() * k.index_select(0, senders).float()).sum(-1)
+    logits = logits * (1.0 / math.sqrt(dh))
+    m = segment.segment_max(logits, receivers, n, mask=edge_mask)
+    p = torch.exp(logits - m.index_select(0, receivers)).to(torch.bfloat16).float()
+    den = segment.segment_sum(p, receivers, n, mask=edge_mask)
+    inv = torch.where(den > 0, 1.0 / den, torch.zeros((), device=den.device))
+    return m, inv
 
 
-def edge_attention_backward_reference(q, k, v, senders, receivers, edge_mask, csr, g_out):
+def _reference_fwd(q, k, v, senders, receivers, edge_mask, csr, keep_stats=False):
+    out = edge_attention(q, k, v, senders, receivers, edge_mask)
+    if keep_stats:
+        return out, softmax_stats(q, k, senders, receivers, edge_mask)
+    return out
+
+
+def edge_attention_backward_reference(q, k, v, senders, receivers, edge_mask, csr, g_out,
+                                      saved=None):
     """Plain version of the backward kernel: (dq, dk, dv) of Σ out·g_out by
-    plain autograd of :func:`ops.edge_attention.edge_attention`."""
+    plain autograd of :func:`ops.edge_attention.edge_attention`. It takes
+    the forward's ``saved`` (out, m, inv) as the kernel does, and needs
+    none of it."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         out = edge_attention(*leaves, senders, receivers, edge_mask)
         return torch.autograd.grad(out, leaves, g_out)
 
 
-#: the forward and backward as kernels, and as plain versions
+#: the forward and backward as kernels, and as plain versions: the forward
+#: called with ``keep_stats=True`` returns (out, (m, inv)), and the
+#: backward takes (out, m, inv) as ``saved``
 KERNELS = (_launch_fwd, _launch_bwd)
 PLAIN = (_reference_fwd, edge_attention_backward_reference)
 
@@ -103,16 +159,17 @@ class _FusedEdgeAttentionCSR(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, senders, receivers, edge_mask, csr, impl):
-        ctx.save_for_backward(q, k, v, senders, receivers, edge_mask)
+        out, stats = impl[0](q, k, v, senders, receivers, edge_mask, csr, keep_stats=True)
+        ctx.save_for_backward(q, k, v, senders, receivers, edge_mask, out, *stats)
         ctx.csr, ctx.impl = csr, impl
-        return impl[0](q, k, v, senders, receivers, edge_mask, csr)
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_out):
-        q, k, v, senders, receivers, edge_mask = ctx.saved_tensors
+        q, k, v, senders, receivers, edge_mask, *saved = ctx.saved_tensors
         dq, dk, dv = ctx.impl[1](q, k, v, senders, receivers, edge_mask, ctx.csr,
-                                 g_out.contiguous())
+                                 g_out.contiguous(), saved)
         return dq, dk, dv, None, None, None, None, None
 
 

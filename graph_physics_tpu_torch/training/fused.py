@@ -13,7 +13,7 @@ Left out, with their reasons:
   * ``wb_buckets`` and the RCM reorder: they serve the TPU kernel's sender
     windows, which the CSR layout does not have;
   * ``transform_packed`` and the static-template fast path: they belong
-    to the loader (ROADMAP A 8);
+    to the loader (ROADMAP A 4);
   * ``NKBucketTiling`` (:320-338): where JAX may take the per-block-K NK
     layout for an ``epd`` model, this manager takes the CSR or the
     global-K NK layout. That changes the kernels' schedule, not the

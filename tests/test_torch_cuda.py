@@ -586,13 +586,14 @@ def test_csr_gn_kernel_matches_plain_version(cuda_device, variant, batch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 32])
 @pytest.mark.parametrize("batch", [2, 33])
-def test_csr_attention_kernel_matches_plain_version(cuda_device, batch):
+def test_csr_attention_kernel_matches_plain_version(cuda_device, batch, head_dim):
     setup = entry.graded_transformer_setup(cuda_device, num_nodes=1500, batch=batch,
                                            mp_steps=2)
     g, csr = setup.graph, setup.tiling
     gen = torch.Generator(device=cuda_device).manual_seed(batch)
-    q, k, v = [(0.5 * torch.randn((csr.num_nodes, batch, 4, 16), generator=gen,
+    q, k, v = [(0.5 * torch.randn((csr.num_nodes, batch, 4, head_dim), generator=gen,
                                   device=cuda_device)).to(torch.bfloat16) for _ in range(3)]
     gone = torch.tensor([0, 7, csr.num_nodes // 2], device=cuda_device)
     mask = g.edge_mask & ~torch.isin(g.receivers, gone)  # three receivers with no valid row
@@ -606,6 +607,87 @@ def test_csr_attention_kernel_matches_plain_version(cuda_device, batch):
         torch.testing.assert_close(out.float(), ref.float(), rtol=0.03, atol=0.02)
     empty = torch.cat([out[gone], out[1500:]])  # and the padding nodes
     assert torch.equal(empty, torch.zeros_like(empty))
+
+
+#: the attention hub mesh's receivers: two hubs (more than one chunk of
+#: rows, so the forward's online rescale runs), receivers with no row,
+#: receivers whose rows are all masked
+ATTN_HUBS = {3: 40, 9: 300}
+
+
+def _attention_hub_case(cuda_device, batch, head_dim, seed):
+    """q, k, v, the row arrays and the CSR layout of a 384-node graph with
+    receivers of 40 and 300 valid rows (and one masked row each, between
+    valid ones), ten receivers with no row, ten whose rows are all masked
+    and node N-1 owning 9 rows; the others take 1 to 6 rows from random
+    senders."""
+    rng = np.random.default_rng(seed)
+    n = 384
+    degree = rng.integers(1, 7, n)
+    degree[list(NO_ROWS)], degree[n - 1] = 0, 9
+    for hub, valid in ATTN_HUBS.items():
+        degree[hub] = valid + 1
+    receivers = np.repeat(np.arange(n), degree)
+    rng.shuffle(receivers)
+    senders = rng.integers(0, n, receivers.size)
+    layout = build_csr_layout(senders, receivers, n)
+    valid = layout.perm >= 0
+    ids = layout.perm[valid]
+    rows = layout.total_rows
+    s_rows, r_rows = np.zeros(rows, np.int32), np.full(rows, n - 1, np.int32)
+    s_rows[valid], r_rows[valid] = senders[ids], receivers[ids]
+    m_rows = valid & ~np.isin(r_rows, list(MASKED_ROWS))
+    for hub in ATTN_HUBS:  # one masked row inside each hub's range
+        m_rows[layout.row_ptr[hub] + 5] = False
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    q, k, v = [(0.5 * torch.randn((n, batch, 4, head_dim), generator=gen,
+                                  device=cuda_device)).to(torch.bfloat16) for _ in range(3)]
+
+    def dev(a):
+        return torch.as_tensor(a, device=cuda_device).contiguous()
+
+    return (q, k, v), (dev(s_rows), dev(r_rows), dev(m_rows)), layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("batch", [1, 17])
+def test_csr_attention_kernel_on_hub_receivers_and_empty_receivers(cuda_device, batch,
+                                                                   head_dim):
+    """The forward's chunks and online rescale on receivers of 40 and 300
+    valid rows, with exact zeros where a receiver has no valid row; the
+    statistics it keeps against their plain version (the max to fp32
+    rounding of the logits' sum order, 1/denominator to 5e-3: a logit an
+    ulp apart can round its bf16 weight the other way, and across chunks
+    the weights round against the running max)."""
+    qkv, rows, csr = _attention_hub_case(cuda_device, batch, head_dim, seed=batch + head_dim)
+    mask = rows[2].cpu().numpy()
+    for hub, valid in ATTN_HUBS.items():
+        assert mask[csr.row_ptr[hub]:csr.row_ptr[hub + 1]].sum() == valid
+    before = fused_edge_attention_csr.launches
+    with torch.no_grad():
+        out = fused_edge_attention_csr(*qkv, *rows, csr)
+        torch.cuda.synchronize()
+        assert fused_edge_attention_csr.launches == before + 1
+        ref = edge_attention(*qkv, *rows)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0.03, atol=0.02)
+        empty = out[list(NO_ROWS) + list(MASKED_ROWS)]
+        assert torch.equal(empty, torch.zeros_like(empty))
+        kept, (m, inv) = ea_csr_ops.KERNELS[0](*qkv, *rows, csr, keep_stats=True)
+        pm, pinv = ea_csr_ops.softmax_stats(*qkv[:2], *rows)
+    assert torch.equal(kept, out)
+    torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(inv, pinv, rtol=5e-3, atol=0)
+
+
+@pytest.mark.cuda
+def test_csr_attention_kernel_is_bit_identical_across_calls(cuda_device):
+    """No atomics: two calls give the same output and statistics."""
+    qkv, rows, csr = _attention_hub_case(cuda_device, 17, 16, seed=7)
+    calls = [ea_csr_ops.KERNELS[0](*qkv, *rows, csr, keep_stats=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    (a, (am, ai)), (b, (bm, bi)) = calls
+    assert torch.equal(a, b) and torch.equal(am, bm) and torch.equal(ai, bi)
 
 
 @pytest.mark.cuda
@@ -778,8 +860,10 @@ def test_csr_gn_backward_kernel_dx_de_are_bit_identical_across_calls(cuda_device
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 32])
 @pytest.mark.parametrize("num_nodes,batch", [(1500, 2), (1500, 33), (27_000, 16)])
-def test_csr_attention_backward_kernel_matches_plain_backward(cuda_device, num_nodes, batch):
+def test_csr_attention_backward_kernel_matches_plain_backward(cuda_device, num_nodes, batch,
+                                                              head_dim):
     """Against autograd of edge_attention and fp32 autograd (bounds:
     utils/gradcheck.py); dq exactly 0 where a receiver has no valid row,
     and dk, dv exactly 0 on nodes that send on none (the padding nodes)."""
@@ -787,7 +871,7 @@ def test_csr_attention_backward_kernel_matches_plain_backward(cuda_device, num_n
                                            mp_steps=1)
     g, csr = setup.graph, setup.tiling
     gen = torch.Generator(device=cuda_device).manual_seed(batch)
-    *qkv, cot = [(s * torch.randn((csr.num_nodes, batch, 4, 16), generator=gen,
+    *qkv, cot = [(s * torch.randn((csr.num_nodes, batch, 4, head_dim), generator=gen,
                                   device=cuda_device)).to(torch.bfloat16)
                  for s in (0.5, 0.5, 0.5, 1.0)]
     gone = torch.tensor([0, 7, csr.num_nodes // 2], device=cuda_device)
@@ -811,6 +895,109 @@ def test_csr_attention_backward_kernel_matches_plain_backward(cuda_device, num_n
     pad = ~g.node_mask
     for t in (dq[gone], dq[pad], dk[pad], dv[pad]):
         assert torch.equal(t, torch.zeros_like(t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("batch", [1, 17])
+def test_csr_attention_backward_kernel_on_hub_receivers_and_empty_receivers(
+        cuda_device, batch, head_dim):
+    """The backward on receivers of 40 and 300 valid rows (the forward's
+    statistics kept across chunks), against autograd of edge_attention and
+    fp32 autograd (utils/gradcheck.py); dq exactly 0 where a receiver has
+    no valid row, dk and dv where a node sends on none."""
+    qkv, rows, csr = _attention_hub_case(cuda_device, batch, head_dim, seed=50 + batch)
+    gen = torch.Generator(device=cuda_device).manual_seed(batch)
+    cot = torch.randn(qkv[0].shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    names = ("dq", "dk", "dv")
+
+    def attention(fn):
+        return lambda *t: (fn(*t, *rows, csr), [])
+
+    before = fused_edge_attention_csr.backward_launches
+    grad_rows, ok, kept = gradcheck.check_backward(
+        names, names, attention(fused_edge_attention_csr),
+        attention(ea_csr_ops.reference_with_backward),
+        lambda *t: (edge_attention(*t, *rows), []), qkv, [cot])
+    torch.cuda.synchronize()
+    assert fused_edge_attention_csr.backward_launches == before + 1
+    assert ok, [r for r in grad_rows if not r["ok"]]
+    dq, dk, dv = torch.autograd.grad(*kept["kernel"])
+    empty = dq[list(NO_ROWS) + list(MASKED_ROWS)]
+    assert torch.equal(empty, torch.zeros_like(empty))
+    senders, _, mask = rows
+    silent = torch.ones(csr.num_nodes, dtype=torch.bool, device=cuda_device)
+    silent[senders[mask].long()] = False
+    for t in (dk[silent], dv[silent]):
+        assert torch.equal(t, torch.zeros_like(t))
+
+
+@pytest.mark.cuda
+def test_csr_attention_backward_kernel_is_bit_identical_across_calls(cuda_device):
+    """No atomics: two backward calls give the same dq, dk and dv."""
+    qkv, rows, csr = _attention_hub_case(cuda_device, 17, 16, seed=8)
+    cot = torch.randn(qkv[0].shape, device=cuda_device).to(torch.bfloat16)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in qkv]
+        grads.append(torch.autograd.grad(fused_edge_attention_csr(*leaves, *rows, csr), leaves,
+                                         cot))
+    torch.cuda.synchronize()
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_csr_attention_kernels_index_past_2_31_values(cuda_device):
+    """Tensors of 2^31 values and more (~45 GB of the card): a 128-node
+    graph placed after 32,768 filler nodes, at B=1024 and 4 heads of 16,
+    so its q, k, v rows lie past value 2^31 and its rows' places in the
+    backward's [rows, B, H] scratch past 2^31 as well (the filler's 557,056
+    rows send from lower nodes). Its output, statistics and gradients are
+    the same bits as the same kernels give on the small graph alone."""
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(11)
+    n0, n_small, batch, heads, dh = 32_768, 128, 1024, 4, 16
+    n = n0 + n_small
+    fill_recv = np.repeat(np.arange(n0), 17)
+    fill_send = rng.integers(0, n0, fill_recv.size)
+    small_recv = rng.integers(0, n_small - 8, 600)  # the last 8 nodes receive nothing
+    small_send = rng.integers(0, n_small, small_recv.size)
+
+    def case(senders, receivers, nodes):
+        layout = build_csr_layout(senders, receivers, nodes)
+        valid = layout.perm >= 0
+        ids = layout.perm[valid]
+        s_rows = np.zeros(layout.total_rows, np.int32)
+        r_rows = np.full(layout.total_rows, nodes - 1, np.int32)
+        s_rows[valid], r_rows[valid] = senders[ids], receivers[ids]
+        rows = [torch.as_tensor(a, device=cuda_device).contiguous()
+                for a in (s_rows, r_rows, valid)]
+        return rows, layout
+
+    big_rows, big = case(np.concatenate([fill_send, small_send + n0]),
+                         np.concatenate([fill_recv, small_recv + n0]), n)
+    small_rows, small = case(small_send, small_recv, n_small)
+    assert big.num_nodes == n and (n0 * batch * heads * dh) >= 2**31
+    assert fill_recv.size * batch * heads >= 2**31
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, cot = [torch.randn((n, batch, heads, dh), generator=gen, device=cuda_device,
+                                dtype=torch.bfloat16).mul_(0.5) for _ in range(4)]
+    fwd, bwd = ea_csr_ops.KERNELS
+    out, (m, inv) = fwd(q, k, v, *big_rows, big, keep_stats=True)
+    grads = bwd(q, k, v, *big_rows, big, cot, (out, m, inv))
+    tail = [t[n0:].clone() for t in (out, m, inv, *grads)]
+    del out, m, inv, grads
+    part = [t[n0:] for t in (q, k, v)]
+    s_out, (s_m, s_inv) = fwd(*part, *small_rows, small, keep_stats=True)
+    s_grads = bwd(*part, *small_rows, small, cot[n0:], (s_out, s_m, s_inv))
+    torch.cuda.synchronize()
+    for a, b in zip(tail, (s_out, s_m, s_inv, *s_grads)):
+        assert torch.equal(a, b)
+    ref = edge_attention(*part, *small_rows)
+    torch.testing.assert_close(s_out.float(), ref.float(), rtol=0.03, atol=0.02)
+    del q, k, v, cot, part
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda
