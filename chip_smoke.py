@@ -7,7 +7,7 @@ the Transolver++ train step with its gumbel kernel.
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --parent CHECKOUT   # also times another checkout's
                                               # GraphNetBlock, FFN-forward and
-                                              # CSR attention kernels
+                                              # attention kernels
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
@@ -16,7 +16,9 @@ Phases (any failure raises, so the exit code is non-zero):
      and backward, and the gumbel perturbation), one process per source,
      all at once; ptxas's registers and spills of the redesigned kernels
      (the gated-FFN forward and backward, both GraphNetBlock forwards,
-     both backwards' passes and their tile pre-pass) on lines of their own;
+     both backwards' passes and their tile pre-pass, and the four edge
+     attention kernels: each layout's forward and backward passes) on lines
+     of their own;
   3. kernel check: each forward variant (folded encoder, middle block,
      last block) against its plain PyTorch version at the slice's shape
      (1,920 nodes x 128 samples x hidden 32, K=6 slots), same bf16 inputs;
@@ -40,15 +42,17 @@ Phases (any failure raises, so the exit code is non-zero):
   9. transformer kernel checks, at the transformer slice's shape (1,920
      nodes x 64 samples, hidden 64, 4 heads of 16, K=6): the NK edge
      attention against its plain version on random bf16 q, k, v (and
-     exact zeros where a receiver has no valid slot), the gated FFN
-     against its plain version with block 0's weights;
+     exact zeros where a receiver has no valid slot), the softmax
+     statistics it keeps under autograd against their plain version
+     (``softmax_stats``), the gated FFN against its plain version with
+     block 0's weights;
  10. transformer slice: the B=64 packed eval forward of the 10-block
      transformer through the kernel path (each kernel once per block)
      against the plain path, then 8 windows x 50 steps of rollout on both
      paths;
- 11. transformer timing: both kernels (the FFN by device time too),
-     their plain versions and the library's masked attention, one middle
-     block and the forward (and its device time) on both paths;
+ 11. transformer timing: both kernels (by device time too), their plain
+     versions and the library's masked attention, one middle block and the
+     forward (and its device time) on both paths;
  12. transformer backward kernel checks at the same shape: the attention
      backward and the gated-FFN backward (GELU with block 0's weights, and
      SiLU) against their plain backwards, both against fp32 autograd
@@ -59,11 +63,11 @@ Phases (any failure raises, so the exit code is non-zero):
      transformer step (B=64, noise σ=0.02, masked L2, AdamW with warmup)
      on the kernel path, 10 forward and 10 backward launches of each
      kernel a step, against the same steps on the plain path;
- 14. transformer train timing: each backward kernel, its plain backward,
-     the library's masked attention forward + backward, one middle block
-     forward + backward and the train step on both paths, with the step's
-     device time, the host's time to enqueue a step and the syncs a step
-     makes;
+ 14. transformer train timing: each backward kernel (the attention's by
+     device time too, and by pass), its plain backward, the library's
+     masked attention forward + backward, one middle block forward +
+     backward and the train step on both paths, with the step's device
+     time, the host's time to enqueue a step and the syncs a step makes;
  15. layout, on the graded mesh (27,000 nodes, ~160k directed edges, a
      long in-degree tail; its statistics are logged first):
      FusedTopologyManager chooses the CSR layout for it for both model
@@ -75,7 +79,9 @@ Phases (any failure raises, so the exit code is non-zero):
      (ops/edge_attention.edge_attention), with exact zeros on receivers
      without a valid row, and the softmax statistics it keeps under
      autograd (the max, 1/denominator) against their plain version
-     (``softmax_stats``); the gated FFN against its plain version on the
+     (``softmax_stats``); with ``--parent``, the CSR attention's output
+     bit for bit against the parent tree's kernel on the same inputs; the
+     gated FFN against its plain version on the
      transformer's [27,008, 16, 64] input; each CSR GraphNetBlock
      variant's time by CUDA events and by the profiler's device time;
  17. graded slices: the B=16 eval forward of ``epd`` (5 CSR GraphNetBlock
@@ -93,8 +99,10 @@ Phases (any failure raises, so the exit code is non-zero):
      every weight) from random bf16 cotangents, the CSR attention's (dq
      exactly 0 where a receiver has no valid row) and the gated FFN's at
      [27,008, 16, 64] with a graded block's weights, each against its plain
-     backward and fp32 autograd (utils/gradcheck.py); each CSR GraphNetBlock
-     backward variant's time as in phase 4, by pass too;
+     backward and fp32 autograd (utils/gradcheck.py); with ``--parent``,
+     the CSR attention's dq, dk, dv bit for bit against the parent tree's
+     kernels; each CSR GraphNetBlock backward variant's time as in phase 4,
+     by pass too;
  20. graded training: 20 train steps of each family at B=16
      (``entry.graded_train_setup``, ``graded_transformer_train_setup``)
      on the kernel path, 5 + 5 CSR GraphNetBlock launches, or 10 + 10 of
@@ -130,27 +138,29 @@ Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
 the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
 GraphNetBlock kernels, forward and backward, add each variant's times
-under ``variants``, every GraphNetBlock kernel, both gated-FFN kernels and
-both CSR attention kernels their profiler device time under ``device_ms``,
-both gated-FFN kernels their graded-shape times and bound under
-``graded``, the CSR attention backward its forward + backward under
-``fwd_bwd_ms`` and ``fwd_bwd_device_ms``).
+under ``variants``, every GraphNetBlock, gated-FFN and attention kernel
+its profiler device time under ``device_ms``, both gated-FFN kernels
+their graded-shape times and bound under ``graded``, both attention
+backwards their forward + backward under ``fwd_bwd_ms`` and
+``fwd_bwd_device_ms`` and their device time by pass under ``passes``).
 With ``--parent CHECKOUT`` the libraries that PARENT_LIBS names (both
-GraphNetBlock forwards and backwards, the gated-FFN forward, the CSR
-attention forward and backward) are built from that checkout's csrc/
-too, and the same calls (each GraphNetBlock kernel variant, the
-backwards by pass too; the FFN forward at both shapes; the CSR attention
-forward, backward and both together; the cylinder and graded forwards
-and train steps of both families) are timed with them in turns with
-this tree's, on the same inputs and card, under ``parent_ms`` and
-``parent_device_ms``: the before numbers of a redesign. A library whose C
-interface changed is called through the checkout's own op module
-(``PARENT_OWN_OPS``).
+GraphNetBlock forwards and backwards, the gated-FFN forward, both
+layouts' attention forward and backward) are built from that checkout's
+csrc/ too, and the same calls (each GraphNetBlock kernel variant, the
+backwards by pass too; the FFN forward at both shapes; each attention's
+forward, backward (by pass too for the NK one) and both together; the
+cylinder and graded forwards and train steps of both families) are timed
+with them in turns with this tree's, on the same inputs and card, under
+``parent_ms`` and ``parent_device_ms``: the before numbers of a redesign.
+A library whose C interface changed is called through the checkout's own
+op module (``PARENT_OWN_OPS``).
 It imports nothing of JAX.
 """
 
 import contextlib
 import copy
+import functools
+import inspect
 import json
 import shutil
 import statistics
@@ -190,7 +200,7 @@ FFN_TOL = 0.05
 #: transformer kernel path vs plain path, rtol = atol, valid nodes
 #: (tests/test_fused_edge_attention_nk.py:171)
 TF_SLICE_TOL = 0.1
-#: the CSR attention's kept statistics against their plain version
+#: an attention's kept statistics against their plain version
 #: (ops/fused_edge_attention_csr.softmax_stats): the max logit, rtol =
 #: atol, the logits' fp32 sum order; 1/denominator, relative, a logit an
 #: ulp apart rounding its bf16 weight the other way (2^-8 of one term)
@@ -202,11 +212,11 @@ EMPTY_RECEIVERS = 5
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 #: the kernels whose ptxas reports (registers, spills) are logged apart:
 #: the gated-FFN forward and backward, both GraphNetBlock forwards and
-#: both backwards' passes, the tile pre-pass they share, and the CSR
-#: attention forward and backward passes
+#: both backwards' passes, the tile pre-pass they share, and both
+#: layouts' attention forward and backward passes
 REDESIGNED = ("ffn_fwd_kernel", "ffn_bwd_kernel", "gn_nk_fwd_kernel", "gn_nk_bwd_",
               "gn_csr_fwd_kernel", "gn_csr_bwd_", "gn_partial_tc_kernel", "ea_csr_fwd_kernel",
-              "ea_csr_bwd_")
+              "ea_csr_bwd_", "ea_nk_fwd_kernel", "ea_nk_bwd_")
 FWD = {"name": "fused_gn_block_nk", "source": "graph_physics_tpu_torch/csrc/fused_gnblock_nk.cu",
        "replaces": "graph_physics_tpu/ops/fused_gnblock_nk.py:147"}
 BWD = {"name": "fused_gn_block_nk_backward",
@@ -461,14 +471,17 @@ PARENT = None
 PARENT_LIBS = {"gn_csr_fwd": "fused_gnblock_csr", "gn_csr_bwd": "fused_gnblock_csr",
                "gn_nk_fwd": "fused_gnblock_nk", "gn_nk_bwd": "fused_gnblock_nk",
                "ffn": "fused_ffn", "edge_attention_csr": "fused_edge_attention_csr",
-               "edge_attention_csr_bwd": "fused_edge_attention_csr"}
+               "edge_attention_csr_bwd": "fused_edge_attention_csr",
+               "edge_attention_nk": "fused_edge_attention_nk",
+               "edge_attention_nk_bwd": "fused_edge_attention_nk"}
 #: op modules whose C interface this tree changed: the parent's is loaded
 #: from its checkout and binds its libraries, and inside ``parent_kernels``
 #: its wrapper (the function of the module's name) stands in for this
 #: tree's, in the op module and in models.layers (which calls it by name)
-PARENT_OWN_OPS = {"fused_edge_attention_csr"}
-#: the CSR attention's libraries, forward and backward
+PARENT_OWN_OPS = {"fused_edge_attention_csr", "fused_edge_attention_nk"}
+#: each layout's attention libraries, forward and backward
 ATTN_CSR_LIBS = ("edge_attention_csr", "edge_attention_csr_bwd")
+ATTN_NK_LIBS = ("edge_attention_nk", "edge_attention_nk_bwd")
 _parent_builds, _parent_libs, _parent_ops = {}, {}, {}
 
 
@@ -538,7 +551,7 @@ def parent_kernels(*names):
     swapped = []
     for module in sorted({PARENT_LIBS[n] for n in names} & PARENT_OWN_OPS):
         ours = importlib.import_module(f"graph_physics_tpu_torch.ops.{module}")
-        theirs = getattr(parent_ops(module), module)
+        theirs = with_receivers(getattr(parent_ops(module), module))
         for holder in (ours, layers):
             swapped.append((holder, module, getattr(holder, module)))
             setattr(holder, module, theirs)
@@ -552,6 +565,18 @@ def parent_kernels(*names):
                 kernel_build._libs.pop(n, None)
             else:
                 kernel_build._libs[n] = lib
+
+
+@functools.lru_cache(maxsize=None)
+def with_receivers(fn):
+    """An attention wrapper called as this tree's are, (q, k, v, senders,
+    receivers, edge_mask, layout): a parent tree's NK wrapper that takes no
+    receivers gets them dropped."""
+    if "receivers" in inspect.signature(fn).parameters:
+        return fn
+    return functools.wraps(fn)(
+        lambda q, k, v, senders, receivers, edge_mask, layout: fn(q, k, v, senders, edge_mask,
+                                                                   layout))
 
 
 def timed(fn, libs, device=False, device_reps=20, **kw):
@@ -578,25 +603,64 @@ def timed(fn, libs, device=False, device_reps=20, **kw):
     return out
 
 
-def attention_backward(qkv, rows, csr, cot):
-    """One backward of the CSR attention, for ``timed``: autograd through a
-    graph built on first use by whatever the op module's wrapper is then
-    (this tree's, or the parent's in its turns under ``--parent``), one
-    graph for each, retained."""
+def attention_backward(ops, qkv, rows, layout, cot):
+    """One backward of a layout's attention (``ops``, its op module), for
+    ``timed``: autograd through a graph built on first use by whatever the
+    op module's wrapper is then (this tree's, or the parent's in its turns
+    under ``--parent``), one graph for each, retained."""
     import torch
-    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_ops
 
+    name = ops.__name__.rsplit(".", 1)[-1]
     graphs = {}
 
     def run():
-        fn = ea_ops.fused_edge_attention_csr
+        fn = getattr(ops, name)
         if fn not in graphs:
             leaves = [t.detach().clone().requires_grad_(True) for t in qkv]
-            graphs[fn] = (fn(*leaves, *rows, csr), leaves)
+            graphs[fn] = (fn(*leaves, *rows, layout), leaves)
         out, leaves = graphs[fn]
         return torch.autograd.grad(out, leaves, cot, retain_graph=True)
 
     return run
+
+
+def check_kept_stats(label, kernels, qkv, rows, layout, out):
+    """The forward kernel of ``kernels`` keeping its statistics (as under
+    autograd) gives ``out`` again, and its max and 1/denominator match
+    their plain version (``softmax_stats``): the max to the logits' fp32
+    sum order, 1/denominator to a bf16 weight rounded the other way; -inf
+    and 0 exactly where a receiver has no valid row."""
+    import torch
+    from graph_physics_tpu_torch.ops.fused_edge_attention_csr import softmax_stats
+
+    kept, (m_k, inv_k) = kernels[0](*qkv, *rows, layout, keep_stats=True)
+    m_p, inv_p = softmax_stats(*qkv[:2], *rows)
+    if not torch.equal(kept, out):
+        raise AssertionError(f"{label}: the forward keeping its statistics gives another "
+                             "output")
+    has_rows = torch.isfinite(m_p)
+    compare("kept max logit", m_k, m_p, STATS_MAX_TOL, rows=has_rows)
+    compare("kept 1/denominator", inv_k, inv_p, STATS_INV_RTOL, rows=has_rows, atol=0.0)
+    if not torch.equal(torch.isinf(m_k), ~has_rows) or (inv_k[~has_rows] != 0).any():
+        raise AssertionError(f"{label}: the kept max and 1/denominator are not -inf and 0 "
+                             "exactly where a receiver has no valid row")
+
+
+def same_bits_as_parent(label, fn, libs):
+    """With a parent tree, raises unless ``fn()`` (a tensor or a sequence of
+    them) gives the same bits with the parent's ``libs`` as with this
+    tree's."""
+    import torch
+
+    if PARENT is None:
+        return
+    ours = fn()
+    with parent_kernels(*libs):
+        theirs = fn()
+    ours, theirs = ((t,) if torch.is_tensor(t) else tuple(t) for t in (ours, theirs))
+    if not all(torch.equal(a, b) for a, b in zip(ours, theirs)):
+        raise AssertionError(f"{label}: other bits than the parent tree's kernels")
+    log(f"  {label}: the same bits as the parent tree's kernels")
 
 
 def parent_note(t):
@@ -1128,7 +1192,7 @@ def transformer_phases(device, card):
         return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
 
     q, k, v = (randn(n, b, heads, dh) for _ in range(3))
-    args = (q, k, v, graph.senders, graph.edge_mask, nk)
+    args = (q, k, v, graph.senders, graph.receivers, graph.edge_mask, nk)
     blk0 = blocks[0]
     x = randn(n, b, hidden, scale=1.0)
     ffn_args = (x, blk0.gated_mlp, blk0.norm2)
@@ -1142,9 +1206,10 @@ def transformer_phases(device, card):
         mask = graph.edge_mask.clone().view(g_, k_, nb_)
         mask[:, :, :EMPTY_RECEIVERS] = False
         mask = mask.reshape(-1).contiguous()
-        out_e = attn(q, k, v, graph.senders, mask, nk)
+        rows_e = (graph.senders, graph.receivers, mask)
+        out_e = attn(q, k, v, *rows_e, nk)
         torch.cuda.synchronize()
-        ref_e = attn_plain(q, k, v, graph.senders, mask, nk)
+        ref_e = attn_plain(q, k, v, *rows_e, nk)
         attn_err = max(attn_err, compare(f"out, {EMPTY_RECEIVERS} receivers a node block "
                                          "without a valid slot", out_e, ref_e, ATTN_RTOL,
                                          atol=ATTN_ATOL))
@@ -1152,6 +1217,10 @@ def transformer_phases(device, card):
         if not torch.equal(empty, torch.zeros_like(empty)):
             raise AssertionError("attention: a receiver without valid slots is not exactly 0")
         log(f"  {g_ * EMPTY_RECEIVERS} receivers without a valid slot: exact zeros")
+        # the statistics the forward keeps under autograd, against their
+        # plain version
+        check_kept_stats("attention", ea_ops.KERNELS, (q, k, v), rows_e, nk, out_e)
+        del out_e, ref_e
 
         y = ffn(*ffn_args)
         torch.cuda.synchronize()
@@ -1161,8 +1230,11 @@ def transformer_phases(device, card):
 
         # 11. (kernel part) times of the kernels, their plain versions and
         # the library's masked attention on the same inputs: dense, with
-        # the mesh's adjacency as its boolean mask (rows: receivers)
-        attn_t = {"ms": cuda_ms(lambda: attn(*args)), "plain_ms": cuda_ms(lambda: attn_plain(*args))}
+        # the mesh's adjacency as its boolean mask (rows: receivers); the
+        # attention through the op module's name, which --parent's turns
+        # point at the parent's wrapper
+        attn_t = dict(timed(lambda: ea_ops.fused_edge_attention_nk(*args), ATTN_NK_LIBS,
+                            device=True), plain_ms=cuda_ms(lambda: attn_plain(*args)))
         adj = torch.zeros((n, n), dtype=torch.bool, device=device)
         ev = graph.edge_mask
         adj[graph.receivers[ev].long(), graph.senders[ev].long()] = True
@@ -1177,7 +1249,8 @@ def transformer_phases(device, card):
         attn_t["library_ms"] = cuda_ms(library)
         ffn_t = dict(timed(lambda: ffn(*ffn_args), ["ffn"], device=True),
                      plain_ms=cuda_ms(lambda: ffn_plain(*ffn_args)))
-    log(f"  attention time: kernel {attn_t['ms']:.4f} ms, plain {attn_t['plain_ms']:.4f} ms, "
+    log(f"  attention time: kernel {attn_t['ms']:.4f} ms (device {attn_t['device_ms']:.4f})"
+        f"{parent_note(attn_t)}, plain {attn_t['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention with the adjacency mask {attn_t['library_ms']:.4f} ms "
         f"(max abs difference to the plain version {lib_err:.6g}) ({card})")
     log(f"  gated FFN time: kernel {ffn_t['ms']:.4f} ms (device {ffn_t['device_ms']:.4f}), "
@@ -1217,7 +1290,8 @@ def transformer_phases(device, card):
     check_rollouts("transformer", res, make_batched_rollout_fn(plain_sim)(frames))
 
     # 11. timing: the B=64 forward and one middle block, kernel path vs plain path
-    fwd = timed(lambda: sim.forward(graph, is_training=False), ["ffn"], device=True)
+    fwd = timed(lambda: sim.forward(graph, is_training=False), ("ffn", *ATTN_NK_LIBS),
+                device=True)
     fwd_ms = fwd["ms"]
     fwd_plain_ms = cuda_ms(lambda: plain_sim.forward(graph, is_training=False))
     mid = blocks[n_blocks // 2]
@@ -1249,9 +1323,8 @@ def transformer_phases(device, card):
     log(f"  bounds: attention {attn_bound[0]:.6g} ms ({attn_bound[1]}), gated FFN "
         f"{ffn_bound[0]:.6g} ms ({ffn_bound[1]})")
     return [
-        dict(ATTN, route="cuda", launches=launches[0], max_abs_err=attn_err, ms=attn_t["ms"],
-             plain_ms=attn_t["plain_ms"], bound_ms=attn_bound[0], bound_by=attn_bound[1],
-             library_ms=attn_t["library_ms"]),
+        dict(ATTN, route="cuda", launches=launches[0], max_abs_err=attn_err,
+             bound_ms=attn_bound[0], bound_by=attn_bound[1], **attn_t),
         dict(FFN, route="cuda", launches=launches[1], max_abs_err=ffn_err, ms=ffn_t["ms"],
              plain_ms=ffn_t["plain_ms"], bound_ms=ffn_bound[0], bound_by=ffn_bound[1],
              library_ms=None, device_ms=ffn_t["device_ms"],
@@ -1282,7 +1355,7 @@ def transformer_train_phases(device, card):
     heads = blocks[0].attention.num_heads
     dh = hidden // heads
     valid_slots = int(graph.edge_mask.sum())
-    senders, mask = graph.senders, graph.edge_mask
+    senders, receivers, mask = graph.senders, graph.receivers, graph.edge_mask
     gen = torch.Generator(device=device).manual_seed(3)
 
     def randn(*shape, scale=0.5):
@@ -1294,7 +1367,7 @@ def transformer_train_phases(device, card):
     cot = randn(n, b, heads, dh, scale=1.0)
 
     def attention(fn, m=mask):
-        return lambda *qkv: (fn(*qkv, senders, m, nk), [])
+        return lambda *qkv: (fn(*qkv, senders, receivers, m, nk), [])
 
     def attention_grads(m):
         """(kernel, plain backward, fp32) gradients and the kernel's and plain
@@ -1321,11 +1394,22 @@ def transformer_train_phases(device, card):
     log("  dk, dv against plain bf16 autograd of the forward's plain version")
     log_grad_rows(rows_a)
     attn_bwd_err = max(r.get("max_abs_err", float("inf")) for r in rows)
-    # 14. (kernel part) the backward kernel, its plain backward, and the
-    # library's masked attention forward + backward on the same q, k, v
-    attn_t = {"ms": cuda_ms(lambda: torch.autograd.grad(*kept_k, retain_graph=True)),
-              "plain_ms": cuda_ms(lambda: torch.autograd.grad(*kept_p, retain_graph=True))}
-    del kept_k, kept_p, gk, gp, gf, ga
+    # 14. (kernel part) the backward kernels (through the op module's name,
+    # which --parent's turns point at the parent's wrapper), by pass too,
+    # its plain backward, and the library's masked attention forward +
+    # backward on the same q, k, v
+    backward = attention_backward(ea_ops, (q, k, v), (senders, receivers, mask), nk, cot)
+    attn_t = dict(timed(backward, ATTN_NK_LIBS, device=True),
+                  plain_ms=cuda_ms(lambda: torch.autograd.grad(*kept_p, retain_graph=True)),
+                  passes=pass_split(backward))
+    splits = {"kernel": attn_t["passes"]}
+    if PARENT is not None:
+        with parent_kernels(*ATTN_NK_LIBS):
+            splits["parent tree"] = attn_t["parent_passes"] = pass_split(backward)
+    for tree, split in splits.items():
+        log(f"  attention backward device ms by pass, {tree}: " + ", ".join(
+            f"{p} {ms:.4f}" for p, ms in sorted(split.items(), key=lambda kv: -kv[1])))
+    del kept_k, kept_p, gk, gp, gf, ga, backward
     g_, nb_ = nk.num_groups, nk.node_block
     mask_e = mask.clone().view(g_, nk.k_slots, nb_)
     mask_e[:, :, :EMPTY_RECEIVERS] = False
@@ -1342,8 +1426,9 @@ def transformer_train_phases(device, card):
         raise AssertionError("attention backward kernel out of bounds")
     del ge, gpe, gfe
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    attn_t["fwd_bwd_ms"] = cuda_ms(
-        lambda: torch.autograd.grad(attn(*leaves, senders, mask, nk), leaves, cot))
+    fwd_bwd = timed(lambda: torch.autograd.grad(ea_ops.fused_edge_attention_nk(
+        *leaves, senders, receivers, mask, nk), leaves, cot), ATTN_NK_LIBS, device=True)
+    attn_t.update({f"fwd_bwd_{k}": v for k, v in fwd_bwd.items()})
     adj = torch.zeros((n, n), dtype=torch.bool, device=device)
     adj[graph.receivers[mask].long(), senders[mask].long()] = True
     dense = [t.permute(1, 2, 0, 3).contiguous().requires_grad_(True) for t in (q, k, v)]
@@ -1351,8 +1436,10 @@ def transformer_train_phases(device, card):
     attn_t["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(*dense, attn_mask=adj), dense, cot_d))
     del adj, dense, cot_d, leaves
-    log(f"  attention backward time: kernel {attn_t['ms']:.4f} ms, plain backward "
-        f"{attn_t['plain_ms']:.4f} ms; forward + backward: kernels {attn_t['fwd_bwd_ms']:.4f} ms, "
+    log(f"  attention backward time: kernel {attn_t['ms']:.4f} ms (device "
+        f"{attn_t['device_ms']:.4f}){parent_note(attn_t)}, plain backward "
+        f"{attn_t['plain_ms']:.4f} ms; forward + backward: kernels {attn_t['fwd_bwd_ms']:.4f} ms "
+        f"(device {attn_t['fwd_bwd_device_ms']:.4f}){parent_note(fwd_bwd)}, "
         f"scaled_dot_product_attention with the adjacency mask {attn_t['library_ms']:.4f} ms "
         f"({card})")
 
@@ -1411,7 +1498,7 @@ def transformer_train_phases(device, card):
 
     block_ms = cuda_ms(lambda: block_fwd_bwd(nk))
     block_plain_ms = cuda_ms(lambda: block_fwd_bwd(None))
-    st = step_timing(train, plain_state, plain_step, 10, libs=("ffn",))
+    st = step_timing(train, plain_state, plain_step, 10, libs=("ffn", *ATTN_NK_LIBS))
     log(f"transformer train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
         f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
         f"{st['train_step_device_ms']:.4f} ms; the host enqueues a step in "
@@ -1437,8 +1524,7 @@ def transformer_train_phases(device, card):
         f"backward {ffn_bound[0]:.6g} ms ({ffn_bound[1]})")
     records = [
         dict(ATTN_BWD, route="cuda", launches=launches[attn.__name__][1], max_abs_err=attn_bwd_err,
-             ms=attn_t["ms"], plain_ms=attn_t["plain_ms"], bound_ms=attn_bound[0],
-             bound_by=attn_bound[1], library_ms=attn_t["library_ms"]),
+             bound_ms=attn_bound[0], bound_by=attn_bound[1], **attn_t),
         dict(FFN_BWD, route="cuda", launches=launches[ffn.__name__][1], max_abs_err=max(ffn_errs),
              ms=ffn_t["ms"], plain_ms=ffn_t["plain_ms"], bound_ms=ffn_bound[0],
              bound_by=ffn_bound[1], library_ms=None, device_ms=ffn_t["device_ms"]),
@@ -1580,20 +1666,12 @@ def graded_phases(device, card):
         log(f"  {len(gone)} receivers with their rows masked out and "
             f"{int((~tgraph.node_mask).sum())} padding nodes: exact zeros")
         # the statistics the forward keeps under autograd, against their
-        # plain version: the max to the logits' fp32 sum order, 1/denominator
-        # to a bf16 weight rounded the other way
-        kept, (m_k, inv_k) = ea_ops.KERNELS[0](q, k, v, *ta, mask_e, tcsr, keep_stats=True)
-        m_p, inv_p = ea_ops.softmax_stats(q, k, *ta, mask_e)
-        if not torch.equal(kept, out_e):
-            raise AssertionError("CSR attention: the forward keeping its statistics gives "
-                                 "another output")
-        has_rows = torch.isfinite(m_p)
-        compare("kept max logit", m_k, m_p, STATS_MAX_TOL, rows=has_rows)
-        compare("kept 1/denominator", inv_k, inv_p, STATS_INV_RTOL, rows=has_rows, atol=0.0)
-        if not torch.equal(torch.isinf(m_k), ~has_rows) or (inv_k[~has_rows] != 0).any():
-            raise AssertionError("CSR attention: the kept max and 1/denominator are not -inf "
-                                 "and 0 exactly where a receiver has no valid row")
-        del out_e, ref_e, mask_e, kept, m_k, inv_k, m_p, inv_p, has_rows
+        # plain version
+        check_kept_stats("CSR attention", ea_ops.KERNELS, (q, k, v), (*ta, mask_e), tcsr, out_e)
+        # the shared body computes what the parent's CSR kernel did
+        same_bits_as_parent("CSR attention output", lambda: ea_ops.fused_edge_attention_csr(
+            q, k, v, *ta, mask_e, tcsr), ATTN_CSR_LIBS)
+        del out_e, ref_e, mask_e
 
         tx = randn(n, b, tsim.model.hidden_size, scale=1.0)
         ffn_args = (tx, tblocks[0].gated_mlp, tblocks[0].norm2)
@@ -1844,7 +1922,8 @@ def graded_train_phases(device, card):
             raise AssertionError(f"CSR attention backward kernel out of bounds{label}")
         attn_err = max([attn_err] + [r.get("max_abs_err", float("inf")) for r in a_rows])
         if not label:  # 21. (kernel part)
-            backward = attention_backward((q, k, v), (*ta, m), tcsr, cot)
+            backward = attention_backward(ea_ops, (q, k, v), (*ta, m), tcsr, cot)
+            same_bits_as_parent("CSR attention dq, dk, dv", backward, ATTN_CSR_LIBS)
             attn_t = dict(timed(backward, ATTN_CSR_LIBS, device=True),
                           plain_ms=cuda_ms(lambda: torch.autograd.grad(*kept["plain"],
                                                                        retain_graph=True)),

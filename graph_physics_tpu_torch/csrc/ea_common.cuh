@@ -1,13 +1,20 @@
-// What the CSR edge-attention kernels (fused_edge_attention_csr.cu,
-// fused_edge_attention_csr_bwd.cu) share: a warp per (node, groups of
-// (sample, head) pairs), the staging of a node's row indices one warp-wide
-// load of 32 rows at a time, shared with __shfl_sync, and raw 16-byte
-// loads kept packed while they are in flight.
+// What the edge-attention kernels share, for both edge layouts (CSR rows,
+// NK slots): a warp per (node, groups of (sample, head) pairs), the staging
+// of a node's row indices one warp-wide load of 32 rows at a time, shared
+// with __shfl_sync, raw 16-byte loads kept packed while they are in
+// flight, and bf16 rounding. The forward body is in ea_fwd.cuh, the
+// backward passes in ea_bwd_passes.cuh; the row maps (which rows a
+// receiver owns) in gn_rows.cuh.
 #pragma once
 
-#include "ea_nk_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
 
-namespace ea_csr {
+#include "gn_rows.cuh"
+
+namespace ea {
 
 // The layout, the fastest of the alternatives timed on the H100 (PERF.md
 // §6): blocks of 256 threads, at least 4 an SM (__launch_bounds__), which
@@ -33,6 +40,8 @@ struct Head {
   static constexpr float SCALE = DH == 16 ? 0.25f : 0.17677669529663687f;
 };
 
+__device__ __forceinline__ float bf(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
 // EPL = 8 bf16 values, packed
 using Packed = uint4;
 
@@ -56,6 +65,19 @@ __device__ __forceinline__ Packed pack(const float (&v)[EPL]) {
   for (int q = 0; q < 4; ++q)
     wd[q] = (__float_as_uint(v[2 * q]) >> 16) | (__float_as_uint(v[2 * q + 1]) & 0xffff0000u);
   return make_uint4(wd[0], wd[1], wd[2], wd[3]);
+}
+
+// the EPL bf16 values at src (16-byte aligned) as floats
+__device__ __forceinline__ void load8(float (&v)[EPL], const __nv_bfloat16* src) {
+  unpack(v, load_packed(src));
+}
+
+// v rounded to bf16 and stored at dst (16-byte aligned)
+__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&v)[EPL]) {
+  float r[EPL];
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) r[e] = bf(v[e]);
+  *reinterpret_cast<uint4*>(dst) = pack(r);
 }
 
 // Σ_d a[d]·b[d] over the pair's DH values: each lane's EPL exact products
@@ -127,6 +149,48 @@ inline int grid_for(int n_nodes, long long pairs_per_node) {
   return static_cast<int>((n_nodes * per_node + WARPS - 1) / WARPS);
 }
 
+// A receiver's rows as its warp stages them (the row map's own(): first,
+// count, step): row i < count is first + i·step. Each lane stages one row
+// of 32 at a time: its sender, or -1 where the row is masked out, so the
+// warp's ballot of senders >= 0 is its valid rows.
+template <class Rows>
+struct Walk {
+  long long first;
+  int count, step;
+
+  __device__ Walk(const gn_rows::RowMap& a, int r) { Rows::own(a, r, first, count, step); }
+
+  // the row this lane stages in the 32 from base, or -1 past the last
+  __device__ __forceinline__ long long row(int base) const {
+    const int i = base + static_cast<int>(threadIdx.x % 32);
+    return i < count ? first + static_cast<long long>(i) * step : -1;
+  }
+  // its sender, -1 on a masked row or past the last
+  __device__ __forceinline__ static int sender(long long s, const int32_t* senders,
+                                               const uint8_t* mask) {
+    if (s < 0) return -1;
+    const int j = senders[s];  // both loads in flight together
+    return mask[s] != 0 ? j : -1;
+  }
+};
+
+// The next up to CHUNK valid rows of ``left`` (a warp-uniform ballot,
+// cleared of them as they are taken): returns their number; the lane that
+// staged the c-th is lane_of(froms, c).
+__device__ __forceinline__ int take_chunk(unsigned& left, unsigned& froms) {
+  int count = 0;
+  froms = 0;
+#pragma unroll
+  for (int c = 0; c < CHUNK; ++c)
+    if (left) {
+      froms |= static_cast<unsigned>(__ffs(left) - 1) << (5 * c);
+      left &= left - 1;
+      ++count;
+    }
+  return count;
+}
+__device__ __forceinline__ int lane_of(unsigned froms, int c) { return (froms >> (5 * c)) & 31; }
+
 // The warp's staging area in shared memory: CHUNK rows x NT tensors of
 // each lane's EPL values, filled by cp.async, so that no register holds a
 // load in flight. Each lane reads back only what it copied, so the
@@ -137,23 +201,31 @@ struct Stage {
   // shared memory a block needs, within the 48 KB a launch gets unasked
   static constexpr int BYTES = WARPS * WARP_VECS * 16;
   static_assert(BYTES <= 48 * 1024, "the stage fits the default shared memory");
-  uint4* lane_base;
+  uint32_t lane_base;  // this lane's first piece, as a shared-memory address
 
   __device__ explicit Stage(uint4* smem)
-      : lane_base(smem + (threadIdx.x / 32) * WARP_VECS + threadIdx.x % 32) {}
+      : lane_base(static_cast<uint32_t>(__cvta_generic_to_shared(
+            smem + (threadIdx.x / 32) * WARP_VECS + threadIdx.x % 32))) {}
 
+  __device__ __forceinline__ uint32_t slot(int c, int t) const {
+    return lane_base + static_cast<uint32_t>((c * NT + t) * 32 * 16);
+  }
   // start copying this lane's EPL values at src into slot (row c, tensor t)
   __device__ __forceinline__ void load(int c, int t, const __nv_bfloat16* src) const {
-    const uint32_t dst =
-        static_cast<uint32_t>(__cvta_generic_to_shared(lane_base + (c * NT + t) * 32));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(slot(c, t)), "l"(src)
+                 : "memory");
   }
   // wait for this lane's copies
   __device__ __forceinline__ static void wait() {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
   __device__ __forceinline__ Packed get(int c, int t) const {
-    return lane_base[(c * NT + t) * 32];
+    Packed p;
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(p.x), "=r"(p.y), "=r"(p.z), "=r"(p.w)
+                 : "r"(slot(c, t))
+                 : "memory");
+    return p;
   }
 };
 
@@ -164,4 +236,4 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 __device__ __forceinline__ float lo_of(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float hi_of(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
-}  // namespace ea_csr
+}  // namespace ea

@@ -1,5 +1,6 @@
-// The row maps of the GraphNetBlock kernels, shared by the forward body
-// (gn_fwd.cuh) and the backward passes (gn_bwd_passes.cuh): for one edge
+// The row maps of the GraphNetBlock kernels (the forward body gn_fwd.cuh,
+// the backward passes gn_bwd_passes.cuh) and of the edge-attention kernels
+// (ea_fwd.cuh, ea_bwd_passes.cuh): for one edge
 // layout, the end of the rows that belong to some receiver (ranged_end),
 // whether rows lie past it (PADDED: CSR padding), the receiver of a row,
 // and the rows a node owns (first, count, step).

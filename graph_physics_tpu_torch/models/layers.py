@@ -437,10 +437,9 @@ class Attention(nn.Module):
 
         weights = None
         if self._fused_ok(x, senders, return_attention, tiling):
-            if isinstance(tiling, NKTiling):
-                y = fused_edge_attention_nk(q, k, v, senders, edge_mask, tiling)
-            else:
-                y = fused_edge_attention_csr(q, k, v, senders, receivers, edge_mask, tiling)
+            fused = (fused_edge_attention_nk if isinstance(tiling, NKTiling)
+                     else fused_edge_attention_csr)
+            y = fused(q, k, v, senders, receivers, edge_mask, tiling)
         elif senders is not None:
             y = edge_attention(q, k, v, senders, receivers, edge_mask,
                                return_weights=return_attention)

@@ -1,4 +1,5 @@
-"""Edge attention on the receiver-sorted CSR edge layout.
+"""Edge attention on the receiver-sorted CSR edge layout, and what both
+layouts' attention ops share.
 
 Replaces the TPU Pallas kernels graph_physics_tpu/ops/fused_edge_attention.py:
 _fwd_kernel (:124) and _bwd_kernel (:143) behind fused_edge_attention
@@ -6,18 +7,22 @@ _fwd_kernel (:124) and _bwd_kernel (:143) behind fused_edge_attention
 forward CUDA kernel (``csrc/fused_edge_attention_csr.cu``) walks each
 receiver's CSR rows once, a warp per receiver walking its groups of
 samples and heads, with an online softmax across chunks of rows, so the
-degree has no cap; under autograd it also keeps the softmax statistics (the max and 1 /
-the denominator, fp32 [N, B, H]). The backward
+degree has no cap; under autograd it also keeps the softmax statistics
+(the max and 1 / the denominator, fp32 [N, B, H]). The backward
 (``csrc/fused_edge_attention_csr_bwd.cu``) takes them and the forward's
 output, walks each receiver's rows once for dq, and sums dk and dv at each
 sender over the layout's sender-sorted rows (:func:`sender_places`), with
-no atomics. See the
-sources' headers for the designs and the bounds.
+no atomics. Both are the bodies of ``csrc/ea_fwd.cuh`` and
+``csrc/ea_bwd_passes.cuh`` on the CSR row map; the NK kernels
+(``ops/fused_edge_attention_nk``) are the same bodies on the NK row map,
+and share this module's plain versions, statistics, transpose and
+``torch.autograd.Function``. See the sources' headers for the designs and
+the bounds.
 
 The plain version is :func:`ops.edge_attention.edge_attention` on the
-graph's CSR edge list, and its gradient plain autograd
-(:func:`edge_attention_backward_reference`); :func:`softmax_stats` is the
-plain version of the kept statistics. The wrapper uses them for
+graph's row arrays (each row with its receiver), and its gradient plain
+autograd (:func:`edge_attention_backward_reference`); :func:`softmax_stats`
+is the plain version of the kept statistics. The wrapper uses them for
 tensors on the CPU; for CUDA tensors it launches the kernels (the backward
 through ``torch.autograd.Function``) or raises.
 """
@@ -32,9 +37,11 @@ from torch.autograd.function import once_differentiable
 
 from graph_physics_tpu_torch.ops import kernel_build, segment
 from graph_physics_tpu_torch.ops.edge_attention import edge_attention
-from graph_physics_tpu_torch.ops.fused_edge_attention_nk import KERNEL_HEAD_DIMS
 from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
+#: head widths the kernels are compiled for (``DH`` template instances):
+#: the canonical configs' hidden 64 and 128 over 4 heads
+KERNEL_HEAD_DIMS = (16, 32)
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "edge_attention_csr": {"ea_csr_fwd": [_vp] * 9 + [_i] * 4 + [_vp]},
@@ -69,15 +76,16 @@ def _launch_fwd(q, k, v, senders, receivers, edge_mask, csr, keep_stats=False):
     return (out, (m, inv)) if keep_stats else out
 
 
-def sender_places(senders, receivers, edge_mask, csr):
-    """The transpose of the CSR rows as the backward's sender pass walks
-    it: (offsets, place, recv), int32, where node j sends on the places
-    ``offsets[j]:offsets[j+1]`` (the valid rows sorted by sender,
-    :func:`ops.tiling.cached_sender_slots`), ``place[s]`` is row s's place
-    and ``recv[i]`` the receiver of the row at place i. Kept on the layout
-    beside the transpose it is built from, for the same arrays."""
-    order, offsets = cached_sender_slots(senders, edge_mask, csr)
-    hit = csr.derived.get("sender_places")
+def sender_places(senders, receivers, edge_mask, layout):
+    """The transpose of a layout's rows (CSR rows or NK slots) as the
+    backward's sender pass walks it: (offsets, place, recv), int32, where
+    node j sends on the places ``offsets[j]:offsets[j+1]`` (the valid rows
+    sorted by sender, :func:`ops.tiling.cached_sender_slots`), ``place[s]``
+    is row s's place and ``recv[i]`` the receiver of the row at place i.
+    Kept on the layout beside the transpose it is built from, for the same
+    arrays."""
+    order, offsets = cached_sender_slots(senders, edge_mask, layout)
+    hit = layout.derived.get("sender_places")
     if hit is None or hit[0] is not order or hit[1] is not receivers or \
             hit[2] != receivers._version:
         rows = order.long()
@@ -85,7 +93,7 @@ def sender_places(senders, receivers, edge_mask, csr):
         place[rows] = torch.arange(rows.numel(), dtype=order.dtype, device=order.device)
         hit = (order, receivers, receivers._version,
                (offsets, place, receivers.index_select(0, rows)))
-        csr.derived["sender_places"] = hit
+        layout.derived["sender_places"] = hit
     return hit[3]
 
 
@@ -152,25 +160,64 @@ KERNELS = (_launch_fwd, _launch_bwd)
 PLAIN = (_reference_fwd, edge_attention_backward_reference)
 
 
-class _FusedEdgeAttentionCSR(torch.autograd.Function):
-    """A forward with its backward as the gradient: the kernels
-    (:data:`KERNELS`) or the plain versions (:data:`PLAIN`), given as the
-    pair ``impl``."""
+class _FusedEdgeAttention(torch.autograd.Function):
+    """A forward with its backward as the gradient, on either layout: a
+    layout's kernels (this module's :data:`KERNELS`, or the NK module's)
+    or the plain versions (:data:`PLAIN`), given as the pair ``impl``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, senders, receivers, edge_mask, csr, impl):
-        out, stats = impl[0](q, k, v, senders, receivers, edge_mask, csr, keep_stats=True)
+    def forward(ctx, q, k, v, senders, receivers, edge_mask, layout, impl):
+        out, stats = impl[0](q, k, v, senders, receivers, edge_mask, layout, keep_stats=True)
         ctx.save_for_backward(q, k, v, senders, receivers, edge_mask, out, *stats)
-        ctx.csr, ctx.impl = csr, impl
+        ctx.layout, ctx.impl = layout, impl
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_out):
         q, k, v, senders, receivers, edge_mask, *saved = ctx.saved_tensors
-        dq, dk, dv = ctx.impl[1](q, k, v, senders, receivers, edge_mask, ctx.csr,
+        dq, dk, dv = ctx.impl[1](q, k, v, senders, receivers, edge_mask, ctx.layout,
                                  g_out.contiguous(), saved)
         return dq, dk, dv, None, None, None, None, None
+
+
+def check_inputs(q, k, v, senders, receivers, edge_mask, layout, name="CSR layout", row="row"):
+    """Raises ValueError unless q, k, v are contiguous bf16 [N, B, H, dh] of
+    one shape on the layout's N nodes and the row arrays hold one entry per
+    ``row`` of the layout ``name``, int32 (bool mask), all on one device."""
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be packed [N, B, H, dh] of one shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise ValueError(f"bf16 q, k, v required, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.shape[0] != layout.num_nodes:
+        raise ValueError(f"{q.shape[0]} nodes do not match the {name}'s {layout.num_nodes}")
+    if any(t.shape != (layout.total_rows,) for t in (senders, receivers, edge_mask)):
+        raise ValueError(f"senders, receivers and edge_mask must hold one entry per {row}")
+    if senders.dtype != torch.int32 or receivers.dtype != torch.int32 or \
+            edge_mask.dtype != torch.bool:
+        raise ValueError("senders and receivers must be int32 and edge_mask bool")
+    for t in (q, k, v, senders, receivers, edge_mask):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("inputs must be contiguous and on one device")
+
+
+def launch_or_plain(q, k, v, senders, receivers, edge_mask, layout, kernels):
+    """The attention on CPU tensors by its plain version, on CUDA tensors
+    by ``kernels`` (a layout's forward and backward): the forward alone,
+    or under autograd through :class:`_FusedEdgeAttention`."""
+    if q.device.type == "cpu":
+        return edge_attention(q, k, v, senders, receivers, edge_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    dh = q.shape[-1]
+    if dh not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(f"the kernel is built for head widths {KERNEL_HEAD_DIMS}, "
+                                  f"got {dh}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FusedEdgeAttention.apply(q, k, v, senders, receivers, edge_mask, layout,
+                                         kernels)
+    return kernels[0](q, k, v, senders, receivers, edge_mask, layout)
 
 
 def fused_edge_attention_csr(
@@ -195,41 +242,16 @@ def fused_edge_attention_csr(
     is the backward kernel, counted in
     ``fused_edge_attention_csr.backward_launches``.
     """
-    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must be packed [N, B, H, dh] of one shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise ValueError(f"bf16 q, k, v required, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[0] != csr.num_nodes:
-        raise ValueError(f"{q.shape[0]} nodes do not match the CSR layout's {csr.num_nodes}")
-    if any(t.shape != (csr.total_rows,) for t in (senders, receivers, edge_mask)):
-        raise ValueError("senders, receivers and edge_mask must hold one entry per row")
-    if senders.dtype != torch.int32 or receivers.dtype != torch.int32 or \
-            edge_mask.dtype != torch.bool:
-        raise ValueError("senders and receivers must be int32 and edge_mask bool")
-    for t in (q, k, v, senders, receivers, edge_mask):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("inputs must be contiguous and on one device")
-    if q.device.type == "cpu":
-        return edge_attention(q, k, v, senders, receivers, edge_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    dh = q.shape[-1]
-    if dh not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"the kernel is built for head widths {KERNEL_HEAD_DIMS}, "
-                                  f"got {dh}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FusedEdgeAttentionCSR.apply(q, k, v, senders, receivers, edge_mask, csr,
-                                            KERNELS)
-    return _launch_fwd(q, k, v, senders, receivers, edge_mask, csr)
+    check_inputs(q, k, v, senders, receivers, edge_mask, csr)
+    return launch_or_plain(q, k, v, senders, receivers, edge_mask, csr, KERNELS)
 
 
 fused_edge_attention_csr.launches = 0
 fused_edge_attention_csr.backward_launches = 0
 
 
-def reference_with_backward(q, k, v, senders, receivers, edge_mask, csr) -> torch.Tensor:
+def reference_with_backward(q, k, v, senders, receivers, edge_mask, layout) -> torch.Tensor:
     """The plain forward with :func:`edge_attention_backward_reference` as
     its gradient, through the same ``torch.autograd.Function`` as the
-    kernels."""
-    return _FusedEdgeAttentionCSR.apply(q, k, v, senders, receivers, edge_mask, csr, PLAIN)
+    kernels, on either layout."""
+    return _FusedEdgeAttention.apply(q, k, v, senders, receivers, edge_mask, layout, PLAIN)

@@ -22,6 +22,9 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+#: the headers of the edge-attention forward and backward, either layout
+_EA_FWD = ("ea_fwd.cuh", "ea_common.cuh", "gn_rows.cuh")
+_EA_BWD = ("ea_bwd_passes.cuh", "ea_common.cuh", "gn_rows.cuh")
 #: every kernel library: name -> (source, every header it includes, directly or
 #: through another header), under csrc/
 LIBRARIES = {
@@ -31,8 +34,8 @@ LIBRARIES = {
     "gn_nk_bwd": ("fused_gnblock_nk_bwd.cu",
                   ("gn_nk_common.cuh", "gn_bwd_common.cuh", "gn_bwd_passes.cuh",
                    "gn_rows.cuh", "gn_tile.cuh", "mma_common.cuh")),
-    "edge_attention_nk": ("fused_edge_attention_nk.cu", ("ea_nk_common.cuh",)),
-    "edge_attention_nk_bwd": ("fused_edge_attention_nk_bwd.cu", ("ea_nk_common.cuh",)),
+    "edge_attention_nk": ("fused_edge_attention_nk.cu", _EA_FWD),
+    "edge_attention_nk_bwd": ("fused_edge_attention_nk_bwd.cu", _EA_BWD),
     "ffn": ("fused_ffn.cu", ("ffn_common.cuh", "mma_common.cuh")),
     "ffn_bwd": ("fused_ffn_bwd.cu", ("ffn_common.cuh", "mma_common.cuh")),
     "gn_csr_fwd": ("fused_gnblock_csr.cu",
@@ -41,9 +44,8 @@ LIBRARIES = {
     "gn_csr_bwd": ("fused_gnblock_csr_bwd.cu",
                    ("gn_nk_common.cuh", "gn_bwd_common.cuh", "gn_bwd_passes.cuh",
                     "gn_rows.cuh", "gn_tile.cuh", "mma_common.cuh")),
-    "edge_attention_csr": ("fused_edge_attention_csr.cu", ("ea_csr_common.cuh", "ea_nk_common.cuh")),
-    "edge_attention_csr_bwd": ("fused_edge_attention_csr_bwd.cu",
-                               ("ea_csr_common.cuh", "ea_nk_common.cuh")),
+    "edge_attention_csr": ("fused_edge_attention_csr.cu", _EA_FWD),
+    "edge_attention_csr_bwd": ("fused_edge_attention_csr_bwd.cu", _EA_BWD),
     "gumbel": ("gumbel.cu", ()),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -21,11 +21,15 @@ error there may not exceed the plain version's by more than
 over every row; they meet the JAX suite's bound
 ``|a - b| <= 0.04 · max|b|`` (tests/test_fused_gnblock_nk.py:150-156,
 tests/test_fused_edge_attention_nk.py:119-125, tests/test_fused_ffn.py:
-33-61 and 100-128).
+33-61 and 100-128). The plain bf16 backward runs with PyTorch's
+deterministic algorithms (``index_add_`` on a card then sums in a fixed
+order, not by atomics), so the reference the kernel is held to is the
+same on every run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Callable, Dict, List, Sequence, Tuple
 
@@ -111,16 +115,30 @@ def compare_grads(names, kernel, plain, fp32, streams: Sequence[str]) -> Tuple[L
     return rows, ok
 
 
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms inside the block (a warning, not
+    an error, for an op that has none), the caller's setting after it."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+
+
 def check_backward(names: Sequence[str], streams: Sequence[str], kernel_fn: Callable,
                    plain_fn: Callable, fp32_fn: Callable, inputs: Sequence[torch.Tensor],
                    cots: Sequence[torch.Tensor]):
     """Gradients of one function through the kernel (``kernel_fn``), its
-    plain version in bf16 (``plain_fn``) and in fp32 (``fp32_fn``, given
-    the inputs as fp32), each as :func:`grads_of` takes it, compared by
-    :func:`compare_grads`. Returns (rows, ok, {"kernel": kept, "plain":
+    plain version in bf16 (``plain_fn``, under :func:`deterministic`) and
+    in fp32 (``fp32_fn``, given the inputs as fp32), each as
+    :func:`grads_of` takes it, compared by :func:`compare_grads`. Returns (rows, ok, {"kernel": kept, "plain":
     kept}) with the retained autograd graphs."""
     gk, kept_k = grads_of(kernel_fn, inputs, cots)
-    gp, kept_p = grads_of(plain_fn, inputs, cots)
+    with deterministic():
+        gp, kept_p = grads_of(plain_fn, inputs, cots)
     gf, _ = grads_of(fp32_fn, [t.float() for t in inputs], cots)
     rows, ok = compare_grads(names, gk, gp, gf, streams)
     return rows, ok, {"kernel": kept_k, "plain": kept_p}

@@ -29,7 +29,11 @@ calls. The CSR
 GraphNetBlock forward and backward are also held on a hub mesh (a
 receiver of in-degree 150, receivers with no row or only masked rows,
 node N-1 owning rows) at partial 16-sample tiles, and give the same bits
-on two calls (the forward's outputs, the backward's dx and de). The
+on two calls (the forward's outputs, the backward's dx and de). The NK
+attention forward and backward are also held at head widths 16 and 32,
+with masked slots between valid ones, on a K = 41 hub layout, with the
+forward's kept statistics against ``softmax_stats``, and give the same
+bits on two calls. The
 gumbel kernel draws the same Philox bits as its plain version, bit for bit, and
 its output is within 1e-5 of the plain version's (``logf`` on the card
 against ``torch.log``, at |noise| < 17); the Transolver train step runs
@@ -67,7 +71,7 @@ from graph_physics_tpu_torch.ops.fused_gnblock_nk import (
     fused_gn_block_nk,
     fused_gn_block_nk_reference,
 )
-from graph_physics_tpu_torch.ops.tiling import build_csr_layout
+from graph_physics_tpu_torch.ops.tiling import NKTiling, build_csr_layout
 from graph_physics_tpu_torch.utils import gradcheck
 
 
@@ -298,24 +302,181 @@ def test_forward_goes_through_kernel_and_matches_plain_path(cuda_device):
 # ---- the graph transformer's kernels ----------------------------------------
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 32])
 @pytest.mark.parametrize("batch", [4, 33])
-def test_attention_kernel_matches_plain_version(cuda_device, batch):
+def test_attention_kernel_matches_plain_version(cuda_device, batch, head_dim):
     setup = entry.transformer_setup(cuda_device, nx=20, ny=16, batch=batch, mp_steps=2)
     g, nk = setup.graph, setup.tiling
     gen = torch.Generator(device=cuda_device).manual_seed(batch)
-    q, k, v = [(0.5 * torch.randn((nk.num_nodes, batch, 4, 16), generator=gen,
+    q, k, v = [(0.5 * torch.randn((nk.num_nodes, batch, 4, head_dim), generator=gen,
                                   device=cuda_device)).to(torch.bfloat16) for _ in range(3)]
     mask = g.edge_mask.clone().view(nk.num_groups, nk.k_slots, nk.node_block)
     mask[:, :, :3] = False  # three receivers per node block with no valid slot
     for m in (g.edge_mask, mask.reshape(-1).contiguous()):
         before = fused_edge_attention_nk.launches
-        out = fused_edge_attention_nk(q, k, v, g.senders, m, nk)
+        out = fused_edge_attention_nk(q, k, v, g.senders, g.receivers, m, nk)
         torch.cuda.synchronize()
         assert fused_edge_attention_nk.launches == before + 1
-        ref = fused_edge_attention_nk_reference(q, k, v, g.senders, m, nk)
+        ref = fused_edge_attention_nk_reference(q, k, v, g.senders, g.receivers, m, nk)
         torch.testing.assert_close(out.float(), ref.float(), rtol=0.03, atol=0.02)
     empty = out.view(nk.num_groups, nk.node_block, -1)[:, :3]
     assert torch.equal(empty, torch.zeros_like(empty))
+
+
+def _check_kept_stats(kernels, qkv, rows, layout):
+    """The forward keeping its statistics gives the same output, and its max
+    and 1/denominator match ``softmax_stats`` (the max to fp32 rounding of
+    the logits' sum order, 1/denominator to 5e-3: a logit an ulp apart can
+    round its bf16 weight the other way); -inf and 0 exactly where a
+    receiver has no valid row."""
+    with torch.no_grad():
+        out = kernels[0](*qkv, *rows, layout)
+        kept, (m, inv) = kernels[0](*qkv, *rows, layout, keep_stats=True)
+        pm, pinv = ea_csr_ops.softmax_stats(*qkv[:2], *rows)
+    assert torch.equal(kept, out)
+    has_rows = torch.isfinite(pm)
+    torch.testing.assert_close(m[has_rows], pm[has_rows], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(inv[has_rows], pinv[has_rows], rtol=5e-3, atol=0)
+    assert torch.equal(torch.isinf(m), ~has_rows) and (inv[~has_rows] == 0).all()
+
+
+@pytest.mark.cuda
+def test_nk_attention_kept_statistics_match_plain_version_at_the_slice(cuda_device):
+    """The transformer slice's shape (the 48x40 mesh, B=64, 4 heads of 16),
+    with three receivers per node block without a valid slot."""
+    g, nk, qkv, _ = _attention_case(cuda_device, 64, seed=21)
+    mask = g.edge_mask.clone().view(nk.num_groups, nk.k_slots, nk.node_block)
+    mask[:, :, :3] = False
+    for m in (g.edge_mask, mask.reshape(-1).contiguous()):
+        _check_kept_stats(ea_ops.KERNELS, qkv, (g.senders, g.receivers, m), nk)
+
+
+@pytest.mark.cuda
+def test_nk_attention_kernels_on_masked_slots_between_valid_ones(cuda_device):
+    """Masked slots of a receiver between its valid ones drop out of the
+    walk: the forward, its statistics and the backward against the plain
+    versions."""
+    g, nk, qkv, cot = _attention_case(cuda_device, 4, seed=22, nx=16, ny=16)
+    m = _hole_mask(nk, g.edge_mask)
+    view = m.view(-1, nk.k_slots, nk.node_block)
+    assert (~view[:, 1] & view[:, 2]).any()
+    rows = (g.senders, g.receivers, m)
+    with torch.no_grad():
+        out = fused_edge_attention_nk(*qkv, *rows, nk)
+        ref = fused_edge_attention_nk_reference(*qkv, *rows, nk)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0.03, atol=0.02)
+    _check_kept_stats(ea_ops.KERNELS, qkv, rows, nk)
+    _check_nk_backward(qkv, rows, nk, cot)
+
+
+def _check_nk_backward(qkv, rows, nk, cot):
+    """The NK backward kernel against the plain backward and fp32 autograd
+    (utils/gradcheck.py), launched once; returns the kernel's gradients."""
+    names = ("dq", "dk", "dv")
+
+    def attention(fn):
+        return lambda *t: (fn(*t, *rows, nk), [])
+
+    before = fused_edge_attention_nk.backward_launches
+    grad_rows, ok, kept = gradcheck.check_backward(
+        names, names, attention(fused_edge_attention_nk),
+        attention(ea_ops.reference_with_backward),
+        attention(fused_edge_attention_nk_reference), qkv, [cot])
+    torch.cuda.synchronize()
+    assert fused_edge_attention_nk.backward_launches == before + 1
+    assert ok, [r for r in grad_rows if not r["ok"]]
+    return torch.autograd.grad(*kept["kernel"])
+
+
+#: the NK hub graph: receivers with more valid slots than the old kernels'
+#: cap of 32 (and one masked slot each, between valid ones)
+NK_HUBS = {3: 40, 200: 36}
+
+
+def _nk_hub_case(cuda_device, batch, head_dim, seed):
+    """q, k, v, a cotangent, the slot arrays and the NK layout of a 256-node
+    graph (two node blocks) whose hubs give K = 41 slots a receiver; ten
+    receivers with no slot, ten whose slots are all masked, node N-1 owning
+    9; the others take 1 to 6 slots from random senders. The layout is built
+    directly: the layout choice (ops/tiling.build_nk_tiling) would price
+    such a skewed graph into the CSR layout."""
+    rng = np.random.default_rng(seed)
+    n, nb = 256, 128
+    degree = rng.integers(1, 7, n)
+    degree[list(NO_ROWS)], degree[n - 1] = 0, 9
+    for hub, valid in NK_HUBS.items():
+        degree[hub] = valid + 1
+    k_slots = int(degree.max())
+    receivers = np.repeat(np.arange(n), degree)
+    senders = rng.integers(0, n, receivers.size)
+    rank = np.arange(receivers.size) - np.repeat(np.cumsum(degree) - degree, degree)
+    slot = (receivers // nb) * k_slots * nb + rank * nb + receivers % nb
+    perm = np.full((n // nb) * k_slots * nb, -1, np.int32)
+    perm[slot] = np.arange(receivers.size)
+    nk = NKTiling(perm=perm, k_slots=k_slots, node_block=nb, num_nodes=n)
+    valid = perm >= 0
+    s_slots, r_slots = np.zeros(perm.size, np.int32), np.full(perm.size, n - 1, np.int32)
+    s_slots[valid], r_slots[valid] = senders[perm[valid]], receivers[perm[valid]]
+    m_slots = valid & ~np.isin(r_slots, list(MASKED_ROWS))
+    for hub in NK_HUBS:  # one masked slot between each hub's valid ones
+        m_slots[(hub // nb) * k_slots * nb + 5 * nb + hub % nb] = False
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    qkv = [(0.5 * torch.randn((n, batch, 4, head_dim), generator=gen,
+                              device=cuda_device)).to(torch.bfloat16) for _ in range(3)]
+    cot = torch.randn((n, batch, 4, head_dim), generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+
+    def dev(a):
+        return torch.as_tensor(a, device=cuda_device).contiguous()
+
+    return qkv, cot, (dev(s_slots), dev(r_slots), dev(m_slots)), nk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("batch", [1, 17])
+def test_nk_attention_kernels_past_32_slots_on_hub_receivers(cuda_device, batch, head_dim):
+    """K = 41, past the first kernels' cap: the forward (its chunks and
+    online rescale), its statistics and the backward against the plain
+    versions; exact zeros where a receiver has no valid slot (dq too), and
+    dk = dv = 0 where a node sends on none."""
+    qkv, cot, rows, nk = _nk_hub_case(cuda_device, batch, head_dim, seed=60 + batch)
+    assert nk.k_slots > 32
+    before = fused_edge_attention_nk.launches
+    with torch.no_grad():
+        out = fused_edge_attention_nk(*qkv, *rows, nk)
+        ref = fused_edge_attention_nk_reference(*qkv, *rows, nk)
+    torch.cuda.synchronize()
+    assert fused_edge_attention_nk.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0.03, atol=0.02)
+    empty = list(NO_ROWS) + list(MASKED_ROWS)
+    assert torch.equal(out[empty], torch.zeros_like(out[empty]))
+    _check_kept_stats(ea_ops.KERNELS, qkv, rows, nk)
+    dq, dk, dv = _check_nk_backward(qkv, rows, nk, cot)
+    assert torch.equal(dq[empty], torch.zeros_like(dq[empty]))
+    senders, _, mask = rows
+    silent = torch.ones(nk.num_nodes, dtype=torch.bool, device=cuda_device)
+    silent[senders[mask].long()] = False
+    for t in (dk[silent], dv[silent]):
+        assert torch.equal(t, torch.zeros_like(t))
+
+
+@pytest.mark.cuda
+def test_nk_attention_kernels_are_bit_identical_across_calls(cuda_device):
+    """No atomics: two calls give the same output, statistics and dq, dk,
+    dv."""
+    qkv, cot, rows, nk = _nk_hub_case(cuda_device, 17, 16, seed=9)
+    calls = [ea_ops.KERNELS[0](*qkv, *rows, nk, keep_stats=True) for _ in range(2)]
+    (a, (am, ai)), (b, (bm, bi)) = calls
+    assert torch.equal(a, b) and torch.equal(am, bm) and torch.equal(ai, bi)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in qkv]
+        grads.append(torch.autograd.grad(fused_edge_attention_nk(*leaves, *rows, nk), leaves,
+                                         cot))
+    torch.cuda.synchronize()
+    for x, y in zip(*grads):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
@@ -359,40 +520,28 @@ def test_transformer_forward_goes_through_both_kernels_and_matches_plain_path(cu
 
 # ---- the graph transformer's backward kernels and train step ----------------
 
-def _attention_case(cuda_device, batch, seed):
+def _attention_case(cuda_device, batch, seed, head_dim=16, nx=48, ny=40):
     """The slot arrays, NK layout and random q, k, v and cotangent on the
-    48x40 mesh (the transformer slice's shape)."""
-    setup = entry.transformer_setup(cuda_device, batch=batch, mp_steps=1)
+    nx x ny mesh (48x40: the transformer slice's shape)."""
+    setup = entry.transformer_setup(cuda_device, nx=nx, ny=ny, batch=batch, mp_steps=1)
     g, nk = setup.graph, setup.tiling
     gen = torch.Generator(device=cuda_device).manual_seed(seed)
-    q, k, v, cot = [(s * torch.randn((nk.num_nodes, batch, 4, 16), generator=gen,
+    q, k, v, cot = [(s * torch.randn((nk.num_nodes, batch, 4, head_dim), generator=gen,
                                      device=cuda_device)).to(torch.bfloat16)
                     for s in (0.5, 0.5, 0.5, 1.0)]
     return g, nk, (q, k, v), cot
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 32])
 @pytest.mark.parametrize("batch", [4, 64])
-def test_attention_backward_kernel_matches_plain_backward(cuda_device, batch):
+def test_attention_backward_kernel_matches_plain_backward(cuda_device, batch, head_dim):
     """Bounds and their reasons: graph_physics_tpu_torch/utils/gradcheck.py."""
-    g, nk, qkv, cot = _attention_case(cuda_device, batch, seed=batch)
+    g, nk, qkv, cot = _attention_case(cuda_device, batch, seed=batch, head_dim=head_dim)
     mask = g.edge_mask.clone().view(nk.num_groups, nk.k_slots, nk.node_block)
     mask[:, :, :3] = False  # three receivers per node block with no valid slot
     for m in (g.edge_mask, mask.reshape(-1).contiguous()):
-        def attention(fn):
-            return lambda *t: (fn(*t, g.senders, m, nk), [])
-
-        before = fused_edge_attention_nk.backward_launches
-        names = ("dq", "dk", "dv")
-        rows, ok, _ = gradcheck.check_backward(
-            names, names, attention(fused_edge_attention_nk),
-            attention(ea_ops.reference_with_backward),
-            attention(fused_edge_attention_nk_reference), qkv, [cot])
-        torch.cuda.synchronize()
-        assert fused_edge_attention_nk.backward_launches == before + 1
-        assert ok, [r for r in rows if not r["ok"]]
-    leaves = [t.clone().requires_grad_(True) for t in qkv]
-    dq, _, _ = torch.autograd.grad(fused_edge_attention_nk(*leaves, g.senders, m, nk), leaves, cot)
+        dq, _, _ = _check_nk_backward(qkv, (g.senders, g.receivers, m), nk, cot)
     empty = dq.view(nk.num_groups, nk.node_block, -1)[:, :3]
     assert torch.equal(empty, torch.zeros_like(empty))
 
@@ -512,7 +661,7 @@ def test_transformer_kernels_refuse_what_they_lack_under_autograd(cuda_device):
     q = torch.zeros((nk.num_nodes, 2, 4, 8), dtype=torch.bfloat16, device=cuda_device,
                     requires_grad=True)  # head width 8: no kernel instance
     with pytest.raises(NotImplementedError):
-        fused_edge_attention_nk(q, q, q, g.senders, g.edge_mask, nk)
+        fused_edge_attention_nk(q, q, q, g.senders, g.receivers, g.edge_mask, nk)
     block, norm2 = GatedMLPBlock(32, 32, 32).to(cuda_device), RMSNorm(32).to(cuda_device)
     x = torch.zeros((64, 2, 32), dtype=torch.bfloat16, device=cuda_device, requires_grad=True)
     with pytest.raises(NotImplementedError):  # hidden 32: no kernel
@@ -673,11 +822,7 @@ def test_csr_attention_kernel_on_hub_receivers_and_empty_receivers(cuda_device, 
         torch.testing.assert_close(out.float(), ref.float(), rtol=0.03, atol=0.02)
         empty = out[list(NO_ROWS) + list(MASKED_ROWS)]
         assert torch.equal(empty, torch.zeros_like(empty))
-        kept, (m, inv) = ea_csr_ops.KERNELS[0](*qkv, *rows, csr, keep_stats=True)
-        pm, pinv = ea_csr_ops.softmax_stats(*qkv[:2], *rows)
-    assert torch.equal(kept, out)
-    torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(inv, pinv, rtol=5e-3, atol=0)
+    _check_kept_stats(ea_csr_ops.KERNELS, qkv, rows, csr)
 
 
 @pytest.mark.cuda

@@ -6,11 +6,12 @@
     1e-5, single frame and packed, and in bf16 to rtol = atol = 0.02 (two
     bf16 roundings of values below 2 in size, and bf16 scatter-adds that
     the two packages take in another order);
-  * on CPU tensors ``fused_edge_attention_nk`` (the plain version) matches
-    the Pallas kernel in interpret mode at rtol 0.03, atol 0.02, the JAX
-    suite's kernel-vs-kernel bound (tests/test_fused_edge_attention_nk.py:
-    96-99), and counts no launch; in fp32 it matches ``ea.edge_attention``
-    to 1e-5;
+  * on CPU tensors ``fused_edge_attention_nk`` (the plain version,
+    ``edge_attention`` on the slot arrays) matches the Pallas kernel in
+    interpret mode at rtol 0.03, atol 0.02, the JAX suite's
+    kernel-vs-kernel bound (tests/test_fused_edge_attention_nk.py:96-99),
+    and counts no launch; in fp32 it matches ``ea.edge_attention`` on the
+    original edge list to 1e-5;
   * a receiver with no valid slot gets exact zeros.
 The CUDA kernel itself is tested on a card by tests/test_torch_cuda.py.
 """
@@ -127,12 +128,17 @@ def _nk_case(seed=0):
     return g, jt, tt, tg, q, k, v
 
 
+def _slots(tg):
+    """The port graph's slot arrays: senders, receivers, edge_mask."""
+    return tuple(torch.as_tensor(a) for a in (tg.senders, tg.receivers, tg.edge_mask))
+
+
 def test_nk_wrapper_on_cpu_matches_pallas_interpret():
     g, jt, tt, tg, q, k, v = _nk_case(seed=2)
     want = j_fused(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), jt, interpret=True)
     before = fused_edge_attention_nk.launches
     got = fused_edge_attention_nk(*(torch.as_tensor(a).to(torch.bfloat16) for a in (q, k, v)),
-                                  torch.as_tensor(tg.senders), torch.as_tensor(tg.edge_mask), tt)
+                                  *_slots(tg), tt)
     assert fused_edge_attention_nk.launches == before  # CPU tensors: plain version, no launch
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
@@ -148,8 +154,7 @@ def test_nk_reference_fp32_matches_edge_attention():
                               jnp.asarray(g.senders), jnp.asarray(g.receivers),
                               jnp.asarray(g.edge_mask))
     got = fused_edge_attention_nk_reference(*(torch.as_tensor(a) for a in (q, k, v)),
-                                            torch.as_tensor(tg.senders),
-                                            torch.as_tensor(tg.edge_mask), tt)
+                                            *_slots(tg), tt)
     np.testing.assert_allclose(got.numpy()[:n], np.asarray(want), **TOL)
     assert not got.numpy()[n:].any()  # padded nodes receive nothing
 
@@ -160,7 +165,7 @@ def test_nk_empty_receivers_give_exact_zeros():
     mask[:, :, :7] = False  # seven receivers per node block lose every slot
     mask = torch.as_tensor(mask.reshape(-1))
     got = fused_edge_attention_nk(*(torch.as_tensor(a).to(torch.bfloat16) for a in (q, k, v)),
-                                  torch.as_tensor(tg.senders), mask, tt)
+                                  *_slots(tg)[:2], mask, tt)
     empty = got.view(tt.num_groups, tt.node_block, B, HEADS, DH)[:, :7]
     assert torch.equal(empty, torch.zeros_like(empty))
     want = edge_attention(*(torch.as_tensor(a).to(torch.bfloat16) for a in (q, k, v)),
@@ -170,15 +175,15 @@ def test_nk_empty_receivers_give_exact_zeros():
 
 def test_nk_wrapper_checks_inputs():
     g, jt, tt, tg, q, k, v = _nk_case()
-    s, m = torch.as_tensor(tg.senders), torch.as_tensor(tg.edge_mask)
+    s, r, m = _slots(tg)
     t = [torch.as_tensor(a) for a in (q, k, v)]
     with pytest.raises(ValueError, match="bf16"):
-        fused_edge_attention_nk(*t, s, m, tt)
+        fused_edge_attention_nk(*t, s, r, m, tt)
     bf = [a.to(torch.bfloat16) for a in t]
     with pytest.raises(ValueError, match="NK layout"):
-        fused_edge_attention_nk(*[a[:-128] for a in bf], s, m, tt)
+        fused_edge_attention_nk(*[a[:-128] for a in bf], s, r, m, tt)
     with pytest.raises(ValueError, match="one entry per slot"):
-        fused_edge_attention_nk(*bf, s[:-1], m[:-1], tt)
+        fused_edge_attention_nk(*bf, s[:-1], r[:-1], m[:-1], tt)
     with pytest.raises(ValueError, match="contiguous"):
         fused_edge_attention_nk(bf[0].transpose(2, 3).contiguous().transpose(2, 3), *bf[1:],
-                                s, m, tt)
+                                s, r, m, tt)

@@ -1,32 +1,40 @@
-"""The CSR edge attention's kept softmax statistics and the kernels'
-formulas, against the JAX package, on the graded test mesh.
+"""The edge attention's kept softmax statistics and the kernels' formulas,
+against the JAX package, in both edge layouts: the CSR rows of the graded
+test mesh and the NK slots of the 14x10 cylinder mesh.
 
-The forward kernel (csrc/fused_edge_attention_csr.cu) keeps, under
-autograd, the max of each receiver's logits and 1 / its softmax
-denominator; the backward kernel (csrc/fused_edge_attention_csr_bwd.cu)
-takes them and the forward's output instead of walking the rows again.
-On the CPU, with the same numpy inputs from a seed:
-  * ``softmax_stats``, the plain version of those statistics, matches the
-    same quantities built from JAX's segment ops on the original edge list
+The forward kernels (csrc/ea_fwd.cuh, in fused_edge_attention_csr.cu and
+fused_edge_attention_nk.cu) keep, under autograd, the max of each
+receiver's logits and 1 / its softmax denominator; the backward kernels
+(csrc/ea_bwd_passes.cuh) take them and the forward's output instead of
+walking the rows again. A receiver's rows are its CSR rows or its K slots
+at stride nb, masked ones among them, walked in row order. On the CPU,
+with the same numpy inputs from a seed, for each layout:
+  * ``softmax_stats``, the plain version of those statistics, on the
+    layout's row arrays matches the same quantities built from JAX's
+    segment ops on the original edge list
     (the max to 1e-6; 1/denominator to 5e-3 relative, since a logit one
     fp32 ulp apart can round its bf16 weight the other way, a change of
     up to 2^-8 of one term);
   * the kernels' formulas as the source headers state them (the forward's
     chunks of 4 rows with the online rescale, the backward's s_r from the
     output, p_s from the kept max), written out in torch here, match the
-    Pallas kernels in interpret mode: the forward at rtol 0.03, atol 0.02
+    layout's Pallas kernels (``fused_edge_attention``,
+    ``fused_edge_attention_nk``) in interpret mode: the forward at rtol
+    0.03, atol 0.02
     (tests/test_fused_edge_attention_nk.py:96-99) and dq, dk, dv within
     0.04 of max (tests/test_fused_edge_attention.py:80-85), with receivers
-    whose rows are all masked out giving exact zeros; on a hub receiver of
+    whose rows (slots) are all masked out giving exact zeros; on a CSR hub
+    receiver of
     300 rows (about 68 chunks) the forward formula on fp32 inputs matches the
     plain version within the rounding of p_s and the output to bf16
     (rtol 0.02, atol 0.01), its max exactly and its 1/denominator to 5e-3;
   * ``sender_places``, the transpose the backward's sender pass walks,
-    gives every valid row one place inside its sender's range, with its
-    receiver kept there.
+    gives every valid row (slot) one place inside its sender's range, with
+    its receiver kept there.
 The kernels themselves run on a card in tests/test_torch_cuda.py.
 """
 
+import dataclasses
 import math
 
 import jax
@@ -37,15 +45,44 @@ import torch
 
 from graph_physics_tpu.ops import segment as jseg
 from graph_physics_tpu.ops.fused_edge_attention import fused_edge_attention as j_fused_attn
+from graph_physics_tpu.ops.fused_edge_attention_nk import fused_edge_attention_nk as j_fused_nk
 from graph_physics_tpu_torch.ops import segment
 from graph_physics_tpu_torch.ops.edge_attention import edge_attention
 from graph_physics_tpu_torch.ops.fused_edge_attention_csr import sender_places, softmax_stats
 from tests.test_torch_csr_layout import graded_graph
 from tests.test_torch_csr_train import _attn_case, _close_to_max
+from tests.test_torch_edge_attention import _nk_case
 
-#: rows whose loads the kernels issue together (csrc/ea_csr_common.cuh
-#: CHUNK)
+#: rows whose loads the kernels issue together (csrc/ea_common.cuh CHUNK)
 CHUNK = 4
+LAYOUTS = ("csr", "nk")
+
+
+def _case(layout, seed, empty):
+    """(rows, qkv, jax_attn, gone, g, layout object) of one layout: the row
+    arrays (senders, receivers, mask) with every row of the receivers
+    ``gone`` masked out when ``empty``; q, k, v (numpy); the layout's
+    Pallas attention in interpret mode on bf16 q, k, v, with the same
+    edges; the JAX host graph of the original edge list."""
+    if layout == "csr":
+        c, qkv, mask, jt, gone = _attn_case(seed=seed, empty=empty)
+        g = graded_graph()
+        rows = (c["senders"], c["receivers"], mask)
+        return rows, qkv, lambda *t: j_fused_attn(*t, jt, interpret=True), gone, g, c["tt"]
+    g, jt, tt, tg, q, k, v = _nk_case(seed=seed)
+    senders, receivers = torch.as_tensor(tg.senders), torch.as_tensor(tg.receivers)
+    mask = torch.as_tensor(tg.edge_mask).clone()
+    n_real = int(g.n_node)
+    gone = np.array([0, 5, n_real // 2, n_real - 1]) if empty else np.zeros(0, np.int64)
+    jmask = jt.perm >= 0
+    for r in gone:  # mask out every slot of these receivers in both layouts
+        mask &= receivers != int(r)
+        jmask &= ~np.isin(jt.perm, np.nonzero(np.asarray(g.receivers) == r)[0])
+    # JAX takes the edge set from its tiling: sentinel the masked slots
+    jt = dataclasses.replace(jt, sidx=np.where(jmask.reshape(jt.sidx.shape), jt.sidx,
+                                               jt.window_rows).astype(np.int32))
+    return ((senders, receivers, mask), [q, k, v],
+            lambda *t: j_fused_nk(*t, jt, interpret=True), gone, g, tt)
 
 
 def _bf(x):
@@ -65,11 +102,14 @@ def forward_formula(q, k, v, senders, receivers, mask, chunk=CHUNK):
     the final max."""
     n = q.shape[0]
     logits = _logits(q, k, senders, receivers)
-    valid = mask.long()
-    seen = torch.cumsum(valid, 0) - valid  # valid rows before each row
-    first = torch.full((n,), seen.numel(), dtype=torch.long).scatter_reduce(
-        0, receivers.long(), torch.arange(seen.numel()), reduce="amin")
-    rank = seen - seen[first.clamp(max=seen.numel() - 1)][receivers.long()]
+    # each valid row's rank among its receiver's valid rows, in row order
+    # (a CSR receiver's rows are contiguous, an NK receiver's at stride nb)
+    rows = torch.nonzero(mask).flatten()
+    order = torch.argsort(receivers[rows], stable=True)
+    grouped = receivers[rows][order].long()
+    count = torch.bincount(grouped, minlength=n)
+    rank = torch.zeros(mask.numel(), dtype=torch.long)
+    rank[rows[order]] = torch.arange(rows.numel()) - (torch.cumsum(count, 0) - count)[grouped]
     chunk_of = torch.where(mask, rank // chunk, -1)
     running = torch.full((n,) + logits.shape[1:], -math.inf)
     at_row = torch.full_like(logits, -math.inf)
@@ -107,13 +147,13 @@ def backward_formula(q, k, v, senders, receivers, mask, out, m, inv, g_out):
     return tuple(_bf(t) for t in (dq, dk, dv))
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("empty", [False, True])
-def test_softmax_stats_match_jax_segment_ops(empty):
-    c, qkv, mask, _, gone = _attn_case(seed=31 + empty, empty=empty)
-    g = graded_graph()
-    n = c["tt"].num_nodes
+def test_softmax_stats_match_jax_segment_ops(empty, layout):
+    rows, qkv, _, gone, g, lay = _case(layout, seed=31 + empty, empty=empty)
+    n = lay.num_nodes
     q, k, _ = (torch.as_tensor(a) for a in qkv)
-    m, inv = softmax_stats(q, k, c["senders"], c["receivers"], mask)
+    m, inv = softmax_stats(q, k, *rows)
 
     # the same quantities from JAX's segment ops on the original edge list
     keep = np.ones(g.senders.shape[0], bool)
@@ -135,20 +175,20 @@ def test_softmax_stats_match_jax_segment_ops(empty):
     assert torch.isinf(m[torch.as_tensor(gone)]).all()
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("empty", [False, True])
-def test_kernel_formulas_match_pallas_interpret(empty):
-    c, qkv, mask, jt, gone = _attn_case(seed=33 + empty, empty=empty)
-    rows = (c["senders"], c["receivers"], mask)
+def test_kernel_formulas_match_pallas_interpret(empty, layout):
+    rows, qkv, jax_attn, gone, _, _ = _case(layout, seed=33 + empty, empty=empty)
     q, k, v = (torch.as_tensor(a).to(torch.bfloat16) for a in qkv)
     cot = np.random.default_rng(35).normal(size=qkv[0].shape).astype(np.float32)
     jqkv = [jnp.asarray(a, jnp.bfloat16) for a in qkv]
 
     out, m, inv = forward_formula(q, k, v, *rows)
-    want = j_fused_attn(*jqkv, jt, interpret=True)
+    want = jax_attn(*jqkv)
     np.testing.assert_allclose(out.numpy(), np.asarray(want, np.float32), rtol=0.03, atol=0.02)
 
     def jloss(q, k, v):
-        return jnp.sum(j_fused_attn(q, k, v, jt, interpret=True).astype(jnp.float32) * cot)
+        return jnp.sum(jax_attn(q, k, v).astype(jnp.float32) * cot)
 
     want = jax.grad(jloss, argnums=(0, 1, 2))(*jqkv)
     got = backward_formula(q, k, v, *rows, out, m, inv, torch.as_tensor(cot).to(torch.bfloat16))
@@ -178,15 +218,15 @@ def test_forward_formula_on_a_hub_receiver_matches_plain_version():
     torch.testing.assert_close(inv, sinv, rtol=5e-3, atol=0)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("empty", [False, True])
-def test_sender_places_transpose_the_csr_rows(empty):
-    """The backward's sender pass walks the valid rows by sender: each
-    valid row has one place, inside its sender's range, and the receiver
-    kept at that place is the row's; the places of the valid rows are
-    0 .. valid-1 once each."""
-    c, _, mask, _, _ = _attn_case(seed=39, empty=empty)
-    senders, receivers, csr = c["senders"], c["receivers"], c["tt"]
-    offsets, place, recv = sender_places(senders, receivers, mask, csr)
+def test_sender_places_transpose_the_csr_rows(empty, layout):
+    """The backward's sender pass walks the valid rows (CSR rows or NK
+    slots) by sender: each valid row has one place, inside its sender's
+    range, and the receiver kept at that place is the row's; the places of
+    the valid rows are 0 .. valid-1 once each."""
+    (senders, receivers, mask), _, _, _, _, lay = _case(layout, seed=39, empty=empty)
+    offsets, place, recv = sender_places(senders, receivers, mask, lay)
     rows = torch.nonzero(mask).flatten()
     at = place[rows].long()
     assert torch.equal(torch.sort(at).values, torch.arange(rows.numel()))
@@ -194,4 +234,4 @@ def test_sender_places_transpose_the_csr_rows(empty):
     assert ((offsets[j] <= at) & (at < offsets[j + 1])).all()
     assert torch.equal(recv[at], receivers[rows])
     assert offsets[-1] == rows.numel()
-    assert sender_places(senders, receivers, mask, csr)[1] is place  # kept on the layout
+    assert sender_places(senders, receivers, mask, lay)[1] is place  # kept on the layout

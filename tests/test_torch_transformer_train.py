@@ -1,6 +1,7 @@
 """The port's graph-transformer training slice against the JAX package, on the CPU.
 
-  * the plain attention backward ``fused_edge_attention_nk_backward_reference``
+  * the NK attention's plain backward (plain autograd of its plain
+    version, ``edge_attention_backward_reference``) on the slot arrays
     matches ``jax.grad`` through the Pallas NK attention in interpret mode:
     dq, dk, dv within 0.04·max, the loss at rtol 0.03
     (tests/test_fused_edge_attention_nk.py:102-125);
@@ -42,10 +43,11 @@ from graph_physics_tpu_torch.core.graph import MeshGraph
 from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
 from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
 from graph_physics_tpu_torch.ops import tiling as ttiling
+from graph_physics_tpu_torch.ops.fused_edge_attention_csr import edge_attention_backward_reference
 from graph_physics_tpu_torch.training import packed as tpacked
 from graph_physics_tpu_torch.utils.gradcheck import grads_of
 from tests.helpers import tiny_graph
-from tests.test_torch_edge_attention import _nk_case
+from tests.test_torch_edge_attention import _nk_case, _slots
 from tests.test_torch_fused_ffn import _flax_block, _norm2, _x
 from tests.test_torch_fused_gnblock_nk import _port_host_graph
 from tests.test_torch_train_step import _packed_graphs, check_bf16_steps, check_fp32_steps, run_steps
@@ -76,12 +78,11 @@ def test_attention_backward_reference_matches_pallas_interpret():
 
     want_loss, want = jax.value_and_grad(loss, argnums=(0, 1, 2))(
         *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
-    args = (*(_bf16(a) for a in (q, k, v)), torch.as_tensor(tg.senders),
-            torch.as_tensor(tg.edge_mask), tt)
+    args = (*(_bf16(a) for a in (q, k, v)), *_slots(tg), tt)
     out = ea_ops.fused_edge_attention_nk_reference(*args)
     np.testing.assert_allclose((out.float() * torch.as_tensor(cot)).sum().item(),
                                float(want_loss), rtol=0.03)
-    got = ea_ops.fused_edge_attention_nk_backward_reference(*args, g_out=_bf16(cot))
+    got = edge_attention_backward_reference(*args, g_out=_bf16(cot))
     for a, c, name in zip(got, want, ("dq", "dk", "dv")):
         assert a.dtype == torch.bfloat16 and a.shape == q.shape
         _close_to_max(a.float().numpy(), c, name)
@@ -146,11 +147,11 @@ def _check_function(fn, plain, inputs, cots):
 
 def test_attention_function_backward_matches_autograd():
     g, jt, tt, tg, q, k, v = _nk_case(seed=7)
-    s, m = torch.as_tensor(tg.senders), torch.as_tensor(tg.edge_mask)
+    slots = _slots(tg)
     cot = _bf16(np.random.default_rng(8).normal(size=q.shape))
     _check_function(
-        lambda *qkv: (ea_ops.reference_with_backward(*qkv, s, m, tt), []),
-        lambda *qkv: (ea_ops.fused_edge_attention_nk_reference(*qkv, s, m, tt), []),
+        lambda *qkv: (ea_ops.reference_with_backward(*qkv, *slots, tt), []),
+        lambda *qkv: (ea_ops.fused_edge_attention_nk_reference(*qkv, *slots, tt), []),
         [_bf16(a) for a in (q, k, v)], [cot])
 
 
