@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the inference
 and training paths of the cylinder ``epd`` and of the graph transformer,
-on the cylinder mesh (NK layout) and on the graded mesh (CSR layout), and
-the Transolver++ train step with its gumbel kernel.
+on the cylinder mesh (NK layout) and on the graded mesh (CSR layout), the
+Transolver++ train step with its gumbel kernel, and the train -> predict
+loop (loader, Trainer.fit, checkpoint and resume, predict).
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --parent CHECKOUT   # also times another checkout's
@@ -134,6 +135,30 @@ Phases (any failure raises, so the exit code is non-zero):
      the train steps with the kernel, with the torch.rand draw and on the
      plain path, on the cylinder and on the graded mesh's 27,000 points,
      with the host's time to enqueue a step and the syncs a step makes.
+ 25. data: a BaseDataset defined here over in-memory trajectories (8 of
+     129 frames on the 48x40 cylinder mesh; the card's machine has no
+     h5py): every batch the loader delivers to the card, B=128, laid out
+     by FusedTopologyManager, equals its numpy source bit for bit, on the
+     vectorized lane and frame by frame, over two epochs;
+ 26. fit: training_config/cylinder.json's model (5 blocks, hidden 32,
+     relu, bf16, packed, NK layout, noise σ=0.02) through the port's
+     Trainer.fit: 3 epochs of 8 steps at B=128 with a 50-step validation
+     rollout each; each epoch's loss and rollout RMSE finite, 5 forward
+     and 5 backward launches of the NK GraphNetBlock a step and 5 a
+     rollout step; the steady-state step inside fit against
+     entry.cylinder_train_setup's step (phase 8); 26b: the transformer
+     (2 blocks, hidden 64, 4 heads, B=64), one epoch, 2 + 2 launches of
+     the NK attention and of the gated FFN a step;
+ 27. checkpoint: a run that stops after epoch 2 and resumes from its
+     checkpoint (other weights first) ends where an uninterrupted run
+     ends (parameters, normalizer accumulators, optimizer state and step):
+     on the plain path under deterministic algorithms bit for bit; on the
+     kernel path, whose weight gradients are summed by atomics, within
+     ``RESUME_REL``, and bit for bit where two uninterrupted runs are
+     (phase 26's run against the uninterrupted one, logged);
+ 28. predict: cli.common.load_inference_stack on phase 26's checkpoint
+     with the validation dataset passed in, and cli.predict.predict on
+     the fused path: the rollout RMSE equals what validate reported.
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
 the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
@@ -161,7 +186,9 @@ import contextlib
 import copy
 import functools
 import inspect
+import itertools
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -193,6 +220,18 @@ STEP1_GRAD_REL = 0.04
 #: loss on steps 2..20, kernel path vs plain path, relative: 10x the
 #: largest difference of the first run on the card, 9.5e-5 (PERF.md §6)
 LATER_LOSS_RTOL = 1e-3
+#: phase 27: the resumed run against an uninterrupted one, each part of the
+#: state as one vector (``state_diff``). Two uninterrupted runs on the card
+#: differ: the GraphNetBlock backward kernels sum their weight gradients
+#: over blocks by fp32 atomics (csrc/gn_bwd_common.cuh, gn_bwd_passes.cuh),
+#: and 24 Adam steps amplify the last bits (on an NVIDIA H100 80GB HBM3 at
+#: 700 W: up to 3.5e-3 in Adam's first moments, 1.7e-6 in the parameters).
+#: The plain path under deterministic algorithms resumes bit for bit. Where
+#: two uninterrupted runs agree bit for bit, so must the resumed one
+RESUME_REL = 1e-2
+#: phase 28: predict's rollout RMSE is computed in fp32 on the card,
+#: validate's in float64 from the same squared-error sums
+PREDICT_RTOL = 1e-6
 #: attention kernel vs plain version (tests/test_fused_edge_attention_nk.py:96-99)
 ATTN_RTOL, ATTN_ATOL = 0.03, 0.02
 #: gated-FFN kernel vs plain version, rtol = atol (tests/test_fused_ffn.py:27-30)
@@ -931,6 +970,384 @@ def step1_fp32_grads(sim, graph, seed):
     return {k: p.grad.float() for k, p in sim.named_parameters()}
 
 
+#: the trainer phases (25-28): bench.py's batch of 128 frames a step, 8
+#: training trajectories of 129 frames (128 samples each, so one batch a
+#: trajectory and 8 steps an epoch), 3 epochs, 1 validation trajectory of
+#: 50 rollout steps
+FIT_TRAJECTORIES, FIT_FRAMES, FIT_BATCH, FIT_EPOCHS = 8, 129, 128, 3
+VAL_STEPS = 50
+#: the synthetic cylinder mesh of every setup (1,920 nodes)
+FIT_MESH = (48, 40)
+#: phase 26b: the transformer at bench_models.py's B=64, one epoch
+TF_FIT_BATCH = 64
+
+
+def memory_dataset_class():
+    """A BaseDataset over trajectory dicts held in memory (the card's
+    machine has no h5py, so no H5Dataset)."""
+    from graph_physics_tpu_torch.dataset.base import BaseDataset
+
+    class MemoryDataset(BaseDataset):
+        def __init__(self, trajectories, meta, frame_config, seed=0):
+            super().__init__(frame_config, meta, seed=seed)
+            self._trajs = list(trajectories)
+            self._traj_len = [int(t["velocity"].shape[0]) for t in self._trajs]
+            self._setup_index()
+
+        @property
+        def num_trajectories(self):
+            return len(self._trajs)
+
+        def _trajectory(self, t):
+            return self._trajs[t]
+
+    return MemoryDataset
+
+
+def fit_datasets():
+    """(training, validation) in-memory datasets of synthetic cylinder
+    trajectories (48 x 40 mesh, 1,920 nodes)."""
+    from graph_physics_tpu_torch.dataset import synthetic
+    from graph_physics_tpu_torch.dataset.preprocessing import FrameConfig
+
+    ds = memory_dataset_class()
+    fc = FrameConfig(targets=("velocity",))
+    train = ds([synthetic.make_trajectory(*FIT_MESH, FIT_FRAMES)] * FIT_TRAJECTORIES,
+               synthetic.meta_dict(FIT_FRAMES), fc)
+    val = ds([synthetic.make_trajectory(*FIT_MESH, VAL_STEPS + 1)],
+             synthetic.meta_dict(VAL_STEPS + 1), fc)
+    return train, val
+
+
+def cylinder_param():
+    from graph_physics_tpu_torch.training import config as config_lib
+
+    return config_lib.load_params(str(ROOT / "training_config" / "cylinder.json"))
+
+
+def fit_trainer(param, train_ds, val_ds, run, device, batch=None, epochs=None, fresh=True,
+                fused=True):
+    """A Trainer of the config ``param``'s model (bf16, weights from seed 0
+    as the CLI draws them) on the packed batches of the fused path (the
+    plain path with ``fused=False``); with ``fresh`` the run's directory
+    (checkpoints, metrics) starts empty."""
+    import torch
+    from graph_physics_tpu_torch.models.layers import lecun_parameters
+    from graph_physics_tpu_torch.training import config as config_lib
+    from graph_physics_tpu_torch.training.loss import l2_loss
+    from graph_physics_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    sim = config_lib.get_simulator(param, config_lib.get_model(param, dtype=torch.bfloat16))
+    lecun_parameters(sim, torch.Generator().manual_seed(0))
+    cfg = TrainerConfig(epochs=epochs or FIT_EPOCHS, batch_size=batch or FIT_BATCH,
+                        learning_rate=1e-3, warmup=100,
+                        packed=True, fused=fused, out_dir=str(ROOT / "build" / "fit"),
+                        run_name=run, seed=0)
+    if fresh:
+        shutil.rmtree(ROOT / "build" / "fit" / run, ignore_errors=True)
+    return Trainer(sim, train_ds, val_ds, l2_loss, cfg,
+                   noise_cfg=config_lib.get_noise_config(param), device=device)
+
+
+def data_phase(device, train_ds):
+    """Phase 25: every batch the loader delivers to the card equals its
+    numpy source bit for bit, on the vectorized lane and frame by frame,
+    for two epochs (the first batch of a trajectory always builds frame by
+    frame and makes the lane's skeleton and layout template)."""
+    import numpy as np
+    import torch
+    from graph_physics_tpu_torch.core.graph import TENSOR_FIELDS
+    from graph_physics_tpu_torch.dataset.loader import BatchLoader
+    from graph_physics_tpu_torch.training.fused import FusedTopologyManager
+
+    for lane in ("vectorized", "per-frame"):
+        mgr = FusedTopologyManager("epd")
+        loader = BatchLoader(train_ds, FIT_BATCH, seed=0, packed=True, device=device,
+                             frame_transform=mgr.transform_frame,
+                             packed_transform=mgr.transform_packed, broadcast_static=True)
+        sources, fast = [], [0]
+        host_batch, packed_fast = loader.host_batch, loader._packed_fast
+
+        def recording(chunk, host_batch=host_batch):
+            sources.append(host_batch(chunk))
+            return sources[-1]
+
+        def counting(chunk, packed_fast=packed_fast, lane=lane):
+            g = packed_fast(chunk) if lane == "vectorized" else None
+            fast[0] += g is not None
+            return g
+
+        loader.host_batch, loader._packed_fast = recording, counting
+        n = 0
+        for epoch in range(2):
+            for batch in loader:
+                src = sources[n]
+                for name in TENSOR_FIELDS:
+                    got, want = getattr(batch, name), getattr(src, name)
+                    if (got is None) != (want is None):
+                        raise AssertionError(f"phase 25 [{lane}]: {name} None on one side")
+                    if got is not None and not torch.equal(
+                            got.cpu(), torch.as_tensor(np.asarray(want)).to(got.dtype)):
+                        raise AssertionError(f"phase 25 [{lane}] batch {n}: {name} differs "
+                                             "from its numpy source")
+                    if got is not None and got.device != torch.device(device):
+                        raise AssertionError(f"phase 25: {name} is not on the card")
+                n += 1
+        log(f"data [{lane}]: {n} batches of {FIT_BATCH} frames delivered to {device} equal "
+            f"their numpy sources bit for bit ({fast[0]} built on the vectorized lane)")
+        if n != 2 * len(loader) or (lane == "vectorized") != (fast[0] > 0):
+            raise AssertionError(f"phase 25 [{lane}]: {n} batches, {fast[0]} vectorized")
+
+
+def interval_ms(fn, calls):
+    """Median milliseconds between the starts of ``calls`` back-to-back
+    calls of ``fn`` (CUDA events, no sync between calls), as
+    :func:`fit_step_times` reads the steps inside fit."""
+    import torch
+
+    marks = []
+    for _ in range(calls):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        fn()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+
+
+def fit_step_times(trainer):
+    """Wrap ``trainer.train_step`` to record a CUDA event as each step
+    starts; returns {epoch: [event, ...]}."""
+    import torch
+
+    marks, inner = defaultdict(list), trainer.train_step
+
+    def step(state, batch, gen):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[state.step // trainer.steps_per_epoch].append(ev)
+        return inner(state, batch, gen)
+
+    trainer.train_step = step
+    return marks
+
+
+def trainer_state(trainer):
+    """Parameters, normalizer accumulators, optimizer moments and count, step."""
+    out = {k: v.detach().clone() for k, v in trainer.sim.state_dict().items()}
+    opt = trainer.state.optimizer
+    for i, p in enumerate(opt.params):
+        for k, v in opt.adamw.state.get(p, {}).items():
+            out[f"opt.{i}.{k}"] = v.detach().clone()
+    out["count"], out["step"] = opt.count, trainer.state.step
+    return out
+
+
+def state_diff(a, b):
+    """(largest relative difference, its part, every part's) between two
+    trainer states; 0 when every tensor is equal bit for bit. The parts: the parameters,
+    the normalizer accumulators, Adam's first and second moments, each as
+    one vector by ||b - a|| / ||a|| (a single small tensor, a bias that
+    started at 0, moves by rounding alone); the update count, the step and
+    Adam's own step counts must be equal."""
+    import torch
+
+    if set(a) != set(b):
+        raise AssertionError("phase 27: the states hold different tensors")
+    a = {k: torch.as_tensor(v).float() for k, v in a.items()}
+    b = {k: torch.as_tensor(v).float() for k, v in b.items()}
+    if all(torch.equal(a[k], b[k]) for k in a):
+        return 0.0, "all", {}
+    parts = {"parameters": [], "normalizers": [], "exp_avg": [], "exp_avg_sq": []}
+    diffs = {}
+    for k in a:
+        if k.endswith(".exp_avg") or k.endswith(".exp_avg_sq"):
+            parts[k.rsplit(".", 1)[1]].append(k)
+        elif k in ("count", "step") or k.startswith("opt."):
+            diffs[k] = 0.0 if torch.equal(a[k], b[k]) else float("inf")
+        else:
+            parts["normalizers" if "_normalizer." in k else "parameters"].append(k)
+    for part, names in parts.items():
+        va, vb = (torch.cat([s[k].flatten() for k in names]) for s in (a, b))
+        diffs[part] = ((vb - va).norm() / va.norm().clamp_min(1e-30)).item()
+    worst = max(diffs, key=diffs.get)
+    return diffs[worst], worst, {k: diffs[k] for k in parts}
+
+
+def epoch_records(trainer):
+    path = Path(trainer.cfg.out_dir) / trainer.cfg.run_name / f"{trainer.cfg.run_name}.metrics.jsonl"
+    return [r for r in map(json.loads, path.read_text().splitlines()) if "train_loss_epoch" in r]
+
+
+def trainer_phases(device, card, entry_step_ms):
+    """Phases 25-28 (the trainer, its loader, checkpoint and predict);
+    returns {wrapper name: (forward, backward) launches} of phases 26 and
+    26b, each read right after its run with the counts set to 0 just
+    before it."""
+    import torch
+    from graph_physics_tpu_torch.cli import predict as predict_cli
+    from graph_physics_tpu_torch.cli.common import load_inference_stack
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+    from graph_physics_tpu_torch.utils import gradcheck
+
+    gn = nk_ops.fused_gn_block_nk
+    attn, ffn = ea_ops.fused_edge_attention_nk, ffn_ops.fused_gated_ffn
+    train_ds, val_ds = fit_datasets()
+    data_phase(device, train_ds)
+
+    # 26. fit of cylinder.json's model through the port's Trainer; first the
+    # entry step, timed as fit's steps are read
+    from graph_physics_tpu_torch import entry
+
+    es = entry.cylinder_train_setup(device, batch=FIT_BATCH, nx=FIT_MESH[0], ny=FIT_MESH[1])
+    gen = torch.Generator(device=device).manual_seed(0)
+    entry_interval = interval_ms(lambda: es.train_step(es.state, es.graph, gen), 17)
+    del es
+    param = cylinder_param()
+    tr = fit_trainer(param, train_ds, val_ds, "fit", device)
+    marks = fit_step_times(tr)
+    reset_counts([gn, attn, ffn])
+    t0 = time.perf_counter()
+    tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {gn.__name__: launch_counts(gn)}
+    steps = tr.state.step
+    n_blocks = len(tr.sim.model.processor_list)
+    records = epoch_records(tr)
+    intervals = [a.elapsed_time(b) for e in sorted(marks) if e > 0
+                 for a, b in zip(marks[e], marks[e][1:])]
+    fit_step_ms = statistics.median(intervals)
+    log(f"fit (cylinder.json: {n_blocks} blocks, hidden {tr.sim.model.hidden_size}, bf16, "
+        f"{type(tr.sim.model.tiling).__name__} layout; {FIT_TRAJECTORIES} trajectories of "
+        f"{FIT_FRAMES} frames, B={FIT_BATCH}, {FIT_EPOCHS} epochs, {steps} steps, validation "
+        f"{VAL_STEPS} rollout steps): {fit_s:.1f} s")
+    for r in records:
+        log(f"  epoch {int(r['epoch'])}: train_loss_epoch {r['train_loss_epoch']:.6g} "
+            f"val_all_rollout_rmse {r['val_all_rollout_rmse']:.6g} val_1step_rmse "
+            f"{r['val_1step_rmse']:.6g} val_loss {r['val_loss']:.6g} "
+            f"({r['epoch_time_s']:.2f} s)")
+    log(f"  launches (forward, backward) of {gn.__name__}: {launches[gn.__name__]}; "
+        f"{n_blocks} + {n_blocks} a step over {steps} steps and {n_blocks} a rollout step")
+    log(f"  steady-state step inside fit (epochs 2-{FIT_EPOCHS}, start to start, median of "
+        f"{len(intervals)}): {fit_step_ms:.4f} ms ({1000 * FIT_BATCH / fit_step_ms:.1f} "
+        f"graph-steps/s); entry.cylinder_train_setup's step, read the same way: "
+        f"{entry_interval:.4f} ms (phase 8, synchronised per step: {entry_step_ms:.4f}) "
+        f"({card})")
+    values = [r[k] for r in records for k in ("train_loss_epoch", "val_all_rollout_rmse")]
+    if len(records) != FIT_EPOCHS or not all(math.isfinite(v) for v in values):
+        raise AssertionError("phase 26: an epoch's loss or rollout RMSE is not finite")
+    want = (n_blocks * (steps + FIT_EPOCHS * VAL_STEPS), n_blocks * steps)
+    if steps != FIT_EPOCHS * len(tr._loader(0)) or launches[gn.__name__] != want:
+        raise AssertionError(f"phase 26: {steps} steps, launches {launches[gn.__name__]}, "
+                             f"expected {want}")
+    straight = trainer_state(tr)
+    # the same step on batches already on the card, no loader running: the
+    # fit step's cost beyond the entry step, without the loader's share
+    batches = list(tr._loader(FIT_EPOCHS))
+    cycle = itertools.cycle(batches)
+    resident_ms = interval_ms(lambda: tr.train_step(tr.state, next(cycle),
+                                                    tr._generator(tr.state.step)),
+                              2 * len(batches))
+    one_ms = interval_ms(lambda: tr.train_step(tr.state, batches[0],
+                                               tr._generator(tr.state.step)), 2 * len(batches))
+    log(f"  the same step on the {len(batches)} batches of an epoch already on the card (no "
+        f"loader running; start to start, median of {2 * len(batches) - 1}): "
+        f"{resident_ms:.4f} ms; on one of them every step: {one_ms:.4f} ms ({card})")
+    del batches, cycle
+
+    # 26b. the transformer, one epoch through fit
+    tf_param = json.loads(json.dumps(param))
+    tf_param["model"] = {"type": "transformer", "message_passing_num": 2, "hidden_size": 64,
+                         "num_heads": 4, "node_input_size": 2, "output_size": 2,
+                         "edge_input_size": 0}
+    ttr = fit_trainer(tf_param, train_ds, val_ds, "fit_transformer", device,
+                      batch=TF_FIT_BATCH, epochs=1)
+    reset_counts([gn, attn, ffn])
+    ttr.fit()
+    torch.cuda.synchronize()
+    for k in (attn, ffn):
+        launches[k.__name__] = launch_counts(k)
+    tsteps = ttr.state.step
+    rec = epoch_records(ttr)[-1]
+    log(f"fit, transformer (2 blocks, hidden 64, 4 heads, bf16, B={TF_FIT_BATCH}, 1 epoch, "
+        f"{tsteps} steps): train_loss_epoch {rec['train_loss_epoch']:.6g} "
+        f"val_all_rollout_rmse {rec['val_all_rollout_rmse']:.6g}; launches (forward, backward) "
+        + ", ".join(f"{k.__name__} {launches[k.__name__]}" for k in (attn, ffn)))
+    want = (2 * (tsteps + VAL_STEPS), 2 * tsteps)
+    if any(launches[k.__name__] != want for k in (attn, ffn)) or not math.isfinite(
+            rec["val_all_rollout_rmse"]) or gn.launches:
+        raise AssertionError(f"phase 26b: expected {want} launches of each kernel, got "
+                             f"{launches}")
+
+    # 27. checkpoint: stop after epoch 2, resume from the checkpoint, finish,
+    # against an uninterrupted run made the same way (a fresh trainer after
+    # the same phases): on the plain path under deterministic algorithms,
+    # bit for bit; on the kernel path within RESUME_REL
+    def resume_against_uninterrupted(tag, fused):
+        first = fit_trainer(param, train_ds, val_ds, f"fit_resumed{tag}", device, fused=fused)
+        first.fit(stop_after_epochs=FIT_EPOCHS - 1)
+        second = fit_trainer(param, train_ds, val_ds, f"fit_resumed{tag}", device, fresh=False,
+                             fused=fused)
+        with torch.no_grad():  # other weights: the checkpoint must bring them back
+            for p in second.sim.parameters():
+                p.add_(1.0)
+        second.fit(resume=True)
+        again = fit_trainer(param, train_ds, val_ds, f"fit_again{tag}", device, fused=fused)
+        again.fit()
+        torch.cuda.synchronize()
+        return first.state.step, trainer_state(second), trainer_state(again)
+
+    def parts(d):
+        return ", ".join(f"{k} {v:.3g}" for k, v in d.items())
+
+    with gradcheck.deterministic():
+        at, resumed, uninterrupted = resume_against_uninterrupted("_plain", False)
+    plain_rel, plain_at, plain_parts = state_diff(uninterrupted, resumed)
+    log(f"checkpoint, plain path, deterministic algorithms: {FIT_EPOCHS - 1} epochs, resume "
+        f"from step {at}, 1 epoch: {len(resumed)} tensors (parameters, normalizer "
+        f"accumulators, optimizer moments and count, step) against an uninterrupted run's: "
+        + ("equal bit for bit" if plain_rel == 0.0 else
+           f"differ: {plain_rel:.6g} ({plain_at}; {parts(plain_parts)})"))
+    at, resumed, uninterrupted = resume_against_uninterrupted("", True)
+    resume_rel, resume_at, resume_parts = state_diff(uninterrupted, resumed)
+    spread_rel, spread_at, spread_parts = state_diff(straight, uninterrupted)
+    exact = resume_rel == 0.0
+    log(f"checkpoint, kernel path: resume from step {at} against an uninterrupted run's: "
+        + ("equal bit for bit" if exact else
+           f"at most {resume_rel:.6g} relative ({resume_at}; limit {RESUME_REL}; "
+           f"{parts(resume_parts)})")
+        + f"; phase 26's run against the uninterrupted one: {spread_rel:.6g} ({spread_at}; "
+        f"{parts(spread_parts)})")
+    if (plain_rel != 0.0 or set(resumed) != set(straight) or resume_rel > RESUME_REL
+            or (spread_rel == 0.0 and not exact)):
+        raise AssertionError("phase 27: the resumed run is off the uninterrupted run")
+
+    # 28. predict from phase 26's checkpoint, the dataset passed in
+    args = predict_cli.build_argparser().parse_args([
+        "--training_parameters_path", str(ROOT / "training_config" / "cylinder.json"),
+        "--model_path", tr.ckpt_dir, "--bf16", "--fused", "--device", str(device)])
+    before = gn.launches
+    stack = load_inference_stack(args, dataset=val_ds)
+    pred = predict_cli.predict(stack, fused=True)[0]
+    torch.cuda.synchronize()
+    want_rmse = records[-1]["val_all_rollout_rmse"]
+    rel = abs(pred.rmse_all_rollout - want_rmse) / want_rmse
+    log(f"predict: checkpoint step {stack.step}, rollout of {pred.predictions.shape[0]} steps "
+        f"({gn.launches - before} launches): rmse_all_rollout {pred.rmse_all_rollout:.8g}, "
+        f"validate reported {want_rmse:.8g} (relative difference {rel:.3g}, limit "
+        f"{PREDICT_RTOL})")
+    if stack.step != steps or rel > PREDICT_RTOL or gn.launches - before != n_blocks * VAL_STEPS:
+        raise AssertionError("phase 28: predict's rollout is not validate's")
+    return launches, {"fit_step_ms": fit_step_ms, "resident_step_ms": resident_ms,
+                      "one_batch_step_ms": one_ms,
+                      "entry_step_ms": entry_interval, "entry_step_synced_ms": entry_step_ms,
+                      "resume_bit_exact": exact, "resume_max_rel": resume_rel,
+                      "spread_max_rel": spread_rel}
+
+
 def main():
     global PARENT
     import torch
@@ -1124,6 +1541,14 @@ def main():
         device, card)
     # 22.-24. the Transolver++ train step and its gumbel kernel
     gumbel_record = transolver_phases(device, card)
+    # 25.-28. the loader, the trainer's fit of cylinder.json's model (and of
+    # the transformer), checkpoint and resume, predict
+    fit_launches, fit_info = trainer_phases(device, card, st["train_step_ms"])
+    log("fit " + json.dumps({"card": card, **fit_info}))
+    for rec in tf_records:  # the transformer's forward kernels ran in phase 26b
+        rec["launches"] += fit_launches[rec["name"]][0]
+    for rec, name in zip(tf_train_records, (ATTN["name"], FFN["name"])):
+        rec["launches"] += fit_launches[name][1]
     ffn_name = tf_records[1]["name"]
     for rec in graded_records:  # the CSR forward kernels also ran in the train steps
         rec["launches"] += graded_train_launches[rec["name"]][0]
@@ -1137,12 +1562,13 @@ def main():
     bwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1], backward=True))
     log(f"card: {card}")
     log(json.dumps({"kernels": [
-        dict(FWD, route="cuda", launches=infer_launches + train_launches[0],
+        dict(FWD, route="cuda",
+             launches=infer_launches + train_launches[0] + fit_launches[kernel.__name__][0],
              max_abs_err=max(errors.values()), ms=timing["middle"]["ms"],
              plain_ms=timing["middle"]["plain_ms"], bound_ms=fwd_bound[0],
              bound_by=fwd_bound[1], library_ms=None, device_ms=timing["middle"]["device_ms"],
              variants=timing),
-        dict(BWD, route="cuda", launches=train_launches[1],
+        dict(BWD, route="cuda", launches=train_launches[1] + fit_launches[kernel.__name__][1],
              max_abs_err=max(bwd_errors.values()), ms=bwd_timing["middle"]["ms"],
              plain_ms=bwd_timing["middle"]["plain_ms"], bound_ms=bwd_bound[0],
              bound_by=bwd_bound[1], library_ms=None,

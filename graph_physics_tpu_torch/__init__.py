@@ -7,7 +7,8 @@ only: never jax, flax or ``graph_physics_tpu`` itself, so it runs on a
 machine that has no JAX installed. The hand-written Hopper kernels live
 under ``csrc/`` and are built at first use (``ops/fused_gnblock_nk.py``).
 
-What is ported so far is the cylinder ``epd`` inference path: batched
-one-step inference on the packed ``[N, B, F]`` layout and the
-autoregressive rollout (``entry.py`` builds it).
+``entry.py`` builds each ported path on synthetic data; the train ->
+predict loop (``dataset/`` loader, ``training/trainer.py``, checkpoints,
+``cli/train.py`` and ``cli/predict.py``) takes the JAX package's two-JSON
+configs. ROADMAP.md lists what is still to port.
 """

@@ -1,0 +1,60 @@
+"""Shared CLI plumbing: the checkpoint-restore preamble for inference.
+
+Counterpart of graph_physics_tpu/cli/common.py:load_inference_stack: the
+config gives the model and simulator, the checkpoint their weights and
+normalizer statistics, and the validation dataset (noise and masking off)
+the trajectories. A caller may pass the dataset itself, so a machine
+without h5py can drive it (the card's ``chip_smoke.py`` does).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class InferenceStack:
+    param: Dict[str, Any]
+    simulator: Any  # weights and normalizers restored, on ``device``
+    dataset: Any
+    metadata: Optional[Dict[str, Any]]
+    step: int  # the restored checkpoint's train step
+    device: torch.device
+
+
+def check_later_options(args) -> None:
+    """Flags of later queue items raise, naming their ROADMAP item."""
+    if getattr(args, "use_previous_data", False):
+        raise NotImplementedError("--use_previous_data is not ported (ROADMAP A 5)")
+    if getattr(args, "external", None):
+        raise NotImplementedError("--external feature builders come with the world-edge "
+                                  "transforms (ROADMAP A 5)")
+
+
+def load_inference_stack(args, dataset=None) -> InferenceStack:
+    """Model, simulator and validation dataset from ``args``
+    (``training_parameters_path``, ``model_path``, ``bf16``, ``device``,
+    ``use_previous_data``, ``external``) and the latest checkpoint under
+    ``model_path`` restored into the simulator. ``dataset`` replaces the
+    config's validation dataset."""
+    from graph_physics_tpu_torch.training import checkpoint as ckpt_lib
+    from graph_physics_tpu_torch.training import config as config_lib
+    from graph_physics_tpu_torch.training.trainer import resolve_device
+
+    device = resolve_device(getattr(args, "device", "cuda"))
+    check_later_options(args)
+    param = config_lib.load_params(args.training_parameters_path)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    simulator = config_lib.get_simulator(param, config_lib.get_model(param, dtype=dtype))
+    simulator = simulator.to(device)
+    if dataset is None:
+        frame_cfg = config_lib.get_frame_config(param, masking_ratio=0.0)
+        dataset = config_lib.get_dataset(param, frame_cfg, switch_to_val=True)
+    manager = ckpt_lib.make_manager(args.model_path)
+    step = manager.latest_step()
+    metadata = ckpt_lib.restore_checkpoint(manager, simulator)
+    return InferenceStack(param=param, simulator=simulator, dataset=dataset, metadata=metadata,
+                          step=step, device=device)

@@ -1,7 +1,8 @@
 """Mesh-graph container of the port.
 
 Counterpart of graph_physics_tpu/core/graph.py:MeshGraph with the fields
-the inference slice uses. The same padding rules hold:
+the port's paths use (not the world-edge sidecar, ROADMAP A 5). The same
+padding rules hold:
 
   * padded node rows are zero and carry ``node_type = PAD_NODE_TYPE``;
   * padded edges have ``senders == 0``, ``receivers == N-1`` and
@@ -13,7 +14,8 @@ it on a torch device. Node fields are ``[N, F]`` for one frame,
 ``[N, B, F]`` in the packed layout, where the per-node metadata
 (``node_type``, ``node_mask``) and the edge index arrays stay shared, and
 ``[B, N, F]`` in the stacked layout (training/packed.stack), where every
-field has the batch axis first.
+field has the batch axis first. A graph laid out for the kernels
+(training/fused.py) carries its layout in ``layout``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,11 @@ import torch
 
 #: node_type value assigned to padding rows; outside every NodeType code.
 PAD_NODE_TYPE = -1
+
+
+def contiguous(a) -> np.ndarray:
+    """``a`` as a C-contiguous array of its own shape (0-d stays 0-d)."""
+    return np.ascontiguousarray(a).reshape(np.shape(a))
 
 
 def _node_count(n):
@@ -51,32 +58,48 @@ class MeshGraph:
     edge_attr: Optional[Any] = None  # [E, Fe] or [E, B, Fe]
     y: Optional[Any] = None  # [N, T] or [N, B, T] next-step targets
     n_node: Optional[Any] = None  # true node count; stacked: one per sample
+    prev: Optional[Any] = None  # [N, P] previous-step feature block
+    next_data: Optional[Any] = None  # [N, Q] dynamic non-target fields at t+1
+    deselected: Optional[Any] = None  # [N] bool, True = node masked out of the loss
+    phi: Optional[Any] = None  # [N] per-node gate scalar of a feature hook
+    faces: Optional[Any] = None  # [C, 3] or [C, 4] int32 cells (host-side use)
+    face_mask: Optional[Any] = None  # [C] bool
+    n_edge: Optional[Any] = None  # true edge count
+    traj_index: Optional[Any] = None  # trajectory id
+    time: Optional[Any] = None  # physical time of the frame ([B] when packed)
+    #: the NKTiling or CSRLayout the edge arrays are laid out in (ops/tiling.py)
+    layout: Optional[Any] = None
 
     def replace(self, **changes) -> "MeshGraph":
         return dataclasses.replace(self, **changes)
 
     @classmethod
-    def from_numpy(cls, host: "MeshGraph", device) -> "MeshGraph":
+    def from_numpy(cls, host: "MeshGraph", device, put=None) -> "MeshGraph":
         """Copy a host graph of numpy arrays to ``device`` as new tensors.
 
         Floating arrays become float32, index arrays int32 and masks bool;
-        every tensor is contiguous (the fused kernel reads whole rows).
+        every tensor is contiguous (the fused kernel reads whole rows). The
+        cells stay on the host, as numpy. ``put(array, dtype)`` replaces
+        the copy (the loader's pinned, asynchronous one).
         """
 
-        def put(a, dtype):
-            if a is None:
-                return None
-            return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+        def copy(a, dtype):
+            return torch.tensor(contiguous(a), dtype=dtype, device=device)
 
-        return cls(
-            x=put(host.x, torch.float32),
-            pos=put(host.pos, torch.float32),
-            node_type=put(host.node_type, torch.int32),
-            node_mask=put(host.node_mask, torch.bool),
-            senders=put(host.senders, torch.int32),
-            receivers=put(host.receivers, torch.int32),
-            edge_mask=put(host.edge_mask, torch.bool),
-            edge_attr=put(host.edge_attr, torch.float32),
-            y=put(host.y, torch.float32),
-            n_node=_node_count(host.n_node),
-        )
+        put = put or copy
+        tensors = {name: None if getattr(host, name) is None else put(getattr(host, name), dtype)
+                   for name, dtype in TENSOR_FIELDS.items()}
+        return cls(**tensors, n_node=_node_count(host.n_node),
+                   faces=host.faces, face_mask=host.face_mask,
+                   n_edge=_node_count(host.n_edge), traj_index=_node_count(host.traj_index),
+                   layout=host.layout)
+
+
+#: the fields that :meth:`MeshGraph.from_numpy` puts on the device, with their dtypes
+TENSOR_FIELDS = {
+    "x": torch.float32, "pos": torch.float32, "node_type": torch.int32,
+    "node_mask": torch.bool, "senders": torch.int32, "receivers": torch.int32,
+    "edge_mask": torch.bool, "edge_attr": torch.float32, "y": torch.float32,
+    "prev": torch.float32, "next_data": torch.float32, "deselected": torch.bool,
+    "phi": torch.float32, "time": torch.float32,
+}

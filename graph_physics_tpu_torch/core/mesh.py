@@ -1,8 +1,8 @@
 """Host-side mesh -> graph construction (numpy).
 
-Copies of graph_physics_tpu/core/mesh.py:faces_to_edges, edge_features
-and build_mesh_graph, taking the numpy paths (the JAX package's optional
-``native/`` library gives the same output order).
+Copies of graph_physics_tpu/core/mesh.py:faces_to_edges, k_hop_edges,
+edge_features and build_mesh_graph, taking the numpy paths (the JAX
+package's optional ``native/`` library gives the same output order).
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import scipy.sparse as sp
 
 from graph_physics_tpu_torch.core import padding
 from graph_physics_tpu_torch.core.graph import PAD_NODE_TYPE, MeshGraph
@@ -49,6 +50,27 @@ def faces_to_edges(faces: np.ndarray, num_nodes: int) -> np.ndarray:
     return np.stack([send[order], recv[order]]).astype(np.int32)
 
 
+def k_hop_edges(edge_index: np.ndarray, num_nodes: int, k: int) -> np.ndarray:
+    """k-hop neighbourhood edges by sparse boolean matrix powers, self-loops
+    removed, sorted by receiver then sender (copy of
+    graph_physics_tpu/core/mesh.py:k_hop_edges, numpy path)."""
+    if k <= 1:
+        return edge_index.astype(np.int32)
+    send, recv = edge_index
+    a = sp.csr_matrix((np.ones(len(send), dtype=bool), (send, recv)),
+                      shape=(num_nodes, num_nodes))
+    acc = a.copy()
+    p = a.copy()
+    for _ in range(k - 1):
+        p = (p @ a).astype(bool)
+        acc = (acc + p).astype(bool)
+    acc.setdiag(False)
+    acc.eliminate_zeros()
+    coo = acc.tocoo()
+    order = np.lexsort((coo.row, coo.col))
+    return np.stack([coo.row[order], coo.col[order]]).astype(np.int32)
+
+
 def edge_features(pos: np.ndarray, senders: np.ndarray, receivers: np.ndarray) -> np.ndarray:
     """Per-edge [pos_send - pos_recv, |pos_send - pos_recv|] features
     (copy of graph_physics_tpu/core/mesh.py:edge_features)."""
@@ -65,13 +87,20 @@ def build_mesh_graph(
     y: Optional[np.ndarray] = None,
     n_pad: Optional[int] = None,
     e_pad: Optional[int] = None,
+    prev: Optional[np.ndarray] = None,
+    next_data: Optional[np.ndarray] = None,
+    faces: Optional[np.ndarray] = None,
+    c_pad: Optional[int] = None,
+    with_edge_features: bool = True,
+    traj_index: int = 0,
+    time: float = 0.0,
 ) -> MeshGraph:
     """Assemble a padded host MeshGraph (numpy arrays).
 
-    Copy of graph_physics_tpu/core/mesh.py:build_mesh_graph for the fields
-    the port carries: edges are stably sorted by receiver, padding rows
-    are zero with PAD_NODE_TYPE, padded edges point 0 -> n_pad-1 with
-    edge_mask False.
+    Copy of graph_physics_tpu/core/mesh.py:build_mesh_graph: edges are
+    stably sorted by receiver, padding rows are zero with PAD_NODE_TYPE,
+    padded edges point 0 -> n_pad-1 with edge_mask False, cells pad to
+    ``c_pad`` with ``face_mask``.
     """
     n = x.shape[0]
     e = edge_index.shape[1]
@@ -89,8 +118,18 @@ def build_mesh_graph(
     nt = padding.pad_axis(
         np.asarray(node_type, dtype=np.int32).reshape(-1), n_pad, fill=PAD_NODE_TYPE
     )
-    ea = edge_features(np.asarray(pos), edge_index[0], edge_index[1])
-    ea = padding.pad_axis(ea, e_pad)
+    ea = None
+    if with_edge_features:
+        ea = padding.pad_axis(edge_features(np.asarray(pos), edge_index[0], edge_index[1]),
+                              e_pad)
+
+    fc, fm = None, None
+    if faces is not None:
+        faces = np.asarray(faces, dtype=np.int32)
+        c_pad = c_pad or padding.bucket_size(faces.shape[0])
+        fm = np.zeros(c_pad, dtype=bool)
+        fm[:faces.shape[0]] = True
+        fc = padding.pad_axis(faces, c_pad)
 
     def pad(a):
         if a is None:
@@ -108,4 +147,11 @@ def build_mesh_graph(
         edge_attr=ea,
         y=pad(y),
         n_node=n,
+        prev=pad(prev),
+        next_data=pad(next_data),
+        faces=fc,
+        face_mask=fm,
+        n_edge=e,
+        traj_index=int(traj_index),
+        time=np.float32(time),
     )

@@ -1,1 +1,2 @@
-"""Data sources of the port (in-memory synthetic trajectories so far)."""
+"""Data sources of the port: h5 trajectories, frame building, the
+bucketed loader and synthetic trajectories."""

@@ -3,7 +3,9 @@
 Copies of graph_physics_tpu/dataset/synthetic.py:grid_mesh,
 node_types_for, velocity_field and make_trajectory: a triangulated
 rectangle with INFLOW/OUTFLOW/WALL node types and a smooth analytic
-velocity field. Nothing is written to disk (no h5 files).
+velocity field. :func:`meta_dict` and :func:`write_h5_dataset` (copies
+of the JAX package's) write such trajectories as an h5 dataset and its
+meta.json, for the tests and the CLI recipe; h5py is imported only there.
 
 :func:`graded_mesh` and :func:`make_graded_trajectory` are a fixture of
 the port's own: a degree-graded Delaunay mesh around a cylinder, made
@@ -13,7 +15,9 @@ does not hold.
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -72,6 +76,47 @@ def make_trajectory(
         "node_type": np.repeat(types[None, :, None], num_steps, axis=0).astype(np.int32),
         "velocity": vel.astype(np.float32),
     }
+
+
+def meta_dict(num_steps: int, dt: float = 0.01) -> Dict:
+    """meta.json of dataset_config/cylinder_meta.json's schema
+    (graph_physics_tpu/dataset/synthetic.py:meta_dict)."""
+    def feat(typ, c, dtype):
+        return {"type": typ, "shape": [num_steps, -1, c], "dtype": dtype}
+
+    return {
+        "dt": dt,
+        "features": {
+            "cells": feat("static", 3, "int32"),
+            "mesh_pos": feat("static", 2, "float32"),
+            "node_type": feat("static", 1, "int32"),
+            "velocity": feat("dynamic", 2, "float32"),
+        },
+        "field_names": ["cells", "mesh_pos", "node_type", "velocity"],
+        "trajectory_length": num_steps,
+    }
+
+
+def write_h5_dataset(path: str, num_trajectories: int = 2, nx: int = 12, ny: int = 8,
+                     num_steps: int = 12, dt: float = 0.01,
+                     meta_path: Optional[str] = None) -> Tuple[str, str]:
+    """Write trajectories (trajectory i on an (nx + i) x ny mesh, so the
+    buckets differ) and meta.json; returns (h5_path, meta_path)
+    (graph_physics_tpu/dataset/synthetic.py:write_h5_dataset)."""
+    from graph_physics_tpu_torch.dataset.h5_dataset import import_h5py
+
+    h5py = import_h5py("dataset/synthetic.write_h5_dataset")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with h5py.File(path, "w") as f:
+        for i in range(num_trajectories):
+            traj = make_trajectory(nx + i, ny, num_steps, dt)
+            g = f.create_group(str(i))
+            for k, v in traj.items():
+                g.create_dataset(k, data=v)
+    meta_path = meta_path or os.path.join(os.path.dirname(path) or ".", "meta.json")
+    with open(meta_path, "w") as f:
+        json.dump(meta_dict(num_steps, dt), f)
+    return path, meta_path
 
 
 def graded_mesh(num_nodes: int = 27_000, seed: int = 0, lx: float = 1.6, ly: float = 0.4,

@@ -205,6 +205,24 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
                     m.bias.copy_(torch.rand(m.bias.shape, generator=generator) * 2 * bound - bound)
 
 
+#: flax's truncated-normal correction: the std of a standard normal cut at ±2
+TRUNC_STD = 0.87962566103423978
+
+
+def lecun_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Re-draw every Dense as the JAX package's flax Dense initialises it:
+    the kernel from lecun_normal (a normal of variance 1/fan_in, cut at two
+    standard deviations), the bias 0."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, Dense):
+                std = math.sqrt(1.0 / m.in_features) / TRUNC_STD
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
 def fused_path_ok(
     tiling,
     x: torch.Tensor,

@@ -164,6 +164,9 @@ class TransolverProcessor(nn.Module):
     not pass on to its model (dropout, RoPE, the attention gate) are left
     out, and so is ``dp_axis_name`` (ROADMAP A 9)."""
 
+    #: the Transolver takes a stacked [B, N, F] batch as it is
+    takes_stacked = True
+
     def __init__(
         self,
         message_passing_num: int,

@@ -12,10 +12,11 @@ threads them as an explicit SimulatorState); ``state_dict()`` names follow
 the reference Simulator (``model.*``, ``_output_normalizer.*``,
 ``_node_normalizer.*``, ``_edge_normalizer.*``). Three layouts are
 accepted: the packed ``[N, B, F]`` layout (shared ``[N]`` node metadata),
-the stacked ``[B, N, F]`` layout (``[B, N]`` node metadata, where JAX
-vmaps the processor per sample; the processor takes the batch axis as
-it is), and a single ``[N, F]`` frame. In every layout the normalizers
-accumulate over all valid rows of the batch.
+the stacked ``[B, N, F]`` layout (``[B, N]`` node metadata and edge
+arrays, where JAX vmaps the processor per sample: the Transolver takes the
+batch axis as it is, the other processors run sample by sample), and a
+single ``[N, F]`` frame. In every layout the normalizers accumulate over
+all valid rows of the batch.
 """
 
 from __future__ import annotations
@@ -72,6 +73,22 @@ class Simulator(nn.Module):
         """Packed layout: x [N, B, F] with shared per-node metadata [N]."""
         return graph.x.ndim == 3 and graph.node_type.ndim == 1
 
+    @staticmethod
+    def is_stacked(graph: MeshGraph) -> bool:
+        """Stacked layout: x [B, N, F] with per-sample node metadata [B, N]."""
+        return graph.x.ndim == 3 and graph.node_type.ndim == 2
+
+    def apply_model(self, g_in: MeshGraph, gumbel: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        """The processor on the normalized graph; on a stacked batch, sample
+        by sample unless the processor takes the batch axis itself
+        (``takes_stacked``), as JAX vmaps it."""
+        kw = {} if gumbel is None else {"gumbel": gumbel}
+        if not self.is_stacked(g_in) or getattr(self.model, "takes_stacked", False):
+            return self.model(g_in, **kw)
+        outs = [self.model(sample_of(g_in, b), **kw) for b in range(g_in.x.shape[0])]
+        return torch.stack(outs)
+
     def pre_target(self, graph: MeshGraph) -> torch.Tensor:
         """x[..., ois:oie] — the current value of the predicted fields."""
         return graph.x[..., self.output_index_start:self.output_index_end]
@@ -119,10 +136,23 @@ class Simulator(nn.Module):
         to a processor that draws training-time noise (JAX's ``rngs``)."""
         with torch.set_grad_enabled(is_training and torch.is_grad_enabled()):
             g_in, target_norm, pre_t = self.prepare(graph, is_training)
-            net_out = self.model(g_in) if gumbel is None else self.model(g_in, gumbel=gumbel)
+            net_out = self.apply_model(g_in, gumbel)
             outputs = None if is_training else self.build_outputs_from_pre(net_out, pre_t)
         return SimulatorOutput(net_out=net_out, target_norm=target_norm, outputs=outputs)
 
     def build_outputs_from_pre(self, net_out: torch.Tensor, pre_t: torch.Tensor) -> torch.Tensor:
         """Inverse-normalize the predicted Δ and add the current value."""
         return self._output_normalizer.inverse(net_out) + pre_t
+
+
+def sample_of(graph: MeshGraph, b: int) -> MeshGraph:
+    """Sample ``b`` of a stacked batch: every tensor field indexed on its
+    batch axis."""
+    def take(v):
+        return v[b] if isinstance(v, torch.Tensor) and v.ndim > 0 else v
+
+    return graph.replace(**{name: take(getattr(graph, name))
+                            for name in graph.__dataclass_fields__
+                            if name not in ("layout", "n_node")},
+                         n_node=(graph.n_node[b] if isinstance(graph.n_node, tuple)
+                                 else graph.n_node))

@@ -210,12 +210,14 @@ class TransolverModel(nn.Module):
 
 
 @torch.no_grad()
-def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+def init_parameters(model: nn.Module, generator: torch.Generator,
+                    dense_init=reset_parameters) -> None:
     """Draw a Transolver's weights from ``generator`` as the reference
-    initialises them: every Dense as torch's Linear (layers.reset_parameters),
-    ``in_project_slice`` orthogonal, ``placeholder`` uniform in [0, 1/n_hidden);
-    LayerNorms 1 and 0, the temperature bias 0.5."""
-    reset_parameters(model, generator)
+    initialises them: every Dense as torch's Linear (``dense_init``,
+    layers.reset_parameters; layers.lecun_parameters draws them as the JAX
+    package does), ``in_project_slice`` orthogonal, ``placeholder`` uniform
+    in [0, 1/n_hidden); LayerNorms 1 and 0, the temperature bias 0.5."""
+    dense_init(model, generator)
     for m in model.modules():
         if isinstance(m, PhysicsAttention):
             nn.init.orthogonal_(m.in_project_slice.weight, generator=generator)

@@ -251,13 +251,16 @@ def _pad_nodes(graph: MeshGraph, n_new: int):
 
     return dict(x=pad_nodes(graph.x), pos=pad_nodes(graph.pos),
                 node_type=pad_nodes(graph.node_type, PAD_NODE_TYPE),
-                node_mask=pad_nodes(graph.node_mask, False), y=pad_nodes(graph.y))
+                node_mask=pad_nodes(graph.node_mask, False), y=pad_nodes(graph.y),
+                prev=pad_nodes(graph.prev), next_data=pad_nodes(graph.next_data),
+                deselected=pad_nodes(graph.deselected, False), phi=pad_nodes(graph.phi))
 
 
 def apply_to_graph(graph: MeshGraph, layout: CSRLayout) -> MeshGraph:
     """Convert a host MeshGraph to the CSR layout: nodes pad (or trim
     bucket padding) to ``layout.num_nodes``, edge arrays re-order by
-    receiver, padding rows get sender 0, receiver N-1 and mask False."""
+    receiver, padding rows get sender 0, receiver N-1 and mask False; the
+    graph carries ``layout``."""
     n_new = layout.num_nodes
     valid = layout.perm >= 0
     ids = layout.perm[valid]
@@ -269,7 +272,7 @@ def apply_to_graph(graph: MeshGraph, layout: CSRLayout) -> MeshGraph:
     if edge_attr is not None:
         edge_attr = layout.expand_edges(np.asarray(edge_attr))
     return graph.replace(senders=new_send, receivers=new_recv, edge_mask=valid,
-                         edge_attr=edge_attr, **_pad_nodes(graph, n_new))
+                         edge_attr=edge_attr, layout=layout, **_pad_nodes(graph, n_new))
 
 
 def apply_to_graph_nk(graph: MeshGraph, tiling: NKTiling) -> MeshGraph:
@@ -277,7 +280,7 @@ def apply_to_graph_nk(graph: MeshGraph, tiling: NKTiling) -> MeshGraph:
 
     Nodes pad (or trim bucket padding) to ``tiling.num_nodes``; edge arrays
     re-order into the k-major slot layout; padded slots get sender 0,
-    receiver N-1 and mask False.
+    receiver N-1 and mask False; the graph carries ``tiling``.
     """
     n_new = tiling.num_nodes
     gids, loc_r = nk_row_maps(tiling)
@@ -292,4 +295,4 @@ def apply_to_graph_nk(graph: MeshGraph, tiling: NKTiling) -> MeshGraph:
     if edge_attr is not None:
         edge_attr = tiling.expand_edges(np.asarray(edge_attr))
     return graph.replace(senders=new_send, receivers=new_recv, edge_mask=valid,
-                         edge_attr=edge_attr, **_pad_nodes(graph, n_new))
+                         edge_attr=edge_attr, layout=tiling, **_pad_nodes(graph, n_new))

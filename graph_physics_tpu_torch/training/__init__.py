@@ -1,1 +1,2 @@
-"""Batching and rollout of the port."""
+"""Batching, the train step, rollout, the trainer, checkpoints and config
+of the port."""

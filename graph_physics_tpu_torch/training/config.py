@@ -1,0 +1,185 @@
+"""JSON config -> the port's objects (the two-file contract of the JAX
+package: a training config with dataset/model/index/transformations/
+loss/training blocks, and the dataset's meta.json).
+
+Counterpart of graph_physics_tpu/training/config.py. Options that belong
+to later queue items raise NotImplementedError naming their ROADMAP item:
+world edges (A 5), physics losses (A 6), the temporal block, RoPE and
+gates in the GraphNetBlock, gated MLPs, multigrid, remat and spatial MTP
+(A 7); the xdmf dataset waits for ``dataset/xdmf_dataset.py`` (A 4's
+remainder).
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, Optional
+
+import torch
+
+from graph_physics_tpu_torch.core.nodetype import NodeType
+from graph_physics_tpu_torch.dataset.preprocessing import FrameConfig
+from graph_physics_tpu_torch.models.processors import (
+    EncodeProcessDecode,
+    EncodeTransformDecode,
+    TransolverProcessor,
+)
+from graph_physics_tpu_torch.models.simulator import Simulator
+from graph_physics_tpu_torch.training.loss import l2_loss
+from graph_physics_tpu_torch.training.step import NoiseConfig
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported (ROADMAP {item})")
+
+
+def load_params(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        return json.load(f)
+
+
+def get_model(param: Dict[str, Any], dtype=torch.float32):
+    """The processor of the config's ``model`` block (config.py:get_model
+    :35): ``node_input_size`` grows by NodeType.SIZE for the one-hot types.
+    The Transolver draws its slice noise through ops/gumbel.py's kernel
+    (its plain version on the CPU)."""
+    m = param.get("model", {})
+    model_type = m.get("type", "")
+    training = param.get("training", {})
+    node_input_size = m["node_input_size"] + int(NodeType.SIZE)
+    if training.get("use_temporal_block", False):
+        raise not_ported("the temporal block (training.use_temporal_block)", "A 7")
+    if training.get("enable_vram_optimizations", False) and model_type != "transolver":
+        raise not_ported("remat (training.enable_vram_optimizations)", "A 7")
+    common = dict(message_passing_num=m["message_passing_num"],
+                  node_input_size=node_input_size, output_size=m["output_size"],
+                  hidden_size=m["hidden_size"], dtype=dtype)
+    if model_type == "epd":
+        for key in ("use_rope_embeddings", "use_gated_attention", "use_gated_mlp"):
+            if m.get(key, False):
+                raise not_ported(f"the GraphNetBlock option model.{key}", "A 7")
+        return EncodeProcessDecode(edge_input_size=m["edge_input_size"], **common)
+    if model_type == "transformer":
+        if m.get("use_multigrid", False):
+            raise not_ported("multigrid (model.use_multigrid)", "A 7")
+        return EncodeTransformDecode(
+            num_heads=m["num_heads"], use_rope_embeddings=m.get("use_rope_embeddings", False),
+            use_gated_attention=m.get("use_gated_attention", False),
+            rope_pos_dimension=m.get("rope_pos_dimension", 3),
+            rope_base=m.get("rope_base", 10000.0),
+            use_silu=m.get("use_silu_activation", False), **common)
+    if model_type == "transolver":
+        return TransolverProcessor(
+            num_heads=m["num_heads"], mlp_ratio=m.get("mlp_ratio", 1),
+            slice_num=m.get("slice_num", 32), ref=m.get("ref", 8),
+            unified_pos=m.get("unified_pos", False), fused_gumbel=True, **common)
+    raise ValueError(f"Model type '{model_type}' not supported.")
+
+
+def get_simulator(param: Dict[str, Any], model) -> Simulator:
+    """config.py:get_simulator (:94)."""
+    return Simulator(
+        node_input_size=param["model"]["node_input_size"] + int(NodeType.SIZE),
+        edge_input_size=param["model"]["edge_input_size"],
+        output_size=param["model"]["output_size"],
+        feature_index_start=param["index"]["feature_index_start"],
+        feature_index_end=param["index"]["feature_index_end"],
+        output_index_start=param["index"]["output_index_start"],
+        output_index_end=param["index"]["output_index_end"],
+        node_type_index=param["index"]["node_type_index"],
+        model=model,
+    )
+
+
+def get_noise_config(param: Dict[str, Any], remove_noise: bool = False
+                     ) -> Optional[NoiseConfig]:
+    """The preprocessing block's noise (config.py:get_noise_config :110)."""
+    pp = param.get("transformations", {}).get("preprocessing", {})
+    scale = pp.get("noise", 0)
+    if not scale or remove_noise:
+        return None
+    starts = pp.get("noise_index_start")
+    ends = pp.get("noise_index_end")
+    starts = [starts] if isinstance(starts, int) else list(starts)
+    ends = [ends] if isinstance(ends, int) else list(ends)
+    scales = [scale] * len(starts) if isinstance(scale, (int, float)) else list(scale)
+    return NoiseConfig(starts=tuple(starts), ends=tuple(ends), scales=tuple(scales),
+                       curriculum=bool(pp.get("noise_curriculum", False)))
+
+
+def get_world_configs(param: Dict[str, Any]):
+    """(None, None) (config.py:get_world_configs :129); world edges
+    (``world_pos_parameters.use``) raise: ROADMAP A 5."""
+    wp = param.get("transformations", {}).get("world_pos_parameters", {})
+    if wp.get("use", False):
+        raise not_ported("world edges (world_pos_parameters.use)", "A 5")
+    return None, None
+
+
+def get_dynamic_world_edges(param: Dict[str, Any]):
+    """None (config.py:get_dynamic_world_edges :147); world edges raise."""
+    get_world_configs(param)
+    return None
+
+
+def get_frame_config(param: Dict[str, Any], masking_ratio: Optional[float] = None,
+                     use_previous_data: bool = False,
+                     use_edge_feature: bool = True) -> FrameConfig:
+    """config.py:get_frame_config (:182)."""
+    get_world_configs(param)
+    ds = param["dataset"]
+    pp = param.get("transformations", {}).get("preprocessing", {})
+    return FrameConfig(
+        targets=tuple(ds["targets"]),
+        khop=ds.get("khop", 1),
+        new_edges_ratio=ds.get("new_edges_ratio", 0.0) or 0.0,
+        masking_ratio=(masking_ratio if masking_ratio is not None
+                       else pp.get("masking", 0) or 0.0),
+        use_previous_data=use_previous_data,
+        add_edge_features=use_edge_feature,
+    )
+
+
+def get_dataset(param: Dict[str, Any], frame_config: FrameConfig, switch_to_val: bool = False,
+                seed: int = 0):
+    """config.py:get_dataset (:209), h5 only."""
+    ds = param["dataset"]
+    ext = ds["extension"]
+    path = ds["test_path"] if switch_to_val else ds["train_path"]
+    if ext == "h5":
+        from graph_physics_tpu_torch.dataset.h5_dataset import H5Dataset
+
+        return H5Dataset(path, ds["meta_path"], frame_config, seed=seed)
+    if ext == "xdmf":
+        raise NotImplementedError("xdmf datasets wait for dataset/xdmf_dataset.py "
+                                  "(ROADMAP A 4)")
+    raise ValueError(f"Dataset extension '{ext}' not supported.")
+
+
+def get_loss(param: Dict[str, Any]):
+    """(loss function, name): the L2 loss (config.py:get_loss :237); the
+    physics losses and MultiLoss raise (ROADMAP A 6)."""
+    loss_block = param.get("loss")
+    if loss_block is None:
+        return l2_loss, "L2LOSS"
+    types = [t.upper() for t in loss_block["type"]]
+    if types != ["L2LOSS"]:
+        raise not_ported(f"the loss {types}", "A 6")
+    return l2_loss, "L2LOSS"
+
+
+def get_gradient_method(param: Dict[str, Any]) -> Optional[str]:
+    """The physics losses' gradient method (config.py:get_gradient_method
+    :251): None, as only the L2 loss is ported; a method set raises
+    (ROADMAP A 6)."""
+    method = param.get("loss", {}).get("gradient_method")
+    if method is not None:
+        raise not_ported(f"loss.gradient_method {method!r}", "A 6")
+    return None
+
+
+def get_mtp_setup(param: Dict[str, Any]):
+    """None; spatial MTP (``training.use_spatial_mtp``) raises: ROADMAP A 7."""
+    if param.get("training", {}).get("use_spatial_mtp", False):
+        raise not_ported("spatial MTP (training.use_spatial_mtp)", "A 7")
+    return None

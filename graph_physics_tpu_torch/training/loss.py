@@ -1,15 +1,16 @@
 """Masked data loss (counterpart of graph_physics_tpu/training/loss.py:47-128).
 
 The loss covers the valid nodes whose type is in ``mask_types`` (default
-NORMAL and OUTFLOW). ``mean over errors[mask]`` averages over the masked
+NORMAL and OUTFLOW) and that the node-masking augmentation did not
+deselect (``graph.deselected``, [N] or [N, B] packed). ``mean over errors[mask]`` averages over the masked
 *elements*: rows x every trailing axis, so in the packed ``[N, B, C]``
 layout with a shared ``[N]`` mask it divides by rows x B x C. Only the L2
-term is ported; the physics terms and MultiLoss are not.
+term is ported; the physics terms and MultiLoss are ROADMAP A 6.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -20,14 +21,19 @@ from graph_physics_tpu_torch.core.nodetype import NodeType
 DEFAULT_MASK_TYPES = (int(NodeType.NORMAL), int(NodeType.OUTFLOW))
 
 
-def node_loss_mask(graph: MeshGraph, mask_types: Sequence[int] = DEFAULT_MASK_TYPES
-                   ) -> torch.Tensor:
-    """[N] bool: valid nodes of the loss types (loss.py:node_loss_mask;
-    the port's graphs carry no ``deselected`` mask)."""
+def node_loss_mask(graph: MeshGraph, mask_types: Sequence[int] = DEFAULT_MASK_TYPES,
+                   deselected: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[N] bool ([N, B] with a packed ``deselected``): valid nodes of the
+    loss types that are not deselected (loss.py:node_loss_mask)."""
     m = torch.zeros_like(graph.node_mask)
     for mt in mask_types:
         m = m | (graph.node_type == mt)
-    return m & graph.node_mask
+    m = m & graph.node_mask
+    if deselected is not None:
+        if deselected.ndim > m.ndim:  # packed layout: deselected [N, B]
+            m = m[..., None].expand(deselected.shape)
+        m = m & ~deselected
+    return m
 
 
 def masked_num_den(errors: torch.Tensor, mask: torch.Tensor
@@ -52,8 +58,10 @@ def masked_mean(errors: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def l2_err_mask(graph: MeshGraph, network_output: torch.Tensor, target: torch.Tensor,
                 mask_types: Sequence[int] = DEFAULT_MASK_TYPES):
-    """(squared error in fp32, node mask) of the masked MSE (loss.py:l2_err_mask)."""
-    return (network_output.float() - target.float()) ** 2, node_loss_mask(graph, mask_types)
+    """(squared error in fp32, node mask) of the masked MSE, the graph's
+    deselected nodes left out (loss.py:l2_err_mask)."""
+    return ((network_output.float() - target.float()) ** 2,
+            node_loss_mask(graph, mask_types, graph.deselected))
 
 
 def l2_loss(graph: MeshGraph, network_output: torch.Tensor, target: torch.Tensor,

@@ -2,7 +2,8 @@
 
 Counterpart of graph_physics_tpu/training/step.py (NoiseConfig,
 init_train_state, make_train_step, make_multi_step) for the plain-loss
-path: MultiLoss, spatial MTP and data parallelism are not ported.
+path: MultiLoss (ROADMAP A 6), spatial MTP (A 7) and data parallelism
+(A 9) are not ported.
 PyTorch runs it eagerly where JAX jits it: the parameters and
 normalizer statistics (JAX's params and SimulatorState) live in the
 Simulator module and are updated in place; the TrainState holds the
@@ -27,6 +28,7 @@ from graph_physics_tpu_torch.models.processors import TransolverProcessor
 from graph_physics_tpu_torch.models.simulator import Simulator
 from graph_physics_tpu_torch.training import loss as loss_lib
 from graph_physics_tpu_torch.training import noise as noise_lib
+from graph_physics_tpu_torch.training import packed as packed_lib
 from graph_physics_tpu_torch.training.schedule import ClippedAdamW, OptimizerConfig
 
 
@@ -71,13 +73,15 @@ def make_train_step(
     in place. ``loss_fn(graph, network_output, target, mask_types)`` is a
     plain loss (loss.l2_loss). Metrics: ``loss``, ``grad_norm`` (of the
     gradients before clipping) and ``loss_term_0``, as device scalars.
-    ``num_steps`` scales the noise curriculum's progress ``step / num_steps``."""
+    ``num_steps`` scales the noise curriculum's progress ``step / num_steps``.
+    A ``broadcast_static`` batch's [E, 1, F] leaves are widened first
+    (packed.expand_static_leaves), as JAX's step does."""
     mask_types = tuple(int(m) for m in mask_types)
     uses_gumbel = model_uses_gumbel(simulator.model)
 
     def train_step(state: TrainState, batch: MeshGraph,
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        graph = batch
+        graph = packed_lib.expand_static_leaves(batch)
         if noise_cfg is not None and noise_cfg.enabled:
             t = state.step / max(num_steps, 1) if noise_cfg.curriculum else None
             graph = noise_lib.add_noise(graph, generator, noise_cfg.starts, noise_cfg.ends,
@@ -98,13 +102,18 @@ def make_train_step(
 
 def make_multi_step(train_step, unroll: int = 1):
     """``multi_step(state, batch, generator, num_inner=unroll) -> metrics``
-    with each metric stacked over ``num_inner`` steps on the same batch, a
-    fresh noise draw each step (step.py:make_multi_step; a Python loop where
-    JAX scans)."""
+    with each metric stacked over the inner steps (step.py:make_multi_step;
+    a Python loop where JAX scans). ``batch`` is one batch, taken
+    ``num_inner`` times with a fresh noise draw each, or a sequence of
+    batches, one a step. ``generator`` is a generator or a callable that
+    gives the generator of a step from ``state.step`` (the trainer's
+    per-step seeding)."""
 
-    def multi_step(state: TrainState, batch: MeshGraph, generator: torch.Generator,
-                   num_inner: int = unroll) -> Dict[str, torch.Tensor]:
-        runs = [train_step(state, batch, generator) for _ in range(num_inner)]
+    def multi_step(state: TrainState, batch, generator, num_inner: int = unroll
+                   ) -> Dict[str, torch.Tensor]:
+        batches = list(batch) if isinstance(batch, (list, tuple)) else [batch] * num_inner
+        runs = [train_step(state, b, generator(state.step) if callable(generator) else generator)
+                for b in batches]
         return {k: torch.stack([m[k] for m in runs]) for k in runs[0]}
 
     return multi_step

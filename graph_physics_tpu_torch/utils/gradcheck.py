@@ -25,13 +25,22 @@ tests/test_fused_edge_attention_nk.py:119-125, tests/test_fused_ffn.py:
 deterministic algorithms (``index_add_`` on a card then sums in a fixed
 order, not by atomics), so the reference the kernel is held to is the
 same on every run.
+
+A caller may name stream values to be judged against the fp32 gradient
+instead (``fp32_judged``: a boolean mask per stream): there the kernel
+may leave the 0.05 bound around the fp32 gradient on no more values than
+the plain version does. At a receiver of very high in-degree (a hub),
+two bf16 backwards of equal accuracy each disagree with the fp32
+gradient on a quarter of the hub's values, and with each other on more
+than the share allows; the fp32 gradient is the one reference both are
+held to there.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -80,10 +89,19 @@ def _rel_l2(a: torch.Tensor, ref: torch.Tensor) -> float:
     return ((a - ref).norm() / ref.norm().clamp_min(1e-30)).item()
 
 
-def compare_grads(names, kernel, plain, fp32, streams: Sequence[str]) -> Tuple[List[Dict], bool]:
+def _outside(a: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Where ``a`` leaves the stream bound around ``ref``."""
+    return (a - ref).abs() > STREAM_TOL + STREAM_TOL * ref.abs()
+
+
+def compare_grads(names, kernel, plain, fp32, streams: Sequence[str],
+                  fp32_judged: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Tuple[List[Dict], bool]:
     """One row per gradient with the errors that the bounds above read,
     and whether every row is inside them. ``streams`` names the
-    activation gradients; the others are weights."""
+    activation gradients; the others are weights. ``fp32_judged`` maps a
+    stream to the mask of its values judged against the fp32 gradient."""
+    fp32_judged = fp32_judged or {}
     rows, ok = [], True
     for name, k, p, f in zip(names, kernel, plain, fp32):
         if not torch.isfinite(k).all():
@@ -102,9 +120,17 @@ def compare_grads(names, kernel, plain, fp32, streams: Sequence[str]) -> Tuple[L
             "plain_fp32_max": ((p - f).abs().max() / f_scale).item(),
         }
         if name in streams:
-            row["outside"] = int((diff > STREAM_TOL + STREAM_TOL * p.abs()).sum())
-            row["count"] = diff.numel()
+            judged = fp32_judged.get(name)
+            rest = torch.ones_like(diff, dtype=torch.bool) if judged is None else ~judged
+            row["outside"] = int(_outside(k, p)[rest].sum())
+            row["count"] = int(rest.sum())
             good = row["outside"] <= OUTSIDE_SHARE * row["count"]
+            if judged is not None:
+                row["fp32_judged"] = int(judged.sum())
+                row["outside_all"] = int(_outside(k, p).sum())  # the judged values too
+                row["kernel_outside_fp32"] = int(_outside(k, f)[judged].sum())
+                row["plain_outside_fp32"] = int(_outside(p, f)[judged].sum())
+                good = good and row["kernel_outside_fp32"] <= row["plain_outside_fp32"]
         else:
             good = row["rel_to_max"] <= WEIGHT_REL
         good = (good and row["kernel_fp32_l2"] <= FP32_L2_RATIO * row["plain_fp32_l2"] + 1e-3
@@ -130,7 +156,8 @@ def deterministic():
 
 def check_backward(names: Sequence[str], streams: Sequence[str], kernel_fn: Callable,
                    plain_fn: Callable, fp32_fn: Callable, inputs: Sequence[torch.Tensor],
-                   cots: Sequence[torch.Tensor]):
+                   cots: Sequence[torch.Tensor],
+                   fp32_judged: Optional[Dict[str, torch.Tensor]] = None):
     """Gradients of one function through the kernel (``kernel_fn``), its
     plain version in bf16 (``plain_fn``, under :func:`deterministic`) and
     in fp32 (``fp32_fn``, given the inputs as fp32), each as
@@ -140,11 +167,12 @@ def check_backward(names: Sequence[str], streams: Sequence[str], kernel_fn: Call
     with deterministic():
         gp, kept_p = grads_of(plain_fn, inputs, cots)
     gf, _ = grads_of(fp32_fn, [t.float() for t in inputs], cots)
-    rows, ok = compare_grads(names, gk, gp, gf, streams)
+    rows, ok = compare_grads(names, gk, gp, gf, streams, fp32_judged)
     return rows, ok, {"kernel": kept_k, "plain": kept_p}
 
 
-def check_block_backward(x, e, rows, mlps, layout, last_block, cot_x, cot_e):
+def check_block_backward(x, e, rows, mlps, layout, last_block, cot_x, cot_e,
+                         fp32_judged=None):
     """:func:`check_backward` of one GraphNetBlock with ``mlps`` =
     (encoder or None, edge MLP, node MLP), from the cotangents of x_out
     and (unless on the last block) e_out. The layout's type picks the
@@ -152,7 +180,8 @@ def check_block_backward(x, e, rows, mlps, layout, last_block, cot_x, cot_e):
     edge_mask), on a CSRLayout ``fused_gn_block_csr`` with ``rows`` =
     (senders, receivers, edge_mask), each against its plain version.
     Gradients: dx, de unless the encoder is folded (raw edge features take
-    none), then every MLP parameter in the kernels' order."""
+    none), then every MLP parameter in the kernels' order. ``fp32_judged``
+    goes to :func:`compare_grads`."""
     if isinstance(layout, CSRLayout):
         fn, reference = csr_ops.fused_gn_block_csr, csr_ops.fused_gn_block_csr_reference
     else:
@@ -178,4 +207,4 @@ def check_block_backward(x, e, rows, mlps, layout, last_block, cot_x, cot_e):
         names, ("dx", "de"), block(fn, mlps),
         block(reference, mlps, compute_dtype=torch.bfloat16),
         block(reference, [rounded_copy(m) for m in mlps], compute_dtype=torch.float32),
-        inputs, cots)
+        inputs, cots, fp32_judged)

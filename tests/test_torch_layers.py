@@ -173,7 +173,11 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("module", [
     "ops/edge_attention.py", "ops/fused_edge_attention_nk.py", "ops/fused_ffn.py",
     "ops/kernel_build.py", "models/layers.py", "models/processors.py", "entry.py",
-    "ops/gumbel.py", "models/transolver.py"])
+    "ops/gumbel.py", "models/transolver.py", "native.py", "dataset/preprocessing.py",
+    "dataset/base.py", "dataset/h5_dataset.py", "dataset/loader.py", "training/trainer.py",
+    "training/config.py", "training/checkpoint.py", "training/logging.py",
+    "utils/meter.py", "utils/profiling.py", "utils/xdmf.py", "cli/common.py", "cli/train.py",
+    "cli/predict.py"])
 def test_import_checks_cover_the_module(module):
     """The two checks around this one walk every file of the package, the
     transformer slice's modules and kernel sources among them."""
@@ -199,3 +203,18 @@ def test_port_sources_import_nothing_from_jax_package():
             for name in names:
                 assert name.split(".")[0] not in ("jax", "flax", "graph_physics_tpu"), (
                     f"{path.name} imports {name}")
+
+
+def test_optional_packages_are_imported_inside_functions():
+    """h5py, lxml and wandb (absent on the card's machine) are imported only
+    inside the functions that need them, never at a module's top level."""
+    for path in sorted(PORT_DIR.rglob("*.py")):
+        for node in ast.parse(path.read_text()).body:
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                assert name.split(".")[0] not in ("h5py", "lxml", "wandb"), (
+                    f"{path.name} imports {name} at its top level")

@@ -127,7 +127,10 @@ def test_schedule_matches_jax():
         np.testing.assert_allclose(t(s), float(j(s)), rtol=1e-5, atol=1e-9)
 
 
-def test_optimizer_matches_optax():
+@pytest.mark.parametrize("accumulate", [1, 2])
+def test_optimizer_matches_optax(accumulate):
+    """The clip + AdamW + cosine chain, and with ``accumulate`` 2 its
+    optax.MultiSteps wrapper: every other call updates, on the mean."""
     rng = np.random.default_rng(0)
     shapes = {"a": (5, 3), "b": (7,), "c": (2, 2, 2)}
     p0 = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
@@ -138,11 +141,13 @@ def test_optimizer_matches_optax():
         g = {k: rng.normal(size=s) for k, s in shapes.items()}
         total = np.sqrt(sum(np.sum(v ** 2) for v in g.values()))
         grads.append({k: (v * target / total).astype(np.float32) for k, v in g.items()})
-    opt = jschedule.make_optimizer(1e-2, warmup=3, num_steps=20)
+    opt = jschedule.make_optimizer(1e-2, warmup=3, num_steps=20,
+                                   accumulate_grad_batches=accumulate)
     jp = {k: jnp.asarray(v) for k, v in p0.items()}
     jst = opt.init(jp)
     params = {k: torch.nn.Parameter(torch.as_tensor(v.copy())) for k, v in p0.items()}
-    topt = tschedule.make_optimizer(1e-2, warmup=3, num_steps=20).init(params.values())
+    topt = tschedule.make_optimizer(1e-2, warmup=3, num_steps=20,
+                                    accumulate_grad_batches=accumulate).init(params.values())
     clipped = 0
     for g in grads:
         upd, jst = opt.update({k: jnp.asarray(v) for k, v in g.items()}, jst, jp)
@@ -157,8 +162,7 @@ def test_optimizer_matches_optax():
             np.testing.assert_allclose(params[k].detach().numpy(), np.asarray(jp[k]),
                                        rtol=1e-6, atol=1e-6, err_msg=k)
     assert 0 < clipped < len(grads)
-    with pytest.raises(NotImplementedError):
-        tschedule.make_optimizer(1e-3, 1, 10, accumulate_grad_batches=2)
+    assert topt.count == len(grads) // accumulate
 
 
 # ---- one train step against JAX -------------------------------------------
