@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the inference
 and training paths of the cylinder ``epd`` and of the graph transformer,
 on the cylinder mesh (NK layout) and on the graded mesh (CSR layout), the
-Transolver++ train step with its gumbel kernel, and the train -> predict
-loop (loader, Trainer.fit, checkpoint and resume, predict).
+Transolver++ train step with its gumbel kernel, the train -> predict
+loop (loader, Trainer.fit, checkpoint and resume, predict), and
+DeformingPlate (training_config/plate.json) with its world edges through
+the attention kernels' world seam.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --parent CHECKOUT   # also times another checkout's
@@ -158,7 +160,29 @@ Phases (any failure raises, so the exit code is non-zero):
      (phase 26's run against the uninterrupted one, logged);
  28. predict: cli.common.load_inference_stack on phase 26's checkpoint
      with the validation dataset passed in, and cli.predict.predict on
-     the fused path: the rollout RMSE equals what validate reported.
+     the fused path: the rollout RMSE equals what validate reported;
+ 29. world seam: both attention layouts with world pieces
+     (ops/edge_attention.world_attention_parts), the NK kernels (rows 5,
+     6) at plate's shape (entry.plate_setup: the 44x30 sheet, B=64, each
+     frame's sidecar of 1,024 slots), the CSR kernels (rows 7, 8) on the
+     graded mesh with a synthetic [1,024, 16] sidecar reaching receivers
+     whose rows are masked: the forward against joint_edge_attention, the
+     joint statistics against softmax_stats, exact zeros where a receiver
+     has neither mesh rows nor world edges, dq, dk, dv, dnum_w, dden_w
+     against the plain backward and fp32 autograd, the same bits on two
+     calls, without world the parent tree's bits (with --parent); times
+     with and without world with their bounds, and the library's masked
+     attention over mesh and world edges where its per-sample mask fits;
+ 30. plate train step: entry.plate_train_setup (plate.json's transformer,
+     10 blocks, hidden 64, 4 heads, B=64, budget 1,024, noise 0.003 and
+     the world-position features on the device), the layout chosen, 20
+     steps with 10 + 10 launches of the attention and FFN kernels a step
+     against the plain path; step, enqueue and device time;
+ 31. plate fit and predict: Trainer.fit of plate.json's model on
+     in-memory plate trajectories (2 of 65 frames, B=64, 2 epochs, a
+     50-step validation rollout with each frame's sidecar a step), then
+     predict from its checkpoint: losses and RMSE finite, launches per
+     step and rollout step, predict's RMSE equal to validate's.
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
 the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
@@ -405,9 +429,9 @@ def cuda_ms(fn, warmup=3, reps=20):
 
 
 #: profiler sessions tried for two that agree on every kernel's launches
-#: a call: the profiler on the card drops a launch now and then, and now
-#: and then every launch of a session (PERF.md §6)
-PROFILE_ATTEMPTS = 4
+#: a call: the profiler on the card drops a few launches of a session now
+#: and then, and now and then every launch of a session (PERF.md §6)
+PROFILE_ATTEMPTS = 6
 
 
 def _profile_session(fn, reps):
@@ -443,10 +467,14 @@ def device_times(fn, reps=20):
     torch.profiler over ``reps`` calls (user annotations left out). Each
     kernel's time is its mean launch times its launches a call: the
     launches a session recorded, rounded up to a whole number a call,
-    none short of that by more than a quarter of ``reps``. The first two
-    sessions that agree on every kernel's launches a call give the mean
-    of their times; raises when ``PROFILE_ATTEMPTS`` sessions give no
-    such two."""
+    which is exact while the session lost fewer than ``reps`` of that
+    kernel's launches. The first two sessions that agree on every
+    kernel's launches a call give the mean of their times. When
+    ``PROFILE_ATTEMPTS`` sessions give no such two, each kernel takes the
+    most launches a call that a session recorded (the profiler loses
+    launches and has never added one) and its mean launch over the
+    sessions that recorded it; raises only when no session recorded a
+    launch."""
     import torch
 
     fn()
@@ -454,27 +482,34 @@ def device_times(fn, reps=20):
     seen = []
     for _ in range(PROFILE_ATTEMPTS):
         totals, counts = _profile_session(fn, reps)
-        per_call = {k: -(-c // reps) for k, c in counts.items()}
-        dropped = {k: per_call[k] * reps - c for k, c in counts.items()}
-        if not counts or max(dropped.values()) > reps // 4:
-            log(f"  the profiler recorded {sum(counts.values())} launches in {reps} calls, "
-                f"none or a kernel's short of a whole number a call by more than "
-                f"{reps // 4}; profiling again")
+        if not counts:
+            log(f"  the profiler recorded no launch in {reps} calls; profiling again")
             continue
-        if any(dropped.values()):
-            log(f"  the profiler dropped {sum(dropped.values())} of "
-                f"{sum(per_call.values()) * reps} launches in {reps} calls (each kernel's "
-                f"time is its mean launch times its launches a call)")
+        per_call = {k: -(-c // reps) for k, c in counts.items()}
+        dropped = sum(per_call[k] * reps - c for k, c in counts.items())
+        if dropped:
+            log(f"  the profiler dropped {dropped} of {sum(per_call.values()) * reps} "
+                f"launches in {reps} calls (each kernel's time is its mean launch times its "
+                f"launches a call)")
         times = {k: totals[k] / counts[k] * per_call[k] for k in counts}
-        for other, other_per_call in seen:
+        for other, other_per_call, _, _ in seen:
             if other_per_call == per_call:
                 return {k: (times[k] + other[k]) / 2 for k in times}
         if seen:
             log("  two profiler sessions disagree on a kernel's launches a call; profiling "
                 "again")
-        seen.append((times, per_call))
-    raise AssertionError(f"{PROFILE_ATTEMPTS} profiler sessions gave no two that agree on "
-                         f"every kernel's launches a call")
+        seen.append((times, per_call, totals, counts))
+    if not seen:
+        raise AssertionError(f"{PROFILE_ATTEMPTS} profiler sessions recorded no launch")
+    kernels = {k for _, per_call, _, _ in seen for k in per_call}
+    most = {k: max(s[1].get(k, 0) for s in seen) for k in kernels}
+    log(f"  {PROFILE_ATTEMPTS} profiler sessions gave no two that agree on every kernel's "
+        f"launches a call; each kernel takes the most a session recorded: "
+        + ", ".join(f"{k[:40]} {most[k]} (sessions {[s[1].get(k, 0) for s in seen]})"
+                    for k in sorted(kernels)
+                    if len({s[1].get(k, 0) for s in seen}) > 1))
+    return {k: most[k] * sum(s[2].get(k, 0.0) for s in seen)
+            / sum(s[3].get(k, 0) for s in seen) for k in kernels}
 
 
 def device_ms(fn, reps=20):
@@ -851,8 +886,9 @@ def training_phase(label, train, kernels, seed, per_step_want=None):
         n_blocks = len(train.simulator.model.processor_list)
         per_step_want = (n_blocks, n_blocks)
     plain_sim = plain_copy(train.simulator)
-    plain_state, plain_step = entry.make_trainer(plain_sim)
-    fg = step1_fp32_grads(plain_sim, tgraph, seed)
+    preprocess = getattr(train, "device_preprocess", None)
+    plain_state, plain_step = entry.make_trainer(plain_sim, preprocess)
+    fg = step1_fp32_grads(plain_sim, tgraph, seed, preprocess)
     reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
     kl, kn, per_step, kg = train_run(train.train_step, train.state, train.simulator, tgraph,
@@ -908,28 +944,38 @@ def training_phase(label, train, kernels, seed, per_step_want=None):
 
 
 def step_timing(train, plain_state, plain_step, seed, libs=()):
-    """CUDA-event medians of ``train``'s step (an entry train setup) and of
+    """Whether ``train``'s step (an entry train setup) is bound by the
+    host: the host's time to enqueue one step from a synchronised start,
+    with the CUDA-event time of the same calls, taken before any profiler
+    session of the phase. Then the CUDA-event medians of the step and of
     the plain path's, the kernel path's device time a step (the profiler's
-    sum of its kernels, ``device_ms``), then whether the kernel path's step
-    is bound by the host: the host's time to enqueue one step from a
-    synchronised start, and the device-to-host synchronisations one step
-    makes (logged, not bounded). With a parent tree, its step with the
-    parent's ``libs`` too (``timed``)."""
+    sum of its kernels, ``device_ms``), and the device-to-host
+    synchronisations one step makes (logged, not bounded). With a parent
+    tree, its step with the parent's ``libs`` too (``timed``)."""
     import torch
 
     graph = train.graph
     gen = torch.Generator(device=graph.x.device).manual_seed(seed)
+    for _ in range(2):
+        train.train_step(train.state, graph, gen)
+    enqueue, events = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        train.train_step(train.state, graph, gen)
+        enqueue.append(1e3 * (time.perf_counter() - t0))
+        end.record()
+        end.synchronize()
+        events.append(start.elapsed_time(end))
     t = timed(lambda: train.train_step(train.state, graph, gen), libs, device=True,
               device_reps=5, warmup=2, reps=10)
     out = {f"train_step_{k}": v for k, v in t.items()}
     out["train_step_plain_ms"] = cuda_ms(lambda: plain_step(plain_state, graph, gen), warmup=2,
                                          reps=10)
-    enqueue = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train.train_step(train.state, graph, gen)
-        enqueue.append(1e3 * (time.perf_counter() - t0))
+    out["train_step_enqueue_events_ms"] = statistics.median(events)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as syncs:
@@ -946,9 +992,10 @@ def parent_step_note(st):
                         if k.startswith("train_step_parent")})
 
 
-def step1_fp32_grads(sim, graph, seed):
+def step1_fp32_grads(sim, graph, seed, preprocess=None):
     """Gradients of the first train step's loss (same noise draws, slice
-    noise too) on an fp32 copy of ``sim`` on the plain path, by parameter
+    noise too; ``preprocess`` in place of bench.py's noise where the setup
+    has one) on an fp32 copy of ``sim`` on the plain path, by parameter
     name."""
     import torch
     from graph_physics_tpu_torch import entry
@@ -962,7 +1009,8 @@ def step1_fp32_grads(sim, graph, seed):
             m.dtype = torch.float32
     gen = torch.Generator(device=graph.x.device).manual_seed(seed)
     cfg = entry.NOISE
-    g = add_noise(graph, gen, cfg.starts, cfg.ends, cfg.scales)
+    g = (preprocess(graph, gen, 0) if preprocess is not None
+         else add_noise(graph, gen, cfg.starts, cfg.ends, cfg.scales))
     with torch.enable_grad():
         out = sim.forward(g, is_training=True,
                           gumbel=gen if model_uses_gumbel(sim.model) else None)
@@ -991,7 +1039,8 @@ def memory_dataset_class():
         def __init__(self, trajectories, meta, frame_config, seed=0):
             super().__init__(frame_config, meta, seed=seed)
             self._trajs = list(trajectories)
-            self._traj_len = [int(t["velocity"].shape[0]) for t in self._trajs]
+            self._traj_len = [int(t["velocity" if "velocity" in t else "world_pos"].shape[0])
+                              for t in self._trajs]
             self._setup_index()
 
         @property
@@ -1557,6 +1606,19 @@ def main():
     tf_train_records[1]["max_abs_err"] = max(tf_train_records[1]["max_abs_err"],
                                              graded_ffn_bwd.pop("max_abs_err"))
     tf_train_records[1]["graded"] = graded_ffn_bwd  # its time and bound at [27,008·16, 64]
+
+    # 29. the attention kernels' world seam; 30.-31. DeformingPlate's train
+    # step, fit and predict with world edges
+    world = world_phases(device, card)
+    plate_launches, plate_info = plate_phases(device, card)
+    log("plate " + json.dumps({"card": card, **plate_info}))
+    for rec in (*tf_records, *tf_train_records, *graded_records, *graded_train_records):
+        if rec["name"] in world:
+            rec["world"] = world[rec["name"]]
+            rec["max_abs_err"] = max(rec["max_abs_err"], rec["world"]["max_abs_err"])
+        for name, (fwd_n, bwd_n) in plate_launches.items():
+            rec["launches"] += (fwd_n if rec["name"] == name else
+                                bwd_n if rec["name"] == f"{name}_backward" else 0)
 
     fwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1]))
     bwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1], backward=True))
@@ -2657,6 +2719,386 @@ def transolver_phases(device, card):
     return dict(GUMBEL, route="cuda", launches=launches[kernel.__name__][0],
                 max_abs_err=max(errors.values()), ms=t["ms"], plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["torch_rand_ms"])
+
+
+# ---- phases 29-31: DeformingPlate and the attention kernels' world seam -------
+
+#: phase 29: the world seam at the graded mesh's CSR shape, a synthetic
+#: sidecar of this many slots a sample (scripts/bench_plate.py's budget)
+WORLD_SLOTS = 1024
+#: phase 31: plate trajectories of the fit (2 of PLATE_FIT_FRAMES frames:
+#: one B=64 batch each) and epochs
+PLATE_FIT_TRAJECTORIES, PLATE_FIT_FRAMES, PLATE_FIT_EPOCHS = 2, 65, 2
+
+
+def synthetic_sidecar(n_valid, n, batch, width, targets, gen, device):
+    """A [W, B] sidecar on ``n_valid`` nodes: half its slots end at
+    ``targets`` (receivers without a valid mesh row), the rest at random
+    nodes, senders random; every fifth slot masked, the last 8 the padding
+    convention's (sender 0, receiver n - 1, masked)."""
+    import torch
+
+    def ints(hi):
+        return torch.randint(0, hi, (width, batch), generator=gen, device=device)
+
+    recv = torch.where(torch.rand((width, batch), generator=gen, device=device) < 0.5,
+                       targets[ints(len(targets))], ints(n_valid))
+    send = ints(n_valid)
+    mask = (torch.arange(width, device=device) % 5 != 4)[:, None].expand(width, batch).clone()
+    send[-8:], recv[-8:], mask[-8:] = 0, n - 1, False
+    return send.int().contiguous(), recv.int().contiguous(), mask.contiguous()
+
+
+def world_kernel_check(label, ops, qkv, rows, layout, sidecar, cot, card, libs, plain_libs):
+    """Phase 29 for one layout: the forward kernel with the world pieces of
+    ``sidecar`` against its plain version (joint_edge_attention) on the
+    same bf16 inputs, the joint statistics it keeps, exact zeros where a
+    receiver has neither a valid row nor a world edge, the same bits on two
+    calls; the backward's dq, dk, dv, dnum_w, dden_w against the plain
+    backward and fp32 autograd (utils/gradcheck.py), dnum_w and dden_w 0
+    where a receiver has neither; without world pieces, the parent tree's
+    bits (with --parent); times with and without world, their bounds, and
+    the library's masked attention over mesh and world edges where its
+    per-sample mask fits. Returns (max abs error forward, backward, times)."""
+    import torch
+    import torch.nn.functional as F
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as csr_ops
+    from graph_physics_tpu_torch.ops.edge_attention import world_attention_parts
+    from graph_physics_tpu_torch.utils import gradcheck
+
+    name = ops.__name__.rsplit(".", 1)[-1]
+    op = getattr(ops, name)
+    kernels = ops.KERNELS
+    senders, receivers, mask = rows
+    q, k, v = qkv
+    n, b, h, dh = q.shape
+    with torch.no_grad():
+        parts = world_attention_parts(q, k, v, *sidecar)
+    ws, wr, wm = sidecar
+    hit = torch.zeros((n, b), dtype=torch.bool, device=q.device)
+    hit[wr[wm].long(), torch.nonzero(wm)[:, 1]] = True
+    has_rows = torch.zeros(n, dtype=torch.bool, device=q.device)
+    has_rows[receivers[mask].long()] = True
+    world_only, neither = hit & ~has_rows[:, None], ~hit & ~has_rows[:, None]
+    log(f"world seam [{label}]: {n} nodes x {b} samples, {int(wm.sum())} world edges over "
+        f"{ws.shape[0]} slots a sample ({int(wm.sum(0).max())} at most), "
+        f"{int(world_only.sum())} (node, sample) receivers with world edges and no mesh row, "
+        f"{int(neither.sum())} with neither")
+    if not world_only.any():
+        raise AssertionError(f"world seam [{label}]: no receiver has world edges without a "
+                             "mesh row")
+    before = op.launches
+    with torch.inference_mode():
+        out = op(*qkv, *rows, layout, world_parts=parts)
+        torch.cuda.synchronize()
+        if op.launches != before + 1:
+            raise AssertionError(f"world seam [{label}]: the forward kernel did not launch")
+        ref = csr_ops.joint_edge_attention(*qkv, *rows, parts)
+        err = compare("out (joint mesh + world softmax)", out, ref, ATTN_RTOL, atol=ATTN_ATOL)
+        if not torch.equal(out[neither], torch.zeros_like(out[neither])):
+            raise AssertionError(f"world seam [{label}]: a receiver with neither mesh rows nor "
+                                 "world edges is not exactly 0")
+        calls = [kernels[0](*qkv, *rows, layout, keep_stats=True, world=parts) for _ in range(2)]
+        (kept, (m_k, inv_k, out32)), again = calls
+        if not all(torch.equal(a, c) for a, c in zip((kept, m_k, inv_k, out32),
+                                                      (again[0], *again[1]))):
+            raise AssertionError(f"world seam [{label}]: two calls give other bits")
+        if not (torch.equal(kept, out) and torch.equal(out32.to(torch.bfloat16), out)):
+            raise AssertionError(f"world seam [{label}]: the kept fp32 output is not the output")
+        m_p, inv_p = csr_ops.softmax_stats(q, k, *rows, world=parts)
+        some = inv_p > 0
+        compare("kept joint max", m_k, m_p, STATS_MAX_TOL)
+        compare("kept joint 1/denominator", inv_k, inv_p, STATS_INV_RTOL, rows=some, atol=0.0)
+        if (inv_k[~some] != 0).any():
+            raise AssertionError(f"world seam [{label}]: 1/denominator not 0 without a softmax")
+        log(f"  {int(neither.sum())} receivers with neither: exact zeros; two calls: the same "
+            "output, statistics and fp32 output")
+    names = ("dq", "dk", "dv", "dnum_w", "dden_w")
+    s_w = parts[2]
+
+    def attention(fn):
+        return lambda q_, k_, v_, nw, dw: (fn(q_, k_, v_, *rows, layout,
+                                              world_parts=(nw, dw, s_w)), [])
+
+    def plain(*a, world_parts):
+        return csr_ops.joint_edge_attention(*a[:6], world_parts)
+
+    before = op.backward_launches
+    grad_rows, ok, kept = gradcheck.check_backward(
+        names, names, attention(op),
+        attention(lambda *a, world_parts: csr_ops.reference_with_backward(
+            *a, world_parts=world_parts)),
+        attention(plain), [*qkv, *parts[:2]], [cot])
+    torch.cuda.synchronize()
+    log(f"  world seam backward [{label}] ({op.backward_launches - before} launch; against the "
+        "plain backward, both against fp32)")
+    log_grad_rows(grad_rows)
+    if op.backward_launches != before + 1 or not ok:
+        raise AssertionError(f"world seam [{label}]: backward kernel out of bounds or not "
+                             "launched")
+    bwd_err = max(r.get("max_abs_err", float("inf")) for r in grad_rows)
+    grads = [torch.autograd.grad(*kept["kernel"], retain_graph=True) for _ in range(2)]
+    if not all(torch.equal(a, c) for a, c in zip(*grads)):
+        raise AssertionError(f"world seam [{label}]: two backwards give other bits")
+    dnum_w, dden_w = grads[0][3:]
+    if not (torch.equal(dnum_w[neither], torch.zeros_like(dnum_w[neither]))
+            and torch.equal(dden_w[neither], torch.zeros_like(dden_w[neither]))):
+        raise AssertionError(f"world seam [{label}]: dnum_w, dden_w not 0 where a receiver "
+                             "has neither")
+    log("  two backwards: the same bits; dnum_w, dden_w exactly 0 where a receiver has neither")
+    # the mesh-only kernels: the parent tree's bits, forward and backward
+    same_bits_as_parent(f"{label} without world, forward", lambda: getattr(ops, name)(
+        *qkv, *rows, layout), libs)
+    same_bits_as_parent(f"{label} without world, dq dk dv", attention_backward(
+        ops, qkv, rows, layout, cot), libs)
+
+    # times: with world (forward; backward; plain), without world, bounds
+    def this_tree(fn):  # the world calls: the parent's kernels have no world seam
+        return {"ms": cuda_ms(fn), "device_ms": device_ms(fn)}
+
+    t = {}
+    with torch.inference_mode():
+        t["world"] = dict(this_tree(lambda: op(*qkv, *rows, layout, world_parts=parts)),
+                          plain_ms=cuda_ms(lambda: csr_ops.joint_edge_attention(*qkv, *rows,
+                                                                                parts)))
+        t["mesh"] = dict(timed(lambda: getattr(ops, name)(*qkv, *rows, layout), libs,
+                               device=True))
+        t["parts_ms"] = cuda_ms(lambda: world_attention_parts(q, k, v, *sidecar))
+    leaves = [x.detach().clone().requires_grad_(True) for x in (*qkv, *parts[:2])]
+    graph_w = (op(*leaves[:3], *rows, layout, world_parts=(*leaves[3:], s_w)), leaves)
+    t["world_backward"] = dict(this_tree(lambda: torch.autograd.grad(
+        graph_w[0], graph_w[1], cot, retain_graph=True)),
+        plain_ms=cuda_ms(lambda: torch.autograd.grad(*kept["plain"], retain_graph=True)),
+        passes=pass_split(lambda: torch.autograd.grad(graph_w[0], graph_w[1], cot,
+                                                      retain_graph=True)))
+    t["mesh_backward"] = dict(timed(attention_backward(ops, qkv, rows, layout, cot), libs,
+                                    device=True))
+    valid = int(mask.sum())
+    world_edges = int(wm.sum())
+    nbh = n * b * h
+    ops_fwd = (valid * b + world_edges) * h * 4 * dh  # the world's exp-sums are the pieces'
+    t["world"]["bound"] = bound(2 * 4 * q.numel() + 5 * senders.numel()
+                                + 4 * q.numel() + 2 * 4 * nbh, ops_fwd + 2 * nbh * dh)
+    t["mesh"]["bound"] = bound(2 * 4 * q.numel() + 5 * senders.numel(), valid * b * h * 4 * dh)
+    t["world_backward"]["bound"] = bound(2 * 7 * q.numel() + 5 * senders.numel() + 4 * nbh
+                                         + 4 * q.numel() + 4 * nbh, valid * b * h * 10 * dh)
+    t["mesh_backward"]["bound"] = bound(2 * 7 * q.numel() + 5 * senders.numel(),
+                                        valid * b * h * 10 * dh)
+    # the library: one masked SDPA over each sample's mesh and world edges
+    t["world"]["library_ms"] = None
+    if b * n * n <= 2 ** 31:
+        adj = torch.zeros((b, 1, n, n), dtype=torch.bool, device=q.device)
+        adj[:, 0, receivers[mask].long(), senders[mask].long()] = True
+        adj[torch.nonzero(wm)[:, 1], 0, wr[wm].long(), ws[wm].long()] = True
+        qd, kd, vd = (x.permute(1, 2, 0, 3).contiguous() for x in qkv)
+        with torch.inference_mode():
+            t["world"]["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=adj))
+        del adj, qd, kd, vd
+    for key in ("world", "mesh", "world_backward", "mesh_backward"):
+        tt = t[key]
+        tt["bound_ms"], tt["bound_by"] = tt.pop("bound")
+        log(f"  {key.replace('_', ' ')} time: kernel {tt['ms']:.4f} ms (device "
+            f"{tt['device_ms']:.4f}){parent_note(tt)}"
+            + (f", plain {tt['plain_ms']:.4f} ms" if "plain_ms" in tt else "")
+            + (f", scaled_dot_product_attention over mesh + world {tt['library_ms']:.4f} ms"
+               if tt.get("library_ms") is not None else "")
+            + f"; bound {tt['bound_ms']:.6g} ms ({tt['bound_by']}) ({card})")
+    log(f"  world_attention_parts (the pieces, torch ops): {t['parts_ms']:.4f} ms; world "
+        f"backward device ms by pass: " + ", ".join(
+            f"{p} {ms:.4f}" for p, ms in t["world_backward"]["passes"].items()))
+    del kept, graph_w, leaves
+    return err, bwd_err, t
+
+
+def world_phases(device, card):
+    """Phase 29: the world seam of rows 5/6 (NK) at plate's shape, with the
+    plate batch's own sidecars (entry.plate_setup: 44x30 sheet, B=64,
+    1,024 slots), and of rows 7/8 (CSR) on the graded mesh with a
+    synthetic [1,024, 16] sidecar; returns {record name: world fields}."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as nk_ops
+    from graph_physics_tpu_torch.ops.tiling import NKTiling
+
+    gen = torch.Generator(device=device).manual_seed(29)
+
+    def randn(shape, scale=0.5):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    out = {}
+    setup = entry.plate_setup(device, accumulate_stats=False, mp_steps=1)
+    g, layout = setup.graph, setup.tiling
+    if not isinstance(layout, NKTiling):
+        raise AssertionError(f"phase 29: the plate batch took {type(layout).__name__}, "
+                             "not the NK layout")
+    n, b = g.x.shape[:2]
+    qkv = [randn((n, b, 4, 16)) for _ in range(3)]
+    cot = randn((n, b, 4, 16), scale=1.0)
+    rows = (g.senders, g.receivers, g.edge_mask)
+    sidecar = (g.wedge_senders, g.wedge_receivers, g.wedge_mask)
+    err, bwd_err, t = world_kernel_check("NK, plate", nk_ops, qkv, rows, layout, sidecar, cot,
+                                         card, ATTN_NK_LIBS, ATTN_NK_LIBS)
+    out[ATTN["name"]] = dict(t["world"], mesh_ms=t["mesh"]["ms"],
+                             mesh_device_ms=t["mesh"]["device_ms"], parts_ms=t["parts_ms"],
+                             max_abs_err=err)
+    out[ATTN_BWD["name"]] = dict(t["world_backward"], mesh_ms=t["mesh_backward"]["ms"],
+                                 mesh_device_ms=t["mesh_backward"]["device_ms"],
+                                 max_abs_err=bwd_err)
+    del setup, g, qkv, cot
+    torch.cuda.empty_cache()
+
+    setup = entry.graded_transformer_setup(device, mp_steps=1, accumulate_stats=False)
+    g, layout = setup.graph, setup.tiling
+    n, b = g.x.shape[:2]
+    n_valid = int(g.node_mask.sum())
+    gone = torch.arange(0, n_valid, EMPTY_STRIDE, device=device)
+    mask = (g.edge_mask & ~torch.isin(g.receivers, gone)).contiguous()
+    qkv = [randn((n, b, 4, 16)) for _ in range(3)]
+    cot = randn((n, b, 4, 16), scale=1.0)
+    sidecar = synthetic_sidecar(n_valid, n, b, WORLD_SLOTS, gone[::2], gen, device)
+    err, bwd_err, t = world_kernel_check("CSR, graded", csr_ops, qkv,
+                                         (g.senders, g.receivers, mask), layout, sidecar, cot,
+                                         card, ATTN_CSR_LIBS, ATTN_CSR_LIBS)
+    out[ATTN_CSR["name"]] = dict(t["world"], mesh_ms=t["mesh"]["ms"],
+                                 mesh_device_ms=t["mesh"]["device_ms"], parts_ms=t["parts_ms"],
+                                 max_abs_err=err)
+    out[ATTN_CSR_BWD["name"]] = dict(t["world_backward"], mesh_ms=t["mesh_backward"]["ms"],
+                                     mesh_device_ms=t["mesh_backward"]["device_ms"],
+                                     max_abs_err=bwd_err)
+    del setup, g, qkv, cot
+    torch.cuda.empty_cache()
+    return out
+
+
+def plate_param():
+    from graph_physics_tpu_torch.training import config as config_lib
+
+    return config_lib.load_params(str(ROOT / "training_config" / "plate.json"))
+
+
+def plate_phases(device, card):
+    """Phases 30-31: plate.json's transformer at full width (10 blocks,
+    hidden 64, 4 heads) trained at B=64 with world edges through the
+    attention kernels' world seam, then through Trainer.fit and predict;
+    returns {wrapper name: (forward, backward) launches} of both."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.cli import predict as predict_cli
+    from graph_physics_tpu_torch.cli.common import load_inference_stack
+    from graph_physics_tpu_torch.dataset import synthetic
+    from graph_physics_tpu_torch.models.layers import lecun_parameters
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as nk_ops
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.ops.tiling import NKTiling
+    from graph_physics_tpu_torch.training import config as config_lib
+    from graph_physics_tpu_torch.training.loss import l2_loss
+    from graph_physics_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    # 30. the plate train step: kernel path against the plain path
+    train = entry.plate_train_setup(device)
+    layout = train.tiling
+    attn = (nk_ops.fused_edge_attention_nk if isinstance(layout, NKTiling)
+            else csr_ops.fused_edge_attention_csr)
+    ffn = ffn_ops.fused_gated_ffn
+    g = train.graph
+    wm = g.wedge_mask
+    log(f"plate train step: FusedTopologyManager chose the {type(layout).__name__} layout "
+        f"({layout.num_nodes} nodes, {layout.total_rows} rows); B={g.x.shape[1]}, "
+        f"{int(wm.sum())} world edges over {wm.shape[0]} slots a sample "
+        f"({int((wm.sum(0) > 0).sum())} samples with any, {int(wm.sum(0).max())} at most)")
+    _, plain_state, plain_step, launches = training_phase("plate training", train,
+                                                          [attn, ffn], 30)
+    st = step_timing(train, plain_state, plain_step, 31)  # the parent has no world seam
+    st = {k: v for k, v in st.items() if "parent" not in k}
+    b = g.x.shape[1]
+    log(f"plate train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
+        f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
+        f"{st['train_step_device_ms']:.4f} ms; the host enqueues a step in "
+        f"{st['train_step_host_enqueue_ms']:.4f} ms, CUDA events "
+        f"{st['train_step_enqueue_events_ms']:.4f} ms over the same steps, "
+        f"{st['train_step_syncs']} device-to-host syncs a step), plain path "
+        f"{st['train_step_plain_ms']:.4f} ms "
+        f"({1000 * b / st['train_step_plain_ms']:.1f} graph-steps/s) ({card})")
+    del train, plain_state, plain_step
+    torch.cuda.empty_cache()
+
+    # 31. plate through Trainer.fit (the CLI's stack) and predict
+    param = plate_param()
+    frame_cfg = entry.plate_frame_config()
+    ds = memory_dataset_class()
+    trajs = [synthetic.make_plate_trajectory(44 + i, 30, PLATE_FIT_FRAMES)
+             for i in range(PLATE_FIT_TRAJECTORIES)]
+    train_ds = ds(trajs, synthetic.plate_meta_dict(PLATE_FIT_FRAMES), frame_cfg)
+    val_ds = ds([synthetic.make_plate_trajectory(44, 30, VAL_STEPS + 1)],
+                synthetic.plate_meta_dict(VAL_STEPS + 1), frame_cfg)
+    sim = config_lib.get_simulator(param, config_lib.get_model(param, dtype=torch.bfloat16))
+    lecun_parameters(sim, torch.Generator().manual_seed(0))
+    cfg = TrainerConfig(epochs=PLATE_FIT_EPOCHS, batch_size=TF_FIT_BATCH, learning_rate=1e-3,
+                        warmup=100, packed=True, fused=True,
+                        out_dir=str(ROOT / "build" / "fit"), run_name="fit_plate", seed=0)
+    shutil.rmtree(ROOT / "build" / "fit" / "fit_plate", ignore_errors=True)
+    _, world_dev = config_lib.get_world_configs(param)
+    steps = PLATE_FIT_EPOCHS * PLATE_FIT_TRAJECTORIES
+    tr = Trainer(sim, train_ds, val_ds, l2_loss, cfg,
+                 noise_cfg=config_lib.get_noise_config(param), world_pos=world_dev,
+                 device=device)
+    attn_ops = (nk_ops.fused_edge_attention_nk, csr_ops.fused_edge_attention_csr)
+    reset_counts([*attn_ops, ffn])
+    t0 = time.perf_counter()
+    tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    attn = attn_ops[0] if isinstance(tr.sim.model.tiling, NKTiling) else attn_ops[1]
+    fit_launches = {k.__name__: launch_counts(k) for k in (attn, ffn)}
+    records = epoch_records(tr)
+    n_blocks = len(tr.sim.model.processor_list)
+    log(f"fit, plate.json ({n_blocks} blocks, hidden {tr.sim.model.hidden_size}, bf16, "
+        f"{type(tr.sim.model.tiling).__name__} layout, world edges as each frame's sidecar; "
+        f"{PLATE_FIT_TRAJECTORIES} trajectories of {PLATE_FIT_FRAMES} frames, B={TF_FIT_BATCH}, "
+        f"{PLATE_FIT_EPOCHS} epochs, {tr.state.step} steps, validation {VAL_STEPS} rollout "
+        f"steps): {fit_s:.1f} s ({card})")
+    for r in records:
+        log(f"  epoch {int(r['epoch'])}: train_loss_epoch {r['train_loss_epoch']:.6g} "
+            f"val_all_rollout_rmse {r['val_all_rollout_rmse']:.6g} val_1step_rmse "
+            f"{r['val_1step_rmse']:.6g} ({r['epoch_time_s']:.2f} s)")
+    want = (n_blocks * (tr.state.step + PLATE_FIT_EPOCHS * VAL_STEPS), n_blocks * tr.state.step)
+    log(f"  launches (forward, backward): " + ", ".join(
+        f"{k} {v}" for k, v in fit_launches.items()) + f"; expected {want} each")
+    values = [r[k] for r in records for k in ("train_loss_epoch", "val_all_rollout_rmse")]
+    if (len(records) != PLATE_FIT_EPOCHS or not all(math.isfinite(v) for v in values)
+            or tr.state.step != steps or any(v != want for v in fit_launches.values())):
+        raise AssertionError(f"phase 31: {tr.state.step} steps, launches {fit_launches}, "
+                             f"records {records}")
+    args = predict_cli.build_argparser().parse_args([
+        "--training_parameters_path", str(ROOT / "training_config" / "plate.json"),
+        "--model_path", tr.ckpt_dir, "--bf16", "--fused", "--device", str(device)])
+    reset_counts([*attn_ops, ffn])
+    stack = load_inference_stack(args, dataset=val_ds)
+    pred = predict_cli.predict(stack, fused=True)[0]
+    torch.cuda.synchronize()
+    predict_launches = {k.__name__: launch_counts(k) for k in (attn, ffn)}
+    want_rmse = records[-1]["val_all_rollout_rmse"]
+    rel = abs(pred.rmse_all_rollout - want_rmse) / want_rmse
+    want = (n_blocks * VAL_STEPS, 0)
+    log(f"predict, plate: checkpoint step {stack.step}, rollout of {pred.predictions.shape[0]} "
+        f"steps, launches (forward, backward): " + ", ".join(
+            f"{k} {v}" for k, v in predict_launches.items()) + f", expected {want} each: "
+        f"rmse_all_rollout {pred.rmse_all_rollout:.8g}, validate reported {want_rmse:.8g} "
+        f"(relative difference {rel:.3g}, limit {PREDICT_RTOL})")
+    if (stack.step != steps or rel > PREDICT_RTOL
+            or any(v != want for v in predict_launches.values())):
+        raise AssertionError(f"phase 31: predict's rollout is not validate's, or its launches "
+                             f"{predict_launches} are not {want}")
+    for k in (attn, ffn):
+        f, bw = launches.get(k.__name__, (0, 0))
+        ff, fb = fit_launches[k.__name__]
+        pf, pb = predict_launches[k.__name__]
+        launches[k.__name__] = (f + ff + pf, bw + fb + pb)
+    return launches, {"plate_step": st, "plate_layout": type(layout).__name__,
+                      "plate_fit_s": fit_s}
 
 
 if __name__ == "__main__":

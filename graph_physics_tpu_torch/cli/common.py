@@ -4,7 +4,11 @@ Counterpart of graph_physics_tpu/cli/common.py:load_inference_stack: the
 config gives the model and simulator, the checkpoint their weights and
 normalizer statistics, and the validation dataset (noise and masking off)
 the trajectories. A caller may pass the dataset itself, so a machine
-without h5py can drive it (the card's ``chip_smoke.py`` does).
+without h5py can drive it (the card's ``chip_smoke.py`` does). World
+edges come in the sidecar layout (:func:`with_sidecar`), where JAX's
+inference stack builds them in the concat layout: the same edge set and
+the same function (tests/test_world_sidecar.py:86, :124), and the
+kernels' world seam runs in the rollouts.
 """
 
 from __future__ import annotations
@@ -23,15 +27,26 @@ class InferenceStack:
     metadata: Optional[Dict[str, Any]]
     step: int  # the restored checkpoint's train step
     device: torch.device
+    #: the world-position edge features' columns (training/transforms.py), or None
+    world_dev: Any = None
 
 
 def check_later_options(args) -> None:
     """Flags of later queue items raise, naming their ROADMAP item."""
     if getattr(args, "use_previous_data", False):
-        raise NotImplementedError("--use_previous_data is not ported (ROADMAP A 5)")
+        raise NotImplementedError("--use_previous_data is not ported (ROADMAP A 5.3)")
     if getattr(args, "external", None):
-        raise NotImplementedError("--external feature builders come with the world-edge "
-                                  "transforms (ROADMAP A 5)")
+        raise NotImplementedError("--external feature builders, which take the previous "
+                                  "frame's data, are not ported (ROADMAP A 5.3)")
+
+
+def with_sidecar(frame_cfg):
+    """``frame_cfg`` with its world edges, if any, in the sidecar layout
+    (cli/train.py:182-192)."""
+    if frame_cfg.world is None:
+        return frame_cfg
+    return dataclasses.replace(frame_cfg, world=dataclasses.replace(frame_cfg.world,
+                                                                    sidecar=True))
 
 
 def load_inference_stack(args, dataset=None) -> InferenceStack:
@@ -50,11 +65,13 @@ def load_inference_stack(args, dataset=None) -> InferenceStack:
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     simulator = config_lib.get_simulator(param, config_lib.get_model(param, dtype=dtype))
     simulator = simulator.to(device)
+    config_lib.get_dynamic_world_edges(param)
+    _, world_dev = config_lib.get_world_configs(param)
     if dataset is None:
-        frame_cfg = config_lib.get_frame_config(param, masking_ratio=0.0)
+        frame_cfg = with_sidecar(config_lib.get_frame_config(param, masking_ratio=0.0))
         dataset = config_lib.get_dataset(param, frame_cfg, switch_to_val=True)
     manager = ckpt_lib.make_manager(args.model_path)
     step = manager.latest_step()
     metadata = ckpt_lib.restore_checkpoint(manager, simulator)
     return InferenceStack(param=param, simulator=simulator, dataset=dataset, metadata=metadata,
-                          step=step, device=device)
+                          step=step, device=device, world_dev=world_dev)

@@ -6,6 +6,9 @@ each as ``<out_dir>/<run_name>/trajectory_<t>.xdmf``. With ``--fused`` each
 trajectory is laid out for the kernels (training/fused.py) and rolled out
 packed, as the trainer's validation does, so the card runs the kernels and
 the rollout RMSE equals what ``validate`` reports for the same weights.
+World edges ride as each frame's sidecar, and each step's graph gains
+the world-position edge features from its predicted positions
+(training/transforms.make_eval_transform), as in validation.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ def predict(stack, num_trajectories: Optional[int] = None,
     from graph_physics_tpu_torch.training.fused import FusedTopologyManager
     from graph_physics_tpu_torch.training.rollout import make_batched_rollout_fn, make_rollout_fn
     from graph_physics_tpu_torch.training.trainer import rollout_graph, trajectory_graph
+    from graph_physics_tpu_torch.training.transforms import make_eval_transform
 
     sim, ds = stack.simulator, stack.dataset
     model = sim.model
@@ -64,7 +68,9 @@ def predict(stack, num_trajectories: Optional[int] = None,
     if fused and packed:
         manager = FusedTopologyManager(
             "epd" if isinstance(model, EncodeProcessDecode) else "transformer")
-    rollout = make_batched_rollout_fn(sim) if packed else make_rollout_fn(sim)
+    transform = make_eval_transform(stack.world_dev)
+    rollout = (make_batched_rollout_fn(sim, frame_transform=transform) if packed
+               else make_rollout_fn(sim, frame_transform=transform))
     n_traj = ds.num_trajectories
     if num_trajectories is not None:
         n_traj = min(n_traj, num_trajectories)

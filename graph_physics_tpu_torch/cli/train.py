@@ -9,8 +9,16 @@ card). Example:
       --training_parameters_path training_config/cylinder.json \\
       --epochs 25 --batch_size 128 --packed --bf16 --fused
 
+World edges (``world_pos_parameters.use``, plate.json) train in the
+sidecar layout, which needs ``--packed`` (JAX's CLI switches to it there;
+the concat layout of an unpacked run waits for ROADMAP A 5.2), with the
+world-position edge features computed on the device after the noise.
+The validation rollouts use the sidecar too: where JAX's CLI builds them
+in the concat layout, the port builds the same edge set beside the mesh,
+so the kernels' world seam runs there as well.
+
 Flags of later queue items raise NotImplementedError naming their ROADMAP
-item: ``--use_previous_data`` and ``--external`` (A 5), ``--num_dp_devices``,
+item: ``--use_previous_data`` and ``--external`` (A 5.3), ``--num_dp_devices``,
 ``--multihost`` (A 9); ``--num_partitions`` and
 ``--max_nodes_per_partition`` wait for ``dataset/partition.py`` (A 4).
 The weights are drawn from ``--seed`` as the JAX package's flax layers
@@ -74,14 +82,14 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="packed loader: ship shared static leaves as [E,1,F] views, "
                         "widened on the device by the train step")
     p.add_argument("--steps_per_dispatch", type=int, default=1)
-    p.add_argument("--external", default=None, help="not ported (ROADMAP A 5)")
+    p.add_argument("--external", default=None, help="not ported (ROADMAP A 5.3)")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    from graph_physics_tpu_torch.cli.common import check_later_options
+    from graph_physics_tpu_torch.cli.common import check_later_options, with_sidecar
     from graph_physics_tpu_torch.models.layers import lecun_parameters
     from graph_physics_tpu_torch.models.processors import TransolverProcessor
     from graph_physics_tpu_torch.models.transolver import init_parameters
@@ -107,12 +115,17 @@ def main(argv=None) -> int:
     config_lib.get_gradient_method(param)
     config_lib.get_dynamic_world_edges(param)
     noise_cfg = config_lib.get_noise_config(param)
+    _, world_dev = config_lib.get_world_configs(param)
     frame_cfg = config_lib.get_frame_config(param, masking_ratio=args.masking_ratio)
+    if frame_cfg.world is not None and not args.packed:
+        raise NotImplementedError("world edges without --packed take the concat layout, "
+                                  "which is not ported (ROADMAP A 5.2)")
+    frame_cfg = with_sidecar(frame_cfg)
     if args.num_partitions or args.max_nodes_per_partition:
         raise NotImplementedError("--num_partitions waits for dataset/partition.py "
                                   "(ROADMAP A 4)")
     train_ds = config_lib.get_dataset(param, frame_cfg, switch_to_val=False, seed=args.seed)
-    val_cfg = config_lib.get_frame_config(param, masking_ratio=0.0)
+    val_cfg = with_sidecar(config_lib.get_frame_config(param, masking_ratio=0.0))
     val_ds = config_lib.get_dataset(param, val_cfg, switch_to_val=True, seed=args.seed)
     run_name = args.run_name or os.path.splitext(
         os.path.basename(args.training_parameters_path))[0]
@@ -133,7 +146,7 @@ def main(argv=None) -> int:
         fused_gn_nk=args.fused_gn_nk)
     trainer = Trainer(simulator, train_ds, val_ds, loss_fn, tcfg,
                       run_metadata={"config": param, "loss": loss_name}, noise_cfg=noise_cfg,
-                      device=device)
+                      world_pos=world_dev, device=device)
     state = trainer.fit(resume=args.resume_training)
     print(f"training done at step {int(state.step)}")
     return 0

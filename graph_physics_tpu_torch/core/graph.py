@@ -1,12 +1,13 @@
 """Mesh-graph container of the port.
 
 Counterpart of graph_physics_tpu/core/graph.py:MeshGraph with the fields
-the port's paths use (not the world-edge sidecar, ROADMAP A 5). The same
-padding rules hold:
+the port's paths use, the per-sample world-edge sidecar (``wedge_*``,
+graph.py:68-87) among them. The same padding rules hold:
 
   * padded node rows are zero and carry ``node_type = PAD_NODE_TYPE``;
   * padded edges have ``senders == 0``, ``receivers == N-1`` and
-    ``edge_mask`` False, and their messages are zeroed before any sum.
+    ``edge_mask`` False, and their messages are zeroed before any sum;
+  * so do the sidecar's unused world-edge slots.
 
 A host-built graph holds numpy arrays (``core/mesh.py``, ``ops/tiling.py``,
 ``training/packed.py`` work on those); :meth:`MeshGraph.from_numpy` puts
@@ -69,6 +70,17 @@ class MeshGraph:
     time: Optional[Any] = None  # physical time of the frame ([B] when packed)
     #: the NKTiling or CSRLayout the edge arrays are laid out in (ops/tiling.py)
     layout: Optional[Any] = None
+    #: the world-edge sidecar: world edges change every frame (radius pairs
+    #: between deformable and obstacle nodes), so they ride beside the
+    #: static mesh edges as per-sample arrays padded to a fixed budget W:
+    #: [W] one frame, [W, B] packed, [B, W] stacked (int32, bool mask);
+    #: unused slots have sender 0, receiver N-1 and mask False
+    wedge_senders: Optional[Any] = None
+    wedge_receivers: Optional[Any] = None
+    wedge_mask: Optional[Any] = None
+    #: [W, Fe] / [W, B, Fe] / [B, W, Fe] world-edge features (the GraphNetBlock
+    #: family consumes them; transformers do not)
+    wedge_attr: Optional[Any] = None
 
     def replace(self, **changes) -> "MeshGraph":
         return dataclasses.replace(self, **changes)
@@ -101,5 +113,9 @@ TENSOR_FIELDS = {
     "node_mask": torch.bool, "senders": torch.int32, "receivers": torch.int32,
     "edge_mask": torch.bool, "edge_attr": torch.float32, "y": torch.float32,
     "prev": torch.float32, "next_data": torch.float32, "deselected": torch.bool,
-    "phi": torch.float32, "time": torch.float32,
+    "phi": torch.float32, "time": torch.float32, "wedge_senders": torch.int32,
+    "wedge_receivers": torch.int32, "wedge_mask": torch.bool, "wedge_attr": torch.float32,
 }
+
+#: the world-edge sidecar's fields
+WEDGE_FIELDS = ("wedge_senders", "wedge_receivers", "wedge_mask", "wedge_attr")

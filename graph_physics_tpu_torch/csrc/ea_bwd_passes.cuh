@@ -24,6 +24,19 @@
 // it sends back are exactly 0; a node that sends on no valid row gets
 // dk = dv = 0.
 //
+// The world seam (WORLD, ea_fwd.cuh): the forward's output and statistics
+// are then the joint mesh + world ones, so s_r above already holds the
+// world's share (the Pallas kernels add it as a separate term, w_sr), and
+// the receiver pass also writes the cotangents of the world pieces, with
+// w = exp(s_w - m) from the kept joint max m, gp32 = g_out·inv in fp32 and
+// the forward's output before rounding (out32, fp32), which also gives s_r:
+//   dnum_w[r] = gp32·w                 (fp32 [N, B, H, dh])
+//   dden_w[r] = -sum_d out[r,d]·gp32[d]·w   (fp32 [N, B, H])
+// s_w takes no gradient; the world edges' q, k and v gradients flow back
+// through the pieces' own autograd (ops/edge_attention.
+// world_attention_parts). Without WORLD the code and its bits are those
+// of the mesh-only kernel.
+//
 // The design: two passes, no atomics (deterministic), each on the
 // forward's layout (ea_common.cuh): a warp per node walking its pair
 // groups in turn, its row indices staged per warp, a chunk of 4 rows'
@@ -51,7 +64,8 @@ struct BwdArgs : gn_rows::RowMap {
   const __nv_bfloat16* q;      // [N, B, H, dh]
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
-  const __nv_bfloat16* out;    // [N, B, H, dh] the forward's output
+  const __nv_bfloat16* out;    // [N, B, H, dh] the forward's output (without world)
+  const float* out32;          // [N, B, H, dh] its output before rounding (with world)
   const float* m;              // [N, B, H] the forward's max logit
   const float* inv;            // [N, B, H] 1 / the forward's denominator
   const __nv_bfloat16* g_out;  // [N, B, H, dh] cotangent of the output
@@ -67,10 +81,14 @@ struct BwdArgs : gn_rows::RowMap {
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   uint32_t* pg;                // [S, B, H] scratch: bf16 pair (p_s, g_s) by place, valid rows
+  // the world seam, all null without world edges
+  const float* s_w;            // [N, B, H] the world pieces' shift
+  float* dnum_w;               // [N, B, H, dh]
+  float* dden_w;               // [N, B, H]
   int batch, heads;
 };
 
-template <int DH, class Rows>
+template <int DH, class Rows, bool WORLD>
 __device__ __forceinline__ void bwd_recv_body(const BwdArgs& a) {
   const int pairs = a.batch * a.heads;
   Lane<DH> ln(pairs);
@@ -89,8 +107,25 @@ __device__ __forceinline__ void bwd_recv_body(const BwdArgs& a) {
     const Packed qv = load_packed(a.q + ln.at(r, pairs));
     float gv[EPL], ov[EPL];
     load8(gv, a.g_out + ln.at(r, pairs));
-    load8(ov, a.out + ln.at(r, pairs));
+    if (WORLD)
+      load8f(ov, a.out32 + ln.at(r, pairs));
+    else
+      load8(ov, a.out + ln.at(r, pairs));
     const float m = a.m[ln.stat(r, pairs)], inv = a.inv[ln.stat(r, pairs)];
+    if (WORLD) {  // the world pieces' cotangents, before g_out is rounded
+      const float w = expf(a.s_w[ln.stat(r, pairs)] - m);
+      float dn[EPL];
+      float dd = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        dn[e] = gv[e] * inv * w;
+        dd = fmaf(ov[e], dn[e], dd);
+      }
+#pragma unroll
+      for (int o = 1; o < Head<DH>::LPP; o *= 2) dd += __shfl_xor_sync(FULL, dd, o);
+      if (ln.active) store8f(a.dnum_w + ln.at(r, pairs), dn);
+      if (ln.writes_pair()) a.dden_w[ln.stat(r, pairs)] = -dd;
+    }
     float sr = 0.f;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
@@ -209,17 +244,23 @@ __device__ __forceinline__ void bwd_send_body(const BwdArgs& a) {
 // contiguous bf16 [n_nodes, batch, heads, head_dim]; m, inv the forward's
 // fp32 [n_nodes, batch, heads]; senders (int32) and mask (bool) one entry
 // a row; offsets (int32, [n_nodes + 1]), place and recv (int32, [rows])
-// the transpose of the rows; pg 32-bit [rows, batch, heads] scratch.
-// False on arguments no launch takes.
+// the transpose of the rows; pg 32-bit [rows, batch, heads] scratch; the
+// world seam's s_w (fp32 [n_nodes, batch, heads], read), dnum_w (fp32
+// [n_nodes, batch, heads, head_dim]) and dden_w (fp32 [n_nodes, batch,
+// heads], written), all null or all given; with them ``out`` is the
+// forward's fp32 output before rounding (out32). False on arguments no
+// launch takes.
 inline bool make_bwd_args(BwdArgs* a, const void* q, const void* k, const void* v,
                           const void* out, const void* m, const void* inv, const void* g_out,
                           const void* senders, const void* mask, const void* offsets,
                           const void* place, const void* recv, void* dq, void* dk, void* dv,
-                          void* pg, int n_nodes, int batch, int heads) {
+                          void* pg, const void* s_w, void* dnum_w, void* dden_w, int n_nodes,
+                          int batch, int heads) {
   a->q = static_cast<const __nv_bfloat16*>(q);
   a->k = static_cast<const __nv_bfloat16*>(k);
   a->v = static_cast<const __nv_bfloat16*>(v);
   a->out = static_cast<const __nv_bfloat16*>(out);
+  a->out32 = static_cast<const float*>(out);
   a->m = static_cast<const float*>(m);
   a->inv = static_cast<const float*>(inv);
   a->g_out = static_cast<const __nv_bfloat16*>(g_out);
@@ -232,26 +273,42 @@ inline bool make_bwd_args(BwdArgs* a, const void* q, const void* k, const void* 
   a->dk = static_cast<__nv_bfloat16*>(dk);
   a->dv = static_cast<__nv_bfloat16*>(dv);
   a->pg = static_cast<uint32_t*>(pg);
+  a->s_w = static_cast<const float*>(s_w);
+  a->dnum_w = static_cast<float*>(dnum_w);
+  a->dden_w = static_cast<float*>(dden_w);
   a->n_nodes = n_nodes;
   a->batch = batch;
   a->heads = heads;
-  return n_nodes >= 1 && batch >= 1 && heads >= 1;
+  const bool world = s_w != nullptr;
+  return n_nodes >= 1 && batch >= 1 && heads >= 1 && (dnum_w != nullptr) == world &&
+         (dden_w != nullptr) == world;
 }
 
 using BwdKernel = void (*)(BwdArgs);
 
 // launch the source's receiver pass, then its sender pass, for head width
-// 16 (recv16, send16) or 32
+// 16 (recv16, send16) or 32; with world edges the receiver pass is recv16w
+// or recv32w
 inline int launch_bwd(const BwdArgs& a, int head_dim, void* stream, BwdKernel recv16,
-                      BwdKernel send16, BwdKernel recv32, BwdKernel send32) {
+                      BwdKernel send16, BwdKernel recv32, BwdKernel send32, BwdKernel recv16w,
+                      BwdKernel recv32w) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int pairs = a.batch * a.heads;
   constexpr int smem = Stage<2>::BYTES;
+  const bool world = a.s_w != nullptr;
   int grid;
   BwdKernel recv, send;
   switch (head_dim) {
-    case 16: grid = grid_for<16>(a.n_nodes, pairs); recv = recv16; send = send16; break;
-    case 32: grid = grid_for<32>(a.n_nodes, pairs); recv = recv32; send = send32; break;
+    case 16:
+      grid = grid_for<16>(a.n_nodes, pairs);
+      recv = world ? recv16w : recv16;
+      send = send16;
+      break;
+    case 32:
+      grid = grid_for<32>(a.n_nodes, pairs);
+      recv = world ? recv32w : recv32;
+      send = send32;
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   recv<<<grid, THREADS, smem, st>>>(a);

@@ -72,6 +72,20 @@ __device__ __forceinline__ void load8(float (&v)[EPL], const __nv_bfloat16* src)
   unpack(v, load_packed(src));
 }
 
+// this lane's EPL fp32 values at src (32-byte aligned)
+__device__ __forceinline__ void load8f(float (&v)[EPL], const float* src) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(src) + 1);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+// v stored in fp32 at dst (32-byte aligned)
+__device__ __forceinline__ void store8f(float* dst, const float (&v)[EPL]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 // v rounded to bf16 and stored at dst (16-byte aligned)
 __device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&v)[EPL]) {
   float r[EPL];

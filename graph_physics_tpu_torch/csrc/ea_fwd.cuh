@@ -21,6 +21,19 @@
 // [N, B, H]: m (-inf without a valid row) and inv = 1 / sum_s p_s (0
 // without one).
 //
+// The world seam (WORLD: the per-sample world-edge sidecar, ops/
+// edge_attention.world_attention_parts): fp32 pieces num_w [N, B, H, dh],
+// den_w and their shift s_w [N, B, H] join each receiver's softmax after
+// the walk of its rows, re-based from s_w to the joint max:
+//   m'  = max(m, s_w)          (m = -inf without a valid row; s_w finite)
+//   num = num·exp(m - m') + num_w·exp(s_w - m')
+//   den = den·exp(m - m') + den_w·exp(s_w - m')
+//   out = den > 0 ? bf16(num / den) : 0
+// and the kept statistics are the joint ones, m' and 1 / den, with the
+// output before its bf16 rounding (out32, fp32): the backward's world
+// cotangents take it, as the Pallas kernel recomputes its fp32 output.
+// Without WORLD the code and its bits are those of the mesh-only kernel.
+//
 // The design (ea_common.cuh): one walk of the rows, with the loads of a
 // chunk of rows in flight and few registers.
 //  - A warp per receiver: 2 lanes a (sample, head) pair of head width 16
@@ -51,10 +64,15 @@ struct FwdArgs : gn_rows::RowMap {
   float* inv;              // [N, B, H] 1 / the softmax's denominator, or null
   const int32_t* senders;  // [S] sender per row (0 on padding)
   const uint8_t* mask;     // [S] 1 on valid rows
+  // the world seam's pieces, fp32, all null without world edges
+  const float* num_w;      // [N, B, H, dh]
+  const float* den_w;      // [N, B, H]
+  const float* s_w;        // [N, B, H]
+  float* out32;            // [N, B, H, dh] the output before rounding, or null
   int batch, heads;
 };
 
-template <int DH, class Rows>
+template <int DH, class Rows, bool WORLD>
 __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
   const int pairs = a.batch * a.heads;
   Lane<DH> ln(pairs);
@@ -116,9 +134,22 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
           }
       }
     }
+    if (WORLD) {  // the world pieces join the softmax at the joint max
+      const long long st = ln.stat(r, pairs);
+      const float sw = a.s_w[st];
+      const float mj = fmaxf(m, sw);
+      const float c = expf(m - mj), w = expf(sw - mj);
+      float nw[EPL];
+      load8f(nw, a.num_w + ln.at(r, pairs));
+      den = fmaf(a.den_w[st], w, den * c);
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) num[e] = fmaf(nw[e], w, num[e] * c);
+      m = mj;
+    }
     if (ln.active) {
 #pragma unroll
       for (int e = 0; e < EPL; ++e) num[e] = den > 0.f ? num[e] / den : 0.f;
+      if (WORLD && a.out32 != nullptr) store8f(a.out32 + ln.at(r, pairs), num);
       store8(a.out + ln.at(r, pairs), num);
     }
     if (a.m != nullptr && ln.writes_pair()) {
@@ -130,10 +161,14 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
 
 // The arguments both sources take: q, k, v, out contiguous bf16 [n_nodes,
 // batch, heads, head_dim]; m, inv fp32 [n_nodes, batch, heads], both null
-// or both given; senders (int32) and mask (bool) one entry a row. False
-// on arguments no launch takes.
+// or both given; senders (int32) and mask (bool) one entry a row; the
+// world pieces num_w (fp32 [n_nodes, batch, heads, head_dim]), den_w and
+// s_w (fp32 [n_nodes, batch, heads]), all null or all given, and with them
+// and the statistics out32 (fp32 [n_nodes, batch, heads, head_dim], the
+// output before rounding), else null. False on arguments no launch takes.
 inline bool make_fwd_args(FwdArgs* a, const void* q, const void* k, const void* v, void* out,
                           void* m, void* inv, const void* senders, const void* mask,
+                          const void* num_w, const void* den_w, const void* s_w, void* out32,
                           int n_nodes, int batch, int heads) {
   a->q = static_cast<const __nv_bfloat16*>(q);
   a->k = static_cast<const __nv_bfloat16*>(k);
@@ -143,18 +178,32 @@ inline bool make_fwd_args(FwdArgs* a, const void* q, const void* k, const void* 
   a->inv = static_cast<float*>(inv);
   a->senders = static_cast<const int32_t*>(senders);
   a->mask = static_cast<const uint8_t*>(mask);
+  a->num_w = static_cast<const float*>(num_w);
+  a->den_w = static_cast<const float*>(den_w);
+  a->s_w = static_cast<const float*>(s_w);
+  a->out32 = static_cast<float*>(out32);
   a->n_nodes = n_nodes;
   a->batch = batch;
   a->heads = heads;
-  return n_nodes >= 1 && batch >= 1 && heads >= 1 && (m == nullptr) == (inv == nullptr);
+  const bool world = num_w != nullptr;
+  return n_nodes >= 1 && batch >= 1 && heads >= 1 && (m == nullptr) == (inv == nullptr) &&
+         (den_w != nullptr) == world && (s_w != nullptr) == world &&
+         (out32 != nullptr) == (world && m != nullptr);
 }
 
-// launch the source's kernel for head width 16 or 32
-inline int launch_fwd(const FwdArgs& a, int head_dim, void* stream, void (*k16)(FwdArgs),
-                      void (*k32)(FwdArgs)) {
+using FwdKernel = void (*)(FwdArgs);
+
+// launch the source's kernel for head width 16 or 32, without world edges
+// (k16, k32) or with them (w16, w32)
+inline int launch_fwd(const FwdArgs& a, int head_dim, void* stream, FwdKernel k16,
+                      FwdKernel k32, FwdKernel w16, FwdKernel w32) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int pairs = a.batch * a.heads;
   constexpr int smem = Stage<2>::BYTES;
+  if (a.num_w != nullptr) {
+    k16 = w16;
+    k32 = w32;
+  }
   switch (head_dim) {
     case 16: k16<<<grid_for<16>(a.n_nodes, pairs), THREADS, smem, st>>>(a); break;
     case 32: k32<<<grid_for<32>(a.n_nodes, pairs), THREADS, smem, st>>>(a); break;

@@ -3,11 +3,13 @@
 //
 // Replaces the TPU Pallas kernel graph_physics_tpu/ops/
 // fused_edge_attention.py: _fwd_kernel (:124, body _attn_common :63),
-// called by fused_edge_attention (:206), without the world-edge sidecar.
+// called by fused_edge_attention (:206), with its world-edge seam (has_world).
 // Same function (ea_fwd.cuh states it), on a graph of any degree: receiver
 // r's rows are s = row_ptr[r] .. row_ptr[r+1]-1. When asked (the forward
 // under autograd), it also writes the softmax statistics the backward
-// (fused_edge_attention_csr_bwd.cu) reuses.
+// (fused_edge_attention_csr_bwd.cu) reuses. Given the world pieces, the
+// joint mesh + world softmax (ea_fwd.cuh): their extra reads (num_w fp32,
+// 4 bytes a value; den_w, s_w) outweigh q, k or v at a plate shape.
 //
 // What bounds it on this card: the graded transformer slice (27,008
 // receivers x 16 samples x 4 heads x dh 16, 160,612 edges) does ~0.66 GFLOP
@@ -32,10 +34,10 @@
 
 namespace {
 
-template <int DH>
+template <int DH, bool WORLD>
 __global__ void __launch_bounds__(ea::THREADS, ea::MIN_BLOCKS)
     ea_csr_fwd_kernel(const ea::FwdArgs a) {
-  ea::fwd_body<DH, gn_rows::CsrRows>(a);
+  ea::fwd_body<DH, gn_rows::CsrRows, WORLD>(a);
 }
 
 }  // namespace
@@ -43,13 +45,21 @@ __global__ void __launch_bounds__(ea::THREADS, ea::MIN_BLOCKS)
 // q, k, v, out: contiguous bf16 [n_nodes, batch, heads, head_dim]; m, inv:
 // fp32 [n_nodes, batch, heads], both null or both given (then written);
 // row_ptr (int32, n_nodes + 1 entries) indexes the rows of senders (int32)
-// and mask (bool). Returns the CUDA error code of the launch (0 on success).
+// and mask (bool); num_w (fp32 [n_nodes, batch, heads, head_dim]), den_w
+// and s_w (fp32 [n_nodes, batch, heads]): the world pieces, all null
+// without world edges; out32 (fp32 [n_nodes, batch, heads, head_dim]) the
+// output before rounding, given with the world pieces and m, inv, else
+// null. Returns the CUDA error code of the launch (0 on success).
 extern "C" int ea_csr_fwd(const void* q, const void* k, const void* v, void* out, void* m,
                           void* inv, const void* row_ptr, const void* senders, const void* mask,
+                          const void* num_w, const void* den_w, const void* s_w, void* out32,
                           int n_nodes, int batch, int heads, int head_dim, void* stream) {
   ea::FwdArgs a = {};
   a.row_ptr = static_cast<const int32_t*>(row_ptr);
-  if (!ea::make_fwd_args(&a, q, k, v, out, m, inv, senders, mask, n_nodes, batch, heads))
+  if (!ea::make_fwd_args(&a, q, k, v, out, m, inv, senders, mask, num_w, den_w, s_w, out32,
+                         n_nodes, batch, heads))
     return static_cast<int>(cudaErrorInvalidValue);
-  return ea::launch_fwd(a, head_dim, stream, ea_csr_fwd_kernel<16>, ea_csr_fwd_kernel<32>);
+  return ea::launch_fwd(a, head_dim, stream, ea_csr_fwd_kernel<16, false>,
+                        ea_csr_fwd_kernel<32, false>, ea_csr_fwd_kernel<16, true>,
+                        ea_csr_fwd_kernel<32, true>);
 }

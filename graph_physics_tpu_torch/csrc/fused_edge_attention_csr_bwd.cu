@@ -3,7 +3,8 @@
 //
 // Replaces the TPU Pallas kernel graph_physics_tpu/ops/
 // fused_edge_attention.py: _bwd_kernel (:143), called by the custom VJP of
-// fused_edge_attention (pallas_call :360), without the world-edge sidecar.
+// fused_edge_attention (pallas_call :360), with its world-edge seam
+// (has_world, :180-203: the cotangents of num_w and den_w).
 // Same function (ea_bwd_passes.cuh states it), on a graph of any degree:
 // receiver r's rows are s = row_ptr[r] .. row_ptr[r+1]-1; it takes the
 // forward's output and the statistics it kept (fused_edge_attention_csr.cu).
@@ -30,10 +31,10 @@
 
 namespace {
 
-template <int DH>
+template <int DH, bool WORLD>
 __global__ void __launch_bounds__(ea::THREADS, ea::MIN_BLOCKS)
     ea_csr_bwd_recv_kernel(const ea::BwdArgs a) {
-  ea::bwd_recv_body<DH, gn_rows::CsrRows>(a);
+  ea::bwd_recv_body<DH, gn_rows::CsrRows, WORLD>(a);
 }
 
 template <int DH>
@@ -50,20 +51,25 @@ __global__ void __launch_bounds__(ea::THREADS, ea::MIN_BLOCKS)
 // mask (bool); offsets (int32, [n_nodes + 1]), place and recv (int32,
 // [rows]) the transpose of the rows: node j sends on places
 // offsets[j]:offsets[j+1], row s has place place[s], and the row at place
-// i has receiver recv[i]; pg: 32-bit [rows, batch, heads] scratch. Returns
-// the CUDA error code of the launches (0 on success).
+// i has receiver recv[i]; pg: 32-bit [rows, batch, heads] scratch; s_w
+// (fp32 [n_nodes, batch, heads], read), dnum_w (fp32 [n_nodes, batch,
+// heads, head_dim]) and dden_w (fp32 [n_nodes, batch, heads], written):
+// the world seam, all null without world edges (with them, ``out`` is the
+// forward's fp32 output before rounding). Returns the CUDA error code of
+// the launches (0 on success).
 extern "C" int ea_csr_bwd(const void* q, const void* k, const void* v, const void* out,
                           const void* m, const void* inv, const void* g_out, const void* row_ptr,
                           const void* senders, const void* mask, const void* offsets,
                           const void* place, const void* recv, void* dq, void* dk, void* dv,
-                          void* pg, int n_nodes, int batch, int heads, int head_dim,
-                          void* stream) {
+                          void* pg, const void* s_w, void* dnum_w, void* dden_w, int n_nodes,
+                          int batch, int heads, int head_dim, void* stream) {
   ea::BwdArgs a = {};
   a.row_ptr = static_cast<const int32_t*>(row_ptr);
   if (!ea::make_bwd_args(&a, q, k, v, out, m, inv, g_out, senders, mask, offsets, place, recv,
-                         dq, dk, dv, pg, n_nodes, batch, heads))
+                         dq, dk, dv, pg, s_w, dnum_w, dden_w, n_nodes, batch, heads))
     return static_cast<int>(cudaErrorInvalidValue);
-  return ea::launch_bwd(a, head_dim, stream, ea_csr_bwd_recv_kernel<16>,
-                        ea_csr_bwd_send_kernel<16>, ea_csr_bwd_recv_kernel<32>,
-                        ea_csr_bwd_send_kernel<32>);
+  return ea::launch_bwd(a, head_dim, stream, ea_csr_bwd_recv_kernel<16, false>,
+                        ea_csr_bwd_send_kernel<16>, ea_csr_bwd_recv_kernel<32, false>,
+                        ea_csr_bwd_send_kernel<32>, ea_csr_bwd_recv_kernel<16, true>,
+                        ea_csr_bwd_recv_kernel<32, true>);
 }

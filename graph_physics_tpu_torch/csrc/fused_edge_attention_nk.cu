@@ -3,9 +3,9 @@
 //
 // Replaces the TPU Pallas kernel graph_physics_tpu/ops/
 // fused_edge_attention_nk.py: _nk_fwd_kernel (:476, body _nk_common :437),
-// called by fused_edge_attention_nk (:545), without the world-edge
-// sidecar. Same function (ea_fwd.cuh states it): receiver r's rows are its
-// K slots, slot s = g·K·nb + k·nb + r' for receiver g·nb + r' (ops/
+// called by fused_edge_attention_nk (:545), with its world-edge seam
+// (has_world, :455-466). Same function (ea_fwd.cuh states it): receiver
+// r's rows are its K slots, slot s = g·K·nb + k·nb + r' for receiver g·nb + r' (ops/
 // tiling.py), masked ones among them; a receiver of any K. The Pallas
 // kernel rounds each q·k and p·v product to bf16; this one keeps them
 // exact in fp32, as the CSR forward does (one rounding contract for both
@@ -30,10 +30,10 @@
 
 namespace {
 
-template <int DH>
+template <int DH, bool WORLD>
 __global__ void __launch_bounds__(ea::THREADS, ea::MIN_BLOCKS)
     ea_nk_fwd_kernel(const ea::FwdArgs a) {
-  ea::fwd_body<DH, gn_rows::NkRows>(a);
+  ea::fwd_body<DH, gn_rows::NkRows, WORLD>(a);
 }
 
 }  // namespace
@@ -42,18 +42,25 @@ __global__ void __launch_bounds__(ea::THREADS, ea::MIN_BLOCKS)
 // fp32 [n_nodes, batch, heads], both null or both given (then written);
 // senders (int32) and mask (bool) hold one entry per slot, k_slots *
 // n_nodes in all, receiver g·nb + r owning slots g·k_slots·nb + k·nb + r
-// (nb = node_block). Returns the CUDA error code of the launch (0 on
+// (nb = node_block); num_w (fp32 [n_nodes, batch, heads, head_dim]),
+// den_w and s_w (fp32 [n_nodes, batch, heads]): the world pieces, all
+// null without world edges; out32 (fp32 [n_nodes, batch, heads,
+// head_dim]) the output before rounding, given with the world pieces and
+// m, inv, else null. Returns the CUDA error code of the launch (0 on
 // success).
 extern "C" int ea_nk_fwd(const void* q, const void* k, const void* v, void* out, void* m,
-                         void* inv, const void* senders, const void* mask, int n_nodes,
-                         int batch, int heads, int head_dim, int k_slots, int node_block,
-                         void* stream) {
+                         void* inv, const void* senders, const void* mask, const void* num_w,
+                         const void* den_w, const void* s_w, void* out32, int n_nodes, int batch,
+                         int heads, int head_dim, int k_slots, int node_block, void* stream) {
   ea::FwdArgs a = {};
   a.k_slots = k_slots;
   a.node_block = node_block;
   a.total_rows = n_nodes * k_slots;
   if (k_slots < 1 || node_block < 1 || n_nodes % node_block != 0 ||
-      !ea::make_fwd_args(&a, q, k, v, out, m, inv, senders, mask, n_nodes, batch, heads))
+      !ea::make_fwd_args(&a, q, k, v, out, m, inv, senders, mask, num_w, den_w, s_w, out32,
+                          n_nodes, batch, heads))
     return static_cast<int>(cudaErrorInvalidValue);
-  return ea::launch_fwd(a, head_dim, stream, ea_nk_fwd_kernel<16>, ea_nk_fwd_kernel<32>);
+  return ea::launch_fwd(a, head_dim, stream, ea_nk_fwd_kernel<16, false>,
+                        ea_nk_fwd_kernel<32, false>, ea_nk_fwd_kernel<16, true>,
+                        ea_nk_fwd_kernel<32, true>);
 }

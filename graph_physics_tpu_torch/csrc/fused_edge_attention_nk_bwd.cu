@@ -3,8 +3,8 @@
 //
 // Replaces the TPU Pallas kernel graph_physics_tpu/ops/
 // fused_edge_attention_nk.py: _nk_bwd_kernel (:495), called by the custom
-// VJP of fused_edge_attention_nk (run_bwd, :661), without the world-edge
-// sidecar (has_world=False). Same function (ea_bwd_passes.cuh states it):
+// VJP of fused_edge_attention_nk (run_bwd, :661), with its world-edge seam
+// (has_world, :535-542: the cotangents of num_w and den_w). Same function (ea_bwd_passes.cuh states it):
 // receiver r's rows are its K slots (fused_edge_attention_nk.cu), masked
 // ones among them; it takes the forward's output and the statistics it
 // kept, and keeps products exact in fp32 as the forward does.
@@ -29,10 +29,10 @@
 
 namespace {
 
-template <int DH>
+template <int DH, bool WORLD>
 __global__ void __launch_bounds__(ea::THREADS, ea::MIN_BLOCKS)
     ea_nk_bwd_recv_kernel(const ea::BwdArgs a) {
-  ea::bwd_recv_body<DH, gn_rows::NkRows>(a);
+  ea::bwd_recv_body<DH, gn_rows::NkRows, WORLD>(a);
 }
 
 template <int DH>
@@ -50,23 +50,27 @@ __global__ void __launch_bounds__(ea::THREADS, ea::MIN_BLOCKS)
 // [n_nodes + 1]), place and recv (int32, [slots]) the transpose of the
 // slots: node j sends on places offsets[j]:offsets[j+1], slot s has place
 // place[s], and the slot at place i has receiver recv[i]; pg: 32-bit
-// [slots, batch, heads] scratch. Returns the CUDA error code of the
-// launches (0 on success).
+// [slots, batch, heads] scratch; s_w (fp32 [n_nodes, batch, heads], read),
+// dnum_w (fp32 [n_nodes, batch, heads, head_dim]) and dden_w (fp32
+// [n_nodes, batch, heads], written): the world seam, all null without
+// world edges (with them, ``out`` is the forward's fp32 output before
+// rounding). Returns the CUDA error code of the launches (0 on success).
 extern "C" int ea_nk_bwd(const void* q, const void* k, const void* v, const void* out,
                          const void* m, const void* inv, const void* g_out, const void* senders,
                          const void* mask, const void* offsets, const void* place,
-                         const void* recv, void* dq, void* dk, void* dv, void* pg, int n_nodes,
-                         int batch, int heads, int head_dim, int k_slots, int node_block,
-                         void* stream) {
+                         const void* recv, void* dq, void* dk, void* dv, void* pg,
+                         const void* s_w, void* dnum_w, void* dden_w, int n_nodes, int batch,
+                         int heads, int head_dim, int k_slots, int node_block, void* stream) {
   ea::BwdArgs a = {};
   a.k_slots = k_slots;
   a.node_block = node_block;
   a.total_rows = n_nodes * k_slots;
   if (k_slots < 1 || node_block < 1 || n_nodes % node_block != 0 ||
       !ea::make_bwd_args(&a, q, k, v, out, m, inv, g_out, senders, mask, offsets, place, recv,
-                         dq, dk, dv, pg, n_nodes, batch, heads))
+                         dq, dk, dv, pg, s_w, dnum_w, dden_w, n_nodes, batch, heads))
     return static_cast<int>(cudaErrorInvalidValue);
-  return ea::launch_bwd(a, head_dim, stream, ea_nk_bwd_recv_kernel<16>,
-                        ea_nk_bwd_send_kernel<16>, ea_nk_bwd_recv_kernel<32>,
-                        ea_nk_bwd_send_kernel<32>);
+  return ea::launch_bwd(a, head_dim, stream, ea_nk_bwd_recv_kernel<16, false>,
+                        ea_nk_bwd_send_kernel<16>, ea_nk_bwd_recv_kernel<32, false>,
+                        ea_nk_bwd_send_kernel<32>, ea_nk_bwd_recv_kernel<16, true>,
+                        ea_nk_bwd_recv_kernel<32, true>);
 }

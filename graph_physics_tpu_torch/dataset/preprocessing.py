@@ -4,17 +4,23 @@ Counterpart of graph_physics_tpu/dataset/preprocessing.py, numpy only:
 
   frame fields -> node features x = [dynamic fields..., node_type, time]
   -> extra_node_features hook
+  -> [world] obstacle-displacement columns after the world positions
   -> faces -> edges (+ k-hop, cached per trajectory)
   -> mesh edge features [Δpos, ‖Δpos‖]
   -> random-edge augmentation
   -> node masking -> ``deselected``
-  -> pad to shape buckets.
+  -> pad to shape buckets
+  -> [world] radius world edges as the per-sample sidecar (``wedge_*``).
 
-Each function names its source. World edges (``WorldConfig``, the obstacle
-displacement columns and ``_world_sidecar_fields`` :487) are ROADMAP A 5:
-a FrameBuilder given a world config raises. Sub-mesh partitions wait for
-``dataset/partition.py`` (ROADMAP A 4's remainder). The per-step value
-transforms (noise) run on the device (training/noise.py).
+Each function names its source. World edges come in the sidecar layout
+only (``WorldConfig.sidecar``, what JAX's CLI takes with ``--packed``):
+the shared edge arrays hold the static mesh, and each frame's world edges
+ride beside them, padded to ``edge_budget`` slots. The concat layout,
+which appends them to the edge arrays, waits for ROADMAP A 5.2: a builder
+given it raises. Sub-mesh partitions wait for ``dataset/partition.py``
+(ROADMAP A 4's remainder). The per-step value transforms (noise, the
+world-position edge features) run on the device (training/noise.py,
+training/transforms.py).
 """
 
 from __future__ import annotations
@@ -29,21 +35,27 @@ from graph_physics_tpu_torch import native
 from graph_physics_tpu_torch.core import mesh as mesh_lib
 from graph_physics_tpu_torch.core import padding
 from graph_physics_tpu_torch.core.graph import MeshGraph
+from graph_physics_tpu_torch.core.nodetype import NodeType
 
 # Fields that never become node features.
 STRUCTURAL_FIELDS = ("cells", "mesh_pos", "node_type")
 
-WORLD_EDGES = "world edges are not ported (ROADMAP A 5)"
+CONCAT_WORLD = ("the concat world-edge layout (WorldConfig.sidecar=False) is not ported "
+                "(ROADMAP A 5.2); use the sidecar layout")
 
 
 @dataclass(frozen=True)
 class WorldConfig:
-    """World-edge parameters (preprocessing.py:WorldConfig). The port
-    carries the configuration; a builder given one raises (ROADMAP A 5)."""
+    """World-edge parameters (preprocessing.py:WorldConfig): the world
+    positions' columns of x, the radius of the pairs, the per-frame edge
+    budget, and the layout: ``sidecar`` (per-sample arrays beside the
+    static mesh edges; the only one the port builds) or the concat layout
+    (ROADMAP A 5.2). Discovery runs on the host from the un-noised
+    positions, as JAX's does."""
 
     world_pos_index_start: int
     world_pos_index_end: int
-    node_type_index: int
+    node_type_index: int  # index after the displacement columns are inserted
     radius: float = 0.03
     edge_budget: int = 1024
     sidecar: bool = False
@@ -131,6 +143,23 @@ def _stack_fields(d: Dict[str, np.ndarray], n: int) -> np.ndarray:
                           axis=-1)
 
 
+def insert_obstacle_displacement(x: np.ndarray, y: np.ndarray, node_type: np.ndarray,
+                                 world: WorldConfig) -> np.ndarray:
+    """Insert the [target world_pos - world_pos] columns after the world
+    positions; rows that are not OBSTACLE get the obstacles' mean
+    displacement (preprocessing.py:insert_obstacle_displacement :155)."""
+    ws, we = world.world_pos_index_start, world.world_pos_index_end
+    wp = x[:, ws:we]
+    disp = y[:, ws:we] - wp
+    is_obs = node_type == NodeType.OBSTACLE
+    if is_obs.any():
+        mean_disp = disp[is_obs].mean(axis=0)
+    else:
+        mean_disp = np.zeros(we - ws, np.float32)
+    disp = np.where(is_obs[:, None], disp, mean_disp[None, :])
+    return np.concatenate([x[:, :we], disp, x[:, we:]], axis=-1).astype(np.float32)
+
+
 def random_extra_edges(edge_index: np.ndarray, num_nodes: int, ratio: float,
                        rng: np.random.Generator) -> np.ndarray:
     """Add ``ratio * E`` uniformly random directed edges
@@ -210,8 +239,8 @@ class FrameBuilder:
     (preprocessing.py:FrameBuilder)."""
 
     def __init__(self, cfg: FrameConfig, meta: Dict[str, Any]):
-        if cfg.world is not None:
-            raise NotImplementedError(WORLD_EDGES)
+        if cfg.world is not None and not cfg.world.sidecar:
+            raise NotImplementedError(CONCAT_WORLD)
         self.cfg = cfg
         self.meta = meta
         self._khop_cache: Dict[Any, np.ndarray] = {}
@@ -220,6 +249,9 @@ class FrameBuilder:
         #: share those leaves as the same numpy objects
         self._skel_cache: "OrderedDict[Any, MeshGraph]" = OrderedDict()
         self._skel_cache_size = 64
+        #: per-trajectory sorted keys of the mesh edges, which the world
+        #: edges of every frame leave out
+        self._wedge_exclude_cache: Dict[Any, np.ndarray] = {}
 
     def mesh_edges(self, cache_key, cells: np.ndarray, num_nodes: int) -> np.ndarray:
         """faces -> edges (+ k-hop), cached per trajectory
@@ -238,7 +270,8 @@ class FrameBuilder:
               cache_key: Optional[Any] = None,
               part_ids: Optional[np.ndarray] = None) -> MeshGraph:
         """One padded frame (preprocessing.py:FrameBuilder.build :299); the
-        static-skeleton fast path rebuilds only the dynamic leaves."""
+        static-skeleton fast path rebuilds only the dynamic leaves, and the
+        world-edge sidecar."""
         if part_ids is not None:
             raise NotImplementedError("sub-mesh partitions wait for dataset/partition.py "
                                       "(ROADMAP A 4)")
@@ -246,6 +279,8 @@ class FrameBuilder:
         ctx = extract_frame(traj, frame, self.meta, cfg.targets, with_target=True,
                             with_previous=cfg.use_previous_data)
         n = len(ctx.pos)
+        world = cfg.world is not None
+        key = cache_key if cache_key is not None else traj_index
 
         skel_ok = (cfg.new_edges_ratio == 0 and cfg.extra_node_features is None
                    and cfg.extra_edge_features is None)
@@ -265,13 +300,20 @@ class FrameBuilder:
                 deselected = padding.pad_axis(masked_node_selection(n, cfg.masking_ratio, rng),
                                               np_, fill=False)
             y = _stack_fields(ctx.target, n) if ctx.target else None
+            x, rep = ctx.x, {}
+            if world:
+                if y is not None:
+                    x = insert_obstacle_displacement(x, y, ctx.node_type, cfg.world)
+                rep = self._world_sidecar_fields(x, ctx.node_type, ctx.pos,
+                                                 self.mesh_edges(key, ctx.cells, n), np_, key)
             return skel.replace(
-                x=pad(ctx.x),
+                x=pad(x),
                 y=pad(y),
                 prev=pad(_stack_fields(ctx.previous_data, n) if ctx.previous_data else None),
                 next_data=pad(_stack_fields(ctx.next_data, n) if ctx.next_data else None),
                 time=np.float32(ctx.time),
                 deselected=deselected,
+                **rep,
             )
 
         if cfg.extra_node_features is not None:
@@ -282,9 +324,10 @@ class FrameBuilder:
         y = _stack_fields(ctx.target, n) if ctx.target is not None else None
         next_data = _stack_fields(ctx.next_data, n) if ctx.next_data else None
         prev = _stack_fields(ctx.previous_data, n) if ctx.previous_data else None
+        if world and y is not None:
+            x = insert_obstacle_displacement(x, y, ctx.node_type, cfg.world)
 
-        key = cache_key if cache_key is not None else traj_index
-        ei = self.mesh_edges(key, ctx.cells, n)
+        ei = mesh_ei = self.mesh_edges(key, ctx.cells, n)
         if train and cfg.new_edges_ratio > 0 and rng is not None:
             ei = random_extra_edges(ei, n, cfg.new_edges_ratio, rng)
 
@@ -296,6 +339,9 @@ class FrameBuilder:
             x, ctx.pos, ctx.node_type, ei, y=y, prev=prev, next_data=next_data,
             faces=ctx.cells, n_pad=n_pad, e_pad=e_pad, c_pad=c_pad,
             with_edge_features=cfg.add_edge_features, traj_index=traj_index, time=ctx.time)
+        if world:
+            g = g.replace(**self._world_sidecar_fields(x, ctx.node_type, ctx.pos, mesh_ei,
+                                                       g.x.shape[0], key))
         if cfg.extra_edge_features is not None:
             g = cfg.extra_edge_features(g)
         if deselected is not None:
@@ -309,6 +355,44 @@ class FrameBuilder:
                 self._skel_cache.popitem(last=False)
         return g
 
+    def _world_sidecar_fields(self, x: np.ndarray, node_type: np.ndarray, pos: np.ndarray,
+                              mesh_ei: np.ndarray, n_pad: int,
+                              cache_key: Optional[Any] = None) -> Dict[str, np.ndarray]:
+        """One frame's world edges as the sidecar's arrays of ``edge_budget``
+        slots (preprocessing.py:FrameBuilder._world_sidecar_fields :487):
+        discovered from x's world positions, less the mesh edges (their
+        keys cached per trajectory), budgeted rank-fairly; the unused slots
+        have sender 0, receiver ``n_pad`` - 1 and mask False. ``wedge_attr``
+        holds [Δpos, ‖Δpos‖] of the mesh positions, as the mesh edges'
+        features, when the config adds edge features."""
+        cfg = self.cfg
+        ws, we = cfg.world.world_pos_index_start, cfg.world.world_pos_index_end
+        ex_keys = None
+        if cache_key is not None:
+            ck = (cache_key, int(mesh_ei.shape[1]))
+            ex_keys = self._wedge_exclude_cache.get(ck)
+            if ex_keys is None:
+                ex_keys = mesh_lib.world_edge_exclude_keys(mesh_ei, len(x))
+                if len(self._wedge_exclude_cache) > 256:
+                    self._wedge_exclude_cache.clear()
+                self._wedge_exclude_cache[ck] = ex_keys
+        wedges = mesh_lib.radius_world_edges(x[:, ws:we], node_type, cfg.world.radius,
+                                             exclude_edges=mesh_ei, exclude_keys=ex_keys)
+        wedges = mesh_lib.budget_world_pairs(wedges, x[:, ws:we], cfg.world.edge_budget)
+        budget = cfg.world.edge_budget
+        k = wedges.shape[1]
+        send = np.zeros(budget, np.int32)
+        recv = np.full(budget, n_pad - 1, np.int32)
+        mask = np.zeros(budget, bool)
+        send[:k], recv[:k], mask[:k] = wedges[0], wedges[1], True
+        out = {"wedge_senders": send, "wedge_receivers": recv, "wedge_mask": mask}
+        if cfg.add_edge_features:
+            attr = np.zeros((budget, pos.shape[-1] + 1), np.float32)
+            if k:
+                attr[:k] = mesh_lib.edge_features(np.asarray(pos), wedges[0], wedges[1])
+            out["wedge_attr"] = attr
+        return out
+
     def build_packed(self, traj: Dict[str, np.ndarray], frames: np.ndarray,
                      traj_index: int = 0, n_pad: Optional[int] = None,
                      e_pad: Optional[int] = None, c_pad: Optional[int] = None,
@@ -320,9 +404,10 @@ class FrameBuilder:
         static-slot leaves edge_attr, phi stay single; training/packed.
         finalize_packed adds their batch axis). None outside the fast
         regime (no skeleton yet, frame-dependent edges or features,
-        masking, a frame without a target, frame 0 with previous data)."""
+        masking, a frame without a target, frame 0 with previous data, world
+        edges)."""
         cfg = self.cfg
-        if (cfg.new_edges_ratio != 0 or cfg.extra_node_features is not None
+        if (cfg.world is not None or cfg.new_edges_ratio != 0 or cfg.extra_node_features is not None
                 or cfg.extra_edge_features is not None
                 or (train and cfg.masking_ratio > 0)):
             return None
@@ -369,7 +454,8 @@ class FrameBuilder:
 
     def edge_budget_for(self, mesh_edge_count: int) -> int:
         """Static edge bucket: mesh edges plus random-edge headroom
-        (preprocessing.py:FrameBuilder.edge_budget_for :652)."""
+        (preprocessing.py:FrameBuilder.edge_budget_for :652); the sidecar's
+        world edges live in their own arrays."""
         extra = 0
         if self.cfg.new_edges_ratio > 0:
             extra += int(mesh_edge_count * self.cfg.new_edges_ratio) + 1

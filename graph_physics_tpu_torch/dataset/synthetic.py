@@ -6,6 +6,9 @@ rectangle with INFLOW/OUTFLOW/WALL node types and a smooth analytic
 velocity field. :func:`meta_dict` and :func:`write_h5_dataset` (copies
 of the JAX package's) write such trajectories as an h5 dataset and its
 meta.json, for the tests and the CLI recipe; h5py is imported only there.
+:func:`make_plate_trajectory`, :func:`plate_meta_dict` and
+:func:`write_plate_h5_dataset` are the DeformingPlate-like counterparts
+(a sheet and a descending obstacle bar, the 3-D ``world_pos`` target).
 
 :func:`graded_mesh` and :func:`make_graded_trajectory` are a fixture of
 the port's own: a degree-graded Delaunay mesh around a cylinder, made
@@ -116,6 +119,79 @@ def write_h5_dataset(path: str, num_trajectories: int = 2, nx: int = 12, ny: int
     meta_path = meta_path or os.path.join(os.path.dirname(path) or ".", "meta.json")
     with open(meta_path, "w") as f:
         json.dump(meta_dict(num_steps, dt), f)
+    return path, meta_path
+
+
+def make_plate_trajectory(nx: int = 8, ny: int = 6, num_steps: int = 8,
+                          dt: float = 0.01) -> Dict[str, np.ndarray]:
+    """DeformingPlate-like Lagrangian trajectory with a ``world_pos``
+    target (copy of graph_physics_tpu/dataset/synthetic.py:
+    make_plate_trajectory :83): a sheet of NORMAL nodes at z=0 (one HANDLE
+    edge) and a bar of 6 OBSTACLE nodes above it that descends 0.01 a
+    frame, the sheet deflecting under it. The cells cover the sheet only:
+    the obstacle's nodes join the graph through world edges alone."""
+    pos2d, cells = grid_mesh(nx, ny, 1.0, 0.6)
+    n_sheet = len(pos2d)
+    sheet = np.concatenate([pos2d, np.zeros((n_sheet, 1))], axis=1)
+    n_obs = 6
+    obs_x = np.linspace(0.3, 0.7, n_obs)
+    obs0 = np.stack([obs_x, np.full(n_obs, 0.3), np.full(n_obs, 0.08)], axis=1)
+    pos = np.concatenate([sheet, obs0]).astype(np.float32)
+    n = len(pos)
+    types = np.full(n, int(NodeType.NORMAL), np.int32)
+    types[:n_sheet][np.abs(pos2d[:, 0]) < 1e-6] = int(NodeType.HANDLE)
+    types[n_sheet:] = int(NodeType.OBSTACLE)
+
+    world = np.zeros((num_steps, n, 3), np.float32)
+    for k in range(num_steps):
+        w = pos.copy()
+        drop = 0.01 * k
+        w[n_sheet:, 2] -= drop  # the obstacle descends
+        d = np.linalg.norm(pos[:n_sheet, None, :2] - w[None, n_sheet:, :2], axis=-1).min(axis=1)
+        deflect = np.clip(0.08 - drop - d * 0.2, a_min=None, a_max=0.0)
+        w[:n_sheet, 2] += np.where(d < 0.2, deflect * 0.5, 0.0)
+        world[k] = w
+    return {
+        "cells": np.repeat(cells[None], num_steps, axis=0).astype(np.int32),
+        "mesh_pos": np.repeat(pos[None], num_steps, axis=0).astype(np.float32),
+        "node_type": np.repeat(types[None, :, None], num_steps, axis=0).astype(np.int32),
+        "world_pos": world,
+    }
+
+
+def plate_meta_dict(num_steps: int, dt: float = 0.01) -> Dict:
+    """The meta.json of :func:`write_plate_h5_dataset`'s trajectories."""
+    return {
+        "dt": dt,
+        "features": {
+            "cells": {"type": "static", "shape": [num_steps, -1, 3], "dtype": "int32"},
+            "mesh_pos": {"type": "static", "shape": [num_steps, -1, 3], "dtype": "float32"},
+            "node_type": {"type": "static", "shape": [num_steps, -1, 1], "dtype": "int32"},
+            "world_pos": {"type": "dynamic", "shape": [num_steps, -1, 3], "dtype": "float32"},
+        },
+        "field_names": ["cells", "mesh_pos", "node_type", "world_pos"],
+        "trajectory_length": num_steps,
+    }
+
+
+def write_plate_h5_dataset(path: str, num_trajectories: int = 2, nx: int = 8, ny: int = 6,
+                           num_steps: int = 8, dt: float = 0.01,
+                           meta_path: Optional[str] = None) -> Tuple[str, str]:
+    """Write plate trajectories (trajectory i on an (nx + i) x ny sheet) and
+    their meta.json; returns (h5_path, meta_path)
+    (synthetic.py:write_plate_h5_dataset :134)."""
+    from graph_physics_tpu_torch.dataset.h5_dataset import import_h5py
+
+    h5py = import_h5py("dataset/synthetic.write_plate_h5_dataset")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with h5py.File(path, "w") as f:
+        for i in range(num_trajectories):
+            g = f.create_group(str(i))
+            for k, v in make_plate_trajectory(nx + i, ny, num_steps, dt).items():
+                g.create_dataset(k, data=v)
+    meta_path = meta_path or os.path.join(os.path.dirname(path) or ".", "plate_meta.json")
+    with open(meta_path, "w") as f:
+        json.dump(plate_meta_dict(num_steps, dt), f)
     return path, meta_path
 
 

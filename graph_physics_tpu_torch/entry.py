@@ -30,13 +30,21 @@ frame 0 of the cylinder (or of the graded mesh, ``graded=True``: it reads
 no edges, so that mesh is a 27,000-point cloud), and
 ``transolver_train_setup`` its training step, whose slice noise goes
 through the kernel of ops/gumbel.py with ``fused_gumbel`` (the default).
+``plate_setup`` and ``plate_train_setup`` run DeformingPlate
+(training_config/plate.json's transformer: 10 blocks, hidden 64, 4 heads,
+the 3-D ``world_pos`` target) at scripts/bench_plate.py's configuration:
+a synthetic 44x30 sheet and its obstacle (dataset/synthetic.
+make_plate_trajectory), world edges within radius 0.03 as each frame's
+sidecar of 1,024 slots, B=64 consecutive frames packed, the layout
+FusedTopologyManager("transformer") chooses, and the training step's
+noise (0.003 on the world positions) and world-position edge features.
 Every setup runs on the card unless the caller passes another device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,7 +69,7 @@ from graph_physics_tpu_torch.ops.tiling import (
 )
 from graph_physics_tpu_torch.training.fused import FusedTopologyManager
 from graph_physics_tpu_torch.training.loss import l2_loss
-from graph_physics_tpu_torch.training.packed import pack, stack
+from graph_physics_tpu_torch.training.packed import pack, pack_frames, stack
 from graph_physics_tpu_torch.training.schedule import make_optimizer
 from graph_physics_tpu_torch.training.step import (
     NoiseConfig,
@@ -271,6 +279,98 @@ def transolver_setup(device="cuda", *, batch: int = 16, graded: bool = False,
     return CylinderSetup(simulator=sim, graph=graph, tiling=None, trajectory=traj, template=g)
 
 
+#: DeformingPlate (training_config/plate.json, scripts/bench_plate.py:plate_param):
+#: x = [world_pos (3), obstacle displacement (3), node type, time]
+PLATE_FEATURES, PLATE_OUTPUT, PLATE_NODE_TYPE = 6, 3, 6
+PLATE_RADIUS, PLATE_BUDGET = 0.03, 1024
+
+
+def plate_frame_config(edge_budget: int = PLATE_BUDGET, radius: float = PLATE_RADIUS):
+    """plate.json's frame configuration with its world edges as the
+    sidecar (what ``cli.train --packed`` takes)."""
+    from graph_physics_tpu_torch.dataset.preprocessing import FrameConfig, WorldConfig
+
+    return FrameConfig(targets=("world_pos",), world=WorldConfig(
+        world_pos_index_start=0, world_pos_index_end=3, node_type_index=PLATE_NODE_TYPE,
+        radius=radius, edge_budget=edge_budget, sidecar=True))
+
+
+def plate_frames(traj: Dict[str, np.ndarray], frames: Sequence[int], edge_budget: int,
+                 radius: float) -> List[MeshGraph]:
+    """Host frames of a plate trajectory (dataset/preprocessing.FrameBuilder
+    with :func:`plate_frame_config`), laid out by FusedTopologyManager
+    ("transformer")."""
+    from graph_physics_tpu_torch.dataset.preprocessing import FrameBuilder
+
+    builder = FrameBuilder(plate_frame_config(edge_budget, radius),
+                           synthetic.plate_meta_dict(len(traj["world_pos"])))
+    manager = FusedTopologyManager("transformer")
+    return [manager.transform_frame(builder.build(traj, t, cache_key=0)) for t in frames]
+
+
+def make_plate_simulator(tiling: Tiling, mp_steps: int = 10, hidden: int = 64,
+                         heads: int = 4, dtype=torch.bfloat16, seed: int = 0) -> Simulator:
+    """plate.json's transformer (no edge features, exact GELU, no RoPE, no
+    gate) in its Simulator: features 0-6 and the node type at column 6,
+    the world positions (columns 0-3) its output."""
+    model = EncodeTransformDecode(
+        message_passing_num=mp_steps, node_input_size=PLATE_FEATURES + 9,
+        output_size=PLATE_OUTPUT, hidden_size=hidden, num_heads=heads, dtype=dtype,
+        tiling=tiling)
+    sim = Simulator(node_input_size=PLATE_FEATURES + 9, edge_input_size=0,
+                    output_size=PLATE_OUTPUT, feature_index_start=0,
+                    feature_index_end=PLATE_FEATURES, output_index_start=0,
+                    output_index_end=PLATE_OUTPUT, node_type_index=PLATE_NODE_TYPE, model=model)
+    reset_parameters(sim, torch.Generator().manual_seed(seed))
+    return sim
+
+
+def plate_setup(device="cuda", *, nx: int = 44, ny: int = 30, batch: int = 64,
+                edge_budget: int = PLATE_BUDGET, radius: float = PLATE_RADIUS,
+                mp_steps: int = 10, hidden: int = 64,
+                accumulate_stats: bool = True) -> CylinderSetup:
+    """DeformingPlate at scripts/bench_plate.py's configuration: frames
+    0..B-1 of an (B+1)-frame synthetic plate trajectory on an nx x ny
+    sheet, each with its own world-edge sidecar of ``edge_budget`` slots,
+    packed [N, B, F] in the layout FusedTopologyManager("transformer")
+    chooses, and plate.json's model (4 heads, weights from seed 0) on
+    ``device``; ``accumulate_stats`` folds the batch into the normalizer
+    statistics."""
+    traj = synthetic.make_plate_trajectory(nx, ny, num_steps=batch + 1)
+    frames = plate_frames(traj, range(batch), edge_budget, radius)
+    graph = MeshGraph.from_numpy(pack_frames(frames), device)
+    sim = make_plate_simulator(frames[0].layout, mp_steps, hidden).to(device)
+    if accumulate_stats:
+        sim.prepare(graph, is_training=True)
+    return CylinderSetup(simulator=sim, graph=graph, tiling=frames[0].layout, trajectory=traj,
+                         template=frames[0])
+
+
+def plate_preprocess(num_steps: int = 10000) -> Callable:
+    """plate.json's step transform: noise 0.003 on the world positions
+    (columns 0-3), then the world-position edge features from the noised
+    positions (training/transforms.make_device_preprocess)."""
+    from graph_physics_tpu_torch.training.transforms import (
+        WorldPosConfig,
+        make_device_preprocess,
+    )
+
+    return make_device_preprocess(NoiseConfig(starts=(0,), ends=(3,), scales=(0.003,)),
+                                  WorldPosConfig(0, 3), num_steps=num_steps)
+
+
+def plate_train_setup(device="cuda", *, batch: int = 64, **kw) -> CylinderTrainSetup:
+    """``plate_setup`` with fresh normalizer statistics and the plate train
+    step (scripts/bench_plate.py: AdamW lr 1e-3, warmup 100 of 10,000
+    steps, masked L2, :func:`plate_preprocess`). ``kw`` goes to
+    ``plate_setup``."""
+    base = plate_setup(device, batch=batch, accumulate_stats=False, **kw)
+    preprocess = plate_preprocess(NUM_STEPS)
+    state, step = make_trainer(base.simulator, preprocess)
+    return CylinderTrainSetup(simulator=base.simulator, graph=base.graph, tiling=base.tiling,
+                              state=state, train_step=step, device_preprocess=preprocess)
+
+
 #: bench.py's training configuration (__graft_entry__._cylinder_setup :97-99)
 LEARNING_RATE, WARMUP, NUM_STEPS = 1e-3, 100, 10000
 NOISE = NoiseConfig(starts=(0,), ends=(2,), scales=(0.02,))
@@ -283,14 +383,21 @@ class CylinderTrainSetup:
     tiling: Tiling
     state: TrainState
     train_step: Callable
+    #: the step's (graph, generator, step) -> graph before the forward
+    #: (training/transforms.py), where it is not bench.py's noise alone
+    device_preprocess: Optional[Callable] = None
 
 
-def make_trainer(sim: Simulator) -> Tuple[TrainState, Callable]:
+def make_trainer(sim: Simulator, device_preprocess: Optional[Callable] = None
+                 ) -> Tuple[TrainState, Callable]:
     """A fresh train state and bench.py's train step for ``sim``: AdamW
     (lr 1e-3, warmup 100 of 10,000 steps), noise σ=0.02 on the velocity
-    columns and the masked L2 loss."""
+    columns (or ``device_preprocess`` in its place) and the masked L2 loss."""
+    from graph_physics_tpu_torch.training.transforms import make_device_preprocess
+
     opt = make_optimizer(LEARNING_RATE, warmup=WARMUP, num_steps=NUM_STEPS)
-    return init_train_state(sim, opt), make_train_step(sim, l2_loss, NOISE, num_steps=NUM_STEPS)
+    return init_train_state(sim, opt), make_train_step(
+        sim, l2_loss, device_preprocess or make_device_preprocess(NOISE, num_steps=NUM_STEPS))
 
 
 def _train_setup(base: CylinderSetup) -> CylinderTrainSetup:

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from graph_physics_tpu_torch.ops import segment
-from graph_physics_tpu_torch.ops.edge_attention import edge_attention
+from graph_physics_tpu_torch.ops.edge_attention import edge_attention, world_attention_parts
 from graph_physics_tpu_torch.ops.fused_edge_attention_csr import fused_edge_attention_csr
 from graph_physics_tpu_torch.ops.fused_edge_attention_nk import fused_edge_attention_nk
 from graph_physics_tpu_torch.ops.fused_ffn import fused_gated_ffn
@@ -298,7 +298,8 @@ class GraphNetBlock(nn.Module):
         layout. ``edge_encoder``: the edge encoder folded into this (first)
         block's kernel, with raw edge features in ``edge_attr``."""
         if wedge_attr is not None:
-            raise NotImplementedError("the world-edge sidecar is not ported")
+            raise NotImplementedError("the GraphNetBlock's world-edge sidecar stream is not "
+                                      "ported (ROADMAP B 2)")
         fold = edge_encoder is not None
         if fused_path_ok(tiling, x, edge_attr, self.hidden_size, self.dtype, raw_edge=fold):
             xb, eb = x.to(self.dtype), edge_attr.to(self.dtype)
@@ -382,7 +383,11 @@ class Attention(nn.Module):
     (:func:`ops.fused_edge_attention_nk.fused_edge_attention_nk`), else in
     the CSR layout (:func:`ops.fused_edge_attention_csr.fused_edge_attention_csr`);
     otherwise on the plain edge list (:func:`ops.edge_attention.edge_attention`),
-    or densely over the valid nodes when there are no edges.
+    or densely over the valid nodes when there are no edges. The world-edge
+    sidecar (``wedge_*``) joins the softmax (layers.py:355-405): on the
+    kernel path as the pieces of
+    :func:`ops.edge_attention.world_attention_parts`, which the kernel folds
+    in; on the plain path inside ``edge_attention``.
     """
 
     def __init__(
@@ -442,6 +447,9 @@ class Attention(nn.Module):
         pos: Optional[torch.Tensor] = None,
         return_attention: bool = False,
         tiling: Optional[Layout] = None,
+        wedge_senders: Optional[torch.Tensor] = None,
+        wedge_receivers: Optional[torch.Tensor] = None,
+        wedge_mask: Optional[torch.Tensor] = None,
     ):
         if self.use_rope_embeddings and pos is None:
             raise ValueError("RoPE embeddings require positional information.")
@@ -455,12 +463,17 @@ class Attention(nn.Module):
 
         weights = None
         if self._fused_ok(x, senders, return_attention, tiling):
+            world = {}
+            if wedge_senders is not None:  # the world edges' softmax pieces
+                world["world_parts"] = world_attention_parts(q, k, v, wedge_senders,
+                                                             wedge_receivers, wedge_mask)
             fused = (fused_edge_attention_nk if isinstance(tiling, NKTiling)
                      else fused_edge_attention_csr)
-            y = fused(q, k, v, senders, receivers, edge_mask, tiling)
+            y = fused(q, k, v, senders, receivers, edge_mask, tiling, **world)
         elif senders is not None:
             y = edge_attention(q, k, v, senders, receivers, edge_mask,
-                               return_weights=return_attention)
+                               return_weights=return_attention, wedge_senders=wedge_senders,
+                               wedge_receivers=wedge_receivers, wedge_mask=wedge_mask)
             if return_attention:
                 y, weights = y
         else:  # dense over the valid nodes: [..., H, N, M] logits
@@ -522,9 +535,13 @@ class TransformerBlock(nn.Module):
         node_mask: Optional[torch.Tensor] = None,
         pos: Optional[torch.Tensor] = None,
         tiling: Optional[Layout] = None,
+        wedge_senders: Optional[torch.Tensor] = None,
+        wedge_receivers: Optional[torch.Tensor] = None,
+        wedge_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         x = x + self.attention(self.norm1(x), senders, receivers, edge_mask, node_mask, pos,
-                               tiling=tiling)
+                               tiling=tiling, wedge_senders=wedge_senders,
+                               wedge_receivers=wedge_receivers, wedge_mask=wedge_mask)
         if (tiling is not None and self.dtype == torch.bfloat16 and x.ndim == 3
                 and x.shape[0] == tiling.num_nodes):
             return fused_gated_ffn(x.to(self.dtype), self.gated_mlp, self.norm2).to(x.dtype)

@@ -72,6 +72,9 @@ class EncodeProcessDecode(nn.Module):
                                  dtype=dtype)
 
     def forward(self, graph: MeshGraph) -> torch.Tensor:
+        if graph.wedge_senders is not None:
+            raise NotImplementedError("the GraphNetBlock's world-edge sidecar stream "
+                                      "(processors.py:121-128) is not ported (ROADMAP B 2)")
         x = self.nodes_encoder(graph.x.to(self.dtype))
         edge_attr = graph.edge_attr.to(self.dtype)
         # the block's own predicate with the raw edge width (processors.py:100-107)
@@ -151,7 +154,8 @@ class EncodeTransformDecode(nn.Module):
             raise ValueError("use_rope_embeddings=True requires node positions.")
         for block in self.processor_list:
             x = block(x, graph.senders, graph.receivers, graph.edge_mask, graph.node_mask,
-                      graph.pos, tiling=self.tiling)
+                      graph.pos, tiling=self.tiling, wedge_senders=graph.wedge_senders,
+                      wedge_receivers=graph.wedge_receivers, wedge_mask=graph.wedge_mask)
         return self.decode_module(x).float()
 
 

@@ -2,7 +2,9 @@
 
 Replaces the TPU Pallas kernels graph_physics_tpu/ops/fused_edge_attention_nk.py:
 _nk_fwd_kernel (:476, body _nk_common :437) and _nk_bwd_kernel (:495)
-behind fused_edge_attention_nk (:545), without the world-edge sidecar.
+behind fused_edge_attention_nk (:545), with ``world_parts``, the
+world-edge sidecar's seam (its forward :455-466, its backward :535-542;
+the CSR module states the contract).
 The CUDA kernels (``csrc/fused_edge_attention_nk.cu``,
 ``fused_edge_attention_nk_bwd.cu``) are the CSR attention's bodies
 (``csrc/ea_fwd.cuh``, ``ea_bwd_passes.cuh``) on the NK row map
@@ -36,21 +38,26 @@ import ctypes
 import torch
 
 from graph_physics_tpu_torch.ops import kernel_build
-from graph_physics_tpu_torch.ops.edge_attention import edge_attention
+from graph_physics_tpu_torch.ops.edge_attention import edge_attention, joint_edge_attention
 # KERNEL_HEAD_DIMS, PLAIN and reference_with_backward serve both layouts
 from graph_physics_tpu_torch.ops.fused_edge_attention_csr import (  # noqa: F401
     KERNEL_HEAD_DIMS,
     PLAIN,
     check_inputs,
+    check_world,
+    forward_outputs,
+    kept,
     launch_or_plain,
+    ptrs,
     reference_with_backward,
     sender_places,
+    world_grads,
 )
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "edge_attention_nk": {"ea_nk_fwd": [_vp] * 8 + [_i] * 6 + [_vp]},
-    "edge_attention_nk_bwd": {"ea_nk_bwd": [_vp] * 16 + [_i] * 6 + [_vp]},
+    "edge_attention_nk": {"ea_nk_fwd": [_vp] * 12 + [_i] * 6 + [_vp]},
+    "edge_attention_nk_bwd": {"ea_nk_bwd": [_vp] * 19 + [_i] * 6 + [_vp]},
 }
 
 
@@ -62,42 +69,40 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(q, k, v, senders, receivers, edge_mask, nk, keep_stats=False):
+def _launch_fwd(q, k, v, senders, receivers, edge_mask, nk, keep_stats=False, world=None):
     """The output (bf16), and with ``keep_stats`` the softmax statistics
-    (m, inv) the backward takes, from the forward kernel."""
+    (m, inv, and with world pieces the fp32 output before rounding) the
+    backward takes, from the forward kernel; ``world``: the world pieces
+    (num_w, den_w, s_w) or None."""
     n, b, h, dh = q.shape
-    out = torch.empty_like(q)
-    m = inv = None
-    if keep_stats:
-        m, inv = (torch.empty((n, b, h), dtype=torch.float32, device=q.device) for _ in range(2))
+    out, m, inv, out32 = forward_outputs(q, keep_stats, world)
     err = _load("edge_attention_nk").ea_nk_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        m.data_ptr() if keep_stats else None, inv.data_ptr() if keep_stats else None,
-        senders.data_ptr(), edge_mask.data_ptr(), n, b, h, dh, nk.k_slots, nk.node_block,
-        _stream(q))
+        *ptrs(q, k, v, out, m, inv, senders, edge_mask, *(world or (None,) * 3), out32),
+        n, b, h, dh, nk.k_slots, nk.node_block, _stream(q))
     if err != 0:
         raise RuntimeError(f"fused_edge_attention_nk launch failed with CUDA error {err}")
     fused_edge_attention_nk.launches += 1
-    return (out, (m, inv)) if keep_stats else out
+    return kept(out, m, inv, out32) if keep_stats else out
 
 
-def _launch_bwd(q, k, v, senders, receivers, edge_mask, nk, g_out, saved):
+def _launch_bwd(q, k, v, senders, receivers, edge_mask, nk, g_out, saved, world=None):
     """dq, dk, dv (bf16) from the backward kernels, given ``saved`` = the
-    forward's (out, m, inv)."""
+    forward's (out, m, inv); with the world pieces ``world`` also dnum_w
+    and dden_w (fp32), ``out`` then the fp32 output before rounding."""
     n, b, h, dh = q.shape
     out, m, inv = saved
     offsets, place, recv = sender_places(senders, receivers, edge_mask, nk)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dnum_w, dden_w = world_grads(q, world)
     pg = torch.empty((nk.total_rows, b, h), dtype=torch.int32, device=q.device)
     err = _load("edge_attention_nk_bwd").ea_nk_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m.data_ptr(),
-        inv.data_ptr(), g_out.data_ptr(), senders.data_ptr(), edge_mask.data_ptr(),
-        offsets.data_ptr(), place.data_ptr(), recv.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), pg.data_ptr(), n, b, h, dh, nk.k_slots, nk.node_block, _stream(q))
+        *ptrs(q, k, v, out, m, inv, g_out, senders, edge_mask, offsets, place, recv, dq, dk,
+              dv, pg, None if world is None else world[2], dnum_w, dden_w),
+        n, b, h, dh, nk.k_slots, nk.node_block, _stream(q))
     if err != 0:
         raise RuntimeError(f"fused_edge_attention_nk backward launch failed with CUDA error {err}")
     fused_edge_attention_nk.backward_launches += 1
-    return dq, dk, dv
+    return (dq, dk, dv) if world is None else (dq, dk, dv, dnum_w, dden_w)
 
 
 #: the forward and backward as kernels (the plain versions, :data:`PLAIN`,
@@ -115,6 +120,7 @@ def fused_edge_attention_nk(
     receivers: torch.Tensor,
     edge_mask: torch.Tensor,
     nk,
+    world_parts=None,
 ) -> torch.Tensor:
     """Edge-masked multi-head attention on the NK slot layout, in bf16.
 
@@ -128,22 +134,30 @@ def fused_edge_attention_nk(
     autograd); CUDA tensors launch the kernel, counted in
     ``fused_edge_attention_nk.launches``, and under autograd its gradient
     is the backward kernel, counted in
-    ``fused_edge_attention_nk.backward_launches``.
+    ``fused_edge_attention_nk.backward_launches``. ``world_parts``: the
+    world-edge sidecar's pieces (num_w, den_w, s_w), as
+    :func:`ops.fused_edge_attention_csr.fused_edge_attention_csr` takes
+    them.
     """
     check_inputs(q, k, v, senders, receivers, edge_mask, nk, name="NK layout", row="slot")
-    return launch_or_plain(q, k, v, senders, receivers, edge_mask, nk, KERNELS)
+    check_world(q, world_parts)
+    return launch_or_plain(q, k, v, senders, receivers, edge_mask, nk, KERNELS, world_parts)
 
 
 fused_edge_attention_nk.launches = 0
 fused_edge_attention_nk.backward_launches = 0
 
 
-def fused_edge_attention_nk_reference(q, k, v, senders, receivers, edge_mask, nk) -> torch.Tensor:
+def fused_edge_attention_nk_reference(q, k, v, senders, receivers, edge_mask, nk,
+                                      world_parts=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_edge_attention_nk`:
     :func:`ops.edge_attention.edge_attention` on the slot arrays (fp32
     logits of exact products, the softmax over each receiver's valid
-    slots, the weights rounded to the inputs' dtype). The kernel shifts by
-    the receiver's own max, the TPU kernel by one max per tile; the
-    softmax is the same up to rounding."""
+    slots, the weights rounded to the inputs' dtype), or with the world
+    pieces :func:`ops.edge_attention.joint_edge_attention`. The kernel
+    shifts by the receiver's own max, the TPU kernel by one max per tile;
+    the softmax is the same up to rounding."""
+    if world_parts is not None:
+        return joint_edge_attention(q, k, v, senders, receivers, edge_mask, world_parts)
     return edge_attention(q, k, v, senders, receivers, edge_mask)
 

@@ -235,6 +235,20 @@ def build_csr_layout(
                      num_nodes=n_pad)
 
 
+def sidecar_on(graph: MeshGraph, n_new: int) -> dict:
+    """The world-edge sidecar's receivers on ``n_new`` nodes: the unused
+    slots' receiver becomes node ``n_new`` - 1, as the padding convention
+    has it (their old one, FrameBuilder's last padding row, may be gone
+    when the layout trims bucket padding); the used slots keep theirs.
+    Empty without a sidecar."""
+    recv = graph.wedge_receivers
+    if recv is None:
+        return {}
+    recv = np.asarray(recv)
+    return {"wedge_receivers": np.where(np.asarray(graph.wedge_mask), recv,
+                                        np.int32(n_new - 1)).astype(np.int32)}
+
+
 def _pad_nodes(graph: MeshGraph, n_new: int):
     """pad_nodes(a, fill) of graph's node arrays to ``n_new`` rows (or a
     trim of bucket-padding rows)."""
@@ -249,7 +263,7 @@ def _pad_nodes(graph: MeshGraph, n_new: int):
         pad = np.full((pad_n,) + a.shape[1:], fill, a.dtype)
         return np.concatenate([a, pad], axis=0)
 
-    return dict(x=pad_nodes(graph.x), pos=pad_nodes(graph.pos),
+    return dict(**sidecar_on(graph, n_new), x=pad_nodes(graph.x), pos=pad_nodes(graph.pos),
                 node_type=pad_nodes(graph.node_type, PAD_NODE_TYPE),
                 node_mask=pad_nodes(graph.node_mask, False), y=pad_nodes(graph.y),
                 prev=pad_nodes(graph.prev), next_data=pad_nodes(graph.next_data),

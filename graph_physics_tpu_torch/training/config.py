@@ -4,7 +4,8 @@ loss/training blocks, and the dataset's meta.json).
 
 Counterpart of graph_physics_tpu/training/config.py. Options that belong
 to later queue items raise NotImplementedError naming their ROADMAP item:
-world edges (A 5), physics losses (A 6), the temporal block, RoPE and
+the rollout's dynamic world edges (A 5.2), physics losses (A 6), the
+temporal block, RoPE and
 gates in the GraphNetBlock, gated MLPs, multigrid, remat and spatial MTP
 (A 7); the xdmf dataset waits for ``dataset/xdmf_dataset.py`` (A 4's
 remainder).
@@ -18,7 +19,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from graph_physics_tpu_torch.core.nodetype import NodeType
-from graph_physics_tpu_torch.dataset.preprocessing import FrameConfig
+from graph_physics_tpu_torch.dataset.preprocessing import FrameConfig, WorldConfig
 from graph_physics_tpu_torch.models.processors import (
     EncodeProcessDecode,
     EncodeTransformDecode,
@@ -27,6 +28,7 @@ from graph_physics_tpu_torch.models.processors import (
 from graph_physics_tpu_torch.models.simulator import Simulator
 from graph_physics_tpu_torch.training.loss import l2_loss
 from graph_physics_tpu_torch.training.step import NoiseConfig
+from graph_physics_tpu_torch.training.transforms import WorldPosConfig
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -108,17 +110,30 @@ def get_noise_config(param: Dict[str, Any], remove_noise: bool = False
 
 
 def get_world_configs(param: Dict[str, Any]):
-    """(None, None) (config.py:get_world_configs :129); world edges
-    (``world_pos_parameters.use``) raise: ROADMAP A 5."""
+    """World-edge parameters for the host builder and the device transform,
+    ``(WorldConfig, WorldPosConfig)``, or (None, None) without
+    ``world_pos_parameters.use`` (config.py:get_world_configs :129): radius
+    0.03 and a budget of 1,024 edges unless set. FrameBuilder's layout is
+    JAX's default, the concat one; the CLIs switch to the sidecar."""
     wp = param.get("transformations", {}).get("world_pos_parameters", {})
-    if wp.get("use", False):
-        raise not_ported("world edges (world_pos_parameters.use)", "A 5")
-    return None, None
+    if not wp.get("use", False):
+        return None, None
+    host = WorldConfig(world_pos_index_start=wp["world_pos_index_start"],
+                       world_pos_index_end=wp["world_pos_index_end"],
+                       node_type_index=param["index"]["node_type_index"],
+                       radius=wp.get("radius", 0.03), edge_budget=wp.get("edge_budget", 1024))
+    return host, WorldPosConfig(start=wp["world_pos_index_start"],
+                                end=wp["world_pos_index_end"])
 
 
 def get_dynamic_world_edges(param: Dict[str, Any]):
-    """None (config.py:get_dynamic_world_edges :147); world edges raise."""
-    get_world_configs(param)
+    """None unless ``world_pos_parameters.dynamic_rollout`` is set
+    (config.py:get_dynamic_world_edges :147); the rollout's on-device
+    rediscovery of world edges raises: ROADMAP A 5.2."""
+    wp = param.get("transformations", {}).get("world_pos_parameters", {})
+    if wp.get("use", False) and wp.get("dynamic_rollout", False):
+        raise not_ported("the rollout's dynamic world edges "
+                         "(world_pos_parameters.dynamic_rollout)", "A 5.2")
     return None
 
 
@@ -126,12 +141,13 @@ def get_frame_config(param: Dict[str, Any], masking_ratio: Optional[float] = Non
                      use_previous_data: bool = False,
                      use_edge_feature: bool = True) -> FrameConfig:
     """config.py:get_frame_config (:182)."""
-    get_world_configs(param)
+    world, _ = get_world_configs(param)
     ds = param["dataset"]
     pp = param.get("transformations", {}).get("preprocessing", {})
     return FrameConfig(
         targets=tuple(ds["targets"]),
         khop=ds.get("khop", 1),
+        world=world,
         new_edges_ratio=ds.get("new_edges_ratio", 0.0) or 0.0,
         masking_ratio=(masking_ratio if masking_ratio is not None
                        else pp.get("masking", 0) or 0.0),

@@ -4,7 +4,10 @@ conversion of frames and batches into it.
 Counterpart of the layout part of graph_physics_tpu/training/fused.py:
 FusedTopologyManager (:31-519): the per-topology cache (:257-277), the
 NK-vs-CSR pricing (:339-382), ``transform_frame`` (:476-519) with its
-static-template fast path, and ``transform_packed`` (:456-474). A mesh of
+static-template fast path, and ``transform_packed`` (:456-474). The
+world-edge sidecar rides through untouched but for its unused slots'
+receiver (fused.py:444-449): the layout is chosen from the mesh edges
+alone, and no layout reorders the nodes. A mesh of
 near-uniform degree takes the NK slot layout (ops/tiling.NKTiling, the NK
 kernels); a degree-graded one, whose slot rows would exceed the CSR rows
 by more than the NK kernels' constant advantage, takes the CSR layout
@@ -118,7 +121,9 @@ class FusedTopologyManager:
     def _apply_template(tmpl: MeshGraph, g: MeshGraph) -> MeshGraph:
         """The converted static leaves of ``tmpl`` with this frame's (or
         half-packed batch's) dynamic node leaves padded along axis 0 to the
-        layout's node count (fused.py:_apply_template)."""
+        layout's node count, and its world-edge sidecar
+        (fused.py:_apply_template): the same node ids, the unused slots'
+        receiver the layout's last node (tiling.sidecar_on)."""
         n_new = tmpl.x.shape[0]
 
         def pad_nodes(a, fill=0):
@@ -134,7 +139,9 @@ class FusedTopologyManager:
 
         return tmpl.replace(x=pad_nodes(g.x), y=pad_nodes(g.y), prev=pad_nodes(g.prev),
                             next_data=pad_nodes(g.next_data),
-                            deselected=pad_nodes(g.deselected, False), time=g.time)
+                            deselected=pad_nodes(g.deselected, False), time=g.time,
+                            wedge_senders=g.wedge_senders, wedge_mask=g.wedge_mask,
+                            wedge_attr=g.wedge_attr, **tiling_lib.sidecar_on(g, n_new))
 
     def _template(self, key, g: MeshGraph) -> Optional[MeshGraph]:
         with self._lock:

@@ -7,7 +7,10 @@ at once; the per-node metadata and edge index arrays stay shared.
 leaves as the same numpy objects (the loader's frames do), and with
 ``broadcast_static`` ships a leaf shared by every frame as an ``[E, 1, F]``
 view; the train step widens it on the device (:func:`expand_static_leaves`)
-into a contiguous tensor, so no kernel ever reads a stride-0 view.
+into a contiguous tensor, so no kernel ever reads a stride-0 view. The
+world-edge sidecar's leaves (``MeshGraph.wedge_*``) are per sample:
+[W] a frame, [W, B] packed, [B, W] stacked, always copied per frame,
+never shared as statics.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from graph_physics_tpu_torch import native
-from graph_physics_tpu_torch.core.graph import MeshGraph
+from graph_physics_tpu_torch.core.graph import WEDGE_FIELDS, MeshGraph
 
 #: per-sample leaves: [N, F] per frame, [N, B, F] packed
 DYNAMIC_FIELDS = ("x", "edge_attr", "y", "prev", "next_data", "deselected", "phi")
@@ -49,7 +52,7 @@ def pack(stacked: MeshGraph) -> MeshGraph:
         return None if a is None else _shared(a, name)
 
     return stacked.replace(
-        **{name: node_field(getattr(stacked, name)) for name in DYNAMIC_FIELDS},
+        **{name: node_field(getattr(stacked, name)) for name in DYNAMIC_FIELDS + WEDGE_FIELDS},
         **{name: shared(name) for name in _STATIC_ATTRS},
         n_node=None if stacked.n_node is None else int(_first(stacked.n_node)),
         n_edge=_first(stacked.n_edge),
@@ -70,8 +73,8 @@ def stack(graphs) -> MeshGraph:
         return None if vals[0] is None else np.stack([np.asarray(v) for v in vals])
 
     return g0.replace(
-        **{name: st(name) for name in DYNAMIC_FIELDS + _STATIC_ATTRS + ("n_edge", "traj_index",
-                                                                         "time")},
+        **{name: st(name) for name in DYNAMIC_FIELDS + WEDGE_FIELDS + _STATIC_ATTRS
+           + ("n_edge", "traj_index", "time")},
         n_node=None if g0.n_node is None else np.asarray([g.n_node for g in graphs]),
     )
 
@@ -82,7 +85,8 @@ def pack_frames(frames, broadcast_static: bool = False) -> MeshGraph:
     (and layout) as the same objects, only the dynamic leaves are stacked;
     otherwise the checked ``pack(stack(frames))``. ``broadcast_static``: a
     dynamic-slot leaf that is one object in every frame (the static edge
-    features) becomes an [N, 1, F] view instead of B copies."""
+    features) becomes an [N, 1, F] view instead of B copies. The sidecar's
+    leaves are stacked per frame (packed.py:pack_frames :181-184)."""
     f0 = frames[0]
     shared = all(getattr(f, a) is getattr(f0, a)
                  for f in frames[1:] for a in _STATIC_ATTRS + ("layout",))
@@ -99,8 +103,14 @@ def pack_frames(frames, broadcast_static: bool = False) -> MeshGraph:
             return native.repeat_rows(vals[0], len(vals))
         return native.pack_rows(vals)
 
+    def per_frame(name):
+        if getattr(f0, name) is None:
+            return None
+        return native.pack_rows([np.asarray(getattr(f, name)) for f in frames])
+
     return f0.replace(
         **{name: dyn(name) for name in DYNAMIC_FIELDS},
+        **{name: per_frame(name) for name in WEDGE_FIELDS},
         time=None if f0.time is None else np.asarray([np.asarray(f.time) for f in frames],
                                                      np.float32),
     )

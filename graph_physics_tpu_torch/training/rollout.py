@@ -6,10 +6,16 @@ slice (unconditionally: step 0 writes frame 0's own values), runs the
 simulator in eval mode, imposes the boundary conditions
 (``predicted[mask] = target[mask]`` with mask = NOT(NORMAL ∪ OUTFLOW)) and
 accumulates the squared error over valid nodes; the carry is fp32.
+A ``frame_transform`` (training/transforms.make_eval_transform: the
+world-position edge features) runs on each step's graph after the
+write-back, so it sees the predicted positions (rollout.py:146-165).
 
-Frames share one topology: a MeshGraph whose ``x`` and ``y`` carry a
+Frames share one mesh topology: a MeshGraph whose ``x`` and ``y`` carry a
 leading time axis ``[T, ...]`` and whose node metadata and edge arrays
-are the trajectory's static ones.
+are the trajectory's static ones. A world-edge sidecar is per frame: its
+``wedge_*`` leaves carry the time axis too ([T, W] or [T, W, R]), each
+step taking its own frame's. The on-device rediscovery of world edges
+(``DynamicWorldEdges``) waits for ROADMAP A 5.2.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import Sequence
 
 import torch
 
-from graph_physics_tpu_torch.core.graph import MeshGraph
+from graph_physics_tpu_torch.core.graph import WEDGE_FIELDS, MeshGraph
 from graph_physics_tpu_torch.core.nodetype import NodeType
 from graph_physics_tpu_torch.models.simulator import Simulator
 from graph_physics_tpu_torch.training.loss import DEFAULT_MASK_TYPES, node_loss_mask
@@ -48,7 +54,8 @@ def _rows(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask.view(mask.shape + (1,) * (like.ndim - 1))
 
 
-def _rollout(simulator: Simulator, frames: MeshGraph, mask_types) -> RolloutResult:
+def _rollout(simulator: Simulator, frames: MeshGraph, mask_types,
+             frame_transform=None) -> RolloutResult:
     ois, oie = simulator.output_index_start, simulator.output_index_end
     steps = frames.x.shape[0]
     last_pred = frames.x[0, ..., ois:oie].float()
@@ -58,7 +65,11 @@ def _rollout(simulator: Simulator, frames: MeshGraph, mask_types) -> RolloutResu
     for t in range(steps):
         x = frames.x[t].clone()
         x[..., ois:oie] = last_pred
-        g = frames.replace(x=x, y=frames.y[t])
+        g = frames.replace(x=x, y=frames.y[t], **{
+            name: getattr(frames, name)[t] for name in WEDGE_FIELDS
+            if getattr(frames, name) is not None})
+        if frame_transform is not None:
+            g = frame_transform(g)
         predicted = simulator.forward(g, is_training=False).outputs
         target = frames.y[t]
         predicted = torch.where(_rows(bc, predicted), target, predicted)
@@ -84,27 +95,31 @@ def _rollout(simulator: Simulator, frames: MeshGraph, mask_types) -> RolloutResu
     )
 
 
-def make_rollout_fn(simulator: Simulator, mask_types=DEFAULT_MASK_TYPES):
+def make_rollout_fn(simulator: Simulator, mask_types=DEFAULT_MASK_TYPES,
+                    frame_transform=None):
     """``rollout(frames) -> RolloutResult`` for one trajectory, frames with
-    x [T, N, F] and y [T, N, F_out] (rollout.py:make_rollout_fn)."""
+    x [T, N, F] and y [T, N, F_out] (rollout.py:make_rollout_fn);
+    ``frame_transform(graph) -> graph`` runs on each step's graph."""
 
     @torch.no_grad()
     def rollout(frames: MeshGraph) -> RolloutResult:
-        return _rollout(simulator, frames, mask_types)
+        return _rollout(simulator, frames, mask_types, frame_transform)
 
     return rollout
 
 
-def make_batched_rollout_fn(simulator: Simulator, mask_types=DEFAULT_MASK_TYPES):
+def make_batched_rollout_fn(simulator: Simulator, mask_types=DEFAULT_MASK_TYPES,
+                            frame_transform=None):
     """``rollout(frames) -> RolloutResult`` for R same-mesh trajectories
     packed as x [T, N, R, F] and y [T, N, R, F_out], so each step is one
     packed forward; metrics are per trajectory ([R], [T, R])
-    (rollout.py:make_batched_rollout_fn)."""
+    (rollout.py:make_batched_rollout_fn), ``frame_transform`` as
+    :func:`make_rollout_fn` takes it."""
 
     @torch.no_grad()
     def rollout(frames: MeshGraph) -> RolloutResult:
         if frames.x.ndim != 4:
             raise ValueError(f"expected x [T, N, R, F], got {tuple(frames.x.shape)}")
-        return _rollout(simulator, frames, mask_types)
+        return _rollout(simulator, frames, mask_types, frame_transform)
 
     return rollout

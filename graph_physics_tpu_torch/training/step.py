@@ -27,7 +27,6 @@ from graph_physics_tpu_torch.core.graph import MeshGraph
 from graph_physics_tpu_torch.models.processors import TransolverProcessor
 from graph_physics_tpu_torch.models.simulator import Simulator
 from graph_physics_tpu_torch.training import loss as loss_lib
-from graph_physics_tpu_torch.training import noise as noise_lib
 from graph_physics_tpu_torch.training import packed as packed_lib
 from graph_physics_tpu_torch.training.schedule import ClippedAdamW, OptimizerConfig
 
@@ -65,27 +64,28 @@ def init_train_state(simulator: Simulator, optimizer: OptimizerConfig) -> TrainS
 def make_train_step(
     simulator: Simulator,
     loss_fn: Callable = loss_lib.l2_loss,
-    noise_cfg: Optional[NoiseConfig] = None,
+    device_preprocess: Optional[Callable] = None,
     mask_types: Sequence[int] = loss_lib.DEFAULT_MASK_TYPES,
-    num_steps: int = 1,
 ) -> Callable[[TrainState, MeshGraph, torch.Generator], Dict[str, torch.Tensor]]:
     """``train_step(state, batch, generator) -> metrics``, updating ``state``
     in place. ``loss_fn(graph, network_output, target, mask_types)`` is a
     plain loss (loss.l2_loss). Metrics: ``loss``, ``grad_norm`` (of the
     gradients before clipping) and ``loss_term_0``, as device scalars.
-    ``num_steps`` scales the noise curriculum's progress ``step / num_steps``.
     A ``broadcast_static`` batch's [E, 1, F] leaves are widened first
-    (packed.expand_static_leaves), as JAX's step does."""
+    (packed.expand_static_leaves), as JAX's step does; then
+    ``device_preprocess(graph, generator, step) -> graph``
+    (training/transforms.make_device_preprocess: the noise, then the
+    world-position features) runs when given. JAX's step also takes a
+    ``noise_cfg``, which its ``device_preprocess`` supersedes: here the
+    noise is only ever the preprocess's."""
     mask_types = tuple(int(m) for m in mask_types)
     uses_gumbel = model_uses_gumbel(simulator.model)
 
     def train_step(state: TrainState, batch: MeshGraph,
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
         graph = packed_lib.expand_static_leaves(batch)
-        if noise_cfg is not None and noise_cfg.enabled:
-            t = state.step / max(num_steps, 1) if noise_cfg.curriculum else None
-            graph = noise_lib.add_noise(graph, generator, noise_cfg.starts, noise_cfg.ends,
-                                        noise_cfg.scales, t=t)
+        if device_preprocess is not None:
+            graph = device_preprocess(graph, generator, state.step)
         with torch.enable_grad():
             out = simulator.forward(graph, is_training=True,
                                     gumbel=generator if uses_gumbel else None)

@@ -24,9 +24,17 @@ Counterpart of graph_physics_tpu/training/trainer.py: ``TrainerConfig``
     of the batch it is given (``MeshGraph.layout``), which picks its
     kernels; PyTorch runs eagerly, so there is no per-topology step cache.
 
+  * The train step's preprocess is built here, from ``noise_cfg`` and
+    ``world_pos`` (training/transforms.make_device_preprocess: the noise
+    over this run's ``num_steps``, then the world-position edge
+    features), and ``world_pos``'s eval transform runs on each rollout
+    step's graph; JAX's Trainer takes the two callables built by its CLI
+    instead. A world-edge sidecar rides in every batch and, per frame, in
+    every validation trajectory.
+
 Options of later queue items raise NotImplementedError naming their
-ROADMAP item: ``previous_data_slice`` and the world-edge hooks (A 5),
-``gradient_method`` (A 6), ``mtp`` (A 7), ``mesh`` (A 9),
+ROADMAP item: ``dynamic_world_edges`` (A 5.2), ``previous_data_slice``
+(A 5.3), ``gradient_method`` (A 6), ``mtp`` (A 7), ``mesh`` (A 9),
 ``save_val_visualizations`` (``training/callback.py``, A 4's remainder).
 """
 
@@ -40,7 +48,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from graph_physics_tpu_torch.core.graph import MeshGraph
+from graph_physics_tpu_torch.core.graph import WEDGE_FIELDS, MeshGraph
 from graph_physics_tpu_torch.dataset.loader import BatchLoader
 from graph_physics_tpu_torch.models.processors import EncodeProcessDecode, TransolverProcessor
 from graph_physics_tpu_torch.models.simulator import Simulator
@@ -54,6 +62,11 @@ from graph_physics_tpu_torch.training.step import (
     init_train_state,
     make_multi_step,
     make_train_step,
+)
+from graph_physics_tpu_torch.training.transforms import (
+    WorldPosConfig,
+    make_device_preprocess,
+    make_eval_transform,
 )
 from graph_physics_tpu_torch.utils.profiling import StepTrace
 
@@ -132,15 +145,12 @@ def _later(what: str, item: str) -> NotImplementedError:
 class Trainer:
     def __init__(self, simulator: Simulator, train_dataset, val_dataset, loss_fn,
                  cfg: TrainerConfig, gradient_method: Optional[str] = None,
-                 device_preprocess=None, eval_transform=None, mesh=None,
-                 run_metadata: Optional[Dict[str, Any]] = None, mtp=None,
+                 mesh=None, run_metadata: Optional[Dict[str, Any]] = None, mtp=None,
                  dynamic_world_edges=None, noise_cfg: Optional[NoiseConfig] = None,
-                 device="cuda"):
+                 world_pos: Optional[WorldPosConfig] = None, device="cuda"):
         for value, what, item in (
-                (cfg.previous_data_slice, "previous_data_slice", "A 5"),
-                (device_preprocess, "device_preprocess (world-edge features)", "A 5"),
-                (eval_transform, "eval_transform (world-edge features)", "A 5"),
-                (dynamic_world_edges, "dynamic world edges", "A 5"),
+                (cfg.previous_data_slice, "previous_data_slice", "A 5.3"),
+                (dynamic_world_edges, "dynamic world edges", "A 5.2"),
                 (gradient_method, "gradient_method (physics losses)", "A 6"),
                 (mtp, "spatial MTP", "A 7"),
                 (mesh, "a device mesh", "A 9")):
@@ -170,7 +180,8 @@ class Trainer:
             accumulate_grad_batches=cfg.accumulate_grad_batches)
         self.lr_schedule = schedule_lib.cosine_warmup_schedule(cfg.learning_rate, cfg.warmup,
                                                                self.num_steps)
-        step = make_train_step(self.sim, loss_fn, noise_cfg, num_steps=self.num_steps)
+        step = make_train_step(self.sim, loss_fn, make_device_preprocess(
+            noise_cfg, world_pos, self.num_steps))
 
         def train_step(state: TrainState, batch: MeshGraph, generator: torch.Generator):
             self._use_layout(batch)
@@ -189,8 +200,10 @@ class Trainer:
             self._fused_mgr = FusedTopologyManager(
                 "epd" if epd else "transformer",
                 nk=cfg.fused_gn_nk if epd else cfg.fused_attn_nk)
-        self.rollout_fn = make_rollout_fn(self.sim)
-        self.batched_rollout_fn = make_batched_rollout_fn(self.sim)
+        eval_transform = make_eval_transform(world_pos)
+        self.rollout_fn = make_rollout_fn(self.sim, frame_transform=eval_transform)
+        self.batched_rollout_fn = make_batched_rollout_fn(self.sim,
+                                                          frame_transform=eval_transform)
         self.ckpt_dir = os.path.join(cfg.out_dir, cfg.run_name, "checkpoints")
         self.manager = ckpt_lib.make_manager(self.ckpt_dir, best_metric=cfg.monitor_metric)
         #: validation trajectories stacked on the host, by topology
@@ -379,30 +392,41 @@ class Trainer:
 def trajectory_graph(dataset, t: int, manager=None) -> MeshGraph:
     """Trajectory ``t``'s rollout frames (laid out by ``manager``, a
     FusedTopologyManager, when given) as one host graph: x, y [T, N, F],
-    time [T], the static leaves of frame 0."""
+    time [T], a world-edge sidecar's leaves [T, W, ...] (each frame's
+    own), the static leaves of frame 0."""
     frames = dataset.trajectory_frames(t)
     if manager is not None:
         frames = [manager.transform_frame(f) for f in frames]
+
+    def per_frame(name):
+        if getattr(frames[0], name) is None:
+            return None
+        return np.stack([np.asarray(getattr(f, name)) for f in frames])
+
     return frames[0].replace(
-        x=np.stack([np.asarray(f.x) for f in frames]),
-        y=np.stack([np.asarray(f.y) for f in frames]),
+        x=per_frame("x"), y=per_frame("y"),
         time=np.asarray([np.asarray(f.time) for f in frames], np.float32),
-        prev=None, next_data=None, deselected=None)
+        prev=None, next_data=None, deselected=None,
+        **{name: per_frame(name) for name in WEDGE_FIELDS})
 
 
 def rollout_graph(trajs: List[MeshGraph], device, packed: bool = True) -> MeshGraph:
     """R host trajectory graphs of one topology as one device graph for the
-    rollout: packed, x [T, N, R, F] and edge_attr [E, R, Fe]; or, unpacked,
-    the first one alone (x [T, N, F])."""
+    rollout: packed, x [T, N, R, F], edge_attr [E, R, Fe] and a sidecar's
+    leaves [T, W, R, ...]; or, unpacked, the first one alone (x [T, N, F])."""
     g0 = trajs[0]
     if not packed:
         return MeshGraph.from_numpy(g0.replace(time=None), device)
+
+    def per_trajectory(name, axis):
+        if getattr(g0, name) is None:
+            return None
+        return np.stack([np.asarray(getattr(g, name)) for g in trajs], axis=axis)
+
     return MeshGraph.from_numpy(g0.replace(
-        x=np.stack([g.x for g in trajs], axis=2),
-        y=np.stack([g.y for g in trajs], axis=2),
-        edge_attr=None if g0.edge_attr is None
-        else np.stack([np.asarray(g.edge_attr) for g in trajs], axis=1),
-        time=None), device)
+        x=per_trajectory("x", 2), y=per_trajectory("y", 2),
+        edge_attr=per_trajectory("edge_attr", 1), time=None,
+        **{name: per_trajectory(name, 2) for name in WEDGE_FIELDS}), device)
 
 
 def write_rollout_xdmf(path: str, preds: np.ndarray, traj: MeshGraph) -> str:

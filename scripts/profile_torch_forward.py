@@ -4,7 +4,7 @@ step, goes, on one NVIDIA GPU.
     python3 scripts/profile_torch_forward.py \
         [transformer|epd|transformer-train|epd-train|graded|graded-transformer|
          graded-train|graded-transformer-train|transolver-train|
-         graded-transolver-train ...]
+         graded-transolver-train|plate-train ...]
     # default: the two cylinder forwards
 
 For each slice (``transformer``: entry.transformer_setup, 10 blocks, hidden
@@ -17,7 +17,10 @@ CSR layout, entry.graded_setup and entry.graded_transformer_setup, B=16;
 entry.graded_train_setup or entry.graded_transformer_train_setup;
 ``transolver-train`` and ``graded-transolver-train``: one train step of
 entry.transolver_train_setup, stacked B=16 on the cylinder's 1,920 nodes
-(2,432 rows with padding) or the graded mesh's 27,000 points (27,136))
+(2,432 rows with padding) or the graded mesh's 27,000 points (27,136);
+``plate-train``: one train step of entry.plate_train_setup, plate.json's
+transformer with world edges, 10 blocks, hidden 64, B=64, the noise and
+the world-position features of entry.plate_preprocess)
 and each path (kernel path, and the plain path: no edge layout, or for
 the Transolver the gumbel kernel's plain version on the same bits), runs
 ``torch.profiler`` over 10 calls after 3 warm-up calls and prints, per
@@ -25,12 +28,16 @@ call: the host wall time (synchronised), the device time summed over
 kernels, the idle share (1 - device / wall) and the device time by kernel
 group (the port's kernels by name, the GraphNetBlock backwards by pass,
 GEMMs, the optimizer, elementwise, reductions, index ops, the rest), each
-with its launch count. The full
+with its launch count. Before the profiler and again after it, it times
+the calls unprofiled: the host's time to enqueue one call from a
+synchronised start beside the CUDA-event time of the same calls, and the
+wall time a call of ``REPS`` calls back to back. The full
 per-kernel table goes to ``build/profile/profile_<slice>_<path>.txt``
 (git-ignored). Builds the kernels first if needed; imports nothing of JAX.
 """
 
 import copy
+import statistics
 import subprocess
 import sys
 import time
@@ -75,13 +82,44 @@ def group_of(name):
     return "other"
 
 
+def unprofiled(run, label, when, card):
+    """Medians over ``REPS`` calls of ``run``, each from a synchronised
+    start, of the host's time to enqueue it and of its CUDA-event time;
+    then the wall time a call of ``REPS`` calls back to back."""
+    import torch
+
+    enqueue, events = [], []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        run()
+        enqueue.append(1e3 * (time.perf_counter() - t0))
+        end.record()
+        end.synchronize()
+        events.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        run()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / REPS
+    print(f"{label}, unprofiled {when} the profiler: the host enqueues a call in "
+          f"{statistics.median(enqueue):.4f} ms, CUDA events {statistics.median(events):.4f} ms "
+          f"over the same calls; {wall_ms:.4f} ms a call back to back ({card})", flush=True)
+
+
 def profile(run, label, card):
-    """Profile ``REPS`` calls of ``run`` after ``WARMUP`` calls."""
+    """Profile ``REPS`` calls of ``run`` after ``WARMUP`` calls, timed
+    unprofiled before and after."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     for _ in range(WARMUP):
         run()
+    unprofiled(run, label, "before", card)
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -117,6 +155,7 @@ def profile(run, label, card):
             f.write(f"{ms:.5f}\t{count:g}\t{key}\n")
     if device_ms == 0:
         raise SystemExit("the profiler recorded no device time")
+    unprofiled(run, label, "after", card)
 
 
 def main():
@@ -142,7 +181,8 @@ def main():
               "graded-train": entry.graded_train_setup,
               "graded-transformer-train": entry.graded_transformer_train_setup,
               "transolver-train": entry.transolver_train_setup,
-              "graded-transolver-train": lambda d: entry.transolver_train_setup(d, graded=True)}
+              "graded-transolver-train": lambda d: entry.transolver_train_setup(d, graded=True),
+              "plate-train": entry.plate_train_setup}
     for name in sys.argv[1:] or ["transformer", "epd"]:
         setup = (forwards.get(name) or trains[name])("cuda")
         graph = setup.graph
@@ -161,7 +201,7 @@ def main():
                 return run
             runs = (runner(setup.simulator), runner(plain))
         else:
-            plain_state, plain_step = entry.make_trainer(plain)
+            plain_state, plain_step = entry.make_trainer(plain, setup.device_preprocess)
             gen = torch.Generator(device=graph.x.device).manual_seed(0)
             runs = (lambda: setup.train_step(setup.state, graph, gen),
                     lambda: plain_step(plain_state, graph, gen))

@@ -8,6 +8,14 @@
     transolver < 0.02), the predicted XDMF reads back with the trajectory's
     frames, and predict's RMSE equals the last validation's (fp32, the same
     rollout; rtol 1e-6);
+  * DeformingPlate (plate.json's transformer with world edges, 2 blocks,
+    hidden 32) through ``cli.train --packed --bf16 --fused`` on a small
+    synthetic plate (2 training trajectories on 8x6 and 9x6 sheets, 1
+    validation trajectory, 12 frames each, radius 0.12, budget 64; the
+    same protocol otherwise) meets ``PLATE_BAR``; ``cli.predict`` of its
+    checkpoint (the rollout in fp32, each frame's world edges as the
+    sidecar) matches JAX's rollout from the same weights in the concat
+    layout to 1e-4;
   * ``--device cuda`` on a machine without a card raises;
   * an option of a later queue item raises, naming its ROADMAP item.
 """
@@ -24,6 +32,18 @@ from graph_physics_tpu_torch.dataset import synthetic
 
 #: BASELINE.md:67-71
 BARS = {"epd": 0.006, "transformer": 0.006, "transolver": 0.02}
+#: the plate bar: the JAX package's CLI on this test's workspace and
+#: protocol on the CPU,
+#:   JAX_PLATFORMS=cpu python -m graph_physics_tpu.cli.train \
+#:       --training_parameters_path plate.json --epochs 8 --batch_size 2 \
+#:       --learning_rate 1e-3 --warmup 10 --packed --bf16 --fused
+#: ended at val_all_rollout_rmse 0.00399 (seed 42) and 0.00430 (seed 1);
+#: a sheet that never moves scores 0.00486, and the port's CLI 0.00109
+#: (seed 42), 0.00329, 0.00291 and 0.00494 (seeds 1-3): 0.006 leaves 1.5x
+#: JAX's seed-42 number as headroom. 96 steps of training beat the
+#: unmoving sheet only narrowly, so the bar holds the run to JAX's, not to
+#: a learned deflection.
+PLATE_BAR = 0.006
 MODELS = {
     "epd": {"type": "epd", "message_passing_num": 3, "hidden_size": 32, "edge_input_size": 3},
     "transformer": {"type": "transformer", "message_passing_num": 2, "hidden_size": 32,
@@ -109,6 +129,84 @@ def test_train_then_predict_meets_the_bar(workspace, family):
     np.testing.assert_allclose(res[0].rmse_all_rollout, last["val_all_rollout_rmse"], rtol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def plate_workspace(tmp_path_factory):
+    d = tmp_path_factory.mktemp("plate_cli")
+    train, meta = synthetic.write_plate_h5_dataset(str(d / "train.h5"), num_trajectories=2,
+                                                   num_steps=12, meta_path=str(d / "meta.json"))
+    val, _ = synthetic.write_plate_h5_dataset(str(d / "val.h5"), num_trajectories=1,
+                                              num_steps=12, meta_path=str(d / "m2.json"))
+    param = {
+        "dataset": {"extension": "h5", "train_path": train, "test_path": val,
+                    "meta_path": meta, "targets": ["world_pos"], "khop": 1},
+        "model": {"type": "transformer", "message_passing_num": 2, "hidden_size": 32,
+                  "num_heads": 4, "node_input_size": 6, "output_size": 3,
+                  "edge_input_size": 0},
+        "index": {"feature_index_start": 0, "feature_index_end": 6, "output_index_start": 0,
+                  "output_index_end": 3, "node_type_index": 6},
+        "transformations": {
+            "preprocessing": {"noise": 0, "noise_index_start": [0], "noise_index_end": [3],
+                              "masking": 0},
+            "world_pos_parameters": {"use": True, "world_pos_index_start": 0,
+                                     "world_pos_index_end": 3, "radius": 0.12,
+                                     "edge_budget": 64}},
+        "training": {},
+    }
+    (d / "plate.json").write_text(json.dumps(param))
+    return d, str(d / "plate.json")
+
+
+def test_plate_train_then_predict_meets_the_bar_and_matches_jax(plate_workspace, monkeypatch):
+    d, cfg = plate_workspace
+    out = d / "runs"
+    assert train_cli.main(["--training_parameters_path", cfg, "--epochs", "8",
+                           "--batch_size", "2", "--learning_rate", "1e-3", "--warmup", "10",
+                           "--packed", "--bf16", "--fused", "--out_dir", str(out),
+                           "--run_name", "plate", "--device", "cpu"]) == 0
+    records = [json.loads(line) for line in open(out / "plate" / "plate.metrics.jsonl")]
+    last = [r for r in records if "val_all_rollout_rmse" in r][-1]
+    assert last["epoch"] == 7
+    assert last["val_all_rollout_rmse"] < PLATE_BAR, (
+        f"plate: rollout RMSE {last['val_all_rollout_rmse']:.5f} above the committed bar")
+    from graph_physics_tpu_torch.cli.common import load_inference_stack
+
+    ckpt = str(out / "plate" / "checkpoints")
+    argv = ["--training_parameters_path", cfg, "--model_path", ckpt, "--device", "cpu"]
+    res = predict_cli.predict(load_inference_stack(
+        predict_cli.build_argparser().parse_args(argv + ["--bf16"])), fused=True)
+    np.testing.assert_allclose(res[0].rmse_all_rollout, last["val_all_rollout_rmse"], rtol=1e-6)
+    assert predict_cli.main(argv + ["--bf16", "--fused", "--out_dir", str(d / "preds")]) == 0
+
+    # the same weights in JAX, rolled out in the concat layout, fp32
+    import jax
+    import jax.numpy as jnp
+
+    from graph_physics_tpu import native as j_native
+    from graph_physics_tpu.training import config as j_config
+    from graph_physics_tpu.training.rollout import make_rollout_fn
+    from graph_physics_tpu.training.transforms import WorldPosConfig, make_eval_transform
+    from graph_physics_tpu.utils.convert import convert_state_dict
+
+    stack = load_inference_stack(predict_cli.build_argparser().parse_args(argv))
+    got = predict_cli.predict(stack)[0]
+    jparam = j_config.load_params(cfg)
+    params, state = convert_state_dict(
+        {k: v.detach().float().numpy() for k, v in stack.simulator.state_dict().items()},
+        jparam)
+    monkeypatch.setattr(j_native, "radius_cross_pairs", lambda *a, **k: None)
+    monkeypatch.setattr(j_native, "radius_pairs", lambda *a, **k: None)
+    ds = j_config.get_dataset(jparam, j_config.get_frame_config(jparam, masking_ratio=0.0),
+                              switch_to_val=True)
+    frames = jax.tree.map(lambda *xs: jnp.asarray(np.stack(xs)), *ds.trajectory_frames(0))
+    jsim = j_config.get_simulator(jparam, j_config.get_model(jparam))
+    want = make_rollout_fn(jsim, frame_transform=make_eval_transform(WorldPosConfig(0, 3)))(
+        params, state, frames)
+    n = int(got.trajectory.n_node)
+    np.testing.assert_allclose(got.predictions[:, :n], np.asarray(want.predictions)[:, :n],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.rmse_all_rollout, float(want.rmse_all_rollout), rtol=1e-4)
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")
 @pytest.mark.parametrize("cli", ["train", "predict"])
 def test_cuda_without_a_card_raises(workspace, cli):
@@ -125,7 +223,14 @@ def test_cuda_without_a_card_raises(workspace, cli):
 @pytest.mark.parametrize("flags,blocks,item", [
     (["--use_previous_data"], {}, "A 5"),
     (["--external", "aneurysm"], {}, "A 5"),
-    ([], {"transformations": {"world_pos_parameters": {"use": True}}}, "A 5"),
+    ([], {"transformations": {"world_pos_parameters": {  # the concat layout
+        "use": True, "world_pos_index_start": 0, "world_pos_index_end": 2}}}, "A 5"),
+    (["--packed"], {"transformations": {"world_pos_parameters": {
+        "use": True, "world_pos_index_start": 0, "world_pos_index_end": 2,
+        "dynamic_rollout": True}}}, "A 5.2"),
+    (["--packed"], {"transformations": {"world_pos_parameters": {  # epd with world edges
+        "use": True, "world_pos_index_start": 0, "world_pos_index_end": 2}},
+        "index": {"node_type_index": 4}}, "B 2"),
     ([], {"loss": {"type": ["l2loss", "gradientloss"], "weights": [1, 1]}}, "A 6"),
     ([], {"loss": {"type": ["l2loss"], "gradient_method": "least_squares"}}, "A 6"),
     ([], {"training": {"use_temporal_block": True}}, "A 7"),

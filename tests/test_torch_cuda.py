@@ -49,7 +49,7 @@ import torch
 
 from graph_physics_tpu_torch import entry
 from graph_physics_tpu_torch.models.layers import MLP, GatedMLPBlock, RMSNorm, reset_parameters
-from graph_physics_tpu_torch.ops.edge_attention import edge_attention
+from graph_physics_tpu_torch.ops.edge_attention import edge_attention, world_attention_parts
 from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_csr_ops
 from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
 from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
@@ -1289,3 +1289,140 @@ def test_transolver_train_step_goes_through_the_gumbel_kernel(cuda_device):
                                    atol=0)
     for p in train.simulator.parameters():
         assert torch.isfinite(p).all()
+
+
+# ---- the world seam of the attention kernels (rows 5-8) ---------------------
+
+def _world_sidecar(n, n_valid, batch, targets, seed, width=96, device="cuda"):
+    """A world-edge sidecar of ``width`` slots a sample ([W, B] int32
+    senders and receivers, bool mask): half the slots end at ``targets``
+    (receivers without a valid mesh row), the rest at random valid nodes,
+    senders at random valid nodes; every fifth slot masked, and the last 8
+    the padding convention's (sender 0, receiver n - 1, masked)."""
+    rng = np.random.default_rng(seed)
+    targets = np.asarray(targets)
+    send = rng.integers(0, n_valid, (width, batch))
+    recv = np.where(rng.random((width, batch)) < 0.5,
+                    targets[rng.integers(0, targets.size, (width, batch))],
+                    rng.integers(0, n_valid, (width, batch)))
+    mask = (np.arange(width) % 5 != 4)[:, None].repeat(batch, 1)
+    send[-8:], recv[-8:], mask[-8:] = 0, n - 1, False
+    return [torch.as_tensor(a, device=device).contiguous()
+            for a in (send.astype(np.int32), recv.astype(np.int32), mask)]
+
+
+def _world_case(cuda_device, layout, head_dim, seed):
+    """(q, k, v, cotangent, the row arrays with some receivers' rows all
+    masked, the layout, the world pieces of a sidecar that reaches those
+    receivers, the receivers with neither mesh rows nor world edges, the
+    op, its plain version)."""
+    batch = 4 if layout == "nk" else 2
+    if layout == "nk":
+        g, lay, qkv, cot = _attention_case(cuda_device, batch, seed, head_dim, nx=20, ny=16)
+        nb = lay.node_block
+        gone = torch.tensor([gi * nb + r for gi in range(lay.num_groups) for r in range(3)
+                             if gi * nb + r < int(g.node_mask.sum())], device=cuda_device)
+        op, plain = fused_edge_attention_nk, fused_edge_attention_nk_reference
+    else:
+        setup = entry.graded_transformer_setup(cuda_device, num_nodes=1500, batch=batch,
+                                               mp_steps=1)
+        g, lay = setup.graph, setup.tiling
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        *qkv, cot = [(s * torch.randn((lay.num_nodes, batch, 4, head_dim), generator=gen,
+                                      device=cuda_device)).to(torch.bfloat16)
+                     for s in (0.5, 0.5, 0.5, 1.0)]
+        gone = torch.arange(0, 1500, 97, device=cuda_device)
+        op = fused_edge_attention_csr
+        plain = (lambda *a, world_parts=None: ea_csr_ops.PLAIN[0](*a, world=world_parts))
+    mask = g.edge_mask & ~torch.isin(g.receivers, gone)
+    n, n_valid = lay.num_nodes, int(g.node_mask.sum())
+    reached = gone[::2].cpu().numpy()  # the other half of them has neither
+    ws, wr, wm = _world_sidecar(n, n_valid, batch, reached, seed, device=cuda_device)
+    with torch.no_grad():
+        parts = world_attention_parts(*qkv, ws, wr, wm)
+    hit = torch.zeros((n, batch), dtype=torch.bool, device=cuda_device)
+    hit[wr[wm].long(), torch.nonzero(wm)[:, 1]] = True
+    has_rows = torch.zeros(n, dtype=torch.bool, device=cuda_device)
+    has_rows[g.receivers[mask].long()] = True
+    neither = ~has_rows[:, None] & ~hit
+    assert (hit & ~has_rows[:, None]).any() and neither.any()
+    return qkv, cot, (g.senders, g.receivers, mask), lay, parts, neither, op, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("layout", ["nk", "csr"])
+def test_world_attention_kernels_match_plain_versions(cuda_device, layout, head_dim):
+    """The world seam of rows 5-8: the joint mesh + world forward against
+    its plain version (ops/edge_attention.joint_edge_attention), on
+    receivers with world edges and no valid mesh row, receivers with
+    neither (exact zeros) and masked world slots; the joint statistics it
+    keeps against ``softmax_stats`` with the pieces; the backward's dq,
+    dk, dv, dnum_w, dden_w against the plain backward and fp32 autograd
+    (utils/gradcheck.py), dnum_w and dden_w exactly 0 where a receiver has
+    neither."""
+    qkv, cot, rows, lay, parts, neither, op, plain = _world_case(cuda_device, layout,
+                                                                 head_dim, seed=70 + head_dim)
+    kernels = (ea_ops if layout == "nk" else ea_csr_ops).KERNELS
+    before = op.launches
+    with torch.no_grad():
+        out = op(*qkv, *rows, lay, world_parts=parts)
+        torch.cuda.synchronize()
+        assert op.launches == before + 1
+        ref = plain(*qkv, *rows, lay, world_parts=parts)
+        kept, (m, inv, out32) = kernels[0](*qkv, *rows, lay, keep_stats=True, world=parts)
+        pm, pinv = ea_csr_ops.softmax_stats(*qkv[:2], *rows, world=parts)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0.03, atol=0.02)
+    assert torch.equal(out[neither], torch.zeros_like(out[neither]))
+    assert torch.equal(kept, out) and torch.equal(out32.to(torch.bfloat16), out)
+    torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+    some = pinv > 0
+    torch.testing.assert_close(inv[some], pinv[some], rtol=5e-3, atol=0)
+    assert (inv[~some] == 0).all()
+
+    names = ("dq", "dk", "dv", "dnum_w", "dden_w")
+    s_w = parts[2]
+
+    def attention(fn):
+        return lambda q, k, v, nw, dw: (fn(q, k, v, *rows, lay, world_parts=(nw, dw, s_w)), [])
+
+    before = op.backward_launches
+    grad_rows, ok, kept = gradcheck.check_backward(
+        names, names, attention(op),
+        attention(lambda *a, world_parts: ea_csr_ops.reference_with_backward(
+            *a, world_parts=world_parts)),
+        attention(plain), [*qkv, *parts[:2]], [cot])
+    torch.cuda.synchronize()
+    assert op.backward_launches == before + 1
+    assert ok, [r for r in grad_rows if not r["ok"]]
+    dnum_w, dden_w = torch.autograd.grad(*kept["kernel"])[3:]
+    for t in (dnum_w[neither], dden_w[neither]):
+        assert torch.equal(t, torch.zeros_like(t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nk", "csr"])
+def test_world_attention_kernels_are_bit_identical_across_calls(cuda_device, layout):
+    """No atomics in the world seam either: two calls give the same output,
+    statistics (the fp32 output too) and dq, dk, dv, dnum_w, dden_w; and a
+    call without world
+    pieces still launches the mesh-only kernel (its output is not the
+    joint one)."""
+    qkv, cot, rows, lay, parts, _, op, _ = _world_case(cuda_device, layout, 16, seed=80)
+    kernels = (ea_ops if layout == "nk" else ea_csr_ops).KERNELS
+    calls = [kernels[0](*qkv, *rows, lay, keep_stats=True, world=parts) for _ in range(2)]
+    for x, y in zip((calls[0][0], *calls[0][1]), (calls[1][0], *calls[1][1])):
+        assert torch.equal(x, y)
+    a = calls[0][0]
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (*qkv, *parts[:2])]
+        out = op(*leaves[:3], *rows, lay, world_parts=(*leaves[3:], parts[2]))
+        grads.append(torch.autograd.grad(out, leaves, cot))
+    torch.cuda.synchronize()
+    for x, y in zip(*grads):
+        assert torch.equal(x, y)
+    with torch.no_grad():
+        mesh_only = op(*qkv, *rows, lay)
+    assert not torch.equal(mesh_only, a)
+    assert torch.equal(mesh_only, kernels[0](*qkv, *rows, lay))

@@ -104,8 +104,9 @@ def test_edge_attention_returns_weights_and_refuses_what_is_not_ported():
     _, want = jea.edge_attention(*(jnp.asarray(a) for a in (q, k, v, g.senders, g.receivers,
                                                              g.edge_mask)), return_weights=True)
     np.testing.assert_allclose(alpha.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError, match="world"):
-        edge_attention(*args, wedge_senders=args[3])
+    with pytest.raises(NotImplementedError, match="world"):  # as JAX refuses it
+        edge_attention(*args, return_weights=True, wedge_senders=args[3],
+                       wedge_receivers=args[4], wedge_mask=args[5])
     with pytest.raises(NotImplementedError, match="sequence"):
         edge_attention(*args, sp_axis_name="sp")
     _, qp, kp, vp = _edge_case(packed=True)

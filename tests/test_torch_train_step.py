@@ -38,6 +38,7 @@ from graph_physics_tpu_torch.training import noise as tnoise
 from graph_physics_tpu_torch.training import packed as tpacked
 from graph_physics_tpu_torch.training import schedule as tschedule
 from graph_physics_tpu_torch.training import step as tstep
+from graph_physics_tpu_torch.training.transforms import make_device_preprocess
 from graph_physics_tpu_torch.utils.convert import load_jax_params
 from tests.helpers import tiny_graph
 from tests.test_torch_fused_gnblock_nk import _port_host_graph
@@ -202,12 +203,15 @@ def _steps(nk, n_steps):
     return run_steps(jsim, jg, tsim, tg, PARAM, n_steps)
 
 
-def check_fp32_steps(runs, noisy_share=0.0, far_share=0.0):
+def check_fp32_steps(runs, noisy_share=0.0, far_share=0.0, zero_grad=None):
     """The fp32 plain path's bounds against the JAX step. A gradient within
     fp32 rounding of 0 takes its sign from the order of the sums, and Adam
     scales it to a step of up to lr: ``noisy_share`` of the parameter
     values may lie up to 2·lr a step apart for that reason, and
-    ``far_share`` of them more than lr/2."""
+    ``far_share`` of them more than lr/2. ``zero_grad`` names the
+    parameters (a substring of their path) whose gradient is 0 up to
+    rounding by construction: they are held to 2·lr a step and left out
+    of the shares."""
     for i, (jm, tm, jstate, params, sim_state) in enumerate(runs):
         np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]), rtol=1e-5)
         np.testing.assert_allclose(tm["loss_term_0"].item(), float(jm["loss_term_0"]), rtol=1e-5)
@@ -215,7 +219,7 @@ def check_fp32_steps(runs, noisy_share=0.0, far_share=0.0):
         # fp32 sums in another order; Adam moves each parameter by about
         # lr·sign(g) = 1e-3 a step, so 1e-5 is 1% of one step
         compare_state(jstate, params, sim_state, param_atol=1e-5, noisy_share=noisy_share,
-                      noisy_atol=2 * LR * (i + 1), far_share=far_share)
+                      noisy_atol=2 * LR * (i + 1), far_share=far_share, zero_grad=zero_grad)
 
 
 def check_bf16_steps(runs):
@@ -234,10 +238,12 @@ def check_bf16_steps(runs):
 
 
 def compare_state(jstate, params, sim_state, param_atol, far_share=0.0, noisy_share=0.0,
-                  noisy_atol=None):
+                  noisy_atol=None, zero_grad=None):
     """Normalizer statistics, then every parameter within ``param_atol`` (all
     but ``noisy_share`` of the values, the rest within ``noisy_atol``), and
-    at most ``far_share`` of all parameter values more than lr/2 apart."""
+    at most ``far_share`` of all parameter values more than lr/2 apart;
+    parameters whose path holds ``zero_grad`` within ``noisy_atol``, not
+    counted in the shares."""
     for norm in ("output_norm", "node_norm", "edge_norm"):
         js, ts = getattr(jstate.sim_state, norm), getattr(sim_state, norm)
         assert (js is None) == (ts is None), norm
@@ -256,9 +262,13 @@ def compare_state(jstate, params, sim_state, param_atol, far_share=0.0, noisy_sh
     far = noisy = total = 0
     for path, v in flat_t:
         want = np.asarray(flat_j[path], np.float32)
+        name = jax.tree_util.keystr(path)
+        exempt = zero_grad is not None and zero_grad in name
         np.testing.assert_allclose(np.asarray(v), want, rtol=0,
-                                   atol=noisy_atol if noisy_share else param_atol,
-                                   err_msg=jax.tree_util.keystr(path))
+                                   atol=noisy_atol if noisy_share or exempt else param_atol,
+                                   err_msg=name)
+        if exempt:
+            continue
         diff = np.abs(np.asarray(v) - want)
         noisy += int(np.sum(diff > param_atol))
         far += int(np.sum(diff > LR / 2))
@@ -284,7 +294,8 @@ def test_multi_step_is_k_train_steps_drawing_noise_in_turn():
     for multi in (True, False):
         sim = entry.make_simulator(32, 2, torch.float32, None, seed=5)
         state = tstep.init_train_state(sim, tschedule.make_optimizer(LR, warmup=2, num_steps=10))
-        step = tstep.make_train_step(sim, noise_cfg=entry.NOISE, num_steps=10)
+        step = tstep.make_train_step(sim, device_preprocess=make_device_preprocess(
+            entry.NOISE, num_steps=10))
         gen = torch.Generator().manual_seed(4)
         if multi:
             m = tstep.make_multi_step(step, unroll=3)(state, tg, gen)
