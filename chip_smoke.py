@@ -5,7 +5,9 @@ on the cylinder mesh (NK layout) and on the graded mesh (CSR layout), the
 Transolver++ train step with its gumbel kernel, the train -> predict
 loop (loader, Trainer.fit, checkpoint and resume, predict), and
 DeformingPlate (training_config/plate.json) with its world edges through
-the attention kernels' world seam.
+the attention kernels' world seam, and the panels workload
+(training_config/panels.json: hidden 128, the physics losses) through the
+hidden-128 gated-FFN kernels.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --parent CHECKOUT   # also times another checkout's
@@ -182,19 +184,41 @@ Phases (any failure raises, so the exit code is non-zero):
      in-memory plate trajectories (2 of 65 frames, B=64, 2 epochs, a
      50-step validation rollout with each frame's sidecar a step), then
      predict from its checkpoint: losses and RMSE finite, launches per
-     step and rollout step, predict's RMSE equal to validate's.
+     step and rollout step, predict's RMSE equal to validate's;
+ 32. panels kernels: rows 9 and 10 at hidden 128 (csrc/fused_ffn128.cu,
+     fused_ffn128_bwd.cu) with block 0's weights of the panels model, at
+     panels' shape [1,920·64, 128] and at 1,001 x 3 rows: the forward
+     against its plain version, the backward against its plain backward
+     and fp32 autograd (utils/gradcheck.py), each the same bits on two
+     calls; their times, plain times, bounds and ptxas's registers and
+     spills; rows 5 and 6 at panels' head width 32 against their plain
+     versions; with ``--parent``, the hidden-64 FFN forward and backward
+     bit for bit against the parent tree's;
+ 33. panels train step: entry.panels_train_setup (panels.json's
+     transformer, 15 blocks, hidden 128, 4 heads of 32, B=64, noise 0.01,
+     the 4-term MultiLoss on least-squares gradients), 20 steps with 15 +
+     15 launches of the attention and of the FFN kernels a step against
+     the plain path, each loss term held to the loss's bounds; step,
+     enqueue and device time;
+ 34. panels fit and predict: Trainer.fit of panels.json's model on
+     in-memory panels trajectories (3 of 66 frames built as
+     ``--external panels`` builds them, B=64, one epoch, a 50-step
+     validation rollout), then predict from its checkpoint: losses and
+     RMSE finite, the launches of the fit and of predict measured and
+     checked, predict's RMSE equal to validate's.
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
 the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
 GraphNetBlock kernels, forward and backward, add each variant's times
-under ``variants``, every GraphNetBlock, gated-FFN and attention kernel
+under ``variants``, both hidden-128 FFN kernels ptxas's report under
+``ptxas``, every GraphNetBlock, gated-FFN and attention kernel
 its profiler device time under ``device_ms``, both gated-FFN kernels
 their graded-shape times and bound under ``graded``, both attention
 backwards their forward + backward under ``fwd_bwd_ms`` and
 ``fwd_bwd_device_ms`` and their device time by pass under ``passes``).
 With ``--parent CHECKOUT`` the libraries that PARENT_LIBS names (both
-GraphNetBlock forwards and backwards, the gated-FFN forward, both
-layouts' attention forward and backward) are built from that checkout's
+GraphNetBlock forwards and backwards, the hidden-64 gated-FFN forward and
+backward, both layouts' attention forward and backward) are built from that checkout's
 csrc/ too, and the same calls (each GraphNetBlock kernel variant, the
 backwards by pass too; the FFN forward at both shapes; each attention's
 forward, backward (by pass too for the NK one) and both together; the
@@ -274,10 +298,11 @@ EMPTY_RECEIVERS = 5
 #: and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 #: the kernels whose ptxas reports (registers, spills) are logged apart:
-#: the gated-FFN forward and backward, both GraphNetBlock forwards and
+#: the gated-FFN forward and backward (both hidden widths), both
+#: GraphNetBlock forwards and
 #: both backwards' passes, the tile pre-pass they share, and both
 #: layouts' attention forward and backward passes
-REDESIGNED = ("ffn_fwd_kernel", "ffn_bwd_kernel", "gn_nk_fwd_kernel", "gn_nk_bwd_",
+REDESIGNED = ("ffn_fwd_kernel", "ffn_bwd_kernel", "ffn128_", "gn_nk_fwd_kernel", "gn_nk_bwd_",
               "gn_csr_fwd_kernel", "gn_csr_bwd_", "gn_partial_tc_kernel", "ea_csr_fwd_kernel",
               "ea_csr_bwd_", "ea_nk_fwd_kernel", "ea_nk_bwd_")
 FWD = {"name": "fused_gn_block_nk", "source": "graph_physics_tpu_torch/csrc/fused_gnblock_nk.cu",
@@ -544,7 +569,8 @@ PARENT = None
 #: the libraries a parent tree is timed with, and the op module binding each
 PARENT_LIBS = {"gn_csr_fwd": "fused_gnblock_csr", "gn_csr_bwd": "fused_gnblock_csr",
                "gn_nk_fwd": "fused_gnblock_nk", "gn_nk_bwd": "fused_gnblock_nk",
-               "ffn": "fused_ffn", "edge_attention_csr": "fused_edge_attention_csr",
+               "ffn": "fused_ffn", "ffn_bwd": "fused_ffn",
+               "edge_attention_csr": "fused_edge_attention_csr",
                "edge_attention_csr_bwd": "fused_edge_attention_csr",
                "edge_attention_nk": "fused_edge_attention_nk",
                "edge_attention_nk_bwd": "fused_edge_attention_nk"}
@@ -849,13 +875,13 @@ def plain_copy(sim):
 def train_run(step, state, sim, graph, seed, n_steps, kernels=()):
     """``n_steps`` train steps of ``sim`` with noise from a generator seeded
     with ``seed``; returns (losses, grad norms, launches per step of each
-    wrapper in ``kernels`` as (forward, backward) pairs, and the unclipped
-    gradients of step 1 by parameter name)."""
+    wrapper in ``kernels`` as (forward, backward) pairs, the unclipped
+    gradients of step 1 by parameter name, and each step's loss terms)."""
     import torch
 
     gen = torch.Generator(device=graph.x.device).manual_seed(seed)
     params = dict(sim.named_parameters())
-    losses, norms, launches, grads = [], [], [], None
+    losses, norms, launches, grads, terms = [], [], [], None, []
     for i in range(1, n_steps + 1):
         before = [launch_counts(k) for k in kernels]
         m = step(state, graph, gen)
@@ -863,10 +889,11 @@ def train_run(step, state, sim, graph, seed, n_steps, kernels=()):
         launches.append(tuple((f1 - f0, b1 - b0) for (f0, b0), (f1, b1) in zip(before, after)))
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
+        terms.append([m[f"loss_term_{t}"].item() for t in range(len(m) - 2)])
         if i == 1:  # undo the clip: g · min(1, clip / norm)
             undo = max(norms[-1] / state.optimizer.grad_clip, 1.0)
             grads = {k: p.grad.float() * undo for k, p in params.items()}
-    return losses, norms, launches, grads
+    return losses, norms, launches, grads, terms
 
 
 def training_phase(label, train, kernels, seed, per_step_want=None):
@@ -887,17 +914,18 @@ def training_phase(label, train, kernels, seed, per_step_want=None):
         per_step_want = (n_blocks, n_blocks)
     plain_sim = plain_copy(train.simulator)
     preprocess = getattr(train, "device_preprocess", None)
-    plain_state, plain_step = entry.make_trainer(plain_sim, preprocess)
-    fg = step1_fp32_grads(plain_sim, tgraph, seed, preprocess)
+    loss_fn, method = getattr(train, "loss_fn", None), getattr(train, "gradient_method", None)
+    plain_state, plain_step = entry.make_trainer(plain_sim, preprocess, loss_fn, method)
+    fg = step1_fp32_grads(plain_sim, tgraph, seed, preprocess, loss_fn, method)
     reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
-    kl, kn, per_step, kg = train_run(train.train_step, train.state, train.simulator, tgraph,
+    kl, kn, per_step, kg, kt = train_run(train.train_step, train.state, train.simulator, tgraph,
                                      seed, TRAIN_STEPS, kernels)
     torch.cuda.synchronize()
     launches = {k.__name__: launch_counts(k) for k in kernels}
     peak = {"kernel": torch.cuda.max_memory_allocated()}
     torch.cuda.reset_peak_memory_stats()
-    pl, pn, _, pg = train_run(plain_step, plain_state, plain_sim, tgraph, seed, TRAIN_STEPS)
+    pl, pn, _, pg, pt = train_run(plain_step, plain_state, plain_sim, tgraph, seed, TRAIN_STEPS)
     torch.cuda.synchronize()
     peak["plain"] = torch.cuda.max_memory_allocated()
     log(f"{label} ({TRAIN_STEPS} steps, B={batch_size(tgraph)}): launches per step "
@@ -935,6 +963,15 @@ def training_phase(label, train, kernels, seed, per_step_want=None):
         f"plain path {l2['plain']:.6g}")
     if loss_rel[0] > STEP1_LOSS_RTOL or max(loss_rel[1:]) > LATER_LOSS_RTOL:
         raise AssertionError(f"{label}: loss of the kernel path is off the plain path's")
+    if len(kt[0]) > 1:  # a MultiLoss: each term to the loss's bounds
+        for t in range(len(kt[0])):
+            rel = [abs(a[t] - c[t]) / abs(c[t]) for a, c in zip(kt, pt)]
+            log(f"  loss term {t}: kernel path step 1 {kt[0][t]:.6g}, plain {pt[0][t]:.6g}; "
+                f"relative difference step 1 {rel[0]:.6g}, steps 2-{TRAIN_STEPS} max "
+                f"{max(rel[1:]):.6g}")
+            if rel[0] > STEP1_LOSS_RTOL or max(rel[1:]) > LATER_LOSS_RTOL:
+                raise AssertionError(f"{label}: loss term {t} of the kernel path is off the "
+                                     "plain path's")
     if grad_rel > STEP1_GRAD_REL:
         raise AssertionError(f"{label}: step-1 gradients off the plain path's")
     for k, p in train.simulator.named_parameters():
@@ -992,16 +1029,17 @@ def parent_step_note(st):
                         if k.startswith("train_step_parent")})
 
 
-def step1_fp32_grads(sim, graph, seed, preprocess=None):
+def step1_fp32_grads(sim, graph, seed, preprocess=None, loss_fn=None, gradient_method=None):
     """Gradients of the first train step's loss (same noise draws, slice
     noise too; ``preprocess`` in place of bench.py's noise where the setup
-    has one) on an fp32 copy of ``sim`` on the plain path, by parameter
-    name."""
+    has one; ``loss_fn``, a MultiLoss, with ``gradient_method`` in place of
+    the masked L2) on an fp32 copy of ``sim`` on the plain path, by
+    parameter name."""
     import torch
     from graph_physics_tpu_torch import entry
-    from graph_physics_tpu_torch.training.loss import l2_loss
+    from graph_physics_tpu_torch.training.loss import DEFAULT_MASK_TYPES, l2_loss
     from graph_physics_tpu_torch.training.noise import add_noise
-    from graph_physics_tpu_torch.training.step import model_uses_gumbel
+    from graph_physics_tpu_torch.training.step import model_uses_gumbel, multi_loss
 
     sim = plain_copy(sim)
     for m in sim.modules():  # modules that cast to a compute dtype
@@ -1014,7 +1052,10 @@ def step1_fp32_grads(sim, graph, seed, preprocess=None):
     with torch.enable_grad():
         out = sim.forward(g, is_training=True,
                           gumbel=gen if model_uses_gumbel(sim.model) else None)
-        l2_loss(g, out.net_out, out.target_norm).backward()
+        if loss_fn is None:
+            l2_loss(g, out.net_out, out.target_norm).backward()
+        else:
+            multi_loss(loss_fn, sim, g, out, DEFAULT_MASK_TYPES, gradient_method)[0].backward()
     return {k: p.grad.float() for k, p in sim.named_parameters()}
 
 
@@ -1039,8 +1080,8 @@ def memory_dataset_class():
         def __init__(self, trajectories, meta, frame_config, seed=0):
             super().__init__(frame_config, meta, seed=seed)
             self._trajs = list(trajectories)
-            self._traj_len = [int(t["velocity" if "velocity" in t else "world_pos"].shape[0])
-                              for t in self._trajs]
+            self._traj_len = [int(next(t[k] for k in ("velocity", "world_pos", "Vitesse")
+                                       if k in t).shape[0]) for t in self._trajs]
             self._setup_index()
 
         @property
@@ -1612,11 +1653,14 @@ def main():
     world = world_phases(device, card)
     plate_launches, plate_info = plate_phases(device, card)
     log("plate " + json.dumps({"card": card, **plate_info}))
+    # 32.-34. the panels workload: the hidden-128 FFN kernels, its train
+    # step, fit and predict
+    panels_records, panels_launches = panels_phases(device, card, build_log)
     for rec in (*tf_records, *tf_train_records, *graded_records, *graded_train_records):
         if rec["name"] in world:
             rec["world"] = world[rec["name"]]
             rec["max_abs_err"] = max(rec["max_abs_err"], rec["world"]["max_abs_err"])
-        for name, (fwd_n, bwd_n) in plate_launches.items():
+        for name, (fwd_n, bwd_n) in (*plate_launches.items(), *panels_launches.items()):
             rec["launches"] += (fwd_n if rec["name"] == name else
                                 bwd_n if rec["name"] == f"{name}_backward" else 0)
 
@@ -1640,6 +1684,7 @@ def main():
         *graded_records,
         *graded_train_records,
         gumbel_record,
+        *panels_records,
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -3100,6 +3145,313 @@ def plate_phases(device, card):
     return launches, {"plate_step": st, "plate_layout": type(layout).__name__,
                       "plate_fit_s": fit_s}
 
+
+#: phase 32: a row count of the hidden-128 FFN that is not a multiple of its
+#: 128-row tile (1,001 nodes x 3 samples)
+PANELS_TAIL = (1001, 3)
+#: phase 34: panels trajectories of the fit (PANELS_FIT_FRAMES frames: frame
+#: 0 is the first sample's previous frame, so 64 samples, one B=64 batch a
+#: trajectory), one epoch, then a VAL_STEPS-step validation rollout
+PANELS_FIT_TRAJECTORIES, PANELS_FIT_FRAMES, PANELS_FIT_EPOCHS = 3, 66, 1
+FFN128 = {"name": "fused_gated_ffn_h128", "source": "graph_physics_tpu_torch/csrc/fused_ffn128.cu",
+          "replaces": "graph_physics_tpu/ops/fused_ffn.py:74"}
+FFN128_BWD = {"name": "fused_gated_ffn_h128_backward",
+              "source": "graph_physics_tpu_torch/csrc/fused_ffn128_bwd.cu",
+              "replaces": "graph_physics_tpu/ops/fused_ffn.py:99"}
+
+
+def panels_kernel_checks(train, card, build_log):
+    """Phase 32: rows 9 and 10 at hidden 128 with block 0's weights of the
+    panels model, kernel against plain version at panels' shape and at
+    ``PANELS_TAIL`` rows, the same bits on two calls, times and bounds and
+    ptxas's report; rows 5 and 6 at panels' head width 32; with a parent
+    tree, the hidden-64 instance's bits against the parent's. Returns the
+    two hidden-128 records without their launches."""
+    import torch
+    from graph_physics_tpu_torch.models.layers import GatedMLPBlock, RMSNorm, reset_parameters
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.utils import gradcheck
+
+    ffn, attn = ffn_ops.fused_gated_ffn, ea_ops.fused_edge_attention_nk
+    sim, graph, nk = train.simulator, train.graph, train.tiling
+    blk0 = sim.model.processor_list[0]
+    mlp, norm2 = blk0.gated_mlp, blk0.norm2
+    n, b = graph.x.shape[:2]
+    hidden = sim.model.hidden_size
+    heads = blk0.attention.num_heads
+    gen = torch.Generator(device=graph.x.device).manual_seed(32)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=graph.x.device) * scale).to(
+            torch.bfloat16)
+
+    resources = kernel_resources(build_log, ("ffn128_",))
+    for name, use in resources.items():
+        log(f"ptxas, hidden-128 FFN kernel {name}: {use}")
+    x, cot = randn(n, b, hidden), randn(n, b, hidden)
+    tail = tuple(t[:PANELS_TAIL[0], :PANELS_TAIL[1]].contiguous() for t in (x, cot))
+    cases = {"panels shape": (x, cot), "tail rows": tail}
+    f_errs = []
+    with torch.inference_mode():
+        for label, (xx, _) in cases.items():
+            before = ffn.launches
+            y1, y2 = ffn(xx, mlp, norm2), ffn(xx, mlp, norm2)
+            torch.cuda.synchronize()
+            log(f"hidden-128 FFN forward kernel check [{label}: {xx.shape[0] * xx.shape[1]} rows, "
+                f"{ffn.launches - before} launches]")
+            if ffn.launches != before + 2:
+                raise AssertionError("hidden-128 FFN: the forward kernel did not launch twice")
+            if not torch.equal(y1, y2):
+                raise AssertionError("hidden-128 FFN forward: other bits on a second call")
+            f_errs.append(compare("y", y1, ffn_ops.gated_ffn_reference(xx, mlp, norm2), FFN_TOL))
+            log("  the same bits on two calls")
+
+    names = ["dx", "norm2.scale", "norm.scale", "W1", "b1", "W2", "b2", "W3", "b3"]
+
+    def feed_forward(fn, m, n2):
+        return lambda xx: (fn(xx, m, n2), ffn_ops._params(m, n2))
+
+    b_errs = []
+    for label, (xx, cc) in cases.items():
+        before = ffn.backward_launches
+        rows, ok, kept = gradcheck.check_backward(
+            names, ("dx",), feed_forward(ffn, mlp, norm2),
+            feed_forward(ffn_ops.reference_with_backward, mlp, norm2),
+            feed_forward(ffn_ops.gated_ffn_reference, gradcheck.rounded_copy(mlp),
+                         gradcheck.rounded_copy(norm2)), [xx], [cc])
+        torch.cuda.synchronize()
+        log(f"hidden-128 FFN backward kernel check [{label}] (against the plain backward; both "
+            f"against fp32)")
+        log_grad_rows(rows)
+        if ffn.backward_launches != before + 1:
+            raise AssertionError("hidden-128 FFN: the backward kernel did not launch once")
+        if not ok:
+            raise AssertionError(f"hidden-128 FFN backward kernel [{label}] out of bounds")
+        b_errs.append(max(r.get("max_abs_err", float("inf")) for r in rows))
+        g1, g2 = (torch.autograd.grad(*kept["kernel"], retain_graph=True) for _ in range(2))
+        if not all(torch.equal(a, c) for a, c in zip(g1, g2)):
+            raise AssertionError("hidden-128 FFN backward: other bits on a second call")
+        log("  the same bits on two calls")
+        if label == "panels shape":
+            bwd_t = ffn_backward_times(kept)
+        del kept
+
+    def forward(fn):
+        def run():
+            with torch.inference_mode():
+                fn(x, mlp, norm2)
+        return run
+
+    fwd_t = {"ms": cuda_ms(forward(ffn)), "device_ms": device_ms(forward(ffn)),
+             "plain_ms": cuda_ms(forward(ffn_ops.gated_ffn_reference))}
+    # x read and y written (bf16) and the fp32 weights read; 3 products of
+    # H x 3H a row forward, 8 backward (x, g read, dx written, the weights
+    # read and their fp32 gradients written)
+    params = sum(p.numel() for p in ffn_ops._params(mlp, norm2))
+    prods = 2 * n * b * hidden * 3 * hidden
+    fwd_bound = bound(2 * 2 * x.numel() + 4 * params, 3 * prods)
+    bwd_bound = bound(2 * 3 * x.numel() + 8 * params, 8 * prods)
+    log(f"  hidden-128 FFN at [{n}·{b}, {hidden}]: forward kernel {fwd_t['ms']:.4f} ms (device "
+        f"{fwd_t['device_ms']:.4f}), plain {fwd_t['plain_ms']:.4f} ms, bound {fwd_bound[0]:.6g} ms "
+        f"({fwd_bound[1]}); backward kernel {bwd_t['ms']:.4f} ms (device {bwd_t['device_ms']:.4f}), "
+        f"plain backward {bwd_t['plain_ms']:.4f} ms, bound {bwd_bound[0]:.6g} ms ({bwd_bound[1]}) "
+        f"({card})")
+
+    # rows 5 and 6 at panels' head width 32: forward and backward kernels
+    # against their plain versions
+    dh = hidden // heads
+    q, k, v = (randn(n, b, heads, dh, scale=0.5) for _ in range(3))
+    cot_a = randn(n, b, heads, dh)
+    rows_a = (graph.senders, graph.receivers, graph.edge_mask)
+    with torch.inference_mode():
+        log(f"attention kernel check at panels' shape ({heads} heads of {dh})")
+        compare("attention", attn(q, k, v, *rows_a, nk),
+                ea_ops.fused_edge_attention_nk_reference(q, k, v, *rows_a, nk), ATTN_RTOL,
+                atol=ATTN_ATOL)
+
+    def attention(fn):
+        return lambda *qkv: (fn(*qkv, *rows_a, nk), [])
+
+    before = attn.backward_launches
+    gk, _ = gradcheck.grads_of(attention(attn), (q, k, v), [cot_a])
+    torch.cuda.synchronize()
+    if attn.backward_launches != before + 1:
+        raise AssertionError("panels attention: the backward kernel did not launch once")
+    gp, _ = gradcheck.grads_of(attention(ea_ops.reference_with_backward), (q, k, v), [cot_a])
+    gf, _ = gradcheck.grads_of(attention(ea_ops.fused_edge_attention_nk_reference),
+                               (q.float(), k.float(), v.float()), [cot_a])
+    a_rows, a_ok = gradcheck.compare_grads(("dq", "dk", "dv"), gk, gp, gf, ("dq", "dk", "dv"))
+    log("attention backward kernel check at panels' shape (against the plain backward; both "
+        "against fp32)")
+    log_grad_rows(a_rows)
+    if not a_ok:
+        raise AssertionError("panels attention backward kernel out of bounds")
+    del gk, gp, gf
+
+    if PARENT is not None:  # the hidden-64 instance keeps the parent's bits
+        gen64 = torch.Generator().manual_seed(64)
+        m64, n64 = GatedMLPBlock(64, 64, 64), RMSNorm(64)
+        reset_parameters(m64, gen64)
+        m64, n64 = m64.to(x.device), n64.to(x.device)
+        x64, c64 = randn(n, b, 64), randn(n, b, 64)
+
+        def fwd64():
+            with torch.inference_mode():
+                return ffn(x64, m64, n64)
+
+        def bwd64():
+            xl = x64.clone().requires_grad_(True)
+            return torch.autograd.grad(ffn(xl, m64, n64), [xl, *ffn_ops._params(m64, n64)], c64)
+
+        same_bits_as_parent("hidden-64 FFN forward", fwd64, ("ffn",))
+        same_bits_as_parent("hidden-64 FFN backward", bwd64, ("ffn_bwd",))
+    return [
+        dict(FFN128, route="cuda", launches=0, max_abs_err=max(f_errs), ms=fwd_t["ms"],
+             plain_ms=fwd_t["plain_ms"], bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+             library_ms=None, device_ms=fwd_t["device_ms"],
+             ptxas={k: v for k, v in resources.items() if "bwd" not in k and "wgrad" not in k}),
+        dict(FFN128_BWD, route="cuda", launches=0, max_abs_err=max(b_errs), ms=bwd_t["ms"],
+             plain_ms=bwd_t["plain_ms"], bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+             library_ms=None, device_ms=bwd_t["device_ms"],
+             ptxas={k: v for k, v in resources.items() if "bwd" in k or "wgrad" in k}),
+    ]
+
+
+def panels_phases(device, card, build_log):
+    """Phases 32-34: the panels workload (training_config/panels.json: 15
+    blocks, hidden 128, 4 heads of 32, bf16, the 4-term MultiLoss on
+    least-squares gradients) at full width: the hidden-128 FFN kernels and
+    the attention at its shape, 20 train steps at B=64 with 15 + 15
+    launches of rows 5/6 and of rows 9/10 a step against the plain path,
+    then Trainer.fit and predict. Returns the two hidden-128 records, with
+    the launches of phases 33-34, and {the attention wrapper's name:
+    (forward, backward) launches} of phases 33-34."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.cli import predict as predict_cli
+    from graph_physics_tpu_torch.cli.common import load_inference_stack
+    from graph_physics_tpu_torch.dataset import synthetic
+    from graph_physics_tpu_torch.dataset.xdmf_dataset import trajectory_fields
+    from graph_physics_tpu_torch.external import get_feature_builder
+    from graph_physics_tpu_torch.models.layers import lecun_parameters
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.ops.tiling import NKTiling
+    from graph_physics_tpu_torch.training import config as config_lib
+    from graph_physics_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    attn, ffn = ea_ops.fused_edge_attention_nk, ffn_ops.fused_gated_ffn
+    train = entry.panels_train_setup(device)
+    g, layout = train.graph, train.tiling
+    n_blocks = len(train.simulator.model.processor_list)
+    log(f"panels: {int(g.n_node)} nodes ({g.x.shape[0]} rows) x {g.x.shape[1]} samples, "
+        f"{g.x.shape[2]} features, {n_blocks} blocks, hidden {train.simulator.model.hidden_size}, "
+        f"layout {type(layout).__name__} (K={getattr(layout, 'k_slots', None)}), "
+        f"{int(g.face_mask.sum())} faces, loss {[t.name for t in train.loss_fn.losses]} "
+        f"(weights {train.loss_fn.weights}, {train.gradient_method})")
+    if not isinstance(layout, NKTiling):
+        raise AssertionError(f"panels: FusedTopologyManager chose {type(layout).__name__}, "
+                             "not the NK layout")
+
+    # 32. rows 9 and 10 at hidden 128, rows 5 and 6 at head width 32
+    records = panels_kernel_checks(train, card, build_log)
+
+    # 33. the panels train step: kernel path against the plain path
+    _, plain_state, plain_step, launches = training_phase("panels training", train,
+                                                          [attn, ffn], 33)
+    st = step_timing(train, plain_state, plain_step, 34)  # the parent has no hidden 128
+    st = {k: v for k, v in st.items() if "parent" not in k}
+    b = g.x.shape[1]
+    log(f"panels train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
+        f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
+        f"{st['train_step_device_ms']:.4f} ms; the host enqueues a step in "
+        f"{st['train_step_host_enqueue_ms']:.4f} ms, CUDA events "
+        f"{st['train_step_enqueue_events_ms']:.4f} ms over the same steps, "
+        f"{st['train_step_syncs']} device-to-host syncs a step), plain path "
+        f"{st['train_step_plain_ms']:.4f} ms "
+        f"({1000 * b / st['train_step_plain_ms']:.1f} graph-steps/s) ({card})")
+    log("panels train timing " + json.dumps({"card": card, **st}))
+    del train, plain_state, plain_step
+    torch.cuda.empty_cache()
+
+    # 34. panels through Trainer.fit (the CLI's stack) and predict, from
+    # in-memory trajectories built as --external panels builds them
+    param = config_lib.load_params(str(entry.PANELS_CONFIG))
+    frame_cfg = config_lib.get_frame_config(param, use_previous_data=True,
+                                            extra_node_features=get_feature_builder("panels"))
+
+    def fields(frames):
+        traj = synthetic.make_panels_trajectory(48, 40, frames)
+        return trajectory_fields(traj["mesh_pos"], traj["cells"],
+                                 {k: v for k, v in traj.items() if k not in ("mesh_pos", "cells")})
+
+    ds = memory_dataset_class()
+    train_ds = ds([fields(PANELS_FIT_FRAMES)] * PANELS_FIT_TRAJECTORIES,
+                  synthetic.xdmf_meta_dict(PANELS_FIT_FRAMES, 0.2), frame_cfg)
+    val_ds = ds([fields(VAL_STEPS + 2)], synthetic.xdmf_meta_dict(VAL_STEPS + 2, 0.2), frame_cfg)
+    sim = config_lib.get_simulator(param, config_lib.get_model(param, dtype=torch.bfloat16))
+    lecun_parameters(sim, torch.Generator().manual_seed(0))
+    cfg = TrainerConfig(epochs=PANELS_FIT_EPOCHS, batch_size=TF_FIT_BATCH, learning_rate=1e-3,
+                        warmup=100, packed=True, fused=True,
+                        out_dir=str(ROOT / "build" / "fit"), run_name="fit_panels", seed=0)
+    shutil.rmtree(ROOT / "build" / "fit" / "fit_panels", ignore_errors=True)
+    loss_fn, _ = config_lib.get_loss(param)
+    tr = Trainer(sim, train_ds, val_ds, loss_fn, cfg,
+                 gradient_method=config_lib.get_gradient_method(param),
+                 noise_cfg=config_lib.get_noise_config(param), device=device)
+    reset_counts([attn, ffn])
+    t0 = time.perf_counter()
+    tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = {k.__name__: launch_counts(k) for k in (attn, ffn)}
+    fit_records = epoch_records(tr)
+    steps = PANELS_FIT_EPOCHS * PANELS_FIT_TRAJECTORIES
+    n_blocks = len(tr.sim.model.processor_list)
+    log(f"fit, panels.json ({n_blocks} blocks, hidden {tr.sim.model.hidden_size}, bf16, "
+        f"{type(tr.sim.model.tiling).__name__} layout, the 4-term MultiLoss; "
+        f"{PANELS_FIT_TRAJECTORIES} trajectories of {PANELS_FIT_FRAMES} frames, B={TF_FIT_BATCH}, "
+        f"{PANELS_FIT_EPOCHS} epoch, {tr.state.step} steps, validation {VAL_STEPS} rollout "
+        f"steps): {fit_s:.1f} s ({card})")
+    for r in fit_records:
+        log(f"  epoch {int(r['epoch'])}: train_loss_epoch {r['train_loss_epoch']:.6g} "
+            f"val_all_rollout_rmse {r['val_all_rollout_rmse']:.6g} val_1step_rmse "
+            f"{r['val_1step_rmse']:.6g} ({r['epoch_time_s']:.2f} s)")
+    want = (n_blocks * (tr.state.step + PANELS_FIT_EPOCHS * VAL_STEPS), n_blocks * tr.state.step)
+    log("  launches (forward, backward): " + ", ".join(
+        f"{k} {v}" for k, v in fit_launches.items()) + f"; expected {want} each")
+    values = [r[k] for r in fit_records for k in ("train_loss_epoch", "val_all_rollout_rmse")]
+    if (len(fit_records) != PANELS_FIT_EPOCHS or not all(math.isfinite(v) for v in values)
+            or tr.state.step != steps or any(v != want for v in fit_launches.values())):
+        raise AssertionError(f"phase 34: {tr.state.step} steps, launches {fit_launches}, "
+                             f"records {fit_records}")
+    args = predict_cli.build_argparser().parse_args([
+        "--training_parameters_path", str(entry.PANELS_CONFIG), "--model_path", tr.ckpt_dir,
+        "--bf16", "--fused", "--external", "panels", "--device", str(device)])
+    reset_counts([attn, ffn])
+    stack = load_inference_stack(args, dataset=val_ds)
+    pred = predict_cli.predict(stack, fused=True)[0]
+    torch.cuda.synchronize()
+    predict_launches = {k.__name__: launch_counts(k) for k in (attn, ffn)}
+    want_rmse = fit_records[-1]["val_all_rollout_rmse"]
+    rel = abs(pred.rmse_all_rollout - want_rmse) / want_rmse
+    want = (n_blocks * VAL_STEPS, 0)
+    log(f"predict, panels: checkpoint step {stack.step}, rollout of {pred.predictions.shape[0]} "
+        f"steps, launches (forward, backward): " + ", ".join(
+            f"{k} {v}" for k, v in predict_launches.items()) + f", expected {want} each: "
+        f"rmse_all_rollout {pred.rmse_all_rollout:.8g}, validate reported {want_rmse:.8g} "
+        f"(relative difference {rel:.3g}, limit {PREDICT_RTOL})")
+    if (stack.step != steps or rel > PREDICT_RTOL
+            or any(v != want for v in predict_launches.values())):
+        raise AssertionError(f"phase 34: predict's rollout is not validate's, or its launches "
+                             f"{predict_launches} are not {want}")
+    log("panels " + json.dumps({"card": card, "panels_step": st, "panels_fit_s": fit_s}))
+    total = {k.__name__: tuple(sum(c[k.__name__][i] for c in (launches, fit_launches,
+                                                              predict_launches))
+                               for i in (0, 1)) for k in (attn, ffn)}
+    records[0]["launches"], records[1]["launches"] = total[ffn.__name__]
+    return records, {attn.__name__: total[attn.__name__]}
 
 if __name__ == "__main__":
     main()

@@ -34,10 +34,20 @@ class InferenceStack:
 def check_later_options(args) -> None:
     """Flags of later queue items raise, naming their ROADMAP item."""
     if getattr(args, "use_previous_data", False):
-        raise NotImplementedError("--use_previous_data is not ported (ROADMAP A 5.3)")
-    if getattr(args, "external", None):
-        raise NotImplementedError("--external feature builders, which take the previous "
-                                  "frame's data, are not ported (ROADMAP A 5.3)")
+        raise NotImplementedError("--use_previous_data (the rollout's previous_data_slice) "
+                                  "is not ported (ROADMAP A 5.3)")
+
+
+def external_features(args):
+    """(feature builder or None, use_previous_data) of ``--external``: a
+    builder of ``external/`` reads the previous frame's data, so the frame
+    config takes it (cli/train.py:157-160, :175; cli/common.py:45-57)."""
+    name = getattr(args, "external", None)
+    if not name:
+        return None, False
+    from graph_physics_tpu_torch.external import get_feature_builder
+
+    return get_feature_builder(name), True
 
 
 def with_sidecar(frame_cfg):
@@ -52,9 +62,10 @@ def with_sidecar(frame_cfg):
 def load_inference_stack(args, dataset=None) -> InferenceStack:
     """Model, simulator and validation dataset from ``args``
     (``training_parameters_path``, ``model_path``, ``bf16``, ``device``,
-    ``use_previous_data``, ``external``) and the latest checkpoint under
-    ``model_path`` restored into the simulator. ``dataset`` replaces the
-    config's validation dataset."""
+    ``use_previous_data``, ``external``: the feature builder that makes
+    the frames' features) and the latest checkpoint under ``model_path``
+    restored into the simulator. ``dataset`` replaces the config's
+    validation dataset."""
     from graph_physics_tpu_torch.training import checkpoint as ckpt_lib
     from graph_physics_tpu_torch.training import config as config_lib
     from graph_physics_tpu_torch.training.trainer import resolve_device
@@ -68,7 +79,9 @@ def load_inference_stack(args, dataset=None) -> InferenceStack:
     config_lib.get_dynamic_world_edges(param)
     _, world_dev = config_lib.get_world_configs(param)
     if dataset is None:
-        frame_cfg = with_sidecar(config_lib.get_frame_config(param, masking_ratio=0.0))
+        extra, use_prev = external_features(args)
+        frame_cfg = with_sidecar(config_lib.get_frame_config(
+            param, masking_ratio=0.0, use_previous_data=use_prev, extra_node_features=extra))
         dataset = config_lib.get_dataset(param, frame_cfg, switch_to_val=True)
     manager = ckpt_lib.make_manager(args.model_path)
     step = manager.latest_step()

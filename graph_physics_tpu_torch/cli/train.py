@@ -17,8 +17,13 @@ The validation rollouts use the sidecar too: where JAX's CLI builds them
 in the concat layout, the port builds the same edge set beside the mesh,
 so the kernels' world seam runs there as well.
 
+``--external NAME`` builds each frame's features with the named builder
+of ``external/`` (panels, aneurysm, bezier), which reads the previous
+frame's data. A config's physics losses (``loss.type`` with several
+terms, ``loss.gradient_method``) reach the Trainer's step.
+
 Flags of later queue items raise NotImplementedError naming their ROADMAP
-item: ``--use_previous_data`` and ``--external`` (A 5.3), ``--num_dp_devices``,
+item: ``--use_previous_data`` (A 5.3), ``--num_dp_devices``,
 ``--multihost`` (A 9); ``--num_partitions`` and
 ``--max_nodes_per_partition`` wait for ``dataset/partition.py`` (A 4).
 The weights are drawn from ``--seed`` as the JAX package's flax layers
@@ -82,14 +87,19 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="packed loader: ship shared static leaves as [E,1,F] views, "
                         "widened on the device by the train step")
     p.add_argument("--steps_per_dispatch", type=int, default=1)
-    p.add_argument("--external", default=None, help="not ported (ROADMAP A 5.3)")
+    p.add_argument("--external", default=None,
+                   help="feature builder of external/: panels, aneurysm or bezier")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    from graph_physics_tpu_torch.cli.common import check_later_options, with_sidecar
+    from graph_physics_tpu_torch.cli.common import (
+        check_later_options,
+        external_features,
+        with_sidecar,
+    )
     from graph_physics_tpu_torch.models.layers import lecun_parameters
     from graph_physics_tpu_torch.models.processors import TransolverProcessor
     from graph_physics_tpu_torch.models.transolver import init_parameters
@@ -112,11 +122,14 @@ def main(argv=None) -> int:
         lecun_parameters(simulator, gen)
     config_lib.get_mtp_setup(param)
     loss_fn, loss_name = config_lib.get_loss(param)
-    config_lib.get_gradient_method(param)
+    gradient_method = config_lib.get_gradient_method(param)
     config_lib.get_dynamic_world_edges(param)
     noise_cfg = config_lib.get_noise_config(param)
     _, world_dev = config_lib.get_world_configs(param)
-    frame_cfg = config_lib.get_frame_config(param, masking_ratio=args.masking_ratio)
+    extra, use_prev = external_features(args)
+    frame_cfg = config_lib.get_frame_config(param, masking_ratio=args.masking_ratio,
+                                            use_previous_data=use_prev,
+                                            extra_node_features=extra)
     if frame_cfg.world is not None and not args.packed:
         raise NotImplementedError("world edges without --packed take the concat layout, "
                                   "which is not ported (ROADMAP A 5.2)")
@@ -125,7 +138,8 @@ def main(argv=None) -> int:
         raise NotImplementedError("--num_partitions waits for dataset/partition.py "
                                   "(ROADMAP A 4)")
     train_ds = config_lib.get_dataset(param, frame_cfg, switch_to_val=False, seed=args.seed)
-    val_cfg = with_sidecar(config_lib.get_frame_config(param, masking_ratio=0.0))
+    val_cfg = with_sidecar(config_lib.get_frame_config(
+        param, masking_ratio=0.0, use_previous_data=use_prev, extra_node_features=extra))
     val_ds = config_lib.get_dataset(param, val_cfg, switch_to_val=True, seed=args.seed)
     run_name = args.run_name or os.path.splitext(
         os.path.basename(args.training_parameters_path))[0]
@@ -145,6 +159,7 @@ def main(argv=None) -> int:
         fused_wb_buckets=args.fused_wb_buckets, fused_attn_nk=args.fused_attn_nk,
         fused_gn_nk=args.fused_gn_nk)
     trainer = Trainer(simulator, train_ds, val_ds, loss_fn, tcfg,
+                      gradient_method=gradient_method,
                       run_metadata={"config": param, "loss": loss_name}, noise_cfg=noise_cfg,
                       world_pos=world_dev, device=device)
     state = trainer.fit(resume=args.resume_training)

@@ -63,7 +63,7 @@ class MeshGraph:
     next_data: Optional[Any] = None  # [N, Q] dynamic non-target fields at t+1
     deselected: Optional[Any] = None  # [N] bool, True = node masked out of the loss
     phi: Optional[Any] = None  # [N] per-node gate scalar of a feature hook
-    faces: Optional[Any] = None  # [C, 3] or [C, 4] int32 cells (host-side use)
+    faces: Optional[Any] = None  # [C, 3] or [C, 4] int32 cells (least-squares gradients)
     face_mask: Optional[Any] = None  # [C] bool
     n_edge: Optional[Any] = None  # true edge count
     traj_index: Optional[Any] = None  # trajectory id
@@ -91,8 +91,9 @@ class MeshGraph:
 
         Floating arrays become float32, index arrays int32 and masks bool;
         every tensor is contiguous (the fused kernel reads whole rows). The
-        cells stay on the host, as numpy. ``put(array, dtype)`` replaces
-        the copy (the loader's pinned, asynchronous one).
+        cells go too, as the physics losses' least-squares gradients read
+        them in the step. ``put(array, dtype)`` replaces the copy (the
+        loader's pinned, asynchronous one).
         """
 
         def copy(a, dtype):
@@ -102,7 +103,6 @@ class MeshGraph:
         tensors = {name: None if getattr(host, name) is None else put(getattr(host, name), dtype)
                    for name, dtype in TENSOR_FIELDS.items()}
         return cls(**tensors, n_node=_node_count(host.n_node),
-                   faces=host.faces, face_mask=host.face_mask,
                    n_edge=_node_count(host.n_edge), traj_index=_node_count(host.traj_index),
                    layout=host.layout)
 
@@ -115,6 +115,7 @@ TENSOR_FIELDS = {
     "prev": torch.float32, "next_data": torch.float32, "deselected": torch.bool,
     "phi": torch.float32, "time": torch.float32, "wedge_senders": torch.int32,
     "wedge_receivers": torch.int32, "wedge_mask": torch.bool, "wedge_attr": torch.float32,
+    "faces": torch.int32, "face_mask": torch.bool,
 }
 
 #: the world-edge sidecar's fields

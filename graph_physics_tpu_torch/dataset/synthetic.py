@@ -9,6 +9,10 @@ meta.json, for the tests and the CLI recipe; h5py is imported only there.
 :func:`make_plate_trajectory`, :func:`plate_meta_dict` and
 :func:`write_plate_h5_dataset` are the DeformingPlate-like counterparts
 (a sheet and a descending obstacle bar, the 3-D ``world_pos`` target).
+:func:`make_panels_trajectory` and :func:`make_aneurysm_trajectory` are
+the panels and aneurysm trajectories of the canonical workloads, and
+:func:`write_workload_fixture` writes either as an xdmf dataset (through
+utils/xdmf.XdmfTimeSeriesWriter).
 
 :func:`graded_mesh` and :func:`make_graded_trajectory` are a fixture of
 the port's own: a degree-graded Delaunay mesh around a cylinder, made
@@ -292,3 +296,119 @@ def make_graded_trajectory(
         "node_type": np.repeat(types[None, :, None], num_steps, axis=0).astype(np.int32),
         "velocity": vel.astype(np.float32),
     }
+
+
+# ----------------------------------------------------------------------
+# canonical-workload fixtures (synthetic.py:222-470)
+# ----------------------------------------------------------------------
+
+def make_aneurysm_trajectory(nx: int = 7, ny: int = 6, num_steps: int = 6,
+                             dt: float = 0.01) -> Dict[str, np.ndarray]:
+    """An aneurysm-meta-shaped trajectory (dataset_config/aneurysm_meta.json):
+    a 3-D triangle surface, dynamic Vitesse [N, 3] and a static wall_mask
+    [N, 1]; the inlet plane at y = 0 and walls on the lateral boundaries
+    exercise external/aneurysm.py's node types
+    (synthetic.py:make_aneurysm_trajectory)."""
+    xs = np.linspace(-0.5, 0.5, nx)
+    ys = np.linspace(0.0, 1.0, ny)
+    xx, yy = np.meshgrid(xs, ys, indexing="ij")
+    zz = 0.05 * np.sin(np.pi * yy) * np.cos(np.pi * xx)  # gentle 3D bulge
+    pos = np.stack([xx.ravel(), yy.ravel(), zz.ravel()], -1).astype(np.float32)
+    _, cells = grid_mesh(nx, ny)  # same index topology
+
+    wall = ((np.abs(pos[:, 0] - xs[0]) < 1e-6) | (np.abs(pos[:, 0] - xs[-1]) < 1e-6))
+    # inlet-plane nodes are typed by the builder, not walls
+    wall &= pos[:, 1] > 1e-6
+    wall_mask = wall.astype(np.float32)[:, None]
+
+    def vitesse(t):
+        u = 0.1 * np.sin(2 * np.pi * (pos[:, 1] - t)) * pos[:, 0]
+        v = 1.0 + 0.4 * np.cos(2 * np.pi * t) * (1.0 - np.abs(pos[:, 0]))
+        w = 0.05 * np.sin(np.pi * pos[:, 1] + 4 * t)
+        out = np.stack([u, v, w], -1).astype(np.float32)
+        out[wall] = 0.0
+        return out
+
+    vel = np.stack([vitesse(k * dt) for k in range(num_steps)], 0)
+    return {
+        "cells": np.repeat(cells[None], num_steps, 0).astype(np.int32),
+        "mesh_pos": np.repeat(pos[None], num_steps, 0).astype(np.float32),
+        "Vitesse": vel,
+        "wall_mask": np.repeat(wall_mask[None], num_steps, 0).astype(np.float32),
+    }
+
+
+def make_panels_trajectory(nx: int = 7, ny: int = 6, num_steps: int = 6,
+                           dt: float = 0.2) -> Dict[str, np.ndarray]:
+    """A panels-meta-shaped trajectory (dataset_config/panels_meta.json): a
+    triangle mesh of the unit square with a zero z column, dynamic Vitesse
+    [N, 3] and Pression [N, 1], static LevelSetObject and NodeType fields,
+    as external/panels.py reads them (synthetic.py:make_panels_trajectory)."""
+    pos2d, cells = grid_mesh(nx, ny, 1.0, 1.0)
+    pos = np.concatenate([pos2d, np.zeros((len(pos2d), 1), np.float32)], -1)
+    types = np.full(len(pos), int(NodeType.NORMAL), np.float32)
+    types[np.abs(pos[:, 0]) < 1e-6] = float(NodeType.INFLOW)
+    types[np.abs(pos[:, 0] - 1.0) < 1e-6] = float(NodeType.OUTFLOW)
+    types[(np.abs(pos[:, 1]) < 1e-6) | (np.abs(pos[:, 1] - 1.0) < 1e-6)] = float(
+        NodeType.WALL_BOUNDARY)
+    levelset = (np.linalg.norm(pos[:, :2] - np.array([0.5, 0.5]), axis=-1) < 0.25
+                ).astype(np.float32)
+
+    def fields(t):
+        u = 1.0 + 0.2 * np.sin(2 * np.pi * (pos[:, 0] - 0.3 * t))
+        v = 0.1 * np.cos(2 * np.pi * (pos[:, 1] - 0.3 * t))
+        p = 0.5 * np.cos(np.pi * pos[:, 0]) * np.cos(np.pi * t)
+        return (np.stack([u, v, np.zeros_like(u)], -1).astype(np.float32),
+                p.astype(np.float32)[:, None])
+
+    vels, press = zip(*[fields(k * dt) for k in range(num_steps)])
+
+    def rep(a):
+        return np.repeat(a[None], num_steps, 0)
+
+    return {
+        "cells": rep(cells).astype(np.int32),
+        "mesh_pos": rep(pos).astype(np.float32),
+        "Vitesse": np.stack(vels, 0),
+        "Pression": np.stack(press, 0),
+        "LevelSetObject": rep(levelset[:, None]).astype(np.float32),
+        "NodeType": rep(types[:, None]).astype(np.float32),
+    }
+
+
+def xdmf_meta_dict(num_steps: int, dt: float) -> Dict:
+    """The meta.json of an xdmf fixture: no per-field block, the fields
+    come from the files (synthetic.py:write_workload_fixture)."""
+    return {"dt": dt, "trajectory_length": num_steps, "features": {}, "field_names": []}
+
+
+def write_workload_fixture(workload: str, out_dir: str, num_trajectories: int = 1,
+                           num_steps: int = 6, size: Optional[Tuple[int, ...]] = None
+                           ) -> Tuple[str, str, str]:
+    """A dataset of the aneurysm or panels workload's meta schema, one xdmf
+    series per trajectory (trajectory i on an (nx + i) x ny grid) under
+    ``train/`` and ``test/`` (the xdmf branch of
+    synthetic.py:write_workload_fixture). ``size`` is (nx, ny). Returns
+    (train_path, test_path, meta_path)."""
+    if workload not in ("aneurysm", "panels"):
+        raise ValueError(f"no xdmf fixture for workload {workload!r}")
+    from graph_physics_tpu_torch.utils.xdmf import XdmfTimeSeriesWriter
+
+    os.makedirs(out_dir, exist_ok=True)
+    meta_path = os.path.join(out_dir, "meta.json")
+    make = make_aneurysm_trajectory if workload == "aneurysm" else make_panels_trajectory
+    dt = 0.01 if workload == "aneurysm" else 0.2
+    with open(meta_path, "w") as f:
+        json.dump(xdmf_meta_dict(num_steps, dt), f)
+    for split, n in (("train", num_trajectories), ("test", 1)):
+        d = os.path.join(out_dir, split)
+        os.makedirs(d, exist_ok=True)
+        for i in range(n):
+            gnx, gny = size or (7, 6)
+            traj = make(gnx + i, gny, num_steps, dt)
+            w = XdmfTimeSeriesWriter(os.path.join(d, f"traj_{i}.xdmf"))
+            point_fields = [k for k in traj.keys() if k not in ("cells", "mesh_pos")]
+            for s in range(num_steps):
+                w.append(traj["mesh_pos"][s], traj["cells"][s],
+                         {k: traj[k][s].astype(np.float64) for k in point_fields}, s * dt)
+    return os.path.join(out_dir, "train"), os.path.join(out_dir, "test"), meta_path

@@ -38,13 +38,23 @@ make_plate_trajectory), world edges within radius 0.03 as each frame's
 sidecar of 1,024 slots, B=64 consecutive frames packed, the layout
 FusedTopologyManager("transformer") chooses, and the training step's
 noise (0.003 on the world positions) and world-position edge features.
+``panels_setup`` and ``panels_train_setup`` run the panels workload
+(training_config/panels.json: 15 blocks, hidden 128, 4 heads of 32, bf16)
+at scripts/bench_canonical.py's panels row: the synthetic 48x40 panels
+grid (dataset/synthetic.make_panels_trajectory), frames 1..B built by
+FrameBuilder with the panels feature builder (external/panels.py) as
+``--external panels`` builds them, B=64 packed in the layout
+FusedTopologyManager("transformer") chooses (NK), and the train step of
+panels.json: noise 0.01 on the velocity, the 4-term MultiLoss with
+least-squares gradients, clipped AdamW with the cosine warmup.
 Every setup runs on the card unless the caller passes another device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -371,6 +381,94 @@ def plate_train_setup(device="cuda", *, batch: int = 64, **kw) -> CylinderTrainS
                               state=state, train_step=step, device_preprocess=preprocess)
 
 
+#: the panels workload's config and its frames' target field
+PANELS_CONFIG = Path(__file__).resolve().parents[1] / "training_config" / "panels.json"
+
+
+def panels_param() -> Dict:
+    """training_config/panels.json."""
+    import json
+
+    with open(PANELS_CONFIG) as f:
+        return json.load(f)
+
+
+def panels_frames(traj: Dict[str, np.ndarray], frames: Sequence[int],
+                  dt: float = 0.2) -> List[MeshGraph]:
+    """Host frames of a panels trajectory (synthetic.make_panels_trajectory)
+    as ``cli.train --external panels`` builds them from its xdmf files
+    (dataset/xdmf_dataset.trajectory_fields, then FrameBuilder with
+    external/panels.py and the previous frame's data), laid out by
+    FusedTopologyManager("transformer")."""
+    from graph_physics_tpu_torch.dataset.preprocessing import FrameBuilder
+    from graph_physics_tpu_torch.dataset.xdmf_dataset import trajectory_fields
+    from graph_physics_tpu_torch.external import get_feature_builder
+    from graph_physics_tpu_torch.training import config as config_lib
+
+    fields = trajectory_fields(traj["mesh_pos"], traj["cells"],
+                               {k: v for k, v in traj.items() if k not in ("mesh_pos", "cells")})
+    cfg = config_lib.get_frame_config(panels_param(), use_previous_data=True,
+                                      extra_node_features=get_feature_builder("panels"))
+    builder = FrameBuilder(cfg, synthetic.xdmf_meta_dict(len(traj["mesh_pos"]), dt))
+    manager = FusedTopologyManager("transformer")
+    return [manager.transform_frame(builder.build(fields, t, cache_key=0, train=False))
+            for t in frames]
+
+
+def make_panels_simulator(tiling: Tiling, mp_steps: Optional[int] = None,
+                          dtype=torch.bfloat16, seed: int = 0) -> Simulator:
+    """panels.json's transformer and Simulator (config.get_model and
+    get_simulator), ``mp_steps`` blocks (15 by default), weights from
+    ``seed``, on ``tiling``."""
+    from graph_physics_tpu_torch.training import config as config_lib
+
+    param = panels_param()
+    if mp_steps is not None:
+        param["model"]["message_passing_num"] = mp_steps
+    sim = config_lib.get_simulator(param, config_lib.get_model(param, dtype=dtype))
+    sim.model.tiling = tiling
+    reset_parameters(sim, torch.Generator().manual_seed(seed))
+    return sim
+
+
+def panels_setup(device="cuda", *, nx: int = 48, ny: int = 40, batch: int = 64,
+                 mp_steps: Optional[int] = None, accumulate_stats: bool = True) -> CylinderSetup:
+    """The panels workload at scripts/bench_canonical.py's panels row: frames
+    1..B of a (B+2)-frame synthetic panels trajectory on an nx x ny grid
+    (frame 0 is each sample's previous frame), packed [N, B, F] in the layout
+    FusedTopologyManager("transformer") chooses, and panels.json's model
+    (15 blocks unless ``mp_steps``, weights from seed 0) on ``device``;
+    ``accumulate_stats`` folds the batch into the normalizer statistics."""
+    traj = synthetic.make_panels_trajectory(nx, ny, num_steps=batch + 2)
+    frames = panels_frames(traj, range(1, batch + 1))
+    graph = MeshGraph.from_numpy(pack_frames(frames), device)
+    sim = make_panels_simulator(frames[0].layout, mp_steps).to(device)
+    if accumulate_stats:
+        sim.prepare(graph, is_training=True)
+    return CylinderSetup(simulator=sim, graph=graph, tiling=frames[0].layout, trajectory=traj,
+                         template=frames[0])
+
+
+def panels_train_setup(device="cuda", *, batch: int = 64, **kw) -> "CylinderTrainSetup":
+    """``panels_setup`` with fresh normalizer statistics and panels.json's
+    train step: noise 0.01 on the velocity columns, the MultiLoss of L2,
+    gradient-L2, convection-L2 and divergence-L1 terms (weights 1, 0.01,
+    1e-4, 0.1) on least-squares gradients, AdamW lr 1e-3 with warmup 100 of
+    10,000 steps and clip 1.0. ``kw`` goes to ``panels_setup``."""
+    from graph_physics_tpu_torch.training import config as config_lib
+    from graph_physics_tpu_torch.training.transforms import make_device_preprocess
+
+    base = panels_setup(device, batch=batch, accumulate_stats=False, **kw)
+    param = panels_param()
+    loss_fn, _ = config_lib.get_loss(param)
+    method = config_lib.get_gradient_method(param)
+    preprocess = make_device_preprocess(config_lib.get_noise_config(param), num_steps=NUM_STEPS)
+    state, step = make_trainer(base.simulator, preprocess, loss_fn, method)
+    return CylinderTrainSetup(simulator=base.simulator, graph=base.graph, tiling=base.tiling,
+                              state=state, train_step=step, device_preprocess=preprocess,
+                              loss_fn=loss_fn, gradient_method=method)
+
+
 #: bench.py's training configuration (__graft_entry__._cylinder_setup :97-99)
 LEARNING_RATE, WARMUP, NUM_STEPS = 1e-3, 100, 10000
 NOISE = NoiseConfig(starts=(0,), ends=(2,), scales=(0.02,))
@@ -386,18 +484,25 @@ class CylinderTrainSetup:
     #: the step's (graph, generator, step) -> graph before the forward
     #: (training/transforms.py), where it is not bench.py's noise alone
     device_preprocess: Optional[Callable] = None
+    #: the step's loss and gradient method, where it is not the masked L2
+    loss_fn: Optional[Any] = None
+    gradient_method: Optional[str] = None
 
 
-def make_trainer(sim: Simulator, device_preprocess: Optional[Callable] = None
+def make_trainer(sim: Simulator, device_preprocess: Optional[Callable] = None,
+                 loss_fn=None, gradient_method: Optional[str] = None
                  ) -> Tuple[TrainState, Callable]:
     """A fresh train state and bench.py's train step for ``sim``: AdamW
     (lr 1e-3, warmup 100 of 10,000 steps), noise σ=0.02 on the velocity
-    columns (or ``device_preprocess`` in its place) and the masked L2 loss."""
+    columns (or ``device_preprocess`` in its place) and the masked L2 loss
+    (or ``loss_fn`` with ``gradient_method``)."""
     from graph_physics_tpu_torch.training.transforms import make_device_preprocess
 
     opt = make_optimizer(LEARNING_RATE, warmup=WARMUP, num_steps=NUM_STEPS)
     return init_train_state(sim, opt), make_train_step(
-        sim, l2_loss, device_preprocess or make_device_preprocess(NOISE, num_steps=NUM_STEPS))
+        sim, loss_fn or l2_loss,
+        device_preprocess or make_device_preprocess(NOISE, num_steps=NUM_STEPS),
+        gradient_method=gradient_method)
 
 
 def _train_setup(base: CylinderSetup) -> CylinderTrainSetup:

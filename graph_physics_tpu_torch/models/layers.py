@@ -26,6 +26,9 @@ from graph_physics_tpu_torch.ops.fused_gnblock_csr import fused_gn_block_csr
 from graph_physics_tpu_torch.ops.fused_gnblock_nk import fused_gn_block_nk
 from graph_physics_tpu_torch.ops.tiling import Layout, NKTiling
 
+#: the JAX FFN kernel's lane width: it takes the hidden widths dividing it
+FFN_LANES = 512
+
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """Erf-form GELU evaluated in fp32 (layers.py:gelu_exact)."""
@@ -500,7 +503,10 @@ class TransformerBlock(nn.Module):
     opening with its own RMSNorm. With an NK slot or CSR layout on a
     packed bf16 graph the FFN half runs as one kernel
     (:func:`ops.fused_ffn.fused_gated_ffn`), keyed on the layout as the JAX
-    package keys it on its tiling (layers.py:517-524).
+    package keys it on its tiling, at the hidden widths its kernel takes,
+    those that divide 512 (layers.py:517-524). JAX's other two conditions,
+    B·H and N multiples of 512 and 128, serve the TPU kernel's lane packing:
+    the port's layouts pad N to 128, and its kernels take any B.
     """
 
     def __init__(
@@ -543,6 +549,6 @@ class TransformerBlock(nn.Module):
                                tiling=tiling, wedge_senders=wedge_senders,
                                wedge_receivers=wedge_receivers, wedge_mask=wedge_mask)
         if (tiling is not None and self.dtype == torch.bfloat16 and x.ndim == 3
-                and x.shape[0] == tiling.num_nodes):
+                and x.shape[0] == tiling.num_nodes and FFN_LANES % self.hidden_size == 0):
             return fused_gated_ffn(x.to(self.dtype), self.gated_mlp, self.norm2).to(x.dtype)
         return x + self.gated_mlp(self.norm2(x))

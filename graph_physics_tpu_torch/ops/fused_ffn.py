@@ -6,14 +6,21 @@ _ffn_fwd_kernel (:74) and _ffn_bwd_kernel (:99) behind fused_gated_ffn
 
     y = x + W3 · (act(W1·n + b1) ⊙ (W2·n + b2)) + b3,   n = RMS_0(RMS_norm2(x)).
 
-Both CUDA kernels run their products on the tensor cores in one pass over
-row tiles of [N·B, H], with the weights in shared memory. The forward
+The kernels come in two instances, by the hidden width H. At H = 64 both
+run their products on the tensor cores in one pass over row tiles of
+[N·B, H], with the weights in shared memory. The forward
 (``csrc/fused_ffn.cu``, 128-row tiles) runs its three products and keeps
 the 192-wide middle in registers. The backward
 (``csrc/fused_ffn_bwd.cu``, 64-row tiles) runs eight: it recomputes the
 rows from x, gives dx, and keeps each block's sums of the eight parameter
-gradients, which a second kernel adds in block order; see the sources'
-headers for the designs and the bounds.
+gradients, which a second kernel adds in block order. At H = 128 (the
+panels workload) the weights no longer fit a block's shared memory, so
+they stream through it in chunks of 64 middle columns
+(``csrc/fused_ffn128.cu``), and the backward (``csrc/fused_ffn128_bwd.cu``)
+writes ga1, ga2, gmid and n to a scratch from which a second pass forms
+the weight gradients as tensor-core products over the rows. Any other H
+raises (ROADMAP B 1). See the sources' headers for the designs and the
+bounds.
 :func:`gated_ffn_reference` is the plain PyTorch version of the forward,
 rounding where the kernel rounds (gated_ffn_reference, fused_ffn.py:282,
 with _rms_fwd's numerics), and :func:`gated_ffn_backward_reference` that
@@ -34,8 +41,8 @@ from torch.autograd.function import once_differentiable
 
 from graph_physics_tpu_torch.ops import kernel_build
 
-#: hidden width the kernels are compiled for (``H``); the middle is 3H wide
-KERNEL_HIDDEN = 64
+#: hidden widths the kernels are compiled for (``H``); the middle is 3H wide
+KERNEL_HIDDENS = (64, 128)
 #: RMSNorm epsilon (layers.RMSNorm.eps, _rms_fwd's eps)
 RMS_EPS = 1e-8
 
@@ -43,11 +50,22 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "ffn": {"ffn_fwd": [_vp, _vp, ctypes.c_longlong] + [_vp] * 8 + [_i, _vp]},
     "ffn_bwd": {"ffn_bwd": [_vp] * 5 + [ctypes.c_longlong] + [_vp] * 8 + [_i, _i, _vp]},
+    "ffn128": {"ffn128_fwd": [_vp] * 3 + [ctypes.c_longlong] + [_vp] * 8 + [_i, _vp],
+               "ffn128_fwd_stage": []},
+    "ffn128_bwd": {"ffn128_bwd": [_vp] * 11 + [ctypes.c_longlong] + [_vp] * 7 + [_i] * 3 + [_vp],
+                   "ffn128_bwd_sizes": [_i]},
 }
-_H, _W = KERNEL_HIDDEN, 3 * KERNEL_HIDDEN
-#: the backward's fp32 gradient buffer, in its order: name -> shape
-_GRAD_SHAPES = {"w1": (_W, _H), "w2": (_W, _H), "w3": (_H, _W), "b1": (_W,), "b2": (_W,),
-                "b3": (_H,), "scale": (_H,), "scale2": (_H,)}
+
+
+def _grad_shapes(h: int):
+    """The backward's fp32 gradient buffer at hidden ``h``, in its order:
+    name -> shape."""
+    w = 3 * h
+    return {"w1": (w, h), "w2": (w, h), "w3": (h, w), "b1": (w,), "b2": (w,), "b3": (h,),
+            "scale": (h,), "scale2": (h,)}
+
+
+
 #: ``_params``' order of the same gradients
 _PARAM_ORDER = ("scale2", "scale", "w1", "b1", "w2", "b2", "w3", "b3")
 
@@ -65,6 +83,8 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _launch_fwd(x, block, norm2):
+    if x.shape[-1] == 128:
+        return _launch_fwd128(x, block, norm2)
     y = torch.empty_like(x)
     err = kernel_build.load("ffn", _ARGTYPES["ffn"]).ffn_fwd(
         x.data_ptr(), y.data_ptr(), x.shape[0] * x.shape[1],
@@ -75,13 +95,39 @@ def _launch_fwd(x, block, norm2):
     return y
 
 
+def _launch_fwd128(x, block, norm2):
+    """The hidden-128 forward: its first kernel stages the weights as bf16
+    chunks in ``wst``."""
+    lib = kernel_build.load("ffn128", _ARGTYPES["ffn128"])
+    y = torch.empty_like(x)
+    wst = torch.empty(lib.ffn128_fwd_stage(), dtype=torch.bfloat16, device=x.device)
+    err = lib.ffn128_fwd(
+        x.data_ptr(), y.data_ptr(), wst.data_ptr(), x.shape[0] * x.shape[1],
+        *[p.data_ptr() for p in _params(block, norm2)], int(block.gated.use_silu), _stream(x))
+    if err != 0:
+        raise RuntimeError(f"fused_gated_ffn (hidden 128) launch failed with CUDA error {err}")
+    fused_gated_ffn.launches += 1
+    return y
+
+
+def _named_grads(grads, h):
+    """The flat fp32 gradient buffer as the parameters' gradients in
+    ``_params`` order."""
+    shapes = _grad_shapes(h)
+    sizes = [math.prod(shape) for shape in shapes.values()]
+    named = {name: t.view(shape) for (name, shape), t in zip(shapes.items(), grads.split(sizes))}
+    return [named[k] for k in _PARAM_ORDER]
+
+
 def _launch_bwd(x, block, norm2, g_out):
     """dx (bf16) and the fp32 parameter gradients in ``_params`` order."""
+    if x.shape[-1] == 128:
+        return _launch_bwd128(x, block, norm2, g_out)
     rows = x.shape[0] * x.shape[1]
     dev = x.device
     parts = torch.cuda.get_device_properties(dev).multi_processor_count
     dx = torch.empty_like(x)
-    sizes = [math.prod(shape) for shape in _GRAD_SHAPES.values()]
+    sizes = [math.prod(shape) for shape in _grad_shapes(x.shape[-1]).values()]
     partials = torch.empty((parts, sum(sizes)), dtype=torch.float32, device=dev)
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     err = kernel_build.load("ffn_bwd", _ARGTYPES["ffn_bwd"]).ffn_bwd(
@@ -91,9 +137,40 @@ def _launch_bwd(x, block, norm2, g_out):
     if err != 0:
         raise RuntimeError(f"fused_gated_ffn backward launch failed with CUDA error {err}")
     fused_gated_ffn.backward_launches += 1
-    named = {name: t.view(shape)
-             for (name, shape), t in zip(_GRAD_SHAPES.items(), grads.split(sizes))}
-    return dx, [named[k] for k in _PARAM_ORDER]
+    return dx, _named_grads(grads, x.shape[-1])
+
+
+def _launch_bwd128(x, block, norm2, g_out):
+    """The hidden-128 backward: the row pass writes ga1, ga2, gmid and n to
+    a bf16 scratch, the weight-gradient pass forms dW1, dW2, dW3 from it,
+    and a last kernel adds both passes' partials in a fixed order."""
+    lib = kernel_build.load("ffn128_bwd", _ARGTYPES["ffn128_bwd"])
+    h, w = x.shape[-1], 3 * x.shape[-1]
+    rows = x.shape[0] * x.shape[1]
+    dev = x.device
+    parts = torch.cuda.get_device_properties(dev).multi_processor_count
+    # row splits of the weight-gradient pass: a fixed function of the card,
+    # so two calls sum in the same order; about two of the pass's blocks
+    # (9 a split: 3 products x 3 middle slices) an SM
+    splits = max(1, 2 * parts // 9)
+    dx = torch.empty_like(x)
+    wst = torch.empty(lib.ffn128_bwd_sizes(0), dtype=torch.bfloat16, device=dev)
+    mids = torch.empty((3, rows, w), dtype=torch.bfloat16, device=dev)  # ga1, ga2, gmid
+    n = torch.empty((rows, h), dtype=torch.bfloat16, device=dev)
+    part_a = torch.empty((parts, lib.ffn128_bwd_sizes(1)), dtype=torch.float32, device=dev)
+    part_b = torch.empty((splits, lib.ffn128_bwd_sizes(2)), dtype=torch.float32, device=dev)
+    grads = torch.empty(lib.ffn128_bwd_sizes(3), dtype=torch.float32, device=dev)
+    params = _params(block, norm2)
+    err = lib.ffn128_bwd(
+        x.data_ptr(), g_out.data_ptr(), dx.data_ptr(), wst.data_ptr(), mids[0].data_ptr(),
+        mids[1].data_ptr(), mids[2].data_ptr(), n.data_ptr(), part_a.data_ptr(),
+        part_b.data_ptr(), grads.data_ptr(), rows, *[p.data_ptr() for p in params[:7]],
+        int(block.gated.use_silu), parts, splits, _stream(x))
+    if err != 0:
+        raise RuntimeError(f"fused_gated_ffn (hidden 128) backward launch failed with CUDA "
+                           f"error {err}")
+    fused_gated_ffn.backward_launches += 1
+    return dx, _named_grads(grads, h)
 
 
 class _FusedGatedFFN(torch.autograd.Function):
@@ -134,7 +211,8 @@ def fused_gated_ffn(x: torch.Tensor, block, norm2) -> torch.Tensor:
     x is bf16 [N, B, H]; ``block`` is the block's GatedMLPBlock (RMSNorm,
     GatedMLP, Dense; models/layers.py) and ``norm2`` its RMSNorm. CPU
     tensors take :func:`gated_ffn_reference` (gradient by plain autograd);
-    CUDA tensors launch the kernel, counted in ``fused_gated_ffn.launches``,
+    CUDA tensors launch the kernel of their H (64 or 128; any other raises),
+    counted in ``fused_gated_ffn.launches``,
     and under autograd its gradient is the backward kernel, counted in
     ``fused_gated_ffn.backward_launches``.
     """
@@ -144,10 +222,10 @@ def fused_gated_ffn(x: torch.Tensor, block, norm2) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     h = x.shape[-1]
-    if h != KERNEL_HIDDEN or block.gated.linear1.weight.shape != (3 * h, h) or \
+    if h not in KERNEL_HIDDENS or block.gated.linear1.weight.shape != (3 * h, h) or \
             block.out.weight.shape != (h, 3 * h):
-        raise NotImplementedError(f"the kernel is built for hidden {KERNEL_HIDDEN} with a "
-                                  f"{3 * KERNEL_HIDDEN}-wide middle")
+        raise NotImplementedError(f"the gated-FFN kernels are built for hidden {KERNEL_HIDDENS} "
+                                  f"with a 3H-wide middle, not hidden {h} (ROADMAP B 1)")
     for p in params:
         if p.dtype != torch.float32 or not p.is_contiguous():
             raise ValueError("kernel parameters must be contiguous fp32")

@@ -38,6 +38,8 @@ LIBRARIES = {
     "edge_attention_nk_bwd": ("fused_edge_attention_nk_bwd.cu", _EA_BWD),
     "ffn": ("fused_ffn.cu", ("ffn_common.cuh", "mma_common.cuh")),
     "ffn_bwd": ("fused_ffn_bwd.cu", ("ffn_common.cuh", "mma_common.cuh")),
+    "ffn128": ("fused_ffn128.cu", ("ffn_wide.cuh", "ffn_common.cuh", "mma_common.cuh")),
+    "ffn128_bwd": ("fused_ffn128_bwd.cu", ("ffn_wide.cuh", "ffn_common.cuh", "mma_common.cuh")),
     "gn_csr_fwd": ("fused_gnblock_csr.cu",
                    ("gn_fwd.cuh", "gn_rows.cuh", "gn_tile.cuh", "gn_nk_common.cuh",
                     "mma_common.cuh")),

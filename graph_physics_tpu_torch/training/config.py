@@ -2,13 +2,12 @@
 package: a training config with dataset/model/index/transformations/
 loss/training blocks, and the dataset's meta.json).
 
-Counterpart of graph_physics_tpu/training/config.py. Options that belong
-to later queue items raise NotImplementedError naming their ROADMAP item:
-the rollout's dynamic world edges (A 5.2), physics losses (A 6), the
-temporal block, RoPE and
-gates in the GraphNetBlock, gated MLPs, multigrid, remat and spatial MTP
-(A 7); the xdmf dataset waits for ``dataset/xdmf_dataset.py`` (A 4's
-remainder).
+Counterpart of graph_physics_tpu/training/config.py: the h5 and xdmf
+datasets, the data and physics losses (``LossType``, ``MultiLoss``) with
+their gradient method. Options that belong to later queue items raise
+NotImplementedError naming their ROADMAP item: the rollout's dynamic
+world edges (A 5.2), the temporal block, RoPE and gates in the
+GraphNetBlock, gated MLPs, multigrid, remat and spatial MTP (A 7).
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ from graph_physics_tpu_torch.models.processors import (
     TransolverProcessor,
 )
 from graph_physics_tpu_torch.models.simulator import Simulator
-from graph_physics_tpu_torch.training.loss import l2_loss
+from graph_physics_tpu_torch.training.loss import LossType, MultiLoss
 from graph_physics_tpu_torch.training.step import NoiseConfig
 from graph_physics_tpu_torch.training.transforms import WorldPosConfig
 
@@ -139,8 +138,10 @@ def get_dynamic_world_edges(param: Dict[str, Any]):
 
 def get_frame_config(param: Dict[str, Any], masking_ratio: Optional[float] = None,
                      use_previous_data: bool = False,
-                     use_edge_feature: bool = True) -> FrameConfig:
-    """config.py:get_frame_config (:182)."""
+                     use_edge_feature: bool = True,
+                     extra_node_features=None, extra_edge_features=None) -> FrameConfig:
+    """config.py:get_frame_config (:182); ``extra_node_features`` is a
+    feature builder of ``external/``."""
     world, _ = get_world_configs(param)
     ds = param["dataset"]
     pp = param.get("transformations", {}).get("preprocessing", {})
@@ -153,12 +154,14 @@ def get_frame_config(param: Dict[str, Any], masking_ratio: Optional[float] = Non
                        else pp.get("masking", 0) or 0.0),
         use_previous_data=use_previous_data,
         add_edge_features=use_edge_feature,
+        extra_node_features=extra_node_features,
+        extra_edge_features=extra_edge_features,
     )
 
 
 def get_dataset(param: Dict[str, Any], frame_config: FrameConfig, switch_to_val: bool = False,
                 seed: int = 0):
-    """config.py:get_dataset (:209), h5 only."""
+    """config.py:get_dataset (:209): the h5 or the xdmf dataset."""
     ds = param["dataset"]
     ext = ds["extension"]
     path = ds["test_path"] if switch_to_val else ds["train_path"]
@@ -167,31 +170,32 @@ def get_dataset(param: Dict[str, Any], frame_config: FrameConfig, switch_to_val:
 
         return H5Dataset(path, ds["meta_path"], frame_config, seed=seed)
     if ext == "xdmf":
-        raise NotImplementedError("xdmf datasets wait for dataset/xdmf_dataset.py "
-                                  "(ROADMAP A 4)")
+        from graph_physics_tpu_torch.dataset.xdmf_dataset import XDMFDataset
+
+        return XDMFDataset(path, ds["meta_path"], frame_config, seed=seed)
     raise ValueError(f"Dataset extension '{ext}' not supported.")
 
 
 def get_loss(param: Dict[str, Any]):
-    """(loss function, name): the L2 loss (config.py:get_loss :237); the
-    physics losses and MultiLoss raise (ROADMAP A 6)."""
+    """(loss, name or names) of the config's ``loss`` block
+    (config.py:get_loss :237): ``LossType.L2LOSS`` without one, a
+    ``LossType`` for one type, a ``MultiLoss`` with the block's weights for
+    several."""
     loss_block = param.get("loss")
     if loss_block is None:
-        return l2_loss, "L2LOSS"
-    types = [t.upper() for t in loss_block["type"]]
-    if types != ["L2LOSS"]:
-        raise not_ported(f"the loss {types}", "A 6")
-    return l2_loss, "L2LOSS"
+        return LossType.L2LOSS, LossType.L2LOSS.name
+    types = loss_block["type"]
+    if len(types) > 1:
+        losses = [LossType[t.upper()] for t in types]
+        return MultiLoss(losses, loss_block["weights"]), [loss.name for loss in losses]
+    loss = LossType[types[0].upper()]
+    return loss, loss.name
 
 
 def get_gradient_method(param: Dict[str, Any]) -> Optional[str]:
-    """The physics losses' gradient method (config.py:get_gradient_method
-    :251): None, as only the L2 loss is ported; a method set raises
-    (ROADMAP A 6)."""
-    method = param.get("loss", {}).get("gradient_method")
-    if method is not None:
-        raise not_ported(f"loss.gradient_method {method!r}", "A 6")
-    return None
+    """The physics losses' gradient method, ``finite_diff`` or
+    ``least_squares``, or None (config.py:get_gradient_method :251)."""
+    return param.get("loss", {}).get("gradient_method")
 
 
 def get_mtp_setup(param: Dict[str, Any]):

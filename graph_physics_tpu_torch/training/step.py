@@ -1,9 +1,10 @@
 """The train step: noise → forward → masked loss → backward → clipped AdamW.
 
 Counterpart of graph_physics_tpu/training/step.py (NoiseConfig,
-init_train_state, make_train_step, make_multi_step) for the plain-loss
-path: MultiLoss (ROADMAP A 6), spatial MTP (A 7) and data parallelism
-(A 9) are not ported.
+init_train_state, make_train_step, make_multi_step) with its three kinds
+of loss: a plain loss, a ``LossType`` and a ``MultiLoss`` of data and
+physics terms (step.py:184-237); spatial MTP (ROADMAP A 7) and data
+parallelism (A 9) are not ported.
 PyTorch runs it eagerly where JAX jits it: the parameters and
 normalizer statistics (JAX's params and SimulatorState) live in the
 Simulator module and are updated in place; the TrainState holds the
@@ -19,14 +20,15 @@ the device for the kernel of ops/gumbel.py). Eval and rollout draw none.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from graph_physics_tpu_torch.core.graph import MeshGraph
 from graph_physics_tpu_torch.models.processors import TransolverProcessor
-from graph_physics_tpu_torch.models.simulator import Simulator
+from graph_physics_tpu_torch.models.simulator import Simulator, sample_of
 from graph_physics_tpu_torch.training import loss as loss_lib
+from graph_physics_tpu_torch.training.loss import LossInputs, LossType, MultiLoss
 from graph_physics_tpu_torch.training import packed as packed_lib
 from graph_physics_tpu_torch.training.schedule import ClippedAdamW, OptimizerConfig
 
@@ -63,14 +65,17 @@ def init_train_state(simulator: Simulator, optimizer: OptimizerConfig) -> TrainS
 
 def make_train_step(
     simulator: Simulator,
-    loss_fn: Callable = loss_lib.l2_loss,
+    loss_fn: Union[Callable, LossType, MultiLoss] = loss_lib.l2_loss,
     device_preprocess: Optional[Callable] = None,
     mask_types: Sequence[int] = loss_lib.DEFAULT_MASK_TYPES,
+    gradient_method: Optional[str] = None,
 ) -> Callable[[TrainState, MeshGraph, torch.Generator], Dict[str, torch.Tensor]]:
     """``train_step(state, batch, generator) -> metrics``, updating ``state``
-    in place. ``loss_fn(graph, network_output, target, mask_types)`` is a
-    plain loss (loss.l2_loss). Metrics: ``loss``, ``grad_norm`` (of the
-    gradients before clipping) and ``loss_term_0``, as device scalars.
+    in place. ``loss_fn`` is a plain loss ``(graph, network_output, target,
+    mask_types)`` (loss.l2_loss), a ``LossType`` or a ``MultiLoss``, whose
+    physics terms take ``gradient_method`` (:func:`multi_loss`). Metrics:
+    ``loss``, ``grad_norm`` (of the gradients before clipping) and
+    ``loss_term_i`` for each term, as device scalars.
     A ``broadcast_static`` batch's [E, 1, F] leaves are widened first
     (packed.expand_static_leaves), as JAX's step does; then
     ``device_preprocess(graph, generator, step) -> graph``
@@ -89,15 +94,64 @@ def make_train_step(
         with torch.enable_grad():
             out = simulator.forward(graph, is_training=True,
                                     gumbel=generator if uses_gumbel else None)
-            loss = loss_fn(graph, out.net_out, out.target_norm, mask_types)
+            if isinstance(loss_fn, MultiLoss):
+                loss, terms = multi_loss(loss_fn, simulator, graph, out, mask_types,
+                                         gradient_method)
+            elif isinstance(loss_fn, LossType):
+                loss = loss_fn.fn(LossInputs(graph=graph, target=out.target_norm,
+                                             network_output=out.net_out,
+                                             deselected=graph.deselected),
+                                  mask_types=mask_types)
+                terms = [loss]
+            else:
+                loss = loss_fn(graph, out.net_out, out.target_norm, mask_types)
+                terms = [loss]
             state.optimizer.zero_grad()
             loss.backward()
         grad_norm = state.optimizer.step()
         state.step += 1
-        loss = loss.detach()
-        return {"loss": loss, "grad_norm": grad_norm, "loss_term_0": loss}
+        metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
+        metrics.update({f"loss_term_{i}": t.detach() for i, t in enumerate(terms)})
+        return metrics
 
     return train_step
+
+
+def multi_loss(loss_fn: MultiLoss, simulator: Simulator, graph: MeshGraph, out,
+               mask_types: Sequence[int], gradient_method: Optional[str]):
+    """(total, [weighted term, ...]) of a MultiLoss on the forward ``out``
+    (step.py:184-237): the prediction's and the target's physical values
+    through ``Simulator.build_outputs_from_pre``, then, in the packed
+    [N, B, F] layout, each term a mean per sample over the shared topology
+    (:func:`loss.per_sample_mean`, batched over B), then the mean over the
+    samples, as JAX's ``vmap`` over axis 1 gives them; a stacked batch
+    sample by sample; one frame as it is."""
+    pre_t = simulator.pre_target(graph)
+    inp = LossInputs(graph=graph, target=out.target_norm, network_output=out.net_out,
+                     network_output_physical=simulator.build_outputs_from_pre(out.net_out, pre_t),
+                     target_physical=simulator.build_outputs_from_pre(out.target_norm, pre_t),
+                     deselected=graph.deselected)
+    kw = dict(mask_types=mask_types, gradient_method=gradient_method, return_all_losses=True)
+    if simulator.is_packed(graph):
+        total, terms = loss_fn(inp, mean_fn=loss_lib.per_sample_mean, **kw)
+        return total.mean(), [t.mean() for t in terms]
+    if simulator.is_stacked(graph):
+        per = [loss_fn(_sample_inputs(inp, b), **kw) for b in range(graph.x.shape[0])]
+        return (torch.stack([p[0] for p in per]).mean(),
+                [torch.stack(t).mean() for t in zip(*(p[1] for p in per))])
+    return loss_fn(inp, **kw)
+
+
+def _sample_inputs(inp: LossInputs, b: int) -> LossInputs:
+    """Sample ``b`` of a stacked batch's loss inputs."""
+    def take(v):
+        return None if v is None else v[b]
+
+    return LossInputs(graph=sample_of(inp.graph, b), target=take(inp.target),
+                      network_output=take(inp.network_output),
+                      network_output_physical=take(inp.network_output_physical),
+                      target_physical=take(inp.target_physical),
+                      deselected=take(inp.deselected))
 
 
 def make_multi_step(train_step, unroll: int = 1):

@@ -32,10 +32,15 @@ Counterpart of graph_physics_tpu/training/trainer.py: ``TrainerConfig``
     instead. A world-edge sidecar rides in every batch and, per frame, in
     every validation trajectory.
 
+  * ``loss_fn`` is a plain loss, a ``LossType`` or a ``MultiLoss``, whose
+    physics terms take ``gradient_method`` (training/step.py); each logged
+    step carries ``loss_term_i`` as JAX's does, and each term's value under
+    ``train_<display name>`` too (``train_multiloss`` the weighted sum).
+
 Options of later queue items raise NotImplementedError naming their
 ROADMAP item: ``dynamic_world_edges`` (A 5.2), ``previous_data_slice``
-(A 5.3), ``gradient_method`` (A 6), ``mtp`` (A 7), ``mesh`` (A 9),
-``save_val_visualizations`` (``training/callback.py``, A 4's remainder).
+(A 5.3), ``mtp`` (A 7), ``mesh`` (A 9), ``save_val_visualizations``
+(``training/callback.py``, A 4's remainder).
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from graph_physics_tpu_torch.models.simulator import Simulator
 from graph_physics_tpu_torch.training import checkpoint as ckpt_lib
 from graph_physics_tpu_torch.training import schedule as schedule_lib
 from graph_physics_tpu_torch.training.logging import MetricsLogger
+from graph_physics_tpu_torch.training.loss import LossType, MultiLoss
 from graph_physics_tpu_torch.training.rollout import make_batched_rollout_fn, make_rollout_fn
 from graph_physics_tpu_torch.training.step import (
     NoiseConfig,
@@ -84,6 +90,19 @@ def noise_generator(seed: int, step: int, device) -> torch.Generator:
     """The generator of step ``step``'s draws, seeded from (seed, step)."""
     word = np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(word) >> 1)
+
+
+def loss_term_names(loss_fn):
+    """``names(record) -> {train_<name>: value}``: a step record's terms
+    under the loss's display names, and a MultiLoss's weighted sum as
+    ``train_multiloss``; nothing for a plain loss."""
+    if isinstance(loss_fn, MultiLoss):
+        names = [loss.display_name for loss in loss_fn.losses]
+        return lambda rec: {"train_multiloss": rec["loss"], **{
+            f"train_{name}": rec[f"loss_term_{i}"] for i, name in enumerate(names)}}
+    if isinstance(loss_fn, LossType):
+        return lambda rec: {f"train_{loss_fn.display_name}": rec["loss"]}
+    return lambda rec: {}
 
 
 def steps_per_epoch(dataset, batch_size: int) -> int:
@@ -151,7 +170,6 @@ class Trainer:
         for value, what, item in (
                 (cfg.previous_data_slice, "previous_data_slice", "A 5.3"),
                 (dynamic_world_edges, "dynamic world edges", "A 5.2"),
-                (gradient_method, "gradient_method (physics losses)", "A 6"),
                 (mtp, "spatial MTP", "A 7"),
                 (mesh, "a device mesh", "A 9")):
             if value is not None:
@@ -181,7 +199,8 @@ class Trainer:
         self.lr_schedule = schedule_lib.cosine_warmup_schedule(cfg.learning_rate, cfg.warmup,
                                                                self.num_steps)
         step = make_train_step(self.sim, loss_fn, make_device_preprocess(
-            noise_cfg, world_pos, self.num_steps))
+            noise_cfg, world_pos, self.num_steps), gradient_method=gradient_method)
+        self._term_names = loss_term_names(loss_fn)
 
         def train_step(state: TrainState, batch: MeshGraph, generator: torch.Generator):
             self._use_layout(batch)
@@ -273,6 +292,7 @@ class Trainer:
                 step = int(self.state.step)
                 if step % cfg.log_every == 0:
                     rec = {k: float(v) for k, v in metrics.items()}
+                    rec.update(self._term_names(rec))
                     rec["lr"] = float(self.lr_schedule(step))
                     rec["epoch"] = epoch
                     self.logger.log(rec, step)

@@ -4,7 +4,7 @@ step, goes, on one NVIDIA GPU.
     python3 scripts/profile_torch_forward.py \
         [transformer|epd|transformer-train|epd-train|graded|graded-transformer|
          graded-train|graded-transformer-train|transolver-train|
-         graded-transolver-train|plate-train ...]
+         graded-transolver-train|plate-train|panels-train ...]
     # default: the two cylinder forwards
 
 For each slice (``transformer``: entry.transformer_setup, 10 blocks, hidden
@@ -20,7 +20,9 @@ entry.transolver_train_setup, stacked B=16 on the cylinder's 1,920 nodes
 (2,432 rows with padding) or the graded mesh's 27,000 points (27,136);
 ``plate-train``: one train step of entry.plate_train_setup, plate.json's
 transformer with world edges, 10 blocks, hidden 64, B=64, the noise and
-the world-position features of entry.plate_preprocess)
+the world-position features of entry.plate_preprocess; ``panels-train``:
+one train step of entry.panels_train_setup, panels.json's transformer, 15
+blocks, hidden 128, B=64, its 4-term MultiLoss on least-squares gradients)
 and each path (kernel path, and the plain path: no edge layout, or for
 the Transolver the gumbel kernel's plain version on the same bits), runs
 ``torch.profiler`` over 10 calls after 3 warm-up calls and prints, per
@@ -53,6 +55,8 @@ GROUPS = (
     ("attention backward kernels (ea_nk_bwd)", ("ea_nk_bwd",)),
     ("CSR attention kernel (ea_csr_fwd)", ("ea_csr_fwd",)),
     ("CSR attention backward kernels (ea_csr_bwd)", ("ea_csr_bwd",)),
+    ("gated FFN h128 backward kernels (ffn128_bwd, ffn128_wgrad)", ("ffn128_bwd", "ffn128_wgrad")),
+    ("gated FFN h128 kernels (ffn128_fwd, ffn128_stage)", ("ffn128_",)),
     ("gated FFN kernel (ffn_fwd)", ("ffn_fwd",)),
     ("gated FFN backward kernels (ffn_bwd)", ("ffn_bwd",)),
     ("GraphNetBlock kernel (gn_nk_fwd)", ("gn_nk_fwd",)),
@@ -182,7 +186,8 @@ def main():
               "graded-transformer-train": entry.graded_transformer_train_setup,
               "transolver-train": entry.transolver_train_setup,
               "graded-transolver-train": lambda d: entry.transolver_train_setup(d, graded=True),
-              "plate-train": entry.plate_train_setup}
+              "plate-train": entry.plate_train_setup,
+              "panels-train": entry.panels_train_setup}
     for name in sys.argv[1:] or ["transformer", "epd"]:
         setup = (forwards.get(name) or trains[name])("cuda")
         graph = setup.graph
@@ -201,7 +206,8 @@ def main():
                 return run
             runs = (runner(setup.simulator), runner(plain))
         else:
-            plain_state, plain_step = entry.make_trainer(plain, setup.device_preprocess)
+            plain_state, plain_step = entry.make_trainer(plain, setup.device_preprocess,
+                                                         setup.loss_fn, setup.gradient_method)
             gen = torch.Generator(device=graph.x.device).manual_seed(0)
             runs = (lambda: setup.train_step(setup.state, graph, gen),
                     lambda: plain_step(plain_state, graph, gen))

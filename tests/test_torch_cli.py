@@ -17,7 +17,9 @@
     sidecar) matches JAX's rollout from the same weights in the concat
     layout to 1e-4;
   * ``--device cuda`` on a machine without a card raises;
-  * an option of a later queue item raises, naming its ROADMAP item.
+  * an option of a later queue item raises, naming its ROADMAP item (the
+    physics losses, ``--external`` and the xdmf dataset train through the
+    CLIs: tests/test_torch_cli_physics.py).
 """
 
 import json
@@ -221,8 +223,7 @@ def test_cuda_without_a_card_raises(workspace, cli):
 
 
 @pytest.mark.parametrize("flags,blocks,item", [
-    (["--use_previous_data"], {}, "A 5"),
-    (["--external", "aneurysm"], {}, "A 5"),
+    (["--use_previous_data"], {}, "A 5.3"),
     ([], {"transformations": {"world_pos_parameters": {  # the concat layout
         "use": True, "world_pos_index_start": 0, "world_pos_index_end": 2}}}, "A 5"),
     (["--packed"], {"transformations": {"world_pos_parameters": {
@@ -231,15 +232,12 @@ def test_cuda_without_a_card_raises(workspace, cli):
     (["--packed"], {"transformations": {"world_pos_parameters": {  # epd with world edges
         "use": True, "world_pos_index_start": 0, "world_pos_index_end": 2}},
         "index": {"node_type_index": 4}}, "B 2"),
-    ([], {"loss": {"type": ["l2loss", "gradientloss"], "weights": [1, 1]}}, "A 6"),
-    ([], {"loss": {"type": ["l2loss"], "gradient_method": "least_squares"}}, "A 6"),
     ([], {"training": {"use_temporal_block": True}}, "A 7"),
     ([], {"training": {"use_spatial_mtp": True}}, "A 7"),
     ([], {"model": {"use_gated_mlp": True}}, "A 7"),
     (["--num_dp_devices", "2"], {}, "A 9"),
     (["--multihost"], {}, "A 9"),
     (["--num_partitions", "4"], {}, "A 4"),
-    ([], {"dataset": {"extension": "xdmf"}}, "A 4"),
 ])
 def test_unported_option_names_its_roadmap_item(workspace, flags, blocks, item):
     d, train, val, meta = workspace

@@ -25,7 +25,8 @@ slots sit between a receiver's valid ones and whose node N-1 owns valid
 slots (a masked slot's e_out is its e_in, bit for bit); both, and the
 gated-FFN forward and backward (also at a row count that is not a
 multiple of their 128- and 64-row tiles), give the same bits on two
-calls. The CSR
+calls; so do their hidden-128 instances, held against the plain versions
+at 1,920 x 8 rows and at a ragged 1,001 x 3. The CSR
 GraphNetBlock forward and backward are also held on a hub mesh (a
 receiver of in-degree 150, receivers with no row or only masked rows,
 node N-1 owning rows) at partial 16-sample tiles, and give the same bits
@@ -576,16 +577,16 @@ def test_ffn_backward_kernel_matches_plain_backward(cuda_device, batch, use_silu
     assert ok, [r for r in rows if not r["ok"]]
 
 
-def _ffn_case(cuda_device, nodes, batch, use_silu, seed):
+def _ffn_case(cuda_device, nodes, batch, use_silu, seed, hidden=64):
     gen = torch.Generator().manual_seed(seed)
-    block = GatedMLPBlock(64, 64, 64, use_silu=use_silu)
-    norm2 = RMSNorm(64)
+    block = GatedMLPBlock(hidden, hidden, hidden, use_silu=use_silu)
+    norm2 = RMSNorm(hidden)
     reset_parameters(block, gen)
     with torch.no_grad():
         for norm in (block.norm, norm2):
-            norm.scale.copy_(1.0 + 0.2 * torch.randn(64, generator=gen))
+            norm.scale.copy_(1.0 + 0.2 * torch.randn(hidden, generator=gen))
     block, norm2 = block.to(cuda_device), norm2.to(cuda_device)
-    x, cot = [torch.randn((nodes, batch, 64), generator=gen).to(cuda_device, torch.bfloat16)
+    x, cot = [torch.randn((nodes, batch, hidden), generator=gen).to(cuda_device, torch.bfloat16)
               for _ in range(2)]
     return block, norm2, x, cot
 
@@ -652,6 +653,74 @@ def test_ffn_kernel_is_bit_identical_across_calls(cuda_device):
         ys = [fused_gated_ffn(x, block, norm2) for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(ys[0], ys[1])
+
+
+FFN_GRAD_NAMES = ["dx", "norm2.scale", "norm.scale", "W1", "b1", "W2", "b2", "W3", "b3"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nodes,batch", [(1920, 8), (1001, 3)])
+@pytest.mark.parametrize("use_silu", [False, True])
+def test_ffn128_kernel_matches_plain_version(cuda_device, nodes, batch, use_silu):
+    """The hidden-128 forward (panels' width, weights streamed in chunks of
+    64 middle columns): 1,920 x 8 rows, and 1,001 x 3, whose last 128-row
+    tile is ragged. Bound: rtol = atol = 0.05."""
+    block, norm2, x, _ = _ffn_case(cuda_device, nodes, batch, use_silu, seed=20, hidden=128)
+    with torch.no_grad():
+        before = fused_gated_ffn.launches
+        y = fused_gated_ffn(x, block, norm2)
+        torch.cuda.synchronize()
+        assert fused_gated_ffn.launches == before + 1
+        ref = gated_ffn_reference(x, block, norm2)
+    torch.testing.assert_close(y.float(), ref.float(), rtol=0.05, atol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nodes,batch", [(1920, 8), (1001, 3)])
+@pytest.mark.parametrize("use_silu", [False, True])
+def test_ffn128_backward_kernel_matches_plain_backward(cuda_device, nodes, batch, use_silu):
+    """The hidden-128 backward (row pass, weight-gradient pass, ordered sum)
+    against the plain backward, both against fp32 autograd, at a row count
+    that fills the tiles and at one (1,001 x 3) that does not. Bounds:
+    utils/gradcheck.py."""
+    block, norm2, x, cot = _ffn_case(cuda_device, nodes, batch, use_silu, seed=21, hidden=128)
+
+    def ffn(fn, mlp, norm):
+        return lambda xx: (fn(xx, mlp, norm), ffn_ops._params(mlp, norm))
+
+    before = fused_gated_ffn.backward_launches
+    rows, ok, _ = gradcheck.check_backward(
+        FFN_GRAD_NAMES, ("dx",), ffn(fused_gated_ffn, block, norm2),
+        ffn(ffn_ops.reference_with_backward, block, norm2),
+        ffn(gated_ffn_reference, gradcheck.rounded_copy(block), gradcheck.rounded_copy(norm2)),
+        [x], [cot])
+    torch.cuda.synchronize()
+    assert fused_gated_ffn.backward_launches == before + 1
+    assert ok, [r for r in rows if not r["ok"]]
+
+
+@pytest.mark.cuda
+def test_ffn128_kernels_are_bit_identical_across_calls(cuda_device):
+    """Fixed sum orders in both hidden-128 kernels, the backward's partials
+    added in a fixed order: y, dx and every gradient the same on two calls."""
+    block, norm2, x, cot = _ffn_case(cuda_device, 1001, 3, False, seed=22, hidden=128)
+    params = ffn_ops._params(block, norm2)
+    outs = []
+    for _ in range(2):
+        xl = x.clone().requires_grad_(True)
+        y = fused_gated_ffn(xl, block, norm2)
+        outs.append((y.detach(), *torch.autograd.grad(y, [xl, *params], cot)))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ffn_kernel_refuses_other_hidden_widths(cuda_device):
+    """Hidden widths without a kernel instance raise, naming ROADMAP B 1."""
+    block, norm2, x, _ = _ffn_case(cuda_device, 128, 4, False, seed=23, hidden=96)
+    with pytest.raises(NotImplementedError, match="ROADMAP B 1"):
+        fused_gated_ffn(x, block, norm2)
 
 
 @pytest.mark.cuda
