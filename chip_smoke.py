@@ -5,9 +5,10 @@ on the cylinder mesh (NK layout) and on the graded mesh (CSR layout), the
 Transolver++ train step with its gumbel kernel, the train -> predict
 loop (loader, Trainer.fit, checkpoint and resume, predict), and
 DeformingPlate (training_config/plate.json) with its world edges through
-the attention kernels' world seam, and the panels workload
+the attention kernels' world seam, the panels workload
 (training_config/panels.json: hidden 128, the physics losses) through the
-hidden-128 gated-FFN kernels.
+hidden-128 gated-FFN kernels, and ``epd`` at MeshGraphNets' width (hidden
+128, 15 blocks) through the wide GraphNetBlock kernels.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --parent CHECKOUT   # also times another checkout's
@@ -157,9 +158,9 @@ Phases (any failure raises, so the exit code is non-zero):
      checkpoint (other weights first) ends where an uninterrupted run
      ends (parameters, normalizer accumulators, optimizer state and step):
      on the plain path under deterministic algorithms bit for bit; on the
-     kernel path, whose weight gradients are summed by atomics, within
-     ``RESUME_REL``, and bit for bit where two uninterrupted runs are
-     (phase 26's run against the uninterrupted one, logged);
+     kernel path bit for bit where two uninterrupted runs are (phase 26's
+     run against the uninterrupted one, logged), else within
+     ``RESUME_REL``;
  28. predict: cli.common.load_inference_stack on phase 26's checkpoint
      with the validation dataset passed in, and cli.predict.predict on
      the fused path: the rollout RMSE equals what validate reported;
@@ -206,11 +207,41 @@ Phases (any failure raises, so the exit code is non-zero):
      validation rollout), then predict from its checkpoint: losses and
      RMSE finite, the launches of the fit and of predict measured and
      checked, predict's RMSE equal to validate's.
+ 35. wide GraphNetBlock kernels: rows 1-4 at hidden 64 and 128
+     (csrc/fused_gnblock_wide_nk.cu, _nk_bwd.cu, _csr.cu, _csr_bwd.cu, one
+     library a width), each variant (folded, middle, last) in both layouts
+     at the cylinder NK shape (1,920 nodes x 128 samples) and the graded
+     CSR shape (27,008 x 16), then at an odd batch (33) on the cylinder
+     and on a hub graph (a receiver of in-degree 150, receivers with no
+     row or only masked rows, B=17): the forward against its plain version
+     (0.05), the backward against its plain backward and fp32 autograd
+     (utils/gradcheck.py), the backward's gradients the same bits on two
+     calls; each variant's times at the two shapes, the bounds and
+     ptxas's registers and spills; with ``--parent``, the hidden-32
+     instances bit for bit against the parent tree's (the folded forward's
+     outputs, the middle backward's dx and de: the parent's weight
+     gradients are atomic sums, other bits on every call);
+ 36. MeshGraphNets' width: 20 train steps of ``epd`` at hidden 128 and 15
+     blocks (entry.cylinder_train_setup, B=128, NK) with 15 + 15 launches
+     of rows 1/2 a step, their peak memory, the step's wall, enqueue and
+     device time; the first 7 steps at B=32 against the plain path (its
+     fp32 step-1 gradients do not fit in 80 GB at B=128; the plain path
+     repeats itself over those 7 steps only: this training is chaotic,
+     MGN_COMPARED_STEPS), the peak memory of each; 5 steps of the graded
+     mesh's ``epd`` at hidden 128 (B=16, CSR, rows 3/4) and of both at
+     hidden 64 against the plain path;
+ 37. Trainer.fit of training_config/cylinder.json with hidden_size 128
+     and message_passing_num 15 set in memory (2 trajectories of 129
+     frames, B=128, one epoch, a 50-step validation rollout), then predict
+     from its checkpoint: launches held to the prediction, predict's RMSE
+     equal to validate's.
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
 the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
-GraphNetBlock kernels, forward and backward, add each variant's times
-under ``variants``, both hidden-128 FFN kernels ptxas's report under
+GraphNetBlock kernels, forward and backward, at hidden 32 and (records of
+their own, ``_h64`` and ``_h128``) at hidden 64 and 128, add each
+variant's times under ``variants``, the wide ones ptxas's report under
+``ptxas``, both hidden-128 FFN kernels ptxas's report under
 ``ptxas``, every GraphNetBlock, gated-FFN and attention kernel
 its profiler device time under ``device_ms``, both gated-FFN kernels
 their graded-shape times and bound under ``graded``, both attention
@@ -269,13 +300,12 @@ STEP1_GRAD_REL = 0.04
 #: largest difference of the first run on the card, 9.5e-5 (PERF.md §6)
 LATER_LOSS_RTOL = 1e-3
 #: phase 27: the resumed run against an uninterrupted one, each part of the
-#: state as one vector (``state_diff``). Two uninterrupted runs on the card
-#: differ: the GraphNetBlock backward kernels sum their weight gradients
-#: over blocks by fp32 atomics (csrc/gn_bwd_common.cuh, gn_bwd_passes.cuh),
-#: and 24 Adam steps amplify the last bits (on an NVIDIA H100 80GB HBM3 at
-#: 700 W: up to 3.5e-3 in Adam's first moments, 1.7e-6 in the parameters).
-#: The plain path under deterministic algorithms resumes bit for bit. Where
-#: two uninterrupted runs agree bit for bit, so must the resumed one
+#: state as one vector (``state_diff``). The plain path under deterministic
+#: algorithms resumes bit for bit. Where two uninterrupted runs on the kernel
+#: path agree bit for bit (the GraphNetBlock backwards sum their weight
+#: gradients in block order, csrc/gn_bwd_common.cuh), so must the resumed
+#: one; where they do not, it is held within RESUME_REL: 24 Adam steps
+#: amplify a last-bit difference to ~1e-2 in Adam's first moments
 RESUME_REL = 1e-2
 #: phase 28: predict's rollout RMSE is computed in fp32 on the card,
 #: validate's in float64 from the same squared-error sums
@@ -403,18 +433,21 @@ def bound(nbytes, flops):
 
 
 def gn_block_work(x, e, edge_mask, blk, backward=False):
-    """(bytes, FLOPs) of one middle NK GraphNetBlock on these inputs: x and
-    e read, x_out and e_out written (bf16), the fp32 weights read, the slot
-    arrays read; the edge MLP on valid slots only, the node MLP on every
-    row. The backward also reads both cotangents, writes dx and de (bf16)
+    """(bytes, FLOPs) of one middle GraphNetBlock on these inputs (either
+    layout): x and e read, x_out and e_out written (bf16), the fp32 weights
+    read, the row arrays read; the edge MLP on valid rows only, its first
+    layer's receiver and sender parts (x @ Kr, x @ Ks) once per node, as
+    the function allows and the kernels form them, the node MLP on every
+    node. The backward also reads both cotangents, writes dx and de (bf16)
     and fp32 weight gradients, and does three times the forward's
     multiply-adds (recompute, input and weight gradients)."""
     n, b, h = x.shape
     rows = e.shape[0]
     acts = 2 * (x.numel() + e.numel())  # bf16 bytes of x and e
     params = sum(p.numel() for p in blk.parameters())
-    macs = (int(edge_mask.sum()) * b * sum(d.weight.numel() for d in blk.edge_block.denses)
-            + n * b * sum(d.weight.numel() for d in blk.node_block.denses))
+    edge_w = sum(d.weight.numel() for d in blk.edge_block.denses)
+    macs = (int(edge_mask.sum()) * b * (edge_w - 2 * h * h)
+            + n * b * (2 * h * h + sum(d.weight.numel() for d in blk.node_block.denses)))
     if backward:
         return 3 * acts + 8 * params + 5 * rows, 3 * 2 * macs
     return 2 * acts + 4 * params + 5 * rows, 2 * macs
@@ -549,7 +582,10 @@ def device_ms(fn, reps=20):
 #: their names
 BWD_PASSES = (("pre-pass", "gn_partial"), ("node-MLP pass", "nodemlp"),
               ("row pass", "_row_kernel"), ("sender pass", "send_kernel"),
-              ("receiver pass", "recv_kernel"))
+              ("receiver pass", "recv_kernel"), ("pre-pass", "_partial"),
+              ("node-MLP pass", "_node_bwd"), ("row pass", "_row_bwd"),
+              ("sender pass", "_send"), ("encoder passes", "_enc_"),
+              ("weight-gradient pass", "_wgrad"), ("ordered sum", "_wsum"))
 
 
 def pass_split(fn):
@@ -691,7 +727,7 @@ def timed(fn, libs, device=False, device_reps=20, **kw):
             out["device_ms"] = device_ms(fn, reps=device_reps)
         return out
 
-    if PARENT is None:
+    if PARENT is None or not libs:
         return measure()
     with parent_kernels(*libs):
         p1 = measure()
@@ -779,12 +815,12 @@ def backward_times(label, fn, plain_fn, libs, card):
     t = dict(timed(fn, libs), plain_ms=cuda_ms(plain_fn), passes=pass_split(fn))
     t["device_ms"] = sum(t["passes"].values())
     splits = {"kernel": t["passes"]}
-    if PARENT is not None:
+    if PARENT is not None and libs:
         with parent_kernels(*libs):
             splits["parent tree"] = pass_split(fn)
         t["parent_device_ms"] = sum(splits["parent tree"].values())
     parent = (f"; parent tree {t['parent_ms']:.4f} ms (device {t['parent_device_ms']:.4f})"
-              if PARENT is not None else "")
+              if PARENT is not None and libs else "")
     log(f"  backward time: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain "
         f"{t['plain_ms']:.4f} ms{parent} ({card})")
     for tree, split in splits.items():
@@ -817,8 +853,8 @@ def log_grad_rows(rows):
     def line(r):
         if not r.get("finite", True):
             return f"  {r['name']}: non-finite values"
-        extra = (f" {r['outside']} of {r['count']} outside rtol=atol=0.05;"
-                 if "outside" in r else "")
+        extra = (f" {r['outside']} of {r['count']} outside rtol=atol=0.05 (the fp32 gradient: "
+                 f"{r['fp32_outside']});" if "outside" in r else "")
         return (f"  {r['name']}: max_abs_err {r['max_abs_err']:.6g} |a-b|/max|b| "
                 f"{r['rel_to_max']:.6g};{extra} vs fp32: rel L2 kernel {r['kernel_fp32_l2']:.6g} "
                 f"plain {r['plain_fp32_l2']:.6g}, max/|max| kernel {r['kernel_fp32_max']:.6g} "
@@ -896,8 +932,8 @@ def train_run(step, state, sim, graph, seed, n_steps, kernels=()):
     return losses, norms, launches, grads, terms
 
 
-def training_phase(label, train, kernels, seed, per_step_want=None):
-    """``TRAIN_STEPS`` steps of ``train`` (an entry train setup) on the
+def training_phase(label, train, kernels, seed, per_step_want=None, steps=None):
+    """``steps`` (``TRAIN_STEPS``) steps of ``train`` (an entry train setup) on the
     kernel path, counts set to 0 just before, against the same steps on a
     copy whose blocks all take the plain path (``plain_copy``), from the
     same weights and noise. Every wrapper in ``kernels`` must launch
@@ -909,6 +945,7 @@ def training_phase(label, train, kernels, seed, per_step_want=None):
     from graph_physics_tpu_torch import entry
 
     tgraph = train.graph
+    steps = steps or TRAIN_STEPS
     if per_step_want is None:
         n_blocks = len(train.simulator.model.processor_list)
         per_step_want = (n_blocks, n_blocks)
@@ -920,15 +957,15 @@ def training_phase(label, train, kernels, seed, per_step_want=None):
     reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
     kl, kn, per_step, kg, kt = train_run(train.train_step, train.state, train.simulator, tgraph,
-                                     seed, TRAIN_STEPS, kernels)
+                                         seed, steps, kernels)
     torch.cuda.synchronize()
     launches = {k.__name__: launch_counts(k) for k in kernels}
     peak = {"kernel": torch.cuda.max_memory_allocated()}
     torch.cuda.reset_peak_memory_stats()
-    pl, pn, _, pg, pt = train_run(plain_step, plain_state, plain_sim, tgraph, seed, TRAIN_STEPS)
+    pl, pn, _, pg, pt = train_run(plain_step, plain_state, plain_sim, tgraph, seed, steps)
     torch.cuda.synchronize()
     peak["plain"] = torch.cuda.max_memory_allocated()
-    log(f"{label} ({TRAIN_STEPS} steps, B={batch_size(tgraph)}): launches per step "
+    log(f"{label} ({steps} steps, B={batch_size(tgraph)}): launches per step "
         f"(forward, backward) of {', '.join(launches)}: {sorted(set(per_step))}; in all "
         f"{list(launches.values())}; max_memory_allocated kernel path "
         f"{peak['kernel'] / 2**30:.4f} GiB, plain path {peak['plain'] / 2**30:.4f} GiB")
@@ -944,7 +981,7 @@ def training_phase(label, train, kernels, seed, per_step_want=None):
         raise AssertionError(f"{label}: non-finite loss or gradient norm")
     loss_rel = [abs(a - c) / abs(c) for a, c in zip(kl, pl)]
     log(f"  loss relative difference: step 1 {loss_rel[0]:.6g} (limit {STEP1_LOSS_RTOL}), "
-        f"steps 2-{TRAIN_STEPS} max {max(loss_rel[1:]):.6g} (limit {LATER_LOSS_RTOL})")
+        f"steps 2-{steps} max {max(loss_rel[1:]):.6g} (limit {LATER_LOSS_RTOL})")
     names = sorted(pg)
     if sorted(kg) != names or sorted(fg) != names:
         raise AssertionError(f"{label}: the paths have gradients for different parameters")
@@ -967,7 +1004,7 @@ def training_phase(label, train, kernels, seed, per_step_want=None):
         for t in range(len(kt[0])):
             rel = [abs(a[t] - c[t]) / abs(c[t]) for a, c in zip(kt, pt)]
             log(f"  loss term {t}: kernel path step 1 {kt[0][t]:.6g}, plain {pt[0][t]:.6g}; "
-                f"relative difference step 1 {rel[0]:.6g}, steps 2-{TRAIN_STEPS} max "
+                f"relative difference step 1 {rel[0]:.6g}, steps 2-{steps} max "
                 f"{max(rel[1:]):.6g}")
             if rel[0] > STEP1_LOSS_RTOL or max(rel[1:]) > LATER_LOSS_RTOL:
                 raise AssertionError(f"{label}: loss term {t} of the kernel path is off the "
@@ -988,7 +1025,8 @@ def step_timing(train, plain_state, plain_step, seed, libs=()):
     the plain path's, the kernel path's device time a step (the profiler's
     sum of its kernels, ``device_ms``), and the device-to-host
     synchronisations one step makes (logged, not bounded). With a parent
-    tree, its step with the parent's ``libs`` too (``timed``)."""
+    tree, its step with the parent's ``libs`` too (``timed``). A
+    ``plain_step`` of None leaves the plain path's time out."""
     import torch
 
     graph = train.graph
@@ -1010,8 +1048,9 @@ def step_timing(train, plain_state, plain_step, seed, libs=()):
     t = timed(lambda: train.train_step(train.state, graph, gen), libs, device=True,
               device_reps=5, warmup=2, reps=10)
     out = {f"train_step_{k}": v for k, v in t.items()}
-    out["train_step_plain_ms"] = cuda_ms(lambda: plain_step(plain_state, graph, gen), warmup=2,
-                                         reps=10)
+    if plain_step is not None:
+        out["train_step_plain_ms"] = cuda_ms(lambda: plain_step(plain_state, graph, gen),
+                                             warmup=2, reps=10)
     out["train_step_enqueue_events_ms"] = statistics.median(events)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
@@ -1094,7 +1133,7 @@ def memory_dataset_class():
     return MemoryDataset
 
 
-def fit_datasets():
+def fit_datasets(trajectories=FIT_TRAJECTORIES):
     """(training, validation) in-memory datasets of synthetic cylinder
     trajectories (48 x 40 mesh, 1,920 nodes)."""
     from graph_physics_tpu_torch.dataset import synthetic
@@ -1102,7 +1141,7 @@ def fit_datasets():
 
     ds = memory_dataset_class()
     fc = FrameConfig(targets=("velocity",))
-    train = ds([synthetic.make_trajectory(*FIT_MESH, FIT_FRAMES)] * FIT_TRAJECTORIES,
+    train = ds([synthetic.make_trajectory(*FIT_MESH, FIT_FRAMES)] * trajectories,
                synthetic.meta_dict(FIT_FRAMES), fc)
     val = ds([synthetic.make_trajectory(*FIT_MESH, VAL_STEPS + 1)],
              synthetic.meta_dict(VAL_STEPS + 1), fc)
@@ -1656,6 +1695,8 @@ def main():
     # 32.-34. the panels workload: the hidden-128 FFN kernels, its train
     # step, fit and predict
     panels_records, panels_launches = panels_phases(device, card, build_log)
+    # 35.-37. rows 1-4 at hidden 64 and 128; epd at MeshGraphNets' width
+    wide_records = wide_phases(device, card, build_log)
     for rec in (*tf_records, *tf_train_records, *graded_records, *graded_train_records):
         if rec["name"] in world:
             rec["world"] = world[rec["name"]]
@@ -1685,6 +1726,7 @@ def main():
         *graded_train_records,
         gumbel_record,
         *panels_records,
+        *wide_records,
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -3340,6 +3382,7 @@ def panels_phases(device, card, build_log):
     from graph_physics_tpu_torch.ops.tiling import NKTiling
     from graph_physics_tpu_torch.training import config as config_lib
     from graph_physics_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from graph_physics_tpu_torch.utils import gradcheck
 
     attn, ffn = ea_ops.fused_edge_attention_nk, ffn_ops.fused_gated_ffn
     train = entry.panels_train_setup(device)
@@ -3357,9 +3400,13 @@ def panels_phases(device, card, build_log):
     # 32. rows 9 and 10 at hidden 128, rows 5 and 6 at head width 32
     records = panels_kernel_checks(train, card, build_log)
 
-    # 33. the panels train step: kernel path against the plain path
-    _, plain_state, plain_step, launches = training_phase("panels training", train,
-                                                          [attn, ffn], 33)
+    # 33. the panels train step: kernel path against the plain path, both
+    # under deterministic algorithms: the physics loss's index_add_ sums
+    # otherwise move the convection term's later steps by ~6e-4 between
+    # runs of the same code, against its 1e-3 limit (PERF.md §6)
+    with gradcheck.deterministic():
+        _, plain_state, plain_step, launches = training_phase("panels training", train,
+                                                              [attn, ffn], 33)
     st = step_timing(train, plain_state, plain_step, 34)  # the parent has no hidden 128
     st = {k: v for k, v in st.items() if "parent" not in k}
     b = g.x.shape[1]
@@ -3452,6 +3499,422 @@ def panels_phases(device, card, build_log):
                                for i in (0, 1)) for k in (attn, ffn)}
     records[0]["launches"], records[1]["launches"] = total[ffn.__name__]
     return records, {attn.__name__: total[attn.__name__]}
+
+
+# ---- phases 35-37: rows 1-4 at hidden 64 and 128; epd at MeshGraphNets' width ----
+
+#: the widths of the wide GraphNetBlock kernels (csrc/gn_wide*.cuh, one
+#: library a width and kernel)
+WIDE_HIDDEN = (64, 128)
+#: MeshGraphNets' latent size and message-passing steps for CylinderFlow,
+#: Airfoil and DeformingPlate (Pfaff et al., ICLR 2021, arXiv:2010.03409,
+#: §4 and Appendix A); training_config/cylinder.json cuts them to 32 and 5
+MGN_HIDDEN, MGN_BLOCKS = 128, 15
+#: phase 35: an odd batch (not a multiple of the 16-sample tile) on the
+#: cylinder, and a hub graph: a receiver of in-degree HUB_DEGREE, receivers
+#: with no row and with only masked rows, node N-1 owning rows
+ODD_BATCH, HUB_NODES, HUB_RECEIVER, HUB_DEGREE, HUB_BATCH = 33, 384, 5, 150, 17
+#: phase 36: steps of the graded CSR check at hidden 128 and of the
+#: cylinder and graded checks at hidden 64
+SHORT_STEPS = 5
+#: phase 36: the batch of the comparison with the plain path at
+#: MeshGraphNets' width: its fp32 step-1 gradients (step1_fp32_grads) at
+#: B=128 would not fit in the card's 80 GB
+MGN_PLAIN_BATCH = 32
+#: phase 36: the steps of that comparison, held to LATER_LOSS_RTOL: at this
+#: width the training is chaotic, and two plain runs a bf16 rounding of
+#: their weights apart agree well within LATER_LOSS_RTOL over these first
+#: steps only; at step 8 one card run came to 9.7e-4 (PERF.md §6;
+#: tests/test_torch_cuda.py::
+#: test_mgn_width_plain_training_repeats_itself_over_the_compared_steps)
+MGN_COMPARED_STEPS = 7
+#: phase 37: the fit of cylinder.json at MeshGraphNets' width: trajectories
+#: of FIT_FRAMES frames (one B=128 batch each) and epochs
+MGN_FIT_TRAJECTORIES, MGN_FIT_EPOCHS = 2, 1
+
+
+def wide_record(layout, h, backward):
+    """The kernels-line keys naming rows 1-4 at hidden ``h``."""
+    row = {("nk", False): "graph_physics_tpu/ops/fused_gnblock_nk.py:147",
+           ("nk", True): "graph_physics_tpu/ops/fused_gnblock_nk.py:189",
+           ("csr", False): "graph_physics_tpu/ops/fused_gnblock.py:392",
+           ("csr", True): "graph_physics_tpu/ops/fused_gnblock.py:453"}[layout, backward]
+    return {"name": f"fused_gn_block_{layout}_h{h}" + ("_backward" if backward else ""),
+            "source": f"graph_physics_tpu_torch/csrc/fused_gnblock_wide_{layout}"
+                      + ("_bwd" if backward else "") + ".cu",
+            "replaces": row}
+
+
+def hub_graph(device, seed=0):
+    """The row arrays and CSR layout of a HUB_NODES-node graph: receiver
+    HUB_RECEIVER of in-degree HUB_DEGREE, receivers 10-19 with no row, 20-29 with only
+    masked rows, node N-1 with 9 rows, the others 1 to 6 rows from random
+    senders."""
+    import numpy as np
+    import torch
+    from graph_physics_tpu_torch.ops.tiling import build_csr_layout
+
+    rng = np.random.default_rng(seed)
+    n = HUB_NODES
+    degree = rng.integers(1, 7, n)
+    degree[HUB_RECEIVER], degree[10:20], degree[n - 1] = HUB_DEGREE, 0, 9
+    receivers = np.repeat(np.arange(n), degree)
+    rng.shuffle(receivers)
+    senders = rng.integers(0, n, receivers.size)
+    layout = build_csr_layout(senders, receivers, n)
+    valid = layout.perm >= 0
+    ids = layout.perm[valid]
+    s_rows, r_rows = np.zeros(layout.total_rows, np.int32), np.full(layout.total_rows, n - 1,
+                                                                     np.int32)
+    s_rows[valid], r_rows[valid] = senders[ids], receivers[ids]
+    m_rows = valid & ~np.isin(r_rows, np.arange(20, 30))
+
+    def dev(a):
+        return torch.as_tensor(a, device=device).contiguous()
+
+    return (dev(s_rows), dev(r_rows), dev(m_rows)), layout
+
+
+def wide_block_checks(label, kernel, rows, layout, blocks, enc, x, e, raw, card, timing=True):
+    """Rows 1-4 (``kernel``, a layout's wrapper) at one width and shape:
+    each variant (folded, middle, last) of ``blocks`` against its plain
+    version forward (KERNEL_TOL) and backward (utils/gradcheck.py, every
+    stream value held against the plain backward, a hub's too), the
+    backward's bits on two calls; with ``timing``, each variant's times
+    (no parent tree has these kernels). Returns (forward errors, backward
+    errors, forward times, backward times) by variant."""
+    import torch
+    from graph_physics_tpu_torch.ops import fused_gnblock_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+    from graph_physics_tpu_torch.utils import gradcheck
+
+    plain = (nk_ops.fused_gn_block_nk_reference if kernel is nk_ops.fused_gn_block_nk
+             else csr_ops.fused_gn_block_csr_reference)
+    gen = torch.Generator(device=x.device).manual_seed(35)
+    variants = {"folded": (blocks[0], raw, enc, False), "middle": (blocks[1], e, None, False),
+                "last": (blocks[-1], e, None, True)}
+    f_err, b_err, f_t, b_t = {}, {}, {}, {}
+    for name, (blk, ee, en, last) in variants.items():
+        args = (x, ee, *rows, blk.edge_block, blk.node_block, layout)
+        kw = dict(encoder_params=en, last_block=last)
+        with torch.inference_mode():
+            before = kernel.launches
+            xk, ek = kernel(*args, **kw)
+            xp, ep = plain(*args, **kw, compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            log(f"{label} forward kernel check [{name}] ({kernel.launches - before} launch)")
+            if kernel.launches != before + 1:
+                raise AssertionError(f"{label} [{name}]: the forward kernel did not launch once")
+            f_err[name] = compare("x_out", xk, xp, KERNEL_TOL)
+            if not last:
+                f_err[name] = max(f_err[name], compare("e_out", ek, ep, KERNEL_TOL))
+            del xk, ek, xp, ep
+            if timing:
+                f_t[name] = dict(timed(lambda: kernel(*args, **kw), (), device=True),
+                                 plain_ms=cuda_ms(lambda: plain(*args, **kw,
+                                                                compute_dtype=torch.bfloat16)))
+                log(f"  time: kernel {f_t[name]['ms']:.4f} ms (device "
+                    f"{f_t[name]['device_ms']:.4f}), plain {f_t[name]['plain_ms']:.4f} ms "
+                    f"({card})")
+        cot_x = (torch.randn(x.shape, generator=gen, device=x.device)).to(torch.bfloat16)
+        cot_e = (torch.randn((layout.total_rows,) + x.shape[1:], generator=gen,
+                             device=x.device)).to(torch.bfloat16)
+        before = kernel.backward_launches
+        grad_rows, ok, kept = gradcheck.check_block_backward(
+            x, ee, rows, (en, blk.edge_block, blk.node_block), layout, last, cot_x, cot_e)
+        torch.cuda.synchronize()
+        log(f"{label} backward kernel check [{name}] ({kernel.backward_launches - before} "
+            f"launch; against the plain backward, both against fp32)")
+        log_grad_rows(grad_rows)
+        if kernel.backward_launches != before + 1:
+            raise AssertionError(f"{label} [{name}]: the backward kernel did not launch once")
+        if not ok:
+            raise AssertionError(f"{label} [{name}]: backward kernel out of bounds")
+        b_err[name] = max(r.get("max_abs_err", float("inf")) for r in grad_rows)
+        g1, g2 = (torch.autograd.grad(*kept["kernel"], retain_graph=True) for _ in range(2))
+        if not all(torch.equal(a, c) for a, c in zip(g1, g2)):
+            raise AssertionError(f"{label} [{name}]: the backward gives other bits on a second "
+                                 "call")
+        log(f"  the backward's {len(g1)} gradients: the same bits on two calls")
+        del g1, g2
+        if timing:
+            b_t[name] = backward_times(
+                f"{label} backward [{name}]",
+                lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True),
+                lambda: torch.autograd.grad(*kept["plain"], retain_graph=True), (), card)
+        del kept
+        torch.cuda.empty_cache()
+    return f_err, b_err, f_t, b_t
+
+
+def wide_kernel_phase(device, card, build_log):
+    """Phase 35: rows 1-4 at hidden 64 and 128, every variant, in both
+    layouts, at the cylinder NK shape (B=128) and the graded CSR shape
+    (B=16), then at an odd batch and on a hub graph; ptxas's registers and
+    spills; with a parent tree, the hidden-32 instances' bits against the
+    parent's. Returns {record name: record} without launches."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_gnblock_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+
+    resources = kernel_resources(build_log, ("gnw",))
+    for name, use in resources.items():
+        log(f"ptxas, wide GraphNetBlock kernel {name}: {use}")
+    gen = torch.Generator(device=device).manual_seed(350)
+
+    def randn(*shape):
+        return (0.5 * torch.randn(shape, generator=gen, device=device)).to(torch.bfloat16)
+
+    records = {}
+    for h in WIDE_HIDDEN:
+        for layout in ("nk", "csr"):
+            if layout == "nk":
+                setup = entry.cylinder_setup(device, hidden=h, mp_steps=3)
+                kernel = nk_ops.fused_gn_block_nk
+                rows = (setup.graph.senders, setup.graph.edge_mask)
+            else:
+                setup = entry.graded_setup(device, hidden=h, mp_steps=3)
+                kernel = csr_ops.fused_gn_block_csr
+                rows = (setup.graph.senders, setup.graph.receivers, setup.graph.edge_mask)
+            model, lay = setup.simulator.model, setup.tiling
+            n, b = setup.graph.x.shape[:2]
+            label = f"hidden {h}, {layout.upper()} [{n}, {b}]"
+            x, e, raw = randn(n, b, h), randn(lay.total_rows, b, h), randn(lay.total_rows, b, 3)
+            f_err, b_err, f_t, b_t = wide_block_checks(
+                label, kernel, rows, lay, model.processor_list, model.edges_encoder, x, e, raw,
+                card)
+            blk = model.processor_list[1]
+            fb = bound(*gn_block_work(x, e, setup.graph.edge_mask, blk))
+            bb = bound(*gn_block_work(x, e, setup.graph.edge_mask, blk, backward=True))
+            log(f"{label}: middle block forward {f_t['middle']['ms']:.4f} ms (device "
+                f"{f_t['middle']['device_ms']:.4f}), bound {fb[0]:.6g} ms ({fb[1]}); backward "
+                f"{b_t['middle']['ms']:.4f} ms (device {b_t['middle']['device_ms']:.4f}), bound "
+                f"{bb[0]:.6g} ms ({bb[1]}) ({card})")
+            for backward, errs, times, bd in ((False, f_err, f_t, fb), (True, b_err, b_t, bb)):
+                rec = wide_record(layout, h, backward)
+                keep = [k for k in resources if (("bwd" in k or "send" in k or "wgrad" in k
+                                                  or "wsum" in k) == backward
+                                                 or "partial" in k or "enc_fwd" in k)
+                        and (f"_{layout}_" in k or ("_nk_" not in k and "_csr_" not in k))]
+                records[rec["name"]] = dict(
+                    rec, route="cuda", launches=0, max_abs_err=max(errs.values()),
+                    ms=times["middle"]["ms"], plain_ms=times["middle"]["plain_ms"],
+                    bound_ms=bd[0], bound_by=bd[1], library_ms=None,
+                    device_ms=times["middle"]["device_ms"], variants=times,
+                    ptxas={k: resources[k] for k in keep if f"gnw{h}_" in k})
+            del setup, x, e, raw
+            torch.cuda.empty_cache()
+        # an odd batch on the cylinder (NK), and the hub graph (CSR)
+        odd = entry.cylinder_setup(device, hidden=h, mp_steps=3, batch=ODD_BATCH)
+        n = odd.graph.x.shape[0]
+        f_err, b_err, _, _ = wide_block_checks(
+            f"hidden {h}, NK, odd batch [{n}, {ODD_BATCH}]", nk_ops.fused_gn_block_nk,
+            (odd.graph.senders, odd.graph.edge_mask), odd.tiling, odd.simulator.model.processor_list,
+            odd.simulator.model.edges_encoder, randn(n, ODD_BATCH, h),
+            randn(odd.tiling.total_rows, ODD_BATCH, h), randn(odd.tiling.total_rows, ODD_BATCH, 3),
+            card, timing=False)
+        for bwd, errs in ((False, f_err), (True, b_err)):
+            r = records[wide_record("nk", h, bwd)["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], max(errs.values()))
+        hub_rows, hub = hub_graph(device)
+        f_err, b_err, _, _ = wide_block_checks(
+            f"hidden {h}, CSR hub graph [{HUB_NODES}, {HUB_BATCH}] (in-degree {HUB_DEGREE})",
+            csr_ops.fused_gn_block_csr, hub_rows, hub, odd.simulator.model.processor_list,
+            odd.simulator.model.edges_encoder, randn(hub.num_nodes, HUB_BATCH, h),
+            randn(hub.total_rows, HUB_BATCH, h), randn(hub.total_rows, HUB_BATCH, 3), card,
+            timing=False)
+        for bwd, errs in ((False, f_err), (True, b_err)):
+            r = records[wide_record("csr", h, bwd)["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], max(errs.values()))
+        del odd
+    if PARENT is not None:  # the hidden-32 instances keep the parent tree's bits
+        for layout in ("nk", "csr"):
+            setup = (entry.cylinder_setup(device, batch=ODD_BATCH) if layout == "nk"
+                     else entry.graded_setup(device))
+            g, lay, model = setup.graph, setup.tiling, setup.simulator.model
+            kernel = nk_ops.fused_gn_block_nk if layout == "nk" else csr_ops.fused_gn_block_csr
+            rows = ((g.senders, g.edge_mask) if layout == "nk"
+                    else (g.senders, g.receivers, g.edge_mask))
+            n, b = g.x.shape[:2]
+            x, raw = randn(n, b, 32), randn(lay.total_rows, b, 3)
+            e, cot_x, cot_e = randn(lay.total_rows, b, 32), randn(n, b, 32), randn(
+                lay.total_rows, b, 32)
+            folded, middle = model.processor_list[0], model.processor_list[1]
+
+            def fwd():
+                with torch.inference_mode():
+                    return kernel(x, raw, *rows, folded.edge_block, folded.node_block, lay,
+                                  encoder_params=model.edges_encoder)
+
+            def bwd():  # dx and de: the parent's weight gradients are atomic sums
+                xl, el = x.clone().requires_grad_(True), e.clone().requires_grad_(True)
+                xo, eo = kernel(xl, el, *rows, middle.edge_block, middle.node_block, lay)
+                return torch.autograd.grad([xo, eo], [xl, el], [cot_x, cot_e])
+
+            same_bits_as_parent(f"hidden-32 {layout.upper()} forward (folded)", fwd,
+                                (f"gn_{layout}_fwd",))
+            same_bits_as_parent(f"hidden-32 {layout.upper()} backward (middle: dx, de)", bwd,
+                                (f"gn_{layout}_fwd", f"gn_{layout}_bwd"))
+            del setup
+    return records
+
+
+def mgn_train_phase(device, card):
+    """Phase 36: ``epd`` at MeshGraphNets' width (hidden 128, 15 blocks,
+    NK) through entry.cylinder_train_setup: TRAIN_STEPS steps at B=128
+    with 15 + 15 launches of rows 1/2 a step, their peak memory, and the
+    step's wall, enqueue and device time; the first MGN_COMPARED_STEPS
+    steps at B=MGN_PLAIN_BATCH against the plain path (training_phase),
+    with both paths' peak memory; then SHORT_STEPS steps against the plain path of
+    the graded mesh's ``epd`` at hidden 128 (B=16, CSR, rows 3/4) and of
+    the cylinder's and the graded mesh's at hidden 64. Returns
+    ({(layout, width): (forward, backward) launches}, the B=128 step's
+    times)."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_gnblock_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+
+    gn, csr = nk_ops.fused_gn_block_nk, csr_ops.fused_gn_block_csr
+    launches = {}
+    train = entry.cylinder_train_setup(device, hidden=MGN_HIDDEN, mp_steps=MGN_BLOCKS)
+    g = train.graph
+    b = g.x.shape[1]
+    log(f"MeshGraphNets-width epd: {int(g.n_node)} nodes x {b} samples, hidden {MGN_HIDDEN}, "
+        f"{MGN_BLOCKS} blocks, {type(train.tiling).__name__} layout (K={train.tiling.k_slots}), "
+        f"{sum(p.numel() for p in train.simulator.parameters())} parameters")
+    reset_counts([gn])
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, per_step, _, _ = train_run(train.train_step, train.state, train.simulator,
+                                              g, 36, TRAIN_STEPS, [gn])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches["nk", MGN_HIDDEN] = launch_counts(gn)
+    log(f"MGN-width epd training ({TRAIN_STEPS} steps, B={b}, kernel path): launches per step "
+        f"(forward, backward) {sorted(set(per_step))}, in all {launches['nk', MGN_HIDDEN]}; "
+        f"max_memory_allocated {peak / 2**30:.4f} GiB")
+    log("  loss:      " + " ".join(f"{v:.6g}" for v in losses))
+    log("  grad_norm: " + " ".join(f"{v:.6g}" for v in norms))
+    if any(s != ((MGN_BLOCKS, MGN_BLOCKS),) for s in per_step) or not all(
+            map(math.isfinite, losses + norms)):
+        raise AssertionError(f"phase 36: launches per step {per_step}, or a non-finite loss "
+                             "or gradient norm")
+    st = step_timing(train, None, None, 37)
+    log(f"MGN-width train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
+        f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
+        f"{st['train_step_device_ms']:.4f} ms; the host enqueues a step in "
+        f"{st['train_step_host_enqueue_ms']:.4f} ms, CUDA events "
+        f"{st['train_step_enqueue_events_ms']:.4f} ms over the same steps, "
+        f"{st['train_step_syncs']} device-to-host syncs a step) ({card})")
+    log("MGN-width train timing " + json.dumps({"card": card, "peak_bytes": peak, **st}))
+    del train
+    torch.cuda.empty_cache()
+    checks = (
+        (f"MGN-width epd training at B={MGN_PLAIN_BATCH} against the plain path", gn,
+         ("nk", MGN_HIDDEN), lambda: entry.cylinder_train_setup(
+             device, hidden=MGN_HIDDEN, mp_steps=MGN_BLOCKS, batch=MGN_PLAIN_BATCH),
+         MGN_COMPARED_STEPS),
+        (f"graded epd training at hidden {MGN_HIDDEN}", csr, ("csr", MGN_HIDDEN),
+         lambda: entry.graded_train_setup(device, hidden=MGN_HIDDEN), SHORT_STEPS),
+        ("cylinder epd training at hidden 64", gn, ("nk", 64),
+         lambda: entry.cylinder_train_setup(device, hidden=64, mp_steps=MGN_BLOCKS),
+         SHORT_STEPS),
+        ("graded epd training at hidden 64", csr, ("csr", 64),
+         lambda: entry.graded_train_setup(device, hidden=64), SHORT_STEPS))
+    for seed, (label, kernel, key, make, steps) in enumerate(checks, start=38):
+        setup = make()
+        _, _, _, got = training_phase(label, setup, [kernel], seed, steps=steps)
+        launches[key] = tuple(a + c for a, c in zip(launches.get(key, (0, 0)),
+                                                    got[kernel.__name__]))
+        del setup, got
+        torch.cuda.empty_cache()
+    return launches, st
+
+
+def mgn_fit_phase(device, card):
+    """Phase 37: training_config/cylinder.json with hidden_size 128 and
+    message_passing_num 15 (set in memory) through Trainer.fit
+    (MGN_FIT_TRAJECTORIES trajectories, B=128, MGN_FIT_EPOCHS epoch, a
+    VAL_STEPS-step validation rollout), then predict from its checkpoint:
+    the launches counted and held to the prediction, predict's RMSE
+    validate's. Returns the (forward, backward) launches of both."""
+    import torch
+    from graph_physics_tpu_torch.cli import predict as predict_cli
+    from graph_physics_tpu_torch.cli.common import load_inference_stack
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+
+    gn = nk_ops.fused_gn_block_nk
+    param = cylinder_param()
+    param["model"].update(hidden_size=MGN_HIDDEN, message_passing_num=MGN_BLOCKS)
+    train_ds, val_ds = fit_datasets(MGN_FIT_TRAJECTORIES)
+    tr = fit_trainer(param, train_ds, val_ds, "fit_mgn", device, epochs=MGN_FIT_EPOCHS)
+    reset_counts([gn])
+    t0 = time.perf_counter()
+    tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = launch_counts(gn)
+    steps, n_blocks = tr.state.step, len(tr.sim.model.processor_list)
+    records = epoch_records(tr)
+    log(f"fit, cylinder.json at MeshGraphNets' width ({n_blocks} blocks, hidden "
+        f"{tr.sim.model.hidden_size}, bf16, {type(tr.sim.model.tiling).__name__} layout; "
+        f"{MGN_FIT_TRAJECTORIES} trajectories of {FIT_FRAMES} frames, B={FIT_BATCH}, "
+        f"{MGN_FIT_EPOCHS} epoch, {steps} steps, validation {VAL_STEPS} rollout steps): "
+        f"{fit_s:.1f} s ({card})")
+    for r in records:
+        log(f"  epoch {int(r['epoch'])}: train_loss_epoch {r['train_loss_epoch']:.6g} "
+            f"val_all_rollout_rmse {r['val_all_rollout_rmse']:.6g} val_1step_rmse "
+            f"{r['val_1step_rmse']:.6g} ({r['epoch_time_s']:.2f} s)")
+    want = (n_blocks * (steps + MGN_FIT_EPOCHS * VAL_STEPS), n_blocks * steps)
+    log(f"  launches (forward, backward) of {gn.__name__}: {fit_launches}; expected {want}")
+    values = [r[k] for r in records for k in ("train_loss_epoch", "val_all_rollout_rmse")]
+    if (len(records) != MGN_FIT_EPOCHS or not all(math.isfinite(v) for v in values)
+            or n_blocks != MGN_BLOCKS or steps != MGN_FIT_EPOCHS * MGN_FIT_TRAJECTORIES
+            or fit_launches != want):
+        raise AssertionError(f"phase 37: {steps} steps, launches {fit_launches}, records "
+                             f"{records}")
+    # predict reads the configuration from a file: the in-memory one, written
+    # beside the run's checkpoints
+    cfg_path = Path(tr.cfg.out_dir) / tr.cfg.run_name / "cylinder_mgn.json"
+    cfg_path.write_text(json.dumps(param))
+    args = predict_cli.build_argparser().parse_args([
+        "--training_parameters_path", str(cfg_path), "--model_path", tr.ckpt_dir, "--bf16",
+        "--fused", "--device", str(device)])
+    reset_counts([gn])
+    stack = load_inference_stack(args, dataset=val_ds)
+    pred = predict_cli.predict(stack, fused=True)[0]
+    torch.cuda.synchronize()
+    predict_launches = launch_counts(gn)
+    want_rmse = records[-1]["val_all_rollout_rmse"]
+    rel = abs(pred.rmse_all_rollout - want_rmse) / want_rmse
+    want = (n_blocks * VAL_STEPS, 0)
+    log(f"predict, cylinder.json at MeshGraphNets' width: checkpoint step {stack.step}, rollout "
+        f"of {pred.predictions.shape[0]} steps, launches (forward, backward) {predict_launches}, "
+        f"expected {want}: rmse_all_rollout {pred.rmse_all_rollout:.8g}, validate reported "
+        f"{want_rmse:.8g} (relative difference {rel:.3g}, limit {PREDICT_RTOL})")
+    if stack.step != steps or rel > PREDICT_RTOL or predict_launches != want:
+        raise AssertionError("phase 37: predict's rollout is not validate's, or its launches "
+                             f"{predict_launches} are not {want}")
+    log("MGN-width fit " + json.dumps({"card": card, "fit_s": fit_s, "fit_launches": fit_launches,
+                                       "predict_launches": predict_launches,
+                                       "predict_rmse": pred.rmse_all_rollout,
+                                       "validate_rmse": want_rmse}))
+    return tuple(a + c for a, c in zip(fit_launches, predict_launches))
+
+
+def wide_phases(device, card, build_log):
+    """Phases 35-37; returns the eight records of rows 1-4 at hidden 64 and
+    128, each with the launches of the runs at its width."""
+    records = wide_kernel_phase(device, card, build_log)
+    launches, _ = mgn_train_phase(device, card)
+    fit = mgn_fit_phase(device, card)
+    launches["nk", MGN_HIDDEN] = tuple(a + c for a, c in zip(launches["nk", MGN_HIDDEN], fit))
+    for (layout, h), (fwd_n, bwd_n) in launches.items():
+        records[wide_record(layout, h, False)["name"]]["launches"] += fwd_n
+        records[wide_record(layout, h, True)["name"]]["launches"] += bwd_n
+    return [records[wide_record(layout, h, bwd)["name"]] for h in WIDE_HIDDEN
+            for layout in ("nk", "csr") for bwd in (False, True)]
 
 if __name__ == "__main__":
     main()

@@ -50,9 +50,11 @@
 // (row or node, 16 samples), the forward rematerialised with its
 // fragments in registers, the cotangent through the layers as g·W
 // products, and the weight gradients shared by a block's 8 warps over
-// its 128 staged rows (Gᵀ·A), kept in registers until one flush per block.
-// The sender pass stays on the CUDA cores: two H x H products a (node,
-// sample).
+// its 128 staged rows (Gᵀ·A), kept in registers until each block writes
+// its sums to its slot of a partials buffer. The sender pass stays on the
+// CUDA cores: two H x H products a (node, sample). After each pass a
+// kernel adds the blocks' partials in block order: no atomics anywhere,
+// the same bits on every call.
 
 #include "gn_bwd_passes.cuh"
 

@@ -53,7 +53,9 @@
 //     (ops/tiling.cached_sender_slots), dx finished in bf16, dKr and dKs.
 // Passes 1 and 2 run every product on mma.sync bf16 -> fp32 tiles, the
 // weight gradients shared by a block's warps (gn_bwd_passes.cuh). No
-// atomics and no fp32 accumulator touch dx or de.
+// atomics and no fp32 accumulator touch dx or de; the weight gradients
+// are the blocks' partials added in block order, the same bits on every
+// call.
 
 #include "gn_bwd_passes.cuh"
 

@@ -1,16 +1,20 @@
 // Helpers shared by the GraphNetBlock backward kernels on the NK slot layout
 // (fused_gnblock_nk_bwd.cu) and on the CSR layout (fused_gnblock_csr_bwd.cu)
 // that run on the CUDA cores: the sender pass's H x H products and its
-// weight gradients reduced per warp in shared memory, and the flush of a
-// block's gradient accumulators into the global fp32 gradients.
+// weight gradients reduced per warp in shared memory, and the fixed-order
+// sum of the blocks' gradient partials into the global fp32 gradients.
 //
 // Weight gradients of the sender pass: a warp is 32 rows; each row's
 // (activation, cotangent) pair is staged in a per-warp shared buffer, then
 // lane o sums column o of the outer products over the 32 rows (one float4
-// broadcast feeds four FMAs) and adds the 32-row partial into a per-block
-// fp32 accumulator in shared memory (one shared atomic per weight per warp
-// step). Every lane of a warp must call the staging helpers together, so
-// the pass runs warp-uniform loops and gives idle lanes zero cotangents.
+// broadcast feeds four FMAs) and adds the 32-row partial into the warp's
+// own fp32 accumulator in shared memory. Every lane of a warp must call
+// the staging helpers together, so the pass runs warp-uniform loops and
+// gives idle lanes zero cotangents.
+//
+// No atomics: each block writes its sums to its own slot of a partials
+// buffer, and reduce_mlp_kernel / reduce_send_kernel add the slots in block
+// order, so a backward gives the same bits on every call.
 #pragma once
 
 #include "gn_nk_common.cuh"
@@ -40,23 +44,16 @@ __device__ __forceinline__ float dot_row(const float (&g)[H], const float* wrow)
 }
 
 // stage_cols writes each lane's cotangent row into the warp's buffer and
-// hands lane o column o (gcol[l] = row l's value o); with ``sum_to`` it
-// also adds the column sum (a bias or scale gradient).
-__device__ __forceinline__ void stage_cols(float* st, const float (&g)[H], float (&gcol)[H],
-                                           float* sum_to) {
+// hands lane o column o (gcol[l] = row l's value o).
+__device__ __forceinline__ void stage_cols(float* st, const float (&g)[H], float (&gcol)[H]) {
   const int lane = threadIdx.x & 31;
   float* sg = st + STAGE_G;
 #pragma unroll
   for (int o = 0; o < H; ++o) sg[lane * (H + 1) + o] = g[o];
   __syncwarp();
-  float s = 0.f;
 #pragma unroll
-  for (int l = 0; l < 32; ++l) {
-    gcol[l] = sg[l * (H + 1) + lane];
-    s += gcol[l];
-  }
+  for (int l = 0; l < 32; ++l) gcol[l] = sg[l * (H + 1) + lane];
   __syncwarp();
-  if (sum_to) atomicAdd(sum_to + lane, s);
 }
 
 __device__ __forceinline__ void stage_rows_global(float* st, const __nv_bfloat16* src, int rows) {
@@ -66,7 +63,8 @@ __device__ __forceinline__ void stage_rows_global(float* st, const __nv_bfloat16
 }
 
 // dW[i][o] += sum over the warp's 32 rows of a[i] * g[o], lane o owning
-// column o; the staged activations are read as float4 broadcasts
+// column o of the warp's own accumulator dw; the staged activations are
+// read as float4 broadcasts
 __device__ __forceinline__ void outer(float* st, const float (&gcol)[H], int rows, float* dw) {
   const int lane = threadIdx.x & 31;
   for (int i = 0; i < rows; ++i) {
@@ -80,27 +78,54 @@ __device__ __forceinline__ void outer(float* st, const float (&gcol)[H], int row
       s = fmaf(v.z, gcol[4 * q + 2], s);
       s = fmaf(v.w, gcol[4 * q + 3], s);
     }
-    atomicAdd(dw + i * H + lane, s);
+    dw[i * H + lane] += s;
   }
   __syncwarp();
 }
 
-// add a staged gradient MLP (w's layout, [in][out]) into the global fp32
-// gradients ([out, in] kernels)
-__device__ inline void flush_mlp(const float* src, const Mlp& g) {
+// write a block's n staged gradient floats to its slot (blockIdx.x) of the
+// partials
+__device__ inline void store_partial(const float* src, float* part, int n) {
+  float* dst = part + static_cast<long long>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// where element i of a staged gradient MLP (per layer: W as [in][out], the
+// bias; then the scale) lies in the global fp32 gradients ([out, in]
+// kernels)
+__device__ inline float* grad_slot(const Mlp& g, int i) {
   for (int l = 0; l < g.n_layers; ++l) {
     const int rows = l == 0 ? g.in_dim : H;
-    float* w = const_cast<float*>(g.w[l]);
-    for (int i = threadIdx.x; i < rows * H; i += blockDim.x)
-      atomicAdd(w + (i % H) * rows + i / H, src[i]);
-    src += rows * H;
-    float* b = const_cast<float*>(g.b[l]);
-    for (int o = threadIdx.x; o < H; o += blockDim.x) atomicAdd(b + o, src[o]);
-    src += H;
+    if (i < rows * H) return const_cast<float*>(g.w[l]) + (i % H) * rows + i / H;
+    i -= rows * H;
+    if (i < H) return const_cast<float*>(g.b[l]) + i;
+    i -= H;
   }
-  if (g.scale) {
-    float* s = const_cast<float*>(g.scale);
-    for (int o = threadIdx.x; o < H; o += blockDim.x) atomicAdd(s + o, src[o]);
+  return const_cast<float*>(g.scale) + i;
+}
+
+// adds one MLP's partials (its mlp_floats(g) floats at ``part`` in each of
+// ``blocks`` slots, ``stride`` floats apart) into its global gradients,
+// the slots summed in block order
+__global__ void reduce_mlp_kernel(const float* part, int blocks, int stride, Mlp g) {
+  const int n = mlp_floats(g);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int b = 0; b < blocks; ++b) s += part[static_cast<long long>(b) * stride + i];
+    *grad_slot(g, i) += s;
+  }
+}
+
+// adds the sender pass's partials (dKr then dKs, each [in][out], in each
+// of ``blocks`` slots of 2 H^2 floats) into the receiver and sender columns
+// of the edge MLP's first kernel gradient gw0 [H, 3H], in block order
+__global__ void reduce_send_kernel(const float* part, int blocks, float* gw0) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < 2 * H * H;
+       i += gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int b = 0; b < blocks; ++b) s += part[static_cast<long long>(b) * 2 * H * H + i];
+    const int j = i % (H * H), half = i / (H * H);
+    gw0[(j % H) * 3 * H + (1 + half) * H + j / H] += s;
   }
 }
 

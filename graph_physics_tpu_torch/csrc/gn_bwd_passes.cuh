@@ -22,7 +22,8 @@
 //     sender-sorted row list, the layout's transpose), both in fp32; adds
 //     bf16(P_r·Krᵀ) and bf16(P_s·Ksᵀ) to its own dx and stages x ⊗ P_r and
 //     x ⊗ P_s for dKr and dKs (gn_bwd_common.cuh).
-// No atomics touch dx or de.
+// No atomics: the weight gradients are summed from per-block partials in
+// block order (gn_bwd_common.cuh), so two calls give the same bits.
 //
 // Passes 1 and 2 run every product on the tensor cores (gn_tile.cuh). A
 // block is 8 warps and takes 8 tiles (128 sample rows) at a time. Each
@@ -37,8 +38,9 @@
 // ldmatrix.trans'd staged tiles, contracting over the rows, and the bias
 // (or scale) sums as products with a column of ones. The accumulators stay
 // in registers across the block's tiles (24 to 40 a lane per MLP); at its
-// end the block writes them to shared memory in flush_mlp's layout and
-// adds them into the global fp32 gradients once (gn_bwd_common.cuh).
+// end the block writes them to shared memory in grad_slot's layout and
+// from there to its slot of the partials, which reduce_mlp_kernel adds
+// into the global fp32 gradients in block order (gn_bwd_common.cuh).
 //
 // A row map (gn_rows.cuh) gives, for a layout: the end of the rows that
 // belong to some receiver (ranged_end), the receiver of a row, and the rows
@@ -79,6 +81,7 @@ struct PassArgs : RowMap {
   int batch, fe;
   Mlp enc, edge, node;     // weights
   Mlp genc, gedge, gnode;  // their gradients: same shapes, fp32, zeroed
+  float* part;              // each block's gradient sums (launch_passes sizes it)
 };
 
 // A block's staging of one MLP's backward for the weight gradients: each
@@ -221,7 +224,7 @@ __device__ __forceinline__ void wgrad(float (&dw)[NT][4], float (&db)[4], float 
 }
 
 // Write a warp's share (wgrad's sums for layer L, rows 16·mt..) into the
-// block's zeroed gradient buffer in flush_mlp's layout (per layer
+// block's zeroed gradient buffer in grad_slot's layout (per layer
 // [in][H] then the bias; then the scale); inputs past the layer's width
 // (or past the NT n-tiles) are left out.
 template <int NT>
@@ -333,7 +336,7 @@ __device__ __forceinline__ void nodemlp_pass(const PassArgs& a) {
   __syncthreads();
   put_grads<8>(buf, dw, db, ds, 2 * H, L, mt, scale);
   __syncthreads();
-  flush_mlp(buf, a.gnode);
+  store_partial(buf, a.part, mlp_floats(a.node));
 }
 
 // pass 2 on tile t: the edge MLP's (and folded encoder's) backward on
@@ -468,8 +471,7 @@ __device__ __forceinline__ void row_pass(const PassArgs& a) {
   put_grads<4>(buf, dw, db, ds, 3 * H, L, mt, edge.norm && last);
   if (FOLD) put_grads<4>(buf + n_edge, ew, eb, eds, a.fe, L, mt, enc.norm && last);
   __syncthreads();
-  flush_mlp(buf, a.gedge);
-  if (FOLD) flush_mlp(buf + n_edge, a.genc);
+  store_partial(buf, a.part, n_edge + n_enc);
 }
 
 // pass 3: P_r and P_s, dx's receiver and sender parts, dKr and dKs, one
@@ -479,16 +481,17 @@ __device__ __forceinline__ void send_pass(const PassArgs& a) {
   extern __shared__ __align__(16) float smem[];
   float* s_kr = smem;          // Kr as [in][out], bf16 values
   float* s_ks = s_kr + H * H;  // Ks
-  float* g_kr = s_ks + H * H;  // the block's dKr, [in][out]
-  float* g_ks = g_kr + H * H;  // the block's dKs
-  float* st = g_ks + H * H + (threadIdx.x / 32) * STAGE;
+  float* gw = s_ks + H * H;    // per warp: its dKr, then its dKs, [in][out]
+  float* g_kr = gw + (threadIdx.x / 32) * 2 * H * H;
+  float* g_ks = g_kr + H * H;
+  float* st = gw + SEND_WARPS * 2 * H * H + (threadIdx.x / 32) * STAGE;
   const float* w0 = a.edge.w[0];  // nn.Linear [H, 3H]
   for (int i = threadIdx.x; i < H * H; i += blockDim.x) {
     const int r = i / H, o = i % H;
     s_kr[i] = bf(w0[o * 3 * H + H + r]);
     s_ks[i] = bf(w0[o * 3 * H + 2 * H + r]);
-    g_kr[i] = g_ks[i] = 0.f;
   }
+  for (int i = threadIdx.x; i < SEND_WARPS * 2 * H * H; i += blockDim.x) gw[i] = 0.f;
   __syncthreads();
 
   const int B = a.batch;
@@ -528,9 +531,9 @@ __device__ __forceinline__ void send_pass(const PassArgs& a) {
     {
       float gcol[H];
       stage_rows_global(st, a.x + t * H, H);
-      stage_cols(st, p_r, gcol, nullptr);
+      stage_cols(st, p_r, gcol);
       outer(st, gcol, H, g_kr);
-      stage_cols(st, p_s, gcol, nullptr);
+      stage_cols(st, p_s, gcol);
       outer(st, gcol, H, g_ks);
     }
     if (active) {
@@ -543,63 +546,106 @@ __device__ __forceinline__ void send_pass(const PassArgs& a) {
     }
   }
   __syncthreads();
-  float* gw0 = const_cast<float*>(a.gedge.w[0]);
-  for (int i = threadIdx.x; i < H * H; i += blockDim.x) {
-    atomicAdd(gw0 + (i % H) * 3 * H + H + i / H, g_kr[i]);
-    atomicAdd(gw0 + (i % H) * 3 * H + 2 * H + i / H, g_ks[i]);
+  float* dst = a.part + static_cast<long long>(blockIdx.x) * 2 * H * H;
+  for (int i = threadIdx.x; i < 2 * H * H; i += blockDim.x) {
+    float s = 0.f;
+    for (int w = 0; w < SEND_WARPS; ++w) s += gw[w * 2 * H * H + i];
+    dst[i] = s;
   }
 }
 
 using PassKernel = void (*)(const PassArgs);
 
+// this library's memory pool on the current device, for the partials: it
+// keeps what is freed into it, so a stream-ordered allocation of the same
+// size again maps no memory
+inline cudaError_t partial_pool(cudaMemPool_t* pool) {
+  constexpr int MAX_DEVICES = 64;
+  static cudaMemPool_t pools[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidValue;
+  if (pools[dev] == nullptr) {
+    cudaMemPoolProps props = {};
+    props.allocType = cudaMemAllocationTypePinned;
+    props.location.type = cudaMemLocationTypeDevice;
+    props.location.id = dev;
+    cudaMemPool_t made;
+    if ((err = cudaMemPoolCreate(&made, &props)) != cudaSuccess) return err;
+    unsigned long long keep = ~0ULL;
+    err = cudaMemPoolSetAttribute(made, cudaMemPoolAttrReleaseThreshold, &keep);
+    if (err != cudaSuccess) return err;
+    pools[dev] = made;
+  }
+  *pool = pools[dev];
+  return cudaSuccess;
+}
+
 // the pre-pass (gn_partial_tc_kernel) and passes 1-3 on ``stream``, each
 // pass kernel one of the calling source's wrappers of the bodies above
-// (the row pass in two instances: without and with the folded encoder)
-inline cudaError_t launch_passes(const PassArgs& a, cudaStream_t stream, PassKernel nodemlp,
+// (the row pass in two instances: without and with the folded encoder),
+// each pass followed by the block-ordered sum of its blocks' gradient
+// partials (gn_bwd_common.cuh) from one stream-ordered fp32 buffer of
+// partial_pool
+inline cudaError_t launch_passes(const PassArgs& args, cudaStream_t stream, PassKernel nodemlp,
                                  PassKernel rows, PassKernel rows_fold, PassKernel send) {
-  cudaError_t err = launch_partial(a.x, const_cast<bf16*>(a.xkr), const_cast<bf16*>(a.xks),
-                                   a.edge.w[0], a.n_nodes, a.batch, stream);
-  if (err != cudaSuccess) return err;
-
+  PassArgs a = args;
+  const int chunks = (a.batch + 15) / 16;
+  const bool fold = a.fe > 0;
   // each block stages its gradients in its staging area at its end: the
   // staging (>= 92 KB) outsizes the MLPs' fp32 gradients (<= 42 KB)
-  const int chunks = (a.batch + 15) / 16;
-  const size_t nsmem = sizeof(bf16) * tile_mlp_elems(a.node) + stage_bytes(2 * H + 8);
-  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(nodemlp),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(nsmem));
-  if (err != cudaSuccess) return err;
-  int grid = 0;
-  // a warp a 16-sample tile
-  err = gn_nk::grid_for(reinterpret_cast<const void*>(nodemlp), PASS_THREADS, nsmem,
-                        32LL * a.n_nodes * chunks, &grid);
-  if (err != cudaSuccess) return err;
-  nodemlp<<<grid, PASS_THREADS, nsmem, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const bool fold = a.fe > 0;
-  const PassKernel row_kernel = fold ? rows_fold : rows;
-  const size_t rsmem =
+  const PassKernel kernels[3] = {nodemlp, fold ? rows_fold : rows, send};
+  const size_t smem[3] = {
+      sizeof(bf16) * tile_mlp_elems(a.node) + stage_bytes(2 * H + 8),
       sizeof(bf16) * (tile_mlp_elems(a.edge) + (fold ? tile_mlp_elems(a.enc) : 0)) +
-      stage_bytes(TS) * (fold ? 2 : 1);
-  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(row_kernel),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(rsmem));
+          stage_bytes(TS) * (fold ? 2 : 1),
+      sizeof(float) * (2 * H * H + SEND_WARPS * (2 * H * H + STAGE))};
+  const int threads[3] = {PASS_THREADS, PASS_THREADS, SEND_THREADS};
+  // a warp a 16-sample tile in passes 1 and 2, a thread a (node, sample) in 3
+  const long long work[3] = {32LL * a.n_nodes * chunks, 32LL * a.total_rows * chunks,
+                             static_cast<long long>(a.n_nodes) * a.batch};
+  const int n_edge = mlp_floats(a.edge), n_enc = fold ? mlp_floats(a.enc) : 0;
+  const int floats[3] = {mlp_floats(a.node), n_edge + n_enc, 2 * H * H};
+  int grid[3];
+  long long part_floats = 0;
+  cudaError_t err;
+  for (int k = 0; k < 3; ++k) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernels[k]),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem[k]));
+    if (err != cudaSuccess) return err;
+    err = gn_nk::grid_for(reinterpret_cast<const void*>(kernels[k]), threads[k], smem[k],
+                          work[k], &grid[k]);
+    if (err != cudaSuccess) return err;
+    const long long need = static_cast<long long>(grid[k]) * floats[k];
+    part_floats = need > part_floats ? need : part_floats;
+  }
+  err = launch_partial(a.x, const_cast<bf16*>(a.xkr), const_cast<bf16*>(a.xks), a.edge.w[0],
+                       a.n_nodes, a.batch, stream);
   if (err != cudaSuccess) return err;
-  err = gn_nk::grid_for(reinterpret_cast<const void*>(row_kernel), PASS_THREADS, rsmem,
-                        32LL * a.total_rows * chunks, &grid);
+  cudaMemPool_t pool;
+  if ((err = partial_pool(&pool)) != cudaSuccess) return err;
+  err = cudaMallocFromPoolAsync(reinterpret_cast<void**>(&a.part), sizeof(float) * part_floats,
+                                pool, stream);
   if (err != cudaSuccess) return err;
-  row_kernel<<<grid, PASS_THREADS, rsmem, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const size_t send_smem = sizeof(float) * (4 * H * H + SEND_WARPS * STAGE);
-  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(send),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(send_smem));
-  if (err != cudaSuccess) return err;
-  err = gn_nk::grid_for(reinterpret_cast<const void*>(send), SEND_THREADS, send_smem,
-                        static_cast<long long>(a.n_nodes) * a.batch, &grid);
-  if (err != cudaSuccess) return err;
-  send<<<grid, SEND_THREADS, send_smem, stream>>>(a);
-  return cudaGetLastError();
+  constexpr int RT = 256;  // threads of a reduce kernel, one a gradient float
+  kernels[0]<<<grid[0], threads[0], smem[0], stream>>>(a);
+  reduce_mlp_kernel<<<(floats[0] + RT - 1) / RT, RT, 0, stream>>>(a.part, grid[0], floats[0],
+                                                                   a.gnode);
+  kernels[1]<<<grid[1], threads[1], smem[1], stream>>>(a);
+  reduce_mlp_kernel<<<(n_edge + RT - 1) / RT, RT, 0, stream>>>(a.part, grid[1], floats[1],
+                                                               a.gedge);
+  if (fold)
+    reduce_mlp_kernel<<<(n_enc + RT - 1) / RT, RT, 0, stream>>>(a.part + n_edge, grid[1],
+                                                                floats[1], a.genc);
+  kernels[2]<<<grid[2], threads[2], smem[2], stream>>>(a);
+  reduce_send_kernel<<<(floats[2] + RT - 1) / RT, RT, 0, stream>>>(
+      a.part, grid[2], const_cast<float*>(a.gedge.w[0]));
+  err = cudaGetLastError();
+  const cudaError_t freed = cudaFreeAsync(a.part, stream);
+  return err != cudaSuccess ? err : freed;
 }
 
 // Fills the weight and gradient MLPs of ``a`` from the pointer lists (2 *

@@ -25,7 +25,7 @@ struct Mlp {
 };
 
 // floats one MLP's fp32 gradients take staged in shared memory
-// (gn_bwd_common.cuh:flush_mlp): [in][H] W0, b0, then [H][H] W_l and b_l
+// (gn_bwd_common.cuh:grad_slot): [in][H] W0, b0, then [H][H] W_l and b_l
 // per further layer, then the scale
 __host__ __device__ inline int mlp_floats(const Mlp& m) {
   return m.in_dim * H + H + (m.n_layers - 1) * (H * H + H) + (m.scale ? H : 0);

@@ -242,15 +242,16 @@ def transformer_setup(
         _nk_layout if nk else None, accumulate_stats)
 
 
-def graded_setup(device="cuda", *, num_nodes: int = 27_000, mp_steps: int = 5,
-                 batch: int = 16, num_steps: int = 3,
+def graded_setup(device="cuda", *, num_nodes: int = 27_000, hidden: int = 32,
+                 mp_steps: int = 5, batch: int = 16, num_steps: int = 3,
                  accumulate_stats: bool = True) -> CylinderSetup:
-    """The cylinder ``epd`` model (``cylinder_setup``'s widths: hidden 32,
-    bf16, weights from seed 0) on the graded mesh, in the layout
+    """The cylinder ``epd`` model (``cylinder_setup``'s widths by default:
+    hidden 32, bf16, weights from seed 0) on the graded mesh, in the layout
     FusedTopologyManager("epd") chooses, which must be CSR: B
     packed copies of frame 0 on ``device``; ``accumulate_stats`` folds the
     batch into the normalizer statistics."""
-    return _packed_setup(device, lambda t: make_simulator(32, mp_steps, torch.bfloat16, t, 0),
+    return _packed_setup(device,
+                         lambda t: make_simulator(hidden, mp_steps, torch.bfloat16, t, 0),
                          synthetic.make_graded_trajectory(num_nodes, num_steps),
                          batch, _chosen_csr_layout("epd"), accumulate_stats)
 

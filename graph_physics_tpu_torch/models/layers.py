@@ -226,6 +226,11 @@ def lecun_parameters(module: nn.Module, generator: torch.Generator) -> None:
                     m.bias.zero_()
 
 
+#: the TPU kernels' lane width (ops/fused_gnblock.py:LANES), which the
+#: fused GraphNetBlock's hidden size must divide
+LANES = 128
+
+
 def fused_path_ok(
     tiling,
     x: torch.Tensor,
@@ -236,15 +241,19 @@ def fused_path_ok(
 ) -> bool:
     """Whether a fused GraphNetBlock applies on ``tiling``, a CSRLayout or
     an NKTiling (layers.py:fused_path_ok and fused_path_ok_nk without their
-    128-lane terms): shared by GraphNetBlock and EncodeProcessDecode, so
-    the processor's fold decision is the block's. ``raw_edge``: edge_attr
-    carries the raw features and the edge encoder folds into the block."""
+    B·H lane term, which serves the TPU's packing only): shared by
+    GraphNetBlock and EncodeProcessDecode, so the processor's fold decision
+    is the block's. The hidden size must divide LANES, as JAX fuses only
+    such widths (hidden 24 or 48 take the plain path in both packages).
+    ``raw_edge``: edge_attr carries the raw features and the edge encoder
+    folds into the block."""
     return (
         tiling is not None
         and dtype == torch.bfloat16
         and x.ndim == 3
         and edge_attr.ndim == 3
         and x.shape[-1] == hidden_size
+        and LANES % hidden_size == 0
         and x.shape[0] == tiling.num_nodes
         and edge_attr.shape[0] == tiling.total_rows
         and (edge_attr.shape[-1] <= hidden_size // 2 if raw_edge

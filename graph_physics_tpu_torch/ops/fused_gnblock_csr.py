@@ -11,9 +11,14 @@ samples) over the receiver's CSR rows, so graphs of any degree sum at the
 receiver with no atomics; the backward
 (``csrc/fused_gnblock_csr_bwd.cu``) rematerializes that forward from
 (x, e) and the aggregate the forward kept, one warp per (row, 16
-samples), and returns dx, de and fp32 weight gradients, its sender-side
-sums taken over the layout's sender-sorted row list. See the sources'
-headers for the designs and the bounds.
+samples), and returns dx, de and fp32 weight gradients (per-block
+partials added in block order, no atomics), its sender-side sums taken
+over the layout's sender-sorted row list. Those are the
+hidden-32 kernels; at hidden 64 and 128 the wrapper launches its width's
+``csrc/fused_gnblock_wide_csr.cu`` and ``_csr_bwd.cu``, the passes the NK
+layout's wide kernels run (``fused_gnblock_nk``) on the CSR row map;
+other widths raise, naming ROADMAP B 4. See the sources' headers for the
+designs and the bounds.
 
 :func:`fused_gn_block_csr_reference` is the plain PyTorch version,
 following blocked_reference (fused_gnblock.py:1109-1191) on the CSR edge
@@ -33,19 +38,21 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from graph_physics_tpu_torch.ops import kernel_build
 from graph_physics_tpu_torch.ops.fused_gnblock_nk import (
-    BACKWARD_LAYERS,
-    KERNEL_HIDDEN,
-    KERNEL_MAX_LAYERS,
+    WIDE_HIDDEN,
     _check_mlp,
     _mlp_params,
     _mlp_reference,
     _mlp_tensors,
-    _pointers,
+    _ptr,
     backward_buffers,
+    check_kernel_mlps,
+    load_library,
+    mlp_args,
     mlp_tail_reference,
     rounded_grads,
+    wide_backward_buffers,
+    wide_forward_buffers,
 )
 from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
@@ -53,11 +60,16 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "gn_csr_fwd": {"gn_csr_fwd": [_vp] * 9 + [_i] * 4 + [_vp, _i] * 3 + [_vp]},
     "gn_csr_bwd": {"gn_csr_bwd": [_vp] * 17 + [_i] * 4 + [_vp, _vp, _i] * 3 + [_vp]},
+    **{f"gn_csr_fwd{h}": {"gnw_csr_fwd": [_vp] * 11 + [_i] * 4 + [_vp, _i] * 3 + [_vp],
+                          "gnw_hidden": []} for h in WIDE_HIDDEN},
+    **{f"gn_csr_bwd{h}": {"gnw_csr_bwd": [_vp] * 15 + [_i] * 4 + [_vp, _vp, _i] * 3 + [_vp],
+                          "gnw_bwd_sizes": [_i, _i, _i, ctypes.c_longlong, _i],
+                          "gnw_hidden": []} for h in WIDE_HIDDEN},
 }
 
 
 def _load(name: str):
-    return kernel_build.load(name, _ARGTYPES[name])
+    return load_library(name, _ARGTYPES)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -68,22 +80,30 @@ def _launch_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_blo
                 keep_agg=False):
     """(x_out, e_out, agg): e_out is ``edge_attr`` on the last block; with
     ``keep_agg`` the kernel also writes the bf16 aggregate [N, B, H] the
-    backward kernel reads (else agg is None)."""
-    enc, edge, node = mlps
+    backward kernel reads (else agg is None). Hidden 32 launches
+    ``csrc/fused_gnblock_csr.cu``, 64 and 128 their width's
+    ``csrc/fused_gnblock_wide_csr.cu``."""
     n, b, h = x.shape
     x_out = torch.empty_like(x)
     e_out = None if last_block else torch.empty((csr.total_rows, b, h), dtype=x.dtype,
                                                 device=x.device)
-    agg = torch.empty_like(x) if keep_agg else None
-    xks = torch.empty_like(x)  # the pre-pass's sender partials
-    err = _load("gn_csr_fwd").gn_csr_fwd(
-        x.data_ptr(), edge_attr.data_ptr(), xks.data_ptr(), x_out.data_ptr(),
-        None if e_out is None else e_out.data_ptr(), None if agg is None else agg.data_ptr(),
-        csr.row_ptr_on(x.device).data_ptr(), senders.data_ptr(), edge_mask.data_ptr(), n, b,
-        csr.total_rows,
-        edge_attr.shape[-1] if enc is not None else 0,
-        None if enc is None else _pointers(enc), 0 if enc is None else len(enc.denses),
-        _pointers(edge), len(edge.denses), _pointers(node), len(node.denses), _stream(x))
+    row_ptr = csr.row_ptr_on(x.device).data_ptr()
+    if h in WIDE_HIDDEN:
+        xkr, xks, agg, ein, fe = wide_forward_buffers(x, edge_attr, csr.total_rows, mlps,
+                                                      last_block)
+        err = _load(f"gn_csr_fwd{h}").gnw_csr_fwd(
+            x.data_ptr(), edge_attr.data_ptr(), xkr.data_ptr(), xks.data_ptr(), _ptr(ein),
+            x_out.data_ptr(), _ptr(e_out), agg.data_ptr(), row_ptr, senders.data_ptr(),
+            edge_mask.data_ptr(), n, b, csr.total_rows, fe, *mlp_args(mlps), _stream(x))
+        agg = agg if keep_agg else None
+    else:
+        agg = torch.empty_like(x) if keep_agg else None
+        xks = torch.empty_like(x)  # the pre-pass's sender partials
+        err = _load("gn_csr_fwd").gn_csr_fwd(
+            x.data_ptr(), edge_attr.data_ptr(), xks.data_ptr(), x_out.data_ptr(), _ptr(e_out),
+            _ptr(agg), row_ptr, senders.data_ptr(), edge_mask.data_ptr(), n, b,
+            csr.total_rows, edge_attr.shape[-1] if mlps[0] is not None else 0,
+            *mlp_args(mlps), _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_gn_block_csr launch failed with CUDA error {err}")
     fused_gn_block_csr.launches += 1
@@ -94,19 +114,30 @@ def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, receivers, edge_mask
     """dx (bf16), de (bf16, None when the encoder is folded) and the
     parameter gradients (fp32 holding bf16 values, as the plain version's
     bf16 autograd gives them) in ``_mlp_params`` order per MLP. ``agg`` is
-    the aggregate the forward kept."""
-    n, b, _ = x.shape
+    the aggregate the forward kept. Hidden 32 launches
+    ``csrc/fused_gnblock_csr_bwd.cu``, 64 and 128 their width's
+    ``csrc/fused_gnblock_wide_csr_bwd.cu``."""
+    n, b, h = x.shape
     rows = csr.total_rows
     order, offsets = cached_sender_slots(senders, edge_mask, csr)
-    dx, de, (xkr, xks, gagg, gh0), grads, ptrs = backward_buffers(x, rows, mlps)
-    err = _load("gn_csr_bwd").gn_csr_bwd(
-        x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
-        None if g_eout is None else g_eout.data_ptr(), dx.data_ptr(),
-        None if de is None else de.data_ptr(), xkr.data_ptr(), xks.data_ptr(),
-        gagg.data_ptr(), gh0.data_ptr(), csr.row_ptr_on(x.device).data_ptr(),
-        senders.data_ptr(), receivers.data_ptr(), edge_mask.data_ptr(), order.data_ptr(),
-        offsets.data_ptr(), n, b, rows, edge_attr.shape[-1] if mlps[0] is not None else 0,
-        *ptrs, _stream(x))
+    row_ptr = csr.row_ptr_on(x.device).data_ptr()
+    if h in WIDE_HIDDEN:
+        lib = _load(f"gn_csr_bwd{h}")
+        dx, de, scratch, part, grads, ptrs, fe = wide_backward_buffers(lib, x, edge_attr, rows,
+                                                                       mlps)
+        err = lib.gnw_csr_bwd(
+            x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
+            _ptr(g_eout), dx.data_ptr(), _ptr(de), scratch.data_ptr(), part.data_ptr(), row_ptr,
+            senders.data_ptr(), receivers.data_ptr(), edge_mask.data_ptr(), order.data_ptr(),
+            offsets.data_ptr(), n, b, rows, fe, *ptrs, _stream(x))
+    else:
+        dx, de, (xkr, xks, gagg, gh0), grads, ptrs = backward_buffers(x, rows, mlps)
+        err = _load("gn_csr_bwd").gn_csr_bwd(
+            x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
+            _ptr(g_eout), dx.data_ptr(), _ptr(de), xkr.data_ptr(), xks.data_ptr(),
+            gagg.data_ptr(), gh0.data_ptr(), row_ptr, senders.data_ptr(), receivers.data_ptr(),
+            edge_mask.data_ptr(), order.data_ptr(), offsets.data_ptr(), n, b, rows,
+            edge_attr.shape[-1] if mlps[0] is not None else 0, *ptrs, _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_gn_block_csr backward launch failed with CUDA error {err}")
     fused_gn_block_csr.backward_launches += 1
@@ -243,20 +274,10 @@ def fused_gn_block_csr(
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     mlps = (encoder_params, edge_params, node_params)
-    used = [m for m in mlps if m is not None]
-    if h != KERNEL_HIDDEN:
-        raise NotImplementedError(f"the kernel is built for hidden {KERNEL_HIDDEN}, got {h}")
-    if any(m.activation != "relu" for m in used):
-        raise NotImplementedError("the kernel implements relu MLPs only")
-    if any(len(m.denses) > KERNEL_MAX_LAYERS for m in used):
-        raise NotImplementedError(f"at most {KERNEL_MAX_LAYERS} Dense layers per MLP")
-    params = [p for m in used for p in _mlp_params(m)]
+    check_kernel_mlps(h, mlps, False, fe)
+    params = [p for m in mlps if m is not None for p in _mlp_params(m)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in [x, edge_attr, *params]):
-        if any(len(m.denses) != BACKWARD_LAYERS for m in used):
-            raise NotImplementedError(
-                f"the backward kernel is built for MLPs of {BACKWARD_LAYERS} Dense layers")
-        if encoder_params is not None and fe > h:
-            raise NotImplementedError("raw edge features wider than the hidden size")
+        check_kernel_mlps(h, mlps, True, fe)
         return apply_with_backward(KERNELS, x, edge_attr, senders, receivers, edge_mask, csr,
                                    mlps, last_block)
     return _launch_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_block)[:2]

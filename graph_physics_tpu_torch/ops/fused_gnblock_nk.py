@@ -13,8 +13,17 @@ runs the CSR backward's passes (``csrc/gn_bwd_passes.cuh``): a node
 pre-pass, a node-MLP pass that reads the kept aggregate and a row pass,
 both with one warp per (slot or node, 16 samples), and a sender pass over
 the layout's sender-sorted slot list, returning dx, de and fp32 weight
-gradients with no atomics on dx or de. See the sources' headers for the
-designs.
+gradients with no atomics (the weight gradients are per-block partials
+added in block order). Those are the hidden-32 kernels.
+At hidden 64 and 128 (MeshGraphNets' latent width) the wrapper launches
+its width's ``csrc/fused_gnblock_wide_nk.cu`` and
+``csrc/fused_gnblock_wide_nk_bwd.cu`` (the passes of
+``csrc/gn_wide_fwd.cuh`` and ``gn_wide_bwd.cuh``, one library a width):
+the weights no longer fit one block, so each pass holds one MLP, and the
+backward writes what the weight gradients contract over to a bf16
+scratch and forms them as products over the rows, summed from partials
+in a fixed order (two calls give the same bits). Other widths raise,
+naming ROADMAP B 4. See the sources' headers for the designs.
 
 :func:`fused_gn_block_nk_reference` is the plain PyTorch version of the
 same function, following blocked_reference_nk (fused_gnblock_nk.py:731),
@@ -43,22 +52,71 @@ from torch.autograd.function import once_differentiable
 from graph_physics_tpu_torch.ops import kernel_build
 from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
-#: hidden width the kernels are compiled for (``H`` in the sources)
-KERNEL_HIDDEN = 32
-#: most Dense layers per MLP the forward kernel takes (``MAXL``)
+#: hidden widths the kernels are built for: 32 (``csrc/fused_gnblock_nk.cu``,
+#: ``fused_gnblock_nk_bwd.cu``, ``H`` in their sources) and WIDE_HIDDEN
+KERNEL_HIDDEN = (32, 64, 128)
+#: the widths of ``csrc/fused_gnblock_wide_nk.cu`` and ``_bwd.cu`` (the
+#: passes of ``csrc/gn_wide_fwd.cuh``, ``gn_wide_bwd.cuh``), one library
+#: a width
+WIDE_HIDDEN = (64, 128)
+#: most Dense layers per MLP the hidden-32 forward kernel takes (``MAXL``)
 KERNEL_MAX_LAYERS = 8
-#: Dense layers per MLP the backward kernel is built for (``NL``)
+#: Dense layers per MLP the backward kernels, and the wide forwards, are
+#: built for (``NL``)
 BACKWARD_LAYERS = 4
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "gn_nk_fwd": {"gn_nk_fwd": [_vp] * 8 + [_i] * 5 + [_vp, _i] * 3 + [_vp]},
     "gn_nk_bwd": {"gn_nk_bwd": [_vp] * 15 + [_i] * 5 + [_vp, _vp, _i] * 3 + [_vp]},
+    **{f"gn_nk_fwd{h}": {"gnw_nk_fwd": [_vp] * 10 + [_i] * 5 + [_vp, _i] * 3 + [_vp],
+                         "gnw_hidden": []} for h in WIDE_HIDDEN},
+    **{f"gn_nk_bwd{h}": {"gnw_nk_bwd": [_vp] * 13 + [_i] * 5 + [_vp, _vp, _i] * 3 + [_vp],
+                         "gnw_bwd_sizes": [_i, _i, _i, ctypes.c_longlong, _i],
+                         "gnw_hidden": []} for h in WIDE_HIDDEN},
 }
 
 
+def load_library(name: str, argtypes):
+    """kernel_build.load for a GraphNetBlock library of either layout; a
+    wide library's ``gnw_bwd_sizes`` returns a 64-bit count, and its
+    ``gnw_hidden`` must be the width its name says."""
+    lib = kernel_build.load(name, argtypes[name])
+    if "gnw_bwd_sizes" in argtypes[name]:
+        lib.gnw_bwd_sizes.restype = ctypes.c_longlong
+    if "gnw_hidden" in argtypes[name]:
+        width = int(name[len(name.rstrip("0123456789")):])
+        if lib.gnw_hidden() != width:
+            raise RuntimeError(f"{name}: built for hidden {lib.gnw_hidden()}, not {width}")
+    return lib
+
+
 def _load(name: str):
-    return kernel_build.load(name, _ARGTYPES[name])
+    return load_library(name, _ARGTYPES)
+
+
+def check_kernel_mlps(h: int, mlps, backward: bool, fe: int):
+    """Raise NotImplementedError where the kernels of either layout do not
+    take the block: a width without a kernel, another activation than relu,
+    other depths (the hidden-32 forward takes 1 to 8 Dense layers, every
+    other kernel 4), raw edge features wider than the hidden size (the
+    backward, and any wide kernel)."""
+    used = [m for m in mlps if m is not None]
+    if h not in KERNEL_HIDDEN:
+        raise NotImplementedError(f"the GraphNetBlock kernels are built for hidden "
+                                  f"{KERNEL_HIDDEN}, got {h} (ROADMAP B 4)")
+    if any(m.activation != "relu" for m in used):
+        raise NotImplementedError("the kernels implement relu MLPs only (ROADMAP B 4)")
+    if h == 32 and not backward:
+        if any(len(m.denses) > KERNEL_MAX_LAYERS for m in used):
+            raise NotImplementedError(f"at most {KERNEL_MAX_LAYERS} Dense layers per MLP")
+    elif any(len(m.denses) != BACKWARD_LAYERS for m in used):
+        what = "backward kernel" if h == 32 else f"hidden-{h} kernels"
+        raise NotImplementedError(
+            f"the {what} {'is' if h == 32 else 'are'} built for MLPs of {BACKWARD_LAYERS} "
+            f"Dense layers")
+    if mlps[0] is not None and fe > h and (backward or h != 32):
+        raise NotImplementedError("raw edge features wider than the hidden size")
 
 
 def _mlp_tensors(mlp):
@@ -100,48 +158,109 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _ptr(t):
+    """A tensor's device address, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def mlp_args(mlps):
+    """The forward kernels' MLP arguments: pointers and layer count of the
+    encoder (nulls when not folded), the edge and the node MLP."""
+    enc, edge, node = mlps
+    return [None if enc is None else _pointers(enc), 0 if enc is None else len(enc.denses),
+            _pointers(edge), len(edge.denses), _pointers(node), len(node.denses)]
+
+
+def wide_forward_buffers(x, edge_attr, rows, mlps, last_block):
+    """What a wide forward kernel of either layout fills besides x_out and
+    e_out: the pre-pass's node partials x @ Kr and x @ Ks, the aggregate
+    [N, B, H] (bf16), and, on a folded last block, a [rows, B, H] scratch
+    for the encoder's output (else None); and fe (0 when not folded)."""
+    b, h = x.shape[1:]
+    fold = mlps[0] is not None
+    xkr, xks, agg = (torch.empty_like(x) for _ in range(3))
+    ein = torch.empty((rows, b, h), dtype=x.dtype, device=x.device) if fold and last_block \
+        else None
+    return xkr, xks, agg, ein, edge_attr.shape[-1] if fold else 0
+
+
 def _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block, keep_agg=False):
     """(x_out, e_out, agg): e_out is None on the last block; with
     ``keep_agg`` the kernel also writes the bf16 aggregate [N, B, H] the
-    backward kernel reads (else agg is None)."""
-    enc, edge, node = mlps
+    backward kernel reads (else agg is None). Hidden 32 launches
+    ``csrc/fused_gnblock_nk.cu``, 64 and 128 their width's
+    ``csrc/fused_gnblock_wide_nk.cu``."""
     n, b, h = x.shape
     x_out = torch.empty_like(x)
     e_out = None if last_block else torch.empty((nk.total_rows, b, h), dtype=x.dtype,
                                                 device=x.device)
-    agg = torch.empty_like(x) if keep_agg else None
-    xks = torch.empty_like(x)  # the pre-pass's sender partials
-    err = _load("gn_nk_fwd").gn_nk_fwd(
-        x.data_ptr(), edge_attr.data_ptr(), xks.data_ptr(), x_out.data_ptr(),
-        None if e_out is None else e_out.data_ptr(), None if agg is None else agg.data_ptr(),
-        senders.data_ptr(), edge_mask.data_ptr(), n, b, nk.k_slots, nk.node_block,
-        edge_attr.shape[-1] if enc is not None else 0,
-        None if enc is None else _pointers(enc), 0 if enc is None else len(enc.denses),
-        _pointers(edge), len(edge.denses), _pointers(node), len(node.denses), _stream(x))
+    if h in WIDE_HIDDEN:
+        xkr, xks, agg, ein, fe = wide_forward_buffers(x, edge_attr, nk.total_rows, mlps,
+                                                      last_block)
+        err = _load(f"gn_nk_fwd{h}").gnw_nk_fwd(
+            x.data_ptr(), edge_attr.data_ptr(), xkr.data_ptr(), xks.data_ptr(), _ptr(ein),
+            x_out.data_ptr(), _ptr(e_out), agg.data_ptr(), senders.data_ptr(),
+            edge_mask.data_ptr(), n, b, nk.k_slots, nk.node_block, fe, *mlp_args(mlps),
+            _stream(x))
+        agg = agg if keep_agg else None
+    else:
+        agg = torch.empty_like(x) if keep_agg else None
+        xks = torch.empty_like(x)  # the pre-pass's sender partials
+        err = _load("gn_nk_fwd").gn_nk_fwd(
+            x.data_ptr(), edge_attr.data_ptr(), xks.data_ptr(), x_out.data_ptr(), _ptr(e_out),
+            _ptr(agg), senders.data_ptr(), edge_mask.data_ptr(), n, b, nk.k_slots,
+            nk.node_block, edge_attr.shape[-1] if mlps[0] is not None else 0,
+            *mlp_args(mlps), _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_gn_block_nk launch failed with CUDA error {err}")
     fused_gn_block_nk.launches += 1
     return x_out, e_out, agg
 
 
-def backward_buffers(x, rows, mlps):
-    """What a GraphNetBlock backward kernel of either layout fills: dx
-    [N, B, H] and de [rows, B, H] (None when the encoder is folded), its
-    bf16 scratch (x @ Kr, x @ Ks and g_agg [N, B, H], g_h0 [rows, B, H]),
-    the zeroed fp32 gradients per MLP and their pointer arguments (weights,
-    gradients and layer count of each MLP, nulls for a missing encoder)."""
-    b, h = x.shape[1:]
-    dx, xkr, xks, gagg = (torch.empty_like(x) for _ in range(4))
-    de = None if mlps[0] is not None else torch.empty((rows, b, h), dtype=x.dtype,
-                                                      device=x.device)
-    gh0 = torch.empty((rows, b, h), dtype=x.dtype, device=x.device)
+def gradient_buffers(mlps):
+    """The zeroed fp32 gradients per MLP (None for a missing encoder) and
+    the backward kernels' pointer arguments (weights, gradients and layer
+    count of each MLP, nulls for a missing encoder)."""
     grads = [[torch.zeros_like(p, dtype=torch.float32) for p in _mlp_params(m)]
              if m is not None else None for m in mlps]
     ptrs = []
     for m, gs in zip(mlps, grads):
         ptrs += ([None, None, 0] if m is None
                  else [_pointers(m), _pointers(m, gs), len(m.denses)])
+    return grads, ptrs
+
+
+def backward_buffers(x, rows, mlps):
+    """What a hidden-32 GraphNetBlock backward kernel of either layout
+    fills: dx [N, B, H] and de [rows, B, H] (None when the encoder is
+    folded), its bf16 scratch (x @ Kr, x @ Ks and g_agg [N, B, H], g_h0
+    [rows, B, H]), the zeroed fp32 gradients per MLP and their pointer
+    arguments (weights, gradients and layer count of each MLP, nulls for a
+    missing encoder)."""
+    b, h = x.shape[1:]
+    dx, xkr, xks, gagg = (torch.empty_like(x) for _ in range(4))
+    de = None if mlps[0] is not None else torch.empty((rows, b, h), dtype=x.dtype,
+                                                      device=x.device)
+    gh0 = torch.empty((rows, b, h), dtype=x.dtype, device=x.device)
+    grads, ptrs = gradient_buffers(mlps)
     return dx, de, (xkr, xks, gagg, gh0), grads, ptrs
+
+
+def wide_backward_buffers(lib, x, edge_attr, rows, mlps):
+    """What a wide backward kernel of either layout (``lib``, its width's
+    library) fills: dx, de (None when the encoder is folded), the bf16
+    scratch and fp32 partials the library sizes (``gnw_bwd_sizes``), the
+    zeroed gradients, their pointer arguments, and fe (0 when not
+    folded)."""
+    n, b, h = x.shape
+    fe = edge_attr.shape[-1] if mlps[0] is not None else 0
+    dx = torch.empty_like(x)
+    de = None if fe else torch.empty((rows, b, h), dtype=x.dtype, device=x.device)
+    scratch = torch.empty(lib.gnw_bwd_sizes(0, n, b, rows, fe), dtype=x.dtype, device=x.device)
+    part = torch.empty(lib.gnw_bwd_sizes(1, n, b, rows, fe), dtype=torch.float32,
+                       device=x.device)
+    grads, ptrs = gradient_buffers(mlps)
+    return dx, de, scratch, part, grads, ptrs, fe
 
 
 def rounded_grads(grads):
@@ -153,17 +272,28 @@ def rounded_grads(grads):
 def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, edge_mask, nk, mlps):
     """dx (bf16), de (bf16, None when the encoder is folded) and the
     parameter gradients (fp32 holding bf16 values) in ``_mlp_params`` order
-    per MLP. ``agg`` is the aggregate the forward kept."""
-    n, b, _ = x.shape
+    per MLP. ``agg`` is the aggregate the forward kept. Hidden 32 launches
+    ``csrc/fused_gnblock_nk_bwd.cu``, 64 and 128 their width's
+    ``csrc/fused_gnblock_wide_nk_bwd.cu``."""
+    n, b, h = x.shape
     order, offsets = cached_sender_slots(senders, edge_mask, nk)
-    dx, de, scratch, grads, ptrs = backward_buffers(x, nk.total_rows, mlps)
-    err = _load("gn_nk_bwd").gn_nk_bwd(
-        x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
-        None if g_eout is None else g_eout.data_ptr(), dx.data_ptr(),
-        None if de is None else de.data_ptr(), *[t.data_ptr() for t in scratch],
-        senders.data_ptr(), edge_mask.data_ptr(), order.data_ptr(), offsets.data_ptr(), n, b,
-        nk.k_slots, nk.node_block, edge_attr.shape[-1] if mlps[0] is not None else 0, *ptrs,
-        _stream(x))
+    if h in WIDE_HIDDEN:
+        lib = _load(f"gn_nk_bwd{h}")
+        dx, de, scratch, part, grads, ptrs, fe = wide_backward_buffers(
+            lib, x, edge_attr, nk.total_rows, mlps)
+        err = lib.gnw_nk_bwd(
+            x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
+            _ptr(g_eout), dx.data_ptr(), _ptr(de), scratch.data_ptr(), part.data_ptr(),
+            senders.data_ptr(), edge_mask.data_ptr(), order.data_ptr(), offsets.data_ptr(), n,
+            b, nk.k_slots, nk.node_block, fe, *ptrs, _stream(x))
+    else:
+        dx, de, scratch, grads, ptrs = backward_buffers(x, nk.total_rows, mlps)
+        err = _load("gn_nk_bwd").gn_nk_bwd(
+            x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
+            _ptr(g_eout), dx.data_ptr(), _ptr(de), *[t.data_ptr() for t in scratch],
+            senders.data_ptr(), edge_mask.data_ptr(), order.data_ptr(), offsets.data_ptr(), n,
+            b, nk.k_slots, nk.node_block, edge_attr.shape[-1] if mlps[0] is not None else 0,
+            *ptrs, _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_gn_block_nk backward launch failed with CUDA error {err}")
     fused_gn_block_nk.backward_launches += 1
@@ -251,14 +381,7 @@ def fused_gn_block_nk(
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     mlps = (encoder_params, edge_params, node_params)
-    used = [m for m in mlps if m is not None]
-    if h != KERNEL_HIDDEN:
-        raise NotImplementedError(f"the kernel is built for hidden {KERNEL_HIDDEN}, got {h}")
-    if any(m.activation != "relu" for m in used):
-        raise NotImplementedError("the kernel implements relu MLPs only")
-    if any(len(m.denses) > KERNEL_MAX_LAYERS for m in used):
-        raise NotImplementedError(f"at most {KERNEL_MAX_LAYERS} Dense layers per MLP")
-
+    check_kernel_mlps(h, mlps, False, fe)
     return _run_kernels(x, edge_attr, senders, edge_mask, nk, mlps, last_block)
 
 
@@ -269,11 +392,7 @@ def _run_kernels(x, edge_attr, senders, edge_mask, nk, mlps, last_block):
     used = [m for m in mlps if m is not None]
     params = [p for m in used for p in _mlp_params(m)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in [x, edge_attr, *params]):
-        if any(len(m.denses) != BACKWARD_LAYERS for m in used):
-            raise NotImplementedError(
-                f"the backward kernel is built for MLPs of {BACKWARD_LAYERS} Dense layers")
-        if mlps[0] is not None and edge_attr.shape[-1] > x.shape[-1]:
-            raise NotImplementedError("raw edge features wider than the hidden size")
+        check_kernel_mlps(x.shape[-1], mlps, True, edge_attr.shape[-1])
         out = _FusedGNBlockNK.apply(x, edge_attr, senders, edge_mask, nk, mlps, last_block,
                                     *params)
         return (out, edge_attr) if last_block else out

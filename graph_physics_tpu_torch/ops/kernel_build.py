@@ -50,6 +50,20 @@ LIBRARIES = {
     "edge_attention_csr_bwd": ("fused_edge_attention_csr_bwd.cu", _EA_BWD),
     "gumbel": ("gumbel.cu", ()),
 }
+#: nvcc flags of a library beyond NVCC_FLAGS (part of its cache key)
+FLAGS = {}
+#: the GraphNetBlock kernels at hidden 64 and 128 (rows 1-4 at the wide
+#: widths): one library per (kernel, width), each source compiled for its
+#: width
+_GN_WIDE = ("gn_wide.cuh", "gn_nk_common.cuh", "gn_rows.cuh", "mma_common.cuh")
+for _h in (64, 128):
+    for _name, _src, _body in (("gn_nk_fwd", "fused_gnblock_wide_nk.cu", "gn_wide_fwd.cuh"),
+                               ("gn_nk_bwd", "fused_gnblock_wide_nk_bwd.cu", "gn_wide_bwd.cuh"),
+                               ("gn_csr_fwd", "fused_gnblock_wide_csr.cu", "gn_wide_fwd.cuh"),
+                               ("gn_csr_bwd", "fused_gnblock_wide_csr_bwd.cu",
+                                "gn_wide_bwd.cuh")):
+        LIBRARIES[f"{_name}{_h}"] = (_src, (_body, *_GN_WIDE))
+        FLAGS[f"{_name}{_h}"] = (f"-DGN_WIDE_H={_h}",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -59,6 +73,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 def library_path(name: str) -> Path:
     src, headers = LIBRARIES[name]
     data = b"".join((CSRC / f).read_bytes() for f in (src, *headers))
+    data += " ".join(FLAGS.get(name, ())).encode()
     digest = hashlib.sha256(data).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(src).stem}_{digest}.so"
 
@@ -75,7 +90,8 @@ def build() -> str:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, *FLAGS.get(name, ()), "-o", str(tmp),
+                                 str(CSRC / src)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((proc, tmp, out))
     logs, failed = [], []

@@ -26,6 +26,20 @@ deterministic algorithms (``index_add_`` on a card then sums in a fixed
 order, not by atomics), so the reference the kernel is held to is the
 same on every run.
 
+A GraphNetBlock's relu MLPs are H wide, and one flip moves a whole
+H-wide message: at its receiver and its sender (P_r, P_s) every one of dx's
+H values for that sample, and de's H values of the row; and a row has 3H
+relu units where a flip can happen. dx gathers the flips of every row a
+node receives or sends on, de those of its own row. So dx's share grows
+with H, and ``check_block_backward`` allows ``WIDE_OUTSIDE_SHARE`` of dx
+at hidden 64 and 128 (de, and hidden 32: ``OUTSIDE_SHARE``). Each lies
+between two readings on a card (PERF.md §6, ``tests/test_torch_cuda.py::
+test_wide_backward_share_separates_the_kernel_from_the_fp32_control``):
+the kernel's largest dx share over six seeds on a hub graph, which it
+exceeds 2.5 times, and that of a control, the fp32 gradient (none of the
+plain backward's bf16 roundings), 245 (H=64) and 199 (H=128) times it.
+The L2 and max bounds against fp32 keep their ratios at every width.
+
 A caller may name stream values to be judged against the fp32 gradient
 instead (``fp32_judged``: a boolean mask per stream): there the kernel
 may leave the 0.05 bound around the fp32 gradient on no more values than
@@ -50,9 +64,17 @@ from graph_physics_tpu_torch.ops.tiling import CSRLayout
 
 STREAM_TOL = 0.05
 OUTSIDE_SHARE = 1e-4
+WIDE_OUTSIDE_SHARE = {64: 4e-4, 128: 8e-4}
 WEIGHT_REL = 0.04
 FP32_L2_RATIO = 1.1
 FP32_MAX_RATIO = 1.5
+
+
+def block_outside_share(hidden: int) -> float:
+    """The share of a GraphNetBlock's dx values that may leave the bound
+    around the plain backward at ``hidden`` (the module's docstring says
+    why it grows with the width)."""
+    return WIDE_OUTSIDE_SHARE.get(hidden, OUTSIDE_SHARE)
 
 
 def rounded_copy(module):
@@ -95,12 +117,15 @@ def _outside(a: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 def compare_grads(names, kernel, plain, fp32, streams: Sequence[str],
-                  fp32_judged: Optional[Dict[str, torch.Tensor]] = None
+                  fp32_judged: Optional[Dict[str, torch.Tensor]] = None,
+                  outside_share: Optional[Dict[str, float]] = None
                   ) -> Tuple[List[Dict], bool]:
     """One row per gradient with the errors that the bounds above read,
     and whether every row is inside them. ``streams`` names the
     activation gradients; the others are weights. ``fp32_judged`` maps a
-    stream to the mask of its values judged against the fp32 gradient."""
+    stream to the mask of its values judged against the fp32 gradient;
+    ``outside_share`` maps a stream to the share of its values that may
+    leave the bound around the plain version (others: ``OUTSIDE_SHARE``)."""
     fp32_judged = fp32_judged or {}
     rows, ok = [], True
     for name, k, p, f in zip(names, kernel, plain, fp32):
@@ -124,7 +149,11 @@ def compare_grads(names, kernel, plain, fp32, streams: Sequence[str],
             rest = torch.ones_like(diff, dtype=torch.bool) if judged is None else ~judged
             row["outside"] = int(_outside(k, p)[rest].sum())
             row["count"] = int(rest.sum())
-            good = row["outside"] <= OUTSIDE_SHARE * row["count"]
+            # the control: the fp32 gradient, which keeps none of the plain
+            # version's bf16 roundings, scored as the kernel is
+            row["fp32_outside"] = int(_outside(f, p)[rest].sum())
+            share = (outside_share or {}).get(name, OUTSIDE_SHARE)
+            good = row["outside"] <= share * row["count"]
             if judged is not None:
                 row["fp32_judged"] = int(judged.sum())
                 row["outside_all"] = int(_outside(k, p).sum())  # the judged values too
@@ -157,7 +186,8 @@ def deterministic():
 def check_backward(names: Sequence[str], streams: Sequence[str], kernel_fn: Callable,
                    plain_fn: Callable, fp32_fn: Callable, inputs: Sequence[torch.Tensor],
                    cots: Sequence[torch.Tensor],
-                   fp32_judged: Optional[Dict[str, torch.Tensor]] = None):
+                   fp32_judged: Optional[Dict[str, torch.Tensor]] = None,
+                   outside_share: Optional[Dict[str, float]] = None):
     """Gradients of one function through the kernel (``kernel_fn``), its
     plain version in bf16 (``plain_fn``, under :func:`deterministic`) and
     in fp32 (``fp32_fn``, given the inputs as fp32), each as
@@ -167,7 +197,7 @@ def check_backward(names: Sequence[str], streams: Sequence[str], kernel_fn: Call
     with deterministic():
         gp, kept_p = grads_of(plain_fn, inputs, cots)
     gf, _ = grads_of(fp32_fn, [t.float() for t in inputs], cots)
-    rows, ok = compare_grads(names, gk, gp, gf, streams, fp32_judged)
+    rows, ok = compare_grads(names, gk, gp, gf, streams, fp32_judged, outside_share)
     return rows, ok, {"kernel": kept_k, "plain": kept_p}
 
 
@@ -181,7 +211,8 @@ def check_block_backward(x, e, rows, mlps, layout, last_block, cot_x, cot_e,
     (senders, receivers, edge_mask), each against its plain version.
     Gradients: dx, de unless the encoder is folded (raw edge features take
     none), then every MLP parameter in the kernels' order. ``fp32_judged``
-    goes to :func:`compare_grads`."""
+    goes to :func:`compare_grads`; dx's outside share is
+    :func:`block_outside_share` of the width, de's ``OUTSIDE_SHARE``."""
     if isinstance(layout, CSRLayout):
         fn, reference = csr_ops.fused_gn_block_csr, csr_ops.fused_gn_block_csr_reference
     else:
@@ -207,4 +238,4 @@ def check_block_backward(x, e, rows, mlps, layout, last_block, cot_x, cot_e,
         names, ("dx", "de"), block(fn, mlps),
         block(reference, mlps, compute_dtype=torch.bfloat16),
         block(reference, [rounded_copy(m) for m in mlps], compute_dtype=torch.float32),
-        inputs, cots, fp32_judged)
+        inputs, cots, fp32_judged, {"dx": block_outside_share(x.shape[-1])})

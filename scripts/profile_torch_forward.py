@@ -4,7 +4,7 @@ step, goes, on one NVIDIA GPU.
     python3 scripts/profile_torch_forward.py \
         [transformer|epd|transformer-train|epd-train|graded|graded-transformer|
          graded-train|graded-transformer-train|transolver-train|
-         graded-transolver-train|plate-train|panels-train ...]
+         graded-transolver-train|plate-train|panels-train|mgn-train ...]
     # default: the two cylinder forwards
 
 For each slice (``transformer``: entry.transformer_setup, 10 blocks, hidden
@@ -22,7 +22,10 @@ entry.transolver_train_setup, stacked B=16 on the cylinder's 1,920 nodes
 transformer with world edges, 10 blocks, hidden 64, B=64, the noise and
 the world-position features of entry.plate_preprocess; ``panels-train``:
 one train step of entry.panels_train_setup, panels.json's transformer, 15
-blocks, hidden 128, B=64, its 4-term MultiLoss on least-squares gradients)
+blocks, hidden 128, B=64, its 4-term MultiLoss on least-squares gradients;
+``mgn-train``: one train step of entry.cylinder_train_setup at
+MeshGraphNets' width, 15 blocks, hidden 128, B=128, NK, through the wide
+GraphNetBlock kernels)
 and each path (kernel path, and the plain path: no edge layout, or for
 the Transolver the gumbel kernel's plain version on the same bits), runs
 ``torch.profiler`` over 10 calls after 3 warm-up calls and prints, per
@@ -57,6 +60,14 @@ GROUPS = (
     ("CSR attention backward kernels (ea_csr_bwd)", ("ea_csr_bwd",)),
     ("gated FFN h128 backward kernels (ffn128_bwd, ffn128_wgrad)", ("ffn128_bwd", "ffn128_wgrad")),
     ("gated FFN h128 kernels (ffn128_fwd, ffn128_stage)", ("ffn128_",)),
+    ("wide GraphNetBlock forward, edge and node passes (gnw*_edge_fwd, node_fwd)",
+     ("_edge_fwd", "_node_fwd")),
+    ("wide GraphNetBlock backward, row pass (gnw*_row_bwd)", ("_row_bwd",)),
+    ("wide GraphNetBlock backward, weight gradients (gnw*_wgrad, wsum)", ("_wgrad", "_wsum")),
+    ("wide GraphNetBlock backward, node-MLP pass (gnw*_node_bwd)", ("_node_bwd",)),
+    ("wide GraphNetBlock backward, sender pass (gnw*_send)", ("_nk_send", "_csr_send")),
+    ("wide GraphNetBlock encoder passes (gnw*_enc_fwd, enc_bwd)", ("_enc_fwd", "_enc_bwd")),
+    ("wide GraphNetBlock node pre-pass (gnw*_partial)", ("w64_partial", "w128_partial")),
     ("gated FFN kernel (ffn_fwd)", ("ffn_fwd",)),
     ("gated FFN backward kernels (ffn_bwd)", ("ffn_bwd",)),
     ("GraphNetBlock kernel (gn_nk_fwd)", ("gn_nk_fwd",)),
@@ -187,7 +198,8 @@ def main():
               "transolver-train": entry.transolver_train_setup,
               "graded-transolver-train": lambda d: entry.transolver_train_setup(d, graded=True),
               "plate-train": entry.plate_train_setup,
-              "panels-train": entry.panels_train_setup}
+              "panels-train": entry.panels_train_setup,
+              "mgn-train": lambda d: entry.cylinder_train_setup(d, hidden=128, mp_steps=15)}
     for name in sys.argv[1:] or ["transformer", "epd"]:
         setup = (forwards.get(name) or trains[name])("cuda")
         graph = setup.graph

@@ -30,11 +30,19 @@ at 1,920 x 8 rows and at a ragged 1,001 x 3. The CSR
 GraphNetBlock forward and backward are also held on a hub mesh (a
 receiver of in-degree 150, receivers with no row or only masked rows,
 node N-1 owning rows) at partial 16-sample tiles, and give the same bits
-on two calls (the forward's outputs, the backward's dx and de). The NK
+on two calls (the forward's outputs, the backward's dx and de; at hidden
+32 every weight gradient too, in both layouts). The NK
 attention forward and backward are also held at head widths 16 and 32,
 with masked slots between valid ones, on a K = 41 hub layout, with the
 forward's kept statistics against ``softmax_stats``, and give the same
-bits on two calls. The
+bits on two calls. Rows
+1-4 at hidden 64 and 128 (the wide GraphNetBlock kernels) are held the
+same way, every variant, in both layouts (on the padding-leak NK mesh at
+B=1 and 33, on the hub CSR graph at B=1 and 17), give the same bits on
+two calls (outputs, dx, de and every weight gradient), and carry a
+3-block ``epd`` train step at each width; hidden 16 raises naming
+ROADMAP B 4, and hidden 24, which JAX does not fuse, runs the plain path
+with no launch. The
 gumbel kernel draws the same Philox bits as its plain version, bit for bit, and
 its output is within 1e-5 of the plain version's (``logf`` on the card
 against ``torch.log``, at |noise| < 17); the Transolver train step runs
@@ -1495,3 +1503,286 @@ def test_world_attention_kernels_are_bit_identical_across_calls(cuda_device, lay
         mesh_only = op(*qkv, *rows, lay)
     assert not torch.equal(mesh_only, a)
     assert torch.equal(mesh_only, kernels[0](*qkv, *rows, lay))
+
+
+# ---- rows 1-4 at hidden 64 and 128 (the wide GraphNetBlock kernels) ----------
+
+WIDE = [64, 128]
+
+
+def _wide_nk_case(cuda_device, hidden, variant, batch, seed, holes=False):
+    """A block's inputs on the 16 x 16 cylinder mesh's NK layout at
+    ``hidden`` (256 nodes in two node blocks: node N-1 owns valid slots),
+    with masked slots between valid ones when ``holes``, and random
+    cotangents."""
+    setup = entry.cylinder_setup(cuda_device, nx=16, ny=16, hidden=hidden, batch=batch,
+                                 mp_steps=3)
+    args, kw = _block_args(setup, variant, seed=seed)
+    x, e, senders, mask, edge, node, nk = args
+    if holes:
+        mask = _hole_mask(nk, mask)
+    cot_x, cot_e = _csr_cotangents(x, nk.total_rows, 300 + seed)
+    return (x, e, senders, mask, edge, node, nk), kw, cot_x, cot_e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 33])
+@pytest.mark.parametrize("variant", ["folded", "middle", "last"])
+@pytest.mark.parametrize("hidden", WIDE)
+def test_wide_nk_gn_kernel_matches_plain_version(cuda_device, hidden, variant, batch):
+    """Row 1 at hidden 64 and 128 on masked slots between valid ones, B=1
+    and 33 (partial 16-sample tiles): x_out and e_out within the JAX
+    suite's 0.05 of the plain version; a masked slot's e_out is its e_in."""
+    args, kw, _, _ = _wide_nk_case(cuda_device, hidden, variant, batch, seed=batch, holes=True)
+    with torch.no_grad():
+        before = fused_gn_block_nk.launches
+        kx, ke = fused_gn_block_nk(*args, **kw)
+        torch.cuda.synchronize()
+        assert fused_gn_block_nk.launches == before + 1
+        px, pe = fused_gn_block_nk_reference(*args, **kw, compute_dtype=torch.bfloat16)
+    torch.testing.assert_close(kx.float(), px.float(), rtol=0.05, atol=0.05)
+    if variant == "last":
+        assert ke is args[1]
+    else:
+        torch.testing.assert_close(ke.float(), pe.float(), rtol=0.05, atol=0.05)
+    if variant == "middle":
+        assert torch.equal(ke[~args[3]], args[1][~args[3]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 33])
+@pytest.mark.parametrize("variant", ["folded", "middle", "last"])
+@pytest.mark.parametrize("hidden", WIDE)
+def test_wide_nk_gn_backward_kernel_matches_plain_version(cuda_device, hidden, variant, batch):
+    """Row 2 at hidden 64 and 128 on the same mesh; bounds:
+    utils/gradcheck.py."""
+    (x, e, senders, mask, edge, node, nk), kw, cot_x, cot_e = _wide_nk_case(
+        cuda_device, hidden, variant, batch, seed=batch, holes=True)
+    before = fused_gn_block_nk.backward_launches
+    rows, ok, _ = gradcheck.check_block_backward(
+        x, e, (senders, mask), (kw["encoder_params"], edge, node), nk, kw["last_block"],
+        cot_x, cot_e)
+    torch.cuda.synchronize()
+    assert fused_gn_block_nk.backward_launches == before + 1
+    assert ok, [r for r in rows if not r["ok"]]
+
+
+def _wide_hub_case(cuda_device, hidden, variant, batch, seed):
+    """:func:`_hub_case`'s 384-node CSR graph (a hub of in-degree 150,
+    receivers with no row or only masked rows, node N-1 owning rows) with a
+    cylinder ``epd`` block of width ``hidden``."""
+    args, kw = _hub_case(cuda_device, variant, batch, seed)
+    model = entry.cylinder_setup(cuda_device, nx=16, ny=16, hidden=hidden, batch=1,
+                                 mp_steps=3).simulator.model
+    blk = model.processor_list[{"folded": 0, "middle": 1, "last": -1}[variant]]
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    n, rows = args[0].shape[0], args[7].total_rows
+    width = entry.EDGE_INPUT if variant == "folded" else hidden
+    x = (0.5 * torch.randn((n, batch, hidden), generator=gen, device=cuda_device)).bfloat16()
+    e = (0.5 * torch.randn((rows, batch, width), generator=gen, device=cuda_device)).bfloat16()
+    kw = dict(kw, encoder_params=model.edges_encoder if variant == "folded" else None)
+    return (x, e, *args[2:5], blk.edge_block, blk.node_block, args[7]), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 17])
+@pytest.mark.parametrize("variant", ["folded", "middle", "last"])
+@pytest.mark.parametrize("hidden", WIDE)
+def test_wide_csr_gn_kernel_on_a_hub_receiver_and_empty_receivers(cuda_device, hidden,
+                                                                   variant, batch):
+    """Row 3 at hidden 64 and 128 on the hub mesh against the plain version,
+    padding and masked rows keeping e_in."""
+    args, kw = _wide_hub_case(cuda_device, hidden, variant, batch, seed=batch)
+    with torch.no_grad():
+        before = fused_gn_block_csr.launches
+        kx, ke = fused_gn_block_csr(*args, **kw)
+        torch.cuda.synchronize()
+        assert fused_gn_block_csr.launches == before + 1
+        px, pe = fused_gn_block_csr_reference(*args, **kw, compute_dtype=torch.bfloat16)
+    torch.testing.assert_close(kx.float(), px.float(), rtol=0.05, atol=0.05)
+    if variant == "last":
+        assert ke is args[1]
+    else:
+        torch.testing.assert_close(ke.float(), pe.float(), rtol=0.05, atol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["folded", "middle", "last"])
+@pytest.mark.parametrize("hidden", WIDE)
+def test_wide_csr_gn_backward_kernel_on_a_hub_receiver_and_empty_receivers(cuda_device,
+                                                                            hidden, variant):
+    """Row 4 at hidden 64 and 128 on the hub mesh at B=17; bounds:
+    utils/gradcheck.py, every dx value (the hub's too) held against the
+    plain backward at the width's outside share: at these widths no value
+    needs judging against fp32."""
+    args, kw = _wide_hub_case(cuda_device, hidden, variant, 17, seed=5)
+    x, e, senders, receivers, mask, edge, node, csr = args
+    cot_x, cot_e = _csr_cotangents(x, csr.total_rows, 205)
+    before = fused_gn_block_csr.backward_launches
+    rows, ok, _ = gradcheck.check_block_backward(
+        x, e, (senders, receivers, mask), (kw["encoder_params"], edge, node), csr,
+        kw["last_block"], cot_x, cot_e)
+    torch.cuda.synchronize()
+    assert fused_gn_block_csr.backward_launches == before + 1
+    assert ok, [r for r in rows if not r["ok"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("variant", ["folded", "middle"])
+@pytest.mark.parametrize("hidden", WIDE)
+def test_wide_backward_share_separates_the_kernel_from_the_fp32_control(cuda_device, hidden,
+                                                                        variant, seed):
+    """Rows 2 and 4's dx share (``gradcheck.block_outside_share``) at
+    hidden 64 and 128 on the hub mesh (B=17) over six seeds: the kernel's
+    dx stays inside it, and the control, the fp32 gradient (none of the
+    plain backward's bf16 roundings), leaves it. Prints both readings, and
+    de's (PERF.md §6 cites them)."""
+    args, kw = _wide_hub_case(cuda_device, hidden, variant, 17, seed=seed)
+    x, e, senders, receivers, mask, edge, node, csr = args
+    cot_x, cot_e = _csr_cotangents(x, csr.total_rows, 400 + seed)
+    rows, ok, _ = gradcheck.check_block_backward(
+        x, e, (senders, receivers, mask), (kw["encoder_params"], edge, node), csr,
+        kw["last_block"], cot_x, cot_e)
+    dx = rows[0]
+    allowed = gradcheck.block_outside_share(hidden) * dx["count"]
+    print(f"hidden {hidden} {variant} seed {seed}: outside the plain backward's bound: dx "
+          f"kernel {dx['outside']}, fp32 control {dx['fp32_outside']} of {dx['count']} "
+          f"(allowed {allowed:.1f})" + "".join(
+              f"; de kernel {r['outside']}, fp32 control {r['fp32_outside']} of {r['count']}"
+              for r in rows[1:2] if r["name"] == "de"))
+    assert ok, [r for r in rows if not r["ok"]]
+    assert dx["fp32_outside"] > allowed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nk", "csr"])
+@pytest.mark.parametrize("variant", ["folded", "middle"])
+@pytest.mark.parametrize("hidden", WIDE)
+def test_wide_gn_kernels_are_bit_identical_across_calls(cuda_device, hidden, variant, layout):
+    """No atomics in the wide kernels, the weight gradients summed from
+    per-split partials in a fixed order: two forward + backward calls give
+    the same outputs, dx, de and every parameter's gradient, bit for bit."""
+    _check_bits_across_calls(cuda_device, hidden, variant, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nk", "csr"])
+@pytest.mark.parametrize("variant", ["folded", "middle"])
+def test_hidden32_gn_kernels_are_bit_identical_across_calls(cuda_device, variant, layout):
+    """Rows 1-4 at hidden 32 sum their weight gradients from per-block
+    partials in block order (csrc/gn_bwd_common.cuh), no atomics: two
+    forward + backward calls give the same outputs, dx, de and every
+    parameter's gradient, bit for bit."""
+    _check_bits_across_calls(cuda_device, 32, variant, layout)
+
+
+def _check_bits_across_calls(cuda_device, hidden, variant, layout):
+    if layout == "nk":
+        args, kw, cot_x, cot_e = _wide_nk_case(cuda_device, hidden, variant, 33, seed=9,
+                                               holes=True)
+        fn, lead = fused_gn_block_nk, 4
+    else:
+        args, kw = _wide_hub_case(cuda_device, hidden, variant, 17, seed=9)
+        cot_x, cot_e = _csr_cotangents(args[0], args[7].total_rows, 209)
+        fn, lead = fused_gn_block_csr, 5
+    mlps = [m for m in (kw["encoder_params"], *args[lead:lead + 2]) if m is not None]
+    params = [p for m in mlps for p in nk_ops._mlp_params(m)]
+    runs = []
+    for _ in range(2):
+        xl = args[0].clone().requires_grad_(True)
+        e = args[1].clone().requires_grad_(variant != "folded")
+        xo, eo = fn(xl, e, *args[2:], **kw)
+        wrt = [xl] + ([e] if variant != "folded" else []) + params
+        grads = torch.autograd.grad([xo, eo], wrt, [cot_x, cot_e])
+        runs.append([xo.detach(), eo.detach(), *grads])
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", WIDE)
+def test_wide_train_step_goes_through_both_kernels_and_matches_plain_path(cuda_device, hidden):
+    """A 3-block ``epd`` train step at hidden 64 and 128, B=8, NK: 3 + 3
+    launches of rows 1/2, the loss within the JAX suite's 0.02 of the plain
+    path."""
+    train = entry.cylinder_train_setup(cuda_device, nx=20, ny=16, batch=8, hidden=hidden,
+                                       mp_steps=3)
+    plain_sim = copy.deepcopy(train.simulator)
+    plain_sim.model.tiling = None
+    plain_state, plain_step = entry.make_trainer(plain_sim)
+    before = (fused_gn_block_nk.launches, fused_gn_block_nk.backward_launches)
+    m = train.train_step(train.state, train.graph, torch.Generator(cuda_device).manual_seed(3))
+    torch.cuda.synchronize()
+    assert (fused_gn_block_nk.launches, fused_gn_block_nk.backward_launches) == (
+        before[0] + 3, before[1] + 3)
+    mp = plain_step(plain_state, train.graph, torch.Generator(cuda_device).manual_seed(3))
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    torch.testing.assert_close(m["loss"], mp["loss"], rtol=0.02, atol=0)
+
+
+#: chip_smoke.py phase 36 compares the MeshGraphNets-width kernel path
+#: with the plain path over its first MGN_COMPARED_STEPS steps, held to
+#: LATER_LOSS_RTOL (both named as there)
+MGN_COMPARED_STEPS, LATER_LOSS_RTOL = 7, 1e-3
+
+
+@pytest.mark.cuda
+def test_mgn_width_plain_training_repeats_itself_over_the_compared_steps(cuda_device):
+    """``epd`` at hidden 128 and 15 blocks trains chaotically at B=32
+    (phase 36's comparison): two plain runs on the same noise, the second
+    from the weights scaled by 1 + 2^-16 (one in 256 to 512 of their bf16
+    values rounds the other way), agree within LATER_LOSS_RTOL over the
+    first MGN_COMPARED_STEPS steps. Prints each of 20 steps' relative
+    difference (PERF.md §6 cites them)."""
+    train = entry.cylinder_train_setup(cuda_device, hidden=128, mp_steps=15, batch=32)
+    losses = []
+    for scale in (1.0, 1.0 + 2.0 ** -16):
+        sim = copy.deepcopy(train.simulator)
+        sim.model.tiling = None
+        with torch.no_grad():
+            for p in sim.parameters():
+                p.mul_(scale)
+        state, step = entry.make_trainer(sim)
+        gen = torch.Generator(cuda_device).manual_seed(38)
+        losses.append([step(state, train.graph, gen)["loss"].item() for _ in range(20)])
+        del sim, state, step
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[1], losses[0])]
+    print("MGN-width plain path against itself nudged, relative loss difference by step: "
+          + " ".join(f"{v:.3g}" for v in rel))
+    assert all(np.isfinite(losses).ravel())
+    assert max(rel[:MGN_COMPARED_STEPS]) <= LATER_LOSS_RTOL, rel
+
+
+@pytest.mark.cuda
+def test_gn_kernels_refuse_widths_without_a_kernel(cuda_device):
+    """A width JAX fuses but the port builds no kernel for (hidden 16)
+    raises naming ROADMAP B 4, in both layouts; no launch is counted."""
+    setup = entry.cylinder_setup(cuda_device, nx=16, ny=16, hidden=16, batch=2, mp_steps=3)
+    args, kw = _block_args(setup, "middle", seed=0)
+    before = fused_gn_block_nk.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP B 4"):
+        fused_gn_block_nk(*args, **kw)
+    assert fused_gn_block_nk.launches == before
+    g = entry.graded_setup(cuda_device, num_nodes=1536, hidden=16, batch=2, mp_steps=3)
+    gargs, gkw = _graded_block_args(g, "middle", seed=0)
+    before = fused_gn_block_csr.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP B 4"):
+        fused_gn_block_csr(*gargs, **gkw)
+    assert fused_gn_block_csr.launches == before
+
+
+@pytest.mark.cuda
+def test_epd_at_hidden_24_takes_the_plain_path_on_the_card(cuda_device):
+    """Hidden 24 does not divide the 128 lanes: JAX runs its plain
+    GraphNetBlock, and so does the port, with no launch of rows 1-4."""
+    setup = entry.cylinder_setup(cuda_device, nx=16, ny=16, hidden=24, batch=2, mp_steps=3)
+    counts = lambda: (fused_gn_block_nk.launches, fused_gn_block_nk.backward_launches,  # noqa
+                      fused_gn_block_csr.launches, fused_gn_block_csr.backward_launches)
+    before = counts()
+    out = setup.simulator.forward(setup.graph, is_training=False)
+    torch.cuda.synchronize()
+    assert counts() == before
+    assert torch.isfinite(out.outputs).all()
