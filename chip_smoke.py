@@ -7,8 +7,10 @@ loop (loader, Trainer.fit, checkpoint and resume, predict), and
 DeformingPlate (training_config/plate.json) with its world edges through
 the attention kernels' world seam, the panels workload
 (training_config/panels.json: hidden 128, the physics losses) through the
-hidden-128 gated-FFN kernels, and ``epd`` at MeshGraphNets' width (hidden
-128, 15 blocks) through the wide GraphNetBlock kernels.
+hidden-128 gated-FFN kernels, ``epd`` at MeshGraphNets' width (hidden
+128, 15 blocks) through the wide GraphNetBlock kernels, and
+DeformingPlate's MeshGraphNet (an ``epd`` with world edges) through the
+GraphNetBlock kernels' world seam.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --parent CHECKOUT   # also times another checkout's
@@ -235,6 +237,25 @@ Phases (any failure raises, so the exit code is non-zero):
      frames, B=128, one epoch, a 50-step validation rollout), then predict
      from its checkpoint: launches held to the prediction, predict's RMSE
      equal to validate's.
+ 38. the world seam of rows 1-4 (``extra_agg``, the world edges'
+     aggregate) at hidden 32, 64 and 128, at the cylinder NK shape (1,920
+     nodes x 128 samples) and the graded CSR shape (27,008 x 16), with a
+     dense random extra aggregate: each forward variant against its plain
+     version (0.05), the middle block's backward (dx, de, dea and every
+     weight gradient) against its plain backward and fp32 autograd
+     (utils/gradcheck.py), a zero extra giving the bits of none, forward
+     and backward; each middle block's times with and without the extra,
+     its plain version's and its bound;
+ 39. DeformingPlate's MeshGraphNet (entry.plate_epd_train_setup: hidden
+     128, 15 blocks, the 44x30 sheet in the NK layout, B=64 frames that
+     all have world edges, checked): 15 + 15 launches of rows 1/2 a step,
+     the first PLATE_EPD_COMPARED_STEPS steps against the plain path (over
+     which the plain path repeats itself), the peak memory, the step's
+     wall, enqueue and device time;
+ 40. plate.json with that model (set in memory) through Trainer.fit (2
+     trajectories of 65 frames, B=64, one epoch, a 50-step validation
+     rollout), then predict from its checkpoint: launches held to the
+     prediction, predict's RMSE equal to validate's.
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
 the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
@@ -246,7 +267,9 @@ variant's times under ``variants``, the wide ones ptxas's report under
 its profiler device time under ``device_ms``, both gated-FFN kernels
 their graded-shape times and bound under ``graded``, both attention
 backwards their forward + backward under ``fwd_bwd_ms`` and
-``fwd_bwd_device_ms`` and their device time by pass under ``passes``).
+``fwd_bwd_device_ms`` and their device time by pass under ``passes``;
+rows 1-4 at each width their world seam's check and times under
+``world``).
 With ``--parent CHECKOUT`` the libraries that PARENT_LIBS names (both
 GraphNetBlock forwards and backwards, the hidden-64 gated-FFN forward and
 backward, both layouts' attention forward and backward) are built from that checkout's
@@ -614,7 +637,8 @@ PARENT_LIBS = {"gn_csr_fwd": "fused_gnblock_csr", "gn_csr_bwd": "fused_gnblock_c
 #: from its checkout and binds its libraries, and inside ``parent_kernels``
 #: its wrapper (the function of the module's name) stands in for this
 #: tree's, in the op module and in models.layers (which calls it by name)
-PARENT_OWN_OPS = {"fused_edge_attention_csr", "fused_edge_attention_nk"}
+PARENT_OWN_OPS = {"fused_edge_attention_csr", "fused_edge_attention_nk", "fused_gnblock_csr",
+                  "fused_gnblock_nk"}
 #: each layout's attention libraries, forward and backward
 ATTN_CSR_LIBS = ("edge_attention_csr", "edge_attention_csr_bwd")
 ATTN_NK_LIBS = ("edge_attention_nk", "edge_attention_nk_bwd")
@@ -687,10 +711,12 @@ def parent_kernels(*names):
     swapped = []
     for module in sorted({PARENT_LIBS[n] for n in names} & PARENT_OWN_OPS):
         ours = importlib.import_module(f"graph_physics_tpu_torch.ops.{module}")
-        theirs = with_receivers(getattr(parent_ops(module), module))
+        wrapper = module.replace("gnblock", "gn_block")  # the wrapper the module is named for
+        theirs = getattr(parent_ops(module), wrapper)
+        theirs = with_receivers(theirs) if "attention" in module else without_extra_agg(theirs)
         for holder in (ours, layers):
-            swapped.append((holder, module, getattr(holder, module)))
-            setattr(holder, module, theirs)
+            swapped.append((holder, wrapper, getattr(holder, wrapper)))
+            setattr(holder, wrapper, theirs)
     try:
         yield
     finally:
@@ -701,6 +727,21 @@ def parent_kernels(*names):
                 kernel_build._libs.pop(n, None)
             else:
                 kernel_build._libs[n] = lib
+
+
+@functools.lru_cache(maxsize=None)
+def without_extra_agg(fn):
+    """A GraphNetBlock wrapper called as this tree's are: a parent tree's
+    that takes no ``extra_agg`` (the world seam) gets a None one dropped."""
+    if "extra_agg" in inspect.signature(fn).parameters:
+        return fn
+
+    @functools.wraps(fn)
+    def call(*args, extra_agg=None, **kw):
+        if extra_agg is not None:
+            raise ValueError("the parent tree's GraphNetBlock kernels take no extra_agg")
+        return fn(*args, **kw)
+    return call
 
 
 @functools.lru_cache(maxsize=None)
@@ -1155,11 +1196,12 @@ def cylinder_param():
 
 
 def fit_trainer(param, train_ds, val_ds, run, device, batch=None, epochs=None, fresh=True,
-                fused=True):
+                fused=True, world_pos=None):
     """A Trainer of the config ``param``'s model (bf16, weights from seed 0
     as the CLI draws them) on the packed batches of the fused path (the
-    plain path with ``fused=False``); with ``fresh`` the run's directory
-    (checkpoints, metrics) starts empty."""
+    plain path with ``fused=False``), with the world-position edge
+    features ``world_pos`` (a WorldPosConfig) where given; with ``fresh``
+    the run's directory (checkpoints, metrics) starts empty."""
     import torch
     from graph_physics_tpu_torch.models.layers import lecun_parameters
     from graph_physics_tpu_torch.training import config as config_lib
@@ -1175,7 +1217,8 @@ def fit_trainer(param, train_ds, val_ds, run, device, batch=None, epochs=None, f
     if fresh:
         shutil.rmtree(ROOT / "build" / "fit" / run, ignore_errors=True)
     return Trainer(sim, train_ds, val_ds, l2_loss, cfg,
-                   noise_cfg=config_lib.get_noise_config(param), device=device)
+                   noise_cfg=config_lib.get_noise_config(param), world_pos=world_pos,
+                   device=device)
 
 
 def data_phase(device, train_ds):
@@ -1566,7 +1609,8 @@ def main():
                 err = max(err, compare("e_out", ek, ep, KERNEL_TOL,
                                        rows=valid_slots if enc is not None else None))
             errors[name] = err
-            t = timed(lambda: kernel(*args, **kw), ["gn_nk_fwd"], device=True)
+            # the wrapper by name at each call: the parent's, in its turns
+            t = timed(lambda: nk_ops.fused_gn_block_nk(*args, **kw), ["gn_nk_fwd"], device=True)
             timing[name] = dict(t, plain_ms=cuda_ms(lambda: plain(
                 *args, **kw, compute_dtype=torch.bfloat16)))
             log(f"  time: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain "
@@ -1697,6 +1741,9 @@ def main():
     panels_records, panels_launches = panels_phases(device, card, build_log)
     # 35.-37. rows 1-4 at hidden 64 and 128; epd at MeshGraphNets' width
     wide_records = wide_phases(device, card, build_log)
+    # 38. rows 1-4's world seam; 39.-40. DeformingPlate's MeshGraphNet with
+    # world edges: its train step, fit and predict
+    seam, plate_epd_launches = plate_epd_phases(device, card)
     for rec in (*tf_records, *tf_train_records, *graded_records, *graded_train_records):
         if rec["name"] in world:
             rec["world"] = world[rec["name"]]
@@ -1708,7 +1755,7 @@ def main():
     fwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1]))
     bwd_bound = bound(*gn_block_work(x_in, e_in, graph.edge_mask, blocks[1], backward=True))
     log(f"card: {card}")
-    log(json.dumps({"kernels": [
+    records = [
         dict(FWD, route="cuda",
              launches=infer_launches + train_launches[0] + fit_launches[kernel.__name__][0],
              max_abs_err=max(errors.values()), ms=timing["middle"]["ms"],
@@ -1727,7 +1774,16 @@ def main():
         gumbel_record,
         *panels_records,
         *wide_records,
-    ]}))
+    ]
+    for rec in records:  # the world seam's check and times; phases 39-40's launches
+        if rec["name"] in seam:
+            rec["world"] = seam[rec["name"]]
+            rec["max_abs_err"] = max(rec["max_abs_err"], rec["world"]["max_abs_err"])
+        rec["launches"] += plate_epd_launches.get(rec["name"], 0)
+    missing = set(seam) - {rec["name"] for rec in records}
+    if missing:
+        raise AssertionError(f"no record in the kernels line for {sorted(missing)}")
+    log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
@@ -2133,6 +2189,7 @@ def graded_phases(device, card):
     from graph_physics_tpu_torch.dataset import synthetic
     from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_ops
     from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_csr as csr_ops
     from graph_physics_tpu_torch.ops import tiling as tiling_lib
     from graph_physics_tpu_torch.ops.edge_attention import edge_attention
     from graph_physics_tpu_torch.ops.fused_edge_attention_csr import fused_edge_attention_csr
@@ -2208,7 +2265,8 @@ def graded_phases(device, card):
             if not last:  # padding rows included: both keep e_in there
                 err = max(err, compare("e_out", ek, ep, KERNEL_TOL))
             errors[name] = err
-            t = timed(lambda: gn(*args, **kw), ["gn_csr_fwd"], device=True)
+            t = timed(lambda: csr_ops.fused_gn_block_csr(*args, **kw), ["gn_csr_fwd"],
+                      device=True)
             timing[name] = dict(t, plain_ms=cuda_ms(lambda: gn_plain(
                 *args, **kw, compute_dtype=torch.bfloat16)))
             parent = (f"; parent tree {t['parent_ms']:.4f} ms (device "
@@ -3733,7 +3791,10 @@ def wide_kernel_phase(device, card, build_log):
             setup = (entry.cylinder_setup(device, batch=ODD_BATCH) if layout == "nk"
                      else entry.graded_setup(device))
             g, lay, model = setup.graph, setup.tiling, setup.simulator.model
-            kernel = nk_ops.fused_gn_block_nk if layout == "nk" else csr_ops.fused_gn_block_csr
+            ops = nk_ops if layout == "nk" else csr_ops
+            name = f"fused_gn_block_{layout}"
+            # the wrapper by name at each call: the parent's, in its turns
+            kernel = lambda *a, **k: getattr(ops, name)(*a, **k)  # noqa: E731
             rows = ((g.senders, g.edge_mask) if layout == "nk"
                     else (g.senders, g.receivers, g.edge_mask))
             n, b = g.x.shape[:2]
@@ -3915,6 +3976,308 @@ def wide_phases(device, card, build_log):
         records[wide_record(layout, h, True)["name"]]["launches"] += bwd_n
     return [records[wide_record(layout, h, bwd)["name"]] for h in WIDE_HIDDEN
             for layout in ("nk", "csr") for bwd in (False, True)]
+
+
+# ---- phases 38-40: the GraphNetBlock kernels' world seam; DeformingPlate's MeshGraphNet ----
+
+#: phase 38: the widths of rows 1-4 that take the world seam (``extra_agg``)
+SEAM_HIDDEN = (32, 64, 128)
+#: phase 39: the steps over which DeformingPlate's MeshGraphNet on the
+#: kernel path is held to the plain path at LATER_LOSS_RTOL: the plain path
+#: repeats itself over these (tests/test_torch_cuda.py::
+#: test_plate_epd_plain_training_repeats_itself_over_the_compared_steps)
+PLATE_EPD_COMPARED_STEPS = 7
+#: phase 40: epochs of the plate MeshGraphNet's fit (PLATE_FIT_TRAJECTORIES
+#: trajectories of PLATE_FIT_FRAMES frames, one B=64 batch each)
+PLATE_EPD_FIT_EPOCHS = 1
+
+
+def gn_record_name(layout, h, backward):
+    """The kernels-line name of row 1-4 (``layout``, ``backward``) at
+    hidden ``h``."""
+    if h in WIDE_HIDDEN:
+        return wide_record(layout, h, backward)["name"]
+    return {("nk", False): FWD, ("nk", True): BWD, ("csr", False): GN_CSR,
+            ("csr", True): GN_CSR_BWD}[layout, backward]["name"]
+
+
+def seam_phase(device, card):
+    """Phase 38: the world seam of rows 1-4 at hidden 32, 64 and 128, at
+    the cylinder NK shape (1,920 nodes x 128 samples) and the graded CSR
+    shape (27,008 x 16), with a dense random extra aggregate: each forward
+    variant against its plain version (KERNEL_TOL), the middle block's
+    backward (dx, de, dea and every weight gradient) against its plain
+    backward and fp32 autograd (utils/gradcheck.py), a zero extra giving
+    the bits of none forward and backward; the middle block's times with
+    and without the extra (CUDA events, the profiler's device time), the
+    plain version's, and the bound with the extra's traffic. Returns
+    {record name: world fields}."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_gnblock_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+    from graph_physics_tpu_torch.utils import gradcheck
+
+    gen = torch.Generator(device=device).manual_seed(38)
+
+    def randn(*shape, scale=0.5):
+        return (scale * torch.randn(shape, generator=gen, device=device)).to(torch.bfloat16)
+
+    out = {}
+    for layout in ("nk", "csr"):
+        for h in SEAM_HIDDEN:
+            if layout == "nk":
+                setup = entry.cylinder_setup(device, hidden=h, mp_steps=3)
+                kernel, plain = nk_ops.fused_gn_block_nk, nk_ops.fused_gn_block_nk_reference
+                rows = (setup.graph.senders, setup.graph.edge_mask)
+            else:
+                setup = entry.graded_setup(device, hidden=h, mp_steps=3)
+                kernel, plain = csr_ops.fused_gn_block_csr, csr_ops.fused_gn_block_csr_reference
+                rows = (setup.graph.senders, setup.graph.receivers, setup.graph.edge_mask)
+            model, lay = setup.simulator.model, setup.tiling
+            n, b = setup.graph.x.shape[:2]
+            label = f"world seam, hidden {h}, {layout.upper()} [{n}, {b}]"
+            x, e = randn(n, b, h), randn(lay.total_rows, b, h)
+            raw, extra = randn(lay.total_rows, b, 3), randn(n, b, h, scale=0.3)
+            cot_x, cot_e = randn(n, b, h, scale=1.0), randn(lay.total_rows, b, h, scale=1.0)
+            blocks = model.processor_list
+            variants = {"folded": (blocks[0], raw, model.edges_encoder, False),
+                        "middle": (blocks[1], e, None, False),
+                        "last": (blocks[-1], e, None, True)}
+            f_err = {}
+            with torch.inference_mode():
+                for name, (blk, ee, enc, last) in variants.items():
+                    args = (x, ee, *rows, blk.edge_block, blk.node_block, lay)
+                    kw = dict(encoder_params=enc, last_block=last)
+                    before = kernel.launches
+                    xk, ek = kernel(*args, **kw, extra_agg=extra)
+                    xp, ep = plain(*args, **kw, extra_agg=extra, compute_dtype=torch.bfloat16)
+                    torch.cuda.synchronize()
+                    log(f"{label} forward kernel check [{name}] "
+                        f"({kernel.launches - before} launch)")
+                    if kernel.launches != before + 1:
+                        raise AssertionError(f"{label} [{name}]: the kernel did not launch once")
+                    f_err[name] = compare("x_out", xk, xp, KERNEL_TOL)
+                    if not last:  # a folded block's padded rows hold enc(raw): valid rows
+                        valid = rows[-1] if enc is not None else None
+                        f_err[name] = max(f_err[name], compare("e_out", ek, ep, KERNEL_TOL,
+                                                               rows=valid))
+                    del xk, ek, xp, ep
+                blk = blocks[1]
+                args = (x, e, *rows, blk.edge_block, blk.node_block, lay)
+                zero = [kernel(*args, extra_agg=torch.zeros_like(extra)), kernel(*args)]
+                if not all(torch.equal(a, c) for a, c in zip(*zero)):
+                    raise AssertionError(f"{label}: a zero extra_agg changes the forward's bits")
+                del zero
+                t = dict(timed(lambda: kernel(*args, extra_agg=extra), (), device=True),
+                         plain_ms=cuda_ms(lambda: plain(*args, extra_agg=extra,
+                                                        compute_dtype=torch.bfloat16)))
+                mesh = timed(lambda: kernel(*args), (), device=True)
+            log(f"  middle block: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}) with the "
+                f"extra, {mesh['ms']:.4f} ms (device {mesh['device_ms']:.4f}) without; plain "
+                f"{t['plain_ms']:.4f} ms ({card})")
+            before = kernel.backward_launches
+            grad_rows, ok, kept = gradcheck.check_block_backward(
+                x, e, rows, (None, blk.edge_block, blk.node_block), lay, False, cot_x, cot_e,
+                extra=extra)
+            torch.cuda.synchronize()
+            log(f"{label} backward kernel check [middle] ({kernel.backward_launches - before} "
+                "launch; dx, de, dea against the plain backward, all against fp32)")
+            log_grad_rows(grad_rows)
+            if kernel.backward_launches != before + 1 or not ok:
+                raise AssertionError(f"{label}: the backward kernel did not launch once, or is "
+                                     "out of bounds")
+            params = [p for m in (blk.edge_block, blk.node_block) for p in nk_ops._mlp_params(m)]
+
+            def graph(xa):  # a retained kernel-path graph, with the extra or without
+                xl, el = x.clone().requires_grad_(True), e.clone().requires_grad_(True)
+                leaves = [xl, el] + ([] if xa is None else [xa.clone().requires_grad_(True)])
+                xo, eo = kernel(xl, el, *args[2:], extra_agg=leaves[2] if xa is not None
+                                else None)
+                return [xo, eo], leaves + params, [cot_x, cot_e]
+
+            runs = [torch.autograd.grad(*graph(xa)) for xa in (None, torch.zeros_like(extra))]
+            if not all(torch.equal(a, c) for a, c in zip(runs[0], runs[1][:2] + runs[1][3:])):
+                raise AssertionError(f"{label}: a zero extra_agg changes the backward's bits")
+            del runs
+            log("  a zero extra_agg gives the bits of none, forward and backward")
+            bt = backward_times(f"{label} backward [middle]",
+                                lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True),
+                                lambda: torch.autograd.grad(*kept["plain"], retain_graph=True),
+                                (), card)
+            kept_none = graph(None)
+            fn_none = lambda: torch.autograd.grad(*kept_none, retain_graph=True)  # noqa: E731
+            bmesh = {"ms": cuda_ms(fn_none), "device_ms": device_ms(fn_none)}
+            log(f"  middle backward without the extra: {bmesh['ms']:.4f} ms (device "
+                f"{bmesh['device_ms']:.4f}) ({card})")
+            extra_bytes = 2 * extra.numel()  # read by the forward, dea written by the backward
+            fw, bw = (gn_block_work(x, e, setup.graph.edge_mask, blk, backward=bwd)
+                      for bwd in (False, True))
+            fb, bb = bound(fw[0] + extra_bytes, fw[1]), bound(bw[0] + extra_bytes, bw[1])
+            for backward, err, tt, tm, bd in ((False, max(f_err.values()), t, mesh, fb),
+                                             (True, max(r.get("max_abs_err", float("inf"))
+                                                        for r in grad_rows), bt, bmesh, bb)):
+                out[gn_record_name(layout, h, backward)] = dict(
+                    max_abs_err=err, ms=tt["ms"], device_ms=tt["device_ms"],
+                    plain_ms=tt["plain_ms"], mesh_ms=tm["ms"], mesh_device_ms=tm["device_ms"],
+                    bound_ms=bd[0], bound_by=bd[1], shape=[n, b, h])
+            log(f"{label}: bounds with the extra forward {fb[0]:.6g} ms ({fb[1]}), backward "
+                f"{bb[0]:.6g} ms ({bb[1]})")
+            del setup, x, e, raw, extra, cot_x, cot_e, kept, kept_none
+            torch.cuda.empty_cache()
+    return out
+
+
+def plate_epd_train_phase(device, card):
+    """Phase 39: DeformingPlate's MeshGraphNet (entry.plate_epd_train_setup:
+    hidden 128, 15 blocks, B=64 frames from those with world edges, NK)
+    with 15 + 15 launches of rows 1/2 a step, held to the plain path over
+    the first PLATE_EPD_COMPARED_STEPS steps (training_phase); the kernel
+    path's peak memory and the step's wall, enqueue and device time.
+    Returns ((forward, backward) launches, the step's times)."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+    from graph_physics_tpu_torch.ops.tiling import NKTiling
+
+    gn = nk_ops.fused_gn_block_nk
+    train = entry.plate_epd_train_setup(device)
+    g, layout = train.graph, train.tiling
+    b = g.x.shape[1]
+    per_sample = g.wedge_mask.sum(0)
+    log(f"plate MeshGraphNet: {type(layout).__name__} layout ({layout.num_nodes} nodes, "
+        f"{layout.total_rows} slots, K={getattr(layout, 'k_slots', None)}); B={b} frames of "
+        f"{list(entry.PLATE_WORLD_FRAMES)}, {int(per_sample.sum())} world edges over "
+        f"{g.wedge_mask.shape[0]} slots a sample ({int(per_sample.min())} to "
+        f"{int(per_sample.max())} a sample); hidden {train.simulator.model.hidden_size}, "
+        f"{len(train.simulator.model.processor_list)} blocks, "
+        f"{sum(p.numel() for p in train.simulator.parameters())} parameters")
+    if not isinstance(layout, NKTiling) or not bool((per_sample > 0).all()):
+        raise AssertionError("phase 39: the plate batch is not in the NK layout, or a sample "
+                             "has no world edge")
+    _, plain_state, plain_step, launches = training_phase(
+        "plate MeshGraphNet training", train, [gn], 39, steps=PLATE_EPD_COMPARED_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(40)
+    for _ in range(2):
+        train.train_step(train.state, g, gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    st = step_timing(train, plain_state, plain_step, 41)
+    log(f"plate MeshGraphNet train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
+        f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
+        f"{st['train_step_device_ms']:.4f} ms; the host enqueues a step in "
+        f"{st['train_step_host_enqueue_ms']:.4f} ms, CUDA events "
+        f"{st['train_step_enqueue_events_ms']:.4f} ms over the same steps, "
+        f"{st['train_step_syncs']} device-to-host syncs a step; max_memory_allocated "
+        f"{peak / 2**30:.4f} GiB), plain path {st['train_step_plain_ms']:.4f} ms ({card})")
+    log("plate MeshGraphNet train timing " + json.dumps({"card": card, "peak_bytes": peak,
+                                                          **st}))
+    del train, plain_state, plain_step
+    torch.cuda.empty_cache()
+    return launches[gn.__name__], st
+
+
+def plate_epd_fit_phase(device, card):
+    """Phase 40: plate.json with DeformingPlate's MeshGraphNet as its model
+    (entry.plate_epd_block, set in memory) through Trainer.fit on in-memory
+    plate trajectories (PLATE_FIT_TRAJECTORIES of PLATE_FIT_FRAMES frames,
+    B=64, PLATE_EPD_FIT_EPOCHS epoch, a VAL_STEPS-step validation rollout),
+    then predict from its checkpoint: the launches of rows 1/2 (or 3/4, on
+    a topology the manager lays out as CSR) held to the prediction,
+    predict's RMSE validate's. Returns {wrapper name: (forward, backward)
+    launches} of both."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.cli import predict as predict_cli
+    from graph_physics_tpu_torch.cli.common import load_inference_stack
+    from graph_physics_tpu_torch.dataset import synthetic
+    from graph_physics_tpu_torch.ops import fused_gnblock_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+    from graph_physics_tpu_torch.training import config as config_lib
+
+    gns = (nk_ops.fused_gn_block_nk, csr_ops.fused_gn_block_csr)
+    param = plate_param()
+    param["model"] = entry.plate_epd_block()
+    ds = memory_dataset_class()
+    frame_cfg = entry.plate_frame_config()
+    trajs = [synthetic.make_plate_trajectory(44 + i, 30, PLATE_FIT_FRAMES)
+             for i in range(PLATE_FIT_TRAJECTORIES)]
+    train_ds = ds(trajs, synthetic.plate_meta_dict(PLATE_FIT_FRAMES), frame_cfg)
+    val_ds = ds([synthetic.make_plate_trajectory(44, 30, VAL_STEPS + 1)],
+                synthetic.plate_meta_dict(VAL_STEPS + 1), frame_cfg)
+    _, world_dev = config_lib.get_world_configs(param)
+    tr = fit_trainer(param, train_ds, val_ds, "fit_plate_epd", device, batch=TF_FIT_BATCH,
+                     epochs=PLATE_EPD_FIT_EPOCHS, world_pos=world_dev)
+    reset_counts(gns)
+    t0 = time.perf_counter()
+    tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = {k.__name__: launch_counts(k) for k in gns}
+    steps, n_blocks = tr.state.step, len(tr.sim.model.processor_list)
+    records = epoch_records(tr)
+    log(f"fit, plate.json with DeformingPlate's MeshGraphNet ({n_blocks} blocks, hidden "
+        f"{tr.sim.model.hidden_size}, bf16, world edges as each frame's sidecar; "
+        f"{PLATE_FIT_TRAJECTORIES} trajectories of {PLATE_FIT_FRAMES} frames, B={TF_FIT_BATCH}, "
+        f"{PLATE_EPD_FIT_EPOCHS} epoch, {steps} steps, validation {VAL_STEPS} rollout steps): "
+        f"{fit_s:.1f} s ({card})")
+    for r in records:
+        log(f"  epoch {int(r['epoch'])}: train_loss_epoch {r['train_loss_epoch']:.6g} "
+            f"val_all_rollout_rmse {r['val_all_rollout_rmse']:.6g} val_1step_rmse "
+            f"{r['val_1step_rmse']:.6g} ({r['epoch_time_s']:.2f} s)")
+    total = tuple(map(sum, zip(*fit_launches.values())))
+    want = (n_blocks * (steps + PLATE_EPD_FIT_EPOCHS * VAL_STEPS), n_blocks * steps)
+    log(f"  launches (forward, backward): {fit_launches}; in all {total}, expected {want}")
+    values = [r[k] for r in records for k in ("train_loss_epoch", "val_all_rollout_rmse")]
+    if (len(records) != PLATE_EPD_FIT_EPOCHS or not all(math.isfinite(v) for v in values)
+            or steps != PLATE_EPD_FIT_EPOCHS * PLATE_FIT_TRAJECTORIES or total != want):
+        raise AssertionError(f"phase 40: {steps} steps, launches {fit_launches}, records "
+                             f"{records}")
+    # predict reads the configuration from a file: the in-memory one, written
+    # beside the run's checkpoints
+    cfg_path = Path(tr.cfg.out_dir) / tr.cfg.run_name / "plate_epd.json"
+    cfg_path.write_text(json.dumps(param))
+    args = predict_cli.build_argparser().parse_args([
+        "--training_parameters_path", str(cfg_path), "--model_path", tr.ckpt_dir, "--bf16",
+        "--fused", "--device", str(device)])
+    reset_counts(gns)
+    stack = load_inference_stack(args, dataset=val_ds)
+    pred = predict_cli.predict(stack, fused=True)[0]
+    torch.cuda.synchronize()
+    predict_launches = {k.__name__: launch_counts(k) for k in gns}
+    total = tuple(map(sum, zip(*predict_launches.values())))
+    want_rmse = records[-1]["val_all_rollout_rmse"]
+    rel = abs(pred.rmse_all_rollout - want_rmse) / want_rmse
+    want = (n_blocks * VAL_STEPS, 0)
+    log(f"predict, plate MeshGraphNet: checkpoint step {stack.step}, rollout of "
+        f"{pred.predictions.shape[0]} steps, launches (forward, backward) {predict_launches}, "
+        f"in all {total}, expected {want}: rmse_all_rollout {pred.rmse_all_rollout:.8g}, "
+        f"validate reported {want_rmse:.8g} (relative difference {rel:.3g}, limit "
+        f"{PREDICT_RTOL})")
+    if stack.step != steps or rel > PREDICT_RTOL or total != want:
+        raise AssertionError("phase 40: predict's rollout is not validate's, or its launches "
+                             f"{predict_launches} are not {want}")
+    log("plate MeshGraphNet fit " + json.dumps({
+        "card": card, "fit_s": fit_s, "fit_launches": fit_launches,
+        "predict_launches": predict_launches, "predict_rmse": pred.rmse_all_rollout,
+        "validate_rmse": want_rmse}))
+    return {k: tuple(a + c for a, c in zip(fit_launches[k], predict_launches[k]))
+            for k in fit_launches}
+
+
+def plate_epd_phases(device, card):
+    """Phases 38-40; returns ({record name: world fields}, {record name:
+    launches of phases 39-40})."""
+    world = seam_phase(device, card)
+    counts = {"nk": list(plate_epd_train_phase(device, card)[0]), "csr": [0, 0]}
+    for name, launches in plate_epd_fit_phase(device, card).items():
+        for i, n in enumerate(launches):
+            counts["nk" if name == "fused_gn_block_nk" else "csr"][i] += n
+    return world, {gn_record_name(layout, MGN_HIDDEN, backward): c[backward]
+                   for layout, c in counts.items() for backward in (False, True)}
+
 
 if __name__ == "__main__":
     main()

@@ -9,13 +9,14 @@ card). Example:
       --training_parameters_path training_config/cylinder.json \\
       --epochs 25 --batch_size 128 --packed --bf16 --fused
 
-World edges (``world_pos_parameters.use``, plate.json) train in the
-sidecar layout, which needs ``--packed`` (JAX's CLI switches to it there;
+World edges (``world_pos_parameters.use``, plate.json; a transformer or
+an ``epd``, DeformingPlate's MeshGraphNet) train in the sidecar layout, which needs ``--packed`` (JAX's CLI switches to it there;
 the concat layout of an unpacked run waits for ROADMAP A 5.2), with the
 world-position edge features computed on the device after the noise.
 The validation rollouts use the sidecar too: where JAX's CLI builds them
 in the concat layout, the port builds the same edge set beside the mesh,
-so the kernels' world seam runs there as well.
+so the kernels' world seam (the attention kernels', or the GraphNetBlock
+kernels' ``extra_agg``) runs there as well.
 
 ``--external NAME`` builds each frame's features with the named builder
 of ``external/`` (panels, aneurysm, bezier), which reads the previous

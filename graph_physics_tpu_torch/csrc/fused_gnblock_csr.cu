@@ -2,11 +2,11 @@
 // Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the TPU Pallas kernel graph_physics_tpu/ops/fused_gnblock.py:
-// _fwd_kernel (:392), called by fused_gn_block (:687), without the lane
-// tiling, the runtime tiling_idx and the extra_agg seam. Same function, on
-// a graph of any degree (gn_fwd.cuh states it): receiver r's rows are
-// s = row_ptr[r] .. row_ptr[r+1]-1; the padding rows after row_ptr[N]
-// belong to no receiver and get e_out = e_in.
+// _fwd_kernel (:392), called by fused_gn_block (:687), with its extra_agg
+// seam (:399) and without the lane tiling and the runtime tiling_idx.
+// Same function, on a graph of any degree (gn_fwd.cuh states it):
+// receiver r's rows are s = row_ptr[r] .. row_ptr[r+1]-1; the padding rows
+// after row_ptr[N] belong to no receiver and get e_out = e_in.
 //
 // What bounds it on this card: at hidden 32 an edge row costs 4.1k
 // multiply-adds (its first layer 1k, the per-node partials 2k a node)
@@ -43,11 +43,14 @@ __global__ void __launch_bounds__(FWD_THREADS) gn_csr_fwd_kernel(const FwdArgs a
 // then the RMSNorm scale (null without a norm). fe > 0 folds the edge
 // encoder in (e is the raw [S, B, fe] array); e_out null marks the last
 // block. xks is a [n_nodes, batch, 32] bf16 scratch; agg_out, when not
-// null, receives the bf16 aggregate [n_nodes, batch, 32] for the backward.
-// Returns the CUDA error code of the launches (0 on success).
+// null, receives the bf16 aggregate [n_nodes, batch, 32] for the backward;
+// extra, when not null, is a bf16 [n_nodes, batch, 32] aggregate added to
+// the messages' (the world edges'). Returns the CUDA error code of the
+// launches (0 on success).
 extern "C" int gn_csr_fwd(const void* x, const void* e, void* xks, void* x_out, void* e_out,
-                          void* agg_out, const void* row_ptr, const void* senders,
-                          const void* mask, int n_nodes, int batch, int total_rows, int fe,
+                          void* agg_out, const void* extra, const void* row_ptr,
+                          const void* senders, const void* mask, int n_nodes, int batch,
+                          int total_rows, int fe,
                           const void* const* enc_w, int n_enc_layers,
                           const void* const* edge_w, int n_edge_layers,
                           const void* const* node_w, int n_node_layers, void* stream) {
@@ -55,8 +58,8 @@ extern "C" int gn_csr_fwd(const void* x, const void* e, void* xks, void* x_out, 
   a.row_ptr = static_cast<const int32_t*>(row_ptr);
   a.n_nodes = n_nodes;
   a.total_rows = total_rows;
-  if (!make_fwd_args(&a, x, e, xks, x_out, e_out, agg_out, senders, mask, batch, fe, enc_w,
-                     n_enc_layers, edge_w, n_edge_layers, node_w, n_node_layers))
+  if (!make_fwd_args(&a, x, e, xks, x_out, e_out, agg_out, extra, senders, mask, batch, fe,
+                     enc_w, n_enc_layers, edge_w, n_edge_layers, node_w, n_node_layers))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_fwd<CsrRows>(
       a, static_cast<cudaStream_t>(stream), gn_csr_fwd_kernel<false, false>,

@@ -7,8 +7,10 @@
 // s = g·K·nb + k·nb + r' for receiver g·nb + r' (ops/tiling.py); every
 // slot belongs to its receiver, and a masked slot gives h = 0 and
 // e_out = e_in. Under autograd it also writes the bf16 aggregate the
-// backward (fused_gnblock_nk_bwd.cu) reads: 15.7 MB a block at B=128. The
-// first edge layer adds the per-node partials bf16(x @ Kr) and
+// backward (fused_gnblock_nk_bwd.cu) reads: 15.7 MB a block at B=128.
+// A node-aligned extra aggregate (the world edges', _nk_fwd_kernel's
+// has_extra_agg, :154 and :218) joins the rounded sum before the node
+// MLP. The first edge layer adds the per-node partials bf16(x @ Kr) and
 // bf16(x @ Ks) to the fp32 e_in @ Ke, as the JAX kernel's _edge_fwd
 // (:130-134) does and as the backward rebuilds it.
 //
@@ -51,10 +53,13 @@ __global__ void __launch_bounds__(FWD_THREADS) gn_nk_fwd_kernel(const FwdArgs a)
 // encoder in (e is the raw [S, B, fe] array); e_out null marks the last
 // block. xks is a [n_nodes, batch, 32] bf16 scratch; agg_out, when not
 // null, receives the bf16 aggregate [n_nodes, batch, 32] for the
-// backward. Returns the CUDA error code of the launches (0 on success).
+// backward; extra, when not null, is a bf16 [n_nodes, batch, 32] aggregate
+// added to the messages' (the world edges'). Returns the CUDA error code of
+// the launches (0 on success).
 extern "C" int gn_nk_fwd(const void* x, const void* e, void* xks, void* x_out, void* e_out,
-                         void* agg_out, const void* senders, const void* mask, int n_nodes,
-                         int batch, int k_slots, int node_block, int fe,
+                         void* agg_out, const void* extra, const void* senders,
+                         const void* mask, int n_nodes, int batch, int k_slots,
+                         int node_block, int fe,
                          const void* const* enc_w, int n_enc_layers, const void* const* edge_w,
                          int n_edge_layers, const void* const* node_w, int n_node_layers,
                          void* stream) {
@@ -64,8 +69,8 @@ extern "C" int gn_nk_fwd(const void* x, const void* e, void* xks, void* x_out, v
   a.n_nodes = n_nodes;
   a.total_rows = n_nodes * k_slots;
   if (k_slots < 1 || node_block < 1 || n_nodes % node_block != 0 ||
-      !make_fwd_args(&a, x, e, xks, x_out, e_out, agg_out, senders, mask, batch, fe, enc_w,
-                     n_enc_layers, edge_w, n_edge_layers, node_w, n_node_layers))
+      !make_fwd_args(&a, x, e, xks, x_out, e_out, agg_out, extra, senders, mask, batch, fe,
+                     enc_w, n_enc_layers, edge_w, n_edge_layers, node_w, n_node_layers))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_fwd<NkRows>(
       a, static_cast<cudaStream_t>(stream), gn_nk_fwd_kernel<false, false>,

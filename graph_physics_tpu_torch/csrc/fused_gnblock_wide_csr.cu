@@ -4,8 +4,9 @@
 //
 // Replaces the TPU Pallas kernel graph_physics_tpu/ops/fused_gnblock.py:
 // _fwd_kernel (:392), called by fused_gn_block (:687), at the hidden widths
-// that are not 32 (fused_gnblock_csr.cu keeps hidden 32), without the lane
-// tiling, the runtime tiling_idx and the extra_agg seam. The function, the
+// that are not 32 (fused_gnblock_csr.cu keeps hidden 32), with its
+// extra_agg seam (:399) and without the lane tiling and the runtime
+// tiling_idx. The function, the
 // bound and the passes are gn_wide_fwd.cuh's, on the CSR row map
 // (gn_rows.cuh:CsrRows): receiver r owns rows row_ptr[r]..row_ptr[r+1]-1,
 // and the padding rows after row_ptr[N] get e_out = e_in.
@@ -28,9 +29,10 @@ extern "C" int gnw_hidden() { return H; }
 // As gnw_nk_fwd (fused_gnblock_wide_nk.cu), with the CSR rows: row_ptr
 // [n_nodes + 1] and total_rows rows, padding included.
 extern "C" int gnw_csr_fwd(const void* x, const void* e, void* xkr, void* xks, void* ein,
-                           void* x_out, void* e_out, void* agg, const void* row_ptr,
-                           const void* senders, const void* mask, int n_nodes, int batch,
-                           int total_rows, int fe, const void* const* enc_w, int n_enc_layers,
+                           void* x_out, void* e_out, void* agg, const void* extra,
+                           const void* row_ptr, const void* senders, const void* mask,
+                           int n_nodes, int batch, int total_rows, int fe,
+                           const void* const* enc_w, int n_enc_layers,
                            const void* const* edge_w, int n_edge_layers,
                            const void* const* node_w, int n_node_layers, void* stream) {
   FwdArgs a = {};
@@ -38,8 +40,8 @@ extern "C" int gnw_csr_fwd(const void* x, const void* e, void* xkr, void* xks, v
   a.row_ptr = static_cast<const int32_t*>(row_ptr);
   a.n_nodes = n_nodes;
   a.total_rows = total_rows;
-  if (!make_fwd_args(&a, &enc, x, e, xkr, xks, x_out, e_out, agg, senders, mask, batch, fe,
-                     enc_w, n_enc_layers, edge_w, n_edge_layers, node_w, n_node_layers) ||
+  if (!make_fwd_args(&a, &enc, x, e, xkr, xks, x_out, e_out, agg, extra, senders, mask, batch,
+                     fe, enc_w, n_enc_layers, edge_w, n_edge_layers, node_w, n_node_layers) ||
       (fe > 0 && e_out == nullptr && ein == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_fwd<CsrRows>(

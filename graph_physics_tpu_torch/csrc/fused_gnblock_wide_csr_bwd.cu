@@ -39,7 +39,8 @@ extern "C" long long gnw_bwd_sizes(int which, int n_nodes, int batch, long long 
 // [n_nodes + 1], receivers [total_rows] (n_nodes - 1 on padding) and
 // total_rows rows, padding included.
 extern "C" int gnw_csr_bwd(const void* x, const void* e, const void* agg, const void* g_xout,
-                           const void* g_eout, void* dx, void* de, void* scratch, void* part,
+                           const void* g_eout, void* dx, void* de, void* dea, void* scratch,
+                           void* part,
                            const void* row_ptr, const void* senders, const void* receivers,
                            const void* mask, const void* order, const void* offsets, int n_nodes,
                            int batch, int total_rows, int fe, const void* const* enc_w,
@@ -52,8 +53,8 @@ extern "C" int gnw_csr_bwd(const void* x, const void* e, const void* agg, const 
   a.receivers = static_cast<const int32_t*>(receivers);
   a.n_nodes = n_nodes;
   a.total_rows = total_rows;
-  if (!make_bwd_args(&a, x, e, agg, g_xout, g_eout, dx, de, senders, mask, order, offsets, batch,
-                     fe, enc_w, enc_g, n_enc_layers, edge_w, edge_g, n_edge_layers, node_w,
+  if (!make_bwd_args(&a, x, e, agg, g_xout, g_eout, dx, de, dea, senders, mask, order, offsets,
+                     batch, fe, enc_w, enc_g, n_enc_layers, edge_w, edge_g, n_edge_layers, node_w,
                      node_g, n_node_layers))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_bwd(a, static_cast<bf16*>(scratch), static_cast<float*>(part),

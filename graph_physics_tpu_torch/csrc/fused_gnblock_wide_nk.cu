@@ -30,12 +30,14 @@ extern "C" int gnw_hidden() { return H; }
 // is the raw [S, B, fe] array); e_out null marks the last block. xkr, xks
 // are [n_nodes, batch, H] bf16 scratch, ein a [S, batch, H] scratch for
 // the encoder's output on a folded last block (else unused), agg receives
-// the bf16 aggregate [n_nodes, batch, H]. Returns the CUDA error code of
+// the bf16 aggregate [n_nodes, batch, H], to which extra, when not null (a
+// bf16 [n_nodes, batch, H] aggregate: the world edges'), is added. Returns the CUDA error code of
 // the launches (0 on success).
 extern "C" int gnw_nk_fwd(const void* x, const void* e, void* xkr, void* xks, void* ein,
-                          void* x_out, void* e_out, void* agg, const void* senders,
-                          const void* mask, int n_nodes, int batch, int k_slots, int node_block,
-                          int fe, const void* const* enc_w, int n_enc_layers,
+                          void* x_out, void* e_out, void* agg, const void* extra,
+                          const void* senders, const void* mask, int n_nodes, int batch,
+                          int k_slots, int node_block, int fe, const void* const* enc_w,
+                          int n_enc_layers,
                           const void* const* edge_w, int n_edge_layers,
                           const void* const* node_w, int n_node_layers, void* stream) {
   FwdArgs a = {};
@@ -45,8 +47,8 @@ extern "C" int gnw_nk_fwd(const void* x, const void* e, void* xkr, void* xks, vo
   a.n_nodes = n_nodes;
   a.total_rows = n_nodes * k_slots;
   if (k_slots < 1 || node_block < 1 || n_nodes % node_block != 0 ||
-      !make_fwd_args(&a, &enc, x, e, xkr, xks, x_out, e_out, agg, senders, mask, batch, fe,
-                     enc_w, n_enc_layers, edge_w, n_edge_layers, node_w, n_node_layers) ||
+      !make_fwd_args(&a, &enc, x, e, xkr, xks, x_out, e_out, agg, extra, senders, mask, batch,
+                     fe, enc_w, n_enc_layers, edge_w, n_edge_layers, node_w, n_node_layers) ||
       (fe > 0 && e_out == nullptr && ein == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_fwd<NkRows>(

@@ -36,12 +36,15 @@ extern "C" long long gnw_bwd_sizes(int which, int n_nodes, int batch, long long 
 // shaped like their weights, and written whole. agg is the bf16 aggregate
 // [n_nodes, batch, H] the forward kept. fe > 0 folds the edge encoder in
 // (e is the raw [S, B, fe] array, de is null); g_eout null marks the last
-// block. scratch and part hold gnw_bwd_sizes(0 / 1, ...) bf16 / fp32
+// block; dea, when not null, receives the bf16 cotangent [n_nodes, batch,
+// H] of the aggregate (of the extra aggregate the forward added). scratch
+// and part hold gnw_bwd_sizes(0 / 1, ...) bf16 / fp32
 // elements; order and offsets (int32) are the valid slots sorted by sender
 // and each node's range in them. Returns the CUDA error code of the
 // launches (0 on success).
 extern "C" int gnw_nk_bwd(const void* x, const void* e, const void* agg, const void* g_xout,
-                          const void* g_eout, void* dx, void* de, void* scratch, void* part,
+                          const void* g_eout, void* dx, void* de, void* dea, void* scratch,
+                          void* part,
                           const void* senders, const void* mask, const void* order,
                           const void* offsets, int n_nodes, int batch, int k_slots,
                           int node_block, int fe, const void* const* enc_w,
@@ -55,8 +58,8 @@ extern "C" int gnw_nk_bwd(const void* x, const void* e, const void* agg, const v
   a.n_nodes = n_nodes;
   a.total_rows = n_nodes * k_slots;
   if (k_slots < 1 || node_block < 1 || n_nodes % node_block != 0 ||
-      !make_bwd_args(&a, x, e, agg, g_xout, g_eout, dx, de, senders, mask, order, offsets, batch,
-                     fe, enc_w, enc_g, n_enc_layers, edge_w, edge_g, n_edge_layers, node_w,
+      !make_bwd_args(&a, x, e, agg, g_xout, g_eout, dx, de, dea, senders, mask, order, offsets,
+                     batch, fe, enc_w, enc_g, n_enc_layers, edge_w, edge_g, n_edge_layers, node_w,
                      node_g, n_node_layers))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_bwd(a, static_cast<bf16*>(scratch), static_cast<float*>(part),

@@ -8,6 +8,8 @@
 //   h     = edge_mask[s] ? EdgeMLP(e_in, x[r, b], x[j, b]) : 0
 //   e_out = e_in + h                       (not written on the last block)
 //   agg   = bf16(sum_s h)                  (fp32 sum, in row order)
+//   agg   = bf16(agg + extra[r, b])        (with an extra aggregate: the
+//                                           seam, fused_gnblock_nk.py:218)
 //   x_out = x[r, b] + NodeMLP(cat[x[r, b], agg])
 // Rows outside every receiver's range (CSR padding) get e_out = e_in. The
 // edge MLP's first layer follows the TPU kernels' order
@@ -33,8 +35,10 @@
 //     the RMSNorm's row sums over quads of lanes;
 //   * h goes into an fp32 aggregate held in accumulator fragments, summed
 //     in row order; e_out = e_in + h is stored from the fragments;
-//   * the node MLP runs on the [x_r | bf16(agg)] tile (K = 64), the
-//     residual is added and x_out (and agg, when training) stored;
+//   * the extra aggregate's tile (the world edges', when given) is added
+//     to the rounded aggregate (one bf16 rounding of the sum), then the
+//     node MLP runs on the [x_r | agg] tile (K = 64), the residual is
+//     added and x_out (and agg, that sum, when training) stored;
 //   * receivers of different degree run on different warps, so no lane
 //     waits on another's range; masked rows in a range give h = 0 and skip
 //     the MLP (a warp-uniform branch); CSR padding rows are work items of
@@ -61,6 +65,7 @@ struct FwdArgs : RowMap {
   const bf16* xks;         // [N, B, H] scratch: bf16(x @ Ks), from the pre-pass
   bf16* x_out;             // [N, B, H]
   bf16* agg_out;           // [N, B, H] bf16(agg) for the backward, or null
+  const bf16* extra;       // [N, B, H] added to the aggregate, or null
   bf16* e_out;             // [S, B, H]; null on the last block
   const int32_t* senders;  // [S] sender per row (0 on padding)
   const uint8_t* mask;     // [S] 1 on valid rows
@@ -152,6 +157,10 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
 
     uint32_t ag[8], h[8];
     round_acc(ag, agg);
+    if (a.extra) {
+      frag_load(h, a.extra + xb, H, nv);
+      add_tiles(ag, ag, h);
+    }
     if (a.agg_out) frag_store(a.agg_out + xb, H, nv, ag);
     zero_acc(d);
     mma_awt(d, xr, node.layer(0), node.stride0, 0);
@@ -168,7 +177,8 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
 // RMSNorm scale, null without a norm; fe > 0 folds the edge encoder in);
 // false if they do not fit the body. The caller sets the row map.
 inline bool make_fwd_args(FwdArgs* a, const void* x, const void* e, void* xks, void* x_out,
-                          void* e_out, void* agg_out, const void* senders, const void* mask,
+                          void* e_out, void* agg_out, const void* extra, const void* senders,
+                          const void* mask,
                           int batch, int fe, const void* const* enc_w, int n_enc_layers,
                           const void* const* edge_w, int n_edge_layers,
                           const void* const* node_w, int n_node_layers) {
@@ -178,6 +188,7 @@ inline bool make_fwd_args(FwdArgs* a, const void* x, const void* e, void* xks, v
   a->x_out = static_cast<bf16*>(x_out);
   a->e_out = static_cast<bf16*>(e_out);
   a->agg_out = static_cast<bf16*>(agg_out);
+  a->extra = static_cast<const bf16*>(extra);
   a->senders = static_cast<const int32_t*>(senders);
   a->mask = static_cast<const uint8_t*>(mask);
   a->batch = batch;

@@ -73,7 +73,8 @@ struct BwdArgs : RowMap {
   bf16* de;                // [S, B, H] de, or e_in's cotangent (a scratch) when folded
   const bf16* xkr;         // [N, B, H] scratch: bf16(x @ Kr)
   const bf16* xks;         // [N, B, H] scratch: bf16(x @ Ks)
-  bf16* gagg;              // [N, B, H] scratch: the aggregate's cotangent
+  bf16* gagg;              // [N, B, H] the aggregate's cotangent: the caller's dea
+                           // (the extra aggregate's), else a scratch slot
   bf16* es[SLOTS];         // [S, B, H] each: the edge MLP's slots
   bf16* ns[SLOTS + 2];     // [N, B, H] each: the node MLP's slots, then P_r, P_s
   bf16* cs[SLOTS + 1];     // [S, B, H] each: the encoder's A_0 (the raw rows, zero
@@ -543,7 +544,8 @@ inline cudaError_t launch_bwd(BwdArgs a, bf16* scratch, float* part, cudaStream_
   bf16* s = scratch;
   a.xkr = s;
   a.xks = s += nrows * H;
-  a.gagg = s += nrows * H;
+  s += nrows * H;
+  if (a.gagg == nullptr) a.gagg = s;
   s += nrows * H;
   for (int i = 0; i < SLOTS + 2; ++i, s += nrows * H) a.ns[i] = s;
   for (int i = 0; i < SLOTS; ++i, s += erows * H) a.es[i] = s;
@@ -609,9 +611,12 @@ inline cudaError_t launch_bwd(BwdArgs a, bf16* scratch, float* part, cudaStream_
 // Fills the pointers and MLPs of ``a`` from a backward's C arguments (each
 // weight and gradient list 2 * n_layers + 1 pointers: w0, b0, w1, b1, ...,
 // the RMSNorm scale or null); false if they do not fit the kernels. fe > 0
-// folds the encoder in (then de is null). The caller sets the row map.
+// folds the encoder in (then de is null); dea, when not null, receives the
+// aggregate's cotangent (that of an extra aggregate the forward added: the
+// node pass writes it there in place of its scratch slot). The caller sets
+// the row map.
 inline bool make_bwd_args(BwdArgs* a, const void* x, const void* e, const void* agg,
-                          const void* g_xout, const void* g_eout, void* dx, void* de,
+                          const void* g_xout, const void* g_eout, void* dx, void* de, void* dea,
                           const void* senders, const void* mask, const void* order,
                           const void* offsets, int batch, int fe, const void* const* enc_w,
                           const void* const* enc_g, int n_enc_layers, const void* const* edge_w,
@@ -625,6 +630,7 @@ inline bool make_bwd_args(BwdArgs* a, const void* x, const void* e, const void* 
   a->g_eout = static_cast<const bf16*>(g_eout);
   a->dx = static_cast<bf16*>(dx);
   a->de = static_cast<bf16*>(de);
+  a->gagg = static_cast<bf16*>(dea);
   a->senders = static_cast<const int32_t*>(senders);
   a->mask = static_cast<const uint8_t*>(mask);
   a->order = static_cast<const int32_t*>(order);

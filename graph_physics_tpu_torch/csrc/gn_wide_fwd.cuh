@@ -7,6 +7,8 @@
 //   h     = edge_mask[s] ? EdgeMLP(e_in, x[r, b], x[j, b]) : 0
 //   e_out = e_in + h                       (not written on the last block)
 //   agg   = bf16(sum_s h)                  (fp32 sum, in row order)
+//   agg   = bf16(agg + extra[r, b])        (with an extra aggregate, the
+//                                           world edges')
 //   x_out = x[r, b] + NodeMLP(cat[x[r, b], agg])
 // with the edge MLP's first layer in the TPU kernels' order: the node
 // partials bf16(x @ Kr) and bf16(x @ Ks) added to the fp32 e_in @ Ke, one
@@ -20,7 +22,8 @@
 //     MLP (Ke and layers 1-3) resident in shared memory: each valid row's
 //     message from e_in, xkr[r] and xks[j]; the fp32 aggregate in
 //     accumulator fragments (no atomics); e_out = e_in + h, in place when
-//     e_in is already in e_out's buffer; then bf16(agg) to device memory;
+//     e_in is already in e_out's buffer; then bf16(agg), plus the extra
+//     aggregate's tile when given (one more rounding), to device memory;
 //     masked rows copy e_in (nothing to do in place), CSR padding rows are
 //     items of their own after the receivers;
 //  3. node pass, a warp per (node, 16 samples), the node MLP resident:
@@ -48,6 +51,7 @@ struct FwdArgs : RowMap {
   bf16* x_out;             // [N, B, H]
   bf16* e_out;             // [S, B, H] (may be e: in place); null on the last block
   bf16* agg;               // [N, B, H] bf16(agg)
+  const bf16* extra;       // [N, B, H] added to the aggregate, or null
   const int32_t* senders;  // [S] sender per row (0 on padding)
   const uint8_t* mask;     // [S] 1 on valid rows
   int batch;
@@ -126,6 +130,11 @@ __device__ __forceinline__ void edge_fwd_body(const FwdArgs& a) {
     }
     uint32_t ag[NF];
     round_acc(ag, agg);
+    if (a.extra) {  // the seam: the node pass and the backward read this sum
+      uint32_t t[NF];
+      frag_load(t, a.extra + xb, nv);
+      add_tiles(ag, ag, t);
+    }
     frag_store(a.agg + xb, nv, ag);
   }
 }
@@ -205,9 +214,10 @@ cudaError_t launch_fwd(FwdArgs a, const bf16* raw, bf16* ein, const Mlp& enc, in
 // a norm; fe > 0 folds the edge encoder in); false if they do not fit the
 // kernels. The caller sets the row map.
 inline bool make_fwd_args(FwdArgs* a, Mlp* enc, const void* x, const void* e, void* xkr,
-                          void* xks, void* x_out, void* e_out, void* agg, const void* senders,
-                          const void* mask, int batch, int fe, const void* const* enc_w,
-                          int n_enc_layers, const void* const* edge_w, int n_edge_layers,
+                          void* xks, void* x_out, void* e_out, void* agg, const void* extra,
+                          const void* senders, const void* mask, int batch, int fe,
+                          const void* const* enc_w, int n_enc_layers,
+                          const void* const* edge_w, int n_edge_layers,
                           const void* const* node_w, int n_node_layers) {
   a->x = static_cast<const bf16*>(x);
   a->e = static_cast<const bf16*>(e);
@@ -216,6 +226,7 @@ inline bool make_fwd_args(FwdArgs* a, Mlp* enc, const void* x, const void* e, vo
   a->x_out = static_cast<bf16*>(x_out);
   a->e_out = static_cast<bf16*>(e_out);
   a->agg = static_cast<bf16*>(agg);
+  a->extra = static_cast<const bf16*>(extra);
   a->senders = static_cast<const int32_t*>(senders);
   a->mask = static_cast<const uint8_t*>(mask);
   a->batch = batch;

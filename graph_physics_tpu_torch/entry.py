@@ -38,6 +38,12 @@ make_plate_trajectory), world edges within radius 0.03 as each frame's
 sidecar of 1,024 slots, B=64 consecutive frames packed, the layout
 FusedTopologyManager("transformer") chooses, and the training step's
 noise (0.003 on the world positions) and world-position edge features.
+``plate_epd_setup`` and ``plate_epd_train_setup`` run DeformingPlate's
+MeshGraphNet (Pfaff et al., ICLR 2021, arXiv:2010.03409, §4 and
+Appendix A: an ``epd`` with world edges, latent 128, 15 blocks) on the
+same sheet and sidecars, in the layout FusedTopologyManager("epd")
+chooses, on frames that all have world edges, the world stream joining
+each GraphNetBlock kernel through its ``extra_agg`` seam.
 ``panels_setup`` and ``panels_train_setup`` run the panels workload
 (training_config/panels.json: 15 blocks, hidden 128, 4 heads of 32, bf16)
 at scripts/bench_canonical.py's panels row: the synthetic 48x40 panels
@@ -307,15 +313,15 @@ def plate_frame_config(edge_budget: int = PLATE_BUDGET, radius: float = PLATE_RA
 
 
 def plate_frames(traj: Dict[str, np.ndarray], frames: Sequence[int], edge_budget: int,
-                 radius: float) -> List[MeshGraph]:
+                 radius: float, model: str = "transformer") -> List[MeshGraph]:
     """Host frames of a plate trajectory (dataset/preprocessing.FrameBuilder
     with :func:`plate_frame_config`), laid out by FusedTopologyManager
-    ("transformer")."""
+    (``model``)."""
     from graph_physics_tpu_torch.dataset.preprocessing import FrameBuilder
 
     builder = FrameBuilder(plate_frame_config(edge_budget, radius),
                            synthetic.plate_meta_dict(len(traj["world_pos"])))
-    manager = FusedTopologyManager("transformer")
+    manager = FusedTopologyManager(model)
     return [manager.transform_frame(builder.build(traj, t, cache_key=0)) for t in frames]
 
 
@@ -368,6 +374,82 @@ def plate_preprocess(num_steps: int = 10000) -> Callable:
 
     return make_device_preprocess(NoiseConfig(starts=(0,), ends=(3,), scales=(0.003,)),
                                   WorldPosConfig(0, 3), num_steps=num_steps)
+
+
+#: the plate MeshGraphNet's edge features: the frames' 4 mesh-space
+#: columns [Δmesh_pos, ‖Δmesh_pos‖] and the 4 world-space ones the step's
+#: transform appends (plate_preprocess)
+PLATE_EDGE_INPUT = 8
+#: the frames of the synthetic 44x30 plate whose sidecars hold world edges
+#: (radius 0.03): the obstacle is within reach of the sheet on these only
+PLATE_WORLD_FRAMES = range(6, 14)
+
+
+def plate_epd_block(mp_steps: int = 15, hidden: int = 128) -> Dict:
+    """The ``model`` block of DeformingPlate's MeshGraphNet in a config
+    shaped like plate.json."""
+    return {"type": "epd", "message_passing_num": mp_steps, "hidden_size": hidden,
+            "node_input_size": PLATE_FEATURES, "output_size": PLATE_OUTPUT,
+            "edge_input_size": PLATE_EDGE_INPUT}
+
+
+def make_plate_epd_simulator(tiling: Tiling, mp_steps: int = 15, hidden: int = 128,
+                             dtype=torch.bfloat16, seed: int = 0) -> Simulator:
+    """DeformingPlate's MeshGraphNet (relu MLPs with an RMSNorm tail, the
+    edge encoder on PLATE_EDGE_INPUT columns) in its Simulator: features
+    0-6 and the node type at column 6, the world positions its output."""
+    model = EncodeProcessDecode(
+        message_passing_num=mp_steps, node_input_size=PLATE_FEATURES + 9,
+        edge_input_size=PLATE_EDGE_INPUT, output_size=PLATE_OUTPUT, hidden_size=hidden,
+        dtype=dtype, tiling=tiling)
+    sim = Simulator(node_input_size=PLATE_FEATURES + 9, edge_input_size=PLATE_EDGE_INPUT,
+                    output_size=PLATE_OUTPUT, feature_index_start=0,
+                    feature_index_end=PLATE_FEATURES, output_index_start=0,
+                    output_index_end=PLATE_OUTPUT, node_type_index=PLATE_NODE_TYPE, model=model)
+    reset_parameters(sim, torch.Generator().manual_seed(seed))
+    return sim
+
+
+def plate_epd_setup(device="cuda", *, nx: int = 44, ny: int = 30, batch: int = 64,
+                    frames: Sequence[int] = PLATE_WORLD_FRAMES,
+                    edge_budget: int = PLATE_BUDGET, radius: float = PLATE_RADIUS,
+                    mp_steps: int = 15, hidden: int = 128, dtype=torch.bfloat16,
+                    accumulate_stats: bool = True) -> CylinderSetup:
+    """DeformingPlate's MeshGraphNet on the synthetic nx x ny plate: B
+    frames taken from ``frames`` in turn (by default those with world
+    edges), each with its own world-edge sidecar of ``edge_budget`` slots,
+    packed [N, B, F] in the layout FusedTopologyManager("epd") chooses,
+    and :func:`make_plate_epd_simulator` (weights from seed 0) on
+    ``device``. The graph carries the frames' host edge features; with
+    ``accumulate_stats`` the normalizer statistics fold in the batch with
+    its world-position edge features appended, as the eval transform
+    appends them."""
+    from graph_physics_tpu_torch.training.transforms import (
+        WorldPosConfig,
+        append_world_pos_features,
+    )
+
+    frames = [frames[i % len(frames)] for i in range(batch)]
+    traj = synthetic.make_plate_trajectory(nx, ny, num_steps=max(frames) + 2)
+    host = plate_frames(traj, frames, edge_budget, radius, model="epd")
+    graph = MeshGraph.from_numpy(pack_frames(host), device)
+    sim = make_plate_epd_simulator(host[0].layout, mp_steps, hidden, dtype).to(device)
+    if accumulate_stats:
+        sim.prepare(append_world_pos_features(graph, WorldPosConfig(0, 3)), is_training=True)
+    return CylinderSetup(simulator=sim, graph=graph, tiling=host[0].layout, trajectory=traj,
+                         template=host[0])
+
+
+def plate_epd_train_setup(device="cuda", *, batch: int = 64, **kw) -> "CylinderTrainSetup":
+    """``plate_epd_setup`` with fresh normalizer statistics and the plate
+    train step (:func:`plate_train_setup`'s: AdamW lr 1e-3, warmup 100 of
+    10,000 steps, masked L2, :func:`plate_preprocess`). ``kw`` goes to
+    ``plate_epd_setup``."""
+    base = plate_epd_setup(device, batch=batch, accumulate_stats=False, **kw)
+    preprocess = plate_preprocess(NUM_STEPS)
+    state, step = make_trainer(base.simulator, preprocess)
+    return CylinderTrainSetup(simulator=base.simulator, graph=base.graph, tiling=base.tiling,
+                              state=state, train_step=step, device_preprocess=preprocess)
 
 
 def plate_train_setup(device="cuda", *, batch: int = 64, **kw) -> CylinderTrainSetup:

@@ -25,6 +25,7 @@ from graph_physics_tpu_torch.ops.fused_ffn import fused_gated_ffn
 from graph_physics_tpu_torch.ops.fused_gnblock_csr import fused_gn_block_csr
 from graph_physics_tpu_torch.ops.fused_gnblock_nk import fused_gn_block_nk
 from graph_physics_tpu_torch.ops.tiling import Layout, NKTiling
+from graph_physics_tpu_torch.ops.world_gather import wscatter_sum, wtake
 
 #: the JAX FFN kernel's lane width: it takes the hidden widths dividing it
 FFN_LANES = 512
@@ -270,9 +271,14 @@ class GraphNetBlock(nn.Module):
     JAX's order (layers.py:884-930): in the NK slot layout
     (:func:`ops.fused_gnblock_nk.fused_gn_block_nk`), else in the CSR
     layout (:func:`ops.fused_gnblock_csr.fused_gn_block_csr`); otherwise
-    as plain gathers, a masked ``index_add_`` and the two MLPs. RoPE, the
-    φ-gate, gated MLPs, the world-edge sidecar and sp are not ported. The
-    MLPs are the reference's: 4 relu Dense layers and an RMSNorm tail.
+    as plain gathers, a masked ``index_add_`` and the two MLPs. With the
+    world-edge sidecar (``wedge_attr`` and its index arrays), the world
+    edges' messages run through the same edge MLP in plain PyTorch, are
+    summed per receiver and sample, and join the aggregate: through the
+    kernels' ``extra_agg`` seam, or added to the plain path's sum
+    (layers.py:855-882, :959-960). RoPE, the φ-gate, gated MLPs and sp are
+    not ported. The MLPs are the reference's: 4 relu Dense layers and an
+    RMSNorm tail.
     """
 
     def __init__(
@@ -305,24 +311,39 @@ class GraphNetBlock(nn.Module):
         tiling: Optional[Layout] = None,
         edge_encoder: Optional[MLP] = None,
         wedge_attr: Optional[torch.Tensor] = None,
+        wedge_senders: Optional[torch.Tensor] = None,
+        wedge_receivers: Optional[torch.Tensor] = None,
+        wedge_mask: Optional[torch.Tensor] = None,
     ):
-        """Returns ``(x', edge_attr')``. ``tiling``: the graph's NK or CSR
-        layout. ``edge_encoder``: the edge encoder folded into this (first)
-        block's kernel, with raw edge features in ``edge_attr``."""
+        """Returns ``(x', edge_attr')``, and the updated world stream
+        ``wedge_attr'`` third when ``wedge_attr`` is given. ``tiling``: the
+        graph's NK or CSR layout. ``edge_encoder``: the edge encoder folded
+        into this (first) block's kernel, with raw edge features in
+        ``edge_attr``. ``wedge_*``: the world-edge sidecar, [W, B] index
+        arrays of a packed [N, B, H] graph ([W] of a single one), its
+        encoded features ``wedge_attr`` [W, (B,) H]."""
+        world_agg = w_upd = None
         if wedge_attr is not None:
-            raise NotImplementedError("the GraphNetBlock's world-edge sidecar stream is not "
-                                      "ported (ROADMAP B 2)")
+            world_agg, w_upd = self.world_messages(x, wedge_attr, wedge_senders,
+                                                   wedge_receivers, wedge_mask)
+
+        def out(x_new, e_new):
+            if w_upd is None:
+                return x_new, e_new
+            return x_new, e_new, wedge_attr + w_upd.to(wedge_attr.dtype)
+
         fold = edge_encoder is not None
         if fused_path_ok(tiling, x, edge_attr, self.hidden_size, self.dtype, raw_edge=fold):
             xb, eb = x.to(self.dtype), edge_attr.to(self.dtype)
-            kw = dict(encoder_params=edge_encoder, last_block=self.is_last_block)
+            kw = dict(encoder_params=edge_encoder, last_block=self.is_last_block,
+                      extra_agg=None if world_agg is None else world_agg.to(self.dtype))
             if isinstance(tiling, NKTiling):
                 x_new, e_new = fused_gn_block_nk(xb, eb, senders, edge_mask, self.edge_block,
                                                  self.node_block, tiling, **kw)
             else:
                 x_new, e_new = fused_gn_block_csr(xb, eb, senders, receivers, edge_mask,
                                                   self.edge_block, self.node_block, tiling, **kw)
-            return x_new.to(x.dtype), e_new.to(edge_attr.dtype)
+            return out(x_new.to(x.dtype), e_new.to(edge_attr.dtype))
         if fold:
             raise ValueError("edge_encoder given but the fused path does not apply")
 
@@ -330,8 +351,28 @@ class GraphNetBlock(nn.Module):
         x_recv = x.index_select(0, receivers)
         edge_upd = self.edge_block(torch.cat([edge_attr, x_recv, x_send], dim=-1))
         agg = segment.segment_sum(edge_upd, receivers, x.shape[0], mask=edge_mask)
+        if world_agg is not None:
+            agg = agg + world_agg.to(agg.dtype)
         node_upd = self.node_block(torch.cat([x, agg], dim=-1))
-        return x + node_upd, edge_attr + edge_upd
+        return out(x + node_upd, edge_attr + edge_upd)
+
+    def world_messages(self, x, wedge_attr, wedge_senders, wedge_receivers, wedge_mask):
+        """(world aggregate [N, (B,) H], masked world messages): each world
+        edge's message through the block's edge MLP from [wedge_attr,
+        x_recv, x_send], zero on masked slots, summed per receiver (and
+        sample: JAX's one-hot contraction sums in fp32 and rounds once,
+        world_gather.py:95-104, so the packed sum does too)."""
+        n = x.shape[0]
+        per_sample = wedge_senders.ndim == 2
+        take = wtake if per_sample else (lambda a, i: a.index_select(0, i))
+        edge_in = torch.cat([wedge_attr.to(self.dtype), take(x, wedge_receivers),
+                             take(x, wedge_senders)], dim=-1)
+        w_upd = self.edge_block(edge_in)
+        w_upd = torch.where(segment._bcast(wedge_mask, w_upd), w_upd,
+                            torch.zeros((), dtype=w_upd.dtype, device=w_upd.device))
+        if per_sample:
+            return wscatter_sum(w_upd.float(), wedge_receivers, n).to(w_upd.dtype), w_upd
+        return segment.segment_sum(w_upd, wedge_receivers, n), w_upd
 
 
 # ----------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Processors (counterparts of graph_physics_tpu/models/processors.py).
 
 EncodeProcessDecode, MeshGraphNet: node and edge MLP encoders, M
-GraphNetBlocks, an MLP decoder without a final norm, output cast to fp32.
+GraphNetBlocks, an MLP decoder without a final norm, output cast to fp32;
+a world-edge sidecar's features are encoded by the same edge encoder and
+updated by every block beside the mesh edges.
 On a bf16 packed graph in the NK slot or CSR layout the edge encoder is
 folded into block 0's fused kernel, so the encoded edge array is never
 written out; the last block's edge output is dead and the kernel skips it.
@@ -72,9 +74,6 @@ class EncodeProcessDecode(nn.Module):
                                  dtype=dtype)
 
     def forward(self, graph: MeshGraph) -> torch.Tensor:
-        if graph.wedge_senders is not None:
-            raise NotImplementedError("the GraphNetBlock's world-edge sidecar stream "
-                                      "(processors.py:121-128) is not ported (ROADMAP B 2)")
         x = self.nodes_encoder(graph.x.to(self.dtype))
         edge_attr = graph.edge_attr.to(self.dtype)
         # the block's own predicate with the raw edge width (processors.py:100-107)
@@ -82,12 +81,24 @@ class EncodeProcessDecode(nn.Module):
                              raw_edge=True)
         if not fold:
             edge_attr = self.edges_encoder(edge_attr)
+        # the world-edge sidecar's stream encodes in plain PyTorch even when
+        # the mesh edges' encoder is folded, and each block updates it
+        # (processors.py:121-128)
+        wedge_attr = graph.wedge_attr
+        world = {}
+        if wedge_attr is not None:
+            wedge_attr = self.edges_encoder(wedge_attr.to(self.dtype))
+            world = dict(wedge_senders=graph.wedge_senders,
+                         wedge_receivers=graph.wedge_receivers, wedge_mask=graph.wedge_mask)
         for i, block in enumerate(self.processor_list):
-            x, edge_attr = block(
+            out = block(
                 x, edge_attr, graph.senders, graph.receivers, graph.edge_mask,
                 tiling=self.tiling,
                 edge_encoder=self.edges_encoder if fold and i == 0 else None,
+                wedge_attr=wedge_attr, **world,
             )
+            x, edge_attr = out[:2]
+            wedge_attr = out[2] if wedge_attr is not None else None
         return self.decode_module(x).float()
 
 

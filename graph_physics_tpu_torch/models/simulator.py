@@ -3,7 +3,8 @@
 Counterpart of graph_physics_tpu/models/simulator.py:Simulator:
   * inputs  = x[..., fis:fie] ⧺ one_hot(node_type, 9), normalized by the
     node normalizer;
-  * edge features normalized by the edge normalizer;
+  * edge features normalized by the edge normalizer (one normalizer over
+    the mesh edges and a world-edge sidecar's together);
   * target  = normalize(y − x[..., ois:oie]) (accumulating in training);
   * outputs = inverse-normalize(net_out) + x[..., ois:oie] in eval.
 
@@ -123,11 +124,25 @@ class Simulator(nn.Module):
         feats = torch.cat([feats, self.one_hot_type(graph)], dim=-1)
         feats_n = self._node_normalizer.normalize(feats, node_mask, accumulate=is_training)
 
-        edge_attr = graph.edge_attr
+        edge_attr, wedge_attr = graph.edge_attr, graph.wedge_attr
         if self._edge_normalizer is not None and edge_attr is not None:
-            edge_attr = self._edge_normalizer.normalize(
-                edge_attr[..., :self.edge_input_size], edge_mask, accumulate=is_training)
-        return graph.replace(x=feats_n, edge_attr=edge_attr, y=target_norm), target_norm, pre_t
+            k = self.edge_input_size
+            if wedge_attr is None:
+                edge_attr = self._edge_normalizer.normalize(edge_attr[..., :k], edge_mask,
+                                                            accumulate=is_training)
+            else:
+                # the world-edge sidecar: one normalizer over the mesh and
+                # world edges, concatenated along the edge axis (simulator.py:
+                # 174-201; axis 1 of a stacked batch)
+                axis = 1 if self.is_stacked(graph) else 0
+                e_all = self._edge_normalizer.normalize(
+                    torch.cat([edge_attr[..., :k], wedge_attr[..., :k]], dim=axis),
+                    torch.cat([edge_mask, graph.wedge_mask.to(edge_mask.dtype)], dim=axis),
+                    accumulate=is_training)
+                edge_attr, wedge_attr = e_all.split(
+                    [edge_attr.shape[axis], wedge_attr.shape[axis]], dim=axis)
+        return (graph.replace(x=feats_n, edge_attr=edge_attr, wedge_attr=wedge_attr,
+                              y=target_norm), target_norm, pre_t)
 
     def forward(self, graph: MeshGraph, is_training: bool = False,
                 gumbel: Optional[torch.Generator] = None) -> SimulatorOutput:

@@ -2,8 +2,8 @@
 
 Replaces the TPU Pallas kernels graph_physics_tpu/ops/fused_gnblock.py:
 _fwd_kernel (:392) and _bwd_kernel (:453) behind fused_gn_block (:687),
-without ``lanes``, ``tiling_idx`` and ``extra_agg`` (the world sidecar,
-ROADMAP A 5). Two CUDA kernels, every MLP product on tensor-core tiles
+with its ``extra_agg`` seam (the world edges' aggregate) and without
+``lanes`` and ``tiling_idx``. Two CUDA kernels, every MLP product on tensor-core tiles
 (``csrc/gn_tile.cuh``): the forward (``csrc/fused_gnblock_csr.cu``, its
 body ``csrc/gn_fwd.cuh`` shared with the NK forward) runs a pre-pass that
 writes each node's sender partial x @ Ks, then one warp per (receiver, 16
@@ -45,8 +45,12 @@ from graph_physics_tpu_torch.ops.fused_gnblock_nk import (
     _mlp_reference,
     _mlp_tensors,
     _ptr,
+    add_extra,
     backward_buffers,
+    block_autograd,
+    check_extra_agg,
     check_kernel_mlps,
+    extra_kw,
     load_library,
     mlp_args,
     mlp_tail_reference,
@@ -58,11 +62,11 @@ from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "gn_csr_fwd": {"gn_csr_fwd": [_vp] * 9 + [_i] * 4 + [_vp, _i] * 3 + [_vp]},
+    "gn_csr_fwd": {"gn_csr_fwd": [_vp] * 10 + [_i] * 4 + [_vp, _i] * 3 + [_vp]},
     "gn_csr_bwd": {"gn_csr_bwd": [_vp] * 17 + [_i] * 4 + [_vp, _vp, _i] * 3 + [_vp]},
-    **{f"gn_csr_fwd{h}": {"gnw_csr_fwd": [_vp] * 11 + [_i] * 4 + [_vp, _i] * 3 + [_vp],
+    **{f"gn_csr_fwd{h}": {"gnw_csr_fwd": [_vp] * 12 + [_i] * 4 + [_vp, _i] * 3 + [_vp],
                           "gnw_hidden": []} for h in WIDE_HIDDEN},
-    **{f"gn_csr_bwd{h}": {"gnw_csr_bwd": [_vp] * 15 + [_i] * 4 + [_vp, _vp, _i] * 3 + [_vp],
+    **{f"gn_csr_bwd{h}": {"gnw_csr_bwd": [_vp] * 16 + [_i] * 4 + [_vp, _vp, _i] * 3 + [_vp],
                           "gnw_bwd_sizes": [_i, _i, _i, ctypes.c_longlong, _i],
                           "gnw_hidden": []} for h in WIDE_HIDDEN},
 }
@@ -77,10 +81,12 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _launch_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_block,
-                keep_agg=False):
+                keep_agg=False, extra=None):
     """(x_out, e_out, agg): e_out is ``edge_attr`` on the last block; with
     ``keep_agg`` the kernel also writes the bf16 aggregate [N, B, H] the
-    backward kernel reads (else agg is None). Hidden 32 launches
+    backward kernel reads (else agg is None). ``extra`` [N, B, H] (bf16,
+    or None) joins the aggregate before the node MLP, and the kept
+    aggregate is that sum. Hidden 32 launches
     ``csrc/fused_gnblock_csr.cu``, 64 and 128 their width's
     ``csrc/fused_gnblock_wide_csr.cu``."""
     n, b, h = x.shape
@@ -93,7 +99,8 @@ def _launch_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_blo
                                                       last_block)
         err = _load(f"gn_csr_fwd{h}").gnw_csr_fwd(
             x.data_ptr(), edge_attr.data_ptr(), xkr.data_ptr(), xks.data_ptr(), _ptr(ein),
-            x_out.data_ptr(), _ptr(e_out), agg.data_ptr(), row_ptr, senders.data_ptr(),
+            x_out.data_ptr(), _ptr(e_out), agg.data_ptr(), _ptr(extra), row_ptr,
+            senders.data_ptr(),
             edge_mask.data_ptr(), n, b, csr.total_rows, fe, *mlp_args(mlps), _stream(x))
         agg = agg if keep_agg else None
     else:
@@ -101,7 +108,7 @@ def _launch_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_blo
         xks = torch.empty_like(x)  # the pre-pass's sender partials
         err = _load("gn_csr_fwd").gn_csr_fwd(
             x.data_ptr(), edge_attr.data_ptr(), xks.data_ptr(), x_out.data_ptr(), _ptr(e_out),
-            _ptr(agg), row_ptr, senders.data_ptr(), edge_mask.data_ptr(), n, b,
+            _ptr(agg), _ptr(extra), row_ptr, senders.data_ptr(), edge_mask.data_ptr(), n, b,
             csr.total_rows, edge_attr.shape[-1] if mlps[0] is not None else 0,
             *mlp_args(mlps), _stream(x))
     if err != 0:
@@ -110,11 +117,13 @@ def _launch_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_blo
     return x_out, (edge_attr if last_block else e_out), agg
 
 
-def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, receivers, edge_mask, csr, mlps):
+def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, receivers, edge_mask, csr, mlps,
+                extra=None):
     """dx (bf16), de (bf16, None when the encoder is folded) and the
     parameter gradients (fp32 holding bf16 values, as the plain version's
-    bf16 autograd gives them) in ``_mlp_params`` order per MLP. ``agg`` is
-    the aggregate the forward kept. Hidden 32 launches
+    bf16 autograd gives them) in ``_mlp_params`` order per MLP; given the
+    forward's ``extra``, also its cotangent dea (bf16 [N, B, H]). ``agg``
+    is the aggregate the forward kept. Hidden 32 launches
     ``csrc/fused_gnblock_csr_bwd.cu``, 64 and 128 their width's
     ``csrc/fused_gnblock_wide_csr_bwd.cu``."""
     n, b, h = x.shape
@@ -125,13 +134,16 @@ def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, receivers, edge_mask
         lib = _load(f"gn_csr_bwd{h}")
         dx, de, scratch, part, grads, ptrs, fe = wide_backward_buffers(lib, x, edge_attr, rows,
                                                                        mlps)
+        dea = None if extra is None else torch.empty_like(x)
         err = lib.gnw_csr_bwd(
             x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
-            _ptr(g_eout), dx.data_ptr(), _ptr(de), scratch.data_ptr(), part.data_ptr(), row_ptr,
+            _ptr(g_eout), dx.data_ptr(), _ptr(de), _ptr(dea), scratch.data_ptr(),
+            part.data_ptr(), row_ptr,
             senders.data_ptr(), receivers.data_ptr(), edge_mask.data_ptr(), order.data_ptr(),
             offsets.data_ptr(), n, b, rows, fe, *ptrs, _stream(x))
     else:
         dx, de, (xkr, xks, gagg, gh0), grads, ptrs = backward_buffers(x, rows, mlps)
+        dea = gagg  # the node-MLP pass's g_agg
         err = _load("gn_csr_bwd").gn_csr_bwd(
             x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
             _ptr(g_eout), dx.data_ptr(), _ptr(de), xkr.data_ptr(), xks.data_ptr(),
@@ -141,37 +153,31 @@ def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, receivers, edge_mask
     if err != 0:
         raise RuntimeError(f"fused_gn_block_csr backward launch failed with CUDA error {err}")
     fused_gn_block_csr.backward_launches += 1
-    return dx, de, rounded_grads(grads)
+    grads = rounded_grads(grads)
+    return (dx, de, grads) if extra is None else (dx, de, grads, dea)
 
 
-def _reference_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_block):
+def _reference_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_block,
+                   extra=None):
     """:func:`fused_gn_block_csr_reference` in bf16, returned as the kernel
     forward's are (with nothing kept for the backward)."""
     enc, edge, node = mlps
     return (*fused_gn_block_csr_reference(
         x, edge_attr, senders, receivers, edge_mask, edge, node, csr, encoder_params=enc,
-        last_block=last_block, compute_dtype=torch.bfloat16), None)
+        last_block=last_block, compute_dtype=torch.bfloat16, extra_agg=extra), None)
 
 
 def fused_gn_block_csr_backward_reference(x, edge_attr, agg, g_xout, g_eout, senders, receivers,
-                                          edge_mask, csr, mlps):
+                                          edge_mask, csr, mlps, extra=None):
     """Plain version of the backward kernel: plain bf16 autograd of
     :func:`fused_gn_block_csr_reference` (``agg`` is not used), returned as
     the kernel's are (dx, de or None when the encoder is folded, the
-    parameter gradients in ``_mlp_params`` order per MLP)."""
-    enc = mlps[0]
-    params = [p for m in mlps if m is not None for p in _mlp_params(m)]
-    with torch.enable_grad():
-        xl = x.detach().requires_grad_(True)
-        el = edge_attr.detach().requires_grad_(enc is None)
-        x_out, e_out, _ = _reference_fwd(xl, el, senders, receivers, edge_mask, csr, mlps,
-                                         g_eout is None)
-        outs, cots = ([x_out], [g_xout]) if g_eout is None else ([x_out, e_out], [g_xout, g_eout])
-        wrt = [xl] + ([el] if enc is None else []) + params
-        grads = torch.autograd.grad(outs, wrt, cots)
-    if enc is None:
-        return grads[0], grads[1], list(grads[2:])
-    return grads[0], None, list(grads[1:])
+    parameter gradients in ``_mlp_params`` order per MLP, and with
+    ``extra`` its cotangent)."""
+    return block_autograd(
+        lambda xl, el, xa: _reference_fwd(xl, el, senders, receivers, edge_mask, csr, mlps,
+                                          g_eout is None, xa),
+        x, edge_attr, extra, g_xout, g_eout, mlps)
 
 
 #: the forward (keeping its aggregate) and backward as kernels, and as
@@ -184,37 +190,40 @@ class _FusedGNBlockCSR(torch.autograd.Function):
     """A forward with its backward as the gradient: the kernels
     (:data:`KERNELS`) or the plain versions (:data:`PLAIN`), given as the
     pair ``impl``. The MLPs' parameters are inputs so autograd routes their
-    gradients; on the last block only x_out is an output (the edge stream
-    passes through outside), so no cotangent of the dead edge stream
-    reaches the backward."""
+    gradients, as is the extra aggregate (None without one); on the last
+    block only x_out is an output (the edge stream passes through
+    outside), so no cotangent of the dead edge stream reaches the
+    backward."""
 
     @staticmethod
-    def forward(ctx, x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_block, impl,
-                *params):
+    def forward(ctx, x, edge_attr, extra, senders, receivers, edge_mask, csr, mlps, last_block,
+                impl, *params):
         x_out, e_out, agg = impl[0](x, edge_attr, senders, receivers, edge_mask, csr, mlps,
-                                    last_block)
-        ctx.save_for_backward(x, edge_attr, agg, senders, receivers, edge_mask)
+                                    last_block, **extra_kw(extra))
+        ctx.save_for_backward(x, edge_attr, agg, senders, receivers, edge_mask, extra)
         ctx.csr, ctx.mlps, ctx.impl = csr, mlps, impl
         return x_out if last_block else (x_out, e_out)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_xout, g_eout=None):
-        x, edge_attr, agg, senders, receivers, edge_mask = ctx.saved_tensors
-        dx, de, grads = ctx.impl[1](
+        x, edge_attr, agg, senders, receivers, edge_mask, extra = ctx.saved_tensors
+        dx, de, grads, *dea = ctx.impl[1](
             x, edge_attr, agg, g_xout.contiguous(),
             None if g_eout is None else g_eout.contiguous(), senders, receivers, edge_mask,
-            ctx.csr, ctx.mlps)
-        return (dx, de, None, None, None, None, None, None, None, *grads)
+            ctx.csr, ctx.mlps, **extra_kw(extra))
+        return (dx, de, dea[0] if dea else None, None, None, None, None, None, None, None,
+                *grads)
 
 
 def apply_with_backward(impl, x, edge_attr, senders, receivers, edge_mask, csr, mlps,
-                        last_block):
+                        last_block, extra=None):
     """The block through :class:`_FusedGNBlockCSR` with ``impl`` (the
     kernels or the plain versions): (x_out, e_out), e_out being
-    ``edge_attr`` on the last block."""
+    ``edge_attr`` on the last block. ``extra``: the extra aggregate, or
+    None."""
     params = [p for m in mlps if m is not None for p in _mlp_params(m)]
-    out = _FusedGNBlockCSR.apply(x, edge_attr, senders, receivers, edge_mask, csr, mlps,
+    out = _FusedGNBlockCSR.apply(x, edge_attr, extra, senders, receivers, edge_mask, csr, mlps,
                                  last_block, impl, *params)
     return (out, edge_attr) if last_block else out
 
@@ -231,6 +240,7 @@ def fused_gn_block_csr(
     *,
     encoder_params=None,
     last_block: bool = False,
+    extra_agg=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One GraphNetBlock on the CSR layout, in bf16.
 
@@ -238,8 +248,11 @@ def fused_gn_block_csr(
     ``encoder_params``, the edge encoder MLP, is folded in) are bf16;
     ``senders``, ``receivers`` [S] int32 and ``edge_mask`` [S] bool are the
     graph's row arrays; ``edge_params``/``node_params`` are the block's edge
-    and node MLPs (models/layers.MLP); ``csr`` is the CSRLayout. Returns
-    (x_out, e_out); on the last block e_out is ``edge_attr`` unchanged.
+    and node MLPs (models/layers.MLP); ``csr`` is the CSRLayout.
+    ``extra_agg`` [N, B, H] bf16, node-aligned, joins the aggregate before
+    the node MLP (fused_gnblock.py:1188-1189), as in
+    :func:`fused_gnblock_nk.fused_gn_block_nk`. Returns (x_out, e_out); on
+    the last block e_out is ``edge_attr`` unchanged.
     CPU tensors take :func:`fused_gn_block_csr_reference` (gradient by
     plain autograd); CUDA tensors launch the forward kernel, counted in
     ``fused_gn_block_csr.launches``, and under autograd its gradient is
@@ -263,6 +276,7 @@ def fused_gn_block_csr(
         checks.append((encoder_params, fe, "edge encoder"))
     for mlp, in_dim, name in checks:
         _check_mlp(mlp, in_dim, h, x.device, name)
+    check_extra_agg(extra_agg, x)
     for t in (x, edge_attr, senders, receivers, edge_mask):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("inputs must be contiguous and on one device")
@@ -270,17 +284,20 @@ def fused_gn_block_csr(
     if x.device.type == "cpu":
         return fused_gn_block_csr_reference(
             x, edge_attr, senders, receivers, edge_mask, edge_params, node_params, csr,
-            encoder_params=encoder_params, last_block=last_block, compute_dtype=torch.bfloat16)
+            encoder_params=encoder_params, last_block=last_block, compute_dtype=torch.bfloat16,
+            extra_agg=extra_agg)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     mlps = (encoder_params, edge_params, node_params)
     check_kernel_mlps(h, mlps, False, fe)
     params = [p for m in mlps if m is not None for p in _mlp_params(m)]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in [x, edge_attr, *params]):
+    wants = [x, edge_attr, *params] + ([extra_agg] if extra_agg is not None else [])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in wants):
         check_kernel_mlps(h, mlps, True, fe)
         return apply_with_backward(KERNELS, x, edge_attr, senders, receivers, edge_mask, csr,
-                                   mlps, last_block)
-    return _launch_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_block)[:2]
+                                   mlps, last_block, extra_agg)
+    return _launch_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_block,
+                       **extra_kw(extra_agg))[:2]
 
 
 fused_gn_block_csr.launches = 0
@@ -300,14 +317,15 @@ def fused_gn_block_csr_reference(
     encoder_params=None,
     last_block: bool = False,
     compute_dtype=torch.float32,
+    extra_agg=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fused_gn_block_csr`, computing in
     ``compute_dtype`` in blocked_reference's order: the edge MLP's first
     layer sums, in fp32, the product e_in @ Ke and the node partials
     x @ Kr and x @ Ks, each computed per node and rounded to
     ``compute_dtype`` before the gather; the messages are masked before
-    the fp32 sum at the receiver (``index_add_``). Padding rows keep
-    e_out = e_in."""
+    the fp32 sum at the receiver (``index_add_``), whose rounded sum takes
+    ``extra_agg`` in ``compute_dtype``. Padding rows keep e_out = e_in."""
     cd = compute_dtype
     n, b, h = x.shape
     xc = x.to(cd)
@@ -322,8 +340,8 @@ def fused_gn_block_csr_reference(
           + x_ks.index_select(0, senders).float())
     eh = mlp_tail_reference(edge_params, h0.to(cd) + bs[0].to(cd), cd)
     ehm = torch.where(edge_mask.view(-1, 1, 1), eh, torch.zeros((), dtype=cd, device=x.device))
-    agg = torch.zeros((n, b, h), dtype=torch.float32, device=x.device).index_add_(
-        0, receivers, ehm.float()).to(cd)
+    agg = add_extra(torch.zeros((n, b, h), dtype=torch.float32, device=x.device).index_add_(
+        0, receivers, ehm.float()).to(cd), extra_agg)
     nh = _mlp_reference(node_params, [xc, agg], cd)
     x_out = (xc + nh).to(x.dtype)
     if last_block:

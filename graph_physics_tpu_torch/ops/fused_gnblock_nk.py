@@ -23,7 +23,10 @@ the weights no longer fit one block, so each pass holds one MLP, and the
 backward writes what the weight gradients contract over to a bf16
 scratch and forms them as products over the rows, summed from partials
 in a fixed order (two calls give the same bits). Other widths raise,
-naming ROADMAP B 4. See the sources' headers for the designs.
+naming ROADMAP B 4. See the sources' headers for the designs. At every
+width the kernels take the world seam ``extra_agg`` (_nk_fwd_kernel's
+``has_extra_agg``): a node-aligned aggregate added to the rounded one
+before the node MLP, whose cotangent the backward returns.
 
 :func:`fused_gn_block_nk_reference` is the plain PyTorch version of the
 same function, following blocked_reference_nk (fused_gnblock_nk.py:731),
@@ -67,11 +70,11 @@ BACKWARD_LAYERS = 4
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "gn_nk_fwd": {"gn_nk_fwd": [_vp] * 8 + [_i] * 5 + [_vp, _i] * 3 + [_vp]},
+    "gn_nk_fwd": {"gn_nk_fwd": [_vp] * 9 + [_i] * 5 + [_vp, _i] * 3 + [_vp]},
     "gn_nk_bwd": {"gn_nk_bwd": [_vp] * 15 + [_i] * 5 + [_vp, _vp, _i] * 3 + [_vp]},
-    **{f"gn_nk_fwd{h}": {"gnw_nk_fwd": [_vp] * 10 + [_i] * 5 + [_vp, _i] * 3 + [_vp],
+    **{f"gn_nk_fwd{h}": {"gnw_nk_fwd": [_vp] * 11 + [_i] * 5 + [_vp, _i] * 3 + [_vp],
                          "gnw_hidden": []} for h in WIDE_HIDDEN},
-    **{f"gn_nk_bwd{h}": {"gnw_nk_bwd": [_vp] * 13 + [_i] * 5 + [_vp, _vp, _i] * 3 + [_vp],
+    **{f"gn_nk_bwd{h}": {"gnw_nk_bwd": [_vp] * 14 + [_i] * 5 + [_vp, _vp, _i] * 3 + [_vp],
                          "gnw_bwd_sizes": [_i, _i, _i, ctypes.c_longlong, _i],
                          "gnw_hidden": []} for h in WIDE_HIDDEN},
 }
@@ -184,10 +187,13 @@ def wide_forward_buffers(x, edge_attr, rows, mlps, last_block):
     return xkr, xks, agg, ein, edge_attr.shape[-1] if fold else 0
 
 
-def _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block, keep_agg=False):
+def _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block, keep_agg=False,
+                extra=None):
     """(x_out, e_out, agg): e_out is None on the last block; with
     ``keep_agg`` the kernel also writes the bf16 aggregate [N, B, H] the
-    backward kernel reads (else agg is None). Hidden 32 launches
+    backward kernel reads (else agg is None). ``extra`` [N, B, H] (bf16,
+    or None) joins the aggregate before the node MLP, and the kept
+    aggregate is that sum. Hidden 32 launches
     ``csrc/fused_gnblock_nk.cu``, 64 and 128 their width's
     ``csrc/fused_gnblock_wide_nk.cu``."""
     n, b, h = x.shape
@@ -199,7 +205,7 @@ def _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block, keep_agg
                                                       last_block)
         err = _load(f"gn_nk_fwd{h}").gnw_nk_fwd(
             x.data_ptr(), edge_attr.data_ptr(), xkr.data_ptr(), xks.data_ptr(), _ptr(ein),
-            x_out.data_ptr(), _ptr(e_out), agg.data_ptr(), senders.data_ptr(),
+            x_out.data_ptr(), _ptr(e_out), agg.data_ptr(), _ptr(extra), senders.data_ptr(),
             edge_mask.data_ptr(), n, b, nk.k_slots, nk.node_block, fe, *mlp_args(mlps),
             _stream(x))
         agg = agg if keep_agg else None
@@ -208,7 +214,7 @@ def _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block, keep_agg
         xks = torch.empty_like(x)  # the pre-pass's sender partials
         err = _load("gn_nk_fwd").gn_nk_fwd(
             x.data_ptr(), edge_attr.data_ptr(), xks.data_ptr(), x_out.data_ptr(), _ptr(e_out),
-            _ptr(agg), senders.data_ptr(), edge_mask.data_ptr(), n, b, nk.k_slots,
+            _ptr(agg), _ptr(extra), senders.data_ptr(), edge_mask.data_ptr(), n, b, nk.k_slots,
             nk.node_block, edge_attr.shape[-1] if mlps[0] is not None else 0,
             *mlp_args(mlps), _stream(x))
     if err != 0:
@@ -269,25 +275,28 @@ def rounded_grads(grads):
     return [g.to(torch.bfloat16).float() for gs in grads if gs is not None for g in gs]
 
 
-def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, edge_mask, nk, mlps):
+def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, edge_mask, nk, mlps, extra=None):
     """dx (bf16), de (bf16, None when the encoder is folded) and the
     parameter gradients (fp32 holding bf16 values) in ``_mlp_params`` order
-    per MLP. ``agg`` is the aggregate the forward kept. Hidden 32 launches
-    ``csrc/fused_gnblock_nk_bwd.cu``, 64 and 128 their width's
-    ``csrc/fused_gnblock_wide_nk_bwd.cu``."""
+    per MLP; given the forward's ``extra``, also its cotangent dea (bf16
+    [N, B, H], the aggregate's). ``agg`` is the aggregate the forward kept.
+    Hidden 32 launches ``csrc/fused_gnblock_nk_bwd.cu``, 64 and 128 their
+    width's ``csrc/fused_gnblock_wide_nk_bwd.cu``."""
     n, b, h = x.shape
     order, offsets = cached_sender_slots(senders, edge_mask, nk)
     if h in WIDE_HIDDEN:
         lib = _load(f"gn_nk_bwd{h}")
         dx, de, scratch, part, grads, ptrs, fe = wide_backward_buffers(
             lib, x, edge_attr, nk.total_rows, mlps)
+        dea = None if extra is None else torch.empty_like(x)
         err = lib.gnw_nk_bwd(
             x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
-            _ptr(g_eout), dx.data_ptr(), _ptr(de), scratch.data_ptr(), part.data_ptr(),
-            senders.data_ptr(), edge_mask.data_ptr(), order.data_ptr(), offsets.data_ptr(), n,
-            b, nk.k_slots, nk.node_block, fe, *ptrs, _stream(x))
+            _ptr(g_eout), dx.data_ptr(), _ptr(de), _ptr(dea), scratch.data_ptr(),
+            part.data_ptr(), senders.data_ptr(), edge_mask.data_ptr(), order.data_ptr(),
+            offsets.data_ptr(), n, b, nk.k_slots, nk.node_block, fe, *ptrs, _stream(x))
     else:
         dx, de, scratch, grads, ptrs = backward_buffers(x, nk.total_rows, mlps)
+        dea = scratch[2]  # the node-MLP pass's g_agg
         err = _load("gn_nk_bwd").gn_nk_bwd(
             x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
             _ptr(g_eout), dx.data_ptr(), _ptr(de), *[t.data_ptr() for t in scratch],
@@ -297,33 +306,40 @@ def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, edge_mask, nk, mlps)
     if err != 0:
         raise RuntimeError(f"fused_gn_block_nk backward launch failed with CUDA error {err}")
     fused_gn_block_nk.backward_launches += 1
-    return dx, de, rounded_grads(grads)
+    grads = rounded_grads(grads)
+    return (dx, de, grads) if extra is None else (dx, de, grads, dea)
+
+
+def extra_kw(extra):
+    """The ``extra`` keyword of a forward or backward, or none without an
+    extra aggregate: the calls without one are the calls as they were."""
+    return {} if extra is None else {"extra": extra}
 
 
 class _FusedGNBlockNK(torch.autograd.Function):
     """The forward kernel (keeping its aggregate), with the backward kernel
     as its gradient. The MLPs' parameters are inputs so autograd routes
-    their gradients; on the last block only x_out is an output (the edge
-    stream passes through outside), so no cotangent of the dead edge
-    stream reaches the kernel."""
+    their gradients, as is the extra aggregate (None without one); on the
+    last block only x_out is an output (the edge stream passes through
+    outside), so no cotangent of the dead edge stream reaches the kernel."""
 
     @staticmethod
-    def forward(ctx, x, edge_attr, senders, edge_mask, nk, mlps, last_block, *params):
+    def forward(ctx, x, edge_attr, extra, senders, edge_mask, nk, mlps, last_block, *params):
         x_out, e_out, agg = _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block,
-                                        keep_agg=True)
-        ctx.save_for_backward(x, edge_attr, agg, senders, edge_mask)
+                                        keep_agg=True, **extra_kw(extra))
+        ctx.save_for_backward(x, edge_attr, agg, senders, edge_mask, extra)
         ctx.nk, ctx.mlps = nk, mlps
         return x_out if last_block else (x_out, e_out)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_xout, g_eout=None):
-        x, edge_attr, agg, senders, edge_mask = ctx.saved_tensors
-        dx, de, grads = _launch_bwd(
+        x, edge_attr, agg, senders, edge_mask, extra = ctx.saved_tensors
+        dx, de, grads, *dea = _launch_bwd(
             x, edge_attr, agg, g_xout.contiguous(),
             None if g_eout is None else g_eout.contiguous(), senders, edge_mask, ctx.nk,
-            ctx.mlps)
-        return (dx, de, None, None, None, None, None, *grads)
+            ctx.mlps, **extra_kw(extra))
+        return (dx, de, dea[0] if dea else None, None, None, None, None, None, *grads)
 
 
 def fused_gn_block_nk(
@@ -337,6 +353,7 @@ def fused_gn_block_nk(
     *,
     encoder_params=None,
     last_block: bool = False,
+    extra_agg=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One GraphNetBlock on the NK slot layout, in bf16.
 
@@ -345,6 +362,10 @@ def fused_gn_block_nk(
     ``senders`` [G·K·nb] int32 and ``edge_mask`` [G·K·nb] bool are the
     graph's slot arrays; ``edge_params``/``node_params`` are the block's
     edge and node MLPs (models/layers.MLP); ``nk`` is the NKTiling.
+    ``extra_agg`` [N, B, H] bf16, node-aligned (the world edges'
+    aggregate), joins the messages' aggregate before the node MLP:
+    agg = bf16(bf16(Σ messages) + extra) (fused_gnblock_nk.py:807-808);
+    under autograd its cotangent is the aggregate's.
     Returns (x_out, e_out); on the last block e_out is ``edge_attr``
     unchanged (the edge stream is dead). CPU tensors take
     :func:`fused_gn_block_nk_reference` (gradient by plain autograd); CUDA
@@ -369,6 +390,7 @@ def fused_gn_block_nk(
         checks.append((encoder_params, fe, "edge encoder"))
     for mlp, in_dim, name in checks:
         _check_mlp(mlp, in_dim, h, x.device, name)
+    check_extra_agg(extra_agg, x)
     for t in (x, edge_attr, senders, edge_mask):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("inputs must be contiguous and on one device")
@@ -377,26 +399,37 @@ def fused_gn_block_nk(
         return fused_gn_block_nk_reference(
             x, edge_attr, senders, edge_mask, edge_params, node_params, nk,
             encoder_params=encoder_params, last_block=last_block,
-            compute_dtype=torch.bfloat16)
+            compute_dtype=torch.bfloat16, extra_agg=extra_agg)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     mlps = (encoder_params, edge_params, node_params)
     check_kernel_mlps(h, mlps, False, fe)
-    return _run_kernels(x, edge_attr, senders, edge_mask, nk, mlps, last_block)
+    return _run_kernels(x, edge_attr, senders, edge_mask, nk, mlps, last_block, extra_agg)
 
 
-def _run_kernels(x, edge_attr, senders, edge_mask, nk, mlps, last_block):
+def check_extra_agg(extra, x):
+    """Raise ValueError unless ``extra`` is None or a contiguous bf16
+    tensor shaped and placed like ``x``."""
+    if extra is not None and (extra.shape != x.shape or extra.dtype != torch.bfloat16
+                              or extra.device != x.device or not extra.is_contiguous()):
+        raise ValueError(f"extra_agg must be a contiguous bf16 {tuple(x.shape)} tensor on "
+                         f"{x.device}, got {extra.dtype} {tuple(extra.shape)} on {extra.device}")
+
+
+def _run_kernels(x, edge_attr, senders, edge_mask, nk, mlps, last_block, extra=None):
     """The CUDA branch of :func:`fused_gn_block_nk` on checked inputs: the
     forward kernel, through ``_FusedGNBlockNK`` (keeping the aggregate)
     when a gradient is wanted."""
     used = [m for m in mlps if m is not None]
     params = [p for m in used for p in _mlp_params(m)]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in [x, edge_attr, *params]):
+    wants = [x, edge_attr, *params] + ([extra] if extra is not None else [])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in wants):
         check_kernel_mlps(x.shape[-1], mlps, True, edge_attr.shape[-1])
-        out = _FusedGNBlockNK.apply(x, edge_attr, senders, edge_mask, nk, mlps, last_block,
-                                    *params)
+        out = _FusedGNBlockNK.apply(x, edge_attr, extra, senders, edge_mask, nk, mlps,
+                                    last_block, *params)
         return (out, edge_attr) if last_block else out
-    x_out, e_out, _ = _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block)
+    x_out, e_out, _ = _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block,
+                                  **extra_kw(extra))
     return x_out, (edge_attr if last_block else e_out)
 
 
@@ -440,6 +473,7 @@ def fused_gn_block_nk_reference(
     encoder_params=None,
     last_block: bool = False,
     compute_dtype=torch.float32,
+    extra_agg=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fused_gn_block_nk`, computing in
     ``compute_dtype``: the edge MLP's first layer sums, in fp32, the
@@ -447,14 +481,21 @@ def fused_gn_block_nk_reference(
     computed per node and rounded to ``compute_dtype`` (the JAX kernel's
     _edge_fwd order), the receiver's repeated over its K slots and the
     sender's gathered with ``index_select``; the masked messages are summed
-    over K with a reshape."""
+    over K with a reshape, rounded, and ``extra_agg`` added to the rounded
+    sum in ``compute_dtype`` (blocked_reference_nk :807-808)."""
     x_out, e_out, _ = _reference_parts(x, edge_attr, senders, edge_mask,
                                        (encoder_params, edge_params, node_params), nk,
-                                       compute_dtype)
+                                       compute_dtype, extra_agg)
     return (x_out, edge_attr) if last_block else (x_out, e_out)
 
 
-def _reference_parts(x, edge_attr, senders, edge_mask, mlps, nk, cd):
+def add_extra(agg, extra):
+    """The aggregate with the extra one added in its dtype (one rounding of
+    the sum), as blocked_reference(_nk) adds it."""
+    return agg if extra is None else agg + extra.to(agg.dtype)
+
+
+def _reference_parts(x, edge_attr, senders, edge_mask, mlps, nk, cd, extra=None):
     """(x_out, e_out, agg) of :func:`fused_gn_block_nk_reference`."""
     enc, edge, node = mlps
     n, b, h = x.shape
@@ -472,29 +513,40 @@ def _reference_parts(x, edge_attr, senders, edge_mask, mlps, nk, cd):
           + x_ks.index_select(0, senders).float())
     eh = mlp_tail_reference(edge, h0.to(cd) + bs[0].to(cd), cd)
     ehm = torch.where(edge_mask.view(-1, 1, 1), eh, torch.zeros((), dtype=cd, device=x.device))
-    agg = ehm.float().view(g, k, nb, b, h).sum(1).reshape(n, b, h).to(cd)
+    agg = add_extra(ehm.float().view(g, k, nb, b, h).sum(1).reshape(n, b, h).to(cd), extra)
     nh = _mlp_reference(node, [xc, agg], cd)
     x_out = (xc + nh).to(x.dtype)
     return x_out, e_in + ehm, agg
 
 
 def fused_gn_block_nk_backward_reference(x, edge_attr, agg, g_xout, g_eout, senders, edge_mask,
-                                         nk, mlps):
+                                         nk, mlps, extra=None):
     """Plain version of the backward kernel: plain autograd of
     :func:`fused_gn_block_nk_reference` in ``x``'s dtype (``agg`` is not
     used), returned as the kernel's are (dx, de or None when the encoder is
-    folded, the parameter gradients in ``_mlp_params`` order per MLP), as
+    folded, the parameter gradients in ``_mlp_params`` order per MLP, and
+    with ``extra`` its cotangent), as
     :func:`fused_gnblock_csr.fused_gn_block_csr_backward_reference` is for
     the CSR layout."""
+    return block_autograd(
+        lambda xl, el, xa: _reference_parts(xl, el, senders, edge_mask, mlps, nk, x.dtype, xa),
+        x, edge_attr, extra, g_xout, g_eout, mlps)
+
+
+def block_autograd(fn, x, edge_attr, extra, g_xout, g_eout, mlps):
+    """A plain block's backward: autograd of ``fn(x, edge_attr, extra)`` ->
+    (x_out, e_out, ...) from the cotangents (g_eout None on the last
+    block), returned as the backward kernels return theirs."""
     enc = mlps[0]
     params = [p for m in mlps if m is not None for p in _mlp_params(m)]
     with torch.enable_grad():
         xl = x.detach().requires_grad_(True)
         el = edge_attr.detach().requires_grad_(enc is None)
-        x_out, e_out, _ = _reference_parts(xl, el, senders, edge_mask, mlps, nk, x.dtype)
+        xa = None if extra is None else extra.detach().requires_grad_(True)
+        x_out, e_out = fn(xl, el, xa)[:2]
         outs, cots = ([x_out], [g_xout]) if g_eout is None else ([x_out, e_out], [g_xout, g_eout])
-        wrt = [xl] + ([el] if enc is None else []) + params
-        grads = torch.autograd.grad(outs, wrt, cots)
-    if enc is None:
-        return grads[0], grads[1], list(grads[2:])
-    return grads[0], None, list(grads[1:])
+        wrt = [xl] + ([el] if enc is None else []) + params + ([xa] if xa is not None else [])
+        grads = list(torch.autograd.grad(outs, wrt, cots))
+    dea = [grads.pop()] if xa is not None else []
+    de = grads.pop(1) if enc is None else None
+    return (grads[0], de, grads[1:], *dea)

@@ -202,17 +202,21 @@ def check_backward(names: Sequence[str], streams: Sequence[str], kernel_fn: Call
 
 
 def check_block_backward(x, e, rows, mlps, layout, last_block, cot_x, cot_e,
-                         fp32_judged=None):
+                         fp32_judged=None, extra=None):
     """:func:`check_backward` of one GraphNetBlock with ``mlps`` =
     (encoder or None, edge MLP, node MLP), from the cotangents of x_out
     and (unless on the last block) e_out. The layout's type picks the
     block: on an NKTiling ``fused_gn_block_nk`` with ``rows`` = (senders,
     edge_mask), on a CSRLayout ``fused_gn_block_csr`` with ``rows`` =
     (senders, receivers, edge_mask), each against its plain version.
-    Gradients: dx, de unless the encoder is folded (raw edge features take
-    none), then every MLP parameter in the kernels' order. ``fp32_judged``
-    goes to :func:`compare_grads`; dx's outside share is
-    :func:`block_outside_share` of the width, de's ``OUTSIDE_SHARE``."""
+    ``extra``: an extra aggregate [N, B, H] (bf16) the block adds to its
+    own (``extra_agg``). Gradients: dx, de unless the encoder is folded
+    (raw edge features take none), dea (the extra aggregate's) with
+    ``extra``, then every MLP parameter in the kernels' order.
+    ``fp32_judged`` goes to :func:`compare_grads`; dx's outside share is
+    :func:`block_outside_share` of the width, and so is dea's (the node
+    MLP's relu flips move both, H values at a time), de's
+    ``OUTSIDE_SHARE``."""
     if isinstance(layout, CSRLayout):
         fn, reference = csr_ops.fused_gn_block_csr, csr_ops.fused_gn_block_csr_reference
     else:
@@ -220,22 +224,27 @@ def check_block_backward(x, e, rows, mlps, layout, last_block, cot_x, cot_e,
     enc = mlps[0]
 
     def block(fn, mlps_, **kw):
-        def run(xx, *ee):
-            e_in = ee[0] if ee else (e if xx.dtype == torch.bfloat16 else e.float())
+        def run(xx, *rest):
+            rest = list(rest)
+            if enc is None:
+                e_in = rest.pop(0)
+            else:  # raw features, no gradient
+                e_in = e if xx.dtype == torch.bfloat16 else e.float()
             xo, eo = fn(xx, e_in, *rows, mlps_[1], mlps_[2], layout, encoder_params=mlps_[0],
-                        last_block=last_block, **kw)
+                        last_block=last_block, extra_agg=rest[0] if rest else None, **kw)
             params = [p for m in mlps_ if m is not None for p in nk_ops._mlp_params(m)]
             return (xo if last_block else (xo, eo)), params
         return run
 
-    names = ["dx"] + (["de"] if enc is None else [])
+    names = ["dx"] + (["de"] if enc is None else []) + (["dea"] if extra is not None else [])
     for tag, mlp in zip(("enc", "edge", "node"), mlps):
         if mlp is not None:
             names += [f"{tag}.{i}" for i in range(len(nk_ops._mlp_params(mlp)))]
-    inputs = [x] + ([e] if enc is None else [])
+    inputs = [x] + ([e] if enc is None else []) + ([extra] if extra is not None else [])
     cots = [cot_x] + ([] if last_block else [cot_e])
+    share = block_outside_share(x.shape[-1])
     return check_backward(
-        names, ("dx", "de"), block(fn, mlps),
+        names, ("dx", "de", "dea"), block(fn, mlps),
         block(reference, mlps, compute_dtype=torch.bfloat16),
         block(reference, [rounded_copy(m) for m in mlps], compute_dtype=torch.float32),
-        inputs, cots, fp32_judged, {"dx": block_outside_share(x.shape[-1])})
+        inputs, cots, fp32_judged, {"dx": share, "dea": share})

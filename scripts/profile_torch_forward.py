@@ -4,7 +4,8 @@ step, goes, on one NVIDIA GPU.
     python3 scripts/profile_torch_forward.py \
         [transformer|epd|transformer-train|epd-train|graded|graded-transformer|
          graded-train|graded-transformer-train|transolver-train|
-         graded-transolver-train|plate-train|panels-train|mgn-train ...]
+         graded-transolver-train|plate-train|panels-train|mgn-train|
+         plate-epd-train ...]
     # default: the two cylinder forwards
 
 For each slice (``transformer``: entry.transformer_setup, 10 blocks, hidden
@@ -25,7 +26,11 @@ one train step of entry.panels_train_setup, panels.json's transformer, 15
 blocks, hidden 128, B=64, its 4-term MultiLoss on least-squares gradients;
 ``mgn-train``: one train step of entry.cylinder_train_setup at
 MeshGraphNets' width, 15 blocks, hidden 128, B=128, NK, through the wide
-GraphNetBlock kernels)
+GraphNetBlock kernels; ``plate-epd-train``: one train step of
+entry.plate_epd_train_setup, DeformingPlate's MeshGraphNet with world
+edges in every sample, 15 blocks, hidden 128, B=64, NK, the world stream
+(its gathers, the edge MLP in plain PyTorch, the scatter) joining the wide
+kernels through their extra_agg seam)
 and each path (kernel path, and the plain path: no edge layout, or for
 the Transolver the gumbel kernel's plain version on the same bits), runs
 ``torch.profiler`` over 10 calls after 3 warm-up calls and prints, per
@@ -199,7 +204,8 @@ def main():
               "graded-transolver-train": lambda d: entry.transolver_train_setup(d, graded=True),
               "plate-train": entry.plate_train_setup,
               "panels-train": entry.panels_train_setup,
-              "mgn-train": lambda d: entry.cylinder_train_setup(d, hidden=128, mp_steps=15)}
+              "mgn-train": lambda d: entry.cylinder_train_setup(d, hidden=128, mp_steps=15),
+              "plate-epd-train": entry.plate_epd_train_setup}
     for name in sys.argv[1:] or ["transformer", "epd"]:
         setup = (forwards.get(name) or trains[name])("cuda")
         graph = setup.graph

@@ -40,7 +40,12 @@ bits on two calls. Rows
 same way, every variant, in both layouts (on the padding-leak NK mesh at
 B=1 and 33, on the hub CSR graph at B=1 and 17), give the same bits on
 two calls (outputs, dx, de and every weight gradient), and carry a
-3-block ``epd`` train step at each width; hidden 16 raises naming
+3-block ``epd`` train step at each width. Their world seam (``extra_agg``,
+the world edges' aggregate) is held at hidden 32, 64 and 128 in both
+layouts: rows 1 and 3 against their plain versions, rows 2 and 4 with
+the extra aggregate's cotangent dea through utils/gradcheck.py, a zero
+extra giving the bits of none, and a plate ``epd`` train step with world
+edges in every sample against the plain path. Hidden 16 raises naming
 ROADMAP B 4, and hidden 24, which JAX does not fuse, runs the plain path
 with no launch. The
 gumbel kernel draws the same Philox bits as its plain version, bit for bit, and
@@ -1786,3 +1791,169 @@ def test_epd_at_hidden_24_takes_the_plain_path_on_the_card(cuda_device):
     torch.cuda.synchronize()
     assert counts() == before
     assert torch.isfinite(out.outputs).all()
+
+
+# ---- the world seam of rows 1-4 (extra_agg) at hidden 32, 64 and 128 ---------
+
+SEAM_HIDDEN = [32, 64, 128]
+
+
+def _seam_case(cuda_device, layout, hidden, variant, seed):
+    """A block's inputs at ``hidden``: on the 16 x 16 cylinder mesh's NK
+    layout with masked slots between valid ones at B=33, or on the hub CSR
+    graph at B=17; random cotangents, and a dense random extra aggregate
+    [N, B, H] (bf16)."""
+    if layout == "nk":
+        args, kw, cot_x, cot_e = _wide_nk_case(cuda_device, hidden, variant, 33, seed,
+                                               holes=True)
+    else:
+        args, kw = _wide_hub_case(cuda_device, hidden, variant, 17, seed)
+        cot_x, cot_e = _csr_cotangents(args[0], args[-1].total_rows, 500 + seed)
+    gen = torch.Generator(device=cuda_device).manual_seed(600 + seed)
+    extra = (0.3 * torch.randn(args[0].shape, generator=gen, device=cuda_device)).bfloat16()
+    return args, kw, cot_x, cot_e, extra
+
+
+def _seam_ops(layout):
+    return ((fused_gn_block_nk, fused_gn_block_nk_reference) if layout == "nk"
+            else (fused_gn_block_csr, fused_gn_block_csr_reference))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["middle", "last"])
+@pytest.mark.parametrize("hidden", SEAM_HIDDEN)
+@pytest.mark.parametrize("layout", ["nk", "csr"])
+def test_gn_world_seam_forward_matches_plain_version(cuda_device, layout, hidden, variant):
+    """Rows 1 and 3 with ``extra_agg``: x_out and e_out within the JAX
+    suite's 0.05 of the plain version, one launch; the extra moves x_out."""
+    args, kw, _, _, extra = _seam_case(cuda_device, layout, hidden, variant, seed=1)
+    fn, plain = _seam_ops(layout)
+    with torch.no_grad():
+        before = fn.launches
+        kx, ke = fn(*args, **kw, extra_agg=extra)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        px, pe = plain(*args, **kw, extra_agg=extra, compute_dtype=torch.bfloat16)
+        mesh_only = fn(*args, **kw)[0]
+    torch.testing.assert_close(kx.float(), px.float(), rtol=0.05, atol=0.05)
+    if variant == "last":
+        assert ke is args[1]
+    else:
+        torch.testing.assert_close(ke.float(), pe.float(), rtol=0.05, atol=0.05)
+    assert not torch.equal(kx, mesh_only)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["folded", "middle"])
+@pytest.mark.parametrize("hidden", SEAM_HIDDEN)
+@pytest.mark.parametrize("layout", ["nk", "csr"])
+def test_gn_world_seam_backward_matches_plain_version(cuda_device, layout, hidden, variant):
+    """Rows 2 and 4 with ``extra_agg``: dx, de, dea (the extra aggregate's
+    cotangent) and the weight gradients against the plain backward and
+    fp32 autograd, at utils/gradcheck.py's bounds; one backward launch."""
+    args, kw, cot_x, cot_e, extra = _seam_case(cuda_device, layout, hidden, variant, seed=2)
+    fn, _ = _seam_ops(layout)
+    lead = 4 if layout == "nk" else 5
+    before = fn.backward_launches
+    rows, ok, _ = gradcheck.check_block_backward(
+        args[0], args[1], args[2:lead], (kw["encoder_params"], *args[lead:lead + 2]), args[-1],
+        kw["last_block"], cot_x, cot_e, extra=extra)
+    torch.cuda.synchronize()
+    assert fn.backward_launches == before + 1
+    assert any(r["name"] == "dea" for r in rows)
+    assert ok, [r for r in rows if not r["ok"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", SEAM_HIDDEN)
+@pytest.mark.parametrize("layout", ["nk", "csr"])
+def test_gn_zero_extra_agg_gives_the_bits_of_none(cuda_device, layout, hidden):
+    """agg + 0 rounds to agg: with a zero ``extra_agg`` the kernels give the
+    outputs, dx, de and every weight gradient of a call without one, and
+    a dea equal to the aggregate's cotangent, the same on two calls."""
+    args, kw, cot_x, cot_e, extra = _seam_case(cuda_device, layout, hidden, "middle", seed=3)
+    fn, _ = _seam_ops(layout)
+    lead = 4 if layout == "nk" else 5
+    params = [p for m in args[lead:lead + 2] for p in nk_ops._mlp_params(m)]
+    runs = []
+    for xa in (None, torch.zeros_like(extra), torch.zeros_like(extra)):
+        xl = args[0].clone().requires_grad_(True)
+        el = args[1].clone().requires_grad_(True)
+        leaves = [xl, el] + ([] if xa is None else [xa.requires_grad_(True)])
+        xo, eo = fn(xl, el, *args[2:], **kw, extra_agg=xa)
+        grads = torch.autograd.grad([xo, eo], leaves + params, [cot_x, cot_e])
+        runs.append([xo.detach(), eo.detach(), *grads])
+    torch.cuda.synchronize()
+    none, zero, again = runs
+    dea = zero.pop(4)
+    assert torch.equal(dea, again.pop(4)) and torch.isfinite(dea).all()
+    assert dea.abs().max() > 0
+    for a, b, c in zip(none, zero, again):
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [32, 128])
+def test_plate_epd_train_step_goes_through_the_seam_and_matches_plain_path(cuda_device,
+                                                                            hidden):
+    """DeformingPlate's MeshGraphNet, 3 blocks, B=4 on a 14x10 plate whose
+    frames all have world edges: 3 + 3 launches of rows 1/2 a step, the
+    loss within the JAX suite's 0.02 of the plain path."""
+    train = entry.plate_epd_train_setup(cuda_device, nx=14, ny=10, batch=4, radius=0.12,
+                                        edge_budget=64, mp_steps=3, hidden=hidden)
+    assert train.graph.wedge_mask.any(0).all()
+    fn = fused_gn_block_nk if isinstance(train.tiling, NKTiling) else fused_gn_block_csr
+    plain_sim = copy.deepcopy(train.simulator)
+    plain_sim.model.tiling = None
+    plain_state, plain_step = entry.make_trainer(plain_sim, train.device_preprocess)
+    before = (fn.launches, fn.backward_launches)
+    m = train.train_step(train.state, train.graph, torch.Generator(cuda_device).manual_seed(3))
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.backward_launches) == (before[0] + 3, before[1] + 3)
+    mp = plain_step(plain_state, train.graph, torch.Generator(cuda_device).manual_seed(3))
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    torch.testing.assert_close(m["loss"], mp["loss"], rtol=0.02, atol=0)
+
+
+#: chip_smoke.py phase 39 compares DeformingPlate's MeshGraphNet on the
+#: kernel path with the plain path over its first PLATE_EPD_COMPARED_STEPS
+#: steps, held to LATER_LOSS_RTOL (named as there)
+PLATE_EPD_COMPARED_STEPS = 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "deterministic"])
+def test_plate_epd_plain_training_repeats_itself_over_the_compared_steps(cuda_device, mode):
+    """Phase 39's plate ``epd`` (hidden 128, 15 blocks, B=64, world edges in
+    every sample) on the plain path: a second run from the same weights and
+    noise (in default mode the world scatter's and the gathers' gradient's
+    ``index_add_`` add by atomics, so the two need not agree), and a run
+    from the weights scaled by 1 + 2^-16, agree within LATER_LOSS_RTOL over
+    the first PLATE_EPD_COMPARED_STEPS steps, in PyTorch's default mode and
+    under deterministic algorithms. Prints each of 20 steps' relative
+    differences (PERF.md §6 cites them)."""
+    train = entry.plate_epd_train_setup(cuda_device)
+    losses = []
+    for scale in (1.0, 1.0, 1.0 + 2.0 ** -16):
+        sim = copy.deepcopy(train.simulator)
+        sim.model.tiling = None
+        with torch.no_grad():
+            for p in sim.parameters():
+                p.mul_(scale)
+        state, step = entry.make_trainer(sim, train.device_preprocess)
+        gen = torch.Generator(cuda_device).manual_seed(39)
+        if mode == "deterministic":
+            with gradcheck.deterministic():
+                losses.append([step(state, train.graph, gen)["loss"].item() for _ in range(20)])
+        else:
+            losses.append([step(state, train.graph, gen)["loss"].item() for _ in range(20)])
+        del sim, state, step
+        torch.cuda.empty_cache()
+    rel = {name: [abs(a - b) / abs(b) for a, b in zip(run, losses[0])]
+           for name, run in (("again", losses[1]), ("nudged", losses[2]))}
+    for name, r in rel.items():
+        print(f"plate epd plain path ({mode} mode) against itself {name}, relative loss "
+              "difference by step: " + " ".join(f"{v:.3g}" for v in r))
+    assert all(np.isfinite(losses).ravel())
+    assert max(rel["nudged"][:PLATE_EPD_COMPARED_STEPS]) <= LATER_LOSS_RTOL, rel
+    assert max(rel["again"][:PLATE_EPD_COMPARED_STEPS]) <= LATER_LOSS_RTOL, rel

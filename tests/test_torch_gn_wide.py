@@ -187,13 +187,14 @@ def _pre_acts_near_kink(mlp, h):
     return near
 
 
-def _cotangents(c, seed):
+def _cotangents(c, seed, extra=None):
     """Random cotangents of x_out and of e_out (per port row and per JAX
     row), zero where the fp32 gradient has no one value: at every (row,
     sample) whose encoder or edge MLP has a relu pre-activation within KINK
     of 0, at its receiver, and at every (node, sample) whose node MLP has
     one (tests/test_torch_csr_train.py:_away_from_kinks, on either
-    layout)."""
+    layout). ``extra``: an extra aggregate [N, B, H] the block adds to its
+    own before the node MLP."""
     rng = np.random.default_rng(seed)
     n, h = c["x"].shape[0], c["h"]
     enc, edge, node = _mlps(c)
@@ -209,6 +210,8 @@ def _cotangents(c, seed):
         near_e &= m[:, None]
         eh = torch.where(m[:, None, None], edge(h_in), torch.zeros(()))
         agg = torch.zeros_like(x).index_add_(0, r, eh)
+        if extra is not None:
+            agg = agg + torch.as_tensor(extra)
         near_x = _pre_acts_near_kink(node, torch.cat([x, agg], dim=-1))
         near_x |= torch.zeros_like(near_x).index_add_(0, r[m], near_e[m].to(near_x.dtype)) > 0
     cot_x = np.where(near_x.numpy()[..., None], 0.0, rng.normal(size=(n, B, h)))
