@@ -10,7 +10,9 @@ the attention kernels' world seam, the panels workload
 hidden-128 gated-FFN kernels, ``epd`` at MeshGraphNets' width (hidden
 128, 15 blocks) through the wide GraphNetBlock kernels, and
 DeformingPlate's MeshGraphNet (an ``epd`` with world edges) through the
-GraphNetBlock kernels' world seam.
+GraphNetBlock kernels' world seam, DeformingPlate's rollouts with their
+world edges found again at every step, the aneurysm configs with the
+rollout's previous-data slice, and the concat world layout.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --parent CHECKOUT   # also times another checkout's
@@ -256,6 +258,29 @@ Phases (any failure raises, so the exit code is non-zero):
      trajectories of 65 frames, B=64, one epoch, a 50-step validation
      rollout), then predict from its checkpoint: launches held to the
      prediction, predict's RMSE equal to validate's.
+ 41. dynamic world edges: DeformingPlate rolled out from frame 0 of 8
+     synthetic 44x30 plates whose obstacles descend at different rates, 16
+     steps, packed R=8 with 1,024 sidecar slots the rollout fills at every
+     step (entry.plate_rollout_setup, training/rollout.DynamicWorldEdges),
+     plate.json's transformer (rows 5 and 9) and DeformingPlate's
+     MeshGraphNet (row 1 with the world aggregate), in both tracks: every
+     search's pairs against ops/knn.radius_edges on the CPU for the same
+     positions (pairs on the radius counted), the ground-truth track's
+     pairs against the host sidecar's plus the in-radius mesh edges, the
+     launches against the prediction, the kernel path's RMSE within
+     ROLLOUT_RTOL of the plain path's; a rollout step's time with and
+     without the search, and the search's;
+ 42. previous data: coarse-aneurysm.json and pinn-aneurysm.json (10
+     blocks, hidden 64, 4 heads, ``--external aneurysm``) through
+     Trainer.fit on in-memory synthetic aneurysm trajectories (1,408
+     nodes), the rollouts carrying the acceleration columns, then predict
+     as ``--use_previous_data --bf16 --fused`` runs it: launches, finite
+     losses, predict's RMSE validate's, the kernel path's rollout within
+     ROLLOUT_RTOL of the plain path's, the carry changing the plain
+     rollout;
+ 43. the concat world layout: plate.json unpacked (world edges after each
+     frame's mesh edges), 2 train steps of Trainer.fit on the plain path,
+     finite losses, no kernel launch.
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
 the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
@@ -269,7 +294,9 @@ their graded-shape times and bound under ``graded``, both attention
 backwards their forward + backward under ``fwd_bwd_ms`` and
 ``fwd_bwd_device_ms`` and their device time by pass under ``passes``;
 rows 1-4 at each width their world seam's check and times under
-``world``).
+``world``, rows 1/2 at hidden 128 their bound at the plate MeshGraphNet's
+shape under ``plate``, rows 5/6 their times, library time and bound at
+panels' head width 32 under ``head_width_32``).
 With ``--parent CHECKOUT`` the libraries that PARENT_LIBS names (both
 GraphNetBlock forwards and backwards, the hidden-64 gated-FFN forward and
 backward, both layouts' attention forward and backward) are built from that checkout's
@@ -1738,12 +1765,15 @@ def main():
     log("plate " + json.dumps({"card": card, **plate_info}))
     # 32.-34. the panels workload: the hidden-128 FFN kernels, its train
     # step, fit and predict
-    panels_records, panels_launches = panels_phases(device, card, build_log)
+    panels_records, panels_launches, head32 = panels_phases(device, card, build_log)
     # 35.-37. rows 1-4 at hidden 64 and 128; epd at MeshGraphNets' width
     wide_records = wide_phases(device, card, build_log)
     # 38. rows 1-4's world seam; 39.-40. DeformingPlate's MeshGraphNet with
     # world edges: its train step, fit and predict
-    seam, plate_epd_launches = plate_epd_phases(device, card)
+    seam, plate_epd_launches, plate_bound = plate_epd_phases(device, card)
+    # 41.-43. world edges found again in rollouts, previous data on the
+    # aneurysm configs, the concat world layout
+    option_launches = option_phases(device, card)
     for rec in (*tf_records, *tf_train_records, *graded_records, *graded_train_records):
         if rec["name"] in world:
             rec["world"] = world[rec["name"]]
@@ -1775,11 +1805,20 @@ def main():
         *panels_records,
         *wide_records,
     ]
-    for rec in records:  # the world seam's check and times; phases 39-40's launches
+    for rec in records:  # the world seam's check and times; phases 39-42's launches
         if rec["name"] in seam:
             rec["world"] = seam[rec["name"]]
             rec["max_abs_err"] = max(rec["max_abs_err"], rec["world"]["max_abs_err"])
         rec["launches"] += plate_epd_launches.get(rec["name"], 0)
+        for name, (fwd_n, bwd_n) in option_launches.items():
+            if name == "fused_gn_block_nk":  # row 1 at the plate MeshGraphNet's width
+                name = gn_record_name("nk", MGN_HIDDEN, False)
+            rec["launches"] += (fwd_n if rec["name"] == name else
+                                bwd_n if rec["name"] == f"{name}_backward" else 0)
+        if rec["name"] in head32:  # rows 5/6 at panels' head width 32
+            rec["head_width_32"] = head32[rec["name"]]
+        if rec["name"] in plate_bound:  # rows 1/2 at the plate MeshGraphNet's shape
+            rec["plate"] = plate_bound[rec["name"]]
     missing = set(seam) - {rec["name"] for rec in records}
     if missing:
         raise AssertionError(f"no record in the kernels line for {sorted(missing)}")
@@ -3264,9 +3303,11 @@ def panels_kernel_checks(train, card, build_log):
     """Phase 32: rows 9 and 10 at hidden 128 with block 0's weights of the
     panels model, kernel against plain version at panels' shape and at
     ``PANELS_TAIL`` rows, the same bits on two calls, times and bounds and
-    ptxas's report; rows 5 and 6 at panels' head width 32; with a parent
-    tree, the hidden-64 instance's bits against the parent's. Returns the
-    two hidden-128 records without their launches."""
+    ptxas's report; rows 5 and 6 at panels' head width 32, checked and
+    timed (attention_times_h32); with a parent tree, the hidden-64
+    instance's bits against the parent's. Returns ({record name: rows 5/6's
+    times at head width 32}, the two hidden-128 records without their
+    launches)."""
     import torch
     from graph_physics_tpu_torch.models.layers import GatedMLPBlock, RMSNorm, reset_parameters
     from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
@@ -3388,6 +3429,7 @@ def panels_kernel_checks(train, card, build_log):
     if not a_ok:
         raise AssertionError("panels attention backward kernel out of bounds")
     del gk, gp, gf
+    head32 = attention_times_h32(q, k, v, cot_a, graph, nk, heads, dh, card)
 
     if PARENT is not None:  # the hidden-64 instance keeps the parent's bits
         gen64 = torch.Generator().manual_seed(64)
@@ -3406,7 +3448,7 @@ def panels_kernel_checks(train, card, build_log):
 
         same_bits_as_parent("hidden-64 FFN forward", fwd64, ("ffn",))
         same_bits_as_parent("hidden-64 FFN backward", bwd64, ("ffn_bwd",))
-    return [
+    return head32, [
         dict(FFN128, route="cuda", launches=0, max_abs_err=max(f_errs), ms=fwd_t["ms"],
              plain_ms=fwd_t["plain_ms"], bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
              library_ms=None, device_ms=fwd_t["device_ms"],
@@ -3418,6 +3460,51 @@ def panels_kernel_checks(train, card, build_log):
     ]
 
 
+def attention_times_h32(q, k, v, cot, graph, nk, heads, dh, card):
+    """Rows 5 and 6 at panels' shape (head width 32): the forward and one
+    backward by CUDA events and the profiler's device time, their plain
+    versions, the library's masked attention (dense, the mesh's adjacency
+    as its boolean mask; forward, and forward + backward), and the bounds
+    from these inputs (phases 11 and 14's). Returns {record name: fields}."""
+    import torch
+    import torch.nn.functional as F
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
+
+    rows = (graph.senders, graph.receivers, graph.edge_mask)
+    n, b = q.shape[:2]
+    valid = int(graph.edge_mask.sum())
+    with torch.inference_mode():
+        fwd = dict(timed(lambda: ea_ops.fused_edge_attention_nk(q, k, v, *rows, nk), (),
+                         device=True),
+                   plain_ms=cuda_ms(lambda: ea_ops.fused_edge_attention_nk_reference(
+                       q, k, v, *rows, nk)))
+    adj = torch.zeros((n, n), dtype=torch.bool, device=q.device)
+    adj[graph.receivers[graph.edge_mask].long(), graph.senders[graph.edge_mask].long()] = True
+    dense = [t.permute(1, 2, 0, 3).contiguous() for t in (q, k, v)]
+    with torch.inference_mode():
+        fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(*dense,
+                                                                           attn_mask=adj))
+    bwd = dict(timed(attention_backward(ea_ops, (q, k, v), rows, nk, cot), (), device=True))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = ea_ops.reference_with_backward(*leaves, *rows, nk)
+    bwd["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True))
+    dl = [t.requires_grad_(True) for t in dense]
+    cot_d = cot.permute(1, 2, 0, 3).contiguous()
+    bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*dl, attn_mask=adj), dl, cot_d))
+    del adj, dense, dl, cot_d, out, leaves
+    fb = bound(2 * 4 * q.numel() + 5 * nk.total_rows, valid * b * heads * 4 * dh)
+    bb = bound(2 * 7 * q.numel() + 5 * nk.total_rows, valid * b * heads * 10 * dh)
+    fwd.update(bound_ms=fb[0], bound_by=fb[1], shape=[n, b, heads, dh])
+    bwd.update(bound_ms=bb[0], bound_by=bb[1], shape=[n, b, heads, dh])
+    for name, t in (("forward", fwd), ("backward", bwd)):
+        log(f"  attention {name} at head width {dh}: kernel {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, scaled_dot_product_attention "
+            f"with the adjacency mask {t['library_ms']:.4f} ms, bound {t['bound_ms']:.6g} ms "
+            f"({t['bound_by']}) ({card})")
+    return {ATTN["name"]: fwd, ATTN_BWD["name"]: bwd}
+
+
 def panels_phases(device, card, build_log):
     """Phases 32-34: the panels workload (training_config/panels.json: 15
     blocks, hidden 128, 4 heads of 32, bf16, the 4-term MultiLoss on
@@ -3425,8 +3512,9 @@ def panels_phases(device, card, build_log):
     the attention at its shape, 20 train steps at B=64 with 15 + 15
     launches of rows 5/6 and of rows 9/10 a step against the plain path,
     then Trainer.fit and predict. Returns the two hidden-128 records, with
-    the launches of phases 33-34, and {the attention wrapper's name:
-    (forward, backward) launches} of phases 33-34."""
+    the launches of phases 33-34, {the attention wrapper's name: (forward,
+    backward) launches} of phases 33-34, and {record name: times and bound
+    of rows 5/6 at head width 32}."""
     import torch
     from graph_physics_tpu_torch import entry
     from graph_physics_tpu_torch.cli import predict as predict_cli
@@ -3456,7 +3544,7 @@ def panels_phases(device, card, build_log):
                              "not the NK layout")
 
     # 32. rows 9 and 10 at hidden 128, rows 5 and 6 at head width 32
-    records = panels_kernel_checks(train, card, build_log)
+    head32, records = panels_kernel_checks(train, card, build_log)
 
     # 33. the panels train step: kernel path against the plain path, both
     # under deterministic algorithms: the physics loss's index_add_ sums
@@ -3556,7 +3644,7 @@ def panels_phases(device, card, build_log):
                                                               predict_launches))
                                for i in (0, 1)) for k in (attn, ffn)}
     records[0]["launches"], records[1]["launches"] = total[ffn.__name__]
-    return records, {attn.__name__: total[attn.__name__]}
+    return records, {attn.__name__: total[attn.__name__]}, head32
 
 
 # ---- phases 35-37: rows 1-4 at hidden 64 and 128; epd at MeshGraphNets' width ----
@@ -4155,6 +4243,19 @@ def plate_epd_train_phase(device, card):
     if not isinstance(layout, NKTiling) or not bool((per_sample > 0).all()):
         raise AssertionError("phase 39: the plate batch is not in the NK layout, or a sample "
                              "has no world edge")
+    # rows 1/2's bounds at this shape: a middle block with the world
+    # aggregate read by the forward and its cotangent written by the backward
+    blk, h = train.simulator.model.processor_list[1], train.simulator.model.hidden_size
+    x = torch.empty((g.x.shape[0], b, h), device="meta", dtype=torch.bfloat16)
+    e = torch.empty((g.edge_mask.shape[0], b, h), device="meta", dtype=torch.bfloat16)
+    bounds = {}
+    for backward in (False, True):
+        nbytes, flops = gn_block_work(x, e, g.edge_mask, blk, backward=backward)
+        ms, by = bound(nbytes + 2 * x.numel(), flops)
+        bounds[gn_record_name("nk", h, backward)] = {"bound_ms": ms, "bound_by": by,
+                                                     "shape": [g.x.shape[0], b, h]}
+    log("plate MeshGraphNet's middle block, bounds with the world aggregate: " + ", ".join(
+        f"{k} {v['bound_ms']:.6g} ms ({v['bound_by']})" for k, v in bounds.items()))
     _, plain_state, plain_step, launches = training_phase(
         "plate MeshGraphNet training", train, [gn], 39, steps=PLATE_EPD_COMPARED_STEPS)
     torch.cuda.synchronize()
@@ -4176,7 +4277,7 @@ def plate_epd_train_phase(device, card):
                                                           **st}))
     del train, plain_state, plain_step
     torch.cuda.empty_cache()
-    return launches[gn.__name__], st
+    return launches[gn.__name__], st, bounds
 
 
 def plate_epd_fit_phase(device, card):
@@ -4269,14 +4370,459 @@ def plate_epd_fit_phase(device, card):
 
 def plate_epd_phases(device, card):
     """Phases 38-40; returns ({record name: world fields}, {record name:
-    launches of phases 39-40})."""
+    launches of phases 39-40}, {record name: its bound at the plate
+    MeshGraphNet's shape})."""
     world = seam_phase(device, card)
-    counts = {"nk": list(plate_epd_train_phase(device, card)[0]), "csr": [0, 0]}
+    train_launches, _, bounds = plate_epd_train_phase(device, card)
+    counts = {"nk": list(train_launches), "csr": [0, 0]}
     for name, launches in plate_epd_fit_phase(device, card).items():
         for i, n in enumerate(launches):
             counts["nk" if name == "fused_gn_block_nk" else "csr"][i] += n
     return world, {gn_record_name(layout, MGN_HIDDEN, backward): c[backward]
-                   for layout, c in counts.items() for backward in (False, True)}
+                   for layout, c in counts.items() for backward in (False, True)}, bounds
+
+
+
+# ---- phases 41-43: the world-edge and rollout options --------------------
+
+#: phase 41: trajectories (obstacle descents entry.PLATE_DESCENTS) rolled
+#: out from frame 0, and steps: over the contact frames of the synthetic
+#: 44x30 plate (6-13 at JAX's descent)
+DYN_TRAJECTORIES, DYN_STEPS = 8, 16
+#: phase 41: a pair whose squared distance lies within this share of r² of
+#: it sits on the radius: fp32 rounding may put it on either side
+RADIUS_BAND = 1e-6
+#: phase 42: the aneurysm mesh (nodes: 44 x 32 = 1,408, the plate's count)
+#: and the fit's trajectories (2 of ANEURYSM_FIT_FRAMES frames: one B=64
+#: batch each, frame 0 being the first sample's previous frame)
+ANEURYSM_MESH = (44, 32)
+ANEURYSM_FIT_TRAJECTORIES, ANEURYSM_FIT_FRAMES = 2, 66
+#: phase 43: frames of the plate trajectory the concat-layout run trains on
+#: (contact frames, so the frames' edge arrays hold world edges), B
+CONCAT_FRAMES, CONCAT_BATCH = range(6, 10), 2
+
+
+@contextlib.contextmanager
+def recorded_searches():
+    """Every call of training/rollout.apply_dynamic_world_edges, recorded
+    as (the positions searched, [N, R, 3], and the sidecar it wrote:
+    senders, receivers, mask [W, R]); yields the list."""
+    from graph_physics_tpu_torch.training import rollout as rollout_lib
+
+    calls, original = [], rollout_lib.apply_dynamic_world_edges
+
+    def record(g, cfg, true_x=None):
+        out = original(g, cfg, true_x=true_x)
+        src = g.x if (cfg.track_predicted or true_x is None) else true_x
+        calls.append((src[..., cfg.world_pos_start:cfg.world_pos_end].float().clone(),
+                      out.wedge_senders.clone(), out.wedge_receivers.clone(),
+                      out.wedge_mask.clone()))
+        return out
+
+    rollout_lib.apply_dynamic_world_edges = record
+    try:
+        yield calls
+    finally:
+        rollout_lib.apply_dynamic_world_edges = original
+
+
+def pair_sets(senders, receivers, mask):
+    """[{(sender, receiver)} of trajectory r] of a [W, R] sidecar."""
+    s, r, m = (t.cpu().numpy() for t in (senders, receivers, mask))
+    return [set(zip(s[m[:, i], i].tolist(), r[m[:, i], i].tolist())) for i in range(s.shape[1])]
+
+
+def check_searches(label, calls, setup, model, card):
+    """Holds each recorded search of the card to ops/knn.radius_edges on the
+    CPU for the same positions: the same pairs, apart from pairs on the
+    radius (RADIUS_BAND), which are counted. With the ground-truth track
+    the pairs are also the host sidecar's (core/mesh.radius_world_edges,
+    which leaves out mesh edges) plus the in-radius mesh edges joining
+    {OBSTACLE, HANDLE} with NORMAL nodes (which JAX's device search keeps),
+    wherever neither the cap nor the budget binds. Returns the counts."""
+    import numpy as np
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.core import mesh as mesh_lib
+    from graph_physics_tpu_torch.core.nodetype import NodeType
+    from graph_physics_tpu_torch.ops.knn import radius_edges
+
+    cfg = setup.rollout_kw["dynamic_world_edges"]
+    g = setup.frames
+    t = g.node_type.cpu()
+    obs = (((t == int(NodeType.OBSTACLE)) | (t == int(NodeType.HANDLE)))
+           & g.node_mask.cpu())
+    nrm = (t == int(NodeType.NORMAL)) & g.node_mask.cpu()
+    r2 = cfg.radius * cfg.radius
+    host = None
+    if not cfg.track_predicted:  # each frame's host sidecar at the search's radius
+        host = [[pair_sets(*(torch.as_tensor(np.asarray(getattr(f, k))[:, None]) for k in
+                             ("wedge_senders", "wedge_receivers", "wedge_mask")))[0]
+                 for f in entry.plate_frames(traj, range(len(calls)), 2 * cfg.budget,
+                                             cfg.radius, model=model)]
+                for traj in setup.trajectories]
+        n_mesh = int(setup.host[0].n_node)
+        ei = mesh_lib.faces_to_edges(setup.trajectories[0]["cells"][0], n_mesh)
+        mesh_edges = set(zip(ei[0].tolist(), ei[1].tolist()))
+    counts = dict(pairs=0, differing=0, on_radius=0, mesh_pairs=0, capped_or_full=0)
+    for step, (wp, send, recv, mask) in enumerate(calls):
+        card_sets = pair_sets(send, recv, mask)
+        wp = wp.cpu()
+        for r, got in enumerate(card_sets):
+            pos = wp[:, r]
+            a, b, valid, capped = radius_edges(pos, pos, cfg.radius, cfg.budget, mask_a=obs,
+                                               mask_b=nrm, k_per_node=cfg.k_per_node,
+                                               with_stats=True)
+            a, b = a[valid].tolist(), b[valid].tolist()
+            want = set(zip(a, b)) | set(zip(b, a))
+            p64 = pos.double()
+            d2 = ((p64[obs][:, None] - p64[nrm][None]) ** 2).sum(-1)
+            counts["on_radius"] += int(((d2 - r2).abs() <= RADIUS_BAND * r2).sum())
+            counts["pairs"] += len(got)
+
+            def off_radius(pairs):
+                return [(i, j) for i, j in pairs
+                        if abs(float(((p64[i] - p64[j]) ** 2).sum()) - r2) > RADIUS_BAND * r2]
+
+            diff = got ^ want
+            counts["differing"] += len(diff)
+            if off_radius(diff):
+                raise AssertionError(f"{label}, step {step}, trajectory {r}: the card's pairs "
+                                     f"differ from the CPU's off the radius: "
+                                     f"{sorted(off_radius(diff))[:8]}")
+            if host is not None:
+                in_mesh = {p for p in want if p in mesh_edges}
+                counts["mesh_pairs"] += len(in_mesh)
+                if int(capped) or len(a) == cfg.budget:
+                    counts["capped_or_full"] += 1
+                    continue
+                expected = host[r][step] | in_mesh
+                if off_radius(got ^ expected):
+                    raise AssertionError(f"{label}, step {step}, trajectory {r}: the pairs are "
+                                         "not the host sidecar's and the in-radius mesh edges")
+    log(f"  {label}: {len(calls)} searches x {len(card_sets)} trajectories, "
+        f"{counts['pairs']} directed world edges found on the card, the CPU's radius_edges on "
+        f"the same positions: {counts['differing']} differ, {counts['on_radius']} candidate "
+        f"pairs within {RADIUS_BAND:g} of r²" + (
+            f"; the host sidecar's pairs plus {counts['mesh_pairs']} in-radius mesh edges "
+            f"({counts['capped_or_full']} searches capped or full, not compared)"
+            if host is not None else "") + f" ({card})")
+    return counts
+
+
+def dynamic_world_phase(device, card):
+    """Phase 41: DeformingPlate rolled out with its world edges found again
+    at every step (entry.plate_rollout_setup: DYN_TRAJECTORIES trajectories
+    from frame 0, DYN_STEPS steps, 1,024 sidecar slots), plate.json's
+    transformer (rows 5 and 9, NK) and its MeshGraphNet (row 1 with the
+    world aggregate, hidden 128, 15 blocks), in both tracks: the card's
+    pairs against the CPU's (check_searches), the launches against the
+    count predicted, the kernel path's RMSE within ROLLOUT_RTOL of the
+    plain path's; a rollout step's time with and without the search, and
+    the search's own. Returns ({wrapper name: (forward, backward)}, times)."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_csr
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_nk
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_csr as gn_csr
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as gn_nk
+    from graph_physics_tpu_torch.ops.tiling import NKTiling
+    from graph_physics_tpu_torch.training import rollout as rollout_lib
+
+    launches, times = defaultdict(lambda: [0, 0]), {}
+    for model in ("transformer", "epd"):
+        wrappers = ((ea_nk.fused_edge_attention_nk, ffn_ops.fused_gated_ffn)
+                    if model == "transformer" else (gn_nk.fused_gn_block_nk,))
+        others = ((ea_csr.fused_edge_attention_csr,) if model == "transformer"
+                  else (gn_csr.fused_gn_block_csr,))
+        for track in (True, False):
+            label = f"{model} {'predicted' if track else 'ground truth'} track"
+            setup = entry.plate_rollout_setup(device, model=model, trajectories=DYN_TRAJECTORIES,
+                                              steps=DYN_STEPS, track_predicted=track)
+            sim, frames = setup.simulator, setup.frames
+            n_blocks = len(sim.model.processor_list)
+            if not isinstance(setup.tiling, NKTiling) or frames.wedge_mask.any():
+                raise AssertionError(f"phase 41 [{label}]: not the NK layout, or the frames' "
+                                     "sidecars hold pairs where they should only reserve slots")
+            rollout = rollout_lib.make_batched_rollout_fn(sim, **setup.rollout_kw)
+            reset_counts((*wrappers, *others))
+            with recorded_searches() as calls:
+                res = rollout(frames)
+                torch.cuda.synchronize()
+            got = {k.__name__: launch_counts(k) for k in (*wrappers, *others)}
+            want = {k.__name__: (n_blocks * DYN_STEPS, 0) for k in wrappers}
+            want.update({k.__name__: (0, 0) for k in others})
+            log(f"dynamic world edges [{label}]: {n_blocks} blocks, hidden "
+                f"{sim.model.hidden_size}, R={DYN_TRAJECTORIES}, T={DYN_STEPS}, "
+                f"{frames.wedge_mask.shape[1]} slots a sample; launches {got}, predicted {want}")
+            if got != want or len(calls) != DYN_STEPS:
+                raise AssertionError(f"phase 41 [{label}]: launches {got}, expected {want}; "
+                                     f"{len(calls)} searches")
+            for name, (f, b) in got.items():
+                launches[name][0] += f
+                launches[name][1] += b
+            counts = check_searches(label, calls, setup, model, card)
+            plain = rollout_lib.make_batched_rollout_fn(plain_copy(sim), **setup.rollout_kw)
+            res_plain = plain(frames)
+            rk, rp = res.rmse_all_rollout.tolist(), res_plain.rmse_all_rollout.tolist()
+            worst = max(abs(a - c) / abs(c) for a, c in zip(rk, rp))
+            log(f"  rmse_all_rollout, kernel path: " + " ".join(f"{v:.6g}" for v in rk))
+            log(f"  rmse_all_rollout, plain path:  " + " ".join(f"{v:.6g}" for v in rp)
+                + f"; max relative difference {worst:.6g} (limit {ROLLOUT_RTOL})")
+            if not (torch.isfinite(res.predictions).all() and all(map(math.isfinite, rk + rp))
+                    and worst <= ROLLOUT_RTOL):
+                raise AssertionError(f"phase 41 [{label}]: the rollout is not finite or off "
+                                     "the plain path")
+            entry_times = {"rmse": rk, "plain_rmse": rp, "counts": counts}
+            if track:  # the times: a step with and without the search, the search alone
+                static = {k: v for k, v in setup.rollout_kw.items()
+                          if k != "dynamic_world_edges"}
+                without = rollout_lib.make_batched_rollout_fn(sim, **static)
+                cfg = setup.rollout_kw["dynamic_world_edges"]
+                step = frames.replace(x=frames.x[0], y=frames.y[0],
+                                      **{k: getattr(frames, k)[0] for k in
+                                         ("wedge_senders", "wedge_receivers", "wedge_mask",
+                                          "wedge_attr")})
+
+                def search():
+                    rollout_lib.apply_dynamic_world_edges(step, cfg)
+
+                # device time from a 2-step window: the profiler's sessions
+                # over a whole rollout (~10^4 events each) are slow to read back
+                short = frames.replace(x=frames.x[:2], y=frames.y[:2], **{
+                    k: getattr(frames, k)[:2] for k in ("wedge_senders", "wedge_receivers",
+                                                        "wedge_mask", "wedge_attr")})
+                entry_times.update(
+                    step_ms=cuda_ms(lambda: rollout(frames), warmup=1, reps=5) / DYN_STEPS,
+                    step_without_ms=cuda_ms(lambda: without(frames), warmup=1,
+                                            reps=5) / DYN_STEPS,
+                    search_ms=cuda_ms(search), search_device_ms=device_ms(search),
+                    step_device_ms=device_ms(lambda: rollout(short), reps=2) / 2,
+                    step_without_device_ms=device_ms(lambda: without(short), reps=2) / 2)
+                log(f"  a rollout step (R={DYN_TRAJECTORIES}): {entry_times['step_ms']:.4f} ms "
+                    f"(device {entry_times['step_device_ms']:.4f}) with the search, "
+                    f"{entry_times['step_without_ms']:.4f} ms (device "
+                    f"{entry_times['step_without_device_ms']:.4f}) without; the search "
+                    f"{entry_times['search_ms']:.4f} ms (device "
+                    f"{entry_times['search_device_ms']:.4f}) ({card})")
+            times[label] = entry_times
+            del setup, sim, frames, res, res_plain, calls
+            torch.cuda.empty_cache()
+    return {k: tuple(v) for k, v in launches.items()}, times
+
+
+def aneurysm_phase(device, card):
+    """Phase 42: coarse-aneurysm.json and pinn-aneurysm.json (10 blocks,
+    hidden 64, 4 heads, ``--external aneurysm``) through Trainer.fit on
+    in-memory synthetic aneurysm trajectories (ANEURYSM_MESH), the
+    validation rollout carrying the acceleration columns of x
+    (``--use_previous_data`` on entry.aneurysm_previous_data's columns),
+    then predict from the checkpoint as ``cli.predict --use_previous_data
+    --bf16 --fused`` runs it: the launches of rows 5/6 and 9/10 (7/8 where
+    the layout is CSR) held to the prediction, finite losses, predict's
+    RMSE validate's; the kernel path's rollout against the plain path's,
+    and the plain path with the carry against the plain path without.
+    Returns ({wrapper name: (forward, backward)}, facts)."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.cli import predict as predict_cli
+    from graph_physics_tpu_torch.cli.common import load_inference_stack
+    from graph_physics_tpu_torch.dataset import synthetic
+    from graph_physics_tpu_torch.models.layers import lecun_parameters
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_csr
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_nk
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.ops.tiling import NKTiling
+    from graph_physics_tpu_torch.training import config as config_lib
+    from graph_physics_tpu_torch.training.fused import FusedTopologyManager
+    from graph_physics_tpu_torch.training.rollout import make_batched_rollout_fn
+    from graph_physics_tpu_torch.training.trainer import (
+        Trainer,
+        TrainerConfig,
+        rollout_graph,
+        trajectory_graph,
+    )
+
+    ffn = ffn_ops.fused_gated_ffn
+    attns = (ea_nk.fused_edge_attention_nk, ea_csr.fused_edge_attention_csr)
+    launches, facts = defaultdict(lambda: [0, 0]), {}
+    ds = memory_dataset_class()
+    for config in ("coarse", "pinn"):
+        param = entry.aneurysm_param(config)
+        frame_cfg = entry.aneurysm_frame_config(config)
+        fields = entry.aneurysm_fields(*ANEURYSM_MESH, ANEURYSM_FIT_FRAMES)
+        prev = entry.aneurysm_previous_data(fields)
+        meta = synthetic.xdmf_meta_dict(ANEURYSM_FIT_FRAMES, entry.ANEURYSM_DT)
+        train_ds = ds([fields] * ANEURYSM_FIT_TRAJECTORIES, meta, frame_cfg)
+        val_ds = ds([entry.aneurysm_fields(*ANEURYSM_MESH, VAL_STEPS + 2)],
+                    synthetic.xdmf_meta_dict(VAL_STEPS + 2, entry.ANEURYSM_DT), frame_cfg)
+        sim = config_lib.get_simulator(param, config_lib.get_model(param, dtype=torch.bfloat16))
+        lecun_parameters(sim, torch.Generator().manual_seed(0))
+        run = f"fit_{config}_aneurysm"
+        cfg = TrainerConfig(epochs=1, batch_size=TF_FIT_BATCH, learning_rate=1e-3, warmup=100,
+                            packed=True, fused=True, out_dir=str(ROOT / "build" / "fit"),
+                            run_name=run, seed=0, previous_data_slice=prev)
+        shutil.rmtree(ROOT / "build" / "fit" / run, ignore_errors=True)
+        loss_fn, _ = config_lib.get_loss(param)
+        tr = Trainer(sim, train_ds, val_ds, loss_fn, cfg,
+                     gradient_method=config_lib.get_gradient_method(param),
+                     noise_cfg=config_lib.get_noise_config(param), device=device)
+        reset_counts([*attns, ffn])
+        t0 = time.perf_counter()
+        tr.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        layout = tr.sim.model.tiling
+        attn = attns[0] if isinstance(layout, NKTiling) else attns[1]
+        fit_launches = {k.__name__: launch_counts(k) for k in (attn, ffn)}
+        records = epoch_records(tr)
+        steps, n_blocks = tr.state.step, len(tr.sim.model.processor_list)
+        want = (n_blocks * (steps + VAL_STEPS), n_blocks * steps)
+        log(f"fit, {config}-aneurysm.json ({n_blocks} blocks, hidden {tr.sim.model.hidden_size}, "
+            f"bf16, {type(layout).__name__} layout, loss {config_lib.get_loss(param)[1]}, "
+            f"--external aneurysm, previous data {prev}; {int(val_ds.get_frame(0, 1).n_node)} "
+            f"nodes, {ANEURYSM_FIT_TRAJECTORIES} trajectories of {ANEURYSM_FIT_FRAMES} frames, "
+            f"B={TF_FIT_BATCH}, {steps} steps, validation {VAL_STEPS} rollout steps): "
+            f"{fit_s:.1f} s ({card})")
+        for r in records:
+            log(f"  epoch {int(r['epoch'])}: train_loss_epoch {r['train_loss_epoch']:.6g} "
+                f"val_all_rollout_rmse {r['val_all_rollout_rmse']:.6g} val_1step_rmse "
+                f"{r['val_1step_rmse']:.6g} ({r['epoch_time_s']:.2f} s)")
+        log("  launches (forward, backward): " + ", ".join(
+            f"{k} {v}" for k, v in fit_launches.items()) + f"; expected {want} each")
+        values = [r[k] for r in records for k in ("train_loss_epoch", "val_all_rollout_rmse")]
+        if (len(records) != 1 or not all(math.isfinite(v) for v in values)
+                or steps != ANEURYSM_FIT_TRAJECTORIES
+                or any(v != want for v in fit_launches.values())):
+            raise AssertionError(f"phase 42 [{config}]: {steps} steps, launches {fit_launches}, "
+                                 f"records {records}")
+        cfg_path = Path(tr.cfg.out_dir) / run / f"{config}-aneurysm.json"
+        cfg_path.write_text(json.dumps(param))
+        args = predict_cli.build_argparser().parse_args([
+            "--training_parameters_path", str(cfg_path), "--model_path", tr.ckpt_dir, "--bf16",
+            "--fused", "--external", "aneurysm", "--use_previous_data", "--previous_data_start",
+            str(prev[0]), "--previous_data_end", str(prev[1]), "--device", str(device)])
+        reset_counts([*attns, ffn])
+        stack = load_inference_stack(args, dataset=val_ds)
+        pred = predict_cli.predict(stack, fused=True)[0]
+        torch.cuda.synchronize()
+        predict_launches = {k.__name__: launch_counts(k) for k in (attn, ffn)}
+        want_rmse = records[-1]["val_all_rollout_rmse"]
+        rel = abs(pred.rmse_all_rollout - want_rmse) / want_rmse
+        want_p = (n_blocks * VAL_STEPS, 0)
+        log(f"predict, {config}-aneurysm: previous data {stack.previous_data_slice}, rollout of "
+            f"{pred.predictions.shape[0]} steps, launches (forward, backward): " + ", ".join(
+                f"{k} {v}" for k, v in predict_launches.items()) + f", expected {want_p} each: "
+            f"rmse_all_rollout {pred.rmse_all_rollout:.8g}, validate reported {want_rmse:.8g} "
+            f"(relative difference {rel:.3g}, limit {PREDICT_RTOL})")
+        if (stack.previous_data_slice != prev or rel > PREDICT_RTOL
+                or any(v != want_p for v in predict_launches.values())):
+            raise AssertionError(f"phase 42 [{config}]: predict's rollout is not validate's, or "
+                                 f"its launches {predict_launches} are not {want_p}")
+        # the kernel path against the plain path, and the carry's effect
+        frames = rollout_graph([trajectory_graph(val_ds, 0, FusedTopologyManager("transformer"))],
+                               device)
+        tr.sim.model.tiling = frames.layout
+        reset_counts([*attns, ffn])
+        res = make_batched_rollout_fn(tr.sim, previous_data_slice=prev)(frames)
+        torch.cuda.synchronize()
+        extra = {k.__name__: launch_counts(k) for k in (attn, ffn)}
+        plain = plain_copy(tr.sim)
+        res_plain = make_batched_rollout_fn(plain, previous_data_slice=prev)(frames)
+        res_off = make_batched_rollout_fn(plain)(frames)
+        rk, rp, ro = (float(r.rmse_all_rollout[0]) for r in (res, res_plain, res_off))
+        worst = abs(rk - rp) / rp
+        moved = (res_plain.predictions - res_off.predictions).abs().max().item()
+        log(f"  rollout rmse_all_rollout: kernel path {rk:.8g}, plain path {rp:.8g} (relative "
+            f"difference {worst:.6g}, limit {ROLLOUT_RTOL}); plain path without the carry "
+            f"{ro:.8g}, its predictions at most {moved:.6g} from the carry's")
+        if not (all(map(math.isfinite, (rk, rp, ro))) and worst <= ROLLOUT_RTOL and moved > 0):
+            raise AssertionError(f"phase 42 [{config}]: the rollout is off the plain path, or "
+                                 "the carry changes nothing")
+        for k in (attn, ffn):
+            for counts in (fit_launches, predict_launches, extra):
+                launches[k.__name__][0] += counts[k.__name__][0]
+                launches[k.__name__][1] += counts[k.__name__][1]
+        facts[config] = {"fit_s": fit_s, "layout": type(layout).__name__,
+                         "predict_rmse": pred.rmse_all_rollout, "validate_rmse": want_rmse,
+                         "kernel_rmse": rk, "plain_rmse": rp, "no_carry_rmse": ro,
+                         "carry_moves": moved, "previous_data": list(prev)}
+        del tr, stack, frames, res, res_plain, res_off, plain
+        torch.cuda.empty_cache()
+    return {k: tuple(v) for k, v in launches.items()}, facts
+
+
+def concat_phase(device, card):
+    """Phase 43: plate.json unpacked, its world edges in the concat layout
+    (each frame's budgeted world edges after its mesh edges, stacked per
+    sample), CONCAT_BATCH frames a step through Trainer.fit on the plain
+    path: 2 steps, finite losses, no kernel launch."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.dataset import synthetic
+    from graph_physics_tpu_torch.dataset.preprocessing import FrameConfig, WorldConfig
+    from graph_physics_tpu_torch.models.layers import lecun_parameters
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_csr
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_nk
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.training import config as config_lib
+    from graph_physics_tpu_torch.training.loss import l2_loss
+    from graph_physics_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    param = plate_param()
+    wrappers = (ea_nk.fused_edge_attention_nk, ea_csr.fused_edge_attention_csr,
+                ffn_ops.fused_gated_ffn)
+    frame_cfg = FrameConfig(targets=("world_pos",), world=WorldConfig(
+        world_pos_index_start=0, world_pos_index_end=3, node_type_index=entry.PLATE_NODE_TYPE,
+        radius=entry.PLATE_RADIUS, edge_budget=entry.PLATE_BUDGET))
+    traj = synthetic.make_plate_trajectory(44, 30, max(CONCAT_FRAMES) + 1)
+    traj = {k: v[CONCAT_FRAMES.start:] for k, v in traj.items()}
+    ds = memory_dataset_class()([traj], synthetic.plate_meta_dict(len(CONCAT_FRAMES)), frame_cfg)
+    g = ds.get_frame(0, 0, train=False)
+    mesh = ds.builder.mesh_edges(0, traj["cells"][0], int(g.n_node)).shape[1]
+    sim = config_lib.get_simulator(param, config_lib.get_model(param, dtype=torch.bfloat16))
+    lecun_parameters(sim, torch.Generator().manual_seed(0))
+    cfg = TrainerConfig(epochs=1, batch_size=CONCAT_BATCH, learning_rate=1e-3, warmup=100,
+                        out_dir=str(ROOT / "build" / "fit"), run_name="fit_concat", seed=0)
+    shutil.rmtree(ROOT / "build" / "fit" / "fit_concat", ignore_errors=True)
+    _, world_dev = config_lib.get_world_configs(param)
+    tr = Trainer(sim, ds, None, l2_loss, cfg, noise_cfg=config_lib.get_noise_config(param),
+                 world_pos=world_dev, device=device)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    records = epoch_records(tr)
+    got = {k.__name__: launch_counts(k) for k in wrappers}
+    log(f"concat layout: plate.json unpacked, frames {list(CONCAT_FRAMES)} of the 44x30 plate, "
+        f"{int(g.n_edge)} edges in frame {CONCAT_FRAMES.start}'s arrays ({mesh} mesh edges, "
+        f"{g.senders.shape[0]} slots), B={CONCAT_BATCH} stacked, {tr.state.step} steps on the "
+        f"plain path: train_loss_epoch {records[-1]['train_loss_epoch']:.6g}, launches {got}, "
+        f"{fit_s:.1f} s ({card})")
+    if (tr.state.step != 2 or not math.isfinite(records[-1]["train_loss_epoch"])
+            or int(g.n_edge) <= mesh or any(v != (0, 0) for v in got.values())):
+        raise AssertionError(f"phase 43: {tr.state.step} steps, records {records}, launches "
+                             f"{got}, {int(g.n_edge)} edges against {mesh} mesh edges")
+    return {"steps": tr.state.step, "edges": int(g.n_edge), "mesh_edges": mesh, "fit_s": fit_s}
+
+
+def option_phases(device, card):
+    """Phases 41-43; returns ({wrapper name: (forward, backward) launches}
+    of phases 41-42, the facts of each)."""
+    dyn_launches, dyn = dynamic_world_phase(device, card)
+    log("dynamic world edges " + json.dumps({"card": card, **dyn}))
+    an_launches, aneurysm = aneurysm_phase(device, card)
+    log("aneurysm " + json.dumps({"card": card, **aneurysm}))
+    concat = concat_phase(device, card)
+    log("concat " + json.dumps({"card": card, **concat}))
+    launches = defaultdict(lambda: [0, 0])
+    for part in (dyn_launches, an_launches):
+        for name, (f, b) in part.items():
+            launches[name][0] += f
+            launches[name][1] += b
+    return {k: tuple(v) for k, v in launches.items()}
 
 
 if __name__ == "__main__":

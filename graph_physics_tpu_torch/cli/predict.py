@@ -8,7 +8,11 @@ packed, as the trainer's validation does, so the card runs the kernels and
 the rollout RMSE equals what ``validate`` reports for the same weights.
 World edges ride as each frame's sidecar, and each step's graph gains
 the world-position edge features from its predicted positions
-(training/transforms.make_eval_transform), as in validation.
+(training/transforms.make_eval_transform), as in validation; with
+``world_pos_parameters.dynamic_rollout`` each step finds the world edges
+again on the device. ``--use_previous_data`` carries the columns
+``--previous_data_start:--previous_data_end`` of x through the rollout
+(cli/predict.py:45-56).
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ class TrajectoryPrediction:
 def predict(stack, num_trajectories: Optional[int] = None,
             fused: bool = False) -> List[TrajectoryPrediction]:
     """Roll out the first ``num_trajectories`` (all by default) trajectories
-    of ``stack.dataset`` with ``stack.simulator``."""
+    of ``stack.dataset`` with ``stack.simulator``, the stack's previous-data
+    slice and dynamic world edges."""
     from graph_physics_tpu_torch.models.processors import (
         EncodeProcessDecode,
         TransolverProcessor,
@@ -68,9 +73,10 @@ def predict(stack, num_trajectories: Optional[int] = None,
     if fused and packed:
         manager = FusedTopologyManager(
             "epd" if isinstance(model, EncodeProcessDecode) else "transformer")
-    transform = make_eval_transform(stack.world_dev)
-    rollout = (make_batched_rollout_fn(sim, frame_transform=transform) if packed
-               else make_rollout_fn(sim, frame_transform=transform))
+    kw = dict(previous_data_slice=stack.previous_data_slice,
+              frame_transform=make_eval_transform(stack.world_dev),
+              dynamic_world_edges=stack.dynamic_world_edges)
+    rollout = make_batched_rollout_fn(sim, **kw) if packed else make_rollout_fn(sim, **kw)
     n_traj = ds.num_trajectories
     if num_trajectories is not None:
         n_traj = min(n_traj, num_trajectories)

@@ -10,22 +10,31 @@ card). Example:
       --epochs 25 --batch_size 128 --packed --bf16 --fused
 
 World edges (``world_pos_parameters.use``, plate.json; a transformer or
-an ``epd``, DeformingPlate's MeshGraphNet) train in the sidecar layout, which needs ``--packed`` (JAX's CLI switches to it there;
-the concat layout of an unpacked run waits for ROADMAP A 5.2), with the
-world-position edge features computed on the device after the noise.
-The validation rollouts use the sidecar too: where JAX's CLI builds them
-in the concat layout, the port builds the same edge set beside the mesh,
-so the kernels' world seam (the attention kernels', or the GraphNetBlock
-kernels' ``extra_agg``) runs there as well.
+an ``epd``, DeformingPlate's MeshGraphNet) train in the sidecar layout
+with ``--packed``, as JAX's CLI switches to it there, and in JAX's concat
+layout (appended to each frame's mesh edges, stacked per sample, the
+plain path) without it; the world-position edge features are computed
+on the device after the noise. The validation rollouts use the sidecar
+in both cases: where JAX's CLI builds them in the concat layout, the port
+builds the same edge set beside the mesh, so the kernels' world seam (the
+attention kernels', or the GraphNetBlock kernels' ``extra_agg``) runs
+there as well. With ``world_pos_parameters.dynamic_rollout`` the
+validation rollouts find the world edges again at every step on the
+device (training/rollout.DynamicWorldEdges), and the validation frames
+only reserve the sidecar's slots.
 
 ``--external NAME`` builds each frame's features with the named builder
 of ``external/`` (panels, aneurysm, bezier), which reads the previous
-frame's data. A config's physics losses (``loss.type`` with several
-terms, ``loss.gradient_method``) reach the Trainer's step.
+frame's data. ``--use_previous_data`` makes the frames carry the
+previous frame's data too, and the validation rollouts carry the columns
+``--previous_data_start:--previous_data_end`` of x
+(``TrainerConfig.previous_data_slice``): for the aneurysm configs, where
+``external/aneurysm.build_features`` puts the acceleration. A config's
+physics losses (``loss.type`` with several terms,
+``loss.gradient_method``) reach the Trainer's step.
 
 Flags of later queue items raise NotImplementedError naming their ROADMAP
-item: ``--use_previous_data`` (A 5.3), ``--num_dp_devices``,
-``--multihost`` (A 9); ``--num_partitions`` and
+item: ``--num_dp_devices``, ``--multihost`` (A 9); ``--num_partitions`` and
 ``--max_nodes_per_partition`` wait for ``dataset/partition.py`` (A 4).
 The weights are drawn from ``--seed`` as the JAX package's flax layers
 draw theirs (models/layers.lecun_parameters: lecun-normal kernels, zero
@@ -97,8 +106,9 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     from graph_physics_tpu_torch.cli.common import (
-        check_later_options,
         external_features,
+        previous_data_slice,
+        validation_frame_config,
         with_sidecar,
     )
     from graph_physics_tpu_torch.models.layers import lecun_parameters
@@ -108,7 +118,6 @@ def main(argv=None) -> int:
     from graph_physics_tpu_torch.training.trainer import Trainer, TrainerConfig, resolve_device
 
     device = resolve_device(args.device)
-    check_later_options(args)
     if args.multihost or args.num_dp_devices:
         raise NotImplementedError("--multihost and --num_dp_devices are not ported "
                                   "(ROADMAP A 9)")
@@ -124,23 +133,22 @@ def main(argv=None) -> int:
     config_lib.get_mtp_setup(param)
     loss_fn, loss_name = config_lib.get_loss(param)
     gradient_method = config_lib.get_gradient_method(param)
-    config_lib.get_dynamic_world_edges(param)
+    dynamic_we = config_lib.get_dynamic_world_edges(param)
     noise_cfg = config_lib.get_noise_config(param)
     _, world_dev = config_lib.get_world_configs(param)
     extra, use_prev = external_features(args)
     frame_cfg = config_lib.get_frame_config(param, masking_ratio=args.masking_ratio,
                                             use_previous_data=use_prev,
                                             extra_node_features=extra)
-    if frame_cfg.world is not None and not args.packed:
-        raise NotImplementedError("world edges without --packed take the concat layout, "
-                                  "which is not ported (ROADMAP A 5.2)")
-    frame_cfg = with_sidecar(frame_cfg)
+    if args.packed:  # an unpacked run keeps the concat layout
+        frame_cfg = with_sidecar(frame_cfg)
     if args.num_partitions or args.max_nodes_per_partition:
         raise NotImplementedError("--num_partitions waits for dataset/partition.py "
                                   "(ROADMAP A 4)")
     train_ds = config_lib.get_dataset(param, frame_cfg, switch_to_val=False, seed=args.seed)
-    val_cfg = with_sidecar(config_lib.get_frame_config(
-        param, masking_ratio=0.0, use_previous_data=use_prev, extra_node_features=extra))
+    val_cfg = with_sidecar(validation_frame_config(config_lib.get_frame_config(
+        param, masking_ratio=0.0, use_previous_data=use_prev, extra_node_features=extra),
+        dynamic_we))
     val_ds = config_lib.get_dataset(param, val_cfg, switch_to_val=True, seed=args.seed)
     run_name = args.run_name or os.path.splitext(
         os.path.basename(args.training_parameters_path))[0]
@@ -156,13 +164,14 @@ def main(argv=None) -> int:
         val_device_batch=args.val_device_batch or None, loader_workers=args.loader_workers,
         broadcast_static=args.broadcast_static, save_val_xdmf=args.save_val_xdmf,
         use_wandb=args.use_wandb, accumulate_grad_batches=args.accumulate_grad_batches,
+        previous_data_slice=previous_data_slice(args),
         packed=args.packed, steps_per_dispatch=args.steps_per_dispatch, fused=args.fused,
         fused_wb_buckets=args.fused_wb_buckets, fused_attn_nk=args.fused_attn_nk,
         fused_gn_nk=args.fused_gn_nk)
     trainer = Trainer(simulator, train_ds, val_ds, loss_fn, tcfg,
                       gradient_method=gradient_method,
                       run_metadata={"config": param, "loss": loss_name}, noise_cfg=noise_cfg,
-                      world_pos=world_dev, device=device)
+                      world_pos=world_dev, dynamic_world_edges=dynamic_we, device=device)
     state = trainer.fit(resume=args.resume_training)
     print(f"training done at step {int(state.step)}")
     return 0

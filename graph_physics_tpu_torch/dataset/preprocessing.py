@@ -6,21 +6,22 @@ Counterpart of graph_physics_tpu/dataset/preprocessing.py, numpy only:
   -> extra_node_features hook
   -> [world] obstacle-displacement columns after the world positions
   -> faces -> edges (+ k-hop, cached per trajectory)
-  -> mesh edge features [Δpos, ‖Δpos‖]
+  -> [world, concat] radius world edges appended to the mesh edges
   -> random-edge augmentation
   -> node masking -> ``deselected``
-  -> pad to shape buckets
-  -> [world] radius world edges as the per-sample sidecar (``wedge_*``).
+  -> pad to shape buckets, edge features [Δpos, ‖Δpos‖]
+  -> [world, sidecar] radius world edges as the per-sample sidecar (``wedge_*``).
 
-Each function names its source. World edges come in the sidecar layout
-only (``WorldConfig.sidecar``, what JAX's CLI takes with ``--packed``):
-the shared edge arrays hold the static mesh, and each frame's world edges
-ride beside them, padded to ``edge_budget`` slots. The concat layout,
-which appends them to the edge arrays, waits for ROADMAP A 5.2: a builder
-given it raises. Sub-mesh partitions wait for ``dataset/partition.py``
-(ROADMAP A 4's remainder). The per-step value transforms (noise, the
-world-position edge features) run on the device (training/noise.py,
-training/transforms.py).
+Each function names its source. World edges come in two layouts
+(``WorldConfig.sidecar``). The concat layout, JAX's default, appends each
+frame's budgeted world edges to its mesh edges, so the edge arrays change
+from frame to frame (an unpacked batch stacks them per sample). The
+sidecar layout, what JAX's CLI takes with ``--packed``, keeps the static
+mesh in the shared edge arrays, and each frame's world edges ride beside
+them, padded to ``edge_budget`` slots. Sub-mesh partitions wait for
+``dataset/partition.py`` (ROADMAP A 4's remainder). The per-step value
+transforms (noise, the world-position edge features) run on the device
+(training/noise.py, training/transforms.py).
 """
 
 from __future__ import annotations
@@ -40,17 +41,13 @@ from graph_physics_tpu_torch.core.nodetype import NodeType
 # Fields that never become node features.
 STRUCTURAL_FIELDS = ("cells", "mesh_pos", "node_type")
 
-CONCAT_WORLD = ("the concat world-edge layout (WorldConfig.sidecar=False) is not ported "
-                "(ROADMAP A 5.2); use the sidecar layout")
-
-
 @dataclass(frozen=True)
 class WorldConfig:
     """World-edge parameters (preprocessing.py:WorldConfig): the world
     positions' columns of x, the radius of the pairs, the per-frame edge
     budget, and the layout: ``sidecar`` (per-sample arrays beside the
-    static mesh edges; the only one the port builds) or the concat layout
-    (ROADMAP A 5.2). Discovery runs on the host from the un-noised
+    static mesh edges) or the concat layout (the world edges appended to
+    the mesh edges). Discovery runs on the host from the un-noised
     positions, as JAX's does."""
 
     world_pos_index_start: int
@@ -239,8 +236,6 @@ class FrameBuilder:
     (preprocessing.py:FrameBuilder)."""
 
     def __init__(self, cfg: FrameConfig, meta: Dict[str, Any]):
-        if cfg.world is not None and not cfg.world.sidecar:
-            raise NotImplementedError(CONCAT_WORLD)
         self.cfg = cfg
         self.meta = meta
         self._khop_cache: Dict[Any, np.ndarray] = {}
@@ -271,7 +266,8 @@ class FrameBuilder:
               part_ids: Optional[np.ndarray] = None) -> MeshGraph:
         """One padded frame (preprocessing.py:FrameBuilder.build :299); the
         static-skeleton fast path rebuilds only the dynamic leaves, and the
-        world-edge sidecar."""
+        world-edge sidecar. Concat-layout world edges change the edge
+        arrays every frame, so they take the full path."""
         if part_ids is not None:
             raise NotImplementedError("sub-mesh partitions wait for dataset/partition.py "
                                       "(ROADMAP A 4)")
@@ -280,10 +276,11 @@ class FrameBuilder:
                             with_previous=cfg.use_previous_data)
         n = len(ctx.pos)
         world = cfg.world is not None
+        sidecar = world and cfg.world.sidecar
         key = cache_key if cache_key is not None else traj_index
 
         skel_ok = (cfg.new_edges_ratio == 0 and cfg.extra_node_features is None
-                   and cfg.extra_edge_features is None)
+                   and cfg.extra_edge_features is None and (not world or sidecar))
         skel_key = ((cache_key if cache_key is not None else traj_index, n_pad, e_pad, c_pad)
                     if skel_ok else None)
         skel = self._skel_cache.get(skel_key) if skel_ok else None
@@ -328,6 +325,14 @@ class FrameBuilder:
             x = insert_obstacle_displacement(x, y, ctx.node_type, cfg.world)
 
         ei = mesh_ei = self.mesh_edges(key, ctx.cells, n)
+        if world and not sidecar:
+            # the budgeted pairs after the mesh edges (preprocessing.py:411-420):
+            # both directions of a pair kept or dropped together
+            ws, we = cfg.world.world_pos_index_start, cfg.world.world_pos_index_end
+            wedges = mesh_lib.radius_world_edges(x[:, ws:we], ctx.node_type, cfg.world.radius,
+                                                 exclude_edges=ei)
+            wedges = mesh_lib.budget_world_pairs(wedges, x[:, ws:we], cfg.world.edge_budget)
+            ei = np.concatenate([ei, wedges], axis=1)
         if train and cfg.new_edges_ratio > 0 and rng is not None:
             ei = random_extra_edges(ei, n, cfg.new_edges_ratio, rng)
 
@@ -339,7 +344,7 @@ class FrameBuilder:
             x, ctx.pos, ctx.node_type, ei, y=y, prev=prev, next_data=next_data,
             faces=ctx.cells, n_pad=n_pad, e_pad=e_pad, c_pad=c_pad,
             with_edge_features=cfg.add_edge_features, traj_index=traj_index, time=ctx.time)
-        if world:
+        if sidecar:
             g = g.replace(**self._world_sidecar_fields(x, ctx.node_type, ctx.pos, mesh_ei,
                                                        g.x.shape[0], key))
         if cfg.extra_edge_features is not None:
@@ -453,10 +458,13 @@ class FrameBuilder:
                             deselected=None)
 
     def edge_budget_for(self, mesh_edge_count: int) -> int:
-        """Static edge bucket: mesh edges plus random-edge headroom
-        (preprocessing.py:FrameBuilder.edge_budget_for :652); the sidecar's
-        world edges live in their own arrays."""
+        """Static edge bucket: mesh edges, the concat layout's world budget
+        and random-edge headroom (preprocessing.py:FrameBuilder.
+        edge_budget_for :652); the sidecar's world edges live in their own
+        arrays."""
         extra = 0
+        if self.cfg.world is not None and not self.cfg.world.sidecar:
+            extra += self.cfg.world.edge_budget
         if self.cfg.new_edges_ratio > 0:
             extra += int(mesh_edge_count * self.cfg.new_edges_ratio) + 1
         return padding.bucket_size(mesh_edge_count + extra)

@@ -127,13 +127,15 @@ def write_h5_dataset(path: str, num_trajectories: int = 2, nx: int = 12, ny: int
 
 
 def make_plate_trajectory(nx: int = 8, ny: int = 6, num_steps: int = 8,
-                          dt: float = 0.01) -> Dict[str, np.ndarray]:
+                          dt: float = 0.01, descent: float = 0.01) -> Dict[str, np.ndarray]:
     """DeformingPlate-like Lagrangian trajectory with a ``world_pos``
     target (copy of graph_physics_tpu/dataset/synthetic.py:
     make_plate_trajectory :83): a sheet of NORMAL nodes at z=0 (one HANDLE
-    edge) and a bar of 6 OBSTACLE nodes above it that descends 0.01 a
-    frame, the sheet deflecting under it. The cells cover the sheet only:
-    the obstacle's nodes join the graph through world edges alone."""
+    edge) and a bar of 6 OBSTACLE nodes above it that descends ``descent``
+    (JAX's 0.01) a frame, the sheet deflecting under it. The cells cover
+    the sheet only: the obstacle's nodes join the graph through world
+    edges alone. Other descents give trajectories of the same mesh whose
+    contacts differ."""
     pos2d, cells = grid_mesh(nx, ny, 1.0, 0.6)
     n_sheet = len(pos2d)
     sheet = np.concatenate([pos2d, np.zeros((n_sheet, 1))], axis=1)
@@ -149,7 +151,7 @@ def make_plate_trajectory(nx: int = 8, ny: int = 6, num_steps: int = 8,
     world = np.zeros((num_steps, n, 3), np.float32)
     for k in range(num_steps):
         w = pos.copy()
-        drop = 0.01 * k
+        drop = descent * k
         w[n_sheet:, 2] -= drop  # the obstacle descends
         d = np.linalg.norm(pos[:n_sheet, None, :2] - w[None, n_sheet:, :2], axis=-1).min(axis=1)
         deflect = np.clip(0.08 - drop - d * 0.2, a_min=None, a_max=0.0)

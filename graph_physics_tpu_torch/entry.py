@@ -53,6 +53,16 @@ FrameBuilder with the panels feature builder (external/panels.py) as
 FusedTopologyManager("transformer") chooses (NK), and the train step of
 panels.json: noise 0.01 on the velocity, the 4-term MultiLoss with
 least-squares gradients, clipped AdamW with the cosine warmup.
+``plate_rollout_setup`` rolls DeformingPlate out (plate.json's
+transformer, or its MeshGraphNet with ``model="epd"``) from frame 0 of R
+synthetic plates whose obstacles descend at different rates, packed
+[T, N, R, F], with each frame's sidecar only reserving its slots: the
+rollout finds the world edges again at every step on the device
+(training/rollout.DynamicWorldEdges, in either track).
+``aneurysm_rollout_setup`` rolls out coarse-aneurysm.json's or
+pinn-aneurysm.json's transformer (10 blocks, hidden 64, 4 heads) on R
+synthetic aneurysm trajectories built as ``--external aneurysm`` builds
+them, carrying the acceleration columns of x (``--use_previous_data``).
 Every setup runs on the card unless the caller passes another device.
 """
 
@@ -462,6 +472,165 @@ def plate_train_setup(device="cuda", *, batch: int = 64, **kw) -> CylinderTrainS
     state, step = make_trainer(base.simulator, preprocess)
     return CylinderTrainSetup(simulator=base.simulator, graph=base.graph, tiling=base.tiling,
                               state=state, train_step=step, device_preprocess=preprocess)
+
+
+@dataclass
+class RolloutSetup:
+    """R same-mesh trajectories, packed for make_batched_rollout_fn."""
+
+    simulator: Simulator
+    frames: MeshGraph  # x [T, N, R, F], y [T, N, R, F_out], a sidecar [T, W, R, ...]
+    tiling: Tiling
+    #: make_batched_rollout_fn's keyword arguments: frame_transform,
+    #: dynamic_world_edges, previous_data_slice
+    rollout_kw: Dict[str, Any]
+    trajectories: List[Dict[str, np.ndarray]]  # the host trajectories
+    host: List[MeshGraph]  # each trajectory's host graph (trainer.stack_trajectory)
+
+
+#: plate_rollout_setup's obstacle descents a frame, one a trajectory: JAX's
+#: 0.01 first; contacts start between frames 5 and 8
+PLATE_DESCENTS = (0.01, 0.0085, 0.0115, 0.009, 0.011, 0.0095, 0.0105, 0.008)
+
+
+def plate_rollout_setup(device="cuda", *, model: str = "transformer", trajectories: int = 8,
+                        steps: int = 16, nx: int = 44, ny: int = 30,
+                        edge_budget: int = PLATE_BUDGET, radius: float = PLATE_RADIUS,
+                        track_predicted: bool = True, k_per_node: int = 16,
+                        mp_steps: Optional[int] = None, hidden: Optional[int] = None,
+                        seed: int = 0) -> RolloutSetup:
+    """DeformingPlate rolled out ``steps`` steps from frame 0 of
+    ``trajectories`` synthetic nx x ny plates (obstacle descents
+    PLATE_DESCENTS), in the layout FusedTopologyManager(``model``) chooses,
+    with world edges found again at every step (a DynamicWorldEdges of
+    ``edge_budget // 2`` pairs a direction; the frames' sidecars, built at
+    radius 1e-12 as the CLIs build validation frames, reserve the slots)
+    and the world-position edge features after them. ``model``:
+    plate.json's transformer or DeformingPlate's MeshGraphNet ("epd"), at
+    their widths unless ``mp_steps``/``hidden``, weights from ``seed``,
+    normalizer statistics from the first trajectory's frames with the
+    host's world edges."""
+    from graph_physics_tpu_torch.training.rollout import DynamicWorldEdges
+    from graph_physics_tpu_torch.training.trainer import rollout_graph, stack_trajectory
+    from graph_physics_tpu_torch.training.transforms import (
+        WorldPosConfig,
+        append_world_pos_features,
+        make_eval_transform,
+    )
+
+    trajs = [synthetic.make_plate_trajectory(nx, ny, num_steps=steps + 1,
+                                             descent=PLATE_DESCENTS[i % len(PLATE_DESCENTS)])
+             for i in range(trajectories)]
+    host = [stack_trajectory(plate_frames(traj, range(steps), edge_budget, 1e-12, model=model))
+            for traj in trajs]
+    frames = rollout_graph(host, device)
+    layout = host[0].layout
+    kw = {k: v for k, v in (("mp_steps", mp_steps), ("hidden", hidden)) if v is not None}
+    if model == "epd":
+        sim = make_plate_epd_simulator(layout, seed=seed, **kw)
+    else:
+        sim = make_plate_simulator(layout, seed=seed, **kw)
+    sim = sim.to(device)
+    stats = MeshGraph.from_numpy(pack_frames(plate_frames(
+        trajs[0], range(steps), edge_budget, radius, model=model)), device)
+    sim.prepare(append_world_pos_features(stats, WorldPosConfig(0, 3)), is_training=True)
+    dynamic = DynamicWorldEdges(world_pos_start=0, world_pos_end=3, radius=radius,
+                                budget=edge_budget // 2, k_per_node=k_per_node,
+                                track_predicted=track_predicted)
+    return RolloutSetup(simulator=sim, frames=frames, tiling=layout,
+                        rollout_kw=dict(frame_transform=make_eval_transform(WorldPosConfig(0, 3)),
+                                        dynamic_world_edges=dynamic),
+                        trajectories=trajs, host=host)
+
+
+#: the aneurysm configs of training_config/
+ANEURYSM_CONFIGS = {name: Path(__file__).resolve().parents[1] / "training_config"
+                    / f"{name}-aneurysm.json" for name in ("coarse", "pinn")}
+#: the aneurysm trajectories' time step (synthetic.make_aneurysm_trajectory)
+ANEURYSM_DT = 0.01
+
+
+def aneurysm_param(config: str = "coarse") -> Dict:
+    """training_config/coarse-aneurysm.json or pinn-aneurysm.json."""
+    import json
+
+    with open(ANEURYSM_CONFIGS[config]) as f:
+        return json.load(f)
+
+
+def aneurysm_fields(nx: int = 44, ny: int = 32, num_steps: int = 18,
+                    dt: float = ANEURYSM_DT) -> Dict[str, np.ndarray]:
+    """A synthetic aneurysm trajectory (synthetic.make_aneurysm_trajectory,
+    nx x ny nodes) as the xdmf dataset reads its files
+    (dataset/xdmf_dataset.trajectory_fields)."""
+    from graph_physics_tpu_torch.dataset.xdmf_dataset import trajectory_fields
+
+    traj = synthetic.make_aneurysm_trajectory(nx, ny, num_steps, dt)
+    return trajectory_fields(traj["mesh_pos"], traj["cells"],
+                             {k: v for k, v in traj.items() if k not in ("mesh_pos", "cells")})
+
+
+def aneurysm_frame_config(config: str = "coarse", masking_ratio: Optional[float] = None):
+    """The aneurysm config's frame configuration as ``cli.train --external
+    aneurysm`` makes it: external/aneurysm.build_features, which reads the
+    previous frame's data."""
+    from graph_physics_tpu_torch.external import get_feature_builder
+    from graph_physics_tpu_torch.training import config as config_lib
+
+    return config_lib.get_frame_config(aneurysm_param(config), masking_ratio=masking_ratio,
+                                       use_previous_data=True,
+                                       extra_node_features=get_feature_builder("aneurysm"))
+
+
+def aneurysm_previous_data(fields: Dict[str, np.ndarray], dt: float = ANEURYSM_DT
+                           ) -> Tuple[int, int]:
+    """The columns of x where external/aneurysm.build_features puts the
+    acceleration for these fields: the rollout's ``previous_data_slice``
+    (``--previous_data_start``, ``--previous_data_end``)."""
+    from graph_physics_tpu_torch.dataset.preprocessing import extract_frame
+    from graph_physics_tpu_torch.external.aneurysm import acceleration_columns
+
+    meta = synthetic.xdmf_meta_dict(len(fields["mesh_pos"]), dt)
+    return acceleration_columns(extract_frame(fields, 1, meta, ("Vitesse",),
+                                              with_previous=True))
+
+
+def aneurysm_rollout_setup(device="cuda", *, config: str = "coarse", trajectories: int = 8,
+                           steps: int = 16, nx: int = 44, ny: int = 32,
+                           mp_steps: Optional[int] = None, carry: bool = True,
+                           seed: int = 0) -> RolloutSetup:
+    """An aneurysm config's transformer rolled out ``steps`` steps from
+    frame 1 (frame 0 is the first's previous frame) of ``trajectories``
+    R windows of one synthetic nx x ny aneurysm trajectory, window r
+    starting r frames later, in the layout FusedTopologyManager
+    ("transformer") chooses; with ``carry`` the rollout carries the
+    acceleration columns (:func:`aneurysm_previous_data`). Weights from
+    ``seed``, normalizer statistics from the first window's frames."""
+    from graph_physics_tpu_torch.dataset.preprocessing import FrameBuilder
+    from graph_physics_tpu_torch.training import config as config_lib
+    from graph_physics_tpu_torch.training.trainer import rollout_graph, stack_trajectory
+
+    param = aneurysm_param(config)
+    if mp_steps is not None:
+        param["model"]["message_passing_num"] = mp_steps
+    fields = aneurysm_fields(nx, ny, trajectories + steps + 1)
+    builder = FrameBuilder(aneurysm_frame_config(config),
+                           synthetic.xdmf_meta_dict(len(fields["mesh_pos"]), ANEURYSM_DT))
+    manager = FusedTopologyManager("transformer")
+    built = [manager.transform_frame(builder.build(fields, t, cache_key=0, train=False))
+             for t in range(1, trajectories + steps)]
+    host = [stack_trajectory(built[r:r + steps]) for r in range(trajectories)]
+    frames = rollout_graph(host, device)
+    layout = host[0].layout
+    sim = config_lib.get_simulator(param, config_lib.get_model(param, dtype=torch.bfloat16))
+    sim.model.tiling = layout
+    reset_parameters(sim, torch.Generator().manual_seed(seed))
+    sim = sim.to(device)
+    sim.prepare(MeshGraph.from_numpy(pack_frames(built[:steps]), device), is_training=True)
+    prev = aneurysm_previous_data(fields) if carry else None
+    return RolloutSetup(simulator=sim, frames=frames, tiling=layout,
+                        rollout_kw=dict(previous_data_slice=prev), trajectories=[fields],
+                        host=host)
 
 
 #: the panels workload's config and its frames' target field

@@ -4,10 +4,10 @@ loss/training blocks, and the dataset's meta.json).
 
 Counterpart of graph_physics_tpu/training/config.py: the h5 and xdmf
 datasets, the data and physics losses (``LossType``, ``MultiLoss``) with
-their gradient method. Options that belong to later queue items raise
-NotImplementedError naming their ROADMAP item: the rollout's dynamic
-world edges (A 5.2), the temporal block, RoPE and gates in the
-GraphNetBlock, gated MLPs, multigrid, remat and spatial MTP (A 7).
+their gradient method, the rollout's dynamic world edges. Options that
+belong to later queue items raise NotImplementedError naming their
+ROADMAP item: the temporal block, RoPE and gates in the GraphNetBlock,
+gated MLPs, multigrid, remat and spatial MTP (A 7).
 """
 
 from __future__ import annotations
@@ -113,7 +113,8 @@ def get_world_configs(param: Dict[str, Any]):
     ``(WorldConfig, WorldPosConfig)``, or (None, None) without
     ``world_pos_parameters.use`` (config.py:get_world_configs :129): radius
     0.03 and a budget of 1,024 edges unless set. FrameBuilder's layout is
-    JAX's default, the concat one; the CLIs switch to the sidecar."""
+    JAX's default, the concat one; the CLIs switch to the sidecar where
+    the batch is packed, and for every rollout."""
     wp = param.get("transformations", {}).get("world_pos_parameters", {})
     if not wp.get("use", False):
         return None, None
@@ -126,14 +127,26 @@ def get_world_configs(param: Dict[str, Any]):
 
 
 def get_dynamic_world_edges(param: Dict[str, Any]):
-    """None unless ``world_pos_parameters.dynamic_rollout`` is set
-    (config.py:get_dynamic_world_edges :147); the rollout's on-device
-    rediscovery of world edges raises: ROADMAP A 5.2."""
+    """The rollout's world edges found again on the device at every step
+    (training/rollout.DynamicWorldEdges), or None unless
+    ``world_pos_parameters`` has ``use`` and ``dynamic_rollout``
+    (config.py:get_dynamic_world_edges :147): ``edge_budget // 2`` pairs a
+    direction, ``k_per_node`` (16) nearest a node, ``radius`` (0.03);
+    ``dynamic_rollout_track`` "predicted" (the default) searches the
+    predicted positions, "ground_truth" the frames' own."""
+    from graph_physics_tpu_torch.training.rollout import DynamicWorldEdges
+
     wp = param.get("transformations", {}).get("world_pos_parameters", {})
-    if wp.get("use", False) and wp.get("dynamic_rollout", False):
-        raise not_ported("the rollout's dynamic world edges "
-                         "(world_pos_parameters.dynamic_rollout)", "A 5.2")
-    return None
+    if not (wp.get("use", False) and wp.get("dynamic_rollout", False)):
+        return None
+    track = wp.get("dynamic_rollout_track", "predicted")
+    if track not in ("predicted", "ground_truth"):
+        raise ValueError("world_pos_parameters.dynamic_rollout_track must be "
+                         f"'predicted' or 'ground_truth', got {track!r}")
+    return DynamicWorldEdges(
+        world_pos_start=wp["world_pos_index_start"], world_pos_end=wp["world_pos_index_end"],
+        radius=wp.get("radius", 0.03), budget=wp.get("edge_budget", 1024) // 2,
+        k_per_node=wp.get("k_per_node", 16), track_predicted=(track == "predicted"))
 
 
 def get_frame_config(param: Dict[str, Any], masking_ratio: Optional[float] = None,

@@ -29,8 +29,12 @@ Counterpart of graph_physics_tpu/training/trainer.py: ``TrainerConfig``
     over this run's ``num_steps``, then the world-position edge
     features), and ``world_pos``'s eval transform runs on each rollout
     step's graph; JAX's Trainer takes the two callables built by its CLI
-    instead. A world-edge sidecar rides in every batch and, per frame, in
-    every validation trajectory.
+    instead. A world-edge sidecar rides in every packed batch and, per
+    frame, in every validation trajectory; an unpacked batch may hold
+    concat-layout frames instead, stacked with their own edge arrays.
+  * ``cfg.previous_data_slice`` and ``dynamic_world_edges`` reach both
+    validation rollouts (training/rollout.py; trainer.py:235-248): the
+    carried columns of x, the world edges found again at every step.
 
   * ``loss_fn`` is a plain loss, a ``LossType`` or a ``MultiLoss``, whose
     physics terms take ``gradient_method`` (training/step.py); each logged
@@ -38,8 +42,7 @@ Counterpart of graph_physics_tpu/training/trainer.py: ``TrainerConfig``
     ``train_<display name>`` too (``train_multiloss`` the weighted sum).
 
 Options of later queue items raise NotImplementedError naming their
-ROADMAP item: ``dynamic_world_edges`` (A 5.2), ``previous_data_slice``
-(A 5.3), ``mtp`` (A 7), ``mesh`` (A 9), ``save_val_visualizations``
+ROADMAP item: ``mtp`` (A 7), ``mesh`` (A 9), ``save_val_visualizations``
 (``training/callback.py``, A 4's remainder).
 """
 
@@ -168,8 +171,6 @@ class Trainer:
                  dynamic_world_edges=None, noise_cfg: Optional[NoiseConfig] = None,
                  world_pos: Optional[WorldPosConfig] = None, device="cuda"):
         for value, what, item in (
-                (cfg.previous_data_slice, "previous_data_slice", "A 5.3"),
-                (dynamic_world_edges, "dynamic world edges", "A 5.2"),
                 (mtp, "spatial MTP", "A 7"),
                 (mesh, "a device mesh", "A 9")):
             if value is not None:
@@ -219,10 +220,12 @@ class Trainer:
             self._fused_mgr = FusedTopologyManager(
                 "epd" if epd else "transformer",
                 nk=cfg.fused_gn_nk if epd else cfg.fused_attn_nk)
-        eval_transform = make_eval_transform(world_pos)
-        self.rollout_fn = make_rollout_fn(self.sim, frame_transform=eval_transform)
-        self.batched_rollout_fn = make_batched_rollout_fn(self.sim,
-                                                          frame_transform=eval_transform)
+        self._dynamic_world = dynamic_world_edges is not None
+        rollout_kw = dict(previous_data_slice=cfg.previous_data_slice,
+                          frame_transform=make_eval_transform(world_pos),
+                          dynamic_world_edges=dynamic_world_edges)
+        self.rollout_fn = make_rollout_fn(self.sim, **rollout_kw)
+        self.batched_rollout_fn = make_batched_rollout_fn(self.sim, **rollout_kw)
         self.ckpt_dir = os.path.join(cfg.out_dir, cfg.run_name, "checkpoints")
         self.manager = ckpt_lib.make_manager(self.ckpt_dir, best_metric=cfg.monitor_metric)
         #: validation trajectories stacked on the host, by topology
@@ -350,14 +353,18 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _val_host_groups(self, n_traj: int):
-        """[(trajectory ids, [host trajectory graph ...])] by topology."""
+        """[(trajectory ids, [host trajectory graph ...])] by topology; with
+        dynamic world edges by mesh positions too, which a packed rollout
+        shares and the world edges' features read."""
         groups: Dict[tuple, list] = {}
+        shared = ("senders", "receivers", "edge_mask", "node_type", "node_mask")
+        if self._dynamic_world:
+            shared += ("pos",)
         for t in range(n_traj):
             traj = trajectory_graph(self.val_ds, t, self._fused_mgr)
             key = (traj.x.shape, traj.y.shape,
                    None if traj.edge_attr is None else np.shape(traj.edge_attr),
-                   *(np.asarray(getattr(traj, name)).tobytes() for name in
-                     ("senders", "receivers", "edge_mask", "node_type", "node_mask")))
+                   *(np.asarray(getattr(traj, name)).tobytes() for name in shared))
             groups.setdefault(key, []).append((t, traj))
         return [([t for t, _ in entries], [g for _, g in entries])
                 for entries in groups.values()]
@@ -413,10 +420,23 @@ def trajectory_graph(dataset, t: int, manager=None) -> MeshGraph:
     """Trajectory ``t``'s rollout frames (laid out by ``manager``, a
     FusedTopologyManager, when given) as one host graph: x, y [T, N, F],
     time [T], a world-edge sidecar's leaves [T, W, ...] (each frame's
-    own), the static leaves of frame 0."""
+    own), the static leaves of frame 0. Frames whose edge arrays differ
+    (concat-layout world edges) raise: a rollout takes world edges in a
+    sidecar, or, found again at every step, in a concat frame's reserved
+    tail, which is the same in every frame."""
     frames = dataset.trajectory_frames(t)
     if manager is not None:
         frames = [manager.transform_frame(f) for f in frames]
+    return stack_trajectory(frames, f"trajectory {t}")
+
+
+def stack_trajectory(frames: List[MeshGraph], label: str = "trajectory") -> MeshGraph:
+    """One trajectory's host frames as :func:`trajectory_graph` gives them."""
+    for field in ("senders", "receivers", "edge_mask"):
+        ref = np.asarray(getattr(frames[0], field))
+        if any(not np.array_equal(np.asarray(getattr(f, field)), ref) for f in frames[1:]):
+            raise ValueError(f"{label}: the frames' {field} differ; build rollout frames "
+                             "with world edges in the sidecar layout")
 
     def per_frame(name):
         if getattr(frames[0], name) is None:

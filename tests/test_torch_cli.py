@@ -256,12 +256,6 @@ def test_cuda_without_a_card_raises(workspace, cli):
 
 
 @pytest.mark.parametrize("flags,blocks,item", [
-    (["--use_previous_data"], {}, "A 5.3"),
-    ([], {"transformations": {"world_pos_parameters": {  # the concat layout
-        "use": True, "world_pos_index_start": 0, "world_pos_index_end": 2}}}, "A 5"),
-    (["--packed"], {"transformations": {"world_pos_parameters": {
-        "use": True, "world_pos_index_start": 0, "world_pos_index_end": 2,
-        "dynamic_rollout": True}}}, "A 5.2"),
     ([], {"training": {"use_temporal_block": True}}, "A 7"),
     ([], {"training": {"use_spatial_mtp": True}}, "A 7"),
     ([], {"model": {"use_gated_mlp": True}}, "A 7"),

@@ -12,9 +12,9 @@ batch 2, lr 1e-3, warmup 5:
   * pinn-aneurysm.json (the 3-term loss on finite differences) and
     coarse-aneurysm.json (the L2 loss), both ``--external aneurysm`` on the
     3-D surface fixture, train and predict, with finite losses and
-    predict's RMSE equal to the last validation's;
-  * ``cli.predict --use_previous_data`` (the rollout's previous-data slice)
-    still raises, naming ROADMAP A 5.3.
+    predict's RMSE equal to the last validation's.
+``--use_previous_data`` on the aneurysm configs is held against JAX in
+tests/test_torch_previous_data.py.
 """
 
 import json
@@ -120,10 +120,3 @@ def test_aneurysm_trains_and_predicts(fixtures, name):
     assert got.predictions.shape[-1] == 3  # 3-D velocity on the surface mesh
     assert stack.simulator.model.hidden_size == 64
 
-
-def test_predict_use_previous_data_names_its_roadmap_item(fixtures):
-    d, paths = fixtures
-    cfg = _config(d, paths, "panels")
-    with pytest.raises(NotImplementedError, match="ROADMAP A 5.3"):
-        predict_cli.main(["--training_parameters_path", cfg, "--model_path", str(d / "none"),
-                          "--use_previous_data", "--device", "cpu"])

@@ -48,6 +48,12 @@ extra giving the bits of none, and a plate ``epd`` train step with world
 edges in every sample against the plain path. Hidden 16 raises naming
 ROADMAP B 4, and hidden 24, which JAX does not fuse, runs the plain path
 with no launch. The
+radius search (ops/knn.radius_edges) on the card gives the CPU's index
+arrays on a grid of exact positions and the CPU's pairs on random ones,
+and a DeformingPlate rollout whose world edges are found again at every
+step, like an aneurysm rollout that carries its acceleration columns,
+launches its kernels once a block a step and keeps within 0.15 of the
+plain path's RMSE. The
 gumbel kernel draws the same Philox bits as its plain version, bit for bit, and
 its output is within 1e-5 of the plain version's (``logf`` on the card
 against ``torch.log``, at |noise| < 17); the Transolver train step runs
@@ -1957,3 +1963,101 @@ def test_plate_epd_plain_training_repeats_itself_over_the_compared_steps(cuda_de
     assert all(np.isfinite(losses).ravel())
     assert max(rel["nudged"][:PLATE_EPD_COMPARED_STEPS]) <= LATER_LOSS_RTOL, rel
     assert max(rel["again"][:PLATE_EPD_COMPARED_STEPS]) <= LATER_LOSS_RTOL, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_radius_edges_on_the_card_match_the_cpu(cuda_device, batched):
+    """ops/knn.radius_edges on the card against the CPU on a regular grid of
+    exactly representable positions (equal distances everywhere, the cap
+    and the budget binding): the same index arrays; and on random
+    positions (2,000 points, 3 samples when batched) the same pairs, apart
+    from pairs within 1e-6 of r² (none are expected, and any is printed)."""
+    from graph_physics_tpu_torch.ops.knn import radius_edges
+
+    g = np.stack(np.meshgrid(np.arange(12), np.arange(10), indexing="ij"), -1).reshape(-1, 2)
+    grid = np.concatenate([g * 0.125, np.zeros((len(g), 1))], 1).astype(np.float32)
+    rng = np.random.default_rng(0)
+    ma = rng.random(len(grid)) < 0.3
+    for radius, budget, k in ((0.2, 64, 4), (0.3, 1000, 16), (0.26, 37, 3)):
+        args = [torch.tensor(grid), torch.tensor(grid), radius, budget]
+        kw = dict(mask_a=torch.tensor(ma), mask_b=torch.tensor(~ma), k_per_node=k,
+                  with_stats=True)
+        want = radius_edges(*args, **kw)
+        got = radius_edges(*[a.to(cuda_device) if torch.is_tensor(a) else a for a in args],
+                           **{k_: v.to(cuda_device) if torch.is_tensor(v) else v
+                              for k_, v in kw.items()})
+        for w, c in zip(want, got):
+            assert torch.equal(c.cpu(), w)
+    shape = (3, 2000, 3) if batched else (2000, 3)
+    pos = torch.tensor(rng.uniform(0, 4.0, shape).astype(np.float32))
+    mask = torch.tensor(rng.random(shape[:-1]) < 0.1)
+    want = radius_edges(pos, pos, 0.25, 2048, mask_a=mask, mask_b=~mask)
+    got = [t.cpu() for t in radius_edges(pos.to(cuda_device), pos.to(cuda_device), 0.25, 2048,
+                                         mask_a=mask.to(cuda_device),
+                                         mask_b=(~mask).to(cuda_device))]
+    if not batched:
+        want, got = [t[None] for t in want], [t[None] for t in got]
+        pos = pos[None]
+    for b in range(pos.shape[0]):
+        sets = [set(zip(a[b][v[b]].tolist(), c[b][v[b]].tolist())) for a, c, v in (want, got)]
+        diff = sets[0] ^ sets[1]
+        p = pos[b].double()
+        off = [(i, j) for i, j in diff
+               if abs(float(((p[i] - p[j]) ** 2).sum()) - 0.0625) > 1e-6 * 0.0625]
+        print(f"radius_edges card vs CPU, sample {b}: {len(sets[0])} pairs, {len(diff)} differ, "
+              f"{len(off)} off the radius")
+        assert sets[0] and not off
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["transformer", "epd"])
+def test_dynamic_sidecar_rollout_kernel_path_matches_plain_path(cuda_device, model):
+    """DeformingPlate rolled out with its world edges found again at every
+    step (entry.plate_rollout_setup: 3 trajectories of a 14x10 plate,
+    radius 0.12, 128 sidecar slots, 2 blocks): the kernel path (rows 5 and
+    9, or row 1 with the world aggregate) launches once a block a step, and
+    its RMSE is within 0.15 of the plain path's (PERF.md §2)."""
+    from graph_physics_tpu_torch.training.rollout import make_batched_rollout_fn
+
+    setup = entry.plate_rollout_setup(cuda_device, model=model, trajectories=3, steps=8,
+                                      nx=14, ny=10, radius=0.12, edge_budget=128, mp_steps=2,
+                                      hidden=32 if model == "epd" else 64)
+    fn = (fused_edge_attention_nk if model == "transformer" else fused_gn_block_nk) \
+        if isinstance(setup.tiling, NKTiling) else \
+        (fused_edge_attention_csr if model == "transformer" else fused_gn_block_csr)
+    before = fn.launches
+    res = make_batched_rollout_fn(setup.simulator, **setup.rollout_kw)(setup.frames)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2 * 8
+    plain = copy.deepcopy(setup.simulator)
+    plain.model.tiling = None
+    res_plain = make_batched_rollout_fn(plain, **setup.rollout_kw)(setup.frames)
+    assert torch.isfinite(res.predictions).all()
+    torch.testing.assert_close(res.rmse_all_rollout, res_plain.rmse_all_rollout, rtol=0.15,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_aneurysm_rollout_with_previous_data_kernel_path_matches_plain_path(cuda_device):
+    """coarse-aneurysm.json's transformer (2 blocks) rolled out on a 12x10
+    synthetic aneurysm with the acceleration columns carried
+    (entry.aneurysm_rollout_setup): the attention and FFN kernels launch
+    once a block a step, and the RMSE is within 0.15 of the plain path's."""
+    from graph_physics_tpu_torch.training.rollout import make_batched_rollout_fn
+
+    setup = entry.aneurysm_rollout_setup(cuda_device, trajectories=3, steps=6, nx=12, ny=10,
+                                         mp_steps=2)
+    assert setup.rollout_kw["previous_data_slice"] == (6, 9)
+    attn = (fused_edge_attention_nk if isinstance(setup.tiling, NKTiling)
+            else fused_edge_attention_csr)
+    before = (attn.launches, fused_gated_ffn.launches)
+    res = make_batched_rollout_fn(setup.simulator, **setup.rollout_kw)(setup.frames)
+    torch.cuda.synchronize()
+    assert (attn.launches, fused_gated_ffn.launches) == (before[0] + 12, before[1] + 12)
+    plain = copy.deepcopy(setup.simulator)
+    plain.model.tiling = None
+    res_plain = make_batched_rollout_fn(plain, **setup.rollout_kw)(setup.frames)
+    assert torch.isfinite(res.predictions).all()
+    torch.testing.assert_close(res.rmse_all_rollout, res_plain.rmse_all_rollout, rtol=0.15,
+                               atol=0)

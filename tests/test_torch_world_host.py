@@ -143,13 +143,6 @@ def test_frame_builder_sidecar_matches_jax(no_native, budget):
     assert got.wedge_senders.shape == (budget, 4)
 
 
-def test_concat_world_layout_raises():
-    meta = t_syn.plate_meta_dict(STEPS)
-    cfg = t_pre.FrameConfig(targets=("world_pos",), world=t_pre.WorldConfig(0, 3, 6))
-    with pytest.raises(NotImplementedError, match="ROADMAP A 5.2"):
-        t_pre.FrameBuilder(cfg, meta)
-
-
 def test_layout_keeps_the_sidecar():
     """The fused layout changes no node id: the sidecar's used slots pass
     through, its unused slots point at the layout's last node, frame by
