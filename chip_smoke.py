@@ -12,7 +12,9 @@ hidden-128 gated-FFN kernels, ``epd`` at MeshGraphNets' width (hidden
 DeformingPlate's MeshGraphNet (an ``epd`` with world edges) through the
 GraphNetBlock kernels' world seam, DeformingPlate's rollouts with their
 world edges found again at every step, the aneurysm configs with the
-rollout's previous-data slice, and the concat world layout.
+rollout's previous-data slice, the concat world layout, and both
+families trained on sub-mesh partitions (RCB parts through the host mesh
+library, csrc/meshops.cc, built with g++).
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --parent CHECKOUT   # also times another checkout's
@@ -280,7 +282,23 @@ Phases (any failure raises, so the exit code is non-zero):
      rollout;
  43. the concat world layout: plate.json unpacked (world edges after each
      frame's mesh edges), 2 train steps of Trainer.fit on the plain path,
-     finite losses, no kernel launch.
+     finite losses, no kernel launch;
+ 44. sub-mesh partitions, epd: cylinder.json's model (hidden 32, 5
+     blocks) through Trainer.fit on the RCB parts of a 128x64 cylinder
+     grid (8,192 nodes), 4 parts and parts of at most 3,000 nodes (3, of
+     odd sizes), validation on the full mesh: the host mesh library's
+     parts equal its plain version's, one layout a part plus the full
+     mesh, rows 1/2 (3/4 where a part takes CSR) launched blocks x steps
+     (+ validation) times, finite losses within LATER_LOSS_RTOL of the
+     same fit on the plain path, predict's RMSE validate's, the rollout's
+     first frame through utils/vtu.py and back; every function of the
+     host mesh library against its plain version on this mesh; the
+     loader's host ms a batch with partitions and without, on the library
+     and on its plain versions; a step's time on a part;
+ 45. sub-mesh partitions, transformer: coarse-aneurysm.json (10 blocks,
+     hidden 64, 4 heads, ``--external aneurysm``, previous data) on the
+     parts (at most 512 nodes: 3) of phase 42's 1,408-node mesh, the same
+     checks with rows 5/6 (7/8) and 9/10.
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
 the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
@@ -1180,12 +1198,13 @@ TF_FIT_BATCH = 64
 
 def memory_dataset_class():
     """A BaseDataset over trajectory dicts held in memory (the card's
-    machine has no h5py, so no H5Dataset)."""
+    machine has no h5py, so no H5Dataset); ``partitions`` (num_partitions,
+    max_nodes_per_partition) go to BaseDataset."""
     from graph_physics_tpu_torch.dataset.base import BaseDataset
 
     class MemoryDataset(BaseDataset):
-        def __init__(self, trajectories, meta, frame_config, seed=0):
-            super().__init__(frame_config, meta, seed=seed)
+        def __init__(self, trajectories, meta, frame_config, seed=0, **partitions):
+            super().__init__(frame_config, meta, seed=seed, **partitions)
             self._trajs = list(trajectories)
             self._traj_len = [int(next(t[k] for k in ("velocity", "world_pos", "Vitesse")
                                        if k in t).shape[0]) for t in self._trajs]
@@ -1774,6 +1793,8 @@ def main():
     # 41.-43. world edges found again in rollouts, previous data on the
     # aneurysm configs, the concat world layout
     option_launches = option_phases(device, card)
+    # 44.-45. sub-mesh partitions: epd and the transformer on RCB parts
+    submesh_launches = submesh_phases(device, card)
     for rec in (*tf_records, *tf_train_records, *graded_records, *graded_train_records):
         if rec["name"] in world:
             rec["world"] = world[rec["name"]]
@@ -1813,6 +1834,9 @@ def main():
         for name, (fwd_n, bwd_n) in option_launches.items():
             if name == "fused_gn_block_nk":  # row 1 at the plate MeshGraphNet's width
                 name = gn_record_name("nk", MGN_HIDDEN, False)
+            rec["launches"] += (fwd_n if rec["name"] == name else
+                                bwd_n if rec["name"] == f"{name}_backward" else 0)
+        for name, (fwd_n, bwd_n) in submesh_launches.items():  # hidden 32 and 64
             rec["launches"] += (fwd_n if rec["name"] == name else
                                 bwd_n if rec["name"] == f"{name}_backward" else 0)
         if rec["name"] in head32:  # rows 5/6 at panels' head width 32
@@ -4817,13 +4841,396 @@ def option_phases(device, card):
     log("aneurysm " + json.dumps({"card": card, **aneurysm}))
     concat = concat_phase(device, card)
     log("concat " + json.dumps({"card": card, **concat}))
+    return merge_launches(dyn_launches, an_launches)
+
+
+#: phase 44: the sub-mesh workload's mesh (128 x 64 = 8,192 nodes), the
+#: training trajectory's frames (16 samples a part: one B=16 batch a part)
+#: and the two fits' partitions: 4 parts, and parts of at most 3,000 nodes
+#: (3 parts, of 2,731, 2,730 and 2,731 nodes)
+SUBMESH_MESH = (128, 64)
+SUBMESH_FRAMES, SUBMESH_BATCH = 17, 16
+SUBMESH_RUNS = ({"num_partitions": 4}, {"max_nodes_per_partition": 3000})
+#: phase 45: the aneurysm sub-meshes' node cap (1,408 nodes: 3 parts)
+ANEURYSM_PART_NODES = 512
+#: phases 44-45: host batches timed on the loader, each way
+LOADER_BATCHES = 8
+
+
+@contextlib.contextmanager
+def plain_native():
+    """The host mesh library's functions replaced by their plain (numpy)
+    versions while the block runs, for the loader's timings."""
+    from graph_physics_tpu_torch import native
+
+    saved = {name: getattr(native, name) for name in native.PLAIN}
+    for name, fn in native.PLAIN.items():
+        setattr(native, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(native, name, fn)
+
+
+def library_checks(label, traj):
+    """Each function of the host mesh library against its plain version on
+    the mesh of ``traj`` (a trajectory dict), exactly: pair searches as
+    sorted sets at twice the median edge length, the packing functions on
+    four frames of its first dynamic field. Returns {function: ms of the
+    library, ms of the plain version}."""
+    import numpy as np
+    from graph_physics_tpu_torch import native
+
+    pos = np.asarray(traj["mesh_pos"][0], np.float32)
+    cells, n = traj["cells"][0], len(traj["mesh_pos"][0])
+    ei = native.faces_to_edges(cells, n)
+    radius = float(2 * np.median(np.linalg.norm(pos[ei[0]] - pos[ei[1]], axis=1)))
+    key = next(k for k in traj if k not in ("cells", "mesh_pos", "node_type"))
+    vals = [np.ascontiguousarray(traj[key][i], np.float32) for i in range(4)]
+    block = np.ascontiguousarray(np.stack(vals))
+    w = block.shape[-1]
+
+    def pack_block(fn):
+        out = np.zeros((n + 7, 4, w + 2), np.float32)
+        fn(block, out, 1)
+        return out
+
+    def pairs(p):
+        return p[np.lexsort((p[:, 1], p[:, 0]))]
+
+    cases = {
+        "faces_to_edges": (lambda f: f(cells, n), None),
+        "k_hop": (lambda f: f(ei, n, 2), None),
+        "radius_pairs": (lambda f: f(pos, radius), pairs),
+        "radius_cross_pairs": (lambda f: f(pos[::7], pos[1::7], radius), pairs),
+        "rcb_labels": (lambda f: [f(pos, p) for p in (3, 4)], None),
+        "pack_rows": (lambda f: f(vals), None),
+        "repeat_rows": (lambda f: f(vals[0], 16), None),
+        "pack_block": (pack_block, None),
+    }
+    times, bad = {}, []
+    for name, (call, canon) in cases.items():
+        t0 = time.perf_counter()
+        got = call(getattr(native, name))
+        t1 = time.perf_counter()
+        want = call(native.PLAIN[name])
+        t2 = time.perf_counter()
+        if canon is not None:
+            got = canon(got)
+        same = all(np.array_equal(a, b) for a, b in zip(
+            got if isinstance(got, list) else [got], want if isinstance(want, list) else [want]))
+        if not same:
+            bad.append(name)
+        times[name] = (1000 * (t1 - t0), 1000 * (t2 - t1))
+    log(f"{label}: host mesh library against its plain versions on {n} nodes ({ei.shape[1]} "
+        f"edges, radius {radius:.4g}): " + ", ".join(
+            f"{k} {a:.3f} ms / {b:.3f} ms" for k, (a, b) in times.items())
+        + ("; all equal" if not bad else f"; DIFFER: {bad}"))
+    if bad:
+        raise AssertionError(f"{label}: the library differs from its plain version in {bad}")
+    return times
+
+
+def loader_host_ms(ds, batch, family):
+    """Host milliseconds of one packed batch of ``ds`` laid out for
+    ``family`` (the fit's loader: frames built, laid out, packed), the mean
+    over LOADER_BATCHES batches after one that builds the layouts."""
+    from graph_physics_tpu_torch.dataset.loader import BatchLoader
+    from graph_physics_tpu_torch.training.fused import FusedTopologyManager
+
+    mgr = FusedTopologyManager(family)
+    loader = BatchLoader(ds, batch, seed=0, packed=True, device_put=False,
+                         frame_transform=mgr.transform_frame,
+                         packed_transform=mgr.transform_packed)
+    chunks = loader._batched_indices()
+    for c in chunks[:len(set(ds.indices_for(i)[2] for i in range(len(ds))))]:
+        loader.host_batch(c)  # each part's layout and skeleton built once
+    chunks = list(itertools.islice(itertools.cycle(chunks), LOADER_BATCHES))
+    t0 = time.perf_counter()
+    for c in chunks:
+        loader.host_batch(c)
+    return 1000 * (time.perf_counter() - t0) / len(chunks)
+
+
+def loader_times(label, make_ds, batch, family):
+    """The loader's host ms a batch and the dataset's set-up ms (mesh edges,
+    partitions), with partitions and without, on the library and on its
+    plain versions."""
+    out = {}
+    for parts in (True, False):
+        for lib in ("library", "plain"):
+            with plain_native() if lib == "plain" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                ds = make_ds(parts)
+                setup = 1000 * (time.perf_counter() - t0)
+                out[f"{'parts' if parts else 'whole'}_{lib}"] = {
+                    "batch_host_ms": loader_host_ms(ds, batch, family), "setup_ms": setup}
+    log(f"{label}: loader host ms a B={batch} batch (set-up ms of the dataset): " + ", ".join(
+        f"{k} {v['batch_host_ms']:.3f} ({v['setup_ms']:.1f})" for k, v in out.items()))
+    return out
+
+
+def step_losses(trainer):
+    path = Path(trainer.cfg.out_dir) / trainer.cfg.run_name / f"{trainer.cfg.run_name}.metrics.jsonl"
+    return [r["loss"] for r in map(json.loads, path.read_text().splitlines()) if "loss" in r]
+
+
+def submesh_fit(label, param, train_ds, val_ds, device, card, batch, run, groups,
+                loss_fn, gradient_method=None, prev=None, predict_flags=()):
+    """Trainer.fit of ``param``'s model (bf16, weights from seed 0, packed,
+    the fused layouts) on the sub-meshes of ``train_ds``, one epoch, the
+    validation rollout on the full mesh of ``val_ds``; then the same fit
+    with every batch on the plain path (same layouts, batches, noise and
+    weights; both fits under deterministic algorithms), and predict from
+    the kernel fit's checkpoint. Checks: the
+    library's parts are its plain version's, the layout cache holds one
+    layout a part topology (parts of one topology share a layout) and one
+    for the full mesh, each group of wrappers in
+    ``groups`` ({name: [wrappers]}) launches blocks x steps (+ validation)
+    times, finite losses within LATER_LOSS_RTOL of the plain path's,
+    predict's RMSE validate's, and the rollout's first frame written with
+    utils/vtu.py reads back to the same arrays. Returns ({wrapper name:
+    (forward, backward)}, facts)."""
+    import numpy as np
+    import torch
+    from graph_physics_tpu_torch import native
+    from graph_physics_tpu_torch.cli import predict as predict_cli
+    from graph_physics_tpu_torch.cli.common import load_inference_stack
+    from graph_physics_tpu_torch.models.layers import lecun_parameters
+    from graph_physics_tpu_torch.training import config as config_lib
+    from graph_physics_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from graph_physics_tpu_torch.utils import gradcheck, vtu
+
+    wrappers = [k for ks in groups.values() for k in ks]
+
+    def trainer(name, kernels):
+        sim = config_lib.get_simulator(param, config_lib.get_model(param, dtype=torch.bfloat16))
+        lecun_parameters(sim, torch.Generator().manual_seed(0))
+        cfg = TrainerConfig(epochs=1, batch_size=batch, learning_rate=1e-3, warmup=100,
+                            log_every=1, packed=True, fused=True,
+                            out_dir=str(ROOT / "build" / "fit"), run_name=name, seed=0,
+                            previous_data_slice=prev)
+        shutil.rmtree(ROOT / "build" / "fit" / name, ignore_errors=True)
+        tr = Trainer(sim, train_ds, val_ds, loss_fn, cfg, gradient_method=gradient_method,
+                     noise_cfg=config_lib.get_noise_config(param), device=device)
+        if not kernels:  # the same layouts and batches, every block on the plain path
+            tr._use_layout = lambda graph: None
+        return tr
+
+    # the parts: the library's against its plain version's
+    pos, _, _ = train_ds._mesh(0)
+    parts, subs = train_ds._partitions.parts_for(0, *train_ds._mesh(0)[::2])
+    # parts of one topology (mirror images on a symmetric grid) share a layout
+    topologies = len({sub.tobytes() for sub, _ in subs})
+    lib = native.rcb_labels(pos, len(parts))
+    same_parts = bool(np.array_equal(lib, native.rcb_labels_plain(pos, len(parts))))
+    sizes = [len(p) for p in parts]
+
+    # both fits under deterministic algorithms (the plain path's index_add_
+    # sums add by atomics otherwise), so the comparison repeats run to run
+    tr = trainer(run, kernels=True)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    with gradcheck.deterministic():
+        tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = {k.__name__: launch_counts(k) for k in wrappers}
+    steps, n_blocks = tr.state.step, len(tr.sim.model.processor_list)
+    records = epoch_records(tr)
+    layouts = [(key, type(lay).__name__, lay.num_nodes, lay.total_rows)
+               for key, lay in tr._fused_mgr._tilings.items()]
+    want = (n_blocks * (steps + VAL_STEPS), n_blocks * steps)
+    got = {g: tuple(map(sum, zip(*(fit_launches[k.__name__] for k in ks))))
+           for g, ks in groups.items()}
+    kl = step_losses(tr)
+    log(f"{label}: {len(parts)} parts of {sizes} nodes, {topologies} topologies (library = "
+        f"plain version: {same_parts}), {n_blocks} blocks, hidden {tr.sim.model.hidden_size}, B={batch}, "
+        f"{steps} steps, validation {VAL_STEPS} rollout steps on the full mesh of "
+        f"{int(val_ds.get_frame(0, val_ds._start, train=False).n_node)} nodes: {fit_s:.1f} s "
+        f"({card})")
+    for key, kind, nodes, rows in layouts:
+        log(f"  layout {key[:2]}: {kind}, {nodes} nodes, {rows} rows")
+    log(f"  launches (forward, backward): {fit_launches}; by group {got}, expected {want} each")
+    log("  loss, kernel path: " + " ".join(f"{v:.6g}" for v in kl))
+    values = kl + [r[k] for r in records for k in ("train_loss_epoch", "val_all_rollout_rmse")]
+    if (not same_parts or len(layouts) != topologies + 1 or len(kl) != steps
+            or not all(math.isfinite(v) for v in values)
+            or any(v != want for v in got.values())):
+        raise AssertionError(f"{label}: parts equal {same_parts}, {len(layouts)} layouts for "
+                             f"{topologies} part topologies, {steps} steps, launches {got} (want {want}), "
+                             f"losses {values}")
+
+    # the plain path on the same batches
+    plain = trainer(run + "_plain", kernels=False)
+    reset_counts(wrappers)
+    with gradcheck.deterministic():
+        plain.fit()
+    torch.cuda.synchronize()
+    plain_launches = {k.__name__: launch_counts(k) for k in wrappers}
+    pl = step_losses(plain)
+    rel = [abs(a - b) / abs(b) for a, b in zip(kl, pl)]
+    val_k = records[-1]["val_all_rollout_rmse"]
+    val_p = epoch_records(plain)[-1]["val_all_rollout_rmse"]
+    log("  loss, plain path:  " + " ".join(f"{v:.6g}" for v in pl))
+    log(f"  loss relative difference max {max(rel):.6g} (limit {LATER_LOSS_RTOL}); validation "
+        f"rmse kernel path {val_k:.8g}, plain path {val_p:.8g} (limit {ROLLOUT_RTOL}); plain "
+        f"path launches {plain_launches}")
+    if (len(pl) != len(kl) or max(rel) > LATER_LOSS_RTOL
+            or abs(val_k - val_p) > ROLLOUT_RTOL * val_p
+            or any(v != (0, 0) for v in plain_launches.values())):
+        raise AssertionError(f"{label}: the kernel path is off the plain path's, or the plain "
+                             "path launched a kernel")
+
+    # predict from the checkpoint, as cli.predict --bf16 --fused runs it
+    cfg_path = Path(tr.cfg.out_dir) / run / "config.json"
+    cfg_path.write_text(json.dumps(param))
+    args = predict_cli.build_argparser().parse_args([
+        "--training_parameters_path", str(cfg_path), "--model_path", tr.ckpt_dir, "--bf16",
+        "--fused", "--device", str(device), *predict_flags])
+    reset_counts(wrappers)
+    stack = load_inference_stack(args, dataset=val_ds)
+    pred = predict_cli.predict(stack, fused=True)[0]
+    torch.cuda.synchronize()
+    predict_launches = {k.__name__: launch_counts(k) for k in wrappers}
+    got_p = {g: tuple(map(sum, zip(*(predict_launches[k.__name__] for k in ks))))
+             for g, ks in groups.items()}
+    want_p = (n_blocks * VAL_STEPS, 0)
+    prel = abs(pred.rmse_all_rollout - val_k) / val_k
+    log(f"  predict: launches by group {got_p}, expected {want_p} each; rmse_all_rollout "
+        f"{pred.rmse_all_rollout:.8g}, validate reported {val_k:.8g} (relative difference "
+        f"{prel:.3g}, limit {PREDICT_RTOL})")
+    if prel > PREDICT_RTOL or any(v != want_p for v in got_p.values()):
+        raise AssertionError(f"{label}: predict's rollout is not validate's, or its launches "
+                             f"{got_p} are not {want_p}")
+
+    # the rollout's first frame through utils/vtu.py and back
+    g = val_ds.get_frame(0, val_ds._start, train=False)
+    n = int(g.n_node)
+    path = vtu.graph_to_vtu(str(ROOT / "build" / "fit" / run / "frame0.vtu"), g,
+                            {"prediction": pred.predictions[0][:n]})
+    vpos, vcells, vdata = vtu.read_vtu(path)
+    c = int(np.sum(g.face_mask))
+    d = g.pos.shape[1]
+    same_vtu = (np.array_equal(vpos[:, :d], np.asarray(g.pos[:n], np.float64))
+                and not vpos[:, d:].any() and np.array_equal(vcells, g.faces[:c])
+                and np.array_equal(vdata["prediction"], pred.predictions[0][:n])
+                and all(np.array_equal(vdata[f"x{i}"], g.x[:n, i]) for i in range(g.x.shape[1]))
+                and all(np.array_equal(vdata[f"y{i}"], g.y[:n, i]) for i in range(g.y.shape[1])))
+    log(f"  rollout frame 0 as VTU ({n} points, {c} cells, {len(vdata)} fields) reads back to "
+        f"the same arrays: {same_vtu}")
+    if not same_vtu:
+        raise AssertionError(f"{label}: the VTU file does not read back to its arrays")
+
+    # one step's time on a part's batch, kernel path and plain path
+    batch_dev = next(iter(tr._loader(0)))
+    gen = torch.Generator(device=device).manual_seed(5)
+    step_ms = interval_ms(lambda: tr.train_step(tr.state, batch_dev, gen), 12)
+    plain_ms = interval_ms(lambda: plain.train_step(plain.state, batch_dev, gen), 12)
+    log(f"  train step B={batch} on a part ({int(batch_dev.n_node)} nodes): kernel path "
+        f"{step_ms:.4f} ms, plain path {plain_ms:.4f} ms ({card})")
+    facts = {"parts": sizes, "topologies": topologies, "layouts": [list(x[1:]) for x in layouts], "steps": steps,
+             "fit_s": fit_s, "loss_rel_max": max(rel), "validate_rmse": val_k,
+             "plain_validate_rmse": val_p, "predict_rmse": pred.rmse_all_rollout,
+             "step_ms": step_ms, "plain_step_ms": plain_ms}
+    del tr, plain, stack, batch_dev
+    torch.cuda.empty_cache()
+    return merge_launches(fit_launches, predict_launches), facts
+
+
+def merge_launches(*parts):
+    """{wrapper name: (forward, backward)} launches summed over ``parts``."""
     launches = defaultdict(lambda: [0, 0])
-    for part in (dyn_launches, an_launches):
+    for part in parts:
         for name, (f, b) in part.items():
             launches[name][0] += f
             launches[name][1] += b
     return {k: tuple(v) for k, v in launches.items()}
 
+
+def submesh_epd_phase(device, card):
+    """Phase 44: training_config/cylinder.json's model (hidden 32, 5 blocks,
+    bf16, packed, fused) through Trainer.fit on the sub-meshes of a
+    SUBMESH_MESH cylinder grid, once for each of SUBMESH_RUNS, validation on
+    the full mesh (submesh_fit's checks), the host mesh library against its
+    plain versions on this mesh, and the loader's host time with and
+    without partitions. Returns ({wrapper name: (forward, backward)}, facts)."""
+    from graph_physics_tpu_torch.dataset import synthetic
+    from graph_physics_tpu_torch.dataset.preprocessing import FrameConfig
+    from graph_physics_tpu_torch.ops import fused_gnblock_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+    from graph_physics_tpu_torch.training.loss import l2_loss
+
+    ds = memory_dataset_class()
+    fc = FrameConfig(targets=("velocity",))
+    traj = synthetic.make_trajectory(*SUBMESH_MESH, SUBMESH_FRAMES)
+    meta = synthetic.meta_dict(SUBMESH_FRAMES)
+    val_ds = ds([synthetic.make_trajectory(*SUBMESH_MESH, VAL_STEPS + 1)],
+                synthetic.meta_dict(VAL_STEPS + 1), fc)
+    param = cylinder_param()
+    groups = {"rows 1-4": [nk_ops.fused_gn_block_nk, csr_ops.fused_gn_block_csr]}
+    facts = {"library_ms": library_checks("phase 44", traj)}
+    runs = []
+    for i, parts in enumerate(SUBMESH_RUNS):
+        launches, f = submesh_fit(f"phase 44 [{parts}]", param, ds([traj], meta, fc, **parts),
+                                  val_ds, device, card, SUBMESH_BATCH, f"fit_submesh_{i}",
+                                  groups, l2_loss)
+        runs.append(launches)
+        facts[json.dumps(parts)] = f
+    facts["loader"] = loader_times(
+        "phase 44", lambda p: ds([traj], meta, fc, **(SUBMESH_RUNS[0] if p else {})),
+        SUBMESH_BATCH, "epd")
+    return merge_launches(*runs), facts
+
+
+def submesh_transformer_phase(device, card):
+    """Phase 45: training_config/coarse-aneurysm.json (10 blocks, hidden 64,
+    4 heads, ``--external aneurysm``, ``--use_previous_data`` on
+    entry.aneurysm_previous_data's columns) through Trainer.fit on the
+    sub-meshes (at most ANEURYSM_PART_NODES nodes) of phase 42's
+    ANEURYSM_MESH, validation on the full mesh, with submesh_fit's checks
+    for rows 5/6 (7/8 where a part takes CSR) and 9/10. Returns ({wrapper
+    name: (forward, backward)}, facts)."""
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.dataset import synthetic
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_csr
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_nk
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.training import config as config_lib
+
+    ds = memory_dataset_class()
+    param = entry.aneurysm_param("coarse")
+    frame_cfg = entry.aneurysm_frame_config("coarse")
+    fields = entry.aneurysm_fields(*ANEURYSM_MESH, ANEURYSM_FIT_FRAMES)
+    prev = entry.aneurysm_previous_data(fields)
+    meta = synthetic.xdmf_meta_dict(ANEURYSM_FIT_FRAMES, entry.ANEURYSM_DT)
+    parts = {"max_nodes_per_partition": ANEURYSM_PART_NODES}
+    val_ds = ds([entry.aneurysm_fields(*ANEURYSM_MESH, VAL_STEPS + 2)],
+                synthetic.xdmf_meta_dict(VAL_STEPS + 2, entry.ANEURYSM_DT), frame_cfg)
+    groups = {"attention": [ea_nk.fused_edge_attention_nk, ea_csr.fused_edge_attention_csr],
+              "ffn": [ffn_ops.fused_gated_ffn]}
+    loss_fn, _ = config_lib.get_loss(param)
+    facts = {"library_ms": library_checks("phase 45", fields)}
+    launches, facts["fit"] = submesh_fit(
+        f"phase 45 [{parts}]", param, ds([fields], meta, frame_cfg, **parts), val_ds, device,
+        card, TF_FIT_BATCH, "fit_submesh_aneurysm", groups, loss_fn,
+        gradient_method=config_lib.get_gradient_method(param), prev=prev,
+        predict_flags=("--external", "aneurysm", "--use_previous_data", "--previous_data_start",
+                       str(prev[0]), "--previous_data_end", str(prev[1])))
+    facts["loader"] = loader_times(
+        "phase 45", lambda p: ds([fields], meta, frame_cfg, **(parts if p else {})),
+        TF_FIT_BATCH, "transformer")
+    return launches, facts
+
+
+def submesh_phases(device, card):
+    """Phases 44-45; returns {wrapper name: (forward, backward) launches}."""
+    epd_launches, epd = submesh_epd_phase(device, card)
+    log("sub-mesh epd " + json.dumps({"card": card, **epd}))
+    tf_launches, tf = submesh_transformer_phase(device, card)
+    log("sub-mesh transformer " + json.dumps({"card": card, **tf}))
+    return merge_launches(epd_launches, tf_launches)
 
 if __name__ == "__main__":
     main()

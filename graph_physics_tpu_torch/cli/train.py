@@ -33,9 +33,14 @@ previous frame's data too, and the validation rollouts carry the columns
 physics losses (``loss.type`` with several terms,
 ``loss.gradient_method``) reach the Trainer's step.
 
-Flags of later queue items raise NotImplementedError naming their ROADMAP
-item: ``--num_dp_devices``, ``--multihost`` (A 9); ``--num_partitions`` and
-``--max_nodes_per_partition`` wait for ``dataset/partition.py`` (A 4).
+``--num_partitions`` and ``--max_nodes_per_partition`` train on sub-mesh
+partitions (dataset/partition.py: recursive coordinate bisection, each
+(frame, part) a sample); the validation rollouts take the full mesh, as
+JAX's CLI builds them. With world edges, partitions need the concat layout
+(no ``--packed``): the sidecar raises, as in JAX.
+
+The flags of a later queue item raise NotImplementedError naming it:
+``--num_dp_devices``, ``--multihost`` (A 9).
 The weights are drawn from ``--seed`` as the JAX package's flax layers
 draw theirs (models/layers.lecun_parameters: lecun-normal kernels, zero
 biases).
@@ -78,8 +83,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="not ported (ROADMAP A 9)")
     p.add_argument("--accumulate_grad_batches", type=int, default=1)
     p.add_argument("--num_partitions", type=int, default=None,
-                   help="waits for dataset/partition.py (ROADMAP A 4)")
-    p.add_argument("--max_nodes_per_partition", type=int, default=None)
+                   help="train on RCB sub-mesh partitions (Cluster-GCN style)")
+    p.add_argument("--max_nodes_per_partition", type=int, default=None,
+                   help="adaptive partition count cap by node budget")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute dtype")
     p.add_argument("--packed", action="store_true", help="trajectory-major [N,B,F] batching")
     p.add_argument("--fused", action="store_true",
@@ -142,10 +148,9 @@ def main(argv=None) -> int:
                                             extra_node_features=extra)
     if args.packed:  # an unpacked run keeps the concat layout
         frame_cfg = with_sidecar(frame_cfg)
-    if args.num_partitions or args.max_nodes_per_partition:
-        raise NotImplementedError("--num_partitions waits for dataset/partition.py "
-                                  "(ROADMAP A 4)")
-    train_ds = config_lib.get_dataset(param, frame_cfg, switch_to_val=False, seed=args.seed)
+    train_ds = config_lib.get_dataset(param, frame_cfg, switch_to_val=False, seed=args.seed,
+                                      num_partitions=args.num_partitions,
+                                      max_nodes_per_partition=args.max_nodes_per_partition)
     val_cfg = with_sidecar(validation_frame_config(config_lib.get_frame_config(
         param, masking_ratio=0.0, use_previous_data=use_prev, extra_node_features=extra),
         dynamic_we))

@@ -1,11 +1,11 @@
 """Host-side mesh -> graph construction (numpy).
 
-Copies of graph_physics_tpu/core/mesh.py:faces_to_edges, k_hop_edges,
-edge_features and build_mesh_graph, taking the numpy paths (the JAX
-package's optional ``native/`` library gives the same output order), and
-of the world-edge discovery: radius_world_edges, world_edge_exclude_keys
-and budget_world_pairs (scipy's cKDTree, the path JAX takes without its
-native library).
+Copies of graph_physics_tpu/core/mesh.py:faces_to_edges and k_hop_edges
+on the host mesh library (graph_physics_tpu_torch/native.py), of
+edge_features and build_mesh_graph, and of the world-edge discovery:
+radius_world_edges, world_edge_exclude_keys and budget_world_pairs
+(scipy's cKDTree, the path JAX takes without its library, whose pair
+order differs from the library's grid).
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import scipy.sparse as sp
 
+from graph_physics_tpu_torch import native
 from graph_physics_tpu_torch.core import padding
 from graph_physics_tpu_torch.core.graph import PAD_NODE_TYPE, MeshGraph
 from graph_physics_tpu_torch.core.nodetype import NodeType
@@ -30,49 +30,19 @@ def tetra_to_faces(tets: np.ndarray) -> np.ndarray:
 
 
 def faces_to_edges(faces: np.ndarray, num_nodes: int) -> np.ndarray:
-    """Unique undirected edges (both directions) from simplex cells.
-
-    Copy of graph_physics_tpu/core/mesh.py:faces_to_edges (numpy path).
-    Returns int32 [2, E], sorted by receiver then sender, no self-loops.
-    """
-    faces = np.asarray(faces, dtype=np.int64)
-    if faces.shape[-1] not in (3, 4):
-        raise ValueError(f"cells must be [C,3] or [C,4], got {faces.shape}")
-    if faces.shape[-1] == 4:
-        faces = tetra_to_faces(faces)
-    e = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]], axis=0)
-    lo = np.minimum(e[:, 0], e[:, 1])
-    hi = np.maximum(e[:, 0], e[:, 1])
-    keep = lo != hi
-    lo, hi = lo[keep], hi[keep]
-    key = lo * num_nodes + hi
-    _, first = np.unique(key, return_index=True)
-    lo, hi = lo[first], hi[first]
-    send = np.concatenate([lo, hi])
-    recv = np.concatenate([hi, lo])
-    order = np.lexsort((send, recv))
-    return np.stack([send[order], recv[order]]).astype(np.int32)
+    """Unique undirected edges (both directions) from simplex cells, by the
+    host mesh library (graph_physics_tpu/core/mesh.py:faces_to_edges on its
+    library path; native.faces_to_edges_plain is the numpy path). Returns
+    int32 [2, E], sorted by receiver then sender, no self-loops."""
+    return native.faces_to_edges(faces, num_nodes)
 
 
 def k_hop_edges(edge_index: np.ndarray, num_nodes: int, k: int) -> np.ndarray:
-    """k-hop neighbourhood edges by sparse boolean matrix powers, self-loops
-    removed, sorted by receiver then sender (copy of
-    graph_physics_tpu/core/mesh.py:k_hop_edges, numpy path)."""
-    if k <= 1:
-        return edge_index.astype(np.int32)
-    send, recv = edge_index
-    a = sp.csr_matrix((np.ones(len(send), dtype=bool), (send, recv)),
-                      shape=(num_nodes, num_nodes))
-    acc = a.copy()
-    p = a.copy()
-    for _ in range(k - 1):
-        p = (p @ a).astype(bool)
-        acc = (acc + p).astype(bool)
-    acc.setdiag(False)
-    acc.eliminate_zeros()
-    coo = acc.tocoo()
-    order = np.lexsort((coo.row, coo.col))
-    return np.stack([coo.row[order], coo.col[order]]).astype(np.int32)
+    """k-hop neighbourhood edges, self-loops removed, sorted by receiver
+    then sender, by the host mesh library (graph_physics_tpu/core/mesh.py:
+    k_hop_edges on its library path; native.k_hop_plain is the numpy
+    path)."""
+    return native.k_hop(edge_index, num_nodes, k)
 
 
 def edge_features(pos: np.ndarray, senders: np.ndarray, receivers: np.ndarray) -> np.ndarray:

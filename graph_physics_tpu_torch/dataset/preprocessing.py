@@ -18,8 +18,10 @@ frame's budgeted world edges to its mesh edges, so the edge arrays change
 from frame to frame (an unpacked batch stacks them per sample). The
 sidecar layout, what JAX's CLI takes with ``--packed``, keeps the static
 mesh in the shared edge arrays, and each frame's world edges ride beside
-them, padded to ``edge_budget`` slots. Sub-mesh partitions wait for
-``dataset/partition.py`` (ROADMAP A 4's remainder). The per-step value
+them, padded to ``edge_budget`` slots. A sub-mesh part (``part_ids``)
+is sliced out of the frame last, after the augmentations; its frames
+carry no cells, and world edges come to it in the concat layout only. The
+per-step value
 transforms (noise, the world-position edge features) run on the device
 (training/noise.py, training/transforms.py).
 """
@@ -37,6 +39,7 @@ from graph_physics_tpu_torch.core import mesh as mesh_lib
 from graph_physics_tpu_torch.core import padding
 from graph_physics_tpu_torch.core.graph import MeshGraph
 from graph_physics_tpu_torch.core.nodetype import NodeType
+from graph_physics_tpu_torch.dataset.partition import extract_subgraph
 
 # Fields that never become node features.
 STRUCTURAL_FIELDS = ("cells", "mesh_pos", "node_type")
@@ -267,10 +270,10 @@ class FrameBuilder:
         """One padded frame (preprocessing.py:FrameBuilder.build :299); the
         static-skeleton fast path rebuilds only the dynamic leaves, and the
         world-edge sidecar. Concat-layout world edges change the edge
-        arrays every frame, so they take the full path."""
-        if part_ids is not None:
-            raise NotImplementedError("sub-mesh partitions wait for dataset/partition.py "
-                                      "(ROADMAP A 4)")
+        arrays every frame, so they take the full path, as a sub-mesh part
+        (``part_ids``, :329-336, :432-443) does: the part's slice of the
+        augmented frame, its edges relabelled by
+        dataset/partition.extract_subgraph, no cells."""
         cfg = self.cfg
         ctx = extract_frame(traj, frame, self.meta, cfg.targets, with_target=True,
                             with_previous=cfg.use_previous_data)
@@ -278,9 +281,13 @@ class FrameBuilder:
         world = cfg.world is not None
         sidecar = world and cfg.world.sidecar
         key = cache_key if cache_key is not None else traj_index
+        if sidecar and part_ids is not None:
+            raise ValueError("world sidecar mode is incompatible with sub-mesh partitions "
+                             "(use the concat world layout)")
 
         skel_ok = (cfg.new_edges_ratio == 0 and cfg.extra_node_features is None
-                   and cfg.extra_edge_features is None and (not world or sidecar))
+                   and cfg.extra_edge_features is None and (not world or sidecar)
+                   and part_ids is None)
         skel_key = ((cache_key if cache_key is not None else traj_index, n_pad, e_pad, c_pad)
                     if skel_ok else None)
         skel = self._skel_cache.get(skel_key) if skel_ok else None
@@ -340,9 +347,21 @@ class FrameBuilder:
         if train and cfg.masking_ratio > 0 and rng is not None:
             deselected = masked_node_selection(n, cfg.masking_ratio, rng)
 
+        pos, node_type, faces, phi = ctx.pos, ctx.node_type, ctx.cells, ctx.phi
+        if part_ids is not None:
+            ei, _ = extract_subgraph(part_ids, ei, n)
+
+            def sel(a):
+                return None if a is None else a[part_ids]
+
+            x, pos, node_type = x[part_ids], pos[part_ids], node_type[part_ids]
+            y, prev, next_data = sel(y), sel(prev), sel(next_data)
+            deselected, phi = sel(deselected), sel(phi)
+            faces = None  # the cells are not sliced (nor are they in the reference)
+
         g = mesh_lib.build_mesh_graph(
-            x, ctx.pos, ctx.node_type, ei, y=y, prev=prev, next_data=next_data,
-            faces=ctx.cells, n_pad=n_pad, e_pad=e_pad, c_pad=c_pad,
+            x, pos, node_type, ei, y=y, prev=prev, next_data=next_data,
+            faces=faces, n_pad=n_pad, e_pad=e_pad, c_pad=c_pad,
             with_edge_features=cfg.add_edge_features, traj_index=traj_index, time=ctx.time)
         if sidecar:
             g = g.replace(**self._world_sidecar_fields(x, ctx.node_type, ctx.pos, mesh_ei,
@@ -351,8 +370,8 @@ class FrameBuilder:
             g = cfg.extra_edge_features(g)
         if deselected is not None:
             g = g.replace(deselected=padding.pad_axis(deselected, g.x.shape[0], fill=False))
-        if ctx.phi is not None:
-            g = g.replace(phi=padding.pad_axis(np.asarray(ctx.phi, np.float32).reshape(-1),
+        if phi is not None:
+            g = g.replace(phi=padding.pad_axis(np.asarray(phi, np.float32).reshape(-1),
                                                g.x.shape[0], fill=0.0))
         if skel_key is not None:
             self._skel_cache[skel_key] = g

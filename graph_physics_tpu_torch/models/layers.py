@@ -27,9 +27,6 @@ from graph_physics_tpu_torch.ops.fused_gnblock_nk import fused_gn_block_nk
 from graph_physics_tpu_torch.ops.tiling import Layout, NKTiling
 from graph_physics_tpu_torch.ops.world_gather import wscatter_sum, wtake
 
-#: the JAX FFN kernel's lane width: it takes the hidden widths dividing it
-FFN_LANES = 512
-
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """Erf-form GELU evaluated in fp32 (layers.py:gelu_exact)."""
@@ -477,10 +474,13 @@ class Attention(nn.Module):
 
     def _fused_ok(self, x, senders, return_attention, tiling) -> bool:
         """Whether a kernel applies on ``tiling``, an NKTiling or a
-        CSRLayout (layers.py:Attention._fused_attn_ok without its 128-lane
-        terms): the graph's edge arrays must be the layout's rows."""
+        CSRLayout (layers.py:Attention._fused_attn_ok :290): a head width
+        dividing ``LANES``, as JAX's gate asks, and the graph's edge arrays
+        the layout's rows. JAX's B·H lane term serves the TPU kernel's lane
+        packing only, and stays out."""
         return (
             tiling is not None
+            and LANES % (self.hidden_size // self.num_heads) == 0
             and senders is not None
             and not return_attention
             and self.dtype == torch.bfloat16
@@ -553,10 +553,10 @@ class TransformerBlock(nn.Module):
     opening with its own RMSNorm. With an NK slot or CSR layout on a
     packed bf16 graph the FFN half runs as one kernel
     (:func:`ops.fused_ffn.fused_gated_ffn`), keyed on the layout as the JAX
-    package keys it on its tiling, at the hidden widths its kernel takes,
-    those that divide 512 (layers.py:517-524). JAX's other two conditions,
-    B·H and N multiples of 512 and 128, serve the TPU kernel's lane packing:
-    the port's layouts pad N to 128, and its kernels take any B.
+    package keys it on its tiling, at the hidden widths JAX fuses, those
+    that divide ``LANES`` = 128 (layers.py:517-524). JAX's other two
+    conditions, B·H and N multiples of 128, serve the TPU kernel's lane
+    packing: the port's layouts pad N to 128, and its kernels take any B.
     """
 
     def __init__(
@@ -599,6 +599,6 @@ class TransformerBlock(nn.Module):
                                tiling=tiling, wedge_senders=wedge_senders,
                                wedge_receivers=wedge_receivers, wedge_mask=wedge_mask)
         if (tiling is not None and self.dtype == torch.bfloat16 and x.ndim == 3
-                and x.shape[0] == tiling.num_nodes and FFN_LANES % self.hidden_size == 0):
+                and x.shape[0] == tiling.num_nodes and LANES % self.hidden_size == 0):
             return fused_gated_ffn(x.to(self.dtype), self.gated_mlp, self.norm2).to(x.dtype)
         return x + self.gated_mlp(self.norm2(x))

@@ -173,19 +173,24 @@ def get_frame_config(param: Dict[str, Any], masking_ratio: Optional[float] = Non
 
 
 def get_dataset(param: Dict[str, Any], frame_config: FrameConfig, switch_to_val: bool = False,
-                seed: int = 0):
-    """config.py:get_dataset (:209): the h5 or the xdmf dataset."""
+                seed: int = 0, num_partitions: Optional[int] = None,
+                max_nodes_per_partition: Optional[int] = None):
+    """config.py:get_dataset (:209): the h5 or the xdmf dataset, on sub-mesh
+    partitions where ``num_partitions`` or ``max_nodes_per_partition`` is
+    given."""
     ds = param["dataset"]
     ext = ds["extension"]
     path = ds["test_path"] if switch_to_val else ds["train_path"]
+    kwargs = dict(seed=seed, num_partitions=num_partitions,
+                  max_nodes_per_partition=max_nodes_per_partition)
     if ext == "h5":
         from graph_physics_tpu_torch.dataset.h5_dataset import H5Dataset
 
-        return H5Dataset(path, ds["meta_path"], frame_config, seed=seed)
+        return H5Dataset(path, ds["meta_path"], frame_config, **kwargs)
     if ext == "xdmf":
         from graph_physics_tpu_torch.dataset.xdmf_dataset import XDMFDataset
 
-        return XDMFDataset(path, ds["meta_path"], frame_config, seed=seed)
+        return XDMFDataset(path, ds["meta_path"], frame_config, **kwargs)
     raise ValueError(f"Dataset extension '{ext}' not supported.")
 
 

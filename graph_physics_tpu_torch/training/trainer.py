@@ -36,14 +36,18 @@ Counterpart of graph_physics_tpu/training/trainer.py: ``TrainerConfig``
     validation rollouts (training/rollout.py; trainer.py:235-248): the
     carried columns of x, the world edges found again at every step.
 
+  * With ``save_val_visualizations`` ``validate`` renders trajectory 0's
+    rollout through training/callback.PredictionVisualizer under
+    ``out_dir/run_name/viz`` (trainer.py:674-696): a PNG of its first
+    step and a GIF of the rollout each epoch.
+
   * ``loss_fn`` is a plain loss, a ``LossType`` or a ``MultiLoss``, whose
     physics terms take ``gradient_method`` (training/step.py); each logged
     step carries ``loss_term_i`` as JAX's does, and each term's value under
     ``train_<display name>`` too (``train_multiloss`` the weighted sum).
 
 Options of later queue items raise NotImplementedError naming their
-ROADMAP item: ``mtp`` (A 7), ``mesh`` (A 9), ``save_val_visualizations``
-(``training/callback.py``, A 4's remainder).
+ROADMAP item: ``mtp`` (A 7), ``mesh`` (A 9).
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ import torch
 
 from graph_physics_tpu_torch.core.graph import WEDGE_FIELDS, MeshGraph
 from graph_physics_tpu_torch.dataset.loader import BatchLoader
+from graph_physics_tpu_torch.training.callback import PredictionVisualizer, rollout_views
 from graph_physics_tpu_torch.models.processors import EncodeProcessDecode, TransolverProcessor
 from graph_physics_tpu_torch.models.simulator import Simulator
 from graph_physics_tpu_torch.training import checkpoint as ckpt_lib
@@ -175,9 +180,6 @@ class Trainer:
                 (mesh, "a device mesh", "A 9")):
             if value is not None:
                 raise _later(what, item)
-        if cfg.save_val_visualizations:
-            raise NotImplementedError("save_val_visualizations waits for training/callback.py "
-                                      "(ROADMAP A 4)")
         if cfg.fused_wb_buckets != 1:
             raise ValueError("fused_wb_buckets serves the TPU kernels' sender windows; the "
                              "port's layouts have none (use 1)")
@@ -397,10 +399,18 @@ class Trainer:
                 first_rmses.extend(np.atleast_1d(res.rmse_1step.cpu().numpy()).tolist())
                 val_losses.extend(np.atleast_1d(res.val_loss.mean(0).cpu().numpy()).tolist())
                 part_ts = ts[s:s + chunk]
-                if 0 in part_ts and self.cfg.save_val_xdmf:
+                if 0 in part_ts and (self.cfg.save_val_xdmf
+                                     or self.cfg.save_val_visualizations):
                     i0 = part_ts.index(0)
-                    preds = res.predictions if self._transolver else res.predictions[:, :, i0]
-                    self._save_rollout_xdmf(preds.cpu().numpy(), part[i0], epoch)
+                    preds, targs = ((res.predictions, res.targets) if self._transolver else
+                                    (res.predictions[:, :, i0], res.targets[:, :, i0]))
+                    if self.cfg.save_val_xdmf:
+                        self._save_rollout_xdmf(preds.cpu().numpy(), part[i0], epoch)
+                    if self.cfg.save_val_visualizations:
+                        PredictionVisualizer(
+                            os.path.join(self.cfg.out_dir, self.cfg.run_name, "viz"),
+                            wandb_run=self.logger.wandb)(rollout_views(preds, targs), part[i0],
+                                                         epoch)
                 del frames, res
         return {
             "val_all_rollout_rmse": float(np.sqrt(sq_sum / max(count, 1.0))),

@@ -22,6 +22,9 @@
     plain versions with the world aggregate as ``extra_agg``) and
     ``cli.predict``: finite losses, the XDMF written, and predict's RMSE
     validate's;
+  * ``--num_partitions 2`` and ``--max_nodes_per_partition 30 --packed``
+    train on sub-meshes and predict on the full mesh, predict's RMSE the
+    last validation's;
   * ``--device cuda`` on a machine without a card raises;
   * an option of a later queue item raises, naming its ROADMAP item (the
     physics losses, ``--external`` and the xdmf dataset train through the
@@ -134,6 +137,35 @@ def test_train_then_predict_meets_the_bar(workspace, family):
         ["--training_parameters_path", cfg, "--model_path", str(out / family / "checkpoints"),
          "--device", "cpu"])
     res = predict_cli.predict(load_inference_stack(args))
+    np.testing.assert_allclose(res[0].rmse_all_rollout, last["val_all_rollout_rmse"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("flags", [["--num_partitions", "2"],
+                                   ["--max_nodes_per_partition", "30", "--packed"]],
+                         ids=["num2", "max30-packed"])
+def test_sub_mesh_partitions_train_then_predict(workspace, flags):
+    """Training on sub-meshes (2 parts a frame, or 3 of at most 30 nodes),
+    validation and predict on the full mesh: finite losses, twice the
+    steps of the whole-mesh run at least, predict's RMSE validate's."""
+    d, train, val, meta = workspace
+    cfg = write_config(d, train, val, meta, "epd")
+    run = "parts_" + flags[1]
+    out = d / "runs"
+    assert train_cli.main(["--training_parameters_path", cfg, "--epochs", "2",
+                           "--batch_size", "2", "--warmup", "10", "--out_dir", str(out),
+                           "--run_name", run, "--device", "cpu", *flags]) == 0
+    records = [json.loads(line) for line in open(out / run / f"{run}.metrics.jsonl")]
+    last = [r for r in records if "val_all_rollout_rmse" in r][-1]
+    assert max(r["step"] for r in records) >= 36  # the whole mesh takes 18 steps
+    assert all(np.isfinite(r[k]) for r in records for k in ("loss", "val_all_rollout_rmse")
+               if k in r)
+    from graph_physics_tpu_torch.cli.common import load_inference_stack
+
+    args = predict_cli.build_argparser().parse_args(
+        ["--training_parameters_path", cfg, "--model_path", str(out / run / "checkpoints"),
+         "--device", "cpu"])
+    res = predict_cli.predict(load_inference_stack(args))
+    assert res[0].predictions.shape[1] >= 70  # the full 10x7 mesh
     np.testing.assert_allclose(res[0].rmse_all_rollout, last["val_all_rollout_rmse"], rtol=1e-6)
 
 
@@ -261,7 +293,6 @@ def test_cuda_without_a_card_raises(workspace, cli):
     ([], {"model": {"use_gated_mlp": True}}, "A 7"),
     (["--num_dp_devices", "2"], {}, "A 9"),
     (["--multihost"], {}, "A 9"),
-    (["--num_partitions", "4"], {}, "A 4"),
 ])
 def test_unported_option_names_its_roadmap_item(workspace, flags, blocks, item):
     d, train, val, meta = workspace

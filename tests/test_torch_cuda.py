@@ -58,7 +58,12 @@ gumbel kernel draws the same Philox bits as its plain version, bit for bit, and
 its output is within 1e-5 of the plain version's (``logf`` on the card
 against ``torch.log``, at |noise| < 17); the Transolver train step runs
 it once per block forward and never in the backward, and keeps to the
-``epd`` step's bounds against the plain path on the same bits.
+``epd`` step's bounds against the plain path on the same bits. The
+transformer's gates follow JAX's: hidden 256 with 8 heads trains with
+the attention kernels and the plain FFN, head width 24 with neither. The
+host mesh library (csrc/meshops.cc) builds there with g++ and gives its
+plain versions' arrays, and a batch of one sub-mesh part trains through
+the GraphNetBlock kernels.
 """
 
 import copy
@@ -2061,3 +2066,113 @@ def test_aneurysm_rollout_with_previous_data_kernel_path_matches_plain_path(cuda
     assert torch.isfinite(res.predictions).all()
     torch.testing.assert_close(res.rmse_all_rollout, res_plain.rmse_all_rollout, rtol=0.15,
                                atol=0)
+
+
+# ---- the transformer's gates at widths JAX does not fuse --------------------
+
+def _train_step_launches(train):
+    """One train step of ``train`` (an entry train setup): the (forward,
+    backward) launches of both attention wrappers and of the FFN's, and
+    the loss."""
+    kernels = (fused_edge_attention_nk, fused_edge_attention_csr, fused_gated_ffn)
+    before = [(k.launches, k.backward_launches) for k in kernels]
+    m = train.train_step(train.state, train.graph, torch.Generator(train.graph.x.device)
+                         .manual_seed(3))
+    torch.cuda.synchronize()
+    return [(k.launches - f, k.backward_launches - b)
+            for k, (f, b) in zip(kernels, before)], m["loss"]
+
+
+@pytest.mark.cuda
+def test_hidden_256_trains_with_the_attention_kernels_and_the_plain_ffn(cuda_device):
+    """Hidden 256 with 8 heads (head width 32): JAX fuses the attention and
+    not the FFN (its gate: hidden dividing 128), so rows 5/6 launch once
+    a block and rows 9/10 never; nothing raises."""
+    train = entry.transformer_train_setup(cuda_device, nx=20, ny=16, batch=4, hidden=256,
+                                          heads=8, mp_steps=2)
+    launches, loss = _train_step_launches(train)
+    assert launches == [(2, 2), (0, 0), (0, 0)] and torch.isfinite(loss)
+
+
+@pytest.mark.cuda
+def test_head_width_24_trains_on_the_plain_path(cuda_device):
+    """Hidden 96 with 4 heads (head width 24, which does not divide 128):
+    neither kernel family launches, and nothing raises."""
+    train = entry.transformer_train_setup(cuda_device, nx=20, ny=16, batch=4, hidden=96,
+                                          heads=4, mp_steps=2)
+    launches, loss = _train_step_launches(train)
+    assert launches == [(0, 0), (0, 0), (0, 0)] and torch.isfinite(loss)
+
+
+# ---- the host mesh library and sub-mesh partitions ---------------------------
+
+@pytest.mark.cuda
+def test_host_mesh_library_builds_and_matches_its_plain_versions(cuda_device):
+    """On the card's machine: csrc/meshops.cc builds with g++ and each of
+    its functions gives its plain version's arrays on a 40x30 grid."""
+    from graph_physics_tpu_torch import native
+    from graph_physics_tpu_torch.dataset import synthetic
+
+    traj = synthetic.make_trajectory(40, 30, 5)
+    pos, cells = traj["mesh_pos"][0], traj["cells"][0]
+    n = len(pos)
+    assert native.build().exists()
+    ei = native.faces_to_edges(cells, n)
+    np.testing.assert_array_equal(ei, native.faces_to_edges_plain(cells, n))
+    np.testing.assert_array_equal(native.k_hop(ei, n, 2), native.k_hop_plain(ei, n, 2))
+    pairs = native.radius_pairs(pos, 0.05)
+    np.testing.assert_array_equal(pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))],
+                                  native.radius_pairs_plain(pos, 0.05))
+    for parts in (3, 4, 7):
+        np.testing.assert_array_equal(native.rcb_labels(pos, parts),
+                                      native.rcb_labels_plain(pos, parts))
+    vals = [traj["velocity"][i] for i in range(4)]
+    np.testing.assert_array_equal(native.pack_rows(vals), native.pack_rows_plain(vals))
+    np.testing.assert_array_equal(native.repeat_rows(vals[0], 8),
+                                  native.repeat_rows_plain(vals[0], 8))
+
+
+@pytest.mark.cuda
+def test_partitioned_batch_trains_through_the_kernels(cuda_device):
+    """A B=4 batch of one RCB part (3 parts of a 40x30 grid) laid out by
+    FusedTopologyManager: the epd train step (hidden 32, 3 blocks) launches
+    rows 1/2 (3/4 on CSR) once a block and its loss is the plain path's
+    within 0.02 (the step-1 bound)."""
+    from graph_physics_tpu_torch.dataset import synthetic
+    from graph_physics_tpu_torch.dataset.base import BaseDataset
+    from graph_physics_tpu_torch.dataset.loader import BatchLoader
+    from graph_physics_tpu_torch.dataset.preprocessing import FrameConfig
+    from graph_physics_tpu_torch.training.fused import FusedTopologyManager
+
+    class Memory(BaseDataset):
+        def __init__(self, traj):
+            super().__init__(FrameConfig(targets=("velocity",)), synthetic.meta_dict(5),
+                             num_partitions=3)
+            self._traj, self._traj_len = traj, [5]
+            self._setup_index()
+
+        num_trajectories = 1
+
+        def _trajectory(self, t):
+            return self._traj
+
+    ds = Memory(synthetic.make_trajectory(40, 30, 5))
+    mgr = FusedTopologyManager("epd")
+    loader = BatchLoader(ds, 4, seed=0, packed=True, device=cuda_device,
+                         frame_transform=mgr.transform_frame,
+                         packed_transform=mgr.transform_packed)
+    batch = next(iter(loader))
+    assert int(batch.n_node) < 1200 // 3 + 1
+    sim = entry.make_simulator(32, 3, torch.bfloat16, batch.layout, 0).to(cuda_device)
+    plain = copy.deepcopy(sim)
+    plain.model.tiling = None
+    kernel = fused_gn_block_nk if isinstance(batch.layout, NKTiling) else fused_gn_block_csr
+    state, step = entry.make_trainer(sim)
+    plain_state, plain_step = entry.make_trainer(plain)
+    before = (kernel.launches, kernel.backward_launches)
+    m = step(state, batch, torch.Generator(cuda_device).manual_seed(4))
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.backward_launches) == (before[0] + 3, before[1] + 3)
+    mp = plain_step(plain_state, batch, torch.Generator(cuda_device).manual_seed(4))
+    assert torch.isfinite(m["loss"])
+    torch.testing.assert_close(m["loss"], mp["loss"], rtol=0.02, atol=0)
