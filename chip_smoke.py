@@ -299,6 +299,34 @@ Phases (any failure raises, so the exit code is non-zero):
      hidden 64, 4 heads, ``--external aneurysm``, previous data) on the
      parts (at most 512 nodes: 3) of phase 42's 1,408-node mesh, the same
      checks with rows 5/6 (7/8) and 9/10.
+ 46. rows 5-10 at every width JAX fuses that had no instance before: the
+     gated FFN at hidden 32, 16, 8, 4, 2 and 1 (csrc/fused_ffn_small.cu,
+     fused_ffn_small_bwd.cu, a library a width) at the cylinder
+     transformer's [1,920·64, h] rows, and both layouts' attention at
+     head widths 8, 4, 2, 1, 64 and 128 (4, 4, 4, 4, 2 and 1 heads) at
+     the cylinder's NK shape and the graded mesh's CSR shape: each
+     forward against its plain version, each backward against its plain
+     backward and fp32 autograd (utils/gradcheck.py), the same bits on
+     two calls, exact zeros where a receiver has no valid row, the kept
+     statistics; the world seam at head widths 8 and 64 in both layouts
+     (phase 29's checks); ptxas's registers and spills, each instance's
+     time and device time (one profiler sweep a direction), its plain
+     version's, its bound and the library's masked attention;
+ 47. each of those widths on its path, counts set to 0 just before: a
+     2-block transformer (hidden, heads: 32, 4; 16, 4; 8, 4; 4, 4; 2, 2;
+     1, 1; 128, 2; 128, 1) on the cylinder (NK, B=16) and on a 4,000-node
+     graded mesh (CSR, B=4): the eval forward and one train step against
+     the plain path, each block launching its attention and FFN kernels
+     once forward and once backward;
+ 48. the hidden-32 transformer with 4 heads (head width 8;
+     entry.transformer_train_setup: 10 blocks, B=64, the cylinder mesh,
+     NK): 20 train steps against the plain path, the step's wall, device
+     and enqueue time; then Trainer.fit (2 trajectories of 129 frames,
+     B=64, one epoch, a 50-step validation rollout) and predict from its
+     checkpoint: launches held to the prediction, predict's RMSE
+     validate's. Besides, the attention kernels at head widths 16 and 32
+     and the FFN at hidden 64 and 128 give the bits the parent tree gave
+     on scripts/kernel_digests.py's inputs (its RECORDED digests).
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
 the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
@@ -314,7 +342,10 @@ backwards their forward + backward under ``fwd_bwd_ms`` and
 rows 1-4 at each width their world seam's check and times under
 ``world``, rows 1/2 at hidden 128 their bound at the plate MeshGraphNet's
 shape under ``plate``, rows 5/6 their times, library time and bound at
-panels' head width 32 under ``head_width_32``).
+panels' head width 32 under ``head_width_32``; rows 5-10 at the new
+widths records of their own, ``fused_gated_ffn_h{32,16,8,4,2,1}`` and
+``fused_edge_attention_{nk,csr}_dh{8,4,2,1,64,128}``, each with its
+backward, their ptxas reports under ``ptxas``).
 With ``--parent CHECKOUT`` the libraries that PARENT_LIBS names (both
 GraphNetBlock forwards and backwards, the hidden-64 gated-FFN forward and
 backward, both layouts' attention forward and backward) are built from that checkout's
@@ -396,13 +427,13 @@ EMPTY_RECEIVERS = 5
 #: and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 #: the kernels whose ptxas reports (registers, spills) are logged apart:
-#: the gated-FFN forward and backward (both hidden widths), both
-#: GraphNetBlock forwards and
-#: both backwards' passes, the tile pre-pass they share, and both
-#: layouts' attention forward and backward passes
-REDESIGNED = ("ffn_fwd_kernel", "ffn_bwd_kernel", "ffn128_", "gn_nk_fwd_kernel", "gn_nk_bwd_",
-              "gn_csr_fwd_kernel", "gn_csr_bwd_", "gn_partial_tc_kernel", "ea_csr_fwd_kernel",
-              "ea_csr_bwd_", "ea_nk_fwd_kernel", "ea_nk_bwd_")
+#: the gated-FFN forward and backward (every hidden width), both
+#: GraphNetBlock forwards and both backwards' passes, the tile pre-pass
+#: they share, and both layouts' attention forward and backward passes
+#: (every head width)
+REDESIGNED = ("ffn_fwd_kernel", "ffn_bwd_kernel", "ffn128_", "ffn_small_", "gn_nk_fwd_kernel",
+              "gn_nk_bwd_", "gn_csr_fwd_kernel", "gn_csr_bwd_", "gn_partial_tc_kernel",
+              "ea_csr_fwd_kernel", "ea_csr_bwd_", "ea_nk_fwd_kernel", "ea_nk_bwd_")
 FWD = {"name": "fused_gn_block_nk", "source": "graph_physics_tpu_torch/csrc/fused_gnblock_nk.cu",
        "replaces": "graph_physics_tpu/ops/fused_gnblock_nk.py:147"}
 BWD = {"name": "fused_gn_block_nk_backward",
@@ -851,13 +882,15 @@ def check_kept_stats(label, kernels, qkv, rows, layout, out):
     autograd) gives ``out`` again, and its max and 1/denominator match
     their plain version (``softmax_stats``): the max to the logits' fp32
     sum order, 1/denominator to a bf16 weight rounded the other way; -inf
-    and 0 exactly where a receiver has no valid row."""
+    and 0 exactly where a receiver has no valid row; at head widths 8 and
+    below the fp32 output it also keeps rounds to ``out``."""
     import torch
     from graph_physics_tpu_torch.ops.fused_edge_attention_csr import softmax_stats
 
-    kept, (m_k, inv_k) = kernels[0](*qkv, *rows, layout, keep_stats=True)
+    kept, (m_k, inv_k, *out32) = kernels[0](*qkv, *rows, layout, keep_stats=True)
     m_p, inv_p = softmax_stats(*qkv[:2], *rows)
-    if not torch.equal(kept, out):
+    if not torch.equal(kept, out) or not all(torch.equal(o.to(torch.bfloat16), out)
+                                             for o in out32):
         raise AssertionError(f"{label}: the forward keeping its statistics gives another "
                              "output")
     has_rows = torch.isfinite(m_p)
@@ -1795,6 +1828,8 @@ def main():
     option_launches = option_phases(device, card)
     # 44.-45. sub-mesh partitions: epd and the transformer on RCB parts
     submesh_launches = submesh_phases(device, card)
+    # 46.-48. rows 5-10 at every width JAX fuses; the hidden-32 transformer
+    small_records, small_launches = small_width_phases(device, card, build_log)
     for rec in (*tf_records, *tf_train_records, *graded_records, *graded_train_records):
         if rec["name"] in world:
             rec["world"] = world[rec["name"]]
@@ -1825,12 +1860,14 @@ def main():
         gumbel_record,
         *panels_records,
         *wide_records,
+        *small_records,
     ]
     for rec in records:  # the world seam's check and times; phases 39-42's launches
         if rec["name"] in seam:
             rec["world"] = seam[rec["name"]]
             rec["max_abs_err"] = max(rec["max_abs_err"], rec["world"]["max_abs_err"])
         rec["launches"] += plate_epd_launches.get(rec["name"], 0)
+        rec["launches"] += small_launches.get(rec["name"], 0)  # phase 47's hidden-128 FFN
         for name, (fwd_n, bwd_n) in option_launches.items():
             if name == "fused_gn_block_nk":  # row 1 at the plate MeshGraphNet's width
                 name = gn_record_name("nk", MGN_HIDDEN, False)
@@ -2957,7 +2994,8 @@ def synthetic_sidecar(n_valid, n, batch, width, targets, gen, device):
     return send.int().contiguous(), recv.int().contiguous(), mask.contiguous()
 
 
-def world_kernel_check(label, ops, qkv, rows, layout, sidecar, cot, card, libs, plain_libs):
+def world_kernel_check(label, ops, qkv, rows, layout, sidecar, cot, card, libs, plain_libs,
+                       timing=True):
     """Phase 29 for one layout: the forward kernel with the world pieces of
     ``sidecar`` against its plain version (joint_edge_attention) on the
     same bf16 inputs, the joint statistics it keeps, exact zeros where a
@@ -2967,7 +3005,8 @@ def world_kernel_check(label, ops, qkv, rows, layout, sidecar, cot, card, libs, 
     where a receiver has neither; without world pieces, the parent tree's
     bits (with --parent); times with and without world, their bounds, and
     the library's masked attention over mesh and world edges where its
-    per-sample mask fits. Returns (max abs error forward, backward, times)."""
+    per-sample mask fits (with ``timing``). Returns (max abs error forward,
+    backward, times or None)."""
     import torch
     import torch.nn.functional as F
     from graph_physics_tpu_torch.ops import fused_edge_attention_csr as csr_ops
@@ -3059,6 +3098,10 @@ def world_kernel_check(label, ops, qkv, rows, layout, sidecar, cot, card, libs, 
         *qkv, *rows, layout), libs)
     same_bits_as_parent(f"{label} without world, dq dk dv", attention_backward(
         ops, qkv, rows, layout, cot), libs)
+
+    if not timing:
+        del kept
+        return err, bwd_err, None
 
     # times: with world (forward; backward; plain), without world, bounds
     def this_tree(fn):  # the world calls: the parent's kernels have no world seam
@@ -3491,7 +3534,6 @@ def attention_times_h32(q, k, v, cot, graph, nk, heads, dh, card):
     as its boolean mask; forward, and forward + backward), and the bounds
     from these inputs (phases 11 and 14's). Returns {record name: fields}."""
     import torch
-    import torch.nn.functional as F
     from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
 
     rows = (graph.senders, graph.receivers, graph.edge_mask)
@@ -3502,21 +3544,13 @@ def attention_times_h32(q, k, v, cot, graph, nk, heads, dh, card):
                          device=True),
                    plain_ms=cuda_ms(lambda: ea_ops.fused_edge_attention_nk_reference(
                        q, k, v, *rows, nk)))
-    adj = torch.zeros((n, n), dtype=torch.bool, device=q.device)
-    adj[graph.receivers[graph.edge_mask].long(), graph.senders[graph.edge_mask].long()] = True
-    dense = [t.permute(1, 2, 0, 3).contiguous() for t in (q, k, v)]
-    with torch.inference_mode():
-        fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(*dense,
-                                                                           attn_mask=adj))
+    fwd["library_ms"] = sdpa_ms((q, k, v), rows, n, False)
     bwd = dict(timed(attention_backward(ea_ops, (q, k, v), rows, nk, cot), (), device=True))
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     out = ea_ops.reference_with_backward(*leaves, *rows, nk)
     bwd["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True))
-    dl = [t.requires_grad_(True) for t in dense]
-    cot_d = cot.permute(1, 2, 0, 3).contiguous()
-    bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(*dl, attn_mask=adj), dl, cot_d))
-    del adj, dense, dl, cot_d, out, leaves
+    bwd["library_ms"] = sdpa_ms((q, k, v), rows, n, True, cot)
+    del out, leaves
     fb = bound(2 * 4 * q.numel() + 5 * nk.total_rows, valid * b * heads * 4 * dh)
     bb = bound(2 * 7 * q.numel() + 5 * nk.total_rows, valid * b * heads * 10 * dh)
     fwd.update(bound_ms=fb[0], bound_by=fb[1], shape=[n, b, heads, dh])
@@ -5231,6 +5265,535 @@ def submesh_phases(device, card):
     tf_launches, tf = submesh_transformer_phase(device, card)
     log("sub-mesh transformer " + json.dumps({"card": card, **tf}))
     return merge_launches(epd_launches, tf_launches)
+
+
+# ---- phases 46-48: rows 5-10 at every width JAX fuses ----
+
+#: the transformer widths whose kernel instances are new: (hidden, heads),
+#: each one FFN width (rows 9/10) and one head width (rows 5-8); hidden 32
+#: with 4 heads (head width 8) is the main path of phases 47-48
+SMALL_CONFIGS = ((32, 4), (16, 4), (8, 4), (4, 4), (2, 2), (1, 1), (128, 2), (128, 1))
+SMALL_MAIN = (32, 4)
+#: the head widths of phase 46's world-seam checks
+SMALL_WORLD_DH = (8, 64)
+#: phase 46's sweep of each width on its path: blocks and batch of the
+#: cylinder (NK) models; nodes and batch of the graded (CSR) ones
+SWEEP_BLOCKS, SWEEP_BATCH, SWEEP_GRADED = 2, 16, (4000, 4)
+#: phase 48: trajectories of the fit (FIT_FRAMES frames, B=TF_FIT_BATCH), epochs
+SMALL_FIT_TRAJECTORIES, SMALL_FIT_EPOCHS = 2, 1
+
+
+def small_record(kind, layout, width, backward):
+    """A new instance's record: its name, source and the TPU kernel it
+    replaces."""
+    if kind == "ffn":
+        name = f"fused_gated_ffn_h{width}"
+        src, line = "fused_ffn_small" + ("_bwd" if backward else ""), 99 if backward else 74
+        rec = {"source": f"graph_physics_tpu_torch/csrc/{src}.cu",
+               "replaces": f"graph_physics_tpu/ops/fused_ffn.py:{line}"}
+    else:
+        name = f"fused_edge_attention_{layout}_dh{width}"
+        base = ATTN_BWD if backward else ATTN
+        if layout == "csr":
+            base = ATTN_CSR_BWD if backward else ATTN_CSR
+        rec = {k: base[k] for k in ("source", "replaces")}
+    return {"name": name + ("_backward" if backward else ""), **rec}
+
+
+def sdpa_ms(qkv, rows, n, backward, cot=None, efficient_only=False):
+    """The library's yardstick: one masked scaled_dot_product_attention over
+    the mesh's adjacency (dense, rows: receivers) on the same q, k, v, its
+    forward or forward + backward, by CUDA events; with
+    ``efficient_only`` on the memory-efficient kernel alone, None where
+    that kernel does not take the head width (a multiple of 8), the
+    median of 5 calls (one takes 45-400 ms on the graded mesh)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    dh = qkv[0].shape[-1]
+    if efficient_only and dh % 8:
+        return None
+    senders, receivers, mask = rows
+    adj = torch.zeros((n, n), dtype=torch.bool, device=qkv[0].device)
+    adj[receivers[mask].long(), senders[mask].long()] = True
+    dense = [t.permute(1, 2, 0, 3).contiguous() for t in qkv]
+    kw = dict(warmup=1, reps=5) if efficient_only else {}
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]) if efficient_only else \
+            contextlib.nullcontext():
+        if not backward:
+            with torch.inference_mode():
+                return cuda_ms(lambda: F.scaled_dot_product_attention(*dense, attn_mask=adj),
+                               **kw)
+        leaves = [t.requires_grad_(True) for t in dense]
+        cot_d = cot.permute(1, 2, 0, 3).contiguous()
+        return cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves, attn_mask=adj), leaves, cot_d), **kw)
+
+
+def small_ffn_checks(h, n, b, gen, device):
+    """Phase 46 for rows 9/10 at hidden ``h`` on [n, b, h] rows (block
+    weights drawn from ``gen``): the forward against its plain version,
+    the backward against its plain backward and fp32 autograd, each the
+    same bits on two calls. Returns (record fields by backward, the calls
+    for the device-time sweeps: forward, backward)."""
+    import torch
+    from graph_physics_tpu_torch.models.layers import GatedMLPBlock, RMSNorm, reset_parameters
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.utils import gradcheck
+
+    ffn = ffn_ops.fused_gated_ffn
+    mlp, norm2 = GatedMLPBlock(h, h, h), RMSNorm(h)
+    reset_parameters(mlp, gen)
+    with torch.no_grad():
+        for norm in (mlp.norm, norm2):
+            norm.scale.copy_(1.0 + 0.2 * torch.randn(h, generator=gen))
+    mlp, norm2 = mlp.to(device), norm2.to(device)
+    x, cot = (torch.randn((n, b, h), generator=gen).to(device, torch.bfloat16) for _ in range(2))
+    with torch.inference_mode():
+        before = ffn.launches
+        y1, y2 = ffn(x, mlp, norm2), ffn(x, mlp, norm2)
+        torch.cuda.synchronize()
+        log(f"hidden-{h} FFN forward kernel check [{n}·{b} rows]")
+        if ffn.launches != before + 2 or not torch.equal(y1, y2):
+            raise AssertionError(f"hidden-{h} FFN forward: no launch, or other bits on a "
+                                 "second call")
+        f_err = compare("y", y1, ffn_ops.gated_ffn_reference(x, mlp, norm2), FFN_TOL)
+
+    def feed_forward(fn, m, n2):
+        return lambda xx: (fn(xx, m, n2), ffn_ops._params(m, n2))
+
+    names = ["dx", "norm2.scale", "norm.scale", "W1", "b1", "W2", "b2", "W3", "b3"]
+    before = ffn.backward_launches
+    rows, ok, kept = gradcheck.check_backward(
+        names, ("dx",), feed_forward(ffn, mlp, norm2),
+        feed_forward(ffn_ops.reference_with_backward, mlp, norm2),
+        feed_forward(ffn_ops.gated_ffn_reference, gradcheck.rounded_copy(mlp),
+                     gradcheck.rounded_copy(norm2)), [x], [cot])
+    torch.cuda.synchronize()
+    log(f"hidden-{h} FFN backward kernel check (against the plain backward; both against fp32)")
+    log_grad_rows(rows)
+    g1, g2 = (torch.autograd.grad(*kept["kernel"], retain_graph=True) for _ in range(2))
+    if ffn.backward_launches != before + 3 or not ok or not all(
+            torch.equal(a, c) for a, c in zip(g1, g2)):
+        raise AssertionError(f"hidden-{h} FFN backward kernel out of bounds, not launched or "
+                             "other bits on a second call")
+    log("  the same bits on two calls, forward and backward")
+
+    def forward(fn):
+        def run():
+            with torch.inference_mode():
+                fn(x, mlp, norm2)
+        return run
+
+    params = sum(p.numel() for p in ffn_ops._params(mlp, norm2))
+    prods = 2 * n * b * h * 3 * h
+    fields = {
+        False: dict(max_abs_err=f_err, ms=cuda_ms(forward(ffn)),
+                    plain_ms=cuda_ms(forward(ffn_ops.gated_ffn_reference)), library_ms=None,
+                    bound=bound(2 * 2 * x.numel() + 4 * params, 3 * prods)),
+        True: dict(max_abs_err=max(r.get("max_abs_err", float("inf")) for r in rows),
+                   ms=cuda_ms(lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True)),
+                   plain_ms=cuda_ms(lambda: torch.autograd.grad(*kept["plain"],
+                                                                 retain_graph=True)),
+                   library_ms=None, bound=bound(2 * 3 * x.numel() + 8 * params, 8 * prods)),
+    }
+    return fields, (forward(ffn), lambda: torch.autograd.grad(*kept["kernel"],
+                                                               retain_graph=True))
+
+
+def small_attention_checks(label, ops, graph, layout, heads, dh, gen, sdpa_efficient):
+    """Phase 46 for rows 5/6 (NK) or 7/8 (CSR) at head width ``dh``: the
+    forward against its plain version with receivers whose rows are all
+    masked (exact zeros), its kept statistics, the same bits on two calls;
+    the backward against its plain backward and fp32 autograd
+    (utils/gradcheck.py), dq exactly 0 on those receivers, the same bits
+    on two calls. Returns (record fields by backward, the calls for the
+    device-time sweeps: forward, backward)."""
+    import torch
+    from graph_physics_tpu_torch.utils import gradcheck
+
+    name = ops.__name__.rsplit(".", 1)[-1]
+    op = getattr(ops, name)
+    n, b = graph.x.shape[:2]
+    device = graph.x.device
+
+    def randn(scale):
+        return (torch.randn((n, b, heads, dh), generator=gen, device=device) * scale).to(
+            torch.bfloat16)
+
+    q, k, v, cot = randn(0.5), randn(0.5), randn(0.5), randn(1.0)
+    gone = torch.arange(0, int(graph.node_mask.sum()), EMPTY_STRIDE, device=device)
+    mask = graph.edge_mask & ~torch.isin(graph.receivers, gone)
+    rows = (graph.senders, graph.receivers, mask)
+    with torch.inference_mode():
+        before = op.launches
+        out, again = op(q, k, v, *rows, layout), op(q, k, v, *rows, layout)
+        torch.cuda.synchronize()
+        log(f"{label} kernel check ({n} nodes x {b} samples x {heads} heads of {dh}, "
+            f"{len(gone)} receivers without a valid row)")
+        if op.launches != before + 2 or not torch.equal(out, again):
+            raise AssertionError(f"{label}: no launch, or other bits on a second call")
+        f_err = compare("out", out, ops.PLAIN[0](q, k, v, *rows, layout), ATTN_RTOL,
+                        atol=ATTN_ATOL)
+        if not torch.equal(out[gone], torch.zeros_like(out[gone])):
+            raise AssertionError(f"{label}: a receiver without valid rows is not exactly 0")
+        check_kept_stats(label, ops.KERNELS, (q, k, v), rows, layout, out)
+
+    def attention(fn):
+        return lambda *t: (fn(*t, *rows, layout), [])
+
+    grad_names = ("dq", "dk", "dv")
+    before = op.backward_launches
+    grad_rows, ok, kept = gradcheck.check_backward(
+        grad_names, grad_names, attention(op), attention(ops.reference_with_backward),
+        attention(ops.PLAIN[0]), [q, k, v], [cot])
+    torch.cuda.synchronize()
+    log(f"{label} backward kernel check (against the plain backward; both against fp32)")
+    log_grad_rows(grad_rows)
+    g1, g2 = (torch.autograd.grad(*kept["kernel"], retain_graph=True) for _ in range(2))
+    if op.backward_launches != before + 3 or not ok or not all(
+            torch.equal(a, c) for a, c in zip(g1, g2)):
+        raise AssertionError(f"{label}: backward kernel out of bounds, not launched or other "
+                             "bits on a second call")
+    if not torch.equal(g1[0][gone], torch.zeros_like(g1[0][gone])):
+        raise AssertionError(f"{label}: dq is not exactly 0 where a receiver has no valid row")
+    log("  the same bits on two calls, forward and backward; dq exactly 0 without valid rows")
+
+    def forward(fn):
+        def run():
+            with torch.inference_mode():
+                fn(q, k, v, *rows, layout)
+        return run
+
+    valid = int(mask.sum())
+    fields = {
+        False: dict(max_abs_err=f_err, ms=cuda_ms(forward(op)),
+                    plain_ms=cuda_ms(forward(ops.PLAIN[0])),
+                    library_ms=sdpa_ms((q, k, v), rows, n, False,
+                                       efficient_only=sdpa_efficient),
+                    bound=bound(2 * 4 * q.numel() + 5 * mask.numel(), valid * b * heads * 4 * dh)),
+        True: dict(max_abs_err=max(r.get("max_abs_err", float("inf")) for r in grad_rows),
+                   ms=cuda_ms(lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True)),
+                   plain_ms=cuda_ms(lambda: torch.autograd.grad(*kept["plain"],
+                                                                 retain_graph=True)),
+                   library_ms=sdpa_ms((q, k, v), rows, n, True, cot,
+                                      efficient_only=sdpa_efficient),
+                   bound=bound(2 * 7 * q.numel() + 5 * mask.numel(),
+                               valid * b * heads * 10 * dh)),
+    }
+    return fields, (forward(op), lambda: torch.autograd.grad(*kept["kernel"],
+                                                              retain_graph=True))
+
+
+def sweep_device_ms(label, calls):
+    """{record name: device ms per call} of each call in ``calls`` ({record
+    name: fn}), from one profiler sweep that runs them all in turn: each
+    record takes the kernels of its instance (``instance_kernels``)."""
+    times = device_times(lambda: [fn() for fn in calls.values()])
+    out = {}
+    for key in calls:
+        mine = [k for k in times if any(is_kernel(k, fam, w) for fam, w in instance_kernels(key))]
+        if not mine:
+            raise AssertionError(f"{label}: the profiler recorded no kernel of {key}")
+        out[key] = sum(times[k] for k in mine)
+    return out
+
+
+def is_kernel(name, family, width):
+    """Whether a CUDA kernel's name, mangled (ptxas) or demangled (the
+    profiler), is the template ``family`` at its first argument ``width``."""
+    return any(f"{family}{tail}" in name for tail in (f"ILi{width}E", f"<{width}>", f"<{width},"))
+
+
+def small_kernel_phase(device, card, build_log):
+    """Phase 46: every new instance of rows 5-10 against its plain version
+    (small_ffn_checks, small_attention_checks; the world seam at
+    SMALL_WORLD_DH in both layouts, world_kernel_check), at the cylinder
+    transformer's shape (1,920 nodes x 64 samples, NK) and the graded
+    mesh's (27,008 x 16, CSR), with ptxas's registers and spills, times,
+    bounds and the library's masked attention. Returns {record name:
+    fields}."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_csr
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_nk
+
+    resources = kernel_resources(build_log, ("ffn_small", "ea_nk_", "ea_csr_"))
+    for name, use in resources.items():
+        log(f"ptxas, rows 5-10 instance {name}: {use}")
+    cyl = entry.transformer_setup(device, mp_steps=1)
+    graded = entry.graded_transformer_setup(device, mp_steps=1)
+    gen = torch.Generator().manual_seed(46)
+    cgen = torch.Generator(device=device).manual_seed(46)
+    fields, calls = {}, {}
+    n, b = cyl.graph.x.shape[:2]
+    head_dims = set()
+    for h, heads in SMALL_CONFIGS:
+        if h < 64:
+            f, c = small_ffn_checks(h, n, b, gen, device)
+            for bw in (False, True):
+                key = small_record("ffn", None, h, bw)["name"]
+                fields[key], calls[key] = f[bw], c[bw]
+        dh = h // heads
+        if dh in head_dims:  # head width 1 serves hidden 4, 2 and 1
+            continue
+        head_dims.add(dh)
+        for layout, ops, setup in (("nk", ea_nk, cyl), ("csr", ea_csr, graded)):
+            label = f"{'NK' if layout == 'nk' else 'CSR'} attention at head width {dh}"
+            f, c = small_attention_checks(label, ops, setup.graph, setup.tiling, heads, dh, cgen,
+                                          sdpa_efficient=layout == "csr")
+            for bw in (False, True):
+                key = small_record("attention", layout, dh, bw)["name"]
+                fields[key], calls[key] = f[bw], c[bw]
+            if dh in SMALL_WORLD_DH:
+                g, lay = setup.graph, setup.tiling
+                nv = int(g.node_mask.sum())
+                gone = torch.arange(0, nv, EMPTY_STRIDE, device=device)
+                mask = g.edge_mask & ~torch.isin(g.receivers, gone)
+                qkv = [(torch.randn((lay.num_nodes, g.x.shape[1], heads, dh), generator=cgen,
+                                    device=device) * 0.5).to(torch.bfloat16) for _ in range(3)]
+                cot = torch.randn(qkv[0].shape, generator=cgen, device=device).to(torch.bfloat16)
+                sidecar = synthetic_sidecar(nv, lay.num_nodes, g.x.shape[1], WORLD_SLOTS,
+                                            gone, cgen, device)
+                err, bwd_err, _ = world_kernel_check(
+                    f"{label}", ops, qkv, (g.senders, g.receivers, mask), lay, sidecar, cot,
+                    card, (), (), timing=False)
+                for bw, e in ((False, err), (True, bwd_err)):
+                    key = small_record("attention", layout, dh, bw)["name"]
+                    fields[key]["max_abs_err"] = max(fields[key]["max_abs_err"], e)
+                    fields[key]["world_checked"] = True
+    for bw in (False, True):  # the device time of every instance, one sweep a direction
+        keys = [k for k in calls if k.endswith("_backward") == bw]
+        for key, ms in sweep_device_ms("phase 46", {k: calls[k] for k in keys}).items():
+            fields[key]["device_ms"] = ms
+    for key, f in fields.items():
+        f["bound_ms"], f["bound_by"] = f.pop("bound")
+        f["ptxas"] = {k: v for k, v in resources.items()
+                      if any(is_kernel(k, fam, w) for fam, w in instance_kernels(key))}
+        lib = f["library_ms"]
+        log(f"  {key}: kernel {f['ms']:.4f} ms (device {f['device_ms']:.4f}), plain "
+            f"{f['plain_ms']:.4f} ms, library "
+            + (f"{lib:.4f} ms" if lib is not None else "none") +
+            f", bound {f['bound_ms']:.6g} ms ({f['bound_by']}) ({card})")
+    del cyl, graded, calls
+    torch.cuda.empty_cache()
+    return fields
+
+
+def instance_kernels(key):
+    """(template, width) of each CUDA kernel of a phase-46 record: the FFN's
+    ``ffn_small_{fwd,bwd,bwd_sum}_kernel<H>``, the attention's
+    ``ea_{nk,csr}_{fwd,bwd_recv,bwd_send}_kernel<DH, ...>``."""
+    backward = key.endswith("_backward")
+    if key.startswith("fused_gated_ffn"):
+        width = int(key.split("_h")[1].split("_")[0])
+        kinds = ("bwd", "bwd_sum") if backward else ("fwd",)
+        return [(f"ffn_small_{k}_kernel", width) for k in kinds]
+    width = int(key.split("_dh")[1].split("_")[0])
+    layout = "nk" if "_nk_" in key else "csr"
+    kinds = ("bwd_recv", "bwd_send") if backward else ("fwd",)
+    return [(f"ea_{layout}_{k}_kernel", width) for k in kinds]
+
+
+def small_sweep_phase(device, card):
+    """Phase 47: each width of SMALL_CONFIGS on its path, counts set to 0
+    just before: a SWEEP_BLOCKS-block model's eval forward and one train
+    step on the cylinder (NK, B=SWEEP_BATCH) and on a SWEEP_GRADED graded
+    mesh (CSR), each against the plain path (forward TF_SLICE_TOL, step-1
+    loss STEP1_LOSS_RTOL), every block launching its attention and FFN
+    kernels once forward and once backward (the FFN at hidden 128 on the
+    hidden-128 instance). Returns {record name: launches}."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_csr
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_nk
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+
+    ffn = ffn_ops.fused_gated_ffn
+    launches = defaultdict(int)
+    for h, heads in SMALL_CONFIGS:
+        dh = h // heads
+        for layout, attn in (("nk", ea_nk.fused_edge_attention_nk),
+                             ("csr", ea_csr.fused_edge_attention_csr)):
+            if layout == "nk":
+                train = entry.transformer_train_setup(device, hidden=h, heads=heads,
+                                                      mp_steps=SWEEP_BLOCKS, batch=SWEEP_BATCH)
+            else:
+                train = entry.graded_transformer_train_setup(
+                    device, num_nodes=SWEEP_GRADED[0], batch=SWEEP_GRADED[1], hidden=h,
+                    heads=heads, mp_steps=SWEEP_BLOCKS)
+            sim, graph = train.simulator, train.graph
+            plain_sim = plain_copy(sim)
+            plain_state, plain_step = entry.make_trainer(plain_sim)
+            reset_counts([attn, ffn])
+            out = sim.forward(graph, is_training=False)
+            m = train.train_step(train.state, graph, torch.Generator(device).manual_seed(47))
+            torch.cuda.synchronize()
+            got = {k.__name__: launch_counts(k) for k in (attn, ffn)}
+            ref = plain_sim.forward(graph, is_training=False)
+            mp = plain_step(plain_state, graph, torch.Generator(device).manual_seed(47))
+            rel = abs(m["loss"].item() - mp["loss"].item()) / abs(mp["loss"].item())
+            want = (2 * SWEEP_BLOCKS, SWEEP_BLOCKS)
+            log(f"phase 47 [hidden {h}, {heads} heads of {dh}, {type(train.tiling).__name__}, "
+                f"{graph.x.shape[0]} nodes x {graph.x.shape[1]}]: launches (forward, backward) "
+                + ", ".join(f"{k} {v}" for k, v in got.items())
+                + f", expected {want} each; step-1 loss {m['loss'].item():.6g} against the "
+                f"plain path's {mp['loss'].item():.6g} (relative {rel:.3g}, limit "
+                f"{STEP1_LOSS_RTOL})")
+            compare("net_out", out.net_out, ref.net_out, TF_SLICE_TOL, rows=graph.node_mask)
+            if any(v != want for v in got.values()) or rel > STEP1_LOSS_RTOL or not (
+                    torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+                raise AssertionError(f"phase 47 [hidden {h}, {layout}]: launches {got} or the "
+                                     "loss off the plain path's")
+            for key, (f, bwd) in ((small_record("attention", layout, dh, False)["name"],
+                                   got[attn.__name__]),
+                                  (f"fused_gated_ffn_h{h}", got[ffn.__name__])):
+                launches[key] += f
+                launches[f"{key}_backward"] += bwd
+            del train, sim, plain_sim, plain_state, plain_step
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def small_main_phase(device, card):
+    """Phase 48, the main path of phases 46-48: the graph transformer at
+    hidden 32 with 4 heads (head width 8; entry.transformer_train_setup:
+    10 blocks, B=64, the cylinder mesh, NK): 20 train steps against the
+    plain path (training_phase), the step's wall, device and enqueue time;
+    then the model through Trainer.fit (SMALL_FIT_TRAJECTORIES
+    trajectories, B=TF_FIT_BATCH, SMALL_FIT_EPOCHS epoch, a VAL_STEPS-step
+    validation rollout) and predict from its checkpoint: launches held to
+    the prediction, predict's RMSE validate's. Returns ({record name:
+    launches}, facts)."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.cli import predict as predict_cli
+    from graph_physics_tpu_torch.cli.common import load_inference_stack
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_nk
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+
+    attn, ffn = ea_nk.fused_edge_attention_nk, ffn_ops.fused_gated_ffn
+    h, heads = SMALL_MAIN
+    dh = h // heads
+    train = entry.transformer_train_setup(device, hidden=h, heads=heads)
+    n_blocks = len(train.simulator.model.processor_list)
+    _, plain_state, plain_step, step_launches = training_phase(
+        f"hidden-{h} transformer training", train, [attn, ffn], 48)
+    st = step_timing(train, plain_state, plain_step, 49)
+    b = train.graph.x.shape[1]
+    idle = 1.0 - st["train_step_device_ms"] / st["train_step_ms"]
+    log(f"hidden-{h} transformer train step B={b}: {st['train_step_ms']:.4f} ms "
+        f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
+        f"{st['train_step_device_ms']:.4f} ms, idle share {idle:.3f}; the host enqueues a step in "
+        f"{st['train_step_host_enqueue_ms']:.4f} ms), plain path {st['train_step_plain_ms']:.4f} "
+        f"ms ({card})")
+    del train, plain_state, plain_step
+    torch.cuda.empty_cache()
+
+    param = cylinder_param()
+    param["model"] = {"type": "transformer", "message_passing_num": n_blocks, "hidden_size": h,
+                      "num_heads": heads, "node_input_size": 2, "output_size": 2,
+                      "edge_input_size": 0}
+    train_ds, val_ds = fit_datasets(SMALL_FIT_TRAJECTORIES)
+    tr = fit_trainer(param, train_ds, val_ds, "fit_small", device, batch=TF_FIT_BATCH,
+                     epochs=SMALL_FIT_EPOCHS)
+    reset_counts([attn, ffn])
+    t0 = time.perf_counter()
+    tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = {k.__name__: launch_counts(k) for k in (attn, ffn)}
+    steps, records = tr.state.step, epoch_records(tr)
+    log(f"fit, the hidden-{h} transformer ({n_blocks} blocks, {heads} heads of {dh}, bf16, "
+        f"{type(tr.sim.model.tiling).__name__} layout; {SMALL_FIT_TRAJECTORIES} trajectories of "
+        f"{FIT_FRAMES} frames, B={TF_FIT_BATCH}, {SMALL_FIT_EPOCHS} epoch, {steps} steps, "
+        f"validation {VAL_STEPS} rollout steps): {fit_s:.1f} s ({card})")
+    for r in records:
+        log(f"  epoch {int(r['epoch'])}: train_loss_epoch {r['train_loss_epoch']:.6g} "
+            f"val_all_rollout_rmse {r['val_all_rollout_rmse']:.6g} val_1step_rmse "
+            f"{r['val_1step_rmse']:.6g} ({r['epoch_time_s']:.2f} s)")
+    want = (n_blocks * (steps + SMALL_FIT_EPOCHS * VAL_STEPS), n_blocks * steps)
+    log("  launches (forward, backward): " + ", ".join(
+        f"{k} {v}" for k, v in fit_launches.items()) + f"; expected {want} each")
+    values = [r[k] for r in records for k in ("train_loss_epoch", "val_all_rollout_rmse")]
+    if (len(records) != SMALL_FIT_EPOCHS or not all(math.isfinite(v) for v in values)
+            or any(v != want for v in fit_launches.values())):
+        raise AssertionError(f"phase 48: {steps} steps, launches {fit_launches}, records "
+                             f"{records}")
+    cfg_path = Path(tr.cfg.out_dir) / tr.cfg.run_name / "cylinder_transformer_h32.json"
+    cfg_path.write_text(json.dumps(param))
+    args = predict_cli.build_argparser().parse_args([
+        "--training_parameters_path", str(cfg_path), "--model_path", tr.ckpt_dir, "--bf16",
+        "--fused", "--device", str(device)])
+    reset_counts([attn, ffn])
+    stack = load_inference_stack(args, dataset=val_ds)
+    pred = predict_cli.predict(stack, fused=True)[0]
+    torch.cuda.synchronize()
+    predict_launches = {k.__name__: launch_counts(k) for k in (attn, ffn)}
+    want_rmse = records[-1]["val_all_rollout_rmse"]
+    rel = abs(pred.rmse_all_rollout - want_rmse) / want_rmse
+    want = (n_blocks * VAL_STEPS, 0)
+    log(f"predict, the hidden-{h} transformer: checkpoint step {stack.step}, rollout of "
+        f"{pred.predictions.shape[0]} steps, launches (forward, backward) "
+        + ", ".join(f"{k} {v}" for k, v in predict_launches.items()) + f", expected {want} "
+        f"each: rmse_all_rollout {pred.rmse_all_rollout:.8g}, validate reported "
+        f"{want_rmse:.8g} (relative difference {rel:.3g}, limit {PREDICT_RTOL})")
+    if (stack.step != steps or rel > PREDICT_RTOL
+            or any(v != want for v in predict_launches.values())):
+        raise AssertionError("phase 48: predict's rollout is not validate's, or its launches "
+                             f"{predict_launches} are not {want}")
+    total = merge_launches(step_launches, fit_launches, predict_launches)
+    attn_key = small_record("attention", "nk", dh, False)["name"]
+    launches = {attn_key: total[attn.__name__][0], f"{attn_key}_backward": total[attn.__name__][1],
+                f"fused_gated_ffn_h{h}": total[ffn.__name__][0],
+                f"fused_gated_ffn_h{h}_backward": total[ffn.__name__][1]}
+    facts = {"train_step": st, "idle_share": idle, "fit_s": fit_s,
+             "predict_rmse": pred.rmse_all_rollout, "validate_rmse": want_rmse}
+    return launches, facts
+
+
+def earlier_widths_bits():
+    """The attention kernels at head widths 16 and 32 and the gated FFN at
+    hidden 64 and 128 against the parent tree's bits: the digests of
+    scripts/kernel_digests.py (loaded by its path: the card's machine has a
+    site-packages module named ``scripts``) against its RECORDED ones for
+    this card's SM count. Returns the cases held."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("kernel_digests",
+                                                  ROOT / "scripts" / "kernel_digests.py")
+    kd = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kd)
+    return kd.check(kd.digests(ROOT, DEVICE), kd.card_key())
+
+
+def small_width_phases(device, card, build_log):
+    """Phases 46-48: the new instances of rows 5-10 checked and timed
+    (46), each width on its path (47), the hidden-32 transformer trained,
+    fitted and predicted (48). Returns their records, with the launches of
+    phases 47-48, and {record name: launches} of the older records (the
+    hidden-128 FFN's) in phase 47."""
+    held = earlier_widths_bits()
+    log(f"the earlier widths' kernels give the parent tree's bits: {', '.join(held)}")
+    fields = small_kernel_phase(device, card, build_log)
+    launches = small_sweep_phase(device, card)
+    main_launches, facts = small_main_phase(device, card)
+    log("hidden-32 transformer " + json.dumps({"card": card, **facts}))
+    for key, n in main_launches.items():
+        launches[key] = launches.get(key, 0) + n
+    records = []
+    for key, f in fields.items():
+        kind = "ffn" if key.startswith("fused_gated_ffn") else "attention"
+        base = key[:-len("_backward")] if key.endswith("_backward") else key
+        layout = None if kind == "ffn" else base.split("_")[3]
+        width = int(base.rsplit("_h" if kind == "ffn" else "_dh", 1)[1])
+        rec = dict(small_record(kind, layout, width, key.endswith("_backward")), route="cuda",
+                   launches=launches.pop(key, 0), **f)
+        if rec["launches"] == 0:
+            raise AssertionError(f"phases 47-48: {key} never launched on its path")
+        records.append(rec)
+    return records, launches
 
 if __name__ == "__main__":
     main()

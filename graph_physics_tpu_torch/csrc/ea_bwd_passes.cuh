@@ -37,6 +37,13 @@
 // world_attention_parts). Without WORLD the code and its bits are those
 // of the mesh-only kernel.
 //
+// At head widths 8 and below (Head<DH>::FP32_GRAD, ea_common.cuh says
+// why) the per-pair terms stay fp32: gp = g_out·inv, s_r = sum_d
+// gp[d]·out32[r,d] from the forward's fp32 output, abar_s = sum_d
+// v[j_s,d]·gp[d] and g_s = p_s·(abar_s - s_r)/sqrt(dh); dq sums the fp32
+// g_s, the sender pass takes bf16(g_s) from pg and forms gp in fp32 for
+// dv.
+//
 // The design: two passes, no atomics (deterministic), each on the
 // forward's layout (ea_common.cuh): a warp per node walking its pair
 // groups in turn, its row indices staged per warp, a chunk of 4 rows'
@@ -90,11 +97,12 @@ struct BwdArgs : gn_rows::RowMap {
 
 template <int DH, class Rows, bool WORLD>
 __device__ __forceinline__ void bwd_recv_body(const BwdArgs& a) {
+  constexpr int EPL = Head<DH>::EPL;
   const int pairs = a.batch * a.heads;
   Lane<DH> ln(pairs);
   if (ln.node >= a.n_nodes) return;  // the whole warp
   extern __shared__ uint4 smem[];
-  const Stage<2> stage(smem);  // k and v of a chunk of rows
+  Stage2<DH> stage(smem);  // k and v of a chunk of rows
   const int r = ln.node;
   const Walk<Rows> walk(a, r);
   // the first 32 rows' senders and places, kept for every group
@@ -104,13 +112,13 @@ __device__ __forceinline__ void bwd_recv_body(const BwdArgs& a) {
 
   for (int grp = ln.first; grp < ln.last; ++grp) {  // warp-uniform
     ln.group(grp, pairs);
-    const Packed qv = load_packed(a.q + ln.at(r, pairs));
+    const Packed<EPL> qv = load_packed<EPL>(a.q + ln.at(r, pairs));
     float gv[EPL], ov[EPL];
-    load8(gv, a.g_out + ln.at(r, pairs));
-    if (WORLD)
-      load8f(ov, a.out32 + ln.at(r, pairs));
+    load<EPL>(gv, a.g_out + ln.at(r, pairs));
+    if (WORLD || Head<DH>::FP32_GRAD)
+      loadf<EPL>(ov, a.out32 + ln.at(r, pairs));
     else
-      load8(ov, a.out + ln.at(r, pairs));
+      load<EPL>(ov, a.out + ln.at(r, pairs));
     const float m = a.m[ln.stat(r, pairs)], inv = a.inv[ln.stat(r, pairs)];
     if (WORLD) {  // the world pieces' cotangents, before g_out is rounded
       const float w = expf(a.s_w[ln.stat(r, pairs)] - m);
@@ -123,19 +131,20 @@ __device__ __forceinline__ void bwd_recv_body(const BwdArgs& a) {
       }
 #pragma unroll
       for (int o = 1; o < Head<DH>::LPP; o *= 2) dd += __shfl_xor_sync(FULL, dd, o);
-      if (ln.active) store8f(a.dnum_w + ln.at(r, pairs), dn);
+      if (ln.active) storef<EPL>(a.dnum_w + ln.at(r, pairs), dn);
       if (ln.writes_pair()) a.dden_w[ln.stat(r, pairs)] = -dd;
     }
+    constexpr bool F32 = Head<DH>::FP32_GRAD;
     float sr = 0.f;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
-      gv[e] = bf(gv[e] * inv);
+      gv[e] = F32 ? gv[e] * inv : bf(gv[e] * inv);
       sr = fmaf(gv[e], ov[e], sr);
     }
-    const Packed gp = pack(gv);
+    const Packed<EPL> gp = pack<EPL>(gv);  // bf16 values unless F32 (then unused)
 #pragma unroll
     for (int o = 1; o < Head<DH>::LPP; o *= 2) sr += __shfl_xor_sync(FULL, sr, o);
-    sr = bf(sr);
+    if (!F32) sr = bf(sr);
 
     float dq[EPL];
 #pragma unroll
@@ -162,31 +171,42 @@ __device__ __forceinline__ void bwd_recv_body(const BwdArgs& a) {
 #pragma unroll
         for (int c = 0; c < CHUNK; ++c)
           if (c < count) {
-            const Packed kr = stage.get(c, 0);
+            const Packed<EPL> kr = stage.get(c, 0);
             const float l = pair_dot<DH>(qv, kr) * Head<DH>::SCALE;
             const float p = bf(expf(l - m));
-            const float abar = bf(pair_dot<DH>(gp, stage.get(c, 1)));
-            const float g = bf(bf(p * bf(abar - sr)) * Head<DH>::SCALE);
+            float g;
+            if constexpr (F32) {  // a pair a lane (LPP = 1): no butterfly
+              float vv[EPL];
+              unpack<EPL>(vv, stage.get(c, 1));
+              float abar = 0.f;
+#pragma unroll
+              for (int e = 0; e < EPL; ++e) abar = fmaf(gv[e], vv[e], abar);
+              g = p * (abar - sr) * Head<DH>::SCALE;
+            } else {
+              const float abar = bf(pair_dot<DH>(gp, stage.get(c, 1)));
+              g = bf(bf(p * bf(abar - sr)) * Head<DH>::SCALE);
+            }
             float kv[EPL];
-            unpack(kv, kr);
+            unpack<EPL>(kv, kr);
 #pragma unroll
             for (int e = 0; e < EPL; ++e) dq[e] = fmaf(g, kv[e], dq[e]);
             const int place_c = __shfl_sync(FULL, place, lane_of(froms, c));
-            if (ln.writes_pair()) a.pg[ln.stat(place_c, pairs)] = pack2(p, g);
+            if (ln.writes_pair()) a.pg[ln.stat(place_c, pairs)] = pack2(p, bf(g));
           }
       }
     }
-    if (ln.active) store8(a.dq + ln.at(r, pairs), dq);
+    if (ln.active) store<EPL>(a.dq + ln.at(r, pairs), dq);
   }
 }
 
 template <int DH>
 __device__ __forceinline__ void bwd_send_body(const BwdArgs& a) {
+  constexpr int EPL = Head<DH>::EPL;
   const int pairs = a.batch * a.heads;
   Lane<DH> ln(pairs);
   if (ln.node >= a.n_nodes) return;  // the whole warp
   extern __shared__ uint4 smem[];
-  const Stage<2> stage(smem);  // q and g_out of a chunk of rows' receivers
+  Stage2<DH> stage(smem);  // q and g_out of a chunk of rows' receivers
   const int j = ln.node;
   const int lo = a.offsets[j], hi = a.offsets[j + 1];
   const int lane = threadIdx.x % 32;
@@ -223,19 +243,20 @@ __device__ __forceinline__ void bwd_send_body(const BwdArgs& a) {
           if (c < count) {
             const float p = lo_of(pgs[c]), g = hi_of(pgs[c]);
             float qv[EPL], go[EPL];
-            unpack(qv, stage.get(c, 0));
-            unpack(go, stage.get(c, 1));
+            unpack<EPL>(qv, stage.get(c, 0));
+            unpack<EPL>(go, stage.get(c, 1));
 #pragma unroll
             for (int e = 0; e < EPL; ++e) {
               dk[e] = fmaf(g, qv[e], dk[e]);
-              dv[e] = fmaf(p, bf(go[e] * invs[c]), dv[e]);
+              const float gp = go[e] * invs[c];
+              dv[e] = fmaf(p, Head<DH>::FP32_GRAD ? gp : bf(gp), dv[e]);
             }
           }
       }
     }
     if (ln.active) {
-      store8(a.dk + ln.at(j, pairs), dk);
-      store8(a.dv + ln.at(j, pairs), dv);
+      store<EPL>(a.dk + ln.at(j, pairs), dk);
+      store<EPL>(a.dv + ln.at(j, pairs), dv);
     }
   }
 }
@@ -247,9 +268,9 @@ __device__ __forceinline__ void bwd_send_body(const BwdArgs& a) {
 // the transpose of the rows; pg 32-bit [rows, batch, heads] scratch; the
 // world seam's s_w (fp32 [n_nodes, batch, heads], read), dnum_w (fp32
 // [n_nodes, batch, heads, head_dim]) and dden_w (fp32 [n_nodes, batch,
-// heads], written), all null or all given; with them ``out`` is the
-// forward's fp32 output before rounding (out32). False on arguments no
-// launch takes.
+// heads], written), all null or all given; with them, and at head widths
+// 8 and below, ``out`` is the forward's fp32 output before rounding (out32).
+// False on arguments no launch takes.
 inline bool make_bwd_args(BwdArgs* a, const void* q, const void* k, const void* v,
                           const void* out, const void* m, const void* inv, const void* g_out,
                           const void* senders, const void* mask, const void* offsets,
@@ -287,35 +308,31 @@ inline bool make_bwd_args(BwdArgs* a, const void* q, const void* k, const void* 
 using BwdKernel = void (*)(BwdArgs);
 
 // launch the source's receiver pass, then its sender pass, for head width
-// 16 (recv16, send16) or 32; with world edges the receiver pass is recv16w
-// or recv32w
-inline int launch_bwd(const BwdArgs& a, int head_dim, void* stream, BwdKernel recv16,
-                      BwdKernel send16, BwdKernel recv32, BwdKernel send32, BwdKernel recv16w,
-                      BwdKernel recv32w) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int pairs = a.batch * a.heads;
-  constexpr int smem = Stage<2>::BYTES;
-  const bool world = a.s_w != nullptr;
-  int grid;
-  BwdKernel recv, send;
-  switch (head_dim) {
-    case 16:
-      grid = grid_for<16>(a.n_nodes, pairs);
-      recv = world ? recv16w : recv16;
-      send = send16;
-      break;
-    case 32:
-      grid = grid_for<32>(a.n_nodes, pairs);
-      recv = world ? recv32w : recv32;
-      send = send32;
-      break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// DH: K::template recv<DH, WORLD>() and K::template send<DH>() are the
+// source's instances
+template <class K>
+struct BwdLaunch {
+  const BwdArgs& a;
+  cudaStream_t st;
+  template <int DH>
+  int run() const {
+    const int grid = grid_for<DH>(a.n_nodes, a.batch * a.heads);
+    constexpr int smem = Stage2<DH>::BYTES;
+    const BwdKernel recv =
+        a.s_w != nullptr ? K::template recv<DH, true>() : K::template recv<DH, false>();
+    const BwdKernel send = K::template send<DH>();
+    recv<<<grid, THREADS, smem, st>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    send<<<grid, THREADS, smem, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
-  recv<<<grid, THREADS, smem, st>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  send<<<grid, THREADS, smem, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+};
+
+// launch both passes for any head width dividing 128
+template <class K>
+inline int launch_bwd(const BwdArgs& a, int head_dim, void* stream) {
+  return with_head_dim(head_dim, BwdLaunch<K>{a, static_cast<cudaStream_t>(stream)});
 }
 
 }  // namespace ea

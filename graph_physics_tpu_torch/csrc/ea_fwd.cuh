@@ -33,21 +33,26 @@
 // output before its bf16 rounding (out32, fp32): the backward's world
 // cotangents take it, as the Pallas kernel recomputes its fp32 output.
 // Without WORLD the code and its bits are those of the mesh-only kernel.
+// At head widths 8 and below the forward under autograd keeps out32
+// without world pieces too (Head<DH>::FP32_GRAD), for the backward's s_r.
 //
 // The design (ea_common.cuh): one walk of the rows, with the loads of a
 // chunk of rows in flight and few registers.
 //  - A warp per receiver: 2 lanes a (sample, head) pair of head width 16
-//    (4 of width 32), 8 values (16 bytes) each, 16 pairs at a time, the
-//    warp walking its 4 groups of 16 pairs in turn (8 groups of 8 at
-//    width 32: two warps). Each row's k and v reads of a warp are 512
-//    contiguous bytes.
+//    (4 of width 32, DH / 8 of any width from 8 up), 8 values (16 bytes)
+//    each, 16 pairs at a time, the warp walking its 4 groups of 16 pairs
+//    in turn (8 groups of 8 at width 32: two warps). Each row's k and v
+//    reads of a warp are 512 contiguous bytes. Below head width 8 a lane
+//    holds a whole pair (ea_common.cuh) and a warp's reads of a row are
+//    32·2·DH bytes.
 //  - The receiver's row indices and mask come in one load of up to 32
 //    rows, a row a lane, once for all groups, and go round by
 //    __shfl_sync; only valid rows are walked, so masked slots between
 //    valid ones drop out.
 //  - Rows go in chunks of 4: cp.async copies the chunk's k and v into the
 //    warp's shared memory (4 KB), so no register holds a load in flight,
-//    and a thread needs at most 64 registers: 32 warps an SM.
+//    and a thread needs at most 64 registers: 32 warps an SM (below head
+//    width 8 the chunk's 8 small loads go to registers instead).
 //  - k and v are each read once; the degree has no cap.
 #pragma once
 
@@ -74,11 +79,12 @@ struct FwdArgs : gn_rows::RowMap {
 
 template <int DH, class Rows, bool WORLD>
 __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
+  constexpr int EPL = Head<DH>::EPL;
   const int pairs = a.batch * a.heads;
   Lane<DH> ln(pairs);
   if (ln.node >= a.n_nodes) return;  // the whole warp
   extern __shared__ uint4 smem[];
-  const Stage<2> stage(smem);  // k and v of a chunk of rows
+  Stage2<DH> stage(smem);  // k and v of a chunk of rows
   const int r = ln.node;
   const Walk<Rows> walk(a, r);
   // the first 32 rows' senders, kept for every group the warp walks
@@ -86,7 +92,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
 
   for (int grp = ln.first; grp < ln.last; ++grp) {  // warp-uniform
     ln.group(grp, pairs);
-    const Packed qv = load_packed(a.q + ln.at(r, pairs));
+    const Packed<EPL> qv = load_packed<EPL>(a.q + ln.at(r, pairs));
     float num[EPL];
 #pragma unroll
     for (int e = 0; e < EPL; ++e) num[e] = 0.f;
@@ -127,7 +133,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
           if (c < count) {
             const float p = bf(expf(l[c] - m));
             float vv[EPL];
-            unpack(vv, stage.get(c, 1));
+            unpack<EPL>(vv, stage.get(c, 1));
             den += p;
 #pragma unroll
             for (int e = 0; e < EPL; ++e) num[e] = fmaf(p, vv[e], num[e]);
@@ -140,7 +146,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
       const float mj = fmaxf(m, sw);
       const float c = expf(m - mj), w = expf(sw - mj);
       float nw[EPL];
-      load8f(nw, a.num_w + ln.at(r, pairs));
+      loadf<EPL>(nw, a.num_w + ln.at(r, pairs));
       den = fmaf(a.den_w[st], w, den * c);
 #pragma unroll
       for (int e = 0; e < EPL; ++e) num[e] = fmaf(nw[e], w, num[e] * c);
@@ -149,8 +155,9 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
     if (ln.active) {
 #pragma unroll
       for (int e = 0; e < EPL; ++e) num[e] = den > 0.f ? num[e] / den : 0.f;
-      if (WORLD && a.out32 != nullptr) store8f(a.out32 + ln.at(r, pairs), num);
-      store8(a.out + ln.at(r, pairs), num);
+      if ((WORLD || Head<DH>::FP32_GRAD) && a.out32 != nullptr)
+        storef<EPL>(a.out32 + ln.at(r, pairs), num);
+      store<EPL>(a.out + ln.at(r, pairs), num);
     }
     if (a.m != nullptr && ln.writes_pair()) {
       a.m[ln.stat(r, pairs)] = m;
@@ -163,13 +170,14 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
 // batch, heads, head_dim]; m, inv fp32 [n_nodes, batch, heads], both null
 // or both given; senders (int32) and mask (bool) one entry a row; the
 // world pieces num_w (fp32 [n_nodes, batch, heads, head_dim]), den_w and
-// s_w (fp32 [n_nodes, batch, heads]), all null or all given, and with them
-// and the statistics out32 (fp32 [n_nodes, batch, heads, head_dim], the
-// output before rounding), else null. False on arguments no launch takes.
+// s_w (fp32 [n_nodes, batch, heads]), all null or all given; out32 (fp32
+// [n_nodes, batch, heads, head_dim], the output before rounding) given
+// with the statistics where the world pieces are given or head_dim is 8
+// or below (keeps_fp32_out), else null. False on arguments no launch takes.
 inline bool make_fwd_args(FwdArgs* a, const void* q, const void* k, const void* v, void* out,
                           void* m, void* inv, const void* senders, const void* mask,
                           const void* num_w, const void* den_w, const void* s_w, void* out32,
-                          int n_nodes, int batch, int heads) {
+                          int n_nodes, int batch, int heads, int head_dim) {
   a->q = static_cast<const __nv_bfloat16*>(q);
   a->k = static_cast<const __nv_bfloat16*>(k);
   a->v = static_cast<const __nv_bfloat16*>(v);
@@ -188,28 +196,30 @@ inline bool make_fwd_args(FwdArgs* a, const void* q, const void* k, const void* 
   const bool world = num_w != nullptr;
   return n_nodes >= 1 && batch >= 1 && heads >= 1 && (m == nullptr) == (inv == nullptr) &&
          (den_w != nullptr) == world && (s_w != nullptr) == world &&
-         (out32 != nullptr) == (world && m != nullptr);
+         (out32 != nullptr) == ((world || keeps_fp32_out(head_dim)) && m != nullptr);
 }
 
 using FwdKernel = void (*)(FwdArgs);
 
-// launch the source's kernel for head width 16 or 32, without world edges
-// (k16, k32) or with them (w16, w32)
-inline int launch_fwd(const FwdArgs& a, int head_dim, void* stream, FwdKernel k16,
-                      FwdKernel k32, FwdKernel w16, FwdKernel w32) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int pairs = a.batch * a.heads;
-  constexpr int smem = Stage<2>::BYTES;
-  if (a.num_w != nullptr) {
-    k16 = w16;
-    k32 = w32;
+// launch the source's kernel for head width DH: K::template kernel<DH,
+// WORLD>() is the source's instance, without world edges or with them
+template <class K>
+struct FwdLaunch {
+  const FwdArgs& a;
+  cudaStream_t st;
+  template <int DH>
+  int run() const {
+    const FwdKernel k =
+        a.num_w != nullptr ? K::template kernel<DH, true>() : K::template kernel<DH, false>();
+    k<<<grid_for<DH>(a.n_nodes, a.batch * a.heads), THREADS, Stage2<DH>::BYTES, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
-  switch (head_dim) {
-    case 16: k16<<<grid_for<16>(a.n_nodes, pairs), THREADS, smem, st>>>(a); break;
-    case 32: k32<<<grid_for<32>(a.n_nodes, pairs), THREADS, smem, st>>>(a); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+};
+
+// launch the source's kernel for any head width dividing 128
+template <class K>
+inline int launch_fwd(const FwdArgs& a, int head_dim, void* stream) {
+  return with_head_dim(head_dim, FwdLaunch<K>{a, static_cast<cudaStream_t>(stream)});
 }
 
 }  // namespace ea

@@ -1,6 +1,8 @@
 // Helpers shared by the gated-FFN kernels (fused_ffn.cu, fused_ffn_bwd.cu),
-// both on mma.sync tiles (mma_common.cuh): the widths, the activation, and
-// the bf16-pair elementwise work of a quad of lanes holding one row.
+// both on mma.sync tiles (mma_common.cuh): the widths, the activation and
+// its derivative, and the bf16-pair elementwise work of a quad of lanes
+// holding one row. The kernels of the other widths (ffn_wide.cuh,
+// ffn_small.cuh) take the activation from here too.
 //
 // Elementwise work runs on bf16 pairs: a product or sum of two bf16
 // values rounded once to bf16 (mul/add/sub .rn.bf16x2) equals the fp32
@@ -26,6 +28,21 @@ using bf2 = __nv_bfloat162;
 // exact-erf GELU, or SiLU
 __device__ __forceinline__ float act(float a, int silu) {
   return silu ? a / (1.0f + expf(-a)) : 0.5f * a * (1.0f + erff(a * 0.7071067811865476f));
+}
+
+// act(x) (above) and its derivative act'(x), sharing the one erff (GELU)
+// or expf (SiLU) both need: the same values as computing each alone
+__device__ __forceinline__ void act_and_grad(float x, int silu, float& a, float& d) {
+  if (silu) {
+    const float e = expf(-x);
+    const float s = 1.0f / (1.0f + e);
+    a = x / (1.0f + e);
+    d = s * (1.0f + x * (1.0f - s));
+  } else {
+    const float phi = 1.0f + erff(x * 0.7071067811865476f);
+    a = 0.5f * x * phi;
+    d = 0.5f * phi + x * expf(-0.5f * x * x) * 0.3989422804014327f;
+  }
 }
 
 // 16 bf16 values (16-byte aligned) as 8 pairs, and back

@@ -8,6 +8,7 @@
 
 namespace ffnw {
 
+using ffn::act_and_grad;
 using ffn::bf2;
 
 constexpr int H = 128;      // hidden width
@@ -54,21 +55,6 @@ __device__ __forceinline__ float quad_rms_norm(bf2 (&v)[16], const bf2* scale) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) v[i] = ffn::mul3(v[i], ib, scale[i]);
   return inv;
-}
-
-// act(x) and act'(x) sharing the one erff (GELU) or expf (SiLU) both need
-// (fused_ffn_bwd.cu's act_and_grad)
-__device__ __forceinline__ void act_and_grad(float x, int silu, float& a, float& d) {
-  if (silu) {
-    const float e = expf(-x);
-    const float s = 1.0f / (1.0f + e);
-    a = x / (1.0f + e);
-    d = s * (1.0f + x * (1.0f - s));
-  } else {
-    const float phi = 1.0f + erff(x * 0.7071067811865476f);
-    a = 0.5f * x * phi;
-    d = 0.5f * phi + x * expf(-0.5f * x * x) * 0.3989422804014327f;
-  }
 }
 
 // _rms_bwd on a quad's row, in place on g (32 values a lane): v the norm's

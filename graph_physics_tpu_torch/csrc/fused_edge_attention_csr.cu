@@ -11,6 +11,8 @@
 // joint mesh + world softmax (ea_fwd.cuh): their extra reads (num_w fp32,
 // 4 bytes a value; den_w, s_w) outweigh q, k or v at a plate shape.
 //
+// Every head width dividing 128 has an instance (ea_common.cuh: Head<DH>).
+//
 // What bounds it on this card: the graded transformer slice (27,008
 // receivers x 16 samples x 4 heads x dh 16, 160,612 edges) does ~0.66 GFLOP
 // a block and must read q, k, v once and write the output: 4 x 55 MB =
@@ -40,6 +42,12 @@ __global__ void __launch_bounds__(ea::THREADS, ea::MIN_BLOCKS)
   ea::fwd_body<DH, gn_rows::CsrRows, WORLD>(a);
 }
 
+// the instances, by head width and world seam (ea::FwdLaunch)
+struct CsrFwd {
+  template <int DH, bool WORLD>
+  static ea::FwdKernel kernel() { return ea_csr_fwd_kernel<DH, WORLD>; }
+};
+
 }  // namespace
 
 // q, k, v, out: contiguous bf16 [n_nodes, batch, heads, head_dim]; m, inv:
@@ -57,9 +65,7 @@ extern "C" int ea_csr_fwd(const void* q, const void* k, const void* v, void* out
   ea::FwdArgs a = {};
   a.row_ptr = static_cast<const int32_t*>(row_ptr);
   if (!ea::make_fwd_args(&a, q, k, v, out, m, inv, senders, mask, num_w, den_w, s_w, out32,
-                         n_nodes, batch, heads))
+                         n_nodes, batch, heads, head_dim))
     return static_cast<int>(cudaErrorInvalidValue);
-  return ea::launch_fwd(a, head_dim, stream, ea_csr_fwd_kernel<16, false>,
-                        ea_csr_fwd_kernel<32, false>, ea_csr_fwd_kernel<16, true>,
-                        ea_csr_fwd_kernel<32, true>);
+  return ea::launch_fwd<CsrFwd>(a, head_dim, stream);
 }

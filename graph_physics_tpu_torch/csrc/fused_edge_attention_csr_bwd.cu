@@ -9,6 +9,8 @@
 // receiver r's rows are s = row_ptr[r] .. row_ptr[r+1]-1; it takes the
 // forward's output and the statistics it kept (fused_edge_attention_csr.cu).
 //
+// Every head width dividing 128 has an instance (ea_common.cuh: Head<DH>).
+//
 // What bounds it on this card: the graded transformer slice (27,008 nodes
 // x 16 samples x 4 heads x dh 16, 160,612 edges) must read q, k, v and
 // g_out and write dq, dk and dv, 7 x 55 MB = 387 MB: 0.116 ms at 3.35 TB/s
@@ -43,6 +45,14 @@ __global__ void __launch_bounds__(ea::THREADS, ea::MIN_BLOCKS)
   ea::bwd_send_body<DH>(a);
 }
 
+// the instances, by head width and world seam (ea::BwdLaunch)
+struct CsrBwd {
+  template <int DH, bool WORLD>
+  static ea::BwdKernel recv() { return ea_csr_bwd_recv_kernel<DH, WORLD>; }
+  template <int DH>
+  static ea::BwdKernel send() { return ea_csr_bwd_send_kernel<DH>; }
+};
+
 }  // namespace
 
 // q, k, v, out, g_out, dq, dk, dv: contiguous bf16 [n_nodes, batch, heads,
@@ -68,8 +78,5 @@ extern "C" int ea_csr_bwd(const void* q, const void* k, const void* v, const voi
   if (!ea::make_bwd_args(&a, q, k, v, out, m, inv, g_out, senders, mask, offsets, place, recv,
                          dq, dk, dv, pg, s_w, dnum_w, dden_w, n_nodes, batch, heads))
     return static_cast<int>(cudaErrorInvalidValue);
-  return ea::launch_bwd(a, head_dim, stream, ea_csr_bwd_recv_kernel<16, false>,
-                        ea_csr_bwd_send_kernel<16>, ea_csr_bwd_recv_kernel<32, false>,
-                        ea_csr_bwd_send_kernel<32>, ea_csr_bwd_recv_kernel<16, true>,
-                        ea_csr_bwd_recv_kernel<32, true>);
+  return ea::launch_bwd<CsrBwd>(a, head_dim, stream);
 }

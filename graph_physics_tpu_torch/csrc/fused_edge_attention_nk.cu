@@ -12,6 +12,8 @@
 // layouts). When asked (the forward under autograd), it also writes the
 // softmax statistics the backward (fused_edge_attention_nk_bwd.cu) reuses.
 //
+// Every head width dividing 128 has an instance (ea_common.cuh: Head<DH>).
+//
 // What bounds it on this card: the transformer slice (1,920 receivers x
 // 64 samples x 4 heads x dh 16, K=6) does ~0.19 GFLOP a block and must
 // read q, k, v once and write the output: 4 x 15.7 MB = 63 MB, ~0.019 ms
@@ -36,6 +38,12 @@ __global__ void __launch_bounds__(ea::THREADS, ea::MIN_BLOCKS)
   ea::fwd_body<DH, gn_rows::NkRows, WORLD>(a);
 }
 
+// the instances, by head width and world seam (ea::FwdLaunch)
+struct NkFwd {
+  template <int DH, bool WORLD>
+  static ea::FwdKernel kernel() { return ea_nk_fwd_kernel<DH, WORLD>; }
+};
+
 }  // namespace
 
 // q, k, v, out: contiguous bf16 [n_nodes, batch, heads, head_dim]; m, inv:
@@ -58,9 +66,7 @@ extern "C" int ea_nk_fwd(const void* q, const void* k, const void* v, void* out,
   a.total_rows = n_nodes * k_slots;
   if (k_slots < 1 || node_block < 1 || n_nodes % node_block != 0 ||
       !ea::make_fwd_args(&a, q, k, v, out, m, inv, senders, mask, num_w, den_w, s_w, out32,
-                          n_nodes, batch, heads))
+                          n_nodes, batch, heads, head_dim))
     return static_cast<int>(cudaErrorInvalidValue);
-  return ea::launch_fwd(a, head_dim, stream, ea_nk_fwd_kernel<16, false>,
-                        ea_nk_fwd_kernel<32, false>, ea_nk_fwd_kernel<16, true>,
-                        ea_nk_fwd_kernel<32, true>);
+  return ea::launch_fwd<NkFwd>(a, head_dim, stream);
 }

@@ -9,6 +9,8 @@
 // ones among them; it takes the forward's output and the statistics it
 // kept, and keeps products exact in fp32 as the forward does.
 //
+// Every head width dividing 128 has an instance (ea_common.cuh: Head<DH>).
+//
 // What bounds it on this card: at the transformer slice (1,920 nodes x
 // 64 samples x 4 heads x dh 16, K=6) it must read q, k, v and g_out and
 // write dq, dk and dv, 7 x 15.7 MB = 110 MB, ~0.033 ms at 3.35 TB/s; its
@@ -41,6 +43,14 @@ __global__ void __launch_bounds__(ea::THREADS, ea::MIN_BLOCKS)
   ea::bwd_send_body<DH>(a);
 }
 
+// the instances, by head width and world seam (ea::BwdLaunch)
+struct NkBwd {
+  template <int DH, bool WORLD>
+  static ea::BwdKernel recv() { return ea_nk_bwd_recv_kernel<DH, WORLD>; }
+  template <int DH>
+  static ea::BwdKernel send() { return ea_nk_bwd_send_kernel<DH>; }
+};
+
 }  // namespace
 
 // q, k, v, out, g_out, dq, dk, dv: contiguous bf16 [n_nodes, batch, heads,
@@ -69,8 +79,5 @@ extern "C" int ea_nk_bwd(const void* q, const void* k, const void* v, const void
       !ea::make_bwd_args(&a, q, k, v, out, m, inv, g_out, senders, mask, offsets, place, recv,
                          dq, dk, dv, pg, s_w, dnum_w, dden_w, n_nodes, batch, heads))
     return static_cast<int>(cudaErrorInvalidValue);
-  return ea::launch_bwd(a, head_dim, stream, ea_nk_bwd_recv_kernel<16, false>,
-                        ea_nk_bwd_send_kernel<16>, ea_nk_bwd_recv_kernel<32, false>,
-                        ea_nk_bwd_send_kernel<32>, ea_nk_bwd_recv_kernel<16, true>,
-                        ea_nk_bwd_recv_kernel<32, true>);
+  return ea::launch_bwd<NkBwd>(a, head_dim, stream);
 }

@@ -110,22 +110,6 @@ struct Args {
   int silu;
 };
 
-// act(x) (ffn_common.cuh) and its derivative act'(x), sharing the one
-// erff (GELU) or expf (SiLU) both need: the same values as computing each
-// alone
-__device__ __forceinline__ void act_and_grad(float x, int silu, float& a, float& d) {
-  if (silu) {
-    const float e = expf(-x);
-    const float s = 1.0f / (1.0f + e);
-    a = x / (1.0f + e);
-    d = s * (1.0f + x * (1.0f - s));
-  } else {
-    const float phi = 1.0f + erff(x * 0.7071067811865476f);
-    a = 0.5f * x * phi;
-    d = 0.5f * phi + x * expf(-0.5f * x * x) * 0.3989422804014327f;
-  }
-}
-
 // _rms_bwd on a quad's row, in place on g (16 values a lane): v the norm's
 // input, inv its statistic, scale its scale (this lane's 8 pairs); ds gets
 // the scale terms bf16(g * u)

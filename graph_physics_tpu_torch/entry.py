@@ -273,15 +273,16 @@ def graded_setup(device="cuda", *, num_nodes: int = 27_000, hidden: int = 32,
 
 
 def graded_transformer_setup(device="cuda", *, num_nodes: int = 27_000, mp_steps: int = 10,
-                             batch: int = 16, num_steps: int = 3,
-                             accumulate_stats: bool = True) -> CylinderSetup:
-    """The graph transformer (``transformer_setup``'s widths: hidden 64, 4
-    heads, bf16, weights from seed 0) on the graded mesh, in the layout
-    FusedTopologyManager("transformer") chooses, which must be CSR: B
-    packed copies of frame 0 on ``device``; ``accumulate_stats`` folds the
-    batch into the normalizer statistics."""
+                             batch: int = 16, num_steps: int = 3, hidden: int = 64,
+                             heads: int = 4, accumulate_stats: bool = True) -> CylinderSetup:
+    """The graph transformer (``transformer_setup``'s widths by default:
+    hidden 64, 4 heads, bf16, weights from seed 0) on the graded mesh, in
+    the layout FusedTopologyManager("transformer") chooses, which must be
+    CSR: B packed copies of frame 0 on ``device``; ``accumulate_stats``
+    folds the batch into the normalizer statistics."""
     return _packed_setup(
-        device, lambda t: make_transformer_simulator(64, mp_steps, 4, torch.bfloat16, t, 0),
+        device, lambda t: make_transformer_simulator(hidden, mp_steps, heads, torch.bfloat16, t,
+                                                     0),
         synthetic.make_graded_trajectory(num_nodes, num_steps), batch,
         _chosen_csr_layout("transformer"), accumulate_stats)
 

@@ -49,8 +49,8 @@ from graph_physics_tpu_torch.ops.edge_attention import edge_attention, joint_edg
 from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
 #: head widths the kernels are compiled for (``DH`` template instances):
-#: the canonical configs' hidden 64 and 128 over 4 heads
-KERNEL_HEAD_DIMS = (16, 32)
+#: every width dividing JAX's LANES = 128, the widths its gate fuses
+KERNEL_HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64, 128)
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "edge_attention_csr": {"ea_csr_fwd": [_vp] * 13 + [_i] * 4 + [_vp]},
@@ -71,16 +71,23 @@ def ptrs(*tensors):
     return [None if t is None else t.data_ptr() for t in tensors]
 
 
+#: head widths up to which the forward under autograd keeps its fp32 output
+#: for the backward's s_r without world pieces too (csrc/ea_common.cuh:
+#: Head<DH>::FP32_GRAD)
+FP32_OUT_UP_TO = 8
+
+
 def forward_outputs(q, keep_stats, world):
     """The forward kernel's outputs: out (bf16), and with ``keep_stats`` the
-    statistics: m and inv (fp32 [N, B, H]), and with the world pieces the
-    fp32 output before rounding (fp32 [N, B, H, dh]), else None."""
-    n, b, h, _ = q.shape
+    statistics: m and inv (fp32 [N, B, H]), and with the world pieces or up
+    to head width ``FP32_OUT_UP_TO`` the fp32 output before rounding (fp32
+    [N, B, H, dh]), else None."""
+    n, b, h, dh = q.shape
     out = torch.empty_like(q)
     m = inv = out32 = None
     if keep_stats:
         m, inv = (torch.empty((n, b, h), dtype=torch.float32, device=q.device) for _ in range(2))
-        if world is not None:
+        if world is not None or dh <= FP32_OUT_UP_TO:
             out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     return out, m, inv, out32
 
@@ -140,7 +147,8 @@ def world_grads(q, world):
 def _launch_bwd(q, k, v, senders, receivers, edge_mask, csr, g_out, saved, world=None):
     """dq, dk, dv (bf16) from the backward kernels, given ``saved`` = the
     forward's (out, m, inv); with the world pieces ``world`` also dnum_w
-    and dden_w (fp32), ``out`` then the fp32 output before rounding."""
+    and dden_w (fp32). ``out`` is the fp32 output before rounding where the
+    forward kept it (``forward_outputs``)."""
     n, b, h, dh = q.shape
     out, m, inv = saved
     offsets, place, recv = sender_places(senders, receivers, edge_mask, csr)
@@ -217,7 +225,8 @@ def edge_attention_backward_reference(q, k, v, senders, receivers, edge_mask, cs
 #: backward takes (out, m, inv) as ``saved``; both take the world pieces
 #: as ``world``: the forward's statistics then also hold the fp32 output
 #: before rounding, which the backward takes for ``out``, and the backward
-#: also returns dnum_w and dden_w
+#: also returns dnum_w and dden_w; the kernels' forward keeps the fp32
+#: output up to head width ``FP32_OUT_UP_TO`` without world pieces too
 KERNELS = (_launch_fwd, _launch_bwd)
 PLAIN = (_reference_fwd, edge_attention_backward_reference)
 
@@ -304,7 +313,8 @@ def launch_or_plain(q, k, v, senders, receivers, edge_mask, layout, kernels, wor
     dh = q.shape[-1]
     if dh not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(f"the kernel is built for head widths {KERNEL_HEAD_DIMS}, "
-                                  f"got {dh}")
+                                  f"got {dh}: a width that JAX's gate does not fuse either "
+                                  f"(LANES % head width != 0)")
     world = tuple(world_parts or (None,) * 3)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (q, k, v, *world)):

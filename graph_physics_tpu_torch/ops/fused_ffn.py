@@ -6,7 +6,8 @@ _ffn_fwd_kernel (:74) and _ffn_bwd_kernel (:99) behind fused_gated_ffn
 
     y = x + W3 · (act(W1·n + b1) ⊙ (W2·n + b2)) + b3,   n = RMS_0(RMS_norm2(x)).
 
-The kernels come in two instances, by the hidden width H. At H = 64 both
+The kernels come in instances by the hidden width H, every H dividing
+128 (the widths JAX's gate fuses). At H = 64 both
 run their products on the tensor cores in one pass over row tiles of
 [N·B, H], with the weights in shared memory. The forward
 (``csrc/fused_ffn.cu``, 128-row tiles) runs its three products and keeps
@@ -18,9 +19,14 @@ panels workload) the weights no longer fit a block's shared memory, so
 they stream through it in chunks of 64 middle columns
 (``csrc/fused_ffn128.cu``), and the backward (``csrc/fused_ffn128_bwd.cu``)
 writes ga1, ga2, gmid and n to a scratch from which a second pass forms
-the weight gradients as tensor-core products over the rows. Any other H
-raises (ROADMAP B 1). See the sources' headers for the designs and the
-bounds.
+the weight gradients as tensor-core products over the rows. At H = 32 and
+below (``csrc/fused_ffn_small.cu``, ``fused_ffn_small_bwd.cu`` on
+``csrc/ffn_small.cuh``, one library a width) the products run on tiles
+zero-padded to the tensor cores' 16-wide steps, the elementwise work a
+thread a row; the backward keeps the weight gradients' tiles in
+registers and adds each block's sums in block order. Any other H, which
+JAX's gate does not fuse either, raises. See the sources' headers for the
+designs and the bounds.
 :func:`gated_ffn_reference` is the plain PyTorch version of the forward,
 rounding where the kernel rounds (gated_ffn_reference, fused_ffn.py:282,
 with _rms_fwd's numerics), and :func:`gated_ffn_backward_reference` that
@@ -41,8 +47,11 @@ from torch.autograd.function import once_differentiable
 
 from graph_physics_tpu_torch.ops import kernel_build
 
-#: hidden widths the kernels are compiled for (``H``); the middle is 3H wide
-KERNEL_HIDDENS = (64, 128)
+#: hidden widths the kernels are compiled for (``H``): every width dividing
+#: JAX's LANES_ = 128, the widths its gate fuses; the middle is 3H wide
+KERNEL_HIDDENS = (1, 2, 4, 8, 16, 32, 64, 128)
+#: the widths of the small kernels (csrc/fused_ffn_small*.cu, a library each)
+SMALL_HIDDENS = kernel_build.FFN_SMALL_HIDDENS
 #: RMSNorm epsilon (layers.RMSNorm.eps, _rms_fwd's eps)
 RMS_EPS = 1e-8
 
@@ -55,6 +64,9 @@ _ARGTYPES = {
     "ffn128_bwd": {"ffn128_bwd": [_vp] * 11 + [ctypes.c_longlong] + [_vp] * 7 + [_i] * 3 + [_vp],
                    "ffn128_bwd_sizes": [_i]},
 }
+for _h in SMALL_HIDDENS:
+    _ARGTYPES[f"ffn_small{_h}"] = {"ffn_small_fwd": _ARGTYPES["ffn"]["ffn_fwd"]}
+    _ARGTYPES[f"ffn_small_bwd{_h}"] = {"ffn_small_bwd": _ARGTYPES["ffn_bwd"]["ffn_bwd"]}
 
 
 def _grad_shapes(h: int):
@@ -82,11 +94,23 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+#: (library, C function) of the forward and of the backward kernel at
+#: hidden 64 and at each small width
+_FUNCS = {64: (("ffn", "ffn_fwd"), ("ffn_bwd", "ffn_bwd")),
+          **{h: ((f"ffn_small{h}", "ffn_small_fwd"), (f"ffn_small_bwd{h}", "ffn_small_bwd"))
+             for h in SMALL_HIDDENS}}
+
+
+def _kernel_fn(h, backward):
+    lib, fn = _FUNCS[h][backward]
+    return getattr(kernel_build.load(lib, _ARGTYPES[lib]), fn)
+
+
 def _launch_fwd(x, block, norm2):
     if x.shape[-1] == 128:
         return _launch_fwd128(x, block, norm2)
     y = torch.empty_like(x)
-    err = kernel_build.load("ffn", _ARGTYPES["ffn"]).ffn_fwd(
+    err = _kernel_fn(x.shape[-1], False)(
         x.data_ptr(), y.data_ptr(), x.shape[0] * x.shape[1],
         *[p.data_ptr() for p in _params(block, norm2)], int(block.gated.use_silu), _stream(x))
     if err != 0:
@@ -130,7 +154,7 @@ def _launch_bwd(x, block, norm2, g_out):
     sizes = [math.prod(shape) for shape in _grad_shapes(x.shape[-1]).values()]
     partials = torch.empty((parts, sum(sizes)), dtype=torch.float32, device=dev)
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    err = kernel_build.load("ffn_bwd", _ARGTYPES["ffn_bwd"]).ffn_bwd(
+    err = _kernel_fn(x.shape[-1], True)(
         x.data_ptr(), g_out.data_ptr(), dx.data_ptr(), partials.data_ptr(), grads.data_ptr(),
         rows, *[p.data_ptr() for p in _params(block, norm2)],
         int(block.gated.use_silu), parts, _stream(x))
@@ -211,8 +235,8 @@ def fused_gated_ffn(x: torch.Tensor, block, norm2) -> torch.Tensor:
     x is bf16 [N, B, H]; ``block`` is the block's GatedMLPBlock (RMSNorm,
     GatedMLP, Dense; models/layers.py) and ``norm2`` its RMSNorm. CPU
     tensors take :func:`gated_ffn_reference` (gradient by plain autograd);
-    CUDA tensors launch the kernel of their H (64 or 128; any other raises),
-    counted in ``fused_gated_ffn.launches``,
+    CUDA tensors launch the kernel of their H (any H dividing 128; any
+    other raises), counted in ``fused_gated_ffn.launches``,
     and under autograd its gradient is the backward kernel, counted in
     ``fused_gated_ffn.backward_launches``.
     """
@@ -225,7 +249,8 @@ def fused_gated_ffn(x: torch.Tensor, block, norm2) -> torch.Tensor:
     if h not in KERNEL_HIDDENS or block.gated.linear1.weight.shape != (3 * h, h) or \
             block.out.weight.shape != (h, 3 * h):
         raise NotImplementedError(f"the gated-FFN kernels are built for hidden {KERNEL_HIDDENS} "
-                                  f"with a 3H-wide middle, not hidden {h} (ROADMAP B 1)")
+                                  f"with a 3H-wide middle, not hidden {h}: widths that JAX's "
+                                  f"gate does not fuse either (LANES_ % hidden != 0)")
     for p in params:
         if p.dtype != torch.float32 or not p.is_contiguous():
             raise ValueError("kernel parameters must be contiguous fp32")

@@ -64,6 +64,15 @@ for _h in (64, 128):
                                 "gn_wide_bwd.cuh")):
         LIBRARIES[f"{_name}{_h}"] = (_src, (_body, *_GN_WIDE))
         FLAGS[f"{_name}{_h}"] = (f"-DGN_WIDE_H={_h}",)
+#: the gated-FFN kernels at hidden 32 and below (rows 9/10 at the small
+#: widths): one library per (kernel, width), each source compiled for its
+#: width
+FFN_SMALL_HIDDENS = (1, 2, 4, 8, 16, 32)
+for _h in FFN_SMALL_HIDDENS:
+    for _name, _src in (("ffn_small", "fused_ffn_small.cu"),
+                        ("ffn_small_bwd", "fused_ffn_small_bwd.cu")):
+        LIBRARIES[f"{_name}{_h}"] = (_src, ("ffn_small.cuh", "ffn_common.cuh", "mma_common.cuh"))
+        FLAGS[f"{_name}{_h}"] = (f"-DFFN_SMALL_H={_h}",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

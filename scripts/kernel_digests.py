@@ -1,0 +1,185 @@
+"""Digests of the attention kernels' outputs at head widths 16 and 32 and of
+the gated-FFN kernels' at hidden 64 and 128, on one NVIDIA GPU: whether a
+change to the kernels' sources left those instances' bits as they were.
+
+    python3 scripts/kernel_digests.py                  # this checkout's kernels
+    python3 scripts/kernel_digests.py --root CHECKOUT  # another checkout's
+
+Each case feeds fixed inputs, drawn with numpy from a seed, through one
+wrapper of the checkout's port (its kernels built from its csrc/ at first
+use) and hashes every output's bytes with SHA-256: the attention forward
+(output, and under ``keep_stats`` the max and 1/denominator) and its
+backward's dq, dk, dv, in the NK layout on the 48x40 cylinder mesh at
+B=64 with 4 heads of 16 (the cylinder transformer's shape) and of 32 (the
+panels transformer's head width and batch), with and without world
+pieces, and in the CSR layout on a 1,500-node graded mesh at B=16; the
+gated FFN's output and its backward's dx and eight parameter gradients at
+[1,920, 64, 64] and [1,920, 64, 128]. Prints one JSON object: the card,
+its SM count (the FFN backwards' block partials follow it) and the
+digests. ``RECORDED`` holds those of the tree before the kernels took
+every head width and hidden width dividing 128, run this way with
+``--root`` on an NVIDIA H100 80GB HBM3 (132 SMs): ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` hold this tree's digests to them. Imports
+nothing of JAX.
+"""
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+#: the parent tree's digests, by the card's SM count: the script run with
+#: --root on the parent checkout, on an NVIDIA H100 80GB HBM3 at 700 W
+RECORDED = {
+    132: {
+        "attention_nk_dh16":
+            "af400d79c8173f16ddba97829bf271d2207fed26c4857f54cbd9d0a9c510d71b",
+        "attention_nk_dh16_world":
+            "4cb842a21c975dbeceaa40af3224221332c291da494f62044b0640ca86670403",
+        "attention_nk_dh32":
+            "89637e5659a64370318298a226a81def4c3033ecd952a3103e7a814c838493a3",
+        "attention_nk_dh32_world":
+            "909b062787441eefdab36bbf6e02c61de9be41d65eb4e242a09cb3c9ab4a7b50",
+        "attention_csr_dh16":
+            "f4b3721ef7df393ae514cfca1852635fa4d6408c19c78037785cada1bbe948b5",
+        "attention_csr_dh32":
+            "91f2832d137320930f28a341306dae8a789f79a18d83559a0c65f6f2b0a8d1dc",
+        "ffn_h64":
+            "e49481239940f8edfd92bf3b7665726c939d7c1b1c0ae2d0f948d9ff03add18f",
+        "ffn_h128":
+            "1ff2afe1f46f249cc405a9a6fd1584687c36f30fa411c6c6746dc691009d690f",
+    },
+}
+
+
+def _bf16(torch, a, device):
+    return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device, torch.bfloat16)
+
+
+def _digest(torch, tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def attention_case(torch, entry, ops, layout, head_dim, world, device):
+    """Outputs of one attention case: forward, its kept statistics, and the
+    backward's gradients (with world pieces also dnum_w, dden_w)."""
+    rng = np.random.default_rng(1000 + head_dim + 7 * (layout == "csr") + 3 * world)
+    if layout == "nk":
+        setup = entry.transformer_setup(device, nx=48, ny=40, batch=64, mp_steps=1)
+        fn, kernels = ops.fused_edge_attention_nk, ops.KERNELS
+    else:
+        setup = entry.graded_transformer_setup(device, num_nodes=1500, batch=16, mp_steps=1)
+        fn, kernels = ops.fused_edge_attention_csr, ops.KERNELS
+    g, lay = setup.graph, setup.tiling
+    shape = (lay.num_nodes, g.x.shape[1], 4, head_dim)
+    q, k, v, cot = (_bf16(torch, s * rng.standard_normal(shape), device)
+                    for s in (0.5, 0.5, 0.5, 1.0))
+    rows = (g.senders, g.receivers, g.edge_mask)
+    parts = None
+    if world:
+        f32 = dict(dtype=torch.float32, device=device)
+        parts = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32), **f32),
+                 torch.as_tensor(rng.uniform(0.5, 2.0, shape[:3]).astype(np.float32), **f32),
+                 torch.as_tensor(rng.uniform(-1.0, 1.0, shape[:3]).astype(np.float32), **f32))
+    kw = {} if parts is None else {"world": parts}
+    with torch.no_grad():
+        out, stats = kernels[0](q, k, v, *rows, lay, keep_stats=True, **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    wl = [] if parts is None else [t.clone().requires_grad_(True) for t in parts[:2]]
+    wp = {} if parts is None else {"world_parts": (*wl, parts[2])}
+    grads = torch.autograd.grad(fn(*leaves, *rows, lay, **wp), leaves + wl, cot)
+    return [out, *stats, *grads]
+
+
+def ffn_case(torch, layers, ffn_ops, hidden, device):
+    """Outputs of one gated-FFN case: y, then dx and the eight parameter
+    gradients."""
+    rng = np.random.default_rng(2000 + hidden)
+    block = layers.GatedMLPBlock(hidden, hidden, hidden)
+    norm2 = layers.RMSNorm(hidden)
+    with torch.no_grad():
+        for p in block.parameters():
+            fan_in = p.shape[-1] if p.ndim == 2 else hidden
+            p.copy_(torch.as_tensor(rng.standard_normal(tuple(p.shape)).astype(np.float32)
+                                    / np.sqrt(fan_in)))
+        for norm in (block.norm, norm2):
+            norm.scale.copy_(torch.as_tensor(
+                (1.0 + 0.2 * rng.standard_normal(hidden)).astype(np.float32)))
+    block, norm2 = block.to(device), norm2.to(device)
+    x, cot = (_bf16(torch, rng.standard_normal((1920, 64, hidden)), device) for _ in range(2))
+    with torch.no_grad():
+        y = ffn_ops.fused_gated_ffn(x, block, norm2)
+    xl = x.clone().requires_grad_(True)
+    grads = torch.autograd.grad(ffn_ops.fused_gated_ffn(xl, block, norm2),
+                                [xl, *ffn_ops._params(block, norm2)], cot)
+    return [y, *grads]
+
+
+def digests(root=ROOT, device="cuda"):
+    """{case: SHA-256 of its outputs} for the port under ``root``."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.models import layers
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as nk_ops
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(device)
+    out = {}
+    for layout, ops in (("nk", nk_ops), ("csr", csr_ops)):
+        for dh in (16, 32):
+            for world in (False, True):
+                if layout == "csr" and world:
+                    continue
+                name = f"attention_{layout}_dh{dh}" + ("_world" if world else "")
+                out[name] = _digest(torch, attention_case(torch, entry, ops, layout, dh, world,
+                                                          device))
+    for h in (64, 128):
+        out[f"ffn_h{h}"] = _digest(torch, ffn_case(torch, layers, ffn_ops, h, device))
+    torch.cuda.synchronize()
+    return out
+
+
+def card_key():
+    """The card's SM count, which the recorded digests are keyed by."""
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def check(got, sms):
+    """Raises unless ``got`` equals the recorded digests for a card of
+    ``sms`` SMs; returns the names of the cases held."""
+    want = RECORDED.get(sms)
+    if want is None:
+        raise AssertionError(f"no recorded digests for a card of {sms} SMs (recorded: "
+                             f"{sorted(RECORDED)})")
+    bad = sorted(k for k in want if got.get(k) != want[k])
+    if bad or set(got) != set(want):
+        raise AssertionError(f"other bits than the recorded tree's in {bad or sorted(got)}")
+    return sorted(want)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default=str(ROOT), help="the checkout whose port to run")
+    args = parser.parse_args()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    got = digests(args.root)
+    print(json.dumps({"card": card, "sms": card_key(), "root": args.root, "digests": got}))
+
+
+if __name__ == "__main__":
+    main()

@@ -5,7 +5,7 @@ step, goes, on one NVIDIA GPU.
         [transformer|epd|transformer-train|epd-train|graded|graded-transformer|
          graded-train|graded-transformer-train|transolver-train|
          graded-transolver-train|plate-train|panels-train|mgn-train|
-         plate-epd-train ...]
+         plate-epd-train|transformer-h32-train ...]
     # default: the two cylinder forwards
 
 For each slice (``transformer``: entry.transformer_setup, 10 blocks, hidden
@@ -30,7 +30,10 @@ GraphNetBlock kernels; ``plate-epd-train``: one train step of
 entry.plate_epd_train_setup, DeformingPlate's MeshGraphNet with world
 edges in every sample, 15 blocks, hidden 128, B=64, NK, the world stream
 (its gathers, the edge MLP in plain PyTorch, the scatter) joining the wide
-kernels through their extra_agg seam)
+kernels through their extra_agg seam; ``transformer-h32-train``: one train
+step of entry.transformer_train_setup at hidden 32 with 4 heads, head
+width 8, 10 blocks, B=64, through the small-width FFN and attention
+instances)
 and each path (kernel path, and the plain path: no edge layout, or for
 the Transolver the gumbel kernel's plain version on the same bits), runs
 ``torch.profiler`` over 10 calls after 3 warm-up calls and prints, per
@@ -73,6 +76,8 @@ GROUPS = (
     ("wide GraphNetBlock backward, sender pass (gnw*_send)", ("_nk_send", "_csr_send")),
     ("wide GraphNetBlock encoder passes (gnw*_enc_fwd, enc_bwd)", ("_enc_fwd", "_enc_bwd")),
     ("wide GraphNetBlock node pre-pass (gnw*_partial)", ("w64_partial", "w128_partial")),
+    ("gated FFN kernel at hidden 32 and below (ffn_small_fwd)", ("ffn_small_fwd",)),
+    ("gated FFN backward kernels at hidden 32 and below (ffn_small_bwd)", ("ffn_small_bwd",)),
     ("gated FFN kernel (ffn_fwd)", ("ffn_fwd",)),
     ("gated FFN backward kernels (ffn_bwd)", ("ffn_bwd",)),
     ("GraphNetBlock kernel (gn_nk_fwd)", ("gn_nk_fwd",)),
@@ -205,7 +210,9 @@ def main():
               "plate-train": entry.plate_train_setup,
               "panels-train": entry.panels_train_setup,
               "mgn-train": lambda d: entry.cylinder_train_setup(d, hidden=128, mp_steps=15),
-              "plate-epd-train": entry.plate_epd_train_setup}
+              "plate-epd-train": entry.plate_epd_train_setup,
+              "transformer-h32-train": lambda d: entry.transformer_train_setup(d, hidden=32,
+                                                                               heads=4)}
     for name in sys.argv[1:] or ["transformer", "epd"]:
         setup = (forwards.get(name) or trains[name])("cuda")
         graph = setup.graph

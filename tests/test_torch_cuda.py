@@ -32,10 +32,16 @@ receiver of in-degree 150, receivers with no row or only masked rows,
 node N-1 owning rows) at partial 16-sample tiles, and give the same bits
 on two calls (the forward's outputs, the backward's dx and de; at hidden
 32 every weight gradient too, in both layouts). The NK
-attention forward and backward are also held at head widths 16 and 32,
-with masked slots between valid ones, on a K = 41 hub layout, with the
-forward's kept statistics against ``softmax_stats``, and give the same
-bits on two calls. Rows
+attention forward and backward are also held at every head width
+dividing 128, with masked slots between valid ones, on a K = 41 hub
+layout, with the forward's kept statistics against ``softmax_stats``,
+and give the same bits on two calls; so are the CSR attention's and both
+layouts' world seams at every head width, and the gated FFN at hidden
+32 to 1 (forward, backward, the same bits on two calls). A 2-block
+transformer trains through both kernel families at every hidden and
+head width that had no instance before, within 0.02 of the plain path's
+loss; the head widths 16 and 32 and hidden 64 and 128 give the parent
+tree's bits (scripts/kernel_digests.py's recorded digests). Rows
 1-4 at hidden 64 and 128 (the wide GraphNetBlock kernels) are held the
 same way, every variant, in both layouts (on the padding-leak NK mesh at
 B=1 and 33, on the hub CSR graph at B=1 and 17), give the same bits on
@@ -326,8 +332,12 @@ def test_forward_goes_through_kernel_and_matches_plain_path(cuda_device):
 
 # ---- the graph transformer's kernels ----------------------------------------
 
+#: every head width the attention kernels have an instance for: those
+#: dividing 128, the widths JAX's gate fuses
+HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64, 128)
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("batch", [4, 33])
 def test_attention_kernel_matches_plain_version(cuda_device, batch, head_dim):
     setup = entry.transformer_setup(cuda_device, nx=20, ny=16, batch=batch, mp_steps=2)
@@ -356,9 +366,11 @@ def _check_kept_stats(kernels, qkv, rows, layout):
     receiver has no valid row."""
     with torch.no_grad():
         out = kernels[0](*qkv, *rows, layout)
-        kept, (m, inv) = kernels[0](*qkv, *rows, layout, keep_stats=True)
+        kept, (m, inv, *out32) = kernels[0](*qkv, *rows, layout, keep_stats=True)
         pm, pinv = ea_csr_ops.softmax_stats(*qkv[:2], *rows)
     assert torch.equal(kept, out)
+    assert len(out32) == (qkv[0].shape[-1] <= ea_csr_ops.FP32_OUT_UP_TO)
+    assert all(torch.equal(o.to(torch.bfloat16), out) for o in out32)
     has_rows = torch.isfinite(pm)
     torch.testing.assert_close(m[has_rows], pm[has_rows], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(inv[has_rows], pinv[has_rows], rtol=5e-3, atol=0)
@@ -458,7 +470,7 @@ def _nk_hub_case(cuda_device, batch, head_dim, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("batch", [1, 17])
 def test_nk_attention_kernels_past_32_slots_on_hub_receivers(cuda_device, batch, head_dim):
     """K = 41, past the first kernels' cap: the forward (its chunks and
@@ -558,7 +570,7 @@ def _attention_case(cuda_device, batch, seed, head_dim=16, nx=48, ny=40):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("batch", [4, 64])
 def test_attention_backward_kernel_matches_plain_backward(cuda_device, batch, head_dim):
     """Bounds and their reasons: graph_physics_tpu_torch/utils/gradcheck.py."""
@@ -740,10 +752,94 @@ def test_ffn128_kernels_are_bit_identical_across_calls(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hidden", ffn_ops.SMALL_HIDDENS)
+@pytest.mark.parametrize("nodes,batch,use_silu", [(1920, 8, False), (1001, 3, True)])
+def test_small_ffn_kernel_matches_plain_version(cuda_device, hidden, nodes, batch, use_silu):
+    """Hidden 32 and below (csrc/fused_ffn_small.cu, products on tiles
+    zero-padded to 16): 1,920 x 8 rows and a ragged 1,001 x 3. Bound: rtol
+    = atol = 0.05."""
+    block, norm2, x, _ = _ffn_case(cuda_device, nodes, batch, use_silu, seed=30 + hidden,
+                                   hidden=hidden)
+    with torch.no_grad():
+        before = fused_gated_ffn.launches
+        y = fused_gated_ffn(x, block, norm2)
+        torch.cuda.synchronize()
+        assert fused_gated_ffn.launches == before + 1
+        ref = gated_ffn_reference(x, block, norm2)
+    torch.testing.assert_close(y.float(), ref.float(), rtol=0.05, atol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", ffn_ops.SMALL_HIDDENS)
+@pytest.mark.parametrize("nodes,batch,use_silu", [(1920, 8, False), (1001, 3, True)])
+def test_small_ffn_backward_kernel_matches_plain_backward(cuda_device, hidden, nodes, batch,
+                                                          use_silu):
+    """The backward at hidden 32 and below against the plain backward, both
+    against fp32 autograd. Bounds: utils/gradcheck.py."""
+    block, norm2, x, cot = _ffn_case(cuda_device, nodes, batch, use_silu, seed=40 + hidden,
+                                     hidden=hidden)
+
+    def ffn(fn, mlp, norm):
+        return lambda xx: (fn(xx, mlp, norm), ffn_ops._params(mlp, norm))
+
+    before = fused_gated_ffn.backward_launches
+    rows, ok, _ = gradcheck.check_backward(
+        FFN_GRAD_NAMES, ("dx",), ffn(fused_gated_ffn, block, norm2),
+        ffn(ffn_ops.reference_with_backward, block, norm2),
+        ffn(gated_ffn_reference, gradcheck.rounded_copy(block), gradcheck.rounded_copy(norm2)),
+        [x], [cot])
+    torch.cuda.synchronize()
+    assert fused_gated_ffn.backward_launches == before + 1
+    assert ok, [r for r in rows if not r["ok"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", ffn_ops.SMALL_HIDDENS)
+def test_small_ffn_kernels_are_bit_identical_across_calls(cuda_device, hidden):
+    """Fixed sum orders, the backward's block partials added in block
+    order: y, dx and every gradient the same on two calls."""
+    block, norm2, x, cot = _ffn_case(cuda_device, 1001, 3, False, seed=50 + hidden,
+                                     hidden=hidden)
+    params = ffn_ops._params(block, norm2)
+    outs = []
+    for _ in range(2):
+        xl = x.clone().requires_grad_(True)
+        y = fused_gated_ffn(xl, block, norm2)
+        outs.append((y.detach(), *torch.autograd.grad(y, [xl, *params], cot)))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def _kernel_digests():
+    """scripts/kernel_digests.py, loaded by its path (the card's machine has
+    a site-packages module named ``scripts``)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "kernel_digests.py"
+    spec = importlib.util.spec_from_file_location("kernel_digests", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_earlier_widths_keep_the_parent_trees_bits(cuda_device):
+    """The attention kernels at head widths 16 and 32 (both layouts, NK with
+    world pieces too) and the gated FFN at hidden 64 and 128, forward and
+    backward, give the bits of the tree before every width dividing 128
+    had an instance, on the inputs scripts/kernel_digests.py draws."""
+    kd = _kernel_digests()
+    kd.check(kd.digests(), kd.card_key())
+
+
+@pytest.mark.cuda
 def test_ffn_kernel_refuses_other_hidden_widths(cuda_device):
-    """Hidden widths without a kernel instance raise, naming ROADMAP B 1."""
+    """A hidden width without a kernel instance (96: JAX's gate does not
+    fuse it either) raises, saying so."""
     block, norm2, x, _ = _ffn_case(cuda_device, 128, 4, False, seed=23, hidden=96)
-    with pytest.raises(NotImplementedError, match="ROADMAP B 1"):
+    with pytest.raises(NotImplementedError, match="does not fuse"):
         fused_gated_ffn(x, block, norm2)
 
 
@@ -751,13 +847,13 @@ def test_ffn_kernel_refuses_other_hidden_widths(cuda_device):
 def test_transformer_kernels_refuse_what_they_lack_under_autograd(cuda_device):
     setup = entry.transformer_setup(cuda_device, nx=20, ny=16, batch=2, mp_steps=1)
     g, nk = setup.graph, setup.tiling
-    q = torch.zeros((nk.num_nodes, 2, 4, 8), dtype=torch.bfloat16, device=cuda_device,
-                    requires_grad=True)  # head width 8: no kernel instance
-    with pytest.raises(NotImplementedError):
+    q = torch.zeros((nk.num_nodes, 2, 4, 24), dtype=torch.bfloat16, device=cuda_device,
+                    requires_grad=True)  # head width 24: no kernel instance
+    with pytest.raises(NotImplementedError, match="does not fuse"):
         fused_edge_attention_nk(q, q, q, g.senders, g.receivers, g.edge_mask, nk)
-    block, norm2 = GatedMLPBlock(32, 32, 32).to(cuda_device), RMSNorm(32).to(cuda_device)
-    x = torch.zeros((64, 2, 32), dtype=torch.bfloat16, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError):  # hidden 32: no kernel
+    block, norm2 = GatedMLPBlock(96, 96, 96).to(cuda_device), RMSNorm(96).to(cuda_device)
+    x = torch.zeros((64, 2, 96), dtype=torch.bfloat16, device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="does not fuse"):  # hidden 96: no kernel
         fused_gated_ffn(x, block, norm2)
 
 
@@ -828,7 +924,7 @@ def test_csr_gn_kernel_matches_plain_version(cuda_device, variant, batch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("batch", [2, 33])
 def test_csr_attention_kernel_matches_plain_version(cuda_device, batch, head_dim):
     setup = entry.graded_transformer_setup(cuda_device, num_nodes=1500, batch=batch,
@@ -892,7 +988,7 @@ def _attention_hub_case(cuda_device, batch, head_dim, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("batch", [1, 17])
 def test_csr_attention_kernel_on_hub_receivers_and_empty_receivers(cuda_device, batch,
                                                                    head_dim):
@@ -941,8 +1037,8 @@ def test_csr_kernels_raise_under_autograd(cuda_device):
         fused_gn_block_csr(*args[:5], shallow, *args[6:], **kw)
     assert fused_gn_block_csr.launches == before
     g, csr = setup.graph, setup.tiling
-    q = torch.zeros((csr.num_nodes, 2, 4, 8), dtype=torch.bfloat16, device=cuda_device,
-                    requires_grad=True)  # head width 8: no kernel instance
+    q = torch.zeros((csr.num_nodes, 2, 4, 24), dtype=torch.bfloat16, device=cuda_device,
+                    requires_grad=True)  # head width 24: no kernel instance
     with pytest.raises(NotImplementedError, match="head widths"):
         fused_edge_attention_csr(q, q, q, g.senders, g.receivers, g.edge_mask, csr)
 
@@ -1109,8 +1205,9 @@ def test_csr_gn_backward_kernel_dx_de_are_bit_identical_across_calls(cuda_device
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [16, 32])
-@pytest.mark.parametrize("num_nodes,batch", [(1500, 2), (1500, 33), (27_000, 16)])
+@pytest.mark.parametrize("num_nodes,batch,head_dim", [
+    *[(n, b, dh) for dh in (16, 32) for n, b in ((1500, 2), (1500, 33), (27_000, 16))],
+    *[(1500, b, dh) for dh in HEAD_DIMS if dh not in (16, 32) for b in (2, 33)]])
 def test_csr_attention_backward_kernel_matches_plain_backward(cuda_device, num_nodes, batch,
                                                               head_dim):
     """Against autograd of edge_attention and fp32 autograd (bounds:
@@ -1147,7 +1244,7 @@ def test_csr_attention_backward_kernel_matches_plain_backward(cuda_device, num_n
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("batch", [1, 17])
 def test_csr_attention_backward_kernel_on_hub_receivers_and_empty_receivers(
         cuda_device, batch, head_dim):
@@ -1443,7 +1540,7 @@ def _world_case(cuda_device, layout, head_dim, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("layout", ["nk", "csr"])
 def test_world_attention_kernels_match_plain_versions(cuda_device, layout, head_dim):
     """The world seam of rows 5-8: the joint mesh + world forward against
@@ -2102,6 +2199,26 @@ def test_head_width_24_trains_on_the_plain_path(cuda_device):
                                           heads=4, mp_steps=2)
     launches, loss = _train_step_launches(train)
     assert launches == [(0, 0), (0, 0), (0, 0)] and torch.isfinite(loss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,heads", [(32, 4), (16, 4), (8, 4), (4, 4), (2, 2), (1, 1),
+                                          (128, 2), (128, 1)])
+def test_transformer_trains_through_both_kernels_at_every_fused_width(cuda_device, hidden,
+                                                                      heads):
+    """Every hidden width and head width JAX's gates fuse that had no
+    instance before: head widths 8, 4, 2, 1, 64 and 128 and hidden 32 to
+    1. A 2-block train step launches rows 5/6 and 9/10 once a block each,
+    and its loss is the plain path's within 0.02 (the step-1 bound)."""
+    train = entry.transformer_train_setup(cuda_device, nx=20, ny=16, batch=4, hidden=hidden,
+                                          heads=heads, mp_steps=2)
+    plain_sim = copy.deepcopy(train.simulator)
+    plain_sim.model.tiling = None
+    plain_state, plain_step = entry.make_trainer(plain_sim)
+    launches, loss = _train_step_launches(train)
+    assert launches == [(2, 2), (0, 0), (2, 2)] and torch.isfinite(loss)
+    mp = plain_step(plain_state, train.graph, torch.Generator(cuda_device).manual_seed(3))
+    torch.testing.assert_close(loss, mp["loss"], rtol=0.02, atol=0)
 
 
 # ---- the host mesh library and sub-mesh partitions ---------------------------
