@@ -324,9 +324,34 @@ Phases (any failure raises, so the exit code is non-zero):
      and enqueue time; then Trainer.fit (2 trajectories of 129 frames,
      B=64, one epoch, a 50-step validation rollout) and predict from its
      checkpoint: launches held to the prediction, predict's RMSE
-     validate's. Besides, the attention kernels at head widths 16 and 32
-     and the FFN at hidden 64 and 128 give the bits the parent tree gave
-     on scripts/kernel_digests.py's inputs (its RECORDED digests).
+     validate's. Besides, the attention kernels at head widths 16 and 32,
+     the FFN (GELU) at every hidden width and rows 1-4 (relu) at hidden
+     32, 64 and 128 give the bits the earlier trees gave on
+     scripts/kernel_digests.py's inputs (its RECORDED digests).
+ 49. rows 1-4 at every width and activation JAX fuses that had no
+     instance before: relu at hidden 16, 8, 4, 2 and 1 (csrc/
+     fused_gnblock_{nk,csr}{,_bwd}.cu built once a width), silu and exact
+     gelu at every hidden width 1 to 128, at the cylinder's NK shape
+     (B=32) and a graded mesh's CSR shape (8,000 nodes, B=8): each
+     forward against its plain version, each backward against its plain
+     backward and fp32 autograd (utils/gradcheck.py), relu in NK every
+     variant (the encoder folded at 16 and 8, the first block on encoded
+     edges below), the middle block otherwise, its backward the same bits
+     on two calls; the world seam at hidden 16 and 4 in both layouts;
+     ptxas's registers and spills, each instance's times (CUDA events,
+     the profiler's device time), its plain version's and its bound;
+ 50. each of those instances on its path, counts set to 0 just before: a
+     2-block ``epd`` whose blocks take the width and activation, on the
+     cylinder (20 x 16, NK, B=8) and a 4,000-node graded mesh (CSR, B=4):
+     the eval forward and one train step against the plain path, each
+     block launching rows 1/2 (3/4) once forward and once backward;
+ 51. ``epd`` at hidden 16 (entry.cylinder_train_setup(hidden=16): 5
+     blocks, B=128, NK, the encoder folded): the middle block's kernels
+     timed at B=128, 20 train steps against the plain path, the step's
+     wall, device and enqueue time; Trainer.fit (2 trajectories of 129
+     frames, B=128, one epoch, a 50-step validation rollout) and predict
+     from its checkpoint: launches held to the prediction, predict's
+     RMSE validate's.
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
 the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
@@ -345,7 +370,12 @@ shape under ``plate``, rows 5/6 their times, library time and bound at
 panels' head width 32 under ``head_width_32``; rows 5-10 at the new
 widths records of their own, ``fused_gated_ffn_h{32,16,8,4,2,1}`` and
 ``fused_edge_attention_{nk,csr}_dh{8,4,2,1,64,128}``, each with its
-backward, their ptxas reports under ``ptxas``).
+backward, their ptxas reports under ``ptxas``; rows 1-4 at the new widths
+and activations records of their own,
+``fused_gn_block_{nk,csr}_h{16,8,4,2,1}`` and
+``fused_gn_block_{nk,csr}_h{1,...,128}_{silu,gelu}``, each with its
+backward, their ptxas reports under ``ptxas``, the hidden-16 NK pair its
+times at the main path's B=128 under ``slice``).
 With ``--parent CHECKOUT`` the libraries that PARENT_LIBS names (both
 GraphNetBlock forwards and backwards, the hidden-64 gated-FFN forward and
 backward, both layouts' attention forward and backward) are built from that checkout's
@@ -1830,6 +1860,8 @@ def main():
     submesh_launches = submesh_phases(device, card)
     # 46.-48. rows 5-10 at every width JAX fuses; the hidden-32 transformer
     small_records, small_launches = small_width_phases(device, card, build_log)
+    # 49.-51. rows 1-4 at every width and activation JAX fuses; epd at hidden 16
+    gn_width_records = gn_width_phases(device, card, build_log)
     for rec in (*tf_records, *tf_train_records, *graded_records, *graded_train_records):
         if rec["name"] in world:
             rec["world"] = world[rec["name"]]
@@ -1861,6 +1893,7 @@ def main():
         *panels_records,
         *wide_records,
         *small_records,
+        *gn_width_records,
     ]
     for rec in records:  # the world seam's check and times; phases 39-42's launches
         if rec["name"] in seam:
@@ -3229,11 +3262,16 @@ def plate_param():
     return config_lib.load_params(str(ROOT / "training_config" / "plate.json"))
 
 
-def plate_phases(device, card):
-    """Phases 30-31: plate.json's transformer at full width (10 blocks,
-    hidden 64, 4 heads) trained at B=64 with world edges through the
-    attention kernels' world seam, then through Trainer.fit and predict;
-    returns {wrapper name: (forward, backward) launches} of both."""
+def plate_fit_run(device, card, run_name="fit_plate"):
+    """Phase 31's run: plate.json's transformer (lecun weights from seed 0)
+    through Trainer.fit (the CLI's stack: PLATE_FIT_TRAJECTORIES
+    trajectories, B=TF_FIT_BATCH, PLATE_FIT_EPOCHS epochs, a
+    VAL_STEPS-step validation rollout) and predict from its checkpoint.
+    Raises if fit's records or launches are wrong; returns {"tr",
+    "val_ds", "steps", "fit_s", "fit_launches", "predict_launches",
+    "predict_rmse", "validate_rmse", "rel", "n_blocks", "attn", "ffn"},
+    for phase 31 to hold predict to validate (and for
+    scripts/rollout_repeat.py)."""
     import torch
     from graph_physics_tpu_torch import entry
     from graph_physics_tpu_torch.cli import predict as predict_cli
@@ -3248,35 +3286,7 @@ def plate_phases(device, card):
     from graph_physics_tpu_torch.training.loss import l2_loss
     from graph_physics_tpu_torch.training.trainer import Trainer, TrainerConfig
 
-    # 30. the plate train step: kernel path against the plain path
-    train = entry.plate_train_setup(device)
-    layout = train.tiling
-    attn = (nk_ops.fused_edge_attention_nk if isinstance(layout, NKTiling)
-            else csr_ops.fused_edge_attention_csr)
     ffn = ffn_ops.fused_gated_ffn
-    g = train.graph
-    wm = g.wedge_mask
-    log(f"plate train step: FusedTopologyManager chose the {type(layout).__name__} layout "
-        f"({layout.num_nodes} nodes, {layout.total_rows} rows); B={g.x.shape[1]}, "
-        f"{int(wm.sum())} world edges over {wm.shape[0]} slots a sample "
-        f"({int((wm.sum(0) > 0).sum())} samples with any, {int(wm.sum(0).max())} at most)")
-    _, plain_state, plain_step, launches = training_phase("plate training", train,
-                                                          [attn, ffn], 30)
-    st = step_timing(train, plain_state, plain_step, 31)  # the parent has no world seam
-    st = {k: v for k, v in st.items() if "parent" not in k}
-    b = g.x.shape[1]
-    log(f"plate train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
-        f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
-        f"{st['train_step_device_ms']:.4f} ms; the host enqueues a step in "
-        f"{st['train_step_host_enqueue_ms']:.4f} ms, CUDA events "
-        f"{st['train_step_enqueue_events_ms']:.4f} ms over the same steps, "
-        f"{st['train_step_syncs']} device-to-host syncs a step), plain path "
-        f"{st['train_step_plain_ms']:.4f} ms "
-        f"({1000 * b / st['train_step_plain_ms']:.1f} graph-steps/s) ({card})")
-    del train, plain_state, plain_step
-    torch.cuda.empty_cache()
-
-    # 31. plate through Trainer.fit (the CLI's stack) and predict
     param = plate_param()
     frame_cfg = entry.plate_frame_config()
     ds = memory_dataset_class()
@@ -3289,8 +3299,8 @@ def plate_phases(device, card):
     lecun_parameters(sim, torch.Generator().manual_seed(0))
     cfg = TrainerConfig(epochs=PLATE_FIT_EPOCHS, batch_size=TF_FIT_BATCH, learning_rate=1e-3,
                         warmup=100, packed=True, fused=True,
-                        out_dir=str(ROOT / "build" / "fit"), run_name="fit_plate", seed=0)
-    shutil.rmtree(ROOT / "build" / "fit" / "fit_plate", ignore_errors=True)
+                        out_dir=str(ROOT / "build" / "fit"), run_name=run_name, seed=0)
+    shutil.rmtree(ROOT / "build" / "fit" / run_name, ignore_errors=True)
     _, world_dev = config_lib.get_world_configs(param)
     steps = PLATE_FIT_EPOCHS * PLATE_FIT_TRAJECTORIES
     tr = Trainer(sim, train_ds, val_ds, l2_loss, cfg,
@@ -3339,7 +3349,59 @@ def plate_phases(device, card):
             f"{k} {v}" for k, v in predict_launches.items()) + f", expected {want} each: "
         f"rmse_all_rollout {pred.rmse_all_rollout:.8g}, validate reported {want_rmse:.8g} "
         f"(relative difference {rel:.3g}, limit {PREDICT_RTOL})")
-    if (stack.step != steps or rel > PREDICT_RTOL
+    return {"tr": tr, "val_ds": val_ds, "steps": steps, "fit_s": fit_s,
+            "fit_launches": fit_launches, "predict_launches": predict_launches,
+            "checkpoint_step": stack.step, "predict_rmse": pred.rmse_all_rollout,
+            "validate_rmse": want_rmse, "rel": rel, "n_blocks": n_blocks, "attn": attn,
+            "ffn": ffn}
+
+
+def plate_phases(device, card):
+    """Phases 30-31: plate.json's transformer at full width (10 blocks,
+    hidden 64, 4 heads) trained at B=64 with world edges through the
+    attention kernels' world seam, then through Trainer.fit and predict;
+    returns {wrapper name: (forward, backward) launches} of both."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_edge_attention_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_edge_attention_nk as nk_ops
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.ops.tiling import NKTiling
+
+    # 30. the plate train step: kernel path against the plain path
+    train = entry.plate_train_setup(device)
+    layout = train.tiling
+    attn = (nk_ops.fused_edge_attention_nk if isinstance(layout, NKTiling)
+            else csr_ops.fused_edge_attention_csr)
+    ffn = ffn_ops.fused_gated_ffn
+    g = train.graph
+    wm = g.wedge_mask
+    log(f"plate train step: FusedTopologyManager chose the {type(layout).__name__} layout "
+        f"({layout.num_nodes} nodes, {layout.total_rows} rows); B={g.x.shape[1]}, "
+        f"{int(wm.sum())} world edges over {wm.shape[0]} slots a sample "
+        f"({int((wm.sum(0) > 0).sum())} samples with any, {int(wm.sum(0).max())} at most)")
+    _, plain_state, plain_step, launches = training_phase("plate training", train,
+                                                          [attn, ffn], 30)
+    st = step_timing(train, plain_state, plain_step, 31)  # the parent has no world seam
+    st = {k: v for k, v in st.items() if "parent" not in k}
+    b = g.x.shape[1]
+    log(f"plate train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
+        f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
+        f"{st['train_step_device_ms']:.4f} ms; the host enqueues a step in "
+        f"{st['train_step_host_enqueue_ms']:.4f} ms, CUDA events "
+        f"{st['train_step_enqueue_events_ms']:.4f} ms over the same steps, "
+        f"{st['train_step_syncs']} device-to-host syncs a step), plain path "
+        f"{st['train_step_plain_ms']:.4f} ms "
+        f"({1000 * b / st['train_step_plain_ms']:.1f} graph-steps/s) ({card})")
+    del train, plain_state, plain_step
+    torch.cuda.empty_cache()
+
+    # 31. plate through Trainer.fit (the CLI's stack) and predict
+    run = plate_fit_run(device, card)
+    attn, fit_launches, predict_launches = (run["attn"], run["fit_launches"],
+                                            run["predict_launches"])
+    want = (run["n_blocks"] * VAL_STEPS, 0)
+    if (run["checkpoint_step"] != run["steps"] or run["rel"] > PREDICT_RTOL
             or any(v != want for v in predict_launches.values())):
         raise AssertionError(f"phase 31: predict's rollout is not validate's, or its launches "
                              f"{predict_launches} are not {want}")
@@ -3349,7 +3411,7 @@ def plate_phases(device, card):
         pf, pb = predict_launches[k.__name__]
         launches[k.__name__] = (f + ff + pf, bw + fb + pb)
     return launches, {"plate_step": st, "plate_layout": type(layout).__name__,
-                      "plate_fit_s": fit_s}
+                      "plate_fit_s": run["fit_s"]}
 
 
 #: phase 32: a row count of the hidden-128 FFN that is not a multiple of its
@@ -5754,8 +5816,9 @@ def small_main_phase(device, card):
 
 
 def earlier_widths_bits():
-    """The attention kernels at head widths 16 and 32 and the gated FFN at
-    hidden 64 and 128 against the parent tree's bits: the digests of
+    """The attention kernels at head widths 16 and 32, the gated FFN (GELU)
+    at every hidden width and rows 1-4 (relu) at hidden 32, 64 and 128
+    against the earlier trees' bits: the digests of
     scripts/kernel_digests.py (loaded by its path: the card's machine has a
     site-packages module named ``scripts``) against its RECORDED ones for
     this card's SM count. Returns the cases held."""
@@ -5772,16 +5835,17 @@ def small_width_phases(device, card, build_log):
     """Phases 46-48: the new instances of rows 5-10 checked and timed
     (46), each width on its path (47), the hidden-32 transformer trained,
     fitted and predicted (48). Returns their records, with the launches of
-    phases 47-48, and {record name: launches} of the older records (the
-    hidden-128 FFN's) in phase 47."""
+    phase 47, or of phase 48 for the main path's instances (phase 47's
+    under "sweep_launches"), and {record name: launches} of the older
+    records (the hidden-128 FFN's) in phase 47."""
     held = earlier_widths_bits()
     log(f"the earlier widths' kernels give the parent tree's bits: {', '.join(held)}")
     fields = small_kernel_phase(device, card, build_log)
     launches = small_sweep_phase(device, card)
     main_launches, facts = small_main_phase(device, card)
     log("hidden-32 transformer " + json.dumps({"card": card, **facts}))
-    for key, n in main_launches.items():
-        launches[key] = launches.get(key, 0) + n
+    if set(main_launches) - set(fields):
+        raise AssertionError(f"phase 48: launches of no record: {main_launches}")
     records = []
     for key, f in fields.items():
         kind = "ffn" if key.startswith("fused_gated_ffn") else "attention"
@@ -5790,10 +5854,516 @@ def small_width_phases(device, card, build_log):
         width = int(base.rsplit("_h" if kind == "ffn" else "_dh", 1)[1])
         rec = dict(small_record(kind, layout, width, key.endswith("_backward")), route="cuda",
                    launches=launches.pop(key, 0), **f)
+        if key in main_launches:  # the main path's own count; phase 47's beside it
+            rec["sweep_launches"], rec["launches"] = rec["launches"], main_launches[key]
         if rec["launches"] == 0:
             raise AssertionError(f"phases 47-48: {key} never launched on its path")
         records.append(rec)
     return records, launches
+
+
+# ---- phases 49-51: rows 1-4 at every width and activation JAX fuses; epd at hidden 16 ----
+
+#: the widths of rows 1-4 under 32 (csrc/fused_gnblock_{nk,csr}*.cu built
+#: once a width, the tiles zero-padded to 16 columns below 16)
+GN_SMALL_HIDDEN = (16, 8, 4, 2, 1)
+#: the activations besides relu that rows 1-4 take, and the widths phases
+#: 49-50 hold them at: every width (the tile family's 1-32, the wide 64, 128)
+GN_ACTS = ("silu", "gelu")
+GN_ACT_HIDDEN = (1, 2, 4, 8, 16, 32, 64, 128)
+#: phase 49: the widths whose world seam (extra_agg) is checked
+GN_SEAM_SMALL = (16, 4)
+#: phase 49's shapes, cut from the slices' (the cylinder at B=128, the
+#: graded mesh's 27,008 x 16) so that the checks and times of the new
+#: instances fit the run: the cylinder (NK) at B=GN_CHECK_BATCH, a graded
+#: mesh (CSR) of GN_CHECK_GRADED (nodes, batch); phase 51 times the main
+#: path's instance (hidden 16, NK) at B=128
+GN_CHECK_BATCH, GN_CHECK_GRADED = 32, (8000, 8)
+#: phase 49: CUDA-event medians of each instance over these calls
+GN_TIME_REPS = 10
+#: phase 50: each instance on its path: blocks and batch of the cylinder
+#: (NK, GN_SWEEP_MESH) models, nodes and batch of the graded (CSR) ones
+GN_SWEEP_BLOCKS, GN_SWEEP_BATCH, GN_SWEEP_MESH, GN_SWEEP_GRADED = 2, 8, (20, 16), (4000, 4)
+#: phase 51, the main path: ``epd`` at hidden 16 (entry.cylinder_train_setup:
+#: 5 blocks, B=128, NK, the encoder folded); its fit's trajectories and epochs
+GN_MAIN_HIDDEN = 16
+GN_FIT_TRAJECTORIES, GN_FIT_EPOCHS = 2, 1
+
+
+def gn_instances():
+    """(layout, hidden, activation) of every instance of rows 1-4 that
+    phases 49-51 hold: relu at hidden 16 to 1, silu and gelu at
+    GN_ACT_HIDDEN, in both layouts."""
+    out = [(lay, h, "relu") for h in GN_SMALL_HIDDEN for lay in ("nk", "csr")]
+    return out + [(lay, h, a) for a in GN_ACTS for h in GN_ACT_HIDDEN for lay in ("nk", "csr")]
+
+
+def gn_instance_record(layout, h, act, backward):
+    """The kernels-line keys of row 1-4 (``layout``, ``backward``) at hidden
+    ``h`` with ``act`` MLPs: fused_gn_block_{layout}_h{h}[_{act}][_backward]."""
+    rec = wide_record(layout, h, backward)
+    if h not in WIDE_HIDDEN:
+        rec["source"] = (f"graph_physics_tpu_torch/csrc/fused_gnblock_{layout}"
+                         + ("_bwd" if backward else "") + ".cu")
+    if act != "relu":
+        rec["name"] = rec["name"].replace(f"_h{h}", f"_h{h}_{act}")
+    return rec
+
+
+def set_block_activation(model, act):
+    """Every GraphNetBlock of ``model`` with ``act`` MLPs, in place (the
+    parameters, and so a trainer's optimizer, stay; the encoders keep
+    their activation, as in an ``epd``): what GraphNetBlock(activation=act)
+    builds, for a model whose processors pass none, as in JAX."""
+    from graph_physics_tpu_torch.models.layers import ACTIVATIONS, Activation
+
+    for blk in model.processor_list:
+        blk.activation = act
+        for mlp in (blk.edge_block, blk.node_block):
+            mlp.activation, mlp.act_fn = act, ACTIVATIONS[act]
+            for i, m in enumerate(mlp):
+                if isinstance(m, Activation):
+                    mlp[i] = Activation(act)
+
+
+def first_variant(h):
+    """The first block's variant at hidden ``h``: the edge encoder folded
+    where JAX folds it (raw features no wider than h // 2), else the first
+    block on encoded edges."""
+    from graph_physics_tpu_torch import entry
+
+    return "folded" if entry.EDGE_INPUT <= h // 2 else "first"
+
+
+def gn_instance_ptxas(resources, layout, h, act, backward):
+    """The ptxas reports of one instance's kernels: its width's, its layout's
+    (or both layouts' shared ones), its direction's, and of its activation
+    (the ACTS instance: the last boolean template argument of a kernel
+    that has one)."""
+    import re
+
+    out = {}
+    for name, use in resources.items():
+        if h in WIDE_HIDDEN:
+            if f"gnw{h}_" not in name:
+                continue
+            m = re.search(r"gnw\d+_(\w+?)(?:I|E)", name)
+            kind = m.group(1) if m else ""
+            bwd = any(k in kind for k in ("bwd", "send", "wgrad", "wsum"))
+        else:
+            if f"ILi{h}E" not in name:
+                continue
+            kind = name
+            bwd = "bwd" in name or "reduce" in name
+        if bwd != backward and "partial" not in kind and "enc_fwd" not in kind:
+            continue
+        other = "csr" if layout == "nk" else "nk"
+        if f"gn_{other}_" in name or f"gnw{h}_{other}_" in name:
+            continue
+        flags = re.findall(r"Lb(\d)E", name)
+        acts_kernel = any(k in kind for k in ("fwd_kernel", "nodemlp", "row_kernel", "edge_fwd",
+                                              "node_fwd", "node_bwd", "row_bwd", "enc_fwd",
+                                              "enc_bwd"))
+        if acts_kernel and flags and (flags[-1] == "1") != (act != "relu"):
+            continue
+        out[name] = use
+    return out
+
+
+def gn_instance_check(label, kernel, plain, rows, lay, model, x, e, raw, variants, card):
+    """Rows 1-4 (``kernel``, a layout's wrapper) at one width and activation
+    on these inputs: each variant (folded, first, middle, last) forward
+    against its plain version (KERNEL_TOL) and backward against its plain
+    backward and fp32 (utils/gradcheck.py); the middle block's backward
+    the same bits on two calls, its times (CUDA events over GN_TIME_REPS
+    calls, the plain version's, the profiler's device ms) and bounds.
+    Returns {backward: record fields}."""
+    import torch
+    from graph_physics_tpu_torch.utils import gradcheck
+
+    blocks = model.processor_list
+    table = {"folded": (blocks[0], raw, model.edges_encoder, False),
+             "first": (blocks[0], e, None, False), "middle": (blocks[1], e, None, False),
+             "last": (blocks[-1], e, None, True)}
+    gen = torch.Generator(device=x.device).manual_seed(49)
+    out = {False: {"max_abs_err": 0.0}, True: {"max_abs_err": 0.0}}
+    for name in variants:
+        blk, ee, en, last = table[name]
+        args = (x, ee, *rows, blk.edge_block, blk.node_block, lay)
+        kw = dict(encoder_params=en, last_block=last)
+        with torch.inference_mode():
+            before = kernel.launches
+            xk, ek = kernel(*args, **kw)
+            xp, ep = plain(*args, **kw, compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            log(f"{label} forward kernel check [{name}] ({kernel.launches - before} launch)")
+            if kernel.launches != before + 1:
+                raise AssertionError(f"{label} [{name}]: the forward kernel did not launch once")
+            err = compare("x_out", xk, xp, KERNEL_TOL)
+            if not last:  # a folded block's masked rows hold enc(raw): valid rows
+                err = max(err, compare("e_out", ek, ep, KERNEL_TOL,
+                                       rows=rows[-1] if en is not None else None))
+            out[False]["max_abs_err"] = max(out[False]["max_abs_err"], err)
+            del xk, ek, xp, ep
+            if name == "middle":
+                fn = lambda: kernel(*args, **kw)  # noqa: E731
+                out[False].update(
+                    ms=cuda_ms(fn, warmup=2, reps=GN_TIME_REPS),
+                    device_ms=device_ms(fn, reps=5),
+                    plain_ms=cuda_ms(lambda: plain(*args, **kw, compute_dtype=torch.bfloat16),
+                                     warmup=1, reps=3))
+        cot_x = torch.randn(x.shape, generator=gen, device=x.device).to(torch.bfloat16)
+        cot_e = torch.randn((lay.total_rows,) + x.shape[1:], generator=gen,
+                            device=x.device).to(torch.bfloat16)
+        before = kernel.backward_launches
+        grad_rows, ok, kept = gradcheck.check_block_backward(
+            x, ee, rows, (en, blk.edge_block, blk.node_block), lay, last, cot_x, cot_e)
+        torch.cuda.synchronize()
+        log(f"{label} backward kernel check [{name}] ({kernel.backward_launches - before} "
+            "launch; against the plain backward, both against fp32)")
+        log_grad_rows(grad_rows)
+        if kernel.backward_launches != before + 1 or not ok:
+            raise AssertionError(f"{label} [{name}]: the backward kernel did not launch once, "
+                                 "or is out of bounds")
+        out[True]["max_abs_err"] = max(out[True]["max_abs_err"],
+                                       max(r.get("max_abs_err", float("inf")) for r in grad_rows))
+        if name == "middle":
+            fn = lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True)  # noqa: E731
+            g1, g2 = fn(), fn()
+            if not all(torch.equal(a, c) for a, c in zip(g1, g2)):
+                raise AssertionError(f"{label}: the backward gives other bits on a second call")
+            del g1, g2
+            out[True].update(
+                ms=cuda_ms(fn, warmup=2, reps=GN_TIME_REPS), device_ms=device_ms(fn, reps=5),
+                plain_ms=cuda_ms(lambda: torch.autograd.grad(*kept["plain"], retain_graph=True),
+                                 warmup=1, reps=3))
+            for bwd in (False, True):
+                out[bwd]["bound_ms"], out[bwd]["bound_by"] = bound(
+                    *gn_block_work(x, e, rows[-1], blk, backward=bwd))
+        del kept
+    torch.cuda.empty_cache()
+    for bwd in (False, True):
+        f = out[bwd]
+        log(f"  {label} middle block {'backward' if bwd else 'forward'}: kernel {f['ms']:.4f} "
+            f"ms (device {f['device_ms']:.4f}), plain {f['plain_ms']:.4f} ms, bound "
+            f"{f['bound_ms']:.6g} ms ({f['bound_by']}) ({card})")
+    return out
+
+
+def gn_seam_check(label, kernel, plain, rows, lay, model, x, e, gen):
+    """The world seam (``extra_agg``) of the middle block: forward against its
+    plain version, backward (dx, de, dea, every weight gradient) against its
+    plain backward and fp32. Returns (forward, backward) max abs errors."""
+    import torch
+    from graph_physics_tpu_torch.utils import gradcheck
+
+    blk = model.processor_list[1]
+    n, b, h = x.shape
+    extra = (0.3 * torch.randn((n, b, h), generator=gen, device=x.device)).to(torch.bfloat16)
+    args = (x, e, *rows, blk.edge_block, blk.node_block, lay)
+    with torch.inference_mode():
+        xk, ek = kernel(*args, extra_agg=extra)
+        xp, ep = plain(*args, extra_agg=extra, compute_dtype=torch.bfloat16)
+        log(f"{label} world seam forward check [middle]")
+        f_err = max(compare("x_out", xk, xp, KERNEL_TOL), compare("e_out", ek, ep, KERNEL_TOL))
+    cot_x = torch.randn(x.shape, generator=gen, device=x.device).to(torch.bfloat16)
+    cot_e = torch.randn(e.shape, generator=gen, device=x.device).to(torch.bfloat16)
+    before = kernel.backward_launches
+    grad_rows, ok, _ = gradcheck.check_block_backward(
+        x, e, rows, (None, blk.edge_block, blk.node_block), lay, False, cot_x, cot_e, extra=extra)
+    log(f"{label} world seam backward check [middle] (dx, de, dea against the plain backward, "
+        "all against fp32)")
+    log_grad_rows(grad_rows)
+    if kernel.backward_launches != before + 1 or not ok:
+        raise AssertionError(f"{label}: the seam's backward did not launch once, or is out of "
+                             "bounds")
+    return f_err, max(r.get("max_abs_err", float("inf")) for r in grad_rows)
+
+
+def gn_instance_phase(device, card, build_log):
+    """Phase 49: every new instance of rows 1-4 (gn_instances) against its
+    plain version, forward and backward, at the cylinder NK shape (B =
+    GN_CHECK_BATCH) and a graded CSR shape (GN_CHECK_GRADED): relu at
+    hidden 16 to 1 every variant in NK (the first block folded at 16 and
+    8, on encoded edges below), the middle block otherwise; the world seam
+    at GN_SEAM_SMALL in both layouts; ptxas's registers and spills, times
+    and bounds. Returns {record name: record} without launches."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_gnblock_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+
+    resources = kernel_resources(build_log, ("gn_nk_", "gn_csr_", "gn_partial", "reduce_",
+                                             "gnw"))
+    gen = torch.Generator(device=device).manual_seed(490)
+
+    def randn(*shape):
+        return (0.5 * torch.randn(shape, generator=gen, device=device)).to(torch.bfloat16)
+
+    instances = gn_instances()
+    records = {}
+    for layout in ("nk", "csr"):
+        for h in sorted({h for lay, h, _ in instances if lay == layout}):
+            if layout == "nk":
+                setup = entry.cylinder_setup(device, hidden=h, mp_steps=3, batch=GN_CHECK_BATCH)
+                kernel, plain = nk_ops.fused_gn_block_nk, nk_ops.fused_gn_block_nk_reference
+                rows = (setup.graph.senders, setup.graph.edge_mask)
+            else:
+                setup = entry.graded_setup(device, num_nodes=GN_CHECK_GRADED[0], hidden=h,
+                                           mp_steps=3, batch=GN_CHECK_GRADED[1])
+                kernel, plain = csr_ops.fused_gn_block_csr, csr_ops.fused_gn_block_csr_reference
+                rows = (setup.graph.senders, setup.graph.receivers, setup.graph.edge_mask)
+            model, lay = setup.simulator.model, setup.tiling
+            n, b = setup.graph.x.shape[:2]
+            x, e, raw = randn(n, b, h), randn(lay.total_rows, b, h), randn(lay.total_rows, b, 3)
+            for act in [a for lay_, h_, a in instances if lay_ == layout and h_ == h]:
+                set_block_activation(model, act)
+                label = f"hidden {h}, {act}, {layout.upper()} [{n}, {b}]"
+                variants = ([first_variant(h), "middle", "last"] if act == "relu" and layout == "nk"
+                            else ["middle"])
+                fields = gn_instance_check(label, kernel, plain, rows, lay, model, x, e, raw,
+                                           variants, card)
+                for bwd in (False, True):
+                    rec = gn_instance_record(layout, h, act, bwd)
+                    records[rec["name"]] = dict(
+                        rec, route="cuda", launches=0, library_ms=None, shape=[n, b, h],
+                        variants=variants, **fields[bwd],
+                        ptxas=gn_instance_ptxas(resources, layout, h, act, bwd))
+                if act == "relu" and h in GN_SEAM_SMALL:
+                    errs = gn_seam_check(f"hidden {h}, {layout.upper()} [{n}, {b}]", kernel,
+                                         plain, rows, lay, model, x, e, gen)
+                    for bwd, err in zip((False, True), errs):
+                        r = records[gn_instance_record(layout, h, act, bwd)["name"]]
+                        r["max_abs_err"] = max(r["max_abs_err"], err)
+                        r["world_checked"] = True
+            set_block_activation(model, "relu")
+            del setup, x, e, raw
+            torch.cuda.empty_cache()
+    for key, rec in records.items():
+        for name, use in rec["ptxas"].items():
+            log(f"ptxas, {key}: {name}: {use}")
+    return records
+
+
+def gn_sweep_phase(device, card):
+    """Phase 50: each new instance on its path, counts set to 0 just before:
+    a GN_SWEEP_BLOCKS-block ``epd`` whose blocks take the instance's width
+    and activation, its eval forward and one train step on the cylinder
+    (NK, GN_SWEEP_MESH, B=GN_SWEEP_BATCH) and on a GN_SWEEP_GRADED graded
+    mesh (CSR), each against the plain path (forward SLICE_TOL, step-1 loss
+    STEP1_LOSS_RTOL), every block launching rows 1/2 (3/4) once forward and
+    once backward. Returns {record name: launches}."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_gnblock_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+
+    launches = defaultdict(int)
+    for h, act in sorted({(h, a) for _, h, a in gn_instances()}):
+        for layout in ("nk", "csr"):
+            if layout == "nk":
+                train = entry.cylinder_train_setup(device, nx=GN_SWEEP_MESH[0],
+                                                   ny=GN_SWEEP_MESH[1], hidden=h,
+                                                   mp_steps=GN_SWEEP_BLOCKS,
+                                                   batch=GN_SWEEP_BATCH)
+                kernel = nk_ops.fused_gn_block_nk
+            else:
+                train = entry.graded_train_setup(device, num_nodes=GN_SWEEP_GRADED[0],
+                                                 batch=GN_SWEEP_GRADED[1], hidden=h,
+                                                 mp_steps=GN_SWEEP_BLOCKS)
+                kernel = csr_ops.fused_gn_block_csr
+            sim, graph = train.simulator, train.graph
+            set_block_activation(sim.model, act)
+            plain_sim = plain_copy(sim)
+            plain_state, plain_step = entry.make_trainer(plain_sim)
+            reset_counts([kernel])
+            out = sim.forward(graph, is_training=False)
+            m = train.train_step(train.state, graph, torch.Generator(device).manual_seed(50))
+            torch.cuda.synchronize()
+            got = launch_counts(kernel)
+            ref = plain_sim.forward(graph, is_training=False)
+            mp = plain_step(plain_state, graph, torch.Generator(device).manual_seed(50))
+            rel = abs(m["loss"].item() - mp["loss"].item()) / abs(mp["loss"].item())
+            want = (2 * GN_SWEEP_BLOCKS, GN_SWEEP_BLOCKS)
+            log(f"phase 50 [hidden {h}, {act}, {type(train.tiling).__name__}, {graph.x.shape[0]} "
+                f"nodes x {graph.x.shape[1]}]: launches (forward, backward) {got}, expected "
+                f"{want}; step-1 loss {m['loss'].item():.6g} against the plain path's "
+                f"{mp['loss'].item():.6g} (relative {rel:.3g}, limit {STEP1_LOSS_RTOL})")
+            compare("net_out", out.net_out, ref.net_out, SLICE_TOL, rows=graph.node_mask)
+            if got != want or rel > STEP1_LOSS_RTOL or not (
+                    torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+                raise AssertionError(f"phase 50 [hidden {h}, {act}, {layout}]: launches {got} or "
+                                     "the loss off the plain path's")
+            key = gn_instance_record(layout, h, act, False)["name"]
+            launches[key] += got[0]
+            launches[f"{key}_backward"] += got[1]
+            del train, sim, plain_sim, plain_state, plain_step
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def gn_main_phase(device, card):
+    """Phase 51, the main path of phases 49-51: ``epd`` at hidden 16
+    (entry.cylinder_train_setup(hidden=16): 5 blocks, B=128, the cylinder
+    mesh, NK, relu, the encoder folded): the middle block's kernels timed
+    at B=128 against their plain versions; 20 train steps against the plain
+    path (training_phase), the step's wall, device and enqueue time; the
+    model through Trainer.fit (GN_FIT_TRAJECTORIES trajectories, B=128,
+    GN_FIT_EPOCHS epoch, a VAL_STEPS-step validation rollout) and predict
+    from its checkpoint: launches held to the prediction, predict's RMSE
+    validate's. Returns ({record name: launches}, {record name: times at
+    the slice's shape}, facts)."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.cli import predict as predict_cli
+    from graph_physics_tpu_torch.cli.common import load_inference_stack
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+    from graph_physics_tpu_torch.utils import gradcheck
+
+    kernel, h = nk_ops.fused_gn_block_nk, GN_MAIN_HIDDEN
+    train = entry.cylinder_train_setup(device, hidden=h)
+    model, graph, nk = train.simulator.model, train.graph, train.tiling
+    n, b = graph.x.shape[:2]
+    n_blocks = len(model.processor_list)
+    gen = torch.Generator(device=device).manual_seed(51)
+    x = (0.5 * torch.randn((n, b, h), generator=gen, device=device)).to(torch.bfloat16)
+    e = (0.5 * torch.randn((nk.total_rows, b, h), generator=gen, device=device)).to(torch.bfloat16)
+    blk, rows = model.processor_list[1], (graph.senders, graph.edge_mask)
+    args = (x, e, *rows, blk.edge_block, blk.node_block, nk)
+    with torch.inference_mode():
+        reset_counts([kernel])
+        xk, ek = kernel(*args)
+        xp, ep = nk_ops.fused_gn_block_nk_reference(*args, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        if launch_counts(kernel) != (1, 0):
+            raise AssertionError("phase 51: the middle block's forward kernel did not launch once")
+        log(f"hidden-{h} NK forward kernel check [middle, B={b}]")
+        f_err = max(compare("x_out", xk, xp, KERNEL_TOL), compare("e_out", ek, ep, KERNEL_TOL))
+        del xk, ek, xp, ep
+        fwd = dict(timed(lambda: kernel(*args), (), device=True),
+                   plain_ms=cuda_ms(lambda: nk_ops.fused_gn_block_nk_reference(
+                       *args, compute_dtype=torch.bfloat16)), max_abs_err=f_err)
+    cots = [torch.randn(t.shape, generator=gen, device=device).to(torch.bfloat16) for t in (x, e)]
+    stats, ok, kept = gradcheck.check_block_backward(
+        x, e, rows, (None, blk.edge_block, blk.node_block), nk, False, *cots)
+    if not ok:
+        raise AssertionError("phase 51: the middle block's backward is out of bounds")
+    bwd = backward_times(f"hidden-{h} NK backward [middle, B={b}]",
+                         lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True),
+                         lambda: torch.autograd.grad(*kept["plain"], retain_graph=True), (), card)
+    bwd["max_abs_err"] = max(r["max_abs_err"] for r in stats)
+    del kept
+    slice_times = {}
+    for backward, t in ((False, fwd), (True, bwd)):
+        bd = bound(*gn_block_work(x, e, graph.edge_mask, blk, backward=backward))
+        slice_times[gn_instance_record("nk", h, "relu", backward)["name"]] = dict(
+            ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"], bound_ms=bd[0],
+            bound_by=bd[1], max_abs_err=t["max_abs_err"], shape=[n, b, h])
+        log(f"hidden-{h} NK middle block {'backward' if backward else 'forward'} at B={b}: "
+            f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} "
+            f"ms, bound {bd[0]:.6g} ms ({bd[1]}) ({card})")
+    del x, e, cots
+    torch.cuda.empty_cache()
+
+    _, plain_state, plain_step, step_launches = training_phase(
+        f"hidden-{h} epd training", train, [kernel], 51)
+    st = step_timing(train, plain_state, plain_step, 52)
+    idle = 1.0 - st["train_step_device_ms"] / st["train_step_ms"]
+    log(f"hidden-{h} epd train step B={b}: {st['train_step_ms']:.4f} ms "
+        f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
+        f"{st['train_step_device_ms']:.4f} ms, idle share {idle:.3f}; the host enqueues a step in "
+        f"{st['train_step_host_enqueue_ms']:.4f} ms), plain path {st['train_step_plain_ms']:.4f} "
+        f"ms ({card})")
+    del train, plain_state, plain_step
+    torch.cuda.empty_cache()
+
+    param = cylinder_param()
+    param["model"] = dict(param["model"], hidden_size=h)
+    train_ds, val_ds = fit_datasets(GN_FIT_TRAJECTORIES)
+    tr = fit_trainer(param, train_ds, val_ds, "fit_h16", device, epochs=GN_FIT_EPOCHS)
+    reset_counts([kernel])
+    t0 = time.perf_counter()
+    tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = {kernel.__name__: launch_counts(kernel)}
+    steps, records = tr.state.step, epoch_records(tr)
+    log(f"fit, epd at hidden {h} ({n_blocks} blocks, bf16, {type(tr.sim.model.tiling).__name__} "
+        f"layout; {GN_FIT_TRAJECTORIES} trajectories of {FIT_FRAMES} frames, B={FIT_BATCH}, "
+        f"{GN_FIT_EPOCHS} epoch, {steps} steps, validation {VAL_STEPS} rollout steps): "
+        f"{fit_s:.1f} s ({card})")
+    for r in records:
+        log(f"  epoch {int(r['epoch'])}: train_loss_epoch {r['train_loss_epoch']:.6g} "
+            f"val_all_rollout_rmse {r['val_all_rollout_rmse']:.6g} val_1step_rmse "
+            f"{r['val_1step_rmse']:.6g} ({r['epoch_time_s']:.2f} s)")
+    want = (n_blocks * (steps + GN_FIT_EPOCHS * VAL_STEPS), n_blocks * steps)
+    log(f"  launches (forward, backward): {fit_launches[kernel.__name__]}; expected {want}")
+    values = [r[k] for r in records for k in ("train_loss_epoch", "val_all_rollout_rmse")]
+    if (len(records) != GN_FIT_EPOCHS or not all(math.isfinite(v) for v in values)
+            or fit_launches[kernel.__name__] != want):
+        raise AssertionError(f"phase 51: {steps} steps, launches {fit_launches}, records "
+                             f"{records}")
+    cfg_path = Path(tr.cfg.out_dir) / tr.cfg.run_name / "cylinder_h16.json"
+    cfg_path.write_text(json.dumps(param))
+    args = predict_cli.build_argparser().parse_args([
+        "--training_parameters_path", str(cfg_path), "--model_path", tr.ckpt_dir, "--bf16",
+        "--fused", "--device", str(device)])
+    reset_counts([kernel])
+    stack = load_inference_stack(args, dataset=val_ds)
+    pred = predict_cli.predict(stack, fused=True)[0]
+    torch.cuda.synchronize()
+    predict_launches = {kernel.__name__: launch_counts(kernel)}
+    want_rmse = records[-1]["val_all_rollout_rmse"]
+    rel = abs(pred.rmse_all_rollout - want_rmse) / want_rmse
+    want = (n_blocks * VAL_STEPS, 0)
+    log(f"predict, epd at hidden {h}: checkpoint step {stack.step}, rollout of "
+        f"{pred.predictions.shape[0]} steps, launches (forward, backward) "
+        f"{predict_launches[kernel.__name__]}, expected {want}: rmse_all_rollout "
+        f"{pred.rmse_all_rollout:.8g}, validate reported {want_rmse:.8g} (relative difference "
+        f"{rel:.3g}, limit {PREDICT_RTOL})")
+    if (stack.step != steps or rel > PREDICT_RTOL
+            or predict_launches[kernel.__name__] != want):
+        raise AssertionError("phase 51: predict's rollout is not validate's, or its launches "
+                             f"{predict_launches} are not {want}")
+    total = merge_launches(step_launches, fit_launches, predict_launches)[kernel.__name__]
+    key = gn_instance_record("nk", h, "relu", False)["name"]
+    launches = {key: total[0], f"{key}_backward": total[1]}
+    facts = {"train_step": st, "idle_share": idle, "fit_s": fit_s,
+             "predict_rmse": pred.rmse_all_rollout, "validate_rmse": want_rmse}
+    return launches, slice_times, facts
+
+
+def gn_width_phases(device, card, build_log):
+    """Phases 49-51: the new instances of rows 1-4 checked and timed (49),
+    each on its path (50), ``epd`` at hidden 16 trained, fitted and
+    predicted (51). Returns their records, with the launches of phase 50,
+    or of phase 51 for the main path's instance (phase 50's under
+    "sweep_launches"), and the main instance's times and errors at the
+    slice's shape."""
+    t0 = time.perf_counter()
+    records = gn_instance_phase(device, card, build_log)
+    t1 = time.perf_counter()
+    launches = gn_sweep_phase(device, card)
+    t2 = time.perf_counter()
+    main_launches, slice_times, facts = gn_main_phase(device, card)
+    log(f"phases 49-51: {t1 - t0:.1f} s, {t2 - t1:.1f} s, {time.perf_counter() - t2:.1f} s")
+    log("hidden-16 epd " + json.dumps({"card": card, **facts}))
+    if set(main_launches) - set(records):
+        raise AssertionError(f"phase 51: launches of no record: {main_launches}")
+    out = []
+    for key, rec in records.items():
+        rec["launches"] = launches.pop(key, 0)
+        if key in main_launches:  # the main path's own count; phase 50's beside it
+            rec["sweep_launches"], rec["launches"] = rec["launches"], main_launches[key]
+        if rec["launches"] == 0:
+            raise AssertionError(f"phases 50-51: {key} never launched on its path")
+        if key in slice_times:
+            rec["slice"] = slice_times[key]
+        out.append(rec)
+    if launches:
+        raise AssertionError(f"phases 50-51: launches of no record: {launches}")
+    return out
+
 
 if __name__ == "__main__":
     main()

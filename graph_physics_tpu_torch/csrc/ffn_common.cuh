@@ -16,6 +16,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act_common.cuh"
 #include "mma_common.cuh"
 
 namespace ffn {
@@ -25,19 +26,17 @@ constexpr int W = 3 * H;   // middle width
 
 using bf2 = __nv_bfloat162;
 
-// exact-erf GELU, or SiLU
+// exact-erf GELU, or SiLU as XLA evaluates it on bf16 (act_common.cuh)
 __device__ __forceinline__ float act(float a, int silu) {
-  return silu ? a / (1.0f + expf(-a)) : 0.5f * a * (1.0f + erff(a * 0.7071067811865476f));
+  return silu ? mlp_act::silu(a) : 0.5f * a * (1.0f + erff(a * 0.7071067811865476f));
 }
 
 // act(x) (above) and its derivative act'(x), sharing the one erff (GELU)
-// or expf (SiLU) both need: the same values as computing each alone
+// or sigmoid chain (SiLU) both need: the same values as computing each
+// alone
 __device__ __forceinline__ void act_and_grad(float x, int silu, float& a, float& d) {
   if (silu) {
-    const float e = expf(-x);
-    const float s = 1.0f / (1.0f + e);
-    a = x / (1.0f + e);
-    d = s * (1.0f + x * (1.0f - s));
+    mlp_act::silu_and_grad(x, a, d);
   } else {
     const float phi = 1.0f + erff(x * 0.7071067811865476f);
     a = 0.5f * x * phi;

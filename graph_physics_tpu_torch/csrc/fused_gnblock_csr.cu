@@ -32,37 +32,45 @@ using namespace gn_fwd;
 
 namespace {
 
-template <bool FOLD, bool LAST>
+// W = H: the kernel's name carries the width; ACTS: gn_tile.cuh:fix_act
+template <int W, bool FOLD, bool LAST, bool ACTS>
 __global__ void __launch_bounds__(FWD_THREADS) gn_csr_fwd_kernel(const FwdArgs a) {
-  fwd_body<CsrRows, FOLD, LAST>(a);
+  fwd_body<CsrRows, FOLD, LAST, ACTS>(a);
+}
+
+template <bool ACTS>
+cudaError_t launch(const FwdArgs& a, cudaStream_t stream) {
+  return launch_fwd<CsrRows>(
+      a, stream, gn_csr_fwd_kernel<H, false, false, ACTS>, gn_csr_fwd_kernel<H, false, true, ACTS>,
+      gn_csr_fwd_kernel<H, true, false, ACTS>, gn_csr_fwd_kernel<H, true, true, ACTS>);
 }
 
 }  // namespace
 
 // Each weight list holds 2 * n_layers + 1 pointers: w0, b0, w1, b1, ...,
-// then the RMSNorm scale (null without a norm). fe > 0 folds the edge
+// then the RMSNorm scale (null without a norm); each MLP's activation is a
+// code (act_common.cuh: mlp_act::Kind). fe > 0 folds the edge
 // encoder in (e is the raw [S, B, fe] array); e_out null marks the last
-// block. xks is a [n_nodes, batch, 32] bf16 scratch; agg_out, when not
-// null, receives the bf16 aggregate [n_nodes, batch, 32] for the backward;
-// extra, when not null, is a bf16 [n_nodes, batch, 32] aggregate added to
+// block. xks is a [n_nodes, batch, H] bf16 scratch; agg_out, when not
+// null, receives the bf16 aggregate [n_nodes, batch, H] for the backward;
+// extra, when not null, is a bf16 [n_nodes, batch, H] aggregate added to
 // the messages' (the world edges'). Returns the CUDA error code of the
 // launches (0 on success).
 extern "C" int gn_csr_fwd(const void* x, const void* e, void* xks, void* x_out, void* e_out,
                           void* agg_out, const void* extra, const void* row_ptr,
                           const void* senders, const void* mask, int n_nodes, int batch,
-                          int total_rows, int fe,
-                          const void* const* enc_w, int n_enc_layers,
-                          const void* const* edge_w, int n_edge_layers,
-                          const void* const* node_w, int n_node_layers, void* stream) {
+                          int total_rows, int fe, const void* const* enc_w, int n_enc_layers,
+                          int enc_act, const void* const* edge_w, int n_edge_layers, int edge_act,
+                          const void* const* node_w, int n_node_layers, int node_act,
+                          void* stream) {
   FwdArgs a = {};
   a.row_ptr = static_cast<const int32_t*>(row_ptr);
   a.n_nodes = n_nodes;
   a.total_rows = total_rows;
   if (!make_fwd_args(&a, x, e, xks, x_out, e_out, agg_out, extra, senders, mask, batch, fe,
-                     enc_w, n_enc_layers, edge_w, n_edge_layers, node_w, n_node_layers))
+                     enc_w, n_enc_layers, enc_act, edge_w, n_edge_layers, edge_act, node_w,
+                     n_node_layers, node_act))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_fwd<CsrRows>(
-      a, static_cast<cudaStream_t>(stream), gn_csr_fwd_kernel<false, false>,
-      gn_csr_fwd_kernel<false, true>, gn_csr_fwd_kernel<true, false>,
-      gn_csr_fwd_kernel<true, true>));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(any_act(a) ? launch<true>(a, st) : launch<false>(a, st));
 }

@@ -63,39 +63,51 @@ using namespace gn_bwd;
 
 namespace {
 
+// W = H: the kernels' names carry the width; ACTS: gn_tile.cuh:fix_act
+template <int W, bool ACTS>
 __global__ void __launch_bounds__(PASS_THREADS, 1) gn_csr_bwd_nodemlp_kernel(const PassArgs a) {
-  nodemlp_pass(a);
+  nodemlp_pass<ACTS>(a);
 }
 
-template <bool FOLD>
+template <int W, bool FOLD, bool ACTS>
 __global__ void __launch_bounds__(PASS_THREADS, 1) gn_csr_bwd_row_kernel(const PassArgs a) {
-  row_pass<CsrRows, FOLD>(a);
+  row_pass<CsrRows, FOLD, ACTS>(a);
 }
 
+template <int W>
 __global__ void __launch_bounds__(SEND_THREADS) gn_csr_bwd_send_kernel(const PassArgs a) {
   send_pass<CsrRows>(a);
+}
+
+template <bool ACTS>
+cudaError_t launch(const PassArgs& a, cudaStream_t stream) {
+  return launch_passes(a, stream, gn_csr_bwd_nodemlp_kernel<H, ACTS>,
+                       gn_csr_bwd_row_kernel<H, false, ACTS>,
+                       gn_csr_bwd_row_kernel<H, true, ACTS>, gn_csr_bwd_send_kernel<H>);
 }
 
 }  // namespace
 
 // Weight and gradient lists hold 2 * n_layers + 1 pointers each: w0, b0,
-// w1, b1, ..., then the RMSNorm scale (null without a norm); gradients are
+// w1, b1, ..., then the RMSNorm scale (null without a norm), each MLP's
+// activation a code (act_common.cuh: mlp_act::Kind); gradients are
 // fp32, shaped like their weights, and zeroed by the caller. agg is the
-// bf16 aggregate [n_nodes, batch, 32] the forward kept. fe > 0 folds
+// bf16 aggregate [n_nodes, batch, H] the forward kept. fe > 0 folds
 // the edge encoder in (e is the raw [S, B, fe] array, de is null); g_eout
-// null marks the last block. xkr, xks, gagg [n_nodes, batch, 32] and gh0
-// [total_rows, batch, 32] are bf16 scratch; order and offsets (int32) are
+// null marks the last block. xkr, xks, gagg [n_nodes, batch, H] and gh0
+// [total_rows, batch, H] are bf16 scratch; order and offsets (int32) are
 // the valid rows sorted by sender and each node's range in them. Returns
 // the CUDA error code of the launches (0 on success).
 extern "C" int gn_csr_bwd(const void* x, const void* e, const void* agg, const void* g_xout,
-                          const void* g_eout, void* dx, void* de, void* xkr, void* xks,
-                          void* gagg, void* gh0, const void* row_ptr, const void* senders,
+                          const void* g_eout, void* dx, void* de, void* xkr, void* xks, void* gagg,
+                          void* gh0, const void* row_ptr, const void* senders,
                           const void* receivers, const void* mask, const void* order,
                           const void* offsets, int n_nodes, int batch, int total_rows, int fe,
                           const void* const* enc_w, const void* const* enc_g, int n_enc_layers,
-                          const void* const* edge_w, const void* const* edge_g,
-                          int n_edge_layers, const void* const* node_w,
-                          const void* const* node_g, int n_node_layers, void* stream) {
+                          int enc_act, const void* const* edge_w, const void* const* edge_g,
+                          int n_edge_layers, int edge_act, const void* const* node_w,
+                          const void* const* node_g, int n_node_layers, int node_act,
+                          void* stream) {
   PassArgs a = {};
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.e = static_cast<const __nv_bfloat16*>(e);
@@ -118,10 +130,9 @@ extern "C" int gn_csr_bwd(const void* x, const void* e, const void* agg, const v
   a.batch = batch;
   a.total_rows = total_rows;
   a.fe = fe;
-  if (!make_pass_mlps(&a, enc_w, enc_g, n_enc_layers, edge_w, edge_g, n_edge_layers, node_w,
-                      node_g, n_node_layers))
+  if (!make_pass_mlps(&a, enc_w, enc_g, n_enc_layers, enc_act, edge_w, edge_g, n_edge_layers,
+                      edge_act, node_w, node_g, n_node_layers, node_act))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_passes(a, static_cast<cudaStream_t>(stream),
-                                        gn_csr_bwd_nodemlp_kernel, gn_csr_bwd_row_kernel<false>,
-                                        gn_csr_bwd_row_kernel<true>, gn_csr_bwd_send_kernel));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(any_act(a) ? launch<true>(a, st) : launch<false>(a, st));
 }

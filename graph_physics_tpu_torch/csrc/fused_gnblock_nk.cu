@@ -41,28 +41,36 @@ using namespace gn_fwd;
 
 namespace {
 
-template <bool FOLD, bool LAST>
+// W = H: the kernel's name carries the width; ACTS: gn_tile.cuh:fix_act
+template <int W, bool FOLD, bool LAST, bool ACTS>
 __global__ void __launch_bounds__(FWD_THREADS) gn_nk_fwd_kernel(const FwdArgs a) {
-  fwd_body<NkRows, FOLD, LAST>(a);
+  fwd_body<NkRows, FOLD, LAST, ACTS>(a);
+}
+
+template <bool ACTS>
+cudaError_t launch(const FwdArgs& a, cudaStream_t stream) {
+  return launch_fwd<NkRows>(
+      a, stream, gn_nk_fwd_kernel<H, false, false, ACTS>, gn_nk_fwd_kernel<H, false, true, ACTS>,
+      gn_nk_fwd_kernel<H, true, false, ACTS>, gn_nk_fwd_kernel<H, true, true, ACTS>);
 }
 
 }  // namespace
 
 // Each weight list holds 2 * n_layers + 1 pointers: w0, b0, w1, b1, ...,
-// then the RMSNorm scale (null without a norm). fe > 0 folds the edge
+// then the RMSNorm scale (null without a norm); each MLP's activation is a
+// code (act_common.cuh: mlp_act::Kind). fe > 0 folds the edge
 // encoder in (e is the raw [S, B, fe] array); e_out null marks the last
-// block. xks is a [n_nodes, batch, 32] bf16 scratch; agg_out, when not
-// null, receives the bf16 aggregate [n_nodes, batch, 32] for the
-// backward; extra, when not null, is a bf16 [n_nodes, batch, 32] aggregate
+// block. xks is a [n_nodes, batch, H] bf16 scratch; agg_out, when not
+// null, receives the bf16 aggregate [n_nodes, batch, H] for the
+// backward; extra, when not null, is a bf16 [n_nodes, batch, H] aggregate
 // added to the messages' (the world edges'). Returns the CUDA error code of
 // the launches (0 on success).
 extern "C" int gn_nk_fwd(const void* x, const void* e, void* xks, void* x_out, void* e_out,
-                         void* agg_out, const void* extra, const void* senders,
-                         const void* mask, int n_nodes, int batch, int k_slots,
-                         int node_block, int fe,
-                         const void* const* enc_w, int n_enc_layers, const void* const* edge_w,
-                         int n_edge_layers, const void* const* node_w, int n_node_layers,
-                         void* stream) {
+                         void* agg_out, const void* extra, const void* senders, const void* mask,
+                         int n_nodes, int batch, int k_slots, int node_block, int fe,
+                         const void* const* enc_w, int n_enc_layers, int enc_act,
+                         const void* const* edge_w, int n_edge_layers, int edge_act,
+                         const void* const* node_w, int n_node_layers, int node_act, void* stream) {
   FwdArgs a = {};
   a.k_slots = k_slots;
   a.node_block = node_block;
@@ -70,10 +78,9 @@ extern "C" int gn_nk_fwd(const void* x, const void* e, void* xks, void* x_out, v
   a.total_rows = n_nodes * k_slots;
   if (k_slots < 1 || node_block < 1 || n_nodes % node_block != 0 ||
       !make_fwd_args(&a, x, e, xks, x_out, e_out, agg_out, extra, senders, mask, batch, fe,
-                     enc_w, n_enc_layers, edge_w, n_edge_layers, node_w, n_node_layers))
+                     enc_w, n_enc_layers, enc_act, edge_w, n_edge_layers, edge_act, node_w,
+                     n_node_layers, node_act))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_fwd<NkRows>(
-      a, static_cast<cudaStream_t>(stream), gn_nk_fwd_kernel<false, false>,
-      gn_nk_fwd_kernel<false, true>, gn_nk_fwd_kernel<true, false>,
-      gn_nk_fwd_kernel<true, true>));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(any_act(a) ? launch<true>(a, st) : launch<false>(a, st));
 }

@@ -17,9 +17,9 @@ using namespace gnw;
 
 namespace {
 
-template <bool LAST>
+template <bool LAST, bool ACTS>
 __global__ void __launch_bounds__(THREADS, 1) GNW(csr_edge_fwd)(const FwdArgs a) {
-  edge_fwd_body<CsrRows, LAST>(a);
+  edge_fwd_body<CsrRows, LAST, ACTS>(a);
 }
 
 }  // namespace
@@ -30,21 +30,25 @@ extern "C" int gnw_hidden() { return H; }
 // [n_nodes + 1] and total_rows rows, padding included.
 extern "C" int gnw_csr_fwd(const void* x, const void* e, void* xkr, void* xks, void* ein,
                            void* x_out, void* e_out, void* agg, const void* extra,
-                           const void* row_ptr, const void* senders, const void* mask,
-                           int n_nodes, int batch, int total_rows, int fe,
-                           const void* const* enc_w, int n_enc_layers,
-                           const void* const* edge_w, int n_edge_layers,
-                           const void* const* node_w, int n_node_layers, void* stream) {
+                           const void* row_ptr, const void* senders, const void* mask, int n_nodes,
+                           int batch, int total_rows, int fe, const void* const* enc_w,
+                           int n_enc_layers, int enc_act, const void* const* edge_w,
+                           int n_edge_layers, int edge_act, const void* const* node_w,
+                           int n_node_layers, int node_act, void* stream) {
   FwdArgs a = {};
   Mlp enc = {};
   a.row_ptr = static_cast<const int32_t*>(row_ptr);
   a.n_nodes = n_nodes;
   a.total_rows = total_rows;
   if (!make_fwd_args(&a, &enc, x, e, xkr, xks, x_out, e_out, agg, extra, senders, mask, batch,
-                     fe, enc_w, n_enc_layers, edge_w, n_edge_layers, node_w, n_node_layers) ||
+                     fe, enc_w, n_enc_layers, enc_act, edge_w, n_edge_layers, edge_act, node_w,
+                     n_node_layers, node_act) ||
       (fe > 0 && e_out == nullptr && ein == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_fwd<CsrRows>(
-      a, static_cast<const bf16*>(e), static_cast<bf16*>(ein), enc, fe,
-      static_cast<cudaStream_t>(stream), GNW(csr_edge_fwd)<false>, GNW(csr_edge_fwd)<true>));
+  const bool acts = a.edge.act != mlp_act::RELU;
+  const FwdKernel mid = acts ? GNW(csr_edge_fwd)<false, true> : GNW(csr_edge_fwd)<false, false>;
+  const FwdKernel last = acts ? GNW(csr_edge_fwd)<true, true> : GNW(csr_edge_fwd)<true, false>;
+  return static_cast<int>(launch_fwd<CsrRows>(a, static_cast<const bf16*>(e),
+                                            static_cast<bf16*>(ein), enc, fe,
+                                            static_cast<cudaStream_t>(stream), mid, last));
 }

@@ -14,8 +14,9 @@ using namespace gnw;
 
 namespace {
 
+template <bool ACTS>
 __global__ void __launch_bounds__(THREADS, 1) GNW(nk_row_bwd)(const BwdArgs a) {
-  row_bwd_body<NkRows>(a);
+  row_bwd_body<NkRows, ACTS>(a);
 }
 
 __global__ void __launch_bounds__(THREADS) GNW(nk_send)(const BwdArgs a) { send_body<NkRows>(a); }
@@ -44,14 +45,13 @@ extern "C" long long gnw_bwd_sizes(int which, int n_nodes, int batch, long long 
 // launches (0 on success).
 extern "C" int gnw_nk_bwd(const void* x, const void* e, const void* agg, const void* g_xout,
                           const void* g_eout, void* dx, void* de, void* dea, void* scratch,
-                          void* part,
-                          const void* senders, const void* mask, const void* order,
-                          const void* offsets, int n_nodes, int batch, int k_slots,
-                          int node_block, int fe, const void* const* enc_w,
-                          const void* const* enc_g, int n_enc_layers, const void* const* edge_w,
-                          const void* const* edge_g, int n_edge_layers,
-                          const void* const* node_w, const void* const* node_g,
-                          int n_node_layers, void* stream) {
+                          void* part, const void* senders, const void* mask, const void* order,
+                          const void* offsets, int n_nodes, int batch, int k_slots, int node_block,
+                          int fe, const void* const* enc_w, const void* const* enc_g,
+                          int n_enc_layers, int enc_act, const void* const* edge_w,
+                          const void* const* edge_g, int n_edge_layers, int edge_act,
+                          const void* const* node_w, const void* const* node_g, int n_node_layers,
+                          int node_act, void* stream) {
   BwdArgs a = {};
   a.k_slots = k_slots;
   a.node_block = node_block;
@@ -59,10 +59,11 @@ extern "C" int gnw_nk_bwd(const void* x, const void* e, const void* agg, const v
   a.total_rows = n_nodes * k_slots;
   if (k_slots < 1 || node_block < 1 || n_nodes % node_block != 0 ||
       !make_bwd_args(&a, x, e, agg, g_xout, g_eout, dx, de, dea, senders, mask, order, offsets,
-                     batch, fe, enc_w, enc_g, n_enc_layers, edge_w, edge_g, n_edge_layers, node_w,
-                     node_g, n_node_layers))
+                     batch, fe, enc_w, enc_g, n_enc_layers, enc_act, edge_w, edge_g,
+                     n_edge_layers, edge_act, node_w, node_g, n_node_layers, node_act))
     return static_cast<int>(cudaErrorInvalidValue);
+  const BwdKernel rows =
+      a.edge.act != mlp_act::RELU ? GNW(nk_row_bwd)<true> : GNW(nk_row_bwd)<false>;
   return static_cast<int>(launch_bwd(a, static_cast<bf16*>(scratch), static_cast<float*>(part),
-                                     static_cast<cudaStream_t>(stream), GNW(nk_row_bwd),
-                                     GNW(nk_send)));
+                                     static_cast<cudaStream_t>(stream), rows, GNW(nk_send)));
 }

@@ -27,11 +27,19 @@ constexpr int NL = 4;  // Dense layers per MLP the backward kernels are built fo
 // per warp: activations transposed [H][32], cotangents [32][H + 1]
 constexpr int STAGE_G = H * 32;
 constexpr int STAGE = H * 32 + 32 * (H + 1);
+// floats of an H x H matrix in the sender pass's shared memory, a multiple
+// of 4 (16 bytes) so that the buffers after it stay aligned
+constexpr int SQ = (H * H + 3) / 4 * 4;
 
 // sum_o g[o] * W[o] for one weight row in shared memory
 __device__ __forceinline__ float dot_row(const float (&g)[H], const float* wrow) {
-  const float4* w4 = reinterpret_cast<const float4*>(wrow);
   float s = 0.f;
+  if constexpr (H % 4 != 0) {
+#pragma unroll
+    for (int o = 0; o < H; ++o) s = fmaf(g[o], wrow[o], s);
+    return s;
+  }
+  const float4* w4 = reinterpret_cast<const float4*>(wrow);
 #pragma unroll
   for (int q = 0; q < H / 4; ++q) {
     const float4 w = w4[q];
@@ -44,15 +52,16 @@ __device__ __forceinline__ float dot_row(const float (&g)[H], const float* wrow)
 }
 
 // stage_cols writes each lane's cotangent row into the warp's buffer and
-// hands lane o column o (gcol[l] = row l's value o).
-__device__ __forceinline__ void stage_cols(float* st, const float (&g)[H], float (&gcol)[H]) {
+// hands lane o < H column o (gcol[l] = row l's value o; lanes past H get
+// zeros).
+__device__ __forceinline__ void stage_cols(float* st, const float (&g)[H], float (&gcol)[32]) {
   const int lane = threadIdx.x & 31;
   float* sg = st + STAGE_G;
 #pragma unroll
   for (int o = 0; o < H; ++o) sg[lane * (H + 1) + o] = g[o];
   __syncwarp();
 #pragma unroll
-  for (int l = 0; l < 32; ++l) gcol[l] = sg[l * (H + 1) + lane];
+  for (int l = 0; l < 32; ++l) gcol[l] = lane < H ? sg[l * (H + 1) + lane] : 0.f;
   __syncwarp();
 }
 
@@ -62,10 +71,10 @@ __device__ __forceinline__ void stage_rows_global(float* st, const __nv_bfloat16
   __syncwarp();
 }
 
-// dW[i][o] += sum over the warp's 32 rows of a[i] * g[o], lane o owning
-// column o of the warp's own accumulator dw; the staged activations are
-// read as float4 broadcasts
-__device__ __forceinline__ void outer(float* st, const float (&gcol)[H], int rows, float* dw) {
+// dW[i][o] += sum over the warp's 32 rows of a[i] * g[o], lane o < H
+// owning column o of the warp's own accumulator dw; the staged activations
+// are read as float4 broadcasts
+__device__ __forceinline__ void outer(float* st, const float (&gcol)[32], int rows, float* dw) {
   const int lane = threadIdx.x & 31;
   for (int i = 0; i < rows; ++i) {
     const float4* a4 = reinterpret_cast<const float4*>(st + i * 32);
@@ -78,7 +87,7 @@ __device__ __forceinline__ void outer(float* st, const float (&gcol)[H], int row
       s = fmaf(v.z, gcol[4 * q + 2], s);
       s = fmaf(v.w, gcol[4 * q + 3], s);
     }
-    dw[i * H + lane] += s;
+    if (lane < H) dw[i * H + lane] += s;
   }
   __syncwarp();
 }
@@ -107,6 +116,8 @@ __device__ inline float* grad_slot(const Mlp& g, int i) {
 // adds one MLP's partials (its mlp_floats(g) floats at ``part`` in each of
 // ``blocks`` slots, ``stride`` floats apart) into its global gradients,
 // the slots summed in block order
+// (W = H: the kernel's name carries the width)
+template <int W>
 __global__ void reduce_mlp_kernel(const float* part, int blocks, int stride, Mlp g) {
   const int n = mlp_floats(g);
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
@@ -119,6 +130,7 @@ __global__ void reduce_mlp_kernel(const float* part, int blocks, int stride, Mlp
 // adds the sender pass's partials (dKr then dKs, each [in][out], in each
 // of ``blocks`` slots of 2 H^2 floats) into the receiver and sender columns
 // of the edge MLP's first kernel gradient gw0 [H, 3H], in block order
+template <int W>
 __global__ void reduce_send_kernel(const float* part, int blocks, float* gw0) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < 2 * H * H;
        i += gridDim.x * blockDim.x) {
@@ -130,10 +142,12 @@ __global__ void reduce_send_kernel(const float* part, int blocks, float* gw0) {
 }
 
 // a weight MLP and its gradient MLP of NL layers from the two pointer lists,
-// with norms on both or on neither
+// with norms on both or on neither; layer 0's input in ``parts`` blocks,
+// ``act`` the activation (gn_nk_common.cuh:make_mlp)
 inline bool make_mlp_pair(Mlp* w, Mlp* g, const void* const* wp, const void* const* gp,
-                          int n_layers, int in_dim) {
-  return n_layers == NL && make_mlp(w, wp, NL, in_dim) && make_mlp(g, gp, NL, in_dim) &&
+                          int n_layers, int in_dim, int parts, int act) {
+  return n_layers == NL && make_mlp(w, wp, NL, in_dim, parts, act) &&
+         make_mlp(g, gp, NL, in_dim, parts, act) &&
          (w->scale == nullptr) == (g->scale == nullptr);
 }
 

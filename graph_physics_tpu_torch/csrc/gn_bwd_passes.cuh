@@ -61,6 +61,7 @@ constexpr int PASS_WARPS = PASS_THREADS / 32;
 constexpr int ROWS = 16 * PASS_WARPS;  // staged sample rows of a block
 constexpr int SEND_THREADS = 128;
 constexpr int SEND_WARPS = SEND_THREADS / 32;
+constexpr int MT = HP / 16;  // m-tiles of a layer's outputs in the weight gradients
 
 struct PassArgs : RowMap {
   const __nv_bfloat16* x;       // [N, B, H]
@@ -135,7 +136,7 @@ __device__ inline void zero_smem(bf16* from, const bf16* to) {
 
 // a tile that adds nothing to the weight gradients: zero cotangents
 __device__ __forceinline__ void zero_cots(const Stage& st, bool norm) {
-  uint32_t z[8];
+  uint32_t z[FR];
   zero_frag(z);
 #pragma unroll
   for (int l = 0; l < NL; ++l) frag_to_smem(mine(st.g[l], TS), TS, z);
@@ -143,18 +144,24 @@ __device__ __forceinline__ void zero_cots(const Stage& st, bool norm) {
 }
 
 // An MLP's forward on the warp's tile from its first layer's fp32 product
-// d0 (bias not yet added), staging each later layer's relu'd input A_l;
-// v gets the last layer's output (the RMSNorm's input) and inv its
+// d0 (bias not yet added), staging each later layer's input: with relu its
+// relu'd input A_l (its pass mask too), with SiLU or GELU the
+// pre-activation, which bwd_chain needs for the derivative and then
+// overwrites with A_l = act(pre) (_mlp_bwd recomputes act(pres[i]) at
+// use); v gets the last layer's output (the RMSNorm's input) and inv its
 // statistic. The caller stages A_0.
-__device__ __forceinline__ void fwd_keep(const float (&d0)[4][4], const TileMlp& m,
-                                         const Stage& st, uint32_t (&v)[8], float (&inv)[2]) {
+__device__ __forceinline__ void fwd_keep(const float (&d0)[NT][4], const TileMlp& m,
+                                         const Stage& st, uint32_t (&v)[FR], float (&inv)[2]) {
   finish(v, d0, m.bias(0));
 #pragma unroll
   for (int l = 1; l < NL; ++l) {
-    uint32_t act[8];
-    relu(act, v);
-    frag_to_smem(mine(st.a[l], TS), TS, act);
-    float d[4][4];
+    uint32_t act[FR];
+    activate(act, v, m.act);
+    if (m.act == mlp_act::RELU)  // two calls: a selected array would go to local memory
+      frag_to_smem(mine(st.a[l], TS), TS, act);
+    else
+      frag_to_smem(mine(st.a[l], TS), TS, v);
+    float d[NT][4];
     zero_acc(d);
     mma_awt(d, act, m.layer(l), TS, 0);
     finish(v, d, m.bias(l));
@@ -166,24 +173,33 @@ __device__ __forceinline__ void fwd_keep(const float (&d0)[4][4], const TileMlp&
 // The backward through the RMSNorm and layers NL-1..1 (JAX _mlp_bwd): g in,
 // the cotangent at the MLP's output; out, the cotangent at layer 0's
 // output. Stages P and every G_l.
-__device__ __forceinline__ void bwd_chain(uint32_t (&g)[8], const TileMlp& m, const Stage& st,
-                                          const uint32_t (&v)[8], const float (&inv)[2]) {
+__device__ __forceinline__ void bwd_chain(uint32_t (&g)[FR], const TileMlp& m, const Stage& st,
+                                          const uint32_t (&v)[FR], const float (&inv)[2]) {
   if (m.norm) {
-    uint32_t p[8];
+    uint32_t p[FR];
     rms_bwd(g, p, v, inv, m.scale());
     frag_to_smem(mine(st.p, TS), TS, p);
   }
 #pragma unroll
   for (int l = NL - 1; l >= 1; --l) {
     frag_to_smem(mine(st.g[l], TS), TS, g);
-    float d[4][4];
+    float d[NT][4];
     zero_acc(d);
     mma_gw(d, g, m.layer(l), TS, 0);
-    uint32_t act[8];
+    uint32_t act[FR];
     frag_from_smem(act, mine(st.a[l], TS), TS);  // this lane's own stores
     round_acc(g, d);
+    if (m.act == mlp_act::RELU) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) g[i] &= pos_mask(act[i]);
+      for (int i = 0; i < FR; ++i) g[i] &= pos_mask(act[i]);
+    } else {  // act holds the pre-activation: g · act'(pre), then A_l = act(pre)
+#pragma unroll
+      for (int i = 0; i < FR; ++i) {
+        g[i] = mlp_act::grad_pair(g[i], act[i], m.act);
+        act[i] = mlp_act::act_pair(act[i], m.act);
+      }
+      frag_to_smem(mine(st.a[l], TS), TS, act);
+    }
   }
   frag_to_smem(mine(st.g[0], TS), TS, g);
 }
@@ -196,8 +212,8 @@ __device__ __forceinline__ uint32_t ones_b() { return lane_id() < 4 ? 0x3f803f80
 // a layer, dw += Gᵀ·A over the block's ROWS staged rows (nt <= NT n-tiles
 // of 8 inputs), db += the column sums of G (the bias), and, with P, ds +=
 // those of P (the RMSNorm scale).
-template <int NT>
-__device__ __forceinline__ void wgrad(float (&dw)[NT][4], float (&db)[4], float (&ds)[4],
+template <int N>
+__device__ __forceinline__ void wgrad(float (&dw)[N][4], float (&db)[4], float (&ds)[4],
                                       const bf16* G, const bf16* A, int a_stride, const bf16* P,
                                       int mt, int nt) {
   const int lane = lane_id();
@@ -207,7 +223,7 @@ __device__ __forceinline__ void wgrad(float (&dw)[NT][4], float (&db)[4], float 
     uint32_t af[4];
     ldsm_t(af, a_cols(G, TS, 16 * mt, 16 * ks, lane));
 #pragma unroll
-    for (int p = 0; p < NT / 2; ++p) {
+    for (int p = 0; p < N / 2; ++p) {
       if (2 * p < nt) {
         uint32_t b[4];
         ldsm_t(b, b_cols(A, a_stride, 16 * p, 16 * ks, lane));
@@ -226,38 +242,43 @@ __device__ __forceinline__ void wgrad(float (&dw)[NT][4], float (&db)[4], float 
 // Write a warp's share (wgrad's sums for layer L, rows 16·mt..) into the
 // block's zeroed gradient buffer in grad_slot's layout (per layer
 // [in][H] then the bias; then the scale); inputs past the layer's width
-// (or past the NT n-tiles) are left out.
-template <int NT>
-__device__ __forceinline__ void put_grads(float* buf, const float (&dw)[NT][4],
+// (or past the N n-tiles), padded inputs and outputs past H are left out.
+// Layer 0's staged input is ``parts`` blocks of in_dim / parts columns,
+// each padded to HP when there are several.
+template <int N>
+__device__ __forceinline__ void put_grads(float* buf, const float (&dw)[N][4],
                                           const float (&db)[4], const float (&ds)[4],
-                                          int in_dim, int L, int mt, bool scale) {
+                                          int in_dim, int parts, int L, int mt, bool scale) {
   const int lane = lane_id(), g = lane >> 2, q = lane & 3;
   const int rows = L == 0 ? in_dim : H;
+  const int pw = L == 0 ? in_dim / parts : H;      // a block's true columns
+  const int pp = L == 0 && parts == 1 ? in_dim : HP;  // and its staged width
   float* w = buf + (L == 0 ? 0 : in_dim * H + H + (L - 1) * (H * H + H));
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int n = 0; n < N; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int o = 16 * mt + g + 8 * (e >> 1), i = 8 * n + 2 * q + (e & 1);
-      if (i < rows) w[i * H + o] = dw[n][e];
+      const int blk = i / pp, k = i % pp, row = blk * pw + k;
+      if (o < H && k < pw && row < rows) w[row * H + o] = dw[n][e];
     }
   if (q == 0) {
-    w[rows * H + 16 * mt + g] = db[0];
-    w[rows * H + 16 * mt + g + 8] = db[2];
-    if (scale) {
-      float* s = buf + in_dim * H + H + (NL - 1) * (H * H + H);
-      s[16 * mt + g] = ds[0];
-      s[16 * mt + g + 8] = ds[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int o = 16 * mt + g + 8 * r;
+      if (o >= H) continue;
+      w[rows * H + o] = db[2 * r];
+      if (scale) buf[in_dim * H + H + (NL - 1) * (H * H + H) + o] = ds[2 * r];
     }
   }
 }
 
-template <int NT>
-__device__ __forceinline__ void zero_sums(float (&dw)[NT][4], float (&db)[4], float (&ds)[4]) {
+template <int N>
+__device__ __forceinline__ void zero_sums(float (&dw)[N][4], float (&db)[4], float (&ds)[4]) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) dw[n][e] = 0.f;
+    for (int n = 0; n < N; ++n) dw[n][e] = 0.f;
     db[e] = ds[e] = 0.f;
   }
 }
@@ -268,22 +289,22 @@ __device__ __forceinline__ void node_tile(const PassArgs& a, const TileMlp& node
   const int B = a.batch;
   const int b0 = 16 * static_cast<int>(t % chunks), nv = min(16, B - b0);
   const long long xb = ((t / chunks) * B + b0) * H;
-  uint32_t xf[8], ag[8];
+  uint32_t xf[FR], ag[FR];
   frag_load(xf, a.x + xb, H, nv);
   frag_load(ag, a.agg + xb, H, nv);
   bf16* a0 = mine(st.a[0], st.a0_stride);
   frag_to_smem(a0, st.a0_stride, xf);
-  frag_to_smem(a0 + H, st.a0_stride, ag);
-  float d[4][4];
+  frag_to_smem(a0 + HP, st.a0_stride, ag);
+  float d[NT][4];
   zero_acc(d);
   mma_awt(d, xf, node.layer(0), node.stride0, 0);
-  mma_awt(d, ag, node.layer(0), node.stride0, H);
-  uint32_t v[8], g[8];
+  mma_awt(d, ag, node.layer(0), node.stride0, HP);
+  uint32_t v[FR], g[FR];
   float inv[2];
   fwd_keep(d, node, st, v, inv);
   frag_load(xf, a.g_xout + xb, H, nv);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) g[i] = xf[i];
+  for (int i = 0; i < FR; ++i) g[i] = xf[i];
   bwd_chain(g, node, st, v, inv);
   zero_acc(d);
   mma_gw(d, g, node.layer(0), node.stride0, 0);  // the x part
@@ -291,7 +312,7 @@ __device__ __forceinline__ void node_tile(const PassArgs& a, const TileMlp& node
   add_tiles(xf, xf, v);
   frag_store(a.dx + xb, H, nv, xf);  // finished by the sender pass
   zero_acc(d);
-  mma_gw(d, g, node.layer(0), node.stride0, H);  // the aggregate's part
+  mma_gw(d, g, node.layer(0), node.stride0, HP);  // the aggregate's part
   round_acc(v, d);
   frag_store(a.gagg + xb, H, nv, v);
 }
@@ -299,25 +320,30 @@ __device__ __forceinline__ void node_tile(const PassArgs& a, const TileMlp& node
 // pass 1: the node MLP's backward, one warp per (node, 16-sample) tile:
 // dx's node-MLP part, the aggregate's cotangent g_agg, the node MLP's
 // gradients
+template <bool ACTS>
 __device__ __forceinline__ void nodemlp_pass(const PassArgs& a) {
   extern __shared__ __align__(16) unsigned char pass_smem[];
-  constexpr int A0S = 2 * H + 8;  // [x | agg] rows
+  constexpr int A0S = 2 * HP + 8;  // [x | agg] rows
   bf16* at = reinterpret_cast<bf16*>(pass_smem);
-  const TileMlp node = stage_tile_mlp(at, a.node);
+  TileMlp node = stage_tile_mlp(at, a.node);
+  fix_act<ACTS>(node);
   at += tile_mlp_elems(a.node);
   bf16* const stage0 = at;
   const Stage st = carve_stage(at, A0S);
   zero_smem(stage0, at);
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, L = warp >> 1, mt = warp & 1;
+  // warp w holds output rows 16·mt.. of layer L (MT m-tiles a layer); at
+  // HP = 16 warps 4-7 hold none
+  const int warp = threadIdx.x / 32, L = warp / MT, mt = warp % MT;
+  const bool sums = L < NL;
   const bool scale = node.norm && L == NL - 1;
-  const bf16* G = g_of(st, L);
-  const bf16* A = a_of(st, L);
+  const bf16* G = sums ? g_of(st, L) : nullptr;
+  const bf16* A = sums ? a_of(st, L) : nullptr;
   const bf16* P = scale ? st.p : nullptr;
-  const int as = L == 0 ? A0S : TS, nt = L == 0 ? 8 : 4;
-  float dw[8][4], db[4], ds[4];  // layer 0 has 8 n-tiles (64 inputs), the others 4
-  zero_sums<8>(dw, db, ds);
+  const int as = L == 0 ? A0S : TS, nt = L == 0 ? 2 * NT : NT;
+  float dw[2 * NT][4], db[4], ds[4];  // layer 0 has 2·NT n-tiles (2·HP inputs), the others NT
+  zero_sums<2 * NT>(dw, db, ds);
   const int chunks = (a.batch + 15) / 16;
   const long long tiles = static_cast<long long>(a.n_nodes) * chunks;
   const long long groups = (tiles + PASS_WARPS - 1) / PASS_WARPS;
@@ -328,13 +354,13 @@ __device__ __forceinline__ void nodemlp_pass(const PassArgs& a) {
     else
       zero_cots(st, node.norm);
     __syncthreads();
-    wgrad<8>(dw, db, ds, G, A, as, P, mt, nt);
+    if (sums) wgrad<2 * NT>(dw, db, ds, G, A, as, P, mt, nt);
     __syncthreads();
   }
   float* buf = reinterpret_cast<float*>(stage0);
   for (int i = threadIdx.x; i < mlp_floats(a.node); i += blockDim.x) buf[i] = 0.f;
   __syncthreads();
-  put_grads<8>(buf, dw, db, ds, 2 * H, L, mt, scale);
+  if (sums) put_grads<2 * NT>(buf, dw, db, ds, 2 * H, 2, L, mt, scale);
   __syncthreads();
   store_partial(buf, a.part, mlp_floats(a.node));
 }
@@ -351,39 +377,39 @@ __device__ __forceinline__ void row_tile(const PassArgs& a, const TileMlp& edge,
   const long long rb = s * B + b0;
   const bool ranged = s < pad0;  // a row of some receiver's range
   const bool valid = ranged && a.mask[s];
-  uint32_t geo[8];
+  uint32_t geo[FR];
   if (a.g_eout)
     frag_load(geo, a.g_eout + rb * H, H, nv);
   else
     zero_frag(geo);
   // the folded encoder's cotangent is 0 on a row with neither
   const bool enc_live = FOLD && (valid || a.g_eout != nullptr);
-  uint32_t ein[8], venc[8];
+  uint32_t ein[FR], venc[FR];
   float ienc[2];
   if (FOLD) {
     if (enc_live) {
-      uint32_t rf[8];
+      uint32_t rf[FR];
       raw_load(rf, a.e + rb * a.fe, a.fe, 0, nv);
       frag_to_smem(mine(ns.a[0], TS), TS, rf);
-      float d[4][4];
+      float d[NT][4];
       zero_acc(d);
       mma_awt(d, rf, enc.layer(0), enc.stride0, 0, (a.fe + 15) / 16);
       fwd_keep(d, enc, ns, venc, ienc);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) ein[i] = venc[i];
+      for (int i = 0; i < FR; ++i) ein[i] = venc[i];
       if (enc.norm) rms_apply(ein, ienc, enc.scale());
     }
   } else {
     frag_load(ein, a.e + rb * H, H, nv);
   }
-  uint32_t de[8];
+  uint32_t de[FR];
   if (valid) {
     frag_to_smem(mine(es.a[0], TS), TS, ein);
-    float d[4][4];
+    float d[NT][4];
     zero_acc(d);
     mma_awt(d, ein, edge.layer(0), edge.stride0, 0);  // e_in @ Ke
     const long long r = Rows::receiver(a, s);
-    uint32_t g[8], v[8];
+    uint32_t g[FR], v[FR];
     frag_load(g, a.xkr + (r * B + b0) * H, H, nv);
     add_frag(d, g);
     frag_load(g, a.xks + (static_cast<long long>(a.senders[s]) * B + b0) * H, H, nv);
@@ -403,7 +429,7 @@ __device__ __forceinline__ void row_tile(const PassArgs& a, const TileMlp& edge,
     zero_frag(de);
     if (ranged) frag_store(a.gh0 + rb * H, H, nv, de);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) de[i] = geo[i];
+    for (int i = 0; i < FR; ++i) de[i] = geo[i];
   }
   if (!FOLD)
     frag_store(a.de + rb * H, H, nv, de);
@@ -417,17 +443,19 @@ __device__ __forceinline__ void row_tile(const PassArgs& a, const TileMlp& edge,
 // (row, 16-sample) tile of every row: g_h0, de, the MLPs' gradients (the
 // edge MLP's first layer only on its e_in rows Ke: the sender pass adds
 // those of Kr and Ks)
-template <class Rows, bool FOLD>
+template <class Rows, bool FOLD, bool ACTS>
 __device__ __forceinline__ void row_pass(const PassArgs& a) {
   extern __shared__ __align__(16) unsigned char pass_smem[];
   bf16* at = reinterpret_cast<bf16*>(pass_smem);
-  const TileMlp edge = stage_tile_mlp(at, a.edge);
+  TileMlp edge = stage_tile_mlp(at, a.edge);
   at += tile_mlp_elems(a.edge);
   TileMlp enc{};
   if (FOLD) {
     enc = stage_tile_mlp(at, a.enc);
     at += tile_mlp_elems(a.enc);
   }
+  fix_act<ACTS>(edge);
+  fix_act<ACTS>(enc);
   bf16* const stage0 = at;
   const Stage es = carve_stage(at, TS);
   Stage ns{};
@@ -435,18 +463,22 @@ __device__ __forceinline__ void row_pass(const PassArgs& a) {
   zero_smem(stage0, at);
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, L = warp >> 1, mt = warp & 1;
-  const bool last = L == NL - 1;
-  const bf16 *eG = g_of(es, L), *eA = a_of(es, L), *eP = edge.norm && last ? es.p : nullptr;
+  const int warp = threadIdx.x / 32, L = warp / MT, mt = warp % MT;  // as in nodemlp_pass
+  const bool sums = L < NL, last = L == NL - 1;
+  const bf16 *eG = nullptr, *eA = nullptr, *eP = edge.norm && last ? es.p : nullptr;
   const bf16 *nG = nullptr, *nA = nullptr, *nP = nullptr;
-  if (FOLD) {
+  if (sums) {
+    eG = g_of(es, L);
+    eA = a_of(es, L);
+  }
+  if (FOLD && sums) {
     nG = g_of(ns, L);
     nA = a_of(ns, L);
     nP = enc.norm && last ? ns.p : nullptr;
   }
-  float dw[4][4], db[4], ds[4], ew[4][4], eb[4], eds[4];
-  zero_sums<4>(dw, db, ds);
-  zero_sums<4>(ew, eb, eds);
+  float dw[NT][4], db[4], ds[4], ew[NT][4], eb[4], eds[4];
+  zero_sums<NT>(dw, db, ds);
+  zero_sums<NT>(ew, eb, eds);
   const int chunks = (a.batch + 15) / 16;
   const long long pad0 = Rows::ranged_end(a);
   const long long tiles = static_cast<long long>(a.total_rows) * chunks;
@@ -460,16 +492,20 @@ __device__ __forceinline__ void row_pass(const PassArgs& a) {
       if (FOLD) zero_cots(ns, enc.norm);
     }
     __syncthreads();
-    wgrad<4>(dw, db, ds, eG, eA, TS, eP, mt, 4);
-    if (FOLD) wgrad<4>(ew, eb, eds, nG, nA, TS, nP, mt, 4);
+    if (sums) {
+      wgrad<NT>(dw, db, ds, eG, eA, TS, eP, mt, NT);
+      if (FOLD) wgrad<NT>(ew, eb, eds, nG, nA, TS, nP, mt, NT);
+    }
     __syncthreads();
   }
   float* buf = reinterpret_cast<float*>(stage0);
   const int n_edge = mlp_floats(a.edge), n_enc = FOLD ? mlp_floats(a.enc) : 0;
   for (int i = threadIdx.x; i < n_edge + n_enc; i += blockDim.x) buf[i] = 0.f;
   __syncthreads();
-  put_grads<4>(buf, dw, db, ds, 3 * H, L, mt, edge.norm && last);
-  if (FOLD) put_grads<4>(buf + n_edge, ew, eb, eds, a.fe, L, mt, enc.norm && last);
+  if (sums) {
+    put_grads<NT>(buf, dw, db, ds, 3 * H, 3, L, mt, edge.norm && last);
+    if (FOLD) put_grads<NT>(buf + n_edge, ew, eb, eds, a.fe, 1, L, mt, enc.norm && last);
+  }
   __syncthreads();
   store_partial(buf, a.part, n_edge + n_enc);
 }
@@ -479,19 +515,19 @@ __device__ __forceinline__ void row_pass(const PassArgs& a) {
 template <class Rows>
 __device__ __forceinline__ void send_pass(const PassArgs& a) {
   extern __shared__ __align__(16) float smem[];
-  float* s_kr = smem;          // Kr as [in][out], bf16 values
-  float* s_ks = s_kr + H * H;  // Ks
-  float* gw = s_ks + H * H;    // per warp: its dKr, then its dKs, [in][out]
-  float* g_kr = gw + (threadIdx.x / 32) * 2 * H * H;
-  float* g_ks = g_kr + H * H;
-  float* st = gw + SEND_WARPS * 2 * H * H + (threadIdx.x / 32) * STAGE;
+  float* s_kr = smem;       // Kr as [in][out], bf16 values
+  float* s_ks = s_kr + SQ;  // Ks
+  float* gw = s_ks + SQ;    // per warp: its dKr, then its dKs, [in][out]
+  float* g_kr = gw + (threadIdx.x / 32) * 2 * SQ;
+  float* g_ks = g_kr + SQ;
+  float* st = gw + SEND_WARPS * 2 * SQ + (threadIdx.x / 32) * STAGE;
   const float* w0 = a.edge.w[0];  // nn.Linear [H, 3H]
   for (int i = threadIdx.x; i < H * H; i += blockDim.x) {
     const int r = i / H, o = i % H;
     s_kr[i] = bf(w0[o * 3 * H + H + r]);
     s_ks[i] = bf(w0[o * 3 * H + 2 * H + r]);
   }
-  for (int i = threadIdx.x; i < SEND_WARPS * 2 * H * H; i += blockDim.x) gw[i] = 0.f;
+  for (int i = threadIdx.x; i < SEND_WARPS * 2 * SQ; i += blockDim.x) gw[i] = 0.f;
   __syncthreads();
 
   const int B = a.batch;
@@ -529,7 +565,7 @@ __device__ __forceinline__ void send_pass(const PassArgs& a) {
       p_s[o] = bf(p_s[o]);
     }
     {
-      float gcol[H];
+      float gcol[32];
       stage_rows_global(st, a.x + t * H, H);
       stage_cols(st, p_r, gcol);
       outer(st, gcol, H, g_kr);
@@ -548,13 +584,21 @@ __device__ __forceinline__ void send_pass(const PassArgs& a) {
   __syncthreads();
   float* dst = a.part + static_cast<long long>(blockIdx.x) * 2 * H * H;
   for (int i = threadIdx.x; i < 2 * H * H; i += blockDim.x) {
+    const int at = (i / (H * H)) * SQ + i % (H * H);  // dKr, then dKs
     float s = 0.f;
-    for (int w = 0; w < SEND_WARPS; ++w) s += gw[w * 2 * H * H + i];
+    for (int w = 0; w < SEND_WARPS; ++w) s += gw[w * 2 * SQ + at];
     dst[i] = s;
   }
 }
 
 using PassKernel = void (*)(const PassArgs);
+
+// whether an MLP of the backward takes another activation than relu (the
+// ACTS instances of the node-MLP and row passes, gn_tile.cuh:fix_act)
+inline bool any_act(const PassArgs& a) {
+  return (a.fe > 0 && a.enc.act != mlp_act::RELU) || a.edge.act != mlp_act::RELU ||
+         a.node.act != mlp_act::RELU;
+}
 
 // this library's memory pool on the current device, for the partials: it
 // keeps what is freed into it, so a stream-ordered allocation of the same
@@ -584,7 +628,8 @@ inline cudaError_t partial_pool(cudaMemPool_t* pool) {
 
 // the pre-pass (gn_partial_tc_kernel) and passes 1-3 on ``stream``, each
 // pass kernel one of the calling source's wrappers of the bodies above
-// (the row pass in two instances: without and with the folded encoder),
+// (those of the ACTS instance any_act chose; the row pass in two
+// instances: without and with the folded encoder),
 // each pass followed by the block-ordered sum of its blocks' gradient
 // partials (gn_bwd_common.cuh) from one stream-ordered fp32 buffer of
 // partial_pool
@@ -597,10 +642,10 @@ inline cudaError_t launch_passes(const PassArgs& args, cudaStream_t stream, Pass
   // staging (>= 92 KB) outsizes the MLPs' fp32 gradients (<= 42 KB)
   const PassKernel kernels[3] = {nodemlp, fold ? rows_fold : rows, send};
   const size_t smem[3] = {
-      sizeof(bf16) * tile_mlp_elems(a.node) + stage_bytes(2 * H + 8),
+      sizeof(bf16) * tile_mlp_elems(a.node) + stage_bytes(2 * HP + 8),
       sizeof(bf16) * (tile_mlp_elems(a.edge) + (fold ? tile_mlp_elems(a.enc) : 0)) +
           stage_bytes(TS) * (fold ? 2 : 1),
-      sizeof(float) * (2 * H * H + SEND_WARPS * (2 * H * H + STAGE))};
+      sizeof(float) * (2 * SQ + SEND_WARPS * (2 * SQ + STAGE))};
   const int threads[3] = {PASS_THREADS, PASS_THREADS, SEND_THREADS};
   // a warp a 16-sample tile in passes 1 and 2, a thread a (node, sample) in 3
   const long long work[3] = {32LL * a.n_nodes * chunks, 32LL * a.total_rows * chunks,
@@ -632,16 +677,16 @@ inline cudaError_t launch_passes(const PassArgs& args, cudaStream_t stream, Pass
 
   constexpr int RT = 256;  // threads of a reduce kernel, one a gradient float
   kernels[0]<<<grid[0], threads[0], smem[0], stream>>>(a);
-  reduce_mlp_kernel<<<(floats[0] + RT - 1) / RT, RT, 0, stream>>>(a.part, grid[0], floats[0],
-                                                                   a.gnode);
+  reduce_mlp_kernel<H><<<(floats[0] + RT - 1) / RT, RT, 0, stream>>>(a.part, grid[0],
+                                                                      floats[0], a.gnode);
   kernels[1]<<<grid[1], threads[1], smem[1], stream>>>(a);
-  reduce_mlp_kernel<<<(n_edge + RT - 1) / RT, RT, 0, stream>>>(a.part, grid[1], floats[1],
-                                                               a.gedge);
+  reduce_mlp_kernel<H><<<(n_edge + RT - 1) / RT, RT, 0, stream>>>(a.part, grid[1], floats[1],
+                                                                  a.gedge);
   if (fold)
-    reduce_mlp_kernel<<<(n_enc + RT - 1) / RT, RT, 0, stream>>>(a.part + n_edge, grid[1],
-                                                                floats[1], a.genc);
+    reduce_mlp_kernel<H><<<(n_enc + RT - 1) / RT, RT, 0, stream>>>(a.part + n_edge, grid[1],
+                                                                   floats[1], a.genc);
   kernels[2]<<<grid[2], threads[2], smem[2], stream>>>(a);
-  reduce_send_kernel<<<(floats[2] + RT - 1) / RT, RT, 0, stream>>>(
+  reduce_send_kernel<H><<<(floats[2] + RT - 1) / RT, RT, 0, stream>>>(
       a.part, grid[2], const_cast<float*>(a.gedge.w[0]));
   err = cudaGetLastError();
   const cudaError_t freed = cudaFreeAsync(a.part, stream);
@@ -650,18 +695,18 @@ inline cudaError_t launch_passes(const PassArgs& args, cudaStream_t stream, Pass
 
 // Fills the weight and gradient MLPs of ``a`` from the pointer lists (2 *
 // n_layers + 1 pointers each: w0, b0, w1, b1, ..., the RMSNorm scale or
-// null), checking that they fit the passes: fe > 0 folds the encoder in
-// (then de is null).
+// null) and their activations' codes (mlp_act::Kind), checking that they
+// fit the passes: fe > 0 folds the encoder in (then de is null).
 inline bool make_pass_mlps(PassArgs* a, const void* const* enc_w, const void* const* enc_g,
-                           int n_enc_layers, const void* const* edge_w,
-                           const void* const* edge_g, int n_edge_layers,
+                           int n_enc_layers, int enc_act, const void* const* edge_w,
+                           const void* const* edge_g, int n_edge_layers, int edge_act,
                            const void* const* node_w, const void* const* node_g,
-                           int n_node_layers) {
+                           int n_node_layers, int node_act) {
   const bool fold = a->fe > 0;
-  return (!fold ||
-          (a->fe <= H && make_mlp_pair(&a->enc, &a->genc, enc_w, enc_g, n_enc_layers, a->fe))) &&
-         make_mlp_pair(&a->edge, &a->gedge, edge_w, edge_g, n_edge_layers, 3 * H) &&
-         make_mlp_pair(&a->node, &a->gnode, node_w, node_g, n_node_layers, 2 * H) &&
+  return (!fold || (a->fe <= H && make_mlp_pair(&a->enc, &a->genc, enc_w, enc_g, n_enc_layers,
+                                                a->fe, 1, enc_act))) &&
+         make_mlp_pair(&a->edge, &a->gedge, edge_w, edge_g, n_edge_layers, 3 * H, 3, edge_act) &&
+         make_mlp_pair(&a->node, &a->gnode, node_w, node_g, n_node_layers, 2 * H, 2, node_act) &&
          (a->de == nullptr) == fold && a->n_nodes >= 1 && a->batch >= 1 && a->total_rows >= 1;
 }
 

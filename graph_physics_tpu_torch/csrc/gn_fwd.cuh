@@ -24,8 +24,8 @@
 // Every product runs as mma.sync.m16n8k16 bf16 -> fp32 (gn_tile.cuh),
 // with one warp per (receiver, 16-sample chunk):
 //   * a pre-pass (gn_partial_tc_kernel, on tiles too) writes bf16(x @ Ks)
-//     per (node, sample) to a scratch [N, B, 32] array, so a sender's
-//     partial is a 1 KB tile load per edge row;
+//     per (node, sample) to a scratch [N, B, H] array, so a sender's
+//     partial is a tile load per edge row (1 KB at H = 32);
 //   * the warp computes its receiver's bf16(x_r @ Kr) once, then walks the
 //     receiver's rows: each row is one m16 tile of its 16 samples (1 KB,
 //     contiguous at B = 16 or a multiple of it), e_in @ Ke on the tensor
@@ -37,15 +37,18 @@
 //     in row order; e_out = e_in + h is stored from the fragments;
 //   * the extra aggregate's tile (the world edges', when given) is added
 //     to the rounded aggregate (one bf16 rounding of the sum), then the
-//     node MLP runs on the [x_r | agg] tile (K = 64), the residual is
+//     node MLP runs on the [x_r | agg] tile (K = 2·HP), the residual is
 //     added and x_out (and agg, that sum, when training) stored;
 //   * receivers of different degree run on different warps, so no lane
 //     waits on another's range; masked rows in a range give h = 0 and skip
 //     the MLP (a warp-uniform branch); CSR padding rows are work items of
 //     their own after the receivers (a copy, or the folded encoder).
 // The weights sit in shared memory as bf16 tiles, ~37 KB for the three
-// 4-layer MLPs. The MLPs may have 1 to 8 Dense layers (MAXL); samples
-// past B in a receiver's last chunk are zero rows that are never stored.
+// 4-layer MLPs at H = 32. The MLPs may have 1 to 8 Dense layers (MAXL),
+// each its own activation (relu, SiLU or GELU: gn_tile.cuh:activate);
+// samples past B in a receiver's last chunk are zero rows that are never
+// stored. One source is built for each hidden width 1 to 32, the tiles
+// padded to 16 columns below 16 (gn_tile.cuh).
 #pragma once
 
 #include "gn_rows.cuh"
@@ -75,7 +78,7 @@ struct FwdArgs : RowMap {
 
 // e_in of the 16-sample tile at row-sample index rb = s * B + b0
 template <bool FOLD>
-__device__ __forceinline__ void edge_in(uint32_t (&ein)[8], const FwdArgs& a, const TileMlp& enc,
+__device__ __forceinline__ void edge_in(uint32_t (&ein)[FR], const FwdArgs& a, const TileMlp& enc,
                                         long long rb, int nv) {
   if (FOLD)
     encode(ein, a.e + rb * a.fe, a.fe, enc, nv);
@@ -83,7 +86,7 @@ __device__ __forceinline__ void edge_in(uint32_t (&ein)[8], const FwdArgs& a, co
     frag_load(ein, a.e + rb * H, H, nv);
 }
 
-template <class Rows, bool FOLD, bool LAST>
+template <class Rows, bool FOLD, bool LAST, bool ACTS>
 __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   bf16* base = reinterpret_cast<bf16*>(fwd_smem);
@@ -92,8 +95,11 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
     enc = stage_tile_mlp(base, a.enc);
     base += tile_mlp_elems(a.enc);
   }
-  const TileMlp edge = stage_tile_mlp(base, a.edge);
-  const TileMlp node = stage_tile_mlp(base + tile_mlp_elems(a.edge), a.node);
+  TileMlp edge = stage_tile_mlp(base, a.edge);
+  TileMlp node = stage_tile_mlp(base + tile_mlp_elems(a.edge), a.node);
+  fix_act<ACTS>(enc);
+  fix_act<ACTS>(edge);
+  fix_act<ACTS>(node);
   __syncthreads();
 
   const int B = a.batch;
@@ -111,7 +117,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
       const int b0 = 16 * static_cast<int>(p % chunks);
       const long long rb = (pad0 + p / chunks) * B + b0;
       const int nv = min(16, B - b0);
-      uint32_t ein[8];
+      uint32_t ein[FR];
       edge_in<FOLD>(ein, a, enc, rb, nv);
       frag_store(a.e_out + rb * H, H, nv, ein);
       continue;
@@ -121,14 +127,14 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
     const int nv = min(16, B - b0);
     const long long xb = (static_cast<long long>(r) * B + b0) * H;  // tile (r, b0)
 
-    uint32_t xr[8], xkr[8];
+    uint32_t xr[FR], xkr[FR];
     frag_load(xr, a.x + xb, H, nv);
-    float d[4][4];
+    float d[NT][4];
     zero_acc(d);
-    mma_awt(d, xr, edge.layer(0), edge.stride0, H);  // x_r @ Kr
+    mma_awt(d, xr, edge.layer(0), edge.stride0, HP);  // x_r @ Kr
     round_acc(xkr, d);
 
-    float agg[4][4];
+    float agg[NT][4];
     zero_acc(agg);
     long long first;
     int count, row_step;
@@ -138,12 +144,12 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
       const bool valid = a.mask[s] != 0;
       if (LAST && !valid) continue;
       const long long rb = s * B + b0;
-      uint32_t ein[8];
+      uint32_t ein[FR];
       edge_in<FOLD>(ein, a, enc, rb, nv);
       if (valid) {
         zero_acc(d);
         mma_awt(d, ein, edge.layer(0), edge.stride0, 0);  // e_in @ Ke
-        uint32_t h[8];
+        uint32_t h[FR];
         frag_load(h, a.xks + (static_cast<long long>(a.senders[s]) * B + b0) * H, H, nv);
         add_frag(d, xkr);
         add_frag(d, h);
@@ -155,7 +161,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
       if (!LAST) frag_store(a.e_out + rb * H, H, nv, ein);
     }
 
-    uint32_t ag[8], h[8];
+    uint32_t ag[FR], h[FR];
     round_acc(ag, agg);
     if (a.extra) {
       frag_load(h, a.extra + xb, H, nv);
@@ -164,7 +170,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
     if (a.agg_out) frag_store(a.agg_out + xb, H, nv, ag);
     zero_acc(d);
     mma_awt(d, xr, node.layer(0), node.stride0, 0);
-    mma_awt(d, ag, node.layer(0), node.stride0, H);
+    mma_awt(d, ag, node.layer(0), node.stride0, HP);
     finish(h, d, node.bias(0));
     mlp_tail(h, node);
     add_tiles(h, xr, h);
@@ -174,14 +180,16 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
 
 // Fills the MLPs and pointers of ``a`` from a forward's C arguments (each
 // weight list 2 * n_layers + 1 pointers: w0, b0, w1, b1, ..., then the
-// RMSNorm scale, null without a norm; fe > 0 folds the edge encoder in);
+// RMSNorm scale, null without a norm, and its activation's code,
+// mlp_act::Kind; fe > 0 folds the edge encoder in);
 // false if they do not fit the body. The caller sets the row map.
 inline bool make_fwd_args(FwdArgs* a, const void* x, const void* e, void* xks, void* x_out,
                           void* e_out, void* agg_out, const void* extra, const void* senders,
                           const void* mask,
                           int batch, int fe, const void* const* enc_w, int n_enc_layers,
-                          const void* const* edge_w, int n_edge_layers,
-                          const void* const* node_w, int n_node_layers) {
+                          int enc_act, const void* const* edge_w, int n_edge_layers,
+                          int edge_act, const void* const* node_w, int n_node_layers,
+                          int node_act) {
   a->x = static_cast<const bf16*>(x);
   a->e = static_cast<const bf16*>(e);
   a->xks = static_cast<const bf16*>(xks);
@@ -193,17 +201,26 @@ inline bool make_fwd_args(FwdArgs* a, const void* x, const void* e, void* xks, v
   a->mask = static_cast<const uint8_t*>(mask);
   a->batch = batch;
   a->fe = fe;
-  return (fe <= 0 || gn_nk::make_mlp(&a->enc, enc_w, n_enc_layers, fe)) &&
-         gn_nk::make_mlp(&a->edge, edge_w, n_edge_layers, 3 * H) &&
-         gn_nk::make_mlp(&a->node, node_w, n_node_layers, 2 * H) && a->n_nodes >= 1 &&
+  return (fe <= 0 || gn_nk::make_mlp(&a->enc, enc_w, n_enc_layers, fe, 1, enc_act)) &&
+         gn_nk::make_mlp(&a->edge, edge_w, n_edge_layers, 3 * H, 3, edge_act) &&
+         gn_nk::make_mlp(&a->node, node_w, n_node_layers, 2 * H, 2, node_act) &&
+         a->n_nodes >= 1 &&
          batch >= 1 && a->total_rows >= 1;
 }
 
 using FwdKernel = void (*)(const FwdArgs);
 
+// whether an MLP of the forward takes another activation than relu (the
+// ACTS instance, gn_tile.cuh:fix_act)
+inline bool any_act(const FwdArgs& a) {
+  return (a.fe > 0 && a.enc.act != mlp_act::RELU) || a.edge.act != mlp_act::RELU ||
+         a.node.act != mlp_act::RELU;
+}
+
 // The pre-pass (gn_partial_tc_kernel) and the forward on ``stream``: one of
-// the calling source's four wrappers of fwd_body<Rows, FOLD, LAST>, chosen
-// by fe > 0 (folded) and e_out == null (last block)
+// the calling source's four wrappers of fwd_body<Rows, FOLD, LAST, ACTS>
+// (of the ACTS any_act chose), chosen by fe > 0 (folded) and e_out == null
+// (last block)
 template <class Rows>
 cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream, FwdKernel mid, FwdKernel last,
                        FwdKernel fold_mid, FwdKernel fold_last) {

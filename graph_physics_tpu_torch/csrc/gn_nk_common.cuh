@@ -5,16 +5,26 @@
 // the row loads and stores of the backward's sender pass (on the CUDA
 // cores) and the grid size of a striding kernel. The MLPs' products run on
 // tensor-core tiles (gn_tile.cuh).
+//
+// Those sources are built once a hidden width, nvcc -DGN_SMALL_H=h for
+// h = 1, 2, 4, 8, 16 (ops/kernel_build.py: FLAGS) and without the flag
+// for 32; the wide kernels (gn_wide.cuh) share the MLP parameters.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef GN_SMALL_H
+#define GN_SMALL_H 32
+#endif
+
 namespace gn_nk {
 
-constexpr int H = 32;     // hidden width
-constexpr int MAXL = 8;   // most Dense layers per MLP
+constexpr int H = GN_SMALL_H;  // hidden width
+static_assert(H == 1 || H == 2 || H == 4 || H == 8 || H == 16 || H == 32,
+              "the GraphNetBlock tile kernels are built for hidden 1 to 32");
+constexpr int MAXL = 8;  // most Dense layers per MLP
 
 struct Mlp {
   const float* w[MAXL];  // nn.Linear weights [out, in], fp32
@@ -22,6 +32,8 @@ struct Mlp {
   const float* scale;    // RMSNorm scale [H], or null without a norm
   int n_layers;
   int in_dim;
+  int parts;  // layer 0's input: ``parts`` blocks of in_dim / parts columns
+  int act;    // the activation between layers (act_common.cuh: mlp_act::Kind)
 };
 
 // floats one MLP's fp32 gradients take staged in shared memory
@@ -36,6 +48,12 @@ __device__ __forceinline__ float bf(float v) {
 }
 
 __device__ __forceinline__ void load_row(float (&v)[H], const __nv_bfloat16* src) {
+  if constexpr (H % 8 != 0) {  // rows of 2 to 8 bytes: one value at a time
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+    for (int o = 0; o < H; ++o) v[o] = __uint_as_float(static_cast<uint32_t>(__ldg(s + o)) << 16);
+    return;
+  }
   const uint4* s = reinterpret_cast<const uint4*>(src);
 #pragma unroll
   for (int c = 0; c < H / 8; ++c) {
@@ -51,6 +69,11 @@ __device__ __forceinline__ void load_row(float (&v)[H], const __nv_bfloat16* src
 
 // store v rounded to bf16 (round to nearest even)
 __device__ __forceinline__ void store_row(__nv_bfloat16* dst, const float (&v)[H]) {
+  if constexpr (H % 8 != 0) {
+#pragma unroll
+    for (int o = 0; o < H; ++o) dst[o] = __float2bfloat16_rn(v[o]);
+    return;
+  }
   uint4* d = reinterpret_cast<uint4*>(dst);
 #pragma unroll
   for (int c = 0; c < H / 8; ++c) {
@@ -71,9 +94,14 @@ __device__ __forceinline__ void zero(float (&v)[H]) {
 }
 
 // one MLP from 2 * n_layers + 1 pointers: w0, b0, w1, b1, ..., then the
-// RMSNorm scale (null without a norm)
-inline bool make_mlp(Mlp* m, const void* const* p, int n_layers, int in_dim) {
-  if (n_layers < 1 || n_layers > MAXL) return false;
+// RMSNorm scale (null without a norm); layer 0's input in ``parts`` blocks
+// of in_dim / parts columns (the edge MLP's e, x_r, x_s; the node MLP's x,
+// agg), ``act`` its activation
+inline bool make_mlp(Mlp* m, const void* const* p, int n_layers, int in_dim, int parts = 1,
+                     int act = 0) {
+  if (n_layers < 1 || n_layers > MAXL || act < 0 || act > 2) return false;
+  m->parts = parts;
+  m->act = act;
   for (int l = 0; l < MAXL; ++l) {
     m->w[l] = l < n_layers ? static_cast<const float*>(p[2 * l]) : nullptr;
     m->b[l] = l < n_layers ? static_cast<const float*>(p[2 * l + 1]) : nullptr;

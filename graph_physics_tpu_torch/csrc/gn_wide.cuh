@@ -35,6 +35,7 @@
 #error "compile with -DGN_WIDE_H=64 or -DGN_WIDE_H=128"
 #endif
 
+#include "act_common.cuh"
 #include "gn_nk_common.cuh"
 #include "gn_rows.cuh"
 #include "mma_common.cuh"
@@ -216,6 +217,16 @@ __device__ __forceinline__ void add_tiles(uint32_t (&c)[NF], const uint32_t (&a)
   for (int i = 0; i < NF; ++i) c[i] = bits(__hadd2_rn(pair(a[i]), pair(b[i])));
 }
 
+// a = act(h), the MLP's activation (mlp_act::Kind) on the tile
+__device__ __forceinline__ void activate(uint32_t (&a)[NF], const uint32_t (&h)[NF], int kind) {
+  if (kind == mlp_act::RELU) {
+    relu(a, h);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < NF; ++i) a[i] = mlp_act::act_pair(h[i], kind);
+}
+
 // the bits of the pair's halves that are > 0 (a relu's pass mask)
 __device__ __forceinline__ uint32_t pos_mask(uint32_t u) {
   const uint32_t lo = static_cast<int16_t>(u & 0xffffu) > 0 ? 0x0000ffffu : 0u;
@@ -298,6 +309,7 @@ struct WMlp {
   const bf16* vec;
   int stride0;
   bool norm;
+  int act;  // the activation between layers (mlp_act::Kind)
   __device__ const bf16* layer(int l) const {
     return l == 0 ? w0 : w0 + H * stride0 + (l - 1) * H * TS;
   }
@@ -327,6 +339,7 @@ __device__ inline WMlp stage_mlp(bf16* dst, const Mlp& m, int width0) {
   t.w0 = dst;
   t.stride0 = pad16(width0) + 8;
   t.norm = m.scale != nullptr;
+  t.act = m.act;
   stage_w(dst, m.w[0], m.in_dim, 0, width0, t.stride0);
   bf16* w = dst + H * t.stride0;
   for (int l = 1; l < NL; ++l, w += H * TS) stage_w(w, m.w[l], H, 0, H, TS);
@@ -339,13 +352,23 @@ __device__ inline WMlp stage_mlp(bf16* dst, const Mlp& m, int width0) {
   return t;
 }
 
-// layers 1..NL-1 (relu between layers) and the RMSNorm tail, if any, of an
-// MLP on the tile; h holds layer 0's output
+// Each kernel that runs an MLP comes in two instances, ACTS false and
+// true: with ACTS false its MLP is relu, a constant the compiler folds, so
+// that instance is the relu-only code (its registers, its grid, its bits);
+// with ACTS true the activation is read at run time. The launchers pick the
+// instance by the MLP's activation.
+template <bool ACTS>
+__device__ __forceinline__ void fix_act(WMlp& m) {
+  if (!ACTS) m.act = mlp_act::RELU;
+}
+
+// layers 1..NL-1 (the activation between layers) and the RMSNorm tail, if
+// any, of an MLP on the tile; h holds layer 0's output
 __device__ __forceinline__ void mlp_tail(uint32_t (&h)[NF], const WMlp& m) {
 #pragma unroll 1
   for (int l = 1; l < NL; ++l) {
     uint32_t a[NF];
-    relu(a, h);
+    activate(a, h, m.act);
     float d[NT][4];
     zero_acc(d);
     mma_awt(d, a, m.layer(l), TS, 0);
@@ -427,12 +450,14 @@ inline cudaError_t launch_partial(const bf16* x, bf16* xkr, bf16* xks, const flo
 // a warp a (row, 16-sample) tile. The forward writes it where e_out goes
 // (or to a scratch on the last block) and the edge pass reads it there;
 // the backward writes it to a scratch, the A operand of Ke's gradient.
+template <bool ACTS>
 __global__ void __launch_bounds__(THREADS, 1) GNW(enc_fwd)(const bf16* raw, bf16* dst,
                                                            const Mlp enc, long long rows,
                                                            int batch) {
   extern __shared__ __align__(16) unsigned char enc_smem[];
   const int fe = enc.in_dim;
-  const WMlp m = stage_mlp(reinterpret_cast<bf16*>(enc_smem), enc, fe);
+  WMlp m = stage_mlp(reinterpret_cast<bf16*>(enc_smem), enc, fe);
+  fix_act<ACTS>(m);
   __syncthreads();
   const int chunks = (batch + 15) / 16;
   const long long tiles = rows * chunks;
@@ -454,17 +479,19 @@ __global__ void __launch_bounds__(THREADS, 1) GNW(enc_fwd)(const bf16* raw, bf16
 inline cudaError_t launch_enc_fwd(const bf16* raw, bf16* dst, const Mlp& enc, long long rows,
                                   int batch, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * wmlp_elems(enc.in_dim);
+  const auto kernel = enc.act != mlp_act::RELU ? GNW(enc_fwd)<true> : GNW(enc_fwd)<false>;
   int grid = 0;
-  cudaError_t err = grid_of(reinterpret_cast<const void*>(GNW(enc_fwd)), smem,
+  cudaError_t err = grid_of(reinterpret_cast<const void*>(kernel), smem,
                             rows * ((batch + 15) / 16), &grid);
   if (err != cudaSuccess) return err;
-  GNW(enc_fwd)<<<grid, THREADS, smem, stream>>>(raw, dst, enc, rows, batch);
+  kernel<<<grid, THREADS, smem, stream>>>(raw, dst, enc, rows, batch);
   return cudaGetLastError();
 }
 
-// the MLPs a wide kernel takes: NL Dense layers each (layer 0 in_dim wide)
-inline bool make_wide_mlp(Mlp* m, const void* const* p, int n_layers, int in_dim) {
-  return n_layers == NL && gn_nk::make_mlp(m, p, NL, in_dim);
+// the MLPs a wide kernel takes: NL Dense layers each (layer 0 in_dim wide),
+// ``act`` the activation (mlp_act::Kind)
+inline bool make_wide_mlp(Mlp* m, const void* const* p, int n_layers, int in_dim, int act) {
+  return n_layers == NL && gn_nk::make_mlp(m, p, NL, in_dim, 1, act);
 }
 
 }  // namespace gnw

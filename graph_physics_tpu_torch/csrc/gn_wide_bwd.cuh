@@ -97,8 +97,11 @@ struct Slots {
 };
 
 // An MLP's forward on the warp's tile from its first layer's fp32 product
-// d0 (bias not yet added), storing each later layer's relu'd input A_l; v
-// gets the last layer's output (the RMSNorm's input) and inv its statistic
+// d0 (bias not yet added), storing each later layer's input to its slot:
+// with relu its relu'd input A_l (its pass mask too), with SiLU or GELU
+// the pre-activation, which bwd_chain needs for the derivative and then
+// overwrites with A_l = act(pre), so the slot's bytes are relu's; v gets
+// the last layer's output (the RMSNorm's input) and inv its statistic
 __device__ __forceinline__ void fwd_keep(const float (&d0)[NT][4], const WMlp& m, const Slots& sl,
                                          long long off, int nv, uint32_t (&v)[NF],
                                          float (&inv)[2]) {
@@ -106,8 +109,11 @@ __device__ __forceinline__ void fwd_keep(const float (&d0)[NT][4], const WMlp& m
 #pragma unroll 1
   for (int l = 1; l < NL; ++l) {
     uint32_t act[NF];
-    relu(act, v);
-    frag_store(sl.a(l) + off, nv, act);
+    activate(act, v, m.act);
+    if (m.act == mlp_act::RELU)  // two calls: a selected array would go to local memory
+      frag_store(sl.a(l) + off, nv, act);
+    else
+      frag_store(sl.a(l) + off, nv, v);
     float d[NT][4];
     zero_acc(d);
     mma_awt(d, act, m.layer(l), TS, 0);
@@ -137,8 +143,17 @@ __device__ __forceinline__ void bwd_chain(uint32_t (&g)[NF], const WMlp& m, cons
     uint32_t act[NF];
     frag_load(act, sl.a(l) + off, nv);
     round_acc(g, d);
+    if (m.act == mlp_act::RELU) {
 #pragma unroll
-    for (int i = 0; i < NF; ++i) g[i] &= pos_mask(act[i]);
+      for (int i = 0; i < NF; ++i) g[i] &= pos_mask(act[i]);
+    } else {  // act holds the pre-activation: g · act'(pre), then A_l = act(pre)
+#pragma unroll
+      for (int i = 0; i < NF; ++i) {
+        g[i] = mlp_act::grad_pair(g[i], act[i], m.act);
+        act[i] = mlp_act::act_pair(act[i], m.act);
+      }
+      frag_store(sl.a(l) + off, nv, act);
+    }
   }
   frag_store(sl.g(0) + off, nv, g);
 }
@@ -162,9 +177,11 @@ __device__ __forceinline__ void eout_cot(uint32_t (&f)[NF], const BwdArgs& a, lo
 }
 
 // pass 1: the node MLP's backward
+template <bool ACTS>
 __global__ void __launch_bounds__(THREADS, 1) GNW(node_bwd)(const BwdArgs a) {
   extern __shared__ __align__(16) unsigned char node_smem[];
-  const WMlp node = stage_mlp(reinterpret_cast<bf16*>(node_smem), a.node, 2 * H);
+  WMlp node = stage_mlp(reinterpret_cast<bf16*>(node_smem), a.node, 2 * H);
+  fix_act<ACTS>(node);
   __syncthreads();
   const Slots sl{a.ns};
   const int B = a.batch;
@@ -206,10 +223,11 @@ __global__ void __launch_bounds__(THREADS, 1) GNW(node_bwd)(const BwdArgs a) {
 }
 
 // pass 2: the edge MLP's backward on every row
-template <class Rows>
+template <class Rows, bool ACTS>
 __device__ __forceinline__ void row_bwd_body(const BwdArgs& a) {
   extern __shared__ __align__(16) unsigned char row_smem[];
-  const WMlp edge = stage_mlp(reinterpret_cast<bf16*>(row_smem), a.edge, H);  // Ke, W1..
+  WMlp edge = stage_mlp(reinterpret_cast<bf16*>(row_smem), a.edge, H);  // Ke, W1..
+  fix_act<ACTS>(edge);
   __syncthreads();
   const Slots sl{a.es};
   const int B = a.batch;
@@ -323,10 +341,12 @@ __device__ __forceinline__ void send_body(const BwdArgs& a) {
 
 // pass 6 (folded): the encoder's forward and backward on every row, its
 // cotangent de from the row pass
+template <bool ACTS>
 __global__ void __launch_bounds__(THREADS, 1) GNW(enc_bwd)(const BwdArgs a) {
   extern __shared__ __align__(16) unsigned char enc_smem[];
   const int fe = a.fe;
-  const WMlp enc = stage_mlp(reinterpret_cast<bf16*>(enc_smem), a.enc, fe);
+  WMlp enc = stage_mlp(reinterpret_cast<bf16*>(enc_smem), a.enc, fe);
+  fix_act<ACTS>(enc);
   __syncthreads();
   const Slots sl{a.cs + 1};
   const int B = a.batch;
@@ -531,7 +551,8 @@ inline long long bwd_sizes(int which, int n_nodes, int batch, long long total_ro
 using BwdKernel = void (*)(const BwdArgs);
 
 // Every pass on ``stream``: ``rows`` and ``send`` are the calling source's
-// wrappers of row_bwd_body<Rows> and send_body<Rows>. ``scratch`` holds
+// wrappers of row_bwd_body<Rows, ACTS> (the instance of the edge MLP's
+// activation, gn_wide.cuh:fix_act) and send_body<Rows>. ``scratch`` holds
 // bwd_sizes(0, ...) bf16 elements, ``part`` bwd_sizes(1, ...) floats; a
 // carries the inputs, outputs, MLPs and row map (a.e is the raw features
 // when folded).
@@ -565,10 +586,11 @@ inline cudaError_t launch_bwd(BwdArgs a, bf16* scratch, float* part, cudaStream_
     return err;
   int grid = 0;
   size_t smem = sizeof(bf16) * wmlp_elems(2 * H);
-  if ((err = grid_of(reinterpret_cast<const void*>(GNW(node_bwd)), smem, nrows / B * chunks,
-                     &grid)) != cudaSuccess)
+  const BwdKernel node = a.node.act != mlp_act::RELU ? GNW(node_bwd)<true> : GNW(node_bwd)<false>;
+  if ((err = grid_of(reinterpret_cast<const void*>(node), smem, nrows / B * chunks, &grid)) !=
+      cudaSuccess)
     return err;
-  GNW(node_bwd)<<<grid, THREADS, smem, stream>>>(a);
+  node<<<grid, THREADS, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   smem = sizeof(bf16) * wmlp_elems(H);
   if ((err = grid_of(reinterpret_cast<const void*>(rows), smem,
@@ -596,10 +618,11 @@ inline cudaError_t launch_bwd(BwdArgs a, bf16* scratch, float* part, cudaStream_
   if ((err = launch_wgrad(wa, stream)) != cudaSuccess || !fold) return err;
 
   smem = sizeof(bf16) * wmlp_elems(a.fe);
-  if ((err = grid_of(reinterpret_cast<const void*>(GNW(enc_bwd)), smem,
+  const BwdKernel enc = a.enc.act != mlp_act::RELU ? GNW(enc_bwd)<true> : GNW(enc_bwd)<false>;
+  if ((err = grid_of(reinterpret_cast<const void*>(enc), smem,
                      static_cast<long long>(a.total_rows) * chunks, &grid)) != cudaSuccess)
     return err;
-  GNW(enc_bwd)<<<grid, THREADS, smem, stream>>>(a);
+  enc<<<grid, THREADS, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   WgradArgs we = {};
   we.part = part;
@@ -619,10 +642,10 @@ inline bool make_bwd_args(BwdArgs* a, const void* x, const void* e, const void* 
                           const void* g_xout, const void* g_eout, void* dx, void* de, void* dea,
                           const void* senders, const void* mask, const void* order,
                           const void* offsets, int batch, int fe, const void* const* enc_w,
-                          const void* const* enc_g, int n_enc_layers, const void* const* edge_w,
-                          const void* const* edge_g, int n_edge_layers,
-                          const void* const* node_w, const void* const* node_g,
-                          int n_node_layers) {
+                          const void* const* enc_g, int n_enc_layers, int enc_act,
+                          const void* const* edge_w, const void* const* edge_g,
+                          int n_edge_layers, int edge_act, const void* const* node_w,
+                          const void* const* node_g, int n_node_layers, int node_act) {
   a->x = static_cast<const bf16*>(x);
   a->e = static_cast<const bf16*>(e);
   a->agg = static_cast<const bf16*>(agg);
@@ -638,13 +661,15 @@ inline bool make_bwd_args(BwdArgs* a, const void* x, const void* e, const void* 
   a->batch = batch;
   a->fe = fe;
   const bool fold = fe > 0;
-  auto pair = [](Mlp* w, Mlp* g, const void* const* wp, const void* const* gp, int n, int in) {
-    return make_wide_mlp(w, wp, n, in) && make_wide_mlp(g, gp, n, in) &&
+  auto pair = [](Mlp* w, Mlp* g, const void* const* wp, const void* const* gp, int n, int in,
+                 int act) {
+    return make_wide_mlp(w, wp, n, in, act) && make_wide_mlp(g, gp, n, in, act) &&
            (w->scale == nullptr) == (g->scale == nullptr);
   };
-  return (!fold || (fe <= H && pair(&a->enc, &a->genc, enc_w, enc_g, n_enc_layers, fe))) &&
-         pair(&a->edge, &a->gedge, edge_w, edge_g, n_edge_layers, 3 * H) &&
-         pair(&a->node, &a->gnode, node_w, node_g, n_node_layers, 2 * H) &&
+  return (!fold ||
+          (fe <= H && pair(&a->enc, &a->genc, enc_w, enc_g, n_enc_layers, fe, enc_act))) &&
+         pair(&a->edge, &a->gedge, edge_w, edge_g, n_edge_layers, 3 * H, edge_act) &&
+         pair(&a->node, &a->gnode, node_w, node_g, n_node_layers, 2 * H, node_act) &&
          (de == nullptr) == fold && a->n_nodes >= 1 && batch >= 1 && a->total_rows >= 1;
 }
 

@@ -58,10 +58,11 @@ struct FwdArgs : RowMap {
   Mlp edge, node;
 };
 
-template <class Rows, bool LAST>
+template <class Rows, bool LAST, bool ACTS>
 __device__ __forceinline__ void edge_fwd_body(const FwdArgs& a) {
   extern __shared__ __align__(16) unsigned char edge_smem[];
-  const WMlp edge = stage_mlp(reinterpret_cast<bf16*>(edge_smem), a.edge, H);  // Ke, W1..
+  WMlp edge = stage_mlp(reinterpret_cast<bf16*>(edge_smem), a.edge, H);  // Ke, W1..
+  fix_act<ACTS>(edge);
   __syncthreads();
 
   const int B = a.batch;
@@ -140,9 +141,11 @@ __device__ __forceinline__ void edge_fwd_body(const FwdArgs& a) {
 }
 
 // pass 3: x_out = x + NodeMLP([x | agg]), a warp per (node, 16 samples)
+template <bool ACTS>
 __global__ void __launch_bounds__(THREADS, 1) GNW(node_fwd)(const FwdArgs a) {
   extern __shared__ __align__(16) unsigned char node_smem[];
-  const WMlp node = stage_mlp(reinterpret_cast<bf16*>(node_smem), a.node, 2 * H);
+  WMlp node = stage_mlp(reinterpret_cast<bf16*>(node_smem), a.node, 2 * H);
+  fix_act<ACTS>(node);
   __syncthreads();
   const int B = a.batch;
   const int chunks = (B + 15) / 16;
@@ -175,7 +178,8 @@ __global__ void __launch_bounds__(THREADS, 1) GNW(node_fwd)(const FwdArgs a) {
 using FwdKernel = void (*)(const FwdArgs);
 
 // The passes on ``stream``: ``mid`` / ``last`` are the calling source's
-// wrappers of edge_fwd_body<Rows, LAST>. raw (folded, fe > 0) is the
+// wrappers of edge_fwd_body<Rows, LAST, ACTS> (the instance of the edge
+// MLP's activation, gn_wide.cuh:fix_act). raw (folded, fe > 0) is the
 // encoder's [S, B, fe] input and ein a [S, B, H] scratch for its output on
 // the last block; a.e is set here when folded.
 template <class Rows>
@@ -202,10 +206,11 @@ cudaError_t launch_fwd(FwdArgs a, const bf16* raw, bf16* ein, const Mlp& enc, in
   kernel<<<grid, THREADS, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   smem = sizeof(bf16) * wmlp_elems(2 * H);
-  if ((err = grid_of(reinterpret_cast<const void*>(GNW(node_fwd)), smem,
+  const FwdKernel node = a.node.act != mlp_act::RELU ? GNW(node_fwd)<true> : GNW(node_fwd)<false>;
+  if ((err = grid_of(reinterpret_cast<const void*>(node), smem,
                      static_cast<long long>(a.n_nodes) * chunks, &grid)) != cudaSuccess)
     return err;
-  GNW(node_fwd)<<<grid, THREADS, smem, stream>>>(a);
+  node<<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -216,9 +221,9 @@ cudaError_t launch_fwd(FwdArgs a, const bf16* raw, bf16* ein, const Mlp& enc, in
 inline bool make_fwd_args(FwdArgs* a, Mlp* enc, const void* x, const void* e, void* xkr,
                           void* xks, void* x_out, void* e_out, void* agg, const void* extra,
                           const void* senders, const void* mask, int batch, int fe,
-                          const void* const* enc_w, int n_enc_layers,
-                          const void* const* edge_w, int n_edge_layers,
-                          const void* const* node_w, int n_node_layers) {
+                          const void* const* enc_w, int n_enc_layers, int enc_act,
+                          const void* const* edge_w, int n_edge_layers, int edge_act,
+                          const void* const* node_w, int n_node_layers, int node_act) {
   a->x = static_cast<const bf16*>(x);
   a->e = static_cast<const bf16*>(e);
   a->xkr = static_cast<const bf16*>(xkr);
@@ -230,9 +235,9 @@ inline bool make_fwd_args(FwdArgs* a, Mlp* enc, const void* x, const void* e, vo
   a->senders = static_cast<const int32_t*>(senders);
   a->mask = static_cast<const uint8_t*>(mask);
   a->batch = batch;
-  return (fe <= 0 || (fe <= H && make_wide_mlp(enc, enc_w, n_enc_layers, fe))) &&
-         make_wide_mlp(&a->edge, edge_w, n_edge_layers, 3 * H) &&
-         make_wide_mlp(&a->node, node_w, n_node_layers, 2 * H) && agg != nullptr &&
+  return (fe <= 0 || (fe <= H && make_wide_mlp(enc, enc_w, n_enc_layers, fe, enc_act))) &&
+         make_wide_mlp(&a->edge, edge_w, n_edge_layers, 3 * H, edge_act) &&
+         make_wide_mlp(&a->node, node_w, n_node_layers, 2 * H, node_act) && agg != nullptr &&
          a->n_nodes >= 1 && batch >= 1 && a->total_rows >= 1;
 }
 

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from graph_physics_tpu_torch.ops import segment
+from graph_physics_tpu_torch.ops.activation import gelu_values, silu
 from graph_physics_tpu_torch.ops.edge_attention import edge_attention, world_attention_parts
 from graph_physics_tpu_torch.ops.fused_edge_attention_csr import fused_edge_attention_csr
 from graph_physics_tpu_torch.ops.fused_edge_attention_nk import fused_edge_attention_nk
@@ -28,14 +29,12 @@ from graph_physics_tpu_torch.ops.tiling import Layout, NKTiling
 from graph_physics_tpu_torch.ops.world_gather import wscatter_sum, wtake
 
 
-def gelu_exact(x: torch.Tensor) -> torch.Tensor:
-    """Erf-form GELU evaluated in fp32 (layers.py:gelu_exact)."""
-    xf = x.float()
-    y = 0.5 * xf * (1.0 + torch.erf(xf * 0.7071067811865476))
-    return y.to(x.dtype)
+#: Erf-form GELU evaluated in fp32, rounded once (layers.py:gelu_exact)
+gelu_exact = gelu_values
 
 
-ACTIVATIONS = {"relu": F.relu, "gelu": gelu_exact, "silu": F.silu}
+#: silu on bf16 tensors rounds each step as XLA does (ops/activation.py)
+ACTIVATIONS = {"relu": F.relu, "gelu": gelu_exact, "silu": silu}
 
 
 class Activation(nn.Module):
@@ -274,8 +273,9 @@ class GraphNetBlock(nn.Module):
     summed per receiver and sample, and join the aggregate: through the
     kernels' ``extra_agg`` seam, or added to the plain path's sum
     (layers.py:855-882, :959-960). RoPE, the φ-gate, gated MLPs and sp are
-    not ported. The MLPs are the reference's: 4 relu Dense layers and an
-    RMSNorm tail.
+    not ported. The MLPs are the reference's: 4 Dense layers with
+    ``activation`` (relu, silu or gelu; JAX's field, layers.py:744, which
+    the kernels take too) between them and an RMSNorm tail.
     """
 
     def __init__(
@@ -287,6 +287,7 @@ class GraphNetBlock(nn.Module):
         sp_axis_name: Optional[str] = None,
         is_last_block: bool = False,
         dtype=torch.float32,
+        activation: str = "relu",
     ):
         super().__init__()
         if use_rope or use_gate or use_gated_mlp or sp_axis_name is not None:
@@ -295,8 +296,11 @@ class GraphNetBlock(nn.Module):
         self.hidden_size = hidden_size
         self.is_last_block = is_last_block
         self.dtype = dtype
-        self.edge_block = MLP(3 * hidden_size, hidden_size, hidden_size, dtype=dtype)
-        self.node_block = MLP(2 * hidden_size, hidden_size, hidden_size, dtype=dtype)
+        self.activation = activation
+        self.edge_block = MLP(3 * hidden_size, hidden_size, hidden_size, activation=activation,
+                              dtype=dtype)
+        self.node_block = MLP(2 * hidden_size, hidden_size, hidden_size, activation=activation,
+                              dtype=dtype)
 
     def forward(
         self,

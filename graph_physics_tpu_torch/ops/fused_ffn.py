@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from graph_physics_tpu_torch.ops import kernel_build
+from graph_physics_tpu_torch.ops.activation import silu_grad
 
 #: hidden widths the kernels are compiled for (``H``): every width dividing
 #: JAX's LANES_ = 128, the widths its gate fuses; the middle is 3H wide
@@ -289,14 +290,14 @@ def _rms_backward(g, v, u, inv, scale):
 
 def _act_grad(a: torch.Tensor, use_silu: bool) -> torch.Tensor:
     """_act_grad (fused_gnblock.py:137) of the gate's activation at the
-    pre-activation ``a``, in fp32, rounded to ``a``'s dtype."""
-    x = a.float()
+    pre-activation ``a``: SiLU's on bf16 with every step rounded
+    (ops/activation.silu_grad), the exact GELU's in fp32, rounded to
+    ``a``'s dtype."""
     if use_silu:
-        s = torch.sigmoid(x)
-        d = s * (1.0 + x * (1.0 - s))
-    else:  # exact GELU: Φ(x) + x·φ(x)
-        d = 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0))) + x * torch.exp(-0.5 * x * x) / \
-            math.sqrt(2.0 * math.pi)
+        return silu_grad(a)
+    x = a.float()  # exact GELU: Φ(x) + x·φ(x)
+    d = 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0))) + x * torch.exp(-0.5 * x * x) / \
+        math.sqrt(2.0 * math.pi)
     return d.to(a.dtype)
 
 

@@ -14,11 +14,13 @@ receiver with no atomics; the backward
 samples), and returns dx, de and fp32 weight gradients (per-block
 partials added in block order, no atomics), its sender-side sums taken
 over the layout's sender-sorted row list. Those are the
-hidden-32 kernels; at hidden 64 and 128 the wrapper launches its width's
+tile kernels, one library for each hidden width 1 to 32; at hidden 64
+and 128 the wrapper launches its width's
 ``csrc/fused_gnblock_wide_csr.cu`` and ``_csr_bwd.cu``, the passes the NK
-layout's wide kernels run (``fused_gnblock_nk``) on the CSR row map;
-other widths raise, naming ROADMAP B 4. See the sources' headers for the
-designs and the bounds.
+layout's wide kernels run (``fused_gnblock_nk``) on the CSR row map.
+Every MLP takes relu, SiLU or the exact GELU; other widths, and MLPs
+without their RMSNorm tail or of other depths, raise. See the sources'
+headers for the designs and the bounds.
 
 :func:`fused_gn_block_csr_reference` is the plain PyTorch version,
 following blocked_reference (fused_gnblock.py:1109-1191) on the CSR edge
@@ -39,6 +41,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from graph_physics_tpu_torch.ops.fused_gnblock_nk import (
+    TILE_HIDDEN,
     WIDE_HIDDEN,
     _check_mlp,
     _mlp_params,
@@ -51,6 +54,7 @@ from graph_physics_tpu_torch.ops.fused_gnblock_nk import (
     check_extra_agg,
     check_kernel_mlps,
     extra_kw,
+    library_name,
     load_library,
     mlp_args,
     mlp_tail_reference,
@@ -62,11 +66,14 @@ from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "gn_csr_fwd": {"gn_csr_fwd": [_vp] * 10 + [_i] * 4 + [_vp, _i] * 3 + [_vp]},
-    "gn_csr_bwd": {"gn_csr_bwd": [_vp] * 17 + [_i] * 4 + [_vp, _vp, _i] * 3 + [_vp]},
-    **{f"gn_csr_fwd{h}": {"gnw_csr_fwd": [_vp] * 12 + [_i] * 4 + [_vp, _i] * 3 + [_vp],
+    **{library_name("gn_csr_fwd", h): {
+        "gn_csr_fwd": [_vp] * 10 + [_i] * 4 + [_vp, _i, _i] * 3 + [_vp]} for h in TILE_HIDDEN},
+    **{library_name("gn_csr_bwd", h): {
+        "gn_csr_bwd": [_vp] * 17 + [_i] * 4 + [_vp, _vp, _i, _i] * 3 + [_vp]}
+       for h in TILE_HIDDEN},
+    **{f"gn_csr_fwd{h}": {"gnw_csr_fwd": [_vp] * 12 + [_i] * 4 + [_vp, _i, _i] * 3 + [_vp],
                           "gnw_hidden": []} for h in WIDE_HIDDEN},
-    **{f"gn_csr_bwd{h}": {"gnw_csr_bwd": [_vp] * 16 + [_i] * 4 + [_vp, _vp, _i] * 3 + [_vp],
+    **{f"gn_csr_bwd{h}": {"gnw_csr_bwd": [_vp] * 16 + [_i] * 4 + [_vp, _vp, _i, _i] * 3 + [_vp],
                           "gnw_bwd_sizes": [_i, _i, _i, ctypes.c_longlong, _i],
                           "gnw_hidden": []} for h in WIDE_HIDDEN},
 }
@@ -86,8 +93,8 @@ def _launch_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_blo
     ``keep_agg`` the kernel also writes the bf16 aggregate [N, B, H] the
     backward kernel reads (else agg is None). ``extra`` [N, B, H] (bf16,
     or None) joins the aggregate before the node MLP, and the kept
-    aggregate is that sum. Hidden 32 launches
-    ``csrc/fused_gnblock_csr.cu``, 64 and 128 their width's
+    aggregate is that sum. Hidden 1 to 32 launch their width's
+    ``csrc/fused_gnblock_csr.cu``, 64 and 128 theirs of
     ``csrc/fused_gnblock_wide_csr.cu``."""
     n, b, h = x.shape
     x_out = torch.empty_like(x)
@@ -106,7 +113,7 @@ def _launch_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_blo
     else:
         agg = torch.empty_like(x) if keep_agg else None
         xks = torch.empty_like(x)  # the pre-pass's sender partials
-        err = _load("gn_csr_fwd").gn_csr_fwd(
+        err = _load(library_name("gn_csr_fwd", h)).gn_csr_fwd(
             x.data_ptr(), edge_attr.data_ptr(), xks.data_ptr(), x_out.data_ptr(), _ptr(e_out),
             _ptr(agg), _ptr(extra), row_ptr, senders.data_ptr(), edge_mask.data_ptr(), n, b,
             csr.total_rows, edge_attr.shape[-1] if mlps[0] is not None else 0,
@@ -123,8 +130,8 @@ def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, receivers, edge_mask
     parameter gradients (fp32 holding bf16 values, as the plain version's
     bf16 autograd gives them) in ``_mlp_params`` order per MLP; given the
     forward's ``extra``, also its cotangent dea (bf16 [N, B, H]). ``agg``
-    is the aggregate the forward kept. Hidden 32 launches
-    ``csrc/fused_gnblock_csr_bwd.cu``, 64 and 128 their width's
+    is the aggregate the forward kept. Hidden 1 to 32 launch their width's
+    ``csrc/fused_gnblock_csr_bwd.cu``, 64 and 128 theirs of
     ``csrc/fused_gnblock_wide_csr_bwd.cu``."""
     n, b, h = x.shape
     rows = csr.total_rows
@@ -144,7 +151,7 @@ def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, receivers, edge_mask
     else:
         dx, de, (xkr, xks, gagg, gh0), grads, ptrs = backward_buffers(x, rows, mlps)
         dea = gagg  # the node-MLP pass's g_agg
-        err = _load("gn_csr_bwd").gn_csr_bwd(
+        err = _load(library_name("gn_csr_bwd", h)).gn_csr_bwd(
             x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
             _ptr(g_eout), dx.data_ptr(), _ptr(de), xkr.data_ptr(), xks.data_ptr(),
             gagg.data_ptr(), gh0.data_ptr(), row_ptr, senders.data_ptr(), receivers.data_ptr(),
@@ -336,8 +343,10 @@ def fused_gn_block_csr_reference(
     k0 = ws[0].to(cd)  # [H, 3H]: the e, receiver and sender parts
     x_kr = F.linear(xc, k0[:, h:2 * h])
     x_ks = F.linear(xc, k0[:, 2 * h:])
-    h0 = (F.linear(e_in.float(), k0[:, :h].float()) + x_kr.index_select(0, receivers).float()
-          + x_ks.index_select(0, senders).float())
+    # gathered in fp32, so the backward's sums at a node (P_r, P_s) are fp32
+    # sums rounded once, as the kernels form them
+    h0 = (F.linear(e_in.float(), k0[:, :h].float()) + x_kr.float().index_select(0, receivers)
+          + x_ks.float().index_select(0, senders))
     eh = mlp_tail_reference(edge_params, h0.to(cd) + bs[0].to(cd), cd)
     ehm = torch.where(edge_mask.view(-1, 1, 1), eh, torch.zeros((), dtype=cd, device=x.device))
     agg = add_extra(torch.zeros((n, b, h), dtype=torch.float32, device=x.device).index_add_(

@@ -14,7 +14,9 @@ pre-pass, a node-MLP pass that reads the kept aggregate and a row pass,
 both with one warp per (slot or node, 16 samples), and a sender pass over
 the layout's sender-sorted slot list, returning dx, de and fp32 weight
 gradients with no atomics (the weight gradients are per-block partials
-added in block order). Those are the hidden-32 kernels.
+added in block order). Those are the tile kernels, one library for each
+hidden width 1 to 32 (below 16 their tiles are zero-padded to the tensor
+cores' 16 columns; ``csrc/gn_tile.cuh``).
 At hidden 64 and 128 (MeshGraphNets' latent width) the wrapper launches
 its width's ``csrc/fused_gnblock_wide_nk.cu`` and
 ``csrc/fused_gnblock_wide_nk_bwd.cu`` (the passes of
@@ -22,8 +24,10 @@ its width's ``csrc/fused_gnblock_wide_nk.cu`` and
 the weights no longer fit one block, so each pass holds one MLP, and the
 backward writes what the weight gradients contract over to a bf16
 scratch and forms them as products over the rows, summed from partials
-in a fixed order (two calls give the same bits). Other widths raise,
-naming ROADMAP B 4. See the sources' headers for the designs. At every
+in a fixed order (two calls give the same bits). Every MLP takes relu,
+SiLU or the exact GELU (``csrc/act_common.cuh``); other widths, and MLPs
+without their RMSNorm tail or of other depths, raise. See the sources'
+headers for the designs. At every
 width the kernels take the world seam ``extra_agg`` (_nk_fwd_kernel's
 ``has_extra_agg``): a node-aligned aggregate added to the rounded one
 before the node MLP, whose cotangent the backward returns.
@@ -53,28 +57,47 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from graph_physics_tpu_torch.ops import kernel_build
+from graph_physics_tpu_torch.ops.activation import gelu_kernel_grad, silu
 from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
-#: hidden widths the kernels are built for: 32 (``csrc/fused_gnblock_nk.cu``,
-#: ``fused_gnblock_nk_bwd.cu``, ``H`` in their sources) and WIDE_HIDDEN
-KERNEL_HIDDEN = (32, 64, 128)
+#: hidden widths the kernels are built for: every width dividing JAX's
+#: LANES = 128, the widths its gate fuses: TILE_HIDDEN and WIDE_HIDDEN
+KERNEL_HIDDEN = (1, 2, 4, 8, 16, 32, 64, 128)
+#: the widths of ``csrc/fused_gnblock_nk.cu`` and ``fused_gnblock_nk_bwd.cu``
+#: (``H`` in their sources, one library a width: hidden 32's without a
+#: width in its name, ``kernel_build.GN_SMALL_HIDDENS`` with theirs)
+TILE_HIDDEN = (1, 2, 4, 8, 16, 32)
 #: the widths of ``csrc/fused_gnblock_wide_nk.cu`` and ``_bwd.cu`` (the
 #: passes of ``csrc/gn_wide_fwd.cuh``, ``gn_wide_bwd.cuh``), one library
 #: a width
 WIDE_HIDDEN = (64, 128)
-#: most Dense layers per MLP the hidden-32 forward kernel takes (``MAXL``)
+#: the codes of the MLP activations the kernels take
+#: (``csrc/act_common.cuh``: ``mlp_act::Kind``)
+ACT_CODES = {"relu": 0, "silu": 1, "gelu": 2}
+#: most Dense layers per MLP the tile forward kernels take (``MAXL``)
 KERNEL_MAX_LAYERS = 8
 #: Dense layers per MLP the backward kernels, and the wide forwards, are
 #: built for (``NL``)
 BACKWARD_LAYERS = 4
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
+
+
+def library_name(kind: str, h: int) -> str:
+    """The library of a GraphNetBlock kernel (``kind``: gn_nk_fwd, gn_nk_bwd,
+    gn_csr_fwd, gn_csr_bwd) at hidden ``h`` (ops/kernel_build.py)."""
+    return kind if h == 32 else f"{kind}{h}"
+
+
 _ARGTYPES = {
-    "gn_nk_fwd": {"gn_nk_fwd": [_vp] * 9 + [_i] * 5 + [_vp, _i] * 3 + [_vp]},
-    "gn_nk_bwd": {"gn_nk_bwd": [_vp] * 15 + [_i] * 5 + [_vp, _vp, _i] * 3 + [_vp]},
-    **{f"gn_nk_fwd{h}": {"gnw_nk_fwd": [_vp] * 11 + [_i] * 5 + [_vp, _i] * 3 + [_vp],
+    **{library_name("gn_nk_fwd", h): {
+        "gn_nk_fwd": [_vp] * 9 + [_i] * 5 + [_vp, _i, _i] * 3 + [_vp]} for h in TILE_HIDDEN},
+    **{library_name("gn_nk_bwd", h): {
+        "gn_nk_bwd": [_vp] * 15 + [_i] * 5 + [_vp, _vp, _i, _i] * 3 + [_vp]}
+       for h in TILE_HIDDEN},
+    **{f"gn_nk_fwd{h}": {"gnw_nk_fwd": [_vp] * 11 + [_i] * 5 + [_vp, _i, _i] * 3 + [_vp],
                          "gnw_hidden": []} for h in WIDE_HIDDEN},
-    **{f"gn_nk_bwd{h}": {"gnw_nk_bwd": [_vp] * 14 + [_i] * 5 + [_vp, _vp, _i] * 3 + [_vp],
+    **{f"gn_nk_bwd{h}": {"gnw_nk_bwd": [_vp] * 14 + [_i] * 5 + [_vp, _vp, _i, _i] * 3 + [_vp],
                          "gnw_bwd_sizes": [_i, _i, _i, ctypes.c_longlong, _i],
                          "gnw_hidden": []} for h in WIDE_HIDDEN},
 }
@@ -100,25 +123,29 @@ def _load(name: str):
 
 def check_kernel_mlps(h: int, mlps, backward: bool, fe: int):
     """Raise NotImplementedError where the kernels of either layout do not
-    take the block: a width without a kernel, another activation than relu,
-    other depths (the hidden-32 forward takes 1 to 8 Dense layers, every
-    other kernel 4), raw edge features wider than the hidden size (the
-    backward, and any wide kernel)."""
+    take the block: a width JAX does not fuse (one not dividing 128; its
+    gate sends those to the plain path), an MLP without its RMSNorm tail
+    or of another depth than the kernels' (the tile forward takes 1 to 8
+    Dense layers, every other kernel 4), raw edge features wider than the
+    hidden size (the backward, and any wide kernel). Each MLP's activation
+    (relu, silu or gelu) goes to the kernels by its code."""
     used = [m for m in mlps if m is not None]
     if h not in KERNEL_HIDDEN:
         raise NotImplementedError(f"the GraphNetBlock kernels are built for hidden "
-                                  f"{KERNEL_HIDDEN}, got {h} (ROADMAP B 4)")
-    if any(m.activation != "relu" for m in used):
-        raise NotImplementedError("the kernels implement relu MLPs only (ROADMAP B 4)")
-    if h == 32 and not backward:
+                                  f"{KERNEL_HIDDEN}, got {h}")
+    if any(m.norm is None for m in used):
+        raise NotImplementedError("the GraphNetBlock kernels take MLPs with an RMSNorm tail "
+                                  "(ROADMAP B 4: layer_norm=False and other depths)")
+    if h in TILE_HIDDEN and not backward:
         if any(len(m.denses) > KERNEL_MAX_LAYERS for m in used):
-            raise NotImplementedError(f"at most {KERNEL_MAX_LAYERS} Dense layers per MLP")
+            raise NotImplementedError(f"at most {KERNEL_MAX_LAYERS} Dense layers per MLP "
+                                      "(ROADMAP B 4: layer_norm=False and other depths)")
     elif any(len(m.denses) != BACKWARD_LAYERS for m in used):
-        what = "backward kernel" if h == 32 else f"hidden-{h} kernels"
+        what = "backward kernels" if h in TILE_HIDDEN else f"hidden-{h} kernels"
         raise NotImplementedError(
-            f"the {what} {'is' if h == 32 else 'are'} built for MLPs of {BACKWARD_LAYERS} "
-            f"Dense layers")
-    if mlps[0] is not None and fe > h and (backward or h != 32):
+            f"the {what} are built for MLPs of {BACKWARD_LAYERS} Dense layers (ROADMAP B 4: "
+            "layer_norm=False and other depths)")
+    if mlps[0] is not None and fe > h and (backward or h not in TILE_HIDDEN):
         raise NotImplementedError("raw edge features wider than the hidden size")
 
 
@@ -167,11 +194,14 @@ def _ptr(t):
 
 
 def mlp_args(mlps):
-    """The forward kernels' MLP arguments: pointers and layer count of the
-    encoder (nulls when not folded), the edge and the node MLP."""
-    enc, edge, node = mlps
-    return [None if enc is None else _pointers(enc), 0 if enc is None else len(enc.denses),
-            _pointers(edge), len(edge.denses), _pointers(node), len(node.denses)]
+    """The forward kernels' MLP arguments: pointers, layer count and
+    activation code of the encoder (nulls when not folded), the edge and
+    the node MLP."""
+    out = []
+    for m in mlps:
+        out += ([None, 0, 0] if m is None
+                else [_pointers(m), len(m.denses), ACT_CODES[m.activation]])
+    return out
 
 
 def wide_forward_buffers(x, edge_attr, rows, mlps, last_block):
@@ -193,8 +223,8 @@ def _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block, keep_agg
     ``keep_agg`` the kernel also writes the bf16 aggregate [N, B, H] the
     backward kernel reads (else agg is None). ``extra`` [N, B, H] (bf16,
     or None) joins the aggregate before the node MLP, and the kept
-    aggregate is that sum. Hidden 32 launches
-    ``csrc/fused_gnblock_nk.cu``, 64 and 128 their width's
+    aggregate is that sum. Hidden 1 to 32 launch their width's
+    ``csrc/fused_gnblock_nk.cu``, 64 and 128 theirs of
     ``csrc/fused_gnblock_wide_nk.cu``."""
     n, b, h = x.shape
     x_out = torch.empty_like(x)
@@ -212,7 +242,7 @@ def _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block, keep_agg
     else:
         agg = torch.empty_like(x) if keep_agg else None
         xks = torch.empty_like(x)  # the pre-pass's sender partials
-        err = _load("gn_nk_fwd").gn_nk_fwd(
+        err = _load(library_name("gn_nk_fwd", h)).gn_nk_fwd(
             x.data_ptr(), edge_attr.data_ptr(), xks.data_ptr(), x_out.data_ptr(), _ptr(e_out),
             _ptr(agg), _ptr(extra), senders.data_ptr(), edge_mask.data_ptr(), n, b, nk.k_slots,
             nk.node_block, edge_attr.shape[-1] if mlps[0] is not None else 0,
@@ -225,20 +255,20 @@ def _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block, keep_agg
 
 def gradient_buffers(mlps):
     """The zeroed fp32 gradients per MLP (None for a missing encoder) and
-    the backward kernels' pointer arguments (weights, gradients and layer
-    count of each MLP, nulls for a missing encoder)."""
+    the backward kernels' pointer arguments (weights, gradients, layer
+    count and activation code of each MLP, nulls for a missing encoder)."""
     grads = [[torch.zeros_like(p, dtype=torch.float32) for p in _mlp_params(m)]
              if m is not None else None for m in mlps]
     ptrs = []
     for m, gs in zip(mlps, grads):
-        ptrs += ([None, None, 0] if m is None
-                 else [_pointers(m), _pointers(m, gs), len(m.denses)])
+        ptrs += ([None, None, 0, 0] if m is None
+                 else [_pointers(m), _pointers(m, gs), len(m.denses), ACT_CODES[m.activation]])
     return grads, ptrs
 
 
 def backward_buffers(x, rows, mlps):
-    """What a hidden-32 GraphNetBlock backward kernel of either layout
-    fills: dx [N, B, H] and de [rows, B, H] (None when the encoder is
+    """What a tile GraphNetBlock backward kernel (hidden 1 to 32) of either
+    layout fills: dx [N, B, H] and de [rows, B, H] (None when the encoder is
     folded), its bf16 scratch (x @ Kr, x @ Ks and g_agg [N, B, H], g_h0
     [rows, B, H]), the zeroed fp32 gradients per MLP and their pointer
     arguments (weights, gradients and layer count of each MLP, nulls for a
@@ -280,8 +310,8 @@ def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, edge_mask, nk, mlps,
     parameter gradients (fp32 holding bf16 values) in ``_mlp_params`` order
     per MLP; given the forward's ``extra``, also its cotangent dea (bf16
     [N, B, H], the aggregate's). ``agg`` is the aggregate the forward kept.
-    Hidden 32 launches ``csrc/fused_gnblock_nk_bwd.cu``, 64 and 128 their
-    width's ``csrc/fused_gnblock_wide_nk_bwd.cu``."""
+    Hidden 1 to 32 launch their width's ``csrc/fused_gnblock_nk_bwd.cu``,
+    64 and 128 theirs of ``csrc/fused_gnblock_wide_nk_bwd.cu``."""
     n, b, h = x.shape
     order, offsets = cached_sender_slots(senders, edge_mask, nk)
     if h in WIDE_HIDDEN:
@@ -297,7 +327,7 @@ def _launch_bwd(x, edge_attr, agg, g_xout, g_eout, senders, edge_mask, nk, mlps,
     else:
         dx, de, scratch, grads, ptrs = backward_buffers(x, nk.total_rows, mlps)
         dea = scratch[2]  # the node-MLP pass's g_agg
-        err = _load("gn_nk_bwd").gn_nk_bwd(
+        err = _load(library_name("gn_nk_bwd", h)).gn_nk_bwd(
             x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), g_xout.data_ptr(),
             _ptr(g_eout), dx.data_ptr(), _ptr(de), *[t.data_ptr() for t in scratch],
             senders.data_ptr(), edge_mask.data_ptr(), order.data_ptr(), offsets.data_ptr(), n,
@@ -447,18 +477,62 @@ def _mlp_reference(mlp, parts, cd):
     return mlp_tail_reference(mlp, F.linear(h, ws[0].to(cd)) + bs[0].to(cd), cd)
 
 
+#: the activations of the plain version in bf16, with the Pallas kernels'
+#: derivatives (_mlp_bwd's ``g * _act_grad(pre)``)
+_KERNEL_ACTS = {"relu": F.relu, "silu": silu, "gelu": gelu_kernel_grad}
+
+
 def mlp_tail_reference(mlp, h, cd):
     """Layers 1.. of the MLP and its RMSNorm on ``h``, the first Dense's
-    output in ``cd``, with :func:`_mlp_reference`'s numerics."""
+    output in ``cd``, with :func:`_mlp_reference`'s numerics. In bf16 the
+    activations' and the RMSNorm's gradients round where the Pallas
+    kernels' _mlp_bwd rounds them (:class:`_RmsTail`)."""
     ws, bs, scale = _mlp_tensors(mlp)
+    act = _KERNEL_ACTS[mlp.activation] if cd == torch.bfloat16 else mlp.act_fn
     for w, bias in zip(ws[1:], bs[1:]):
-        h = F.linear(mlp.act_fn(h), w.to(cd)) + bias.to(cd)
+        h = F.linear(act(h), w.to(cd)) + bias.to(cd)
     if scale is not None:
-        gs = (h * h).float().sum(-1, keepdim=True)
-        rms = torch.sqrt(gs + 1e-24) / math.sqrt(h.shape[-1])
-        inv = 1.0 / (rms + 1e-8)
-        h = h * inv.to(cd) * scale.to(cd)
+        if cd == torch.bfloat16:
+            return _RmsTail.apply(h, scale)
+        h, _, _ = _rms_tail(h, scale)
     return h
+
+
+def _rms_tail(h, scale):
+    """_rms_fwd in ``h``'s dtype: (bf16(bf16(h · bf16(inv)) · scale), u =
+    bf16(h · bf16(inv)), inv), the statistic from fp32 sums of the squares."""
+    cd = h.dtype
+    gs = (h * h).float().sum(-1, keepdim=True)
+    rms = torch.sqrt(gs + 1e-24) / math.sqrt(h.shape[-1])
+    inv = 1.0 / (rms + 1e-8)
+    u = h * inv.to(cd)
+    return u * scale.to(cd), u, inv
+
+
+class _RmsTail(torch.autograd.Function):
+    """The RMSNorm tail in bf16 with the Pallas kernels' backward (_rms_bwd,
+    fused_gnblock.py:201, inline in _mlp_bwd :259-270): d_scale = Σ g·u
+    (bf16 products, fp32 sum, rounded to a bf16 value as the bf16
+    gradients of the other parameters are), g_u = g·scale, corr =
+    bf16(Σ g_u·v · inv² / (H · rms)), dv = g_u·bf16(inv) − v·corr, every
+    elementwise step rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, h, scale):
+        y, u, inv = _rms_tail(h, scale)
+        ctx.save_for_backward(h, u, inv, scale)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        v, u, inv, scale = ctx.saved_tensors
+        cd = g.dtype
+        d_scale = (g * u).float().reshape(-1, g.shape[-1]).sum(0).to(cd).float()
+        g_u = g * scale.to(cd)
+        dot = (g_u * v).float().sum(-1, keepdim=True)
+        rms = (1.0 / inv - 1e-8).clamp_min(1e-30)
+        corr = (dot * (inv * inv) / (g.shape[-1] * rms)).to(cd)
+        return g_u * inv.to(cd) - v * corr, d_scale
 
 
 def fused_gn_block_nk_reference(
@@ -510,7 +584,7 @@ def _reference_parts(x, edge_attr, senders, edge_mask, mlps, nk, cd, extra=None)
     x_ks = F.linear(xc, k0[:, 2 * h:])
     h0 = (F.linear(e_in.float(), k0[:, :h].float())
           + x_kr.view(g, 1, nb, b, h).expand(g, k, nb, b, h).reshape(-1, b, h).float()
-          + x_ks.index_select(0, senders).float())
+          + x_ks.float().index_select(0, senders))  # P_s an fp32 sum rounded once
     eh = mlp_tail_reference(edge, h0.to(cd) + bs[0].to(cd), cd)
     ehm = torch.where(edge_mask.view(-1, 1, 1), eh, torch.zeros((), dtype=cd, device=x.device))
     agg = add_extra(ehm.float().view(g, k, nb, b, h).sum(1).reshape(n, b, h).to(cd), extra)

@@ -25,37 +25,45 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: the headers of the edge-attention forward and backward, either layout
 _EA_FWD = ("ea_fwd.cuh", "ea_common.cuh", "gn_rows.cuh")
 _EA_BWD = ("ea_bwd_passes.cuh", "ea_common.cuh", "gn_rows.cuh")
+#: the headers of the GraphNetBlock forward and backward at hidden 32 and
+#: below, either layout
+_GN_FWD = ("gn_fwd.cuh", "gn_rows.cuh", "gn_tile.cuh", "gn_nk_common.cuh", "act_common.cuh",
+           "mma_common.cuh")
+_GN_BWD = ("gn_nk_common.cuh", "gn_bwd_common.cuh", "gn_bwd_passes.cuh", "gn_rows.cuh",
+           "gn_tile.cuh", "act_common.cuh", "mma_common.cuh")
+_FFN = ("ffn_common.cuh", "act_common.cuh", "mma_common.cuh")
 #: every kernel library: name -> (source, every header it includes, directly or
 #: through another header), under csrc/
 LIBRARIES = {
-    "gn_nk_fwd": ("fused_gnblock_nk.cu",
-                  ("gn_fwd.cuh", "gn_rows.cuh", "gn_tile.cuh", "gn_nk_common.cuh",
-                   "mma_common.cuh")),
-    "gn_nk_bwd": ("fused_gnblock_nk_bwd.cu",
-                  ("gn_nk_common.cuh", "gn_bwd_common.cuh", "gn_bwd_passes.cuh",
-                   "gn_rows.cuh", "gn_tile.cuh", "mma_common.cuh")),
+    "gn_nk_fwd": ("fused_gnblock_nk.cu", _GN_FWD),
+    "gn_nk_bwd": ("fused_gnblock_nk_bwd.cu", _GN_BWD),
     "edge_attention_nk": ("fused_edge_attention_nk.cu", _EA_FWD),
     "edge_attention_nk_bwd": ("fused_edge_attention_nk_bwd.cu", _EA_BWD),
-    "ffn": ("fused_ffn.cu", ("ffn_common.cuh", "mma_common.cuh")),
-    "ffn_bwd": ("fused_ffn_bwd.cu", ("ffn_common.cuh", "mma_common.cuh")),
-    "ffn128": ("fused_ffn128.cu", ("ffn_wide.cuh", "ffn_common.cuh", "mma_common.cuh")),
-    "ffn128_bwd": ("fused_ffn128_bwd.cu", ("ffn_wide.cuh", "ffn_common.cuh", "mma_common.cuh")),
-    "gn_csr_fwd": ("fused_gnblock_csr.cu",
-                   ("gn_fwd.cuh", "gn_rows.cuh", "gn_tile.cuh", "gn_nk_common.cuh",
-                    "mma_common.cuh")),
-    "gn_csr_bwd": ("fused_gnblock_csr_bwd.cu",
-                   ("gn_nk_common.cuh", "gn_bwd_common.cuh", "gn_bwd_passes.cuh",
-                    "gn_rows.cuh", "gn_tile.cuh", "mma_common.cuh")),
+    "ffn": ("fused_ffn.cu", _FFN),
+    "ffn_bwd": ("fused_ffn_bwd.cu", _FFN),
+    "ffn128": ("fused_ffn128.cu", ("ffn_wide.cuh", *_FFN)),
+    "ffn128_bwd": ("fused_ffn128_bwd.cu", ("ffn_wide.cuh", *_FFN)),
+    "gn_csr_fwd": ("fused_gnblock_csr.cu", _GN_FWD),
+    "gn_csr_bwd": ("fused_gnblock_csr_bwd.cu", _GN_BWD),
     "edge_attention_csr": ("fused_edge_attention_csr.cu", _EA_FWD),
     "edge_attention_csr_bwd": ("fused_edge_attention_csr_bwd.cu", _EA_BWD),
     "gumbel": ("gumbel.cu", ()),
 }
 #: nvcc flags of a library beyond NVCC_FLAGS (part of its cache key)
 FLAGS = {}
+#: the GraphNetBlock kernels below hidden 32 (rows 1-4 at the small
+#: widths): the hidden-32 sources compiled for each width, one library per
+#: (kernel, width), named as the hidden-32 library with the width appended
+GN_SMALL_HIDDENS = (1, 2, 4, 8, 16)
+for _h in GN_SMALL_HIDDENS:
+    for _name in ("gn_nk_fwd", "gn_nk_bwd", "gn_csr_fwd", "gn_csr_bwd"):
+        LIBRARIES[f"{_name}{_h}"] = LIBRARIES[_name]
+        FLAGS[f"{_name}{_h}"] = (f"-DGN_SMALL_H={_h}",)
 #: the GraphNetBlock kernels at hidden 64 and 128 (rows 1-4 at the wide
 #: widths): one library per (kernel, width), each source compiled for its
 #: width
-_GN_WIDE = ("gn_wide.cuh", "gn_nk_common.cuh", "gn_rows.cuh", "mma_common.cuh")
+_GN_WIDE = ("gn_wide.cuh", "gn_nk_common.cuh", "gn_rows.cuh", "act_common.cuh",
+            "mma_common.cuh")
 for _h in (64, 128):
     for _name, _src, _body in (("gn_nk_fwd", "fused_gnblock_wide_nk.cu", "gn_wide_fwd.cuh"),
                                ("gn_nk_bwd", "fused_gnblock_wide_nk_bwd.cu", "gn_wide_bwd.cuh"),
@@ -71,7 +79,7 @@ FFN_SMALL_HIDDENS = (1, 2, 4, 8, 16, 32)
 for _h in FFN_SMALL_HIDDENS:
     for _name, _src in (("ffn_small", "fused_ffn_small.cu"),
                         ("ffn_small_bwd", "fused_ffn_small_bwd.cu")):
-        LIBRARIES[f"{_name}{_h}"] = (_src, ("ffn_small.cuh", "ffn_common.cuh", "mma_common.cuh"))
+        LIBRARIES[f"{_name}{_h}"] = (_src, ("ffn_small.cuh", *_FFN))
         FLAGS[f"{_name}{_h}"] = (f"-DFFN_SMALL_H={_h}",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -31,14 +31,22 @@ H-wide message: at its receiver and its sender (P_r, P_s) every one of dx's
 H values for that sample, and de's H values of the row; and a row has 3H
 relu units where a flip can happen. dx gathers the flips of every row a
 node receives or sends on, de those of its own row. So dx's share grows
-with H, and ``check_block_backward`` allows ``WIDE_OUTSIDE_SHARE`` of dx
-at hidden 64 and 128 (de, and hidden 32: ``OUTSIDE_SHARE``). Each lies
-between two readings on a card (PERF.md §6, ``tests/test_torch_cuda.py::
-test_wide_backward_share_separates_the_kernel_from_the_fp32_control``):
-the kernel's largest dx share over six seeds on a hub graph, which it
-exceeds 2.5 times, and that of a control, the fp32 gradient (none of the
-plain backward's bf16 roundings), 245 (H=64) and 199 (H=128) times it.
-The L2 and max bounds against fp32 keep their ratios at every width.
+with H, and ``check_block_backward`` allows ``BLOCK_OUTSIDE_SHARE`` of dx
+by the width (de: ``OUTSIDE_SHARE``). Each lies between two readings on a
+card (PERF.md §6): the kernel's largest dx share, and that of a control,
+the fp32 gradient (none of the plain backward's bf16 roundings). At
+hidden 32, 64 and 128 (``scripts/block_fp32_error.py``; the cases of
+``tests/test_torch_cuda.py::
+test_wide_backward_share_separates_the_kernel_from_the_fp32_control``,
+six seeds on a hub graph, folded and middle block) the share exceeds the
+kernel's 1.16 (H=32), 4.1 (H=64) and 4.7 (H=128) times, and the
+control's is at least 533, 244 and 199 times it. At hidden 16 to 2
+(``test_small_backward_share_separates_the_kernel_from_the_fp32_control``,
+three seeds on the hub graph and the NK mesh) the kernel leaves the bound
+on no dx value, and the control on 5 to 250 times the share at each
+width; at hidden 1 on none either (each MLP's RMSNorm tail of one value
+passes no gradient, so dx is g_xout in every version). The L2 and max
+bounds against fp32 keep their ratios at every width.
 
 A caller may name stream values to be judged against the fp32 gradient
 instead (``fp32_judged``: a boolean mask per stream): there the kernel
@@ -64,7 +72,10 @@ from graph_physics_tpu_torch.ops.tiling import CSRLayout
 
 STREAM_TOL = 0.05
 OUTSIDE_SHARE = 1e-4
-WIDE_OUTSIDE_SHARE = {64: 4e-4, 128: 8e-4}
+#: the share of a GraphNetBlock's dx values that may leave the bound
+#: around the plain backward, by hidden width (the module's docstring)
+BLOCK_OUTSIDE_SHARE = {1: OUTSIDE_SHARE, 2: OUTSIDE_SHARE, 4: OUTSIDE_SHARE, 8: OUTSIDE_SHARE,
+                       16: OUTSIDE_SHARE, 32: OUTSIDE_SHARE, 64: 4e-4, 128: 8e-4}
 WEIGHT_REL = 0.04
 FP32_L2_RATIO = 1.1
 FP32_MAX_RATIO = 1.5
@@ -74,7 +85,7 @@ def block_outside_share(hidden: int) -> float:
     """The share of a GraphNetBlock's dx values that may leave the bound
     around the plain backward at ``hidden`` (the module's docstring says
     why it grows with the width)."""
-    return WIDE_OUTSIDE_SHARE.get(hidden, OUTSIDE_SHARE)
+    return BLOCK_OUTSIDE_SHARE[hidden]
 
 
 def rounded_copy(module):
@@ -118,15 +129,22 @@ def _outside(a: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 def compare_grads(names, kernel, plain, fp32, streams: Sequence[str],
                   fp32_judged: Optional[Dict[str, torch.Tensor]] = None,
-                  outside_share: Optional[Dict[str, float]] = None
-                  ) -> Tuple[List[Dict], bool]:
+                  outside_share: Optional[Dict[str, float]] = None,
+                  noise: Sequence[str] = ()) -> Tuple[List[Dict], bool]:
     """One row per gradient with the errors that the bounds above read,
     and whether every row is inside them. ``streams`` names the
     activation gradients; the others are weights. ``fp32_judged`` maps a
     stream to the mask of its values judged against the fp32 gradient;
     ``outside_share`` maps a stream to the share of its values that may
-    leave the bound around the plain version (others: ``OUTSIDE_SHARE``)."""
+    leave the bound around the plain version (others: ``OUTSIDE_SHARE``).
+    ``noise`` names weight gradients that are 0 in exact arithmetic and
+    rounding noise in every bf16 backward (``check_block_backward`` at
+    hidden 1): each is held to WEIGHT_REL of the largest plain weight
+    gradient of the call, with no ratio against the fp32 gradient (noise
+    against noise)."""
     fp32_judged = fp32_judged or {}
+    floor = max((p.abs().max().item() for name, p in zip(names, plain) if name not in streams),
+                default=0.0)
     rows, ok = [], True
     for name, k, p, f in zip(names, kernel, plain, fp32):
         if not torch.isfinite(k).all():
@@ -160,10 +178,16 @@ def compare_grads(names, kernel, plain, fp32, streams: Sequence[str],
                 row["kernel_outside_fp32"] = int(_outside(k, f)[judged].sum())
                 row["plain_outside_fp32"] = int(_outside(p, f)[judged].sum())
                 good = good and row["kernel_outside_fp32"] <= row["plain_outside_fp32"]
+        elif name in noise:
+            row["noise_floor"] = floor
+            row["rel_to_floor"] = diff.max().item() / max(floor, 1e-3)
+            good = row["rel_to_floor"] <= WEIGHT_REL
         else:
             good = row["rel_to_max"] <= WEIGHT_REL
-        good = (good and row["kernel_fp32_l2"] <= FP32_L2_RATIO * row["plain_fp32_l2"] + 1e-3
-                and row["kernel_fp32_max"] <= FP32_MAX_RATIO * row["plain_fp32_max"] + 1e-3)
+        if name not in noise:
+            good = (good
+                    and row["kernel_fp32_l2"] <= FP32_L2_RATIO * row["plain_fp32_l2"] + 1e-3
+                    and row["kernel_fp32_max"] <= FP32_MAX_RATIO * row["plain_fp32_max"] + 1e-3)
         row["ok"] = good
         ok = ok and good
         rows.append(row)
@@ -187,7 +211,7 @@ def check_backward(names: Sequence[str], streams: Sequence[str], kernel_fn: Call
                    plain_fn: Callable, fp32_fn: Callable, inputs: Sequence[torch.Tensor],
                    cots: Sequence[torch.Tensor],
                    fp32_judged: Optional[Dict[str, torch.Tensor]] = None,
-                   outside_share: Optional[Dict[str, float]] = None):
+                   outside_share: Optional[Dict[str, float]] = None, noise: Sequence[str] = ()):
     """Gradients of one function through the kernel (``kernel_fn``), its
     plain version in bf16 (``plain_fn``, under :func:`deterministic`) and
     in fp32 (``fp32_fn``, given the inputs as fp32), each as
@@ -197,7 +221,7 @@ def check_backward(names: Sequence[str], streams: Sequence[str], kernel_fn: Call
     with deterministic():
         gp, kept_p = grads_of(plain_fn, inputs, cots)
     gf, _ = grads_of(fp32_fn, [t.float() for t in inputs], cots)
-    rows, ok = compare_grads(names, gk, gp, gf, streams, fp32_judged, outside_share)
+    rows, ok = compare_grads(names, gk, gp, gf, streams, fp32_judged, outside_share, noise)
     return rows, ok, {"kernel": kept_k, "plain": kept_p}
 
 
@@ -216,7 +240,11 @@ def check_block_backward(x, e, rows, mlps, layout, last_block, cot_x, cot_e,
     ``fp32_judged`` goes to :func:`compare_grads`; dx's outside share is
     :func:`block_outside_share` of the width, and so is dea's (the node
     MLP's relu flips move both, H values at a time), de's
-    ``OUTSIDE_SHARE``."""
+    ``OUTSIDE_SHARE``. At hidden 1 each MLP's RMSNorm tail turns its one
+    value into ±scale, so the gradient of every Dense layer before it is 0
+    in exact arithmetic and rounding noise in each bf16 backward: those
+    are ``noise`` gradients of :func:`compare_grads`, the scales' are
+    held as at every width."""
     if isinstance(layout, CSRLayout):
         fn, reference = csr_ops.fused_gn_block_csr, csr_ops.fused_gn_block_csr_reference
     else:
@@ -237,9 +265,13 @@ def check_block_backward(x, e, rows, mlps, layout, last_block, cot_x, cot_e,
         return run
 
     names = ["dx"] + (["de"] if enc is None else []) + (["dea"] if extra is not None else [])
+    noise = []
     for tag, mlp in zip(("enc", "edge", "node"), mlps):
         if mlp is not None:
-            names += [f"{tag}.{i}" for i in range(len(nk_ops._mlp_params(mlp)))]
+            mine = [f"{tag}.{i}" for i in range(len(nk_ops._mlp_params(mlp)))]
+            names += mine
+            if x.shape[-1] == 1 and mlp.norm is not None:
+                noise += mine[:-1]
     inputs = [x] + ([e] if enc is None else []) + ([extra] if extra is not None else [])
     cots = [cot_x] + ([] if last_block else [cot_e])
     share = block_outside_share(x.shape[-1])
@@ -247,4 +279,4 @@ def check_block_backward(x, e, rows, mlps, layout, last_block, cot_x, cot_e,
         names, ("dx", "de", "dea"), block(fn, mlps),
         block(reference, mlps, compute_dtype=torch.bfloat16),
         block(reference, [rounded_copy(m) for m in mlps], compute_dtype=torch.float32),
-        inputs, cots, fp32_judged, {"dx": share, "dea": share})
+        inputs, cots, fp32_judged, {"dx": share, "dea": share}, noise)

@@ -5,7 +5,7 @@ step, goes, on one NVIDIA GPU.
         [transformer|epd|transformer-train|epd-train|graded|graded-transformer|
          graded-train|graded-transformer-train|transolver-train|
          graded-transolver-train|plate-train|panels-train|mgn-train|
-         plate-epd-train|transformer-h32-train ...]
+         plate-epd-train|transformer-h32-train|epd-h16-train ...]
     # default: the two cylinder forwards
 
 For each slice (``transformer``: entry.transformer_setup, 10 blocks, hidden
@@ -33,7 +33,9 @@ edges in every sample, 15 blocks, hidden 128, B=64, NK, the world stream
 kernels through their extra_agg seam; ``transformer-h32-train``: one train
 step of entry.transformer_train_setup at hidden 32 with 4 heads, head
 width 8, 10 blocks, B=64, through the small-width FFN and attention
-instances)
+instances; ``epd-h16-train``: one train step of entry.cylinder_train_setup
+at hidden 16, 5 blocks, B=128, NK, the encoder folded, through the
+hidden-16 GraphNetBlock instances)
 and each path (kernel path, and the plain path: no edge layout, or for
 the Transolver the gumbel kernel's plain version on the same bits), runs
 ``torch.profiler`` over 10 calls after 3 warm-up calls and prints, per
@@ -212,7 +214,8 @@ def main():
               "mgn-train": lambda d: entry.cylinder_train_setup(d, hidden=128, mp_steps=15),
               "plate-epd-train": entry.plate_epd_train_setup,
               "transformer-h32-train": lambda d: entry.transformer_train_setup(d, hidden=32,
-                                                                               heads=4)}
+                                                                               heads=4),
+              "epd-h16-train": lambda d: entry.cylinder_train_setup(d, hidden=16)}
     for name in sys.argv[1:] or ["transformer", "epd"]:
         setup = (forwards.get(name) or trains[name])("cuda")
         graph = setup.graph

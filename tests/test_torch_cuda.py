@@ -51,9 +51,16 @@ the world edges' aggregate) is held at hidden 32, 64 and 128 in both
 layouts: rows 1 and 3 against their plain versions, rows 2 and 4 with
 the extra aggregate's cotangent dea through utils/gradcheck.py, a zero
 extra giving the bits of none, and a plate ``epd`` train step with world
-edges in every sample against the plain path. Hidden 16 raises naming
-ROADMAP B 4, and hidden 24, which JAX does not fuse, runs the plain path
-with no launch. The
+edges in every sample against the plain path. Rows 1-4 at hidden 16 to
+1 (relu, every variant, on the NK padding-leak mesh at B=33 and the CSR
+hub graph at B=17) and with silu or exact-gelu MLPs at every width 1 to
+128 are held the same way, give the same bits on two calls, keep
+dx inside the width's outside share where the fp32 control leaves it,
+and carry 3-block ``epd`` train steps at hidden 16, 4 and 1 and with
+silu and gelu blocks within 0.02 of the plain path; hidden 16 launches
+in both layouts, while hidden 24 (which JAX does not fuse) and a 3-layer
+MLP raise, the latter naming ROADMAP B 4's last item, and a hidden-24
+model runs the plain path with no launch. The
 radius search (ops/knn.radius_edges) on the card gives the CPU's index
 arrays on a grid of exact positions and the CPU's pairs on random ones,
 and a DeformingPlate rollout whose world edges are found again at every
@@ -79,7 +86,14 @@ import pytest
 import torch
 
 from graph_physics_tpu_torch import entry
-from graph_physics_tpu_torch.models.layers import MLP, GatedMLPBlock, RMSNorm, reset_parameters
+from graph_physics_tpu_torch.models.layers import (
+    ACTIVATIONS,
+    MLP,
+    Activation,
+    GatedMLPBlock,
+    RMSNorm,
+    reset_parameters,
+)
 from graph_physics_tpu_torch.ops.edge_attention import edge_attention, world_attention_parts
 from graph_physics_tpu_torch.ops import fused_edge_attention_csr as ea_csr_ops
 from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
@@ -114,6 +128,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: the processor block of a variant: the first with its edge encoder folded
+#: in, the first taking encoded edges (where the encoder does not fold,
+#: hidden 4 and below), a middle one, the last
+BLOCK_OF = {"folded": 0, "first": 0, "middle": 1, "last": -1}
+
+
 def _block_args(setup, variant, seed):
     model, graph, nk = setup.simulator.model, setup.graph, setup.tiling
     n, b = graph.x.shape[:2]
@@ -123,7 +143,7 @@ def _block_args(setup, variant, seed):
     def randn(*shape):
         return (0.5 * torch.randn(shape, generator=gen, device=graph.x.device)).to(torch.bfloat16)
 
-    block = {"folded": 0, "middle": 1, "last": -1}[variant]
+    block = BLOCK_OF[variant]
     blk = model.processor_list[block]
     args = (randn(n, b, model.hidden_size), randn(nk.total_rows, b, width), graph.senders,
             graph.edge_mask, blk.edge_block, blk.node_block, nk)
@@ -829,7 +849,10 @@ def test_earlier_widths_keep_the_parent_trees_bits(cuda_device):
     """The attention kernels at head widths 16 and 32 (both layouts, NK with
     world pieces too) and the gated FFN at hidden 64 and 128, forward and
     backward, give the bits of the tree before every width dividing 128
-    had an instance, on the inputs scripts/kernel_digests.py draws."""
+    had an instance; the FFN (GELU) at hidden 1 to 32 and rows 1-4 (relu)
+    at hidden 32, 64 and 128 in both layouts those of the tree before rows
+    1-4 took every width and activation; on the inputs
+    scripts/kernel_digests.py draws."""
     kd = _kernel_digests()
     kd.check(kd.digests(), kd.card_key())
 
@@ -895,7 +918,7 @@ def _graded_block_args(setup, variant, seed):
     def randn(*shape):
         return (0.5 * torch.randn(shape, generator=gen, device=graph.x.device)).to(torch.bfloat16)
 
-    blk = model.processor_list[{"folded": 0, "middle": 1, "last": -1}[variant]]
+    blk = model.processor_list[BLOCK_OF[variant]]
     args = (randn(n, b, model.hidden_size), randn(csr.total_rows, b, width), graph.senders,
             graph.receivers, graph.edge_mask, blk.edge_block, blk.node_block, csr)
     kw = dict(encoder_params=model.edges_encoder if variant == "folded" else None,
@@ -1095,7 +1118,7 @@ def _hub_case(cuda_device, variant, batch, seed):
     s_rows[valid], r_rows[valid] = senders[ids], receivers[ids]
     m_rows = valid & ~np.isin(r_rows, list(MASKED_ROWS))
     model = entry.cylinder_setup(cuda_device, nx=16, ny=16, batch=1).simulator.model
-    blk = model.processor_list[{"folded": 0, "middle": 1, "last": -1}[variant]]
+    blk = model.processor_list[BLOCK_OF[variant]]
     gen = torch.Generator(device=cuda_device).manual_seed(seed)
     width = entry.EDGE_INPUT if variant == "folded" else model.hidden_size
 
@@ -1687,7 +1710,7 @@ def _wide_hub_case(cuda_device, hidden, variant, batch, seed):
     args, kw = _hub_case(cuda_device, variant, batch, seed)
     model = entry.cylinder_setup(cuda_device, nx=16, ny=16, hidden=hidden, batch=1,
                                  mp_steps=3).simulator.model
-    blk = model.processor_list[{"folded": 0, "middle": 1, "last": -1}[variant]]
+    blk = model.processor_list[BLOCK_OF[variant]]
     gen = torch.Generator(device=cuda_device).manual_seed(seed)
     n, rows = args[0].shape[0], args[7].total_rows
     width = entry.EDGE_INPUT if variant == "folded" else hidden
@@ -1790,7 +1813,17 @@ def test_hidden32_gn_kernels_are_bit_identical_across_calls(cuda_device, variant
     _check_bits_across_calls(cuda_device, 32, variant, layout)
 
 
-def _check_bits_across_calls(cuda_device, hidden, variant, layout):
+def _set_activation(mlp, activation):
+    """``mlp`` with ``activation`` between its Dense layers, in place (its
+    parameters, and so a trainer's optimizer, stay): what
+    MLP(..., activation=activation) builds."""
+    mlp.activation, mlp.act_fn = activation, ACTIVATIONS[activation]
+    for i, m in enumerate(mlp):
+        if isinstance(m, Activation):
+            mlp[i] = Activation(activation)
+
+
+def _check_bits_across_calls(cuda_device, hidden, variant, layout, activation="relu"):
     if layout == "nk":
         args, kw, cot_x, cot_e = _wide_nk_case(cuda_device, hidden, variant, 33, seed=9,
                                                holes=True)
@@ -1799,6 +1832,8 @@ def _check_bits_across_calls(cuda_device, hidden, variant, layout):
         args, kw = _wide_hub_case(cuda_device, hidden, variant, 17, seed=9)
         cot_x, cot_e = _csr_cotangents(args[0], args[7].total_rows, 209)
         fn, lead = fused_gn_block_csr, 5
+    for mlp in args[lead:lead + 2]:
+        _set_activation(mlp, activation)
     mlps = [m for m in (kw["encoder_params"], *args[lead:lead + 2]) if m is not None]
     params = [p for m in mlps for p in nk_ops._mlp_params(m)]
     runs = []
@@ -1871,20 +1906,30 @@ def test_mgn_width_plain_training_repeats_itself_over_the_compared_steps(cuda_de
 
 @pytest.mark.cuda
 def test_gn_kernels_refuse_widths_without_a_kernel(cuda_device):
-    """A width JAX fuses but the port builds no kernel for (hidden 16)
-    raises naming ROADMAP B 4, in both layouts; no launch is counted."""
+    """Every width JAX fuses has its kernels: hidden 16 launches rows 1-4 in
+    both layouts, forward and backward. What the kernels do not take
+    raises and counts no launch: hidden 24 (which JAX does not fuse, so no
+    model sends it there), and a 3-layer MLP, naming ROADMAP B 4's item."""
     setup = entry.cylinder_setup(cuda_device, nx=16, ny=16, hidden=16, batch=2, mp_steps=3)
     args, kw = _block_args(setup, "middle", seed=0)
-    before = fused_gn_block_nk.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP B 4"):
-        fused_gn_block_nk(*args, **kw)
-    assert fused_gn_block_nk.launches == before
     g = entry.graded_setup(cuda_device, num_nodes=1536, hidden=16, batch=2, mp_steps=3)
     gargs, gkw = _graded_block_args(g, "middle", seed=0)
-    before = fused_gn_block_csr.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP B 4"):
-        fused_gn_block_csr(*gargs, **gkw)
-    assert fused_gn_block_csr.launches == before
+    for fn, a, k in ((fused_gn_block_nk, args, kw), (fused_gn_block_csr, gargs, gkw)):
+        before = (fn.launches, fn.backward_launches)
+        x = a[0].clone().requires_grad_(True)
+        xo, eo = fn(x, *a[1:], **k)
+        torch.autograd.grad([xo, eo], [x], [torch.ones_like(xo), torch.ones_like(eo)])
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.backward_launches) == (before[0] + 1, before[1] + 1)
+    wide = entry.cylinder_setup(cuda_device, nx=16, ny=16, hidden=24, batch=2, mp_steps=3)
+    wargs, wkw = _block_args(wide, "middle", seed=0)
+    before = fused_gn_block_nk.launches
+    with pytest.raises(NotImplementedError, match="built for hidden"):
+        fused_gn_block_nk(*wargs, **wkw)
+    shallow = MLP(3 * 16, 16, 16, nb_of_layers=3).to(cuda_device)
+    with pytest.raises(NotImplementedError, match="ROADMAP B 4: layer_norm=False and other"):
+        fused_gn_block_nk(args[0].requires_grad_(True), *args[1:4], shallow, *args[5:], **kw)
+    assert fused_gn_block_nk.launches == before
 
 
 @pytest.mark.cuda
@@ -1899,6 +1944,201 @@ def test_epd_at_hidden_24_takes_the_plain_path_on_the_card(cuda_device):
     torch.cuda.synchronize()
     assert counts() == before
     assert torch.isfinite(out.outputs).all()
+
+
+# ---- rows 1-4 at hidden 16 to 1, and with silu or gelu MLPs at every width ----
+
+SMALL_GN = [16, 8, 4, 2, 1]
+ACT_HIDDEN = [1, 2, 4, 8, 16, 32, 64, 128]
+
+
+def _first(hidden):
+    """The first block's variant at ``hidden``: folded where JAX folds the
+    edge encoder (raw features no wider than hidden // 2), else taking the
+    encoded edges."""
+    return "folded" if entry.EDGE_INPUT <= hidden // 2 else "first"
+
+
+def _gn_case(cuda_device, layout, hidden, variant, seed, activation="relu"):
+    """A block's inputs and cotangents at ``hidden``: in the NK layout the
+    16 x 16 cylinder mesh with masked slots between valid ones at B=33, in
+    the CSR layout the hub mesh at B=17; the block's MLPs take
+    ``activation`` (the folded encoder keeps relu, as in an ``epd``).
+    Returns (op, plain version, args, kw, cot_x, cot_e)."""
+    if layout == "nk":
+        args, kw, cot_x, cot_e = _wide_nk_case(cuda_device, hidden, variant, 33, seed,
+                                                holes=True)
+        ops = (fused_gn_block_nk, fused_gn_block_nk_reference)
+        edge, node = args[4:6]
+    else:
+        args, kw = _wide_hub_case(cuda_device, hidden, variant, 17, seed)
+        cot_x, cot_e = _csr_cotangents(args[0], args[7].total_rows, 500 + seed)
+        ops = (fused_gn_block_csr, fused_gn_block_csr_reference)
+        edge, node = args[5:7]
+    _set_activation(edge, activation)
+    _set_activation(node, activation)
+    return (*ops, args, kw, cot_x, cot_e)
+
+
+def _check_gn_forward(fn, ref, args, kw):
+    """One forward launch of ``fn`` within the JAX suite's 0.05 of its plain
+    version: x_out, and e_out (on the valid rows of a folded block, whose
+    masked rows hold enc(raw) in the kernel; passed through on the last)."""
+    mask = args[3] if fn is fused_gn_block_nk else args[4]
+    with torch.no_grad():
+        before = fn.launches
+        kx, ke = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        px, pe = ref(*args, **kw, compute_dtype=torch.bfloat16)
+    torch.testing.assert_close(kx.float(), px.float(), rtol=0.05, atol=0.05)
+    if kw["last_block"]:
+        assert ke is args[1]
+        return
+    rows = mask if kw["encoder_params"] is not None else slice(None)
+    torch.testing.assert_close(ke.float()[rows], pe.float()[rows], rtol=0.05, atol=0.05)
+    if kw["encoder_params"] is None:
+        assert torch.equal(ke[~mask], args[1][~mask])  # a masked row's e_out is its e_in
+
+
+def _check_gn_backward(fn, args, kw, cot_x, cot_e, print_shares=False):
+    """One backward launch of ``fn``'s kernel held to utils/gradcheck.py;
+    returns the rows."""
+    nk = fn is fused_gn_block_nk
+    rows_ = (args[2], args[3]) if nk else (args[2], args[3], args[4])
+    edge, node, lay = args[4:7] if nk else args[5:8]
+    before = fn.backward_launches
+    rows, ok, _ = gradcheck.check_block_backward(
+        args[0], args[1], rows_, (kw["encoder_params"], edge, node), lay, kw["last_block"],
+        cot_x, cot_e)
+    torch.cuda.synchronize()
+    assert fn.backward_launches == before + 1
+    assert ok, [r for r in rows if not r["ok"]]
+    return rows
+
+
+def _small_variants(hidden):
+    return [_first(hidden), "middle", "last"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nk", "csr"])
+@pytest.mark.parametrize("hidden,variant", [(h, v) for h in SMALL_GN for v in _small_variants(h)])
+def test_small_gn_kernels_match_plain_versions(cuda_device, hidden, variant, layout):
+    """Rows 1 and 3 at hidden 16 to 1 (tiles zero-padded to 16 below 16),
+    every variant (the folded encoder at 16 and 8, where JAX folds it; the
+    first block on encoded edges at 4 and below), on the NK mesh with
+    masked slots between valid ones (B=33) and the CSR hub mesh (B=17)."""
+    fn, ref, args, kw, _, _ = _gn_case(cuda_device, layout, hidden, variant, seed=hidden)
+    _check_gn_forward(fn, ref, args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nk", "csr"])
+@pytest.mark.parametrize("hidden,variant", [(h, v) for h in SMALL_GN for v in _small_variants(h)])
+def test_small_gn_backward_kernels_match_plain_versions(cuda_device, hidden, variant, layout):
+    """Rows 2 and 4 at hidden 16 to 1 on the same meshes; bounds:
+    utils/gradcheck.py. At hidden 1 each MLP's RMSNorm tail gives
+    ±scale, so the gradients of every Dense parameter before it are 0 in
+    exact arithmetic and rounding noise in both backwards: they are
+    compare_grads' ``noise`` gradients, held to WEIGHT_REL of the block's
+    largest weight gradient, with no fp32 ratio. The streams and the
+    scales are held as at every width."""
+    fn, _, args, kw, cot_x, cot_e = _gn_case(cuda_device, layout, hidden, variant,
+                                             seed=10 + hidden)
+    _check_gn_backward(fn, args, kw, cot_x, cot_e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nk", "csr"])
+@pytest.mark.parametrize("hidden", ACT_HIDDEN)
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+def test_gn_kernels_with_silu_and_gelu_match_plain_versions(cuda_device, activation, hidden,
+                                                            layout):
+    """Rows 1-4 with silu or exact-gelu MLPs at every hidden width 1 to
+    128: the first block (folded where JAX folds) in the NK layout, a
+    middle block in the CSR layout, forward within 0.05 of the plain
+    version and backward held to utils/gradcheck.py."""
+    variant = _first(hidden) if layout == "nk" else "middle"
+    fn, ref, args, kw, cot_x, cot_e = _gn_case(cuda_device, layout, hidden, variant,
+                                               seed=20 + hidden, activation=activation)
+    _check_gn_forward(fn, ref, args, kw)
+    _check_gn_backward(fn, args, kw, cot_x, cot_e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nk", "csr"])
+@pytest.mark.parametrize("hidden,activation", [(16, "relu"), (4, "relu"), (1, "relu"),
+                                               (16, "silu"), (1, "gelu"), (128, "silu"),
+                                               (64, "gelu")])
+def test_small_and_activation_gn_kernels_are_bit_identical_across_calls(
+        cuda_device, hidden, activation, layout):
+    """The new instances sum their weight gradients from per-block partials
+    in block order, no atomics: two forward + backward calls give the same
+    outputs, dx, de and every parameter's gradient, bit for bit."""
+    _check_bits_across_calls(cuda_device, hidden, _first(hidden), layout, activation)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("hidden", SMALL_GN)
+def test_small_backward_share_separates_the_kernel_from_the_fp32_control(cuda_device, hidden,
+                                                                         seed):
+    """Rows 2 and 4's dx share (``gradcheck.block_outside_share``) at
+    hidden 16 to 1 on the hub mesh (B=17) and the NK mesh (B=33) over
+    three seeds, a middle block: the kernel's dx stays inside it, and the
+    control, the fp32 gradient (none of the plain backward's bf16
+    roundings), leaves it in at least one layout, but at hidden 1: there
+    each MLP's RMSNorm tail of one value passes no gradient, so dx is
+    g_xout in the kernel, the plain backward and fp32 alike, and the
+    control leaves the bound on no value either. Prints both readings, and
+    de's (PERF.md §6 cites them)."""
+    control = []
+    for layout in ("csr", "nk"):
+        fn, _, args, kw, cot_x, cot_e = _gn_case(cuda_device, layout, hidden, "middle",
+                                                 seed=40 + seed)
+        rows = _check_gn_backward(fn, args, kw, cot_x, cot_e)
+        dx = rows[0]
+        allowed = gradcheck.block_outside_share(hidden) * dx["count"]
+        print(f"hidden {hidden} {layout} seed {seed}: outside the plain backward's bound: dx "
+              f"kernel {dx['outside']}, fp32 control {dx['fp32_outside']} of {dx['count']} "
+              f"(allowed {allowed:.1f}); de kernel {rows[1]['outside']}, fp32 control "
+              f"{rows[1]['fp32_outside']} of {rows[1]['count']}")
+        control.append(dx["fp32_outside"] > allowed)
+        if hidden == 1:
+            assert dx["fp32_outside"] == 0
+    assert any(control) or hidden == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,activation", [(16, "relu"), (4, "relu"), (1, "relu"),
+                                               (32, "silu"), (16, "gelu")])
+def test_small_and_activation_epd_train_steps_match_plain_path(cuda_device, hidden,
+                                                               activation):
+    """Three train steps of a 3-block ``epd``, B=8, NK, at hidden 16 (the
+    encoder folded), 4 and 1 (not folded), and with silu or gelu blocks:
+    3 + 3 launches of rows 1/2 a step, the loss within the JAX suite's
+    0.02 of the plain path at step 1 and within LATER_LOSS_RTOL after."""
+    train = entry.cylinder_train_setup(cuda_device, nx=20, ny=16, batch=8, hidden=hidden,
+                                       mp_steps=3)
+    for blk in train.simulator.model.processor_list:
+        blk.activation = activation
+        _set_activation(blk.edge_block, activation)
+        _set_activation(blk.node_block, activation)
+    plain_sim = copy.deepcopy(train.simulator)
+    plain_sim.model.tiling = None
+    plain_state, plain_step = entry.make_trainer(plain_sim)
+    gens = [torch.Generator(cuda_device).manual_seed(4) for _ in range(2)]
+    for step in range(3):
+        before = (fused_gn_block_nk.launches, fused_gn_block_nk.backward_launches)
+        m = train.train_step(train.state, train.graph, gens[0])
+        torch.cuda.synchronize()
+        assert (fused_gn_block_nk.launches, fused_gn_block_nk.backward_launches) == (
+            before[0] + 3, before[1] + 3)
+        mp = plain_step(plain_state, train.graph, gens[1])
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+        torch.testing.assert_close(m["loss"], mp["loss"], rtol=0.02 if step == 0
+                                   else LATER_LOSS_RTOL, atol=0)
 
 
 # ---- the world seam of rows 1-4 (extra_agg) at hidden 32, 64 and 128 ---------

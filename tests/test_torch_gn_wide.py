@@ -82,21 +82,23 @@ def _nk_layouts():
     return _NK
 
 
-def _case(layout, h, variant, seed):
-    """One block's inputs and parameters at hidden ``h``: the NK layout's
-    slot arrays (one edge input array for both packages), or the CSR
-    layout's rows with each package's edge array expanded from the same
-    per-edge values."""
-    c = dict(_nk_layouts() if layout == "nk" else _layouts(), layout=layout, h=h)
+def _case(layout, h, variant, seed, batch=B, activation="relu"):
+    """One block's inputs and parameters at hidden ``h`` and ``batch``
+    samples, its MLPs with ``activation`` (the folded encoder relu): the
+    NK layout's slot arrays (one edge input array for both packages), or
+    the CSR layout's rows with each package's edge array expanded from the
+    same per-edge values."""
+    c = dict(_nk_layouts() if layout == "nk" else _layouts(), layout=layout, h=h, b=batch,
+             act=activation)
     rng = np.random.default_rng(seed)
     n = c["tt"].num_nodes
     width = FE if variant == "folded" else h
-    c["x"] = (0.5 * rng.normal(size=(n, B, h))).astype(np.float32)
+    c["x"] = (0.5 * rng.normal(size=(n, batch, h))).astype(np.float32)
     if layout == "nk":
-        c["e_jax"] = c["e_port"] = (0.5 * rng.normal(size=(c["tt"].total_rows, B, width))
+        c["e_jax"] = c["e_port"] = (0.5 * rng.normal(size=(c["tt"].total_rows, batch, width))
                                     ).astype(np.float32)
     else:
-        edges = (0.5 * rng.normal(size=(c["e"], B, width))).astype(np.float32)
+        edges = (0.5 * rng.normal(size=(c["e"], batch, width))).astype(np.float32)
         c["e_jax"], c["e_port"] = c["jt"].expand_edges(edges), c["tt"].expand_edges(edges)
     c.update(ep=np_mlp_params(rng, 3 * h, h, h), np_=np_mlp_params(rng, 2 * h, h, h),
              enc=np_mlp_params(rng, FE, h, h) if variant == "folded" else None,
@@ -105,41 +107,45 @@ def _case(layout, h, variant, seed):
 
 
 def _mlps(c):
+    """The port's (encoder or None, edge, node) MLPs of the case; the
+    encoder keeps relu, as an ``epd``'s does."""
     h = c["h"]
     return (port_mlp(c["enc"], FE, h, h) if c["enc"] is not None else None,
-            port_mlp(c["ep"], 3 * h, h, h), port_mlp(c["np_"], 2 * h, h, h))
+            port_mlp(c["ep"], 3 * h, h, h, activation=c["act"]),
+            port_mlp(c["np_"], 2 * h, h, h, activation=c["act"]))
 
 
 def _port_fn(c, fn_nk, fn_csr, **kw):
-    """The port's block of the case's layout as f(x, e, mlps)."""
+    """The port's block of the case's layout as f(x, e, mlps, extra)."""
     rows = ((c["senders"], c["mask"]) if c["layout"] == "nk"
             else (c["senders"], c["receivers"], c["mask"]))
     fn = fn_nk if c["layout"] == "nk" else fn_csr
 
-    def run(x, e, mlps):
+    def run(x, e, mlps, extra=None):
         return fn(x, e, *rows, mlps[1], mlps[2], c["tt"], encoder_params=mlps[0],
-                  last_block=c["last"], **kw)
+                  last_block=c["last"], extra_agg=extra, **kw)
     return run
 
 
 def _jax_reference(c, cd):
     """blocked_reference(_nk) of the case, the folded encoder first as a
-    flax MLP, as f(x, e, enc, ep, np_)."""
+    flax MLP, as f(x, e, enc, ep, np_, extra)."""
     ref = blocked_reference_nk if c["layout"] == "nk" else blocked_reference
 
-    def run(x, e, enc, ep, np_):
+    def run(x, e, enc, ep, np_, extra=None):
         if enc is not None:
             e = FlaxMLP(hidden_size=c["h"], out_size=c["h"], dtype=cd).apply({"params": enc}, e)
-        return ref(x, e, ep, np_, c["jt"], compute_dtype=cd)
+        return ref(x, e, ep, np_, c["jt"], activation=c["act"], compute_dtype=cd,
+                   extra_agg=extra)
     return run
 
 
 def _jax_pallas(c):
     fused = j_fused_nk if c["layout"] == "nk" else j_fused
 
-    def run(x, e, enc, ep, np_):
-        return fused(x, e, ep, np_, c["jt"], interpret=True, edge_encoder_params=enc,
-                     last_block=c["last"])
+    def run(x, e, enc, ep, np_, extra=None):
+        return fused(x, e, ep, np_, c["jt"], activation=c["act"], interpret=True,
+                     edge_encoder_params=enc, last_block=c["last"], extra_agg=extra)
     return run
 
 
@@ -178,8 +184,10 @@ def test_plain_forward_matches_blocked_reference_fp32(hidden, variant, layout):
 
 def _pre_acts_near_kink(mlp, h):
     """Whether any relu pre-activation of ``mlp`` on ``h`` [..., in] (fp32)
-    lies within KINK of 0, per row [...]."""
+    lies within KINK of 0, per row [...] (none without relu)."""
     near = torch.zeros(h.shape[:-1], dtype=torch.bool)
+    if mlp.activation != "relu":
+        return near
     for d in mlp.denses[:-1]:
         h = F.linear(h, d.weight) + d.bias
         near |= (h.abs() < KINK).any(-1)
@@ -196,7 +204,7 @@ def _cotangents(c, seed, extra=None):
     layout). ``extra``: an extra aggregate [N, B, H] the block adds to its
     own before the node MLP."""
     rng = np.random.default_rng(seed)
-    n, h = c["x"].shape[0], c["h"]
+    n, h, b = c["x"].shape[0], c["h"], c["b"]
     enc, edge, node = _mlps(c)
     x, e = torch.as_tensor(c["x"]), torch.as_tensor(c["e_port"])
     s, r, m = c["senders"].long(), c["receivers"].long(), c["mask"]
@@ -214,13 +222,13 @@ def _cotangents(c, seed, extra=None):
             agg = agg + torch.as_tensor(extra)
         near_x = _pre_acts_near_kink(node, torch.cat([x, agg], dim=-1))
         near_x |= torch.zeros_like(near_x).index_add_(0, r[m], near_e[m].to(near_x.dtype)) > 0
-    cot_x = np.where(near_x.numpy()[..., None], 0.0, rng.normal(size=(n, B, h)))
+    cot_x = np.where(near_x.numpy()[..., None], 0.0, rng.normal(size=(n, b, h)))
     if c["layout"] == "nk":
         cot_e = np.where(near_e.numpy()[..., None], 0.0,
-                         rng.normal(size=(c["tt"].total_rows, B, h)))
+                         rng.normal(size=(c["tt"].total_rows, b, h)))
         return cot_x.astype(np.float32), cot_e.astype(np.float32), cot_e.astype(np.float32)
     gone = c["tt"].reduce_edges(near_e.numpy(), c["e"])
-    cot_edges = np.where(gone[..., None], 0.0, rng.normal(size=(c["e"], B, h)))
+    cot_edges = np.where(gone[..., None], 0.0, rng.normal(size=(c["e"], b, h)))
     cot_edges = cot_edges.astype(np.float32)
     return (cot_x.astype(np.float32), c["tt"].expand_edges(cot_edges),
             c["jt"].expand_edges(cot_edges))
