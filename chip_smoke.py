@@ -163,7 +163,7 @@ Phases (any failure raises, so the exit code is non-zero):
  27. checkpoint: a run that stops after epoch 2 and resumes from its
      checkpoint (other weights first) ends where an uninterrupted run
      ends (parameters, normalizer accumulators, optimizer state and step):
-     on the plain path under deterministic algorithms bit for bit; on the
+     on the plain path in PyTorch's default mode bit for bit; on the
      kernel path bit for bit where two uninterrupted runs are (phase 26's
      run against the uninterrupted one, logged), else within
      ``RESUME_REL``;
@@ -352,6 +352,22 @@ Phases (any failure raises, so the exit code is non-zero):
      frames, B=128, one epoch, a 50-step validation rollout) and predict
      from its checkpoint: launches held to the prediction, predict's
      RMSE validate's.
+ 52. rows 1-4 with MLPs of 1, 2, 3, 5 and 8 Dense layers, each with and
+     without the RMSNorm tail, at hidden 32, 8, 64 and 128 in both
+     layouts, at phase 49's shapes: each forward against its plain
+     version, each backward against its plain backward and fp32 autograd,
+     the first block folded (NK) and a middle block, the middle block's
+     backward the same bits on two calls, the world seam at 3 layers
+     without the norm and 8 with it; each case's times by CUDA events
+     (the profiler's device time at those two), bound, ptxas's registers
+     and spills; then each case on its path as in phase 50;
+ 53. ``epd`` at MeshGraphNets' width (hidden 128, 15 blocks, NK, the
+     encoder folded) with 3-layer MLPs: 20 train steps at B=128 (15 + 15
+     launches a step), the step's wall, device and enqueue time, 7 steps
+     at B=32 against the plain path, a B=128 forward and an 8 x 50
+     rollout against the plain path's; the cylinder ``epd`` at hidden 32
+     with 2-layer MLPs without the norm: 20 train steps at B=128 against
+     the plain path, timed.
 Before the device JSON, the last line, come the card's name and the
 kernels' JSON record (launches on the main paths, errors, times, bounds;
 the gumbel kernel's ``library_ms`` is the torch.rand draw's time; both
@@ -375,7 +391,12 @@ and activations records of their own,
 ``fused_gn_block_{nk,csr}_h{16,8,4,2,1}`` and
 ``fused_gn_block_{nk,csr}_h{1,...,128}_{silu,gelu}``, each with its
 backward, their ptxas reports under ``ptxas``, the hidden-16 NK pair its
-times at the main path's B=128 under ``slice``).
+times at the main path's B=128 under ``slice``; rows 1-4 with MLPs of
+other depths or without the norm records of their own,
+``fused_gn_block_{nk,csr}_h{32,8,64,128}_depths`` and their backwards,
+each case's check, times, bound and launches under ``depths`` (keys
+``3``, ``3_bare`` ...), the record's times those of 3 layers without the
+norm).
 With ``--parent CHECKOUT`` the libraries that PARENT_LIBS names (both
 GraphNetBlock forwards and backwards, the hidden-64 gated-FFN forward and
 backward, both layouts' attention forward and backward) are built from that checkout's
@@ -392,6 +413,7 @@ It imports nothing of JAX.
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import inspect
 import itertools
@@ -429,8 +451,8 @@ STEP1_GRAD_REL = 0.04
 #: largest difference of the first run on the card, 9.5e-5 (PERF.md §6)
 LATER_LOSS_RTOL = 1e-3
 #: phase 27: the resumed run against an uninterrupted one, each part of the
-#: state as one vector (``state_diff``). The plain path under deterministic
-#: algorithms resumes bit for bit. Where two uninterrupted runs on the kernel
+#: state as one vector (``state_diff``). The plain path (its sums in a fixed
+#: order, ops/segment.py) resumes bit for bit. Where two uninterrupted runs on the kernel
 #: path agree bit for bit (the GraphNetBlock backwards sum their weight
 #: gradients in block order, csrc/gn_bwd_common.cuh), so must the resumed
 #: one; where they do not, it is held within RESUME_REL: 24 Adam steps
@@ -1471,7 +1493,6 @@ def trainer_phases(device, card, entry_step_ms):
     from graph_physics_tpu_torch.ops import fused_edge_attention_nk as ea_ops
     from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
     from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
-    from graph_physics_tpu_torch.utils import gradcheck
 
     gn = nk_ops.fused_gn_block_nk
     attn, ffn = ea_ops.fused_edge_attention_nk, ffn_ops.fused_gated_ffn
@@ -1565,8 +1586,9 @@ def trainer_phases(device, card, entry_step_ms):
 
     # 27. checkpoint: stop after epoch 2, resume from the checkpoint, finish,
     # against an uninterrupted run made the same way (a fresh trainer after
-    # the same phases): on the plain path under deterministic algorithms,
-    # bit for bit; on the kernel path within RESUME_REL
+    # the same phases): on the plain path in PyTorch's default mode (its
+    # sums add in a fixed order, ops/segment.py), bit for bit; on the
+    # kernel path within RESUME_REL
     def resume_against_uninterrupted(tag, fused):
         first = fit_trainer(param, train_ds, val_ds, f"fit_resumed{tag}", device, fused=fused)
         first.fit(stop_after_epochs=FIT_EPOCHS - 1)
@@ -1584,10 +1606,9 @@ def trainer_phases(device, card, entry_step_ms):
     def parts(d):
         return ", ".join(f"{k} {v:.3g}" for k, v in d.items())
 
-    with gradcheck.deterministic():
-        at, resumed, uninterrupted = resume_against_uninterrupted("_plain", False)
+    at, resumed, uninterrupted = resume_against_uninterrupted("_plain", False)
     plain_rel, plain_at, plain_parts = state_diff(uninterrupted, resumed)
-    log(f"checkpoint, plain path, deterministic algorithms: {FIT_EPOCHS - 1} epochs, resume "
+    log(f"checkpoint, plain path, default mode: {FIT_EPOCHS - 1} epochs, resume "
         f"from step {at}, 1 epoch: {len(resumed)} tensors (parameters, normalizer "
         f"accumulators, optimizer moments and count, step) against an uninterrupted run's: "
         + ("equal bit for bit" if plain_rel == 0.0 else
@@ -1862,6 +1883,9 @@ def main():
     small_records, small_launches = small_width_phases(device, card, build_log)
     # 49.-51. rows 1-4 at every width and activation JAX fuses; epd at hidden 16
     gn_width_records = gn_width_phases(device, card, build_log)
+    # 52.-53. rows 1-4 with MLPs of 1 to 8 layers, with and without the
+    # RMSNorm tail; epd at MeshGraphNets' width with its 3-layer MLPs
+    gn_depth_records = gn_depth_phases(device, card, build_log)
     for rec in (*tf_records, *tf_train_records, *graded_records, *graded_train_records):
         if rec["name"] in world:
             rec["world"] = world[rec["name"]]
@@ -1894,6 +1918,7 @@ def main():
         *wide_records,
         *small_records,
         *gn_width_records,
+        *gn_depth_records,
     ]
     for rec in records:  # the world seam's check and times; phases 39-42's launches
         if rec["name"] in seam:
@@ -3648,7 +3673,6 @@ def panels_phases(device, card, build_log):
     from graph_physics_tpu_torch.ops.tiling import NKTiling
     from graph_physics_tpu_torch.training import config as config_lib
     from graph_physics_tpu_torch.training.trainer import Trainer, TrainerConfig
-    from graph_physics_tpu_torch.utils import gradcheck
 
     attn, ffn = ea_ops.fused_edge_attention_nk, ffn_ops.fused_gated_ffn
     train = entry.panels_train_setup(device)
@@ -3666,13 +3690,12 @@ def panels_phases(device, card, build_log):
     # 32. rows 9 and 10 at hidden 128, rows 5 and 6 at head width 32
     head32, records = panels_kernel_checks(train, card, build_log)
 
-    # 33. the panels train step: kernel path against the plain path, both
-    # under deterministic algorithms: the physics loss's index_add_ sums
-    # otherwise move the convection term's later steps by ~6e-4 between
-    # runs of the same code, against its 1e-3 limit (PERF.md §6)
-    with gradcheck.deterministic():
-        _, plain_state, plain_step, launches = training_phase("panels training", train,
-                                                              [attn, ffn], 33)
+    # 33. the panels train step: kernel path against the plain path, in
+    # PyTorch's default mode (the physics loss's segment sums add in a fixed
+    # order, ops/segment.py; by atomics they had moved the convection term's
+    # later steps by ~6e-4 between runs of the same code, PERF.md §6)
+    _, plain_state, plain_step, launches = training_phase("panels training", train,
+                                                          [attn, ffn], 33)
     st = step_timing(train, plain_state, plain_step, 34)  # the parent has no hidden 128
     st = {k: v for k, v in st.items() if "parent" not in k}
     b = g.x.shape[1]
@@ -5078,7 +5101,7 @@ def submesh_fit(label, param, train_ds, val_ds, device, card, batch, run, groups
     the fused layouts) on the sub-meshes of ``train_ds``, one epoch, the
     validation rollout on the full mesh of ``val_ds``; then the same fit
     with every batch on the plain path (same layouts, batches, noise and
-    weights; both fits under deterministic algorithms), and predict from
+    weights; both fits in PyTorch's default mode), and predict from
     the kernel fit's checkpoint. Checks: the
     library's parts are its plain version's, the layout cache holds one
     layout a part topology (parts of one topology share a layout) and one
@@ -5096,7 +5119,7 @@ def submesh_fit(label, param, train_ds, val_ds, device, card, batch, run, groups
     from graph_physics_tpu_torch.models.layers import lecun_parameters
     from graph_physics_tpu_torch.training import config as config_lib
     from graph_physics_tpu_torch.training.trainer import Trainer, TrainerConfig
-    from graph_physics_tpu_torch.utils import gradcheck, vtu
+    from graph_physics_tpu_torch.utils import vtu
 
     wrappers = [k for ks in groups.values() for k in ks]
 
@@ -5123,13 +5146,12 @@ def submesh_fit(label, param, train_ds, val_ds, device, card, batch, run, groups
     same_parts = bool(np.array_equal(lib, native.rcb_labels_plain(pos, len(parts))))
     sizes = [len(p) for p in parts]
 
-    # both fits under deterministic algorithms (the plain path's index_add_
-    # sums add by atomics otherwise), so the comparison repeats run to run
+    # both fits in PyTorch's default mode: the plain path's sums add in a
+    # fixed order (ops/segment.py), so the comparison repeats run to run
     tr = trainer(run, kernels=True)
     reset_counts(wrappers)
     t0 = time.perf_counter()
-    with gradcheck.deterministic():
-        tr.fit()
+    tr.fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_launches = {k.__name__: launch_counts(k) for k in wrappers}
@@ -5161,8 +5183,7 @@ def submesh_fit(label, param, train_ds, val_ds, device, card, batch, run, groups
     # the plain path on the same batches
     plain = trainer(run + "_plain", kernels=False)
     reset_counts(wrappers)
-    with gradcheck.deterministic():
-        plain.fit()
+    plain.fit()
     torch.cuda.synchronize()
     plain_launches = {k.__name__: launch_counts(k) for k in wrappers}
     pl = step_losses(plain)
@@ -5970,14 +5991,16 @@ def gn_instance_ptxas(resources, layout, h, act, backward):
     return out
 
 
-def gn_instance_check(label, kernel, plain, rows, lay, model, x, e, raw, variants, card):
+def gn_instance_check(label, kernel, plain, rows, lay, model, x, e, raw, variants, card,
+                      profile=True):
     """Rows 1-4 (``kernel``, a layout's wrapper) at one width and activation
     on these inputs: each variant (folded, first, middle, last) forward
     against its plain version (KERNEL_TOL) and backward against its plain
     backward and fp32 (utils/gradcheck.py); the middle block's backward
     the same bits on two calls, its times (CUDA events over GN_TIME_REPS
-    calls, the plain version's, the profiler's device ms) and bounds.
-    Returns {backward: record fields}."""
+    calls, the plain version's, the profiler's device ms unless not
+    ``profile``: then None) and bounds. Returns {backward: record
+    fields}."""
     import torch
     from graph_physics_tpu_torch.utils import gradcheck
 
@@ -6009,7 +6032,7 @@ def gn_instance_check(label, kernel, plain, rows, lay, model, x, e, raw, variant
                 fn = lambda: kernel(*args, **kw)  # noqa: E731
                 out[False].update(
                     ms=cuda_ms(fn, warmup=2, reps=GN_TIME_REPS),
-                    device_ms=device_ms(fn, reps=5),
+                    device_ms=device_ms(fn, reps=5) if profile else None,
                     plain_ms=cuda_ms(lambda: plain(*args, **kw, compute_dtype=torch.bfloat16),
                                      warmup=1, reps=3))
         cot_x = torch.randn(x.shape, generator=gen, device=x.device).to(torch.bfloat16)
@@ -6034,7 +6057,8 @@ def gn_instance_check(label, kernel, plain, rows, lay, model, x, e, raw, variant
                 raise AssertionError(f"{label}: the backward gives other bits on a second call")
             del g1, g2
             out[True].update(
-                ms=cuda_ms(fn, warmup=2, reps=GN_TIME_REPS), device_ms=device_ms(fn, reps=5),
+                ms=cuda_ms(fn, warmup=2, reps=GN_TIME_REPS),
+                device_ms=device_ms(fn, reps=5) if profile else None,
                 plain_ms=cuda_ms(lambda: torch.autograd.grad(*kept["plain"], retain_graph=True),
                                  warmup=1, reps=3))
             for bwd in (False, True):
@@ -6044,8 +6068,9 @@ def gn_instance_check(label, kernel, plain, rows, lay, model, x, e, raw, variant
     torch.cuda.empty_cache()
     for bwd in (False, True):
         f = out[bwd]
+        dev = "not profiled" if f["device_ms"] is None else f"{f['device_ms']:.4f}"
         log(f"  {label} middle block {'backward' if bwd else 'forward'}: kernel {f['ms']:.4f} "
-            f"ms (device {f['device_ms']:.4f}), plain {f['plain_ms']:.4f} ms, bound "
+            f"ms (device {dev}), plain {f['plain_ms']:.4f} ms, bound "
             f"{f['bound_ms']:.6g} ms ({f['bound_by']}) ({card})")
     return out
 
@@ -6202,6 +6227,70 @@ def gn_sweep_phase(device, card):
     return dict(launches)
 
 
+def main_block_check(label, model, graph, nk, card, seed):
+    """Rows 1/2 on a main path's middle block (``model``'s second, NK
+    layout ``nk``) at that path's shape, on random inputs from ``seed``: the
+    forward launched once against its plain version (KERNEL_TOL), the
+    backward launched once against its plain backward and fp32
+    (utils/gradcheck.py); times (CUDA events, the profiler's device ms, the
+    plain version's) and bounds. Returns {backward: record fields}."""
+    import torch
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+    from graph_physics_tpu_torch.utils import gradcheck
+
+    kernel, blk = nk_ops.fused_gn_block_nk, model.processor_list[1]
+    n, b = graph.x.shape[:2]
+    h = blk.hidden_size
+    gen = torch.Generator(device=graph.x.device).manual_seed(seed)
+    x = (0.5 * torch.randn((n, b, h), generator=gen, device=gen.device)).to(torch.bfloat16)
+    e = (0.5 * torch.randn((nk.total_rows, b, h), generator=gen,
+                           device=gen.device)).to(torch.bfloat16)
+    rows = (graph.senders, graph.edge_mask)
+    args = (x, e, *rows, blk.edge_block, blk.node_block, nk)
+    with torch.inference_mode():
+        reset_counts([kernel])
+        xk, ek = kernel(*args)
+        xp, ep = nk_ops.fused_gn_block_nk_reference(*args, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        if launch_counts(kernel) != (1, 0):
+            raise AssertionError(f"{label}: the middle block's forward kernel did not launch once")
+        log(f"{label} forward kernel check [middle, B={b}]")
+        f_err = max(compare("x_out", xk, xp, KERNEL_TOL), compare("e_out", ek, ep, KERNEL_TOL))
+        del xk, ek, xp, ep
+        fwd = dict(timed(lambda: kernel(*args), (), device=True),
+                   plain_ms=cuda_ms(lambda: nk_ops.fused_gn_block_nk_reference(
+                       *args, compute_dtype=torch.bfloat16)), max_abs_err=f_err)
+    cots = [torch.randn(t.shape, generator=gen, device=gen.device).to(torch.bfloat16)
+            for t in (x, e)]
+    before = kernel.backward_launches
+    stats, ok, kept = gradcheck.check_block_backward(
+        x, e, rows, (None, blk.edge_block, blk.node_block), nk, False, *cots)
+    torch.cuda.synchronize()
+    log(f"{label} backward kernel check [middle, B={b}] ({kernel.backward_launches - before} "
+        "launch; against the plain backward, both against fp32)")
+    log_grad_rows(stats)
+    if kernel.backward_launches != before + 1 or not ok:
+        raise AssertionError(f"{label}: the middle block's backward did not launch once, or is "
+                             "out of bounds")
+    bwd = backward_times(f"{label} backward [middle, B={b}]",
+                         lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True),
+                         lambda: torch.autograd.grad(*kept["plain"], retain_graph=True), (), card)
+    bwd["max_abs_err"] = max(r["max_abs_err"] for r in stats)
+    del kept
+    out = {}
+    for backward, t in ((False, fwd), (True, bwd)):
+        bd = bound(*gn_block_work(x, e, graph.edge_mask, blk, backward=backward))
+        out[backward] = dict(ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+                             bound_ms=bd[0], bound_by=bd[1], max_abs_err=t["max_abs_err"],
+                             shape=[n, b, h])
+        log(f"{label} middle block {'backward' if backward else 'forward'} at B={b}: kernel "
+            f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, bound "
+            f"{bd[0]:.6g} ms ({bd[1]}) ({card})")
+    del x, e, cots
+    torch.cuda.empty_cache()
+    return out
+
+
 def gn_main_phase(device, card):
     """Phase 51, the main path of phases 49-51: ``epd`` at hidden 16
     (entry.cylinder_train_setup(hidden=16): 5 blocks, B=128, the cylinder
@@ -6218,52 +6307,15 @@ def gn_main_phase(device, card):
     from graph_physics_tpu_torch.cli import predict as predict_cli
     from graph_physics_tpu_torch.cli.common import load_inference_stack
     from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
-    from graph_physics_tpu_torch.utils import gradcheck
 
     kernel, h = nk_ops.fused_gn_block_nk, GN_MAIN_HIDDEN
     train = entry.cylinder_train_setup(device, hidden=h)
-    model, graph, nk = train.simulator.model, train.graph, train.tiling
-    n, b = graph.x.shape[:2]
+    model, graph = train.simulator.model, train.graph
+    b = graph.x.shape[1]
     n_blocks = len(model.processor_list)
-    gen = torch.Generator(device=device).manual_seed(51)
-    x = (0.5 * torch.randn((n, b, h), generator=gen, device=device)).to(torch.bfloat16)
-    e = (0.5 * torch.randn((nk.total_rows, b, h), generator=gen, device=device)).to(torch.bfloat16)
-    blk, rows = model.processor_list[1], (graph.senders, graph.edge_mask)
-    args = (x, e, *rows, blk.edge_block, blk.node_block, nk)
-    with torch.inference_mode():
-        reset_counts([kernel])
-        xk, ek = kernel(*args)
-        xp, ep = nk_ops.fused_gn_block_nk_reference(*args, compute_dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-        if launch_counts(kernel) != (1, 0):
-            raise AssertionError("phase 51: the middle block's forward kernel did not launch once")
-        log(f"hidden-{h} NK forward kernel check [middle, B={b}]")
-        f_err = max(compare("x_out", xk, xp, KERNEL_TOL), compare("e_out", ek, ep, KERNEL_TOL))
-        del xk, ek, xp, ep
-        fwd = dict(timed(lambda: kernel(*args), (), device=True),
-                   plain_ms=cuda_ms(lambda: nk_ops.fused_gn_block_nk_reference(
-                       *args, compute_dtype=torch.bfloat16)), max_abs_err=f_err)
-    cots = [torch.randn(t.shape, generator=gen, device=device).to(torch.bfloat16) for t in (x, e)]
-    stats, ok, kept = gradcheck.check_block_backward(
-        x, e, rows, (None, blk.edge_block, blk.node_block), nk, False, *cots)
-    if not ok:
-        raise AssertionError("phase 51: the middle block's backward is out of bounds")
-    bwd = backward_times(f"hidden-{h} NK backward [middle, B={b}]",
-                         lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True),
-                         lambda: torch.autograd.grad(*kept["plain"], retain_graph=True), (), card)
-    bwd["max_abs_err"] = max(r["max_abs_err"] for r in stats)
-    del kept
-    slice_times = {}
-    for backward, t in ((False, fwd), (True, bwd)):
-        bd = bound(*gn_block_work(x, e, graph.edge_mask, blk, backward=backward))
-        slice_times[gn_instance_record("nk", h, "relu", backward)["name"]] = dict(
-            ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"], bound_ms=bd[0],
-            bound_by=bd[1], max_abs_err=t["max_abs_err"], shape=[n, b, h])
-        log(f"hidden-{h} NK middle block {'backward' if backward else 'forward'} at B={b}: "
-            f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} "
-            f"ms, bound {bd[0]:.6g} ms ({bd[1]}) ({card})")
-    del x, e, cots
-    torch.cuda.empty_cache()
+    slice_times = {gn_instance_record("nk", h, "relu", bwd)["name"]: fields for bwd, fields in
+                   main_block_check(f"phase 51, hidden-{h} NK", model, graph, train.tiling,
+                                    card, 51).items()}
 
     _, plain_state, plain_step, step_launches = training_phase(
         f"hidden-{h} epd training", train, [kernel], 51)
@@ -6363,6 +6415,403 @@ def gn_width_phases(device, card, build_log):
     if launches:
         raise AssertionError(f"phases 50-51: launches of no record: {launches}")
     return out
+
+
+#: phases 52-53: the MLP depths rows 1-4 take besides 4 (each with and
+#: without the RMSNorm tail) and the widths phase 52 holds them at: the
+#: tile family at 32 and 8, the wide kernels at 64 and 128
+GN_DEPTHS = (1, 2, 3, 5, 8)
+GN_DEPTH_HIDDEN = (32, 8, 64, 128)
+#: phase 52: the (depth, norm) cases whose world seam is checked and whose
+#: device time the profiler takes (every case is timed by CUDA events)
+GN_DEPTH_PROFILED = ((3, False), (8, True))
+#: phase 53: MeshGraphNets' MLPs (App. A of the paper: two hidden layers,
+#: 3 Dense layers) on the MGN-width ``epd``, and the cylinder ``epd`` at
+#: hidden 32 with 2-layer MLPs without the norm
+GN_MGN_DEPTH = 3
+GN_BARE_HIDDEN, GN_BARE_DEPTH = 32, 2
+
+
+def gn_depth_cases():
+    """(depth, norm) of every MLP shape phases 52-53 hold: GN_DEPTHS, each
+    with and without the RMSNorm tail."""
+    return [(d, norm) for d in GN_DEPTHS for norm in (True, False)]
+
+
+def depth_key(depth, norm):
+    """A record's key of one MLP shape: the depth, "_bare" without the norm."""
+    return f"{depth}" + ("" if norm else "_bare")
+
+
+def gn_depth_record(layout, h, backward):
+    """The kernels-line keys of row 1-4 (``layout``, ``backward``) at hidden
+    ``h`` with MLPs of another depth than 4 or without the RMSNorm tail:
+    fused_gn_block_{layout}_h{h}_depths[_backward]."""
+    rec = gn_instance_record(layout, h, "relu", backward)
+    rec["name"] = rec["name"].replace(f"_h{h}", f"_h{h}_depths")
+    return rec
+
+
+def set_block_depth(model, nb_of_layers, layer_norm, seed):
+    """Every GraphNetBlock of ``model`` rebuilt with ``nb_of_layers`` Dense
+    layers a MLP and an RMSNorm tail when ``layer_norm`` (weights drawn
+    from ``seed`` as entry's simulators draw theirs; the encoders stay):
+    what GraphNetBlock(nb_of_layers=..., layer_norm=...) builds, for a
+    model whose processors pass neither, as in JAX. A trainer made before
+    holds the old parameters: make a new one."""
+    import torch
+    from graph_physics_tpu_torch.models.layers import GraphNetBlock, reset_parameters
+
+    device = next(model.parameters()).device
+    for i, blk in enumerate(model.processor_list):
+        new = GraphNetBlock(blk.hidden_size, nb_of_layers=nb_of_layers, layer_norm=layer_norm,
+                            is_last_block=blk.is_last_block, dtype=blk.dtype,
+                            activation=blk.activation)
+        reset_parameters(new, torch.Generator().manual_seed(seed + i))
+        model.processor_list[i] = new.to(device)
+
+
+def with_block_depth(train, nb_of_layers, layer_norm, seed):
+    """An entry train setup whose blocks have ``nb_of_layers`` and
+    ``layer_norm`` (set_block_depth), with a fresh trainer for them."""
+    from graph_physics_tpu_torch import entry
+
+    set_block_depth(train.simulator.model, nb_of_layers, layer_norm, seed)
+    state, step = entry.make_trainer(train.simulator, train.device_preprocess, train.loss_fn,
+                                     train.gradient_method)
+    return dataclasses.replace(train, state=state, train_step=step)
+
+
+def gn_depth_ptxas(resources, layout, h, backward):
+    """The ptxas reports of the kernels an other-depth case runs: at hidden
+    64 and 128 the width's kernels (the same as a 4-layer MLP's); below,
+    the forward's (depth a run-time bound there) or the backward's deep
+    instances, the pre-pass, the sender pass and the ordered sums."""
+    if h in WIDE_HIDDEN:
+        return gn_instance_ptxas(resources, layout, h, "silu", backward)
+    other = "csr" if layout == "nk" else "nk"
+    out = {}
+    for name, use in resources.items():
+        if f"ILi{h}E" not in name or f"gn_{other}_" in name:
+            continue
+        bwd = "bwd" in name or "reduce" in name
+        if bwd != backward and "partial" not in name:
+            continue
+        if bwd and ("nodemlp" in name or "row_kernel" in name) and "deep" not in name:
+            continue
+        out[name] = use
+    return out
+
+
+def gn_depth_instance_phase(device, card, build_log):
+    """Phase 52: rows 1-4 with MLPs of every depth in GN_DEPTHS, with and
+    without the RMSNorm tail (gn_depth_cases), at GN_DEPTH_HIDDEN in both
+    layouts, each against its plain version forward and backward at phase
+    49's shapes (the cylinder NK mesh at B=GN_CHECK_BATCH, the graded CSR
+    mesh of GN_CHECK_GRADED): in NK the first block (the edge encoder
+    folded, 4 layers with its norm, as an ``epd`` builds it) and a middle
+    block, in CSR a middle block; the world seam at GN_DEPTH_PROFILED;
+    the middle block's backward the same bits on two calls; each case's
+    times by CUDA events, the profiler's device ms at GN_DEPTH_PROFILED,
+    bounds; ptxas's registers and spills. Returns {record name: record}
+    without launches, each case under "depths"."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_gnblock_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+
+    resources = kernel_resources(build_log, ("gn_nk_", "gn_csr_", "gn_partial", "reduce_",
+                                             "gnw"))
+    gen = torch.Generator(device=device).manual_seed(520)
+
+    def randn(*shape):
+        return (0.5 * torch.randn(shape, generator=gen, device=device)).to(torch.bfloat16)
+
+    records = {}
+    for layout in ("nk", "csr"):
+        for h in GN_DEPTH_HIDDEN:
+            if layout == "nk":
+                setup = entry.cylinder_setup(device, hidden=h, mp_steps=3, batch=GN_CHECK_BATCH)
+                kernel, plain = nk_ops.fused_gn_block_nk, nk_ops.fused_gn_block_nk_reference
+                rows = (setup.graph.senders, setup.graph.edge_mask)
+            else:
+                setup = entry.graded_setup(device, num_nodes=GN_CHECK_GRADED[0], hidden=h,
+                                           mp_steps=3, batch=GN_CHECK_GRADED[1])
+                kernel, plain = csr_ops.fused_gn_block_csr, csr_ops.fused_gn_block_csr_reference
+                rows = (setup.graph.senders, setup.graph.receivers, setup.graph.edge_mask)
+            model, lay = setup.simulator.model, setup.tiling
+            n, b = setup.graph.x.shape[:2]
+            x, e, raw = randn(n, b, h), randn(lay.total_rows, b, h), randn(lay.total_rows, b, 3)
+            variants = [first_variant(h), "middle"] if layout == "nk" else ["middle"]
+            recs = {bwd: dict(gn_depth_record(layout, h, bwd), route="cuda", launches=0,
+                              library_ms=None, shape=[n, b, h], variants=variants, depths={},
+                              max_abs_err=0.0,
+                              ptxas=gn_depth_ptxas(resources, layout, h, bwd))
+                    for bwd in (False, True)}
+            for depth, norm in gn_depth_cases():
+                set_block_depth(model, depth, norm, seed=52 + depth)
+                key = depth_key(depth, norm)
+                label = (f"hidden {h}, {depth} layers{'' if norm else ' without the norm'}, "
+                         f"{layout.upper()} [{n}, {b}]")
+                profiled = (depth, norm) in GN_DEPTH_PROFILED
+                fields = gn_instance_check(label, kernel, plain, rows, lay, model, x, e, raw,
+                                           variants, card, profile=profiled)
+                if profiled:
+                    errs = gn_seam_check(label, kernel, plain, rows, lay, model, x, e, gen)
+                    for bwd, err in zip((False, True), errs):
+                        fields[bwd]["max_abs_err"] = max(fields[bwd]["max_abs_err"], err)
+                        fields[bwd]["world_checked"] = True
+                for bwd in (False, True):
+                    rec = recs[bwd]
+                    rec["depths"][key] = dict(fields[bwd], launches=0)
+                    rec["max_abs_err"] = max(rec["max_abs_err"], fields[bwd]["max_abs_err"])
+            for bwd in (False, True):  # the record's times: the first profiled case's
+                rep = recs[bwd]["depths"][depth_key(*GN_DEPTH_PROFILED[0])]
+                recs[bwd].update({k: rep[k] for k in ("ms", "device_ms", "plain_ms",
+                                                      "bound_ms", "bound_by")})
+                records[recs[bwd]["name"]] = recs[bwd]
+            del setup, model, x, e, raw
+            torch.cuda.empty_cache()
+    for key, rec in records.items():
+        for name, use in rec["ptxas"].items():
+            log(f"ptxas, {key}: {name}: {use}")
+    return records
+
+
+def gn_depth_sweep_phase(device, card):
+    """Phase 52, on the path: each (depth, norm) of gn_depth_cases at each
+    width of GN_DEPTH_HIDDEN, in both layouts, on a GN_SWEEP_BLOCKS-block
+    ``epd`` whose blocks take that depth and tail (set_block_depth): its
+    eval forward and one train step, counts set to 0 just before, on the
+    cylinder (NK, GN_SWEEP_MESH, B=GN_SWEEP_BATCH) and a GN_SWEEP_GRADED
+    graded mesh (CSR), each against the plain path (forward SLICE_TOL,
+    step-1 loss STEP1_LOSS_RTOL), every block launching rows 1/2 (3/4)
+    once forward and once backward. Returns {record name: {depth key:
+    (forward, backward) launches}}."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_gnblock_csr as csr_ops
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+
+    launches = defaultdict(dict)
+    for h in GN_DEPTH_HIDDEN:
+        for layout in ("nk", "csr"):
+            if layout == "nk":
+                base = entry.cylinder_train_setup(device, nx=GN_SWEEP_MESH[0],
+                                                  ny=GN_SWEEP_MESH[1], hidden=h,
+                                                  mp_steps=GN_SWEEP_BLOCKS, batch=GN_SWEEP_BATCH)
+                kernel = nk_ops.fused_gn_block_nk
+            else:
+                base = entry.graded_train_setup(device, num_nodes=GN_SWEEP_GRADED[0],
+                                                batch=GN_SWEEP_GRADED[1], hidden=h,
+                                                mp_steps=GN_SWEEP_BLOCKS)
+                kernel = csr_ops.fused_gn_block_csr
+            graph = base.graph
+            for depth, norm in gn_depth_cases():
+                train = with_block_depth(base, depth, norm, seed=520 + depth)
+                sim = train.simulator
+                plain_sim = plain_copy(sim)
+                plain_state, plain_step = entry.make_trainer(plain_sim)
+                reset_counts([kernel])
+                out = sim.forward(graph, is_training=False)
+                m = train.train_step(train.state, graph, torch.Generator(device).manual_seed(52))
+                torch.cuda.synchronize()
+                got = launch_counts(kernel)
+                ref = plain_sim.forward(graph, is_training=False)
+                mp = plain_step(plain_state, graph, torch.Generator(device).manual_seed(52))
+                rel = abs(m["loss"].item() - mp["loss"].item()) / abs(mp["loss"].item())
+                want = (2 * GN_SWEEP_BLOCKS, GN_SWEEP_BLOCKS)
+                log(f"phase 52 [hidden {h}, {depth} layers{'' if norm else ' without the norm'}, "
+                    f"{type(train.tiling).__name__}, {graph.x.shape[0]} nodes x "
+                    f"{graph.x.shape[1]}]: launches (forward, backward) {got}, expected {want}; "
+                    f"step-1 loss {m['loss'].item():.6g} against the plain path's "
+                    f"{mp['loss'].item():.6g} (relative {rel:.3g}, limit {STEP1_LOSS_RTOL})")
+                compare("net_out", out.net_out, ref.net_out, SLICE_TOL, rows=graph.node_mask)
+                if got != want or rel > STEP1_LOSS_RTOL or not (
+                        torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+                    raise AssertionError(f"phase 52 [hidden {h}, {depth} layers, norm {norm}, "
+                                         f"{layout}]: launches {got} or the loss off the plain "
+                                         "path's")
+                launches[gn_depth_record(layout, h, False)["name"]][depth_key(depth, norm)] = got
+                del train, sim, plain_sim, plain_state, plain_step, out, ref, m, mp
+            del base, graph
+            torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def gn_depth_main_phase(device, card):
+    """Phase 53, the slice's path at full width: (a) ``epd`` at
+    MeshGraphNets' width (entry.cylinder_train_setup(hidden=128): 15
+    blocks, NK, the encoder folded) with GN_MGN_DEPTH-layer MLPs
+    (set_block_depth): TRAIN_STEPS steps at B=128 with 15 + 15 launches a
+    step, the step's wall, enqueue and device time; the first
+    MGN_COMPARED_STEPS steps at B=MGN_PLAIN_BATCH against the plain path
+    (training_phase, as phase 36); an eval forward at B=128 against the
+    plain path (SLICE_TOL) and an R=ROLLOUT_WINDOWS x T=ROLLOUT_STEPS
+    rollout against the plain path's (ROLLOUT_RTOL); (b) the cylinder
+    ``epd`` at hidden GN_BARE_HIDDEN, B=128, with GN_BARE_DEPTH-layer MLPs
+    without the norm: TRAIN_STEPS steps against the plain path. Before
+    each, the middle block's rows 1/2 at B=128 against their plain versions
+    forward and backward, timed (main_block_check). Returns ({record name:
+    {depth key: (forward, backward) launches}}, {record name: the middle
+    block's times and errors at B=128}, facts)."""
+    import torch
+    from graph_physics_tpu_torch import entry
+    from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
+    from graph_physics_tpu_torch.training.rollout import make_batched_rollout_fn
+
+    gn = nk_ops.fused_gn_block_nk
+    launches = defaultdict(dict)
+    facts = {}
+
+    def add(h, depth, norm, got):
+        slot = launches[gn_depth_record("nk", h, False)["name"]]
+        key = depth_key(depth, norm)
+        slot[key] = tuple(a + c for a, c in zip(slot.get(key, (0, 0)), got))
+
+    d = GN_MGN_DEPTH
+    train = with_block_depth(entry.cylinder_train_setup(device, hidden=MGN_HIDDEN,
+                                                        mp_steps=MGN_BLOCKS), d, True, seed=53)
+    g = train.graph
+    b = g.x.shape[1]
+    log(f"MeshGraphNets-width epd with {d}-layer MLPs: {int(g.n_node)} nodes x {b} samples, "
+        f"hidden {MGN_HIDDEN}, {MGN_BLOCKS} blocks, {type(train.tiling).__name__} layout, "
+        f"{sum(p.numel() for p in train.simulator.parameters())} parameters")
+    slices = {}
+
+    def add_slice(h, depth, norm, model, graph, nk, seed):
+        checked = main_block_check(
+            f"phase 53, hidden-{h} NK, {depth} layers{'' if norm else ' without the norm'}",
+            model, graph, nk, card, seed)
+        for bwd, fields in checked.items():
+            slices[gn_depth_record("nk", h, bwd)["name"]] = dict(fields,
+                                                                 case=depth_key(depth, norm))
+
+    add_slice(MGN_HIDDEN, d, True, train.simulator.model, g, train.tiling, 530)
+    reset_counts([gn])
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, per_step, _, _ = train_run(train.train_step, train.state, train.simulator,
+                                              g, 53, TRAIN_STEPS, [gn])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    add(MGN_HIDDEN, d, True, launch_counts(gn))
+    log(f"MGN-width epd, {d} layers, training ({TRAIN_STEPS} steps, B={b}, kernel path): "
+        f"launches per step (forward, backward) {sorted(set(per_step))}; max_memory_allocated "
+        f"{peak / 2**30:.4f} GiB")
+    log("  loss:      " + " ".join(f"{v:.6g}" for v in losses))
+    log("  grad_norm: " + " ".join(f"{v:.6g}" for v in norms))
+    if any(s != ((MGN_BLOCKS, MGN_BLOCKS),) for s in per_step) or not all(
+            map(math.isfinite, losses + norms)):
+        raise AssertionError(f"phase 53: launches per step {per_step}, or a non-finite loss or "
+                             "gradient norm")
+    reset_counts([gn])
+    st = step_timing(train, None, None, 54)
+    add(MGN_HIDDEN, d, True, launch_counts(gn))
+    idle = 1.0 - st["train_step_device_ms"] / st["train_step_ms"]
+    log(f"MGN-width train step with {d}-layer MLPs B={b}: kernel path {st['train_step_ms']:.4f} "
+        f"ms ({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
+        f"{st['train_step_device_ms']:.4f} ms, idle share {idle:.3f}; the host enqueues a step "
+        f"in {st['train_step_host_enqueue_ms']:.4f} ms) ({card})")
+    facts["mgn_depth3_step"] = dict(st, peak_bytes=peak, idle_share=idle)
+    del train
+    torch.cuda.empty_cache()
+    compared = with_block_depth(entry.cylinder_train_setup(
+        device, hidden=MGN_HIDDEN, mp_steps=MGN_BLOCKS, batch=MGN_PLAIN_BATCH), d, True, seed=53)
+    _, _, _, got = training_phase(
+        f"MGN-width epd with {d}-layer MLPs at B={MGN_PLAIN_BATCH} against the plain path",
+        compared, [gn], 55, steps=MGN_COMPARED_STEPS)
+    add(MGN_HIDDEN, d, True, got[gn.__name__])
+    del compared
+    torch.cuda.empty_cache()
+
+    setup = entry.cylinder_setup(device, hidden=MGN_HIDDEN, mp_steps=MGN_BLOCKS,
+                                 num_steps=ROLLOUT_WINDOWS + ROLLOUT_STEPS + 1)
+    set_block_depth(setup.simulator.model, d, True, seed=53)
+    sim, graph = setup.simulator, setup.graph
+    plain_sim = plain_copy(sim)
+    reset_counts([gn])
+    out = sim.forward(graph, is_training=False)
+    frames = entry.rollout_frames(setup, range(ROLLOUT_WINDOWS), ROLLOUT_STEPS)
+    res = make_batched_rollout_fn(sim)(frames)
+    torch.cuda.synchronize()
+    got = launch_counts(gn)
+    want = (MGN_BLOCKS * (1 + ROLLOUT_STEPS), 0)
+    log(f"MGN-width epd with {d}-layer MLPs: forward B={graph.x.shape[1]} and a "
+        f"{ROLLOUT_WINDOWS} x {ROLLOUT_STEPS} rollout, launches {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"phase 53: forward and rollout launches {got}, not {want}")
+    add(MGN_HIDDEN, d, True, got)
+    ref = plain_sim.forward(graph, is_training=False)
+    compare("net_out", out.net_out, ref.net_out, SLICE_TOL, rows=graph.node_mask)
+    compare("outputs", out.outputs, ref.outputs, SLICE_TOL, rows=graph.node_mask)
+    check_rollouts(f"MGN-width epd with {d}-layer MLPs", res,
+                   make_batched_rollout_fn(plain_sim)(frames))
+    facts["mgn_depth3_rollout_rmse"] = res.rmse_all_rollout.tolist()
+    del setup, sim, plain_sim, out, ref, res, frames
+    torch.cuda.empty_cache()
+
+    h, d = GN_BARE_HIDDEN, GN_BARE_DEPTH
+    bare = with_block_depth(entry.cylinder_train_setup(device, hidden=h), d, False, seed=56)
+    add_slice(h, d, False, bare.simulator.model, bare.graph, bare.tiling, 560)
+    _, plain_state, plain_step, got = training_phase(
+        f"epd at hidden {h} with {d}-layer MLPs without the norm, B=128", bare, [gn], 56)
+    add(h, d, False, got[gn.__name__])
+    reset_counts([gn])
+    st = step_timing(bare, plain_state, plain_step, 57)
+    add(h, d, False, launch_counts(gn))
+    log(f"hidden-{h} epd train step with {d}-layer MLPs without the norm B=128: kernel path "
+        f"{st['train_step_ms']:.4f} ms (device time {st['train_step_device_ms']:.4f} ms; the "
+        f"host enqueues a step in {st['train_step_host_enqueue_ms']:.4f} ms), plain path "
+        f"{st['train_step_plain_ms']:.4f} ms ({card})")
+    facts["bare_step"] = st
+    del bare, plain_state, plain_step
+    torch.cuda.empty_cache()
+    return dict(launches), slices, facts
+
+
+def gn_depth_phases(device, card, build_log):
+    """Phases 52-53: rows 1-4 with MLPs of 1 to 8 Dense layers, with and
+    without the RMSNorm tail, checked and timed and each on its path (52),
+    the slice's path at full width (53). Returns their records: each case's
+    phase-52 launches under "depths"; a record's launches phase 52's sum,
+    or for the instances phase 53 runs its own count (phase 52's under
+    "sweep_launches") with the times, bound and error of its middle block
+    at B=128 (phase 52's worst error under "checks_max_abs_err", the
+    block's under "slice")."""
+    t0 = time.perf_counter()
+    records = gn_depth_instance_phase(device, card, build_log)
+    t1 = time.perf_counter()
+    sweep = gn_depth_sweep_phase(device, card)
+    t2 = time.perf_counter()
+    main_launches, slices, facts = gn_depth_main_phase(device, card)
+    log(f"phases 52-53: {t1 - t0:.1f} s, {t2 - t1:.1f} s, {time.perf_counter() - t2:.1f} s")
+    log("depth epd " + json.dumps({"card": card, **facts}))
+    for name, by_depth in sweep.items():
+        for key, (fwd_n, bwd_n) in by_depth.items():
+            for rec_name, n in ((name, fwd_n), (f"{name}_backward", bwd_n)):
+                records[rec_name]["depths"][key]["launches"] += n
+                records[rec_name]["launches"] += n
+    main = {}
+    for name, by_depth in main_launches.items():
+        for key, (fwd_n, bwd_n) in by_depth.items():
+            for rec_name, n in ((name, fwd_n), (f"{name}_backward", bwd_n)):
+                main[rec_name] = main.get(rec_name, 0) + n
+    if set(main) != set(slices) or set(main) - set(records):
+        raise AssertionError(f"phase 53: launches {main} and checked blocks {sorted(slices)} "
+                             "of other records")
+    for key, rec in records.items():
+        never = [k for k, v in rec["depths"].items() if v["launches"] == 0]
+        if never:
+            raise AssertionError(f"phase 52: {key} never launched on its path for {never}")
+        if key in main:  # the main path's own count and times; phase 52's beside them
+            if main[key] == 0:
+                raise AssertionError(f"phase 53: {key} never launched on the main path")
+            sl = slices[key]
+            rec.update(sweep_launches=rec["launches"], launches=main[key],
+                       checks_max_abs_err=rec["max_abs_err"], slice=sl,
+                       **{k: sl[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                             "bound_by", "max_abs_err", "shape")})
+    return list(records.values())
 
 
 if __name__ == "__main__":

@@ -80,11 +80,24 @@ __global__ void __launch_bounds__(SEND_THREADS) gn_nk_bwd_send_kernel(const Pass
   send_pass<NkRows>(a);
 }
 
+// the instances for MLPs of another depth than NL (gn_bwd_passes.cuh)
+template <int W>
+__global__ void __launch_bounds__(DEEP_THREADS) gn_nk_bwd_deep_nodemlp_kernel(const PassArgs a) {
+  deep_nodemlp_pass(a);
+}
+
+template <int W, bool FOLD>
+__global__ void __launch_bounds__(DEEP_THREADS) gn_nk_bwd_deep_row_kernel(const PassArgs a) {
+  deep_row_pass<NkRows, FOLD>(a);
+}
+
 template <bool ACTS>
 cudaError_t launch(const PassArgs& a, cudaStream_t stream) {
+  const DeepKernels deep = {gn_nk_bwd_deep_nodemlp_kernel<H>, gn_nk_bwd_deep_row_kernel<H, false>,
+                            gn_nk_bwd_deep_row_kernel<H, true>};
   return launch_passes(a, stream, gn_nk_bwd_nodemlp_kernel<H, ACTS>,
                        gn_nk_bwd_row_kernel<H, false, ACTS>,
-                       gn_nk_bwd_row_kernel<H, true, ACTS>, gn_nk_bwd_send_kernel<H>);
+                       gn_nk_bwd_row_kernel<H, true, ACTS>, gn_nk_bwd_send_kernel<H>, deep);
 }
 
 }  // namespace

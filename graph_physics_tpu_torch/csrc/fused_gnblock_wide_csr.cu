@@ -45,7 +45,7 @@ extern "C" int gnw_csr_fwd(const void* x, const void* e, void* xkr, void* xks, v
                      n_node_layers, node_act) ||
       (fe > 0 && e_out == nullptr && ein == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool acts = a.edge.act != mlp_act::RELU;
+  const bool acts = any_instance(a.edge, H);
   const FwdKernel mid = acts ? GNW(csr_edge_fwd)<false, true> : GNW(csr_edge_fwd)<false, false>;
   const FwdKernel last = acts ? GNW(csr_edge_fwd)<true, true> : GNW(csr_edge_fwd)<true, false>;
   return static_cast<int>(launch_fwd<CsrRows>(a, static_cast<const bf16*>(e),

@@ -30,10 +30,12 @@ __global__ void __launch_bounds__(THREADS) GNW(csr_send)(const BwdArgs a) {
 extern "C" int gnw_hidden() { return H; }
 
 // bf16 scratch elements (which = 0) and fp32 partial elements (1) that
-// gnw_csr_bwd takes for these sizes (fe > 0: folded)
+// gnw_csr_bwd takes for these sizes (fe > 0: folded) and MLP depths
 extern "C" long long gnw_bwd_sizes(int which, int n_nodes, int batch, long long total_rows,
-                                   int fe) {
-  return bwd_sizes(which, n_nodes, batch, total_rows, fe);
+                                   int fe, int n_edge_layers, int n_node_layers,
+                                   int n_enc_layers) {
+  return bwd_sizes(which, n_nodes, batch, total_rows, fe, n_edge_layers, n_node_layers,
+                   n_enc_layers);
 }
 
 // As gnw_nk_bwd (fused_gnblock_wide_nk_bwd.cu), with the CSR rows: row_ptr
@@ -59,7 +61,7 @@ extern "C" int gnw_csr_bwd(const void* x, const void* e, const void* agg, const 
                      n_edge_layers, edge_act, node_w, node_g, n_node_layers, node_act))
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdKernel rows =
-      a.edge.act != mlp_act::RELU ? GNW(csr_row_bwd)<true> : GNW(csr_row_bwd)<false>;
+      any_instance(a.edge, H) ? GNW(csr_row_bwd)<true> : GNW(csr_row_bwd)<false>;
   return static_cast<int>(launch_bwd(a, static_cast<bf16*>(scratch), static_cast<float*>(part),
                                      static_cast<cudaStream_t>(stream), rows, GNW(csr_send)));
 }

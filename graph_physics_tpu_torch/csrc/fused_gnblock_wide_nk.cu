@@ -25,9 +25,10 @@ __global__ void __launch_bounds__(THREADS, 1) GNW(nk_edge_fwd)(const FwdArgs a) 
 
 extern "C" int gnw_hidden() { return H; }
 
-// Each weight list holds 2 * 4 + 1 pointers: w0, b0, ..., w3, b3, then the
-// RMSNorm scale (null without a norm). fe > 0 folds the edge encoder in (e
-// is the raw [S, B, fe] array); e_out null marks the last block. xkr, xks
+// Each weight list holds 2 * n_layers + 1 pointers (1 to 8 layers): w0,
+// b0, w1, b1, ..., then the RMSNorm scale (null without a norm). fe > 0
+// folds the edge encoder in (e is the raw [S, B, fe] array); e_out null
+// marks the last block. xkr, xks
 // are [n_nodes, batch, H] bf16 scratch, ein a [S, batch, H] scratch for
 // the encoder's output on a folded last block (else unused), agg receives
 // the bf16 aggregate [n_nodes, batch, H], to which extra, when not null (a
@@ -52,7 +53,7 @@ extern "C" int gnw_nk_fwd(const void* x, const void* e, void* xkr, void* xks, vo
                      n_node_layers, node_act) ||
       (fe > 0 && e_out == nullptr && ein == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool acts = a.edge.act != mlp_act::RELU;
+  const bool acts = any_instance(a.edge, H);
   const FwdKernel mid = acts ? GNW(nk_edge_fwd)<false, true> : GNW(nk_edge_fwd)<false, false>;
   const FwdKernel last = acts ? GNW(nk_edge_fwd)<true, true> : GNW(nk_edge_fwd)<true, false>;
   return static_cast<int>(launch_fwd<NkRows>(a, static_cast<const bf16*>(e),

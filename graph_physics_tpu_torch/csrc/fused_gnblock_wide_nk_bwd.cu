@@ -26,14 +26,16 @@ __global__ void __launch_bounds__(THREADS) GNW(nk_send)(const BwdArgs a) { send_
 extern "C" int gnw_hidden() { return H; }
 
 // bf16 scratch elements (which = 0) and fp32 partial elements (1) that
-// gnw_nk_bwd takes for these sizes (fe > 0: folded)
+// gnw_nk_bwd takes for these sizes (fe > 0: folded) and MLP depths
 extern "C" long long gnw_bwd_sizes(int which, int n_nodes, int batch, long long total_rows,
-                                   int fe) {
-  return bwd_sizes(which, n_nodes, batch, total_rows, fe);
+                                   int fe, int n_edge_layers, int n_node_layers,
+                                   int n_enc_layers) {
+  return bwd_sizes(which, n_nodes, batch, total_rows, fe, n_edge_layers, n_node_layers,
+                   n_enc_layers);
 }
 
-// Weight and gradient lists hold 2 * 4 + 1 pointers each: w0, b0, ..., w3,
-// b3, then the RMSNorm scale (null without a norm); gradients are fp32,
+// Weight and gradient lists hold 2 * n_layers + 1 pointers each (1 to 8
+// layers): w0, b0, w1, b1, ..., then the RMSNorm scale (null without a norm); gradients are fp32,
 // shaped like their weights, and written whole. agg is the bf16 aggregate
 // [n_nodes, batch, H] the forward kept. fe > 0 folds the edge encoder in
 // (e is the raw [S, B, fe] array, de is null); g_eout null marks the last
@@ -63,7 +65,7 @@ extern "C" int gnw_nk_bwd(const void* x, const void* e, const void* agg, const v
                      n_edge_layers, edge_act, node_w, node_g, n_node_layers, node_act))
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdKernel rows =
-      a.edge.act != mlp_act::RELU ? GNW(nk_row_bwd)<true> : GNW(nk_row_bwd)<false>;
+      any_instance(a.edge, H) ? GNW(nk_row_bwd)<true> : GNW(nk_row_bwd)<false>;
   return static_cast<int>(launch_bwd(a, static_cast<bf16*>(scratch), static_cast<float*>(part),
                                      static_cast<cudaStream_t>(stream), rows, GNW(nk_send)));
 }

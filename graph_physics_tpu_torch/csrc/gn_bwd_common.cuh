@@ -23,7 +23,7 @@ namespace gn_bwd {
 
 using namespace gn_nk;
 
-constexpr int NL = 4;  // Dense layers per MLP the backward kernels are built for
+constexpr int NL = 4;  // Dense layers per MLP of the NL instances (gn_bwd_passes.cuh)
 // per warp: activations transposed [H][32], cotangents [32][H + 1]
 constexpr int STAGE_G = H * 32;
 constexpr int STAGE = H * 32 + 32 * (H + 1);
@@ -141,13 +141,13 @@ __global__ void reduce_send_kernel(const float* part, int blocks, float* gw0) {
   }
 }
 
-// a weight MLP and its gradient MLP of NL layers from the two pointer lists,
-// with norms on both or on neither; layer 0's input in ``parts`` blocks,
-// ``act`` the activation (gn_nk_common.cuh:make_mlp)
+// a weight MLP and its gradient MLP of 1 to MAXL layers from the two
+// pointer lists, with norms on both or on neither; layer 0's input in
+// ``parts`` blocks, ``act`` the activation (gn_nk_common.cuh:make_mlp)
 inline bool make_mlp_pair(Mlp* w, Mlp* g, const void* const* wp, const void* const* gp,
                           int n_layers, int in_dim, int parts, int act) {
-  return n_layers == NL && make_mlp(w, wp, NL, in_dim, parts, act) &&
-         make_mlp(g, gp, NL, in_dim, parts, act) &&
+  return make_mlp(w, wp, n_layers, in_dim, parts, act) &&
+         make_mlp(g, gp, n_layers, in_dim, parts, act) &&
          (w->scale == nullptr) == (g->scale == nullptr);
 }
 

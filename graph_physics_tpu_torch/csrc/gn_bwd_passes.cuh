@@ -209,17 +209,17 @@ __device__ __forceinline__ void bwd_chain(uint32_t (&g)[FR], const TileMlp& m, c
 __device__ __forceinline__ uint32_t ones_b() { return lane_id() < 4 ? 0x3f803f80u : 0u; }
 
 // A warp's share of one MLP's weight gradients: output rows 16·mt..+15 of
-// a layer, dw += Gᵀ·A over the block's ROWS staged rows (nt <= NT n-tiles
-// of 8 inputs), db += the column sums of G (the bias), and, with P, ds +=
-// those of P (the RMSNorm scale).
-template <int N>
+// a layer, dw += Gᵀ·A over the block's 16·KST staged rows (nt <= NT
+// n-tiles of 8 inputs), db += the column sums of G (the bias), and, with
+// P, ds += those of P (the RMSNorm scale).
+template <int N, int KST = PASS_WARPS>
 __device__ __forceinline__ void wgrad(float (&dw)[N][4], float (&db)[4], float (&ds)[4],
                                       const bf16* G, const bf16* A, int a_stride, const bf16* P,
                                       int mt, int nt) {
   const int lane = lane_id();
   const uint32_t one = ones_b();
 #pragma unroll 2
-  for (int ks = 0; ks < PASS_WARPS; ++ks) {
+  for (int ks = 0; ks < KST; ++ks) {
     uint32_t af[4];
     ldsm_t(af, a_cols(G, TS, 16 * mt, 16 * ks, lane));
 #pragma unroll
@@ -591,7 +591,365 @@ __device__ __forceinline__ void send_pass(const PassArgs& a) {
   }
 }
 
+// ---- MLPs of another depth than NL: the deep instances ----
+//
+// The passes above are built for MLPs of NL Dense layers: their stage and
+// each warp's share of the weight gradients are fixed when they compile,
+// so those instances keep their registers, and with them their grid and
+// the order of their block sums (their bits). An MLP of 1 to MAXL layers
+// takes the passes below instead (launch_passes picks them per pass):
+//  - blocks of DEEP_WARPS warps, DEEP_ROWS sample rows staged, so that the
+//    stages of two MLPs of MAXL layers and their weights fit one block's
+//    shared memory (the folded row pass at hidden 32: ~220 KB);
+//  - the stage carved at run time by each MLP's depth (A_0, A_1..A_{n-1},
+//    G_0..G_{n-1}, P);
+//  - after each group of tiles, warp w forms the sums of (layer, m-tile)
+//    pairs w, w + DEEP_WARPS, ... one at a time in registers and adds each
+//    into its block's slot of the partials in device memory, in
+//    grad_slot's layout (zeroed at the start). Each element has one owner
+//    lane, so there are no atomics and the order is fixed;
+//  - the activation read at run time (relu included).
+constexpr int DEEP_WARPS = 4;
+constexpr int DEEP_THREADS = 32 * DEEP_WARPS;
+constexpr int DEEP_ROWS = 16 * DEEP_WARPS;
+
+// A deep block's staging of one MLP's backward: A_0 [DEEP_ROWS][a0_stride],
+// then A_1.., G_0.. and P, [DEEP_ROWS][TS] each
+struct DeepStage {
+  bf16* a0;
+  bf16* a1;
+  bf16* g0;
+  bf16* p;
+  int a0_stride;
+  __device__ bf16* a(int l) const { return l == 0 ? a0 : a1 + (l - 1) * DEEP_ROWS * TS; }
+  __device__ bf16* g(int l) const { return g0 + l * DEEP_ROWS * TS; }
+};
+
+// bytes of one DeepStage of an MLP of n_layers
+__host__ __device__ inline size_t deep_stage_bytes(int a0_stride, int n_layers) {
+  return sizeof(bf16) * DEEP_ROWS * (a0_stride + 2 * n_layers * TS);
+}
+
+__device__ inline DeepStage carve_deep(bf16*& at, int a0_stride, int n_layers) {
+  DeepStage st;
+  st.a0_stride = a0_stride;
+  st.a0 = at;
+  at += DEEP_ROWS * a0_stride;
+  st.a1 = at;
+  at += (n_layers - 1) * DEEP_ROWS * TS;
+  st.g0 = at;
+  at += n_layers * DEEP_ROWS * TS;
+  st.p = at;
+  at += DEEP_ROWS * TS;
+  return st;
+}
+
+__device__ __forceinline__ void deep_zero_cots(const DeepStage& st, const TileMlp& m) {
+  uint32_t z[FR];
+  zero_frag(z);
+  for (int l = 0; l < m.n_layers; ++l) frag_to_smem(mine(st.g(l), TS), TS, z);
+  if (m.norm) frag_to_smem(mine(st.p, TS), TS, z);
+}
+
+// fwd_keep for an MLP of m.n_layers layers
+__device__ __forceinline__ void deep_fwd_keep(const float (&d0)[NT][4], const TileMlp& m,
+                                              const DeepStage& st, uint32_t (&v)[FR],
+                                              float (&inv)[2]) {
+  finish(v, d0, m.bias(0));
+#pragma unroll 1
+  for (int l = 1; l < m.n_layers; ++l) {
+    uint32_t act[FR];
+    activate(act, v, m.act);
+    if (m.act == mlp_act::RELU)
+      frag_to_smem(mine(st.a(l), TS), TS, act);
+    else
+      frag_to_smem(mine(st.a(l), TS), TS, v);
+    float d[NT][4];
+    zero_acc(d);
+    mma_awt(d, act, m.layer(l), TS, 0);
+    finish(v, d, m.bias(l));
+  }
+  inv[0] = inv[1] = 1.f;
+  if (m.norm) rms_inv(inv, v);
+}
+
+// bwd_chain for an MLP of m.n_layers layers
+__device__ __forceinline__ void deep_bwd_chain(uint32_t (&g)[FR], const TileMlp& m,
+                                               const DeepStage& st, const uint32_t (&v)[FR],
+                                               const float (&inv)[2]) {
+  if (m.norm) {
+    uint32_t p[FR];
+    rms_bwd(g, p, v, inv, m.scale());
+    frag_to_smem(mine(st.p, TS), TS, p);
+  }
+#pragma unroll 1
+  for (int l = m.n_layers - 1; l >= 1; --l) {
+    frag_to_smem(mine(st.g(l), TS), TS, g);
+    float d[NT][4];
+    zero_acc(d);
+    mma_gw(d, g, m.layer(l), TS, 0);
+    uint32_t act[FR];
+    frag_from_smem(act, mine(st.a(l), TS), TS);
+    round_acc(g, d);
+    if (m.act == mlp_act::RELU) {
+#pragma unroll
+      for (int i = 0; i < FR; ++i) g[i] &= pos_mask(act[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < FR; ++i) {
+        g[i] = mlp_act::grad_pair(g[i], act[i], m.act);
+        act[i] = mlp_act::act_pair(act[i], m.act);
+      }
+      frag_to_smem(mine(st.a(l), TS), TS, act);
+    }
+  }
+  frag_to_smem(mine(st.g(0), TS), TS, g);
+}
+
+// put_grads's layout, added (+=) into a block's slot in device memory, for
+// an MLP of n_layers layers
+template <int N>
+__device__ __forceinline__ void add_grads(float* slot, const float (&dw)[N][4],
+                                          const float (&db)[4], const float (&ds)[4],
+                                          int in_dim, int parts, int L, int mt, bool scale,
+                                          int n_layers) {
+  const int lane = lane_id(), g = lane >> 2, q = lane & 3;
+  const int rows = L == 0 ? in_dim : H;
+  const int pw = L == 0 ? in_dim / parts : H;
+  const int pp = L == 0 && parts == 1 ? in_dim : HP;
+  float* w = slot + (L == 0 ? 0 : in_dim * H + H + (L - 1) * (H * H + H));
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = 16 * mt + g + 8 * (e >> 1), i = 8 * n + 2 * q + (e & 1);
+      const int blk = i / pp, k = i % pp, row = blk * pw + k;
+      if (o < H && k < pw && row < rows) w[row * H + o] += dw[n][e];
+    }
+  if (q == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int o = 16 * mt + g + 8 * r;
+      if (o >= H) continue;
+      w[rows * H + o] += db[2 * r];
+      if (scale) slot[in_dim * H + H + (n_layers - 1) * (H * H + H) + o] += ds[2 * r];
+    }
+  }
+}
+
+// zero a block's slot of the partials (n floats); the block syncs after
+__device__ inline float* zero_slot(float* part, int n) {
+  float* slot = part + static_cast<long long>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) slot[i] = 0.f;
+  return slot;
+}
+
+// pass 1 on tile t, deep: node_tile on a DeepStage
+__device__ __forceinline__ void deep_node_tile(const PassArgs& a, const TileMlp& node,
+                                               const DeepStage& st, long long t, int chunks) {
+  const int B = a.batch;
+  const int b0 = 16 * static_cast<int>(t % chunks), nv = min(16, B - b0);
+  const long long xb = ((t / chunks) * B + b0) * H;
+  uint32_t xf[FR], ag[FR];
+  frag_load(xf, a.x + xb, H, nv);
+  frag_load(ag, a.agg + xb, H, nv);
+  bf16* a0 = mine(st.a0, st.a0_stride);
+  frag_to_smem(a0, st.a0_stride, xf);
+  frag_to_smem(a0 + HP, st.a0_stride, ag);
+  float d[NT][4];
+  zero_acc(d);
+  mma_awt(d, xf, node.layer(0), node.stride0, 0);
+  mma_awt(d, ag, node.layer(0), node.stride0, HP);
+  uint32_t v[FR], g[FR];
+  float inv[2];
+  deep_fwd_keep(d, node, st, v, inv);
+  frag_load(xf, a.g_xout + xb, H, nv);
+#pragma unroll
+  for (int i = 0; i < FR; ++i) g[i] = xf[i];
+  deep_bwd_chain(g, node, st, v, inv);
+  zero_acc(d);
+  mma_gw(d, g, node.layer(0), node.stride0, 0);
+  round_acc(v, d);
+  add_tiles(xf, xf, v);
+  frag_store(a.dx + xb, H, nv, xf);
+  zero_acc(d);
+  mma_gw(d, g, node.layer(0), node.stride0, HP);
+  round_acc(v, d);
+  frag_store(a.gagg + xb, H, nv, v);
+}
+
+// pass 1, deep: nodemlp_pass for a node MLP of any depth
+__device__ __forceinline__ void deep_nodemlp_pass(const PassArgs& a) {
+  extern __shared__ __align__(16) unsigned char pass_smem[];
+  constexpr int A0S = 2 * HP + 8;
+  bf16* at = reinterpret_cast<bf16*>(pass_smem);
+  const TileMlp node = stage_tile_mlp(at, a.node);
+  at += tile_mlp_elems(a.node);
+  bf16* const stage0 = at;
+  const DeepStage st = carve_deep(at, A0S, node.n_layers);
+  zero_smem(stage0, at);
+  float* slot = zero_slot(a.part, mlp_floats(a.node));
+  __syncthreads();
+  const int warp = threadIdx.x / 32, pairs = node.n_layers * MT;
+  const int chunks = (a.batch + 15) / 16;
+  const long long tiles = static_cast<long long>(a.n_nodes) * chunks;
+  const long long groups = (tiles + DEEP_WARPS - 1) / DEEP_WARPS;
+  for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const long long t = grp * DEEP_WARPS + warp;
+    if (t < tiles)
+      deep_node_tile(a, node, st, t, chunks);
+    else
+      deep_zero_cots(st, node);
+    __syncthreads();
+#pragma unroll 1
+    for (int pi = warp; pi < pairs; pi += DEEP_WARPS) {
+      const int L = pi / MT, mt = pi % MT;
+      const bool scale = node.norm && L == node.n_layers - 1;
+      float dw[2 * NT][4], db[4], ds[4];
+      zero_sums<2 * NT>(dw, db, ds);
+      wgrad<2 * NT, DEEP_WARPS>(dw, db, ds, st.g(L), st.a(L), L == 0 ? A0S : TS,
+                                scale ? st.p : nullptr, mt, L == 0 ? 2 * NT : NT);
+      add_grads<2 * NT>(slot, dw, db, ds, 2 * H, 2, L, mt, scale, node.n_layers);
+    }
+    __syncthreads();
+  }
+}
+
+// pass 2 on tile t, deep: row_tile on DeepStages
+template <class Rows, bool FOLD>
+__device__ __forceinline__ void deep_row_tile(const PassArgs& a, const TileMlp& edge,
+                                              const TileMlp& enc, const DeepStage& es,
+                                              const DeepStage& ns, long long t, int chunks,
+                                              long long pad0) {
+  const int B = a.batch;
+  const long long s = t / chunks;
+  const int b0 = 16 * static_cast<int>(t % chunks), nv = min(16, B - b0);
+  const long long rb = s * B + b0;
+  const bool ranged = s < pad0;
+  const bool valid = ranged && a.mask[s];
+  uint32_t geo[FR];
+  if (a.g_eout)
+    frag_load(geo, a.g_eout + rb * H, H, nv);
+  else
+    zero_frag(geo);
+  const bool enc_live = FOLD && (valid || a.g_eout != nullptr);
+  uint32_t ein[FR], venc[FR];
+  float ienc[2];
+  if (FOLD) {
+    if (enc_live) {
+      uint32_t rf[FR];
+      raw_load(rf, a.e + rb * a.fe, a.fe, 0, nv);
+      frag_to_smem(mine(ns.a0, TS), TS, rf);
+      float d[NT][4];
+      zero_acc(d);
+      mma_awt(d, rf, enc.layer(0), enc.stride0, 0, (a.fe + 15) / 16);
+      deep_fwd_keep(d, enc, ns, venc, ienc);
+#pragma unroll
+      for (int i = 0; i < FR; ++i) ein[i] = venc[i];
+      if (enc.norm) rms_apply(ein, ienc, enc.scale());
+    }
+  } else {
+    frag_load(ein, a.e + rb * H, H, nv);
+  }
+  uint32_t de[FR];
+  if (valid) {
+    frag_to_smem(mine(es.a0, TS), TS, ein);
+    float d[NT][4];
+    zero_acc(d);
+    mma_awt(d, ein, edge.layer(0), edge.stride0, 0);
+    const long long r = Rows::receiver(a, s);
+    uint32_t g[FR], v[FR];
+    frag_load(g, a.xkr + (r * B + b0) * H, H, nv);
+    add_frag(d, g);
+    frag_load(g, a.xks + (static_cast<long long>(a.senders[s]) * B + b0) * H, H, nv);
+    add_frag(d, g);
+    float inv[2];
+    deep_fwd_keep(d, edge, es, v, inv);
+    frag_load(g, a.gagg + (r * B + b0) * H, H, nv);
+    add_tiles(g, g, geo);
+    deep_bwd_chain(g, edge, es, v, inv);
+    frag_store(a.gh0 + rb * H, H, nv, g);
+    zero_acc(d);
+    mma_gw(d, g, edge.layer(0), edge.stride0, 0);
+    round_acc(de, d);
+    add_tiles(de, de, geo);
+  } else {
+    deep_zero_cots(es, edge);
+    zero_frag(de);
+    if (ranged) frag_store(a.gh0 + rb * H, H, nv, de);
+#pragma unroll
+    for (int i = 0; i < FR; ++i) de[i] = geo[i];
+  }
+  if (!FOLD)
+    frag_store(a.de + rb * H, H, nv, de);
+  else if (enc_live)
+    deep_bwd_chain(de, enc, ns, venc, ienc);
+  else
+    deep_zero_cots(ns, enc);
+}
+
+// pass 2, deep: row_pass for edge (and encoder) MLPs of any depth
+template <class Rows, bool FOLD>
+__device__ __forceinline__ void deep_row_pass(const PassArgs& a) {
+  extern __shared__ __align__(16) unsigned char pass_smem[];
+  bf16* at = reinterpret_cast<bf16*>(pass_smem);
+  const TileMlp edge = stage_tile_mlp(at, a.edge);
+  at += tile_mlp_elems(a.edge);
+  TileMlp enc{};
+  if (FOLD) {
+    enc = stage_tile_mlp(at, a.enc);
+    at += tile_mlp_elems(a.enc);
+  }
+  bf16* const stage0 = at;
+  const DeepStage es = carve_deep(at, TS, edge.n_layers);
+  DeepStage ns{};
+  if (FOLD) ns = carve_deep(at, TS, enc.n_layers);
+  zero_smem(stage0, at);
+  const int n_edge = mlp_floats(a.edge), n_enc = FOLD ? mlp_floats(a.enc) : 0;
+  float* slot = zero_slot(a.part, n_edge + n_enc);
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+  const int edge_pairs = edge.n_layers * MT, pairs = edge_pairs + (FOLD ? enc.n_layers * MT : 0);
+  const int chunks = (a.batch + 15) / 16;
+  const long long pad0 = Rows::ranged_end(a);
+  const long long tiles = static_cast<long long>(a.total_rows) * chunks;
+  const long long groups = (tiles + DEEP_WARPS - 1) / DEEP_WARPS;
+  for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const long long t = grp * DEEP_WARPS + warp;
+    if (t < tiles) {
+      deep_row_tile<Rows, FOLD>(a, edge, enc, es, ns, t, chunks, pad0);
+    } else {
+      deep_zero_cots(es, edge);
+      if (FOLD) deep_zero_cots(ns, enc);
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int pi = warp; pi < pairs; pi += DEEP_WARPS) {
+      const bool is_enc = pi >= edge_pairs;
+      const int q = is_enc ? pi - edge_pairs : pi;
+      const int L = q / MT, mt = q % MT;
+      const int n = is_enc ? enc.n_layers : edge.n_layers;
+      const bool scale = (is_enc ? enc.norm : edge.norm) && L == n - 1;
+      const DeepStage& st = is_enc ? ns : es;
+      float dw[NT][4], db[4], ds[4];
+      zero_sums<NT>(dw, db, ds);
+      wgrad<NT, DEEP_WARPS>(dw, db, ds, st.g(L), st.a(L), TS, scale ? st.p : nullptr, mt, NT);
+      if (is_enc)
+        add_grads<NT>(slot + n_edge, dw, db, ds, a.fe, 1, L, mt, scale, n);
+      else
+        add_grads<NT>(slot, dw, db, ds, 3 * H, 3, L, mt, scale, n);
+    }
+    __syncthreads();
+  }
+}
+
 using PassKernel = void (*)(const PassArgs);
+
+// the calling source's wrappers of deep_nodemlp_pass and deep_row_pass
+// (without and with the folded encoder)
+struct DeepKernels {
+  PassKernel nodemlp, rows, rows_fold;
+};
 
 // whether an MLP of the backward takes another activation than relu (the
 // ACTS instances of the node-MLP and row passes, gn_tile.cuh:fix_act)
@@ -628,25 +986,38 @@ inline cudaError_t partial_pool(cudaMemPool_t* pool) {
 
 // the pre-pass (gn_partial_tc_kernel) and passes 1-3 on ``stream``, each
 // pass kernel one of the calling source's wrappers of the bodies above
-// (those of the ACTS instance any_act chose; the row pass in two
-// instances: without and with the folded encoder),
+// (those of the ACTS instance any_act chose, or the deep instance of a pass
+// whose MLPs have another depth than NL; the row pass in two instances:
+// without and with the folded encoder),
 // each pass followed by the block-ordered sum of its blocks' gradient
 // partials (gn_bwd_common.cuh) from one stream-ordered fp32 buffer of
 // partial_pool
 inline cudaError_t launch_passes(const PassArgs& args, cudaStream_t stream, PassKernel nodemlp,
-                                 PassKernel rows, PassKernel rows_fold, PassKernel send) {
+                                 PassKernel rows, PassKernel rows_fold, PassKernel send,
+                                 const DeepKernels& deep) {
   PassArgs a = args;
   const int chunks = (a.batch + 15) / 16;
   const bool fold = a.fe > 0;
-  // each block stages its gradients in its staging area at its end: the
-  // staging (>= 92 KB) outsizes the MLPs' fp32 gradients (<= 42 KB)
-  const PassKernel kernels[3] = {nodemlp, fold ? rows_fold : rows, send};
+  // an MLP of another depth than NL takes the deep instance of its pass
+  const bool deep_node = a.node.n_layers != NL;
+  const bool deep_rows = a.edge.n_layers != NL || (fold && a.enc.n_layers != NL);
+  // each block of an NL instance stages its gradients in its staging area
+  // at its end: the staging (>= 92 KB) outsizes the MLPs' fp32 gradients
+  // (<= 42 KB)
+  const PassKernel kernels[3] = {
+      deep_node ? deep.nodemlp : nodemlp,
+      deep_rows ? (fold ? deep.rows_fold : deep.rows) : (fold ? rows_fold : rows), send};
+  const size_t mlps_bytes = sizeof(bf16) * (tile_mlp_elems(a.edge) +
+                                            (fold ? tile_mlp_elems(a.enc) : 0));
   const size_t smem[3] = {
-      sizeof(bf16) * tile_mlp_elems(a.node) + stage_bytes(2 * HP + 8),
-      sizeof(bf16) * (tile_mlp_elems(a.edge) + (fold ? tile_mlp_elems(a.enc) : 0)) +
-          stage_bytes(TS) * (fold ? 2 : 1),
+      sizeof(bf16) * tile_mlp_elems(a.node) +
+          (deep_node ? deep_stage_bytes(2 * HP + 8, a.node.n_layers) : stage_bytes(2 * HP + 8)),
+      mlps_bytes + (deep_rows ? deep_stage_bytes(TS, a.edge.n_layers) +
+                                    (fold ? deep_stage_bytes(TS, a.enc.n_layers) : 0)
+                              : stage_bytes(TS) * (fold ? 2 : 1)),
       sizeof(float) * (2 * SQ + SEND_WARPS * (2 * SQ + STAGE))};
-  const int threads[3] = {PASS_THREADS, PASS_THREADS, SEND_THREADS};
+  const int threads[3] = {deep_node ? DEEP_THREADS : PASS_THREADS,
+                          deep_rows ? DEEP_THREADS : PASS_THREADS, SEND_THREADS};
   // a warp a 16-sample tile in passes 1 and 2, a thread a (node, sample) in 3
   const long long work[3] = {32LL * a.n_nodes * chunks, 32LL * a.total_rows * chunks,
                              static_cast<long long>(a.n_nodes) * a.batch};

@@ -29,6 +29,15 @@
 // encoder's output e_in from the encoder pass (written where e_out goes,
 // and read back in place), and the aggregate goes to device memory between
 // the edge and node passes.
+//
+// An MLP may have 1 to MAXL Dense layers. Each further layer takes H·TS
+// bf16 (35 KB at 128), so at hidden 128 an MLP of more layers than fit a
+// block's 227 KB (the node MLP 5, the edge MLP 6) keeps its first layers
+// resident (resident_layers) and reads the rest from device memory: their
+// B fragments straight from the fp32 nn.Linear weights, each pair rounded
+// to bf16 as staging rounds it (mma_awt_g, mma_gw_g), so a product has the
+// same operands and order, resident or not. The weights are small (64 KB a
+// layer) and stay in L2.
 #pragma once
 
 #ifndef GN_WIDE_H
@@ -54,7 +63,7 @@ using bf2 = __nv_bfloat162;
 
 constexpr int H = GN_WIDE_H;  // hidden width
 static_assert(H == 64 || H == 128, "the wide GraphNetBlock kernels are built for 64 and 128");
-constexpr int NL = 4;         // Dense layers per MLP
+using gn_nk::MAXL;            // most Dense layers per MLP
 constexpr int NF = H / 4;     // bf16-pair registers of a tile, a lane
 constexpr int NT = H / 8;     // n8 tiles of a tile's width
 constexpr int KS = H / 16;    // k-steps of a tile's width
@@ -301,25 +310,45 @@ __device__ __forceinline__ void rms_bwd(uint32_t (&g)[NF], uint32_t (&p)[NF],
   }
 }
 
-// An MLP of NL Dense layers in shared memory: layer 0's first ``width0``
-// input columns as [H][pad16(width0) + 8] (zero past width0), layers 1..
-// as [H][TS], then the biases [NL][H] and the RMSNorm scale [H], all bf16
+// An MLP of n_layers Dense layers in shared memory: layer 0's first
+// ``width0`` input columns as [H][pad16(width0) + 8] (zero past width0),
+// layers 1..resident-1 as [H][TS], then the biases [n_layers][H] and the
+// RMSNorm scale [H], all bf16; layers resident.. stay in device memory
+// (``wg``: the fp32 nn.Linear weights)
 struct WMlp {
   const bf16* w0;
   const bf16* vec;
-  int stride0;
+  const float* const* wg;
+  int stride0, n_layers, resident;
   bool norm;
   int act;  // the activation between layers (mlp_act::Kind)
   __device__ const bf16* layer(int l) const {
     return l == 0 ? w0 : w0 + H * stride0 + (l - 1) * H * TS;
   }
   __device__ const bf16* bias(int l) const { return vec + H * l; }
-  __device__ const bf16* scale() const { return vec + H * NL; }
+  __device__ const bf16* scale() const { return vec + H * n_layers; }
 };
 
-// bf16 elements a WMlp takes (a multiple of 8: 16 bytes)
-__host__ __device__ inline int wmlp_elems(int width0) {
-  return H * (pad16(width0) + 8) + (NL - 1) * H * TS + H * (NL + 1);
+// the dynamic shared memory an MLP may take: a block's 227 KB on this
+// card, less a margin for the kernels' static arrays (stage_mlp's)
+constexpr int SMEM_LIMIT = 232448 - 1024;
+
+// bf16 elements a WMlp takes with its first ``resident`` layers in shared
+// memory (a multiple of 8: 16 bytes)
+__host__ __device__ inline int wmlp_elems_of(int width0, int n_layers, int resident) {
+  return H * (pad16(width0) + 8) + (resident - 1) * H * TS + H * (n_layers + 1);
+}
+
+// how many of an MLP's layers, from layer 0, fit in shared memory
+__host__ __device__ inline int resident_layers(int width0, int n_layers) {
+  int r = n_layers;
+  while (r > 1 && 2 * wmlp_elems_of(width0, n_layers, r) > SMEM_LIMIT) --r;
+  return r;
+}
+
+// bf16 elements a WMlp of n_layers takes in shared memory
+__host__ __device__ inline int wmlp_elems(int width0, int n_layers) {
+  return wmlp_elems_of(width0, n_layers, resident_layers(width0, n_layers));
 }
 
 // columns col0..col0+width-1 of an fp32 [H, in_dim] kernel as bf16
@@ -333,45 +362,127 @@ __device__ inline void stage_w(bf16* dst, const float* w, int in_dim, int col0, 
 }
 
 // stage the MLP (fp32, nn.Linear [out, in]) at dst with layer 0's first
-// width0 input columns; the block must sync before using it
+// width0 input columns (its resident layers, the vectors; the layers'
+// device pointers in a shared table, so that no kernel takes the address
+// of its parameters); the block must sync before using it
 __device__ inline WMlp stage_mlp(bf16* dst, const Mlp& m, int width0) {
+  __shared__ const float* s_wg[MAXL];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int l = 0; l < MAXL; ++l) s_wg[l] = m.w[l];
+  }
   WMlp t;
   t.w0 = dst;
+  t.wg = s_wg;
   t.stride0 = pad16(width0) + 8;
+  t.n_layers = m.n_layers;
+  t.resident = resident_layers(width0, m.n_layers);
   t.norm = m.scale != nullptr;
   t.act = m.act;
   stage_w(dst, m.w[0], m.in_dim, 0, width0, t.stride0);
   bf16* w = dst + H * t.stride0;
-  for (int l = 1; l < NL; ++l, w += H * TS) stage_w(w, m.w[l], H, 0, H, TS);
+  for (int l = 1; l < t.resident; ++l, w += H * TS) stage_w(w, m.w[l], H, 0, H, TS);
   t.vec = w;
-  for (int i = threadIdx.x; i < H * (NL + 1); i += blockDim.x) {
+  const int nl = m.n_layers;
+  for (int i = threadIdx.x; i < H * (nl + 1); i += blockDim.x) {
     const int l = i / H, o = i % H;
-    const float v = l < NL ? m.b[l][o] : (m.scale ? m.scale[o] : 0.f);
+    const float v = l < nl ? m.b[l][o] : (m.scale ? m.scale[o] : 0.f);
     w[i] = __float2bfloat16_rn(v);
   }
   return t;
 }
 
+// two fp32 values as a bf16 pair (each rounded once), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf(float lo, float hi) {
+  return bits(__floats2bfloat162_rn(lo, hi));
+}
+
+// mma_awt(d, a, W, TS, 0) for an H x H layer W in device memory (fp32
+// nn.Linear [out, in]): lane l's B fragment of n-tile n, k-step ks is
+// W[8n + l/4][16ks + 2(l%4) + {0, 1}] and the same 8 columns on
+__device__ __forceinline__ void mma_awt_g(float (&d)[NT][4], const uint32_t (&a)[NF],
+                                          const float* w) {
+  const int lane = lane_id(), r = lane >> 2, c = 2 * (lane & 3);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint32_t af[4] = {a[4 * ks], a[4 * ks + 1], a[4 * ks + 2], a[4 * ks + 3]};
+#pragma unroll 4
+    for (int n = 0; n < NT; ++n) {
+      const float* p = w + (8 * n + r) * H + 16 * ks + c;
+      const float2 lo = __ldg(reinterpret_cast<const float2*>(p));
+      const float2 hi = __ldg(reinterpret_cast<const float2*>(p + 8));
+      mma(d[n], af, pack_bf(lo.x, lo.y), pack_bf(hi.x, hi.y));
+    }
+  }
+}
+
+// mma_gw(d, g, W, TS, 0) for an H x H layer W in device memory: lane l's
+// B fragment of n-tile n, k-step ks is W[16ks + 2(l%4) + {0, 1}][8n + l/4]
+// and the same 8 rows on
+__device__ __forceinline__ void mma_gw_g(float (&d)[NT][4], const uint32_t (&g)[NF],
+                                         const float* w) {
+  const int lane = lane_id(), r = lane >> 2, c = 2 * (lane & 3);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint32_t af[4] = {g[4 * ks], g[4 * ks + 1], g[4 * ks + 2], g[4 * ks + 3]};
+#pragma unroll 4
+    for (int n = 0; n < NT; ++n) {
+      const float* p = w + (16 * ks + c) * H + 8 * n + r;
+      mma(d[n], af, pack_bf(__ldg(p), __ldg(p + H)), pack_bf(__ldg(p + 8 * H), __ldg(p + 9 * H)));
+    }
+  }
+}
+
+// d += A · W_lᵀ: layer l (>= 1) of the MLP, resident or (STREAM: the
+// any-activation instance, fix_act) in device memory
+template <bool STREAM>
+__device__ __forceinline__ void layer_awt(float (&d)[NT][4], const uint32_t (&a)[NF],
+                                          const WMlp& m, int l) {
+  if (!STREAM || l < m.resident)
+    mma_awt(d, a, m.layer(l), TS, 0);
+  else
+    mma_awt_g(d, a, m.wg[l]);
+}
+
+// d += G · W_l: layer l (>= 1) of the MLP, resident or (STREAM) in
+// device memory
+template <bool STREAM>
+__device__ __forceinline__ void layer_gw(float (&d)[NT][4], const uint32_t (&g)[NF],
+                                         const WMlp& m, int l) {
+  if (!STREAM || l < m.resident)
+    mma_gw(d, g, m.layer(l), TS, 0);
+  else
+    mma_gw_g(d, g, m.wg[l]);
+}
+
 // Each kernel that runs an MLP comes in two instances, ACTS false and
-// true: with ACTS false its MLP is relu, a constant the compiler folds, so
-// that instance is the relu-only code (its registers, its grid, its bits);
-// with ACTS true the activation is read at run time. The launchers pick the
-// instance by the MLP's activation.
+// true: with ACTS false its MLP is relu and all its layers resident,
+// constants the compiler folds, so that instance is the relu-only code
+// (its registers, its grid, its bits); with ACTS true the activation is
+// read at run time and layers past resident_layers come from device
+// memory. The launchers pick the instance by the MLP (any_instance).
 template <bool ACTS>
 __device__ __forceinline__ void fix_act(WMlp& m) {
   if (!ACTS) m.act = mlp_act::RELU;
 }
 
-// layers 1..NL-1 (the activation between layers) and the RMSNorm tail, if
-// any, of an MLP on the tile; h holds layer 0's output
+// whether an MLP (layer 0 width0 wide) takes a kernel's ACTS instance:
+// another activation than relu, or layers that do not all fit
+inline bool any_instance(const Mlp& m, int width0) {
+  return m.act != mlp_act::RELU || resident_layers(width0, m.n_layers) < m.n_layers;
+}
+
+// layers 1..n_layers-1 (the activation between layers) and the RMSNorm
+// tail, if any, of an MLP on the tile; h holds layer 0's output
+template <bool STREAM>
 __device__ __forceinline__ void mlp_tail(uint32_t (&h)[NF], const WMlp& m) {
 #pragma unroll 1
-  for (int l = 1; l < NL; ++l) {
+  for (int l = 1; l < m.n_layers; ++l) {
     uint32_t a[NF];
     activate(a, h, m.act);
     float d[NT][4];
     zero_acc(d);
-    mma_awt(d, a, m.layer(l), TS, 0);
+    layer_awt<STREAM>(d, a, m, l);
     finish(h, d, m.bias(l));
   }
   if (m.norm) {
@@ -471,15 +582,15 @@ __global__ void __launch_bounds__(THREADS, 1) GNW(enc_fwd)(const bf16* raw, bf16
     uint32_t h[NF];
     enc_first(d, h, raw + rb * fe, fe, m, nv);
     finish(h, d, m.bias(0));
-    mlp_tail(h, m);
+    mlp_tail<ACTS>(h, m);
     frag_store(dst + rb * H, nv, h);
   }
 }
 
 inline cudaError_t launch_enc_fwd(const bf16* raw, bf16* dst, const Mlp& enc, long long rows,
                                   int batch, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * wmlp_elems(enc.in_dim);
-  const auto kernel = enc.act != mlp_act::RELU ? GNW(enc_fwd)<true> : GNW(enc_fwd)<false>;
+  const size_t smem = sizeof(bf16) * wmlp_elems(enc.in_dim, enc.n_layers);
+  const auto kernel = any_instance(enc, enc.in_dim) ? GNW(enc_fwd)<true> : GNW(enc_fwd)<false>;
   int grid = 0;
   cudaError_t err = grid_of(reinterpret_cast<const void*>(kernel), smem,
                             rows * ((batch + 15) / 16), &grid);
@@ -488,10 +599,10 @@ inline cudaError_t launch_enc_fwd(const bf16* raw, bf16* dst, const Mlp& enc, lo
   return cudaGetLastError();
 }
 
-// the MLPs a wide kernel takes: NL Dense layers each (layer 0 in_dim wide),
-// ``act`` the activation (mlp_act::Kind)
+// the MLPs a wide kernel takes: 1 to MAXL Dense layers each (layer 0
+// in_dim wide), ``act`` the activation (mlp_act::Kind)
 inline bool make_wide_mlp(Mlp* m, const void* const* p, int n_layers, int in_dim, int act) {
-  return n_layers == NL && gn_nk::make_mlp(m, p, NL, in_dim, 1, act);
+  return gn_nk::make_mlp(m, p, n_layers, in_dim, 1, act);
 }
 
 }  // namespace gnw

@@ -23,12 +23,14 @@
 //     writes e_in to a scratch;
 //  1. node pass, a warp per (node, 16 samples), the node MLP resident: its
 //     forward from [x | agg] and backward from g_xout, storing each
-//     layer's relu'd input A_1..3, the cotangents G_0..3 at the layers'
-//     outputs and the RMSNorm scale's terms P; dx's node part and g_agg;
+//     later layer's relu'd input A_1.., the cotangents G_0.. at the
+//     layers' outputs and the RMSNorm scale's terms P; dx's node part and
+//     g_agg;
 //  2. row pass, a warp per (row, 16 samples) of every row, the edge MLP
-//     (Ke, layers 1-3) resident: the edge MLP's forward, its backward from
-//     g_agg[r] + g_eout, its A_1..3, G_0..3 (G_0 is g_h0) and P, de; rows
-//     outside every receiver's range and masked rows store zeros;
+//     (Ke, its later layers) resident: the edge MLP's forward, its
+//     backward from g_agg[r] + g_eout, its A_1.., G_0.. (G_0 is g_h0) and
+//     P, de; rows outside every receiver's range and masked rows store
+//     zeros;
 //  3. sender pass, a warp per (node, 16 samples): P_r over the node's own
 //     rows and P_s over the sender-sorted row list (fp32 sums in row
 //     order, ops/tiling.cached_sender_slots), both stored; dx finished
@@ -59,8 +61,16 @@ namespace gnw {
 
 using namespace gn_rows;
 
-// an MLP's scratch slots: A_1..3, G_0..3, P
-enum { A1 = 0, G0 = 3, P_SLOT = 7, SLOTS = 8, PR = 8, PS = 9 };
+// an MLP's scratch slots: A_1..A_{MAXL-1}, G_0..G_{MAXL-1}, P (an MLP of n
+// layers uses A_1..A_{n-1}, G_0..G_{n-1} and P: 2n slots; launch_bwd gives
+// only those memory)
+enum { A1 = 0, G0 = MAXL - 1, P_SLOT = 2 * MAXL - 1, SLOTS = 2 * MAXL, PR = SLOTS,
+       PS = SLOTS + 1 };
+
+// whether an MLP of n layers uses slot i
+__host__ __device__ inline bool slot_used(int i, int n) {
+  return (i >= A1 && i < A1 + n - 1) || (i >= G0 && i < G0 + n) || i == P_SLOT;
+}
 
 struct BwdArgs : RowMap {
   const bf16* x;           // [N, B, H]
@@ -102,12 +112,13 @@ struct Slots {
 // the pre-activation, which bwd_chain needs for the derivative and then
 // overwrites with A_l = act(pre), so the slot's bytes are relu's; v gets
 // the last layer's output (the RMSNorm's input) and inv its statistic
+template <bool STREAM>
 __device__ __forceinline__ void fwd_keep(const float (&d0)[NT][4], const WMlp& m, const Slots& sl,
                                          long long off, int nv, uint32_t (&v)[NF],
                                          float (&inv)[2]) {
   finish(v, d0, m.bias(0));
 #pragma unroll 1
-  for (int l = 1; l < NL; ++l) {
+  for (int l = 1; l < m.n_layers; ++l) {
     uint32_t act[NF];
     activate(act, v, m.act);
     if (m.act == mlp_act::RELU)  // two calls: a selected array would go to local memory
@@ -116,16 +127,17 @@ __device__ __forceinline__ void fwd_keep(const float (&d0)[NT][4], const WMlp& m
       frag_store(sl.a(l) + off, nv, v);
     float d[NT][4];
     zero_acc(d);
-    mma_awt(d, act, m.layer(l), TS, 0);
+    layer_awt<STREAM>(d, act, m, l);
     finish(v, d, m.bias(l));
   }
   inv[0] = inv[1] = 1.f;
   if (m.norm) rms_inv(inv, v);
 }
 
-// The backward through the RMSNorm and layers NL-1..1 (JAX _mlp_bwd): g in,
+// The backward through the RMSNorm and layers n-1..1 (JAX _mlp_bwd): g in,
 // the cotangent at the MLP's output; out, the cotangent at layer 0's
 // output. Stores P and every G_l; reads back the lane's own A_l stores.
+template <bool STREAM>
 __device__ __forceinline__ void bwd_chain(uint32_t (&g)[NF], const WMlp& m, const Slots& sl,
                                           long long off, int nv, const uint32_t (&v)[NF],
                                           const float (&inv)[2]) {
@@ -135,11 +147,11 @@ __device__ __forceinline__ void bwd_chain(uint32_t (&g)[NF], const WMlp& m, cons
     frag_store(sl.p() + off, nv, p);
   }
 #pragma unroll 1
-  for (int l = NL - 1; l >= 1; --l) {
+  for (int l = m.n_layers - 1; l >= 1; --l) {
     frag_store(sl.g(l) + off, nv, g);
     float d[NT][4];
     zero_acc(d);
-    mma_gw(d, g, m.layer(l), TS, 0);
+    layer_gw<STREAM>(d, g, m, l);
     uint32_t act[NF];
     frag_load(act, sl.a(l) + off, nv);
     round_acc(g, d);
@@ -159,12 +171,13 @@ __device__ __forceinline__ void bwd_chain(uint32_t (&g)[NF], const WMlp& m, cons
 }
 
 // a tile that adds nothing to the weight gradients: zero slots
-__device__ __forceinline__ void zero_slots(const Slots& sl, long long off, int nv, bool norm) {
+__device__ __forceinline__ void zero_slots(const Slots& sl, long long off, int nv,
+                                           const WMlp& m) {
   uint32_t z[NF];
   zero_frag(z);
-  for (int l = 1; l < NL; ++l) frag_store(sl.a(l) + off, nv, z);
-  for (int l = 0; l < NL; ++l) frag_store(sl.g(l) + off, nv, z);
-  if (norm) frag_store(sl.p() + off, nv, z);
+  for (int l = 1; l < m.n_layers; ++l) frag_store(sl.a(l) + off, nv, z);
+  for (int l = 0; l < m.n_layers; ++l) frag_store(sl.g(l) + off, nv, z);
+  if (m.norm) frag_store(sl.p() + off, nv, z);
 }
 
 // g_eout's tile, or zeros on the last block
@@ -203,10 +216,10 @@ __global__ void __launch_bounds__(THREADS, 1) GNW(node_bwd)(const BwdArgs a) {
       mma_awt(d, f, node.layer(0), node.stride0, 0);
       frag_load(f, a.agg + xb, nv);
       mma_awt(d, f, node.layer(0), node.stride0, H);
-      fwd_keep(d, node, sl, xb, nv, v, inv);
+      fwd_keep<ACTS>(d, node, sl, xb, nv, v, inv);
     }
     frag_load(g, a.g_xout + xb, nv);
-    bwd_chain(g, node, sl, xb, nv, v, inv);
+    bwd_chain<ACTS>(g, node, sl, xb, nv, v, inv);
     float d[NT][4];
     uint32_t f[NF];
     zero_acc(d);
@@ -242,7 +255,7 @@ __device__ __forceinline__ void row_bwd_body(const BwdArgs& a) {
     const int nv = min(16, B - b0);
     const long long off = (s * B + b0) * H;
     if (!(s < pad0 && a.mask[s])) {  // padding or masked: g_h0 = 0, de = g_eout
-      zero_slots(sl, off, nv, edge.norm);
+      zero_slots(sl, off, nv, edge);
       uint32_t f[NF];
       eout_cot(f, a, off, nv);
       frag_store(a.de + off, nv, f);
@@ -261,7 +274,7 @@ __device__ __forceinline__ void row_bwd_body(const BwdArgs& a) {
       add_frag(d, f);
       frag_load(f, a.xks + (static_cast<long long>(a.senders[s]) * B + b0) * H, nv);
       add_frag(d, f);
-      fwd_keep(d, edge, sl, off, nv, v, inv);
+      fwd_keep<ACTS>(d, edge, sl, off, nv, v, inv);
     }
     {
       uint32_t f[NF];
@@ -269,7 +282,7 @@ __device__ __forceinline__ void row_bwd_body(const BwdArgs& a) {
       eout_cot(f, a, off, nv);
       add_tiles(g, g, f);
     }
-    bwd_chain(g, edge, sl, off, nv, v, inv);
+    bwd_chain<ACTS>(g, edge, sl, off, nv, v, inv);
     float d[NT][4];
     uint32_t f[NF];
     zero_acc(d);
@@ -366,21 +379,20 @@ __global__ void __launch_bounds__(THREADS, 1) GNW(enc_bwd)(const BwdArgs a) {
       uint32_t rf[NF];
       enc_first(d, rf, a.raw + rb * fe, fe, enc, nv);
       frag_store(a.cs[0] + off, nv, rf);  // A_0: the raw rows, zero past fe
-      fwd_keep(d, enc, sl, off, nv, v, inv);
+      fwd_keep<ACTS>(d, enc, sl, off, nv, v, inv);
     }
     frag_load(g, a.de + off, nv);
-    bwd_chain(g, enc, sl, off, nv, v, inv);
+    bwd_chain<ACTS>(g, enc, sl, off, nv, v, inv);
   }
 }
 
 // ---- weight gradients: products over the rows, partials, ordered sum ----
 
 constexpr int TK = 64;           // rows a tile of the weight-gradient pass
-constexpr int MAXP = 16;         // products a call
+constexpr int MAXP = 24;         // products a call (the main call at MAXL layers: 21)
 constexpr int PSZ = H * H + H;   // a partial: the [H][H] tile and H column sums
 constexpr int SPLIT_ROWS = 8192;
 constexpr int MAX_SPLITS = 96;
-constexpr int MAIN_PRODUCTS = 13;  // the edge MLP's 7 (Kr, Ks among them), the node MLP's 6
 
 // One product: out[m][k] = sum over rows of g[row][m] · a[row][k], into
 // w[m · in_dim + col0 + k] for k < width (a null: none), and the column
@@ -533,7 +545,7 @@ inline void add_mlp_products(WgradArgs& wa, const Mlp& grad, bf16* const* slots,
                              long long rows, int width) {
   wa.p[wa.n++] = {slots[G0], a0, const_cast<float*>(grad.w[0]), const_cast<float*>(grad.b[0]),
                   rows, grad.in_dim, 0, width};
-  for (int l = 1; l < NL; ++l)
+  for (int l = 1; l < grad.n_layers; ++l)
     wa.p[wa.n++] = {slots[G0 + l], slots[A1 + l - 1], const_cast<float*>(grad.w[l]),
                     const_cast<float*>(grad.b[l]), rows, H, 0, H};
   if (grad.scale)
@@ -541,11 +553,22 @@ inline void add_mlp_products(WgradArgs& wa, const Mlp& grad, bf16* const* slots,
                     0};
 }
 
-// bf16 scratch elements (which = 0) and fp32 partial elements (1) of a call
-inline long long bwd_sizes(int which, int n_nodes, int batch, long long total_rows, int fe) {
+// bf16 scratch elements (which = 0) and fp32 partial elements (1) of a
+// call with MLPs of n_edge, n_node and (folded, fe > 0) n_enc layers: the
+// node MLP's 2·n_node slots, and 2·n edge-row slots for the deeper of the
+// edge MLP and the encoder, which reuses the edge MLP's
+inline long long bwd_sizes(int which, int n_nodes, int batch, long long total_rows, int fe,
+                           int n_edge, int n_node, int n_enc) {
   const long long nrows = static_cast<long long>(n_nodes) * batch, erows = total_rows * batch;
-  if (which == 0) return (3 + SLOTS + 2) * nrows * H + (SLOTS + (fe > 0 ? 2 : 0)) * erows * H;
-  return static_cast<long long>(MAIN_PRODUCTS) * splits_for(erows > nrows ? erows : nrows) * PSZ;
+  const int n_rows_mlp = fe > 0 && n_enc > n_edge ? n_enc : n_edge;
+  if (which == 0)
+    return (3 + 2 * n_node + 2) * nrows * H + (2 * n_rows_mlp + (fe > 0 ? 2 : 0)) * erows * H;
+  // the main call's products: the edge MLP's (Kr and Ks among them), then
+  // the node MLP's (its aggregate's columns among them), each scale
+  // counted; the encoder's call reuses the buffer
+  const int main = n_edge + 3 + n_node + 2, enc = fe > 0 ? n_enc + 1 : 0;
+  return static_cast<long long>(main > enc ? main : enc) *
+         splits_for(erows > nrows ? erows : nrows) * PSZ;
 }
 
 using BwdKernel = void (*)(const BwdArgs);
@@ -568,8 +591,15 @@ inline cudaError_t launch_bwd(BwdArgs a, bf16* scratch, float* part, cudaStream_
   s += nrows * H;
   if (a.gagg == nullptr) a.gagg = s;
   s += nrows * H;
-  for (int i = 0; i < SLOTS + 2; ++i, s += nrows * H) a.ns[i] = s;
-  for (int i = 0; i < SLOTS; ++i, s += erows * H) a.es[i] = s;
+  for (int i = 0; i < SLOTS + 2; ++i) {  // the node MLP's slots, then P_r, P_s
+    a.ns[i] = i >= SLOTS || slot_used(i, a.node.n_layers) ? s : nullptr;
+    if (a.ns[i]) s += nrows * H;
+  }
+  for (int i = 0; i < SLOTS; ++i) {  // the edge MLP's, which the encoder reuses
+    a.es[i] = slot_used(i, a.edge.n_layers) || (fold && slot_used(i, a.enc.n_layers)) ? s
+                                                                                      : nullptr;
+    if (a.es[i]) s += erows * H;
+  }
   if (fold) {
     a.raw = a.e;
     a.e = s;  // e_in, then the encoder's A_0
@@ -585,14 +615,15 @@ inline cudaError_t launch_bwd(BwdArgs a, bf16* scratch, float* part, cudaStream_
                                     stream)) != cudaSuccess)
     return err;
   int grid = 0;
-  size_t smem = sizeof(bf16) * wmlp_elems(2 * H);
-  const BwdKernel node = a.node.act != mlp_act::RELU ? GNW(node_bwd)<true> : GNW(node_bwd)<false>;
+  size_t smem = sizeof(bf16) * wmlp_elems(2 * H, a.node.n_layers);
+  const BwdKernel node =
+      any_instance(a.node, 2 * H) ? GNW(node_bwd)<true> : GNW(node_bwd)<false>;
   if ((err = grid_of(reinterpret_cast<const void*>(node), smem, nrows / B * chunks, &grid)) !=
       cudaSuccess)
     return err;
   node<<<grid, THREADS, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  smem = sizeof(bf16) * wmlp_elems(H);
+  smem = sizeof(bf16) * wmlp_elems(H, a.edge.n_layers);
   if ((err = grid_of(reinterpret_cast<const void*>(rows), smem,
                      static_cast<long long>(a.total_rows) * chunks, &grid)) != cudaSuccess)
     return err;
@@ -617,8 +648,8 @@ inline cudaError_t launch_bwd(BwdArgs a, bf16* scratch, float* part, cudaStream_
                   H};  // the aggregate's columns
   if ((err = launch_wgrad(wa, stream)) != cudaSuccess || !fold) return err;
 
-  smem = sizeof(bf16) * wmlp_elems(a.fe);
-  const BwdKernel enc = a.enc.act != mlp_act::RELU ? GNW(enc_bwd)<true> : GNW(enc_bwd)<false>;
+  smem = sizeof(bf16) * wmlp_elems(a.fe, a.enc.n_layers);
+  const BwdKernel enc = any_instance(a.enc, a.fe) ? GNW(enc_bwd)<true> : GNW(enc_bwd)<false>;
   if ((err = grid_of(reinterpret_cast<const void*>(enc), smem,
                      static_cast<long long>(a.total_rows) * chunks, &grid)) != cudaSuccess)
     return err;

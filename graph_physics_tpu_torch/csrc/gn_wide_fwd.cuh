@@ -19,7 +19,7 @@
 //  1. (folded) encoder pass: e_in of every row, into e_out's buffer (a
 //     scratch on the last block);
 //  2. edge pass, a warp per (receiver, 16 samples) over its rows, the edge
-//     MLP (Ke and layers 1-3) resident in shared memory: each valid row's
+//     MLP (Ke and its later layers, gn_wide.cuh) resident: each valid row's
 //     message from e_in, xkr[r] and xks[j]; the fp32 aggregate in
 //     accumulator fragments (no atomics); e_out = e_in + h, in place when
 //     e_in is already in e_out's buffer; then bf16(agg), plus the extra
@@ -120,7 +120,7 @@ __device__ __forceinline__ void edge_fwd_body(const FwdArgs& a) {
         add_frag(d, t);
         finish(h, d, edge.bias(0));
       }
-      mlp_tail(h, edge);
+      mlp_tail<ACTS>(h, edge);
       add_frag(agg, h);
       if (!LAST) {
         uint32_t t[NF];
@@ -167,7 +167,7 @@ __global__ void __launch_bounds__(THREADS, 1) GNW(node_fwd)(const FwdArgs a) {
       mma_awt(d, f, node.layer(0), node.stride0, H);
       finish(h, d, node.bias(0));
     }
-    mlp_tail(h, node);
+    mlp_tail<ACTS>(h, node);
     uint32_t f[NF];
     frag_load(f, a.x + xb, nv);
     add_tiles(h, f, h);
@@ -178,8 +178,8 @@ __global__ void __launch_bounds__(THREADS, 1) GNW(node_fwd)(const FwdArgs a) {
 using FwdKernel = void (*)(const FwdArgs);
 
 // The passes on ``stream``: ``mid`` / ``last`` are the calling source's
-// wrappers of edge_fwd_body<Rows, LAST, ACTS> (the instance of the edge
-// MLP's activation, gn_wide.cuh:fix_act). raw (folded, fe > 0) is the
+// wrappers of edge_fwd_body<Rows, LAST, ACTS> (the edge MLP's instance,
+// gn_wide.cuh:any_instance). raw (folded, fe > 0) is the
 // encoder's [S, B, fe] input and ein a [S, B, H] scratch for its output on
 // the last block; a.e is set here when folded.
 template <class Rows>
@@ -197,7 +197,7 @@ cudaError_t launch_fwd(FwdArgs a, const bf16* raw, bf16* ein, const Mlp& enc, in
   }
   const int chunks = (a.batch + 15) / 16;
   const FwdKernel kernel = is_last ? last : mid;
-  size_t smem = sizeof(bf16) * wmlp_elems(H);
+  size_t smem = sizeof(bf16) * wmlp_elems(H, a.edge.n_layers);
   int grid = 0;
   const long long tiles =
       static_cast<long long>(a.n_nodes + (Rows::PADDED && !is_last ? a.total_rows : 0)) * chunks;
@@ -205,8 +205,9 @@ cudaError_t launch_fwd(FwdArgs a, const bf16* raw, bf16* ein, const Mlp& enc, in
     return err;
   kernel<<<grid, THREADS, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  smem = sizeof(bf16) * wmlp_elems(2 * H);
-  const FwdKernel node = a.node.act != mlp_act::RELU ? GNW(node_fwd)<true> : GNW(node_fwd)<false>;
+  smem = sizeof(bf16) * wmlp_elems(2 * H, a.node.n_layers);
+  const FwdKernel node =
+      any_instance(a.node, 2 * H) ? GNW(node_fwd)<true> : GNW(node_fwd)<false>;
   if ((err = grid_of(reinterpret_cast<const void*>(node), smem,
                      static_cast<long long>(a.n_nodes) * chunks, &grid)) != cudaSuccess)
     return err;

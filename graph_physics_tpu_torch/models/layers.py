@@ -267,20 +267,25 @@ class GraphNetBlock(nn.Module):
     JAX's order (layers.py:884-930): in the NK slot layout
     (:func:`ops.fused_gnblock_nk.fused_gn_block_nk`), else in the CSR
     layout (:func:`ops.fused_gnblock_csr.fused_gn_block_csr`); otherwise
-    as plain gathers, a masked ``index_add_`` and the two MLPs. With the
+    as plain gathers, a masked segment sum (both adding in a fixed order,
+    ops/segment.py) and the two MLPs. With the
     world-edge sidecar (``wedge_attr`` and its index arrays), the world
     edges' messages run through the same edge MLP in plain PyTorch, are
     summed per receiver and sample, and join the aggregate: through the
     kernels' ``extra_agg`` seam, or added to the plain path's sum
     (layers.py:855-882, :959-960). RoPE, the φ-gate, gated MLPs and sp are
-    not ported. The MLPs are the reference's: 4 Dense layers with
-    ``activation`` (relu, silu or gelu; JAX's field, layers.py:744, which
-    the kernels take too) between them and an RMSNorm tail.
+    not ported. The MLPs are the reference's: ``nb_of_layers`` Dense layers
+    (1 to 8 on the kernels) with ``activation`` (relu, silu or gelu)
+    between them and an RMSNorm tail when ``layer_norm``; JAX's fields
+    (layers.py:737-738, :744), passed to both MLPs as JAX passes them
+    (:833-848), and taken by the kernels too.
     """
 
     def __init__(
         self,
         hidden_size: int,
+        nb_of_layers: int = 4,
+        layer_norm: bool = True,
         use_rope: bool = False,
         use_gated_mlp: bool = False,
         use_gate: bool = False,
@@ -297,10 +302,12 @@ class GraphNetBlock(nn.Module):
         self.is_last_block = is_last_block
         self.dtype = dtype
         self.activation = activation
-        self.edge_block = MLP(3 * hidden_size, hidden_size, hidden_size, activation=activation,
-                              dtype=dtype)
-        self.node_block = MLP(2 * hidden_size, hidden_size, hidden_size, activation=activation,
-                              dtype=dtype)
+        self.nb_of_layers = nb_of_layers
+        self.layer_norm = layer_norm
+        mlp = dict(nb_of_layers=nb_of_layers, layer_norm=layer_norm, activation=activation,
+                   dtype=dtype)
+        self.edge_block = MLP(3 * hidden_size, hidden_size, hidden_size, **mlp)
+        self.node_block = MLP(2 * hidden_size, hidden_size, hidden_size, **mlp)
 
     def forward(
         self,
@@ -348,8 +355,8 @@ class GraphNetBlock(nn.Module):
         if fold:
             raise ValueError("edge_encoder given but the fused path does not apply")
 
-        x_send = x.index_select(0, senders)
-        x_recv = x.index_select(0, receivers)
+        x_send = segment.gather_rows(x, senders)
+        x_recv = segment.gather_rows(x, receivers)
         edge_upd = self.edge_block(torch.cat([edge_attr, x_recv, x_send], dim=-1))
         agg = segment.segment_sum(edge_upd, receivers, x.shape[0], mask=edge_mask)
         if world_agg is not None:
@@ -365,9 +372,10 @@ class GraphNetBlock(nn.Module):
         world_gather.py:95-104, so the packed sum does too)."""
         n = x.shape[0]
         per_sample = wedge_senders.ndim == 2
-        take = wtake if per_sample else (lambda a, i: a.index_select(0, i))
-        edge_in = torch.cat([wedge_attr.to(self.dtype), take(x, wedge_receivers),
-                             take(x, wedge_senders)], dim=-1)
+        take = wtake if per_sample else segment.gather_rows
+        # the masked slots take no gradient: their messages are zeroed below
+        edge_in = torch.cat([wedge_attr.to(self.dtype), take(x, wedge_receivers, wedge_mask),
+                             take(x, wedge_senders, wedge_mask)], dim=-1)
         w_upd = self.edge_block(edge_in)
         w_upd = torch.where(segment._bcast(wedge_mask, w_upd), w_upd,
                             torch.zeros((), dtype=w_upd.dtype, device=w_upd.device))

@@ -66,24 +66,27 @@ def world_attention_parts(
     if wedge_mask is None:
         wedge_mask = torch.ones(wedge_senders.shape, dtype=torch.bool, device=q.device)
     if wedge_senders.ndim == 2:
-        logits = _logits(wtake(q, wedge_receivers), wtake(k, wedge_senders))  # [W, B, H]
+        # the masked slots take no gradient: shifted, and so all they feed, is 0 there
+        logits = _logits(wtake(q, wedge_receivers, wedge_mask),
+                         wtake(k, wedge_senders, wedge_mask))  # [W, B, H]
         m = wedge_mask.view(wedge_mask.shape + (1,))
         s_val = torch.where(m, logits, torch.full((), -float("inf"), device=q.device)).amax(0)
         s_val = torch.where(torch.isfinite(s_val), s_val, zero).detach()  # [B, H]
         shifted = torch.where(m, torch.exp(logits - s_val), zero)
-        v_w = wtake(v, wedge_senders)
+        v_w = wtake(v, wedge_senders, wedge_mask)
         payload = torch.cat([shifted[..., None],
                              (v_w * shifted[..., None].to(v.dtype)).float()], dim=-1)
         out = wscatter_sum(payload, wedge_receivers, n, wedge_mask)
         s_w = s_val.expand((n,) + s_val.shape).contiguous()
         return out[..., 1:].contiguous(), out[..., 0].contiguous(), s_w
-    logits = _logits(q.index_select(0, wedge_receivers), k.index_select(0, wedge_senders))
+    logits = _logits(segment.gather_rows(q, wedge_receivers),
+                     segment.gather_rows(k, wedge_senders))
     s_w = segment.segment_max(logits, wedge_receivers, n, mask=wedge_mask)
     s_w = torch.where(torch.isfinite(s_w), s_w, zero).detach()
-    shifted = torch.exp(logits - s_w.index_select(0, wedge_receivers))
+    shifted = torch.exp(logits - segment.gather_rows(s_w, wedge_receivers))
     shifted = torch.where(segment._bcast(wedge_mask, shifted), shifted, zero)
     den_w = segment.segment_sum(shifted, wedge_receivers, n)
-    v_w = v.index_select(0, wedge_senders)
+    v_w = segment.gather_rows(v, wedge_senders)
     num_w = segment.segment_sum(v_w * shifted[..., None].to(v.dtype), wedge_receivers, n)
     return num_w.float(), den_w, s_w
 
@@ -104,14 +107,14 @@ def joint_edge_attention(q, k, v, senders, receivers, edge_mask,
     """
     n = q.shape[0]
     num_w, den_w, s_w = world_parts
-    logits = _logits(q.index_select(0, receivers), k.index_select(0, senders))
+    logits = _logits(segment.gather_rows(q, receivers), segment.gather_rows(k, senders))
     m = torch.maximum(segment.segment_max(logits, receivers, n, mask=edge_mask),
                       s_w).detach()
-    p = torch.exp(logits - m.index_select(0, receivers))
+    p = torch.exp(logits - segment.gather_rows(m, receivers))
     if edge_mask is not None:
         p = torch.where(segment._bcast(edge_mask, p), p, torch.zeros((), device=p.device))
     p = p.to(v.dtype).float()
-    v_e = v.index_select(0, senders).float()
+    v_e = segment.gather_rows(v, senders).float()
     w = torch.exp(s_w - m)
     den = segment.segment_sum(p, receivers, n) + den_w * w
     num = segment.segment_sum(v_e * p[..., None], receivers, n) + num_w * w[..., None]
@@ -148,9 +151,9 @@ def edge_attention(
         parts = world_attention_parts(q, k, v, wedge_senders, wedge_receivers, wedge_mask)
         return joint_edge_attention(q, k, v, senders, receivers, edge_mask, parts)
     n = q.shape[0]
-    logits = _logits(q.index_select(0, receivers), k.index_select(0, senders))
+    logits = _logits(segment.gather_rows(q, receivers), segment.gather_rows(k, senders))
     alpha = segment.segment_softmax(logits, receivers, n, mask=edge_mask)
-    v_e = v.index_select(0, senders)
+    v_e = segment.gather_rows(v, senders)
     weighted = v_e * alpha[..., None].to(v.dtype)
     out = segment.segment_sum(weighted, receivers, n, mask=edge_mask)
     if return_weights:

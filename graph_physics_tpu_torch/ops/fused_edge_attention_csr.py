@@ -176,12 +176,13 @@ def softmax_stats(q, k, senders, receivers, edge_mask, world=None):
     ``world`` = (num_w, den_w, s_w) they are the joint ones: m = max(mesh
     max, s_w) and the denominator gains den_w · exp(s_w - m)."""
     n, dh = q.shape[0], q.shape[-1]
-    logits = (q.index_select(0, receivers).float() * k.index_select(0, senders).float()).sum(-1)
+    logits = (segment.gather_rows(q, receivers).float()
+              * segment.gather_rows(k, senders).float()).sum(-1)
     logits = logits * (1.0 / math.sqrt(dh))
     m = segment.segment_max(logits, receivers, n, mask=edge_mask)
     if world is not None:
         m = torch.maximum(m, world[2])
-    p = torch.exp(logits - m.index_select(0, receivers)).to(torch.bfloat16).float()
+    p = torch.exp(logits - segment.gather_rows(m, receivers)).to(torch.bfloat16).float()
     den = segment.segment_sum(p, receivers, n, mask=edge_mask)
     if world is not None:
         den = den + world[1] * torch.exp(world[2] - m)

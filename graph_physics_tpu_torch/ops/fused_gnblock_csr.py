@@ -62,6 +62,7 @@ from graph_physics_tpu_torch.ops.fused_gnblock_nk import (
     wide_backward_buffers,
     wide_forward_buffers,
 )
+from graph_physics_tpu_torch.ops.segment import gather_rows, scatter_rows
 from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
@@ -74,7 +75,7 @@ _ARGTYPES = {
     **{f"gn_csr_fwd{h}": {"gnw_csr_fwd": [_vp] * 12 + [_i] * 4 + [_vp, _i, _i] * 3 + [_vp],
                           "gnw_hidden": []} for h in WIDE_HIDDEN},
     **{f"gn_csr_bwd{h}": {"gnw_csr_bwd": [_vp] * 16 + [_i] * 4 + [_vp, _vp, _i, _i] * 3 + [_vp],
-                          "gnw_bwd_sizes": [_i, _i, _i, ctypes.c_longlong, _i],
+                          "gnw_bwd_sizes": [_i, _i, _i, ctypes.c_longlong] + [_i] * 4,
                           "gnw_hidden": []} for h in WIDE_HIDDEN},
 }
 
@@ -331,7 +332,8 @@ def fused_gn_block_csr_reference(
     layer sums, in fp32, the product e_in @ Ke and the node partials
     x @ Kr and x @ Ks, each computed per node and rounded to
     ``compute_dtype`` before the gather; the messages are masked before
-    the fp32 sum at the receiver (``index_add_``), whose rounded sum takes
+    the fp32 sum at the receiver (``segment.scatter_rows``, in a fixed
+    order), whose rounded sum takes
     ``extra_agg`` in ``compute_dtype``. Padding rows keep e_out = e_in."""
     cd = compute_dtype
     n, b, h = x.shape
@@ -345,12 +347,11 @@ def fused_gn_block_csr_reference(
     x_ks = F.linear(xc, k0[:, 2 * h:])
     # gathered in fp32, so the backward's sums at a node (P_r, P_s) are fp32
     # sums rounded once, as the kernels form them
-    h0 = (F.linear(e_in.float(), k0[:, :h].float()) + x_kr.float().index_select(0, receivers)
-          + x_ks.float().index_select(0, senders))
+    h0 = (F.linear(e_in.float(), k0[:, :h].float()) + gather_rows(x_kr.float(), receivers)
+          + gather_rows(x_ks.float(), senders))
     eh = mlp_tail_reference(edge_params, h0.to(cd) + bs[0].to(cd), cd)
     ehm = torch.where(edge_mask.view(-1, 1, 1), eh, torch.zeros((), dtype=cd, device=x.device))
-    agg = add_extra(torch.zeros((n, b, h), dtype=torch.float32, device=x.device).index_add_(
-        0, receivers, ehm.float()).to(cd), extra_agg)
+    agg = add_extra(scatter_rows(ehm.float(), receivers, n).to(cd), extra_agg)
     nh = _mlp_reference(node_params, [xc, agg], cd)
     x_out = (xc + nh).to(x.dtype)
     if last_block:

@@ -25,9 +25,12 @@ the weights no longer fit one block, so each pass holds one MLP, and the
 backward writes what the weight gradients contract over to a bf16
 scratch and forms them as products over the rows, summed from partials
 in a fixed order (two calls give the same bits). Every MLP takes relu,
-SiLU or the exact GELU (``csrc/act_common.cuh``); other widths, and MLPs
-without their RMSNorm tail or of other depths, raise. See the sources'
-headers for the designs. At every
+SiLU or the exact GELU (``csrc/act_common.cuh``), has 1 to 8 Dense layers
+(JAX's ``nb_of_layers``) and has its RMSNorm tail or not (``layer_norm``):
+the tile backward takes MLPs of another depth than 4 in instances of
+their own, and at hidden 128 the wide kernels read an MLP's layers past
+what fits a block's shared memory from device memory. Other widths, and
+deeper MLPs, raise. See the sources' headers for the designs. At every
 width the kernels take the world seam ``extra_agg`` (_nk_fwd_kernel's
 ``has_extra_agg``): a node-aligned aggregate added to the rounded one
 before the node MLP, whose cotangent the backward returns.
@@ -58,6 +61,7 @@ from torch.autograd.function import once_differentiable
 
 from graph_physics_tpu_torch.ops import kernel_build
 from graph_physics_tpu_torch.ops.activation import gelu_kernel_grad, silu
+from graph_physics_tpu_torch.ops.segment import gather_rows
 from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
 
 #: hidden widths the kernels are built for: every width dividing JAX's
@@ -74,11 +78,9 @@ WIDE_HIDDEN = (64, 128)
 #: the codes of the MLP activations the kernels take
 #: (``csrc/act_common.cuh``: ``mlp_act::Kind``)
 ACT_CODES = {"relu": 0, "silu": 1, "gelu": 2}
-#: most Dense layers per MLP the tile forward kernels take (``MAXL``)
+#: most Dense layers per MLP the kernels take (``MAXL``,
+#: ``csrc/gn_nk_common.cuh``)
 KERNEL_MAX_LAYERS = 8
-#: Dense layers per MLP the backward kernels, and the wide forwards, are
-#: built for (``NL``)
-BACKWARD_LAYERS = 4
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 
@@ -98,7 +100,7 @@ _ARGTYPES = {
     **{f"gn_nk_fwd{h}": {"gnw_nk_fwd": [_vp] * 11 + [_i] * 5 + [_vp, _i, _i] * 3 + [_vp],
                          "gnw_hidden": []} for h in WIDE_HIDDEN},
     **{f"gn_nk_bwd{h}": {"gnw_nk_bwd": [_vp] * 14 + [_i] * 5 + [_vp, _vp, _i, _i] * 3 + [_vp],
-                         "gnw_bwd_sizes": [_i, _i, _i, ctypes.c_longlong, _i],
+                         "gnw_bwd_sizes": [_i, _i, _i, ctypes.c_longlong] + [_i] * 4,
                          "gnw_hidden": []} for h in WIDE_HIDDEN},
 }
 
@@ -124,27 +126,20 @@ def _load(name: str):
 def check_kernel_mlps(h: int, mlps, backward: bool, fe: int):
     """Raise NotImplementedError where the kernels of either layout do not
     take the block: a width JAX does not fuse (one not dividing 128; its
-    gate sends those to the plain path), an MLP without its RMSNorm tail
-    or of another depth than the kernels' (the tile forward takes 1 to 8
-    Dense layers, every other kernel 4), raw edge features wider than the
-    hidden size (the backward, and any wide kernel). Each MLP's activation
-    (relu, silu or gelu) goes to the kernels by its code."""
+    gate sends those to the plain path), an MLP of more than
+    ``KERNEL_MAX_LAYERS`` Dense layers (no caller or config builds one),
+    raw edge features wider than the hidden size (the backward, and any
+    wide kernel). Each MLP goes to the kernels with its own depth (1 to
+    8), RMSNorm tail or none, and activation (relu, silu or gelu) by its
+    code."""
     used = [m for m in mlps if m is not None]
     if h not in KERNEL_HIDDEN:
         raise NotImplementedError(f"the GraphNetBlock kernels are built for hidden "
                                   f"{KERNEL_HIDDEN}, got {h}")
-    if any(m.norm is None for m in used):
-        raise NotImplementedError("the GraphNetBlock kernels take MLPs with an RMSNorm tail "
-                                  "(ROADMAP B 4: layer_norm=False and other depths)")
-    if h in TILE_HIDDEN and not backward:
-        if any(len(m.denses) > KERNEL_MAX_LAYERS for m in used):
-            raise NotImplementedError(f"at most {KERNEL_MAX_LAYERS} Dense layers per MLP "
-                                      "(ROADMAP B 4: layer_norm=False and other depths)")
-    elif any(len(m.denses) != BACKWARD_LAYERS for m in used):
-        what = "backward kernels" if h in TILE_HIDDEN else f"hidden-{h} kernels"
-        raise NotImplementedError(
-            f"the {what} are built for MLPs of {BACKWARD_LAYERS} Dense layers (ROADMAP B 4: "
-            "layer_norm=False and other depths)")
+    if any(len(m.denses) > KERNEL_MAX_LAYERS for m in used):
+        raise NotImplementedError(f"the GraphNetBlock kernels take MLPs of 1 to "
+                                  f"{KERNEL_MAX_LAYERS} Dense layers, got "
+                                  f"{[len(m.denses) for m in used]}")
     if mlps[0] is not None and fe > h and (backward or h not in TILE_HIDDEN):
         raise NotImplementedError("raw edge features wider than the hidden size")
 
@@ -292,8 +287,10 @@ def wide_backward_buffers(lib, x, edge_attr, rows, mlps):
     fe = edge_attr.shape[-1] if mlps[0] is not None else 0
     dx = torch.empty_like(x)
     de = None if fe else torch.empty((rows, b, h), dtype=x.dtype, device=x.device)
-    scratch = torch.empty(lib.gnw_bwd_sizes(0, n, b, rows, fe), dtype=x.dtype, device=x.device)
-    part = torch.empty(lib.gnw_bwd_sizes(1, n, b, rows, fe), dtype=torch.float32,
+    depths = [0 if m is None else len(m.denses) for m in (mlps[1], mlps[2], mlps[0])]
+    scratch = torch.empty(lib.gnw_bwd_sizes(0, n, b, rows, fe, *depths), dtype=x.dtype,
+                          device=x.device)
+    part = torch.empty(lib.gnw_bwd_sizes(1, n, b, rows, fe, *depths), dtype=torch.float32,
                        device=x.device)
     grads, ptrs = gradient_buffers(mlps)
     return dx, de, scratch, part, grads, ptrs, fe
@@ -554,7 +551,7 @@ def fused_gn_block_nk_reference(
     product e_in @ Ke and the node partials x @ Kr and x @ Ks, each
     computed per node and rounded to ``compute_dtype`` (the JAX kernel's
     _edge_fwd order), the receiver's repeated over its K slots and the
-    sender's gathered with ``index_select``; the masked messages are summed
+    sender's gathered (``segment.gather_rows``); the masked messages are summed
     over K with a reshape, rounded, and ``extra_agg`` added to the rounded
     sum in ``compute_dtype`` (blocked_reference_nk :807-808)."""
     x_out, e_out, _ = _reference_parts(x, edge_attr, senders, edge_mask,
@@ -584,7 +581,7 @@ def _reference_parts(x, edge_attr, senders, edge_mask, mlps, nk, cd, extra=None)
     x_ks = F.linear(xc, k0[:, 2 * h:])
     h0 = (F.linear(e_in.float(), k0[:, :h].float())
           + x_kr.view(g, 1, nb, b, h).expand(g, k, nb, b, h).reshape(-1, b, h).float()
-          + x_ks.float().index_select(0, senders))  # P_s an fp32 sum rounded once
+          + gather_rows(x_ks.float(), senders))  # P_s an fp32 sum rounded once
     eh = mlp_tail_reference(edge, h0.to(cd) + bs[0].to(cd), cd)
     ehm = torch.where(edge_mask.view(-1, 1, 1), eh, torch.zeros((), dtype=cd, device=x.device))
     agg = add_extra(ehm.float().view(g, k, nb, b, h).sum(1).reshape(n, b, h).to(cd), extra)

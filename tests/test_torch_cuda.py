@@ -58,9 +58,8 @@ hub graph at B=17) and with silu or exact-gelu MLPs at every width 1 to
 dx inside the width's outside share where the fp32 control leaves it,
 and carry 3-block ``epd`` train steps at hidden 16, 4 and 1 and with
 silu and gelu blocks within 0.02 of the plain path; hidden 16 launches
-in both layouts, while hidden 24 (which JAX does not fuse) and a 3-layer
-MLP raise, the latter naming ROADMAP B 4's last item, and a hidden-24
-model runs the plain path with no launch. The
+in both layouts, while hidden 24 (which JAX does not fuse) and a 9-layer
+MLP raise, and a hidden-24 model runs the plain path with no launch. The
 radius search (ops/knn.radius_edges) on the card gives the CPU's index
 arrays on a grid of exact positions and the CPU's pairs on random ones,
 and a DeformingPlate rollout whose world edges are found again at every
@@ -1050,14 +1049,14 @@ def test_csr_attention_kernel_is_bit_identical_across_calls(cuda_device):
 @pytest.mark.cuda
 def test_csr_kernels_raise_under_autograd(cuda_device):
     """Under autograd the CSR kernels raise outside their backward's scope
-    (MLPs of other depths, head widths without an instance), and never
-    take the plain version."""
+    (MLPs of more than 8 Dense layers, head widths without an instance),
+    and never take the plain version."""
     setup = entry.graded_setup(cuda_device, num_nodes=1536, batch=2, mp_steps=2)
     args, kw = _graded_block_args(setup, "middle", seed=0)
-    shallow = MLP(3 * 32, 32, 32, 3).to(cuda_device)  # 3 Dense layers: no backward kernel
+    deep = MLP(3 * 32, 32, 32, 9).to(cuda_device)  # 9 Dense layers: no kernel takes them
     before = fused_gn_block_csr.launches
     with pytest.raises(NotImplementedError, match="Dense layers"):
-        fused_gn_block_csr(*args[:5], shallow, *args[6:], **kw)
+        fused_gn_block_csr(*args[:5], deep, *args[6:], **kw)
     assert fused_gn_block_csr.launches == before
     g, csr = setup.graph, setup.tiling
     q = torch.zeros((csr.num_nodes, 2, 4, 24), dtype=torch.bfloat16, device=cuda_device,
@@ -1823,7 +1822,24 @@ def _set_activation(mlp, activation):
             mlp[i] = Activation(activation)
 
 
-def _check_bits_across_calls(cuda_device, hidden, variant, layout, activation="relu"):
+def _with_depth(args, kw, lead, depth, norm, seed):
+    """The case's block with new edge and node MLPs (and folded encoder) of
+    ``depth`` Dense layers, an RMSNorm tail when ``norm`` (weights drawn
+    from ``seed``): args with them at ``lead``, lead + 1, and kw."""
+    edge, node = args[lead:lead + 2]
+    h, device = edge.denses[-1].weight.shape[0], edge.denses[0].weight.device
+    torch.manual_seed(seed)
+    mlps = [MLP(m.denses[0].weight.shape[1], h, h, nb_of_layers=depth, layer_norm=norm,
+                activation=m.activation).to(device) for m in (edge, node)]
+    enc = kw["encoder_params"]
+    if enc is not None:
+        enc = MLP(enc.denses[0].weight.shape[1], h, h, nb_of_layers=depth,
+                  layer_norm=norm).to(device)
+    return (*args[:lead], *mlps, *args[lead + 2:]), dict(kw, encoder_params=enc)
+
+
+def _check_bits_across_calls(cuda_device, hidden, variant, layout, activation="relu",
+                             depth=None, norm=True):
     if layout == "nk":
         args, kw, cot_x, cot_e = _wide_nk_case(cuda_device, hidden, variant, 33, seed=9,
                                                holes=True)
@@ -1832,6 +1848,8 @@ def _check_bits_across_calls(cuda_device, hidden, variant, layout, activation="r
         args, kw = _wide_hub_case(cuda_device, hidden, variant, 17, seed=9)
         cot_x, cot_e = _csr_cotangents(args[0], args[7].total_rows, 209)
         fn, lead = fused_gn_block_csr, 5
+    if depth is not None:
+        args, kw = _with_depth(args, kw, lead, depth, norm, seed=9)
     for mlp in args[lead:lead + 2]:
         _set_activation(mlp, activation)
     mlps = [m for m in (kw["encoder_params"], *args[lead:lead + 2]) if m is not None]
@@ -1909,7 +1927,9 @@ def test_gn_kernels_refuse_widths_without_a_kernel(cuda_device):
     """Every width JAX fuses has its kernels: hidden 16 launches rows 1-4 in
     both layouts, forward and backward. What the kernels do not take
     raises and counts no launch: hidden 24 (which JAX does not fuse, so no
-    model sends it there), and a 3-layer MLP, naming ROADMAP B 4's item."""
+    model sends it there), and a 9-layer MLP (the kernels take 1 to 8
+    Dense layers; a 3-layer MLP, refused before they took every depth,
+    launches)."""
     setup = entry.cylinder_setup(cuda_device, nx=16, ny=16, hidden=16, batch=2, mp_steps=3)
     args, kw = _block_args(setup, "middle", seed=0)
     g = entry.graded_setup(cuda_device, num_nodes=1536, hidden=16, batch=2, mp_steps=3)
@@ -1923,13 +1943,20 @@ def test_gn_kernels_refuse_widths_without_a_kernel(cuda_device):
         assert (fn.launches, fn.backward_launches) == (before[0] + 1, before[1] + 1)
     wide = entry.cylinder_setup(cuda_device, nx=16, ny=16, hidden=24, batch=2, mp_steps=3)
     wargs, wkw = _block_args(wide, "middle", seed=0)
-    before = fused_gn_block_nk.launches
+    before, before_bwd = fused_gn_block_nk.launches, fused_gn_block_nk.backward_launches
     with pytest.raises(NotImplementedError, match="built for hidden"):
         fused_gn_block_nk(*wargs, **wkw)
-    shallow = MLP(3 * 16, 16, 16, nb_of_layers=3).to(cuda_device)
-    with pytest.raises(NotImplementedError, match="ROADMAP B 4: layer_norm=False and other"):
-        fused_gn_block_nk(args[0].requires_grad_(True), *args[1:4], shallow, *args[5:], **kw)
+    deep = MLP(3 * 16, 16, 16, nb_of_layers=9).to(cuda_device)
+    with pytest.raises(NotImplementedError, match="1 to 8 Dense layers"):
+        fused_gn_block_nk(args[0].requires_grad_(True), *args[1:4], deep, *args[5:], **kw)
     assert fused_gn_block_nk.launches == before
+    shallow = MLP(3 * 16, 16, 16, nb_of_layers=3).to(cuda_device)
+    x = args[0].detach().clone().requires_grad_(True)
+    xo, eo = fused_gn_block_nk(x, *args[1:4], shallow, *args[5:], **kw)
+    torch.autograd.grad([xo, eo], [x], [torch.ones_like(xo), torch.ones_like(eo)])
+    torch.cuda.synchronize()
+    assert (fused_gn_block_nk.launches, fused_gn_block_nk.backward_launches) == (
+        before + 1, before_bwd + 1)
 
 
 @pytest.mark.cuda
@@ -2077,6 +2104,139 @@ def test_small_and_activation_gn_kernels_are_bit_identical_across_calls(
     in block order, no atomics: two forward + backward calls give the same
     outputs, dx, de and every parameter's gradient, bit for bit."""
     _check_bits_across_calls(cuda_device, hidden, _first(hidden), layout, activation)
+
+
+#: (depth, norm) of the other-depth cases: 1 to 8 Dense layers, with and
+#: without the RMSNorm tail (4 layers without it in the NL instances)
+DEPTH_CASES = [(1, True), (2, False), (3, True), (3, False), (4, False), (5, True), (8, False),
+               (8, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nk", "csr"])
+@pytest.mark.parametrize("hidden", ACT_HIDDEN)
+@pytest.mark.parametrize("depth,norm", DEPTH_CASES)
+def test_gn_kernels_at_other_depths_match_plain_versions(cuda_device, depth, norm, hidden,
+                                                         layout):
+    """Rows 1-4 with MLPs of 1 to 8 Dense layers, with or without the
+    RMSNorm tail, at every width 1 to 128 (the tile backward's other-depth
+    instances at 1 to 32; at hidden 128 the MLPs of more than 5 or 6
+    layers read their last layers from device memory): the first block
+    (folded where JAX folds, its encoder of the same depth and tail) in the
+    NK layout, a middle block in the CSR layout; forward within 0.05 of the
+    plain version, backward held to utils/gradcheck.py."""
+    variant = _first(hidden) if layout == "nk" else "middle"
+    fn, ref, args, kw, cot_x, cot_e = _gn_case(cuda_device, layout, hidden, variant,
+                                               seed=40 + depth)
+    args, kw = _with_depth(args, kw, 4 if layout == "nk" else 5, depth, norm, seed=depth)
+    _check_gn_forward(fn, ref, args, kw)
+    _check_gn_backward(fn, args, kw, cot_x, cot_e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nk", "csr"])
+@pytest.mark.parametrize("hidden,depth,norm", [(32, 3, False), (8, 8, True), (16, 2, False),
+                                               (64, 5, True), (128, 3, True), (128, 8, False)])
+def test_other_depth_gn_kernels_are_bit_identical_across_calls(cuda_device, hidden, depth, norm,
+                                                               layout):
+    """The other-depth instances add each block's weight-gradient sums into
+    its own slot of the partials, summed in block order: two forward +
+    backward calls give the same outputs and gradients, bit for bit (the
+    first block, folded where JAX folds)."""
+    _check_bits_across_calls(cuda_device, hidden, _first(hidden), layout, depth=depth,
+                             norm=norm)
+
+
+@pytest.mark.cuda
+def test_fixed_order_sums_repeat_on_the_card(cuda_device):
+    """ops/segment.py's sums on the card: ``segment_sum``, ``wscatter_sum``
+    and ``gather_rows``'s gradient give the same bits on two calls (many
+    values a segment, so atomics would race) and lie within 1e-6 of each
+    segment's sum of magnitudes (fp32 sums of ~3,000 values) from the
+    float64 sums, masked lanes and empty segments included."""
+    from graph_physics_tpu_torch.ops import segment
+    from graph_physics_tpu_torch.ops.world_gather import wscatter_sum, wtake
+
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    vals = torch.randn(200_000, 8, generator=gen, device=cuda_device)
+    ids = torch.randint(0, 64, (200_000,), generator=gen, device=cuda_device, dtype=torch.int32)
+    ids[ids == 7] = 8  # segment 7 empty
+    mask = torch.rand(200_000, generator=gen, device=cuda_device) > 0.1
+    def fp64_sums(v, i):  # (the float64 sums, each segment's sum of magnitudes)
+        z = torch.zeros(64, 8, dtype=torch.float64, device=cuda_device)
+        return (z.index_add(0, i.long(), v.double()), z.index_add(0, i.long(), v.double().abs()))
+
+    want, mass = fp64_sums(vals[mask], ids[mask])
+    runs = [segment.segment_sum(vals, ids, 64, mask=mask) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0][7], torch.zeros(8, device=cuda_device))
+    assert ((runs[0].double() - want).abs() <= 1e-6 * mass).all()
+    wv = torch.randn(4096, 16, 4, generator=gen, device=cuda_device)
+    widx = torch.randint(0, 50, (4096, 16), generator=gen, device=cuda_device, dtype=torch.int32)
+    wmask = torch.rand(4096, 16, generator=gen, device=cuda_device) > 0.2
+    wruns = [wscatter_sum(wv, widx, 64, wmask) for _ in range(2)]
+    assert torch.equal(wruns[0], wruns[1])
+    node = torch.randn(64, 16, 4, generator=gen, device=cuda_device, requires_grad=True)
+    cot = torch.randn(4096, 16, 4, generator=gen, device=cuda_device)
+    gruns = [torch.autograd.grad(wtake(node, widx), node, cot)[0] for _ in range(2)]
+    src = torch.randn(64, 8, generator=gen, device=cuda_device, requires_grad=True)
+    gruns2 = [torch.autograd.grad(segment.gather_rows(src, ids), src, vals)[0]
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(gruns[0], gruns[1]) and torch.equal(gruns2[0], gruns2[1])
+    want, mass = fp64_sums(vals, ids)
+    assert ((gruns2[0].double() - want).abs() <= 1e-6 * mass).all()
+
+
+@pytest.mark.cuda
+def test_lanes_off_the_mask_match_the_cpu_on_the_card(cuda_device):
+    """``scatter_rows`` with a mask and values left in the lanes off it: the
+    card (those lanes sent to spare rows) gives the CPU's sums (those lanes
+    zeroed) to 1e-6 of each segment's sum of magnitudes, and the same zero
+    gradient in those lanes."""
+    from graph_physics_tpu_torch.ops import segment
+
+    gen = torch.Generator().manual_seed(11)
+    vals = torch.randn(50_000, 4, generator=gen)
+    ids = torch.randint(0, 32, (50_000,), generator=gen)
+    mask = torch.rand(50_000, generator=gen) > 0.3
+    g = torch.randn(32, 4, generator=gen)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        leaf = vals.to(dev).requires_grad_(True)
+        s = segment.scatter_rows(leaf, ids.to(dev), 32, mask.to(dev))
+        (dv,) = torch.autograd.grad(s, leaf, g.to(dev))
+        out[str(dev)] = (s.detach().cpu(), dv.cpu())
+    (s_cpu, dv_cpu), (s_card, dv_card) = out["cpu"], out[str(cuda_device)]
+    mass = torch.zeros(32, 4).index_add_(0, ids, torch.where(mask[:, None], vals, 0.0).abs())
+    assert ((s_card - s_cpu).abs() <= 1e-6 * mass).all()
+    assert torch.equal(dv_card, dv_cpu) and not dv_card[~mask].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload", ["plate transformer", "panels"])
+def test_default_mode_train_steps_repeat_bit_for_bit(cuda_device, workload):
+    """Two runs of 10 train steps from the same weights and noise in
+    PyTorch's default mode give the same losses and weights, bit for bit:
+    the plate transformer (world edges through the kernels' seam, the
+    world pieces' gathers and scatter in plain torch) and panels (the
+    physics loss's segment sums)."""
+    train = (entry.plate_train_setup(cuda_device) if workload == "plate transformer"
+             else entry.panels_train_setup(cuda_device))
+    assert not torch.are_deterministic_algorithms_enabled()
+    runs = []
+    for _ in range(2):
+        sim = copy.deepcopy(train.simulator)
+        state, step = entry.make_trainer(sim, train.device_preprocess,
+                                         getattr(train, "loss_fn", None),
+                                         getattr(train, "gradient_method", None))
+        gen = torch.Generator(cuda_device).manual_seed(52)
+        losses = [step(state, train.graph, gen)["loss"].item() for _ in range(10)]
+        runs.append((losses, [p.detach().clone() for p in sim.parameters()]))
+        del sim, state, step
+    assert runs[0][0] == runs[1][0], runs
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -2274,12 +2434,13 @@ PLATE_EPD_COMPARED_STEPS = 7
 def test_plate_epd_plain_training_repeats_itself_over_the_compared_steps(cuda_device, mode):
     """Phase 39's plate ``epd`` (hidden 128, 15 blocks, B=64, world edges in
     every sample) on the plain path: a second run from the same weights and
-    noise (in default mode the world scatter's and the gathers' gradient's
-    ``index_add_`` add by atomics, so the two need not agree), and a run
-    from the weights scaled by 1 + 2^-16, agree within LATER_LOSS_RTOL over
-    the first PLATE_EPD_COMPARED_STEPS steps, in PyTorch's default mode and
-    under deterministic algorithms. Prints each of 20 steps' relative
-    differences (PERF.md §6 cites them)."""
+    noise gives the same losses bit for bit over all 20 steps, in
+    PyTorch's default mode as under deterministic algorithms (the world
+    scatter, the segment sums and the gathers' gradients add in a fixed
+    order, ops/segment.py); a run from the weights scaled by 1 + 2^-16
+    agrees within LATER_LOSS_RTOL over the first PLATE_EPD_COMPARED_STEPS
+    steps. Prints each of 20 steps' relative differences (PERF.md §6
+    cites them)."""
     train = entry.plate_epd_train_setup(cuda_device)
     losses = []
     for scale in (1.0, 1.0, 1.0 + 2.0 ** -16):
@@ -2304,7 +2465,7 @@ def test_plate_epd_plain_training_repeats_itself_over_the_compared_steps(cuda_de
               "difference by step: " + " ".join(f"{v:.3g}" for v in r))
     assert all(np.isfinite(losses).ravel())
     assert max(rel["nudged"][:PLATE_EPD_COMPARED_STEPS]) <= LATER_LOSS_RTOL, rel
-    assert max(rel["again"][:PLATE_EPD_COMPARED_STEPS]) <= LATER_LOSS_RTOL, rel
+    assert losses[1] == losses[0], rel
 
 
 @pytest.mark.cuda

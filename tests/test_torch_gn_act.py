@@ -26,8 +26,8 @@ exact-gelu MLPs, against the JAX package on the CPU.
     within FP32_L2_RATIO and FP32_MAX_RATIO of the other's; the gradients
     within 0.05 of each one's largest value, the other CPU cases' bound;
   * ``GraphNetBlock(activation=...)`` builds both MLPs with it and hands
-    each MLP's code to the kernels; ``check_kernel_mlps`` raises only for
-    an MLP without its RMSNorm tail or of another depth.
+    each MLP's code to the kernels; ``check_kernel_mlps`` takes any
+    activation, depths to 8 and either tail, and raises for 9 layers.
 """
 
 import jax
@@ -134,11 +134,14 @@ def test_check_kernel_mlps_raises_only_for_depth_or_a_missing_norm(hidden):
     node = MLP(2 * hidden, hidden, hidden, activation="gelu")
     for backward in (False, True):
         nk_ops.check_kernel_mlps(hidden, (None, edge, node), backward, hidden)
+    # a 3-layer MLP and one without its RMSNorm tail: taken since the
+    # kernels take every depth to 8 and either tail; a 9-layer one raises
     shallow = MLP(3 * hidden, hidden, hidden, nb_of_layers=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP B 4: layer_norm=False"):
-        nk_ops.check_kernel_mlps(hidden, (None, shallow, node), True, hidden)
+    nk_ops.check_kernel_mlps(hidden, (None, shallow, node), True, hidden)
     bare = MLP(2 * hidden, hidden, hidden, layer_norm=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP B 4: layer_norm=False"):
-        nk_ops.check_kernel_mlps(hidden, (None, edge, bare), False, hidden)
+    nk_ops.check_kernel_mlps(hidden, (None, edge, bare), False, hidden)
+    deep = MLP(3 * hidden, hidden, hidden, nb_of_layers=9)
+    with pytest.raises(NotImplementedError, match="1 to 8 Dense layers"):
+        nk_ops.check_kernel_mlps(hidden, (None, deep, node), True, hidden)
     with pytest.raises(NotImplementedError, match="built for hidden"):
         nk_ops.check_kernel_mlps(24, (None, edge, node), False, 24)
