@@ -682,8 +682,8 @@ def device_times(fn, reps=20):
     ``PROFILE_ATTEMPTS`` sessions give no such two, each kernel takes the
     most launches a call that a session recorded (the profiler loses
     launches and has never added one) and its mean launch over the
-    sessions that recorded it; raises only when no session recorded a
-    launch."""
+    sessions that recorded it. When no session recorded a launch, the
+    calls' total comes from ``queued_device_ms`` under one name."""
     import torch
 
     fn()
@@ -709,7 +709,10 @@ def device_times(fn, reps=20):
                 "again")
         seen.append((times, per_call, totals, counts))
     if not seen:
-        raise AssertionError(f"{PROFILE_ATTEMPTS} profiler sessions recorded no launch")
+        ms = queued_device_ms(fn, reps)
+        log(f"  {PROFILE_ATTEMPTS} profiler sessions recorded no launch; by CUDA events "
+            f"around {reps} calls queued behind a sleeping kernel: {ms:.4f} ms a call")
+        return {QUEUED_KERNELS: ms}
     kernels = {k for _, per_call, _, _ in seen for k in per_call}
     most = {k: max(s[1].get(k, 0) for s in seen) for k in kernels}
     log(f"  {PROFILE_ATTEMPTS} profiler sessions gave no two that agree on every kernel's "
@@ -719,6 +722,50 @@ def device_times(fn, reps=20):
                     if len({s[1].get(k, 0) for s in seen}) > 1))
     return {k: most[k] * sum(s[2].get(k, 0.0) for s in seen)
             / sum(s[3].get(k, 0) for s in seen) for k in kernels}
+
+
+#: the one name ``device_times`` gives the calls' total when the profiler
+#: recorded no launch
+QUEUED_KERNELS = "all kernels (CUDA events, queued behind a sleep)"
+
+
+@functools.lru_cache(maxsize=None)
+def _sleep_cycles_per_ms():
+    """Cycles of ``torch.cuda._sleep`` that take a millisecond on the card."""
+    import torch
+
+    cycles = 10_000_000
+    torch.cuda._sleep(1000)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def queued_device_ms(fn, reps):
+    """Device milliseconds per call of ``fn`` without the profiler: CUDA
+    events around ``reps`` calls that the host queues while a sleeping
+    kernel holds the stream, so that the device runs them back to back.
+    The sleep outlasts ``reps`` whole calls timed on the host; a call that
+    waits for the device on the host still counts its gaps."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(_sleep_cycles_per_ms() * (1.5 * host_ms * reps + 2.0)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def device_ms(fn, reps=20):
@@ -736,7 +783,8 @@ BWD_PASSES = (("pre-pass", "gn_partial"), ("node-MLP pass", "nodemlp"),
               ("receiver pass", "recv_kernel"), ("pre-pass", "_partial"),
               ("node-MLP pass", "_node_bwd"), ("row pass", "_row_bwd"),
               ("sender pass", "_send"), ("encoder passes", "_enc_"),
-              ("weight-gradient pass", "_wgrad"), ("ordered sum", "_wsum"))
+              ("weight-gradient pass", "_wgrad"), ("ordered sum", "_wsum"),
+              ("packing", "_pack"))
 
 
 def pass_split(fn):
@@ -760,7 +808,9 @@ PARENT_LIBS = {"gn_csr_fwd": "fused_gnblock_csr", "gn_csr_bwd": "fused_gnblock_c
                "edge_attention_csr": "fused_edge_attention_csr",
                "edge_attention_csr_bwd": "fused_edge_attention_csr",
                "edge_attention_nk": "fused_edge_attention_nk",
-               "edge_attention_nk_bwd": "fused_edge_attention_nk"}
+               "edge_attention_nk_bwd": "fused_edge_attention_nk",
+               **{f"gn_{lay}_{way}{h}": f"fused_gnblock_{lay}" for lay in ("nk", "csr")
+                  for way in ("fwd", "bwd") for h in (64, 128)}}
 #: op modules whose C interface this tree changed: the parent's is loaded
 #: from its checkout and binds its libraries, and inside ``parent_kernels``
 #: its wrapper (the function of the module's name) stands in for this
@@ -783,7 +833,8 @@ def start_parent_builds():
     for name in PARENT_LIBS:
         src = PARENT / "graph_physics_tpu_torch" / "csrc" / kernel_build.LIBRARIES[name][0]
         out = out_dir / f"lib{name}.so"
-        proc = subprocess.Popen([nvcc, *kernel_build.NVCC_FLAGS, "-o", str(out), str(src)],
+        proc = subprocess.Popen([nvcc, *kernel_build.NVCC_FLAGS, *kernel_build.FLAGS.get(name, ()),
+                                 "-o", str(out), str(src)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         _parent_builds[name] = (proc, out)
 
@@ -882,6 +933,45 @@ def with_receivers(fn):
     return functools.wraps(fn)(
         lambda q, k, v, senders, receivers, edge_mask, layout: fn(q, k, v, senders, edge_mask,
                                                                    layout))
+
+
+def gn_libs(layout, h, backward):
+    """The libraries of rows 1-4 (``layout``'s, at width ``h``) a call's
+    parent turns take: the forward's, and with ``backward`` the
+    backward's; none below hidden 64, where this tree kept the parent's
+    kernels."""
+    if h not in (64, 128):
+        return ()
+    return (f"gn_{layout}_fwd{h}",) + ((f"gn_{layout}_bwd{h}",) if backward else ())
+
+
+def late(fn):
+    """``fn``, an op module's wrapper, looked up by name at every call, so
+    that inside ``parent_kernels`` the call goes through the parent tree's
+    wrapper (``PARENT_OWN_OPS``)."""
+    module, name = sys.modules[fn.__module__], fn.__name__
+    return lambda *a, **kw: getattr(module, name)(*a, **kw)
+
+
+def scratch_note(label, layout, h, n, b, rows, fe, depths):
+    """Logs the bytes of the wide backward's bf16 scratch at this shape
+    (``gnw_bwd_sizes``), this tree's and with a parent tree the parent's;
+    returns (ours, parent's or None)."""
+    import ctypes
+
+    from graph_physics_tpu_torch.ops import kernel_build
+
+    name = f"gn_{layout}_bwd{h}"
+    libs = {"this tree": kernel_build._libs[name]}
+    if PARENT is not None:
+        libs["parent tree"] = parent_library(name)
+    sizes = {}
+    for tree, lib in libs.items():
+        lib.gnw_bwd_sizes.restype = ctypes.c_longlong
+        sizes[tree] = 2 * lib.gnw_bwd_sizes(0, n, b, rows, fe, *depths)
+    log(f"{label}: the backward's bf16 scratch (gnw_bwd_sizes) "
+        + ", ".join(f"{tree} {v} bytes ({v / 2**30:.4f} GiB)" for tree, v in sizes.items()))
+    return sizes["this tree"], sizes.get("parent tree")
 
 
 def timed(fn, libs, device=False, device_reps=20, **kw):
@@ -3870,8 +3960,8 @@ def wide_block_checks(label, kernel, rows, layout, blocks, enc, x, e, raw, card,
     version forward (KERNEL_TOL) and backward (utils/gradcheck.py, every
     stream value held against the plain backward, a hub's too), the
     backward's bits on two calls; with ``timing``, each variant's times
-    (no parent tree has these kernels). Returns (forward errors, backward
-    errors, forward times, backward times) by variant."""
+    (with a parent tree, the parent's beside them). Returns (forward
+    errors, backward errors, forward times, backward times) by variant."""
     import torch
     from graph_physics_tpu_torch.ops import fused_gnblock_csr as csr_ops
     from graph_physics_tpu_torch.ops import fused_gnblock_nk as nk_ops
@@ -3899,7 +3989,9 @@ def wide_block_checks(label, kernel, rows, layout, blocks, enc, x, e, raw, card,
                 f_err[name] = max(f_err[name], compare("e_out", ek, ep, KERNEL_TOL))
             del xk, ek, xp, ep
             if timing:
-                f_t[name] = dict(timed(lambda: kernel(*args, **kw), (), device=True),
+                f_t[name] = dict(timed(lambda: late(kernel)(*args, **kw),
+                                       gn_libs(layout_name(kernel), x.shape[-1], False),
+                                       device=True),
                                  plain_ms=cuda_ms(lambda: plain(*args, **kw,
                                                                 compute_dtype=torch.bfloat16)))
                 log(f"  time: kernel {f_t[name]['ms']:.4f} ms (device "
@@ -3930,7 +4022,8 @@ def wide_block_checks(label, kernel, rows, layout, blocks, enc, x, e, raw, card,
             b_t[name] = backward_times(
                 f"{label} backward [{name}]",
                 lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True),
-                lambda: torch.autograd.grad(*kept["plain"], retain_graph=True), (), card)
+                lambda: torch.autograd.grad(*kept["plain"], retain_graph=True),
+                gn_libs(layout_name(kernel), x.shape[-1], True), card)
         del kept
         torch.cuda.empty_cache()
     return f_err, b_err, f_t, b_t
@@ -3977,9 +4070,10 @@ def wide_kernel_phase(device, card, build_log):
             fb = bound(*gn_block_work(x, e, setup.graph.edge_mask, blk))
             bb = bound(*gn_block_work(x, e, setup.graph.edge_mask, blk, backward=True))
             log(f"{label}: middle block forward {f_t['middle']['ms']:.4f} ms (device "
-                f"{f_t['middle']['device_ms']:.4f}), bound {fb[0]:.6g} ms ({fb[1]}); backward "
+                f"{f_t['middle']['device_ms']:.4f}), bound {fb[0]:.6g} ms ({fb[1]})"
+                f"{parent_note(f_t['middle'])}; backward "
                 f"{b_t['middle']['ms']:.4f} ms (device {b_t['middle']['device_ms']:.4f}), bound "
-                f"{bb[0]:.6g} ms ({bb[1]}) ({card})")
+                f"{bb[0]:.6g} ms ({bb[1]}){parent_note(b_t['middle'])} ({card})")
             for backward, errs, times, bd in ((False, f_err, f_t, fb), (True, b_err, b_t, bb)):
                 rec = wide_record(layout, h, backward)
                 keep = [k for k in resources if (("bwd" in k or "send" in k or "wgrad" in k
@@ -3991,7 +4085,8 @@ def wide_kernel_phase(device, card, build_log):
                     ms=times["middle"]["ms"], plain_ms=times["middle"]["plain_ms"],
                     bound_ms=bd[0], bound_by=bd[1], library_ms=None,
                     device_ms=times["middle"]["device_ms"], variants=times,
-                    ptxas={k: resources[k] for k in keep if f"gnw{h}_" in k})
+                    ptxas={k: resources[k] for k in keep if f"gnw{h}_" in k},
+                    **{k: v for k, v in times["middle"].items() if k.startswith("parent_")})
             del setup, x, e, raw
             torch.cuda.empty_cache()
         # an odd batch on the cylinder (NK), and the hub graph (CSR)
@@ -4092,13 +4187,13 @@ def mgn_train_phase(device, card):
             map(math.isfinite, losses + norms)):
         raise AssertionError(f"phase 36: launches per step {per_step}, or a non-finite loss "
                              "or gradient norm")
-    st = step_timing(train, None, None, 37)
+    st = step_timing(train, None, None, 37, libs=gn_libs("nk", MGN_HIDDEN, True))
     log(f"MGN-width train step B={b}: kernel path {st['train_step_ms']:.4f} ms "
         f"({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
         f"{st['train_step_device_ms']:.4f} ms; the host enqueues a step in "
         f"{st['train_step_host_enqueue_ms']:.4f} ms, CUDA events "
         f"{st['train_step_enqueue_events_ms']:.4f} ms over the same steps, "
-        f"{st['train_step_syncs']} device-to-host syncs a step) ({card})")
+        f"{st['train_step_syncs']} device-to-host syncs a step){parent_step_note(st)} ({card})")
     log("MGN-width train timing " + json.dumps({"card": card, "peak_bytes": peak, **st}))
     del train
     torch.cuda.empty_cache()
@@ -5572,14 +5667,19 @@ def small_attention_checks(label, ops, graph, layout, heads, dh, gen, sdpa_effic
 def sweep_device_ms(label, calls):
     """{record name: device ms per call} of each call in ``calls`` ({record
     name: fn}), from one profiler sweep that runs them all in turn: each
-    record takes the kernels of its instance (``instance_kernels``)."""
+    record takes the kernels of its instance (``instance_kernels``); a
+    record none of whose kernels the profiler recorded takes its call's
+    ``queued_device_ms``."""
     times = device_times(lambda: [fn() for fn in calls.values()])
     out = {}
-    for key in calls:
+    for key, fn in calls.items():
         mine = [k for k in times if any(is_kernel(k, fam, w) for fam, w in instance_kernels(key))]
-        if not mine:
-            raise AssertionError(f"{label}: the profiler recorded no kernel of {key}")
-        out[key] = sum(times[k] for k in mine)
+        if mine:
+            out[key] = sum(times[k] for k in mine)
+        else:
+            out[key] = queued_device_ms(fn, 20)
+            log(f"  {label}: the profiler recorded no kernel of {key}; by CUDA events "
+                f"queued behind a sleep: {out[key]:.4f} ms a call")
     return out
 
 
@@ -5991,6 +6091,20 @@ def gn_instance_ptxas(resources, layout, h, act, backward):
     return out
 
 
+def gn_times(fn, libs, profile):
+    """gn_instance_check's times of ``fn``: CUDA events over GN_TIME_REPS
+    calls, the profiler's device ms unless not ``profile`` (then None);
+    with a parent tree and ``libs``, the parent's beside them."""
+    t = timed(fn, libs, device=profile, device_reps=5, warmup=2, reps=GN_TIME_REPS)
+    t.setdefault("device_ms", None)
+    return t
+
+
+def layout_name(kernel):
+    """"nk" or "csr": the layout of a GraphNetBlock wrapper."""
+    return "csr" if kernel.__name__.endswith("csr") else "nk"
+
+
 def gn_instance_check(label, kernel, plain, rows, lay, model, x, e, raw, variants, card,
                       profile=True):
     """Rows 1-4 (``kernel``, a layout's wrapper) at one width and activation
@@ -6029,10 +6143,9 @@ def gn_instance_check(label, kernel, plain, rows, lay, model, x, e, raw, variant
             out[False]["max_abs_err"] = max(out[False]["max_abs_err"], err)
             del xk, ek, xp, ep
             if name == "middle":
-                fn = lambda: kernel(*args, **kw)  # noqa: E731
+                fn = lambda: late(kernel)(*args, **kw)  # noqa: E731
                 out[False].update(
-                    ms=cuda_ms(fn, warmup=2, reps=GN_TIME_REPS),
-                    device_ms=device_ms(fn, reps=5) if profile else None,
+                    gn_times(fn, gn_libs(layout_name(kernel), x.shape[-1], False), profile),
                     plain_ms=cuda_ms(lambda: plain(*args, **kw, compute_dtype=torch.bfloat16),
                                      warmup=1, reps=3))
         cot_x = torch.randn(x.shape, generator=gen, device=x.device).to(torch.bfloat16)
@@ -6057,8 +6170,7 @@ def gn_instance_check(label, kernel, plain, rows, lay, model, x, e, raw, variant
                 raise AssertionError(f"{label}: the backward gives other bits on a second call")
             del g1, g2
             out[True].update(
-                ms=cuda_ms(fn, warmup=2, reps=GN_TIME_REPS),
-                device_ms=device_ms(fn, reps=5) if profile else None,
+                gn_times(fn, gn_libs(layout_name(kernel), x.shape[-1], True), profile),
                 plain_ms=cuda_ms(lambda: torch.autograd.grad(*kept["plain"], retain_graph=True),
                                  warmup=1, reps=3))
             for bwd in (False, True):
@@ -6071,7 +6183,7 @@ def gn_instance_check(label, kernel, plain, rows, lay, model, x, e, raw, variant
         dev = "not profiled" if f["device_ms"] is None else f"{f['device_ms']:.4f}"
         log(f"  {label} middle block {'backward' if bwd else 'forward'}: kernel {f['ms']:.4f} "
             f"ms (device {dev}), plain {f['plain_ms']:.4f} ms, bound "
-            f"{f['bound_ms']:.6g} ms ({f['bound_by']}) ({card})")
+            f"{f['bound_ms']:.6g} ms ({f['bound_by']}){parent_note(f)} ({card})")
     return out
 
 
@@ -6257,7 +6369,7 @@ def main_block_check(label, model, graph, nk, card, seed):
         log(f"{label} forward kernel check [middle, B={b}]")
         f_err = max(compare("x_out", xk, xp, KERNEL_TOL), compare("e_out", ek, ep, KERNEL_TOL))
         del xk, ek, xp, ep
-        fwd = dict(timed(lambda: kernel(*args), (), device=True),
+        fwd = dict(timed(lambda: late(kernel)(*args), gn_libs("nk", h, False), device=True),
                    plain_ms=cuda_ms(lambda: nk_ops.fused_gn_block_nk_reference(
                        *args, compute_dtype=torch.bfloat16)), max_abs_err=f_err)
     cots = [torch.randn(t.shape, generator=gen, device=gen.device).to(torch.bfloat16)
@@ -6274,18 +6386,24 @@ def main_block_check(label, model, graph, nk, card, seed):
                              "out of bounds")
     bwd = backward_times(f"{label} backward [middle, B={b}]",
                          lambda: torch.autograd.grad(*kept["kernel"], retain_graph=True),
-                         lambda: torch.autograd.grad(*kept["plain"], retain_graph=True), (), card)
+                         lambda: torch.autograd.grad(*kept["plain"], retain_graph=True),
+                         gn_libs("nk", h, True), card)
     bwd["max_abs_err"] = max(r["max_abs_err"] for r in stats)
+    if h in WIDE_HIDDEN:
+        depths = (len(blk.edge_block.denses), len(blk.node_block.denses), 0)
+        bwd["scratch_bytes"], bwd["parent_scratch_bytes"] = scratch_note(
+            f"{label} middle block at B={b}", "nk", h, n, b, nk.total_rows, 0, depths)
     del kept
     out = {}
     for backward, t in ((False, fwd), (True, bwd)):
         bd = bound(*gn_block_work(x, e, graph.edge_mask, blk, backward=backward))
         out[backward] = dict(ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
                              bound_ms=bd[0], bound_by=bd[1], max_abs_err=t["max_abs_err"],
-                             shape=[n, b, h])
+                             shape=[n, b, h], **{k: t[k] for k in t if k.startswith(
+                                 ("parent_", "scratch_"))})
         log(f"{label} middle block {'backward' if backward else 'forward'} at B={b}: kernel "
             f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, bound "
-            f"{bd[0]:.6g} ms ({bd[1]}) ({card})")
+            f"{bd[0]:.6g} ms ({bd[1]}){parent_note(t)} ({card})")
     del x, e, cots
     torch.cuda.empty_cache()
     return out
@@ -6705,13 +6823,13 @@ def gn_depth_main_phase(device, card):
         raise AssertionError(f"phase 53: launches per step {per_step}, or a non-finite loss or "
                              "gradient norm")
     reset_counts([gn])
-    st = step_timing(train, None, None, 54)
+    st = step_timing(train, None, None, 54, libs=gn_libs("nk", MGN_HIDDEN, True))
     add(MGN_HIDDEN, d, True, launch_counts(gn))
     idle = 1.0 - st["train_step_device_ms"] / st["train_step_ms"]
     log(f"MGN-width train step with {d}-layer MLPs B={b}: kernel path {st['train_step_ms']:.4f} "
         f"ms ({1000 * b / st['train_step_ms']:.1f} graph-steps/s; device time "
         f"{st['train_step_device_ms']:.4f} ms, idle share {idle:.3f}; the host enqueues a step "
-        f"in {st['train_step_host_enqueue_ms']:.4f} ms) ({card})")
+        f"in {st['train_step_host_enqueue_ms']:.4f} ms){parent_step_note(st)} ({card})")
     facts["mgn_depth3_step"] = dict(st, peak_bytes=peak, idle_share=idle)
     del train
     torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
 // Fused GraphNetBlock backward on the receiver-sorted CSR edge layout at
-// hidden 64 and 128, for Hopper (sm_90a); compiled once per width
-// (-DGN_WIDE_H=64 or 128, ops/kernel_build.py: FLAGS).
+// hidden 64 and 128, for Hopper (sm_90a), on wgmma warpgroup tiles;
+// compiled once per width (-DGN_WIDE_H=64 or 128, ops/kernel_build.py:
+// FLAGS).
 //
 // Replaces the TPU Pallas kernel graph_physics_tpu/ops/fused_gnblock.py:
 // _bwd_kernel (:453), called by the custom VJP of fused_gn_block
@@ -16,13 +17,17 @@ using namespace gnw;
 
 namespace {
 
-template <bool ACTS>
-__global__ void __launch_bounds__(THREADS, 1) GNW(csr_row_bwd)(const BwdArgs a) {
-  row_bwd_body<CsrRows, ACTS>(a);
+template <bool ACTS, int WGS>
+__global__ void __launch_bounds__(WG_THREADS * WGS, 1)
+    GNW(csr_row_bwd)(const __grid_constant__ BwdArgs a) {
+  extern __shared__ unsigned char row_smem[];
+  row_bwd_body<CsrRows, ACTS, WGS>(a, row_smem);
 }
 
-__global__ void __launch_bounds__(THREADS) GNW(csr_send)(const BwdArgs a) {
-  send_body<CsrRows>(a);
+__global__ void __launch_bounds__(2 * WG_THREADS)
+    GNW(csr_send)(const __grid_constant__ BwdArgs a) {
+  extern __shared__ unsigned char send_smem[];
+  send_body<CsrRows>(a, send_smem);
 }
 
 }  // namespace
@@ -60,8 +65,8 @@ extern "C" int gnw_csr_bwd(const void* x, const void* e, const void* agg, const 
                      batch, fe, enc_w, enc_g, n_enc_layers, enc_act, edge_w, edge_g,
                      n_edge_layers, edge_act, node_w, node_g, n_node_layers, node_act))
     return static_cast<int>(cudaErrorInvalidValue);
-  const BwdKernel rows =
-      any_instance(a.edge, H) ? GNW(csr_row_bwd)<true> : GNW(csr_row_bwd)<false>;
+  const BwdKernel rows[3] = {GNW(csr_row_bwd)<false, 2>, GNW(csr_row_bwd)<true, 2>,
+                            GNW(csr_row_bwd)<true, 1>};
   return static_cast<int>(launch_bwd(a, static_cast<bf16*>(scratch), static_cast<float*>(part),
                                      static_cast<cudaStream_t>(stream), rows, GNW(csr_send)));
 }

@@ -1,6 +1,7 @@
 // Fused GraphNetBlock backward on the uniform-degree ("NK") slot layout at
-// hidden 64 and 128, for Hopper (sm_90a); compiled once per width
-// (-DGN_WIDE_H=64 or 128, ops/kernel_build.py: FLAGS).
+// hidden 64 and 128, for Hopper (sm_90a), on wgmma warpgroup tiles;
+// compiled once per width (-DGN_WIDE_H=64 or 128, ops/kernel_build.py:
+// FLAGS).
 //
 // Replaces the TPU Pallas kernel graph_physics_tpu/ops/fused_gnblock_nk.py:
 // _nk_bwd_kernel (:189) and the sender-side segment_sum of its wrapper
@@ -14,12 +15,18 @@ using namespace gnw;
 
 namespace {
 
-template <bool ACTS>
-__global__ void __launch_bounds__(THREADS, 1) GNW(nk_row_bwd)(const BwdArgs a) {
-  row_bwd_body<NkRows, ACTS>(a);
+template <bool ACTS, int WGS>
+__global__ void __launch_bounds__(WG_THREADS * WGS, 1)
+    GNW(nk_row_bwd)(const __grid_constant__ BwdArgs a) {
+  extern __shared__ unsigned char row_smem[];
+  row_bwd_body<NkRows, ACTS, WGS>(a, row_smem);
 }
 
-__global__ void __launch_bounds__(THREADS) GNW(nk_send)(const BwdArgs a) { send_body<NkRows>(a); }
+__global__ void __launch_bounds__(2 * WG_THREADS)
+    GNW(nk_send)(const __grid_constant__ BwdArgs a) {
+  extern __shared__ unsigned char send_smem[];
+  send_body<NkRows>(a, send_smem);
+}
 
 }  // namespace
 
@@ -64,8 +71,8 @@ extern "C" int gnw_nk_bwd(const void* x, const void* e, const void* agg, const v
                      batch, fe, enc_w, enc_g, n_enc_layers, enc_act, edge_w, edge_g,
                      n_edge_layers, edge_act, node_w, node_g, n_node_layers, node_act))
     return static_cast<int>(cudaErrorInvalidValue);
-  const BwdKernel rows =
-      any_instance(a.edge, H) ? GNW(nk_row_bwd)<true> : GNW(nk_row_bwd)<false>;
+  const BwdKernel rows[3] = {GNW(nk_row_bwd)<false, 2>, GNW(nk_row_bwd)<true, 2>,
+                            GNW(nk_row_bwd)<true, 1>};
   return static_cast<int>(launch_bwd(a, static_cast<bf16*>(scratch), static_cast<float*>(part),
                                      static_cast<cudaStream_t>(stream), rows, GNW(nk_send)));
 }

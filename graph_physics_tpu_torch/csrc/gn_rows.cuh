@@ -34,6 +34,10 @@ struct CsrRows {
     count = a.row_ptr[j + 1] - a.row_ptr[j];
     step = 1;
   }
+  // the t-th row in receiver order: rows are receiver-sorted already
+  static __device__ __forceinline__ long long by_receiver(const RowMap&, long long t) {
+    return t;
+  }
 };
 
 // NK slots (ops/tiling.py): receiver g·nb + r owns slots g·K·nb + k·nb + r,
@@ -53,6 +57,12 @@ struct NkRows {
             j % a.node_block;
     count = a.k_slots;
     step = a.node_block;
+  }
+  // the t-th row in receiver order: slot t % K of receiver t / K
+  static __device__ __forceinline__ long long by_receiver(const RowMap& a, long long t) {
+    const long long j = t / a.k_slots;
+    return (j / a.node_block) * a.k_slots * a.node_block + (t % a.k_slots) * a.node_block +
+           j % a.node_block;
   }
 };
 

@@ -14,45 +14,60 @@
 // on, each rounded to bf16 (the JAX kernel's scatter commuted through Kr
 // and Ks, fused_gnblock.py:534-546). The numeric flow is _mlp_bwd's.
 //
-// Why the hidden-32 design does not carry over: there a block's warps
-// share each MLP's weight gradients in registers across all its tiles
-// (24-40 a lane); at H = 128 the edge MLP's alone are 64k fp32, 256 KB a
-// block. So the passes write what the weight gradients contract over to a
-// bf16 scratch, and the gradients are products over the rows afterwards:
-//  0. the pre-pass (gn_wide.cuh): xkr, xks; (folded) the encoder pass
-//     writes e_in to a scratch;
-//  1. node pass, a warp per (node, 16 samples), the node MLP resident: its
-//     forward from [x | agg] and backward from g_xout, storing each
-//     later layer's relu'd input A_1.., the cotangents G_0.. at the
-//     layers' outputs and the RMSNorm scale's terms P; dx's node part and
-//     g_agg;
-//  2. row pass, a warp per (row, 16 samples) of every row, the edge MLP
-//     (Ke, its later layers) resident: the edge MLP's forward, its
-//     backward from g_agg[r] + g_eout, its A_1.., G_0.. (G_0 is g_h0) and
-//     P, de; rows outside every receiver's range and masked rows store
-//     zeros;
-//  3. sender pass, a warp per (node, 16 samples): P_r over the node's own
-//     rows and P_s over the sender-sorted row list (fp32 sums in row
-//     order, ops/tiling.cached_sender_slots), both stored; dx finished
-//     with the two products on tiles;
+// At H = 128 the edge MLP's weight gradients alone are 64k fp32, more than
+// a block can hold beside its work, so the passes write what the weight
+// gradients contract over to a bf16 scratch, and the gradients are
+// products over the rows afterwards:
+//  0. the packing of the call's MLPs, the pre-pass (gn_wide.cuh): xkr,
+//     xks; (folded) the encoder pass writes e_in to a scratch;
+//  1. node pass on the warpgroup tiles (gn_wide.cuh), the node MLP
+//     resident, x through the ring, agg and g_xout loaded a product ahead:
+//     its forward from [x | agg] and backward from g_xout, storing each
+//     later layer's relu'd input A_1.. (relu's pass masks kept by the
+//     thread for the backward) and the cotangents G_0.. at the layers'
+//     outputs; dx's node part and g_agg; the RMSNorm scale's terms P
+//     summed per warp in fp32;
+//  2. row pass on the tiles of every row, in receiver order (a receiver's
+//     rows go to warpgroups at once, which share its node tiles in L2),
+//     the edge MLP (Ke, its later layers) resident, e and g_eout through
+//     the ring, xkr[r], xks[j] and g_agg[r] loaded a product ahead: the
+//     edge MLP's forward, its backward from g_agg[r] + g_eout, its A_1..,
+//     G_0.. (G_0 is g_h0), the scale's column sums, de; rows outside every
+//     receiver's range and masked rows run on zero inputs with a zero
+//     cotangent, so their G slots are zero and de is g_eout;
+//  3. sender pass on the node tiles: P_r over the node's own rows and P_s
+//     over the sender-sorted row list (fp32 sums in row order,
+//     ops/tiling.cached_sender_slots), both stored; dx finished with the
+//     two products;
 //  4. weight-gradient pass: for each (product, row split) one block forms
-//     Gᵀ·A over its rows as mma.sync products (64-row tiles of both
-//     operands by cp.async, two stages) and G's column sums (a bias, or
-//     P's: the scale), into a partial; Kr's and Ks's gradients are the
-//     products P_rᵀ·x and P_sᵀ·x;
-//  5. a last kernel adds the partials in split order into the gradients;
-//  6. (folded) the encoder's pass, a warp per (row, 16 samples): its
-//     forward from the raw features and its backward from de, into the
-//     scratch of pass 2 (read by then), then passes 4-5 on its products.
+//     Gᵀ·A over its rows: a producer warp keeps four stages of 64-row TMA
+//     boxes of both operands in flight, one consumer warpgroup per 64
+//     outputs runs wgmma with both operands from shared memory, and sums
+//     G's columns (the bias) from the same stage; Kr's and Ks's gradients
+//     are the products P_rᵀ·x and P_sᵀ·x;
+//  5. a last kernel adds the partials in split order into the gradients,
+//     and (its last blocks) the scales' per-warp column sums in warp order;
+//  6. (folded) the encoder's pass: its forward from the raw features and
+//     its backward from de, into the scratch of pass 2 (read by then),
+//     then passes 4-5 on its products.
 // No atomics anywhere: two calls give the same bits.
 //
 // What bounds it on this card: per valid row the backward does ~3x the
-// forward's multiply-adds (the edge MLP forward again, the cotangent
-// through 4 layers, the weight gradients); at hidden 128 on the cylinder
-// batch (B = 128) a middle block is ~0.73 TFLOP against ~1.9 GB of the
-// function's traffic (x, e, agg, both cotangents read; dx, de written):
-// 0.74 ms on the tensor cores, 0.57 ms at 3.35 TB/s. The scratch adds
-// 8 x [S, B, H] bf16 (3.0 GB at that shape) written and read back.
+// forward's multiply-adds (the edge MLP forward again, the cotangent back
+// through its layers, the weight gradients); at hidden 128 on the cylinder
+// batch (B = 128, 11,520 rows x 128 samples) a middle block with 3-layer
+// MLPs and the norm is ~0.57 TFLOP against ~1.9 GB of the function's
+// traffic: 0.57 ms on the tensor cores, 0.57 ms at 3.35 TB/s. The 16-row
+// mma.sync design (each weight fragment read from shared memory once per
+// 16 rows, the row tiles loaded with nothing in flight, a sixth scratch
+// slot for P) took 4.8 device ms there. Here the products are 64-row
+// wgmma tiles, the row tiles arrive through TMA a tile ahead or are
+// loaded a product ahead, stores and loads go through a staging tile as
+// whole rows, and P never leaves the chip: ~3.3 device ms, of which the
+// row pass ~1.5 and the weight gradients ~1.0 move ~3.5 and ~2.6 GB, the
+// scratch's round trip (5 slots of [S, B, H] at 3 layers written and read)
+// being what this design still pays for not fusing the weight gradients
+// into the row pass.
 #pragma once
 
 #include "gn_wide.cuh"
@@ -61,18 +76,24 @@ namespace gnw {
 
 using namespace gn_rows;
 
-// an MLP's scratch slots: A_1..A_{MAXL-1}, G_0..G_{MAXL-1}, P (an MLP of n
-// layers uses A_1..A_{n-1}, G_0..G_{n-1} and P: 2n slots; launch_bwd gives
+// an MLP's scratch slots: A_1..A_{MAXL-1}, G_0..G_{MAXL-1} (an MLP of n
+// layers uses A_1..A_{n-1}, G_0..G_{n-1}: 2n - 1 slots; launch_bwd gives
 // only those memory)
-enum { A1 = 0, G0 = MAXL - 1, P_SLOT = 2 * MAXL - 1, SLOTS = 2 * MAXL, PR = SLOTS,
-       PS = SLOTS + 1 };
+enum { A1 = 0, G0 = MAXL - 1, SLOTS = 2 * MAXL - 1, PR = SLOTS, PS = SLOTS + 1 };
 
 // whether an MLP of n layers uses slot i
 __host__ __device__ inline bool slot_used(int i, int n) {
-  return (i >= A1 && i < A1 + n - 1) || (i >= G0 && i < G0 + n) || i == P_SLOT;
+  return (i >= A1 && i < A1 + n - 1) || (i >= G0 && i < G0 + n);
 }
 
+// the per-warp column sums of the RMSNorm scales' terms: one block of
+// rows per MLP
+enum { P_EDGE = 0, P_NODE = 1, P_ENC = 2 };
+
 struct BwdArgs : RowMap {
+  CUtensorMap m_e;         // the ring's maps ([rows][B][H], boxes of 16 samples): e_in,
+  CUtensorMap m_geo;       // g_eout,
+  CUtensorMap m_x;         // x
   const bf16* x;           // [N, B, H]
   const bf16* e;           // [S, B, H] e_in (the encoder pass's output when folded)
   const bf16* raw;         // [S, B, fe] the encoder's input when folded
@@ -89,6 +110,12 @@ struct BwdArgs : RowMap {
   bf16* ns[SLOTS + 2];     // [N, B, H] each: the node MLP's slots, then P_r, P_s
   bf16* cs[SLOTS + 1];     // [S, B, H] each: the encoder's A_0 (the raw rows, zero
                            // past fe), then its slots
+  const unsigned char* img_enc;   // the packed MLPs (gn_wide.cuh:img_layout)
+  const unsigned char* img_edge;
+  const unsigned char* img_node;
+  const unsigned char* img_kk;    // [Kr | Ks]
+  float* pparts;           // [3][pwarps][H]: the scales' terms summed per warp
+  int pwarps;
   const int32_t* senders;  // [S] sender per row (0 on padding)
   const uint8_t* mask;     // [S] 1 on valid rows
   const int32_t* order;    // the valid rows sorted by sender
@@ -98,36 +125,67 @@ struct BwdArgs : RowMap {
   Mlp genc, gedge, gnode;  // their gradients: same shapes, fp32, zeroed
 };
 
-// stores of an MLP's A_l (l >= 1), G_l and P at element offset ``off``
+// stores of an MLP's A_l (l >= 1) and G_l at element offset ``off``
 struct Slots {
   bf16* const* s;
   __device__ bf16* a(int l) const { return s[A1 + l - 1]; }
   __device__ bf16* g(int l) const { return s[G0 + l]; }
-  __device__ bf16* p() const { return s[P_SLOT]; }
 };
 
-// An MLP's forward on the warp's tile from its first layer's fp32 product
-// d0 (bias not yet added), storing each later layer's input to its slot:
-// with relu its relu'd input A_l (its pass mask too), with SiLU or GELU
-// the pre-activation, which bwd_chain needs for the derivative and then
-// overwrites with A_l = act(pre), so the slot's bytes are relu's; v gets
-// the last layer's output (the RMSNorm's input) and inv its statistic
-template <bool STREAM>
-__device__ __forceinline__ void fwd_keep(const float (&d0)[NT][4], const WMlp& m, const Slots& sl,
-                                         long long off, int nv, uint32_t (&v)[NF],
-                                         float (&inv)[2]) {
+// the warp's global index in a pass (its row of the scale's sums)
+template <int WGS>
+__device__ __forceinline__ int warp_index() {
+  return blockIdx.x * WGS * 4 + (threadIdx.x >> 5);
+}
+
+// relu's pass masks of a pass's tiles, a layer a row: 2 bits a pair
+// register (kept by the thread, indexed at run time: local memory, which
+// L1 holds; the backward reads them where it would reload A_l)
+constexpr int MW = NF / 16;
+struct Masks {
+  uint32_t w[MAXL][MW];
+};
+
+__device__ __forceinline__ void mask_of(uint32_t (&w)[MW], const uint32_t (&act)[NF]) {
+#pragma unroll
+  for (int k = 0; k < MW; ++k) w[k] = 0u;
+#pragma unroll
+  for (int i = 0; i < NF; ++i) {
+    const uint32_t pm = pos_mask(act[i]);
+    w[i / 16] |= ((pm & 1u) | ((pm >> 15) & 2u)) << (2 * (i % 16));
+  }
+}
+
+__device__ __forceinline__ uint32_t mask_pair(const uint32_t (&w)[MW], int i) {
+  const uint32_t b = w[i / 16] >> (2 * (i % 16));
+  return ((b & 1u) ? 0x0000ffffu : 0u) | ((b & 2u) ? 0xffff0000u : 0u);
+}
+
+// An MLP's forward on the tiles from its first layer's fp32 product d0
+// (bias not yet added), storing each later layer's input to its slot: with
+// relu its relu'd input A_l (and its pass mask to ``mk``), with SiLU or
+// GELU the pre-activation, which bwd_chain needs for the derivative and
+// then overwrites with A_l = act(pre), so the slot's bytes are relu's; v
+// gets the last layer's output (the RMSNorm's input) and inv its statistic
+template <int WGS>
+__device__ __forceinline__ void fwd_keep(const float (&d0)[NT][4], WMlp& m, unsigned char* smem,
+                                         const Slots& sl, long long off, int nv,
+                                         uint32_t (&v)[NF], float (&inv)[2],
+                                         unsigned char* stg, Masks& mk) {
   finish(v, d0, m.bias(0));
 #pragma unroll 1
   for (int l = 1; l < m.n_layers; ++l) {
     uint32_t act[NF];
     activate(act, v, m.act);
-    if (m.act == mlp_act::RELU)  // two calls: a selected array would go to local memory
-      frag_store(sl.a(l) + off, nv, act);
-    else
-      frag_store(sl.a(l) + off, nv, v);
     float d[NT][4];
-    zero_acc(d);
-    layer_awt<STREAM>(d, act, m, l);
+    layer_awt_issue<WGS>(d, act, m, l);  // the store runs beside the product
+    if (m.act == mlp_act::RELU) {  // two calls: a selected array would go to local memory
+      stage_store(sl.a(l) + off, nv, act, stg);
+      mask_of(mk.w[l], act);
+    } else {
+      stage_store(sl.a(l) + off, nv, v, stg);
+    }
+    layer_wait<WGS>(m, smem, l);
     finish(v, d, m.bias(l));
   }
   inv[0] = inv[1] = 1.f;
@@ -136,280 +194,362 @@ __device__ __forceinline__ void fwd_keep(const float (&d0)[NT][4], const WMlp& m
 
 // The backward through the RMSNorm and layers n-1..1 (JAX _mlp_bwd): g in,
 // the cotangent at the MLP's output; out, the cotangent at layer 0's
-// output. Stores P and every G_l; reads back the lane's own A_l stores.
-template <bool STREAM>
-__device__ __forceinline__ void bwd_chain(uint32_t (&g)[NF], const WMlp& m, const Slots& sl,
-                                          long long off, int nv, const uint32_t (&v)[NF],
-                                          const float (&inv)[2]) {
+// output. Adds the scale's terms bf16(g · u) to the warp's column sums
+// ``psum``, stores every G_l; with relu masks g by fwd_keep's masks, with
+// SiLU or GELU reads back the lanes' own pre-activation stores (their
+// loads in flight during the layer's product).
+template <int WGS>
+__device__ __forceinline__ void bwd_chain(uint32_t (&g)[NF], WMlp& m, unsigned char* smem,
+                                          const Slots& sl, long long off, int nv,
+                                          const uint32_t (&v)[NF], const float (&inv)[2],
+                                          float (&psum)[CS], unsigned char* stg,
+                                          const Masks& mk) {
   if (m.norm) {
     uint32_t p[NF];
     rms_bwd(g, p, v, inv, m.scale());
-    frag_store(sl.p() + off, nv, p);
+    colsum_add(psum, p);
   }
 #pragma unroll 1
   for (int l = m.n_layers - 1; l >= 1; --l) {
-    frag_store(sl.g(l) + off, nv, g);
     float d[NT][4];
-    zero_acc(d);
-    layer_gw<STREAM>(d, g, m, l);
-    uint32_t act[NF];
-    frag_load(act, sl.a(l) + off, nv);
-    round_acc(g, d);
     if (m.act == mlp_act::RELU) {
+      layer_gw_issue<WGS>(d, g, m, l);  // the store runs beside the product
+      stage_store(sl.g(l) + off, nv, g, stg);
+      layer_wait<WGS>(m, smem, l);
+      round_acc(g, d);
 #pragma unroll
-      for (int i = 0; i < NF; ++i) g[i] &= pos_mask(act[i]);
-    } else {  // act holds the pre-activation: g · act'(pre), then A_l = act(pre)
+      for (int i = 0; i < NF; ++i) g[i] &= mask_pair(mk.w[l], i);
+    } else {  // g · act'(pre), then A_l = act(pre)
+      Pend pa;
+      pend_issue(pa, sl.a(l) + off, nv);
+      layer_gw_issue<WGS>(d, g, m, l);  // the store and the loads run beside the product
+      stage_store(sl.g(l) + off, nv, g, stg);
+      uint32_t pre[NF];
+      pend_take(pre, pa, stg);
+      layer_wait<WGS>(m, smem, l);
+      round_acc(g, d);
 #pragma unroll
       for (int i = 0; i < NF; ++i) {
-        g[i] = mlp_act::grad_pair(g[i], act[i], m.act);
-        act[i] = mlp_act::act_pair(act[i], m.act);
+        g[i] = mlp_act::grad_pair(g[i], pre[i], m.act);
+        pre[i] = mlp_act::act_pair(pre[i], m.act);
       }
-      frag_store(sl.a(l) + off, nv, act);
+      stage_store(sl.a(l) + off, nv, pre, stg);
     }
   }
-  frag_store(sl.g(0) + off, nv, g);
+  stage_store(sl.g(0) + off, nv, g, stg);
 }
 
-// a tile that adds nothing to the weight gradients: zero slots
-__device__ __forceinline__ void zero_slots(const Slots& sl, long long off, int nv,
-                                           const WMlp& m) {
-  uint32_t z[NF];
-  zero_frag(z);
-  for (int l = 1; l < m.n_layers; ++l) frag_store(sl.a(l) + off, nv, z);
-  for (int l = 0; l < m.n_layers; ++l) frag_store(sl.g(l) + off, nv, z);
-  if (m.norm) frag_store(sl.p() + off, nv, z);
+// a pass's warp column sums of its MLP's scale terms to their row
+template <int WGS>
+__device__ __forceinline__ void store_psum(const BwdArgs& a, int mlp, const WMlp& m,
+                                           const float (&psum)[CS]) {
+  if (m.norm)
+    colsum_store(a.pparts + (static_cast<long long>(mlp) * a.pwarps + warp_index<WGS>()) * H,
+                 psum);
 }
 
-// g_eout's tile, or zeros on the last block
-__device__ __forceinline__ void eout_cot(uint32_t (&f)[NF], const BwdArgs& a, long long off,
-                                         int nv) {
-  if (a.g_eout)
-    frag_load(f, a.g_eout + off, nv);
-  else
-    zero_frag(f);
-}
-
-// pass 1: the node MLP's backward
-template <bool ACTS>
-__global__ void __launch_bounds__(THREADS, 1) GNW(node_bwd)(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char node_smem[];
-  WMlp node = stage_mlp(reinterpret_cast<bf16*>(node_smem), a.node, 2 * H);
+// pass 1: the node MLP's backward; x through the ring, agg and g_xout
+// loaded a product ahead
+template <bool ACTS, int WGS>
+__global__ void __launch_bounds__(WG_THREADS * WGS, 1)
+    GNW(node_bwd)(const __grid_constant__ BwdArgs a) {
+  extern __shared__ unsigned char node_smem[];
+  enum { S_X, NS };
+  Carve c;
+  WMlp node = stage_mlp<WGS>(c, node_smem, a.img_node, a.node, 2 * H, NS, true);
   fix_act<ACTS>(node);
-  __syncthreads();
+  Ring ring(c, NS);
+  unsigned char* stg = c.stage();
   const Slots sl{a.ns};
-  const int B = a.batch;
-  const int chunks = (B + 15) / 16;
-  const long long tiles = static_cast<long long>(a.n_nodes) * chunks;
-  const long long step = static_cast<long long>(gridDim.x) * WARPS;
-  for (long long t = static_cast<long long>(blockIdx.x) * WARPS + threadIdx.x / 32; t < tiles;
-       t += step) {
-    const int b0 = 16 * static_cast<int>(t % chunks);
-    const int nv = min(16, B - b0);
-    const long long xb = ((t / chunks) * B + b0) * H;
-    uint32_t v[NF], g[NF];
+  const int B = a.batch, chunks = (B + 15) / 16, w = (threadIdx.x >> 5) & 3;
+  const long long tiles = static_cast<long long>(a.n_nodes) * chunks, items = (tiles + 3) / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * WGS;
+  float psum[CS] = {};
+  Masks mk;
+  long long g = blockIdx.x * static_cast<long long>(WGS) + (threadIdx.x >> 7);
+  if (g < items) {
+    const Item it(4 * g + w, tiles, chunks, B);
+    if (it.nv > 0) ring.load(S_X, &a.m_x, it.row, it.b0);
+  }
+  for (; g < items; g += stride) {
+    const Item it(4 * g + w, tiles, chunks, B);
+    const Item nx(4 * (g + stride) + w, tiles, chunks, B);
+    const bool have = it.nv > 0, next = g + stride < items && nx.nv > 0;
+    const long long xb = (it.row * B + it.b0) * H;
+    uint32_t v[NF], gt[NF];
     float inv[2];
     {
       float d[NT][4];
       uint32_t f[NF];
-      zero_acc(d);
-      frag_load(f, a.x + xb, nv);
-      mma_awt(d, f, node.layer(0), node.stride0, 0);
-      frag_load(f, a.agg + xb, nv);
-      mma_awt(d, f, node.layer(0), node.stride0, H);
-      fwd_keep<ACTS>(d, node, sl, xb, nv, v, inv);
+      Pend pa;
+      pend_issue(pa, a.agg + xb, it.nv);
+      uint32_t t[NF];
+      ring.read(f, S_X, have);
+      awt_issue(d, f, node.w, 0, false);
+      pend_take(t, pa, stg);
+      wg::wait<0>();
+      __syncwarp();
+      if (next) ring.load(S_X, &a.m_x, nx.row, nx.b0);
+      awt(d, t, node.w, KS, true);
+      Pend po;
+      pend_issue(po, a.g_xout + xb, it.nv);
+      fwd_keep<WGS>(d, node, node_smem, sl, xb, it.nv, v, inv, stg, mk);
+      pend_take(gt, po, stg);
     }
-    frag_load(g, a.g_xout + xb, nv);
-    bwd_chain<ACTS>(g, node, sl, xb, nv, v, inv);
+    bwd_chain<WGS>(gt, node, node_smem, sl, xb, it.nv, v, inv, psum, stg, mk);
     float d[NT][4];
     uint32_t f[NF];
-    zero_acc(d);
-    mma_gw(d, g, node.layer(0), node.stride0, 0);  // the x part
+    gw_issue(d, gt, node.w, 0);  // the x part
+    stage_load(f, a.g_xout + xb, it.nv, stg);
+    wg::wait<0>();
     round_acc(v, d);
-    frag_load(f, a.g_xout + xb, nv);
     add_tiles(f, f, v);
-    frag_store(a.dx + xb, nv, f);  // finished by the sender pass
-    zero_acc(d);
-    mma_gw(d, g, node.layer(0), node.stride0, H);  // the aggregate's part
+    gw_issue(d, gt, node.w, KB);  // the aggregate's part
+    stage_store(a.dx + xb, it.nv, f, stg);  // finished by the sender pass
+    wg::wait<0>();
     round_acc(v, d);
-    frag_store(a.gagg + xb, nv, v);
+    stage_store(a.gagg + xb, it.nv, v, stg);
   }
+  store_psum<WGS>(a, P_NODE, node, psum);
+  drain<WGS>(node);
 }
 
-// pass 2: the edge MLP's backward on every row
-template <class Rows, bool ACTS>
-__device__ __forceinline__ void row_bwd_body(const BwdArgs& a) {
-  extern __shared__ __align__(16) unsigned char row_smem[];
-  WMlp edge = stage_mlp(reinterpret_cast<bf16*>(row_smem), a.edge, H);  // Ke, W1..
+// pass 2: the edge MLP's backward on every row; e and g_eout through the
+// ring, xkr[r], xks[j] and g_agg[r] loaded a product ahead
+template <class Rows, bool ACTS, int WGS>
+__device__ __forceinline__ void row_bwd_body(const BwdArgs& a, unsigned char* smem) {
+  enum { S_E, S_GEO, NS };
+  Carve c;
+  WMlp edge = stage_mlp<WGS>(c, smem, a.img_edge, a.edge, H, NS, true);  // Ke, W1..
   fix_act<ACTS>(edge);
-  __syncthreads();
+  Ring ring(c, NS);
+  unsigned char* stg = c.stage();
   const Slots sl{a.es};
-  const int B = a.batch;
-  const int chunks = (B + 15) / 16;
+  const int B = a.batch, chunks = (B + 15) / 16, w = (threadIdx.x >> 5) & 3;
   const long long pad0 = Rows::ranged_end(a);
-  const long long tiles = static_cast<long long>(a.total_rows) * chunks;
-  const long long step = static_cast<long long>(gridDim.x) * WARPS;
-  for (long long t = static_cast<long long>(blockIdx.x) * WARPS + threadIdx.x / 32; t < tiles;
-       t += step) {
-    const long long s = t / chunks;
-    const int b0 = 16 * static_cast<int>(t % chunks);
-    const int nv = min(16, B - b0);
-    const long long off = (s * B + b0) * H;
-    if (!(s < pad0 && a.mask[s])) {  // padding or masked: g_h0 = 0, de = g_eout
-      zero_slots(sl, off, nv, edge);
-      uint32_t f[NF];
-      eout_cot(f, a, off, nv);
-      frag_store(a.de + off, nv, f);
-      continue;
+  const long long tiles = static_cast<long long>(a.total_rows) * chunks, items = (tiles + 3) / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * WGS;
+  const bool geo = a.g_eout != nullptr;
+  float psum[CS] = {};
+  Masks mk;
+  long long g = blockIdx.x * static_cast<long long>(WGS) + (threadIdx.x >> 7);
+  // rows in receiver order (gn_rows.cuh: by_receiver), so that the
+  // warpgroups a receiver's rows go to at once share its node tiles in L2
+  auto item = [&](long long gi) {
+    Item it(4 * gi + w, tiles, chunks, B);
+    it.row = Rows::by_receiver(a, it.row);
+    return it;
+  };
+  if (g < items) {
+    const Item it = item(g);
+    if (it.nv > 0) {
+      ring.load(S_E, &a.m_e, it.row, it.b0);
+      if (geo) ring.load(S_GEO, &a.m_geo, it.row, it.b0);
     }
-    const long long rt = (Rows::receiver(a, s) * B + b0) * H;
-    uint32_t v[NF], g[NF];
+  }
+  for (; g < items; g += stride) {
+    const Item it = item(g);
+    const Item nx = item(g + stride);
+    const bool have = it.nv > 0, next = g + stride < items && nx.nv > 0;
+    const long long s = it.row;
+    const bool ok = have && s < pad0 && a.mask[s];  // else: zero inputs, zero cotangent
+    const int nv = ok ? it.nv : 0;                  // the rows its node tiles give
+    const long long off = (s * B + it.b0) * H;
+    const long long rt = ok ? (Rows::receiver(a, s) * B + it.b0) * H : 0;
+    const long long st = ok ? (static_cast<long long>(a.senders[s]) * B + it.b0) * H : 0;
+    uint32_t v[NF], gt[NF];
     float inv[2];
     {
       float d[NT][4];
       uint32_t f[NF];
-      frag_load(f, a.e + off, nv);
-      zero_acc(d);
-      mma_awt(d, f, edge.layer(0), edge.stride0, 0);  // e_in @ Ke
-      frag_load(f, a.xkr + rt, nv);
-      add_frag(d, f);
-      frag_load(f, a.xks + (static_cast<long long>(a.senders[s]) * B + b0) * H, nv);
-      add_frag(d, f);
-      fwd_keep<ACTS>(d, edge, sl, off, nv, v, inv);
+      Pend pr, ps;
+      pend_issue(pr, a.xkr + rt, nv);
+      pend_issue(ps, a.xks + st, nv);
+      uint32_t t[NF];
+      ring.read(f, S_E, have);
+      if (!ok) zero_frag(f);
+      awt_issue(d, f, edge.w, 0, false);  // e_in @ Ke
+      if (ok) pend_take(t, pr, stg);
+      wg::wait<0>();
+      __syncwarp();
+      if (next) ring.load(S_E, &a.m_e, nx.row, nx.b0);
+      if (ok) {
+        add_frag(d, t);
+        pend_take(t, ps, stg);
+        add_frag(d, t);
+      }
+      Pend pg;
+      pend_issue(pg, a.gagg + rt, nv);
+      fwd_keep<WGS>(d, edge, smem, sl, off, it.nv, v, inv, stg, mk);
+      ring.read(f, S_GEO, have && geo);
+      pend_take(gt, pg, stg);
+      if (ok)
+        add_tiles(gt, gt, f);
+      else
+        zero_frag(gt);
     }
-    {
-      uint32_t f[NF];
-      frag_load(g, a.gagg + rt, nv);
-      eout_cot(f, a, off, nv);
-      add_tiles(g, g, f);
-    }
-    bwd_chain<ACTS>(g, edge, sl, off, nv, v, inv);
+    bwd_chain<WGS>(gt, edge, smem, sl, off, it.nv, v, inv, psum, stg, mk);
     float d[NT][4];
     uint32_t f[NF];
-    zero_acc(d);
-    mma_gw(d, g, edge.layer(0), edge.stride0, 0);  // g_h0 · Ke
+    gw_issue(d, gt, edge.w, 0);  // g_h0 · Ke
+    if (have && geo)
+      ring.reread(f, S_GEO);
+    else
+      zero_frag(f);
+    wg::wait<0>();
     round_acc(v, d);
-    eout_cot(f, a, off, nv);
     add_tiles(v, v, f);
-    frag_store(a.de + off, nv, v);
+    stage_store(a.de + off, it.nv, v, stg);
+    __syncwarp();
+    if (next && geo) ring.load(S_GEO, &a.m_geo, nx.row, nx.b0);
   }
+  store_psum<WGS>(a, P_EDGE, edge, psum);
+  drain<WGS>(edge);
+}
+
+// out = bf16(the fp32 sum of the tiles at row(0..count-1), in that order)
+template <class RowAt>
+__device__ __forceinline__ void gather_sum(uint32_t (&out)[NF], int count, RowAt row, int nv) {
+  float d[NT][4];
+  uint32_t f[NF];
+  zero_acc(d);
+#pragma unroll 1
+  for (int c = 0; c < count; ++c) {
+    tile_load(f, row(c), nv);
+    add_frag(d, f);
+  }
+  round_acc(out, d);
 }
 
 // pass 3: P_r, P_s and dx's receiver and sender parts
 template <class Rows>
-__device__ __forceinline__ void send_body(const BwdArgs& a) {
-  extern __shared__ __align__(16) unsigned char send_smem[];
-  constexpr int KS2 = 2 * H + 8;
-  bf16* s_k = reinterpret_cast<bf16*>(send_smem);  // [H out][Kr | Ks]
-  stage_w(s_k, a.edge.w[0], 3 * H, H, 2 * H, KS2);
+__device__ __forceinline__ void send_body(const BwdArgs& a, unsigned char* smem) {
+  unsigned char* k = smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023);  // [Kr | Ks]
+  unsigned char* stg = k + 2 * LAYER_BYTES + (threadIdx.x >> 5) * TILE_BYTES;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(k + 2 * LAYER_BYTES + 8 * TILE_BYTES);
+  if (threadIdx.x == 0) {
+    wg::bar_init(bar, 1);
+    wg::bar_fence_init();
+  }
   __syncthreads();
+  if (threadIdx.x == 0) {
+    wg::bar_expect(bar, 2 * LAYER_BYTES);
+    wg::bulk_load(k, a.img_kk, 2 * LAYER_BYTES, bar);
+  }
+  wg::bar_wait(bar, 0);
   const bf16* gh0 = a.es[G0];
-  const int B = a.batch;
-  const int chunks = (B + 15) / 16;
-  const long long tiles = static_cast<long long>(a.n_nodes) * chunks;
-  const long long step = static_cast<long long>(gridDim.x) * WARPS;
-  for (long long t = static_cast<long long>(blockIdx.x) * WARPS + threadIdx.x / 32; t < tiles;
-       t += step) {
-    const int j = static_cast<int>(t / chunks);
-    const int b0 = 16 * static_cast<int>(t % chunks);
-    const int nv = min(16, B - b0);
-    const long long xb = (static_cast<long long>(j) * B + b0) * H;
+  const int B = a.batch, chunks = (B + 15) / 16, w = (threadIdx.x >> 5) & 3;
+  const long long tiles = static_cast<long long>(a.n_nodes) * chunks, items = (tiles + 3) / 4;
+  for (long long g = blockIdx.x * 2LL + (threadIdx.x >> 7); g < items; g += gridDim.x * 2LL) {
+    const Item it(4 * g + w, tiles, chunks, B);
+    const int j = static_cast<int>(it.row), b0 = it.b0, nv = it.nv;
+    const long long xb = (it.row * B + b0) * H;
     uint32_t pr[NF], ps[NF];
     {
-      float d[NT][4];
-      uint32_t f[NF];
-      long long first;
-      int count, row_step;
-      Rows::own(a, j, first, count, row_step);
-      zero_acc(d);
-#pragma unroll 1
-      for (int c = 0; c < count; ++c) {  // j's own rows
-        frag_load(f, gh0 + ((first + static_cast<long long>(c) * row_step) * B + b0) * H, nv);
-        add_frag(d, f);
-      }
-      round_acc(pr, d);
-      zero_acc(d);
-#pragma unroll 1
-      for (int i = a.offsets[j]; i < a.offsets[j + 1]; ++i) {  // the rows j sends on
-        frag_load(f, gh0 + (static_cast<long long>(a.order[i]) * B + b0) * H, nv);
-        add_frag(d, f);
-      }
-      round_acc(ps, d);
+      long long first = 0;
+      int count = 0, row_step = 0;
+      if (nv > 0) Rows::own(a, j, first, count, row_step);
+      gather_sum(pr, count, [&](int c) {  // j's own rows
+        return gh0 + ((first + static_cast<long long>(c) * row_step) * B + b0) * H;
+      }, nv);
+      const int i0 = nv > 0 ? a.offsets[j] : 0, i1 = nv > 0 ? a.offsets[j + 1] : 0;
+      gather_sum(ps, i1 - i0, [&](int c) {  // the rows j sends on
+        return gh0 + (static_cast<long long>(a.order[i0 + c]) * B + b0) * H;
+      }, nv);
     }
-    frag_store(a.ns[PR] + xb, nv, pr);
-    frag_store(a.ns[PS] + xb, nv, ps);
+    stage_store(a.ns[PR] + xb, nv, pr, stg);
+    stage_store(a.ns[PS] + xb, nv, ps, stg);
     float d[NT][4];
     uint32_t f[NF], u[NF];
-    frag_load(f, a.dx + xb, nv);
-    zero_acc(d);
-    mma_gw(d, pr, s_k, KS2, 0);  // P_r · Krᵀ
+    stage_load(f, a.dx + xb, nv, stg);
+    gw(d, pr, wg::smem_u32(k), 0);  // P_r · Krᵀ
     round_acc(u, d);
     add_tiles(f, f, u);
-    zero_acc(d);
-    mma_gw(d, ps, s_k, KS2, H);  // P_s · Ksᵀ
+    gw(d, ps, wg::smem_u32(k), KB);  // P_s · Ksᵀ
     round_acc(u, d);
     add_tiles(f, f, u);
-    frag_store(a.dx + xb, nv, f);
+    stage_store(a.dx + xb, nv, f, stg);
   }
 }
 
 // pass 6 (folded): the encoder's forward and backward on every row, its
 // cotangent de from the row pass
-template <bool ACTS>
-__global__ void __launch_bounds__(THREADS, 1) GNW(enc_bwd)(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char enc_smem[];
+template <bool ACTS, int WGS>
+__global__ void __launch_bounds__(WG_THREADS * WGS, 1)
+    GNW(enc_bwd)(const __grid_constant__ BwdArgs a) {
+  extern __shared__ unsigned char enc_smem[];
   const int fe = a.fe;
-  WMlp enc = stage_mlp(reinterpret_cast<bf16*>(enc_smem), a.enc, fe);
+  Carve c;
+  WMlp enc = stage_mlp<WGS>(c, enc_smem, a.img_enc, a.enc, fe, 0, true);
   fix_act<ACTS>(enc);
-  __syncthreads();
+  unsigned char* stg = c.stage();
   const Slots sl{a.cs + 1};
-  const int B = a.batch;
-  const int chunks = (B + 15) / 16;
-  const long long tiles = static_cast<long long>(a.total_rows) * chunks;
-  const long long step = static_cast<long long>(gridDim.x) * WARPS;
-  for (long long t = static_cast<long long>(blockIdx.x) * WARPS + threadIdx.x / 32; t < tiles;
-       t += step) {
-    const int b0 = 16 * static_cast<int>(t % chunks);
-    const int nv = min(16, B - b0);
-    const long long rb = (t / chunks) * B + b0;
+  const int B = a.batch, chunks = (B + 15) / 16, w = (threadIdx.x >> 5) & 3;
+  const long long tiles = static_cast<long long>(a.total_rows) * chunks, items = (tiles + 3) / 4;
+  float psum[CS] = {};
+  Masks mk;
+  for (long long g = blockIdx.x * static_cast<long long>(WGS) + (threadIdx.x >> 7); g < items;
+       g += static_cast<long long>(gridDim.x) * WGS) {
+    const Item it(4 * g + w, tiles, chunks, B);
+    const long long rb = it.row * B + it.b0;
     const long long off = rb * H;
-    uint32_t v[NF], g[NF];
+    uint32_t v[NF], gt[NF];
     float inv[2];
     {
       float d[NT][4];
       uint32_t rf[NF];
-      enc_first(d, rf, a.raw + rb * fe, fe, enc, nv);
-      frag_store(a.cs[0] + off, nv, rf);  // A_0: the raw rows, zero past fe
-      fwd_keep<ACTS>(d, enc, sl, off, nv, v, inv);
+      enc_first(d, rf, a.raw + rb * fe, fe, enc, it.nv);
+      stage_store(a.cs[0] + off, it.nv, rf, stg);  // A_0: the raw rows, zero past fe
+      fwd_keep<WGS>(d, enc, enc_smem, sl, off, it.nv, v, inv, stg, mk);
     }
-    frag_load(g, a.de + off, nv);
-    bwd_chain<ACTS>(g, enc, sl, off, nv, v, inv);
+    stage_load(gt, a.de + off, it.nv, stg);
+    bwd_chain<WGS>(gt, enc, enc_smem, sl, off, it.nv, v, inv, psum, stg, mk);
   }
+  store_psum<WGS>(a, P_ENC, enc, psum);
+  drain<WGS>(enc);
 }
 
 // ---- weight gradients: products over the rows, partials, ordered sum ----
 
-constexpr int TK = 64;           // rows a tile of the weight-gradient pass
-constexpr int MAXP = 24;         // products a call (the main call at MAXL layers: 21)
-constexpr int PSZ = H * H + H;   // a partial: the [H][H] tile and H column sums
+constexpr int TK = 64;              // rows a stage of the weight-gradient pass
+constexpr int STAGES = 4;           // its ring's stages
+constexpr int BOX = TK * 128;       // a TK-row x 64-column TMA box
+constexpr int STAGE_BYTES = 2 * KB * BOX;  // G's and A's boxes
+constexpr int WGRAD_THREADS = KB * WG_THREADS + 32;  // consumers, then the producer warp
+constexpr int CS_GROUPS = KB * WG_THREADS / (H / 8);  // row groups of the bias sums (16)
+constexpr int CS_ROWS = TK / CS_GROUPS;               // rows of a stage a group adds
+constexpr int MAXP = 24;            // products a call (the main call at MAXL layers: 20)
+constexpr int PSZ = H * H + H;      // a partial: the [H][H] tile and H column sums
 constexpr int SPLIT_ROWS = 8192;
 constexpr int MAX_SPLITS = 96;
+// the weight-gradient pass's arrays, by their TMA map: the edge rows'
+// scratch, the nodes' scratch, e_in (when not folded), x, agg
+enum { MAP_EDGE, MAP_NODE, MAP_E, MAP_X, MAP_AGG, MAPS };
 
 // One product: out[m][k] = sum over rows of g[row][m] · a[row][k], into
-// w[m · in_dim + col0 + k] for k < width (a null: none), and the column
-// sums of g into sum[m] (null: none); g and a are [rows, H] bf16.
+// w[m · in_dim + col0 + k] for k < width, and the column sums of g into
+// sum[m] (null: none); g and a are [rows, H] bf16 planes of the maps
 struct Prod {
-  const bf16* g;
-  const bf16* a;
   float* w;
   float* sum;
   long long rows;
   int in_dim, col0, width;
+  int gm, gz, am, az;  // G's and A's map and plane
+};
+
+// A scale's gradient from a pass's per-warp column sums
+struct ScaleJob {
+  const float* parts;  // [warps][H]
+  float* out;          // [H]
+  int warps;
 };
 
 struct WgradArgs {
+  CUtensorMap map[MAPS];  // [planes][rows][H], boxes of 64 rows
   Prod p[MAXP];
+  ScaleJob sj[2];
   float* part;  // [n][splits][PSZ]
-  int n, splits;
+  int n, splits, n_sj;
 };
 
 __host__ __device__ inline int splits_for(long long rows) {
@@ -417,100 +557,132 @@ __host__ __device__ inline int splits_for(long long rows) {
   return static_cast<int>(s < 1 ? 1 : s > MAX_SPLITS ? MAX_SPLITS : s);
 }
 
-// pass 4: block (split, product) forms its rows' partial; warp w owns
-// outputs (H/4)·(w % 4).. and inputs (H/2)·(w / 4).. of the tile
-__global__ void __launch_bounds__(THREADS) GNW(wgrad)(const WgradArgs wa) {
-  extern __shared__ __align__(16) unsigned char wg_smem[];
-  bf16* tiles_smem = reinterpret_cast<bf16*>(wg_smem);  // [stage][G | A][TK][TS]
+// pass 4: block (split, product) forms its rows' partial; consumer
+// warpgroup i owns outputs 64i..64i+63
+__global__ void __launch_bounds__(WGRAD_THREADS, 1)
+    GNW(wgrad)(const __grid_constant__ WgradArgs wa) {
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* st = wg_smem + ((1024 - (wg::smem_u32(wg_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(st + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  float* csum = reinterpret_cast<float*>(empty + STAGES);  // [CS_GROUPS][H]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int split = blockIdx.x, q = blockIdx.y;
-  const Prod p = wa.p[q];
+  const Prod& p = wa.p[q];
   const long long n_tiles = (p.rows + TK - 1) / TK;
   const long long k0 = n_tiles * split / wa.splits, k1 = n_tiles * (split + 1) / wa.splits;
-  constexpr int PIECES = TK * H / 8;  // 16-byte pieces of a tile
-
-  auto load = [&](int stage, long long t) {
-    bf16* sG = tiles_smem + stage * 2 * TK * TS;
-    bf16* sA = sG + TK * TS;
-#pragma unroll
-    for (int i = 0; i < PIECES / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / (H / 8), ch = idx % (H / 8);
-      const long long row = t * TK + r;
-      const bool valid = row < p.rows;
-      const long long rr = valid ? row : 0;
-      cp_async16(sG + r * TS + ch * 8, p.g + rr * H + ch * 8, valid);
-      if (p.a) cp_async16(sA + r * TS + ch * 8, p.a + rr * H + ch * 8, valid);
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      wg::bar_init(full + i, 1);
+      wg::bar_init(empty + i, 4 * KB);
     }
-  };
-
-  constexpr int MT = H / 64;  // m16 tiles of a warp (H / 4 outputs)
-  constexpr int NW = H / 16;  // n8 tiles of a warp (H / 2 inputs)
-  const int wm = warp & 3, wn = warp >> 2;
-  float acc[MT][NW][4];
+    wg::bar_fence_init();
+  }
+  __syncthreads();
+  if (warp == 4 * KB) {  // the producer
+    if (lane == 0)
+      for (long long t = k0; t < k1; ++t) {
+        const int i = static_cast<int>(t - k0), s = i % STAGES;
+        if (i >= STAGES) wg::bar_wait(empty + s, ((i / STAGES) - 1) & 1);
+        unsigned char* sg = st + s * STAGE_BYTES;
+        wg::bar_expect(full + s, STAGE_BYTES);
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int n = 0; n < NW; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
-  float cs = 0.f;
-
-  if (k0 < k1) load(0, k0);
-  asm volatile("cp.async.commit_group;\n");
+        for (int kb = 0; kb < KB; ++kb) {
+          wg::tma_load3(sg + kb * BOX, &wa.map[p.gm], 64 * kb, static_cast<int>(t * TK), p.gz,
+                        full + s);
+          wg::tma_load3(sg + (KB + kb) * BOX, &wa.map[p.am], 64 * kb, static_cast<int>(t * TK),
+                        p.az, full + s);
+        }
+      }
+    return;
+  }
+  const int wgi = warp >> 2;
+  // the bias sums: thread tid adds the 8 columns of chunk cc over the rows
+  // CS_ROWS·rg.. of each stage
+  const int cc = tid % (H / 8), rg = tid / (H / 8);
+  float acc[NT][4];
+  zero_acc(acc);
+  float cs[8] = {};
   for (long long t = k0; t < k1; ++t) {
-    const int st = static_cast<int>((t - k0) & 1);
-    if (t + 1 < k1) load(st ^ 1, t + 1);
-    asm volatile("cp.async.commit_group;\n");
-    asm volatile("cp.async.wait_group 1;\n");
-    __syncthreads();
-    const bf16* sG = tiles_smem + st * 2 * TK * TS;
-    const bf16* sA = sG + TK * TS;
-    if (p.a) {
+    const int i = static_cast<int>(t - k0), s = i % STAGES;
+    wg::bar_wait(full + s, (i / STAGES) & 1);
+    const unsigned char* sg = st + s * STAGE_BYTES;
+    const uint32_t ga = wg::smem_u32(sg + wgi * BOX), aa = wg::smem_u32(sg + KB * BOX);
+    wg::fence();
 #pragma unroll
-      for (int ks = 0; ks < TK / 16; ++ks) {
-        uint32_t bk[NW / 2][4];
+    for (int ks = 0; ks < TK / 16; ++ks)
+      wg::mma_ss<1, 1>(acc, wg::desc_mn(ga, ks, BOX), wg::desc_mn(aa, ks, BOX), 1);
+    wg::commit();
+    if (p.sum) {
+      const unsigned char* gb = sg + (cc >> 3) * BOX;
 #pragma unroll
-        for (int pp = 0; pp < NW / 2; ++pp)
-          ldsm_t(bk[pp], b_cols(sA, TS, (H / 2) * wn + 16 * pp, 16 * ks, lane));
+      for (int r = CS_ROWS * rg; r < CS_ROWS * (rg + 1); ++r) {
+        const uint4 u = *reinterpret_cast<const uint4*>(gb + wg::sw128(r, 8 * (cc & 7)));
+        const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          uint32_t af[4];
-          ldsm_t(af, a_cols(sG, TS, (H / 4) * wm + 16 * i, 16 * ks, lane));
-#pragma unroll
-          for (int pp = 0; pp < NW / 2; ++pp) {
-            mma(acc[i][2 * pp], af, bk[pp][0], bk[pp][1]);
-            mma(acc[i][2 * pp + 1], af, bk[pp][2], bk[pp][3]);
-          }
+        for (int k = 0; k < 4; ++k) {
+          cs[2 * k] += __uint_as_float(wd[k] << 16);
+          cs[2 * k + 1] += __uint_as_float(wd[k] & 0xffff0000u);
         }
       }
     }
-    if (p.sum && tid < H) {
-#pragma unroll 8
-      for (int r = 0; r < TK; ++r) cs += __bfloat162float(sG[r * TS + tid]);
-    }
-    __syncthreads();
+    wg::wait<0>();
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(empty + s);
   }
-  asm volatile("cp.async.wait_group 0;\n");
 
   float* out = wa.part + (static_cast<long long>(q) * wa.splits + split) * PSZ;
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int n = 0; n < NW; ++n)
+    for (int half = 0; half < 2; ++half) {
+      const int m = 64 * wgi + 16 * (warp & 3) + (lane >> 2) + 8 * half;
+      const int k = 8 * n + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(out + m * H + k) =
+          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = (H / 4) * wm + 16 * i + (lane >> 2) + 8 * half;
-        const int k = (H / 2) * wn + 8 * n + 2 * (lane & 3);
-        *reinterpret_cast<float2*>(out + m * H + k) =
-            make_float2(acc[i][n][2 * half], acc[i][n][2 * half + 1]);
-      }
-  if (tid < H) out[H * H + tid] = cs;
+  for (int k = 0; k < 8; ++k) csum[rg * H + 8 * cc + k] = cs[k];
+  asm volatile("bar.sync 1, %0;\n" ::"n"(KB * WG_THREADS) : "memory");
+  if (tid < H) {
+    float t = 0.f;
+#pragma unroll
+    for (int g = 0; g < CS_GROUPS; ++g) t += csum[g * H + tid];
+    out[H * H + tid] = t;
+  }
 }
 
-// pass 5: each gradient element the sum of its partials, in split order
-__global__ void __launch_bounds__(THREADS) GNW(wsum)(const WgradArgs wa) {
-  const long long idx = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+// the scale's gradient of a ScaleJob, SJ_BLOCKS blocks of SJ_COLS columns:
+// thread (c, j) adds the warps j, j + WAYS, ... in order, then column c's
+// WAYS sums are added in j order
+constexpr int SJ_BLOCKS = 8, SJ_COLS = H / SJ_BLOCKS, WAYS = 256 / SJ_COLS;
+
+__device__ __forceinline__ void scale_sum(const ScaleJob& sj, int k) {
+  __shared__ float part[WAYS][SJ_COLS];
+  const int c = threadIdx.x % SJ_COLS, j = threadIdx.x / SJ_COLS, col = k * SJ_COLS + c;
+  float s = 0.f;
+#pragma unroll 8
+  for (int w = j; w < sj.warps; w += WAYS) s += sj.parts[static_cast<long long>(w) * H + col];
+  part[j][c] = s;
+  __syncthreads();
+  if (j == 0) {
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < WAYS; ++q) t += part[q][c];
+    sj.out[col] = t;
+  }
+}
+
+// pass 5: each gradient element the sum of its partials, in split order;
+// the last n_sj · SJ_BLOCKS blocks the scales' sums
+__global__ void __launch_bounds__(256) GNW(wsum)(const __grid_constant__ WgradArgs wa) {
+  const int sum_blocks = static_cast<int>((static_cast<long long>(wa.n) * PSZ + 255) / 256);
+  if (static_cast<int>(blockIdx.x) >= sum_blocks) {
+    const int b = blockIdx.x - sum_blocks;
+    scale_sum(wa.sj[b / SJ_BLOCKS], b % SJ_BLOCKS);
+    return;
+  }
+  const long long idx = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
   if (idx >= static_cast<long long>(wa.n) * PSZ) return;
   const int q = static_cast<int>(idx / PSZ), e = static_cast<int>(idx % PSZ);
   const Prod& p = wa.p[q];
@@ -519,146 +691,231 @@ __global__ void __launch_bounds__(THREADS) GNW(wsum)(const WgradArgs wa) {
   for (int sp = 0; sp < wa.splits; ++sp) s += src[static_cast<long long>(sp) * PSZ];
   if (e < H * H) {
     const int m = e / H, k = e % H;
-    if (p.a && k < p.width) p.w[m * p.in_dim + p.col0 + k] = s;
+    if (k < p.width) p.w[m * p.in_dim + p.col0 + k] = s;
   } else if (p.sum) {
     p.sum[e - H * H] = s;
   }
 }
 
 inline cudaError_t launch_wgrad(const WgradArgs& wa, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * 2 * 2 * TK * TS;
+  const size_t smem = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8 + CS_GROUPS * H * 4;
   cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(GNW(wgrad)),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  GNW(wgrad)<<<dim3(wa.splits, wa.n), THREADS, smem, stream>>>(wa);
+  GNW(wgrad)<<<dim3(wa.splits, wa.n), WGRAD_THREADS, smem, stream>>>(wa);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int blocks = static_cast<int>((static_cast<long long>(wa.n) * PSZ + THREADS - 1) / THREADS);
-  GNW(wsum)<<<blocks, THREADS, 0, stream>>>(wa);
+  const int blocks = static_cast<int>((static_cast<long long>(wa.n) * PSZ + 255) / 256);
+  GNW(wsum)<<<blocks + wa.n_sj * SJ_BLOCKS, 256, 0, stream>>>(wa);
   return cudaGetLastError();
 }
 
-// an MLP's products: layer 0 (g_0 against a0, its first ``width`` of in_dim
-// inputs, with the bias), layers 1.. (g_l against A_l), the scale (P's
-// column sums)
-inline void add_mlp_products(WgradArgs& wa, const Mlp& grad, bf16* const* slots, const bf16* a0,
-                             long long rows, int width) {
-  wa.p[wa.n++] = {slots[G0], a0, const_cast<float*>(grad.w[0]), const_cast<float*>(grad.b[0]),
-                  rows, grad.in_dim, 0, width};
+// an MLP's products: layer 0 (g_0 against A plane ``a0`` of map ``am``, its
+// first ``width`` of in_dim inputs, with the bias), layers 1.. (g_l against
+// A_l); the MLP's slots are planes of map ``sm`` (``plane``: a slot's)
+inline void add_mlp_products(WgradArgs& wa, const Mlp& grad, const int* plane, int sm, int am,
+                             int a0, long long rows, int width) {
+  wa.p[wa.n++] = {const_cast<float*>(grad.w[0]), const_cast<float*>(grad.b[0]), rows,
+                  grad.in_dim, 0, width, sm, plane[G0], am, a0};
   for (int l = 1; l < grad.n_layers; ++l)
-    wa.p[wa.n++] = {slots[G0 + l], slots[A1 + l - 1], const_cast<float*>(grad.w[l]),
-                    const_cast<float*>(grad.b[l]), rows, H, 0, H};
-  if (grad.scale)
-    wa.p[wa.n++] = {slots[P_SLOT], nullptr, nullptr, const_cast<float*>(grad.scale), rows, 0, 0,
-                    0};
+    wa.p[wa.n++] = {const_cast<float*>(grad.w[l]), const_cast<float*>(grad.b[l]), rows, H, 0, H,
+                    sm, plane[G0 + l], sm, plane[A1 + l - 1]};
+}
+
+// the warps a P-summing pass may have: 64 a multiprocessor
+inline int pass_warps() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return 64 * sms;
+}
+
+// The scratch's layout: the nodes' planes (xkr, xks, g_agg, the node
+// MLP's slots, P_r, P_s) and the edge rows' (the edge MLP's slots, which
+// the encoder reuses, then e_in / A_0 and de when folded), as one
+// [planes][rows][H] array each, then the packed MLPs
+struct Scratch {
+  int node_planes, edge_planes;
+  int np[SLOTS + 2];  // node plane of each node slot (or -1)
+  int ep[SLOTS];      // edge plane of each edge slot (or -1)
+};
+
+inline Scratch scratch_layout(int fe, int n_edge, int n_node, int n_enc) {
+  Scratch s;
+  int k = 3;  // xkr, xks, g_agg
+  for (int i = 0; i < SLOTS + 2; ++i) s.np[i] = i >= SLOTS || slot_used(i, n_node) ? k++ : -1;
+  s.node_planes = k;
+  k = 0;
+  for (int i = 0; i < SLOTS; ++i)
+    s.ep[i] = slot_used(i, n_edge) || (fe > 0 && slot_used(i, n_enc)) ? k++ : -1;
+  s.edge_planes = k + (fe > 0 ? 2 : 0);
+  return s;
 }
 
 // bf16 scratch elements (which = 0) and fp32 partial elements (1) of a
-// call with MLPs of n_edge, n_node and (folded, fe > 0) n_enc layers: the
-// node MLP's 2·n_node slots, and 2·n edge-row slots for the deeper of the
-// edge MLP and the encoder, which reuses the edge MLP's
+// call with MLPs of n_edge, n_node and (folded, fe > 0) n_enc layers
 inline long long bwd_sizes(int which, int n_nodes, int batch, long long total_rows, int fe,
                            int n_edge, int n_node, int n_enc) {
   const long long nrows = static_cast<long long>(n_nodes) * batch, erows = total_rows * batch;
-  const int n_rows_mlp = fe > 0 && n_enc > n_edge ? n_enc : n_edge;
+  const Scratch sc = scratch_layout(fe, n_edge, n_node, n_enc);
   if (which == 0)
-    return (3 + 2 * n_node + 2) * nrows * H + (2 * n_rows_mlp + (fe > 0 ? 2 : 0)) * erows * H;
-  // the main call's products: the edge MLP's (Kr and Ks among them), then
-  // the node MLP's (its aggregate's columns among them), each scale
-  // counted; the encoder's call reuses the buffer
-  const int main = n_edge + 3 + n_node + 2, enc = fe > 0 ? n_enc + 1 : 0;
+    return (sc.node_planes * nrows + sc.edge_planes * erows) * H +
+           img_layout(fe, n_enc, n_edge, n_node).total / 2;
+  // the main call's products: the edge MLP's, Kr and Ks, the node MLP's
+  // and its aggregate's columns; the encoder's call reuses the buffer;
+  // then the scales' per-warp sums
+  const int main = n_edge + 2 + n_node + 1, enc = fe > 0 ? n_enc : 0;
   return static_cast<long long>(main > enc ? main : enc) *
-         splits_for(erows > nrows ? erows : nrows) * PSZ;
+             splits_for(erows > nrows ? erows : nrows) * PSZ +
+         3LL * pass_warps() * H;
+}
+
+// a [planes][rows][H] map with boxes of TK rows
+inline bool plane_map(CUtensorMap* m, const void* base, long long rows, int planes) {
+  return wg::tensor_map3(m, base, H, rows, planes, TK, 1);
 }
 
 using BwdKernel = void (*)(const BwdArgs);
 
-// Every pass on ``stream``: ``rows`` and ``send`` are the calling source's
-// wrappers of row_bwd_body<Rows, ACTS> (the instance of the edge MLP's
-// activation, gn_wide.cuh:fix_act) and send_body<Rows>. ``scratch`` holds
+// launches a pass kernel of ``wgs`` warpgroups a block over ``items``
+// warpgroup items; ``warps`` gets its warp count
+inline cudaError_t launch_pass(BwdKernel kernel, int wgs, size_t smem, long long items,
+                               const BwdArgs& a, cudaStream_t stream, int* warps = nullptr) {
+  int grid = 0;
+  cudaError_t err = grid_of(reinterpret_cast<const void*>(kernel), wgs, smem, items, &grid);
+  if (err != cudaSuccess) return err;
+  if (warps) *warps = grid * wgs * 4;
+  kernel<<<grid, WG_THREADS * wgs, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// adds the scale of an MLP (its gradient ``grad``) whose pass had ``warps``
+// warps to the ordered sum's jobs
+inline void add_scale_job(WgradArgs& wa, const BwdArgs& a, int mlp, const Mlp& grad, int warps) {
+  if (grad.scale != nullptr)
+    wa.sj[wa.n_sj++] = {a.pparts + static_cast<long long>(mlp) * a.pwarps * H,
+                        const_cast<float*>(grad.scale), warps};
+}
+
+// Every pass on ``stream``: ``rows[i]`` and ``send`` are the calling
+// source's wrappers of row_bwd_body<Rows, ACTS, WGS> (instance i,
+// gn_wide.cuh:instance_of) and send_body<Rows>. ``scratch`` holds
 // bwd_sizes(0, ...) bf16 elements, ``part`` bwd_sizes(1, ...) floats; a
 // carries the inputs, outputs, MLPs and row map (a.e is the raw features
 // when folded).
 inline cudaError_t launch_bwd(BwdArgs a, bf16* scratch, float* part, cudaStream_t stream,
-                              BwdKernel rows, BwdKernel send) {
+                              const BwdKernel* rows, BwdKernel send) {
   const int B = a.batch, chunks = (B + 15) / 16;
   const long long nrows = static_cast<long long>(a.n_nodes) * B;
   const long long erows = static_cast<long long>(a.total_rows) * B;
   const bool fold = a.fe > 0;
-  bf16* s = scratch;
-  a.xkr = s;
-  a.xks = s += nrows * H;
-  s += nrows * H;
-  if (a.gagg == nullptr) a.gagg = s;
-  s += nrows * H;
-  for (int i = 0; i < SLOTS + 2; ++i) {  // the node MLP's slots, then P_r, P_s
-    a.ns[i] = i >= SLOTS || slot_used(i, a.node.n_layers) ? s : nullptr;
-    if (a.ns[i]) s += nrows * H;
-  }
-  for (int i = 0; i < SLOTS; ++i) {  // the edge MLP's, which the encoder reuses
-    a.es[i] = slot_used(i, a.edge.n_layers) || (fold && slot_used(i, a.enc.n_layers)) ? s
-                                                                                      : nullptr;
-    if (a.es[i]) s += erows * H;
-  }
+  const Scratch sc = scratch_layout(a.fe, a.edge.n_layers, a.node.n_layers,
+                                    fold ? a.enc.n_layers : 0);
+  bf16* node_slab = scratch;
+  bf16* edge_slab = node_slab + sc.node_planes * nrows * H;
+  unsigned char* img = reinterpret_cast<unsigned char*>(edge_slab + sc.edge_planes * erows * H);
+  const Images im = img_layout(a.fe, fold ? a.enc.n_layers : 0, a.edge.n_layers,
+                               a.node.n_layers);
+  a.xkr = node_slab;
+  a.xks = node_slab + nrows * H;
+  if (a.gagg == nullptr) a.gagg = node_slab + 2 * nrows * H;
+  for (int i = 0; i < SLOTS + 2; ++i)
+    a.ns[i] = sc.np[i] < 0 ? nullptr : node_slab + sc.np[i] * nrows * H;
+  for (int i = 0; i < SLOTS; ++i)
+    a.es[i] = sc.ep[i] < 0 ? nullptr : edge_slab + sc.ep[i] * erows * H;
+  const int ein_plane = sc.edge_planes - 2;
   if (fold) {
     a.raw = a.e;
-    a.e = s;  // e_in, then the encoder's A_0
-    a.de = s + erows * H;
-    a.cs[0] = s;
+    a.e = edge_slab + ein_plane * erows * H;  // e_in, then the encoder's A_0
+    a.de = edge_slab + (ein_plane + 1) * erows * H;
+    a.cs[0] = const_cast<bf16*>(a.e);
     for (int i = 0; i < SLOTS; ++i) a.cs[1 + i] = a.es[i];
   }
+  a.img_enc = img + im.enc;
+  a.img_edge = img + im.edge;
+  a.img_node = img + im.node;
+  a.img_kk = img + im.kk;
+  a.pwarps = pass_warps();
+  const int main_products = a.edge.n_layers + 2 + a.node.n_layers + 1;
+  const int enc_products = fold ? a.enc.n_layers : 0;
+  a.pparts = part + static_cast<long long>(main_products > enc_products ? main_products
+                                                                          : enc_products) *
+                        splits_for(erows > nrows ? erows : nrows) * PSZ;
+  if (!row_map(&a.m_e, a.e, a.total_rows, B) || !row_map(&a.m_geo, a.g_eout, a.total_rows, B) ||
+      !row_map(&a.m_x, a.x, a.n_nodes, B) || a.pwarps == 0)
+    return cudaErrorInvalidValue;
 
-  cudaError_t err = launch_partial(a.x, const_cast<bf16*>(a.xkr), const_cast<bf16*>(a.xks),
-                                   a.edge.w[0], a.n_nodes, B, stream);
+  cudaError_t err = pack_call(img, im, &a.enc, a.fe, a.edge, a.node, stream);
   if (err != cudaSuccess) return err;
-  if (fold && (err = launch_enc_fwd(a.raw, const_cast<bf16*>(a.e), a.enc, a.total_rows, B,
-                                    stream)) != cudaSuccess)
-    return err;
-  int grid = 0;
-  size_t smem = sizeof(bf16) * wmlp_elems(2 * H, a.node.n_layers);
-  const BwdKernel node =
-      any_instance(a.node, 2 * H) ? GNW(node_bwd)<true> : GNW(node_bwd)<false>;
-  if ((err = grid_of(reinterpret_cast<const void*>(node), smem, nrows / B * chunks, &grid)) !=
+  if ((err = launch_partial(a.x, const_cast<bf16*>(a.xkr), const_cast<bf16*>(a.xks),
+                            reinterpret_cast<const bf16*>(a.img_kk), a.n_nodes, B, stream)) !=
       cudaSuccess)
     return err;
-  node<<<grid, THREADS, smem, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  smem = sizeof(bf16) * wmlp_elems(H, a.edge.n_layers);
-  if ((err = grid_of(reinterpret_cast<const void*>(rows), smem,
-                     static_cast<long long>(a.total_rows) * chunks, &grid)) != cudaSuccess)
+  if (fold && (err = launch_enc_fwd(a.raw, const_cast<bf16*>(a.e), a.img_enc, a.enc,
+                                    a.total_rows, B, stream)) != cudaSuccess)
     return err;
-  rows<<<grid, THREADS, smem, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  smem = sizeof(bf16) * H * (2 * H + 8);
-  if ((err = grid_of(reinterpret_cast<const void*>(send), smem,
-                     static_cast<long long>(a.n_nodes) * chunks, &grid)) != cudaSuccess)
+  const long long node_items = (a.n_nodes * static_cast<long long>(chunks) + 3) / 4;
+  const long long row_items = (a.total_rows * static_cast<long long>(chunks) + 3) / 4;
+  int node_warps = 0, row_warps = 0;
+  {
+    const int inst = instance_of(a.node, 2 * H, 1), wgs = wgs_of(inst);
+    const BwdKernel k = inst == 0 ? GNW(node_bwd)<false, 2>
+                        : inst == 1 ? GNW(node_bwd)<true, 2> : GNW(node_bwd)<true, 1>;
+    const size_t smem = pass_bytes(2 * H, a.node.n_layers,
+                                   plan_pass(2 * H, a.node.n_layers, 1).resident, wgs, 1);
+    if ((err = launch_pass(k, wgs, smem, node_items, a, stream, &node_warps)) != cudaSuccess)
+      return err;
+  }
+  {
+    const int inst = instance_of(a.edge, H, 2), wgs = wgs_of(inst);
+    const size_t smem = pass_bytes(H, a.edge.n_layers, plan_pass(H, a.edge.n_layers, 2).resident,
+                                   wgs, 2);
+    if ((err = launch_pass(rows[inst], wgs, smem, row_items, a, stream, &row_warps)) !=
+        cudaSuccess)
+      return err;
+  }
+  if ((err = launch_pass(send, 2, 2 * LAYER_BYTES + 8 * TILE_BYTES + 2048, node_items, a,
+                         stream)) != cudaSuccess)
     return err;
-  send<<<grid, THREADS, smem, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   WgradArgs wa = {};
   wa.part = part;
   wa.splits = splits_for(erows > nrows ? erows : nrows);
-  add_mlp_products(wa, a.gedge, a.es, a.e, erows, H);  // Ke against e_in
+  if (!plane_map(&wa.map[MAP_EDGE], edge_slab, erows, sc.edge_planes) ||
+      !plane_map(&wa.map[MAP_NODE], node_slab, nrows, sc.node_planes) ||
+      !plane_map(&wa.map[MAP_E], a.e, erows, 1) || !plane_map(&wa.map[MAP_X], a.x, nrows, 1) ||
+      !plane_map(&wa.map[MAP_AGG], a.agg, nrows, 1))
+    return cudaErrorInvalidValue;
+  // Ke against e_in (the caller's e, or the encoder's output in the edge scratch)
+  add_mlp_products(wa, a.gedge, sc.ep, MAP_EDGE, fold ? MAP_EDGE : MAP_E, fold ? ein_plane : 0,
+                   erows, H);
   float* gw0 = const_cast<float*>(a.gedge.w[0]);
-  wa.p[wa.n++] = {a.ns[PR], a.x, gw0, nullptr, nrows, 3 * H, H, H};      // Kr
-  wa.p[wa.n++] = {a.ns[PS], a.x, gw0, nullptr, nrows, 3 * H, 2 * H, H};  // Ks
-  add_mlp_products(wa, a.gnode, a.ns, a.x, nrows, H);  // x's columns, the bias
-  wa.p[wa.n++] = {a.ns[G0], a.agg, const_cast<float*>(a.gnode.w[0]), nullptr, nrows, 2 * H, H,
-                  H};  // the aggregate's columns
+  wa.p[wa.n++] = {gw0, nullptr, nrows, 3 * H, H, H, MAP_NODE, sc.np[PR], MAP_X, 0};      // Kr
+  wa.p[wa.n++] = {gw0, nullptr, nrows, 3 * H, 2 * H, H, MAP_NODE, sc.np[PS], MAP_X, 0};  // Ks
+  add_mlp_products(wa, a.gnode, sc.np, MAP_NODE, MAP_X, 0, nrows, H);  // x's columns, the bias
+  wa.p[wa.n++] = {const_cast<float*>(a.gnode.w[0]), nullptr, nrows, 2 * H, H, H, MAP_NODE,
+                  sc.np[G0], MAP_AGG, 0};  // the aggregate's columns
+  add_scale_job(wa, a, P_EDGE, a.gedge, row_warps);
+  add_scale_job(wa, a, P_NODE, a.gnode, node_warps);
   if ((err = launch_wgrad(wa, stream)) != cudaSuccess || !fold) return err;
 
-  smem = sizeof(bf16) * wmlp_elems(a.fe, a.enc.n_layers);
-  const BwdKernel enc = any_instance(a.enc, a.fe) ? GNW(enc_bwd)<true> : GNW(enc_bwd)<false>;
-  if ((err = grid_of(reinterpret_cast<const void*>(enc), smem,
-                     static_cast<long long>(a.total_rows) * chunks, &grid)) != cudaSuccess)
-    return err;
-  enc<<<grid, THREADS, smem, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  int enc_warps = 0;
+  {
+    const int inst = instance_of(a.enc, a.fe, 0), wgs = wgs_of(inst);
+    const BwdKernel k = inst == 0 ? GNW(enc_bwd)<false, 2>
+                        : inst == 1 ? GNW(enc_bwd)<true, 2> : GNW(enc_bwd)<true, 1>;
+    const size_t smem = pass_bytes(a.fe, a.enc.n_layers,
+                                   plan_pass(a.fe, a.enc.n_layers, 0).resident, wgs, 0);
+    if ((err = launch_pass(k, wgs, smem, row_items, a, stream, &enc_warps)) != cudaSuccess)
+      return err;
+  }
   WgradArgs we = {};
   we.part = part;
   we.splits = wa.splits;
-  add_mlp_products(we, a.genc, a.cs + 1, a.cs[0], erows, a.fe);
+  we.map[MAP_EDGE] = wa.map[MAP_EDGE];
+  add_mlp_products(we, a.genc, sc.ep, MAP_EDGE, MAP_EDGE, ein_plane, erows, a.fe);
+  add_scale_job(we, a, P_ENC, a.genc, enc_warps);
   return launch_wgrad(we, stream);
 }
 

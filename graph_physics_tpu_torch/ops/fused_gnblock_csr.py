@@ -61,6 +61,7 @@ from graph_physics_tpu_torch.ops.fused_gnblock_nk import (
     rounded_grads,
     wide_backward_buffers,
     wide_forward_buffers,
+    wide_image_buffer,
 )
 from graph_physics_tpu_torch.ops.segment import gather_rows, scatter_rows
 from graph_physics_tpu_torch.ops.tiling import cached_sender_slots
@@ -72,8 +73,8 @@ _ARGTYPES = {
     **{library_name("gn_csr_bwd", h): {
         "gn_csr_bwd": [_vp] * 17 + [_i] * 4 + [_vp, _vp, _i, _i] * 3 + [_vp]}
        for h in TILE_HIDDEN},
-    **{f"gn_csr_fwd{h}": {"gnw_csr_fwd": [_vp] * 12 + [_i] * 4 + [_vp, _i, _i] * 3 + [_vp],
-                          "gnw_hidden": []} for h in WIDE_HIDDEN},
+    **{f"gn_csr_fwd{h}": {"gnw_csr_fwd": [_vp] * 13 + [_i] * 4 + [_vp, _i, _i] * 3 + [_vp],
+                          "gnw_image_bytes": [_i] * 4, "gnw_hidden": []} for h in WIDE_HIDDEN},
     **{f"gn_csr_bwd{h}": {"gnw_csr_bwd": [_vp] * 16 + [_i] * 4 + [_vp, _vp, _i, _i] * 3 + [_vp],
                           "gnw_bwd_sizes": [_i, _i, _i, ctypes.c_longlong] + [_i] * 4,
                           "gnw_hidden": []} for h in WIDE_HIDDEN},
@@ -103,11 +104,13 @@ def _launch_fwd(x, edge_attr, senders, receivers, edge_mask, csr, mlps, last_blo
                                                 device=x.device)
     row_ptr = csr.row_ptr_on(x.device).data_ptr()
     if h in WIDE_HIDDEN:
+        lib = _load(f"gn_csr_fwd{h}")
         xkr, xks, agg, ein, fe = wide_forward_buffers(x, edge_attr, csr.total_rows, mlps,
                                                       last_block)
-        err = _load(f"gn_csr_fwd{h}").gnw_csr_fwd(
+        img = wide_image_buffer(lib, x, fe, mlps)
+        err = lib.gnw_csr_fwd(
             x.data_ptr(), edge_attr.data_ptr(), xkr.data_ptr(), xks.data_ptr(), _ptr(ein),
-            x_out.data_ptr(), _ptr(e_out), agg.data_ptr(), _ptr(extra), row_ptr,
+            img.data_ptr(), x_out.data_ptr(), _ptr(e_out), agg.data_ptr(), _ptr(extra), row_ptr,
             senders.data_ptr(),
             edge_mask.data_ptr(), n, b, csr.total_rows, fe, *mlp_args(mlps), _stream(x))
         agg = agg if keep_agg else None

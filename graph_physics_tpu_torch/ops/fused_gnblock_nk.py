@@ -21,15 +21,18 @@ At hidden 64 and 128 (MeshGraphNets' latent width) the wrapper launches
 its width's ``csrc/fused_gnblock_wide_nk.cu`` and
 ``csrc/fused_gnblock_wide_nk_bwd.cu`` (the passes of
 ``csrc/gn_wide_fwd.cuh`` and ``gn_wide_bwd.cuh``, one library a width):
-the weights no longer fit one block, so each pass holds one MLP, and the
-backward writes what the weight gradients contract over to a bf16
-scratch and forms them as products over the rows, summed from partials
-in a fixed order (two calls give the same bits). Every MLP takes relu,
-SiLU or the exact GELU (``csrc/act_common.cuh``), has 1 to 8 Dense layers
-(JAX's ``nb_of_layers``) and has its RMSNorm tail or not (``layer_norm``):
-the tile backward takes MLPs of another depth than 4 in instances of
-their own, and at hidden 128 the wide kernels read an MLP's layers past
-what fits a block's shared memory from device memory. Other widths, and
+every product a Hopper ``wgmma`` over a warpgroup's 64 (row, sample)
+pairs with the MLP's packed bf16 weights in shared memory (the wrapper
+passes the bytes the packing takes, ``wide_image_buffer``); the weights
+no longer fit one block, so each pass holds one MLP, and the backward
+writes what the weight gradients contract over to a bf16 scratch and
+forms them as products over the rows, summed from partials in a fixed
+order (two calls give the same bits). Every MLP takes relu, SiLU or the
+exact GELU (``csrc/act_common.cuh``), has 1 to 8 Dense layers (JAX's
+``nb_of_layers``) and has its RMSNorm tail or not (``layer_norm``): the
+tile backward takes MLPs of another depth than 4 in instances of their
+own, and at hidden 128 the wide kernels stream an MLP's layers past what
+fits a block's shared memory through two slots. Other widths, and
 deeper MLPs, raise. See the sources' headers for the designs. At every
 width the kernels take the world seam ``extra_agg`` (_nk_fwd_kernel's
 ``has_extra_agg``): a node-aligned aggregate added to the rounded one
@@ -97,8 +100,8 @@ _ARGTYPES = {
     **{library_name("gn_nk_bwd", h): {
         "gn_nk_bwd": [_vp] * 15 + [_i] * 5 + [_vp, _vp, _i, _i] * 3 + [_vp]}
        for h in TILE_HIDDEN},
-    **{f"gn_nk_fwd{h}": {"gnw_nk_fwd": [_vp] * 11 + [_i] * 5 + [_vp, _i, _i] * 3 + [_vp],
-                         "gnw_hidden": []} for h in WIDE_HIDDEN},
+    **{f"gn_nk_fwd{h}": {"gnw_nk_fwd": [_vp] * 12 + [_i] * 5 + [_vp, _i, _i] * 3 + [_vp],
+                         "gnw_image_bytes": [_i] * 4, "gnw_hidden": []} for h in WIDE_HIDDEN},
     **{f"gn_nk_bwd{h}": {"gnw_nk_bwd": [_vp] * 14 + [_i] * 5 + [_vp, _vp, _i, _i] * 3 + [_vp],
                          "gnw_bwd_sizes": [_i, _i, _i, ctypes.c_longlong] + [_i] * 4,
                          "gnw_hidden": []} for h in WIDE_HIDDEN},
@@ -107,11 +110,12 @@ _ARGTYPES = {
 
 def load_library(name: str, argtypes):
     """kernel_build.load for a GraphNetBlock library of either layout; a
-    wide library's ``gnw_bwd_sizes`` returns a 64-bit count, and its
-    ``gnw_hidden`` must be the width its name says."""
+    wide library's ``gnw_bwd_sizes`` and ``gnw_image_bytes`` return 64-bit
+    counts, and its ``gnw_hidden`` must be the width its name says."""
     lib = kernel_build.load(name, argtypes[name])
-    if "gnw_bwd_sizes" in argtypes[name]:
-        lib.gnw_bwd_sizes.restype = ctypes.c_longlong
+    for fn in ("gnw_bwd_sizes", "gnw_image_bytes"):
+        if fn in argtypes[name]:
+            getattr(lib, fn).restype = ctypes.c_longlong
     if "gnw_hidden" in argtypes[name]:
         width = int(name[len(name.rstrip("0123456789")):])
         if lib.gnw_hidden() != width:
@@ -212,6 +216,13 @@ def wide_forward_buffers(x, edge_attr, rows, mlps, last_block):
     return xkr, xks, agg, ein, edge_attr.shape[-1] if fold else 0
 
 
+def wide_image_buffer(lib, x, fe, mlps):
+    """The bytes a wide kernel of either layout (``lib``, its width's
+    library) packs the call's MLPs into (``gnw_image_bytes``)."""
+    depths = [0 if m is None else len(m.denses) for m in mlps]
+    return torch.empty(lib.gnw_image_bytes(fe, *depths), dtype=torch.uint8, device=x.device)
+
+
 def _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block, keep_agg=False,
                 extra=None):
     """(x_out, e_out, agg): e_out is None on the last block; with
@@ -226,13 +237,15 @@ def _launch_fwd(x, edge_attr, senders, edge_mask, nk, mlps, last_block, keep_agg
     e_out = None if last_block else torch.empty((nk.total_rows, b, h), dtype=x.dtype,
                                                 device=x.device)
     if h in WIDE_HIDDEN:
+        lib = _load(f"gn_nk_fwd{h}")
         xkr, xks, agg, ein, fe = wide_forward_buffers(x, edge_attr, nk.total_rows, mlps,
                                                       last_block)
-        err = _load(f"gn_nk_fwd{h}").gnw_nk_fwd(
+        img = wide_image_buffer(lib, x, fe, mlps)
+        err = lib.gnw_nk_fwd(
             x.data_ptr(), edge_attr.data_ptr(), xkr.data_ptr(), xks.data_ptr(), _ptr(ein),
-            x_out.data_ptr(), _ptr(e_out), agg.data_ptr(), _ptr(extra), senders.data_ptr(),
-            edge_mask.data_ptr(), n, b, nk.k_slots, nk.node_block, fe, *mlp_args(mlps),
-            _stream(x))
+            img.data_ptr(), x_out.data_ptr(), _ptr(e_out), agg.data_ptr(), _ptr(extra),
+            senders.data_ptr(), edge_mask.data_ptr(), n, b, nk.k_slots, nk.node_block, fe,
+            *mlp_args(mlps), _stream(x))
         agg = agg if keep_agg else None
     else:
         agg = torch.empty_like(x) if keep_agg else None

@@ -63,7 +63,7 @@ for _h in GN_SMALL_HIDDENS:
 #: widths): one library per (kernel, width), each source compiled for its
 #: width
 _GN_WIDE = ("gn_wide.cuh", "gn_nk_common.cuh", "gn_rows.cuh", "act_common.cuh",
-            "mma_common.cuh")
+            "mma_common.cuh", "wgmma_common.cuh")
 for _h in (64, 128):
     for _name, _src, _body in (("gn_nk_fwd", "fused_gnblock_wide_nk.cu", "gn_wide_fwd.cuh"),
                                ("gn_nk_bwd", "fused_gnblock_wide_nk_bwd.cu", "gn_wide_bwd.cuh"),
@@ -87,28 +87,32 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def library_path(name: str) -> Path:
-    src, headers = LIBRARIES[name]
+def library_path(name: str, source=None) -> Path:
+    src, headers = source or LIBRARIES[name]
     data = b"".join((CSRC / f).read_bytes() for f in (src, *headers))
     data += " ".join(FLAGS.get(name, ())).encode()
     digest = hashlib.sha256(data).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(src).stem}_{digest}.so"
 
 
-def build() -> str:
-    """Compile the libraries that are not built yet, one nvcc process per
+def build(libraries=None) -> str:
+    """Compile the libraries (``LIBRARIES`` unless given another {name:
+    (source, headers)}) that are not built yet, one nvcc process per
     source, all at once; returns nvcc's output (ptxas register and
-    shared-memory reports), empty when all are cached."""
+    shared-memory reports), empty when all are cached. A source outside
+    csrc/ is given by its path and includes headers under csrc/."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for name, (src, _) in LIBRARIES.items():
-        out = library_path(name)
+    for name, spec in (libraries or LIBRARIES).items():
+        out = library_path(name, spec)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, *FLAGS.get(name, ()), "-o", str(tmp),
-                                 str(CSRC / src)],
+        src = CSRC / spec[0]
+        includes = () if src.parent == CSRC else ("-I", str(CSRC))
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, *FLAGS.get(name, ()), *includes, "-o",
+                                 str(tmp), str(src)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((proc, tmp, out))
     logs, failed = [], []
@@ -124,12 +128,14 @@ def build() -> str:
     return "".join(logs)
 
 
-def load(name: str, argtypes: Dict[str, list]) -> ctypes.CDLL:
+def load(name: str, argtypes: Dict[str, list], source=None) -> ctypes.CDLL:
     """The library ``name``, built first if needed, with ``argtypes``
-    ({function: [ctypes types]}) set on its functions, which return int."""
+    ({function: [ctypes types]}) set on its functions, which return int.
+    ``source`` = (a source's path, its headers under csrc/) names a
+    library outside ``LIBRARIES`` (a test's own), built alone."""
     if name not in _libs:
-        build()
-        lib = ctypes.CDLL(str(library_path(name)))
+        build(None if source is None else {name: source})
+        lib = ctypes.CDLL(str(library_path(name, source)))
         for fn, types in argtypes.items():
             getattr(lib, fn).argtypes = types
             getattr(lib, fn).restype = ctypes.c_int

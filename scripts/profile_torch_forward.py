@@ -4,7 +4,7 @@ step, goes, on one NVIDIA GPU.
     python3 scripts/profile_torch_forward.py \
         [transformer|epd|transformer-train|epd-train|graded|graded-transformer|
          graded-train|graded-transformer-train|transolver-train|
-         graded-transolver-train|plate-train|panels-train|mgn-train|
+         graded-transolver-train|plate-train|panels-train|mgn-train|mgn3-train|
          plate-epd-train|transformer-h32-train|epd-h16-train ...]
     # default: the two cylinder forwards
 
@@ -26,7 +26,9 @@ one train step of entry.panels_train_setup, panels.json's transformer, 15
 blocks, hidden 128, B=64, its 4-term MultiLoss on least-squares gradients;
 ``mgn-train``: one train step of entry.cylinder_train_setup at
 MeshGraphNets' width, 15 blocks, hidden 128, B=128, NK, through the wide
-GraphNetBlock kernels; ``plate-epd-train``: one train step of
+GraphNetBlock kernels (``mgn3-train``: the same with MeshGraphNets'
+3-layer MLPs, ``nb_of_layers=3`` with the RMSNorm tail, as chip_smoke.py
+phase 53 builds them); ``plate-epd-train``: one train step of
 entry.plate_epd_train_setup, DeformingPlate's MeshGraphNet with world
 edges in every sample, 15 blocks, hidden 128, B=64, NK, the world stream
 (its gathers, the edge MLP in plain PyTorch, the scatter) joining the wide
@@ -191,6 +193,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_forward: needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
+    import chip_smoke
     from graph_physics_tpu_torch import entry
     from graph_physics_tpu_torch.models.processors import TransolverProcessor
     from graph_physics_tpu_torch.models.transolver import use_plain_gumbel
@@ -212,6 +215,8 @@ def main():
               "plate-train": entry.plate_train_setup,
               "panels-train": entry.panels_train_setup,
               "mgn-train": lambda d: entry.cylinder_train_setup(d, hidden=128, mp_steps=15),
+              "mgn3-train": lambda d: chip_smoke.with_block_depth(
+                  entry.cylinder_train_setup(d, hidden=128, mp_steps=15), 3, True, 53),
               "plate-epd-train": entry.plate_epd_train_setup,
               "transformer-h32-train": lambda d: entry.transformer_train_setup(d, hidden=32,
                                                                                heads=4),
