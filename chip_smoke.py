@@ -197,10 +197,13 @@ Phases (any failure raises, so the exit code is non-zero):
      panels' shape [1,920·64, 128] and at 1,001 x 3 rows: the forward
      against its plain version, the backward against its plain backward
      and fp32 autograd (utils/gradcheck.py), each the same bits on two
-     calls; their times, plain times, bounds and ptxas's registers and
-     spills; rows 5 and 6 at panels' head width 32 against their plain
-     versions; with ``--parent``, the hidden-64 FFN forward and backward
-     bit for bit against the parent tree's;
+     calls; at both shapes their times and device times by kernel
+     (ffn128_times; with ``--parent`` the parent tree's in turns), the
+     backward's peak allocation and its counted device-memory bytes
+     (ffn128_backward_bytes); plain times, bounds and ptxas's registers
+     and spills; rows 5 and 6 at panels' head width 32 against their
+     plain versions; with ``--parent``, the hidden-64 FFN forward and
+     backward bit for bit against the parent tree's;
  33. panels train step: entry.panels_train_setup (panels.json's
      transformer, 15 blocks, hidden 128, 4 heads of 32, B=64, noise 0.01,
      the 4-term MultiLoss on least-squares gradients), 20 steps with 15 +
@@ -398,10 +401,12 @@ each case's check, times, bound and launches under ``depths`` (keys
 ``3``, ``3_bare`` ...), the record's times those of 3 layers without the
 norm).
 With ``--parent CHECKOUT`` the libraries that PARENT_LIBS names (both
-GraphNetBlock forwards and backwards, the hidden-64 gated-FFN forward and
-backward, both layouts' attention forward and backward) are built from that checkout's
+GraphNetBlock forwards and backwards, the hidden-64 and hidden-128
+gated-FFN forwards and backwards, both layouts' attention forward and
+backward) are built from that checkout's
 csrc/ too, and the same calls (each GraphNetBlock kernel variant, the
-backwards by pass too; the FFN forward at both shapes; each attention's
+backwards by pass too; the FFN forward at both shapes; the hidden-128
+FFN forward and backward at both of phase 32's shapes; each attention's
 forward, backward (by pass too for the NK one) and both together; the
 cylinder and graded forwards and train steps of both families) are timed
 with them in turns with this tree's, on the same inputs and card, under
@@ -619,6 +624,77 @@ def ffn_backward_times(kept):
             "plain_ms": cuda_ms(grad("plain"))}
 
 
+def ffn128_backward_bytes(rows, params):
+    """The bytes the hidden-128 FFN backward moves to and from device memory
+    in a call over ``rows`` rows, as its source's header counts them: x and
+    g read once, dx written (bf16); its clusters' partials written and read
+    back, the packed weights written and read, the fp32 parameters read and
+    the gradients written."""
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+    from graph_physics_tpu_torch.ops import kernel_build
+
+    lib = kernel_build.load("ffn128_bwd", ffn_ops._ARGTYPES["ffn128_bwd"])
+    clusters = lib.ffn128_bwd_clusters(rows)
+    return (3 * 2 * rows * 128 + 2 * 4 * clusters * lib.ffn128_bwd_sizes(1)
+            + 2 * lib.ffn128_bwd_sizes(0) + 4 * params + 4 * lib.ffn128_bwd_sizes(2))
+
+
+def ffn128_times(x, cot, mlp, norm2):
+    """The hidden-128 gated FFN's times at ``x``: the forward and one
+    backward (``autograd.grad`` on a graph retained for the turn) by CUDA
+    events, their device time by kernel (the profiler), and the bytes a
+    backward call allocates at its peak beyond what was allocated before
+    it; with a parent tree the same under ``parent_``, taken in turns
+    (parent, this tree, this tree, parent) through the parent's wrapper and
+    libraries, each number the mean of its pair."""
+    import torch
+    from graph_physics_tpu_torch.ops import fused_ffn as ffn_ops
+
+    ffn = late(ffn_ops.fused_gated_ffn)
+    params = ffn_ops._params(mlp, norm2)
+
+    def turn():
+        def forward():
+            with torch.inference_mode():
+                ffn(x, mlp, norm2)
+
+        xl = x.clone().requires_grad_(True)
+        y = ffn(xl, mlp, norm2)
+
+        def backward():
+            torch.autograd.grad(y, [xl, *params], cot, retain_graph=True)
+
+        backward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        backward()
+        torch.cuda.synchronize()
+        return {"fwd_ms": cuda_ms(forward), "fwd_kernels": device_times(forward),
+                "bwd_ms": cuda_ms(backward), "bwd_kernels": device_times(backward),
+                "bwd_peak_bytes": torch.cuda.max_memory_allocated() - base}
+
+    if PARENT is None:
+        turns = {"": [turn()]}
+    else:
+        with parent_kernels("ffn128", "ffn128_bwd"):
+            p1 = turn()
+        c1, c2 = turn(), turn()
+        with parent_kernels("ffn128", "ffn128_bwd"):
+            p2 = turn()
+        turns = {"": [c1, c2], "parent_": [p1, p2]}
+    out = {}
+    for prefix, runs in turns.items():
+        for key in ("fwd_ms", "bwd_ms", "bwd_peak_bytes"):
+            out[prefix + key] = sum(r[key] for r in runs) / len(runs)
+        for key in ("fwd_kernels", "bwd_kernels"):
+            names = sorted({k for r in runs for k in r[key]})
+            out[prefix + key] = {k: sum(r[key].get(k, 0.0) for r in runs) / len(runs)
+                                 for k in names}
+            out[prefix + key[:3] + "_device_ms"] = sum(out[prefix + key].values())
+    return out
+
+
 def cuda_ms(fn, warmup=3, reps=20):
     """Median milliseconds of ``fn`` by CUDA events, after ``warmup`` calls."""
     import torch
@@ -805,6 +881,7 @@ PARENT = None
 PARENT_LIBS = {"gn_csr_fwd": "fused_gnblock_csr", "gn_csr_bwd": "fused_gnblock_csr",
                "gn_nk_fwd": "fused_gnblock_nk", "gn_nk_bwd": "fused_gnblock_nk",
                "ffn": "fused_ffn", "ffn_bwd": "fused_ffn",
+               "ffn128": "fused_ffn", "ffn128_bwd": "fused_ffn",
                "edge_attention_csr": "fused_edge_attention_csr",
                "edge_attention_csr_bwd": "fused_edge_attention_csr",
                "edge_attention_nk": "fused_edge_attention_nk",
@@ -815,8 +892,11 @@ PARENT_LIBS = {"gn_csr_fwd": "fused_gnblock_csr", "gn_csr_bwd": "fused_gnblock_c
 #: from its checkout and binds its libraries, and inside ``parent_kernels``
 #: its wrapper (the function of the module's name) stands in for this
 #: tree's, in the op module and in models.layers (which calls it by name)
-PARENT_OWN_OPS = {"fused_edge_attention_csr", "fused_edge_attention_nk", "fused_gnblock_csr",
-                  "fused_gnblock_nk"}
+PARENT_OWN_OPS = {"fused_edge_attention_csr", "fused_edge_attention_nk", "fused_ffn",
+                  "fused_gnblock_csr", "fused_gnblock_nk"}
+#: the wrapper an op module is named for, where its name is not the
+#: module's (``fused_gnblock_*`` modules: ``fused_gn_block_*``)
+WRAPPERS = {"fused_ffn": "fused_gated_ffn"}
 #: each layout's attention libraries, forward and backward
 ATTN_CSR_LIBS = ("edge_attention_csr", "edge_attention_csr_bwd")
 ATTN_NK_LIBS = ("edge_attention_nk", "edge_attention_nk_bwd")
@@ -890,9 +970,12 @@ def parent_kernels(*names):
     swapped = []
     for module in sorted({PARENT_LIBS[n] for n in names} & PARENT_OWN_OPS):
         ours = importlib.import_module(f"graph_physics_tpu_torch.ops.{module}")
-        wrapper = module.replace("gnblock", "gn_block")  # the wrapper the module is named for
+        wrapper = WRAPPERS.get(module, module.replace("gnblock", "gn_block"))
         theirs = getattr(parent_ops(module), wrapper)
-        theirs = with_receivers(theirs) if "attention" in module else without_extra_agg(theirs)
+        if "attention" in module:
+            theirs = with_receivers(theirs)
+        elif "gnblock" in module:
+            theirs = without_extra_agg(theirs)
         for holder in (ours, layers):
             swapped.append((holder, wrapper, getattr(holder, wrapper)))
             setattr(holder, wrapper, theirs)
@@ -3619,7 +3702,8 @@ def panels_kernel_checks(train, card, build_log):
             raise AssertionError("hidden-128 FFN backward: other bits on a second call")
         log("  the same bits on two calls")
         if label == "panels shape":
-            bwd_t = ffn_backward_times(kept)
+            bwd_plain_ms = cuda_ms(lambda: torch.autograd.grad(*kept["plain"],
+                                                               retain_graph=True))
         del kept
 
     def forward(fn):
@@ -3628,8 +3712,11 @@ def panels_kernel_checks(train, card, build_log):
                 fn(x, mlp, norm2)
         return run
 
-    fwd_t = {"ms": cuda_ms(forward(ffn)), "device_ms": device_ms(forward(ffn)),
-             "plain_ms": cuda_ms(forward(ffn_ops.gated_ffn_reference))}
+    # both kernels at panels' shape (the parent's in turns with --parent),
+    # and at PANELS_TAIL's rows
+    t = ffn128_times(x, cot, mlp, norm2)
+    t_tail = ffn128_times(tail[0], tail[1], mlp, norm2)
+    fwd_plain_ms = cuda_ms(forward(ffn_ops.gated_ffn_reference))
     # x read and y written (bf16) and the fp32 weights read; 3 products of
     # H x 3H a row forward, 8 backward (x, g read, dx written, the weights
     # read and their fp32 gradients written)
@@ -3637,11 +3724,28 @@ def panels_kernel_checks(train, card, build_log):
     prods = 2 * n * b * hidden * 3 * hidden
     fwd_bound = bound(2 * 2 * x.numel() + 4 * params, 3 * prods)
     bwd_bound = bound(2 * 3 * x.numel() + 8 * params, 8 * prods)
-    log(f"  hidden-128 FFN at [{n}·{b}, {hidden}]: forward kernel {fwd_t['ms']:.4f} ms (device "
-        f"{fwd_t['device_ms']:.4f}), plain {fwd_t['plain_ms']:.4f} ms, bound {fwd_bound[0]:.6g} ms "
-        f"({fwd_bound[1]}); backward kernel {bwd_t['ms']:.4f} ms (device {bwd_t['device_ms']:.4f}), "
-        f"plain backward {bwd_t['plain_ms']:.4f} ms, bound {bwd_bound[0]:.6g} ms ({bwd_bound[1]}) "
-        f"({card})")
+    counted = ffn128_backward_bytes(n * b, params)
+    for label, tt in (("panels shape", t), ("tail rows", t_tail)):
+        log(f"  hidden-128 FFN [{label}]: forward kernel {tt['fwd_ms']:.4f} ms (device "
+            f"{tt['fwd_device_ms']:.4f}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in tt["fwd_kernels"].items()) + "); backward kernel "
+            f"{tt['bwd_ms']:.4f} ms (device {tt['bwd_device_ms']:.4f}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in tt["bwd_kernels"].items()) + f"), its peak allocation "
+            f"{tt['bwd_peak_bytes']} bytes" + (
+                "" if PARENT is None else
+                f"; parent tree forward {tt['parent_fwd_ms']:.4f} ms (device "
+                f"{tt['parent_fwd_device_ms']:.4f}), backward {tt['parent_bwd_ms']:.4f} ms "
+                f"(device {tt['parent_bwd_device_ms']:.4f}: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in tt["parent_bwd_kernels"].items()) +
+                f"), its peak allocation {tt['parent_bwd_peak_bytes']} bytes; device time this "
+                f"tree / parent: forward {tt['fwd_device_ms'] / tt['parent_fwd_device_ms']:.4f}, "
+                f"backward {tt['bwd_device_ms'] / tt['parent_bwd_device_ms']:.4f}") + f" ({card})")
+    log(f"  hidden-128 FFN at [{n}·{b}, {hidden}]: plain forward {fwd_plain_ms:.4f} ms, bound "
+        f"{fwd_bound[0]:.6g} ms ({fwd_bound[1]}); plain backward {bwd_plain_ms:.4f} ms, bound "
+        f"{bwd_bound[0]:.6g} ms ({bwd_bound[1]}); the backward's counted device-memory bytes "
+        f"{counted} ({counted / 1e6:.1f} MB) ({card})")
+    log("hidden-128 FFN times " + json.dumps({"card": card, "panels": t, "tail": t_tail,
+                                              "counted_bytes": counted}))
 
     # rows 5 and 6 at panels' head width 32: forward and backward kernels
     # against their plain versions
@@ -3692,15 +3796,24 @@ def panels_kernel_checks(train, card, build_log):
 
         same_bits_as_parent("hidden-64 FFN forward", fwd64, ("ffn",))
         same_bits_as_parent("hidden-64 FFN backward", bwd64, ("ffn_bwd",))
+    def parent_fields(way):
+        return {} if PARENT is None else {"parent_ms": t[f"parent_{way}_ms"],
+                                          "parent_device_ms": t[f"parent_{way}_device_ms"]}
+
     return head32, [
-        dict(FFN128, route="cuda", launches=0, max_abs_err=max(f_errs), ms=fwd_t["ms"],
-             plain_ms=fwd_t["plain_ms"], bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
-             library_ms=None, device_ms=fwd_t["device_ms"],
-             ptxas={k: v for k, v in resources.items() if "bwd" not in k and "wgrad" not in k}),
-        dict(FFN128_BWD, route="cuda", launches=0, max_abs_err=max(b_errs), ms=bwd_t["ms"],
-             plain_ms=bwd_t["plain_ms"], bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
-             library_ms=None, device_ms=bwd_t["device_ms"],
-             ptxas={k: v for k, v in resources.items() if "bwd" in k or "wgrad" in k}),
+        dict(FFN128, route="cuda", launches=0, max_abs_err=max(f_errs), ms=t["fwd_ms"],
+             plain_ms=fwd_plain_ms, bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+             library_ms=None, device_ms=t["fwd_device_ms"], kernels_device_ms=t["fwd_kernels"],
+             tail_ms=t_tail["fwd_ms"], tail_device_ms=t_tail["fwd_device_ms"],
+             **parent_fields("fwd"),
+             ptxas={k: v for k, v in resources.items() if "bwd" not in k}),
+        dict(FFN128_BWD, route="cuda", launches=0, max_abs_err=max(b_errs), ms=t["bwd_ms"],
+             plain_ms=bwd_plain_ms, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+             library_ms=None, device_ms=t["bwd_device_ms"], kernels_device_ms=t["bwd_kernels"],
+             tail_ms=t_tail["bwd_ms"], tail_device_ms=t_tail["bwd_device_ms"],
+             peak_bytes=t["bwd_peak_bytes"], counted_bytes=counted,
+             **parent_fields("bwd"),
+             ptxas={k: v for k, v in resources.items() if "bwd" in k}),
     ]
 
 

@@ -1,5 +1,5 @@
 // Gated feed-forward half of the transformer block at hidden 128, forward,
-// for Hopper (sm_90a), on the tensor cores.
+// for Hopper (sm_90a), on warpgroup products.
 //
 // Replaces the TPU Pallas kernel graph_physics_tpu/ops/fused_ffn.py:
 // _ffn_fwd_kernel (:74) with pre_norm=True at hidden 128 (the panels
@@ -10,8 +10,10 @@
 //   t = RMS_norm2(x);  n = RMS_0(t);  a1 = bf16(bf16(n W1) + b1);
 //   a2 = bf16(bf16(n W2) + b2);  g = bf16(bf16(act(a1)) * a2);
 //   y = bf16(x + bf16(bf16(g W3) + b3)).
-// Only the order of the fp32 sums inside a product differs from the JAX
-// kernel's, and it is fixed, so two calls give the same bits.
+// Only the order of the fp32 sums inside a product or a row sum differs
+// from the JAX kernel's, and it is fixed (y: one accumulator over the
+// middle in order, each product's k16 steps in order), so two calls give
+// the same bits.
 //
 // What bounds it on this card: 3 products of 128 x 384 a row, 294,912
 // FLOP, against 512 bytes (x read, y written). At panels' shape (1,920
@@ -19,253 +21,232 @@
 // bf16 tensor cores (989 TFLOP/s), and 62.9 MB, 0.0188 ms at 3.35 TB/s:
 // bound by operations.
 //
-// Why fused_ffn.cu's design does not carry over: it keeps W1, W2 and W3
-// resident in shared memory; at H = 128 the three padded bf16 weights take
-// 309 KB, more than a block's 227 KB. So the middle is streamed:
-//   * a first kernel stages the weights once a call as bf16 in global
-//     memory, in 6 chunks of 64 middle columns, each chunk one contiguous
-//     53,248-byte run: W1 and W2 rows [64][136] and W3's matching columns
-//     [128][72] (rows padded by 16 bytes to an odd multiple of 16, so the 8
-//     row addresses of an ldmatrix fall in 8 distinct bank groups);
-//   * persistent blocks, one per SM, of 8 warps each walking a contiguous
-//     range of 128-row tiles, warp w owning rows 16w..16w+15 of a tile;
-//   * the chunks stream through two shared-memory stages by cp.async: chunk
-//     c+1 (or the next tile's chunk 0, with its x tile) loads while chunk
-//     c computes; the staged weights, 295 KB, stay in L2;
-//   * the two RMS norms run four threads a row, inside the warp that owns
-//     the row; the warp then holds its n rows as A fragments (32
-//     registers) for the whole tile;
-//   * per chunk and 16 middle columns: a1 and a2 against ldmatrix'd W1 and
-//     W2 fragments, bias, act and gate on the accumulator fragments as bf16
-//     pairs, and the gated fragments straight from registers as the A
-//     operand of the W3 product (two m16n8 accumulators are one m16k16 A
-//     fragment), so the middle never leaves registers;
-//   * y stays in fp32 registers across the 6 chunks (64 a thread); at the
+// Design. The three bf16 weights take 288 KB, more than a block's 227 KB,
+// so they stream through shared memory in six slices of 64 middle columns
+// (ffn_wide.cuh's image, packed once a call by ffn128_fwd_pack):
+//   * persistent blocks, one per SM, of two consumer warpgroups and a
+//     producer warpgroup that gives its registers to them (setmaxnreg);
+//     a 128-row tile at a time, warpgroup q owning rows 64q..64q+63 (warp
+//     w of it the 16 rows 64q + 16w ..);
+//   * one producer thread keeps a 3-stage ring of slices full with one
+//     cp.async.bulk each (48 KB from L2) and brings each tile's x through
+//     TMA (two 64-column boxes, 128-byte swizzle, zeros past the last row)
+//     into one of two stages, a tile ahead;
+//   * a warp reads its x rows into m16n8 fragments, runs both RMS norms
+//     there (a quad of lanes a row) and keeps n as the A operand of its
+//     products (32 registers);
+//   * per slice: a1 and a2 as wgmma m64n64k16 (A = n from registers, B the
+//     slice's W1 or W2 rows, K-major); bias, act and gate on the
+//     accumulators as bf16 pairs, the 32 values' chains in one straight
+//     run; the gated pairs straight from registers as the A operand of y
+//     += g·W3ᵀ (m64n128k16, B the slice's W3 columns): the middle never
+//     leaves registers;
+//   * y stays in fp32 registers across the slices (64 a thread); at the
 //     tile's end + b3 and the residual round into the x tile in place, and
-//     the warp stores its 16 rows with 16-byte stores.
-// Shared memory: 213,248 bytes, one block per SM.
+//     each warp stores its 16 rows with 16-byte stores (rows past the end
+//     masked).
+// The slice of step s is released to the producer once y of that slice
+// is done, i.e. at the next wait.
+// Shared memory: 1 KB of alignment, the ring 3 x 48 KB, x 2 x 32 KB, the
+// vectors 2,304 bytes and 11 barriers: 216,408 bytes, one block per SM. Registers (at most 232 a consumer thread): n 32, y 64,
+// a1 and a2 64, the gated pairs 16.
 
 #include "ffn_wide.cuh"
 
 namespace {
 
-using namespace tc;
 using namespace ffnw;
 
-constexpr int MS3 = C + 8;  // row stride (bf16) of a chunk's W3 columns [H][C]
-// one chunk, in bf16 elements: W1 rows [C][XS], W2 rows [C][XS], W3 columns [H][MS3]
-constexpr int CH_W2 = C * XS, CH_W3 = 2 * C * XS, CHUNK = 2 * C * XS + H * MS3;
-constexpr int PIECES = CHUNK / 8;  // 16-byte pieces a chunk
-// shared memory, in bytes
-constexpr int SZ_T = TM * XS * 2;               // one [TM][XS] tile
-constexpr int OFF_WS = 0;                       // two chunk stages
-constexpr int OFF_X = OFF_WS + 2 * CHUNK * 2;   // x tile, two stages
-constexpr int OFF_N = OFF_X + 2 * SZ_T;         // n tile
-constexpr int OFF_VEC = OFF_N + SZ_T;           // b1, b2, b3, scale2, scale (bf16)
-constexpr int V_B1 = 0, V_B2 = W, V_B3 = 2 * W, V_S2 = V_B3 + H, V_S = V_S2 + H;
-constexpr int V_TOTAL = V_S + H;
-constexpr int SMEM = OFF_VEC + V_TOTAL * 2;
+constexpr int WGS = 2;                     // consumer warpgroups
+constexpr int THREADS = WGS * 128 + 128;   // and the producer's warpgroup
+constexpr int TM = 64 * WGS;               // rows a tile
+constexpr int STAGES = 3;                  // the ring's slices
+constexpr int XBLK = TM * 128;             // a 64-column block of an x tile
+constexpr int XT = 2 * XBLK;               // an x tile
+constexpr int OFF_X = STAGES * SLICE, OFF_VEC = OFF_X + 2 * XT, OFF_BAR = OFF_VEC + VEC_BYTES;
+constexpr int SMEM = 1024 + OFF_BAR + 11 * 8;
 static_assert(SMEM <= 232448, "shared memory of one block");
-static_assert(CHUNK % 8 == 0 && (CH_W3 * 2) % 16 == 0, "16-byte pieces");
 
 struct Args {
-  const __nv_bfloat16* x;   // [rows, H]
+  CUtensorMap xmap;         // x [rows][H], boxes of 64 columns x TM rows
   __nv_bfloat16* y;         // [rows, H]
-  __nv_bfloat16* wst;       // staged weights [NC][CHUNK]
-  const float* scale2;      // norm2 scale [H]
-  const float* scale;       // the block's own RMSNorm scale [H]
-  const float* w1;          // nn.Linear [W, H]
-  const float* b1;          // [W]
-  const float* w2;          // [W, H]
-  const float* b2;          // [W]
-  const float* w3;          // [H, W]
-  const float* b3;          // [H]
+  const unsigned char* img;  // the packed weights (ffn_wide.cuh)
   long long rows;
   int silu;
 };
 
-// the weights as bf16 chunks (zero padding)
-__global__ void __launch_bounds__(THREADS) ffn128_stage_kernel(const Args a) {
-  const int e = blockIdx.x * THREADS + threadIdx.x;
-  if (e >= NC * CHUNK) return;
-  const int c = e / CHUNK, r = e % CHUNK;
-  float v = 0.f;
-  if (r < CH_W3) {
-    const int j = c * C + (r % CH_W2) / XS, k = (r % CH_W2) % XS;
-    if (k < H) v = (r < CH_W2 ? a.w1 : a.w2)[j * H + k];
-  } else {
-    const int o = (r - CH_W3) / MS3, m = (r - CH_W3) % MS3;
-    if (m < C) v = a.w3[o * W + c * C + m];
-  }
-  a.wst[e] = __float2bfloat16_rn(v);
+struct PackArgs {
+  unsigned char* img;
+  const float *w1, *b1, *w2, *b2, *w3, *b3, *scale2, *scale;
+};
+
+__global__ void __launch_bounds__(256) ffn128_fwd_pack(const PackArgs p) {
+  pack_image(p.img, p.w1, p.b1, p.w2, p.b2, p.w3, p.b3, p.scale2, p.scale);
 }
 
-__global__ void __launch_bounds__(THREADS, 1) ffn128_fwd_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto tile = [&](int off) { return reinterpret_cast<__nv_bfloat16*>(smem + off); };
-  __nv_bfloat16* sN = tile(OFF_N);
-  __nv_bfloat16* vec = tile(OFF_VEC);
-  const bf2* vec2 = reinterpret_cast<const bf2*>(vec);  // the same, as pairs
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  for (int j = tid; j < W; j += THREADS) {
-    vec[V_B1 + j] = __float2bfloat16_rn(a.b1[j]);
-    vec[V_B2 + j] = __float2bfloat16_rn(a.b2[j]);
-  }
-  for (int o = tid; o < H; o += THREADS) {
-    vec[V_B3 + o] = __float2bfloat16_rn(a.b3[o]);
-    vec[V_S2 + o] = __float2bfloat16_rn(a.scale2[o]);
-    vec[V_S + o] = __float2bfloat16_rn(a.scale[o]);
-  }
-
+__global__ void __launch_bounds__(THREADS, 1) ffn128_fwd_kernel(const __grid_constant__ Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = sm;
+  unsigned char* xt = sm + OFF_X;
+  const bf2* v2 = reinterpret_cast<const bf2*>(sm + OFF_VEC);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + OFF_BAR);
+  uint64_t *wfull = bars, *wempty = bars + STAGES, *xfull = bars + 2 * STAGES;
+  uint64_t *xempty = xfull + 2, *vbar = xfull + 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long tiles = (a.rows + TM - 1) / TM;
-  const long long t0 = tiles * blockIdx.x / gridDim.x;
-  const long long t1 = tiles * (blockIdx.x + 1) / gridDim.x;
-  if (t0 >= t1) return;
-  auto load_chunk = [&](int stage, int c) {
-    copy_pieces(tile(OFF_WS + stage * CHUNK * 2), a.wst + c * CHUNK, PIECES, tid);
-  };
-  auto x_tile = [&](long long t) { return tile(OFF_X + static_cast<int>((t - t0) & 1) * SZ_T); };
-
-  load_rows(x_tile(t0), a.x, t0 * TM, a.rows, tid);
-  load_chunk(0, 0);
-  asm volatile("cp.async.commit_group;\n");
-  int step = 0;  // chunk steps so far: the stage of this one is step & 1
-  uint32_t an[H / 16][4];  // the warp's n rows as A fragments, one per k-step
-  float y[H / 8][4];
-  for (long long t = t0; t < t1; ++t) {
-    __nv_bfloat16* sX = x_tile(t);
-    for (int c = 0; c < NC; ++c, ++step) {
-      const int ws = step & 1;
-      if (c + 1 < NC) {
-        load_chunk(ws ^ 1, c + 1);
-      } else if (t + 1 < t1) {
-        load_chunk(ws ^ 1, 0);
-        load_rows(x_tile(t + 1), a.x, (t + 1) * TM, a.rows, tid);
-      }
-      asm volatile("cp.async.commit_group;\n");
-      asm volatile("cp.async.wait_group 1;\n");
-      __syncthreads();
-      const __nv_bfloat16* sW1 = tile(OFF_WS + ws * CHUNK * 2);
-      const __nv_bfloat16* sW2 = sW1 + CH_W2;
-      const __nv_bfloat16* sW3 = sW1 + CH_W3;
-
-      if (c == 0) {
-        // n = RMS_0(RMS_norm2(x)), a quad a row, the warp's own rows
-#pragma unroll
-        for (int pass = 0; pass < 2; ++pass) {
-          const int qr = 16 * warp + 8 * pass + (lane >> 2), qc = (lane & 3) * 32;
-          bf2 v[16];
-          load16(v, sX + qr * XS + qc);
-          quad_rms_norm(v, vec2 + (V_S2 + qc) / 2);
-          quad_rms_norm(v, vec2 + (V_S + qc) / 2);
-          store16(sN + qr * XS + qc, v);
-        }
-        __syncwarp();
-#pragma unroll
-        for (int ks = 0; ks < H / 16; ++ks) ldsm(an[ks], a_rows(sN, XS, 16 * warp, 16 * ks, lane));
-#pragma unroll
-        for (int n = 0; n < H / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) y[n][e] = 0.f;
-      }
-
-#pragma unroll 1
-      for (int sub = 0; sub < C / 16; ++sub) {
-        const int j0 = 16 * sub;  // local middle column of the chunk
-        float a1[2][4], a2[2][4];
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) a1[n][e] = a2[n][e] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < H / 16; ++ks) {
-          uint32_t b[4];
-          ldsm(b, b_rows(sW1, XS, j0, 16 * ks, lane));
-          mma(a1[0], an[ks], b[0], b[1]);
-          mma(a1[1], an[ks], b[2], b[3]);
-          ldsm(b, b_rows(sW2, XS, j0, 16 * ks, lane));
-          mma(a2[0], an[ks], b[0], b[1]);
-          mma(a2[1], an[ks], b[2], b[3]);
-        }
-        // bias, act and gate on the fragments; fg[2n + half] is row
-        // lane/4 + 8 half, middle columns j0 + 8n + 2(lane%4) + {0, 1}: the
-        // A fragment of the W3 product's k-step j0
-        uint32_t fg[4];
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int j = c * C + j0 + 8 * n + 2 * (lane & 3);
-            const int e = 2 * half;
-            const bf2 h1 = __hadd2_rn(__floats2bfloat162_rn(a1[n][e], a1[n][e + 1]),
-                                      vec2[(V_B1 + j) / 2]);
-            const bf2 h2 = __hadd2_rn(__floats2bfloat162_rn(a2[n][e], a2[n][e + 1]),
-                                      vec2[(V_B2 + j) / 2]);
-            const float2 hf = __bfloat1622float2(h1);
-            const bf2 act1 =
-                __floats2bfloat162_rn(ffn::act(hf.x, a.silu), ffn::act(hf.y, a.silu));
-            fg[2 * n + half] = bits(__hmul2_rn(act1, h2));
-          }
-        // y += g[:, j0..j0+15] W3[:, j0..j0+15]ᵀ
-#pragma unroll
-        for (int p = 0; p < H / 16; ++p) {
-          uint32_t b[4];
-          ldsm(b, b_rows(sW3, MS3, 16 * p, j0, lane));
-          mma(y[2 * p], fg, b[0], b[1]);
-          mma(y[2 * p + 1], fg, b[2], b[3]);
-        }
-      }
-
-      if (c == NC - 1) {
-        // y = bf16(x + bf16(bf16(sum) + b3)) into the x tile, the warp's
-        // rows, then 16-byte stores
-#pragma unroll
-        for (int n = 0; n < H / 8; ++n)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = 16 * warp + (lane >> 2) + 8 * half;
-            const int col = 8 * n + 2 * (lane & 3);
-            bf2* px = reinterpret_cast<bf2*>(sX + r * XS + col);
-            const bf2 z = __hadd2_rn(__floats2bfloat162_rn(y[n][2 * half], y[n][2 * half + 1]),
-                                     vec2[(V_B3 + col) / 2]);
-            *px = __hadd2_rn(*px, z);
-          }
-        __syncwarp();
-        store_warp_rows(a.y, sX, t * TM, a.rows, warp, lane);
-      }
-      __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::bar_init(wfull + s, 1);
+      wg::bar_init(wempty + s, 4 * WGS);
     }
+    for (int s = 0; s < 2; ++s) {
+      wg::bar_init(xfull + s, 1);
+      wg::bar_init(xempty + s, 4 * WGS);
+    }
+    wg::bar_init(vbar, 1);
+    wg::bar_fence_init();
   }
-  asm volatile("cp.async.wait_group 0;\n");
+  __syncthreads();
+
+  if (warp >= 4 * WGS) {  // the producer: one thread, its warpgroup's registers given to the others
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 4 * WGS && lane == 0) {
+      wg::bar_expect(vbar, VEC_BYTES);
+      wg::bulk_load(sm + OFF_VEC, a.img + NS * SLICE, VEC_BYTES, vbar);
+      int step = 0;
+      int i = 0;
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
+        const int xs = i & 1;
+        if (i >= 2) bwait<false>(xempty + xs, ((i >> 1) - 1) & 1);
+        wg::bar_expect(xfull + xs, XT);
+        for (int kb = 0; kb < 2; ++kb)
+          wg::tma_load2(xt + xs * XT + kb * XBLK, &a.xmap, 64 * kb, static_cast<int>(t * TM),
+                        xfull + xs);
+        for (int c = 0; c < NS; ++c, ++step) {
+          const int s = step % STAGES;
+          if (step >= STAGES) bwait<false>(wempty + s, ((step / STAGES) - 1) & 1);
+          wg::bar_expect(wfull + s, SLICE);
+          wg::bulk_load(ring + s * SLICE, a.img + c * SLICE, SLICE, wfull + s);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int q = warp >> 2, row0 = 64 * q + 16 * (warp & 3);
+  bwait<false>(vbar, 0);
+  __syncwarp();
+  int step = 0;
+  int i = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
+    const int xs = i & 1;
+    bwait<false>(xfull + xs, (i >> 1) & 1);
+    __syncwarp();
+    const uint32_t xu = wg::smem_u32(xt + xs * XT);
+    // n = RMS_0(RMS_norm2(x)), the warp's 16 rows, as A fragments
+    uint32_t nf[32];
+    wg::frag_load(nf, xu, row0, XBLK);
+    float inv[2];
+    rms_rows(nf, v2 + V_S2 / 2, inv);
+    rms_rows(nf, v2 + V_S / 2, inv);
+
+    float y[16][4];
+    for (int c = 0; c < NS; ++c, ++step) {
+      const int s = step % STAGES;
+      bwait<false>(wfull + s, (step / STAGES) & 1);
+      __syncwarp();
+      const uint32_t w = wg::smem_u32(ring + s * SLICE);
+      float a1[8][4], a2[8][4];
+      wg::fence();
+#pragma unroll
+      for (int ks = 0; ks < H / 16; ++ks) {
+        const uint32_t af[4] = {nf[4 * ks], nf[4 * ks + 1], nf[4 * ks + 2], nf[4 * ks + 3]};
+        wg::mma_rs64<0>(a1, af, wg::desc_k(w + SL_W1, ks, BLK), ks > 0);
+      }
+#pragma unroll
+      for (int ks = 0; ks < H / 16; ++ks) {
+        const uint32_t af[4] = {nf[4 * ks], nf[4 * ks + 1], nf[4 * ks + 2], nf[4 * ks + 3]};
+        wg::mma_rs64<0>(a2, af, wg::desc_k(w + SL_W2, ks, BLK), ks > 0);
+      }
+      wg::commit();
+      wg::wait<0>();
+      if (c > 0) {  // y of the previous slice is done with its stage
+        __syncwarp();
+        if (lane == 0) wg::bar_arrive(wempty + (step - 1) % STAGES);
+      }
+      // bias, act and gate on the accumulators; gf[2n + half] is row
+      // lane/4 + 8 half, middle columns 64c + 8n + 2(lane%4) + {0, 1}: the A
+      // fragments of the W3 product's four k-steps
+      uint32_t h1[16], h2[16], gf[16];
+      bias_pairs(h1, a1, v2 + V_B1 / 2, c * C);
+      bias_pairs(h2, a2, v2 + V_B2 / 2, c * C);
+      act_pairs<false>(h1, gf, gf, a.silu);
+#pragma unroll
+      for (int k = 0; k < 16; ++k) gf[k] = bits(__hmul2_rn(pair(gf[k]), pair(h2[k])));
+      // y += g W3[:, 64c..64c+63]ᵀ, left in flight
+      wg::fence();
+#pragma unroll
+      for (int ks = 0; ks < C / 16; ++ks) {
+        const uint32_t af[4] = {gf[4 * ks], gf[4 * ks + 1], gf[4 * ks + 2], gf[4 * ks + 3]};
+        wg::mma_rs128<0>(y, af, wg::desc_k(w + SL_W3, ks, 2 * BLK), c > 0 || ks > 0);
+      }
+      wg::commit();
+    }
+    wg::wait<0>();
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(wempty + (step - 1) % STAGES);
+
+    // y = bf16(x + bf16(bf16(sum) + b3)) into the x tile in place, the
+    // warp's rows, then 16-byte stores of its rows
+    uint32_t xf[32];
+    wg::frag_load(xf, xu, row0, XBLK);
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = 8 * n + 2 * (lane & 3);
+        const bf2 z = __hadd2_rn(__floats2bfloat162_rn(y[n][2 * half], y[n][2 * half + 1]),
+                                 v2[(V_B3 + col) / 2]);
+        xf[2 * n + half] = bits(__hadd2_rn(pair(xf[2 * n + half]), z));
+      }
+    wg::frag_store(xu, row0, XBLK, xf);
+    __syncwarp();
+    const long long r0 = t * TM + row0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int idx = 32 * k + lane, r = idx >> 4, ch = idx & 15;
+      if (r0 + r < a.rows)
+        *reinterpret_cast<uint4*>(a.y + (r0 + r) * H + 8 * ch) = *reinterpret_cast<const uint4*>(
+            xt + xs * XT + (ch >> 3) * XBLK + (row0 + r) * 128 + (((ch ^ r) & 7) << 4));
+    }
+    wg::fence_proxy_async();  // the next TMA load overwrites what this warp wrote
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(xempty + xs);
+  }
 }
 
 }  // namespace
 
-// x, y: contiguous bf16 [rows, 128]; wst: bf16 scratch of ffn128_fwd_stage
-// elements; every weight and bias fp32 on the device, nn.Linear layout
-// ([out, in]). Returns the CUDA error code of the launches (0 on success).
-extern "C" int ffn128_fwd_stage() { return NC * CHUNK; }
+// Bytes of the packed weights the caller allocates (ffn_wide.cuh's image).
+extern "C" int ffn128_fwd_image_bytes() { return IMAGE_BYTES; }
 
-extern "C" int ffn128_fwd(const void* x, void* y, void* wst, long long rows, const void* scale2,
+
+// x, y: contiguous bf16 [rows, 128]; img: ffn128_fwd_image_bytes() bytes,
+// 16-byte aligned; every weight and bias fp32 on the device, nn.Linear
+// layout ([out, in]). Returns the CUDA error code of the launches (0 on
+// success).
+extern "C" int ffn128_fwd(const void* x, void* y, void* img, long long rows, const void* scale2,
                           const void* scale, const void* w1, const void* b1, const void* w2,
                           const void* b2, const void* w3, const void* b3, int silu,
                           void* stream) {
-  Args a = {};
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.y = static_cast<__nv_bfloat16*>(y);
-  a.wst = static_cast<__nv_bfloat16*>(wst);
-  a.scale2 = static_cast<const float*>(scale2);
-  a.scale = static_cast<const float*>(scale);
-  a.w1 = static_cast<const float*>(w1);
-  a.b1 = static_cast<const float*>(b1);
-  a.w2 = static_cast<const float*>(w2);
-  a.b2 = static_cast<const float*>(b2);
-  a.w3 = static_cast<const float*>(w3);
-  a.b3 = static_cast<const float*>(b3);
-  a.rows = rows;
-  a.silu = silu;
   if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  PackArgs p = {static_cast<unsigned char*>(img),    static_cast<const float*>(w1),
+                static_cast<const float*>(b1),       static_cast<const float*>(w2),
+                static_cast<const float*>(b2),       static_cast<const float*>(w3),
+                static_cast<const float*>(b3),       static_cast<const float*>(scale2),
+                static_cast<const float*>(scale)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       cudaFuncSetAttribute(ffn128_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
@@ -274,8 +255,18 @@ extern "C" int ffn128_fwd(const void* x, void* y, void* wst, long long rows, con
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return static_cast<int>(err);
-  ffn128_stage_kernel<<<(NC * CHUNK + THREADS - 1) / THREADS, THREADS, 0, st>>>(a);
+  ffn128_fwd_pack<<<PACK_BLOCKS, 256, 0, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  // the tensor map after a launch: cuTensorMapEncodeTiled needs the
+  // context current on this thread (an autograd worker's too), which the
+  // launch makes it
+  Args a = {};
+  if (!wg::tensor_map2(&a.xmap, x, H, static_cast<unsigned long long>(rows), TM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.img = static_cast<const unsigned char*>(img);
+  a.rows = rows;
+  a.silu = silu;
   const long long tiles = (rows + TM - 1) / TM;
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
   ffn128_fwd_kernel<<<grid, THREADS, SMEM, st>>>(a);

@@ -1,5 +1,7 @@
 // Hopper's warpgroup products and bulk copies, for the GraphNetBlock
-// kernels at hidden 64 and 128 (gn_wide.cuh): wgmma.mma_async m64nNk16
+// kernels at hidden 64 and 128 (gn_wide.cuh) and the gated-FFN kernels at
+// hidden 128 (ffn_wide.cuh; with 2-D tensor maps, the proxy fence, and the
+// thread-block clusters' ranks, mapa and remote arrivals): wgmma.mma_async m64nNk16
 // bf16 -> fp32 with N = 64 or 128, A from registers (the m16n8k16 A
 // fragment of each warp's 16 rows) or from shared memory, B from shared
 // memory; the shared-memory matrix descriptors of the 128-byte swizzled
@@ -203,6 +205,72 @@ __device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, int
       : "memory");
 }
 
+// the box at (c0, c1) of a 2-D tensor map to shared ``dst``
+__device__ __forceinline__ void tma_load2(void* dst, const CUtensorMap* map, int c0, int c1,
+                                          uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(b))
+      : "memory");
+}
+
+// the box at (c0, c1) of a 2-D tensor map into L2, ahead of its load
+__device__ __forceinline__ void tma_prefetch2(const CUtensorMap* map, int c0, int c1) {
+  asm volatile("cp.async.bulk.prefetch.tensor.2d.L2.global [%0, {%1, %2}];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1)
+               : "memory");
+}
+
+// after a thread's own stores to shared memory that a wgmma (the async
+// proxy) reads or a copy overwrites next, before the barrier that hands
+// them over
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- thread block clusters ----
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster, with release and acquire
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
+               ::: "memory");
+}
+
+// the address in block ``rank``'s shared memory of this block's ``addr``
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// arrive on a barrier of the cluster (``remote``: a mapa address), without
+// ordering this thread's memory operations: for a barrier that only says
+// that values read are in registers
+__device__ __forceinline__ void bar_arrive_remote_relaxed(uint32_t remote) {
+  asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
+
 // ---- the SW128 layout from and to registers ----
 
 // the SW128 K-major image of the columns col0..col0+width-1 of an fp32
@@ -257,6 +325,37 @@ __device__ __forceinline__ void frag_sw_store(unsigned char* tile, const uint32_
                  : "memory");
 }
 
+// The same for the 16 rows row0..row0+15 (row0 a multiple of 8) of a
+// tile of SW128 blocks of any row count, ``block_bytes`` apart (block b
+// holding columns 64b..64b+63), at shared address ``tile``
+__device__ __forceinline__ uint32_t frag_addr(uint32_t tile, int row0, int n, int block_bytes) {
+  const int lane = threadIdx.x & 31, row = 8 * ((lane >> 3) & 1) + (lane & 7);
+  const int nn = n + (lane >> 4);
+  return tile + (nn >> 3) * block_bytes + (row0 + row) * 128 + (((nn ^ row) & 7) << 4);
+}
+
+template <int NF>
+__device__ __forceinline__ void frag_load(uint32_t (&f)[NF], uint32_t tile, int row0,
+                                          int block_bytes) {
+#pragma unroll
+  for (int n = 0; n < NF / 2; n += 2)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(f[2 * n]), "=r"(f[2 * n + 1]), "=r"(f[2 * n + 2]), "=r"(f[2 * n + 3])
+                 : "r"(frag_addr(tile, row0, n, block_bytes))
+                 : "memory");
+}
+
+template <int NF>
+__device__ __forceinline__ void frag_store(uint32_t tile, int row0, int block_bytes,
+                                           const uint32_t (&f)[NF]) {
+#pragma unroll
+  for (int n = 0; n < NF / 2; n += 2)
+    asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1,%2,%3,%4};\n"
+                 ::"r"(frag_addr(tile, row0, n, block_bytes)), "r"(f[2 * n]), "r"(f[2 * n + 1]),
+                 "r"(f[2 * n + 2]), "r"(f[2 * n + 3])
+                 : "memory");
+}
+
 // ---- host: tensor maps ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -295,6 +394,21 @@ inline bool tensor_map3(CUtensorMap* m, const void* base, unsigned long long d0,
   const cuuint32_t box[3] = {64, b1, b2};
   const cuuint32_t step[3] = {1, 1, 1};
   return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a map of a bf16 array [d1][d0] whose box is (64, b1) elements, with the
+// 128-byte swizzle; boxes past an edge read zeros
+inline bool tensor_map2(CUtensorMap* m, const void* base, unsigned long long d0,
+                        unsigned long long d1, unsigned b1) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || base == nullptr) return false;
+  const cuuint64_t dims[2] = {d0, d1};
+  const cuuint64_t strides[1] = {d0 * 2};
+  const cuuint32_t box[2] = {64, b1};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

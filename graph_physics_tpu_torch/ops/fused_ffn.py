@@ -15,11 +15,14 @@ the 192-wide middle in registers. The backward
 (``csrc/fused_ffn_bwd.cu``, 64-row tiles) runs eight: it recomputes the
 rows from x, gives dx, and keeps each block's sums of the eight parameter
 gradients, which a second kernel adds in block order. At H = 128 (the
-panels workload) the weights no longer fit a block's shared memory, so
-they stream through it in chunks of 64 middle columns
-(``csrc/fused_ffn128.cu``), and the backward (``csrc/fused_ffn128_bwd.cu``)
-writes ga1, ga2, gmid and n to a scratch from which a second pass forms
-the weight gradients as tensor-core products over the rows. At H = 32 and
+panels workload) the weights no longer fit a block's shared memory: the
+forward (``csrc/fused_ffn128.cu``) streams them through it in slices of
+64 middle columns beside warpgroup products, and the backward
+(``csrc/fused_ffn128_bwd.cu``) runs in clusters of six blocks, each
+owning a slice of the middle and its weights, that add their parts of
+the cotangent through each other's shared memory and keep their slices
+of the weight gradients in registers, so no scratch of the middle goes
+to device memory. At H = 32 and
 below (``csrc/fused_ffn_small.cu``, ``fused_ffn_small_bwd.cu`` on
 ``csrc/ffn_small.cuh``, one library a width) the products run on tiles
 zero-padded to the tensor cores' 16-wide steps, the elementwise work a
@@ -61,9 +64,9 @@ _ARGTYPES = {
     "ffn": {"ffn_fwd": [_vp, _vp, ctypes.c_longlong] + [_vp] * 8 + [_i, _vp]},
     "ffn_bwd": {"ffn_bwd": [_vp] * 5 + [ctypes.c_longlong] + [_vp] * 8 + [_i, _i, _vp]},
     "ffn128": {"ffn128_fwd": [_vp] * 3 + [ctypes.c_longlong] + [_vp] * 8 + [_i, _vp],
-               "ffn128_fwd_stage": []},
-    "ffn128_bwd": {"ffn128_bwd": [_vp] * 11 + [ctypes.c_longlong] + [_vp] * 7 + [_i] * 3 + [_vp],
-                   "ffn128_bwd_sizes": [_i]},
+               "ffn128_fwd_image_bytes": []},
+    "ffn128_bwd": {"ffn128_bwd": [_vp] * 6 + [ctypes.c_longlong] + [_vp] * 7 + [_i] * 2 + [_vp],
+                   "ffn128_bwd_sizes": [_i], "ffn128_bwd_clusters": [ctypes.c_longlong]},
 }
 for _h in SMALL_HIDDENS:
     _ARGTYPES[f"ffn_small{_h}"] = {"ffn_small_fwd": _ARGTYPES["ffn"]["ffn_fwd"]}
@@ -121,13 +124,13 @@ def _launch_fwd(x, block, norm2):
 
 
 def _launch_fwd128(x, block, norm2):
-    """The hidden-128 forward: its first kernel stages the weights as bf16
-    chunks in ``wst``."""
+    """The hidden-128 forward: its first kernel packs the weights into the
+    bf16 image ``img`` that the second streams through shared memory."""
     lib = kernel_build.load("ffn128", _ARGTYPES["ffn128"])
     y = torch.empty_like(x)
-    wst = torch.empty(lib.ffn128_fwd_stage(), dtype=torch.bfloat16, device=x.device)
+    img = torch.empty(lib.ffn128_fwd_image_bytes(), dtype=torch.uint8, device=x.device)
     err = lib.ffn128_fwd(
-        x.data_ptr(), y.data_ptr(), wst.data_ptr(), x.shape[0] * x.shape[1],
+        x.data_ptr(), y.data_ptr(), img.data_ptr(), x.shape[0] * x.shape[1],
         *[p.data_ptr() for p in _params(block, norm2)], int(block.gated.use_silu), _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_gated_ffn (hidden 128) launch failed with CUDA error {err}")
@@ -166,36 +169,32 @@ def _launch_bwd(x, block, norm2, g_out):
 
 
 def _launch_bwd128(x, block, norm2, g_out):
-    """The hidden-128 backward: the row pass writes ga1, ga2, gmid and n to
-    a bf16 scratch, the weight-gradient pass forms dW1, dW2, dW3 from it,
-    and a last kernel adds both passes' partials in a fixed order."""
+    """The hidden-128 backward: the weights packed into a bf16 image, one
+    launch of clusters that each own a tile of rows at a time and write
+    their sums of the gradients as partials, and a last kernel that adds
+    the clusters' partials in order."""
     lib = kernel_build.load("ffn128_bwd", _ARGTYPES["ffn128_bwd"])
-    h, w = x.shape[-1], 3 * x.shape[-1]
     rows = x.shape[0] * x.shape[1]
     dev = x.device
-    parts = torch.cuda.get_device_properties(dev).multi_processor_count
-    # row splits of the weight-gradient pass: a fixed function of the card,
-    # so two calls sum in the same order; about two of the pass's blocks
-    # (9 a split: 3 products x 3 middle slices) an SM
-    splits = max(1, 2 * parts // 9)
+    with torch.cuda.device(dev):
+        clusters = lib.ffn128_bwd_clusters(rows)
+    if clusters < 1:
+        raise RuntimeError(f"fused_gated_ffn (hidden 128) backward: no cluster fits the card "
+                           f"(CUDA error {-clusters})")
     dx = torch.empty_like(x)
-    wst = torch.empty(lib.ffn128_bwd_sizes(0), dtype=torch.bfloat16, device=dev)
-    mids = torch.empty((3, rows, w), dtype=torch.bfloat16, device=dev)  # ga1, ga2, gmid
-    n = torch.empty((rows, h), dtype=torch.bfloat16, device=dev)
-    part_a = torch.empty((parts, lib.ffn128_bwd_sizes(1)), dtype=torch.float32, device=dev)
-    part_b = torch.empty((splits, lib.ffn128_bwd_sizes(2)), dtype=torch.float32, device=dev)
-    grads = torch.empty(lib.ffn128_bwd_sizes(3), dtype=torch.float32, device=dev)
+    img = torch.empty(lib.ffn128_bwd_sizes(0), dtype=torch.uint8, device=dev)
+    part = torch.empty((clusters, lib.ffn128_bwd_sizes(1)), dtype=torch.float32, device=dev)
+    grads = torch.empty(lib.ffn128_bwd_sizes(2), dtype=torch.float32, device=dev)
     params = _params(block, norm2)
     err = lib.ffn128_bwd(
-        x.data_ptr(), g_out.data_ptr(), dx.data_ptr(), wst.data_ptr(), mids[0].data_ptr(),
-        mids[1].data_ptr(), mids[2].data_ptr(), n.data_ptr(), part_a.data_ptr(),
-        part_b.data_ptr(), grads.data_ptr(), rows, *[p.data_ptr() for p in params[:7]],
-        int(block.gated.use_silu), parts, splits, _stream(x))
+        x.data_ptr(), g_out.data_ptr(), dx.data_ptr(), img.data_ptr(), part.data_ptr(),
+        grads.data_ptr(), rows, *[p.data_ptr() for p in params[:7]],
+        int(block.gated.use_silu), clusters, _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_gated_ffn (hidden 128) backward launch failed with CUDA "
                            f"error {err}")
     fused_gated_ffn.backward_launches += 1
-    return dx, _named_grads(grads, h)
+    return dx, _named_grads(grads, x.shape[-1])
 
 
 class _FusedGatedFFN(torch.autograd.Function):

@@ -41,8 +41,8 @@ LIBRARIES = {
     "edge_attention_nk_bwd": ("fused_edge_attention_nk_bwd.cu", _EA_BWD),
     "ffn": ("fused_ffn.cu", _FFN),
     "ffn_bwd": ("fused_ffn_bwd.cu", _FFN),
-    "ffn128": ("fused_ffn128.cu", ("ffn_wide.cuh", *_FFN)),
-    "ffn128_bwd": ("fused_ffn128_bwd.cu", ("ffn_wide.cuh", *_FFN)),
+    "ffn128": ("fused_ffn128.cu", ("ffn_wide.cuh", "wgmma_common.cuh", *_FFN)),
+    "ffn128_bwd": ("fused_ffn128_bwd.cu", ("ffn_wide.cuh", "wgmma_common.cuh", *_FFN)),
     "gn_csr_fwd": ("fused_gnblock_csr.cu", _GN_FWD),
     "gn_csr_bwd": ("fused_gnblock_csr_bwd.cu", _GN_BWD),
     "edge_attention_csr": ("fused_edge_attention_csr.cu", _EA_FWD),

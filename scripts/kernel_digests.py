@@ -27,7 +27,8 @@ H100 80GB HBM3 (132 SMs): the attention's and the FFN's at hidden 64 and
 128 from the tree before the kernels took every head width and hidden
 width dividing 128, the others from the tree before the GraphNetBlock
 kernels took every width and activation, but ``gn_csr_h128_middle``, from
-the tree of the hidden-64/128 kernels' wgmma redesign; ``chip_smoke.py`` and
+the tree of the hidden-64/128 kernels' wgmma redesign, and ``ffn_h128``,
+from the tree of the hidden-128 FFN kernels' wgmma redesign; ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` hold this tree's digests to them. Imports
 nothing of JAX.
 """
@@ -53,6 +54,13 @@ ROOT = Path(__file__).resolve().parents[1]
 #: moved one of its bf16-rounded gradients; the products keep the
 #: tensor cores' k16 order, so the other hidden-64/128 cases kept their
 #: digests, and the hidden-32-and-below instances are the parent's code.
+#: ``ffn_h128`` is the hidden-128 FFN kernels' wgmma redesign's (run on its
+#: tree): the forward's y and the backward's g_h and weight gradients add
+#: their fp32 terms in the wgmma tiles' k16 order over another split of
+#: the middle (slices of 64 columns; the backward's six shares of g_h added
+#: in rank order, its weight gradients summed over each of 16 clusters'
+#: tiles, then the clusters in order), and the RMS norms' row sums over
+#: four chains a lane; every bf16 rounding point is the parent's.
 RECORDED = {
     132: {
         "attention_nk_dh16":
@@ -82,7 +90,7 @@ RECORDED = {
         "ffn_h64":
             "e49481239940f8edfd92bf3b7665726c939d7c1b1c0ae2d0f948d9ff03add18f",
         "ffn_h128":
-            "1ff2afe1f46f249cc405a9a6fd1584687c36f30fa411c6c6746dc691009d690f",
+            "150d174bd62851842ebaf39bacdb28f0500390bc2a8cf43c0f285011d9ba7d61",
         "gn_nk_h32_folded":
             "b514ac1c6efbdf88ccadce72c866470c57d5fa616bc529ac3b9d78e8d067fbd5",
         "gn_nk_h32_middle":

@@ -70,8 +70,8 @@ GROUPS = (
     ("attention backward kernels (ea_nk_bwd)", ("ea_nk_bwd",)),
     ("CSR attention kernel (ea_csr_fwd)", ("ea_csr_fwd",)),
     ("CSR attention backward kernels (ea_csr_bwd)", ("ea_csr_bwd",)),
-    ("gated FFN h128 backward kernels (ffn128_bwd, ffn128_wgrad)", ("ffn128_bwd", "ffn128_wgrad")),
-    ("gated FFN h128 kernels (ffn128_fwd, ffn128_stage)", ("ffn128_",)),
+    ("gated FFN h128 backward kernels (ffn128_bwd_kernel, _pack, _sum)", ("ffn128_bwd",)),
+    ("gated FFN h128 kernels (ffn128_fwd_kernel, _pack)", ("ffn128_fwd",)),
     ("wide GraphNetBlock forward, edge and node passes (gnw*_edge_fwd, node_fwd)",
      ("_edge_fwd", "_node_fwd")),
     ("wide GraphNetBlock backward, row pass (gnw*_row_bwd)", ("_row_bwd",)),

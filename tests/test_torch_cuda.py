@@ -26,7 +26,10 @@ slots (a masked slot's e_out is its e_in, bit for bit); both, and the
 gated-FFN forward and backward (also at a row count that is not a
 multiple of their 128- and 64-row tiles), give the same bits on two
 calls; so do their hidden-128 instances, held against the plain versions
-at 1,920 x 8 rows and at a ragged 1,001 x 3. The CSR
+at 1, 63, 64, 65, 1,001 x 3 and 1,920 x 8 rows with either activation
+(fewer and more of the backward's 64-row tiles than its clusters), the
+backward allocating less than one [rows, 3H] bf16 array at panels'
+shape. The CSR
 GraphNetBlock forward and backward are also held on a hub mesh (a
 receiver of in-degree 150, receivers with no row or only masked rows,
 node N-1 owning rows) at partial 16-sample tiles, and give the same bits
@@ -717,13 +720,20 @@ def test_ffn_kernel_is_bit_identical_across_calls(cuda_device):
 FFN_GRAD_NAMES = ["dx", "norm2.scale", "norm.scale", "W1", "b1", "W2", "b2", "W3", "b3"]
 
 
+#: the hidden-128 kernels' row counts as [nodes, batch]: 1, 63, 64 and 65
+#: rows (one or two of the backward's 64-row tiles, fewer tiles than its
+#: clusters and than the forward's blocks), 1,001 x 3 (ragged, more tiles
+#: than clusters) and 1,920 x 8
+FFN128_SHAPES = [(1, 1), (63, 1), (32, 2), (13, 5), (1001, 3), (1920, 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nodes,batch", [(1920, 8), (1001, 3)])
+@pytest.mark.parametrize("nodes,batch", FFN128_SHAPES)
 @pytest.mark.parametrize("use_silu", [False, True])
 def test_ffn128_kernel_matches_plain_version(cuda_device, nodes, batch, use_silu):
-    """The hidden-128 forward (panels' width, weights streamed in chunks of
-    64 middle columns): 1,920 x 8 rows, and 1,001 x 3, whose last 128-row
-    tile is ragged. Bound: rtol = atol = 0.05."""
+    """The hidden-128 forward (panels' width, weights streamed in slices of
+    64 middle columns, 128-row tiles on two warpgroups) at every row count
+    of FFN128_SHAPES. Bound: rtol = atol = 0.05."""
     block, norm2, x, _ = _ffn_case(cuda_device, nodes, batch, use_silu, seed=20, hidden=128)
     with torch.no_grad():
         before = fused_gated_ffn.launches
@@ -735,12 +745,12 @@ def test_ffn128_kernel_matches_plain_version(cuda_device, nodes, batch, use_silu
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nodes,batch", [(1920, 8), (1001, 3)])
+@pytest.mark.parametrize("nodes,batch", FFN128_SHAPES)
 @pytest.mark.parametrize("use_silu", [False, True])
 def test_ffn128_backward_kernel_matches_plain_backward(cuda_device, nodes, batch, use_silu):
-    """The hidden-128 backward (row pass, weight-gradient pass, ordered sum)
-    against the plain backward, both against fp32 autograd, at a row count
-    that fills the tiles and at one (1,001 x 3) that does not. Bounds:
+    """The hidden-128 backward (clusters of six blocks over 64-row tiles,
+    their partials added in order) against the plain backward, both
+    against fp32 autograd, at every row count of FFN128_SHAPES. Bounds:
     utils/gradcheck.py."""
     block, norm2, x, cot = _ffn_case(cuda_device, nodes, batch, use_silu, seed=21, hidden=128)
 
@@ -759,10 +769,11 @@ def test_ffn128_backward_kernel_matches_plain_backward(cuda_device, nodes, batch
 
 
 @pytest.mark.cuda
-def test_ffn128_kernels_are_bit_identical_across_calls(cuda_device):
+@pytest.mark.parametrize("nodes,batch", [(1001, 3), (65, 1), (1920, 8)])
+def test_ffn128_kernels_are_bit_identical_across_calls(cuda_device, nodes, batch):
     """Fixed sum orders in both hidden-128 kernels, the backward's partials
     added in a fixed order: y, dx and every gradient the same on two calls."""
-    block, norm2, x, cot = _ffn_case(cuda_device, 1001, 3, False, seed=22, hidden=128)
+    block, norm2, x, cot = _ffn_case(cuda_device, nodes, batch, False, seed=22, hidden=128)
     params = ffn_ops._params(block, norm2)
     outs = []
     for _ in range(2):
@@ -772,6 +783,26 @@ def test_ffn128_kernels_are_bit_identical_across_calls(cuda_device):
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ffn128_backward_keeps_the_middle_out_of_device_memory(cuda_device):
+    """At panels' shape (1,920 x 64 rows) a backward call allocates, beyond
+    what it is given, less than one bf16 [rows, 3H] array: dx, the
+    clusters' partials, the packed weights and the gradients, and no
+    scratch of ga1, ga2 or the gated middle."""
+    block, norm2, x, cot = _ffn_case(cuda_device, 1920, 64, False, seed=23, hidden=128)
+    rows = x.shape[0] * x.shape[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = fused_gated_ffn.backward_launches
+    dx, grads = ffn_ops.KERNELS[1](x, block, norm2, cot)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert fused_gated_ffn.backward_launches == before + 1
+    assert dx.shape == x.shape and torch.isfinite(dx.float()).all()
+    assert dx.numel() * 2 <= peak < rows * 3 * 128 * 2, peak
 
 
 @pytest.mark.cuda
